@@ -1,6 +1,7 @@
-"""Request/response structs of the serving path, copied from
+"""Request/response structs of the serving path and the trainer's
+``FinetuneSpec`` / ``WeightUpdateMeta``, copied from
 ``areal_tpu/api/io_struct.py`` (plain lists on the host; tensors live only
-inside the engine)."""
+inside the engines)."""
 
 from __future__ import annotations
 
@@ -98,3 +99,36 @@ class ModelResponse:
     @property
     def output_len(self) -> int:
         return len(self.output_tokens)
+
+
+@dataclasses.dataclass
+class WeightUpdateMeta:
+    """How trainer weights reach the decode engine. Only ``type="mem"`` is
+    ported: the train engine hands its exported state dict to the connected
+    ``DecodeEngine.update_weights_from_params`` in process. "disk" (write a
+    checkpoint, servers reload it) raises ``NotImplementedError``; the
+    default is "mem" for that reason (the JAX package defaults to "disk")."""
+
+    type: str = "mem"
+    path: str | None = None
+    with_version: bool = True
+    alloc_mode: Any | None = None
+    chunked_mem_mb: int = 128
+    lora_only: bool = False
+    lora_scale: float = 0.0
+    wire_format: str = "bf16"
+
+
+@dataclasses.dataclass
+class FinetuneSpec:
+    total_train_epochs: int
+    dataset_size: int
+    train_batch_size: int
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(1, self.dataset_size // self.train_batch_size)
+
+    @property
+    def total_train_steps(self) -> int:
+        return self.total_train_epochs * self.steps_per_epoch

@@ -35,7 +35,6 @@ compiled sizes: a group pads to its longest prompt.
 from __future__ import annotations
 
 import logging
-import math
 import queue
 import threading
 import time
@@ -52,23 +51,13 @@ from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse, StopReaso
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
 from areal_tpu_torch.models import qwen
+from areal_tpu_torch.utils.data import round_up_to_bucket
 
 logger = logging.getLogger("areal_tpu_torch.decode_engine")
 
 _MAX_STOP = 8  # stop-token-id slots per request (padded with -1)
 _TOPK_CAP = 1024  # static candidate-set size for per-slot top-k/top-p
 _PREFILL_SIZES = (8, 4, 2, 1)  # batched-prefill group sizes
-
-
-def round_up_to_bucket(n: int, bucket_step: int = 512) -> int:
-    """Round a token count up to step * 2^k or step * 3 * 2^k (copy of
-    ``areal_tpu/utils/data.py:round_up_to_bucket``)."""
-    if n <= bucket_step:
-        return bucket_step
-    k = math.ceil(math.log2(n / bucket_step))
-    cands = [bucket_step * (2**k), bucket_step * 3 * (2 ** max(0, k - 2))]
-    cands = [c for c in cands if c >= n]
-    return min(cands) if cands else bucket_step * (2**k)
 
 
 @dataclass
@@ -246,11 +235,11 @@ class DecodeEngine:
         (ROADMAP.md Queue A)."""
         if cfg.enable_prefix_caching and cfg.prefix_cache.enabled:
             raise NotImplementedError(
-                "radix prefix cache: ROADMAP Queue A slice 2 (set "
+                "radix prefix cache: ROADMAP Queue A slice 3 (set "
                 "enable_prefix_caching=False)"
             )
         if cfg.speculative.enabled:
-            raise NotImplementedError("speculative decoding: ROADMAP Queue A slice 2")
+            raise NotImplementedError("speculative decoding: ROADMAP Queue A slice 3")
         if cfg.quantization not in (None, "", "none"):
             raise NotImplementedError(
                 f"quantization={cfg.quantization!r}: ROADMAP Queue A, LoRA / int8 weights"

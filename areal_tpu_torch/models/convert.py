@@ -10,6 +10,11 @@ PyTorch's ``[out, in]``, and the tied ``embed`` kept as the LM head.
 numpy has no bfloat16 of its own: a bf16 array (whatever package made its
 dtype) crosses as its 16 raw bits, and ``to_jax_params`` hands bf16 tensors
 back as float32, which holds every bf16 value exactly.
+
+Both directions serve the train engine's f32 master parameters too:
+``from_jax_params`` gives the state dict ``TorchTrainEngine.model`` loads
+(f32 leaves stay f32), and ``to_jax_params`` of its state dict copies every
+leaf, so the result does not move with later optimizer steps.
 """
 
 from __future__ import annotations
@@ -31,10 +36,13 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy: ``.numpy()`` of a CPU tensor shares its storage, so a view of
+    a live parameter (the trainer's f32 master weights) would change under
+    the caller at the next optimizer step."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.numpy()
+    return np.array(t.numpy(), copy=True)
 
 
 def from_jax_params(params: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:

@@ -10,20 +10,35 @@ Projection weights use PyTorch's ``[out, in]`` layout (``F.linear``);
 Forward functions take the model and mirror the JAX functions of the same
 name, including where bf16 rounds: ``_rms_norm`` casts to the input dtype
 before the weight multiply, ``_rope`` computes in f32 and casts at the end,
-``compute_logits`` returns f32.
+``compute_logits`` returns f32 (the serving logits: a bf16 product with an
+f32 result), while ``chunked_logprobs_entropy`` rounds the training logits
+to bf16 before the f32 cast, as the JAX einsum does.
+
+Training: the train engine keeps f32 master parameters in a ``QwenModel``
+and runs ``forward`` on ``ParamView(model, compute_dtype)``, a differentiable
+cast of them (``_outputs_fn`` of the JAX engine).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
-from areal_tpu_torch.ops.attention import sdpa_plain
+from areal_tpu_torch.ops.attention import (
+    attention_mask as _attention_mask,
+    flash_fwd,
+    flash_train,
+    resolve_impl,
+    sdpa_plain,
+)
 from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -44,6 +59,12 @@ class ModelConfig:
     qk_norm: bool = False  # Qwen3
     attention_bias: bool = True  # Qwen2 has q/k/v bias
     dtype: str = "bfloat16"
+    # training: per-layer recompute in the backward ("nothing" saved) or
+    # none ("everything" saved); the train engine sets these three from
+    # TrainEngineConfig
+    remat: bool = True
+    remat_policy: str = "nothing"
+    attn_impl: str = "xla"  # "pallas": flash kernels; "xla": sdpa_plain
 
     @property
     def head_dim_(self) -> int:
@@ -180,17 +201,6 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _attention_mask(segment_ids: torch.Tensor) -> torch.Tensor:
-    """[G, L] segment ids (0 = pad) -> [G, 1, L, L] bool mask, causal by
-    row position within the same segment."""
-    L = segment_ids.shape[-1]
-    idx = torch.arange(L, device=segment_ids.device)
-    causal = idx[:, None] >= idx[None, :]
-    same_seg = segment_ids[:, :, None] == segment_ids[:, None, :]
-    not_pad = (segment_ids != 0)[:, :, None]
-    return (causal[None] & same_seg & not_pad)[:, None]
-
-
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ W for a dense [out, in] weight (LoRA / int8 weights: later)."""
     return F.linear(x, w)
@@ -234,6 +244,144 @@ def compute_logits(model: QwenModel, hidden: torch.Tensor) -> torch.Tensor:
     else:
         out = h.float() @ w.float().t()
     return out.reshape(*lead, w.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# training forward over packed [G, L] grids
+# ---------------------------------------------------------------------------
+
+
+class ParamView:
+    """The parameters of a ``QwenModel`` cast to ``cfg.dtype`` (the compute
+    dtype), with the attribute layout the forward functions read (``cfg``,
+    ``embed``, ``layers[i].<name>``, ``final_norm``, ``lm_head_weight``).
+    The casts are differentiable, so gradients reach the (f32 master)
+    parameters; a cast to the parameters' own dtype is the parameter
+    itself. ``cfg`` also carries the training switches (``attn_impl``,
+    ``remat``)."""
+
+    def __init__(self, model: QwenModel, cfg: ModelConfig):
+        dt = cfg.torch_dtype
+        self.cfg = cfg
+        self.embed = model.embed.to(dt)
+        self.layers = [
+            SimpleNamespace(**{n: p.to(dt) for n, p in layer.named_parameters()})
+            for layer in model.layers
+        ]
+        self.final_norm = model.final_norm.to(dt)
+        self.lm_head_weight = (
+            self.embed if model.cfg.tie_word_embeddings else model.lm_head.to(dt)
+        )
+
+
+def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: bool):
+    """One transformer block over x [G, L, D] (models/qwen.py:595). ``mask``
+    is the segment ids for the flash kernels, the [G, 1, L, L] bool mask for
+    ``sdpa_plain``."""
+    G, L, _ = x.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q, k, v = _qkv(cfg, layer, x, rope)
+    if KH != H:
+        k = k.repeat_interleave(H // KH, dim=2)
+        v = v.repeat_interleave(H // KH, dim=2)
+    if impl == "pallas":
+        attn_fn = flash_fwd if no_grad else flash_train
+        attn = attn_fn(q, k, v, mask)
+    else:
+        attn = sdpa_plain(q, k, v, mask, hd)
+    x = x + _proj(attn.reshape(G, L, H * hd), layer.wo)
+    h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
+    return x + _ffn(h, layer)
+
+
+def forward(
+    model,  # QwenModel or ParamView
+    input_ids: torch.Tensor,  # [G, L]
+    segment_ids: torch.Tensor,  # [G, L] int32, 0 = padding
+    positions: torch.Tensor,  # [G, L], restarting per segment
+    no_grad: bool = False,
+) -> torch.Tensor:
+    """Decoder body -> final hidden states [G, L, D] (models/qwen.py:679).
+    ``cfg.attn_impl`` picks the attention: "pallas" runs ``flash_train``
+    (``flash_fwd`` when ``no_grad``), "xla" the plain masked softmax. With
+    ``cfg.remat`` and policy "nothing" each layer runs under
+    ``torch.utils.checkpoint`` while gradients are on."""
+    cfg = model.cfg
+    impl = resolve_impl(cfg.attn_impl)
+    if cfg.remat and cfg.remat_policy not in ("nothing", "everything"):
+        if cfg.remat_policy == "dots_nobatch":
+            raise NotImplementedError("remat_policy='dots_nobatch': ROADMAP Queue A, trainer")
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}; valid: nothing, everything")
+    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
+    mask = segment_ids.to(torch.int32).contiguous() if impl == "pallas" else _attention_mask(segment_ids)
+    rope = _rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
+    recompute = (
+        cfg.remat and cfg.remat_policy == "nothing" and not no_grad and torch.is_grad_enabled()
+    )
+    for layer in model.layers:
+        if recompute:
+            x = checkpoint(
+                _decoder_layer, cfg, layer, x, mask, rope, impl, no_grad, use_reentrant=False
+            )
+        else:
+            x = _decoder_layer(cfg, layer, x, mask, rope, impl, no_grad)
+    return _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+
+
+def _logprob_entropy_chunk(h, y, w, temperature: float):
+    """One chunk of ``chunked_logprobs_entropy``: the logits round to the
+    weight dtype (a bf16 product with a bf16 result, then f32, as
+    ``jnp.einsum("td,vd->tv", h, w).astype(f32)``), then log p(label) and
+    the entropy."""
+    logits = (h @ w.t()).float()
+    if temperature != 1.0:
+        logits = logits / temperature
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(1, y[:, None].long())[:, 0]
+    probs = torch.softmax(logits, dim=-1)
+    ent = lse - (probs * logits).sum(dim=-1)
+    return label_logit - lse, ent
+
+
+def chunked_logprobs_entropy(
+    model,  # QwenModel or ParamView
+    hidden: torch.Tensor,  # [G, L, D]
+    labels: torch.Tensor,  # [G, L] next-token ids
+    chunk_size: int = 1024,
+    temperature: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """log p(label) and entropy per position [G, L] without holding [T, V]
+    logits: tokens go in chunks, each recomputed in the backward
+    (models/qwen.py:762)."""
+    G, L, D = hidden.shape
+    w = model.lm_head_weight
+    T = G * L
+    flat_h = hidden.reshape(T, D).to(w.dtype)
+    flat_y = labels.reshape(T)
+    grad = torch.is_grad_enabled() and (flat_h.requires_grad or w.requires_grad)
+    logps, ents = [], []
+    for s in range(0, T, chunk_size):
+        h, y = flat_h[s : s + chunk_size], flat_y[s : s + chunk_size]
+        if grad:
+            lp, ent = checkpoint(_logprob_entropy_chunk, h, y, w, temperature, use_reentrant=False)
+        else:
+            lp, ent = _logprob_entropy_chunk(h, y, w, temperature)
+        logps.append(lp)
+        ents.append(ent)
+    return torch.cat(logps).reshape(G, L), torch.cat(ents).reshape(G, L)
+
+
+def make_causal_inputs(
+    input_ids: np.ndarray, segment_ids: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Labels and label validity for next-token prediction on packed rows:
+    position t predicts token t+1 of the same segment; the last token of
+    each segment (and padding) is masked out (models/qwen.py:866)."""
+    labels = np.roll(input_ids, -1, axis=-1)
+    next_seg = np.roll(segment_ids, -1, axis=-1)
+    next_seg[..., -1] = 0
+    valid = (segment_ids != 0) & (segment_ids == next_seg)
+    return labels, valid
 
 
 # ---------------------------------------------------------------------------

@@ -100,3 +100,99 @@ def test_kernel_refuses_bad_arguments(cuda):
     q2, k2, v2, l2, pt2, _ = _case(cuda, 4, 12, 2, 128, 10, 2, torch.bfloat16, None)
     with pytest.raises(ValueError, match="multiple of 4"):
         paged_attention_stacked(q2, k2, v2, 0, l2, pt2)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: K2 (forward), K3 (dK, dV), K4 (dQ)
+# ---------------------------------------------------------------------------
+
+from areal_tpu_torch.ops import attention as fa  # noqa: E402
+
+# bf16 inputs, element by element on valid rows: |kernel - plain| <=
+# FLASH_RTOL |plain| + FLASH_ATOL rms(plain). The plain versions keep S, dP
+# and every sum in f32 (the backward's rounds P and dS to bf16 where the
+# kernels feed the tensor cores), leaving the kernels' bf16 output rounding
+# (2^-8 relative) and summation order: two bf16 steps relative, and for
+# sums that cancel to near zero 2^-5 of the RMS, which the kernels need
+# ~1e-2 of and S or dP rounded to bf16 ~1e-1 of (chip_smoke.py's reading)
+FLASH_RTOL = 2**-7
+FLASH_ATOL = 2**-5
+
+
+def _assert_flash_close(got, ref, valid):
+    g, r = got.float()[valid], ref.float()[valid]
+    limit = FLASH_RTOL * r.abs() + FLASH_ATOL * r.pow(2).mean().sqrt()
+    excess = ((g - r).abs() / limit).max().item()
+    assert excess <= 1.0, f"worst element at {excess:.3f} x the limit"
+
+
+def _flash_case(dev, G, L, H, hd, layout, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    seg = torch.zeros((G, L), dtype=torch.int32)
+    for r, lens in enumerate(layout):
+        c = 0
+        for j, n in enumerate(lens):
+            seg[r, c : c + n] = j + 1
+            c += n
+    q, k, v, dout = (torch.randn((G, L, H, hd), generator=g).to(torch.bfloat16) for _ in range(4))
+    dout = dout * (seg != 0)[:, :, None, None]
+    return [t.to(dev) for t in (q, k, v, dout, seg)]
+
+
+FLASH_SHAPES = {
+    "qwen2.5-1.5b-heads": (2, 1024, 12, 128, [[300, 500, 200], [1000]]),
+    "ragged-L-hd64": (3, 200, 4, 64, [[130, 5, 1, 40], [200], [17]]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FLASH_SHAPES))
+def test_flash_kernels_match_plain(cuda, shape):
+    G, L, H, hd, layout = FLASH_SHAPES[shape]
+    q, k, v, dout, seg = _flash_case(cuda, G, L, H, hd, layout)
+    n0 = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(), seg)
+    valid = seg != 0
+    torch.cuda.synchronize()
+    _assert_flash_close(out, ref_out, valid)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3  # f32 row statistics
+    assert torch.count_nonzero(out[~valid]) == 0 and torch.count_nonzero(lse[~valid]) == 0
+    di = (dout.float() * out.float()).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
+    dq = fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di)
+    want = fa.flash_attention_bwd_plain(q, k, v, seg, dout, lse, di, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        _assert_flash_close(got, ref, valid)
+    n1 = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches)
+    assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_flash_train_autograd_and_determinism(cuda):
+    G, L, H, hd, layout = FLASH_SHAPES["ragged-L-hd64"]
+    q, k, v, dout, seg = _flash_case(cuda, G, L, H, hd, layout, seed=1)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_train(*leaves, seg)
+        (out.float() * dout.float()).sum().backward()
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):  # a recompute under checkpointing reproduces it
+        assert torch.equal(a, b)
+    assert torch.equal(fa.flash_fwd(q, k, v, seg), grads[0][0])
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_bad_arguments(cuda):
+    q, k, v, _, seg = _flash_case(cuda, 1, 128, 2, 128, [[128]])
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.float(), k.float(), v.float(), seg, with_lse=False)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, k, v, seg.long(), with_lse=False)
+    q2, k2, v2, _, seg2 = _flash_case(cuda, 1, 128, 2, 96, [[128]])
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q2, k2, v2, seg2, with_lse=False)

@@ -6,6 +6,7 @@ import ast
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -86,3 +87,46 @@ def test_unported_options_refused(change):
     cfg = dataclasses.replace(ServerConfig(enable_prefix_caching=False), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(cfg, device="cpu")
+
+
+def test_trainer_refuses_without_card():
+    """The train engine, like every entry point, raises with no card and no
+    device="cpu"."""
+    from areal_tpu_torch.api.config import PPOActorConfig
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU refusal cannot be observed")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchTrainEngine(PPOActorConfig(), model_config=qwen.ModelConfig(num_layers=1))
+    TorchTrainEngine(PPOActorConfig(), model_config=qwen.ModelConfig(num_layers=1), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "change",
+    [
+        dict(tree_training=True),
+        dict(lora_rank=8),
+        dict(train_vision_tower=True),
+        dict(mesh=MeshConfig(fsdp=2)),
+        dict(weight_update_mode="disk"),
+        dict(attn_impl="ring"),
+        dict(value_head=True),
+        dict(remat_policy="dots_nobatch"),
+    ],
+    ids=["tree", "lora", "vision", "mesh", "disk-update", "ring", "critic", "remat-dots"],
+)
+def test_unported_trainer_options_refused(change):
+    from areal_tpu_torch.api.config import PPOActorConfig
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+
+    change = dict(change)
+    value_head = change.pop("value_head", False)
+    cfg = dataclasses.replace(PPOActorConfig(), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng = TorchTrainEngine(cfg, value_head=value_head, model_config=qwen.ModelConfig(
+            vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1, num_heads=2, num_kv_heads=1,
+        ), device="cpu")
+        # options read at the first forward (the remat policy)
+        eng.initialize()
+        eng.forward_batch({"input_ids": np.zeros((1, 4), np.int32), "attention_mask": np.ones((1, 4), bool)})
