@@ -2,8 +2,8 @@
 port's slices read, with the same names and defaults (one exception is
 marked below). No YAML loader: configs are built in code.
 
-- Serving: ``ServerConfig`` (and ``MeshConfig`` and the prefix-cache and
-  speculative sections). The weights' dtype is the model config's
+- Serving: ``ServerConfig`` (and ``MeshConfig``, ``PrefixCacheConfig`` and
+  ``SpeculativeConfig``). The weights' dtype is the model config's
   (``models/qwen.py:ModelConfig.dtype``).
 - Training: ``NormConfig``, ``OptimizerConfig``, ``TrainEngineConfig`` and
   ``PPOActorConfig``.
@@ -36,16 +36,54 @@ class MeshConfig:
 
 @dataclass
 class PrefixCacheConfig:
-    """Cross-request radix prefix cache (not ported yet)."""
+    """Cross-request radix prefix cache over the paged KV pool
+    (``inference/paged_kv.py RadixPrefixCache``): finished requests publish
+    their full pages; an admission aliases the longest cached page-aligned
+    prefix and prefills only the suffix."""
 
     enabled: bool = True
+    # hard cap on tree-held pages; None derives it from max_fraction
+    max_pages: int | None = None
+    # cap as a share of the page pool when max_pages is None
+    max_fraction: float = 0.5
+    # at a weight commit: "flush" drops the tree (its KV is stale under the
+    # new policy); "keep" retains it (the staleness ablation)
+    across_updates: str = "flush"
+
+    def __post_init__(self):
+        if self.across_updates not in ("flush", "keep"):
+            raise ValueError(
+                f"prefix_cache.across_updates must be 'flush' or 'keep', got {self.across_updates!r}"
+            )
 
 
 @dataclass
 class SpeculativeConfig:
-    """Speculative decoding on the paged engine (not ported yet)."""
+    """Speculative decoding on the paged engine: a host drafter proposes up
+    to ``spec_depth`` tokens per slot, one verify forward scores them all,
+    and the engine keeps the longest prefix its own sampler agrees with."""
 
     enabled: bool = False
+    drafter: str = "ngram"  # "ngram" chains | "tree" (tree_width chains merged)
+    spec_depth: int = 4  # draft tokens per chain per round
+    tree_width: int = 2  # tree drafter: chains merged into the tree
+    max_ngram: int = 4  # longest n-gram the prompt lookup tries
+    use_radix: bool = True  # also draft from the radix prefix cache
+
+    def __post_init__(self):
+        if self.drafter not in ("ngram", "tree"):
+            raise ValueError(f"speculative.drafter must be 'ngram' or 'tree', got {self.drafter!r}")
+        if self.spec_depth < 1:
+            raise ValueError("speculative.spec_depth must be >= 1")
+        if self.tree_width < 1:
+            raise ValueError("speculative.tree_width must be >= 1")
+        if self.max_ngram < 1:
+            raise ValueError("speculative.max_ngram must be >= 1")
+
+    def max_nodes(self) -> int:
+        """Verify width B: tree nodes per slot including the pending token."""
+        width = self.tree_width if self.drafter == "tree" else 1
+        return 1 + self.spec_depth * width
 
 
 @dataclass

@@ -20,16 +20,31 @@ The shape of the JAX engine is kept:
   chunks (in place, stream-ordered after the chunk in flight).
 - ``pause_generation`` (abort mode) ends every in-flight request with
   ``stop_reason="abort"`` and its partial tokens; the client resubmits.
+- Prefix sharing, as in the JAX engine's defaults: identical prompts of one
+  admission pass (a GRPO group's samples) prefill once and the others alias
+  the primary's full pages plus a private copy of the page holding row
+  ``plen-1`` (``_admit_duplicates``); finished requests publish their full
+  pages into the radix prefix cache (``paged_kv.RadixPrefixCache``), and an
+  admission whose prompt has a cached page-aligned prefix aliases those
+  pages and prefills only the suffix (``qwen.forward_prefill_paged``: the
+  chain-mask launch of kernel #3, ``ops/paged_suffix_attention.py``). The
+  tree is flushed at a weight commit under ``across_updates="flush"``.
+- Speculative decoding (``speculative.enabled``): a synchronous round per
+  loop pass — the host drafter proposes a token tree per slot, one verify
+  forward scores it (``qwen.forward_verify_paged``, the tree-mask launch of
+  kernel #3), the accept walk re-runs the sampler position by position,
+  only accepted-path rows write KV into real pages, and pages allocated
+  past the accepted tokens roll back to the pool.
 
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
-the radix prefix cache, speculative decoding, int8 weights, frequency
-penalty, image inputs, multi-device meshes and loading HF checkpoints.
-Also not ported: KV parking across an abort (resubmits re-prefill), GRPO
-duplicate-prompt page aliasing (duplicates prefill like any prompt), the
-hold fence, deadlines and the watchdog, and the observability surfaces.
+int8 weights, frequency penalty, image inputs, multi-device meshes and
+loading HF checkpoints. Also not ported: KV parking across an abort
+(resubmits re-prefill, now possibly through a radix hit), the autopilot's
+radix cap, the hold fence, deadlines and the watchdog, and the
+observability surfaces.
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
-compiled sizes: a group pads to its longest prompt.
+compiled sizes: a group pads to its longest prompt (or suffix).
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ from areal_tpu_torch.api import io_struct
 from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse, StopReason
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
+from areal_tpu_torch.inference import speculative as spec_mod
 from areal_tpu_torch.models import qwen
 from areal_tpu_torch.utils.data import round_up_to_bucket
 
@@ -223,23 +239,31 @@ class DecodeEngine:
             "prefill_batches": 0,
             "prefill_tokens": 0,
             "preempted": 0,
+            "prefix_cache_hits": 0,
+            "prefix_cache_misses": 0,
+            "prefix_hit_tokens": 0,
+            "prefix_shared": 0,
+            "spec_rounds": 0,
+            "spec_draft_tokens": 0,
+            "spec_accepted_tokens": 0,
+            "spec_rollback_pages": 0,
         }
-        # device-stream time of prefill batches and decode chunks, as CUDA
-        # event pairs read after the fact (never a sync on the hot loop)
+        # device-stream time of prefill batches, decode chunks and spec
+        # rounds, as CUDA event pairs read after the fact (never a sync on
+        # the hot loop)
         self._prefill_events: list[tuple] = []
         self._chunk_events: list[tuple] = []
+        self._spec_events: list[tuple] = []
+        self._radix: paged_kv.RadixPrefixCache | None = None  # built in initialize
+        self._radix_flush_req: tuple[threading.Event, list[int]] | None = None
+        # speculative decoding: non-None only while enabled
+        self._spec_cfg = None
+        self._drafter = None
 
     @staticmethod
     def _check_supported(cfg: ServerConfig) -> None:
         """Refuse the options whose code paths are later slices of the port
         (ROADMAP.md Queue A)."""
-        if cfg.enable_prefix_caching and cfg.prefix_cache.enabled:
-            raise NotImplementedError(
-                "radix prefix cache: ROADMAP Queue A slice 3 (set "
-                "enable_prefix_caching=False)"
-            )
-        if cfg.speculative.enabled:
-            raise NotImplementedError("speculative decoding: ROADMAP Queue A slice 3")
         if cfg.quantization not in (None, "", "none"):
             raise NotImplementedError(
                 f"quantization={cfg.quantization!r}: ROADMAP Queue A, LoRA / int8 weights"
@@ -293,6 +317,9 @@ class DecodeEngine:
         seed = cfg.seed if cfg.seed is not None else time.time_ns() % (2**31)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
+        if cfg.speculative.enabled:
+            self._spec_cfg = cfg.speculative
+            self._drafter = spec_mod.build_drafter(cfg.speculative, radix=self._radix)
         self.initialized = True
         logger.info(
             f"decode engine ready on {self.device}: {S} slots x {cfg.max_seq_len} ctx, "
@@ -324,7 +351,16 @@ class DecodeEngine:
             mcfg, n_pages, psz, quant=kv_quant, device=self.device
         )
         self._slot_pages: list[list[int]] = [[] for _ in range(S)]
+        # policy version each slot page's KV was computed under (parallel to
+        # _slot_pages): under the flush policy stale pages are never published
+        self._slot_page_versions: list[list[int]] = [[] for _ in range(S)]
         self._pt_host = np.zeros((S, self._maxp), np.int32)
+        pc = cfg.prefix_cache
+        if pc.enabled and cfg.enable_prefix_caching:
+            cap = pc.max_pages if pc.max_pages is not None else int((n_pages - 1) * pc.max_fraction)
+            self._radix = paged_kv.RadixPrefixCache(self.pool, psz, max(0, min(cap, n_pages - 1)))
+        else:
+            self._radix = None
 
     def start(self) -> None:
         if not self.initialized:
@@ -411,6 +447,11 @@ class DecodeEngine:
                 load_params(self.model, params)
                 if version is not None:
                     self._version = version
+                # KV cached under the old weights is stale: the default policy
+                # drops the tree (pages aliased by live slots survive until
+                # those slots free them); "keep" retains it
+                if self._radix is not None and self.config.prefix_cache.across_updates == "flush":
+                    self._radix.flush()
             except Exception as e:  # noqa: BLE001 — a bad payload fails that
                 # update (the waiter re-raises), not the decode loop
                 self._weight_update_error = e
@@ -423,10 +464,97 @@ class DecodeEngine:
     def get_version(self) -> int:
         return self._version
 
+    # -- prefix cache (cross-request radix reuse) --------------------------
+    def prefix_cache_stats(self) -> dict:
+        """Point-in-time radix-cache state (``decode_engine.py:1741``)."""
+        if self._radix is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "pages_held": self._radix.pages_held,
+            "max_pages": self._radix.max_pages,
+            "page_size": self.config.page_size,
+            **self._radix.stats,
+            # counted once per admitted request, not per backlog retry
+            "hits": self.stats["prefix_cache_hits"],
+            "misses": self.stats["prefix_cache_misses"],
+            "hit_tokens": self.stats["prefix_hit_tokens"],
+        }
+
+    def flush_prefix_cache(self, timeout: float = 10.0) -> int:
+        """Drop every radix-cached page (``POST /flush_prefix_cache``). The
+        tree belongs to the decode loop, so a running loop performs the flush
+        between chunks; this call only hands it the request. Returns the
+        pages dropped (0 on timeout or when the cache is off)."""
+        if self._radix is None:
+            return 0
+        if self._thread is None or not self._thread.is_alive():
+            return self._radix.flush()
+        with self._weight_lock:
+            req = self._radix_flush_req
+            if req is None:  # concurrent callers share one request
+                req = (threading.Event(), [])
+                self._radix_flush_req = req
+        ev, box = req
+        self._wakeup.set()
+        ev.wait(timeout)
+        return box[0] if box else 0
+
+    def _service_radix_flush(self) -> None:
+        with self._weight_lock:
+            req, self._radix_flush_req = self._radix_flush_req, None
+        if req is None:
+            return
+        ev, box = req
+        box.append(self._radix.flush() if self._radix is not None else 0)
+        ev.set()
+
+    def pool_audit(self) -> dict:
+        """Page accounting of the pool (call while no request is being
+        admitted or decoded): every allocated page's refcount equals the
+        number of live slots holding it plus one if the radix tree holds it,
+        and free + allocated == total. ``ok`` is that check."""
+        holders: dict[int, int] = {}
+        for pages in self._slot_pages:
+            for p in pages:
+                holders[p] = holders.get(p, 0) + 1
+        radix_pages = self._radix.pages() if self._radix is not None else []
+        for p in radix_pages:
+            holders[p] = holders.get(p, 0) + 1
+        rc = self.pool._rc
+        allocated = [p for p in range(1, self.pool.n_pages) if rc[p] > 0]
+        ok = (
+            all(int(rc[p]) == holders.get(p, 0) for p in range(1, self.pool.n_pages))
+            and self.pool.available + len(allocated) == self.pool.n_pages - 1
+        )
+        return {
+            "total": self.pool.n_pages - 1,
+            "free": self.pool.available,
+            "slot_pages": len({p for pages in self._slot_pages for p in pages}),
+            "radix_pages": len(radix_pages),
+            "ok": ok,
+        }
+
+    # -- speculative decoding ---------------------------------------------
+    def set_speculative(self, enabled: bool) -> None:
+        """Switch speculative decoding on or off from the next loop pass
+        (``decode_engine.py:3263``); a spec pass always drains the pipelined
+        chunk before its own round."""
+        spec = self.config.speculative
+        spec.enabled = bool(enabled)
+        if enabled:
+            self._drafter = spec_mod.build_drafter(spec, radix=self._radix)
+            self._spec_cfg = spec
+        else:
+            self._spec_cfg = None
+            self._drafter = None
+        self._wakeup.set()
+
     # -- timing (device stream) -------------------------------------------
     def device_seconds(self) -> dict:
-        """Summed device-stream seconds of prefill batches and decode chunks
-        recorded so far (CUDA only; synchronizes on the recorded events)."""
+        """Summed device-stream seconds of prefill batches, decode chunks and
+        speculative rounds recorded so far (CUDA only; synchronizes on the
+        recorded events)."""
         def total(evs):
             s = 0.0
             for e0, e1, _ in evs:
@@ -439,6 +567,8 @@ class DecodeEngine:
             "prefill_tokens": sum(n for _, _, n in self._prefill_events),
             "decode_s": total(self._chunk_events),
             "decode_steps": sum(n for _, _, n in self._chunk_events),
+            "spec_s": total(self._spec_events),
+            "spec_rounds": len(self._spec_events),
         }
 
     def _event_pair_start(self):
@@ -470,9 +600,12 @@ class DecodeEngine:
         return [i for i, t in enumerate(self._slot_task) if t is None]
 
     def _admit_pending(self) -> list[np.ndarray]:
-        """Admit backlog + queue into free slots; group prompts by length
-        bucket and batch-prefill them. Returns the slot-update rows."""
+        """Admit backlog + queue into free slots (``decode_engine.py:2492``):
+        identical prompts of this pass prefill once and alias (duplicates);
+        primaries with a radix-cached prefix prefill only their suffix; the
+        rest batch-prefill by length bucket. Returns the slot-update rows."""
         T = self.config.max_seq_len
+        psz = self.config.page_size
         rows: list[np.ndarray] = []
         to_prefill: list[tuple[_Task, int]] = []
         free = self._free_slots()
@@ -492,17 +625,216 @@ class DecodeEngine:
                 self._backlog.appendleft(task)  # all slots busy
                 break
             to_prefill.append((task, free.pop(0)))
-        by_bucket: dict[int, list[tuple[_Task, int]]] = {}
+
+        # identical prompts (a GRPO group's samples): the first prefills,
+        # the others alias its pages after it
+        primaries: list[tuple[_Task, int]] = []
+        dup_pairs: list[tuple[_Task, int, int]] = []  # (task, slot, src_slot)
+        first_slot: dict[tuple, int] = {}
         for task, slot in to_prefill:
+            key = tuple(task.req.input_ids)
+            if key in first_slot:
+                dup_pairs.append((task, slot, first_slot[key]))
+            else:
+                first_slot[key] = slot
+                primaries.append((task, slot))
+
+        cold: list[tuple[_Task, int]] = []
+        warm: list[tuple[_Task, int, list[int], list[int]]] = []
+        for task, slot in primaries:
+            m = self._radix_match(task)
+            if m is None:
+                cold.append((task, slot))
+            else:
+                warm.append((task, slot, *m))
+
+        def batched(groups: dict, run) -> None:
+            for _, group in sorted(groups.items()):
+                i = 0
+                while i < len(group):
+                    A = next(a for a in _PREFILL_SIZES if a <= len(group) - i)
+                    rows.extend(run(group[i : i + A]))
+                    i += A
+
+        by_bucket: dict[int, list] = {}
+        for task, slot in cold:
             bucket = min(T, round_up_to_bucket(len(task.req.input_ids), 256))
             by_bucket.setdefault(bucket, []).append((task, slot))
-        for _, group in sorted(by_bucket.items()):
-            i = 0
-            while i < len(group):
-                A = next(a for a in _PREFILL_SIZES if a <= len(group) - i)
-                rows.extend(self._prefill_group(group[i : i + A]))
-                i += A
+        batched(by_bucket, self._prefill_group)
+        # warm admissions group by SUFFIX bucket, the only tokens prefilled
+        warm_by_bucket: dict[int, list] = {}
+        for w in warm:
+            sfx = len(w[0].req.input_ids) - len(w[2]) * psz
+            warm_by_bucket.setdefault(min(T, round_up_to_bucket(sfx, 256)), []).append(w)
+        batched(warm_by_bucket, self._prefill_group_prefixed)
+        if dup_pairs:
+            rows.extend(self._admit_duplicates(dup_pairs))
         return rows
+
+    def _reclaim_pages(self, n: int) -> bool:
+        """Below the free pool: radix LRU leaves (any published page can be
+        re-created by a prefill). True when anything was freed."""
+        return self._radix is not None and self._radix.evict(n) > 0
+
+    def _alloc(self, n: int) -> list[int] | None:
+        pages = self.pool.alloc(n)
+        while pages is None and self._reclaim_pages(n):
+            pages = self.pool.alloc(n)
+        return pages
+
+    def _radix_match(self, task: _Task) -> tuple[list[int], list[int]] | None:
+        """Longest cached page-aligned prefix of a fresh admission
+        (``decode_engine.py:2603``), with the pool refs on the matched pages
+        taken at once (a task that backlogs later releases them). The page
+        holding row ``plen-1`` is never matched: the decode head writes
+        there, and aliased pages are immutable."""
+        if self._radix is None:
+            return None
+        ids = task.req.input_ids
+        pages, versions = self._radix.match(ids, max_pages=(len(ids) - 1) // self.config.page_size)
+        if not pages:
+            self.stats["prefix_cache_misses"] += 1
+            return None
+        self.pool.ref(pages)
+        return pages, versions
+
+    def _prefill_group_prefixed(
+        self, group: list[tuple[_Task, int, list[int], list[int]]]
+    ) -> list[np.ndarray]:
+        """Admit tasks whose prompt prefix is radix-cached
+        (``decode_engine.py:2625``): alias the matched pages (already
+        ref'd), allocate pages for the suffix only, and run the suffix-only
+        prefill over the cached prefix (padded to the longest suffix)."""
+        psz = self.config.page_size
+        admitted = []
+        for task, slot, mpages, mvers in group:
+            sfx = len(task.req.input_ids) - len(mpages) * psz
+            pages = self._alloc(-(-sfx // psz))
+            if pages is None:
+                # pool pressure: drop the match refs, retry as a fresh admission
+                self.pool.free(mpages)
+                self._backlog.append(task)
+                continue
+            all_pages = list(mpages) + pages
+            self._slot_pages[slot] = all_pages
+            self._slot_page_versions[slot] = list(mvers) + [self._version] * len(pages)
+            self._pt_host[slot] = 0
+            self._pt_host[slot, : len(all_pages)] = all_pages
+            admitted.append((task, slot, mpages, pages))
+        if not admitted:
+            return []
+        A = len(admitted)
+        P = max(len(t.req.input_ids) - len(m) * psz for t, _, m, _ in admitted)
+        npg = -(-P // psz)
+        # the prefix page-table width doubles to a power of two, as in JAX
+        wp = 1
+        while wp < max(len(m) for _, _, m, _ in admitted):
+            wp *= 2
+        ids_np = np.zeros((A, P), np.int64)
+        plens = np.zeros(A, np.int64)
+        offs = np.zeros(A, np.int64)
+        flat_pages = np.zeros((A, npg), np.int32)  # 0 = trash page for pads
+        ppt = np.zeros((A, wp), np.int32)
+        for j, (task, _, mpages, pages) in enumerate(admitted):
+            n_tok = len(mpages) * psz
+            ids = task.req.input_ids
+            ids_np[j, : len(ids) - n_tok] = ids[n_tok:]
+            plens[j] = len(ids) - n_tok
+            offs[j] = n_tok
+            flat_pages[j, : len(pages)] = pages
+            ppt[j, : len(mpages)] = mpages
+        e0 = self._event_pair_start()
+        ids_t = self._to_device(ids_np)
+        plens_t, offs_t = self._to_device(plens), self._to_device(offs)
+        steps = torch.arange(P, device=self.device)[None]
+        positions = offs_t[:, None] + steps
+        seg = (steps < plens_t[:, None]).to(torch.int64)
+        _, ks, vs = qwen.forward_prefill_paged(
+            self.model, ids_t, positions, seg, self.cache, self._to_device(ppt), offs_t
+        )
+        paged_kv.scatter_prefill(self.cache, ks, vs, self._to_device(flat_pages.reshape(-1)), psz)
+        del ks, vs
+        n_sfx = int(plens.sum())
+        self._event_pair_end(e0, self._prefill_events, n_sfx)
+        rows = []
+        hit_tokens = 0
+        for task, slot, mpages, _ in admitted:
+            ids = task.req.input_ids
+            task.req.metadata["cached_prefix_tokens"] = len(mpages) * psz
+            hit_tokens += len(mpages) * psz
+            task.slot = slot
+            self._slot_task[slot] = task
+            rows.append(
+                self._slot_update_row(task, slot, int(ids[-1]), len(ids) - 1, self._budget(task, len(ids)))
+            )
+        self.stats["prefills"] += A
+        self.stats["prefill_batches"] += 1
+        self.stats["prefill_tokens"] += n_sfx
+        self.stats["prefix_cache_hits"] += A
+        self.stats["prefix_hit_tokens"] += hit_tokens
+        return rows
+
+    def _admit_duplicates(self, pairs: list[tuple[_Task, int, int]]) -> list[np.ndarray]:
+        """Duplicates by page aliasing (``decode_engine.py:2739``): share the
+        primary's full prompt pages (refcount + 1, no copy) and take a
+        private copy of the page holding row ``plen-1``, which decode writes."""
+        psz = self.config.page_size
+        rows: list[np.ndarray] = []
+        copy_dst: list[int] = []
+        copy_src: list[int] = []
+        for task, slot, src_slot in pairs:
+            ids = task.req.input_ids
+            plen = len(ids)
+            prim = self._slot_pages[src_slot]
+            n_shared = (plen - 1) // psz  # pages decode never writes
+            if len(prim) <= n_shared:
+                # the primary was not admitted (pool pressure): retry later
+                self._backlog.append(task)
+                continue
+            priv = self._alloc(1)
+            if priv is None:
+                self._backlog.append(task)
+                continue
+            shared = prim[:n_shared]
+            self.pool.ref(shared)
+            pages = list(shared) + priv
+            copy_dst.append(priv[0])
+            copy_src.append(prim[n_shared])
+            self._slot_pages[slot] = pages
+            # the private page is a copy, so it keeps the primary page's version
+            self._slot_page_versions[slot] = list(self._slot_page_versions[src_slot][: n_shared + 1])
+            self._pt_host[slot] = 0
+            self._pt_host[slot, : len(pages)] = pages
+            task.slot = slot
+            self._slot_task[slot] = task
+            rows.append(self._slot_update_row(task, slot, int(ids[-1]), plen - 1, self._budget(task, plen)))
+        if copy_dst:
+            # stream-ordered after the primaries' prefills
+            paged_kv.copy_pages(
+                self.cache,
+                self._to_device(np.asarray(copy_dst, np.int64)),
+                self._to_device(np.asarray(copy_src, np.int64)),
+            )
+        self.stats["prefix_shared"] += len(copy_dst)
+        return rows
+
+    def _publish_prefix(self, full_ids: list[int], pages: list[int], versions: list[int], pos: int) -> None:
+        """Publish a finished request's full pages into the radix tree
+        (``decode_engine.py:2925``): only pages strictly below ``pos`` (the
+        page holding ``pos`` may still take a write from a chunk in flight),
+        and under the flush policy only up to the first page stamped with an
+        older weight version."""
+        if self._radix is None:
+            return
+        psz = self.config.page_size
+        n_pub = min(pos // psz, len(pages), len(full_ids) // psz)
+        if self.config.prefix_cache.across_updates == "flush":
+            k = 0
+            while k < n_pub and versions[k] == self._version:
+                k += 1
+            n_pub = k
+        if n_pub > 0:
+            self._radix.insert(full_ids[: n_pub * psz], pages[:n_pub], versions[:n_pub])
 
     def _prefill_group(self, group: list[tuple[_Task, int]]) -> list[np.ndarray]:
         """Allocate pages, run one batched prefill (padded to the longest
@@ -511,11 +843,12 @@ class DecodeEngine:
         admitted: list[tuple[_Task, int]] = []
         for task, slot in group:
             need = -(-len(task.req.input_ids) // psz)
-            pages = self.pool.alloc(need)
+            pages = self._alloc(need)
             if pages is None:
                 self._backlog.append(task)  # pool pressure: retry later
                 continue
             self._slot_pages[slot] = pages
+            self._slot_page_versions[slot] = [self._version] * need
             self._pt_host[slot] = 0
             self._pt_host[slot, :need] = pages
             admitted.append((task, slot))
@@ -655,17 +988,19 @@ class DecodeEngine:
         st["stop_ids"][sl] = upd[:, 10 : 10 + _MAX_STOP].long()
 
     # -- pages ------------------------------------------------------------
-    def _ensure_pages(self) -> None:
+    def _ensure_pages(self, ahead: int | None = None) -> None:
         """Allocation-ahead: every active slot gets pages covering
-        ``pos + 2*n_steps`` writes (host pos can be one in-flight chunk
-        stale). On pool exhaustion, preempt the active slot with the most
-        remaining budget (it aborts with its partial tokens); a slot that
-        cannot grow but whose pages cover one more chunk has its budget
-        clamped to that coverage instead."""
+        ``pos + ahead`` writes — by default ``2*n_steps`` (host pos can be
+        one in-flight chunk stale); a speculative round passes its exact
+        coverage. On pool exhaustion, evict radix leaves first, then preempt
+        the active slot with the most remaining budget (it aborts with its
+        partial tokens); a slot that cannot grow but whose pages cover one
+        more chunk has its budget clamped to that coverage instead."""
         st = self._state
         psz = self.config.page_size
         n_steps = self.config.decode_steps_per_call
-        ahead = 2 * n_steps
+        if ahead is None:
+            ahead = 2 * n_steps
         deact_rows: list[np.ndarray] = []
         clamp_rows: list[tuple[int, int]] = []
         for slot in np.nonzero(st["active"])[0]:
@@ -675,6 +1010,8 @@ class DecodeEngine:
             pages = self._slot_pages[slot]
             while len(pages) < need:
                 got = self.pool.alloc(need - len(pages))
+                if got is None and self._reclaim_pages(need - len(pages)):
+                    continue
                 if got is None:
                     victim = self._preempt_victim()
                     if victim is None or victim == slot:
@@ -689,6 +1026,7 @@ class DecodeEngine:
                     continue
                 self._pt_host[slot, len(pages) : len(pages) + len(got)] = got
                 pages.extend(got)
+                self._slot_page_versions[slot].extend([self._version] * len(got))
         if deact_rows:
             self._apply_slot_updates(deact_rows)
         if clamp_rows:
@@ -811,6 +1149,175 @@ class DecodeEngine:
             ]
         )
 
+    def _spec_round(self) -> int:
+        """One synchronous speculative round (``decode_engine.py:3285``): the
+        host drafter proposes, one verify + accept call scores and commits,
+        the packed result drains through the normal bookkeeping, and pages
+        allocated past the accepted tokens roll back. Synchronous because
+        the accept decision gates the next round's drafts. Returns the
+        credited token count."""
+        cfg = self.config
+        st = self._state
+        if not st["active"].any():
+            return 0
+        psz, T = cfg.page_size, cfg.max_seq_len
+        B = self._spec_cfg.max_nodes()
+        # exact coverage of this round's writes (rows pos..pos+B-1) plus the
+        # next pending row; host pos is authoritative (no chunk in flight)
+        self._ensure_pages(ahead=B)
+        active = st["active"]
+        if not active.any():
+            return 0
+        contexts = {
+            int(slot): list(self._slot_task[slot].req.input_ids) + self._slot_task[slot].out_tokens
+            for slot in np.nonzero(active)[0]
+            if self._slot_task[slot] is not None
+        }
+        bundle = spec_mod.draft_batch(self._drafter, contexts, len(active), B - 1)
+        max_pos = int(st["pos"][active].max())
+        window = min(T, round_up_to_bucket(max_pos + 1 + B, cfg.attn_window_step))
+        wp = min(self._maxp, -(-window // psz))
+        capped = bool(((st["top_k"] > 0) | (st["top_p"] < 1.0))[active].any())
+        greedy_any = bool(st["greedy"][active].any())
+        e0 = self._event_pair_start()
+        packed = self._run_spec(B, self._to_device(self._pt_host[:, :wp]), capped, greedy_any, bundle)
+        self._event_pair_end(e0, self._spec_events, B)
+        pending = {
+            "packed": packed.cpu(),  # the round's one (blocking) download
+            "ready": None,
+            "n_steps": B,
+            "version": self._version,
+            "was_active": active.copy(),
+            "tasks": list(self._slot_task),
+        }
+        # acceptance accounting before _drain changes slot ownership
+        emit_count = pending["packed"][2 * B].numpy()
+        n_accepted = sum(
+            max(0, int(emit_count[s]) - 1)
+            for s, task in enumerate(pending["tasks"])
+            if task is not None and active[s] and bundle.n_draft[s]
+        )
+        self.stats["spec_rounds"] += 1
+        self.stats["spec_draft_tokens"] += int(bundle.n_draft.sum())
+        self.stats["spec_accepted_tokens"] += n_accepted
+        credited = self._drain(pending)
+        self.stats["spec_rollback_pages"] += self._rollback_spec_pages()
+        return credited
+
+    def _run_spec(self, B: int, page_table: torch.Tensor, capped: bool, greedy_any: bool, bundle):
+        """Verify + accept for all slots (the body of the JAX ``_spec_fn``,
+        ``decode_engine.py:2089``). Row 0 per slot is the pending token, rows
+        1..B-1 the draft nodes; ``forward_verify_paged`` scores all of them,
+        then an unrolled walk re-runs ``_sample_step`` position by position
+        and follows the tree edge whose draft token equals the sampled one,
+        so every emitted token is what the sequential path would emit. Only
+        visited rows write KV into real pages; the rest go to trash page 0.
+        Updates the device state; returns the packed int32 [2B + 3, S]
+        result in ``_run_chunk``'s layout."""
+        T, psz = self.config.max_seq_len, self.config.page_size
+        st = self._dev_state
+        S = st["ids"].shape[0]
+        K = B - 1
+        dev = self.device
+        Kc = min(self.model_cfg.vocab_size, _TOPK_CAP)
+        tiny = torch.finfo(torch.float32).tiny
+        d_tokens = self._to_device(bundle.tokens.astype(np.int64))  # [S, K]
+        d_parent = self._to_device(bundle.parent_row.astype(np.int64))
+        d_depth = self._to_device(bundle.depth.astype(np.int64))
+        d_mask = self._to_device(bundle.mask)  # [S, B, B] bool
+        d_count = self._to_device(bundle.n_draft.astype(np.int64))
+        pos0 = st["pos"]
+        ids_nodes = torch.cat([st["ids"][:, None], d_tokens], dim=1)  # [S, B]
+        depth_full = torch.cat([torch.zeros((S, 1), dtype=torch.int64, device=dev), d_depth], dim=1)
+        # the clamp keeps indices in range for inactive slots with a stale
+        # pos (their page-table rows are zero: everything lands in trash)
+        positions = torch.clamp(pos0[:, None] + depth_full, max=T - 1)
+        hidden, ks, vs = qwen.forward_verify_paged(
+            self.model, ids_nodes, positions, d_mask, self.cache, page_table, pos0
+        )
+        logits = qwen.compute_logits(self.model, hidden)  # [S, B, V]
+        row_valid = torch.arange(1, B, device=dev)[None, :] <= d_count[:, None]  # [S, K]
+        slot_idx = torch.arange(S, device=dev)
+        node_idx = torch.arange(B, device=dev)[None, :]
+        cur = torch.zeros(S, dtype=torch.int64, device=dev)  # row the walk is at
+        cont = st["active"]  # still emitting this round
+        alive = st["active"]  # lives past the round
+        pos_c, rem_c, ids_c = pos0, st["remaining"], st["ids"]
+        # rows whose KV becomes context: the root and the accepted path
+        row_ok = node_idx == 0
+        row_ok = row_ok.expand(S, B)
+        toks, logps, emits = [], [], []
+        for j in range(B):
+            lg = logits[slot_idx, cur]  # [S, V]
+            u_full = torch.rand((S, 1), generator=self._gen, device=dev)
+            u_cap = None
+            if capped:
+                u_cap = torch.rand((S, Kc), generator=self._gen, device=dev).clamp_(min=tiny)
+            t_j, logp_j = _sample_step(lg, u_full, u_cap, st, capped, greedy_any)
+            emits.append(cont)
+            toks.append(t_j)
+            logps.append(logp_j)
+            hit_stop = (t_j[:, None] == st["stop_ids"]).any(dim=-1) & (rem_c - 1 <= st["min_rem"])
+            new_pos = pos_c + cont.long()
+            rem_c = rem_c - cont.long()
+            step_alive = cont & ~hit_stop & (rem_c > 0) & (new_pos < T - 1)
+            alive = torch.where(cont, step_alive, alive)
+            ids_c = torch.where(cont, t_j, ids_c)
+            pos_c = new_pos
+            if j < K:
+                # follow the tree edge whose draft token is the sampled one
+                match = (d_parent == cur[:, None]) & (d_tokens == t_j[:, None]) & row_valid
+                child = match.to(torch.int32).argmax(dim=1) + 1  # first match
+                cont = step_alive & match.any(dim=1)
+                cur = torch.where(cont, child, cur)
+                row_ok = row_ok | ((node_idx == child[:, None]) & cont[:, None])
+        st.update(ids=ids_c, pos=pos_c, active=alive, remaining=rem_c)
+        # selective KV commit: visited rows to their page rows, others to trash
+        wp = page_table.shape[1]
+        page_idx = torch.clamp(positions // psz, 0, wp - 1)
+        pages = torch.gather(page_table.long(), 1, page_idx)
+        pages = torch.where(row_ok, pages, 0)
+        L, _, _, KH, hd = ks.shape
+        paged_kv.scatter_token_rows(
+            self.cache,
+            ks.reshape(L, S * B, KH, hd),
+            vs.reshape(L, S * B, KH, hd),
+            pages.reshape(-1),
+            (positions % psz).reshape(-1),
+        )
+        return torch.cat(
+            [
+                torch.stack(toks).to(torch.int32),  # [B, S]
+                torch.stack(logps).float().view(torch.int32),
+                torch.stack(emits).sum(dim=0, dtype=torch.int32)[None],
+                alive.to(torch.int32)[None],
+                pos_c.to(torch.int32)[None],
+            ]
+        )
+
+    def _rollback_spec_pages(self) -> int:
+        """Free pages past each live slot's committed coverage (rows 0..pos:
+        the written KV and the pending row) after a round
+        (``decode_engine.py:3395``). Rejected drafts never wrote into them
+        (their rows went to trash), so this is an allocator-level rollback."""
+        st = self._state
+        psz = self.config.page_size
+        freed = 0
+        for slot in np.nonzero(st["active"])[0]:
+            if self._slot_task[slot] is None:
+                continue
+            need = -(-(int(st["pos"][slot]) + 1) // psz)
+            pages = self._slot_pages[slot]
+            if len(pages) <= need:
+                continue
+            tail = pages[need:]
+            self.pool.free(tail)
+            self._slot_pages[slot] = pages[:need]
+            del self._slot_page_versions[slot][need:]
+            self._pt_host[slot, need : need + len(tail)] = 0
+            freed += len(tail)
+        return freed
+
     def _drain(self, pending: dict | None) -> int:
         """Read one chunk's packed result and credit tokens / finish tasks.
         Slots admitted after the chunk was dispatched are excluded via the
@@ -869,10 +1376,21 @@ class DecodeEngine:
         if task.slot >= 0:
             self._slot_task[task.slot] = None
             self._state["active"][task.slot] = False
-            # zeroing the block-table row steers any in-flight chunk's
-            # stale write for this slot to the trash page
+            if reason != StopReason.ABORT.value:
+                # completed requests publish prompt + output pages before the
+                # free below (the tree's own refs keep them); aborts and
+                # preemptions do not
+                self._publish_prefix(
+                    list(task.req.input_ids) + list(task.out_tokens),
+                    self._slot_pages[task.slot],
+                    self._slot_page_versions[task.slot],
+                    int(self._state["pos"][task.slot]),
+                )
+            # zeroing the block-table row steers a later chunk's stale write
+            # for this slot to the trash page
             self.pool.free(self._slot_pages[task.slot])
             self._slot_pages[task.slot] = []
+            self._slot_page_versions[task.slot] = []
             self._pt_host[task.slot] = 0
         now = time.monotonic()
         resp = ModelResponse(
@@ -927,6 +1445,7 @@ class DecodeEngine:
             with torch.no_grad():
                 while not self._shutdown.is_set():
                     self._apply_weight_update()
+                    self._service_radix_flush()
                     if self._paused.is_set():
                         self._drain(pending)
                         pending = None
@@ -935,6 +1454,18 @@ class DecodeEngine:
                         self._wakeup.clear()
                         continue
                     self._apply_slot_updates(self._admit_pending())
+                    if self._spec_cfg is not None and self._drafter is not None:
+                        # synchronous speculative pass: drain the pipelined
+                        # chunk first (the spec-off -> on switch), then one
+                        # round; a weight update applies only at the top of
+                        # a pass, so draft and verify share one version
+                        self._drain(pending)
+                        pending = None
+                        self._spec_round()
+                        if not any(t is not None for t in self._slot_task):
+                            self._wakeup.wait(timeout=0.05)
+                            self._wakeup.clear()
+                        continue
                     # dispatch the next chunk, then read the previous one
                     # while it computes
                     dispatched = self._dispatch_chunk()

@@ -3,8 +3,9 @@
 ``ThreadingHTTPServer`` (no aiohttp).
 
 Endpoints: GET ``/health``; POST ``/generate``, ``/pause_generation``,
-``/continue_generation``, ``/set_version``. Request and response JSON match
-the JAX server's (``_req_from_json``, ``h_generate``). There is no command
+``/continue_generation``, ``/set_version``, ``/flush_prefix_cache``.
+Request and response JSON match the JAX server's (``_req_from_json``,
+``h_generate``, ``h_flush_prefix_cache``). There is no command
 line entry yet: it needs the HF checkpoint loader, which waits for a
 checkpoint in the repository; build the engine with weights in code.
 """
@@ -98,6 +99,7 @@ class _Handler(BaseHTTPRequestHandler):
             "/pause_generation": self.server.app.h_pause,
             "/continue_generation": self.server.app.h_continue,
             "/set_version": self.server.app.h_set_version,
+            "/flush_prefix_cache": self.server.app.h_flush_prefix_cache,
         }.get(self.path)
         if route is None:
             self._send(404, {"status": "error", "error": f"no route {self.path}"})
@@ -165,6 +167,10 @@ class InferenceServer:
     def h_set_version(self, d: dict) -> tuple[int, dict]:
         self.engine.set_version(int(d["version"]))
         return 200, {"status": "ok"}
+
+    def h_flush_prefix_cache(self, d: dict) -> tuple[int, dict]:
+        """Drop every radix-cached page (``server.py:327``)."""
+        return 200, {"status": "ok", "freed_pages": int(self.engine.flush_prefix_cache())}
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> None:

@@ -40,6 +40,7 @@ from areal_tpu_torch.ops.attention import (
     sdpa_plain,
 )
 from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -420,6 +421,90 @@ def forward_prefill(
         x = x + _ffn(h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     return hidden, torch.stack(ks), torch.stack(vs)
+
+
+def _forward_suffix_paged(model, input_ids, positions, mask, cache, page_table, prefix_lens, kind):
+    """The body shared by ``forward_prefill_paged`` and
+    ``forward_verify_paged``: B rows per slot attend the slot's cached
+    pages plus each other under ``mask`` through ``paged_suffix_attention``.
+    Returns (hidden, ks, vs) with ks/vs [n_layers, S, B, KH, hd]; the cache
+    is read, never written."""
+    cfg = model.cfg
+    S, B = input_ids.shape
+    H, hd = cfg.num_heads, cfg.head_dim_
+    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
+    rope = _rope_angles(positions, hd, cfg.rope_theta)
+    if page_table.is_cuda:  # the kernel's index types; the plain path takes any
+        prefix_lens = prefix_lens.to(torch.int32)
+        page_table = page_table.to(torch.int32)
+    ks, vs = [], []
+    for li, layer in enumerate(model.layers):
+        q, k, v = _qkv(cfg, layer, x, rope)
+        ks.append(k)
+        vs.append(v)
+        attn = paged_suffix_attention(
+            q,
+            k,
+            v,
+            cache["k"],
+            cache["v"],
+            li,
+            prefix_lens,
+            page_table,
+            mask,
+            k_scales=cache.get("k_scale"),
+            v_scales=cache.get("v_scale"),
+            kind=kind,
+        )
+        x = x + _proj(attn.reshape(S, B, H * hd).to(x.dtype), layer.wo)
+        h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
+        x = x + _ffn(h, layer)
+    hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    return hidden, torch.stack(ks), torch.stack(vs)
+
+
+def forward_prefill_paged(
+    model: QwenModel,
+    input_ids: torch.Tensor,  # [A, B] suffix tokens (page-aligned start)
+    positions: torch.Tensor,  # [A, B] absolute rope positions (prefix_len + i)
+    seg: torch.Tensor,  # [A, B] 1 = valid, 0 = pad
+    cache: dict,  # k/v [n_layers, KH, n_pages, psz, hd] (+ scales)
+    page_table: torch.Tensor,  # [A, wp] pages holding the cached prefix
+    prefix_lens: torch.Tensor,  # [A] tokens cached (page-aligned; 0 = none)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Suffix-only prefill over a radix-cached prefix
+    (``models/qwen.py:944``): the queries of each row's suffix attend its
+    cached prefix pages and the causal suffix (the chain-mask launch of
+    kernel #3), so only the suffix pays prefill work. Returns (hidden, ks,
+    vs) for the suffix positions; the caller scatters them into fresh pages.
+    Padded rows (seg 0) have no valid mask bit and attend nothing: their
+    attention output is zeros (the JAX gather path's is a discarded
+    average) and their KV goes to the trash page either way."""
+    mask = _attention_mask(seg)[:, 0]  # [A, B, B] causal, row/column validity
+    return _forward_suffix_paged(
+        model, input_ids, positions, mask, cache, page_table, prefix_lens, "chain"
+    )
+
+
+def forward_verify_paged(
+    model: QwenModel,
+    input_ids: torch.Tensor,  # [S, B] pending token (root) + draft tree nodes
+    positions: torch.Tensor,  # [S, B] absolute rope positions (root pos + depth)
+    tree_mask: torch.Tensor,  # [S, B, B] bool: node row attends node column
+    cache: dict,
+    page_table: torch.Tensor,  # [S, wp] pages holding the committed context
+    prefix_lens: torch.Tensor,  # [S] tokens already in pages (= root position)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative verify (``models/qwen.py:1070``): every slot's draft tree
+    of B nodes in one pass over the paged cache, under the drafter's
+    ancestor-or-self mask (the tree-mask launch of kernel #3). The drafter
+    sets every node's self bit, so every node attends the whole committed
+    context. Returns (hidden [S, B, D], ks, vs [n_layers, S, B, KH, hd]); KV
+    is not written here — the caller routes accepted-path rows into pages
+    (``paged_kv.scatter_token_rows``)."""
+    return _forward_suffix_paged(
+        model, input_ids, positions, tree_mask, cache, page_table, prefix_lens, "tree"
+    )
 
 
 def forward_decode_paged(

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``areal_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase, the result lines
+    python3 chip_smoke.py --only spec,serve    # some phases, no result lines
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -9,8 +10,8 @@ no result line:
 1. device   — requires CUDA; prints the card's name and power limit.
 2. build    — compiles every ``areal_tpu_torch/csrc/*.cu`` with nvcc (one
               process per source, all at once).
-3. kernel   — the paged decode-attention kernel against its plain PyTorch
-              twin at the serving shapes of Qwen2.5-1.5B (H=12, KH=2,
+3. kernel   — the paged decode-attention kernel (#1) against its plain
+              PyTorch twin at the serving shapes of Qwen2.5-1.5B (H=12, KH=2,
               hd=128, psz=128, S=32, 28-layer stacked cache, layer 5),
               ragged lengths and shared pages, for bf16, int8 and fp8
               pages; kernel / plain / SDPA-yardstick times and the bound.
@@ -19,22 +20,37 @@ no result line:
               trainer's shapes (packed [G, 1024] grids of the train phase's
               sequences, H=12 with KV repeated from 2, hd=128, bf16, padded
               tail); kernel / plain / SDPA-yardstick times and the bounds.
-5. serve    — an ``InferenceServer`` over Qwen2.5-1.5B (full width and
-              depth, random bf16 weights from a seed) answers 16 concurrent
-              /generate requests; checks completeness, logprobs against a
-              dense prefill, the kernel's launch count, and the version
-              tags across a mid-generation weight update.
-6. serve_int8 — a short second engine with int8 KV pages.
-7. train    — two asynchronous-GRPO steps at full width and depth: the
-              ``DecodeEngine`` generates 8 prompts x 4 samples, the
-              ``TorchTrainEngine`` recomputes proximal logprobs (K2),
-              ``PPOActor`` computes advantages and runs ``ppo_update`` (two
-              minibatches: K2 + K3 + K4 under per-layer checkpointing, then
-              AdamW), ``update_weights`` pushes the weights into the running
-              engine, and the next wave carries version 1. Checks the
-              logprobs on both waves, finite loss and grad norm (and the
-              plain attention's grad norm on one minibatch), moved weights,
-              version tags and every kernel's launch count.
+5. kernel_suffix — the paged suffix-attention kernel (#3) against its plain
+              version at the same head config: a warm suffix prefill (8 rows
+              of 64..256 suffix tokens over a shared 1,024-token prefix) and
+              speculative verify (S=32, prefixes 1..2048, B=5 chains and B=9
+              trees), bf16 / int8 / fp8 pages, planted faults; kernel / plain
+              / SDPA-yardstick times and the bound.
+6. serve    — an ``InferenceServer`` over Qwen2.5-1.5B (full width and
+              depth, random bf16 weights from a seed) at the prefix-cache
+              settings of ``ServerConfig()`` answers 16 concurrent /generate
+              requests; checks completeness, logprobs against a dense
+              prefill and kernel #1's launch count. Then 16 requests sharing
+              a 1,024-token system prompt: radix hits, kernel #3's chain
+              launches, logprobs, and the pool's accounting after
+              /flush_prefix_cache. Then the version tags across a
+              mid-generation weight update.
+7. serve_int8 — a short second engine with int8 KV pages.
+8. spec     — speculative decoding (ngram, then tree drafter): greedy
+              tokens equal to a non-speculative engine's with the same
+              weights, kernel #3's tree launches, rounds / accepted /
+              rollback pages, the pool's accounting.
+9. train    — two asynchronous-GRPO steps at full width and depth: the
+              ``DecodeEngine`` generates 8 prompts x 4 samples (duplicates
+              alias the first sample's pages), the ``TorchTrainEngine``
+              recomputes proximal logprobs (K2), ``PPOActor`` computes
+              advantages and runs ``ppo_update`` (two minibatches: K2 + K3 +
+              K4 under per-layer checkpointing, then AdamW),
+              ``update_weights`` pushes the weights into the running engine
+              (the radix tree flushes), and the next wave carries version 1.
+              Checks the logprobs on both waves, finite loss and grad norm
+              (and the plain attention's grad norm on one minibatch), moved
+              weights, version tags and every kernel's launch count.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -100,6 +116,13 @@ FLASH_ATOL = 2**-5
 # points in every layer's forward, recompute and backward, which moved the
 # norm by 0.16% (PR 2's run); six times that
 GRAD_NORM_RTOL = 1e-2
+# kernel #3 vs its plain version, element by element on rows with a valid
+# mask bit, by the flash kernels' rule: the plain version keeps every product
+# and sum in f32 on the same bf16 / int8 / fp8 inputs, the kernel rounds P
+# (times the V scale) to bf16 for the tensor cores, and both round the output
+# to bf16 once. Rows with no valid bit must be exact zeros.
+SUFFIX_RTOL = FLASH_RTOL
+SUFFIX_ATOL = FLASH_ATOL
 
 
 def log(msg: str) -> None:
@@ -476,6 +499,209 @@ def phase_kernel_flash() -> dict:
     return per
 
 
+def _suffix_masks(kind: str, S: int, B: int, rng) -> np.ndarray:
+    """Masks as the engine builds them. "prefill": the causal chain of
+    ``qwen.forward_prefill_paged`` over suffixes of 64..B tokens, the rows
+    past a suffix with no valid bit. "chain" / "tree": the drafters' verify
+    masks (``speculative.draft_batch``) over periodic contexts, so most slots
+    get drafts and some do not."""
+    from areal_tpu_torch.api.config import SpeculativeConfig
+    from areal_tpu_torch.inference import speculative as spec_mod
+
+    if kind == "prefill":
+        lens = rng.integers(64, B + 1, S)
+        lens[0], lens[1] = B, 64
+        i = np.arange(B)
+        valid = i[None, :] < lens[:, None]
+        return np.tril(np.ones((B, B), bool))[None] & valid[:, :, None] & valid[:, None, :]
+    spec = SpeculativeConfig(enabled=True, drafter="tree" if kind == "tree" else "ngram")
+    if spec.max_nodes() != B:
+        raise ValueError(f"{kind} verify has {spec.max_nodes()} rows, not {B}")
+    ctx = {}
+    for s in range(S):
+        period = int(rng.integers(2, 9))
+        base = rng.integers(0, 5, period).tolist()
+        ctx[s] = (base * 40)[: int(rng.integers(10, 60))] + rng.integers(0, 5, int(rng.integers(0, 3))).tolist()
+    return spec_mod.draft_batch(spec_mod.build_drafter(spec), ctx, S, B - 1).mask
+
+
+def _suffix_inputs(shape: str, kv: str, cache: dict, seed: int = 0):
+    """One kernel-#3 launch's operands at Qwen2.5-1.5B's heads: the suffix
+    q/K/V, the prefix lengths, page tables into ``cache`` and the mask."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, KH, hd, psz = 12, 2, 128, 128
+    N = cache["k"].shape[2]
+    perm = rng.permutation(np.arange(1, N)).astype(np.int32)
+    if shape == "warm_prefill":
+        # 8 admissions of one radix hit: a shared 1,024-token prefix (8 pages)
+        S, B, wp = 8, 256, 8
+        plens = np.full(S, 1024, np.int32)
+        pt = np.tile(perm[:wp], (S, 1))
+        mask = _suffix_masks("prefill", S, B, rng)
+    else:
+        S, B, wp = 32, (5 if shape == "verify_chain" else 9), 16
+        plens = np.concatenate([[1, psz - 1, psz, psz + 1, wp * psz, wp * psz - 1],
+                                rng.integers(1, wp * psz + 1, S - 6)]).astype(np.int32)
+        pt = np.zeros((S, wp), np.int32)
+        for s in range(S):
+            need = -(-int(plens[s]) // psz)
+            pt[s, :need] = perm[s * wp : s * wp + need]
+        pt[7, :3] = pt[6, :3]  # shared pages, as duplicates and radix hits give
+        mask = _suffix_masks("chain" if shape == "verify_chain" else "tree", S, B, rng)
+    q = torch.randn((S, B, H, hd), generator=g, device="cuda").to(torch.bfloat16)
+    ks, vs = (torch.randn((S, B, KH, hd), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    return dict(q=q, ks=ks, vs=vs, plens=torch.from_numpy(plens).cuda(), pt=torch.from_numpy(pt).cuda(),
+                mask=torch.from_numpy(mask).cuda())
+
+
+def _suffix_bound(x: dict, kv: str, psz: int = 128) -> tuple[float, str, float]:
+    """Least time of one launch on these inputs. Operations: 4 hd flops per
+    query head per (row, key) pair the mask lets through (q.k and p.v), the
+    prefix's pairs only for rows whose diagonal bit is set. Bytes: q, the
+    suffix K/V, the mask, the lengths, the page-table entries used and every
+    distinct prefix token's K/V (and scales) read once; the output written
+    once. Returns (ms, "bytes" | "operations", flops)."""
+    q, mask = x["q"], x["mask"].cpu().numpy()
+    S, B, H, hd = q.shape
+    KH = x["ks"].shape[2]
+    plens, pt = x["plens"].cpu().numpy(), x["pt"].cpu().numpy()
+    diag = mask[:, np.arange(B), np.arange(B)]
+    pairs = int((plens.astype(np.int64) * diag.sum(axis=1)).sum() + mask.sum())
+    flops = 4 * hd * H * pairs
+    tokens = set()
+    for s in range(S):
+        if diag[s].any():
+            tokens.update((int(pt[s, t // psz]), t % psz) for t in range(int(plens[s])))
+    elem = 2 if kv == "bf16" else 1
+    prefix_bytes = len(tokens) * KH * 2 * (hd * elem + (4 if kv != "bf16" else 0))
+    nbytes = (2 * q.numel() * 2 + 2 * x["ks"].numel() * 2 + mask.size + S * 4
+              + int(np.ceil(plens / psz).sum()) * 4 + prefix_bytes)
+    t_ops, t_bytes = flops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes", flops) if t_bytes >= t_ops else (t_ops, "operations", flops)
+
+
+def _suffix_excess(got, ref, mask) -> tuple[float, float, float]:
+    """The kernel-#3 check. Rows with a valid mask bit: worst |got - ref| as
+    a share of SUFFIX_RTOL |ref| + SUFFIX_ATOL rms(ref) (passes at <= 1).
+    Rows with no valid bit must be exact zeros: a nonzero there counts as
+    its size over SUFFIX_ATOL rms(ref). Returns (share, rms(ref), max|diff|
+    on valid rows)."""
+    live = mask.any(-1)  # [S, B]
+    g, r = got.float()[live], ref.float()[live]
+    rms = r.pow(2).mean().sqrt()
+    x = ((g - r).abs() / (SUFFIX_RTOL * r.abs() + SUFFIX_ATOL * rms)).max().item()
+    dead = got.float()[~live]
+    if dead.numel():
+        x = max(x, (dead.abs().max() / (SUFFIX_ATOL * rms)).item())
+    return x, rms.item(), (g - r).abs().max().item()
+
+
+def phase_kernel_suffix(n_layers: int = 28) -> dict:
+    """Kernel #3 against its plain version at the Qwen2.5-1.5B head config
+    (H=12, KH=2, hd=128, psz=128, 28-layer stacked cache, layer 5): a warm
+    suffix prefill (8 rows of 64..256 suffix tokens in a 256 bucket over a
+    shared 1,024-token prefix, padded rows) and speculative verify (S=32,
+    prefixes of 1..2048 tokens, the ngram drafter's B=5 chains and the tree
+    drafter's B=9 trees), each for bf16, int8 and fp8 pages. Two planted
+    faults must fail the check."""
+    from areal_tpu_torch.inference import paged_kv
+    from areal_tpu_torch.ops.paged_suffix_attention import (
+        paged_suffix_attention,
+        paged_suffix_attention_plain,
+    )
+
+    L, KH, hd, psz, N = n_layers, 2, 128, 128, 32 * 16 + 1
+    li = min(5, L - 1)
+    kinds = {"warm_prefill": "chain", "verify_chain": "tree", "verify_tree": "tree"}
+    per: dict[str, dict] = {}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shape5 = (L, KH, N, psz, hd)
+    base_k = torch.randn(shape5, generator=g, device="cuda", dtype=torch.bfloat16)
+    base_v = torch.randn(shape5, generator=g, device="cuda", dtype=torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for kv in ("bf16", "int8", "fp8"):
+        if kv == "bf16":
+            cache = {"k": base_k, "v": base_v}
+        else:
+            qd = paged_kv.quant_dtype(kv)
+            k8, k_s = paged_kv.quantize_kv(base_k, qd)
+            v8, v_s = paged_kv.quantize_kv(base_v, qd)
+            cache = {"k": k8, "v": v8, "k_scale": k_s, "v_scale": v_s}
+        sc = dict(k_scales=cache.get("k_scale"), v_scales=cache.get("v_scale"))
+        for shape, kind in kinds.items():
+            x = _suffix_inputs(shape, kv, cache)
+            args = (x["q"], x["ks"], x["vs"], cache["k"], cache["v"])
+
+            def plain(layer, plens=None, mask=None):
+                return paged_suffix_attention_plain(
+                    *args, layer, x["plens"] if plens is None else plens, x["pt"],
+                    x["mask"] if mask is None else mask, sc["k_scales"], sc["v_scales"])
+
+            with torch.no_grad():
+                got = paged_suffix_attention(*args, li, x["plens"], x["pt"], x["mask"], kind=kind, **sc)
+                ref = plain(li)
+                torch.cuda.synchronize()
+                share, rms, err = _suffix_excess(got, ref, x["mask"])
+                if not share <= 1.0:
+                    raise AssertionError(f"[kernel_suffix] {shape} {kv}: off its plain version by {share:.3f} x "
+                                         f"the limit (rms {rms:.4f}, max|diff| {err:.3e})")
+                eye = torch.eye(x["mask"].shape[1], dtype=torch.bool, device="cuda")
+                faults = {
+                    "diagonal gate dropped": plain(li, mask=x["mask"] | eye),
+                    "prefix one page short": plain(li, plens=(x["plens"] - psz).clamp(min=0)),
+                }
+                fault_x = {n: _suffix_excess(f, ref, x["mask"])[0] for n, f in faults.items()}
+                # the gate shows only where a row has no valid bit (padded prefill rows)
+                if shape != "warm_prefill":
+                    del fault_x["diagonal gate dropped"]
+                for n, fx in fault_x.items():
+                    if not fx > 1.0:
+                        raise AssertionError(f"[kernel_suffix] {shape} {kv}: the check passes a planted fault ({n})")
+                del faults, ref, got
+                it = iter(range(10**9))
+                ms = time_cuda(lambda: paged_suffix_attention(
+                    *args, next(it) % L, x["plens"], x["pt"], x["mask"], kind=kind, **sc), iters=56)
+                plain_ms = time_cuda(lambda: plain(next(it) % L), iters=5, warmup=1)
+                # yardstick the port never calls: one SDPA over the prefix
+                # already gathered (and dequantized) plus the suffix, with the
+                # same boolean mask; the gather is outside the timed calls
+                S, B = x["mask"].shape[:2]
+                W = x["pt"].shape[1] * psz
+                ptl = x["pt"].long()
+
+                def gathered(name, j):
+                    pages = cache[name][j][:, ptl].reshape(KH, S, W, hd).permute(1, 0, 2, 3)
+                    if kv != "bf16":
+                        s_ = cache[f"{name}_scale"][j][:, ptl].reshape(KH, S, W, 1).permute(1, 0, 2, 3)
+                        pages = (pages.float() * (s_ / 127.5)).to(torch.bfloat16)
+                    sfx = (x["ks"] if name == "k" else x["vs"]).permute(0, 2, 1, 3)
+                    return torch.cat([pages, sfx], dim=2).contiguous()
+
+                kvg = [(gathered("k", j), gathered("v", j)) for j in range(min(4, L))]
+                ar = torch.arange(B, device="cuda")
+                in_prefix = torch.arange(W, device="cuda")[None, :] < x["plens"][:, None]
+                full = torch.cat([x["mask"][:, ar, ar][:, :, None] & in_prefix[:, None, :], x["mask"]], dim=-1)
+                qt = x["q"].transpose(1, 2).contiguous()
+                lib_ms = time_cuda(lambda: sdpa(qt, *kvg[next(it) % len(kvg)], attn_mask=full[:, None], enable_gqa=True),
+                                   iters=20)
+                del kvg, full, qt
+            bound_ms, bound_by, flops = _suffix_bound(x, kv)
+            per[f"{shape}/{kv}"] = dict(max_abs_err=err, share=share, rms=rms, ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+            dead = int((~x["mask"].any(-1)).sum())
+            log(f"[kernel_suffix] {shape} {kv} pages: S={S} B={B} rows ({dead} with no valid bit), prefixes "
+                f"{int(x['plens'].min())}..{int(x['plens'].max())}; worst element {share:.3f} of the limit "
+                f"{SUFFIX_RTOL:.4g} |plain| + {SUFFIX_ATOL:.4g} rms(plain) (rms {rms:.4f}, max|diff| {err:.3e}); "
+                f"planted faults " + ", ".join(f"{n} {v:.2f}" for n, v in fault_x.items())
+                + f"; kernel={ms:.4f} ms plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms (gather excluded) "
+                f"bound={bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP)")
+        del cache, sc
+    del base_k, base_v
+    torch.cuda.empty_cache()
+    return per
+
+
 def _post(addr: str, path: str, body: dict, timeout: float = 900.0) -> dict:
     req = urllib.request.Request(
         f"http://{addr}{path}",
@@ -579,12 +805,13 @@ def phase_serve(card: str) -> tuple[int, dict]:
     model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     log(f"[serve] Qwen2.5-1.5B random weights (seed 0) in {time.monotonic() - t0:.1f}s")
+    # the prefix-cache settings of ServerConfig() (radix cache on, flush at
+    # a weight commit)
     cfg = ServerConfig(
         max_batch_size=32,
         max_seq_len=2048,
         page_size=128,
         decode_steps_per_call=16,
-        enable_prefix_caching=False,
         host="127.0.0.1",
         seed=0,
     )
@@ -642,6 +869,9 @@ def phase_serve(card: str) -> tuple[int, dict]:
         if max(errs) > LOGPROB_TOL or max(gaps) > LOGPROB_TOL:
             raise AssertionError("[serve] served output disagrees with the dense prefill")
 
+        warm = _warm_wave(srv, engine, model, mcfg, n_new, body, card)
+        metrics.update(warm)
+
         # second wave: a weight update lands while sequences are in flight
         model2 = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(1))
         wave2: list = []
@@ -676,6 +906,89 @@ def phase_serve(card: str) -> tuple[int, dict]:
     return launches, metrics
 
 
+def _warm_wave(srv, engine, model, mcfg, n_new: int, body, card: str) -> dict:
+    """16 requests sharing a 1,024-token system prompt, with tails of 64..256
+    tokens: the first runs alone and publishes the prompt's pages into the
+    radix cache, the other 15 admit through radix hits (suffix-only prefill
+    over the cached pages: kernel #3's chain launches). Checks the hits, the
+    launches, complete responses, logprobs against a dense prefill and,
+    after ``/flush_prefix_cache``, the pool's page accounting."""
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, mcfg.vocab_size, 1024).tolist()
+    prompts = [system + rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 257, 16)]
+    bodies = [body(p, i) for i, p in enumerate(prompts)]
+    keys = ("prefills", "prefill_tokens", "prefix_cache_hits", "prefix_cache_misses", "prefix_hit_tokens",
+            "decode_steps", "generated_tokens")
+    dev0 = engine.device_seconds()
+    # main path: counts to 0 just before, read just after
+    for k in psa.launches:
+        psa.launches[k] = 0
+    s0 = {k: engine.stats[k] for k in keys}
+    t0 = time.monotonic()
+    resps = _wave(srv.address, bodies[:1])
+    t1 = time.monotonic()
+    resps += _wave(srv.address, bodies[1:])
+    wall = time.monotonic() - t1
+    launches = dict(psa.launches)
+    d = {k: engine.stats[k] - s0[k] for k in keys}
+    dev1 = engine.device_seconds()
+    for r in resps:
+        _check_response(r, n_new, "serve_warm")
+    n_layers = mcfg.num_layers
+    if d["prefix_hit_tokens"] <= 0 or launches["chain"] <= 0 or launches["chain"] % n_layers:
+        raise AssertionError(f"[serve_warm] no radix hits or chain launches: {d}, launches {launches}")
+    cached = [r["cached_prefix_tokens"] for r in resps[1:]]
+    if min(cached) < len(system):
+        raise AssertionError(f"[serve_warm] a warm request missed the published system prompt: {cached}")
+    log(f"[serve_warm] 16/16 responses complete (the first alone, {t1 - t0:.2f} s, then 15 at once, "
+        f"{wall:.2f} s); radix hits {d['prefix_cache_hits']}, misses {d['prefix_cache_misses']}, hit tokens "
+        f"{d['prefix_hit_tokens']} ({min(cached)}..{max(cached)} per warm request); prefills {d['prefills']} "
+        f"over {d['prefill_tokens']} tokens; kernel #3 launches chain {launches['chain']} "
+        f"(= {n_layers} layers x {launches['chain'] // n_layers} warm prefill batches), tree {launches['tree']}")
+    errs = [_dense_check(model, prompts[i], resps[i], greedy=False) for i in (1, 3, 5)]
+    gaps = [_dense_check(model, prompts[i], resps[i], greedy=True) for i in (2, 4, 6)]
+    log(f"[serve_warm] warm responses vs dense prefill of prompt + output: sampled logprobs max|diff| "
+        f"{max(errs):.4f}, greedy tokens' dense-logit gap to argmax {max(gaps):.4f} (tol {LOGPROB_TOL})")
+    if max(errs) > LOGPROB_TOL or max(gaps) > LOGPROB_TOL:
+        raise AssertionError("[serve_warm] warm-admitted output disagrees with the dense prefill")
+    warm_s = dev1["prefill_s"] - dev0["prefill_s"]
+    warm_tok = dev1["prefill_tokens"] - dev0["prefill_tokens"]
+    toks = sum(len(r["output_tokens"]) for r in resps[1:])
+    log(f"[serve_warm] {card}: 15 warm requests {toks / wall:.1f} decode tok/s end to end; prefill "
+        f"{warm_tok} tokens (the first's full prompt + 15 suffixes) in {warm_s * 1e3:.1f} ms of device stream")
+    stats = _post(srv.address, "/flush_prefix_cache", {})
+    audit = engine.pool_audit()
+    if not (audit["ok"] and audit["radix_pages"] == 0
+            and audit["free"] + audit["slot_pages"] + audit["radix_pages"] == audit["total"]):
+        raise AssertionError(f"[serve_warm] pool audit after the flush: {audit}")
+    log(f"[serve_warm] /flush_prefix_cache freed {stats['freed_pages']} pages; pool audit ok: free "
+        f"{audit['free']} + slots {audit['slot_pages']} + radix {audit['radix_pages']} = {audit['total']}")
+    return dict(warm_launches=launches, warm_hit_tokens=d["prefix_hit_tokens"], warm_decode_tok_s=toks / wall,
+                warm_prefill_tokens=warm_tok, warm_prefill_s=warm_s)
+
+
+def _run_engine(engine, reqs: list, timeout: float = 600.0) -> list:
+    """Submit ``reqs`` together to a started engine; their responses in order."""
+    out: list = [None] * len(reqs)
+    done = threading.Semaphore(0)
+
+    def cb_for(i):
+        def cb(r):
+            out[i] = r
+            done.release()
+
+        return cb
+
+    for i, r in enumerate(reqs):
+        engine.submit(r, cb_for(i))
+    for _ in reqs:
+        if not done.acquire(timeout=timeout):
+            raise AssertionError("engine timed out")
+    return out
+
+
 def phase_serve_int8() -> int:
     from areal_tpu_torch.api.config import ServerConfig
     from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
@@ -690,7 +1003,6 @@ def phase_serve_int8() -> int:
         max_seq_len=1024,
         page_size=128,
         decode_steps_per_call=16,
-        enable_prefix_caching=False,
         kv_quantization="int8",
         seed=0,
     )
@@ -698,26 +1010,16 @@ def phase_serve_int8() -> int:
     engine.start()
     try:
         rng = np.random.default_rng(1)
+        reqs = [
+            ModelRequest(
+                input_ids=rng.integers(0, mcfg.vocab_size, int(n)).tolist(),
+                gconfig=GenerationHyperparameters(max_new_tokens=32, temperature=1.0),
+            )
+            for n in rng.integers(64, 513, 8)
+        ]
         paged_attention_stacked.launches = 0
         steps0 = engine.stats["decode_steps"]
-        done = threading.Semaphore(0)
-        resps: list = []
-
-        def cb(r):
-            resps.append(r)
-            done.release()
-
-        for n in rng.integers(64, 513, 8):
-            engine.submit(
-                ModelRequest(
-                    input_ids=rng.integers(0, mcfg.vocab_size, int(n)).tolist(),
-                    gconfig=GenerationHyperparameters(max_new_tokens=32, temperature=1.0),
-                ),
-                cb,
-            )
-        for _ in range(8):
-            if not done.acquire(timeout=600):
-                raise AssertionError("[serve_int8] timed out")
+        resps = _run_engine(engine, reqs)
         launches = paged_attention_stacked.launches
         steps = engine.stats["decode_steps"] - steps0
     finally:
@@ -731,6 +1033,121 @@ def phase_serve_int8() -> int:
     log(f"[serve_int8] 8/8 responses complete on int8 KV pages; scaled kernel launches "
         f"{launches} = {mcfg.num_layers} x {steps} steps")
     return launches
+
+
+def _greedy_divergence(model, prompt: list[int], a: list[int], b: list[int]) -> tuple[int, float, float]:
+    """Where two greedy outputs part: the index, and each one's token's logit
+    gap to the argmax in a dense prefill of prompt + the common prefix (a
+    near-tie shows as two small gaps)."""
+    from areal_tpu_torch.models import qwen
+
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        raise AssertionError(f"outputs of {len(a)} and {len(b)} tokens")
+    ids = torch.tensor([prompt + a[:i]], device="cuda")
+    with torch.no_grad():
+        h, _, _ = qwen.forward_prefill(model, ids, torch.arange(ids.shape[1], device="cuda")[None])
+        logits = qwen.compute_logits(model, h[0, -1])
+    top = logits.max().item()
+    return i, top - logits[a[i]].item(), top - logits[b[i]].item()
+
+
+def phase_spec(card: str) -> dict:
+    """Speculative decoding at full width and depth: 8 greedy requests whose
+    prompts repeat n-grams, through a non-speculative engine and then engines
+    with the ngram drafter and the tree drafter (the same weights). The
+    speculative engines' tokens must equal the non-speculative engine's;
+    verify runs kernel #3's tree launches."""
+    from areal_tpu_torch.api.config import ServerConfig, SpeculativeConfig
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(4))
+    rng = np.random.default_rng(4)
+    prompts = []
+    for n in rng.integers(64, 257, 8):
+        block = rng.integers(0, mcfg.vocab_size, int(rng.integers(4, 17))).tolist()
+        prompts.append((block * (int(n) // len(block) + 1))[: int(n)] + rng.integers(0, mcfg.vocab_size, 4).tolist())
+    n_new = 64
+
+    def reqs():
+        return [ModelRequest(input_ids=p, gconfig=GenerationHyperparameters(max_new_tokens=n_new, greedy=True))
+                for p in prompts]
+
+    base = dict(max_batch_size=32, max_seq_len=1024, page_size=128, decode_steps_per_call=16, seed=0)
+
+    def run(spec: SpeculativeConfig | None):
+        cfg = ServerConfig(**base) if spec is None else ServerConfig(**base, speculative=spec)
+        eng = DecodeEngine(cfg, params=model)
+        eng.start()
+        try:
+            t0 = time.monotonic()
+            resps = _run_engine(eng, reqs())
+            wall = time.monotonic() - t0
+        finally:
+            eng.stop()
+        for r in resps:
+            if len(r.output_tokens) != n_new:
+                raise AssertionError(f"[spec] incomplete response {len(r.output_tokens)}/{n_new} ({r.stop_reason})")
+        return eng, [r.output_tokens for r in resps], wall
+
+    _, ref, ref_wall = run(None)
+    ref_gap = max(_dense_check(model, p, {"output_tokens": r}, greedy=True) for p, r in zip(prompts, ref))
+    log(f"[spec] {card}: non-speculative engine: 8 greedy requests x {n_new} tokens in {ref_wall:.2f} s "
+        f"({8 * n_new / ref_wall:.1f} tok/s)")
+    out = {"ref_tok_s": 8 * n_new / ref_wall}
+    # main path: counts to 0 just before, read just after
+    for k in psa.launches:
+        psa.launches[k] = 0
+    for drafter in ("ngram", "tree"):
+        spec = SpeculativeConfig(enabled=True, drafter=drafter)
+        eng, got, wall = run(spec)
+        st, audit, dev = eng.stats, eng.pool_audit(), eng.device_seconds()
+        same = sum(g == r for g, r in zip(got, ref))
+        # bf16 greedy decoding is not bit-reproducible across the two paths:
+        # verify reaches a token's hidden state through kernel #3 and GEMMs
+        # of S*B rows, decode through kernel #1 and GEMMs of S rows, and
+        # cuBLAS picks kernels by shape, so the roundings differ and a
+        # near-tie can go either way. Held instead: each request equals the
+        # non-speculative engine's up to its first difference, where both
+        # tokens sit within LOGPROB_TOL of the dense argmax (a near-tie),
+        # and every token the speculative engine emits is the dense argmax
+        # within LOGPROB_TOL (the serve phase's greedy bound)
+        parts = [_greedy_divergence(model, prompts[i], got[i], ref[i]) for i in range(len(ref)) if got[i] != ref[i]]
+        spec_gap = max(_dense_check(model, p, {"output_tokens": g}, greedy=True) for p, g in zip(prompts, got))
+        log(f"[spec] {card}: {drafter} drafter (spec_depth {spec.spec_depth}, B={spec.max_nodes()} verify rows): "
+            f"{same}/8 requests token-identical to the non-speculative engine; the others part at near-ties "
+            f"(token index, dense-logit gaps to argmax of the speculative / non-speculative token): "
+            + (", ".join(f"{i} ({a:.4f} / {b:.4f})" for i, a, b in parts) or "none")
+            + f"; speculative tokens' max dense-logit gap {spec_gap:.4f} (non-speculative {ref_gap:.4f}, tol "
+            f"{LOGPROB_TOL}); {8 * n_new / wall:.1f} tok/s ({wall:.2f} s); spec_rounds {st['spec_rounds']}, draft "
+            f"tokens {st['spec_draft_tokens']}, accepted {st['spec_accepted_tokens']} "
+            f"({st['spec_accepted_tokens'] / max(1, st['spec_draft_tokens']):.1%}), rollback pages "
+            f"{st['spec_rollback_pages']}; {dev['spec_s'] / max(1, dev['spec_rounds']) * 1e3:.2f} ms of device "
+            f"stream per round; pool audit ok {audit['ok']} (free {audit['free']} + radix {audit['radix_pages']} "
+            f"= {audit['total']})")
+        if any(max(a, b) > LOGPROB_TOL for _, a, b in parts) or spec_gap > LOGPROB_TOL:
+            raise AssertionError(f"[spec] {drafter}: speculative greedy tokens off the model's argmax beyond a near-tie")
+        if st["spec_rounds"] <= 0 or st["spec_accepted_tokens"] <= 0:
+            raise AssertionError(f"[spec] {drafter}: no speculative rounds or no accepted drafts")
+        if not (audit["ok"] and audit["slot_pages"] == 0 and audit["free"] + audit["radix_pages"] == audit["total"]):
+            raise AssertionError(f"[spec] {drafter}: pool audit after the wave: {audit}")
+        out[drafter] = dict(tok_s=8 * n_new / wall, identical=same, max_gap=spec_gap,
+                            rounds=st["spec_rounds"], draft=st["spec_draft_tokens"],
+                            accepted=st["spec_accepted_tokens"], rollback_pages=st["spec_rollback_pages"],
+                            ms_per_round=dev["spec_s"] / max(1, dev["spec_rounds"]) * 1e3)
+    launches = dict(psa.launches)
+    if launches["tree"] <= 0 or launches["tree"] % mcfg.num_layers:
+        raise AssertionError(f"[spec] kernel #3 tree launches {launches}")
+    log(f"[spec] kernel #3 launches: tree {launches['tree']} (= {mcfg.num_layers} layers x "
+        f"{launches['tree'] // mcfg.num_layers} verify forwards), chain {launches['chain']}")
+    out["launches"] = launches
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 _SNAP_ROWS = 4096  # embedding rows watched
@@ -759,27 +1176,12 @@ def _rollout(engine, prompts: list[list[int]], n_samples: int, n_new: int):
     from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
 
     reqs = [p for p in prompts for _ in range(n_samples)]
-    out: list = [None] * len(reqs)
-    done = threading.Semaphore(0)
-
-    def cb_for(i):
-        def cb(r):
-            out[i] = r
-            done.release()
-
-        return cb
-
-    for i, p in enumerate(reqs):
-        engine.submit(
-            ModelRequest(
-                input_ids=p,
-                gconfig=GenerationHyperparameters(max_new_tokens=n_new, temperature=1.0),
-            ),
-            cb_for(i),
-        )
-    for _ in reqs:
-        if not done.acquire(timeout=900):
-            raise AssertionError("[train] rollout timed out")
+    out = _run_engine(
+        engine,
+        [ModelRequest(input_ids=p, gconfig=GenerationHyperparameters(max_new_tokens=n_new, temperature=1.0))
+         for p in reqs],
+        timeout=900,
+    )
     trajs = []
     for p, r in zip(reqs, out):
         if len(r.output_tokens) != n_new:
@@ -850,8 +1252,10 @@ def phase_train(card: str) -> dict:
     trainer.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=64, train_batch_size=n_prompts), seed=0)
     actor = PPOActor(cfg, trainer)
     engine = DecodeEngine(
-        ServerConfig(max_batch_size=32, max_seq_len=1024, page_size=128, decode_steps_per_call=16,
-                     enable_prefix_caching=False, seed=0),
+        # the prefix-cache settings of ServerConfig(): a wave's duplicate
+        # prompts alias the primary's pages; the radix tree flushes at a
+        # weight commit
+        ServerConfig(max_batch_size=32, max_seq_len=1024, page_size=128, decode_steps_per_call=16, seed=0),
         params=trainer.model.state_dict(),
         model_cfg=mcfg,
     )
@@ -878,11 +1282,20 @@ def phase_train(card: str) -> dict:
     gaps = []
     snap0 = None
     adv = None
+    admissions = []
     try:
         for step in range(2):
             tb = time.monotonic()
+            s0 = {k: engine.stats[k] for k in ("prefills", "prefix_shared", "prefix_cache_hits")}
             batch = pad_sequences_to_tensors(_rollout(engine, prompts, group, n_new))
             parts["rollout"] += time.monotonic() - tb
+            adm = {k: engine.stats[k] - v for k, v in s0.items()}
+            admissions.append(adm)
+            log(f"[train] wave {step}: {n_prompts} prompts x {group} samples admitted as {adm['prefills']} "
+                f"prefills (radix hits {adm['prefix_cache_hits']}) + {adm['prefix_shared']} samples aliasing "
+                f"a duplicate's pages")
+            if adm["prefix_shared"] <= 0 or adm["prefills"] + adm["prefix_shared"] != n_prompts * group:
+                raise AssertionError(f"[train] wave {step}: duplicate prompts not aliased: {adm}")
             vers = np.asarray(batch["versions"])[np.asarray(batch["loss_mask"]) > 0]
             if not (vers == step).all():
                 raise AssertionError(f"[train] wave {step}: token versions {sorted(set(vers.tolist()))} != {{{step}}}")
@@ -927,6 +1340,10 @@ def phase_train(card: str) -> dict:
                 parts["weight_update"] += time.monotonic() - tb
                 if engine.get_version() != 1 or trainer.get_version() != 1:
                     raise AssertionError("[train] versions after the update are not 1")
+                held = engine.prefix_cache_stats()["pages_held"]
+                if held != 0:
+                    raise AssertionError(f"[train] the radix tree holds {held} pages after the weight update")
+                log("[train] radix tree empty after update_weights (across_updates='flush')")
         counts = [kern.launches for kern in kernels]
     finally:
         engine.stop()
@@ -993,10 +1410,23 @@ def phase_train(card: str) -> dict:
     del trainer, actor, engine
     torch.cuda.empty_cache()
     return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
-                parts=parts, tokens_per_s=trained_tokens / parts["ppo_update"], peak_gib=peak, gaps=gaps, norms=norms)
+                parts=parts, tokens_per_s=trained_tokens / parts["ppo_update"], peak_gib=peak, gaps=gaps, norms=norms,
+                admissions=admissions)
 
 
-def main() -> int:
+PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spec", "train")
+
+
+def main(argv: list[str]) -> int:
+    only = None
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = argv[1].split(",")
+        if set(only) - set(PHASES):
+            print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
+            return 2
+    elif argv:
+        print("usage: chip_smoke.py [--only phase,phase,...]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1011,13 +1441,25 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.monotonic()
     phase_build()
-    per = phase_kernel()
-    flash = phase_kernel_flash()
-    launches, _ = phase_serve(card)
-    torch.cuda.empty_cache()
-    phase_serve_int8()
-    torch.cuda.empty_cache()
-    train = phase_train(card)
+    runs = {
+        "kernel": phase_kernel,
+        "kernel_flash": phase_kernel_flash,
+        "kernel_suffix": phase_kernel_suffix,
+        "serve": lambda: phase_serve(card),
+        "serve_int8": phase_serve_int8,
+        "spec": lambda: phase_spec(card),
+        "train": lambda: phase_train(card),
+    }
+    res = {}
+    for name in PHASES:
+        if only is None or name in only:
+            res[name] = runs[name]()
+            torch.cuda.empty_cache()
+    if only is not None:
+        log(f"[done] phases {only} passed in {time.monotonic() - t0:.1f}s on {card} (a partial run: no result)")
+        return 0
+    per, flash, suffix, train = res["kernel"], res["kernel_flash"], res["kernel_suffix"], res["train"]
+    launches, serve = res["serve"]
     b = per["bf16"]
     kernels = [
         {
@@ -1053,6 +1495,27 @@ def main() -> int:
             "bound_by": d["bound_by"],
             "library_ms": d["library_ms"],
         })
+    # kernel #3: launches of the serve phase's warm wave (chain) and the spec
+    # phase (tree); the times of the warm-prefill shape with bf16 pages, the
+    # verify shapes beside them
+    chain, tree = serve["warm_launches"]["chain"], res["spec"]["launches"]["tree"]
+    w = suffix["warm_prefill/bf16"]
+    kernels.append({
+        "name": "paged_suffix_attention",
+        "route": "cuda",
+        "source": "areal_tpu_torch/csrc/paged_suffix_attention.cu",
+        "replaces": "areal_tpu/ops/paged_suffix_attention.py:370",
+        "launches": chain + tree,
+        "launches_by_kind": {"chain": chain, "tree": tree},
+        "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
+        "ms": w["ms"],
+        "plain_ms": w["plain_ms"],
+        "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"],
+        "library_ms": w["library_ms"],
+        "shapes": {k: {f: d[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                   for k, d in suffix.items()},
+    })
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -1067,4 +1530,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -196,3 +196,108 @@ def test_flash_kernels_refuse_bad_arguments(cuda):
     q2, k2, v2, _, seg2 = _flash_case(cuda, 1, 128, 2, 96, [[128]])
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q2, k2, v2, seg2, with_lse=False)
+
+
+# ---------------------------------------------------------------------------
+# kernel #3: paged suffix attention (chain mask = warm prefill, tree mask =
+# speculative verify)
+# ---------------------------------------------------------------------------
+
+from areal_tpu_torch.ops import paged_suffix_attention as psa  # noqa: E402
+
+
+def _suffix_case(dev, S, B, H, KH, hd, psz, wp, kv, kind, seed=0):
+    """Ragged prefixes (0, a partial page, full windows), shared pages, and
+    a chain mask with padded rows or random draft trees."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_layers, N = 3, S * wp + 1
+    plens = torch.randint(0, wp * psz + 1, (S,), generator=g, dtype=torch.int32)
+    plens[: min(S, 3)] = torch.tensor([0, psz + 3, wp * psz], dtype=torch.int32)[: min(S, 3)]
+    perm = torch.randperm(N - 1, generator=g).to(torch.int32) + 1
+    pt = torch.zeros((S, wp), dtype=torch.int32)
+    for s in range(S):
+        need = -(-int(plens[s]) // psz)
+        pt[s, :need] = perm[s * wp : s * wp + need]
+    if S > 2:
+        pt[1, 0] = pt[2, 0]  # a shared page
+    if kind == "chain":
+        lens = torch.randint(1, B + 1, (S,), generator=g)
+        lens[0] = B
+        mask = torch.tril(torch.ones((B, B), dtype=torch.bool))[None].repeat(S, 1, 1)
+        idx = torch.arange(B)
+        mask &= (idx[None, :, None] < lens[:, None, None]) & (idx[None, None, :] < lens[:, None, None])
+    else:
+        mask = torch.zeros((S, B, B), dtype=torch.bool)
+        for s in range(S):
+            mask[s, 0, 0] = True
+            for j in range(1, B):
+                p = int(torch.randint(0, j, (1,), generator=g))
+                mask[s, j] = mask[s, p]
+                mask[s, j, j] = True
+    q = torch.randn((S, B, H, hd), generator=g).to(torch.bfloat16)
+    ks, vs = (torch.randn((S, B, KH, hd), generator=g).to(torch.bfloat16) for _ in range(2))
+    k = torch.randn((n_layers, KH, N, psz, hd), generator=g).to(torch.bfloat16)
+    v = torch.randn((n_layers, KH, N, psz, hd), generator=g).to(torch.bfloat16)
+    sc = {}
+    if kv != "bf16":
+        k, k_s = paged_kv.quantize_kv(k, paged_kv.quant_dtype(kv))
+        v, v_s = paged_kv.quantize_kv(v, paged_kv.quant_dtype(kv))
+        sc = dict(k_scales=k_s.to(dev), v_scales=v_s.to(dev))
+    t = [x.to(dev) for x in (q, ks, vs, k, v, plens, pt, mask)]
+    return t, sc
+
+
+SUFFIX_SHAPES = {
+    # S, B, H, KH, hd, psz, wp
+    "warm-prefill-qwen2.5-1.5b": (4, 150, 12, 2, 128, 128, 8),
+    "verify-chain-B5": (32, 5, 12, 2, 128, 128, 16),
+    "verify-tree-B9": (32, 9, 12, 2, 128, 128, 16),
+    "small-pages-hd64-G1": (5, 70, 4, 4, 64, 16, 9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", list(SUFFIX_SHAPES))
+def test_suffix_kernel_matches_plain(cuda, shape, kv):
+    S, B, H, KH, hd, psz, wp = SUFFIX_SHAPES[shape]
+    kind = "tree" if "tree" in shape else "chain"
+    (q, ks, vs, k, v, plens, pt, mask), sc = _suffix_case(cuda, S, B, H, KH, hd, psz, wp, kv, kind)
+    layer = 2
+    before = dict(psa.paged_suffix_attention.launches)
+    got = psa.paged_suffix_attention(q, ks, vs, k, v, layer, plens, pt, mask, kind=kind, **sc)
+    want = psa.paged_suffix_attention_plain(
+        q, ks, vs, k, v, layer, plens, pt, mask, sc.get("k_scales"), sc.get("v_scales")
+    )
+    torch.cuda.synchronize()
+    assert psa.paged_suffix_attention.launches[kind] == before[kind] + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    live = mask.any(-1)  # [S, B]
+    assert torch.count_nonzero(got[~live]) == 0  # rows with no valid bit: exact zeros
+    _assert_flash_close(got, want, live)
+
+
+@pytest.mark.cuda
+def test_suffix_kernel_reads_a_column_slice_of_the_page_table(cuda):
+    (q, ks, vs, k, v, plens, pt, mask), _ = _suffix_case(cuda, 6, 9, 12, 2, 128, 16, 4, "bf16", "tree")
+    wide = torch.zeros((6, 11), dtype=torch.int32, device=cuda)
+    wide[:, :4] = pt  # the engine passes a column slice of a wider table
+    got = psa.paged_suffix_attention(q, ks, vs, k, v, 0, plens, wide[:, :4], mask, kind="tree")
+    want = psa.paged_suffix_attention_plain(q, ks, vs, k, v, 0, plens, pt, mask)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, mask.any(-1))
+
+
+@pytest.mark.cuda
+def test_suffix_kernel_refuses_bad_arguments(cuda):
+    (q, ks, vs, k, v, plens, pt, mask), _ = _suffix_case(cuda, 4, 5, 12, 2, 128, 16, 2, "bf16", "chain")
+    with pytest.raises(TypeError):
+        psa.paged_suffix_attention(q.float(), ks.float(), vs.float(), k, v, 0, plens, pt, mask)
+    with pytest.raises(ValueError):
+        psa.paged_suffix_attention(q, ks, vs, k, v, 0, plens.long(), pt, mask)
+    with pytest.raises(ValueError):
+        psa.paged_suffix_attention(q, ks, vs, k, v, 0, plens, pt, mask.int())
+    with pytest.raises(ValueError):
+        psa.paged_suffix_attention(q, ks, vs, k.to(torch.int8), v.to(torch.int8), 0, plens, pt, mask)
+    with pytest.raises(ValueError):
+        psa.paged_suffix_attention(q, ks, vs, k, v, 3, plens, pt, mask)  # 3 layers: 0..2

@@ -108,7 +108,6 @@ def _server_kwargs():
         max_seq_len=128,
         page_size=16,
         decode_steps_per_call=4,
-        enable_prefix_caching=False,
         seed=0,
     )
 
@@ -273,9 +272,10 @@ def test_model_init_is_seeded():
 
 def test_pool_exhaustion_preempts_and_frees_every_page(weights):
     """A KV budget of 8 pages (7 usable) cannot hold two growing sequences:
-    _ensure_pages preempts the slot with the most budget left (it returns
-    "abort" with its partial tokens) or clamps a slot to the pages it holds,
-    and every page returns to the pool."""
+    _ensure_pages evicts radix pages, then preempts the slot with the most
+    budget left (it returns "abort" with its partial tokens) or clamps a
+    slot to the pages it holds, and every page returns to the pool or stays
+    with the radix tree."""
     kw = _server_kwargs()
     page_bytes = 2 * TINY_QWEN2.num_layers * TINY_QWEN2.num_kv_heads * kw["page_size"] * TINY_QWEN2.head_dim_ * 4
     cfg = ServerConfig(**kw, kv_hbm_gb=8 * page_bytes / (1 << 30))
@@ -294,4 +294,7 @@ def test_pool_exhaustion_preempts_and_frees_every_page(weights):
     assert eng.stats["preempted"] >= 1 and "abort" in reasons
     assert all(len(r.output_tokens) == len(r.output_logprobs) == len(r.output_versions) for r in out)
     assert all(len(r.output_tokens) < 100 for r in out)  # nobody got its full budget
-    assert eng.pool.used == 0
+    # every page is back in the pool but those the radix tree published
+    audit = eng.pool_audit()
+    assert audit["ok"] and audit["free"] + audit["radix_pages"] == audit["total"]
+    assert eng.pool.used == eng.prefix_cache_stats()["pages_held"]

@@ -60,7 +60,7 @@ def test_no_silent_cpu_fallback():
     """Without a card and without device="cpu", every entry point raises."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-GPU refusal cannot be observed")
-    cfg = ServerConfig(enable_prefix_caching=False)
+    cfg = ServerConfig()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError):
@@ -75,18 +75,46 @@ def test_no_silent_cpu_fallback():
 @pytest.mark.parametrize(
     "change",
     [
-        dict(enable_prefix_caching=True),
-        dict(speculative=SpeculativeConfig(enabled=True)),
         dict(quantization="int8"),
         dict(enable_frequency_penalty=True),
         dict(mesh=MeshConfig(model=2)),
     ],
-    ids=["prefix_cache", "speculative", "int8_weights", "freq_penalty", "mesh"],
+    ids=["int8_weights", "freq_penalty", "mesh"],
 )
 def test_unported_options_refused(change):
-    cfg = dataclasses.replace(ServerConfig(enable_prefix_caching=False), **change)
+    cfg = dataclasses.replace(ServerConfig(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "change",
+    [{}, dict(speculative=SpeculativeConfig(enabled=True))],
+    ids=["defaults", "speculative"],
+)
+def test_default_server_config_serves(change):
+    """``ServerConfig()`` as it comes (radix prefix cache on, 32 slots of
+    32,768 tokens), and with speculative decoding on, initializes and answers
+    a request (a one-layer model keeps the default page pool small)."""
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
+
+    cfg = dataclasses.replace(ServerConfig(), **change)
+    assert cfg.enable_prefix_caching and cfg.prefix_cache.enabled
+    mcfg = qwen.ModelConfig(vocab_size=64, hidden_size=16, intermediate_size=32, num_layers=1,
+                            num_heads=2, num_kv_heads=1, dtype="float32")
+    model = qwen.init_params(mcfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = DecodeEngine(cfg, params=model, device="cpu")
+    eng.start()
+    try:
+        resp = eng.generate_sync(
+            ModelRequest(input_ids=[1, 2, 3, 1, 2, 3], gconfig=GenerationHyperparameters(max_new_tokens=5, greedy=True)),
+            timeout=120,
+        )
+    finally:
+        eng.stop()
+    assert resp.stop_reason == "length" and len(resp.output_tokens) == 5
+    assert eng.prefix_cache_stats()["enabled"] and eng.prefix_cache_stats()["pages_held"] == 0
+    assert (eng.stats["spec_rounds"] > 0) == bool(change)
 
 
 def test_trainer_refuses_without_card():

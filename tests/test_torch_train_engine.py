@@ -357,7 +357,7 @@ def test_update_weights_mem_into_decode_engine():
     tcfg = PPOActorConfig(dtype="float32", param_dtype="float32", bucket_step=64)
     teng = tte.TorchTrainEngine(tcfg, model_config=cfg, device="cpu")
     teng.initialize(FinetuneSpec(1, 16, 4), seed=3)
-    scfg = ServerConfig(max_batch_size=4, max_seq_len=128, page_size=16, decode_steps_per_call=4, enable_prefix_caching=False, seed=0)
+    scfg = ServerConfig(max_batch_size=4, max_seq_len=128, page_size=16, decode_steps_per_call=4, seed=0)
     other = tq.QwenModel(cfg, device="cpu")
     other.load_state_dict(convert.from_jax_params(jax_params(TINY_QWEN2, seed=5), cfg))
     dec = DecodeEngine(scfg, params=other, device="cpu")
