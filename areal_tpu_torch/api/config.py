@@ -167,7 +167,13 @@ class TrainEngineConfig:
     # only "mem" is ported, so it is the default here (the JAX package's
     # default is "disk", which writes a checkpoint: not ported)
     weight_update_mode: str = "mem"  # disk|mem
-    tree_training: bool = False  # not ported
+    # tree training: merge shared-prefix sequences (GRPO groups) into tries
+    # and run forward and backward once per unique node through the tree
+    # kernels (ops/tree_attention.py); the loss still sees per-sequence
+    # edge-gathered logprobs
+    tree_training: bool = False
+    tree_node_budget: int = 2048  # max trie nodes per microbatch forward
+    tree_node_bucket: int = 512  # node-axis bucketing
     train_vision_tower: bool = False  # not ported
 
 

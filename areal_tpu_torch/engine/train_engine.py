@@ -23,11 +23,18 @@ What is kept from the JAX engine:
   count, so the first step has LR 0 and moves nothing.
 - ``loss_fn(outputs, batch) -> (loss, {stat: scalar})``; ``outputs`` has
   label-aligned ``logprobs`` / ``entropy`` grids.
+- Tree training (``tree_training=True``): ``train_batch`` and
+  ``compute_grads`` chunk the batch into forests under
+  ``tree_node_budget`` nodes (``_make_tree_batches``), one microbatch per
+  forest, whose forward and backward run once per unique trie node through
+  the tree kernels; the loss sees the same label-aligned [B, T] outputs,
+  gathered from the trie's edges. ``forward_batch`` and ``eval_batch``
+  stay on the packed grids, as in the JAX engine.
 
-Not ported (``_check_supported`` raises ``NotImplementedError``): tree
-training, LoRA, the vision tower, a critic / value head, multi-device
-meshes and ``weight_update_mode="disk"``; also saving, loading, offloading
-and the observability surfaces (per-sequence loss attribution, phases).
+Not ported (``_check_supported`` raises ``NotImplementedError``): LoRA, the
+vision tower, a critic / value head, multi-device meshes and
+``weight_update_mode="disk"``; also saving, loading, offloading and the
+observability surfaces (per-sequence loss attribution, phases).
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ from areal_tpu_torch.api.config import MicroBatchSpec, OptimizerConfig, TrainEng
 from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.models import qwen
+from areal_tpu_torch.models import tree as tree_lib
 from areal_tpu_torch.ops.attention import resolve_impl
+from areal_tpu_torch.ops.tree_attention import BLOCK, forest_hidden, pack_ancestor_bits
 from areal_tpu_torch.utils.data import TensorDict, round_up_to_bucket, seqlens_of
 from areal_tpu_torch.utils.grid import Grid, pack_grid
 
@@ -200,8 +209,11 @@ class TorchTrainEngine:
                 "loading an HF checkpoint (TrainEngineConfig.path) waits for a checkpoint in "
                 "the repository (ROADMAP Queue A); pass model_config"
             )
-        if cfg.tree_training:
-            raise NotImplementedError("tree training: ROADMAP Queue A, tree training (kernels #4-#6)")
+        if cfg.tree_training and value_head:
+            raise NotImplementedError(
+                "tree training is a policy-only path, as in the JAX engine (critics: ROADMAP "
+                "Queue A, trainer (critic))"
+            )
         if cfg.lora_rank > 0:
             raise NotImplementedError("LoRA: ROADMAP Queue A, LoRA and int8 weight serving")
         if cfg.train_vision_tower:
@@ -256,10 +268,14 @@ class TorchTrainEngine:
             return self._version
 
     # -- grid construction ------------------------------------------------
-    def _make_grids(self, input_: TensorDict, mb_spec: MicroBatchSpec | None = None) -> list[Grid]:
-        """Padded batch -> microbatch grids (FFD rows, bucketed L)."""
+    @staticmethod
+    def _refuse_images(input_: TensorDict) -> None:
         if "pixel_values" in input_ or "image_embeds" in input_:
             raise NotImplementedError("image inputs: ROADMAP Queue A, vision")
+
+    def _make_grids(self, input_: TensorDict, mb_spec: MicroBatchSpec | None = None) -> list[Grid]:
+        """Padded batch -> microbatch grids (FFD rows, bucketed L)."""
+        self._refuse_images(input_)
         cfg = self.config
         lens = seqlens_of(input_)
         row_len = round_up_to_bucket(int(lens.max()), cfg.bucket_step)
@@ -299,6 +315,108 @@ class TorchTrainEngine:
             for k, v in batch.items()
         }
 
+    # -- tree training ----------------------------------------------------
+    def _make_tree_batches(self, input_: TensorDict) -> tuple[list[dict], dict[str, float]]:
+        """Padded [B, T] batch -> host forest microbatches + dedup stats
+        (``train_engine.py:996``). Sequences chunk into forests under
+        ``tree_node_budget`` unique nodes, GRPO groups kept whole
+        (``tree.pack_forest``); each forest's ancestor relation packs into
+        mask words, and every label-aligned loss key is sliced to the
+        forest's rows. The node axis pads to a ``tree_node_bucket`` bucket
+        (a multiple of BLOCK), the time axis to a ``bucket_step`` bucket
+        capped at T, and the rows to a bucket of 8 with inert dummy rows
+        (label_valid False, zero loss keys)."""
+        self._refuse_images(input_)
+        cfg = self.config
+        lens = seqlens_of(input_)
+        ids = np.asarray(input_["input_ids"])
+        T_orig = ids.shape[1]
+        seqs = [ids[b, : lens[b]] for b in range(len(lens))]
+        packs = tree_lib.pack_forest(seqs, cfg.tree_node_budget, getattr(cfg, "group_size", 1))
+        batches: list[dict] = []
+        for pack, rows in packs:
+            N = pack.n_nodes
+            n_pad = round_up_to_bucket(N, max(cfg.tree_node_bucket, BLOCK))
+            n_pad = -(-n_pad // BLOCK) * BLOCK
+            words, block_any = pack_ancestor_bits(pack.parent, n_pad)
+            node_ids = np.zeros(n_pad, np.int32)
+            node_ids[:N] = pack.tokens
+            node_pos = np.zeros(n_pad, np.int32)
+            node_pos[:N] = pack.depth
+            # edge j (every non-root node): score row parent(j) against
+            # token(j); roots clamp to row 0 and are never gathered
+            edge_rows = np.zeros(n_pad, np.int32)
+            edge_rows[:N] = np.maximum(pack.parent, 0)
+            edge_labels = np.zeros(n_pad, np.int32)
+            edge_labels[:N] = pack.tokens
+            Tp = min(T_orig, round_up_to_bucket(int(max(lens[r] for r in rows)), cfg.bucket_step))
+            B = len(rows)
+            B_pad = round_up_to_bucket(B, 8)
+            gather = np.zeros((B_pad, Tp), np.int32)
+            label_valid = np.zeros((B_pad, Tp), bool)
+            for i in range(B):
+                nodes = pack.seq_nodes[i]
+                gather[i, : len(nodes) - 1] = nodes[1:]
+                label_valid[i, : len(nodes) - 1] = True
+            batch = {
+                "node_ids": node_ids,
+                "node_pos": node_pos,
+                "mask_words": words,
+                "block_any": block_any,
+                "edge_rows": edge_rows,
+                "edge_labels": edge_labels,
+                "gather_idx": gather,
+                "label_valid": label_valid,
+            }
+            for k in _GRID_KEYS:
+                if k in ("labels", "label_valid") or k not in input_:
+                    continue
+                v = np.asarray(input_[k])[rows]
+                if v.ndim >= 2 and v.shape[1] == T_orig:
+                    v = v[:, :Tp]
+                if B_pad > B:
+                    v = np.concatenate([v, np.zeros((B_pad - B, *v.shape[1:]), v.dtype)], axis=0)
+                batch[k] = v
+            batches.append(batch)
+        total_tokens = int(lens.sum())
+        total_nodes = sum(p.n_nodes for p, _ in packs)
+        stats = {
+            "tree_tokens": float(total_tokens),
+            "tree_nodes": float(total_nodes),
+            # forward / backward FLOPs scale with nodes, not tokens
+            "tree_dedup_ratio": float(total_tokens) / max(total_nodes, 1),
+        }
+        return batches, stats
+
+    def _tree_batch_to_device(self, batch: dict) -> dict[str, torch.Tensor]:
+        """Host forest arrays as device tensors; the uint32 mask words go as
+        their int32 bits (``ops/tree_attention.py``)."""
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            v = v.view(np.int32) if v.dtype == np.uint32 else _np_device_dtype(v)
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        return out
+
+    def _tree_outputs_fn(self, batch: dict[str, torch.Tensor]) -> dict:
+        """Label-aligned ``logprobs`` / ``entropy`` [B, T] of one forest
+        (``train_engine.py:852``): the decoder runs once per trie node, the
+        chunked vocab pass once per edge (row parent(j) against token(j)),
+        and ``gather_idx`` maps each sequence's token t+1 to its edge."""
+        view = qwen.ParamView(self.model, self.model_cfg)
+        hidden = forest_hidden(
+            view, batch["node_ids"], batch["node_pos"], batch["mask_words"], batch["block_any"]
+        )
+        logp, ent = qwen.chunked_logprobs_entropy(
+            view,
+            hidden[batch["edge_rows"].long()][None],
+            batch["edge_labels"][None],
+            chunk_size=self.config.logprob_chunk_size,
+            temperature=self._logit_temperature,
+        )
+        gather = batch["gather_idx"].long()
+        return {"logprobs": logp[0][gather], "entropy": ent[0][gather]}
+
     # -- model ------------------------------------------------------------
     def _outputs_fn(self, batch: dict[str, torch.Tensor], no_grad: bool = False) -> dict:
         """Label-aligned ``logprobs`` / ``entropy`` [G, L] of one grid, from
@@ -335,13 +453,20 @@ class TorchTrainEngine:
         scalar for the optimizer step."""
         if self.model is None:
             raise RuntimeError("engine not initialized")
-        grids = self._make_grids(input_, mb_spec=mb_spec)
-        weights = [float(loss_weight_fn(g.data)) for g in grids]
+        extra: dict[str, float] = {}
+        if self.config.tree_training:  # one microbatch per forest
+            mbs, extra = self._make_tree_batches(input_)
+            weights = [float(loss_weight_fn(b)) for b in mbs]
+            to_device, outputs_fn = self._tree_batch_to_device, self._tree_outputs_fn
+        else:
+            mbs = self._make_grids(input_, mb_spec=mb_spec)
+            weights = [float(loss_weight_fn(g.data)) for g in mbs]
+            to_device, outputs_fn = self._grid_to_device, self._outputs_fn
         total_w = sum(weights) or 1.0
         pending: list[dict[str, torch.Tensor]] = []
-        for g, w in zip(grids, weights):
-            batch = self._grid_to_device(g)
-            loss, stats = loss_fn(self._outputs_fn(batch), batch)
+        for mb, w in zip(mbs, weights):
+            batch = to_device(mb)
+            loss, stats = loss_fn(outputs_fn(batch), batch)
             loss = loss * (w / total_w)
             loss.backward()
             pending.append({**{k: v.detach() for k, v in stats.items()}, "loss": loss.detach()})
@@ -353,13 +478,14 @@ class TorchTrainEngine:
         for ks in keys:
             mb_host.append(dict(zip(ks, flat[i : i + len(ks)])))
             i += len(ks)
-        if len(grids) == 1:
+        if len(mbs) == 1:
             agg = dict(mb_host[0])
         else:
             agg = {}
             _fold_weighted_stats(agg, mb_host, weights, total_w)
         agg["grad_norm"] = flat[-1]
-        agg["n_microbatches"] = float(len(grids))
+        agg["n_microbatches"] = float(len(mbs))
+        agg.update(extra)
         return agg, gnorm
 
     def _grads(self) -> list[torch.Tensor]:

@@ -41,6 +41,7 @@ from areal_tpu_torch.ops.attention import (
 )
 from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
 from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention
+from areal_tpu_torch.ops.tree_attention import tree_attention
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -277,8 +278,9 @@ class ParamView:
 
 def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: bool):
     """One transformer block over x [G, L, D] (models/qwen.py:595). ``mask``
-    is the segment ids for the flash kernels, the [G, 1, L, L] bool mask for
-    ``sdpa_plain``."""
+    is the segment ids for the flash kernels ("pallas"), the [G, 1, L, L]
+    bool mask for ``sdpa_plain`` ("xla"), or the (words, block_any) of one
+    packed forest for the tree kernels ("tree", G = 1)."""
     G, L, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     q, k, v = _qkv(cfg, layer, x, rope)
@@ -288,6 +290,8 @@ def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: b
     if impl == "pallas":
         attn_fn = flash_fwd if no_grad else flash_train
         attn = attn_fn(q, k, v, mask)
+    elif impl == "tree":
+        attn = tree_attention(q[0], k[0], v[0], *mask)[None]
     else:
         attn = sdpa_plain(q, k, v, mask, hd)
     x = x + _proj(attn.reshape(G, L, H * hd), layer.wo)
@@ -304,17 +308,23 @@ def forward(
 ) -> torch.Tensor:
     """Decoder body -> final hidden states [G, L, D] (models/qwen.py:679).
     ``cfg.attn_impl`` picks the attention: "pallas" runs ``flash_train``
-    (``flash_fwd`` when ``no_grad``), "xla" the plain masked softmax. With
+    (``flash_fwd`` when ``no_grad``), "xla" the plain masked softmax."""
+    impl = resolve_impl(model.cfg.attn_impl)
+    mask = segment_ids.to(torch.int32).contiguous() if impl == "pallas" else _attention_mask(segment_ids)
+    return forward_masked(model, input_ids, positions, mask, impl, no_grad)
+
+
+def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool = False) -> torch.Tensor:
+    """The decoder body under an attention given by ``impl`` and its
+    ``mask`` (``_decoder_layer``) -> final hidden states [G, L, D]. With
     ``cfg.remat`` and policy "nothing" each layer runs under
     ``torch.utils.checkpoint`` while gradients are on."""
     cfg = model.cfg
-    impl = resolve_impl(cfg.attn_impl)
     if cfg.remat and cfg.remat_policy not in ("nothing", "everything"):
         if cfg.remat_policy == "dots_nobatch":
             raise NotImplementedError("remat_policy='dots_nobatch': ROADMAP Queue A, trainer")
         raise ValueError(f"remat_policy={cfg.remat_policy!r}; valid: nothing, everything")
     x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
-    mask = segment_ids.to(torch.int32).contiguous() if impl == "pallas" else _attention_mask(segment_ids)
     rope = _rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     recompute = (
         cfg.remat and cfg.remat_policy == "nothing" and not no_grad and torch.is_grad_enabled()

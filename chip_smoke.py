@@ -51,6 +51,21 @@ no result line:
               Checks the logprobs on both waves, finite loss and grad norm
               (and the plain attention's grad norm on one minibatch), moved
               weights, version tags and every kernel's launch count.
+10. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+              (dK, dV) against their plain PyTorch versions at the same head
+              config on two forests of N=2,048 padded nodes: the first pack
+              of the train_tree wave (prompts of 445 and 349 tokens, 4
+              branches of 128 each) and an agentic trie branching at several
+              depths; three planted faults in the mask words; kernel / plain
+              / SDPA-yardstick times and the bounds over the set bits.
+11. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+              one minibatch per step: each prompt's samples merge into a
+              trie, packed into forests of at most 2,048 nodes, and forward
+              and backward run once per node through #4-#6 (the proximal
+              recompute stays on K2). Checks the dedup counts against a host
+              count, the launches per pack, and the tree path's logprobs and
+              grad norm against the packed path's on the same batch and
+              weights; profiles one tree optimizer step.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -311,11 +326,16 @@ def phase_kernel() -> dict:
     return per
 
 
+def _train_prompt_lengths(seed: int = 0) -> list[int]:
+    """Prompt lengths of the train phases' 8 prompts (64-512 tokens from
+    ``seed``): 445, 349, 293, 185, 202, 82, 97, 71 for seed 0."""
+    return [int(n) for n in np.random.default_rng(seed).integers(64, 513, 8)]
+
+
 def _train_sequences(seed: int = 0) -> list[int]:
     """Lengths of the train phase's 32 sequences: prompts of 64-512 tokens
     drawn from ``seed`` (8 prompts, 4 samples each) plus 128 new tokens."""
-    rng = np.random.default_rng(seed)
-    return [int(n) + 128 for n in rng.integers(64, 513, 8) for _ in range(4)]
+    return [n + 128 for n in _train_prompt_lengths(seed) for _ in range(4)]
 
 
 def _flash_inputs(seed: int = 0):
@@ -702,6 +722,205 @@ def phase_kernel_suffix(n_layers: int = 28) -> dict:
     return per
 
 
+def _tree_forests(seed: int = 0) -> dict[str, list[list[int]]]:
+    """The sequences of kernel_tree's two forests. "grpo": the first pack of
+    the train_tree wave, prompts of 445 and 349 tokens with 4 branches of
+    128 tokens each (1,818 nodes). "agentic": three agent episodes of ~630
+    nodes, each a 200-token prompt whose trajectories fork from earlier ones
+    at random depths and run on for 32-160 tokens (a deep trie branching at
+    several depths; the episodes' tiles below the diagonal are zero)."""
+    rng = np.random.default_rng(seed)
+    V = QWEN25_15B["vocab_size"]
+    grpo = []
+    for n in _train_prompt_lengths()[:2]:
+        prompt = rng.integers(0, V, n).tolist()
+        grpo += [prompt + rng.integers(0, V, 128).tolist() for _ in range(4)]
+    agentic = []
+    for _ in range(3):
+        episode = [rng.integers(0, V, 200).tolist()]
+        nodes = 200
+        while nodes < 600:
+            base = episode[int(rng.integers(0, len(episode)))]
+            cut = int(rng.integers(1, len(base) + 1))
+            tail = rng.integers(0, V, int(rng.integers(32, 161))).tolist()
+            episode.append(base[:cut] + tail)
+            nodes += len(tail)
+        agentic += episode
+    return {"grpo": grpo, "agentic": agentic}
+
+
+def _tree_inputs(seqs: list[list[int]], seed: int = 0):
+    """One forest's bits and bf16 q/k/v/dO [N, 12, 128] with K/V repeated
+    from 2 heads, dO zero on padded rows; N bucketed as the engine does."""
+    from areal_tpu_torch.models.tree import build_tree
+    from areal_tpu_torch.ops import tree_attention as ta
+    from areal_tpu_torch.utils.data import round_up_to_bucket
+
+    pack = build_tree(seqs)
+    n_pad = round_up_to_bucket(pack.n_nodes, 512)
+    words, block_any = ta.pack_ancestor_bits(pack.parent, n_pad)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, KH, hd = 12, 2, 128
+    q, dout = (torch.randn((n_pad, H, hd), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((n_pad, KH, hd), generator=g, device="cuda").to(torch.bfloat16)
+            .repeat_interleave(H // KH, dim=1) for _ in range(2))
+    valid = torch.zeros(n_pad, dtype=torch.bool, device="cuda")
+    valid[: pack.n_nodes] = True
+    dout = dout * valid[:, None, None]
+    return (q, k, v, dout, torch.from_numpy(words.view(np.int32)).cuda(), torch.from_numpy(block_any).cuda(),
+            valid, pack)
+
+
+def _tree_bounds(N: int, H: int, hd: int, set_bits: int) -> dict:
+    """Least time of each tree kernel's work on these inputs. Operations
+    over the set bits only, 2 flops per multiply-add per head-dim element per
+    product: #4 2 products (q.k, p.v), #5 3 (q.k, do.v, dQ), #6 4 (q.k,
+    do.v, dV, dK). Bytes: each input read once (the words and skip map
+    included), each output written once."""
+    unit = 2 * hd * H * set_bits
+    grid = N * H * hd * 2  # one bf16 [N, H, hd] tensor
+    rows = N * H * 4  # one f32 [N, H] row statistic
+    bits = N * N // 8 + (N // 128) ** 2 * 4
+    work = {
+        "tree_attention_fwd": (2 * unit, 4 * grid + rows + bits),  # q, k, v -> o, lse
+        "tree_attention_bwd_dq": (3 * unit, 5 * grid + 2 * rows + bits),  # q,k,v,do,lse,delta -> dq
+        "tree_attention_bwd_dkv": (4 * unit, 6 * grid + 2 * rows + bits),  # q,k,v,do,lse,delta -> dk,dv
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / PEAK_OPS["bf16"] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def _tree_faults(words: torch.Tensor, n: int) -> dict[str, torch.Tensor]:
+    """Planted faults in the mask words: a causal mask over the nodes in
+    place of the ancestor bits, bit 31 of every word cleared, the diagonal
+    bit dropped."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    N = words.shape[0]
+    i = torch.arange(N, device=words.device)
+    causal = (i[:, None] >= i[None, :]) & (i[:, None] < n) & (i[None, :] < n)
+    packed = causal.view(N, N // 32, 32).to(torch.int64) << torch.arange(32, device=words.device)
+    causal_words = packed.sum(-1).to(torch.int64)
+    causal_words = torch.where(causal_words >= 2**31, causal_words - 2**32, causal_words).to(torch.int32)
+    diag = words.clone()
+    rows = i[:n]
+    diag[rows, rows // 32] &= ~(torch.ones_like(rows, dtype=torch.int32) << (rows % 32).to(torch.int32))
+    faults = {"causal mask": causal_words, "bit 31 cleared": words & 0x7FFFFFFF, "diagonal dropped": diag}
+    if not torch.equal(ta.expand_mask(causal_words), causal):
+        raise AssertionError("[kernel_tree] the causal fault packs wrongly")
+    return faults
+
+
+TREE_FAULT_MIN = 10.0  # a planted fault must miss the limit by this factor
+
+
+def phase_kernel_tree() -> dict:
+    """Kernels #4-#6 against their plain versions at Qwen2.5-1.5B's heads
+    (H=12, KV repeated from 2, hd=128, bf16) on two forests; three planted
+    faults in the mask words must fail the check by TREE_FAULT_MIN x."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    per: dict[str, dict] = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for fname, seqs in _tree_forests().items():
+        q, k, v, dout, words, block_any, valid, pack = _tree_inputs(seqs)
+        N, H, hd = q.shape
+        mask = ta.expand_mask(words)
+        set_bits = int(mask.sum())
+        with torch.no_grad():
+            out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+            delta = (dout.float() * out.float()).sum(-1)
+            dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
+            dk, dv = ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta)
+            ref_out, ref_lse = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), words, block_any)
+            refs = ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta,
+                                               out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            err_lse = (lse - ref_lse)[valid].abs().max().item()
+            x_o, rms_o = _flash_excess(out, ref_out, valid)
+            err_o = (out.float() - ref_out)[valid].abs().max().item()
+            pad_zero = torch.count_nonzero(out[~valid]).item() == 0 and torch.count_nonzero(lse[~valid]).item() == 0
+            if not math.isfinite(err_lse) or err_lse > 1e-3 or not x_o <= 1.0 or not pad_zero:
+                raise AssertionError(f"[kernel_tree] {fname} #4: O off its plain version by {x_o:.3f} x the limit, "
+                                     f"max|lse - plain| {err_lse}, padded rows zero: {pad_zero}")
+            errs = {}
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                x, rms = _flash_excess(got, ref, valid)
+                e = (got.float() - ref)[valid].abs().max().item()
+                if not x <= 1.0 or torch.count_nonzero(got[~valid]).item():
+                    raise AssertionError(f"[kernel_tree] {fname} {name}: off its plain version by {x:.3f} x "
+                                         f"the limit (rms {rms:.4f}, max|diff| {e:.3e}) or nonzero on padded rows")
+                errs[name] = (x, rms, e)
+            fault_x = {}
+            for name, fw in _tree_faults(words, pack.n_nodes).items():
+                f_out, _ = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), fw, block_any)
+                f_grads = ta.tree_attention_bwd_plain(q, k, v, fw, block_any, dout, lse, delta,
+                                                      out_dtype=torch.float32)
+                fault_x[name] = max(_flash_excess(g_, r_, valid)[0]
+                                    for g_, r_ in zip((f_out, *f_grads), (ref_out, *refs)))
+                if not fault_x[name] >= TREE_FAULT_MIN:
+                    raise AssertionError(f"[kernel_tree] {fname}: planted fault ({name}) only "
+                                         f"{fault_x[name]:.2f} x the limit")
+            del ref_out, ref_lse, refs
+            nB = N // 128
+            ba = block_any.cpu().numpy()
+            below = int(ba[np.tril_indices(nB, -1)].sum())
+            bit31 = int(((words >> 31) & 1).sum())
+            log(f"[kernel_tree] {fname}: {len(seqs)} sequences, {sum(map(len, seqs))} tokens -> {pack.n_nodes} "
+                f"nodes, N={N} (H={H}, hd={hd}); {set_bits} set bits ({set_bits / N**2:.1%} of N^2); skip map "
+                f"{int(ba.sum())} of {nB * (nB + 1) // 2} tiles on or below the diagonal live ({below} below it); "
+                f"{bit31} words with bit 31 set; worst element as a share of the limit {FLASH_RTOL:.4g} |plain| + "
+                f"{FLASH_ATOL:.4g} rms(plain): O {x_o:.3f} (max|diff| {err_o:.3e}), "
+                + ", ".join(f"{n} {x:.3f} (max|diff| {e:.3e})" for n, (x, _, e) in errs.items())
+                + f"; max|lse - plain| {err_lse:.2e}; planted faults "
+                + ", ".join(f"{n} {x:.1f}" for n, x in fault_x.items()))
+            t_fwd = time_cuda(lambda: ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True), iters=20)
+            t_dq = time_cuda(lambda: ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta), iters=20)
+            t_dkv = time_cuda(lambda: ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta),
+                              iters=20)
+            p_fwd = time_cuda(lambda: ta.tree_attention_fwd_plain(q, k, v, words, block_any), iters=3, warmup=1)
+            p_bwd = time_cuda(lambda: ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta),
+                              iters=3, warmup=1)
+        # yardstick the port never calls: SDPA with the dense boolean mask
+        # expanded from the bits (padded rows attend themselves, so no row
+        # is empty), on [1, H, N, hd] copies made outside the timed region
+        dense = (mask | (torch.eye(N, dtype=torch.bool, device="cuda") & ~valid[:, None]))[None, None]
+        qt, kt, vt, dot = (x.transpose(0, 1)[None].contiguous() for x in (q, k, v, dout))
+        with torch.no_grad():
+            lib_fwd = time_cuda(lambda: sdpa(qt, kt, vt, attn_mask=dense), iters=5, warmup=2)
+        leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+        o_lib = sdpa(*leaves, attn_mask=dense)
+
+        def lib_bwd():
+            for x in leaves:
+                x.grad = None
+            o_lib.backward(dot, retain_graph=True)
+
+        lib_b = time_cuda(lib_bwd, iters=5, warmup=2)
+        del o_lib, leaves, qt, kt, vt, dot, dense, mask
+        bounds = _tree_bounds(N, H, hd, set_bits)
+        res = {
+            "tree_attention_fwd": dict(max_abs_err=err_o, ms=t_fwd, plain_ms=p_fwd, library_ms=lib_fwd),
+            "tree_attention_bwd_dq": dict(max_abs_err=errs["dq"][2], ms=t_dq, plain_ms=p_bwd, library_ms=lib_b),
+            "tree_attention_bwd_dkv": dict(max_abs_err=max(errs["dk"][2], errs["dv"][2]), ms=t_dkv,
+                                           plain_ms=p_bwd, library_ms=lib_b),
+        }
+        for name, d in res.items():
+            d["bound_ms"], d["bound_by"] = bounds[name]
+            d["faults"] = fault_x
+            log(f"[kernel_tree] {fname} {name}: kernel={d['ms']:.4f} ms plain={d['plain_ms']:.4f} ms "
+                f"sdpa={d['library_ms']:.4f} ms bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
+        log(f"[kernel_tree] {fname}: the plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms); "
+            f"SDPA forward {lib_fwd:.4f} ms, backward {lib_b:.4f} ms")
+        per[fname] = res
+        del q, k, v, dout, out, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    return per
+
+
 def _post(addr: str, path: str, body: dict, timeout: float = 900.0) -> dict:
     req = urllib.request.Request(
         f"http://{addr}{path}",
@@ -760,10 +979,10 @@ def _dense_check(model, prompt: list[int], r: dict, greedy: bool) -> float:
     return (dense - torch.tensor(r["output_logprobs"], device="cuda")).abs().max().item()
 
 
-def _profile(fn, label: str, card: str) -> None:
+def _profile(fn, label: str, card: str) -> float:
     """Run ``fn`` once under torch.profiler: the share of its wall time in
-    which the card ran any kernel or copy, and the kernels that took the
-    most device time."""
+    which the card ran any kernel or copy (returned), and the kernels that
+    took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -791,6 +1010,7 @@ def _profile(fn, label: str, card: str) -> None:
         f"({len(spans)} device ops); idle {1 - busy / wall_us:.1%}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile]   {us / 1e3:9.2f} ms  {us / busy:6.1%} of busy  {name[:90]}")
+    return busy / wall_us
 
 
 def phase_serve(card: str) -> tuple[int, dict]:
@@ -1214,40 +1434,48 @@ def _logprob_gap(trainer_logp: np.ndarray, batch: dict) -> float:
     return float(np.abs(trainer_logp[gen] - np.asarray(batch["logprobs"])[gen]).max())
 
 
-def phase_train(card: str) -> dict:
-    from areal_tpu_torch.api.config import (
-        NormConfig,
-        OptimizerConfig,
-        PPOActorConfig,
-        ServerConfig,
-    )
+def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
+    """Two asynchronous-GRPO steps of Qwen2.5-1.5B at full width and depth:
+    the ``DecodeEngine`` generates 8 prompts x 4 samples (duplicates alias
+    the first sample's pages), the ``TorchTrainEngine`` recomputes the
+    proximal logprobs, ``PPOActor`` computes advantages and runs
+    ``ppo_update``, ``update_weights`` pushes the weights into the running
+    engine (the radix tree flushes), and the next wave carries version 1.
+    Checks the aliasing, the version tags, the trainer's logprobs against the
+    served ones, finite loss and grad norm, LR 0 on the first step and moved
+    weights. ``kernels``' launch counts are set to 0 just before and read
+    just after. ``cfg_kw`` overrides the ``PPOActorConfig``. The engine is
+    stopped on return; the trainer, actor and last batch come back."""
+    from areal_tpu_torch.api.config import NormConfig, OptimizerConfig, PPOActorConfig, ServerConfig
     from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
     from areal_tpu_torch.inference.decode_engine import DecodeEngine
     from areal_tpu_torch.models import qwen
-    from areal_tpu_torch.ops import attention as fa
     from areal_tpu_torch.trainer.ppo import PPOActor
-    from areal_tpu_torch.utils.data import MicroBatchSpec, pad_sequences_to_tensors, split_padded_tensor_dict_into_mb_list
+    from areal_tpu_torch.utils.data import pad_sequences_to_tensors
 
     group, n_prompts, n_new = 4, 8, 128
     mcfg = qwen.ModelConfig(**QWEN25_15B)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    cfg = PPOActorConfig(
-        dtype="bfloat16",
-        param_dtype="float32",
-        attn_impl="pallas",
-        gradient_checkpointing=True,
-        optimizer=OptimizerConfig(lr=1e-5),
-        group_size=group,
-        # group_size must be given here too: NormConfig's own default (1)
-        # takes precedence over PPOActorConfig.group_size, and groups of one
-        # would zero every advantage
-        adv_norm=NormConfig(mean_level="group", std_level="batch", group_size=group),
-        use_decoupled_loss=True,
-        prox_logp_mode="recompute",
-        ppo_n_minibatches=2,
-    )
+    cfg = PPOActorConfig(**{
+        **dict(
+            dtype="bfloat16",
+            param_dtype="float32",
+            attn_impl="pallas",
+            gradient_checkpointing=True,
+            optimizer=OptimizerConfig(lr=1e-5),
+            group_size=group,
+            # group_size must be given here too: NormConfig's own default (1)
+            # takes precedence over PPOActorConfig.group_size, and groups of
+            # one would zero every advantage
+            adv_norm=NormConfig(mean_level="group", std_level="batch", group_size=group),
+            use_decoupled_loss=True,
+            prox_logp_mode="recompute",
+            ppo_n_minibatches=2,
+        ),
+        **cfg_kw,
+    })
     trainer = TorchTrainEngine(cfg, model_config=mcfg)
     trainer.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=64, train_batch_size=n_prompts), seed=0)
     actor = PPOActor(cfg, trainer)
@@ -1263,26 +1491,18 @@ def phase_train(card: str) -> dict:
     meta = WeightUpdateMeta(type="mem")
     trainer.connect_engine(engine, meta)
     torch.cuda.synchronize()
-    log(f"[train] Qwen2.5-1.5B trainer (f32 master weights, AdamW state) and decode engine "
+    log(f"[{tag}] Qwen2.5-1.5B trainer (f32 master weights, AdamW state) and decode engine "
         f"up in {time.monotonic() - t0:.1f}s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, n_prompts)]
 
-    def wfn(d):
-        return float((np.asarray(d["loss_mask"]) > 0).sum())
-
     # main path: counts to 0 just before, read just after
-    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
     for kern in kernels:
         kern.launches = 0
     parts = {"rollout": 0.0, "prox_recompute": 0.0, "ppo_update": 0.0, "weight_update": 0.0}
-    n_fwd_grids = n_mbs = 0
-    trained_tokens = 0
-    stats_all = []
-    gaps = []
-    snap0 = None
-    adv = None
-    admissions = []
+    r = dict(n_fwd_grids=0, n_mbs=0, trained_tokens=0, stats=[], gaps=[], admissions=[], batches=[],
+             ppo_update_s=[])
+    snap0, moved = None, None
     try:
         for step in range(2):
             tb = time.monotonic()
@@ -1290,64 +1510,89 @@ def phase_train(card: str) -> dict:
             batch = pad_sequences_to_tensors(_rollout(engine, prompts, group, n_new))
             parts["rollout"] += time.monotonic() - tb
             adm = {k: engine.stats[k] - v for k, v in s0.items()}
-            admissions.append(adm)
-            log(f"[train] wave {step}: {n_prompts} prompts x {group} samples admitted as {adm['prefills']} "
+            r["admissions"].append(adm)
+            log(f"[{tag}] wave {step}: {n_prompts} prompts x {group} samples admitted as {adm['prefills']} "
                 f"prefills (radix hits {adm['prefix_cache_hits']}) + {adm['prefix_shared']} samples aliasing "
                 f"a duplicate's pages")
             if adm["prefix_shared"] <= 0 or adm["prefills"] + adm["prefix_shared"] != n_prompts * group:
-                raise AssertionError(f"[train] wave {step}: duplicate prompts not aliased: {adm}")
+                raise AssertionError(f"[{tag}] wave {step}: duplicate prompts not aliased: {adm}")
             vers = np.asarray(batch["versions"])[np.asarray(batch["loss_mask"]) > 0]
             if not (vers == step).all():
-                raise AssertionError(f"[train] wave {step}: token versions {sorted(set(vers.tolist()))} != {{{step}}}")
+                raise AssertionError(f"[{tag}] wave {step}: token versions {sorted(set(vers.tolist()))} != {{{step}}}")
             tb = time.monotonic()
             batch["prox_logp"] = actor.compute_logp(batch)
             torch.cuda.synchronize()
             parts["prox_recompute"] += time.monotonic() - tb
-            n_fwd_grids += len(trainer._make_grids(batch))
-            gaps.append(_logprob_gap(batch["prox_logp"], batch))
-            log(f"[train] wave {step}: {len(vers)} generated tokens, all at version {step}; trainer's "
-                f"recomputed logprobs vs served: max|diff| {gaps[-1]:.4f} (tol {LOGPROB_TOL})")
-            if not gaps[-1] <= LOGPROB_TOL:
-                raise AssertionError(f"[train] wave {step}: trainer and server disagree on the policy")
+            r["n_fwd_grids"] += len(trainer._make_grids(batch))
+            r["gaps"].append(_logprob_gap(batch["prox_logp"], batch))
+            log(f"[{tag}] wave {step}: {len(vers)} generated tokens, all at version {step}; trainer's "
+                f"recomputed logprobs vs served: max|diff| {r['gaps'][-1]:.4f} (tol {LOGPROB_TOL})")
+            if not r["gaps"][-1] <= LOGPROB_TOL:
+                raise AssertionError(f"[{tag}] wave {step}: trainer and server disagree on the policy")
             adv = actor.compute_advantages(batch)
             if snap0 is None:
                 snap0 = _snapshot(trainer.model)
             tb = time.monotonic()
             stats = actor.ppo_update(adv)
             torch.cuda.synchronize()
-            parts["ppo_update"] += time.monotonic() - tb
-            trained_tokens += int(np.asarray(batch["attention_mask"]).sum())
-            n_mbs += int(sum(s["n_microbatches"] for s in stats))
-            stats_all.extend(stats)
+            r["ppo_update_s"].append(time.monotonic() - tb)
+            parts["ppo_update"] += r["ppo_update_s"][-1]
+            r["trained_tokens"] += int(np.asarray(batch["attention_mask"]).sum())
+            r["n_mbs"] += int(sum(s["n_microbatches"] for s in stats))
+            r["stats"].extend(stats)
+            r["batches"].append(batch)
             for i, s in enumerate(stats):
-                log(f"[train] step {step} minibatch {i}: loss {s['loss']:.6f} grad_norm {s['grad_norm']:.4f} "
+                log(f"[{tag}] step {step} minibatch {i}: loss {s['loss']:.6f} grad_norm {s['grad_norm']:.4f} "
                     f"lr {s['lr']:.2e} actor_loss {s['actor_loss']:.6f} behave_imp_weight "
-                    f"{s['behave_imp_weight']:.4f} clip_ratio {s['clip_ratio']:.4f} tokens {s['n_valid_tokens']:.0f}")
+                    f"{s['behave_imp_weight']:.4f} clip_ratio {s['clip_ratio']:.4f} tokens {s['n_valid_tokens']:.0f}"
+                    f" microbatches {s['n_microbatches']:.0f}")
                 if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) and s["grad_norm"] > 0):
-                    raise AssertionError(f"[train] loss / grad_norm not finite and positive: {s}")
-            if step == 0:
-                if stats[0]["lr"] != 0.0:
-                    raise AssertionError("[train] the first optimizer step must have LR 0")
+                    raise AssertionError(f"[{tag}] loss / grad_norm not finite and positive: {s}")
+            if step == 0 and stats[0]["lr"] != 0.0:
+                raise AssertionError(f"[{tag}] the first optimizer step must have LR 0")
+            if len(r["stats"]) >= 2 and not moved:  # the first step with a nonzero LR has run
                 moved = _moved(trainer.model, snap0)
                 if not all(m > 0 for m in moved.values()):
-                    raise AssertionError(f"[train] master weights did not move after the second step: {moved}")
-                log("[train] master weights moved after the second optimizer step (the first has LR 0): "
+                    raise AssertionError(f"[{tag}] master weights did not move after the second step: {moved}")
+                log(f"[{tag}] master weights moved after the second optimizer step (the first has LR 0): "
                     + ", ".join(f"{n} {m:.2e}" for n, m in moved.items()))
+            if step == 0:
                 tb = time.monotonic()
                 trainer.update_weights(meta)
                 trainer.set_version(trainer.get_version() + 1)
                 torch.cuda.synchronize()
                 parts["weight_update"] += time.monotonic() - tb
                 if engine.get_version() != 1 or trainer.get_version() != 1:
-                    raise AssertionError("[train] versions after the update are not 1")
+                    raise AssertionError(f"[{tag}] versions after the update are not 1")
                 held = engine.prefix_cache_stats()["pages_held"]
                 if held != 0:
-                    raise AssertionError(f"[train] the radix tree holds {held} pages after the weight update")
-                log("[train] radix tree empty after update_weights (across_updates='flush')")
-        counts = [kern.launches for kern in kernels]
+                    raise AssertionError(f"[{tag}] the radix tree holds {held} pages after the weight update")
+                log(f"[{tag}] radix tree empty after update_weights (across_updates='flush')")
+        r["counts"] = [kern.launches for kern in kernels]
+        if not moved:
+            raise AssertionError(f"[{tag}] fewer than two optimizer steps")
     finally:
         engine.stop()
-    L = mcfg.num_layers
+    r.update(cfg=cfg, mcfg=mcfg, trainer=trainer, actor=actor, batch=batch, adv=adv, parts=parts)
+    return r
+
+
+def _wfn(d) -> float:
+    return float((np.asarray(d["loss_mask"]) > 0).sum())
+
+
+def phase_train(card: str) -> dict:
+    """The packed path: two minibatches per step through K2 + K3 + K4 under
+    per-layer checkpointing; every kernel's launch count; the plain
+    attention's grad norm on one minibatch."""
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.utils.data import MicroBatchSpec, split_padded_tensor_dict_into_mb_list
+
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    r = _grpo_run("train", kernels)
+    cfg, trainer, actor, batch, adv, parts = (r[k] for k in ("cfg", "trainer", "actor", "batch", "adv", "parts"))
+    counts, n_fwd_grids, n_mbs = r["counts"], r["n_fwd_grids"], r["n_mbs"]
+    L = r["mcfg"].num_layers
     want = [L * n_fwd_grids + 2 * L * n_mbs, L * n_mbs, L * n_mbs]
     log(f"[train] launches: K2 {counts[0]} (= {L} x {n_fwd_grids} forward grids + {2 * L} x {n_mbs} "
         f"microbatches, forward and its recompute), K3 {counts[1]}, K4 {counts[2]} (= {L} x {n_mbs})")
@@ -1356,7 +1601,7 @@ def phase_train(card: str) -> dict:
 
     # one more optimizer step on a minibatch of the last batch, profiled
     mb = split_padded_tensor_dict_into_mb_list(adv, MicroBatchSpec(n_mbs=cfg.ppo_n_minibatches)).mbs[0]
-    _profile(lambda: trainer.train_batch(mb, actor._loss_fn, wfn), "optimizer step (one minibatch)", card)
+    _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "optimizer step (one minibatch)", card)
     compute_cfg = trainer.model_cfg
 
     def by_impl(mb):
@@ -1372,7 +1617,7 @@ def phase_train(card: str) -> dict:
                 clipped.append(_clip_set(outputs, b, cfg).flatten())
                 return actor._loss_fn(outputs, b)
 
-            st = trainer.compute_grads(mb, loss_fn, wfn)
+            st = trainer.compute_grads(mb, loss_fn, _wfn)
             res[impl] = (st["grad_norm"], st["clip_ratio"], torch.cat(clipped))
         trainer.model_cfg = compute_cfg
         trainer.zero_grad()
@@ -1396,25 +1641,123 @@ def phase_train(card: str) -> dict:
     adv = actor.compute_advantages(batch)
     mb = split_padded_tensor_dict_into_mb_list(adv, MicroBatchSpec(n_mbs=cfg.ppo_n_minibatches)).mbs[0]
     res, rel, flips = by_impl(mb)
-    norms = {impl: r[0] for impl, r in res.items()}
+    norms = {impl: r_[0] for impl, r_ in res.items()}
     log(f"[train] grad_norm on one minibatch, proximal logprobs recomputed: {norms_line(res, rel, flips)} "
         f"(tol {GRAD_NORM_RTOL})")
     if not rel <= GRAD_NORM_RTOL:
         raise AssertionError("[train] kernel and plain attention gradients disagree")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] {card}: rollout {parts['rollout']:.2f} s (2 waves x {n_prompts * group} x {n_new} tokens), "
+    n_steps, tokens = len(r["stats"]), r["trained_tokens"]
+    log(f"[train] {card}: rollout {parts['rollout']:.2f} s (2 waves x 32 x 128 tokens), "
         f"proximal recompute {parts['prox_recompute']:.2f} s, ppo_update {parts['ppo_update']:.2f} s "
-        f"({len(stats_all)} optimizer steps), weight update {parts['weight_update']:.3f} s; trainer "
-        f"{trained_tokens / parts['ppo_update']:.0f} tokens/s ({trained_tokens} tokens); peak "
+        f"({n_steps} optimizer steps), weight update {parts['weight_update']:.3f} s; trainer "
+        f"{tokens / parts['ppo_update']:.0f} tokens/s ({tokens} tokens); peak "
         f"torch.cuda.max_memory_allocated {peak:.2f} GiB")
-    del trainer, actor, engine
+    del trainer, actor, r
     torch.cuda.empty_cache()
     return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
-                parts=parts, tokens_per_s=trained_tokens / parts["ppo_update"], peak_gib=peak, gaps=gaps, norms=norms,
-                admissions=admissions)
+                parts=parts, tokens_per_s=tokens / parts["ppo_update"], peak_gib=peak, norms=norms)
 
 
-PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spec", "train")
+def _distinct_prefixes(seqs) -> int:
+    """Trie nodes counted independently of ``build_tree``: the number of
+    distinct (prefix + token) sequences."""
+    return len({tuple(s[: i + 1]) for s in seqs for i in range(len(s))})
+
+
+def phase_train_tree(card: str) -> dict:
+    """The tree path: ``train``'s two GRPO steps with ``tree_training=True``
+    and one minibatch per step, so each prompt's 4 samples share one trie
+    (the reference's balanced minibatch split does not keep groups whole).
+    Forward and backward run once per trie node through #4-#6; the proximal
+    recompute stays on K2. Checks the dedup counts against an independent
+    host count, the launches per pack, and the tree path's logprobs and grad
+    norm against the packed path's (K2-K4) on the same batch and weights."""
+    from areal_tpu_torch.models.tree import pack_forest
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    kernels = (ta.tree_attention_fwd, ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv, fa.flash_attention_fwd,
+               fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    r = _grpo_run("train_tree", kernels, tree_training=True, ppo_n_minibatches=1)
+    cfg, trainer, actor, adv, parts = (r[k] for k in ("cfg", "trainer", "actor", "adv", "parts"))
+    L = r["mcfg"].num_layers
+    n_packs = 0
+    for step, (batch, s) in enumerate(zip(r["batches"], r["stats"])):
+        lens = np.asarray(batch["attention_mask"]).sum(-1)
+        seqs = [np.asarray(batch["input_ids"])[b, : lens[b]].tolist() for b in range(len(lens))]
+        nodes = _distinct_prefixes(seqs)
+        packs = pack_forest(seqs, cfg.tree_node_budget, cfg.group_size)
+        n_pads = [b["node_ids"].shape[0] for b in trainer._make_tree_batches(batch)[0]]
+        n_packs += len(packs)
+        log(f"[train_tree] wave {step}: {int(lens.sum())} tokens -> {nodes} trie nodes (independent count; "
+            f"dedup {int(lens.sum()) / nodes:.3f}x) in {len(packs)} packs of "
+            f"{[p.n_nodes for p, _ in packs]} nodes, n_pad {n_pads}")
+        if (s["tree_tokens"], s["tree_nodes"]) != (float(lens.sum()), float(nodes)):
+            raise AssertionError(f"[train_tree] wave {step}: engine counted {s['tree_tokens']} tokens / "
+                                 f"{s['tree_nodes']} nodes, the host {int(lens.sum())} / {nodes}")
+        if s["n_microbatches"] != len(packs):
+            raise AssertionError(f"[train_tree] wave {step}: {s['n_microbatches']} microbatches, {len(packs)} packs")
+    counts = r["counts"]
+    want = [2 * L * n_packs, L * n_packs, L * n_packs, L * r["n_fwd_grids"], 0, 0]
+    log(f"[train_tree] launches: #4 {counts[0]} (= {2 * L} x {n_packs} packs, forward and its recompute), "
+        f"#5 {counts[1]}, #6 {counts[2]} (= {L} x {n_packs}); K2 {counts[3]} (= {L} x {r['n_fwd_grids']} "
+        f"proximal-recompute grids), K3 {counts[4]}, K4 {counts[5]}")
+    if counts != want:
+        raise AssertionError(f"[train_tree] launch counts {counts} != {want}")
+    ppo_s = parts["ppo_update"]
+    tokens = r["trained_tokens"]
+    node_total = sum(s["tree_nodes"] for s in r["stats"])
+    log(f"[train_tree] {card}: rollout {parts['rollout']:.2f} s, proximal recompute "
+        f"{parts['prox_recompute']:.2f} s, ppo_update {ppo_s:.2f} s (steps: "
+        + ", ".join(f"{t:.2f} s" for t in r["ppo_update_s"]) + f"), weight update {parts['weight_update']:.3f} s; "
+        f"trainer {tokens / ppo_s:.0f} tokens/s, {node_total / ppo_s:.0f} nodes/s ({tokens} tokens, "
+        f"{node_total:.0f} nodes)")
+
+    # one more tree optimizer step on the last batch, profiled
+    busy = _profile(lambda: trainer.train_batch(adv, actor._loss_fn, _wfn), "tree optimizer step", card)
+
+    # the tree path against the packed path on the same batch at the same
+    # weights, the proximal logprobs recomputed (PPO ratio ~1)
+    batch = r["batches"][-1]
+    batch["prox_logp"] = actor.compute_logp(batch)  # packed forward (K2)
+    adv = actor.compute_advantages(batch)
+    tree_cfg = trainer.config
+    lens = np.asarray(batch["attention_mask"]).sum(-1)
+    seqs = [np.asarray(batch["input_ids"])[b, : lens[b]] for b in range(len(lens))]
+    tree_logp = np.zeros_like(batch["prox_logp"])
+    with torch.no_grad():
+        for host, (_, rows) in zip(trainer._make_tree_batches(batch)[0],
+                                   pack_forest(seqs, tree_cfg.tree_node_budget, tree_cfg.group_size)):
+            out = trainer._tree_outputs_fn(trainer._tree_batch_to_device(host))["logprobs"].float().cpu().numpy()
+            for i, b in enumerate(rows):  # label-aligned: position t scores token t + 1
+                tree_logp[b, 1 : lens[b]] = out[i, : lens[b] - 1]
+    gen = np.asarray(batch["loss_mask"]) > 0
+    logp_gap = float(np.abs(tree_logp[gen] - batch["prox_logp"][gen]).max())
+    norms = {}
+    for tree in (True, False):
+        trainer.config = dataclasses.replace(tree_cfg, tree_training=tree)
+        trainer.zero_grad()
+        norms["tree" if tree else "packed"] = trainer.compute_grads(adv, actor._loss_fn, _wfn)["grad_norm"]
+    trainer.config = tree_cfg
+    trainer.zero_grad()
+    rel = abs(norms["tree"] - norms["packed"]) / norms["packed"]
+    log(f"[train_tree] same batch and weights, proximal logprobs recomputed: tree vs packed logprobs on "
+        f"{int(gen.sum())} generated tokens max|diff| {logp_gap:.4f} (tol {LOGPROB_TOL}); grad_norm tree "
+        f"{norms['tree']:.5f}, packed {norms['packed']:.5f}, relative diff {rel:.2e} (tol {GRAD_NORM_RTOL})")
+    if not logp_gap <= LOGPROB_TOL or not rel <= GRAD_NORM_RTOL:
+        raise AssertionError("[train_tree] the tree path disagrees with the packed path")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train_tree] {card}: peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    del trainer, actor, r
+    torch.cuda.empty_cache()
+    return dict(counts=dict(zip(("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv"), counts)),
+                parts=parts, tokens_per_s=tokens / ppo_s, nodes_per_s=node_total / ppo_s, busy=busy,
+                peak_gib=peak, logp_gap=logp_gap, norms=norms)
+
+
+PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spec", "train", "kernel_tree",
+          "train_tree")
 
 
 def main(argv: list[str]) -> int:
@@ -1449,6 +1792,8 @@ def main(argv: list[str]) -> int:
         "serve_int8": phase_serve_int8,
         "spec": lambda: phase_spec(card),
         "train": lambda: phase_train(card),
+        "kernel_tree": phase_kernel_tree,
+        "train_tree": lambda: phase_train_tree(card),
     }
     res = {}
     for name in PHASES:
@@ -1516,6 +1861,28 @@ def main(argv: list[str]) -> int:
         "shapes": {k: {f: d[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                    for k, d in suffix.items()},
     })
+    # kernels #4-#6: launches of the train_tree phase; the times of the
+    # GRPO forest (the first pack of the train_tree wave), the agentic
+    # trie's beside them
+    tree_k, tree_t = res["kernel_tree"], res["train_tree"]
+    replaces = {
+        "tree_attention_fwd": "areal_tpu/ops/tree_attention.py:167",
+        "tree_attention_bwd_dq": "areal_tpu/ops/tree_attention.py:364",
+        "tree_attention_bwd_dkv": "areal_tpu/ops/tree_attention.py:385",
+    }
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name, where in replaces.items():
+        d = tree_k["grpo"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "areal_tpu_torch/csrc/tree_attention.cu",
+            "replaces": where,
+            "launches": tree_t["counts"][name],
+            "max_abs_err": max(f[name]["max_abs_err"] for f in tree_k.values()),
+            **{f: d[f] for f in fields[1:]},
+            "forests": {fo: {f: r[name][f] for f in fields} for fo, r in tree_k.items()},
+        })
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

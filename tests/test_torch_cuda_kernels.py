@@ -301,3 +301,105 @@ def test_suffix_kernel_refuses_bad_arguments(cuda):
         psa.paged_suffix_attention(q, ks, vs, k.to(torch.int8), v.to(torch.int8), 0, plens, pt, mask)
     with pytest.raises(ValueError):
         psa.paged_suffix_attention(q, ks, vs, k, v, 3, plens, pt, mask)  # 3 layers: 0..2
+
+
+# ---------------------------------------------------------------------------
+# tree attention: #4 (forward), #5 (dQ), #6 (dK, dV)
+# ---------------------------------------------------------------------------
+
+import numpy as np  # noqa: E402
+
+from areal_tpu_torch.models.tree import build_tree  # noqa: E402
+from areal_tpu_torch.ops import tree_attention as ta  # noqa: E402
+
+
+def _tree_case(dev, groups, H, KH, hd, seed=0):
+    """A forest of GRPO-like groups (prompt length, samples, branch length)
+    with branches forking again at random depths, packed to ancestor bits;
+    bf16 q and dO [N, H, hd], K/V repeated from KH heads, dO zero on padded
+    rows."""
+    rng = np.random.default_rng(seed)
+    seqs = []
+    for plen, n, blen in groups:
+        prompt = rng.integers(0, 1000, plen).tolist()
+        for _ in range(n):
+            seqs.append(prompt + rng.integers(0, 1000, blen).tolist())
+            cut = int(rng.integers(plen, plen + blen))
+            seqs.append(seqs[-1][:cut] + rng.integers(0, 1000, 20).tolist())
+    pack = build_tree(seqs)
+    words, block_any = ta.pack_ancestor_bits(pack.parent)
+    N = words.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, dout = (torch.randn((N, H, hd), generator=g).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((N, KH, hd), generator=g).to(torch.bfloat16).repeat_interleave(H // KH, dim=1)
+            for _ in range(2))
+    valid = torch.zeros(N, dtype=torch.bool)
+    valid[: pack.n_nodes] = True
+    dout = dout * valid[:, None, None]
+    t = [x.to(dev) for x in (q, k, v, dout, torch.from_numpy(words.view(np.int32)),
+                             torch.from_numpy(block_any), valid)]
+    return t
+
+
+TREE_SHAPES = {
+    "qwen2.5-1.5b-heads": (((445, 2, 128), (349, 2, 128)), 12, 2, 128),
+    "deep-hd64": (((60, 3, 100), (200, 1, 30)), 4, 4, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(TREE_SHAPES))
+def test_tree_kernels_match_plain(cuda, shape):
+    groups, H, KH, hd = TREE_SHAPES[shape]
+    q, k, v, dout, words, block_any, valid = _tree_case(cuda, groups, H, KH, hd)
+    kernels = (ta.tree_attention_fwd, ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv)
+    n0 = [f.launches for f in kernels]
+    out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+    ref_out, ref_lse = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), words, block_any)
+    torch.cuda.synchronize()
+    _assert_flash_close(out, ref_out, valid)
+    assert (lse - ref_lse)[valid].abs().max().item() <= 1e-3  # f32 row statistics
+    assert torch.count_nonzero(out[~valid]) == 0 and torch.count_nonzero(lse[~valid]) == 0
+    delta = (dout.float() * out.float()).sum(-1)
+    dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
+    dk, dv = ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta)
+    want = ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        _assert_flash_close(got, ref, valid)
+    assert [f.launches - a for f, a in zip(kernels, n0)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_tree_attention_autograd_and_determinism(cuda):
+    q, k, v, dout, words, block_any, _ = _tree_case(cuda, *TREE_SHAPES["deep-hd64"][:1], 4, 4, 64, seed=1)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ta.tree_attention(*leaves, words, block_any)
+        (out.float() * dout.float()).sum().backward()
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):  # a recompute under checkpointing reproduces it
+        assert torch.equal(a, b)
+    assert torch.equal(ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=False)[0], grads[0][0])
+
+
+@pytest.mark.cuda
+def test_tree_kernels_refuse_bad_arguments(cuda):
+    q, k, v, dout, words, block_any, _ = _tree_case(cuda, ((100, 1, 10),), 2, 2, 128)
+    with pytest.raises(TypeError):
+        ta.tree_attention_fwd(q.float(), k.float(), v.float(), words, block_any, with_lse=False)
+    with pytest.raises(ValueError, match="words"):
+        ta.tree_attention_fwd(q, k, v, words.long(), block_any, with_lse=False)
+    with pytest.raises(ValueError, match="block_any"):
+        ta.tree_attention_fwd(q, k, v, words, block_any.t().contiguous()[:, :0], with_lse=False)
+    with pytest.raises(ValueError, match="multiple"):
+        ta.tree_attention_fwd(q[:64], k[:64], v[:64], words[:64, :2], block_any, with_lse=False)
+    with pytest.raises(ValueError, match="head_dim"):
+        ta.tree_attention_fwd(q[..., :96].contiguous(), k[..., :96].contiguous(), v[..., :96].contiguous(),
+                              words, block_any, with_lse=False)
+    lse = torch.zeros(q.shape[:2], device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse.t(), lse)

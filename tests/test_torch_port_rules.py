@@ -130,10 +130,27 @@ def test_trainer_refuses_without_card():
     TorchTrainEngine(PPOActorConfig(), model_config=qwen.ModelConfig(num_layers=1), device="cpu")
 
 
+def test_tree_kernel_wrappers_refuse_other_devices():
+    """A tree-attention wrapper takes a CPU tensor (the plain version) or a
+    CUDA one (the kernel), and raises on any other device."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    q = torch.zeros((128, 2, 64), device="meta")
+    w = torch.zeros((128, 4), dtype=torch.int32, device="meta")
+    b = torch.zeros((1, 1), dtype=torch.int32, device="meta")
+    row = torch.zeros((128, 2), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ta.tree_attention_fwd(q, q, q, w, b, with_lse=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ta.tree_attention_bwd_dq(q, q, q, w, b, q, row, row)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ta.tree_attention_bwd_dkv(q, q, q, w, b, q, row, row)
+
+
 @pytest.mark.parametrize(
     "change",
     [
-        dict(tree_training=True),
+        dict(tree_training=True, value_head=True),
         dict(lora_rank=8),
         dict(train_vision_tower=True),
         dict(mesh=MeshConfig(fsdp=2)),
@@ -142,7 +159,7 @@ def test_trainer_refuses_without_card():
         dict(value_head=True),
         dict(remat_policy="dots_nobatch"),
     ],
-    ids=["tree", "lora", "vision", "mesh", "disk-update", "ring", "critic", "remat-dots"],
+    ids=["tree-critic", "lora", "vision", "mesh", "disk-update", "ring", "critic", "remat-dots"],
 )
 def test_unported_trainer_options_refused(change):
     from areal_tpu_torch.api.config import PPOActorConfig
