@@ -31,8 +31,9 @@ What is kept from the JAX engine:
   gathered from the trie's edges. ``forward_batch`` and ``eval_batch``
   stay on the packed grids, as in the JAX engine.
 
-Not ported (``_check_supported`` raises ``NotImplementedError``): LoRA, the
-vision tower, a critic / value head, multi-device meshes and
+Not ported (``_check_supported`` raises ``NotImplementedError``): MoE
+models (the grouped matmul has no backward kernel yet), LoRA, the vision
+tower, a critic / value head, multi-device meshes and
 ``weight_update_mode="disk"``; also saving, loading, offloading and the
 observability surfaces (per-sequence loss attribution, phases).
 """
@@ -188,7 +189,7 @@ class TorchTrainEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        self._check_supported(config, value_head)
+        self._check_supported(config, value_head, model_config)
         self.config = config
         self._model_config = model_config
         self._version = 0
@@ -201,9 +202,13 @@ class TorchTrainEngine:
         self._weight_update_meta: WeightUpdateMeta | None = None
 
     @staticmethod
-    def _check_supported(cfg: TrainEngineConfig, value_head: bool) -> None:
+    def _check_supported(
+        cfg: TrainEngineConfig, value_head: bool, model_config: qwen.ModelConfig | None = None
+    ) -> None:
         """Refuse the options whose code paths are later slices of the port
         (ROADMAP.md Queue A)."""
+        if model_config is not None and model_config.num_experts > 0:
+            raise NotImplementedError("MoE training: ROADMAP Queue A item 7b")
         if cfg.path:
             raise NotImplementedError(
                 "loading an HF checkpoint (TrainEngineConfig.path) waits for a checkpoint in "

@@ -237,6 +237,7 @@ class DecodeEngine:
             "decode_steps": 0,
             "prefills": 0,
             "prefill_batches": 0,
+            "suffix_prefill_batches": 0,  # of prefill_batches: warm (suffix-only) forwards
             "prefill_tokens": 0,
             "preempted": 0,
             "prefix_cache_hits": 0,
@@ -769,6 +770,7 @@ class DecodeEngine:
             )
         self.stats["prefills"] += A
         self.stats["prefill_batches"] += 1
+        self.stats["suffix_prefill_batches"] += 1
         self.stats["prefill_tokens"] += n_sfx
         self.stats["prefix_cache_hits"] += A
         self.stats["prefix_hit_tokens"] += hit_tokens

@@ -3,8 +3,10 @@
 ``from_jax_params`` takes the JAX ``init_params`` pytree as numpy arrays
 (``{"embed", "layers": {name: [n_layers, ...]}, "final_norm"[, "lm_head"]}``)
 and returns the port's state dict: the stacked layer leaves split into
-``layers.<i>.<name>`` tensors, the JAX ``[in, out]`` matrices transposed to
-PyTorch's ``[out, in]``, and the tied ``embed`` kept as the LM head.
+``layers.<i>.<name>`` tensors, the JAX ``[in, out]`` dense matrices
+transposed to PyTorch's ``[out, in]``, the MoE leaves (``w_router`` [D, E],
+the ``we_*`` expert stacks [E, in, out]) kept in JAX's layout, and the tied
+``embed`` kept as the LM head.
 ``to_jax_params`` is the reverse; a round trip is exact.
 
 numpy has no bfloat16 of its own: a bf16 array (whatever package made its
@@ -24,7 +26,8 @@ import torch
 
 from areal_tpu_torch.models.qwen import ModelConfig, _layer_shapes
 
-# JAX [in, out] matrices; every other leaf keeps its layout
+# JAX [in, out] dense matrices; every other leaf (norms, biases, the MoE
+# router and expert stacks) keeps its layout
 _MATRICES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
 
 

@@ -1,11 +1,16 @@
-"""Qwen2 / Qwen2.5 / Qwen3 dense decoder — the serving half of
-``areal_tpu/models/qwen.py`` in PyTorch.
+"""Qwen2 / Qwen2.5 / Qwen3 decoders, dense and MoE (qwen3_moe) — the
+serving half of ``areal_tpu/models/qwen.py`` in PyTorch.
 
 The JAX model keeps one stacked pytree scanned over layers; here the layers
 are an ``nn.ModuleList`` of ``DecoderLayer`` modules whose parameter names
 are the JAX leaf names (``wq``, ``bq``, ``q_norm``, ``w_gate``, ...).
-Projection weights use PyTorch's ``[out, in]`` layout (``F.linear``);
-``models/convert.py`` maps the JAX ``[in, out]`` arrays across.
+The dense projections (``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``,
+``w_down``) use PyTorch's ``[out, in]`` layout (``F.linear``), the JAX
+``[in, out]`` arrays transposed by ``models/convert.py``. The MoE leaves
+keep JAX's layout: the router ``w_router`` [D, E] (an f32 product ``h @
+w_router``) and the expert stacks ``we_gate`` / ``we_up`` [E, D, Fm] and
+``we_down`` [E, Fm, D], which are the grouped matmul's ``rhs[g] = [k, n]``
+with n contiguous, as the kernel reads them (``models/moe.py``).
 
 Forward functions take the model and mirror the JAX functions of the same
 name, including where bf16 rounds: ``_rms_norm`` casts to the input dtype
@@ -32,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
+from areal_tpu_torch.models import moe
 from areal_tpu_torch.ops.attention import (
     attention_mask as _attention_mask,
     flash_fwd,
@@ -67,6 +73,16 @@ class ModelConfig:
     remat: bool = True
     remat_policy: str = "nothing"
     attn_impl: str = "xla"  # "pallas": flash kernels; "xla": sdpa_plain
+    # MoE (qwen3_moe family; 0 experts = dense FFN), models/moe.py
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: int | None = None
+    capacity_factor: float = 1.25
+    norm_topk_prob: bool = True
+    # sort-based grouped dispatch computing every routed token; False =
+    # capacity-bounded einsum dispatch (drops overflow)
+    moe_dropless: bool = True
+    router_aux_coef: float = 0.0  # load-balance aux loss weight
 
     @property
     def head_dim_(self) -> int:
@@ -84,10 +100,48 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "ModelConfig":
+        """Build from an HF ``config.json`` dict (qwen2 / qwen3 / qwen3_moe
+        model types; text fields may nest under ``text_config``), as
+        ``areal_tpu/models/qwen.py:108`` does. A vision tower is a later
+        slice of the port."""
+        mt = d.get("model_type", "qwen2")
+        if mt == "qwen2_moe":
+            raise ValueError(
+                "qwen2_moe checkpoints use always-active SHARED experts, "
+                "which this model family does not implement — loading one "
+                "would silently drop those weights. Supported MoE family: "
+                "qwen3_moe."
+            )
+        if "vision_config" in d:
+            raise NotImplementedError("vision tower: ROADMAP Queue A item 9")
+        td = {**d, **d.get("text_config", {})}
+        return cls(
+            vocab_size=td["vocab_size"],
+            hidden_size=td["hidden_size"],
+            intermediate_size=td["intermediate_size"],
+            num_layers=td["num_hidden_layers"],
+            num_heads=td["num_attention_heads"],
+            num_kv_heads=td.get("num_key_value_heads", td["num_attention_heads"]),
+            head_dim=td.get("head_dim"),
+            rope_theta=td.get("rope_theta", 1e6),
+            rms_norm_eps=td.get("rms_norm_eps", 1e-6),
+            tie_word_embeddings=td.get("tie_word_embeddings", False),
+            # an explicit key wins; else the qwen3-family heuristic
+            qk_norm=d.get("qk_norm", mt.startswith("qwen3")),
+            attention_bias=td.get("attention_bias", mt.startswith("qwen2")),
+            num_experts=td.get("num_experts", 0),
+            num_experts_per_tok=td.get("num_experts_per_tok", 2),
+            moe_intermediate_size=td.get("moe_intermediate_size"),
+            norm_topk_prob=td.get("norm_topk_prob", True),
+        )
+
 
 def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """Per-layer parameter shapes in the port's layout ([out, in] matrices);
-    names as in the JAX ``_layer_shapes`` (models/qwen.py:177)."""
+    """Per-layer parameter shapes in the port's layout ([out, in] dense
+    matrices; the MoE leaves as in JAX); names as in the JAX
+    ``_layer_shapes`` (models/qwen.py:177)."""
     D, Q, KV, Fd, hd = (
         cfg.hidden_size,
         cfg.q_dim,
@@ -102,10 +156,12 @@ def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         "wo": (D, Q),
         "input_norm": (D,),
         "post_attn_norm": (D,),
-        "w_gate": (Fd, D),
-        "w_up": (Fd, D),
-        "w_down": (D, Fd),
     }
+    if cfg.num_experts > 0:
+        E, Fm = cfg.num_experts, cfg.moe_intermediate_size or Fd
+        shapes.update(w_router=(D, E), we_gate=(E, D, Fm), we_up=(E, D, Fm), we_down=(E, Fm, D))
+    else:
+        shapes.update(w_gate=(Fd, D), w_up=(Fd, D), w_down=(D, Fd))
     if cfg.attention_bias:
         shapes.update(bq=(Q,), bk=(KV,), bv=(KV,))
     if cfg.qk_norm:
@@ -118,7 +174,7 @@ def _param(shape, device, dtype) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One transformer block's parameters (dense SwiGLU FFN)."""
+    """One transformer block's parameters (dense SwiGLU or MoE FFN)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device, dtype: torch.dtype):
         super().__init__()
@@ -208,7 +264,14 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x, w)
 
 
-def _ffn(h: torch.Tensor, layer: DecoderLayer) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, h: torch.Tensor, layer) -> torch.Tensor:
+    """Feed-forward of [..., D] (models/qwen.py:577): dense SwiGLU, or the
+    MoE FFN, which takes [G, L, D] (a decode step's [S, D] goes as [S, 1,
+    D]); its aux loss is not needed here."""
+    if cfg.num_experts > 0:
+        squeeze = h.dim() == 2
+        out, _ = moe.moe_ffn(h[:, None] if squeeze else h, layer, cfg)
+        return out[:, 0] if squeeze else out
     return _proj(F.silu(_proj(h, layer.w_gate)) * _proj(h, layer.w_up), layer.w_down)
 
 
@@ -296,7 +359,7 @@ def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: b
         attn = sdpa_plain(q, k, v, mask, hd)
     x = x + _proj(attn.reshape(G, L, H * hd), layer.wo)
     h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
-    return x + _ffn(h, layer)
+    return x + _ffn(cfg, h, layer)
 
 
 def forward(
@@ -428,7 +491,7 @@ def forward_prefill(
         attn = sdpa_plain(q, k, v, mask, hd).reshape(A, P, H * hd)
         x = x + _proj(attn, layer.wo)
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
-        x = x + _ffn(h, layer)
+        x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     return hidden, torch.stack(ks), torch.stack(vs)
 
@@ -468,7 +531,7 @@ def _forward_suffix_paged(model, input_ids, positions, mask, cache, page_table, 
         )
         x = x + _proj(attn.reshape(S, B, H * hd).to(x.dtype), layer.wo)
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
-        x = x + _ffn(h, layer)
+        x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     return hidden, torch.stack(ks), torch.stack(vs)
 
@@ -573,6 +636,6 @@ def forward_decode_paged(
         attn = attn.reshape(S, H * hd).to(x.dtype)
         x = x + _proj(attn, layer.wo)
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
-        x = x + _ffn(h, layer)
+        x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     return hidden, cache

@@ -321,7 +321,7 @@ def forest_hidden(model, ids, positions, words, block_any):
     from areal_tpu_torch.models import qwen
 
     if getattr(model.cfg, "num_experts", 0) > 0:
-        raise NotImplementedError("MoE tree training: ROADMAP Queue A, MoE")
+        raise NotImplementedError("MoE tree training: ROADMAP Queue A item 7b")
     hidden = qwen.forward_masked(model, ids[None], positions[None], (words, block_any), "tree")
     return hidden[0]
 

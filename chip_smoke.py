@@ -12,16 +12,17 @@ no result line:
               process per source, all at once).
 3. kernel   — the paged decode-attention kernel (#1) against its plain
               PyTorch twin at the serving shapes of Qwen2.5-1.5B (H=12, KH=2,
-              hd=128, psz=128, S=32, 28-layer stacked cache, layer 5),
-              ragged lengths and shared pages, for bf16, int8 and fp8
-              pages; kernel / plain / SDPA-yardstick times and the bound.
+              hd=128, psz=128, S=32, 28-layer stacked cache, layer 5) and
+              of Qwen3-30B-A3B (H=32, KH=4: G=8, 48 layers), ragged lengths
+              and shared pages, for bf16, int8 and fp8 pages; kernel /
+              plain / SDPA-yardstick times and the bound.
 4. kernel_flash — the flash-attention kernels K2 (forward), K3 (dK, dV)
               and K4 (dQ) against their plain PyTorch versions at the
               trainer's shapes (packed [G, 1024] grids of the train phase's
               sequences, H=12 with KV repeated from 2, hd=128, bf16, padded
               tail); kernel / plain / SDPA-yardstick times and the bounds.
 5. kernel_suffix — the paged suffix-attention kernel (#3) against its plain
-              version at the same head config: a warm suffix prefill (8 rows
+              version at the same two head configs: a warm suffix prefill (8 rows
               of 64..256 suffix tokens over a shared 1,024-token prefix) and
               speculative verify (S=32, prefixes 1..2048, B=5 chains and B=9
               trees), bf16 / int8 / fp8 pages, planted faults; kernel / plain
@@ -66,6 +67,22 @@ no result line:
               count, the launches per pack, and the tree path's logprobs and
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step.
+12. kernel_gmm — the grouped-matmul kernel (the dropless MoE FFN's GEMM, in
+              place of megablox gmm) against its plain version at
+              Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
+              f32 out; gate / up and down) for a decode step (M=256) and a
+              prefill group (M=32,768) routed by a seeded softmax, plus
+              ragged cases in bf16 and f32; three planted faults; kernel
+              (each row tile) / plain / library-yardstick times and the
+              bound; one MoE dispatch under sync-debug "error".
+13. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+              experts, top-8, 30.5 B random bf16 parameters from a seed)
+              at the prefix-cache settings of ``ServerConfig()``: a cold
+              wave of 16 requests, a warm wave of 8 on a shared 1,024-token
+              system prompt, /flush_prefix_cache and the pool audit;
+              logprobs against a dense prefill (near-tie route flips
+              exempt and counted), the gmm / #1 / #3 launches per wave,
+              experts touched per decode step, a profiled wave.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -101,6 +118,30 @@ QWEN25_15B = dict(
     attention_bias=True,
     dtype="bfloat16",
 )
+# Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): the
+# qwen3_moe family's smallest public member, full width and depth
+QWEN3_30B_A3B = dict(
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=6144,
+    num_layers=48,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=128,
+    rope_theta=1_000_000.0,
+    rms_norm_eps=1e-6,
+    tie_word_embeddings=False,
+    attention_bias=False,
+    qk_norm=True,
+    num_experts=128,
+    num_experts_per_tok=8,
+    moe_intermediate_size=768,
+    norm_topk_prob=True,
+    dtype="bfloat16",
+)
+# the attention kernels' head configs: (H, KH, layers of the stacked cache);
+# Qwen3-30B-A3B's G = 32 / 4 = 8 is kernel #1's kMaxG
+HEADS = {"qwen2.5-1.5b": (12, 2, 28), "qwen3-30b-a3b": (32, 4, 48)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12}  # dense tensor-core rates
 # kernel vs plain, max |diff| on O(1) outputs: the plain twin rounds logits
@@ -186,13 +227,14 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
 
-def _kernel_inputs(kv: str, seed: int = 0):
-    """Stacked cache + ragged page tables at the slice's shapes."""
+def _kernel_inputs(kv: str, seed: int = 0, heads: tuple = HEADS["qwen2.5-1.5b"]):
+    """Stacked cache + ragged page tables at the serving shapes of one head
+    config (H, KH, layers)."""
     from areal_tpu_torch.inference import paged_kv
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
-    L, KH, H, hd, psz, S, wp = 28, 2, 12, 128, 128, 32, 16
+    (H, KH, L), hd, psz, S, wp = heads, 128, 128, 32, 16
     N = S * wp + 1
     lengths = np.concatenate(
         [[1, psz - 1, psz, psz + 1, wp * psz, wp * psz - 1], rng.integers(1, wp * psz + 1, S - 6)]
@@ -244,12 +286,23 @@ def _bound(kv: str, lengths: np.ndarray, S: int, H: int, KH: int, hd: int, psz: 
 
 
 def phase_kernel() -> dict:
+    """Kernel #1 against its plain version at each head config of HEADS:
+    Qwen2.5-1.5B's (keys "bf16", "int8", "fp8") and Qwen3-30B-A3B's G = 8
+    (keys "qwen3-30b-a3b/<kv>")."""
+    per: dict[str, dict] = {}
+    for tag, heads in HEADS.items():
+        per.update(_kernel_heads(tag, heads))
+    return per
+
+
+def _kernel_heads(tag: str, heads: tuple) -> dict:
     from areal_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_stacked
 
     li = 5
+    first = tag == "qwen2.5-1.5b"
     per: dict[str, dict] = {}
     for kv in ("bf16", "int8", "fp8"):
-        q, k, v, lengths, pt, sc = _kernel_inputs(kv)
+        q, k, v, lengths, pt, sc = _kernel_inputs(kv, heads=heads)
         ks, vs = sc.get("k_scales"), sc.get("v_scales")
         S, H, hd = q.shape
         KH, psz, wp = k.shape[1], k.shape[3], pt.shape[1]
@@ -262,8 +315,8 @@ def phase_kernel() -> dict:
             )
             err = (out.float() - ref.float()).abs().max().item()
             if not math.isfinite(err) or err > KERNEL_TOL:
-                raise AssertionError(f"[kernel] {kv}: max|kernel - plain| = {err} > {KERNEL_TOL}")
-            # timed launches cycle over all 28 layers, so each call finds its
+                raise AssertionError(f"[kernel] {tag} {kv}: max|kernel - plain| = {err} > {KERNEL_TOL}")
+            # timed launches cycle over every layer, so each call finds its
             # pages cold in the 50 MB L2 as a decode step does
             nl = k.shape[0]
             it = iter(range(10**9))
@@ -304,7 +357,7 @@ def phase_kernel() -> dict:
 
             lib_ms = time_cuda(sdpa_call)
             del kvg
-            if kv == "bf16":
+            if kv == "bf16" and first:
                 # uniform lengths: per-step slope vs the floor of a launch
                 for n in (128, 512, 2048):
                     un = torch.full_like(lengths, n)
@@ -314,10 +367,11 @@ def phase_kernel() -> dict:
                     log(f"[kernel] bf16 pages, every slot at {n} rows: kernel={t:.4f} ms "
                         f"bound={_bound(kv, un.cpu().numpy(), S, H, KH, hd, psz, wp)[0]:.4f} ms")
         bound_ms, bound_by = _bound(kv, lengths.cpu().numpy(), S, H, KH, hd, psz, wp)
-        per[kv] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+        per[kv if first else f"{tag}/{kv}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                   bound_ms=bound_ms, bound_by=bound_by)
         log(
-            f"[kernel] {kv} pages: max_abs_err={err:.3e} (tol {KERNEL_TOL}) "
+            f"[kernel] {'' if first else f'{tag} (H={H}, KH={KH}, G={H // KH}, {k.shape[0]} layers) '}"
+            f"{kv} pages: max_abs_err={err:.3e} (tol {KERNEL_TOL}) "
             f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms "
             f"bound={bound_ms:.4f} ms ({bound_by}) sum(len)={int(lengths.sum())}"
         )
@@ -545,12 +599,13 @@ def _suffix_masks(kind: str, S: int, B: int, rng) -> np.ndarray:
     return spec_mod.draft_batch(spec_mod.build_drafter(spec), ctx, S, B - 1).mask
 
 
-def _suffix_inputs(shape: str, kv: str, cache: dict, seed: int = 0):
-    """One kernel-#3 launch's operands at Qwen2.5-1.5B's heads: the suffix
-    q/K/V, the prefix lengths, page tables into ``cache`` and the mask."""
+def _suffix_inputs(shape: str, kv: str, cache: dict, seed: int = 0, H: int = 12, KH: int = 2):
+    """One kernel-#3 launch's operands at H query and KH KV heads: the
+    suffix q/K/V, the prefix lengths, page tables into ``cache`` and the
+    mask."""
     rng = np.random.default_rng(seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, KH, hd, psz = 12, 2, 128, 128
+    hd, psz = 128, 128
     N = cache["k"].shape[2]
     perm = rng.permutation(np.arange(1, N)).astype(np.int32)
     if shape == "warm_prefill":
@@ -617,21 +672,31 @@ def _suffix_excess(got, ref, mask) -> tuple[float, float, float]:
     return x, rms.item(), (g - r).abs().max().item()
 
 
-def phase_kernel_suffix(n_layers: int = 28) -> dict:
-    """Kernel #3 against its plain version at the Qwen2.5-1.5B head config
-    (H=12, KH=2, hd=128, psz=128, 28-layer stacked cache, layer 5): a warm
-    suffix prefill (8 rows of 64..256 suffix tokens in a 256 bucket over a
-    shared 1,024-token prefix, padded rows) and speculative verify (S=32,
-    prefixes of 1..2048 tokens, the ngram drafter's B=5 chains and the tree
-    drafter's B=9 trees), each for bf16, int8 and fp8 pages. Two planted
-    faults must fail the check."""
+def phase_kernel_suffix(n_layers: int | None = None) -> dict:
+    """Kernel #3 against its plain version at each head config of HEADS
+    (hd=128, psz=128, the config's stacked cache, layer 5): Qwen2.5-1.5B's
+    H=12, KH=2 (keys "<shape>/<kv>") and Qwen3-30B-A3B's H=32, KH=4, G=8
+    (keys "qwen3-30b-a3b/<shape>/<kv>"). Shapes: a warm suffix prefill (8
+    rows of 64..256 suffix tokens in a 256 bucket over a shared 1,024-token
+    prefix, padded rows) and speculative verify (S=32, prefixes of 1..2048
+    tokens, the ngram drafter's B=5 chains and the tree drafter's B=9
+    trees), each for bf16, int8 and fp8 pages. Two planted faults must fail
+    the check. ``n_layers`` overrides the cache depth (a CPU rehearsal)."""
+    per: dict[str, dict] = {}
+    for tag, (H, KH, L) in HEADS.items():
+        res = _suffix_heads(H, KH, n_layers or L)
+        per.update(res if tag == "qwen2.5-1.5b" else {f"{tag}/{k}": v for k, v in res.items()})
+    return per
+
+
+def _suffix_heads(H: int, KH: int, L: int) -> dict:
     from areal_tpu_torch.inference import paged_kv
     from areal_tpu_torch.ops.paged_suffix_attention import (
         paged_suffix_attention,
         paged_suffix_attention_plain,
     )
 
-    L, KH, hd, psz, N = n_layers, 2, 128, 128, 32 * 16 + 1
+    hd, psz, N = 128, 128, 32 * 16 + 1
     li = min(5, L - 1)
     kinds = {"warm_prefill": "chain", "verify_chain": "tree", "verify_tree": "tree"}
     per: dict[str, dict] = {}
@@ -650,7 +715,7 @@ def phase_kernel_suffix(n_layers: int = 28) -> dict:
             cache = {"k": k8, "v": v8, "k_scale": k_s, "v_scale": v_s}
         sc = dict(k_scales=cache.get("k_scale"), v_scales=cache.get("v_scale"))
         for shape, kind in kinds.items():
-            x = _suffix_inputs(shape, kv, cache)
+            x = _suffix_inputs(shape, kv, cache, H=H, KH=KH)
             args = (x["q"], x["ks"], x["vs"], cache["k"], cache["v"])
 
             def plain(layer, plens=None, mask=None):
@@ -664,7 +729,7 @@ def phase_kernel_suffix(n_layers: int = 28) -> dict:
                 torch.cuda.synchronize()
                 share, rms, err = _suffix_excess(got, ref, x["mask"])
                 if not share <= 1.0:
-                    raise AssertionError(f"[kernel_suffix] {shape} {kv}: off its plain version by {share:.3f} x "
+                    raise AssertionError(f"[kernel_suffix] H={H} {shape} {kv}: off its plain version by {share:.3f} x "
                                          f"the limit (rms {rms:.4f}, max|diff| {err:.3e})")
                 eye = torch.eye(x["mask"].shape[1], dtype=torch.bool, device="cuda")
                 faults = {
@@ -677,7 +742,7 @@ def phase_kernel_suffix(n_layers: int = 28) -> dict:
                     del fault_x["diagonal gate dropped"]
                 for n, fx in fault_x.items():
                     if not fx > 1.0:
-                        raise AssertionError(f"[kernel_suffix] {shape} {kv}: the check passes a planted fault ({n})")
+                        raise AssertionError(f"[kernel_suffix] H={H} {shape} {kv}: the check passes a planted fault ({n})")
                 del faults, ref, got
                 it = iter(range(10**9))
                 ms = time_cuda(lambda: paged_suffix_attention(
@@ -710,7 +775,7 @@ def phase_kernel_suffix(n_layers: int = 28) -> dict:
             per[f"{shape}/{kv}"] = dict(max_abs_err=err, share=share, rms=rms, ms=ms, plain_ms=plain_ms,
                                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
             dead = int((~x["mask"].any(-1)).sum())
-            log(f"[kernel_suffix] {shape} {kv} pages: S={S} B={B} rows ({dead} with no valid bit), prefixes "
+            log(f"[kernel_suffix] {'' if H == 12 else f'H={H} KH={KH} G={H // KH} '}{shape} {kv} pages: S={S} B={B} rows ({dead} with no valid bit), prefixes "
                 f"{int(x['plens'].min())}..{int(x['plens'].max())}; worst element {share:.3f} of the limit "
                 f"{SUFFIX_RTOL:.4g} |plain| + {SUFFIX_ATOL:.4g} rms(plain) (rms {rms:.4f}, max|diff| {err:.3e}); "
                 f"planted faults " + ", ".join(f"{n} {v:.2f}" for n, v in fault_x.items())
@@ -960,11 +1025,11 @@ def _check_response(r: dict, n_new: int, what: str) -> None:
         raise AssertionError(f"[{what}] logprobs not finite and <= 0: {lp[:4]}")
 
 
-def _dense_check(model, prompt: list[int], r: dict, greedy: bool) -> float:
-    """Teacher-forced dense prefill over prompt + output. Sampled responses:
-    max |served logprob - dense log-softmax|. Greedy responses (their
-    logprob is ~0 under the temperature-0 distribution): max shortfall of
-    each chosen token's dense logit below the dense argmax."""
+def _dense_diffs(model, prompt: list[int], r: dict, greedy: bool) -> np.ndarray:
+    """Teacher-forced dense prefill over prompt + output, per output token.
+    Sampled responses: |served logprob - dense log-softmax|. Greedy
+    responses (their logprob is ~0 under the temperature-0 distribution):
+    the shortfall of the chosen token's dense logit below the dense argmax."""
     from areal_tpu_torch.models import qwen
 
     out = r["output_tokens"]
@@ -974,14 +1039,20 @@ def _dense_check(model, prompt: list[int], r: dict, greedy: bool) -> float:
         logits = qwen.compute_logits(model, h[0, len(prompt) - 1 : len(prompt) - 1 + len(out)])
     tok = torch.tensor(out, device="cuda")[:, None]
     if greedy:
-        return (logits.max(dim=-1).values - logits.gather(1, tok)[:, 0]).max().item()
+        return (logits.max(dim=-1).values - logits.gather(1, tok)[:, 0]).cpu().numpy()
     dense = torch.log_softmax(logits, dim=-1).gather(1, tok)[:, 0]
-    return (dense - torch.tensor(r["output_logprobs"], device="cuda")).abs().max().item()
+    return (dense - torch.tensor(r["output_logprobs"], device="cuda")).abs().cpu().numpy()
 
 
-def _profile(fn, label: str, card: str) -> float:
+def _dense_check(model, prompt: list[int], r: dict, greedy: bool) -> float:
+    """The worst output token of ``_dense_diffs``."""
+    return float(_dense_diffs(model, prompt, r, greedy).max())
+
+
+def _profile(fn, label: str, card: str) -> dict:
     """Run ``fn`` once under torch.profiler: the share of its wall time in
-    which the card ran any kernel or copy (returned), and the kernels that
+    which the card ran any kernel or copy ("busy"), the busy microseconds
+    and the device time by kernel name ("by_name"); logs the kernels that
     took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1010,7 +1081,7 @@ def _profile(fn, label: str, card: str) -> float:
         f"({len(spans)} device ops); idle {1 - busy / wall_us:.1%}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile]   {us / 1e3:9.2f} ms  {us / busy:6.1%} of busy  {name[:90]}")
-    return busy / wall_us
+    return dict(busy=busy / wall_us, busy_us=busy, by_name=by_name)
 
 
 def phase_serve(card: str) -> tuple[int, dict]:
@@ -1715,7 +1786,7 @@ def phase_train_tree(card: str) -> dict:
         f"{node_total:.0f} nodes)")
 
     # one more tree optimizer step on the last batch, profiled
-    busy = _profile(lambda: trainer.train_batch(adv, actor._loss_fn, _wfn), "tree optimizer step", card)
+    busy = _profile(lambda: trainer.train_batch(adv, actor._loss_fn, _wfn), "tree optimizer step", card)["busy"]
 
     # the tree path against the packed path on the same batch at the same
     # weights, the proximal logprobs recomputed (PPO ratio ~1)
@@ -1756,8 +1827,492 @@ def phase_train_tree(card: str) -> dict:
                 peak_gib=peak, logp_gap=logp_gap, norms=norms)
 
 
+# the grouped matmul vs its plain version, element by element: the same f32
+# products (bf16 inputs are exact in f32) summed in other orders. f32
+# rounding over k terms stays far inside GMM_REL of the sum of the terms'
+# magnitudes (|lhs| @ |rhs| per element), while an output rounded to bf16,
+# a group multiplied by the next expert's weights or a row moved across a
+# group boundary miss it by GMM_FAULT_MIN or more. Rows past
+# sum(group_sizes) must be exact zeros.
+GMM_REL = 2**-20
+GMM_FAULT_MIN = 10.0
+
+
+def _gmm_share(got, ref, mag, used: int) -> float:
+    """Worst grouped row element of |got - ref| as a share of GMM_REL * mag
+    (passes at <= 1); a nonzero row past the groups counts as infinite."""
+    if torch.count_nonzero(got[used:]).item():
+        return math.inf
+    return ((got[:used] - ref[:used]).abs() / (GMM_REL * mag[:used]).clamp_min(1e-30)).max().item()
+
+
+def _gmm_routing(M: int, E: int, K: int, g) -> torch.Tensor:
+    """Group sizes of M / K tokens routed by a top-K softmax over E experts
+    (seeded normal logits)."""
+    probs = torch.softmax(torch.randn((M // K, E), generator=g, device="cuda"), dim=-1)
+    top = torch.topk(probs, K, dim=-1).indices.reshape(-1)
+    return torch.bincount(top, minlength=E).to(torch.int32)
+
+
+def _gmm_bound(M: int, k: int, n: int, sizes: torch.Tensor, elem: int = 2) -> tuple[float, str]:
+    """Least time of one call on these inputs: lhs read once, the weights of
+    the experts with rows read once, the f32 output and the sizes written /
+    read once; 2 flops per multiply-add at the bf16 tensor-core rate."""
+    touched = int((sizes > 0).sum())
+    nbytes = M * k * elem + touched * k * n * elem + M * n * 4 + sizes.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * k * n / PEAK_OPS["bf16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _gmm_library(lhs, rhs, sizes, ref, mag):
+    """The yardstick (the port never calls it): ``torch._grouped_mm`` with an
+    f32 output where this torch has it and it agrees with the plain version,
+    else a loop of ``torch.mm`` (f32 out) over the groups, sizes read once
+    outside the timed calls. Returns (name, fn of the weight stack), and
+    logs ``torch._grouped_mm`` with a bf16 output beside it where only that
+    runs."""
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    ends = offs.tolist()
+
+    def loop(w):
+        a = 0
+        for g_, b in enumerate(ends):
+            if b > a:
+                torch.mm(lhs[a:b], w[g_], out_dtype=torch.float32)
+            a = b
+
+    if not hasattr(torch, "_grouped_mm"):
+        return "loop of torch.mm", loop
+    for out_dtype in (torch.float32, torch.bfloat16):
+        try:
+            out = torch._grouped_mm(lhs, rhs, offs=offs, out_dtype=out_dtype)
+        except (RuntimeError, TypeError, ValueError) as e:
+            log(f"[kernel_gmm] torch._grouped_mm, {str(out_dtype)[6:]} out: not usable here "
+                f"({str(e).splitlines()[0][:100]})")
+            continue
+        if out_dtype == torch.float32:
+            share = _gmm_share(out, ref, mag, int(sizes.sum()))
+            if share <= 1.0:
+                return "torch._grouped_mm", lambda w: torch._grouped_mm(lhs, w, offs=offs, out_dtype=torch.float32)
+            log(f"[kernel_gmm] torch._grouped_mm, f32 out, disagrees with the plain version ({share:.2f} x the limit)")
+        else:
+            bf16_ms = time_cuda(lambda: torch._grouped_mm(lhs, rhs, offs=offs, out_dtype=torch.bfloat16), iters=10)
+            log(f"[kernel_gmm] torch._grouped_mm with a bf16 output (half the output bytes; not the same "
+                f"function, a reading only): {bf16_ms:.4f} ms")
+    return "loop of torch.mm", loop
+
+
+def phase_kernel_gmm() -> dict:
+    """The grouped-matmul kernel against its plain version at the serve_moe
+    shapes (Qwen3-30B-A3B's experts: E=128, top-8, D=2048, Fm=768, bf16 in,
+    f32 out): (k, n) = (2048, 768) for gate / up and (768, 2048) for down,
+    at M = 256 routed rows (a decode step of 32 slots) and M = 32,768 (a
+    prefill group of 8 x 512 tokens), routed by a seeded top-8 softmax;
+    plus ragged cases (empty groups, a group of one row, M not a multiple of
+    any tile, every row in one group) in bf16 and f32. Three planted faults
+    must miss the limit by GMM_FAULT_MIN. Times every row tile the kernel
+    has, the plain version and the library yardstick. Then one ``moe_ffn``
+    at the decode shape under ``torch.cuda.set_sync_debug_mode("error")``:
+    the dispatch never waits for the card."""
+    from types import SimpleNamespace
+
+    from areal_tpu_torch.models import moe, qwen
+    from areal_tpu_torch.ops import gmm as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 products stay f32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mc = QWEN3_30B_A3B
+    E, K, D, Fm = mc["num_experts"], mc["num_experts_per_tok"], mc["hidden_size"], mc["moe_intermediate_size"]
+    per: dict[str, dict] = {}
+    with torch.no_grad():
+        # ragged cases, every tile, bf16 and f32
+        for M, k, n, sizes in ((203, 200, 72, [0, 1, 57, 0, 100, 3, 0, 30]), (77, 64, 136, [0, 0, 77, 0])):
+            sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            for dt in (torch.bfloat16, torch.float32):
+                lhs = torch.randn((M, k), generator=g, device="cuda").to(dt)
+                rhs = torch.randn((len(sizes), k, n), generator=g, device="cuda").to(dt)
+                ref = gm.gmm_plain(lhs, rhs, sz)
+                mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sz)
+                shares = {tm: _gmm_share(gm.gmm(lhs, rhs, sz, tm=tm), ref, mag, sum(sizes)) for tm in gm.TILES}
+                if not max(shares.values()) <= 1.0:
+                    raise AssertionError(f"[kernel_gmm] M={M} k={k} n={n} sizes {sizes} {dt}: off its plain "
+                                         f"version by {shares} x the limit")
+                log(f"[kernel_gmm] ragged M={M} k={k} n={n} sizes {sizes} ({M - sum(sizes)} rows past the groups) "
+                    f"{str(dt)[6:]}: worst element as a share of the limit, by row tile "
+                    + ", ".join(f"{tm}: {x:.4f}" for tm, x in shares.items()))
+        for sname, M in (("decode", 32 * K), ("prefill", 8 * 512 * K)):  # 32 slots; 8 prompts x 512 tokens
+            sizes = _gmm_routing(M, E, K, g)
+            used = int(sizes.sum())
+            touched = int((sizes > 0).sum())
+            for proj, (k, n) in (("gate_up", (D, Fm)), ("down", (Fm, D))):
+                lhs = torch.randn((M, k), generator=g, device="cuda").bfloat16()
+                # three weight stacks, cycled in the timed calls, so each call
+                # finds its weights cold in the 50 MB L2 as the 48 layers do
+                stacks = [(0.02 * torch.randn((E, k, n), generator=g, device="cuda")).bfloat16() for _ in range(3)]
+                rhs = stacks[0]
+                got = gm.gmm(lhs, rhs, sizes)
+                ref = gm.gmm_plain(lhs, rhs, sizes)
+                mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sizes)
+                torch.cuda.synchronize()
+                share = _gmm_share(got, ref, mag, used)
+                err = (got - ref).abs().max().item()
+                if not share <= 1.0:
+                    raise AssertionError(f"[kernel_gmm] {sname} {proj}: off its plain version by {share:.3f} x "
+                                         f"the limit (max|diff| {err:.3e})")
+                big = int(sizes.argmax())
+                moved = sizes.clone()
+                first = int(torch.nonzero(sizes[:-1] > 0)[0])
+                moved[first] -= 1
+                moved[first + 1] += 1
+                wrong = rhs.clone()
+                wrong[big] = rhs[(big + 1) % E]
+                faults = {
+                    "a group times the next expert's weights": gm.gmm_plain(lhs, wrong, sizes),
+                    "a row moved across a group boundary": gm.gmm_plain(lhs, rhs, moved),
+                    "output rounded to bf16": ref.bfloat16().float(),
+                }
+                fault_x = {f: _gmm_share(v, ref, mag, used) for f, v in faults.items()}
+                del faults, wrong
+                for f, x in fault_x.items():
+                    if not x >= GMM_FAULT_MIN:
+                        raise AssertionError(f"[kernel_gmm] {sname} {proj}: planted fault ({f}) only {x:.2f} x "
+                                             f"the limit")
+                lib_name, lib_fn = _gmm_library(lhs, rhs, sizes, ref, mag)
+                it = iter(range(10**9))
+                by_tm = {tm: time_cuda(lambda: gm.gmm(lhs, stacks[next(it) % 3], sizes, tm=tm), iters=30)
+                         for tm in gm.TILES}
+                ms = time_cuda(lambda: gm.gmm(lhs, stacks[next(it) % 3], sizes), iters=30)
+                plain_ms = time_cuda(lambda: gm.gmm_plain(lhs, stacks[next(it) % 3], sizes), iters=3, warmup=1)
+                lib_ms = time_cuda(lambda: lib_fn(stacks[next(it) % 3]), iters=10, warmup=2)
+                bound_ms, bound_by = _gmm_bound(M, k, n, sizes)
+                per[f"{sname}/{proj}"] = dict(max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
+                                              library_ms=lib_ms, library=lib_name, bound_ms=bound_ms,
+                                              bound_by=bound_by, ms_by_tm=by_tm, faults=fault_x,
+                                              tm=gm.pick_tile(M, E), touched=touched)
+                log(f"[kernel_gmm] {sname} {proj}: M={M} k={k} n={n}, {touched} of {E} experts touched; worst "
+                    f"element {share:.4f} of the limit {GMM_REL:.3g} |lhs|@|rhs| (max|diff| {err:.3e}), rows "
+                    f"past the groups zero; planted faults " + ", ".join(f"{f} {x:.1f}" for f, x in fault_x.items())
+                    + f"; kernel={ms:.4f} ms (tm {gm.pick_tile(M, E)}; by tm "
+                    + ", ".join(f"{tm}: {t:.4f}" for tm, t in by_tm.items())
+                    + f") plain={plain_ms:.4f} ms {lib_name}={lib_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by})")
+                del stacks, rhs, lhs, got, ref, mag
+                torch.cuda.empty_cache()
+        # f32 inputs at the decode shape (the f32 twins' path)
+        sizes = _gmm_routing(32 * K, E, K, g)
+        lhs = torch.randn((32 * K, D), generator=g, device="cuda")
+        rhs = 0.02 * torch.randn((E, D, Fm), generator=g, device="cuda")
+        share = _gmm_share(gm.gmm(lhs, rhs, sizes), gm.gmm_plain(lhs, rhs, sizes),
+                           gm.gmm_plain(lhs.abs(), rhs.abs(), sizes), int(sizes.sum()))
+        if not share <= 1.0:
+            raise AssertionError(f"[kernel_gmm] f32 decode: off its plain version by {share:.3f} x the limit")
+        log(f"[kernel_gmm] f32 inputs, decode gate/up shape: worst element {share:.4f} of the limit")
+        # the dispatch at the decode shape never waits for the card
+        cfg = qwen.ModelConfig(**QWEN3_30B_A3B)
+        layer = SimpleNamespace(
+            w_router=(0.02 * torch.randn((D, E), generator=g, device="cuda")).bfloat16(),
+            **{name: (0.02 * torch.randn(shape, generator=g, device="cuda")).bfloat16()
+               for name, shape in (("we_gate", (E, D, Fm)), ("we_up", (E, D, Fm)), ("we_down", (E, Fm, D)))},
+        )
+        h = torch.randn((32, 1, D), generator=g, device="cuda").bfloat16()  # 32 slots
+        moe.moe_ffn(h, layer, cfg)  # first calls (library handles) outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _ = moe.moe_ffn(h, layer, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if not (out.shape == h.shape and torch.isfinite(out.float()).all()):
+            raise AssertionError("[kernel_gmm] moe_ffn at the decode shape: bad output")
+        log(f"[kernel_gmm] moe_ffn at the decode shape [32, 1, {D}] ran under "
+            "torch.cuda.set_sync_debug_mode('error'): the dispatch never waits for the card")
+        del layer, lhs, rhs
+    torch.cuda.empty_cache()
+    return per
+
+
+# a served token of the MoE model may miss the dense check only where a
+# route flipped at a near-tie: some layer's top-8 set differs between two
+# passes of the same tokens, with the router's 8th-9th probability margin
+# below ROUTE_GAP_TOL in both (bf16 noise of ~2^-8 relative on the router
+# logits moves probabilities of ~1/128 by ~3e-5; ten times that, and a
+# margin, sets the bound)
+ROUTE_GAP_TOL = 1e-3
+
+
+def _set_moe_trace(model, trace: list | None) -> list | None:
+    """Set (a list) or clear (None) the routing trace of every MoE layer of
+    ``model`` (``moe.moe_ffn_dropless``); returns ``trace``."""
+    for layer in model.layers:
+        layer.moe_trace = trace
+    return trace
+
+
+def _route_rows(trace: list, L: int, rows: list[tuple[int, int, int]]):
+    """Per layer, the traced routes of the rows given as (call offset of the
+    layer-0 call, first row, row count) concatenated: (top_e sorted along
+    K, gap)."""
+    tops, gaps = [], []
+    for layer in range(L):
+        t = [trace[c + layer][0][a : a + m] for c, a, m in rows]
+        gp = [trace[c + layer][1][a : a + m] for c, a, m in rows]
+        tops.append(torch.cat(t).sort(dim=-1).values)
+        gaps.append(torch.cat(gp))
+    return tops, gaps
+
+
+def _route_flips(model, prompt: list[int], out: list[int]):
+    """Route flips between two passes over prompt + output, by row (row i
+    holds token i, whose hidden state scores token i + 1): the dense prefill
+    of the whole sequence (the pass ``_dense_diffs`` makes), and the served computation of this
+    request replayed alone (a cold prefill of the prompt into fresh pages,
+    then one paged decode step per output token, teacher-forced). Returns
+    (near [rows] bool: a near-tie flip at some layer, far: flips with a
+    margin of ROUTE_GAP_TOL or more, near-tie flips, the largest margin of a
+    flipped route, total routes compared)."""
+    from areal_tpu_torch.inference import paged_kv
+    from areal_tpu_torch.models import qwen
+
+    cfg, psz = model.cfg, 128
+    L, P, n = cfg.num_layers, len(prompt), len(out)
+    seq = prompt + out
+    npg = -(-(P + n) // psz)
+    cache = paged_kv.init_paged_cache(cfg, npg + 1, psz, device="cuda")
+    pt = torch.arange(1, npg + 1, dtype=torch.int32, device="cuda")[None]
+    trace = _set_moe_trace(model, [])
+    try:
+        with torch.no_grad():
+            qwen.forward_prefill(model, torch.tensor([seq], device="cuda"), torch.arange(P + n, device="cuda")[None])
+            _, ks, vs = qwen.forward_prefill(model, torch.tensor([prompt], device="cuda"),
+                                             torch.arange(P, device="cuda")[None])
+            paged_kv.scatter_prefill(cache, ks, vs, pt[0, : -(-P // psz)], psz)
+            del ks, vs
+            for j in range(n):
+                p = P - 1 + j
+                qwen.forward_decode_paged(model, torch.tensor([seq[p]], device="cuda"),
+                                          torch.tensor([p], device="cuda"), cache, pt, page_size=psz)
+    finally:
+        _set_moe_trace(model, None)
+    dense = _route_rows(trace, L, [(0, 0, P + n - 1)])
+    # rows 0..P-2 from the prompt's prefill, row P-1+j from decode step j
+    served = _route_rows(trace, L, [(L, 0, P - 1)] + [(2 * L + j * L, 0, 1) for j in range(n)])
+    near = torch.zeros(P + n - 1, dtype=torch.bool, device="cuda")
+    far = n_near = 0
+    worst = 0.0
+    for (ta, ga), (tb, gb) in zip(zip(*dense), zip(*served)):
+        diff = (ta != tb).any(-1)
+        margin = torch.minimum(ga, gb)
+        tie = margin < ROUTE_GAP_TOL
+        near |= diff & tie
+        far += int((diff & ~tie).sum())
+        n_near += int((diff & tie).sum())
+        if diff.any():
+            worst = max(worst, margin[diff].max().item())
+    return near.cpu().numpy(), far, n_near, worst, L * (P + n - 1)
+
+
+def _moe_dense_check(model, prompt: list[int], r: dict, greedy: bool, what: str, replay: int = 0) -> dict:
+    """``_dense_diffs`` with the near-tie rule: a token past LOGPROB_TOL is
+    exempt only if a route flipped at a near-tie (``_route_flips``) at its
+    row or an earlier one of the sequence (it attends their KV). ``replay``
+    > 0 counts the flips over the first ``replay`` output tokens even when
+    every token is within the tolerance (a reading)."""
+    d = _dense_diffs(model, prompt, r, greedy)
+    bad = d > LOGPROB_TOL
+    res = dict(max=float(d.max()), exempt=0)
+    if bad.any() or replay:
+        n = len(d) if bad.any() else replay
+        near, far, n_near, worst, total = _route_flips(model, prompt, r["output_tokens"][:n])
+        P = len(prompt)
+        reach = np.logical_or.accumulate(near)[P - 1 : P - 1 + n]  # a flip at or before the token's row
+        res.update(near_flip_rows=int(near.sum()), rows=len(near), near_flips=n_near, far_flips=far,
+                   worst_margin=worst, routes=total)
+        bad, d = bad[:n], d[:n]
+        if (bad & ~reach).any():
+            raise AssertionError(f"[{what}] {int((bad & ~reach).sum())} tokens off the dense prefill by up to "
+                                 f"{float(d[bad & ~reach].max()):.4f} (tol {LOGPROB_TOL}) with no near-tie "
+                                 f"route flip at or before them ({int(near.sum())} near-tie flip rows, {far} "
+                                 f"flips with a margin >= {ROUTE_GAP_TOL})")
+        res["exempt"] = int(bad.sum())
+    return res
+
+
+def _moe_wave(srv, engine, bodies: list, n_first: int, L: int, what: str) -> tuple[list, dict]:
+    """One wave (the first ``n_first`` requests alone, then the rest at
+    once) with the kernels' counts set to 0 just before and read just
+    after, held to the wave's forwards: gmm 3 x L per forward (decode steps
+    and prefill / suffix forwards), kernel #1 L per decode step, kernel #3's
+    chain L per warm suffix forward."""
+    from areal_tpu_torch.ops.gmm import gmm
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+
+    keys = ("decode_steps", "prefill_batches", "suffix_prefill_batches", "prefills", "prefill_tokens",
+            "prefix_cache_hits", "prefix_hit_tokens", "generated_tokens")
+    dev0 = engine.device_seconds()
+    s0 = {k: engine.stats[k] for k in keys}
+    # main path: counts to 0 just before, read just after
+    gmm.launches = paged_attention_stacked.launches = 0
+    for k in psa.launches:
+        psa.launches[k] = 0
+    t0 = time.monotonic()
+    resps = _wave(srv.address, bodies[:n_first]) if n_first else []
+    t1 = time.monotonic()
+    resps += _wave(srv.address, bodies[n_first:])
+    wall = time.monotonic() - t1
+    counts = dict(gmm=gmm.launches, paged_attention=paged_attention_stacked.launches, **psa.launches)
+    d = {k: engine.stats[k] - s0[k] for k in keys}
+    dev1 = engine.device_seconds()
+    want = dict(gmm=3 * L * (d["decode_steps"] + d["prefill_batches"]), paged_attention=L * d["decode_steps"],
+                chain=L * d["suffix_prefill_batches"], tree=0)
+    if counts != want or d["decode_steps"] == 0:
+        raise AssertionError(f"[{what}] launch counts {counts} != {want} ({d})")
+    for k in ("prefill_s", "prefill_tokens", "decode_s", "decode_steps"):
+        d[f"dev_{k}"] = dev1[k] - dev0[k]
+    d.update(counts=counts, wall=wall, first_wall=t1 - t0)
+    log(f"[{what}] {len(resps)}/{len(bodies)} responses; launches gmm {counts['gmm']} = 3 x {L} layers x "
+        f"({d['decode_steps']} decode steps + {d['prefill_batches']} prefill forwards, "
+        f"{d['suffix_prefill_batches']} of them warm), kernel #1 {counts['paged_attention']} = {L} x "
+        f"{d['decode_steps']}, kernel #3 chain {counts['chain']} = {L} x {d['suffix_prefill_batches']}")
+    return resps, d
+
+
+def phase_serve_moe(card: str) -> dict:
+    """An ``InferenceServer`` over Qwen3-30B-A3B (full width and depth, 30.5 B
+    random bf16 parameters from seed 0, built on the card) at the
+    prefix-cache settings of ``ServerConfig()``: a cold wave of 16
+    concurrent /generate requests, a warm wave of 8 sharing a 1,024-token
+    system prompt (the first alone, then 7 radix hits: kernel #3's chain
+    launches through the MoE layers), /flush_prefix_cache and the pool audit, a traced wave for the
+    experts a decode step touches, and a profiled wave. Checks complete
+    responses, served logprobs against a dense prefill (near-tie route
+    flips exempt, counted), and every kernel's launches per wave."""
+    import gc
+
+    from areal_tpu_torch.api.config import ServerConfig
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[serve_moe] before the model (earlier servers and engines stopped, allocator cache emptied): "
+        f"torch.cuda.memory_allocated {held / 2**30:.2f} GiB")
+    if held > 2 * 2**30:
+        raise AssertionError(f"[serve_moe] {held / 2**30:.2f} GiB still held before the model")
+    mcfg = qwen.ModelConfig(**QWEN3_30B_A3B)
+    L = mcfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve_moe] Qwen3-30B-A3B random weights (seed 0): {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, built in {time.monotonic() - t0:.1f}s")
+    cfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                       host="127.0.0.1", seed=0)
+    engine = DecodeEngine(cfg, params=model)  # the model itself: no second copy of the weights
+    srv = ServerThread(cfg, engine=engine)
+    srv.start()
+    out: dict = {}
+    try:
+        rng = np.random.default_rng(0)
+        n_new = 128
+        prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, 16)]
+
+        def body(p, i, n=n_new):
+            sp = {"max_new_tokens": n, "greedy": True} if i % 2 == 0 else {"max_new_tokens": n, "temperature": 1.0}
+            return {"input_ids": p, "sampling_params": sp}
+
+        resps, d = _moe_wave(srv, engine, [body(p, i) for i, p in enumerate(prompts)], 0, L, "serve_moe")
+        for r in resps:
+            _check_response(r, n_new, "serve_moe")
+        toks = sum(len(r["output_tokens"]) for r in resps)
+        out.update(decode_tok_s=toks / d["wall"], ms_per_step=d["dev_decode_s"] / d["dev_decode_steps"] * 1e3,
+                   prefill_tok_s=d["dev_prefill_tokens"] / d["dev_prefill_s"], cold_counts=d["counts"])
+        log(f"[serve_moe] {card}: cold wave decode {out['decode_tok_s']:.1f} tok/s end to end ({toks} tokens, "
+            f"{d['wall']:.2f} s wall incl. prefill); {out['ms_per_step']:.2f} ms per decode step (device stream, "
+            f"S=32 slots, 16 active); prefill {out['prefill_tok_s']:.0f} tok/s (device stream, "
+            f"{d['dev_prefill_tokens']} tokens in {d['prefill_batches']} forwards)")
+        checks = [_moe_dense_check(model, prompts[i], resps[i], greedy=i % 2 == 0, what="serve_moe",
+                                   replay=32 if i == 1 else 0)
+                  for i in (0, 1, 2, 3)]
+        c1 = checks[1]
+        log(f"[serve_moe] served vs dense prefill of prompt + output: sampled logprobs max|diff| "
+            f"{max(c['max'] for c in checks[1::2]):.4f}, greedy tokens' dense-logit gap to argmax "
+            f"{max(c['max'] for c in checks[0::2]):.4f} (tol {LOGPROB_TOL}); near-tie exemptions "
+            f"{sum(c['exempt'] for c in checks)}; request 1 (prompt + its first 32 output tokens) replayed "
+            f"alone against a dense pass: {c1['near_flips']} of {c1['routes']} (row, layer) routes flipped at a "
+            f"near-tie (margin < {ROUTE_GAP_TOL}; the largest margin of a flipped route {c1['worst_margin']:.2e}), "
+            f"on {c1['near_flip_rows']} of {c1['rows']} rows; {c1['far_flips']} flipped with a larger margin")
+        out["exempt"] = sum(c["exempt"] for c in checks)
+
+        # warm wave: 8 requests sharing a 1,024-token system prompt
+        rng = np.random.default_rng(3)
+        system = rng.integers(0, mcfg.vocab_size, 1024).tolist()
+        wprompts = [system + rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 257, 8)]
+        # the first request runs alone and publishes the system prompt's
+        # pages (16 new tokens: its decode steps are not the wave's point)
+        wbodies = [body(wprompts[0], 0, 16)] + [body(p, i) for i, p in enumerate(wprompts) if i]
+        wresps, wd = _moe_wave(srv, engine, wbodies, 1, L, "serve_moe_warm")
+        for i, r in enumerate(wresps):
+            _check_response(r, 16 if i == 0 else n_new, "serve_moe_warm")
+        cached = [r["cached_prefix_tokens"] for r in wresps[1:]]
+        if wd["suffix_prefill_batches"] <= 0 or min(cached) < len(system):
+            raise AssertionError(f"[serve_moe_warm] warm requests missed the system prompt: {cached}, {wd}")
+        wchecks = [_moe_dense_check(model, wprompts[i], wresps[i], greedy=i % 2 == 0, what="serve_moe_warm")
+                   for i in (1, 2, 3, 4)]
+        wtoks = sum(len(r["output_tokens"]) for r in wresps[1:])
+        log(f"[serve_moe_warm] {card}: radix hits {wd['prefix_cache_hits']}, hit tokens {wd['prefix_hit_tokens']}; "
+            f"7 warm requests {wtoks / wd['wall']:.1f} decode tok/s end to end; prefill {wd['dev_prefill_tokens']} "
+            f"tokens in {wd['dev_prefill_s'] * 1e3:.1f} ms of device stream; vs dense prefill: max|diff| "
+            f"{max(c['max'] for c in wchecks):.4f} (tol {LOGPROB_TOL}), near-tie exemptions "
+            f"{sum(c['exempt'] for c in wchecks)}")
+        out["exempt"] += sum(c["exempt"] for c in wchecks)
+        out["warm_counts"] = wd["counts"]
+        stats = _post(srv.address, "/flush_prefix_cache", {})
+        audit = engine.pool_audit()
+        if not (audit["ok"] and audit["radix_pages"] == 0
+                and audit["free"] + audit["slot_pages"] + audit["radix_pages"] == audit["total"]):
+            raise AssertionError(f"[serve_moe_warm] pool audit after the flush: {audit}")
+        log(f"[serve_moe_warm] /flush_prefix_cache freed {stats['freed_pages']} pages; pool audit ok: free "
+            f"{audit['free']} + slots {audit['slot_pages']} + radix {audit['radix_pages']} = {audit['total']}")
+
+        # the experts a decode step touches: one short traced wave (the cold
+        # prompts again, 16 new tokens); inactive slots are routed too
+        trace = _set_moe_trace(model, [])
+        try:
+            _wave(srv.address, [body(p, i, 16) for i, p in enumerate(prompts)])
+        finally:
+            _set_moe_trace(model, None)
+        touched = [int((torch.bincount(te.reshape(-1), minlength=mcfg.num_experts) > 0).sum())
+                   for te, _ in trace if te.shape[0] == cfg.max_batch_size]
+        out["experts_touched"] = float(np.mean(touched))
+        log(f"[serve_moe] experts touched per layer per decode step (32 slots x top-8, 16 active): mean "
+            f"{out['experts_touched']:.1f} of {mcfg.num_experts} over {len(touched)} layer calls (min "
+            f"{min(touched)}, max {max(touched)})")
+        del trace
+
+        prof = _profile(lambda: _wave(srv.address, [body(p, i, 32) for i, p in enumerate(prompts)]),
+                        "wave (16 requests x 32 new tokens)", card)
+        gmm_us = sum(us for name, us in prof["by_name"].items() if "gmm_kernel" in name)
+        out.update(busy=prof["busy"], gmm_share=gmm_us / prof["busy_us"])
+        log(f"[profile]   gmm kernels {gmm_us / 1e3:.2f} ms, {out['gmm_share']:.1%} of busy")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[serve_moe] {card}: peak torch.cuda.max_memory_allocated {out['peak_gib']:.2f} GiB")
+    finally:
+        _set_moe_trace(model, None)
+        srv.stop()
+    del srv, engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spec", "train", "kernel_tree",
-          "train_tree")
+          "train_tree", "kernel_gmm", "serve_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -1794,6 +2349,8 @@ def main(argv: list[str]) -> int:
         "train": lambda: phase_train(card),
         "kernel_tree": phase_kernel_tree,
         "train_tree": lambda: phase_train_tree(card),
+        "kernel_gmm": phase_kernel_gmm,
+        "serve_moe": lambda: phase_serve_moe(card),
     }
     res = {}
     for name in PHASES:
@@ -1883,6 +2440,21 @@ def main(argv: list[str]) -> int:
             **{f: d[f] for f in fields[1:]},
             "forests": {fo: {f: r[name][f] for f in fields} for fo, r in tree_k.items()},
         })
+    # the grouped matmul: launches of serve_moe's cold and warm waves; the
+    # times of the decode gate / up shape, the other shapes beside them
+    gmm_k, moe_run = res["kernel_gmm"], res["serve_moe"]
+    d = gmm_k["decode/gate_up"]
+    kernels.append({
+        "name": "gmm",
+        "route": "cuda",
+        "source": "areal_tpu_torch/csrc/gmm.cu",
+        "replaces": "areal_tpu/models/moe.py:227",
+        "launches": moe_run["cold_counts"]["gmm"] + moe_run["warm_counts"]["gmm"],
+        "max_abs_err": max(v["max_abs_err"] for v in gmm_k.values()),
+        **{f: d[f] for f in fields[1:]},
+        "library": d["library"],
+        "shapes": {k: {f: v[f] for f in (*fields, "ms_by_tm", "tm")} for k, v in gmm_k.items()},
+    })
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -51,8 +51,8 @@ def _case(dev, S, H, KH, hd, psz, wp, dtype, quant, seed=0):
 @pytest.mark.parametrize("quant", [None, "int8", "fp8"])
 @pytest.mark.parametrize(
     "shape",
-    [(32, 12, 2, 128, 128, 4), (9, 14, 2, 64, 16, 5), (5, 8, 8, 128, 32, 3)],
-    ids=["qwen2.5-1.5b", "qwen2.5-0.5b-heads", "G1"],
+    [(32, 12, 2, 128, 128, 4), (9, 14, 2, 64, 16, 5), (5, 8, 8, 128, 32, 3), (32, 32, 4, 128, 128, 4)],
+    ids=["qwen2.5-1.5b", "qwen2.5-0.5b-heads", "G1", "qwen3-30b-a3b-G8"],
 )
 def test_kernel_matches_plain(cuda, shape, quant):
     S, H, KH, hd, psz, wp = shape
@@ -253,6 +253,9 @@ SUFFIX_SHAPES = {
     "verify-chain-B5": (32, 5, 12, 2, 128, 128, 16),
     "verify-tree-B9": (32, 9, 12, 2, 128, 128, 16),
     "small-pages-hd64-G1": (5, 70, 4, 4, 64, 16, 9),
+    # Qwen3-30B-A3B's heads: G = 32 / 4 = 8
+    "warm-prefill-qwen3-30b-a3b-G8": (4, 150, 32, 4, 128, 128, 8),
+    "verify-tree-B9-G8": (32, 9, 32, 4, 128, 128, 16),
 }
 
 
@@ -403,3 +406,71 @@ def test_tree_kernels_refuse_bad_arguments(cuda):
     lse = torch.zeros(q.shape[:2], device=cuda)
     with pytest.raises(ValueError, match="lse"):
         ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse.t(), lse)
+
+
+# ---------------------------------------------------------------------------
+# the grouped matmul (the dropless MoE FFN's GEMM, in place of megablox gmm)
+# ---------------------------------------------------------------------------
+
+from areal_tpu_torch.ops import gmm as gm  # noqa: E402
+
+# kernel vs plain: the same f32 products (bf16 inputs are exact in f32)
+# summed in other orders; f32 rounding over k terms stays far inside 2^-20
+# of the sum of the terms' magnitudes (a bf16-rounded output misses it by
+# ~100x at k = 2048)
+GMM_REL = 2**-20
+
+
+def _routed_sizes(T, E, K, g):
+    """Group sizes of T tokens routed top-K by a softmax over E experts."""
+    top = torch.topk(torch.softmax(torch.randn((T, E), generator=g), -1), K, dim=-1).indices
+    return torch.bincount(top.reshape(-1), minlength=E).to(torch.int32)
+
+
+GMM_CASES = {
+    # M, k, n, group sizes (None: 32 tokens routed top-8 over 128 experts)
+    "ragged": (203, 200, 72, [0, 1, 57, 0, 100, 3, 0, 30]),  # 12 rows past the groups
+    "one-group": (77, 64, 136, [0, 0, 77, 0]),
+    "decode-qwen3-30b-a3b": (256, 2048, 768, None),
+}
+
+
+def _gmm_case(dev, M, k, n, sizes, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    sizes = _routed_sizes(M // 8, 128, 8, g) if sizes is None else torch.tensor(sizes, dtype=torch.int32)
+    lhs = torch.randn((M, k), generator=g).to(dtype)
+    rhs = torch.randn((len(sizes), k, n), generator=g).to(dtype)
+    return lhs.to(dev), rhs.to(dev), sizes.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tm", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_gmm_kernel_matches_plain(cuda, case, dtype, tm):
+    lhs, rhs, sizes = _gmm_case(cuda, *GMM_CASES[case], dtype)
+    before = gm.gmm.launches
+    got = gm.gmm(lhs, rhs, sizes, tm=tm)
+    want = gm.gmm_plain(lhs, rhs, sizes)
+    torch.cuda.synchronize()
+    assert gm.gmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    used = int(sizes.sum())
+    assert torch.count_nonzero(got[used:]) == 0  # rows past the groups: exact zeros
+    mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sizes)
+    assert ((got - want).abs() <= GMM_REL * mag).all(), ((got - want).abs() / mag).max().item()
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_bad_arguments(cuda):
+    lhs, rhs, sizes = _gmm_case(cuda, 64, 32, 16, [10, 20, 30], torch.bfloat16)
+    with pytest.raises(TypeError):
+        gm.gmm(lhs, rhs.float(), sizes)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.gmm(lhs[:, :30].contiguous(), rhs[:, :30].contiguous(), sizes)
+    with pytest.raises(ValueError, match="int32"):
+        gm.gmm(lhs, rhs, sizes.long())
+    with pytest.raises(ValueError, match="tm"):
+        gm.gmm(lhs, rhs, sizes, tm=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gm.gmm(lhs.requires_grad_(True), rhs, sizes)

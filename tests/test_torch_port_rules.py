@@ -175,3 +175,36 @@ def test_unported_trainer_options_refused(change):
         # options read at the first forward (the remat policy)
         eng.initialize()
         eng.forward_batch({"input_ids": np.zeros((1, 4), np.int32), "attention_mask": np.ones((1, 4), bool)})
+
+
+def test_moe_training_refused():
+    """MoE models serve; training them waits for the grouped matmul's
+    backward kernels."""
+    from areal_tpu_torch.api.config import PPOActorConfig
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+
+    mcfg = qwen.ModelConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1, num_heads=2,
+                            num_kv_heads=1, num_experts=4, moe_intermediate_size=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchTrainEngine(PPOActorConfig(), model_config=mcfg, device="cpu")
+
+
+def test_gmm_wrapper_refuses_other_devices():
+    """The grouped-matmul wrapper takes a CPU tensor (the plain version) or a
+    CUDA one (the kernel), and raises on any other device."""
+    from areal_tpu_torch.ops.gmm import gmm
+
+    lhs = torch.zeros((16, 32), device="meta")
+    rhs = torch.zeros((4, 32, 64), device="meta")
+    sizes = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gmm(lhs, rhs, sizes)
+
+
+def test_chip_smoke_drives_moe_serving():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert {"kernel_gmm", "serve_moe"} <= set(chip_smoke.PHASES)
