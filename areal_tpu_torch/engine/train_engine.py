@@ -31,9 +31,15 @@ What is kept from the JAX engine:
   gathered from the trie's edges. ``forward_batch`` and ``eval_batch``
   stay on the packed grids, as in the JAX engine.
 
-Not ported (``_check_supported`` raises ``NotImplementedError``): MoE
-models (the grouped matmul has no backward kernel yet), LoRA, the vision
-tower, a critic / value head, multi-device meshes and
+- MoE models (the qwen3_moe family): the forward returns the router's
+  load-balance aux, which ``outputs["moe_aux"]`` carries on both paths
+  (packed: over every grid token; tree: over the unique nodes), as the JAX
+  engine puts it. No loss function here adds it: a caller's loss adds
+  ``router_aux_coef * outputs["moe_aux"]``. The grouped matmuls' backward
+  runs through the hand-written dLHS and tgmm kernels (``ops/gmm.py``).
+
+Not ported (``_check_supported`` raises ``NotImplementedError``): LoRA,
+the vision tower, a critic / value head, multi-device meshes and
 ``weight_update_mode="disk"``; also saving, loading, offloading and the
 observability surfaces (per-sequence loss attribution, phases).
 """
@@ -207,8 +213,6 @@ class TorchTrainEngine:
     ) -> None:
         """Refuse the options whose code paths are later slices of the port
         (ROADMAP.md Queue A)."""
-        if model_config is not None and model_config.num_experts > 0:
-            raise NotImplementedError("MoE training: ROADMAP Queue A item 7b")
         if cfg.path:
             raise NotImplementedError(
                 "loading an HF checkpoint (TrainEngineConfig.path) waits for a checkpoint in "
@@ -409,9 +413,11 @@ class TorchTrainEngine:
         chunked vocab pass once per edge (row parent(j) against token(j)),
         and ``gather_idx`` maps each sequence's token t+1 to its edge."""
         view = qwen.ParamView(self.model, self.model_cfg)
-        hidden = forest_hidden(
-            view, batch["node_ids"], batch["node_pos"], batch["mask_words"], batch["block_any"]
+        moe = self.model_cfg.num_experts > 0
+        out = forest_hidden(
+            view, batch["node_ids"], batch["node_pos"], batch["mask_words"], batch["block_any"], with_aux=moe
         )
+        hidden, aux = out if moe else (out, None)
         logp, ent = qwen.chunked_logprobs_entropy(
             view,
             hidden[batch["edge_rows"].long()][None],
@@ -420,16 +426,21 @@ class TorchTrainEngine:
             temperature=self._logit_temperature,
         )
         gather = batch["gather_idx"].long()
-        return {"logprobs": logp[0][gather], "entropy": ent[0][gather]}
+        outputs = {"logprobs": logp[0][gather], "entropy": ent[0][gather]}
+        if aux is not None:  # over the unique nodes (train_engine.py:896)
+            outputs["moe_aux"] = aux
+        return outputs
 
     # -- model ------------------------------------------------------------
     def _outputs_fn(self, batch: dict[str, torch.Tensor], no_grad: bool = False) -> dict:
         """Label-aligned ``logprobs`` / ``entropy`` [G, L] of one grid, from
         the compute-dtype view of the master parameters."""
         view = qwen.ParamView(self.model, self.model_cfg)
-        hidden = qwen.forward(
-            view, batch["input_ids"], batch["segment_ids"], batch["positions"], no_grad=no_grad
+        moe = self.model_cfg.num_experts > 0
+        out = qwen.forward(
+            view, batch["input_ids"], batch["segment_ids"], batch["positions"], no_grad=no_grad, with_aux=moe
         )
+        hidden, aux = out if moe else (out, None)
         logp, ent = qwen.chunked_logprobs_entropy(
             view,
             hidden,
@@ -437,7 +448,10 @@ class TorchTrainEngine:
             chunk_size=self.config.logprob_chunk_size,
             temperature=self._logit_temperature,
         )
-        return {"logprobs": logp, "entropy": ent}
+        outputs = {"logprobs": logp, "entropy": ent}
+        if aux is not None:  # the router load-balance aux (train_engine.py:762)
+            outputs["moe_aux"] = aux
+        return outputs
 
     # -- TrainEngine API --------------------------------------------------
     def compute_grads(

@@ -183,7 +183,15 @@ def _sample_step(
 def load_params(model: qwen.QwenModel, params) -> None:
     """Copy ``params`` (a ``QwenModel`` or a state dict of tensors / numpy
     arrays, e.g. ``models/convert.from_jax_params``) into ``model`` in
-    place, casting to the model's dtype. Every parameter must be present."""
+    place, casting to the model's dtype. Every parameter must be present.
+
+    All or nothing: every name, every shape and every value's conversion to
+    a tensor is checked before the first copy, so a payload that fails any
+    check raises and changes no weight. The JAX engine gets the same effect
+    by building the new parameter tree and assigning it only once built
+    (``areal_tpu/inference/decode_engine.py:1611``); here the copy stays in
+    place, because a second full copy of a large model (57 GiB for
+    Qwen3-30B-A3B) does not fit beside the first."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     own = dict(model.named_parameters())
@@ -191,14 +199,19 @@ def load_params(model: qwen.QwenModel, params) -> None:
     extra = sorted(set(params) - set(own))
     if missing or extra:
         raise ValueError(f"weight update mismatch: missing {missing[:4]}, unexpected {extra[:4]}")
+    srcs = {}
+    for name, p in own.items():
+        src = params[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.as_tensor(np.asarray(src))
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(p.shape)}")
+        if src.is_complex():  # copy_ would drop the imaginary part with a warning
+            raise TypeError(f"{name}: dtype {src.dtype} does not cast to {p.dtype}")
+        srcs[name] = src
     with torch.no_grad():
         for name, p in own.items():
-            src = params[name]
-            if not isinstance(src, torch.Tensor):
-                src = torch.as_tensor(np.asarray(src))
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(p.shape)}")
-            p.copy_(src)
+            p.copy_(srcs[name])
 
 
 class DecodeEngine:

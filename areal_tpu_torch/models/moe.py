@@ -23,7 +23,15 @@ The dropless dispatch never synchronizes the host with a card: the group
 sizes come from a ``scatter_add_`` and the tokens are un-sorted by a gather
 with the inverse permutation (``bincount``, boolean masks, ``nonzero`` and
 ``.item()`` would each wait for the device). The gather also keeps the
-combine free of atomics, so it is deterministic.
+combine free of atomics, so the forward is deterministic and a checkpointed
+recompute routes every token as the first pass did.
+
+Training: both paths are differentiable. The dropless path's grouped
+matmuls carry megablox's VJP (``ops/gmm.py`` ``GroupedMatmul``: the dLHS
+and tgmm kernels); the router gates and the aux loss differentiate through
+the f32 router, as in JAX. The backward of the token gather
+(``index_select``) scatter-adds each token's K rows, which may use atomics;
+the capacity path trains through autograd of its einsums, as JAX's does.
 """
 
 from __future__ import annotations

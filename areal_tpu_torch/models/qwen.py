@@ -115,7 +115,7 @@ class ModelConfig:
                 "qwen3_moe."
             )
         if "vision_config" in d:
-            raise NotImplementedError("vision tower: ROADMAP Queue A item 9")
+            raise NotImplementedError("vision tower: ROADMAP Queue A, vision")
         td = {**d, **d.get("text_config", {})}
         return cls(
             vocab_size=td["vocab_size"],
@@ -265,9 +265,9 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(cfg: ModelConfig, h: torch.Tensor, layer) -> torch.Tensor:
-    """Feed-forward of [..., D] (models/qwen.py:577): dense SwiGLU, or the
-    MoE FFN, which takes [G, L, D] (a decode step's [S, D] goes as [S, 1,
-    D]); its aux loss is not needed here."""
+    """Feed-forward of [..., D] for the serving paths (models/qwen.py:577):
+    dense SwiGLU, or the MoE FFN, which takes [G, L, D] (a decode step's
+    [S, D] goes as [S, 1, D]); its aux loss is not needed here."""
     if cfg.num_experts > 0:
         squeeze = h.dim() == 2
         out, _ = moe.moe_ffn(h[:, None] if squeeze else h, layer, cfg)
@@ -297,14 +297,17 @@ def _qkv(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor, rope: tuple):
 def compute_logits(model: QwenModel, hidden: torch.Tensor) -> torch.Tensor:
     """[..., D] -> [..., V] logits in f32: the product runs in the weight
     dtype with an f32 result. On CUDA that is ``torch.mm(..., out_dtype=
-    torch.float32)`` (no second copy of the [V, D] table); the CPU has no
-    such operator, so there both operands are up-cast to f32 explicitly."""
+    torch.float32)`` (no second copy of the [V, D] table), which has no
+    derivative; where a gradient is needed (the tree path's node logprobs),
+    and on the CPU, which has no such operator, both operands are up-cast to
+    f32 explicitly: the same exact products, summed in f32."""
     w = model.lm_head_weight
     lead = hidden.shape[:-1]
     h = hidden.to(w.dtype).reshape(-1, w.shape[1])
+    grad = torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)
     if w.dtype == torch.float32:
         out = h @ w.t()
-    elif h.is_cuda:
+    elif h.is_cuda and not grad:
         out = torch.mm(h, w.t(), out_dtype=torch.float32)
     else:
         out = h.float() @ w.float().t()
@@ -339,11 +342,13 @@ class ParamView:
         )
 
 
-def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: bool):
-    """One transformer block over x [G, L, D] (models/qwen.py:595). ``mask``
-    is the segment ids for the flash kernels ("pallas"), the [G, 1, L, L]
-    bool mask for ``sdpa_plain`` ("xla"), or the (words, block_any) of one
-    packed forest for the tree kernels ("tree", G = 1)."""
+def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: bool, with_aux: bool = False):
+    """One transformer block over x [G, L, D] (models/qwen.py:595) -> (x,
+    aux): the MoE router's load-balance aux of this layer when ``with_aux``
+    and the FFN is MoE, else None. ``mask`` is the segment ids for the flash
+    kernels ("pallas"), the [G, 1, L, L] bool mask for ``sdpa_plain``
+    ("xla"), or the (words, block_any) of one packed forest for the tree
+    kernels ("tree", G = 1)."""
     G, L, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     q, k, v = _qkv(cfg, layer, x, rope)
@@ -359,7 +364,10 @@ def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: b
         attn = sdpa_plain(q, k, v, mask, hd)
     x = x + _proj(attn.reshape(G, L, H * hd), layer.wo)
     h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
-    return x + _ffn(cfg, h, layer)
+    if cfg.num_experts > 0:
+        ff, aux = moe.moe_ffn(h, layer, cfg, with_aux)
+        return x + ff, aux
+    return x + _ffn(cfg, h, layer), None
 
 
 def forward(
@@ -368,20 +376,27 @@ def forward(
     segment_ids: torch.Tensor,  # [G, L] int32, 0 = padding
     positions: torch.Tensor,  # [G, L], restarting per segment
     no_grad: bool = False,
-) -> torch.Tensor:
-    """Decoder body -> final hidden states [G, L, D] (models/qwen.py:679).
-    ``cfg.attn_impl`` picks the attention: "pallas" runs ``flash_train``
-    (``flash_fwd`` when ``no_grad``), "xla" the plain masked softmax."""
+    with_aux: bool = False,  # also return the summed MoE router aux loss
+):
+    """Decoder body -> final hidden states [G, L, D] (models/qwen.py:679),
+    and with ``with_aux`` the pair (hidden, sum of the layers' router aux
+    losses as an f32 scalar; 0 for a dense model), as the JAX ``forward``
+    returns them. ``cfg.attn_impl`` picks the attention: "pallas" runs
+    ``flash_train`` (``flash_fwd`` when ``no_grad``), "xla" the plain masked
+    softmax."""
     impl = resolve_impl(model.cfg.attn_impl)
     mask = segment_ids.to(torch.int32).contiguous() if impl == "pallas" else _attention_mask(segment_ids)
-    return forward_masked(model, input_ids, positions, mask, impl, no_grad)
+    return forward_masked(model, input_ids, positions, mask, impl, no_grad, with_aux)
 
 
-def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool = False) -> torch.Tensor:
+def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool = False, with_aux: bool = False):
     """The decoder body under an attention given by ``impl`` and its
-    ``mask`` (``_decoder_layer``) -> final hidden states [G, L, D]. With
-    ``cfg.remat`` and policy "nothing" each layer runs under
-    ``torch.utils.checkpoint`` while gradients are on."""
+    ``mask`` (``_decoder_layer``) -> final hidden states [G, L, D], or
+    (hidden, summed aux) with ``with_aux``. With ``cfg.remat`` and policy
+    "nothing" each layer runs under ``torch.utils.checkpoint`` while
+    gradients are on; the aux rides out of the checkpoint with the hidden
+    states (the recompute routes as the first pass did: the router and the
+    grouped matmuls are deterministic)."""
     cfg = model.cfg
     if cfg.remat and cfg.remat_policy not in ("nothing", "everything"):
         if cfg.remat_policy == "dots_nobatch":
@@ -392,14 +407,18 @@ def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool =
     recompute = (
         cfg.remat and cfg.remat_policy == "nothing" and not no_grad and torch.is_grad_enabled()
     )
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
         if recompute:
-            x = checkpoint(
-                _decoder_layer, cfg, layer, x, mask, rope, impl, no_grad, use_reentrant=False
+            x, aux = checkpoint(
+                _decoder_layer, cfg, layer, x, mask, rope, impl, no_grad, with_aux, use_reentrant=False
             )
         else:
-            x = _decoder_layer(cfg, layer, x, mask, rope, impl, no_grad)
-    return _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+            x, aux = _decoder_layer(cfg, layer, x, mask, rope, impl, no_grad, with_aux)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    return (hidden, aux_sum) if with_aux else hidden
 
 
 def _logprob_entropy_chunk(h, y, w, temperature: float):

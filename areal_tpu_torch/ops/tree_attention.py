@@ -309,21 +309,25 @@ def tree_attention(q, k, v, words, block_any):
 # ---------------------------------------------------------------------------
 
 
-def forest_hidden(model, ids, positions, words, block_any):
+def forest_hidden(model, ids, positions, words, block_any, with_aux: bool = False):
     """Decoder body over packed trie nodes with the tree kernels in every
-    layer -> final hidden states [n_pad, D] (``tree_attention.py:410``).
-    ``ids`` [n_pad] node tokens (padding 0), ``positions`` [n_pad] node
-    depths (the rope positions), ``words`` / ``block_any`` int32 device
-    tensors of ``pack_ancestor_bits``. The ancestor mask keeps disjoint tries
-    apart, so a whole forest runs as one call. Layers run under
+    layer -> final hidden states [n_pad, D] (``tree_attention.py:410``), and
+    with ``with_aux`` the pair (hidden, summed MoE router aux), as JAX's
+    ``forest_hidden`` returns them. ``ids`` [n_pad] node tokens (padding 0),
+    ``positions`` [n_pad] node depths (the rope positions), ``words`` /
+    ``block_any`` int32 device tensors of ``pack_ancestor_bits``. The
+    ancestor mask keeps disjoint tries apart, so a whole forest runs as one
+    call. An MoE layer routes all n_pad nodes, padding included, as one
+    [1, n_pad, D] call (JAX's ``moe_ffn(h[None])``), so its aux is over the
+    unique nodes, not the packed path's duplicated tokens. Layers run under
     ``torch.utils.checkpoint`` when ``cfg.remat`` is set and gradients are
     on, as in ``qwen.forward``."""
     from areal_tpu_torch.models import qwen
 
-    if getattr(model.cfg, "num_experts", 0) > 0:
-        raise NotImplementedError("MoE tree training: ROADMAP Queue A item 7b")
-    hidden = qwen.forward_masked(model, ids[None], positions[None], (words, block_any), "tree")
-    return hidden[0]
+    out = qwen.forward_masked(model, ids[None], positions[None], (words, block_any), "tree", with_aux=with_aux)
+    if with_aux:
+        return out[0][0], out[1]
+    return out[0]
 
 
 def tree_forward_logprobs_pallas(model, pack):

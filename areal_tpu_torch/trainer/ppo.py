@@ -10,7 +10,7 @@ factor ``prox_alpha`` is computed on the host from the per-token versions.
 
 Left out: the learning-health and lineage exports of the JAX trainer
 (per-lag-bucket loss stats, per-sequence loss attribution, the
-``stats_tracker`` scalars), which are observability, ROADMAP Queue A item 9;
+``stats_tracker`` scalars), ROADMAP Queue A, trainer breadth;
 and the critic (``PPOCritic``).
 """
 

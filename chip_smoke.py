@@ -75,7 +75,15 @@ no result line:
               ragged cases in bf16 and f32; three planted faults; kernel
               (each row tile) / plain / library-yardstick times and the
               bound; one MoE dispatch under sync-debug "error".
-13. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+13. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+              VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
+              plain versions at Qwen3-30B-A3B's expert shapes (gate / up
+              and down) for M = 32,768 and M = 8 x the tokens of
+              train_moe's minibatch grid, f32 cotangent, f32 and bf16
+              outputs, 64 rows past the groups; three planted faults;
+              kernel / plain / f32 torch.mm loop / torch._grouped_mm (bf16)
+              times and the bound.
+14. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -83,6 +91,19 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
+15. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+              and 4 of its 48 layers (3.11 B parameters; the trainer's f32
+              state of the whole depth does not fit one card): the grouped
+              matmuls' forward and backward kernels under per-layer
+              checkpointing, router and experts pushed into the running
+              engine. Checks the trainer's logprobs against the served ones
+              (near-tie route flips exempt, counted), the launches of gmm,
+              gmm_bwd_lhs and tgmm, moved weights and version tags; on one
+              minibatch the kernel backward's gradient against the plain
+              backward's (norm and cosines; experts no token reached get
+              exact zeros); one MoE tree step through
+              ``tree_forward_logprobs_pallas`` against the packed path; a
+              profiled optimizer step and the peak memory.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -1444,20 +1465,38 @@ def phase_spec(card: str) -> dict:
 _SNAP_ROWS = 4096  # embedding rows watched
 
 
+_SNAP_EXPERT = 64  # rows and columns of every expert's matrix watched
+
+
 def _snapshot(model) -> dict[str, torch.Tensor]:
-    """Copies of a few master weights (matrices, a bias, norms, the first
-    embedding rows) to see them move."""
+    """Copies of a few master weights (matrices, a bias or the router, norms,
+    the first embedding rows; an MoE layer's experts as the leading
+    [64, 64] block of each expert's matrix) to see them move."""
     sd = dict(model.named_parameters())
     last = model.cfg.num_layers - 1
-    names = ["layers.0.wq", "layers.0.bq", f"layers.{last}.w_down", f"layers.{last}.input_norm", "final_norm"]
-    snap = {n: sd[n].detach().clone() for n in names}
+    if model.cfg.num_experts > 0:
+        names = ["layers.0.wq", "layers.0.w_router", f"layers.{last}.we_gate", f"layers.{last}.we_down",
+                 f"layers.{last}.input_norm", "final_norm"]
+    else:
+        names = ["layers.0.wq", "layers.0.bq", f"layers.{last}.w_down", f"layers.{last}.input_norm", "final_norm"]
+    snap = {n: _watched(sd[n]).clone() for n in names}
     snap["embed"] = sd["embed"][:_SNAP_ROWS].detach().clone()
     return snap
 
 
+def _watched(p: torch.Tensor) -> torch.Tensor:
+    return p.detach()[:, :_SNAP_EXPERT, :_SNAP_EXPERT] if p.dim() == 3 else p.detach()
+
+
 def _moved(model, snap: dict[str, torch.Tensor]) -> dict[str, float]:
+    """Per watched weight, the largest move; for an expert stack the smallest
+    of its experts' largest moves (every expert must move)."""
     sd = dict(model.named_parameters())
-    return {n: (sd[n][: len(t)] - t).abs().max().item() for n, t in snap.items()}
+    out = {}
+    for n, t in snap.items():
+        d = (_watched(sd[n])[: len(t)] - t).abs()
+        out[n] = d.amax(dim=(1, 2)).min().item() if d.dim() == 3 else d.max().item()
+    return out
 
 
 def _rollout(engine, prompts: list[list[int]], n_samples: int, n_new: int):
@@ -1505,8 +1544,10 @@ def _logprob_gap(trainer_logp: np.ndarray, batch: dict) -> float:
     return float(np.abs(trainer_logp[gen] - np.asarray(batch["logprobs"])[gen]).max())
 
 
-def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
-    """Two asynchronous-GRPO steps of Qwen2.5-1.5B at full width and depth:
+def _grpo_run(tag: str, kernels: tuple, model: dict | None = None, name: str = "Qwen2.5-1.5B", gap_check=None,
+              **cfg_kw) -> dict:
+    """Two asynchronous-GRPO steps of ``model`` (default Qwen2.5-1.5B at
+    full width and depth; ``name`` labels it):
     the ``DecodeEngine`` generates 8 prompts x 4 samples (duplicates alias
     the first sample's pages), the ``TorchTrainEngine`` recomputes the
     proximal logprobs, ``PPOActor`` computes advantages and runs
@@ -1515,8 +1556,12 @@ def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
     Checks the aliasing, the version tags, the trainer's logprobs against the
     served ones, finite loss and grad norm, LR 0 on the first step and moved
     weights. ``kernels``' launch counts are set to 0 just before and read
-    just after. ``cfg_kw`` overrides the ``PPOActorConfig``. The engine is
-    stopped on return; the trainer, actor and last batch come back."""
+    just after, with the engine's forwards in that window (decode steps and
+    prefill forwards). ``gap_check(tag, trainer, engine, batch, step)`` holds the
+    trainer's logprobs against the served ones (default: ``_logprob_gap``
+    within LOGPROB_TOL). ``cfg_kw`` overrides the ``PPOActorConfig``. The
+    engine is stopped on return; the trainer, actor and last batch come
+    back."""
     from areal_tpu_torch.api.config import NormConfig, OptimizerConfig, PPOActorConfig, ServerConfig
     from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
@@ -1526,7 +1571,7 @@ def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
     from areal_tpu_torch.utils.data import pad_sequences_to_tensors
 
     group, n_prompts, n_new = 4, 8, 128
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**(model or QWEN25_15B))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     cfg = PPOActorConfig(**{
@@ -1562,12 +1607,15 @@ def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
     meta = WeightUpdateMeta(type="mem")
     trainer.connect_engine(engine, meta)
     torch.cuda.synchronize()
-    log(f"[{tag}] Qwen2.5-1.5B trainer (f32 master weights, AdamW state) and decode engine "
-        f"up in {time.monotonic() - t0:.1f}s")
+    log(f"[{tag}] {name} trainer (f32 master weights, AdamW state) and decode engine "
+        f"up in {time.monotonic() - t0:.1f}s; torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, n_prompts)]
 
     # main path: counts to 0 just before, read just after
+    fwd_keys = ("decode_steps", "prefill_batches")
+    fwd0 = {k: engine.stats[k] for k in fwd_keys}
     for kern in kernels:
         kern.launches = 0
     parts = {"rollout": 0.0, "prox_recompute": 0.0, "ppo_update": 0.0, "weight_update": 0.0}
@@ -1595,11 +1643,14 @@ def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
             torch.cuda.synchronize()
             parts["prox_recompute"] += time.monotonic() - tb
             r["n_fwd_grids"] += len(trainer._make_grids(batch))
-            r["gaps"].append(_logprob_gap(batch["prox_logp"], batch))
-            log(f"[{tag}] wave {step}: {len(vers)} generated tokens, all at version {step}; trainer's "
-                f"recomputed logprobs vs served: max|diff| {r['gaps'][-1]:.4f} (tol {LOGPROB_TOL})")
-            if not r["gaps"][-1] <= LOGPROB_TOL:
-                raise AssertionError(f"[{tag}] wave {step}: trainer and server disagree on the policy")
+            if gap_check is None:
+                r["gaps"].append(_logprob_gap(batch["prox_logp"], batch))
+                log(f"[{tag}] wave {step}: {len(vers)} generated tokens, all at version {step}; trainer's "
+                    f"recomputed logprobs vs served: max|diff| {r['gaps'][-1]:.4f} (tol {LOGPROB_TOL})")
+                if not r["gaps"][-1] <= LOGPROB_TOL:
+                    raise AssertionError(f"[{tag}] wave {step}: trainer and server disagree on the policy")
+            else:
+                r["gaps"].append(gap_check(tag, trainer, engine, batch, step))
             adv = actor.compute_advantages(batch)
             if snap0 is None:
                 snap0 = _snapshot(trainer.model)
@@ -1626,7 +1677,8 @@ def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
                 if not all(m > 0 for m in moved.values()):
                     raise AssertionError(f"[{tag}] master weights did not move after the second step: {moved}")
                 log(f"[{tag}] master weights moved after the second optimizer step (the first has LR 0): "
-                    + ", ".join(f"{n} {m:.2e}" for n, m in moved.items()))
+                    + ", ".join(f"{n} {m:.2e}" + (" (its least-moved expert)" if snap0[n].dim() == 3 else "")
+                                for n, m in moved.items()))
             if step == 0:
                 tb = time.monotonic()
                 trainer.update_weights(meta)
@@ -1640,6 +1692,7 @@ def _grpo_run(tag: str, kernels: tuple, **cfg_kw) -> dict:
                     raise AssertionError(f"[{tag}] the radix tree holds {held} pages after the weight update")
                 log(f"[{tag}] radix tree empty after update_weights (across_updates='flush')")
         r["counts"] = [kern.launches for kern in kernels]
+        r["engine_forwards"] = sum(engine.stats[k] - fwd0[k] for k in fwd_keys)
         if not moved:
             raise AssertionError(f"[{tag}] fewer than two optimizer steps")
     finally:
@@ -2062,15 +2115,17 @@ def _route_rows(trace: list, L: int, rows: list[tuple[int, int, int]]):
     return tops, gaps
 
 
-def _route_flips(model, prompt: list[int], out: list[int]):
+def _route_flips(model, prompt: list[int], out: list[int], against=None):
     """Route flips between two passes over prompt + output, by row (row i
-    holds token i, whose hidden state scores token i + 1): the dense prefill
-    of the whole sequence (the pass ``_dense_diffs`` makes), and the served computation of this
-    request replayed alone (a cold prefill of the prompt into fresh pages,
-    then one paged decode step per output token, teacher-forced). Returns
-    (near [rows] bool: a near-tie flip at some layer, far: flips with a
-    margin of ROUTE_GAP_TOL or more, near-tie flips, the largest margin of a
-    flipped route, total routes compared)."""
+    holds token i, whose hidden state scores token i + 1): the served
+    computation of this request replayed alone (a cold prefill of the prompt
+    into fresh pages, then one paged decode step per output token,
+    teacher-forced), against the dense prefill of the whole sequence (the
+    pass ``_dense_diffs`` makes) or, given ``against``, against those
+    routes (per layer, (top_e sorted along K, gap) for the same rows).
+    Returns (near [rows] bool: a near-tie flip at some layer, far: flips with
+    a margin of ROUTE_GAP_TOL or more, near-tie flips, the largest margin of
+    a flipped route, total routes compared)."""
     from areal_tpu_torch.inference import paged_kv
     from areal_tpu_torch.models import qwen
 
@@ -2083,7 +2138,9 @@ def _route_flips(model, prompt: list[int], out: list[int]):
     trace = _set_moe_trace(model, [])
     try:
         with torch.no_grad():
-            qwen.forward_prefill(model, torch.tensor([seq], device="cuda"), torch.arange(P + n, device="cuda")[None])
+            if against is None:
+                qwen.forward_prefill(model, torch.tensor([seq], device="cuda"),
+                                     torch.arange(P + n, device="cuda")[None])
             _, ks, vs = qwen.forward_prefill(model, torch.tensor([prompt], device="cuda"),
                                              torch.arange(P, device="cuda")[None])
             paged_kv.scatter_prefill(cache, ks, vs, pt[0, : -(-P // psz)], psz)
@@ -2094,9 +2151,10 @@ def _route_flips(model, prompt: list[int], out: list[int]):
                                           torch.tensor([p], device="cuda"), cache, pt, page_size=psz)
     finally:
         _set_moe_trace(model, None)
-    dense = _route_rows(trace, L, [(0, 0, P + n - 1)])
+    off = 0 if against is not None else L
+    dense = against if against is not None else _route_rows(trace, L, [(0, 0, P + n - 1)])
     # rows 0..P-2 from the prompt's prefill, row P-1+j from decode step j
-    served = _route_rows(trace, L, [(L, 0, P - 1)] + [(2 * L + j * L, 0, 1) for j in range(n)])
+    served = _route_rows(trace, L, [(off, 0, P - 1)] + [(off + L + j * L, 0, 1) for j in range(n)])
     near = torch.zeros(P + n - 1, dtype=torch.bool, device="cuda")
     far = n_near = 0
     worst = 0.0
@@ -2311,8 +2369,552 @@ def phase_serve_moe(card: str) -> dict:
     return out
 
 
+# the grouped matmul's backward kernels vs their plain versions, element by
+# element on the f32 output: both multiply the f32 cotangent by the widened
+# bf16 operand in f32; the kernels split the cotangent into bf16 hi + lo, which
+# drops at most 2^-16 |grad| an element (u = 2^-8, squared), so each element
+# stays inside GMM_BWD_REL of the sum of the terms' magnitudes (|grad| @
+# |rhs|^T, |lhs|^T @ |grad|), plus the f32 rounding of two R-term sums in
+# other orders (a random walk: sqrt(R) 2^-24 of it). A bf16 output may be
+# one bf16 step (2^-7 of the plain value) further. Rows past
+# sum(group_sizes) must be exact zeros.
+GMM_BWD_REL = 2**-14
+# planted faults must miss that limit by these factors. Dropping the lo half
+# is a random walk of ~2^-9 relative errors: over millions of elements its
+# worst one lands ~200 / sqrt(R) times the limit (R = 768..2048 here: 4-7x),
+# so 2x; a wrong group or a row past the groups is off by the whole value.
+GMM_BWD_FAULT_MIN = {"cotangent's lo half dropped": 2.0, "a group times the next expert's weights": 10.0,
+                     "a row past the groups": 10.0}
+
+
+def _bwd_share(got, ref, mag, reduce_len: int, bf16_out: bool, used: int | None = None) -> float:
+    """Worst element of |got - ref| as a share of its limit; with ``used``
+    (dLHS), a nonzero row past the groups counts as infinite."""
+    if used is not None:
+        if torch.count_nonzero(got[used:]).item():
+            return math.inf
+        got, ref, mag = got[:used], ref[:used], mag[:used]
+    lim = (GMM_BWD_REL + math.sqrt(reduce_len) * 2**-24) * mag
+    if bf16_out:
+        lim = lim + 2**-7 * ref.abs()
+    return ((got.float() - ref).abs() / lim.clamp_min(1e-30)).max().item()
+
+
+def _train_moe_grid_tokens() -> int:
+    """G x L of the first minibatch grid train_moe's trainer builds from one
+    wave (the train phases' 32 sequences, two minibatches, rows of the
+    bucketed longest sequence): the grouped matmuls see 8 times as many
+    routed rows."""
+    from areal_tpu_torch.api.config import PPOActorConfig
+    from areal_tpu_torch.utils.data import MicroBatchSpec, round_up_to_bucket, split_padded_tensor_dict_into_mb_list
+    from areal_tpu_torch.utils.grid import pack_grid
+
+    lens = _train_sequences()
+    mask = np.zeros((len(lens), max(lens)), bool)
+    for i, n in enumerate(lens):
+        mask[i, :n] = True
+    batch = {"attention_mask": mask, "input_ids": np.zeros(mask.shape, np.int32)}
+    mb = split_padded_tensor_dict_into_mb_list(batch, MicroBatchSpec(n_mbs=2)).mbs[0]
+    row_len = round_up_to_bucket(int(np.asarray(mb["attention_mask"]).sum(-1).max()), PPOActorConfig().bucket_step)
+    grid = pack_grid(mb, row_len)
+    return grid.n_rows * grid.row_len
+
+
+def _gmm_bwd_bound(which: str, M: int, k: int, n: int, sizes: torch.Tensor, out_elem: int) -> tuple[float, str]:
+    """Least time of one call on these inputs: 2 M k n flops at the bf16
+    tensor-core rate against each input read once and the output written
+    once. dLHS reads the f32 cotangent [M, n] and the touched experts'
+    weights, writes [M, k]; tgmm reads lhs [M, k] bf16 and the cotangent,
+    writes [E, k, n]."""
+    E = sizes.numel()
+    if which == "gmm_bwd_lhs":
+        touched = int((sizes > 0).sum())
+        nbytes = M * n * 4 + touched * k * n * 2 + M * k * out_elem + E * 4
+    else:
+        nbytes = M * k * 2 + M * n * 4 + E * k * n * out_elem + E * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * k * n / PEAK_OPS["bf16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _gmm_bwd_library(which: str, lhs, rhs, grad, sizes):
+    """Yardsticks the port never calls: the same function as a loop of
+    ``torch.mm`` in f32 over the groups (sizes read once, outside the timed
+    calls), and ``torch._grouped_mm`` on bf16 operands (the cotangent
+    rounded to bf16: another function, a reading only) where this torch
+    runs it. Returns (loop fn, grouped fn or None)."""
+    ends = torch.cumsum(sizes, 0).tolist()
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    M, k, n = lhs.shape[0], lhs.shape[1], grad.shape[1]
+    if which == "gmm_bwd_lhs":
+        out = torch.empty((M, k), device="cuda")
+
+        def loop():
+            a = 0
+            for g_, b in enumerate(ends):
+                if b > a:
+                    torch.mm(grad[a:b], rhs[g_].float().t(), out=out[a:b])
+                a = b
+
+        g16 = grad.bfloat16()
+
+        def grouped():
+            return torch._grouped_mm(g16, rhs.transpose(1, 2), offs=offs)
+    else:
+        out = torch.empty((sizes.numel(), k, n), device="cuda")
+
+        def loop():
+            a = 0
+            for g_, b in enumerate(ends):
+                if b > a:
+                    torch.mm(lhs[a:b].float().t(), grad[a:b], out=out[g_])
+                else:
+                    out[g_].zero_()
+                a = b
+
+        g16, lt = grad.bfloat16(), lhs.t()
+
+        def grouped():
+            return torch._grouped_mm(lt, g16, offs=offs)
+
+    if not hasattr(torch, "_grouped_mm"):
+        return loop, None
+    try:
+        grouped()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"[kernel_gmm_bwd] torch._grouped_mm for {which}: not usable here ({str(e).splitlines()[0][:100]})")
+        return loop, None
+    return loop, grouped
+
+
+def phase_kernel_gmm_bwd() -> dict:
+    """The grouped matmul's backward kernels (megablox's VJP: dLHS =
+    ``gmm(transpose_rhs=True)``, dRHS = ``tgmm``) against their plain
+    versions at Qwen3-30B-A3B's expert shapes (E=128, top-8, bf16 operands,
+    f32 cotangent): (k, n) = (2048, 768) for gate / up and (768, 2048) for
+    down, at M = 32,768 (kernel_gmm's prefill group) and M = 8 x the tokens
+    of train_moe's minibatch grid, routed by a seeded top-8 softmax with 64
+    rows past the groups. Each kernel's f32 output and its bf16 output (the
+    training path's) are held to their limits; three planted faults must
+    miss them by GMM_BWD_FAULT_MIN. Times the kernels (bf16 out), the plain
+    versions, the f32 ``torch.mm`` loop, ``torch._grouped_mm`` in bf16 beside
+    it, and the bound."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products stay f32
+    g = torch.Generator(device="cuda").manual_seed(1)
+    mc = QWEN3_30B_A3B
+    E, K, D, Fm = mc["num_experts"], mc["num_experts_per_tok"], mc["hidden_size"], mc["moe_intermediate_size"]
+    grid_tokens = _train_moe_grid_tokens()
+    per: dict[str, dict] = {}
+    with torch.no_grad():
+        for sname, M in (("prefill", 8 * 512 * K), ("train", grid_tokens * K)):
+            past = 64
+            sizes = _gmm_routing(M - past, E, K, g)
+            used = int(sizes.sum())
+            last = int(torch.nonzero(sizes > 0)[-1])
+            plus = sizes.clone()
+            plus[last] += 1  # the fault: the last group takes the first row past the groups
+            for proj, (k, n) in (("gate_up", (D, Fm)), ("down", (Fm, D))):
+                lhs = torch.randn((M, k), generator=g, device="cuda").bfloat16()
+                # three weight stacks, cycled in dLHS's timed calls, so each
+                # call finds its weights cold in the 50 MB L2
+                stacks = [(0.02 * torch.randn((E, k, n), generator=g, device="cuda")).bfloat16() for _ in range(3)]
+                rhs = stacks[0]
+                grad = torch.randn((M, n), generator=g, device="cuda")
+                res = {}
+                for which in ("gmm_bwd_lhs", "tgmm"):
+                    if which == "gmm_bwd_lhs":
+                        R, row_used = n, used
+
+                        def run(od, w=rhs):
+                            return gm.gmm_bwd_lhs(grad, w, sizes, out_dtype=od)
+
+                        def plain(od, sz=sizes, w=rhs, gr=grad):
+                            return gm.gmm_bwd_lhs_plain(gr, w, sz, od)
+
+                        mag = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)
+                    else:
+                        R, row_used = int(sizes.max()), None
+
+                        def run(od, w=rhs):
+                            return gm.tgmm(lhs, grad, sizes, out_dtype=od)
+
+                        def plain(od, sz=sizes, w=rhs, gr=grad):
+                            return gm.tgmm_plain(lhs, gr, sz, od)
+
+                        mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+                    ref = plain(torch.float32)
+                    got32, got16 = run(torch.float32), run(torch.bfloat16)
+                    torch.cuda.synchronize()
+                    share32 = _bwd_share(got32, ref, mag, R, False, row_used)
+                    share16 = _bwd_share(got16, ref, mag, R, True, row_used)
+                    err32 = (got32.float() - ref).abs().max().item()
+                    err16 = (got16.float() - plain(torch.bfloat16).float()).abs().max().item()
+                    if not (share32 <= 1.0 and share16 <= 1.0):
+                        raise AssertionError(f"[kernel_gmm_bwd] {sname} {proj} {which}: off its plain version by "
+                                             f"{share32:.3f} (f32 out) / {share16:.3f} (bf16 out) x the limit")
+                    wrong = rhs.clone()
+                    big = int(sizes.argmax())
+                    wrong[big] = rhs[(big + 1) % E]
+                    faults = {
+                        "cotangent's lo half dropped": plain(torch.float32, gr=grad.bfloat16().float()),
+                        "a group times the next expert's weights": (
+                            plain(torch.float32, w=wrong) if which == "gmm_bwd_lhs"
+                            else torch.cat([ref[:big], ref[big + 1:big + 2], ref[big + 1:]])),
+                        "a row past the groups": plain(torch.float32, sz=plus),
+                    }
+                    fault_x = {f: _bwd_share(v, ref, mag, R, False, row_used) for f, v in faults.items()}
+                    del faults, wrong
+                    for f, x in fault_x.items():
+                        if not x >= GMM_BWD_FAULT_MIN[f]:
+                            raise AssertionError(f"[kernel_gmm_bwd] {sname} {proj} {which}: planted fault ({f}) only "
+                                                 f"{x:.2f} x the limit (needs {GMM_BWD_FAULT_MIN[f]})")
+                    it = iter(range(10**9))
+                    ms = time_cuda(lambda: run(torch.bfloat16, stacks[next(it) % 3]), iters=10, warmup=2)
+                    ms32 = time_cuda(lambda: run(torch.float32, stacks[next(it) % 3]), iters=5, warmup=1)
+                    plain_ms = time_cuda(lambda: plain(torch.bfloat16, w=stacks[next(it) % 3]), iters=2, warmup=1)
+                    loop, grouped = _gmm_bwd_library(which, lhs, rhs, grad, sizes)
+                    lib_ms = time_cuda(loop, iters=5, warmup=1)
+                    grouped_ms = time_cuda(grouped, iters=10, warmup=2) if grouped else None
+                    bound_ms, bound_by = _gmm_bwd_bound(which, M, k, n, sizes, 2)
+                    res[which] = dict(max_abs_err=err16, max_abs_err_f32_out=err32, share_f32_out=share32,
+                                      share_bf16_out=share16, ms=ms, ms_f32_out=ms32, plain_ms=plain_ms,
+                                      library_ms=lib_ms, library="loop of torch.mm (f32)",
+                                      grouped_mm_bf16_ms=grouped_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                      faults=fault_x, M=M, k=k, n=n)
+                    log(f"[kernel_gmm_bwd] {sname} {proj} {which}: M={M} ({past} past the groups) k={k} n={n}; worst "
+                        f"element {share32:.4f} (f32 out) / {share16:.4f} (bf16 out) of the limit (max|diff| "
+                        f"{err32:.3e} / {err16:.3e}); planted faults "
+                        + ", ".join(f"{f} {x:.1f}" for f, x in fault_x.items())
+                        + f"; kernel={ms:.4f} ms (bf16 out; f32 out {ms32:.4f}) plain={plain_ms:.4f} ms torch.mm "
+                        f"loop (f32)={lib_ms:.4f} ms torch._grouped_mm (bf16 operands, another function)="
+                        + (f"{grouped_ms:.4f} ms" if grouped_ms is not None else "not usable")
+                        + f" bound={bound_ms:.4f} ms ({bound_by})")
+                    del ref, mag, got32, got16
+                for which, d in res.items():
+                    per[f"{which}/{sname}/{proj}"] = d
+                del stacks, rhs, lhs, grad
+                torch.cuda.empty_cache()
+    return per
+
+
+def _trainer_routes(trainer, batch: dict, b: int, n: int):
+    """Per layer, (top_e sorted along K, gap) of sequence ``b``'s first ``n``
+    rows in the trainer's proximal-recompute forward (``forward_batch``'s
+    no-grad grids, rerun on the same weights with a routing trace: the
+    forward is deterministic)."""
+    from areal_tpu_torch.models import qwen
+
+    for grid in trainer._make_grids(batch):
+        if b in grid.seq_index:
+            break
+    local = grid.seq_index.index(b)
+    start = grid.row_of_seq[local] * grid.row_len + grid.col_of_seq[local]
+    dev = trainer._grid_to_device(grid)
+    view = qwen.ParamView(trainer.model, trainer.model_cfg)
+    trace = []
+    for layer in view.layers:
+        layer.moe_trace = trace
+    with torch.no_grad():
+        qwen.forward(view, dev["input_ids"], dev["segment_ids"], dev["positions"], no_grad=True)
+    return _route_rows(trace, trainer.model_cfg.num_layers, [(0, start, n)])
+
+
+def _moe_gap_check(tag: str, trainer, engine, batch: dict, step: int) -> float:
+    """The trainer's recomputed logprobs against the served ones with
+    serve_moe's near-tie rule: a generated token past LOGPROB_TOL is exempt
+    only if a route flipped at a near-tie (margin < ROUTE_GAP_TOL in both
+    passes) at its row or an earlier one, between the trainer's forward of
+    its sequence (``_trainer_routes``) and the served computation replayed
+    (``_route_flips`` on the engine's model, idle between waves). The two
+    passes' kernel launches are a check's, not the main path's: the counts
+    are put back after them. Logs and returns the largest gap; raises on an
+    unexempted one."""
+    from areal_tpu_torch.ops.attention import flash_attention_fwd
+    from areal_tpu_torch.ops.gmm import gmm
+
+    gen = np.asarray(batch["loss_mask"]) > 0
+    diff = np.where(gen, np.abs(batch["prox_logp"] - np.asarray(batch["logprobs"])), 0.0)
+    lens = np.asarray(batch["attention_mask"]).sum(-1)
+    ids = np.asarray(batch["input_ids"])
+    exempt = near_rows = 0
+    for b in np.nonzero((diff > LOGPROB_TOL).any(-1))[0]:
+        n_p = int(np.argmax(gen[b]))  # the first generated token
+        prompt, out = ids[b, :n_p].tolist(), ids[b, n_p: lens[b]].tolist()
+        launches = gmm.launches, flash_attention_fwd.launches
+        routes = _trainer_routes(trainer, batch, int(b), int(lens[b]) - 1)
+        near, far, n_near, worst, total = _route_flips(engine.model, prompt, out, against=routes)
+        gmm.launches, flash_attention_fwd.launches = launches
+        reach = np.logical_or.accumulate(near)[n_p - 1: n_p - 1 + len(out)]
+        bad = diff[b, n_p: lens[b]] > LOGPROB_TOL
+        if (bad & ~reach).any():
+            raise AssertionError(f"[{tag}] wave {step} sequence {b}: {int((bad & ~reach).sum())} tokens off the served "
+                                 f"logprobs by up to {float(diff[b, n_p: lens[b]][bad & ~reach].max()):.4f} (tol "
+                                 f"{LOGPROB_TOL}) with no near-tie route flip at or before them ({n_near} near-tie "
+                                 f"flips of {total} routes, {far} with a margin >= {ROUTE_GAP_TOL})")
+        exempt += int(bad.sum())
+        near_rows += int(near.sum())
+    gap = float(diff.max())
+    log(f"[{tag}] wave {step}: {int(gen.sum())} generated tokens, all at version {step}; trainer's recomputed "
+        f"logprobs vs served: max|diff| {gap:.4f} (tol {LOGPROB_TOL}); near-tie exemptions {exempt}"
+        + (f" ({near_rows} rows with a near-tie route flip between the trainer's and the served routes of the "
+           f"sequences concerned)" if exempt else ""))
+    return gap
+
+
+# Qwen3-30B-A3B cut to the depth that trains on one card: f32 master
+# weights, their bf16 view, f32 gradients and two AdamW moments take ~18 B a
+# parameter; a layer holds 623.1 M (11.2 GB of that state), the embedding and
+# the untied head 2 x 311.2 M. Four layers: 3.11 B parameters, ~56 GB.
+TRAIN_MOE_LAYERS = 4
+# each of one layer's expert and router gradients, kernel backward vs the
+# plain backward on the card, as a cosine: the two differ where their bf16
+# outputs round an f32 value that differs by ~2^-18 relative (one bf16 step
+# on a few elements) and in the order of the token scatter-add's bf16
+# atomics, ~2^-8 relative noise on a share of the elements: a cosine of
+# 1 - 2^-16 or so. 0.999 leaves a wide margin; a gradient of the wrong
+# expert or a transposed one is uncorrelated (cosine ~0).
+GRAD_COSINE_MIN = 0.999
+
+
+def _grad_copies(model, names) -> dict[str, torch.Tensor]:
+    sd = dict(model.named_parameters())
+    return {n: sd[n].grad.detach().clone() for n in names}
+
+
+def _routes_touched(view, batch, E: int, rows_valid) -> tuple[torch.Tensor, torch.Tensor]:
+    """Experts layer 0 routes any grid token to, and any valid token to, in a
+    forward of ``batch`` on ``view`` (the trainer's compute weights)."""
+    from areal_tpu_torch.models import qwen
+
+    trace = []
+    view.layers[0].moe_trace = trace
+    try:
+        with torch.no_grad():
+            qwen.forward(view, batch["input_ids"], batch["segment_ids"], batch["positions"])
+    finally:
+        view.layers[0].moe_trace = None
+    top_e = trace[0][0]  # [G * L, K]
+    any_ = torch.bincount(top_e.reshape(-1), minlength=E) > 0
+    valid = torch.bincount(top_e[rows_valid.reshape(-1)].reshape(-1), minlength=E) > 0
+    return any_, valid
+
+
+def _tree_vs_packed(trainer, batch, card: str) -> dict:
+    """One MoE tree step on the trainer's model: the first GRPO group's 4
+    sequences through ``tree_forward_logprobs_pallas`` (#4-#6, the grouped
+    matmul and its backward kernels) against the packed path (one grid, K2-K4)
+    on the same weights: the generated tokens' logprobs (LOGPROB_TOL, near-tie
+    route flips between the two passes exempt and counted) and the gradient
+    norm of the same loss (GRAD_NORM_RTOL), with the kernels' launches of
+    the tree step's forward and backward."""
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.models.tree import build_tree
+    from areal_tpu_torch.ops import gmm as gm
+    from areal_tpu_torch.ops import tree_attention as ta
+    from areal_tpu_torch.utils.grid import pack_grid
+
+    cfg = trainer.model_cfg
+    lens = np.asarray(batch["attention_mask"]).sum(-1)
+    gen = np.asarray(batch["loss_mask"]) > 0
+    rows = list(range(4))  # the first prompt's 4 samples
+    seqs = [np.asarray(batch["input_ids"])[b, : lens[b]] for b in rows]
+    pack = build_tree(seqs)
+    sub = {k: np.asarray(v)[rows] for k, v in batch.items() if np.asarray(v).ndim >= 1 and len(v) == len(lens)}
+    grid = pack_grid(sub, int(max(lens[rows])))
+    dev_grid = trainer._grid_to_device(grid)
+    L_grid = grid.row_len
+    # the token at position t of sequence i: its tree node and its grid row
+    tree_row = [np.asarray(pack.seq_nodes[i]) for i in range(4)]
+    grid_row = [grid.row_of_seq[grid.seq_index.index(i)] * L_grid + grid.col_of_seq[grid.seq_index.index(i)]
+                + np.arange(lens[rows[i]]) for i in range(4)]
+
+    def tree_logp(view):
+        node_logp = ta.tree_forward_logprobs_pallas(view, pack)  # [N]: log p(token_j | ancestors)
+        return [node_logp[torch.from_numpy(tree_row[i][1:]).cuda().long()] for i in range(4)]
+
+    def packed_logp(view):  # the trainer's packed outputs (``_outputs_fn``) on ``view``
+        hidden = qwen.forward(view, dev_grid["input_ids"], dev_grid["segment_ids"], dev_grid["positions"])
+        out, _ = qwen.chunked_logprobs_entropy(view, hidden, dev_grid["labels"],
+                                               chunk_size=trainer.config.logprob_chunk_size,
+                                               temperature=trainer._logit_temperature)
+        out = out.reshape(-1)  # label-aligned
+        return [out[torch.from_numpy(grid_row[i][:-1]).cuda().long()] for i in range(4)]
+
+    gmask = [torch.from_numpy(gen[rows[i], 1: lens[rows[i]]]).cuda() for i in range(4)]
+
+    def loss_of(lps):
+        tot = sum(float(m.sum()) for m in gmask)
+        return -sum((lp * m).sum() for lp, m in zip(lps, gmask)) / tot
+
+    # logprobs and routes of both passes, no gradient
+    res = {}
+    for name, fn, row_of in (("tree", tree_logp, tree_row), ("packed", packed_logp, grid_row)):
+        view = qwen.ParamView(trainer.model, cfg)
+        trace = []
+        for layer in view.layers:
+            layer.moe_trace = trace
+        with torch.no_grad():
+            lps = fn(view)
+        res[name] = (torch.cat(lps).float().cpu().numpy(), trace, row_of)
+    n_layers = cfg.num_layers
+    exempt, worst, near_total = 0, 0.0, 0
+    offs = np.cumsum([0] + [len(r) - 1 for r in tree_row])
+    gap = np.abs(res["tree"][0] - res["packed"][0])
+    for i in range(4):
+        n = len(tree_row[i])
+        near = np.zeros(n, bool)
+        for layer in range(n_layers):
+            (ta_, ga), (tb, gb) = res["tree"][1][layer], res["packed"][1][layer]
+            ra, rb = torch.from_numpy(tree_row[i]).cuda().long(), torch.from_numpy(grid_row[i]).cuda().long()
+            diff = (ta_[ra].sort(-1).values != tb[rb].sort(-1).values).any(-1)
+            margin = torch.minimum(ga[ra], gb[rb])
+            near |= (diff & (margin < ROUTE_GAP_TOL)).cpu().numpy()
+            near_total += int((diff & (margin < ROUTE_GAP_TOL)).sum())
+        reach = np.logical_or.accumulate(near)[: n - 1]  # token t + 1 is scored at row t
+        g_i = gap[offs[i]: offs[i + 1]]
+        m_i = gmask[i].cpu().numpy()
+        bad = (g_i > LOGPROB_TOL) & m_i
+        if (bad & ~reach).any():
+            raise AssertionError(f"[train_moe] tree vs packed, sequence {i}: {int((bad & ~reach).sum())} tokens off by up "
+                                 f"to {float(g_i[bad & ~reach].max()):.4f} with no near-tie route flip before them")
+        exempt += int(bad.sum())
+        worst = max(worst, float(g_i[m_i].max()))
+    # the gradient norm of the same loss through each path
+    counts0 = (ta.tree_attention_fwd.launches, ta.tree_attention_bwd_dq.launches, ta.tree_attention_bwd_dkv.launches,
+               gm.gmm.launches, gm.gmm_bwd_lhs.launches, gm.tgmm.launches)
+    norms = {}
+    for name, fn in (("tree", tree_logp), ("packed", packed_logp)):
+        trainer.zero_grad()
+        view = qwen.ParamView(trainer.model, cfg)
+        loss_of(fn(view)).backward()
+        norms[name] = float(trainer._opt.global_norm(trainer._grads()))
+        if name == "tree":
+            counts = [c - c0 for c, c0 in zip((ta.tree_attention_fwd.launches, ta.tree_attention_bwd_dq.launches,
+                                               ta.tree_attention_bwd_dkv.launches, gm.gmm.launches,
+                                               gm.gmm_bwd_lhs.launches, gm.tgmm.launches), counts0)]
+    trainer.zero_grad()
+    want = [2 * n_layers, n_layers, n_layers, 6 * n_layers, 3 * n_layers, 3 * n_layers]
+    rel = abs(norms["tree"] - norms["packed"]) / norms["packed"]
+    log(f"[train_moe] tree step on the first GRPO group ({pack.n_nodes} trie nodes for {int(lens[rows].sum())} "
+        f"tokens) through tree_forward_logprobs_pallas vs the packed path, same weights: generated tokens' logprobs "
+        f"max|diff| {worst:.4f} (tol {LOGPROB_TOL}), near-tie exemptions {exempt} ({near_total} near-tie route flips "
+        f"between the passes); grad norm tree {norms['tree']:.5f}, packed {norms['packed']:.5f}, relative diff "
+        f"{rel:.2e} (tol {GRAD_NORM_RTOL}); tree step launches #4 {counts[0]}, #5 {counts[1]}, #6 {counts[2]}, gmm "
+        f"{counts[3]}, gmm_bwd_lhs {counts[4]}, tgmm {counts[5]} (want {want})")
+    if counts != want:
+        raise AssertionError(f"[train_moe] tree step launches {counts} != {want}")
+    if not rel <= GRAD_NORM_RTOL:
+        raise AssertionError("[train_moe] the MoE tree step's gradient disagrees with the packed path's")
+    return dict(logp_gap=worst, exempt=exempt, norms=norms, counts=counts)
+
+
+def phase_train_moe(card: str) -> dict:
+    """Two asynchronous-GRPO steps of Qwen3-30B-A3B at full width, its depth
+    cut to TRAIN_MOE_LAYERS (``_grpo_run`` with the train phase's
+    ``PPOActorConfig``: 8 prompts x 4 samples, 128 new tokens, two
+    minibatches a step): the grouped matmuls' forward and backward kernels
+    under per-layer checkpointing, the weights (router and experts
+    included) pushed into the running engine. Checks the trainer's logprobs
+    against the served ones (near-tie route flips exempt, counted), finite
+    loss and grad norm, LR 0 on the first step, moved weights, version 1 on
+    the second wave and the launches of gmm, gmm_bwd_lhs and tgmm against
+    what the forwards, recomputes and backwards imply; then on one
+    minibatch the kernel backward's gradient against the plain backward's
+    (norm, and cosines of one layer's expert and router gradients; experts
+    no token reached get exact zeros), one MoE tree step against the packed
+    path, a profiled optimizer step and the peak memory."""
+    import gc
+
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops import gmm as gm
+    from areal_tpu_torch.utils.data import MicroBatchSpec, split_padded_tensor_dict_into_mb_list
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > 2 * 2**30:
+        raise AssertionError(f"[train_moe] {held / 2**30:.2f} GiB still held before the model")
+    model = {**QWEN3_30B_A3B, "num_layers": TRAIN_MOE_LAYERS}
+    kernels = (gm.gmm, gm.gmm_bwd_lhs, gm.tgmm, fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    r = _grpo_run("train_moe", kernels, model=model, name=f"Qwen3-30B-A3B (full width, {TRAIN_MOE_LAYERS} of 48 layers)",
+                  gap_check=_moe_gap_check)
+    cfg, trainer, actor, batch, adv, parts = (r[k] for k in ("cfg", "trainer", "actor", "batch", "adv", "parts"))
+    L, E = TRAIN_MOE_LAYERS, model["num_experts"]
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    counts, n_fwd_grids, n_mbs, fwd = r["counts"], r["n_fwd_grids"], r["n_mbs"], r["engine_forwards"]
+    want = [3 * L * (fwd + n_fwd_grids + 2 * n_mbs), 3 * L * n_mbs, 3 * L * n_mbs,
+            L * n_fwd_grids + 2 * L * n_mbs, L * n_mbs, L * n_mbs]
+    log(f"[train_moe] {n_params / 1e9:.3f} B parameters; launches: gmm {counts[0]} (= 3 x {L} layers x ({fwd} engine "
+        f"forwards + {n_fwd_grids} proximal-recompute grids + 2 x {n_mbs} microbatches, forward and its recompute)), "
+        f"gmm_bwd_lhs {counts[1]}, tgmm {counts[2]} (= 3 x {L} x {n_mbs}); K2 {counts[3]}, K3 {counts[4]}, K4 "
+        f"{counts[5]}")
+    if counts != want:
+        raise AssertionError(f"[train_moe] launch counts {counts} != {want}")
+    tokens = r["trained_tokens"]
+    log(f"[train_moe] {card}: rollout {parts['rollout']:.2f} s (2 waves x 32 x 128 tokens), proximal recompute "
+        f"{parts['prox_recompute']:.2f} s, ppo_update {parts['ppo_update']:.2f} s (steps: "
+        + ", ".join(f"{t:.2f} s" for t in r["ppo_update_s"]) + f"), weight update {parts['weight_update']:.3f} s; "
+        f"trainer {tokens / parts['ppo_update']:.0f} tokens/s ({tokens} tokens); peak torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the kernel backward against the plain backward on one minibatch, the
+    # proximal logprobs recomputed at the current weights (PPO ratio ~1)
+    batch["prox_logp"] = actor.compute_logp(batch)
+    adv = actor.compute_advantages(batch)
+    mb = split_padded_tensor_dict_into_mb_list(adv, MicroBatchSpec(n_mbs=cfg.ppo_n_minibatches)).mbs[0]
+    watch = [f"layers.0.{n}" for n in ("we_gate", "we_up", "we_down", "w_router")]
+    trainer.zero_grad()
+    kern = trainer.compute_grads(mb, actor._loss_fn, _wfn)
+    kern_grads = _grad_copies(trainer.model, watch)
+    orig = gm.gmm_bwd_lhs, gm.tgmm
+    gm.gmm_bwd_lhs = lambda grad, rhs, sizes, *, out_dtype, tm=None: gm.gmm_bwd_lhs_plain(grad, rhs, sizes, out_dtype)
+    gm.tgmm = lambda lhs, grad, sizes, *, out_dtype: gm.tgmm_plain(lhs, grad, sizes, out_dtype)
+    try:
+        trainer.zero_grad()
+        plain = trainer.compute_grads(mb, actor._loss_fn, _wfn)
+    finally:
+        gm.gmm_bwd_lhs, gm.tgmm = orig
+    plain_grads = _grad_copies(trainer.model, watch)
+    trainer.zero_grad()
+    cos = {n.rsplit(".", 1)[1]: torch.nn.functional.cosine_similarity(
+        kern_grads[n].reshape(1, -1), plain_grads[n].reshape(1, -1)).item() for n in watch}
+    rel = abs(kern["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+    grids = trainer._make_grids(mb)
+    dev0 = trainer._grid_to_device(grids[0])
+    any_, valid = _routes_touched(qwen.ParamView(trainer.model, trainer.model_cfg), dev0, E, dev0["segment_ids"] != 0)
+    gnorm_e = kern_grads["layers.0.we_gate"].flatten(1).norm(dim=1)
+    if len(grids) != 1:
+        raise AssertionError(f"[train_moe] the minibatch packed into {len(grids)} grids, not 1")
+    log(f"[train_moe] one minibatch ({int(np.asarray(mb['attention_mask']).sum())} tokens), kernel backward vs the "
+        f"plain backward on the card: grad norm {kern['grad_norm']:.5f} vs {plain['grad_norm']:.5f}, relative diff "
+        f"{rel:.2e} (tol {GRAD_NORM_RTOL}); cosine of layer 0's gradients "
+        + ", ".join(f"{n} {c:.6f}" for n, c in cos.items()) + f" (min {GRAD_COSINE_MIN}); layer 0 routes valid tokens "
+        f"to {int(valid.sum())} of {E} experts ({int(any_.sum())} with the padding)")
+    if not rel <= GRAD_NORM_RTOL or not min(cos.values()) >= GRAD_COSINE_MIN:
+        raise AssertionError("[train_moe] the kernel backward disagrees with the plain backward")
+    if (gnorm_e[~any_] != 0).any() or (gnorm_e[valid] == 0).any():
+        raise AssertionError("[train_moe] an expert no token reached has a gradient, or a routed one has none")
+    del kern_grads, plain_grads
+
+    tree = _tree_vs_packed(trainer, r["batches"][-1], card)
+    busy = _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "MoE optimizer step (one minibatch)",
+                    card)["busy"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train_moe] {card}: peak torch.cuda.max_memory_allocated {peak:.2f} GiB (of the card's 80 GB)")
+    del trainer, actor, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=dict(zip(("gmm", "gmm_bwd_lhs", "tgmm"), counts[:3])), parts=parts,
+                tokens_per_s=tokens / parts["ppo_update"], peak_gib=peak, busy=busy, cos=cos, rel=rel, tree=tree)
+
+
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spec", "train", "kernel_tree",
-          "train_tree", "kernel_gmm", "serve_moe")
+          "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -2350,7 +2952,9 @@ def main(argv: list[str]) -> int:
         "kernel_tree": phase_kernel_tree,
         "train_tree": lambda: phase_train_tree(card),
         "kernel_gmm": phase_kernel_gmm,
+        "kernel_gmm_bwd": phase_kernel_gmm_bwd,
         "serve_moe": lambda: phase_serve_moe(card),
+        "train_moe": lambda: phase_train_moe(card),
     }
     res = {}
     for name in PHASES:
@@ -2455,6 +3059,26 @@ def main(argv: list[str]) -> int:
         "library": d["library"],
         "shapes": {k: {f: v[f] for f in (*fields, "ms_by_tm", "tm")} for k, v in gmm_k.items()},
     })
+    # the backward kernels: launches of train_moe; the times of the training
+    # gate / up shape (bf16 output, as the path writes it), the other shapes
+    # beside them
+    bwd_k, moe_train = res["kernel_gmm_bwd"], res["train_moe"]
+    for name in ("gmm_bwd_lhs", "tgmm"):
+        d = bwd_k[f"{name}/train/gate_up"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "areal_tpu_torch/csrc/gmm.cu",
+            "replaces": ("jax/experimental/pallas/ops/tpu/megablox/gmm.py:314" if name == "gmm_bwd_lhs"
+                         else "jax/experimental/pallas/ops/tpu/megablox/gmm.py:573"),
+            "launches": moe_train["counts"][name],
+            "max_abs_err": max(v["max_abs_err"] for k, v in bwd_k.items() if k.startswith(name)),
+            **{f: d[f] for f in fields[1:]},
+            "library": d["library"],
+            "shapes": {k.split("/", 1)[1]: {f: v[f] for f in (*fields, "max_abs_err_f32_out", "ms_f32_out",
+                                                                "grouped_mm_bf16_ms", "M", "k", "n")}
+                       for k, v in bwd_k.items() if k.startswith(name)},
+        })
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -5,6 +5,8 @@ runs where only the port is installed:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -472,5 +474,146 @@ def test_gmm_kernel_refuses_bad_arguments(cuda):
         gm.gmm(lhs, rhs, sizes.long())
     with pytest.raises(ValueError, match="tm"):
         gm.gmm(lhs, rhs, sizes, tm=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gm.gmm(lhs.requires_grad_(True), rhs, sizes)
+    with pytest.raises(TypeError, match="f32"):
+        gm.gmm_bwd_lhs(torch.zeros((64, 16), dtype=torch.bfloat16, device=cuda), rhs, sizes, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="grad"):
+        gm.tgmm(lhs, torch.zeros((63, 16), device=cuda), sizes, out_dtype=torch.float32)
+
+
+# the backward kernels against their plain versions (f32 products of the f32
+# cotangent and the widened operand). The kernels split the cotangent into
+# bf16 hi + lo halves: what the split drops is at most 2^-16 |grad| an
+# element (u = 2^-8, squared), so each element stays inside 2^-14 of the sum
+# of the terms' magnitudes, plus f32 rounding of R-term sums in other orders
+# (a random walk: sqrt(R) 2^-24 of it).
+# bf16 outputs: one bf16 step (2^-7) of the plain value on top.
+GMM_BWD_REL = 2**-14
+
+GMM_BWD_CASES = {
+    # M, k, n, group sizes (None: M / 8 tokens routed top-8 over 128 experts)
+    "ragged": (203, 200, 72, [0, 1, 57, 0, 100, 3, 0, 30]),  # 12 rows past the groups
+    "one-group": (77, 64, 136, [0, 0, 77, 0]),
+    "train-gate-up": (2048, 2048, 768, None),
+    "train-down": (2048, 768, 2048, None),
+}
+
+
+def _gmm_bwd_case(dev, M, k, n, sizes, dtype, seed=0):
+    lhs, rhs, sizes = _gmm_case(dev, M, k, n, sizes, dtype, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    grad = torch.randn((M, n), generator=g).to(dev)
+    return lhs, rhs, grad, sizes
+
+
+def _bwd_share(got, ref, mag, reduce_len: int, out_dtype) -> float:
+    """Worst element of |got - ref| as a share of its limit."""
+    lim = (GMM_BWD_REL + math.sqrt(reduce_len) * 2**-24) * mag
+    if out_dtype == torch.bfloat16:
+        lim = lim + 2**-7 * ref.abs()
+    return ((got.float() - ref).abs() / lim.clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out-f32", "out-bf16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(GMM_BWD_CASES))
+def test_gmm_bwd_kernels_match_plain(cuda, case, dtype, out_dtype):
+    lhs, rhs, grad, sizes = _gmm_bwd_case(cuda, *GMM_BWD_CASES[case], dtype)
+    M, k, n = lhs.shape[0], lhs.shape[1], rhs.shape[2]
+    used = int(sizes.sum())
+    before = (gm.gmm_bwd_lhs.launches, gm.tgmm.launches)
+    for tm in (16, 32, 64):
+        d_lhs = gm.gmm_bwd_lhs(grad, rhs, sizes, out_dtype=out_dtype, tm=tm)
+        ref = gm.gmm_bwd_lhs_plain(grad, rhs, sizes, torch.float32)
+        mag = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)
+        torch.cuda.synchronize()
+        assert d_lhs.dtype == out_dtype and d_lhs.shape == (M, k)
+        assert torch.count_nonzero(d_lhs[used:]) == 0  # rows past the groups: exact zeros
+        assert _bwd_share(d_lhs[:used], ref[:used], mag[:used], n, out_dtype) <= 1.0, tm
+    d_rhs = gm.tgmm(lhs, grad, sizes, out_dtype=out_dtype)
+    ref = gm.tgmm_plain(lhs, grad, sizes, torch.float32)
+    mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+    torch.cuda.synchronize()
+    assert (gm.gmm_bwd_lhs.launches, gm.tgmm.launches) == (before[0] + 3, before[1] + 1)
+    assert d_rhs.dtype == out_dtype and d_rhs.shape == rhs.shape
+    assert _bwd_share(d_rhs, ref, mag, int(sizes.max()), out_dtype) <= 1.0
+    assert torch.count_nonzero(d_rhs[sizes == 0]) == 0  # empty groups: zeros
+
+
+@pytest.mark.cuda
+def test_gmm_bwd_check_catches_planted_faults(cuda):
+    """The limit above tells the kernels from three wrong backwards at a
+    training shape: the cotangent's lo half dropped (bf16(grad) only: a
+    random walk of 2^-9 errors, several times the limit at its worst
+    element), a group multiplied by the next group's weights, and the
+    transposed operand (k == n)."""
+    lhs, rhs, grad, sizes = _gmm_bwd_case(cuda, 2048, 512, 512, None, torch.bfloat16)
+    used = int(sizes.sum())
+    ref = gm.gmm_bwd_lhs_plain(grad, rhs, sizes, torch.float32)[:used]
+    mag = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)[:used]
+    faults = {
+        "no lo": gm.gmm_bwd_lhs_plain(grad.bfloat16().float(), rhs, sizes, torch.float32),
+        "wrong group": gm.gmm_bwd_lhs_plain(grad, rhs.roll(1, 0), sizes, torch.float32),
+        "transposed": gm.gmm_bwd_lhs_plain(grad, rhs.transpose(1, 2).contiguous(), sizes, torch.float32),
+    }
+    for name, bad in faults.items():
+        assert _bwd_share(bad[:used], ref, mag, 512, torch.float32) > 2.0, name
+    ref = gm.tgmm_plain(lhs, grad, sizes, torch.float32)
+    mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+    faults = {
+        "no lo": gm.tgmm_plain(lhs, grad.bfloat16().float(), sizes, torch.float32),
+        "wrong group": gm.tgmm_plain(lhs, grad, sizes.roll(1), torch.float32),
+        "transposed": ref.transpose(1, 2),
+    }
+    for name, bad in faults.items():
+        assert _bwd_share(bad, ref, mag, int(sizes.max()), torch.float32) > 2.0, name
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_autograd_and_determinism(cuda):
+    """``gmm`` under autograd on the card launches the forward once and each
+    backward kernel once, gives the plain backward's gradients, and the same
+    bits on a second run (no atomics)."""
+    lhs, rhs, grad, sizes = _gmm_bwd_case(cuda, 512, 256, 128, None, torch.bfloat16)
+    before = (gm.gmm.launches, gm.gmm_bwd_lhs.launches, gm.tgmm.launches)
+    runs = []
+    for _ in range(2):
+        a, b = lhs.clone().requires_grad_(True), rhs.clone().requires_grad_(True)
+        gm.gmm(a, b, sizes).backward(grad)
+        runs.append((a.grad, b.grad))
+    torch.cuda.synchronize()
+    assert (gm.gmm.launches, gm.gmm_bwd_lhs.launches, gm.tgmm.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][0].dtype == torch.bfloat16 and runs[0][1].dtype == torch.bfloat16
+    want_l = gm.gmm_bwd_lhs_plain(grad, rhs, sizes, torch.float32)
+    mag_l = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)
+    want_r = gm.tgmm_plain(lhs, grad, sizes, torch.float32)
+    mag_r = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+    assert _bwd_share(runs[0][0], want_l, mag_l, 128, torch.bfloat16) <= 1.0
+    assert _bwd_share(runs[0][1], want_r, mag_r, int(sizes.max()), torch.bfloat16) <= 1.0
+
+
+@pytest.mark.cuda
+def test_tree_logprobs_are_differentiable_on_the_card(cuda):
+    """``tree_forward_logprobs_pallas`` in bf16 on the card carries gradients
+    to every parameter, the LM head included (``compute_logits``' f32-output
+    product has no derivative, so the gradient path up-casts instead), and
+    gives the no-grad logprobs."""
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.models.tree import build_tree
+
+    cfg = qwen.ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=2,
+                           num_kv_heads=1, head_dim=128, tie_word_embeddings=False, attention_bias=False)
+    model = qwen.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(True)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    prompt = torch.randint(0, 512, (40,), generator=g).tolist()
+    pack = build_tree([prompt + torch.randint(0, 512, (n,), generator=g).tolist() for n in (5, 9, 14)])
+    with torch.no_grad():
+        ref = ta.tree_forward_logprobs_pallas(model, pack)
+    got = ta.tree_forward_logprobs_pallas(model, pack)
+    (-got.sum()).backward()
+    assert torch.allclose(got.detach(), ref, atol=1e-3)
+    assert model.lm_head.grad is not None and model.lm_head.grad.abs().max() > 0
+    assert model.layers[0].wq.grad.abs().max() > 0

@@ -108,8 +108,9 @@ def test_gmm_plain_matches_megablox(case, dtype):
 
 
 def test_gmm_plain_is_differentiable():
-    """On the CPU the plain version carries gradients (the CUDA wrapper
-    raises instead: the backward kernels are a later slice)."""
+    """On the CPU the plain version carries gradients through autograd of its
+    own ops (the wrapper's backward goes through ``GroupedMatmul`` and the
+    plain backward functions, ``tests/test_torch_gmm_bwd.py``)."""
     lhs = torch.randn(10, 8, requires_grad=True)
     rhs = torch.randn(3, 8, 16, requires_grad=True)
     gmm_plain(lhs, rhs, torch.tensor([4, 0, 5], dtype=torch.int32)).sum().backward()

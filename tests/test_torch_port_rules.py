@@ -178,15 +178,19 @@ def test_unported_trainer_options_refused(change):
 
 
 def test_moe_training_refused():
-    """MoE models serve; training them waits for the grouped matmul's
-    backward kernels."""
-    from areal_tpu_torch.api.config import PPOActorConfig
+    """MoE training is a ported path now (the grouped matmul has its backward
+    kernels): the engine takes an MoE model, and what it still refuses for
+    one is what it refuses for every model, here an expert-parallel mesh."""
+    from areal_tpu_torch.api.config import MeshConfig, PPOActorConfig
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 
     mcfg = qwen.ModelConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1, num_heads=2,
                             num_kv_heads=1, num_experts=4, moe_intermediate_size=16)
+    eng = TorchTrainEngine(PPOActorConfig(), model_config=mcfg, device="cpu")
+    eng.initialize()
+    assert eng.model.layers[0].we_gate.requires_grad
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchTrainEngine(PPOActorConfig(), model_config=mcfg, device="cpu")
+        TorchTrainEngine(PPOActorConfig(mesh=MeshConfig(expert=2)), model_config=mcfg, device="cpu")
 
 
 def test_gmm_wrapper_refuses_other_devices():
