@@ -21,26 +21,57 @@
 // prefill (8 rows x 256 suffix tokens over a 1,024-token prefix) does
 // ~4 * 256 * G flops per KV element: bound by the tensor cores.
 //
-// The design (simple and correct first, the shape of K2 in
-// flash_attention.cu):
-//   - one block per (tile of 64 query rows, KV head, slot), 4 warps, warp w
-//     owning rows 16w..16w+15 of the tile; the TPU put all B * G rows of a
-//     cell in one VMEM block, which does not fit a block here at B = 256;
-//   - a loop over 64-token prefix tiles (only the first ceil(len / 64); the
-//     page table is read per token row, so any page size works), then over
-//     64-key suffix tiles, skipping a suffix tile no row of the block
-//     attends; every tile lands in shared memory as bf16 and both products
-//     run on the tensor cores (WMMA 16x16x16, f32 accumulation);
-//   - int8 / fp8 values convert to bf16 exactly (7-bit integers, 3-bit
-//     mantissas) and the scales apply in f32: the K scale to each column of
-//     S, the V scale to P before P rounds to bf16; so the products see the
-//     stored values, not rounded dequantized ones;
-//   - the online softmax (running max and sum per row, f32) and the f32
-//     output accumulator live in shared memory, as in K2.
-// What it does not do yet: split a long prefix across blocks (verify runs
-// S * KH = 64 blocks on 132 SMs and the longest prefix sets the time),
-// reuse a prefix tile across row tiles of one cell (warm prefill reads the
-// prefix once per 64 rows, from L2), prefetch with cp.async / TMA, wgmma.
+// The design (FlashAttention-2 on mma.sync, flash-decoding splits):
+//   - suffix_kernel: one block of 4 warps per (tile of 64 query rows,
+//     prefix split, KV head, slot); warp w owns rows 16w..16w+15 and keeps
+//     its Q fragments, S (32 f32 a thread), P (bf16 A fragments packed
+//     straight from S's accumulator layout) and O (HD / 2 f32 a thread) in
+//     registers. Both products are mma.sync m16n8k16 bf16 -> f32 fed by
+//     ldmatrix (.trans for V); row max and sum use the quad's shuffles; the
+//     softmax scale is folded into exp2's argument, and O is rescaled only
+//     when a row's max moved. Nothing of S, P or O goes through shared
+//     memory.
+//   - a cp.async ring of 64-token K/V tiles, one barrier a tile: the next
+//     stages - 1 tiles are in flight while one computes. An aligned prefix
+//     tile (psz a multiple of 64) is one contiguous copy whose page index
+//     was read one issue ahead (the first before the prefix length is
+//     known); otherwise each token row looks its page up. Rows past the
+//     prefix are zero-filled by the copy. Suffix tiles use the same ring;
+//     a suffix tile no row of the block attends is never loaded, and the
+//     first one's mask bits are read with the block's other set-up reads.
+//     Rows are padded by 16 bytes: ldmatrix is free of bank conflicts.
+//   - int8 / fp8 pages: the ring stages the raw bytes and the f32 scales;
+//     one pass in shared memory converts the landed tile to bf16 exactly
+//     (7-bit integers, 3-bit mantissas). The K scale multiplies S's columns
+//     and the V scale P before P rounds to bf16, in f32, so the products
+//     see the stored values.
+//   - two configurations (Cfg), measured on an H100: verify (a (slot, KV
+//     head) cell of < 128 rows) a 3-stage ring, 2 blocks an SM; prefill
+//     (>= 128 rows) a 2-stage ring, 3 blocks an SM at 168 registers.
+//   - split-KV over the prefix: split p of P covers a fixed range of the
+//     window's 64-token tiles (from wp * psz, never from prefix_lens, which
+//     lives on the device); split 0 also takes the suffix. With P > 1 each
+//     split writes its O normalised by its own row sum, and its log-sum-exp
+//     (-inf for a row it saw no valid key of), to scratch; merge_kernel
+//     combines the splits in a fixed order, without atomics, and writes
+//     bf16 (a row every split saw empty gets exact zeros). P = 1 writes bf16
+//     directly. merge_kernel knows rows, not masks: (slot, KV head, i * G + g)
+//     -> out[slot, i, head], so a decode kernel (B = 1) can reuse it.
+//   - the wrapper picks P from shapes alone: 1 at warm prefill, 5 at
+//     verify with G = 6, 3 / 2 with G = 8 (S = 32, a 2,048-token window).
+// Resources (sm_90a, nvcc 12.8, HD = 128, measured on an H100): prefill
+// 168 registers (88 bytes of stack spilled), 69,632 B of shared memory, 3
+// blocks an SM; verify 248 registers, 104,448 B, 2 blocks; int8 / fp8 243
+// registers, 105,472 B, 2 blocks.
+// `paged_suffix_attention_occupancy` reports them; chip_smoke.py prints
+// them.
+// What bounds it now, measured (PERF.md): a warm prefill is held by the
+// L2 -> shared memory traffic of prefix tiles that every 64-row tile of a
+// cell reads again, and by latency with 12 warps an SM; larger row tiles
+// (128 rows in one block) measured slower, for want of warps. What it
+// leaves for later: wgmma and TMA multicast of a prefix tile to a cluster
+// of row tiles, a persistent schedule, and a 16- or 32-row tile for verify
+// (at B * G = 30 the block's last two warps hold no rows and skip the math).
 //
 // q must be bf16; the suffix K/V bf16; pages bf16, int8 or fp8.
 
@@ -48,29 +79,24 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kT = 64;        // query rows per block, keys per tile
 constexpr int kWarps = 4;     // warp w owns query rows 16w..16w+15
 constexpr int kThreads = kWarps * 32;
-constexpr int kPadH = 8;      // bf16 row padding (elements): ldm % 8 == 0
-constexpr int kPadF = 4;      // f32 row padding: ldm % 4 == 0
+constexpr int kPad = 8;       // bf16 row padding (elements): 16 bytes
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kDequant = 1.f / 127.5f;  // int8 / fp8: x * scale / 127.5
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// storage tags for the 1-byte page types
+// storage tag for the fp8 page type
 struct Fp8 { uint8_t bits; };
 
 __device__ __forceinline__ bf16 to_bf16(int8_t x) { return __float2bfloat16(static_cast<float>(x)); }
@@ -82,33 +108,83 @@ __device__ __forceinline__ bf16 to_bf16(Fp8 x) {
 template <typename T> struct IsQuant { static constexpr bool value = true; };
 template <> struct IsQuant<bf16> { static constexpr bool value = false; };
 
-__host__ __device__ constexpr size_t align32(size_t n) { return (n + 31) / 32 * 32; }
-
-template <int HD>
-struct Smem {
-  static constexpr int LDH = HD + kPadH;  // q / k / v tiles (bf16)
-  static constexpr int LDS = kT + kPadF;  // S (f32)
-  static constexpr int LDP = 2 * LDS;     // P (bf16) written over S's rows
-  static constexpr int LDO = HD + kPadF;  // O accumulator (f32)
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align32(q + sizeof(bf16) * kT * LDH);
-  static constexpr size_t v = align32(k + sizeof(bf16) * kT * LDH);
-  static constexpr size_t s = align32(v + sizeof(bf16) * kT * LDH);
-  static constexpr size_t o = align32(s + sizeof(float) * kT * LDS);
-  static constexpr size_t m = align32(o + sizeof(float) * kT * LDO);
-  static constexpr size_t l = m + sizeof(float) * kT;
-  static constexpr size_t ksc = l + sizeof(float) * kT;   // per key column: K scale / 127.5
-  static constexpr size_t vsc = ksc + sizeof(float) * kT; // per key column: V scale / 127.5
-  static constexpr size_t bytes = vsc + sizeof(float) * kT;
+// The block's configuration, by regime. kPrefill: a (slot, KV head) cell
+// of at least 128 rows (a warm prefill) wants more blocks an SM (3 at 168
+// registers, with a few spilled); verify (fewer rows, bytes-bound) a
+// deeper ring. Shared memory: the ring's stages
+// x (K, V) tiles of 64 keys, each sized for bf16 rows of HD + kPad (a
+// prefix tile of int8 / fp8 pages uses the first 64 * HD bytes, dense);
+// for int8 / fp8 pages also the converted bf16 K and V of the current tile
+// and the ring's f32 scales [stages][K, V][64]. The query tile is staged in
+// the ring's last stage before the loop. At HD = 128: bf16 prefill 2
+// stages, 68 KB, 3 blocks an SM; bf16 verify 3 stages, 102 KB, 2 blocks;
+// int8 / fp8 2 stages + the converted tile, 103 KB, 2 blocks.
+template <int HD, typename TKV, bool kPrefill>
+struct Cfg {
+  static constexpr bool quant = IsQuant<TKV>::value;
+  static constexpr int stages = quant || kPrefill ? 2 : 3;
+  static constexpr int min_blocks = !quant && kPrefill ? 3 : 2;
+  static constexpr int LDH = HD + kPad;
+  static constexpr size_t tile = sizeof(bf16) * kT * LDH;
+  static constexpr size_t ring = 0;
+  static constexpr size_t cvt = ring + 2 * stages * tile;
+  static constexpr size_t scales = cvt + (quant ? 2 * tile : 0);
+  static constexpr size_t bytes = scales + (quant ? sizeof(float) * 2 * stages * kT : 0);
 };
 
-// One 8-element chunk of a page row into a bf16 tile row.
-__device__ __forceinline__ uint4 load8(const bf16* src) {
-  return *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// 16 bytes global -> shared, bypassing L1; `valid` false reads nothing and
+// fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (flushes denormal results to 0; exp2(-inf) = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 8 one-byte page values -> 8 bf16
 template <typename T>
-__device__ __forceinline__ uint4 load8(const T* src) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);  // 8 one-byte values
+__device__ __forceinline__ uint4 widen8(uint2 raw) {
   const T* e = reinterpret_cast<const T*>(&raw);
   uint4 out;
   bf16* o = reinterpret_cast<bf16*>(&out);
@@ -117,101 +193,62 @@ __device__ __forceinline__ uint4 load8(const T* src) {
   return out;
 }
 
-// S[rows of this warp][64] = Q K^T from the tiles in shared memory.
-template <int HD>
-__device__ __forceinline__ void qk_tile(const bf16* q_s, const bf16* k_s, float* s_s, int warp) {
-  constexpr int LDH = Smem<HD>::LDH, LDS = Smem<HD>::LDS;
+// Column-validity bits of one row for the suffix keys j0 .. j0 + 63 this
+// thread holds (bit 2 j + e: key j0 + 8 j + 2 tq + e).
+__device__ __forceinline__ uint32_t suffix_row_bits(const uint8_t* mrow, int j0, int B, int tq) {
+  uint32_t b = 0u;
 #pragma unroll
-  for (int j = 0; j < kT / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int d = 0; d < HD; d += 16) {
-      FragARow a;
-      FragBCol b;
-      wmma::load_matrix_sync(a, q_s + 16 * warp * LDH + d, LDH);
-      wmma::load_matrix_sync(b, k_s + 16 * j * LDH + d, LDH);
-      wmma::mma_sync(acc, a, b, acc);
+    for (int e = 0; e < 2; ++e) {
+      const int c = j0 + 8 * j + 2 * tq + e;
+      if (c < B && mrow[c]) b |= 1u << (2 * j + e);
     }
-    wmma::store_matrix_sync(s_s + 16 * warp * LDS + 16 * j, acc, LDS, wmma::mem_row_major);
-  }
+  return b;
 }
 
-// O[rows of this warp] += P V.
-template <int HD>
-__device__ __forceinline__ void pv_tile(const bf16* p_s, const bf16* v_s, float* o_s, int warp) {
-  constexpr int LDH = Smem<HD>::LDH, LDP = Smem<HD>::LDP, LDO = Smem<HD>::LDO;
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    FragC acc;
-    wmma::load_matrix_sync(acc, o_s + 16 * warp * LDO + 16 * j, LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int s = 0; s < kT / 16; ++s) {
-      FragARow a;
-      FragBRow b;
-      wmma::load_matrix_sync(a, p_s + 16 * warp * LDP + 16 * s, LDP);
-      wmma::load_matrix_sync(b, v_s + 16 * s * LDH + 16 * j, LDH);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(o_s + 16 * warp * LDO + 16 * j, acc, LDO, wmma::mem_row_major);
-  }
-}
-
-// Online softmax of row r over the tile's 64 columns, two lanes per row
-// (lane `half` takes columns 32*half .. 32*half+31). `bits` holds this
-// lane's 32 column-validity bits. Writes P (times the V scale) over S's
-// rows as bf16 and rescales the row's accumulator.
-template <int HD>
-__device__ __forceinline__ void softmax_tile(unsigned char* smem, int r, int half, uint32_t bits,
-                                             float scale) {
-  typedef Smem<HD> SM;
-  constexpr int LDS = SM::LDS, LDP = SM::LDP, LDO = SM::LDO;
-  float* s_s = reinterpret_cast<float*>(smem + SM::s);
-  bf16* p_s = reinterpret_cast<bf16*>(smem + SM::s);
-  float* o_s = reinterpret_cast<float*>(smem + SM::o);
-  float* m_s = reinterpret_cast<float*>(smem + SM::m);
-  float* l_s = reinterpret_cast<float*>(smem + SM::l);
-  const float* ksc_s = reinterpret_cast<const float*>(smem + SM::ksc);
-  const float* vsc_s = reinterpret_cast<const float*>(smem + SM::vsc);
-  float sv[32];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < 32; ++c) {
-    const int cc = half * 32 + c;
-    sv[c] = (bits >> c) & 1u ? s_s[r * LDS + cc] * ksc_s[cc] * scale : -INFINITY;
-    mx = fmaxf(mx, sv[c]);
-  }
-  // the shuffle also orders both lanes' reads of S before P overwrites it
-  mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-  const float m_old = m_s[r];
-  const float m_new = fmaxf(m_old, mx);
-  float alpha = 1.f, psum = 0.f;
-  if (m_new != -INFINITY) {
-    alpha = __expf(m_old - m_new);  // 0 while the row had no valid key
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int cc = half * 32 + c;
-      const float p = __expf(sv[c] - m_new);  // masked: exp(-inf) = 0
-      psum += p;
-      p_s[r * LDP + cc] = __float2bfloat16(p * vsc_s[cc]);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 32; ++c) p_s[r * LDP + half * 32 + c] = __float2bfloat16(0.f);
-  }
-  psum += __shfl_xor_sync(kFull, psum, 1);
-  if (half == 0) {
-    m_s[r] = m_new;
-    l_s[r] = l_s[r] * alpha + psum;
-  }
-  if (alpha != 1.f) {
-#pragma unroll 8
-    for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d) o_s[r * LDO + d] *= alpha;
-  }
-}
-
+// The copies of one tile whose rows each look their page up (psz not a
+// multiple of 64): rows past `limit` are zero-filled, not read.
 template <int HD, typename TKV>
-__global__ void __launch_bounds__(kThreads) suffix_kernel(
+__device__ __noinline__ void issue_rows(unsigned char* kd, unsigned char* vd, float* ksd, float* vsd,
+                                        const TKV* k_pages, const TKV* v_pages, const float* k_scales,
+                                        const float* v_scales, const int* pt, size_t plane, int psz, int t0,
+                                        int limit, int tid, int dst_stride) {
+  constexpr int kRowBytes = HD * static_cast<int>(sizeof(TKV));
+  constexpr int kRowChunks = kRowBytes / 16;
+  for (int c = tid; c < kT * kRowChunks; c += kThreads) {
+    const int rr = c / kRowChunks, ch = c % kRowChunks, t = t0 + rr;
+    const bool ok = t < limit;
+    const size_t row = ok ? (plane + __ldg(pt + t / psz)) * psz + t % psz : 0;
+    const size_t src = row * kRowBytes + ch * 16;
+    cp_async16(kd + rr * dst_stride + ch * 16, reinterpret_cast<const unsigned char*>(k_pages) + src, ok);
+    cp_async16(vd + rr * dst_stride + ch * 16, reinterpret_cast<const unsigned char*>(v_pages) + src, ok);
+  }
+  if (ksd != nullptr) {  // one scale a thread: K for threads 0..63, V for 64..127
+    const int kv = tid / kT, rr = tid % kT, t = t0 + rr;
+    const bool ok = t < limit;
+    const size_t row = ok ? (plane + __ldg(pt + t / psz)) * psz + t % psz : 0;
+    cp_async4((kv ? vsd : ksd) + rr, (kv ? v_scales : k_scales) + row, ok);
+  }
+}
+
+// The copies of one tile of the in-flight suffix K/V (bf16 rows j0 ..).
+template <int HD>
+__device__ __noinline__ void issue_suffix(unsigned char* kd, unsigned char* vd, const bf16* k_sfx,
+                                          const bf16* v_sfx, int s, int B, int KH, int kh, int j0, int tid) {
+  constexpr int kChunks = HD / 8;
+  for (int c = tid; c < kT * kChunks; c += kThreads) {
+    const int rr = c / kChunks, ch = c % kChunks, j = j0 + rr;
+    const bool ok = j < B;
+    const size_t row = ok ? ((size_t)s * B + j) * KH + kh : 0;
+    const int dst = rr * (HD + kPad) * 2 + ch * 16;
+    cp_async16(kd + dst, k_sfx + row * HD + ch * 8, ok);
+    cp_async16(vd + dst, v_sfx + row * HD + ch * 8, ok);
+  }
+}
+
+template <int HD, typename TKV, bool kPrefill>
+__global__ void __launch_bounds__(kThreads, (Cfg<HD, TKV, kPrefill>::min_blocks)) suffix_kernel(
     const bf16* __restrict__ q,          // [S, B, H, HD]
     const bf16* __restrict__ k_sfx,      // [S, B, KH, HD]
     const bf16* __restrict__ v_sfx,
@@ -222,171 +259,506 @@ __global__ void __launch_bounds__(kThreads) suffix_kernel(
     const int* __restrict__ prefix_lens, // [S]
     const int* __restrict__ page_table,  // [S, pt_stride], first wp columns used
     const uint8_t* __restrict__ mask,    // [S, B, B]
-    bf16* __restrict__ out,              // [S, B, H, HD]
-    int B, int H, int KH, int N, int psz, int wp, int pt_stride, int layer, float scale) {
-  typedef Smem<HD> SM;
-  constexpr int LDH = SM::LDH;
-  constexpr int kChunks = HD / 8;  // 8-element chunks per row
-  constexpr bool kScaled = IsQuant<TKV>::value;
+    bf16* __restrict__ out,              // [S, B, H, HD] (n_splits == 1)
+    float* __restrict__ o_part,          // [P, S, KH, B * G, HD] (n_splits > 1)
+    float* __restrict__ lse_part,        // [P, S, KH, B * G]
+    int S, int B, int H, int KH, int N, int psz, int wp, int pt_stride, int layer, int n_splits,
+    float scale_log2) {
+  typedef Cfg<HD, TKV, kPrefill> CF;
+  constexpr int LDH = CF::LDH;
+  constexpr bool kQuant = CF::quant;
+  constexpr int kStages = CF::stages;
+  constexpr int kRowBytes = HD * static_cast<int>(sizeof(TKV));  // one page row
+  constexpr int kRowChunks = kRowBytes / 16;
+  constexpr int kChunks = HD / 8;  // 16-byte chunks of a bf16 row
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + SM::v);
-  float* s_s = reinterpret_cast<float*>(smem + SM::s);
-  const bf16* p_s = reinterpret_cast<const bf16*>(smem + SM::s);
-  float* o_s = reinterpret_cast<float*>(smem + SM::o);
-  float* m_s = reinterpret_cast<float*>(smem + SM::m);
-  float* l_s = reinterpret_cast<float*>(smem + SM::l);
-  float* ksc_s = reinterpret_cast<float*>(smem + SM::ksc);
-  float* vsc_s = reinterpret_cast<float*>(smem + SM::vsc);
 
-  const int rt = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = H / KH, BG = B * G;
-  const int r = 16 * warp + (lane >> 1);  // the query row this lane pair owns
-  const int half = lane & 1;
-  const int rho = rt * kT + r;            // its row in the (slot, KV head) cell
-  const int i_row = rho < BG ? rho / G : -1;  // its suffix row
-  const uint8_t* mrow = mask + ((size_t)s * B + (i_row < 0 ? 0 : i_row)) * B;
-  const bool row_valid = i_row >= 0 && mrow[i_row] != 0;  // the diagonal gate
+  const int n_rt = (BG + kT - 1) / kT;
+  const int rt = blockIdx.x % n_rt, split = blockIdx.x / n_rt;
+  const int kh = blockIdx.y, s = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row group, thread of the quad
+  const int row0 = rt * kT + 16 * warp;  // the warp's first row in the (slot, KV head) cell
 
-  // the query tile (rows past B * G are zeros and never stored)
-  for (int c = tid; c < kT * kChunks; c += kThreads) {
-    const int rr = c / kChunks, col = (c % kChunks) * 8;
+  // the query tile's rows (rows past B * G are zeros), read into registers
+  // first so that their latency overlaps the block's other set-up reads
+  static_assert(kT * kChunks % kThreads == 0 && kT * kRowChunks % kThreads == 0, "whole chunks a thread");
+  static_assert(kThreads == 2 * kT, "one int8 / fp8 scale a thread");
+  uint4 qv[kT * kChunks / kThreads];
+#pragma unroll
+  for (int i = 0; i < kT * kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads, rr = c / kChunks, col = (c % kChunks) * 8;
     const int rh = rt * kT + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    qv[i] = make_uint4(0u, 0u, 0u, 0u);
     if (rh < BG) {
-      const int i = rh / G, g = rh % G;
-      val = load8(q + (((size_t)s * B + i) * H + (size_t)kh * G + g) * HD + col);
+      const int qi = rh / G, g = rh % G;
+      qv[i] = *reinterpret_cast<const uint4*>(q + (((size_t)s * B + qi) * H + (size_t)kh * G + g) * HD + col);
     }
-    *reinterpret_cast<uint4*>(q_s + rr * LDH + col) = val;
-  }
-  for (int c = tid; c < kT * (HD + kPadF); c += kThreads) o_s[c] = 0.f;
-  if (tid < kT) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
   }
 
-  // (a) the cached prefix, only when some row of the block attends it
-  int limit = min(prefix_lens[s], wp * psz);
-  if (!__syncthreads_or(row_valid)) limit = 0;
-  const size_t plane = ((size_t)layer * KH + kh) * N;  // pages before this (layer, head)
+  // this thread's rows gq and gq + 8 of its warp: suffix row i (or -1),
+  // and whether the row attends the prefix (its diagonal bit)
+  int irow[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rho = row0 + gq + 8 * r;
+    irow[r] = rho < BG ? rho / G : -1;
+    rvalid[r] = irow[r] >= 0 && mask[((size_t)s * B + irow[r]) * B + irow[r]] != 0;
+  }
+  const bool warp_live = row0 < BG;
+  // the first suffix tile's column bits (see tile_bits), read early as well
+  uint32_t sfx0 = 0u;
+  if (split == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (irow[r] >= 0) sfx0 |= suffix_row_bits(mask + ((size_t)s * B + irow[r]) * B, 0, B, tq) << (16 * r);
+  }
+
+  // this split's prefix tiles, only when some row of the block attends it
   const int* pt = page_table + (size_t)s * pt_stride;
-  for (int t0 = 0; t0 < limit; t0 += kT) {
-    __syncthreads();  // the previous tile's k_s / v_s / scales are done with
-    for (int c = tid; c < kT * kChunks; c += kThreads) {
-      const int rr = c / kChunks, col = (c % kChunks) * 8;
-      const int t = t0 + rr;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (t < limit) {  // rows past the prefix stay zero: never read
-        const size_t row = (plane + __ldg(pt + t / psz)) * psz + t % psz;
-        kv = load8(k_pages + row * HD + col);
-        vv = load8(v_pages + row * HD + col);
-      }
-      *reinterpret_cast<uint4*>(k_s + rr * LDH + col) = kv;
-      *reinterpret_cast<uint4*>(v_s + rr * LDH + col) = vv;
+  const bool aligned = psz % kT == 0;
+  const int win_tiles = (wp * psz + kT - 1) / kT;
+  const int per = (win_tiles + n_splits - 1) / n_splits;
+  const int pre_lo = split * per;
+  const int page_lo = aligned && pre_lo < win_tiles ? __ldg(pt + pre_lo * kT / psz) : 0;
+  int limit = min(prefix_lens[s], wp * psz);
+  if (!__syncthreads_or(rvalid[0] || rvalid[1])) limit = 0;
+  const int pre_hi = min(pre_lo + per, (max(limit, 0) + kT - 1) / kT);
+  const bool has_sfx = split == 0;
+  auto part_row = [&](int r) -> size_t {  // the scratch row of this thread's row r
+    return (((size_t)split * S + s) * KH + kh) * BG + row0 + gq + 8 * r;
+  };
+
+  if (pre_lo >= pre_hi && !has_sfx) {  // nothing here: m = -inf, l = 0
+    if (tq == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (irow[r] >= 0) lse_part[part_row(r)] = -INFINITY;
     }
-    if (tid < kT) {
-      const int t = t0 + tid;
-      float ks = 1.f, vs = 1.f;
-      if (kScaled && t < limit) {
-        const size_t row = (plane + __ldg(pt + t / psz)) * psz + t % psz;
-        ks = __ldg(k_scales + row) * (1.f / 127.5f);
-        vs = __ldg(v_scales + row) * (1.f / 127.5f);
-      }
-      ksc_s[tid] = ks;
-      vsc_s[tid] = vs;
-    }
-    __syncthreads();
-    qk_tile<HD>(q_s, k_s, s_s, warp);
-    __syncwarp();
-    uint32_t bits = 0u;
-    if (row_valid) {
-      const int n = limit - t0 - half * 32;  // valid columns of this lane's half
-      bits = n >= 32 ? kFull : (n > 0 ? (1u << n) - 1u : 0u);
-    }
-    softmax_tile<HD>(smem, r, half, bits, scale);
-    __syncwarp();
-    pv_tile<HD>(p_s, v_s, o_s, warp);
-    __syncwarp();
+    return;
   }
 
-  // (b) the in-flight suffix under the mask
-  for (int j0 = 0; j0 < B; j0 += kT) {
+  const size_t plane = ((size_t)layer * KH + kh) * N;  // pages before this (layer, head)
+
+  // Column-validity bits of a tile for this thread: bit 16 r + 2 j + e is
+  // row r's column 8 j + 2 tq + e. Tiles below win_tiles are prefix tiles,
+  // tile win_tiles + j the suffix keys 64 j ...
+  auto tile_bits = [&](int tile) -> uint32_t {
+    if (tile == win_tiles) return sfx0;
     uint32_t bits = 0u;
-    if (i_row >= 0) {
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        const int j = j0 + half * 32 + c;
-        if (j < B && mrow[j]) bits |= 1u << c;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (tile < win_tiles) {
+        if (!rvalid[r]) continue;
+        const int n = limit - tile * kT;
+        uint32_t b = 0xffffu;
+        if (n < kT) {
+          b = 0u;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            b |= (8 * j + 2 * tq < n ? 1u : 0u) << (2 * j) | (8 * j + 2 * tq + 1 < n ? 2u : 0u) << (2 * j);
+        }
+        bits |= b << (16 * r);
+      } else if (irow[r] >= 0) {
+        bits |= suffix_row_bits(mask + ((size_t)s * B + irow[r]) * B, (tile - win_tiles) * kT, B, tq) << (16 * r);
       }
     }
-    // also the barrier before k_s / v_s are overwritten
-    if (!__syncthreads_or(bits != 0u)) continue;
-    for (int c = tid; c < kT * kChunks; c += kThreads) {
-      const int rr = c / kChunks, col = (c % kChunks) * 8;
-      const int j = j0 + rr;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (j < B) {
-        const size_t row = ((size_t)s * B + j) * KH + kh;
-        kv = load8(k_sfx + row * HD + col);
-        vv = load8(v_sfx + row * HD + col);
-      }
-      *reinterpret_cast<uint4*>(k_s + rr * LDH + col) = kv;
-      *reinterpret_cast<uint4*>(v_s + rr * LDH + col) = vv;
+    return bits;
+  };
+  // the first suffix tile at or after j that some row of the block attends
+  // (block-uniform; a barrier per tile looked at), or -1
+  auto next_suffix = [&](int j, uint32_t& bits) -> int {
+    if (!has_sfx) return -1;
+    for (; j * kT < B; ++j) {
+      bits = tile_bits(win_tiles + j);
+      if (__syncthreads_or(bits != 0u)) return win_tiles + j;
     }
-    if (tid < kT) {
-      ksc_s[tid] = 1.f;
-      vsc_s[tid] = 1.f;
+    return -1;
+  };
+  // the tile after `tile` in this block's order, and its column bits: the
+  // block's prefix tiles, then the suffix tiles it attends
+  auto next_tile = [&](int tile, uint32_t& bits) -> int {
+    if (tile < win_tiles && tile + 1 < pre_hi) {
+      bits = tile_bits(tile + 1);
+      return tile + 1;
+    }
+    return next_suffix(tile < win_tiles ? 0 : tile - win_tiles + 1, bits);
+  };
+
+  // With psz a multiple of 64 a prefix tile is 64 consecutive rows of one
+  // page: its page index is read one issue ahead, off the copies' critical
+  // path, and the copy is one contiguous block. Otherwise each token row
+  // looks its page up (issue_rows).
+  auto tile_page = [&](int tile) -> int {
+    if (!aligned || tile < 0 || tile >= pre_hi) return 0;
+    return tile == pre_lo ? page_lo : __ldg(pt + tile * kT / psz);
+  };
+  auto stage_ptr = [&](int st, int kv) -> unsigned char* {
+    return smem + CF::ring + (2 * st + kv) * CF::tile;
+  };
+  auto scale_ptr = [&](int st, int kv) -> float* {
+    return reinterpret_cast<float*>(smem + CF::scales) + (2 * st + kv) * kT;
+  };
+  // start the copies of one tile into ring stage st (`page`: an aligned
+  // prefix tile's page)
+  auto issue = [&](int tile, int st, int page) {
+    unsigned char* kd = stage_ptr(st, 0);
+    unsigned char* vd = stage_ptr(st, 1);
+    constexpr int dst_stride = kQuant ? kRowBytes : LDH * 2;
+    if (tile >= win_tiles) {
+      issue_suffix<HD>(kd, vd, k_sfx, v_sfx, s, B, KH, kh, (tile - win_tiles) * kT, tid);
+    } else if (!aligned) {
+      issue_rows<HD, TKV>(kd, vd, kQuant ? scale_ptr(st, 0) : nullptr, scale_ptr(st, 1), k_pages, v_pages,
+                          k_scales, v_scales, pt, plane, psz, tile * kT, limit, tid, dst_stride);
+    } else {
+      const int t0 = tile * kT;
+      const size_t base = ((plane + page) * psz + t0 % psz) * kRowBytes;
+      const int rows_in = limit - t0;  // rows of the tile inside the prefix
+#pragma unroll
+      for (int i = 0; i < kT * kRowChunks / kThreads; ++i) {
+        const int c = tid + i * kThreads;
+        const int rr = c / kRowChunks, ch = c % kRowChunks;
+        const bool ok = rr < rows_in;
+        const size_t src = ok ? base + (size_t)c * 16 : 0;
+        cp_async16(kd + rr * dst_stride + ch * 16, reinterpret_cast<const unsigned char*>(k_pages) + src, ok);
+        cp_async16(vd + rr * dst_stride + ch * 16, reinterpret_cast<const unsigned char*>(v_pages) + src, ok);
+      }
+      if constexpr (kQuant) {  // one scale a thread: K for threads 0..63, V for 64..127
+        const int kv = tid / kT, rr = tid % kT;
+        const bool ok = rr < rows_in;
+        cp_async4(scale_ptr(st, kv) + rr, (kv ? v_scales : k_scales) + (ok ? base / kRowBytes + rr : 0), ok);
+      }
+    }
+  };
+
+  // The ring: tiles tl[0] (computing) .. tl[kStages - 2] in flight, one
+  // barrier a tile; tb[i] holds tile tl[i]'s column bits.
+  int tl[kStages];
+  uint32_t tb[kStages];
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    tl[i] = -1;
+    tb[i] = 0u;
+  }
+  if (pre_lo < pre_hi) {
+    tl[0] = pre_lo;
+    tb[0] = tile_bits(pre_lo);
+  } else {
+    tl[0] = next_suffix(0, tb[0]);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i > 0 && tl[i - 1] >= 0) tl[i] = next_tile(tl[i - 1], tb[i]);
+    if (tl[i] >= 0) issue(tl[i], i, tile_page(tl[i]));
+    cp_async_commit();
+  }
+  auto page_after = [&](int tile) -> int {  // the page of the prefix tile after `tile`
+    return tile >= 0 && tile + 1 < pre_hi ? tile_page(tile + 1) : 0;
+  };
+  int page_next = page_after(tl[kStages - 2]);
+
+  // the query tile (rows past B * G are zeros), staged in the ring's last
+  // stage; its fragments stay in registers
+  uint32_t qa[HD / 16][4];
+  {
+    bf16* q_s = reinterpret_cast<bf16*>(stage_ptr(kStages - 1, 0));
+#pragma unroll
+    for (int i = 0; i < kT * kChunks / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      *reinterpret_cast<uint4*>(q_s + (c / kChunks) * LDH + (c % kChunks) * 8) = qv[i];
     }
     __syncthreads();
-    qk_tile<HD>(q_s, k_s, s_s, warp);
-    __syncwarp();
-    softmax_tile<HD>(smem, r, half, bits, scale);
-    __syncwarp();
-    pv_tile<HD>(p_s, v_s, o_s, warp);
-    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldsm_x4(qa[kk], q_s + (16 * warp + (lane & 15)) * LDH + 16 * kk + (lane >> 4) * 8);
+    // (the loop's first barrier frees the stage before it is written)
   }
 
-  __syncwarp();
-  if (i_row >= 0) {
-    constexpr int LDO = SM::LDO;
-    const int g = rho % G;
-    const float lr = l_s[r];
-    const float inv = lr > 0.f ? 1.f / lr : 0.f;  // no valid bit: exact zeros
-    bf16* orow = out + (((size_t)s * B + i_row) * H + (size_t)kh * G + g) * HD;
-#pragma unroll 4
-    for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); d += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-          __floats2bfloat162_rn(o_s[r * LDO + d] * inv, o_s[r * LDO + d + 1] * inv);
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's columns
+
+  int st = 0;  // the stage of tl[0]
+  while (tl[0] >= 0) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tl[0] have landed
+    __syncthreads();               // every thread's; and the previous tile's stage is free
+    {
+      uint32_t nb = 0u;
+      const int nt = tl[kStages - 2] >= 0 ? next_tile(tl[kStages - 2], nb) : -1;
+      const int pa = page_after(nt);
+      if (nt >= 0) issue(nt, (st + kStages - 1) % kStages, page_next);
+      cp_async_commit();
+      page_next = pa;
+      tl[kStages - 1] = nt;
+      tb[kStages - 1] = nb;
+    }
+    const int cur = tl[0];
+    const uint32_t cbits = tb[0];
+    const bf16* k_t = reinterpret_cast<const bf16*>(stage_ptr(st, 0));
+    const bf16* v_t = reinterpret_cast<const bf16*>(stage_ptr(st, 1));
+    const float* ksc = nullptr;
+    const float* vsc = nullptr;
+    if constexpr (kQuant) {
+      if (cur < win_tiles) {  // raw bytes -> bf16, exactly (a suffix tile is bf16 already)
+        bf16* cvt = reinterpret_cast<bf16*>(smem + CF::cvt);
+        for (int c = tid; c < 2 * kT * kChunks; c += kThreads) {
+          const int kv = c / (kT * kChunks), rem = c % (kT * kChunks);
+          const int rr = rem / kChunks, col = (rem % kChunks) * 8;
+          const uint2 raw = *reinterpret_cast<const uint2*>(stage_ptr(st, kv) + rr * HD + col);
+          *reinterpret_cast<uint4*>(cvt + (kv * kT + rr) * LDH + col) = widen8<TKV>(raw);
+        }
+        __syncthreads();
+        k_t = cvt;
+        v_t = cvt + kT * LDH;
+        ksc = scale_ptr(st, 0);
+        vsc = scale_ptr(st, 1);
+      }
+    }
+
+    if (warp_live && __any_sync(kFull, cbits != 0u)) {  // some row of the warp attends this tile
+      // S = Q K^T: 8 column tiles of 8 keys, in registers
+      float sc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint32_t b[4];
+          ldsm_x4(b, k_t + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * LDH + 16 * kk + ((lane >> 3) & 1) * 8);
+          mma16816(sc[2 * jj], qa[kk], b[0], b[1]);
+          mma16816(sc[2 * jj + 1], qa[kk], b[2], b[3]);
+        }
+      }
+      // online softmax in the log2 domain: masked columns are -inf (a tile
+      // whose 32 columns of this thread are all valid skips the mask);
+      // the scale is folded into the exponent, exp2(s * scale - m)
+      if constexpr (kQuant) {
+        if (ksc != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) sc[j][2 * r + e] *= ksc[8 * j + 2 * tq + e] * kDequant;
+        }
+      }
+      if (cbits != 0xffffffffu) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (!((cbits >> (16 * r + 2 * j + e)) & 1u)) sc[j][2 * r + e] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+      float alpha[2], msub[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        alpha[r] = m_new == -INFINITY ? 1.f : fast_exp2(m[r] - m_new);  // 0 while the row had nothing
+        msub[r] = m_new == -INFINITY ? 0.f : m_new;
+        m[r] = m_new;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = fast_exp2(fmaf(sc[j][2 * r + e], scale_log2, -msub[r]));  // masked: 0
+            psum[r] += p;
+            sc[j][2 * r + e] = p;
+          }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row's max moved
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1];
+          o[n][3] *= alpha[1];
+        }
+      }
+      // P (times the V scale) as bf16 A fragments: keys 16 kk .. 16 kk + 15
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = 2 * kk + h;
+            float p0 = sc[j][2 * r], p1 = sc[j][2 * r + 1];
+            if (kQuant && vsc != nullptr) {
+              p0 *= vsc[8 * j + 2 * tq] * kDequant;
+              p1 *= vsc[8 * j + 2 * tq + 1] * kDequant;
+            }
+            pa[kk][2 * h + r] = pack_bf16(p0, p1);
+          }
+      // O += P V
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int dd = 0; dd < HD / 16; ++dd) {
+          uint32_t b[4];
+          ldsm_x4_t(b, v_t + (16 * kk + (lane & 15)) * LDH + 16 * dd + (lane >> 4) * 8);
+          mma16816(o[2 * dd], pa[kk], b[0], b[1]);
+          mma16816(o[2 * dd + 1], pa[kk], b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      tl[i] = tl[i + 1];
+      tb[i] = tb[i + 1];
+    }
+    st = st + 1 == kStages ? 0 : st + 1;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (irow[r] < 0) continue;
+    if (n_splits == 1) {
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no valid bit: exact zeros
+      const int g = (row0 + gq + 8 * r) % G;
+      bf16* orow = out + (((size_t)s * B + irow[r]) * H + (size_t)kh * G + g) * HD;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * tq) =
+            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    } else {
+      const size_t prow = part_row(r);
+      if (l[r] > 0.f) {
+        const float inv = 1.f / l[r];
+        float* orow = o_part + prow * HD;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n)
+          *reinterpret_cast<float2*>(orow + 8 * n + 2 * tq) = make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      }
+      if (tq == 0) lse_part[prow] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
     }
   }
+}
+
+// Merge P splits of rows (slot, KV head, i * G + g) into bf16
+// out[slot, i, KV head * G + g]: weights exp(lse_p - max lse), in split
+// order, no atomics. A split with lse = -inf is skipped (its O is never
+// read); a row with no finite lse gets exact zeros. HD / 4 threads a row.
+template <int HD>
+__global__ void __launch_bounds__(kThreads) merge_kernel(
+    const float* __restrict__ o_part,    // [P, rows, HD]
+    const float* __restrict__ lse_part,  // [P, rows]
+    bf16* __restrict__ out, int rows, int B, int G, int KH, int n_splits) {
+  constexpr int kLanes = HD / 4;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = gid / kLanes, d = (gid % kLanes) * 4;
+  if (r >= rows) return;
+  const int BG = B * G;
+  const int rho = r % BG, sk = r / BG;
+  const int kh = sk % KH, s = sk / KH;
+  const int i = rho / G, g = rho % G;
+  float mx = -INFINITY;
+  for (int p = 0; p < n_splits; ++p) mx = fmaxf(mx, lse_part[(size_t)p * rows + r]);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float wsum = 0.f;
+  if (mx > -INFINITY) {
+    for (int p = 0; p < n_splits; ++p) {
+      const float lp = lse_part[(size_t)p * rows + r];
+      if (!(lp > -INFINITY)) continue;
+      const float w = __expf(lp - mx);
+      const float4 v = *reinterpret_cast<const float4*>(o_part + ((size_t)p * rows + r) * HD + d);
+      wsum += w;
+      acc.x += w * v.x;
+      acc.y += w * v.y;
+      acc.z += w * v.z;
+      acc.w += w * v.w;
+    }
+  }
+  const float inv = wsum > 0.f ? 1.f / wsum : 0.f;
+  bf16* orow = out + (((size_t)s * B + i) * (KH * G) + (size_t)kh * G + g) * HD + d;
+  reinterpret_cast<__nv_bfloat162*>(orow)[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+  reinterpret_cast<__nv_bfloat162*>(orow)[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
 }
 
 struct Args {
   const void* q; const void* ks; const void* vs; const void* kp; const void* vp;
   const float* ksc; const float* vsc; const int* plens; const int* pt; const uint8_t* mask;
-  void* out;
-  int S, B, H, KH, N, psz, wp, pt_stride, layer;
+  void* out; float* o_part; float* lse_part;
+  int S, B, H, KH, N, psz, wp, pt_stride, layer, n_splits;
   cudaStream_t stream;
 };
 
-template <int HD, typename TKV>
-int launch(const Args& a) {
-  const size_t bytes = Smem<HD>::bytes;
-  static_assert(Smem<HD>::bytes <= kMaxSmem, "shared memory");
-  int rc = static_cast<int>(cudaFuncSetAttribute(
-      suffix_kernel<HD, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+template <int HD, typename TKV, bool kPrefill>
+int prepare() {
+  static_assert(Cfg<HD, TKV, kPrefill>::bytes <= kMaxSmem, "shared memory");
+  return static_cast<int>(cudaFuncSetAttribute(suffix_kernel<HD, TKV, kPrefill>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)Cfg<HD, TKV, kPrefill>::bytes));
+}
+
+template <int HD, typename TKV, bool kPrefill>
+int launch_cfg(const Args& a) {
+  int rc = prepare<HD, TKV, kPrefill>();
   if (rc != 0) return rc;
-  const int G = a.H / a.KH;
-  dim3 grid((a.B * G + kT - 1) / kT, a.KH, a.S);
-  suffix_kernel<HD, TKV><<<grid, kThreads, bytes, a.stream>>>(
+  typedef Cfg<HD, TKV, kPrefill> CF;
+  const int G = a.H / a.KH, BG = a.B * G;
+  dim3 grid(((BG + kT - 1) / kT) * a.n_splits, a.KH, a.S);
+  suffix_kernel<HD, TKV, kPrefill><<<grid, kThreads, CF::bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.ks),
       static_cast<const bf16*>(a.vs), static_cast<const TKV*>(a.kp),
       static_cast<const TKV*>(a.vp), a.ksc, a.vsc, a.plens, a.pt, a.mask,
-      static_cast<bf16*>(a.out), a.B, a.H, a.KH, a.N, a.psz, a.wp, a.pt_stride, a.layer,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(HD))));
+      static_cast<bf16*>(a.out), a.o_part, a.lse_part, a.S, a.B, a.H, a.KH, a.N, a.psz, a.wp,
+      a.pt_stride, a.layer, a.n_splits,
+      static_cast<float>(kLog2e / sqrt(static_cast<double>(HD))));
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || a.n_splits == 1) return rc;
+  const int rows = a.S * a.KH * BG;
+  const long long threads = (long long)rows * (HD / 4);
+  merge_kernel<HD><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0, a.stream>>>(
+      a.o_part, a.lse_part, static_cast<bf16*>(a.out), rows, a.B, G, a.KH, a.n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the prefill configuration where a (slot, KV head) cell has >= 128 rows
+template <int HD, typename TKV>
+int launch(const Args& a) {
+  if (a.B * (a.H / a.KH) >= 128) return launch_cfg<HD, TKV, true>(a);
+  return launch_cfg<HD, TKV, false>(a);
+}
+
+template <int HD, typename TKV, bool kPrefill>
+int occupancy(int* info) {
+  int rc = prepare<HD, TKV, kPrefill>();
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  rc = static_cast<int>(cudaFuncGetAttributes(&attr, suffix_kernel<HD, TKV, kPrefill>));
+  if (rc != 0) return rc;
+  int blocks = 0;
+  rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, suffix_kernel<HD, TKV, kPrefill>, kThreads, Cfg<HD, TKV, kPrefill>::bytes));
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(Cfg<HD, TKV, kPrefill>::bytes);
+  info[2] = blocks;
+  return rc;
 }
 
 template <int HD>
@@ -399,6 +771,16 @@ int by_kv(int kv_dtype, const Args& a) {
   }
 }
 
+template <int HD, bool kPrefill>
+int occupancy_by_kv(int kv_dtype, int* info) {
+  switch (kv_dtype) {
+    case 1: return occupancy<HD, bf16, kPrefill>(info);
+    case 2: return occupancy<HD, int8_t, kPrefill>(info);
+    case 3: return occupancy<HD, Fp8, kPrefill>(info);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // q [S, B, H, hd], k_suffix / v_suffix [S, B, KH, hd]: contiguous bf16.
@@ -406,24 +788,42 @@ int by_kv(int kv_dtype, const Args& a) {
 // 2 = int8, 3 = fp8-e4m3 (2 and 3 need the contiguous f32 scales
 // [L, KH, N, psz, 1]). prefix_lens [S] int32, page_table [S, pt_stride]
 // int32 (first wp columns used), suffix_mask [S, B, B] one byte each,
-// out [S, B, H, hd] bf16. Returns cudaGetLastError() after the launch, or -1
-// for an unsupported combination.
+// out [S, B, H, hd] bf16. n_splits > 1 needs the f32 scratch o_part
+// [n_splits, S, KH, B * H / KH, hd] and lse_part [n_splits, S, KH,
+// B * H / KH] and launches the merge after the splits. Returns
+// cudaGetLastError() after the launches, or -1 for an unsupported
+// combination.
 extern "C" int paged_suffix_attention(
     const void* q, const void* k_suffix, const void* v_suffix, const void* k_pages,
     const void* v_pages, const void* k_scales, const void* v_scales, const void* prefix_lens,
-    const void* page_table, const void* suffix_mask, void* out, int S, int B, int H, int KH,
-    int N, int psz, int hd, int wp, int pt_stride, int layer, int kv_dtype, void* stream) {
+    const void* page_table, const void* suffix_mask, void* out, void* o_part, void* lse_part,
+    int S, int B, int H, int KH, int N, int psz, int hd, int wp, int pt_stride, int layer,
+    int kv_dtype, int n_splits, void* stream) {
   if (KH <= 0 || H % KH != 0 || psz <= 0 || S < 0 || B < 0 || S > 65535 || KH > 65535) return -1;
   if ((kv_dtype >= 2) != (k_scales != nullptr && v_scales != nullptr)) return -1;
+  if (n_splits < 1 || (n_splits > 1 && (o_part == nullptr || lse_part == nullptr))) return -1;
   if (S == 0 || B == 0) return 0;
   Args a{q, k_suffix, v_suffix, k_pages, v_pages,
          static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
          static_cast<const int*>(prefix_lens), static_cast<const int*>(page_table),
-         static_cast<const uint8_t*>(suffix_mask), out,
-         S, B, H, KH, N, psz, wp, pt_stride, layer, static_cast<cudaStream_t>(stream)};
+         static_cast<const uint8_t*>(suffix_mask), out, static_cast<float*>(o_part),
+         static_cast<float*>(lse_part),
+         S, B, H, KH, N, psz, wp, pt_stride, layer, n_splits, static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 64: return by_kv<64>(kv_dtype, a);
     case 128: return by_kv<128>(kv_dtype, a);
+    default: return -1;
+  }
+}
+
+// The split kernel's resources for (hd, kv_dtype, prefill: the
+// configuration of cells of >= 128 rows, else verify's): info[0]
+// registers a thread, info[1] dynamic shared memory bytes, info[2] blocks
+// an SM holds.
+extern "C" int paged_suffix_attention_occupancy(int hd, int kv_dtype, int prefill, int* info) {
+  switch (hd) {
+    case 64: return prefill ? occupancy_by_kv<64, true>(kv_dtype, info) : occupancy_by_kv<64, false>(kv_dtype, info);
+    case 128: return prefill ? occupancy_by_kv<128, true>(kv_dtype, info) : occupancy_by_kv<128, false>(kv_dtype, info);
     default: return -1;
   }
 }

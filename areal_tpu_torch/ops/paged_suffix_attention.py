@@ -15,7 +15,15 @@ ancestor mask is speculative verify (``qwen.forward_verify_paged``).
 Dispatch is by the device of ``q``: a CPU tensor takes
 ``paged_suffix_attention_plain``; a CUDA tensor launches
 ``csrc/paged_suffix_attention.cu`` or raises. ``paged_suffix_attention.
-launches`` counts kernel launches per mask kind (``"chain"``, ``"tree"``).
+launches`` counts calls that launched the kernel, per mask kind
+(``"chain"``, ``"tree"``); ``paged_suffix_attention.splits`` is the last
+such call's split count.
+
+The kernel splits the prefix window across blocks (flash-decoding):
+``pick_splits`` chooses the count P from shapes alone, split p covers the
+window tiles of ``split_tiles``, and with P > 1 a merge combines the splits'
+normalised outputs by their log-sum-exp. ``_split_partials_plain`` and
+``merge_splits_plain`` are that arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -31,10 +39,61 @@ _NEG_INF = -1e30
 _KV_CODES = {torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 _HEAD_DIMS = (64, 128)
 KINDS = ("chain", "tree")
+TILE = 64  # the kernel's keys per tile (and query rows per block)
+MAX_SPLITS = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"paged_suffix_attention": ([_P] * 11 + [_I] * 11 + [_P], ctypes.c_int)}
+_SIGNATURES = {
+    "paged_suffix_attention": ([_P] * 13 + [_I] * 12 + [_P], ctypes.c_int),
+    "paged_suffix_attention_occupancy": ([_I, _I, _I, _P], ctypes.c_int),
+}
+_N_SM: dict[int, int] = {}  # device index -> multiprocessors
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pick_splits(S: int, KH: int, B: int, G: int, wp: int, psz: int, n_sm: int) -> int:
+    """Splits of the prefix window, from shapes alone (no device read):
+    enough blocks for two waves of ``n_sm`` multiprocessors, at most one
+    split per window tile and MAX_SPLITS, and no split left without a tile
+    of the window."""
+    blocks = S * KH * _cdiv(B * G, TILE)
+    tiles = _cdiv(wp * psz, TILE)
+    if blocks <= 0 or tiles <= 1:
+        return 1
+    want = min(_cdiv(2 * n_sm, blocks), tiles, MAX_SPLITS)
+    return _cdiv(tiles, _cdiv(tiles, want))
+
+
+def split_tiles(wp: int, psz: int, n_splits: int, split: int) -> tuple[int, int]:
+    """The window tiles [lo, hi) split ``split`` of ``n_splits`` covers (the
+    kernel's arithmetic); tile t holds window tokens [t * TILE, (t + 1) *
+    TILE). A split may cover none."""
+    tiles = _cdiv(wp * psz, TILE)
+    per = _cdiv(tiles, n_splits)
+    lo = min(split * per, tiles)
+    return lo, min(lo + per, tiles)
+
+
+def _gather_window(k_pages, v_pages, layer, page_indices, k_scales, v_scales):
+    """The window's pages of one layer as f32 [S, wp * psz, KH, hd] K and V,
+    int8 / fp8 values dequantized (x * scale / 127.5)."""
+    S, wp = page_indices.shape
+    KH, psz = k_pages.shape[1], k_pages.shape[3]
+    pt = page_indices.long()
+
+    def gather(pages):  # [KH, S, wp, psz, d] -> [S, W, KH, d]
+        g = pages[layer][:, pt].permute(1, 2, 3, 0, 4)
+        return g.reshape(S, wp * psz, KH, pages.shape[-1])
+
+    kp, vp = gather(k_pages).float(), gather(v_pages).float()
+    if k_scales is not None:
+        kp = kp * (gather(k_scales).float() / _MAX_INT8)
+        vp = vp * (gather(v_scales).float() / _MAX_INT8)
+    return kp, vp
 
 
 def paged_suffix_attention_plain(
@@ -55,20 +114,10 @@ def paged_suffix_attention_plain(
     prefix gated by the mask diagonal, zero output on rows with no valid
     bit, the result cast to q's dtype."""
     S, B, H, hd = q.shape
-    KH, psz = k_pages.shape[1], k_pages.shape[3]
+    KH = k_pages.shape[1]
     G = H // KH
-    wp = page_indices.shape[1]
-    W = wp * psz
-    pt = page_indices.long()
-
-    def gather(pages):  # [KH, S, wp, psz, d] -> [S, W, KH, d]
-        g = pages[layer][:, pt].permute(1, 2, 3, 0, 4)
-        return g.reshape(S, W, KH, pages.shape[-1])
-
-    kp, vp = gather(k_pages).float(), gather(v_pages).float()
-    if k_scales is not None:
-        kp = kp * (gather(k_scales).float() / _MAX_INT8)
-        vp = vp * (gather(v_scales).float() / _MAX_INT8)
+    kp, vp = _gather_window(k_pages, v_pages, layer, page_indices, k_scales, v_scales)
+    W = kp.shape[1]
     k_full = torch.cat([kp, k_suffix.float()], dim=1)  # [S, W + B, KH, hd]
     v_full = torch.cat([vp, v_suffix.float()], dim=1)
     ar = torch.arange(B, device=q.device)
@@ -84,6 +133,59 @@ def paged_suffix_attention_plain(
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     o = torch.einsum("skgbt,stkd->sbkgd", p / denom, v_full)
     return o.reshape(S, B, H, hd).to(q.dtype)
+
+
+def _split_partials_plain(
+    q, k_suffix, v_suffix, k_pages, v_pages, layer, prefix_lens, page_indices, suffix_mask,
+    k_scales=None, v_scales=None, *, n_splits: int, split: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One split's part of the kernel's work, in f32: its window tiles of
+    the prefix (``split_tiles``) and, for split 0, the suffix. Returns (O
+    [S, KH, B * G, hd] normalised by the split's own row sums, lse [S, KH,
+    B * G] natural-log log-sum-exp of the scaled logits), rows in the
+    kernel's order i * G + g; a row that sees no valid key here has lse =
+    -inf and O = 0."""
+    S, B, H, hd = q.shape
+    KH, psz = k_pages.shape[1], k_pages.shape[3]
+    G = H // KH
+    wp = page_indices.shape[1]
+    kp, vp = _gather_window(k_pages, v_pages, layer, page_indices, k_scales, v_scales)
+    W = kp.shape[1]
+    lo, hi = split_tiles(wp, psz, n_splits, split)
+    t = torch.arange(W, device=q.device)
+    in_split = (t >= lo * TILE) & (t < hi * TILE)
+    ar = torch.arange(B, device=q.device)
+    row_valid = suffix_mask[:, ar, ar]  # [S, B]: the diagonal gate
+    in_prefix = in_split[None, :] & (t[None, :] < prefix_lens[:, None])  # [S, W]
+    sfx = suffix_mask if split == 0 else torch.zeros_like(suffix_mask)
+    mask = torch.cat([row_valid[:, :, None] & in_prefix[:, None, :], sfx], dim=-1)  # [S, B, W + B]
+    k_full = torch.cat([kp, k_suffix.float()], dim=1)
+    v_full = torch.cat([vp, v_suffix.float()], dim=1)
+    qg = q.float().reshape(S, B, KH, G, hd)
+    logits = torch.einsum("sbkgd,stkd->skbgt", qg, k_full) * hd**-0.5
+    m5 = mask[:, None, :, None, :]  # [S, 1, B, 1, W + B]
+    logits = torch.where(m5, logits, -torch.inf)
+    lse = torch.logsumexp(logits, dim=-1)  # [S, KH, B, G]; -inf where nothing is valid
+    live = torch.isfinite(lse)
+    p = torch.where(m5 & live[..., None], torch.exp(logits - torch.where(live, lse, 0.0)[..., None]), 0.0)
+    o = torch.einsum("skbgt,stkd->skbgd", p, v_full)
+    return o.reshape(S, KH, B * G, hd), lse.reshape(S, KH, B * G)
+
+
+def merge_splits_plain(o_part: torch.Tensor, lse_part: torch.Tensor, B: int, G: int) -> torch.Tensor:
+    """The kernel's merge: P splits' normalised rows (o_part [P, S, KH, B *
+    G, hd], lse_part [P, S, KH, B * G]) weighted by exp(lse - max lse) ->
+    [S, B, KH * G, hd] f32. A split with lse = -inf is left out (its O is
+    not read); a row no split saw gets exact zeros. Rows are (slot, KV head,
+    i * G + g) and nothing here knows the mask."""
+    P, S, KH, BG, hd = o_part.shape
+    mx = lse_part.amax(dim=0)
+    live = torch.isfinite(lse_part)
+    w = torch.where(live, torch.exp(lse_part - torch.where(torch.isfinite(mx), mx, 0.0)), 0.0)
+    acc = (w[..., None] * torch.where(live[..., None], o_part.float(), 0.0)).sum(dim=0)
+    wsum = w.sum(dim=0)[..., None]
+    o = torch.where(wsum > 0, acc / torch.where(wsum > 0, wsum, 1.0), 0.0)
+    return o.reshape(S, KH, B, G, hd).permute(0, 2, 1, 3, 4).reshape(S, B, KH * G, hd)
 
 
 def paged_suffix_attention(
@@ -123,7 +225,13 @@ def paged_suffix_attention(
     )
     S, B, H, hd = q.shape
     _, KH, N, psz, _ = k_pages.shape
+    wp = page_indices.shape[1]
+    n_splits = pick_splits(S, KH, B, H // KH, wp, psz, _multiprocessors(q.device))
     out = torch.empty_like(q)
+    o_part = lse_part = None
+    if n_splits > 1:  # f32 scratch of the splits, merged by the kernel's second launch
+        o_part = torch.empty((n_splits, S, KH, B * (H // KH), hd), dtype=torch.float32, device=q.device)
+        lse_part = torch.empty((n_splits, S, KH, B * (H // KH)), dtype=torch.float32, device=q.device)
     lib = _build.load("paged_suffix_attention", _SIGNATURES)
     scaled = k_scales is not None
     rc = lib.paged_suffix_attention(
@@ -138,6 +246,8 @@ def paged_suffix_attention(
         page_indices.data_ptr(),
         suffix_mask.data_ptr(),
         out.data_ptr(),
+        o_part.data_ptr() if o_part is not None else None,
+        lse_part.data_ptr() if lse_part is not None else None,
         S,
         B,
         H,
@@ -145,19 +255,43 @@ def paged_suffix_attention(
         N,
         psz,
         hd,
-        page_indices.shape[1],
+        wp,
         page_indices.stride(0),
         int(layer),
         _KV_CODES[k_pages.dtype],
+        n_splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"paged_suffix_attention kernel launch failed (code {rc})")
     paged_suffix_attention.launches[kind] += 1
+    paged_suffix_attention.splits = n_splits
     return out
 
 
 paged_suffix_attention.launches = {k: 0 for k in KINDS}
+paged_suffix_attention.splits = 0
+
+
+def _multiprocessors(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _N_SM.get(idx)
+    if n is None:
+        n = _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def occupancy(hd: int, kv_dtype: torch.dtype, prefill: bool) -> dict[str, int]:
+    """The split kernel's registers a thread, dynamic shared memory and
+    blocks an SM holds, as the CUDA runtime reports them (needs a card), in
+    its prefill configuration (a (slot, KV head) cell of at least 128 rows)
+    or its verify one."""
+    lib = _build.load("paged_suffix_attention", _SIGNATURES)
+    info = (ctypes.c_int * 3)()
+    rc = lib.paged_suffix_attention_occupancy(hd, _KV_CODES[kv_dtype], int(prefill), info)
+    if rc != 0:
+        raise RuntimeError(f"paged_suffix_attention_occupancy failed (code {rc})")
+    return {"registers": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2]}
 
 
 def _check_cuda_args(

@@ -231,6 +231,34 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def time_cuda_graph(fn, iters: int = 20, reps: int = 5) -> float:
+    """Mean device ms per call: ``iters`` calls captured in one CUDA graph,
+    replayed ``reps`` times between CUDA events, so the host's time to
+    launch a call is not in the number (``time_cuda`` measures what an
+    eager caller waits, which for a short kernel is the host's)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (reps * iters)
+    del graph
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -693,6 +721,19 @@ def _suffix_excess(got, ref, mask) -> tuple[float, float, float]:
     return x, rms.item(), (g - r).abs().max().item()
 
 
+def _suffix_split_dropped(psa_mod, args, layer: int, x: dict, sc: dict, n_splits: int) -> torch.Tensor:
+    """A planted fault from the plain split twin: the kernel's P splits
+    merged with the last one that holds a finite log-sum-exp left out."""
+    parts = [psa_mod._split_partials_plain(*args, layer, x["plens"], x["pt"], x["mask"], sc["k_scales"],
+                                           sc["v_scales"], n_splits=n_splits, split=p) for p in range(n_splits)]
+    o_part = torch.stack([o for o, _ in parts])
+    lse_part = torch.stack([lse for _, lse in parts])
+    last = max(p for p in range(n_splits) if torch.isfinite(lse_part[p]).any())
+    lse_part[last] = -torch.inf
+    G = x["q"].shape[2] // x["ks"].shape[2]
+    return psa_mod.merge_splits_plain(o_part, lse_part, x["mask"].shape[1], G)
+
+
 def phase_kernel_suffix(n_layers: int | None = None) -> dict:
     """Kernel #3 against its plain version at each head config of HEADS
     (hd=128, psz=128, the config's stacked cache, layer 5): Qwen2.5-1.5B's
@@ -701,8 +742,11 @@ def phase_kernel_suffix(n_layers: int | None = None) -> dict:
     rows of 64..256 suffix tokens in a 256 bucket over a shared 1,024-token
     prefix, padded rows) and speculative verify (S=32, prefixes of 1..2048
     tokens, the ngram drafter's B=5 chains and the tree drafter's B=9
-    trees), each for bf16, int8 and fp8 pages. Two planted faults must fail
-    the check. ``n_layers`` overrides the cache depth (a CPU rehearsal)."""
+    trees), each for bf16, int8 and fp8 pages. Prints the split count P of
+    each shape (its first launch runs under sync-debug "error") and the
+    kernel's registers and blocks an SM. Three planted faults must fail the
+    check (the gate only where a row has no valid bit). ``n_layers``
+    overrides the cache depth (a CPU rehearsal)."""
     per: dict[str, dict] = {}
     for tag, (H, KH, L) in HEADS.items():
         res = _suffix_heads(H, KH, n_layers or L)
@@ -712,6 +756,7 @@ def phase_kernel_suffix(n_layers: int | None = None) -> dict:
 
 def _suffix_heads(H: int, KH: int, L: int) -> dict:
     from areal_tpu_torch.inference import paged_kv
+    from areal_tpu_torch.ops import paged_suffix_attention as psa_mod
     from areal_tpu_torch.ops.paged_suffix_attention import (
         paged_suffix_attention,
         paged_suffix_attention_plain,
@@ -735,6 +780,10 @@ def _suffix_heads(H: int, KH: int, L: int) -> dict:
             v8, v_s = paged_kv.quantize_kv(base_v, qd)
             cache = {"k": k8, "v": v8, "k_scale": k_s, "v_scale": v_s}
         sc = dict(k_scales=cache.get("k_scale"), v_scales=cache.get("v_scale"))
+        occ = {cfg: psa_mod.occupancy(hd, cache["k"].dtype, cfg == "prefill") for cfg in ("prefill", "verify")}
+        log(f"[kernel_suffix] {'' if H == 12 else f'H={H} KH={KH} '}{kv} pages: split kernel "
+            + "; ".join(f"{cfg} configuration {o['registers']} registers a thread, {o['smem_bytes']} B shared "
+                        f"memory, {o['blocks_per_sm']} blocks an SM" for cfg, o in occ.items()))
         for shape, kind in kinds.items():
             x = _suffix_inputs(shape, kv, cache, H=H, KH=KH)
             args = (x["q"], x["ks"], x["vs"], cache["k"], cache["v"])
@@ -745,7 +794,15 @@ def _suffix_heads(H: int, KH: int, L: int) -> dict:
                     x["mask"] if mask is None else mask, sc["k_scales"], sc["v_scales"])
 
             with torch.no_grad():
-                got = paged_suffix_attention(*args, li, x["plens"], x["pt"], x["mask"], kind=kind, **sc)
+                # the first launch of the shape under sync-debug "error": the
+                # split count and scratch come from shapes, no host sync
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = paged_suffix_attention(*args, li, x["plens"], x["pt"], x["mask"], kind=kind, **sc)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                splits = paged_suffix_attention.splits
                 ref = plain(li)
                 torch.cuda.synchronize()
                 share, rms, err = _suffix_excess(got, ref, x["mask"])
@@ -756,6 +813,7 @@ def _suffix_heads(H: int, KH: int, L: int) -> dict:
                 faults = {
                     "diagonal gate dropped": plain(li, mask=x["mask"] | eye),
                     "prefix one page short": plain(li, plens=(x["plens"] - psz).clamp(min=0)),
+                    "last non-empty split dropped": _suffix_split_dropped(psa_mod, args, li, x, sc, splits),
                 }
                 fault_x = {n: _suffix_excess(f, ref, x["mask"])[0] for n, f in faults.items()}
                 # the gate shows only where a row has no valid bit (padded prefill rows)
@@ -766,8 +824,12 @@ def _suffix_heads(H: int, KH: int, L: int) -> dict:
                         raise AssertionError(f"[kernel_suffix] H={H} {shape} {kv}: the check passes a planted fault ({n})")
                 del faults, ref, got
                 it = iter(range(10**9))
-                ms = time_cuda(lambda: paged_suffix_attention(
-                    *args, next(it) % L, x["plens"], x["pt"], x["mask"], kind=kind, **sc), iters=56)
+                kernel = lambda: paged_suffix_attention(  # noqa: E731
+                    *args, next(it) % L, x["plens"], x["pt"], x["mask"], kind=kind, **sc)
+                # device time (graph replay); the host loop beside it is what
+                # an eager caller waits for a call, launch overhead included
+                ms = time_cuda_graph(kernel)
+                host_ms = time_cuda(kernel, iters=56)
                 plain_ms = time_cuda(lambda: plain(next(it) % L), iters=5, warmup=1)
                 # yardstick the port never calls: one SDPA over the prefix
                 # already gathered (and dequantized) plus the suffix, with the
@@ -789,18 +851,22 @@ def _suffix_heads(H: int, KH: int, L: int) -> dict:
                 in_prefix = torch.arange(W, device="cuda")[None, :] < x["plens"][:, None]
                 full = torch.cat([x["mask"][:, ar, ar][:, :, None] & in_prefix[:, None, :], x["mask"]], dim=-1)
                 qt = x["q"].transpose(1, 2).contiguous()
-                lib_ms = time_cuda(lambda: sdpa(qt, *kvg[next(it) % len(kvg)], attn_mask=full[:, None], enable_gqa=True),
-                                   iters=20)
+                library = lambda: sdpa(qt, *kvg[next(it) % len(kvg)], attn_mask=full[:, None],  # noqa: E731
+                                       enable_gqa=True)
+                lib_ms = time_cuda_graph(library)
+                lib_host_ms = time_cuda(library, iters=20)
                 del kvg, full, qt
             bound_ms, bound_by, flops = _suffix_bound(x, kv)
             per[f"{shape}/{kv}"] = dict(max_abs_err=err, share=share, rms=rms, ms=ms, plain_ms=plain_ms,
-                                        library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                                        library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, splits=splits,
+                                        host_ms=host_ms, library_host_ms=lib_host_ms)
             dead = int((~x["mask"].any(-1)).sum())
-            log(f"[kernel_suffix] {'' if H == 12 else f'H={H} KH={KH} G={H // KH} '}{shape} {kv} pages: S={S} B={B} rows ({dead} with no valid bit), prefixes "
+            log(f"[kernel_suffix] {'' if H == 12 else f'H={H} KH={KH} G={H // KH} '}{shape} {kv} pages: S={S} B={B} rows ({dead} with no valid bit), P={splits} splits (no host sync), prefixes "
                 f"{int(x['plens'].min())}..{int(x['plens'].max())}; worst element {share:.3f} of the limit "
                 f"{SUFFIX_RTOL:.4g} |plain| + {SUFFIX_ATOL:.4g} rms(plain) (rms {rms:.4f}, max|diff| {err:.3e}); "
                 f"planted faults " + ", ".join(f"{n} {v:.2f}" for n, v in fault_x.items())
-                + f"; kernel={ms:.4f} ms plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms (gather excluded) "
+                + f"; kernel={ms:.4f} ms plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms (gather excluded; device "
+                f"time by graph replay; host loop: kernel {host_ms:.4f}, sdpa {lib_host_ms:.4f}) "
                 f"bound={bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP)")
         del cache, sc
     del base_k, base_v
@@ -3019,7 +3085,8 @@ def main(argv: list[str]) -> int:
         "bound_ms": w["bound_ms"],
         "bound_by": w["bound_by"],
         "library_ms": w["library_ms"],
-        "shapes": {k: {f: d[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+        "shapes": {k: {f: d[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                                         "splits", "host_ms", "library_host_ms")}
                    for k, d in suffix.items()},
     })
     # kernels #4-#6: launches of the train_tree phase; the times of the

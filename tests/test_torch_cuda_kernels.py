@@ -208,13 +208,16 @@ def test_flash_kernels_refuse_bad_arguments(cuda):
 from areal_tpu_torch.ops import paged_suffix_attention as psa  # noqa: E402
 
 
-def _suffix_case(dev, S, B, H, KH, hd, psz, wp, kv, kind, seed=0):
-    """Ragged prefixes (0, a partial page, full windows), shared pages, and
-    a chain mask with padded rows or random draft trees."""
+def _suffix_case(dev, S, B, H, KH, hd, psz, wp, kv, kind, seed=0, plens=None):
+    """Ragged prefixes (0, a partial page, full windows; or ``plens``),
+    shared pages, and a chain mask with padded rows or random draft trees."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_layers, N = 3, S * wp + 1
-    plens = torch.randint(0, wp * psz + 1, (S,), generator=g, dtype=torch.int32)
-    plens[: min(S, 3)] = torch.tensor([0, psz + 3, wp * psz], dtype=torch.int32)[: min(S, 3)]
+    if plens is None:
+        plens = torch.randint(0, wp * psz + 1, (S,), generator=g, dtype=torch.int32)
+        plens[: min(S, 3)] = torch.tensor([0, psz + 3, wp * psz], dtype=torch.int32)[: min(S, 3)]
+    else:
+        plens = torch.tensor(plens, dtype=torch.int32)
     perm = torch.randperm(N - 1, generator=g).to(torch.int32) + 1
     pt = torch.zeros((S, wp), dtype=torch.int32)
     for s in range(S):
@@ -290,6 +293,69 @@ def test_suffix_kernel_reads_a_column_slice_of_the_page_table(cuda):
     got = psa.paged_suffix_attention(q, ks, vs, k, v, 0, plens, wide[:, :4], mask, kind="tree")
     want = psa.paged_suffix_attention_plain(q, ks, vs, k, v, 0, plens, pt, mask)
     torch.cuda.synchronize()
+    _assert_flash_close(got, want, mask.any(-1))
+
+
+# split-KV: few blocks, so the wrapper splits the 2,048-token window. At
+# S = 6, B * G <= 64 that is 16 splits of 2 tiles of 64 tokens; the prefixes
+# end in a split's first tile (394: split 3 = tokens 384..511), inside its
+# second (484), on a split's boundary (512), at 0, 1 and the full window.
+# At G = 8, B = 9 (two row tiles) it is 6 splits of 6 tiles (384 tokens).
+SPLIT_PLENS = [394, 484, 512, 0, 2048, 1]
+SPLIT_CASES = {
+    # B, H, KH, hd, psz, wp, kv, kind, prefixes
+    "tree-B9-bf16": (9, 12, 2, 128, 128, 16, "bf16", "tree", SPLIT_PLENS),
+    "chain-B5-rows30-bf16": (5, 12, 2, 128, 128, 16, "bf16", "chain", SPLIT_PLENS),
+    "tree-B9-int8": (9, 12, 2, 128, 128, 16, "int8", "tree", SPLIT_PLENS),
+    "tree-B9-fp8": (9, 12, 2, 128, 128, 16, "fp8", "tree", SPLIT_PLENS),
+    "hd64-psz16-rows18": (9, 4, 2, 64, 16, 128, "bf16", "tree", SPLIT_PLENS),
+    "G8-two-row-tiles": (9, 32, 4, 128, 128, 16, "bf16", "chain", [394, 700, 768, 0, 2048, 1]),
+    # 150 and 140 rows: the kernel's prefill configuration (cells of >= 128 rows)
+    "rows150-prefill-config": (25, 12, 2, 128, 128, 16, "bf16", "chain", [300, 450, 512, 0, 2048, 1]),
+    "hd64-rows140-prefill-config": (70, 4, 2, 64, 16, 128, "bf16", "tree", [300, 450, 512, 0, 2048, 1]),
+    # B a multiple of 16: the mask read 16 bytes a thread
+    "chain-B128-prefill-16B-mask": (128, 12, 2, 128, 128, 16, "bf16", "chain", [1030, 1500, 1024, 0, 2048, 1]),
+    "tree-B16-16B-mask": (16, 12, 2, 128, 128, 16, "int8", "tree", [394, 500, 576, 0, 2048, 1]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_suffix_kernel_splits_match_plain(cuda, case):
+    B, H, KH, hd, psz, wp, kv, kind, lens = SPLIT_CASES[case]
+    S = len(lens)
+    (q, ks, vs, k, v, plens, pt, mask), sc = _suffix_case(
+        cuda, S, B, H, KH, hd, psz, wp, kv, kind, seed=3, plens=lens)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = psa.pick_splits(S, KH, B, H // KH, wp, psz, n_sm)
+    assert n > 1
+    spans = [(lo * psa.TILE, hi * psa.TILE) for lo, hi in (psa.split_tiles(wp, psz, n, p) for p in range(n))]
+    assert any(x == hi for x in lens for _, hi in spans[:-1])  # on an inner boundary
+    assert any(lo < x <= lo + psa.TILE for x in lens for lo, _ in spans[1:])  # in a split's first tile
+    assert any(lo + psa.TILE < x < hi for x in lens for lo, hi in spans)  # inside a later tile
+    before = dict(psa.paged_suffix_attention.launches)
+    got = psa.paged_suffix_attention(q, ks, vs, k, v, 1, plens, pt, mask, kind=kind, **sc)
+    again = psa.paged_suffix_attention(q, ks, vs, k, v, 1, plens, pt, mask, kind=kind, **sc)
+    want = psa.paged_suffix_attention_plain(q, ks, vs, k, v, 1, plens, pt, mask, sc.get("k_scales"), sc.get("v_scales"))
+    torch.cuda.synchronize()
+    assert psa.paged_suffix_attention.splits == n
+    assert psa.paged_suffix_attention.launches[kind] == before[kind] + 2  # one a call, whatever the splits
+    assert torch.equal(got, again)  # a fixed merge order: the same bits
+    live = mask.any(-1)
+    assert torch.count_nonzero(got[~live]) == 0
+    _assert_flash_close(got, want, live)
+
+
+@pytest.mark.cuda
+def test_suffix_kernel_splits_a_column_slice_of_the_page_table(cuda):
+    S, B, H, KH, hd, psz, wp = 6, 9, 12, 2, 128, 16, 64
+    (q, ks, vs, k, v, plens, pt, mask), _ = _suffix_case(cuda, S, B, H, KH, hd, psz, wp, "bf16", "tree", seed=4)
+    wide = torch.zeros((S, wp + 7), dtype=torch.int32, device=cuda)
+    wide[:, :wp] = pt
+    got = psa.paged_suffix_attention(q, ks, vs, k, v, 0, plens, wide[:, :wp], mask, kind="tree")
+    want = psa.paged_suffix_attention_plain(q, ks, vs, k, v, 0, plens, pt, mask)
+    torch.cuda.synchronize()
+    assert psa.paged_suffix_attention.splits > 1
     _assert_flash_close(got, want, mask.any(-1))
 
 

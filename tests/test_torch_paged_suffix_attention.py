@@ -215,3 +215,142 @@ def test_forward_verify_paged_matches_jax(kv):
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(tks.numpy(), np.asarray(jks), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(tvs.numpy(), np.asarray(jvs), atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# split-KV: the kernel's split partials and merge, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+# f32 on both sides; the splits' softmax is renormalised through exp(lse -
+# max lse), which moves the last bits of f32 (2^-24 ~ 6e-8 relative) a few
+# times over
+SPLIT_RTOL = 1e-6
+# 8 window tiles of psz * wp / TILE tokens: P = 3 leaves a ragged last split,
+# P = 7 leaves splits 4..6 with no tile of the window
+SPLIT_PSZ, SPLIT_WP = 16, 32
+SPLIT_PLENS = [0, 1, SPLIT_PSZ, 100, 300, SPLIT_PSZ * SPLIT_WP]
+
+
+def _split_case(kind, pages, seed=5):
+    from areal_tpu_torch.inference import paged_kv as tpk
+
+    rng = np.random.default_rng(seed)
+    S, B, H, KH, hd, psz, wp = len(SPLIT_PLENS), 7, 12, 2, 16, SPLIT_PSZ, SPLIT_WP
+    N = S * wp + 1
+    plens = np.array(SPLIT_PLENS, np.int32)
+    perm = rng.permutation(np.arange(1, N)).astype(np.int32)
+    pt = np.zeros((S, wp), np.int32)
+    for s in range(S):
+        need = -(-int(plens[s]) // psz)
+        pt[s, :need] = perm[s * wp : s * wp + need]
+    pt[3, 0] = pt[4, 0]  # a shared page
+    mask = _chain_mask(S, B, [B, B - 3, 1, 2, B, 4]) if kind == "chain" else _tree_mask(S, B, rng)
+    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    q, ks, vs = (t(rng.standard_normal(sh).astype(np.float32)) for sh in ((S, B, H, hd), (S, B, KH, hd), (S, B, KH, hd)))
+    kp, vp = (t(rng.standard_normal((L, KH, N, psz, hd)).astype(np.float32)) for _ in range(2))
+    sc = (None, None)
+    if pages == "bf16":
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    else:
+        qd = tpk.quant_dtype(pages)
+        (kp, k_s), (vp, v_s) = tpk.quantize_kv(kp, qd), tpk.quantize_kv(vp, qd)
+        sc = (k_s, v_s)
+    return (q, ks, vs, kp, vp, LAYER, t(plens), t(pt), t(mask), *sc), (B, H // KH)
+
+
+@pytest.mark.parametrize("pages", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("kind", ["chain", "tree"])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 7])
+def test_split_merge_matches_plain(n_splits, kind, pages):
+    args, (B, G) = _split_case(kind, pages)
+    parts = [psa._split_partials_plain(*args, n_splits=n_splits, split=p) for p in range(n_splits)]
+    o_part = torch.stack([o for o, _ in parts])
+    lse_part = torch.stack([lse for _, lse in parts])
+    got = psa.merge_splits_plain(o_part, lse_part, B, G)
+    want = psa.paged_suffix_attention_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    g, w = got.numpy(), want.numpy()
+    np.testing.assert_allclose(g, w, rtol=SPLIT_RTOL, atol=SPLIT_RTOL * np.abs(w).max())
+    mask = args[8].numpy()
+    dead = ~mask.any(-1)  # rows with no valid bit: exact zeros
+    assert dead.any() == (kind == "chain")
+    assert not g[dead].any()
+    plens, W = args[6].numpy(), SPLIT_PSZ * SPLIT_WP
+    for p, (o, lse) in enumerate(parts):
+        lo, hi = psa.split_tiles(SPLIT_WP, SPLIT_PSZ, n_splits, p)
+        # a split with no tile of a slot's prefix (and no suffix) sees nothing there
+        past = np.array([lo * psa.TILE >= min(n, W) for n in plens])
+        if p > 0:
+            assert torch.isneginf(lse[torch.from_numpy(past)]).all()
+            assert not o[torch.from_numpy(past)].any()
+        if n_splits == 7 and p >= 4:
+            assert lo == hi  # a split past the window
+        if p == n_splits - 1 > 0:
+            assert past.any()  # the case is covered: some slot's prefix ends before the last split
+
+
+def test_dropping_a_split_changes_the_result():
+    """The merge reads every split: dropping the last one with finite lse
+    moves the rows whose prefix reaches it."""
+    args, (B, G) = _split_case("tree", "bf16")
+    parts = [psa._split_partials_plain(*args, n_splits=3, split=p) for p in range(3)]
+    o_part = torch.stack([o for o, _ in parts])
+    lse_part = torch.stack([lse for _, lse in parts])
+    last = max(p for p in range(3) if torch.isfinite(lse_part[p]).any())
+    lse_part[last] = -torch.inf
+    got = psa.merge_splits_plain(o_part, lse_part, B, G)
+    want = psa.paged_suffix_attention_plain(*args)
+    assert (got - want).abs().max() > 1e-2
+
+
+# chip_smoke.py's kernel_suffix shapes: (S, KH, B, G, wp, psz)
+PICK_SHAPES = {
+    "warm-prefill-G6": (8, 2, 256, 6, 8, 128),
+    "warm-prefill-G8": (8, 4, 256, 8, 8, 128),
+    "verify-chain-G6": (32, 2, 5, 6, 16, 128),
+    "verify-tree-G6": (32, 2, 9, 6, 16, 128),
+    "verify-chain-G8": (32, 4, 5, 8, 16, 128),
+    "verify-tree-G8": (32, 4, 9, 8, 16, 128),
+}
+
+
+@pytest.mark.parametrize("shape", list(PICK_SHAPES))
+def test_pick_splits_from_shapes(shape):
+    S, KH, B, G, wp, psz = PICK_SHAPES[shape]
+    n = psa.pick_splits(S, KH, B, G, wp, psz, 132)  # an H100's 132 SMs
+    assert isinstance(n, int) and n == psa.pick_splits(S, KH, B, G, wp, psz, 132)
+    assert (n == 1) if shape.startswith("warm") else (1 < n <= psa.MAX_SPLITS)
+    # the splits cover the window's tiles once each, none of them empty
+    spans = [psa.split_tiles(wp, psz, n, p) for p in range(n)]
+    assert spans[0][0] == 0 and spans[-1][1] == -(-wp * psz // psa.TILE)
+    assert all(lo < hi for lo, hi in spans) and all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+def _wrapper_case():
+    S, B, H, KH, hd, psz, wp = 2, 3, 4, 2, 64, 16, 2
+    z = lambda *sh, dt=torch.bfloat16: torch.zeros(sh, dtype=dt)  # noqa: E731
+    return dict(q=z(S, B, H, hd), k_suffix=z(S, B, KH, hd), v_suffix=z(S, B, KH, hd),
+                k_pages=z(2, KH, 5, psz, hd), v_pages=z(2, KH, 5, psz, hd), layer=1,
+                prefix_lens=z(S, dt=torch.int32), page_indices=z(S, wp, dt=torch.int32),
+                suffix_mask=z(S, B, B, dt=torch.bool), k_scales=None, v_scales=None)
+
+
+BAD_ARGS = {
+    "f32 q": dict(q=torch.zeros(2, 3, 4, 64)),
+    "int64 prefix_lens": dict(prefix_lens=torch.zeros(2, dtype=torch.int64)),
+    "int mask": dict(suffix_mask=torch.zeros(2, 3, 3, dtype=torch.int32)),
+    "int8 pages without scales": dict(k_pages=torch.zeros(2, 2, 5, 16, 64, dtype=torch.int8),
+                                      v_pages=torch.zeros(2, 2, 5, 16, 64, dtype=torch.int8)),
+    "layer out of range": dict(layer=2),
+    "head_dim 32": dict(q=torch.zeros(2, 3, 4, 32, dtype=torch.bfloat16)),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_ARGS))
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    """The wrapper's checks run before any launch (the kernel reads raw
+    pointers); they are plain Python, so they hold here too."""
+    good = _wrapper_case()
+    psa._check_cuda_args(**good)  # the good case passes
+    with pytest.raises((TypeError, ValueError)):
+        psa._check_cuda_args(**{**good, **BAD_ARGS[bad]})
