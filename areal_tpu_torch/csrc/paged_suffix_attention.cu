@@ -53,10 +53,12 @@
 //     lives on the device); split 0 also takes the suffix. With P > 1 each
 //     split writes its O normalised by its own row sum, and its log-sum-exp
 //     (-inf for a row it saw no valid key of), to scratch; merge_kernel
-//     combines the splits in a fixed order, without atomics, and writes
-//     bf16 (a row every split saw empty gets exact zeros). P = 1 writes bf16
-//     directly. merge_kernel knows rows, not masks: (slot, KV head, i * G + g)
-//     -> out[slot, i, head], so a decode kernel (B = 1) can reuse it.
+//     (split_merge.cuh) combines the splits in a fixed order, without
+//     atomics, and writes bf16 (a row every split saw empty gets exact
+//     zeros). P = 1 writes bf16 directly. merge_kernel knows rows, not
+//     masks: (slot, KV head, i * G + g) -> out[slot, i, head], so decode
+//     (#1, paged_attention.cu, B = 1) shares it, and the fragment helpers
+//     of flash_mma.cuh.
 //   - the wrapper picks P from shapes alone: 1 at warm prefill, 5 at
 //     verify with G = 6, 3 / 2 with G = 8 (S = 32, a 2,048-token window).
 // Resources (sm_90a, nvcc 12.8, HD = 128, measured on an H100): prefill
@@ -82,31 +84,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+#include "split_merge.cuh"
+
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int kT = 64;        // query rows per block, keys per tile
-constexpr int kWarps = 4;     // warp w owns query rows 16w..16w+15
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 row padding (elements): 16 bytes
-constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kMaxSmem = 232448;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kDequant = 1.f / 127.5f;  // int8 / fp8: x * scale / 127.5
-
-// storage tag for the fp8 page type
-struct Fp8 { uint8_t bits; };
-
-__device__ __forceinline__ bf16 to_bf16(int8_t x) { return __float2bfloat16(static_cast<float>(x)); }
-__device__ __forceinline__ bf16 to_bf16(Fp8 x) {
-  __half_raw h = __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(x.bits), __NV_E4M3);
-  return __float2bfloat16(__half2float(__half(h)));
-}
-
-template <typename T> struct IsQuant { static constexpr bool value = true; };
-template <> struct IsQuant<bf16> { static constexpr bool value = false; };
 
 // The block's configuration, by regime. kPrefill: a (slot, KV head) cell
 // of at least 128 rows (a warm prefill) wants more blocks an SM (3 at 168
@@ -131,67 +112,6 @@ struct Cfg {
   static constexpr size_t scales = cvt + (quant ? 2 * tile : 0);
   static constexpr size_t bytes = scales + (quant ? sizeof(float) * 2 * stages * kT : 0);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; `valid` false reads nothing and
-// fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the SFU (flushes denormal results to 0; exp2(-inf) = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 8 one-byte page values -> 8 bf16
-template <typename T>
-__device__ __forceinline__ uint4 widen8(uint2 raw) {
-  const T* e = reinterpret_cast<const T*>(&raw);
-  uint4 out;
-  bf16* o = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = to_bf16(e[i]);
-  return out;
-}
 
 // Column-validity bits of one row for the suffix keys j0 .. j0 + 63 this
 // thread holds (bit 2 j + e: key j0 + 8 j + 2 tq + e).
@@ -657,46 +577,6 @@ __global__ void __launch_bounds__(kThreads, (Cfg<HD, TKV, kPrefill>::min_blocks)
       if (tq == 0) lse_part[prow] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
     }
   }
-}
-
-// Merge P splits of rows (slot, KV head, i * G + g) into bf16
-// out[slot, i, KV head * G + g]: weights exp(lse_p - max lse), in split
-// order, no atomics. A split with lse = -inf is skipped (its O is never
-// read); a row with no finite lse gets exact zeros. HD / 4 threads a row.
-template <int HD>
-__global__ void __launch_bounds__(kThreads) merge_kernel(
-    const float* __restrict__ o_part,    // [P, rows, HD]
-    const float* __restrict__ lse_part,  // [P, rows]
-    bf16* __restrict__ out, int rows, int B, int G, int KH, int n_splits) {
-  constexpr int kLanes = HD / 4;
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = gid / kLanes, d = (gid % kLanes) * 4;
-  if (r >= rows) return;
-  const int BG = B * G;
-  const int rho = r % BG, sk = r / BG;
-  const int kh = sk % KH, s = sk / KH;
-  const int i = rho / G, g = rho % G;
-  float mx = -INFINITY;
-  for (int p = 0; p < n_splits; ++p) mx = fmaxf(mx, lse_part[(size_t)p * rows + r]);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  float wsum = 0.f;
-  if (mx > -INFINITY) {
-    for (int p = 0; p < n_splits; ++p) {
-      const float lp = lse_part[(size_t)p * rows + r];
-      if (!(lp > -INFINITY)) continue;
-      const float w = __expf(lp - mx);
-      const float4 v = *reinterpret_cast<const float4*>(o_part + ((size_t)p * rows + r) * HD + d);
-      wsum += w;
-      acc.x += w * v.x;
-      acc.y += w * v.y;
-      acc.z += w * v.z;
-      acc.w += w * v.w;
-    }
-  }
-  const float inv = wsum > 0.f ? 1.f / wsum : 0.f;
-  bf16* orow = out + (((size_t)s * B + i) * (KH * G) + (size_t)kh * G + g) * HD + d;
-  reinterpret_cast<__nv_bfloat162*>(orow)[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
-  reinterpret_cast<__nv_bfloat162*>(orow)[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
 }
 
 struct Args {

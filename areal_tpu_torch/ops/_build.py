@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers:
 that keeps a build to seconds). A library is built at first use and rebuilt
-when its source or the flags change: the file name carries a hash of both.
+when its source, a shared ``csrc/*.cuh`` header or the flags change: the
+file name carries a hash of them.
 Outputs go to ``areal_tpu_torch/_build/`` (git-ignored). ``build`` starts
 one ``nvcc`` per missing library, all at once.
 """
@@ -57,6 +58,9 @@ def _target(name: str) -> tuple[Path, Path]:
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include a shared header
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

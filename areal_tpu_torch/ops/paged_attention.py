@@ -11,7 +11,17 @@ copies nothing.
 
 Dispatch is by the device of ``q``: a CPU tensor takes
 ``paged_attention_plain``; a CUDA tensor launches ``csrc/paged_attention.cu``
-or raises. ``paged_attention_stacked.launches`` counts kernel launches.
+or raises. ``paged_attention_stacked.launches`` counts calls that launched
+the kernel; ``paged_attention_stacked.splits`` is the last such call's
+split count.
+
+For bf16 q over bf16, int8 or fp8 pages the kernel splits the window across
+blocks (flash-decoding): #3's ``pick_splits`` at one query row a slot
+chooses the count P from shapes alone, split p covers the window tiles of
+``split_tiles``, and with P > 1 #3's merge combines the splits'
+normalised outputs by their log-sum-exp. ``decode_split_partials_plain``
+is one split's arithmetic in plain PyTorch, ``merge_splits_plain`` (at
+B = 1) the merge's.
 """
 
 from __future__ import annotations
@@ -22,20 +32,19 @@ import torch
 
 from areal_tpu_torch.inference.paged_kv import dequantize_kv
 from areal_tpu_torch.ops import _build
+from areal_tpu_torch.ops.paged_suffix_attention import TILE, _multiprocessors, pick_splits, split_tiles
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 _MAX_GROUP = 8  # kMaxG in the kernel
-_ROWS = 4  # kRows in the kernel: rows per step, which page_size must divide into
+_ROWS = 4  # page_size must be a multiple of 4 (the CUDA-core kernel reads 4 rows a step)
 _HEAD_DIMS = (64, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "paged_attention_decode": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        ctypes.c_int,
-    )
+    "paged_attention_decode": ([_P] * 8 + [_I] * 11 + [_P] * 3, ctypes.c_int),
+    "paged_attention_occupancy": ([_I, _I, _P], ctypes.c_int),
 }
 
 
@@ -75,6 +84,50 @@ def paged_attention_plain(
     return torch.einsum("skgt,stkd->skgd", probs, vv).reshape(S, H, hd)
 
 
+def decode_split_partials_plain(
+    q: torch.Tensor,  # [S, H, hd]
+    k_pages: torch.Tensor,  # [KH, N, psz, hd] (one layer)
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,  # [S]
+    page_table: torch.Tensor,  # [S, wp]
+    k_scales: torch.Tensor | None = None,  # [KH, N, psz, 1]
+    v_scales: torch.Tensor | None = None,
+    *,
+    n_splits: int,
+    split: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One split's part of the kernel's work, in f32: the window tokens of
+    ``split_tiles(wp, psz, n_splits, split)`` below each slot's length.
+    Returns (O [S, KH, G, hd] normalised by the split's own row sums, lse
+    [S, KH, G] natural-log log-sum-exp of the scaled logits), rows in the
+    kernel's order (slot, KV head, g); a slot with no token here has lse =
+    -inf and O = 0. ``merge_splits_plain(o, lse, 1, G)`` over the P splits
+    is ``paged_attention_plain`` (exact zeros where the length is 0)."""
+    S, H, hd = q.shape
+    KH, _, psz, _ = k_pages.shape
+    G = H // KH
+    wp = page_table.shape[1]
+    W = wp * psz
+    pt = page_table.long()
+
+    def gather(pages):  # [KH, S, wp, psz, d] -> [S, W, KH, d]
+        return pages[:, pt].permute(1, 2, 3, 0, 4).reshape(S, W, KH, pages.shape[-1])
+
+    kk, vv = gather(k_pages).float(), gather(v_pages).float()
+    if k_scales is not None:
+        kk = dequantize_kv(kk, gather(k_scales), torch.float32)
+        vv = dequantize_kv(vv, gather(v_scales), torch.float32)
+    lo, hi = split_tiles(wp, psz, n_splits, split)
+    t = torch.arange(W, device=q.device)
+    valid = (t >= lo * TILE) & (t < hi * TILE) & (t[None, :] < lengths[:, None])  # [S, W]
+    logits = torch.einsum("skgd,stkd->skgt", q.float().reshape(S, KH, G, hd), kk) * hd**-0.5
+    logits = torch.where(valid[:, None, None, :], logits, -torch.inf)
+    lse = torch.logsumexp(logits, dim=-1)  # [S, KH, G]; -inf where nothing is valid
+    live = torch.isfinite(lse)
+    p = torch.where(live[..., None], torch.exp(logits - torch.where(live, lse, 0.0)[..., None]), 0.0)
+    return torch.einsum("skgt,stkd->skgd", p, vv), lse
+
+
 def paged_attention_stacked(
     q: torch.Tensor,  # [S, H, hd] raw (unscaled)
     k_pages: torch.Tensor,  # [n_layers, KH, N, psz, hd]
@@ -106,7 +159,15 @@ def paged_attention_stacked(
     _check_cuda_args(q, k_pages, v_pages, lengths, page_table, k_scales, v_scales)
     S, H, hd = q.shape
     _, KH, N, psz, _ = k_pages.shape
+    wp = page_table.shape[1]
     out = torch.empty_like(q)
+    n_splits = 1  # f32 q or pages: the CUDA-core kernel, one block a (slot, KV head)
+    o_part = lse_part = None
+    if q.dtype == torch.bfloat16 and k_pages.dtype != torch.float32:
+        n_splits = pick_splits(S, KH, 1, H // KH, wp, psz, _multiprocessors(q.device))  # one row a slot
+        if n_splits > 1:  # f32 scratch of the splits, merged by the kernel's second launch
+            o_part = torch.empty((n_splits, S, KH, H // KH, hd), dtype=torch.float32, device=q.device)
+            lse_part = torch.empty((n_splits, S, KH, H // KH), dtype=torch.float32, device=q.device)
     lib = _build.load("paged_attention", _SIGNATURES)
     scaled = k_scales is not None
     rc = lib.paged_attention_decode(
@@ -124,19 +185,36 @@ def paged_attention_stacked(
         N,
         psz,
         hd,
-        page_table.shape[1],
+        wp,
         page_table.stride(0),
         _Q_CODES[q.dtype],
         _KV_CODES[k_pages.dtype],
+        n_splits,
+        o_part.data_ptr() if o_part is not None else None,
+        lse_part.data_ptr() if lse_part is not None else None,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
     paged_attention_stacked.launches += 1
+    paged_attention_stacked.splits = n_splits
     return out
 
 
 paged_attention_stacked.launches = 0
+paged_attention_stacked.splits = 0
+
+
+def occupancy(hd: int, kv_dtype: torch.dtype) -> dict[str, int]:
+    """The tensor-core kernel's registers a thread, dynamic shared memory
+    and blocks an SM holds for bf16 q over ``kv_dtype`` pages (bf16, int8,
+    fp8), as the CUDA runtime reports them (needs a card)."""
+    lib = _build.load("paged_attention", _SIGNATURES)
+    info = (ctypes.c_int * 3)()
+    rc = lib.paged_attention_occupancy(hd, _KV_CODES[kv_dtype], info)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_occupancy failed (code {rc})")
+    return {"registers": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2]}
 
 
 def _check_cuda_args(q, k_pages, v_pages, lengths, page_table, k_scales, v_scales):

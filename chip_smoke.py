@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                      # every phase, the result lines
     python3 chip_smoke.py --only spec,serve    # some phases, no result lines
+    python3 chip_smoke.py --decode-times DIR   # kernel #1 of DIR's areal_tpu_torch
+                                               # timed at the kernel phase's shapes
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -14,8 +16,12 @@ no result line:
               PyTorch twin at the serving shapes of Qwen2.5-1.5B (H=12, KH=2,
               hd=128, psz=128, S=32, 28-layer stacked cache, layer 5) and
               of Qwen3-30B-A3B (H=32, KH=4: G=8, 48 layers), ragged lengths
-              and shared pages, for bf16, int8 and fp8 pages; kernel /
-              plain / SDPA-yardstick times and the bound.
+              and shared pages, for bf16, int8 and fp8 pages: the largest
+              difference, the element-wise check against f32 with two
+              planted faults, the split count (first launch under sync-debug
+              "error"), registers and blocks an SM; kernel / plain /
+              SDPA-yardstick times (graph replay, host loop beside) and the
+              bound.
 4. kernel_flash — the flash-attention kernels K2 (forward), K3 (dK, dV)
               and K4 (dQ) against their plain PyTorch versions at the
               trainer's shapes (packed [G, 1024] grids of the train phase's
@@ -115,6 +121,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -264,12 +271,12 @@ def time_cuda_graph(fn, iters: int = 20, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_build() -> None:
+def phase_build(names: list[str] | None = None) -> None:
     from areal_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    _build.build()
-    log(f"[build] {_build.sources()} built in {time.monotonic() - t0:.1f}s")
+    _build.build(names)
+    log(f"[build] {names or _build.sources()} built in {time.monotonic() - t0:.1f}s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -337,15 +344,60 @@ def _bound(kv: str, lengths: np.ndarray, S: int, H: int, KH: int, hd: int, psz: 
 def phase_kernel() -> dict:
     """Kernel #1 against its plain version at each head config of HEADS:
     Qwen2.5-1.5B's (keys "bf16", "int8", "fp8") and Qwen3-30B-A3B's G = 8
-    (keys "qwen3-30b-a3b/<kv>")."""
+    (keys "qwen3-30b-a3b/<kv>"). Each shape: the largest difference from the
+    plain version (KERNEL_TOL) and the element-wise check against it in f32
+    (#3's rule), two planted faults that must fail that check, the split
+    count P (the first launch under sync-debug "error"), the kernel's
+    registers and blocks an SM, and kernel / plain / SDPA times with the
+    bound (``_decode_timings``)."""
     per: dict[str, dict] = {}
     for tag, heads in HEADS.items():
         per.update(_kernel_heads(tag, heads))
     return per
 
 
+def _decode_timings(q, k, v, lengths, pt, sc: dict) -> dict:
+    """Kernel #1 and its SDPA yardstick on one shape: device ms by CUDA-graph
+    replay (``ms``, ``library_ms``) and the host loop beside them (what an
+    eager caller waits, launch included). Timed launches cycle over the
+    stacked cache's layers, so each call finds its pages cold in the 50 MB
+    L2 as a decode step does. Uses only ``paged_attention_stacked``, so it
+    times any tree's kernel (``--decode-times``)."""
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+
+    ks, vs = sc.get("k_scales"), sc.get("v_scales")
+    S, H, hd = q.shape
+    nl, KH, psz, wp = k.shape[0], k.shape[1], k.shape[3], pt.shape[1]
+    it = iter(range(10**9))
+    kernel = lambda: paged_attention_stacked(q, k, v, next(it) % nl, lengths, pt, **sc)  # noqa: E731
+    res = dict(ms=time_cuda_graph(kernel), host_ms=time_cuda(kernel, iters=56))
+    # yardstick: one SDPA call over the window already gathered (and
+    # dequantized) — the port never calls it; the gather is outside the
+    # timed calls, 4 layers' windows (> 50 MB together) cycled like the kernel's
+    W = wp * psz
+    ptl = pt.long()
+
+    def gathered(pages, scales, j):
+        gth = pages[j][:, ptl].reshape(KH, S, W, hd).permute(1, 0, 2, 3)
+        if scales is None:
+            return gth.contiguous()
+        s_ = scales[j][:, ptl].reshape(KH, S, W, 1).permute(1, 0, 2, 3)
+        return (gth.float() * (s_ / 127.5)).to(torch.bfloat16).contiguous()
+
+    kvg = [(gathered(k, ks, j), gathered(v, vs, j)) for j in range(4)]
+    mask = (torch.arange(W, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
+    qs = q[:, :, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qs, *kvg[next(it) % 4], attn_mask=mask, enable_gqa=True)
+    res.update(library_ms=time_cuda_graph(sdpa), library_host_ms=time_cuda(sdpa))
+    del kvg
+    return res
+
+
 def _kernel_heads(tag: str, heads: tuple) -> dict:
+    from areal_tpu_torch.ops import paged_attention as pa_mod
     from areal_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import merge_splits_plain
 
     li = 5
     first = tag == "qwen2.5-1.5b"
@@ -355,23 +407,57 @@ def _kernel_heads(tag: str, heads: tuple) -> dict:
         ks, vs = sc.get("k_scales"), sc.get("v_scales")
         S, H, hd = q.shape
         KH, psz, wp = k.shape[1], k.shape[3], pt.shape[1]
+        G = H // KH
+        occ = pa_mod.occupancy(hd, k.dtype)
         with torch.no_grad():
-            out = paged_attention_stacked(q, k, v, li, lengths, pt, **sc)
+            # the first launch of the shape under sync-debug "error": the
+            # split count and scratch come from shapes, no host sync
             torch.cuda.synchronize()
-            ref = paged_attention_plain(
-                q, k[li], v[li], lengths, pt,
-                ks[li] if ks is not None else None, vs[li] if vs is not None else None,
-            )
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = paged_attention_stacked(q, k, v, li, lengths, pt, **sc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            splits = paged_attention_stacked.splits
+            torch.cuda.synchronize()
+            kl, vl = k[li], v[li]
+            scl = (ks[li], vs[li]) if ks is not None else (None, None)
+            ref = paged_attention_plain(q, kl, vl, lengths, pt, *scl)
             err = (out.float() - ref.float()).abs().max().item()
             if not math.isfinite(err) or err > KERNEL_TOL:
                 raise AssertionError(f"[kernel] {tag} {kv}: max|kernel - plain| = {err} > {KERNEL_TOL}")
-            # timed launches cycle over every layer, so each call finds its
-            # pages cold in the 50 MB L2 as a decode step does
-            nl = k.shape[0]
+            # element by element against the plain version in f32 (#3's
+            # rule): f32 q, bf16 pages' values in f32, every sum in f32
+            kf, vf = (kl.float(), vl.float()) if kv == "bf16" else (kl, vl)
+            ref32 = paged_attention_plain(q.float(), kf, vf, lengths, pt, *scl)
+            live = (lengths > 0)[:, None, None]
+
+            def excess(x):
+                return _suffix_excess(x[:, None], ref32[:, None], live)
+
+            share, rms, err32 = excess(out)
+            if not share <= 1.0:
+                raise AssertionError(f"[kernel] {tag} {kv}: off its f32 plain version by {share:.3f} x the limit "
+                                     f"(rms {rms:.4f}, max|diff| {err32:.3e})")
+            # planted faults: the last split that holds a token left out of
+            # the merge (from the plain split twin), and the V scale left out
+            parts = [pa_mod.decode_split_partials_plain(q.float(), kf, vf, lengths, pt, *scl,
+                                                        n_splits=splits, split=p) for p in range(splits)]
+            o_part, lse_part = torch.stack([o for o, _ in parts]), torch.stack([x for _, x in parts])
+            last = max(p for p in range(splits) if torch.isfinite(lse_part[p]).any())
+            lse_part[last] = -torch.inf
+            faults = {"last non-empty split dropped": merge_splits_plain(o_part, lse_part, 1, G).reshape(S, H, hd)}
+            if kv != "bf16":
+                faults["V scale left out"] = paged_attention_plain(q.float(), kf, vf, lengths, pt, scl[0],
+                                                                   torch.ones_like(scl[1]))
+            fault_x = {n: excess(f)[0] for n, f in faults.items()}
+            for n, fx in fault_x.items():
+                if not fx > 1.0:
+                    raise AssertionError(f"[kernel] {tag} {kv}: the check passes a planted fault ({n})")
+            del parts, o_part, lse_part, faults, ref32, kf, vf
+            t = _decode_timings(q, k, v, lengths, pt, sc)
             it = iter(range(10**9))
-            ms = time_cuda(
-                lambda: paged_attention_stacked(q, k, v, next(it) % nl, lengths, pt, **sc), iters=56
-            )
+            nl = k.shape[0]
 
             def plain_call():
                 j = next(it) % nl
@@ -381,52 +467,45 @@ def _kernel_heads(tag: str, heads: tuple) -> dict:
                 )
 
             plain_ms = time_cuda(plain_call, iters=10)
-            # yardstick: one SDPA call over the window already gathered
-            # (and dequantized) — the port never calls it
-            W = wp * psz
-            ptl = pt.long()
-
-            def gathered(pages, scales, j):
-                gth = pages[j][:, ptl].reshape(KH, S, W, hd).permute(1, 0, 2, 3)
-                if scales is None:
-                    return gth.contiguous()
-                s_ = scales[j][:, ptl].reshape(KH, S, W, 1).permute(1, 0, 2, 3)
-                return (gth.float() * (s_ / 127.5)).to(torch.bfloat16).contiguous()
-
-            # 4 layers' windows (> 50 MB together), cycled like the kernel's
-            kvg = [(gathered(k, ks, j), gathered(v, vs, j)) for j in range(4)]
-            mask = (torch.arange(W, device="cuda")[None, :] < lengths[:, None].long())[:, None, None, :]
-            qs = q[:, :, None, :]
-
-            def sdpa_call():
-                kg, vg = kvg[next(it) % 4]
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qs, kg, vg, attn_mask=mask, enable_gqa=True
-                )
-
-            lib_ms = time_cuda(sdpa_call)
-            del kvg
             if kv == "bf16" and first:
                 # uniform lengths: per-step slope vs the floor of a launch
                 for n in (128, 512, 2048):
                     un = torch.full_like(lengths, n)
-                    t = time_cuda(
-                        lambda: paged_attention_stacked(q, k, v, next(it) % nl, un, pt), iters=56
-                    )
-                    log(f"[kernel] bf16 pages, every slot at {n} rows: kernel={t:.4f} ms "
+                    tu = time_cuda_graph(lambda: paged_attention_stacked(q, k, v, next(it) % nl, un, pt))
+                    log(f"[kernel] bf16 pages, every slot at {n} rows: kernel={tu:.4f} ms (graph replay) "
                         f"bound={_bound(kv, un.cpu().numpy(), S, H, KH, hd, psz, wp)[0]:.4f} ms")
         bound_ms, bound_by = _bound(kv, lengths.cpu().numpy(), S, H, KH, hd, psz, wp)
-        per[kv if first else f"{tag}/{kv}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                                   bound_ms=bound_ms, bound_by=bound_by)
+        per[kv if first else f"{tag}/{kv}"] = dict(max_abs_err=err, share=share, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                   bound_by=bound_by, splits=splits, occupancy=occ, **t)
         log(
-            f"[kernel] {'' if first else f'{tag} (H={H}, KH={KH}, G={H // KH}, {k.shape[0]} layers) '}"
-            f"{kv} pages: max_abs_err={err:.3e} (tol {KERNEL_TOL}) "
-            f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms "
+            f"[kernel] {'' if first else f'{tag} (H={H}, KH={KH}, G={G}, {k.shape[0]} layers) '}"
+            f"{kv} pages: P={splits} splits (no host sync); {occ['registers']} registers a thread, "
+            f"{occ['smem_bytes']} B shared memory, {occ['blocks_per_sm']} blocks an SM; "
+            f"max_abs_err={err:.3e} (tol {KERNEL_TOL}); worst element {share:.3f} of the limit "
+            f"{SUFFIX_RTOL:.4g} |plain| + {SUFFIX_ATOL:.4g} rms(plain) against f32 (rms {rms:.4f}); planted faults "
+            + ", ".join(f"{n} {x:.2f}" for n, x in fault_x.items())
+            + f"; kernel={t['ms']:.4f} ms plain={plain_ms:.4f} ms sdpa={t['library_ms']:.4f} ms (device time by "
+            f"graph replay; host loop: kernel {t['host_ms']:.4f}, sdpa {t['library_host_ms']:.4f}) "
             f"bound={bound_ms:.4f} ms ({bound_by}) sum(len)={int(lengths.sum())}"
         )
         del q, k, v, sc, ks, vs, out, ref
         torch.cuda.empty_cache()
     return per
+
+
+def decode_times() -> None:
+    """``--decode-times DIR``: kernel #1 of the ``areal_tpu_torch`` under DIR
+    (a tree unpacked with ``git archive``, say a parent commit's) timed by
+    ``_decode_timings`` at the kernel phase's six shapes, one JSON line a
+    shape, so two trees' kernels compare by graph replay in one call."""
+    for tag, heads in HEADS.items():
+        for kv in ("bf16", "int8", "fp8"):
+            q, k, v, lengths, pt, sc = _kernel_inputs(kv, heads=heads)
+            with torch.no_grad():
+                t = _decode_timings(q, k, v, lengths, pt, sc)
+            print(json.dumps({"decode_times": f"{tag}/{kv}", **t}), flush=True)
+            del q, k, v, sc
+            torch.cuda.empty_cache()
 
 
 def _train_prompt_lengths(seed: int = 0) -> list[int]:
@@ -1278,10 +1357,18 @@ def phase_serve(card: str) -> tuple[int, dict]:
             raise AssertionError("[serve] no in-flight sequence spans the update")
         log(f"[serve] weight update v0->v1 mid-generation: {split}/8 sequences carry 0..0,1..1")
         del model2
-        _profile(lambda: _wave(srv.address, [body(p, i) for i, p in enumerate(prompts)]), "wave", card)
+        _decode_share(_profile(lambda: _wave(srv.address, [body(p, i) for i, p in enumerate(prompts)]), "wave", card))
     finally:
         srv.stop()
     return launches, metrics
+
+
+def _decode_share(prof: dict) -> None:
+    """Log kernel #1's device time in a profiled wave: its split kernel and
+    the merge of its splits (a cold wave launches no other split merge: #3
+    runs only on radix hits, where its warm prefill does not split)."""
+    us = sum(t for name, t in prof["by_name"].items() if "decode_kernel" in name or "merge_kernel" in name)
+    log(f"[profile]   kernel #1 (decode + split merge) {us / 1e3:.2f} ms, {us / prof['busy_us']:.1%} of busy")
 
 
 def _warm_wave(srv, engine, model, mcfg, n_new: int, body, card: str) -> dict:
@@ -2424,6 +2511,7 @@ def phase_serve_moe(card: str) -> dict:
         gmm_us = sum(us for name, us in prof["by_name"].items() if "gmm_kernel" in name)
         out.update(busy=prof["busy"], gmm_share=gmm_us / prof["busy_us"])
         log(f"[profile]   gmm kernels {gmm_us / 1e3:.2f} ms, {out['gmm_share']:.1%} of busy")
+        _decode_share(prof)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         log(f"[serve_moe] {card}: peak torch.cuda.max_memory_allocated {out['peak_gib']:.2f} GiB")
     finally:
@@ -2984,14 +3072,17 @@ PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spe
 
 
 def main(argv: list[str]) -> int:
-    only = None
+    only = decode_dir = None
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
         if set(only) - set(PHASES):
             print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
             return 2
+    elif argv[:1] == ["--decode-times"] and len(argv) == 2:
+        decode_dir = os.path.abspath(argv[1])
+        sys.path.insert(0, decode_dir)  # that tree's areal_tpu_torch, not this one's
     elif argv:
-        print("usage: chip_smoke.py [--only phase,phase,...]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3006,6 +3097,12 @@ def main(argv: list[str]) -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.monotonic()
+    if decode_dir is not None:
+        log(f"[decode_times] kernel #1 of {os.path.dirname(areal_tpu_torch.__file__)}")
+        phase_build(["paged_attention"])
+        decode_times()
+        log(f"[done] decode times in {time.monotonic() - t0:.1f}s on {card} (no result)")
+        return 0
     phase_build()
     runs = {
         "kernel": phase_kernel,
@@ -3032,6 +3129,8 @@ def main(argv: list[str]) -> int:
         return 0
     per, flash, suffix, train = res["kernel"], res["kernel_flash"], res["kernel_suffix"], res["train"]
     launches, serve = res["serve"]
+    # kernel #1: launches of the serve phase; the times (graph replay) of
+    # Qwen2.5-1.5B's heads with bf16 pages, the other shapes beside them
     b = per["bf16"]
     kernels = [
         {
@@ -3046,6 +3145,9 @@ def main(argv: list[str]) -> int:
             "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
             "library_ms": b["library_ms"],
+            "shapes": {k: {f: d[f] for f in ("ms", "host_ms", "library_ms", "library_host_ms", "bound_ms", "splits",
+                                             "max_abs_err")}
+                       for k, d in per.items()},
         }
     ]
     replaces = {

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from areal_tpu_torch.inference import paged_kv
+from areal_tpu_torch.ops import paged_attention as pa
+from areal_tpu_torch.ops import paged_suffix_attention as psa
 from areal_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_stacked
 
 # the plain version rounds logits and probabilities to bf16 (as its JAX twin
@@ -102,6 +104,105 @@ def test_kernel_refuses_bad_arguments(cuda):
     q2, k2, v2, l2, pt2, _ = _case(cuda, 4, 12, 2, 128, 10, 2, torch.bfloat16, None)
     with pytest.raises(ValueError, match="multiple of 4"):
         paged_attention_stacked(q2, k2, v2, 0, l2, pt2)
+
+
+# split-KV of the tensor-core kernel (bf16 q over bf16 / int8 / fp8 pages):
+# few slots, so the wrapper splits the 2,048-token window. At S = 6 and G = 6
+# that is 16 splits of 2 tiles of 64 tokens; the lengths end in a split's
+# first tile (394: split 3 = tokens 384..511), inside its second (484), on a
+# split's boundary (512), at 0, 1 and the window's end.
+DECODE_SPLIT_CASES = {
+    # H, KH, hd, psz, wp, kv, lengths
+    "G6-bf16": (12, 2, 128, 128, 16, "bf16", [394, 484, 512, 0, 2048, 1]),
+    "G6-int8": (12, 2, 128, 128, 16, "int8", [394, 484, 512, 0, 2048, 1]),
+    "G6-fp8": (12, 2, 128, 128, 16, "fp8", [394, 484, 512, 0, 2048, 1]),
+    # 11 splits of 3 tiles (192 tokens)
+    "G8-bf16": (32, 4, 128, 128, 16, "bf16", [394, 700, 768, 0, 2048, 1]),
+    "G8-int8": (32, 4, 128, 128, 16, "int8", [394, 700, 768, 0, 2048, 1]),
+    # pages of 16 and 32 tokens: each token row looks its page up
+    "G7-hd64-psz16-int8": (14, 2, 64, 16, 128, "int8", [394, 484, 512, 0, 2048, 1]),
+    "G7-hd64-psz16-bf16": (14, 2, 64, 16, 128, "bf16", [394, 484, 512, 0, 2048, 1]),
+    "G1-psz32-fp8": (8, 8, 128, 32, 64, "fp8", [394, 484, 768, 0, 2048, 1]),
+}
+
+
+def _decode_split_case(dev, H, KH, hd, psz, wp, kv, lens, seed=3):
+    """Every slot's whole window on distinct pages (a shared one between
+    slots 0 and 1), lengths as given."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    S, n_layers = len(lens), 3
+    N = S * wp + 1
+    pt = (torch.randperm(N - 1, generator=g).to(torch.int32) + 1)[: S * wp].reshape(S, wp).contiguous()
+    pt[1, 0] = pt[0, 0]
+    q = torch.randn((S, H, hd), generator=g).to(torch.bfloat16)
+    k = torch.randn((n_layers, KH, N, psz, hd), generator=g).to(torch.bfloat16)
+    v = torch.randn((n_layers, KH, N, psz, hd), generator=g).to(torch.bfloat16)
+    sc = {}
+    if kv != "bf16":
+        k, ks = paged_kv.quantize_kv(k, paged_kv.quant_dtype(kv))
+        v, vs = paged_kv.quantize_kv(v, paged_kv.quant_dtype(kv))
+        sc = dict(k_scales=ks.to(dev), v_scales=vs.to(dev))
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    return q.to(dev), k.to(dev), v.to(dev), lengths.to(dev), pt.to(dev), sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_CASES))
+def test_kernel_splits_match_plain(cuda, case):
+    H, KH, hd, psz, wp, kv, lens = DECODE_SPLIT_CASES[case]
+    q, k, v, lengths, pt, sc = _decode_split_case(cuda, H, KH, hd, psz, wp, kv, lens)
+    S = len(lens)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = psa.pick_splits(S, KH, 1, H // KH, wp, psz, n_sm)
+    assert n > 1
+    spans = [(lo * psa.TILE, hi * psa.TILE) for lo, hi in (psa.split_tiles(wp, psz, n, p) for p in range(n))]
+    assert any(x == hi for x in lens for _, hi in spans[:-1])  # on an inner boundary
+    assert any(lo < x <= lo + psa.TILE for x in lens for lo, _ in spans[1:])  # in a split's first tile
+    assert any(lo + psa.TILE < x < hi for x in lens for lo, hi in spans)  # inside a later tile
+    before = paged_attention_stacked.launches
+    got = paged_attention_stacked(q, k, v, 1, lengths, pt, **sc)
+    again = paged_attention_stacked(q, k, v, 1, lengths, pt, **sc)
+    scl = (sc["k_scales"][1], sc["v_scales"][1]) if sc else (None, None)
+    kf, vf = (k[1].float(), v[1].float()) if kv == "bf16" else (k[1], v[1])
+    want32 = paged_attention_plain(q.float(), kf, vf, lengths, pt, *scl)
+    want = paged_attention_plain(q, k[1], v[1], lengths, pt, *scl)
+    torch.cuda.synchronize()
+    assert paged_attention_stacked.splits == n
+    assert paged_attention_stacked.launches == before + 2  # one a call, whatever the splits
+    assert torch.equal(got, again)  # a fixed merge order: the same bits
+    live = lengths > 0
+    assert torch.count_nonzero(got[~live]) == 0  # zero length: exact zeros
+    assert (got[live].float() - want[live].float()).abs().max().item() <= TOL[torch.bfloat16]
+    _assert_flash_close(got, want32, live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_kernel_graph_replay_equals_eager(cuda, kv):
+    """The split count and scratch come from shapes, so the call captures
+    in a CUDA graph; its replay gives the eager call's bits."""
+    q, k, v, lengths, pt, sc = _decode_split_case(cuda, 12, 2, 128, 128, 16, kv, [394, 484, 512, 0, 2048, 1])
+    eager = paged_attention_stacked(q, k, v, 2, lengths, pt, **sc)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention_stacked(q, k, v, 2, lengths, pt, **sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention_stacked(q, k, v, 2, lengths, pt, **sc)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert paged_attention_stacked.splits > 1
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_kernel_occupancy(cuda):
+    for kv in (torch.bfloat16, torch.int8, torch.float8_e4m3fn):
+        for hd in (64, 128):
+            occ = pa.occupancy(hd, kv)
+            assert 0 < occ["registers"] <= 255 and occ["smem_bytes"] > 0 and occ["blocks_per_sm"] >= 1
 
 
 # ---------------------------------------------------------------------------
@@ -204,8 +305,6 @@ def test_flash_kernels_refuse_bad_arguments(cuda):
 # kernel #3: paged suffix attention (chain mask = warm prefill, tree mask =
 # speculative verify)
 # ---------------------------------------------------------------------------
-
-from areal_tpu_torch.ops import paged_suffix_attention as psa  # noqa: E402
 
 
 def _suffix_case(dev, S, B, H, KH, hd, psz, wp, kv, kind, seed=0, plens=None):

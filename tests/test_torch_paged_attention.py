@@ -13,7 +13,13 @@ import torch
 
 from areal_tpu.inference import paged_kv as jpk
 from areal_tpu_torch.inference import paged_kv as tpk
-from areal_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_stacked
+from areal_tpu_torch.ops import _build
+from areal_tpu_torch.ops.paged_attention import (
+    decode_split_partials_plain,
+    paged_attention_plain,
+    paged_attention_stacked,
+)
+from areal_tpu_torch.ops.paged_suffix_attention import TILE, merge_splits_plain, pick_splits, split_tiles
 
 # (S, H, KH, hd, psz, wp): a tiny shape and the Qwen2.5-1.5B head shape (G=6)
 SHAPES = [(5, 4, 2, 16, 8, 4), (6, 12, 2, 128, 16, 3)]
@@ -144,3 +150,102 @@ def test_page_helpers_match_jax():
     pool.ref(a[:1])
     pool.free(a)
     assert pool.available == 2 and pool.used == 1
+
+
+# split-KV (the kernel's arithmetic for bf16 q over bf16 / int8 / fp8 pages):
+# a 320-token window is 5 tiles of 64, which P = 2 and 3 do not divide and
+# P = 7 leaves splits 5 and 6 empty; the lengths are 0, 1, a page, the whole
+# window, and ends inside a tile, on a tile's end and in a tile's first row.
+SPLIT_PSZ, SPLIT_WP = 16, 20
+SPLIT_LENGTHS = [0, 1, SPLIT_PSZ, SPLIT_PSZ * SPLIT_WP, 100, 128, 129, 257]
+
+
+def _split_inputs(G, kv, seed=3):
+    S, KH, hd, psz, wp = len(SPLIT_LENGTHS), 2, 16, SPLIT_PSZ, SPLIT_WP
+    rng = np.random.default_rng(seed)
+    N = S * wp + 1
+    perm = rng.permutation(np.arange(1, N)).astype(np.int32)
+    pt = np.zeros((S, wp), np.int32)
+    for s in range(S):
+        pt[s] = perm[s * wp : (s + 1) * wp]
+    pt[2, 0] = pt[3, 0]  # a shared page
+    q = torch.from_numpy(rng.standard_normal((S, KH * G, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((KH, N, psz, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((KH, N, psz, hd)).astype(np.float32))
+    sc = (None, None)
+    if kv == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    else:
+        k, ks = tpk.quantize_kv(k, tpk.quant_dtype(kv))
+        v, vs = tpk.quantize_kv(v, tpk.quant_dtype(kv))
+        sc = (ks, vs)
+    return q, k, v, torch.tensor(SPLIT_LENGTHS, dtype=torch.int32), torch.from_numpy(pt), sc
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("G", [1, 6, 7, 8])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 5, 7])
+def test_split_partials_merge_to_plain(n_splits, G, kv):
+    """The kernel's split-KV arithmetic in f32: P splits' partials merged by
+    #3's merge at B = 1 are the unsplit plain function to 1e-6 of its
+    largest output (the same f32 logits, only the softmax's sums regrouped);
+    a zero length gives exact zeros; a split with no token of a slot gives
+    lse = -inf and O = 0."""
+    q, k, v, lengths, pt, sc = _split_inputs(G, kv)
+    S, H, hd = q.shape
+    KH = k.shape[0]
+    parts = [decode_split_partials_plain(q, k, v, lengths, pt, *sc, n_splits=n_splits, split=p)
+             for p in range(n_splits)]
+    o_part = torch.stack([o for o, _ in parts])  # [P, S, KH, G, hd]
+    lse_part = torch.stack([lse for _, lse in parts])
+    assert o_part.shape == (n_splits, S, KH, G, hd) and lse_part.shape == (n_splits, S, KH, G)
+    for p in range(n_splits):
+        lo, _ = split_tiles(SPLIT_WP, SPLIT_PSZ, n_splits, p)
+        empty = lengths <= lo * TILE  # slots whose length ends before this split
+        assert torch.isneginf(lse_part[p][empty]).all()
+        assert torch.count_nonzero(o_part[p][empty]) == 0
+        assert torch.isfinite(lse_part[p][~empty]).all()
+    got = merge_splits_plain(o_part, lse_part, 1, G).reshape(S, H, hd)
+    # bf16 pages' values in f32 (the plain function would round P to bf16)
+    kf, vf = (k.float(), v.float()) if kv == "bf16" else (k, v)
+    want = paged_attention_plain(q, kf, vf, lengths, pt, *sc)
+    assert want.dtype == torch.float32
+    live = lengths > 0
+    assert torch.count_nonzero(got[~live]) == 0
+    err = (got[live] - want[live]).abs().max().item()
+    assert err <= 1e-6 * want[live].abs().max().item(), err
+
+
+@pytest.mark.parametrize(
+    "shape, want",
+    [
+        ((32, 2, 6, 16, 128), 5),  # chip_smoke.py's kernel phase, Qwen2.5-1.5B heads
+        ((32, 4, 8, 16, 128), 3),  # the same for Qwen3-30B-A3B (G = 8)
+        ((256, 2, 6, 16, 128), 1),  # 512 blocks already fill two waves
+        ((4, 2, 6, 1, 64), 1),  # a one-tile window
+        ((2, 2, 6, 64, 16), 16),  # few slots, a long window: MAX_SPLITS
+    ],
+)
+def test_decode_split_count_from_shapes(shape, want):
+    """The decode kernel's P, #3's pick_splits at one query row a slot, comes
+    from shapes and the SM count alone (never from the lengths, which live
+    on the device), and never leaves a split without a tile."""
+    S, KH, G, wp, psz = shape
+    n = pick_splits(S, KH, 1, G, wp, psz, 132)
+    assert n == want
+    assert split_tiles(wp, psz, n, n - 1)[0] < -(-wp * psz // TILE)
+
+
+def test_build_hash_follows_shared_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/*.cuh, so an edit
+    to a shared header rebuilds the libraries that may include it."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    _, first = _build._target("k")
+    assert _build._target("k")[1] == first  # stable
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    _, second = _build._target("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert _build._target("k")[1] not in (first, second)
