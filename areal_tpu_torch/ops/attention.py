@@ -12,6 +12,9 @@ hand-written flash-attention kernels of ``csrc/flash_attention.cu``.
   three kernels: K2 ``flash_attention_fwd`` (forward, optionally keeping the
   per-row logsumexp), K3 ``flash_attention_bwd_dkv`` and K4
   ``flash_attention_bwd_dq``.
+- ``fwd_tile_pairs`` is the plain twin of K2's tile classification (which
+  (query tile, KV tile) pairs it skips, runs without a mask, or masks), and
+  ``occupancy`` reports K2's resources on the card.
 
 Every entry point takes the model layout [G, L, H, hd] with KV heads already
 repeated to H, and segment ids [G, L] (0 = padding). Query row i attends to
@@ -36,6 +39,7 @@ import torch
 from areal_tpu_torch.ops import _build
 
 _HEAD_DIMS = (64, 128)  # template instantiations of the kernels
+TILE = 64  # query rows and keys per tile of every kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +47,7 @@ _SIGNATURES = {
     "flash_attention_fwd": ([_P] * 6 + [_I] * 4 + [_P], ctypes.c_int),
     "flash_attention_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_P], ctypes.c_int),
     "flash_attention_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P], ctypes.c_int),
+    "flash_attention_fwd_occupancy": ([_I, _I, _P], ctypes.c_int),
 }
 
 
@@ -67,6 +72,40 @@ def sdpa_plain(q, k, v, mask, head_dim: int):
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("ghqk,gkhd->gqhd", probs, v)
+
+
+def fwd_tile_pairs(segment_ids: torch.Tensor) -> list[tuple[int, int, int, str]]:
+    """K2's classification of every (query tile, KV tile) pair of 64-row
+    tiles, as ``(g, query tile, KV tile, kind)`` for each grid row g:
+    "skipped" (the KV tile lies in the future, or the two tiles' nonzero
+    segment-id ranges do not meet), "interior" (both tiles hold one and the
+    same nonzero id in every row and the KV tile lies wholly before the
+    query tile: the kernel applies no per-element mask) or "partial" (the
+    kernel applies ``attention_mask``'s test element by element). Rows past
+    L count as padding (segment 0)."""
+    seg = segment_ids.detach().to("cpu", torch.int64)
+    G, L = seg.shape
+    nt = -(-L // TILE)
+    tiles = torch.zeros((G, nt * TILE), dtype=torch.int64)
+    tiles[:, :L] = seg
+    tiles = tiles.reshape(G, nt, TILE)
+    nonzero = tiles != 0
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(nonzero, tiles, big).amin(-1).tolist()
+    hi = torch.where(nonzero, tiles, -big).amax(-1).tolist()
+    one = (nonzero.all(-1) & (tiles == tiles[..., :1]).all(-1)).tolist()
+    pairs = []
+    for g in range(G):
+        for qt in range(nt):
+            for kt in range(nt):
+                if kt > qt or hi[g][qt] < lo[g][kt] or hi[g][kt] < lo[g][qt]:
+                    kind = "skipped"
+                elif kt < qt and one[g][qt] and one[g][kt] and lo[g][qt] == lo[g][kt]:
+                    kind = "interior"
+                else:
+                    kind = "partial"
+                pairs.append((g, qt, kt, kind))
+    return pairs
 
 
 def resolve_impl(requested: str) -> str:
@@ -163,6 +202,18 @@ def _check_cuda_args(name: str, segment_ids, grids, rows=()):
     for t in rows:
         if t.dtype != torch.float32 or t.shape != (G, L, H) or not t.is_contiguous():
             raise ValueError(f"{name}: lse / di must be contiguous f32 [G, L, H]")
+
+
+def occupancy(hd: int, L: int) -> dict[str, int]:
+    """K2's registers a thread, dynamic shared memory and blocks an SM holds
+    for grid rows of L tokens (its shared memory grows by 12 bytes a 64-row
+    tile of L), as the CUDA runtime reports them (needs a card)."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    info = (ctypes.c_int * 3)()
+    rc = lib.flash_attention_fwd_occupancy(hd, L, info)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd_occupancy failed (code {rc})")
+    return {"registers": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2]}
 
 
 def _launch(fn: str, *args) -> None:

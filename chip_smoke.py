@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only spec,serve    # some phases, no result lines
     python3 chip_smoke.py --decode-times DIR   # kernel #1 of DIR's areal_tpu_torch
                                                # timed at the kernel phase's shapes
+    python3 chip_smoke.py --flash-times DIR    # K2 of DIR's areal_tpu_torch timed
+                                               # at the kernel_flash phase's shapes
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -22,11 +24,18 @@ no result line:
               "error"), registers and blocks an SM; kernel / plain /
               SDPA-yardstick times (graph replay, host loop beside) and the
               bound.
-4. kernel_flash — the flash-attention kernels K2 (forward), K3 (dK, dV)
-              and K4 (dQ) against their plain PyTorch versions at the
-              trainer's shapes (packed [G, 1024] grids of the train phase's
-              sequences, H=12 with KV repeated from 2, hd=128, bf16, padded
-              tail); kernel / plain / SDPA-yardstick times and the bounds.
+4. kernel_flash — the flash-attention forward K2 against its plain PyTorch
+              version at three shapes: the trainer's packed grid (12 rows
+              of 1,024 from the train phase's sequences, padded tails) with
+              Qwen2.5-1.5B's heads (H=12, KV repeated from 2) and with
+              Qwen3-30B-A3B's (H=32 from 4), and a long-rollout grid (2
+              rows of 8,192: segments 8,192 and 5,000 + 3,000), hd=128,
+              bf16: O element by element, lse, padding zeros, O's bits with
+              and without lse, four planted faults, sync-debug "error" on
+              the first launch, occupancy and tile-pair counts; K2 and SDPA
+              times by graph replay (host loop beside) and the bound. Then
+              K3 (dK, dV) and K4 (dQ) against theirs on K2's lse at the
+              first shape, with planted faults; host-loop times.
 5. kernel_suffix — the paged suffix-attention kernel (#3) against its plain
               version at the same two head configs: a warm suffix prefill (8 rows
               of 64..256 suffix tokens over a shared 1,024-token prefix) and
@@ -520,20 +529,36 @@ def _train_sequences(seed: int = 0) -> list[int]:
     return [n + 128 for n in _train_prompt_lengths(seed) for _ in range(4)]
 
 
-def _flash_inputs(seed: int = 0):
-    """The packed grid the trainer builds for one wave (FFD rows of L=1024,
-    per-row segment ids, padded tails) and bf16 q/k/v/dO [G, L, 12, 128]
-    with K/V repeated from 2 heads, dO zero on padding rows."""
+# kernel_flash's shapes: (heads, KV heads, grid). "train": the packed grid
+# the train phase builds (12 rows of 1,024, 32 segments of 199-573 tokens),
+# with Qwen2.5-1.5B's heads and with Qwen3-30B-A3B's (train_moe's); "long":
+# a long-rollout grid, LONG_ROWS' segments in rows of 8,192 (192 pad rows)
+FLASH_SHAPES = {"train/H12": (12, 2, "train"), "train/H32": (32, 4, "train"), "long/H12": (12, 2, "long")}
+LONG_ROWS = ([8192], [5000, 3000])
+
+
+def _flash_inputs(seed: int = 0, shape: str = "train/H12"):
+    """One of FLASH_SHAPES: per-row segment ids [G, L] (padded tails) and
+    bf16 q/k/v/dO [G, L, H, 128] with K/V repeated from KH heads, dO zero on
+    padding rows; and the segments' lengths."""
     from areal_tpu_torch.utils.grid import pack_grid
 
-    lens = _train_sequences(seed)
-    mask = np.zeros((len(lens), max(lens)), bool)
-    for i, n in enumerate(lens):
-        mask[i, :n] = True
-    grid = pack_grid({"attention_mask": mask}, 1024)
-    seg = torch.from_numpy(grid.data["segment_ids"]).cuda()
+    H, KH, grid = FLASH_SHAPES[shape]
+    if grid == "train":
+        lens = _train_sequences(seed)
+        mask = np.zeros((len(lens), max(lens)), bool)
+        for i, n in enumerate(lens):
+            mask[i, :n] = True
+        packed = pack_grid({"attention_mask": mask}, 1024)
+        seg_np, seq_lens = packed.data["segment_ids"], packed.seq_lens
+    else:
+        seg_np = np.zeros((len(LONG_ROWS), max(map(sum, LONG_ROWS))), np.int32)
+        for r, row in enumerate(LONG_ROWS):
+            seg_np[r, : sum(row)] = np.repeat(np.arange(1, len(row) + 1), row)
+        seq_lens = [n for row in LONG_ROWS for n in row]
+    seg = torch.from_numpy(seg_np).cuda()
     G, L = seg.shape
-    H, KH, hd = 12, 2, 128
+    hd = 128
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((G, L, H, hd), generator=g, device="cuda").to(torch.bfloat16)
     k, v = (
@@ -544,7 +569,7 @@ def _flash_inputs(seed: int = 0):
     )
     dout = torch.randn((G, L, H, hd), generator=g, device="cuda").to(torch.bfloat16)
     dout = dout * (seg != 0)[:, :, None, None]
-    return q, k, v, dout, seg, grid.seq_lens
+    return q, k, v, dout, seg, seq_lens
 
 
 def _flash_bounds(G: int, L: int, H: int, hd: int, seq_lens) -> dict:
@@ -614,9 +639,149 @@ def _bwd_bf16_products(q, k, v, seg, dout, lse, di):
     )
 
 
-def phase_kernel_flash() -> dict:
+FWD_FAULTS = ("S rounded to bf16", "a segment boundary ignored", "the diagonal excluded")
+
+
+def _fwd_plain_fault(q, k, v, seg, fault: str):
+    """A planted fault for K2's check: the plain forward (f32) with S rounded
+    to bf16 before the softmax, with the first boundary between two nonzero
+    segments of each row ignored (the later segment relabelled as the
+    earlier), or with each row's own key left out of its mask."""
     from areal_tpu_torch.ops import attention as fa
 
+    if fault == "a segment boundary ignored":
+        seg = seg.clone()
+        for row in seg:
+            cut = ((row[1:] != row[:-1]) & (row[1:] != 0) & (row[:-1] != 0)).nonzero()
+            if len(cut):
+                j = int(cut[0]) + 1
+                row[row == int(row[j])] = int(row[j - 1])
+    mask = fa.attention_mask(seg)
+    if fault == "the diagonal excluded":
+        mask = mask & ~torch.eye(seg.shape[-1], dtype=torch.bool, device=seg.device)
+    s = torch.einsum("gqhd,gkhd->ghqk", q, k) * q.shape[-1] ** -0.5
+    if fault == "S rounded to bf16":
+        s = s.bfloat16().float()
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("ghqk,gkhd->gqhd", p, v)
+
+
+def _by_row(fn, *grids):
+    """``fn`` on one grid row at a time (the plain forward's f32 logits of an
+    8,192-token row are 3.2 GB), the results stacked back into [G, ...]."""
+    outs = [fn(*(x[g : g + 1] for x in grids)) for g in range(grids[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def _k2_timings(q, k, v, seg) -> dict:
+    """K2 on one shape: device ms by CUDA-graph replay with and without the
+    logsumexp (``ms``, ``nolse_ms``) and the eager host loop beside them
+    (``host_ms``: what an eager caller waits, launch included). Uses only
+    ``flash_attention_fwd``, so it times any tree's K2 (``--flash-times``)."""
+    from areal_tpu_torch.ops import attention as fa
+
+    with torch.no_grad():
+        return dict(
+            ms=time_cuda_graph(lambda: fa.flash_attention_fwd(q, k, v, seg, with_lse=True)),
+            nolse_ms=time_cuda_graph(lambda: fa.flash_attention_fwd(q, k, v, seg, with_lse=False)),
+            host_ms=time_cuda(lambda: fa.flash_attention_fwd(q, k, v, seg, with_lse=True), iters=20),
+        )
+
+
+def flash_times() -> None:
+    """``--flash-times DIR``: K2 of the ``areal_tpu_torch`` under DIR (a tree
+    unpacked with ``git archive``, say a parent commit's) timed by
+    ``_k2_timings`` at kernel_flash's three shapes, one JSON line a shape, so
+    two trees' kernels compare by graph replay in one call."""
+    for shape in FLASH_SHAPES:
+        q, k, v, _, seg, _ = _flash_inputs(shape=shape)
+        print(json.dumps({"flash_times": shape, **_k2_timings(q, k, v, seg)}), flush=True)
+        del q, k, v, seg
+        torch.cuda.empty_cache()
+
+
+def _kernel_flash_fwd(shape: str) -> dict:
+    """K2 at one of FLASH_SHAPES: its first launch under sync-debug "error";
+    O element by element against the plain forward (f32, one grid row at a
+    time), lse to 1e-3, exact zeros on padding rows, O's bits the same
+    without lse and on a second call; three planted faults in the plain
+    forward and lse stored in bf16, each of which the checks must catch;
+    occupancy and fwd_tile_pairs' counts; K2 and SDPA times (graph replay,
+    host loop beside) and the bound."""
+    from collections import Counter
+
+    from areal_tpu_torch.ops import attention as fa
+
+    q, k, v, _, seg, seq_lens = _flash_inputs(shape=shape)
+    G, L, H, hd = q.shape
+    valid = seg != 0
+    occ = fa.occupancy(hd, L)
+    pairs = Counter(kind for *_, kind in fa.fwd_tile_pairs(seg))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again, _ = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+        nolse, _ = fa.flash_attention_fwd(q, k, v, seg, with_lse=False)
+        f32 = [x.float() for x in (q, k, v)]
+        ref_out, ref_lse = _by_row(fa.flash_attention_fwd_plain, *f32, seg)
+        torch.cuda.synchronize()
+        same_bits = torch.equal(out, nolse) and torch.equal(out, again)
+        err_o = (out.float() - ref_out.float())[valid].abs().max().item()
+        err_lse = (lse - ref_lse)[valid].abs().max().item()
+        pad_zero = torch.count_nonzero(out[~valid]).item() == 0 and torch.count_nonzero(lse[~valid]).item() == 0
+        x_o, rms_o = _flash_excess(out, ref_out, valid)
+        if not math.isfinite(err_lse) or err_lse > 1e-3:  # f32 row statistics
+            raise AssertionError(f"[kernel_flash] {shape} K2: max|lse - plain| = {err_lse}")
+        if not x_o <= 1.0 or not pad_zero or not same_bits:
+            raise AssertionError(f"[kernel_flash] {shape} K2: O off its plain version by {x_o:.3f} x the limit, "
+                                 f"pad rows zero: {pad_zero}, O's bits the same without lse and again: {same_bits}")
+        fault_x = {f: _flash_excess(_by_row(lambda *a, f=f: _fwd_plain_fault(*a, f), *f32, seg), ref_out, valid)[0]
+                   for f in FWD_FAULTS}
+        fault_x["lse stored in bf16 (max|lse - plain|)"] = (ref_lse.bfloat16().float() - ref_lse)[valid].abs().max().item()
+        caught = {f: x > (1e-3 if f.startswith("lse") else 1.0) for f, x in fault_x.items()}
+        if not all(caught.values()):
+            raise AssertionError(f"[kernel_flash] {shape}: K2's check passes a planted fault: {fault_x}")
+        del f32, ref_out, ref_lse, again, nolse
+    t = _k2_timings(q, k, v, seg)
+    # yardstick the port never calls: SDPA's forward with the same boolean
+    # mask, on [G, H, L, hd] copies made outside the timed region
+    mask = fa.attention_mask(seg)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        t.update(library_ms=time_cuda_graph(sdpa, iters=5), library_host_ms=time_cuda(sdpa, iters=5, warmup=2))
+    del qt, kt, vt, mask
+    bound_ms, bound_by = _flash_bounds(G, L, H, hd, seq_lens)["flash_attention_fwd"]
+    log(f"[kernel_flash] {shape}: K2 G={G} L={L} H={H} hd={hd}, {len(seq_lens)} segments ({sum(seq_lens)} tokens, "
+        f"{int((~valid).sum())} pad rows); tile pairs interior {pairs['interior']}, partial {pairs['partial']}, "
+        f"skipped {pairs['skipped']} (a head); {occ['registers']} registers a thread, {occ['smem_bytes']} B shared "
+        f"memory, {occ['blocks_per_sm']} blocks an SM; first launch under sync-debug \"error\"; worst element "
+        f"{x_o:.3f} of the limit {FLASH_RTOL:.4g} |plain| + {FLASH_ATOL:.4g} rms(plain) (rms {rms_o:.4f}, "
+        f"max|diff| {err_o:.3e}); max|lse - plain| {err_lse:.2e} (tol 1e-3); pad rows zero, O's bits the same "
+        f"without lse and on a second call; planted faults (each must exceed 1, lse's 1e-3): "
+        + "; ".join(f"{n} {x:.3g}" for n, x in fault_x.items()))
+    log(f"[kernel_flash] {shape}: K2 {t['ms']:.4f} ms, without lse {t['nolse_ms']:.4f} ms, SDPA forward "
+        f"{t['library_ms']:.4f} ms (device time by graph replay; host loop: K2 {t['host_ms']:.4f}, SDPA "
+        f"{t['library_host_ms']:.4f}); bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err_o, bound_ms=bound_ms, bound_by=bound_by, occupancy=occ, tile_pairs=dict(pairs), **t)
+
+
+def phase_kernel_flash() -> dict:
+    """K2 at each of FLASH_SHAPES (``_kernel_flash_fwd``); K3 and K4 at
+    train/H12 against their plain versions on K2's lse, with planted faults,
+    and their times (host loop) beside SDPA's backward."""
+    from areal_tpu_torch.ops import attention as fa
+
+    shapes = {}
+    for shape in FLASH_SHAPES:
+        shapes[shape] = _kernel_flash_fwd(shape)
+        torch.cuda.empty_cache()
     q, k, v, dout, seg, seq_lens = _flash_inputs()
     G, L, H, hd = q.shape
     valid = seg != 0
@@ -626,18 +791,6 @@ def phase_kernel_flash() -> dict:
         di = (dout.float() * out.float()).sum(-1)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
         dq = fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di)
-        ref_out, ref_lse = fa.flash_attention_fwd_plain(*(x.float() for x in (q, k, v)), seg)
-        torch.cuda.synchronize()
-        err_o = (out.float() - ref_out.float())[valid].abs().max().item()
-        err_lse = (lse - ref_lse)[valid].abs().max().item()
-        pad_zero = torch.count_nonzero(out[~valid]).item() == 0
-        if not math.isfinite(err_lse) or err_lse > 1e-3:  # f32 row statistics
-            raise AssertionError(f"[kernel_flash] K2: max|lse - plain| = {err_lse}")
-        x_o, rms_o = _flash_excess(out, ref_out, valid)
-        if not x_o <= 1.0 or not pad_zero:
-            raise AssertionError(f"[kernel_flash] K2: O off its plain version by {x_o:.3f} x the limit, "
-                                 f"pad rows zero: {pad_zero}")
-        del ref_out, ref_lse
         # K3 and K4 from the kernels' lse and di, so they are held alone
         refs = fa.flash_attention_bwd_plain(q, k, v, seg, dout, lse, di, out_dtype=torch.float32)
         errs = _flash_check((dq, dk, dv), refs, valid)
@@ -654,29 +807,20 @@ def phase_kernel_flash() -> dict:
             if fault_x[fname] <= 1.0:
                 raise AssertionError(f"[kernel_flash] the K3/K4 check passes a planted fault ({fname})")
         del faults, refs
-        log(f"[kernel_flash] G={G} L={L} H={H} hd={hd}, {len(seq_lens)} segments "
-            f"({sum(seq_lens)} tokens, {int((~valid).sum())} pad rows); limit |kernel - plain| <= "
-            f"{FLASH_RTOL:.4g} |plain| + {FLASH_ATOL:.4g} rms(plain), worst element as a share of it: "
-            f"O {x_o:.3f} (rms {rms_o:.4f}, max|diff| {err_o:.3e}); " + "; ".join(
-                f"{n} {x:.3f} (rms {r:.4f}, max|diff| {e:.3e})" for n, (x, r, e) in errs.items())
-            + f"; max|lse - plain| {err_lse:.2e} (tol 1e-3)")
+        log(f"[kernel_flash] train/H12: K3/K4 on K2's lse, worst element as a share of the limit: " + "; ".join(
+            f"{n} {x:.3f} (rms {r:.4f}, max|diff| {e:.3e})" for n, (x, r, e) in errs.items()))
         log("[kernel_flash] planted faults in the plain backward, worst element as a share of the "
             "limit (each must exceed 1): " + "; ".join(f"{n} {x:.3f}" for n, x in fault_x.items()))
-        t_fwd = time_cuda(lambda: fa.flash_attention_fwd(q, k, v, seg, with_lse=True), iters=20)
-        t_fwd_nolse = time_cuda(lambda: fa.flash_attention_fwd(q, k, v, seg, with_lse=False), iters=20)
         t_dkv = time_cuda(lambda: fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di), iters=20)
         t_dq = time_cuda(lambda: fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di), iters=20)
         p_fwd = time_cuda(lambda: fa.flash_attention_fwd_plain(q, k, v, seg), iters=3, warmup=1)
         p_bwd = time_cuda(lambda: fa.flash_attention_bwd_plain(q, k, v, seg, dout, lse, di), iters=3, warmup=1)
-    # yardstick the port never calls: SDPA with the same boolean mask, on
-    # [G, H, L, hd] copies made outside the timed region
+    # yardstick the port never calls: SDPA's backward with the same boolean
+    # mask, on [G, H, L, hd] copies made outside the timed region
     mask = fa.attention_mask(seg)
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        lib_fwd = time_cuda(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters=5, warmup=2)
     leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
-    o_lib = sdpa(*leaves, attn_mask=mask)
+    o_lib = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
 
     def lib_bwd():
         for x in leaves:
@@ -686,16 +830,21 @@ def phase_kernel_flash() -> dict:
     lib_b = time_cuda(lib_bwd, iters=5, warmup=2)
     del o_lib, leaves, qt, kt, vt, dot, mask
     bounds = _flash_bounds(G, L, H, hd, seq_lens)
-    per["flash_attention_fwd"] = dict(max_abs_err=err_o, ms=t_fwd, plain_ms=p_fwd, library_ms=lib_fwd)
+    f = shapes["train/H12"]
+    per["flash_attention_fwd"] = dict(
+        max_abs_err=max(d["max_abs_err"] for d in shapes.values()), ms=f["ms"], plain_ms=p_fwd,
+        library_ms=f["library_ms"],
+        shapes={n: {x: d[x] for x in ("ms", "host_ms", "nolse_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for n, d in shapes.items()})
     per["flash_attention_bwd_dkv"] = dict(max_abs_err=max(errs["dk"][2], errs["dv"][2]), ms=t_dkv, plain_ms=p_bwd, library_ms=lib_b)
     per["flash_attention_bwd_dq"] = dict(max_abs_err=errs["dq"][2], ms=t_dq, plain_ms=p_bwd, library_ms=lib_b)
     for name, d in per.items():
         d["bound_ms"], d["bound_by"] = bounds[name]
-        log(f"[kernel_flash] {name}: kernel={d['ms']:.4f} ms plain={d['plain_ms']:.4f} ms "
-            f"sdpa={d['library_ms']:.4f} ms bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
-    log(f"[kernel_flash] K2 without the logsumexp (the no-grad forward): {t_fwd_nolse:.4f} ms; "
-        f"plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms); SDPA forward "
-        f"{lib_fwd:.4f} ms, backward {lib_b:.4f} ms, forward+backward {lib_fwd + lib_b:.4f} ms")
+        how = "graph replay" if name == "flash_attention_fwd" else "host loop"
+        log(f"[kernel_flash] train/H12 {name}: kernel={d['ms']:.4f} ms ({how}) plain={d['plain_ms']:.4f} ms "
+            f"sdpa={d['library_ms']:.4f} ms ({how}) bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
+    log(f"[kernel_flash] plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms); SDPA backward "
+        f"{lib_b:.4f} ms (host loop)")
     del q, k, v, dout, out, lse, dk, dv, dq, di
     torch.cuda.empty_cache()
     return per
@@ -1878,7 +2027,10 @@ def phase_train(card: str) -> dict:
 
     # one more optimizer step on a minibatch of the last batch, profiled
     mb = split_padded_tensor_dict_into_mb_list(adv, MicroBatchSpec(n_mbs=cfg.ppo_n_minibatches)).mbs[0]
-    _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "optimizer step (one minibatch)", card)
+    prof = _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "optimizer step (one minibatch)", card)
+    for what, key in (("K2", "flash_fwd_kernel"), ("K3", "flash_bwd_dkv_kernel"), ("K4", "flash_bwd_dq_kernel")):
+        us = sum(t for name, t in prof["by_name"].items() if key in name)
+        log(f"[profile]   {what} ({key}): {us / 1e3:.2f} ms, {us / prof['busy_us']:.1%} of busy")
     compute_cfg = trainer.model_cfg
 
     def by_impl(mb):
@@ -3072,17 +3224,19 @@ PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spe
 
 
 def main(argv: list[str]) -> int:
-    only = decode_dir = None
+    only = times = other_dir = None
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
         if set(only) - set(PHASES):
             print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
             return 2
-    elif argv[:1] == ["--decode-times"] and len(argv) == 2:
-        decode_dir = os.path.abspath(argv[1])
-        sys.path.insert(0, decode_dir)  # that tree's areal_tpu_torch, not this one's
+    elif argv[:1] in (["--decode-times"], ["--flash-times"]) and len(argv) == 2:
+        times = "decode" if argv[0] == "--decode-times" else "flash"
+        other_dir = os.path.abspath(argv[1])
+        sys.path.insert(0, other_dir)  # that tree's areal_tpu_torch, not this one's
     elif argv:
-        print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR | --flash-times DIR]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3097,11 +3251,17 @@ def main(argv: list[str]) -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.monotonic()
-    if decode_dir is not None:
+    if times == "decode":
         log(f"[decode_times] kernel #1 of {os.path.dirname(areal_tpu_torch.__file__)}")
         phase_build(["paged_attention"])
         decode_times()
         log(f"[done] decode times in {time.monotonic() - t0:.1f}s on {card} (no result)")
+        return 0
+    if times == "flash":
+        log(f"[flash_times] K2 of {os.path.dirname(areal_tpu_torch.__file__)}")
+        phase_build(["flash_attention"])
+        flash_times()
+        log(f"[done] flash times in {time.monotonic() - t0:.1f}s on {card} (no result)")
         return 0
     phase_build()
     runs = {
@@ -3168,6 +3328,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"],
             "library_ms": d["library_ms"],
+            **({"shapes": d["shapes"]} if "shapes" in d else {}),
         })
     # kernel #3: launches of the serve phase's warm wave (chain) and the spec
     # phase (tree); the times of the warm-prefill shape with bf16 pages, the

@@ -301,6 +301,122 @@ def test_flash_kernels_refuse_bad_arguments(cuda):
         fa.flash_attention_fwd(q2, k2, v2, seg2, with_lse=False)
 
 
+def _flash_seg_case(dev, seg, H, hd, seed=0):
+    """bf16 q, k, v, dO [G, L, H, hd] (dO zero on padding rows) for explicit
+    segment ids [G, L]."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    seg = torch.as_tensor(seg, dtype=torch.int32)
+    G, L = seg.shape
+    q, k, v, dout = (torch.randn((G, L, H, hd), generator=g).to(torch.bfloat16) for _ in range(4))
+    dout = dout * (seg != 0)[:, :, None, None]
+    return [t.to(dev) for t in (q, k, v, dout, seg)]
+
+
+def _check_fwd_bwd(q, k, v, dout, seg, backward=True):
+    """K2 against its plain version (O element by element, lse to 1e-3,
+    exact zeros on padding rows), then K3 and K4 against theirs on K2's
+    lse."""
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(), seg)
+    valid = seg != 0
+    torch.cuda.synchronize()
+    _assert_flash_close(out, ref_out, valid)
+    assert (lse - ref_lse)[valid].abs().max().item() <= 1e-3
+    assert torch.count_nonzero(out[~valid]) == 0 and torch.count_nonzero(lse[~valid]) == 0
+    del ref_out, ref_lse
+    if backward:
+        di = (dout.float() * out.float()).sum(-1)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
+        dq = fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di)
+        want = fa.flash_attention_bwd_plain(q, k, v, seg, dout, lse, di, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for got, ref in zip((dq, dk, dv), want):
+            _assert_flash_close(got, ref, valid)
+    return out, lse
+
+
+def _segment_row(L, runs):
+    """One grid row of segment ids from (id, length) runs, padded with 0."""
+    row = [i for i, n in runs for _ in range(n)]
+    return row + [0] * (L - len(row))
+
+
+@pytest.mark.cuda
+def test_flash_fwd_long_row(cuda):
+    """K2 over one row of 8,192 tokens (segments of 5,000 and 3,192): 128
+    KV tiles for the last query tile, most of them interior."""
+    L = 8192
+    q, k, v, dout, seg = _flash_seg_case(cuda, [_segment_row(L, [(1, 5000), (2, 3192)])], 2, 128, seed=2)
+    _check_fwd_bwd(q, k, v, dout, seg, backward=False)
+
+
+@pytest.mark.cuda
+def test_flash_noncontiguous_segment_ids(cuda):
+    """A segment id that comes back after another segment's run (and ids that
+    are large, negative, unsorted), L not a multiple of 64."""
+    L = 1000
+    rows = [
+        _segment_row(L, [(1, 300), (2, 200), (1, 400)]),
+        _segment_row(L, [(5, 64), (-2, 64), (5, 700), (2**31 - 1, 1), (5, 100)]),
+    ]
+    q, k, v, dout, seg = _flash_seg_case(cuda, rows, 4, 128, seed=3)
+    _check_fwd_bwd(q, k, v, dout, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_all_padding_row(cuda, hd):
+    """A grid row of padding only writes exact zeros (and lse 0) beside rows
+    with single-token segments and a padded tail."""
+    L = 320
+    rows = [[0] * L, _segment_row(L, [(j + 1, 1) for j in range(70)] + [(100, 200)]), _segment_row(L, [(3, L)])]
+    q, k, v, dout, seg = _flash_seg_case(cuda, rows, 3, hd, seed=4)
+    _check_fwd_bwd(q, k, v, dout, seg)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_bits_do_not_depend_on_lse_or_call(cuda):
+    """O is bit-identical with and without the logsumexp, and from call to
+    call (no atomics: a checkpointed recompute reproduces the forward)."""
+    G, L, H, hd, layout = FLASH_SHAPES["qwen2.5-1.5b-heads"]
+    q, k, v, _, seg = _flash_case(cuda, G, L, H, hd, layout, seed=5)
+    a, lse_a = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+    b, lse_b = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+    c, none = fa.flash_attention_fwd(q, k, v, seg, with_lse=False)
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(a, b) and torch.equal(lse_a, lse_b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_in_a_cuda_graph(cuda):
+    """The same call captured in a CUDA graph and replayed gives the eager
+    call's output (the launch reads no host state at replay)."""
+    G, L, H, hd, layout = FLASH_SHAPES["ragged-L-hd64"]
+    q, k, v, _, seg = _flash_case(cuda, G, L, H, hd, layout, seed=6)
+    eager, eager_lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention_fwd(q, k, v, seg, with_lse=True)  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager) and torch.equal(lse, eager_lse)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_occupancy(cuda):
+    for hd in (64, 128):
+        for L in (1024, 8192):
+            occ = fa.occupancy(hd, L)
+            assert 0 < occ["registers"] <= 255 and occ["smem_bytes"] > 0 and occ["blocks_per_sm"] >= 2
+
+
 # ---------------------------------------------------------------------------
 # kernel #3: paged suffix attention (chain mask = warm prefill, tree mask =
 # speculative verify)

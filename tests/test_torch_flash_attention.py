@@ -165,3 +165,93 @@ def test_cuda_argument_checks_accept_the_model_layout():
     q, k, v = _bf16_grids()
     seg = torch.ones((2, 128), dtype=torch.int32)
     tatt._check_cuda_args("flash", seg, (q, k, v), (torch.zeros((2, 128, 2)),))
+
+
+# ---------------------------------------------------------------------------
+# K2's tile classification (fwd_tile_pairs): its plain twin on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _train_grid_segments():
+    """The segment ids of the packed grid chip_smoke.py's train phase builds:
+    8 prompts of 64-512 tokens (seed 0) x 4 samples, plus 128 new tokens
+    each, FFD-packed into rows of 1,024."""
+    from areal_tpu_torch.utils.grid import pack_grid
+
+    lens = [int(n) + 128 for n in np.random.default_rng(0).integers(64, 513, 8) for _ in range(4)]
+    mask = np.zeros((len(lens), max(lens)), bool)
+    for i, n in enumerate(lens):
+        mask[i, :n] = True
+    return pack_grid({"attention_mask": mask}, 1024).data["segment_ids"]
+
+
+TILE_CASES = {
+    "train-grid": _train_grid_segments,
+    "ragged-L": lambda: _segments(2, 200, [[130, 5, 1, 40], [64, 64, 64]]),
+    "single-token-segments": lambda: _segments(1, 192, [[1] * 70 + [60, 1, 1]]),
+    "all-padding-row": lambda: _segments(2, 256, [[256], []]),
+    # id 1, then 2, then 1 again in one row; ids need not be small or sorted
+    "non-contiguous": lambda: np.array([[1] * 100 + [2] * 60 + [1] * 96, [7] * 70 + [-3] * 64 + [7] * 122], np.int32),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_fwd_tile_pairs_cover_every_valid_pair(case):
+    """Every (i, j) with a valid mask bit lies in an interior or a partial
+    pair, no skipped pair holds one, and an interior pair's mask is all
+    true: K2 may skip or run unmasked exactly what fwd_tile_pairs says."""
+    seg = TILE_CASES[case]()
+    G, L = seg.shape
+    T = tatt.TILE
+    nt = -(-L // T)
+    mask = np.zeros((G, nt * T, nt * T), bool)
+    mask[:, :L, :L] = _mask(seg)[:, 0]
+    pairs = tatt.fwd_tile_pairs(torch.from_numpy(seg))
+    assert len(pairs) == G * nt * nt
+    kinds = {}
+    for g, qt, kt, kind in pairs:
+        block = mask[g, qt * T : (qt + 1) * T, kt * T : (kt + 1) * T]
+        if kind == "skipped":
+            assert not block.any(), (g, qt, kt)
+        elif kind == "interior":
+            assert block.all(), (g, qt, kt)
+        else:
+            assert kind == "partial"
+        kinds[kind] = kinds.get(kind, 0) + 1
+    covered = np.zeros_like(mask)
+    for g, qt, kt, kind in pairs:
+        if kind != "skipped":
+            covered[g, qt * T : (qt + 1) * T, kt * T : (kt + 1) * T] = True
+    assert not (mask & ~covered).any()
+    if case == "train-grid":  # 318 interior, 416 partial of 3,072 pairs
+        assert kinds["interior"] > 0 and kinds["partial"] > 0
+    if case == "all-padding-row":
+        assert all(kind == "skipped" for g, _, _, kind in pairs if g == 1)
+
+
+def test_fwd_tile_pairs_noncontiguous_ids_are_not_skipped():
+    """A tile of segment 1 after a run of segment 2 still sees the first run
+    of segment 1: K2 may not assume a segment is one contiguous run."""
+    seg = TILE_CASES["non-contiguous"]()
+    kinds = {(g, qt, kt): kind for g, qt, kt, kind in tatt.fwd_tile_pairs(torch.from_numpy(seg))}
+    # row 0: tile 3 (rows 192..255, all id 1) and tile 0 (rows 0..63, id 1),
+    # with tile 2 (ids 2 and 1) between them
+    assert kinds[(0, 3, 0)] == "interior"
+    assert kinds[(0, 3, 2)] == "partial"
+    # row 1: rows 134.. hold id 7 again after the run of -3
+    assert kinds[(1, 3, 0)] == "interior"
+    assert kinds[(1, 2, 1)] == "partial"
+
+
+def test_flash_forward_noncontiguous_segments_match_pallas_interpret():
+    """The plain forward with a segment id that comes back after another
+    segment's run, against the JAX kernel in interpret mode."""
+    G, L, H, d = 2, 256, 2, 64
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.normal(0, 1, (G, L, H, d)).astype(np.float32) for _ in range(3))
+    seg = TILE_CASES["non-contiguous"]()
+    pallas = np.asarray(
+        jatt.flash_fwd_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg), interpret=True)
+    )
+    out, _ = tatt.flash_attention_fwd(*map(torch.from_numpy, (q, k, v, seg)), with_lse=True)
+    np.testing.assert_allclose(out.numpy(), pallas, atol=FWD_TOL, rtol=FWD_TOL)
