@@ -87,27 +87,65 @@
 // rows, which are operations-bound), 128-row query tiles, a persistent
 // schedule.
 //
-// K3 / K4 (simple and correct first, unchanged since they were ported):
-//   - tiles of 64 query rows x 64 key rows; every product (do.v^T, p^T.do,
-//     ds^T.q, ds.k and the recomputed q.k^T) runs on the tensor cores
-//     through WMMA 16x16x16 bf16 fragments with f32 accumulation, from
-//     shared memory;
-//   - K3: one block per (KV tile, head, grid row), 8 warps, looping over the
-//     query tiles at or after it; dK and dV stay in WMMA accumulators. K4:
-//     one block per (query tile, head, grid row), looping over the KV tiles
-//     at or before it; dQ stays in accumulators. Both recompute
-//     P = exp(S * scale - lse) and take dS = P * (dP - di);
-//   - tiles entirely in the future are skipped, and so are tile pairs whose
-//     (nonzero) segment-id ranges do not meet: each block first reduces the
-//     min / max segment id of every 64-row tile of its grid row;
-//   - rows past L (L need not be a multiple of 64) load as zeros with
-//     segment 0 and are never stored.
-// What they do not do yet: cp.async double buffering, mma.sync with S and
-// dP in registers, one fused backward.
+// K3 / K4's design (K2's loop and helpers applied to the backward; no
+// atomics, so every call gives the same bits and a checkpointed recompute
+// is exact; K4 stays a pass of its own for dQ):
+//   - K4 (dQ): one block of 4 warps per (64-row query tile, head, grid
+//     row), grid (H, nt, G) with the query tile reversed, as K2. Warp w
+//     owns rows 16w..16w+15 and keeps its Q and dO fragments (ldmatrix
+//     once, from the ring's last stage), lse and di of its rows and dQ (HD
+//     / 2 f32 a thread) in registers. For each live KV tile of the 2-stage
+//     cp.async K / V ring (segment ids riding with the tile): S = Q K^T and
+//     dP = dO V^T on mma.sync m16n8k16 (K and V read by ldmatrix as K2
+//     reads K), P = exp(S scale - lse), 0 off the mask, dS = P (dP - di),
+//     packed straight from the accumulator layout into bf16 A fragments,
+//     and dQ += dS K with K read by ldmatrix.trans as K2 reads V.
+//   - K3 (dK, dV): one block of 4 warps per (64-row KV tile, head, grid
+//     row), grid (H, nt, G), KV tile 0 (seen by the most query tiles)
+//     first. Warp w owns key rows 16w..16w+15; the block's K and V tiles
+//     stay in shared memory for the whole walk and their A fragments are
+//     read there (in registers they would take the 64 registers a thread
+//     that dK and dV's two 16 x HD f32 accumulators need). Query tiles
+//     from kt up come through the ring with their ids, lse and di (per
+//     column here). It computes the transposes directly: S^T = K Q^T and
+//     dP^T = V dO^T, so P^T and dS^T are already in the A-fragment layout
+//     of dV += P^T dO and dK += dS^T Q, with dO and Q read by
+//     ldmatrix.trans. dK is scaled once at the end.
+//   - nothing of S, P, dP or dS goes through shared memory. Both kernels
+//     classify each tile pair as K2 does (fwd_tile_ranges from the block's
+//     tile onwards; fwd_tile_pairs is the plain twin): skipped pairs are
+//     never loaded, interior pairs run without a per-element test, partial
+//     pairs test key j against query i by k0 + j <= q0 + i, seg[i] ==
+//     seg[j] != 0, and a warp none of whose rows meets the tile skips its
+//     math. Rows past L are zero-filled with segment 0 and never stored;
+//     padding rows meet no pair, so their gradients are exact zeros.
+//   - P and dS are rounded once to bf16 before their products, where the
+//     JAX library and the plain twin round them, and P is exp(S scale -
+//     lse) in that order of operations. With exp2 and the scale folded in,
+//     as K2 has it, P's last bits differ; on the 8,192-token grid that
+//     moved the bf16 rounding of one dS element in a row a few tokens into
+//     a segment, where few keys meet, and put dQ there at 2.47x the
+//     check's limit (dK 2.53x).
+//   - resources (sm_90a, nvcc 12.8, measured on an H100;
+//     flash_attention_bwd_occupancy reports them): HD = 128 255 registers
+//     a thread, no spill, 2 blocks an SM (__launch_bounds__; HD = 64 168
+//     registers, at most 12 bytes spilled, 3 blocks); K3 keeps
+//     2 stages x (Q, dO) + K and V of 64 x (HD + 8) bf16, the ids, lse and
+//     di, and 12 bytes a 64-row tile of L (106,176 B at L = 1,024); K4 K2's
+//     70,336 B.
+// What holds them, measured (PERF.md): on the trainer's grid the copies
+// alone (math skipped) and the math alone (copies skipped) each take
+// 71-76% of K3's and K4's time, as for K2: per-block latency of a few tile
+// pairs a block. On an 8,192-token row the math alone takes 78% of K3's
+// time (1.78 of 2.29 ms) and 72% of K4's: the 16-row warps' ldmatrix reads
+// and mma.sync issue hold them at ~28% of the bf16 peak. What they leave
+// for later: wgmma and TMA (the lever on long rows, which are operations-
+// bound), summing the repeated KV heads' dK / dV inside K3 (GQA: a
+// different function from the JAX library's, whose dK / dV are per
+// repeated head), a persistent schedule over the live tile pairs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -115,72 +153,6 @@
 #include "flash_mma.cuh"
 
 namespace {
-
-using namespace nvcuda;
-
-// K3 / K4's tiles (K2 uses flash_mma.cuh's kT, kWarps, kThreads, kPad)
-constexpr int kB = 64;         // rows per query tile and per key tile
-constexpr int kBwdWarps = 8;   // backward
-constexpr int kPadH = 8;       // bf16 row padding (elements): ldm % 8 == 0
-constexpr int kPadF = 4;       // f32 row padding: ldm % 4 == 0
-constexpr int kStageLd = 20;   // f32 staging tile [16][20] for the backward stores
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragACol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// 32-byte aligned byte offsets of the shared-memory regions
-__host__ __device__ constexpr size_t align32(size_t n) { return (n + 31) / 32 * 32; }
-
-// Copy rows [r0, r0 + kB) of one head of a [G, L, H, HD] tensor into a
-// [kB][HD + kPadH] shared tile; rows at or past L become zeros.
-// `base` points at (g, 0, h, 0); consecutive rows are `rs` elements apart.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ base,
-                                          int r0, int L, size_t rs, int tid, int nthr) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  constexpr int LD = HD + kPadH;
-  for (int c = tid; c < kB * kChunks; c += nthr) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const int l = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (l < L) val = *reinterpret_cast<const uint4*>(base + (size_t)l * rs + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
-}
-
-// min / max of the nonzero segment ids of every 64-row tile of one grid row
-// (INT_MAX / INT_MIN for a tile of padding only). Caller syncs afterwards.
-__device__ __forceinline__ void tile_segment_ranges(const int* __restrict__ seg, int L, int nt,
-                                                    int* lo_s, int* hi_s, int warp, int lane,
-                                                    int nwarps) {
-  for (int t = warp; t < nt; t += nwarps) {
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int r = lane; r < kB; r += 32) {
-      const int l = t * kB + r;
-      const int s = l < L ? seg[l] : 0;
-      if (s != 0) {
-        lo = min(lo, s);
-        hi = max(hi, s);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = min(lo, __shfl_xor_sync(kFull, lo, o));
-      hi = max(hi, __shfl_xor_sync(kFull, hi, o));
-    }
-    if (lane == 0) {
-      lo_s[t] = lo;
-      hi_s[t] = hi;
-    }
-  }
-}
-
-__device__ __forceinline__ bool ranges_meet(int alo, int ahi, int blo, int bhi) {
-  return !(ahi < blo || bhi < alo);  // empty ranges (INT_MAX, INT_MIN) never meet
-}
 
 // ---------------------------------------------------------------------------
 // K2: forward
@@ -201,15 +173,16 @@ struct FwdCfg {
   static size_t bytes(int nt) { return ranges + sizeof(int) * 3 * nt; }
 };
 
-// For tiles 0 .. n - 1 of one grid row: lo / hi, the range of the tile's
-// nonzero segment ids (INT_MAX / INT_MIN for padding only), and one, the
-// id when all 64 rows hold one and the same nonzero id (else 0; rows past
-// L count as padding). Warp w takes tiles w, w + 4, ...; each lane reads
-// two ids a tile, four tiles' reads in flight at once. Caller syncs.
-__device__ __forceinline__ void fwd_tile_ranges(const int* __restrict__ seg, int L, int n, int* lo_s,
+// For tiles begin .. n - 1 of one grid row: lo / hi, the range of the
+// tile's nonzero segment ids (INT_MAX / INT_MIN for padding only), and one,
+// the id when all 64 rows hold one and the same nonzero id (else 0; rows
+// past L count as padding). Warp w takes tiles begin + w, begin + w + 4,
+// ...; each lane reads two ids a tile, four tiles' reads in flight at once.
+// Caller syncs.
+__device__ __forceinline__ void fwd_tile_ranges(const int* __restrict__ seg, int L, int begin, int n, int* lo_s,
                                                 int* hi_s, int* one_s, int warp, int lane) {
   constexpr int kU = 4;
-  for (int t0 = warp; t0 < n; t0 += kU * kWarps) {
+  for (int t0 = begin + warp; t0 < n; t0 += kU * kWarps) {
     int ids[kU][2];
 #pragma unroll
     for (int u = 0; u < kU; ++u)
@@ -289,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, FwdCfg<HD>::min_blocks) flash_fwd_ke
     qrow[r] = q0 + 16 * warp + gq + 8 * r;
     sq[r] = qrow[r] < L ? __ldg(segg + qrow[r]) : 0;
   }
-  fwd_tile_ranges(segg, L, qt + 1, lo_s, hi_s, one_s, warp, lane);
+  fwd_tile_ranges(segg, L, 0, qt + 1, lo_s, hi_s, one_s, warp, lane);
   __syncthreads();
   const int qlo = lo_s[qt], qhi = hi_s[qt], qone = one_s[qt];
   // the next KV tile after t that can hold a valid pair, or -1 (uniform)
@@ -482,282 +455,407 @@ __global__ void __launch_bounds__(kThreads, FwdCfg<HD>::min_blocks) flash_fwd_ke
 // K3 / K4: backward
 // ---------------------------------------------------------------------------
 
+// K3's shared memory. K3 keeps its K and V tiles for the whole walk and
+// rings the query side: the K and V tiles, stages x (Q, dO) tiles, stages
+// x (ids, lse, di) of 64 query rows, then the tile ranges lo, hi and one of
+// the grid row, [nt] each. (K4 has K2's layout, FwdCfg: the ring's stages
+// x (K, V) tiles, their segment ids, the tile ranges; Q and dO are staged
+// once in the last stage's two tiles.)
 template <int HD>
-struct BwdSmem {
-  static constexpr int LDH = HD + kPadH;  // q/do/k/v tiles (bf16)
-  static constexpr int LDS = kB + kPadF;  // S and dP (f32)
-  static constexpr int LDP = 2 * LDS;     // P over S's rows, dS over dP's rows (bf16)
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = align32(q + sizeof(bf16) * kB * LDH);
-  static constexpr size_t k = align32(dout + sizeof(bf16) * kB * LDH);
-  static constexpr size_t v = align32(k + sizeof(bf16) * kB * LDH);
-  static constexpr size_t s = align32(v + sizeof(bf16) * kB * LDH);
-  static constexpr size_t dp = align32(s + sizeof(float) * kB * LDS);
-  static constexpr size_t lse = align32(dp + sizeof(float) * kB * LDS);
-  static constexpr size_t di = lse + sizeof(float) * kB;
-  static constexpr size_t segq = di + sizeof(float) * kB;
-  static constexpr size_t segk = segq + sizeof(int) * kB;
-  static constexpr size_t ranges = segk + sizeof(int) * kB;
-  static size_t bytes(int nt) { return ranges + sizeof(int) * 2 * nt; }
+struct BwdCfg {
+  static constexpr int stages = 2;
+  static constexpr int min_blocks = HD == 128 ? 2 : 3;
+  static constexpr int LDH = HD + kPad;
+  static constexpr size_t tile = sizeof(bf16) * kT * LDH;
+  static constexpr size_t rows = 3 * sizeof(int) * kT;  // ids, lse, di of one stage
+  static constexpr size_t ring = 2 * tile;               // after the K and V tiles
+  static constexpr size_t row_stats = ring + 2 * stages * tile;
+  static constexpr size_t ranges = row_stats + stages * rows;
+  static size_t bytes(int nt) { return ranges + sizeof(int) * 3 * nt; }
 };
 
-// One (query tile, key tile) pair of the backward: S = Q K^T and dP = dO V^T
-// on the tensor cores, then P = exp(S * scale - lse) under the mask and
-// dS = P * (dP - di), written as bf16 over S's rows (P) and dP's rows (dS).
+// rows r0 .. r0 + 63 of one head of a [G, L, H, HD] tensor -> a padded
+// [64][HD + kPad] shared tile by cp.async; rows past L are zero-filled, not
+// read. `head0` is the offset of (g, 0, h, 0), `rs` the elements between rows.
 template <int HD>
-__device__ __forceinline__ void bwd_p_ds(unsigned char* smem, int q0, int k0, float scale,
-                                         int tid, int warp) {
-  typedef BwdSmem<HD> SM;
-  constexpr int LDH = SM::LDH, LDS = SM::LDS, LDP = SM::LDP;
-  constexpr int kThreads = kBwdWarps * 32;
-  const bf16* q_s = reinterpret_cast<const bf16*>(smem + SM::q);
-  const bf16* do_s = reinterpret_cast<const bf16*>(smem + SM::dout);
-  const bf16* k_s = reinterpret_cast<const bf16*>(smem + SM::k);
-  const bf16* v_s = reinterpret_cast<const bf16*>(smem + SM::v);
-  float* s_s = reinterpret_cast<float*>(smem + SM::s);
-  float* dp_s = reinterpret_cast<float*>(smem + SM::dp);
-  bf16* p_s = reinterpret_cast<bf16*>(smem + SM::s);
-  bf16* ds_s = reinterpret_cast<bf16*>(smem + SM::dp);
-  const float* lse_s = reinterpret_cast<const float*>(smem + SM::lse);
-  const float* di_s = reinterpret_cast<const float*>(smem + SM::di);
-  const int* segq_s = reinterpret_cast<const int*>(smem + SM::segq);
-  const int* segk_s = reinterpret_cast<const int*>(smem + SM::segk);
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* __restrict__ src, size_t head0, size_t rs,
+                                          int r0, int L, int tid) {
+  constexpr int kChunks = HD / 8, LDH = HD + kPad;
+  static_assert(kT * kChunks % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < kT * kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads, rr = c / kChunks, ch = c % kChunks, l = r0 + rr;
+    const bool ok = l < L;
+    cp_async16(dst + rr * LDH + ch * 8, src + (ok ? head0 + (size_t)l * rs + ch * 8 : 0), ok);
+  }
+}
 
-  // 16 tiles of 16 x 16 in S and in dP; warp w takes tiles w and w + 8
+// acc[16 x 64] = A[16 x HD] B^T, A this warp's fragments from registers or a
+// padded shared tile (16 rows from `a_s`), B the 64 rows of a padded shared
+// tile: the S = Q K^T pattern of K2 (K read by ldmatrix, not transposed).
+template <int HD>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (*a_reg)[4], const bf16* a_s,
+                                        const bf16* b_s, int lane) {
+  constexpr int LDH = HD + kPad;
 #pragma unroll
-  for (int t = warp; t < 16; t += kBwdWarps) {
-    const int ti = t / 4, tj = t % 4;
-    FragC acc_s, acc_dp;
-    wmma::fill_fragment(acc_s, 0.f);
-    wmma::fill_fragment(acc_dp, 0.f);
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; d += 16) {
-      FragARow a;
-      FragBCol b;
-      wmma::load_matrix_sync(a, q_s + 16 * ti * LDH + d, LDH);
-      wmma::load_matrix_sync(b, k_s + 16 * tj * LDH + d, LDH);
-      wmma::mma_sync(acc_s, a, b, acc_s);
-      wmma::load_matrix_sync(a, do_s + 16 * ti * LDH + d, LDH);
-      wmma::load_matrix_sync(b, v_s + 16 * tj * LDH + d, LDH);
-      wmma::mma_sync(acc_dp, a, b, acc_dp);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    if (a_reg != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a_reg[kk][i];
+    } else {
+      ldsm_x4(a, a_s + (lane & 15) * LDH + 16 * kk + (lane >> 4) * 8);
     }
-    wmma::store_matrix_sync(s_s + 16 * ti * LDS + 16 * tj, acc_s, LDS, wmma::mem_row_major);
-    wmma::store_matrix_sync(dp_s + 16 * ti * LDS + 16 * tj, acc_dp, LDS, wmma::mem_row_major);
-  }
-  __syncthreads();
-  // 4096 elements over 256 threads: read all, sync, then overwrite in place
-  constexpr int kPer = kB * kB / kThreads;
-  float pv[kPer], dsv[kPer];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / kB, c = e % kB;
-    const int sq = segq_s[r];
-    const bool ok = sq != 0 && segk_s[c] == sq && k0 + c <= q0 + r;
-    const float p = ok ? __expf(s_s[r * LDS + c] * scale - lse_s[r]) : 0.f;
-    pv[i] = p;
-    dsv[i] = p * (dp_s[r * LDS + c] - di_s[r]);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / kB, c = e % kB;
-    p_s[r * LDP + c] = __float2bfloat16(pv[i]);
-    ds_s[r * LDP + c] = __float2bfloat16(dsv[i]);
-  }
-  __syncthreads();
-}
-
-// load lse, di and the segment ids of query rows [q0, q0 + kB)
-template <int HD>
-__device__ __forceinline__ void load_row_stats(unsigned char* smem, const float* __restrict__ lse,
-                                               const float* __restrict__ di,
-                                               const int* __restrict__ segg, int g, int h,
-                                               int q0, int L, int H, int tid) {
-  typedef BwdSmem<HD> SM;
-  float* lse_s = reinterpret_cast<float*>(smem + SM::lse);
-  float* di_s = reinterpret_cast<float*>(smem + SM::di);
-  int* segq_s = reinterpret_cast<int*>(smem + SM::segq);
-  for (int r = tid; r < kB; r += kBwdWarps * 32) {
-    const int l = q0 + r;
-    const bool in = l < L;
-    const size_t idx = ((size_t)g * L + l) * H + h;
-    lse_s[r] = in ? lse[idx] : 0.f;
-    di_s[r] = in ? di[idx] : 0.f;
-    segq_s[r] = in ? segg[l] : 0;
-  }
-}
-
-// write a warp's 16 x 16 accumulator tile, times `mul`, as bf16 rows
-// [row0, row0 + 16) x cols [col0, col0 + 16) of one head; rows >= L skipped
-__device__ __forceinline__ void store_acc(const FragC& acc, float* stage, bf16* __restrict__ base,
-                                          int row0, int col0, int L, size_t rs, float mul,
-                                          int lane) {
-  wmma::store_matrix_sync(stage, acc, kStageLd, wmma::mem_row_major);
-  __syncwarp();
-  const int rr = lane >> 1, c0 = (lane & 1) * 8;
-  const int l = row0 + rr;
-  if (l < L) {
-    bf16* dst = base + (size_t)l * rs + col0 + c0;
-#pragma unroll
-    for (int c = 0; c < 8; c += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(
-          stage[rr * kStageLd + c0 + c] * mul, stage[rr * kStageLd + c0 + c + 1] * mul);
+    for (int jj = 0; jj < 4; ++jj) {
+      uint32_t b[4];
+      ldsm_x4(b, b_s + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * LDH + 16 * kk + ((lane >> 3) & 1) * 8);
+      mma16816(acc[2 * jj], a, b[0], b[1]);
+      mma16816(acc[2 * jj + 1], a, b[2], b[3]);
     }
   }
-  __syncwarp();
 }
 
+// acc[16 x HD] += A B, A the bf16 fragments of 16 rows x 16 of the 64 tile
+// rows (slice kk), B rows 16 kk .. 16 kk + 15 of a padded shared tile read
+// by ldmatrix.trans: the O += P V pattern of K2.
 template <int HD>
-__global__ void __launch_bounds__(kBwdWarps * 32) flash_bwd_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H,
-    float scale) {
-  typedef BwdSmem<HD> SM;
-  constexpr int LDH = SM::LDH, LDP = SM::LDP;
-  constexpr int kThreads = kBwdWarps * 32;
-  constexpr int kFr = HD / 32;  // accumulator tiles per warp (of dK and of dV)
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + SM::dout);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + SM::v);
-  const bf16* p_s = reinterpret_cast<const bf16*>(smem + SM::s);
-  const bf16* ds_s = reinterpret_cast<const bf16*>(smem + SM::dp);
-  int* segk_s = reinterpret_cast<int*>(smem + SM::segk);
-  const int nt = (L + kB - 1) / kB;
-  int* lo_s = reinterpret_cast<int*>(smem + SM::ranges);
-  int* hi_s = lo_s + nt;
-
-  const int kt = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t rs = (size_t)H * HD;
-  const size_t head0 = (size_t)g * L * rs + (size_t)h * HD;
-  const int* segg = seg + (size_t)g * L;
-  const int k0 = kt * kB;
-  const int rstrip = warp % 4;            // key rows 16*rstrip.. of the tile
-  const int col0 = (warp / 4) * (HD / 2);  // head-dim columns this warp owns
-
-  tile_segment_ranges(segg, L, nt, lo_s, hi_s, warp, lane, kBwdWarps);
-  load_tile<HD>(k_s, k + head0, k0, L, rs, tid, kThreads);
-  load_tile<HD>(v_s, v + head0, k0, L, rs, tid, kThreads);
-  for (int j = tid; j < kB; j += kThreads) segk_s[j] = k0 + j < L ? segg[k0 + j] : 0;
-  __syncthreads();
-
-  FragC acc_dk[kFr], acc_dv[kFr];
+__device__ __forceinline__ void mma_ab(float (&acc)[HD / 8][4], const uint32_t (&a)[4], const bf16* b_s, int kk,
+                                       int lane) {
+  constexpr int LDH = HD + kPad;
 #pragma unroll
-  for (int j = 0; j < kFr; ++j) {
-    wmma::fill_fragment(acc_dk[j], 0.f);
-    wmma::fill_fragment(acc_dv[j], 0.f);
-  }
-  const int klo = lo_s[kt], khi = hi_s[kt];
-  for (int qt = kt; qt < nt; ++qt) {  // earlier query tiles see none of these keys
-    if (!ranges_meet(lo_s[qt], hi_s[qt], klo, khi)) continue;
-    const int q0 = qt * kB;
-    load_tile<HD>(q_s, q + head0, q0, L, rs, tid, kThreads);
-    load_tile<HD>(do_s, dout + head0, q0, L, rs, tid, kThreads);
-    load_row_stats<HD>(smem, lse, di, segg, g, h, q0, L, H, tid);
-    __syncthreads();
-    bwd_p_ds<HD>(smem, q0, k0, scale, tid, warp);
-    // dV += P^T dO ; dK += dS^T Q  (P^T, dS^T read as column-major)
-#pragma unroll
-    for (int j = 0; j < kFr; ++j) {
-      const int c = col0 + 16 * j;
-#pragma unroll
-      for (int s = 0; s < kB / 16; ++s) {
-        FragACol a;
-        FragBRow b;
-        wmma::load_matrix_sync(a, p_s + 16 * s * LDP + 16 * rstrip, LDP);
-        wmma::load_matrix_sync(b, do_s + 16 * s * LDH + c, LDH);
-        wmma::mma_sync(acc_dv[j], a, b, acc_dv[j]);
-        wmma::load_matrix_sync(a, ds_s + 16 * s * LDP + 16 * rstrip, LDP);
-        wmma::load_matrix_sync(b, q_s + 16 * s * LDH + c, LDH);
-        wmma::mma_sync(acc_dk[j], a, b, acc_dk[j]);
-      }
-    }
-    __syncthreads();  // q_s / do_s / P / dS are reloaded next iteration
-  }
-
-  // staging: a [16][kStageLd] f32 tile per warp over the (now free) S region
-  float* stage = reinterpret_cast<float*>(smem + SM::s) + warp * 16 * kStageLd;
-#pragma unroll
-  for (int j = 0; j < kFr; ++j) {
-    const int c = col0 + 16 * j;
-    store_acc(acc_dk[j], stage, dk + head0, k0 + 16 * rstrip, c, L, rs, scale, lane);
-    store_acc(acc_dv[j], stage, dv + head0, k0 + 16 * rstrip, c, L, rs, 1.f, lane);
+  for (int dd = 0; dd < HD / 16; ++dd) {
+    uint32_t b[4];
+    ldsm_x4_t(b, b_s + (16 * kk + (lane & 15)) * LDH + 16 * dd + (lane >> 4) * 8);
+    mma16816(acc[2 * dd], a, b[0], b[1]);
+    mma16816(acc[2 * dd + 1], a, b[2], b[3]);
   }
 }
 
+// this thread's rows (gq, gq + 8 of its warp's 16) of a [16 x HD] f32
+// accumulator, times `mul`, as bf16 rows of one head; rows past L skipped
 template <int HD>
-__global__ void __launch_bounds__(kBwdWarps * 32) flash_bwd_dq_kernel(
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[HD / 8][4], const int (&row)[2],
+                                           size_t head0, size_t rs, int L, float mul, int tq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= L) continue;
+    bf16* out = dst + head0 + (size_t)row[r] * rs;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * tq) =
+          __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+  }
+}
+
+// K4: dQ = scale dS K over the KV tiles 0 .. qt of one query tile, with
+// P = exp(S scale - lse) and dS = P (dP - di) recomputed in registers.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, BwdCfg<HD>::min_blocks) flash_bwd_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ di, bf16* __restrict__ dq, int L, int H, float scale) {
-  typedef BwdSmem<HD> SM;
-  constexpr int LDH = SM::LDH, LDP = SM::LDP;
-  constexpr int kThreads = kBwdWarps * 32;
-  constexpr int kFr = HD / 32;
+  typedef FwdCfg<HD> CF;
+  constexpr int LDH = CF::LDH, kStages = CF::stages;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + SM::dout);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + SM::v);
-  const bf16* ds_s = reinterpret_cast<const bf16*>(smem + SM::dp);
-  int* segk_s = reinterpret_cast<int*>(smem + SM::segk);
-  const int nt = (L + kB - 1) / kB;
-  int* lo_s = reinterpret_cast<int*>(smem + SM::ranges);
-  int* hi_s = lo_s + nt;
 
-  const int qt = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
+  const int nt = (L + kT - 1) / kT;
+  const int h = blockIdx.x, qt = nt - 1 - static_cast<int>(blockIdx.y), g = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
   const size_t rs = (size_t)H * HD;
   const size_t head0 = (size_t)g * L * rs + (size_t)h * HD;
   const int* segg = seg + (size_t)g * L;
-  const int q0 = qt * kB;
-  const int rstrip = warp % 4;            // query rows 16*rstrip.. of the tile
-  const int col0 = (warp / 4) * (HD / 2);
+  const int q0 = qt * kT;
+  int* lo_s = reinterpret_cast<int*>(smem + CF::ranges);
+  int* hi_s = lo_s + nt;
+  int* one_s = hi_s + nt;
+  auto kv_tile = [&](int st, int kv) -> bf16* { return reinterpret_cast<bf16*>(smem + (2 * st + kv) * CF::tile); };
+  auto seg_tile = [&](int st) -> int* { return reinterpret_cast<int*>(smem + CF::segs) + st * kT; };
+  auto issue = [&](int t, int st) {  // KV tile t and its ids -> ring stage st
+    const int k0 = t * kT;
+    copy_rows<HD>(kv_tile(st, 0), k, head0, rs, k0, L, tid);
+    copy_rows<HD>(kv_tile(st, 1), v, head0, rs, k0, L, tid);
+    if (tid < kT) {
+      const bool ok = k0 + tid < L;
+      cp_async4(seg_tile(st) + tid, segg + (ok ? k0 + tid : 0), ok);
+    }
+  };
 
-  tile_segment_ranges(segg, L, nt, lo_s, hi_s, warp, lane, kBwdWarps);
-  load_tile<HD>(q_s, q + head0, q0, L, rs, tid, kThreads);
-  load_tile<HD>(do_s, dout + head0, q0, L, rs, tid, kThreads);
-  load_row_stats<HD>(smem, lse, di, segg, g, h, q0, L, H, tid);
+  // Q and dO, in flight while the tile ranges are reduced
+  copy_rows<HD>(kv_tile(kStages - 1, 0), q, head0, rs, q0, L, tid);
+  copy_rows<HD>(kv_tile(kStages - 1, 1), dout, head0, rs, q0, L, tid);
+  cp_async_commit();
+  int qrow[2], sq[2];  // this thread's rows gq and gq + 8 of its warp, their ids, lse and di
+  float lser[2], dir[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qrow[r] = q0 + 16 * warp + gq + 8 * r;
+    const bool in = qrow[r] < L;
+    const size_t idx = ((size_t)g * L + (in ? qrow[r] : 0)) * H + h;
+    sq[r] = in ? __ldg(segg + qrow[r]) : 0;
+    lser[r] = in ? __ldg(lse + idx) : 0.f;
+    dir[r] = in ? __ldg(di + idx) : 0.f;
+  }
+  fwd_tile_ranges(segg, L, 0, qt + 1, lo_s, hi_s, one_s, warp, lane);
   __syncthreads();
+  const int qlo = lo_s[qt], qhi = hi_s[qt], qone = one_s[qt];
+  auto next_tile = [&](int t) -> int {  // the next KV tile after t that can hold a valid pair, or -1
+    for (++t; t <= qt; ++t)
+      if (!(qhi < lo_s[t] || hi_s[t] < qlo)) return t;
+    return -1;
+  };
 
-  FragC acc_dq[kFr];
+  int tl[kStages];  // the ring: tl[0] computing, the rest in flight
+  tl[0] = next_tile(-1);
 #pragma unroll
-  for (int j = 0; j < kFr; ++j) wmma::fill_fragment(acc_dq[j], 0.f);
-  const int qlo = lo_s[qt], qhi = hi_s[qt];
-  for (int kt = 0; kt <= qt; ++kt) {
-    if (!ranges_meet(qlo, qhi, lo_s[kt], hi_s[kt])) continue;
-    const int k0 = kt * kB;
-    load_tile<HD>(k_s, k + head0, k0, L, rs, tid, kThreads);
-    load_tile<HD>(v_s, v + head0, k0, L, rs, tid, kThreads);
-    for (int j = tid; j < kB; j += kThreads) segk_s[j] = k0 + j < L ? segg[k0 + j] : 0;
+  for (int i = 1; i < kStages; ++i) tl[i] = -1;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i > 0 && tl[i - 1] >= 0) tl[i] = next_tile(tl[i - 1]);
+    if (tl[i] >= 0) issue(tl[i], i);
+    cp_async_commit();
+  }
+
+  // Q and dO fragments stay in registers (rows past L are zeros)
+  uint32_t qa[HD / 16][4], da[HD / 16][4];
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (16 * warp + (lane & 15)) * LDH + 16 * kk + (lane >> 4) * 8;
+    ldsm_x4(qa[kk], kv_tile(kStages - 1, 0) + off);
+    ldsm_x4(da[kk], kv_tile(kStages - 1, 1) + off);
+  }
+  // (the loop's first barrier frees the stage before it is written)
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  int st = 0;
+  while (tl[0] >= 0) {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    bwd_p_ds<HD>(smem, q0, k0, scale, tid, warp);
-    // dQ += dS K
+    {
+      const int nx = tl[kStages - 2] >= 0 ? next_tile(tl[kStages - 2]) : -1;
+      if (nx >= 0) issue(nx, (st + kStages - 1) % kStages);
+      cp_async_commit();
+      tl[kStages - 1] = nx;
+    }
+    const int kt = tl[0], k0 = kt * kT;
+    const bf16* k_t = kv_tile(st, 0);
+    const bf16* v_t = kv_tile(st, 1);
+    // bit 16 r + 2 j + e: row r's column 8 j + 2 tq + e is a valid pair
+    const bool partial = !(kt < qt && qone != 0 && one_s[kt] == qone);
+    uint32_t bits = 0xffffffffu;
+    if (partial) {
+      const int* sk = seg_tile(st);
+      bits = 0u;
 #pragma unroll
-    for (int j = 0; j < kFr; ++j) {
-      const int c = col0 + 16 * j;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int s = 0; s < kB / 16; ++s) {
-        FragARow a;
-        FragBRow b;
-        wmma::load_matrix_sync(a, ds_s + 16 * rstrip * LDP + 16 * s, LDP);
-        wmma::load_matrix_sync(b, k_s + 16 * s * LDH + c, LDH);
-        wmma::mma_sync(acc_dq[j], a, b, acc_dq[j]);
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * tq + e, sc_ = sk[c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (sq[r] != 0 && sc_ == sq[r] && k0 + c <= qrow[r]) bits |= 1u << (16 * r + 2 * j + e);
+        }
+    }
+
+    if (__any_sync(kFull, bits != 0u)) {  // some row of the warp meets this tile
+      float s[8][4], dp[8][4];
+      mma_abt<HD>(s, qa, nullptr, k_t, lane);   // S = Q K^T
+      mma_abt<HD>(dp, da, nullptr, v_t, lane);  // dP = dO V^T
+      // P = exp(S scale - lse), 0 off the mask; dS = P (dP - di), rounded
+      // once to bf16 straight into A fragments (keys 16 kk ..)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t dsa[4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = 2 * kk + hh;
+            float d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float p = __expf(s[j][2 * r + e] * scale - lser[r]);
+              if (!((bits >> (16 * r + 2 * j + e)) & 1u)) p = 0.f;
+              d[e] = p * (dp[j][2 * r + e] - dir[r]);
+            }
+            dsa[2 * hh + r] = pack_bf16(d[0], d[1]);
+          }
+        mma_ab<HD>(acc, dsa, k_t, kk, lane);  // dQ += dS K
       }
     }
-    __syncthreads();  // k_s / v_s / dS are reloaded next iteration
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) tl[i] = tl[i + 1];
+    st = st + 1 == kStages ? 0 : st + 1;
+  }
+  cp_async_wait<0>();
+  store_rows<HD>(dq, acc, qrow, head0, rs, L, scale, tq);  // padding rows: exact zeros
+}
+
+// K3: dV = P^T dO and dK = scale dS^T Q over the query tiles kt .. nt - 1 of
+// one KV tile, computed as transposes: S^T = K Q^T and dP^T = V dO^T are
+// in registers in the A-fragment layout of the two products.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, BwdCfg<HD>::min_blocks) flash_bwd_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, float scale) {
+  typedef BwdCfg<HD> CB;
+  constexpr int LDH = CB::LDH, kStages = CB::stages;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int nt = (L + kT - 1) / kT;
+  const int h = blockIdx.x, kt = blockIdx.y, g = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t rs = (size_t)H * HD;
+  const size_t head0 = (size_t)g * L * rs + (size_t)h * HD;
+  const int* segg = seg + (size_t)g * L;
+  const int k0 = kt * kT;
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + CB::tile);
+  int* lo_s = reinterpret_cast<int*>(smem + CB::ranges);
+  int* hi_s = lo_s + nt;
+  int* one_s = hi_s + nt;
+  auto qd_tile = [&](int st, int which) -> bf16* {  // which 0: Q, 1: dO
+    return reinterpret_cast<bf16*>(smem + CB::ring + (2 * st + which) * CB::tile);
+  };
+  auto ids_of = [&](int st) -> int* { return reinterpret_cast<int*>(smem + CB::row_stats + st * CB::rows); };
+  auto issue = [&](int t, int st) {  // query tile t, its ids, lse and di -> ring stage st
+    const int q0 = t * kT;
+    copy_rows<HD>(qd_tile(st, 0), q, head0, rs, q0, L, tid);
+    copy_rows<HD>(qd_tile(st, 1), dout, head0, rs, q0, L, tid);
+    const int r = tid % kT, l = q0 + r;
+    const bool ok = l < L;
+    const size_t idx = ((size_t)g * L + (ok ? l : 0)) * H + h;
+    int* ids = ids_of(st);
+    if (tid < kT) {
+      cp_async4(ids + r, segg + (ok ? l : 0), ok);
+      cp_async4(ids + kT + r, lse + idx, ok);
+    } else {
+      cp_async4(ids + 2 * kT + r, di + idx, ok);
+    }
+  };
+
+  // this block's K and V tiles, kept for the whole walk
+  copy_rows<HD>(k_s, k, head0, rs, k0, L, tid);
+  copy_rows<HD>(v_s, v, head0, rs, k0, L, tid);
+  cp_async_commit();
+  int krow[2], sk[2];  // this thread's key rows gq and gq + 8 of its warp and their ids
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    krow[r] = k0 + 16 * warp + gq + 8 * r;
+    sk[r] = krow[r] < L ? __ldg(segg + krow[r]) : 0;
+  }
+  fwd_tile_ranges(segg, L, kt, nt, lo_s, hi_s, one_s, warp, lane);
+  __syncthreads();
+  const int klo = lo_s[kt], khi = hi_s[kt], kone = one_s[kt];
+  auto next_tile = [&](int t) -> int {  // the next query tile after t that can hold a valid pair, or -1
+    for (++t; t < nt; ++t)
+      if (!(khi < lo_s[t] || hi_s[t] < klo)) return t;
+    return -1;
+  };
+
+  int tl[kStages];  // the ring: tl[0] computing, the rest in flight
+  tl[0] = next_tile(kt - 1);
+#pragma unroll
+  for (int i = 1; i < kStages; ++i) tl[i] = -1;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i > 0 && tl[i - 1] >= 0) tl[i] = next_tile(tl[i - 1]);
+    if (tl[i] >= 0) issue(tl[i], i);
+    cp_async_commit();
   }
 
-  float* stage = reinterpret_cast<float*>(smem + SM::s) + warp * 16 * kStageLd;
+  float dka[HD / 8][4], dva[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < kFr; ++j) {
-    store_acc(acc_dq[j], stage, dq + head0, q0 + 16 * rstrip, col0 + 16 * j, L, rs, scale, lane);
+  for (int n = 0; n < HD / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
+  const bf16* k_w = k_s + 16 * warp * LDH;  // this warp's 16 key rows
+  const bf16* v_w = v_s + 16 * warp * LDH;
+
+  int st = 0;
+  while (tl[0] >= 0) {
+    cp_async_wait<kStages - 2>();  // tl[0] (and, the first time, K and V) landed
+    __syncthreads();
+    {
+      const int nx = tl[kStages - 2] >= 0 ? next_tile(tl[kStages - 2]) : -1;
+      if (nx >= 0) issue(nx, (st + kStages - 1) % kStages);
+      cp_async_commit();
+      tl[kStages - 1] = nx;
+    }
+    const int qt = tl[0], q0 = qt * kT;
+    const bf16* q_t = qd_tile(st, 0);
+    const bf16* d_t = qd_tile(st, 1);
+    const int* sq = ids_of(st);
+    const float* lse_t = reinterpret_cast<const float*>(sq + kT);
+    const float* di_t = reinterpret_cast<const float*>(sq + 2 * kT);
+    // bit 16 r + 2 j + e: key row r meets query column 8 j + 2 tq + e
+    const bool partial = !(qt > kt && kone != 0 && one_s[qt] == kone);
+    uint32_t bits = 0xffffffffu;
+    if (partial) {
+      bits = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * tq + e, sc_ = sq[c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (sc_ != 0 && sc_ == sk[r] && krow[r] <= q0 + c) bits |= 1u << (16 * r + 2 * j + e);
+        }
+    }
+
+    if (__any_sync(kFull, bits != 0u)) {  // some key row of the warp meets this tile
+      float s[8][4], dp[8][4];
+      mma_abt<HD>(s, nullptr, k_w, q_t, lane);  // S^T = K Q^T
+      // P^T = exp(S^T scale - lse), lse per column; 0 off the mask
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lc = lse_t[8 * j + 2 * tq + e];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float p = __expf(s[j][2 * r + e] * scale - lc);
+            s[j][2 * r + e] = (bits >> (16 * r + 2 * j + e)) & 1u ? p : 0.f;
+          }
+        }
+      mma_abt<HD>(dp, nullptr, v_w, d_t, lane);  // dP^T = V dO^T
+      // dV += P^T dO and dK += dS^T Q, dS^T = P^T (dP^T - di): P^T and dS^T
+      // rounded once to bf16 straight into A fragments (queries 16 kk ..)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[4], dsa[4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = 2 * kk + hh, c = 8 * j + 2 * tq;
+            const float p0 = s[j][2 * r], p1 = s[j][2 * r + 1];
+            pa[2 * hh + r] = pack_bf16(p0, p1);
+            dsa[2 * hh + r] = pack_bf16(p0 * (dp[j][2 * r] - di_t[c]), p1 * (dp[j][2 * r + 1] - di_t[c + 1]));
+          }
+        mma_ab<HD>(dva, pa, d_t, kk, lane);
+        mma_ab<HD>(dka, dsa, q_t, kk, lane);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) tl[i] = tl[i + 1];
+    st = st + 1 == kStages ? 0 : st + 1;
+  }
+  cp_async_wait<0>();
+  store_rows<HD>(dk, dka, krow, head0, rs, L, scale, tq);  // padding rows: exact zeros
+  store_rows<HD>(dv, dva, krow, head0, rs, L, 1.f, tq);
 }
 
 // ---------------------------------------------------------------------------
@@ -791,17 +889,17 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* seg, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-int fwd_occupancy(int L, int* info) {
-  const size_t bytes = FwdCfg<HD>::bytes((L + kT - 1) / kT);
-  int rc = set_smem(flash_fwd_kernel<HD>, bytes);
+// a kernel's registers a thread, dynamic shared memory and blocks an SM
+// -> info[0..2]
+template <typename Kernel>
+int occupancy_of(Kernel kernel, size_t bytes, int* info) {
+  int rc = set_smem(kernel, bytes);
   if (rc != 0) return rc;
   cudaFuncAttributes attr;
-  rc = static_cast<int>(cudaFuncGetAttributes(&attr, flash_fwd_kernel<HD>));
+  rc = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
   if (rc != 0) return rc;
   int blocks = 0;
-  rc = static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_kernel<HD>, kThreads, bytes));
+  rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes));
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(bytes);
   info[2] = blocks;
@@ -809,15 +907,28 @@ int fwd_occupancy(int L, int* info) {
 }
 
 template <int HD>
+int fwd_occupancy(int L, int* info) {
+  return occupancy_of(flash_fwd_kernel<HD>, FwdCfg<HD>::bytes((L + kT - 1) / kT), info);
+}
+
+template <int HD>
+int bwd_occupancy(int L, int* info) {
+  const int nt = (L + kT - 1) / kT;
+  const int rc = occupancy_of(flash_bwd_dkv_kernel<HD>, BwdCfg<HD>::bytes(nt), info);
+  return rc != 0 ? rc : occupancy_of(flash_bwd_dq_kernel<HD>, FwdCfg<HD>::bytes(nt), info + 3);
+}
+
+template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* seg, const void* dout,
                const void* lse, const void* di, void* dk, void* dv, int G, int L, int H,
                cudaStream_t stream) {
-  const int nt = (L + kB - 1) / kB;
-  const size_t bytes = BwdSmem<HD>::bytes(nt);
+  const int nt = (L + kT - 1) / kT;
+  if (nt > 65535) return -1;  // the grid's y
+  const size_t bytes = BwdCfg<HD>::bytes(nt);
   int rc = set_smem(flash_bwd_dkv_kernel<HD>, bytes);
   if (rc != 0) return rc;
-  dim3 grid(nt, H, G);
-  flash_bwd_dkv_kernel<HD><<<grid, kBwdWarps * 32, bytes, stream>>>(
+  dim3 grid(H, nt, G);  // KV tile 0, the one most query tiles see, first
+  flash_bwd_dkv_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<bf16*>(dk),
@@ -829,12 +940,13 @@ template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* seg, const void* dout,
               const void* lse, const void* di, void* dq, int G, int L, int H,
               cudaStream_t stream) {
-  const int nt = (L + kB - 1) / kB;
-  const size_t bytes = BwdSmem<HD>::bytes(nt);
+  const int nt = (L + kT - 1) / kT;
+  if (nt > 65535) return -1;  // the grid's y
+  const size_t bytes = FwdCfg<HD>::bytes(nt);
   int rc = set_smem(flash_bwd_dq_kernel<HD>, bytes);
   if (rc != 0) return rc;
-  dim3 grid(nt, H, G);
-  flash_bwd_dq_kernel<HD><<<grid, kBwdWarps * 32, bytes, stream>>>(
+  dim3 grid(H, nt, G);  // the query tile reversed: the one with the most KV tiles first
+  flash_bwd_dq_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(seg), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<bf16*>(dq), L,
@@ -871,6 +983,17 @@ extern "C" int flash_attention_fwd_occupancy(int hd, int L, int* info) {
   switch (hd) {
     case 64: return fwd_occupancy<64>(L, info);
     case 128: return fwd_occupancy<128>(L, info);
+    default: return -1;
+  }
+}
+
+// K3's (info[0..2]) and K4's (info[3..5]) resources for rows of L tokens,
+// as flash_attention_fwd_occupancy reports K2's.
+extern "C" int flash_attention_bwd_occupancy(int hd, int L, int* info) {
+  if (L < 0) return -1;
+  switch (hd) {
+    case 64: return bwd_occupancy<64>(L, info);
+    case 128: return bwd_occupancy<128>(L, info);
     default: return -1;
   }
 }

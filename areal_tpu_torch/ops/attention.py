@@ -12,9 +12,10 @@ hand-written flash-attention kernels of ``csrc/flash_attention.cu``.
   three kernels: K2 ``flash_attention_fwd`` (forward, optionally keeping the
   per-row logsumexp), K3 ``flash_attention_bwd_dkv`` and K4
   ``flash_attention_bwd_dq``.
-- ``fwd_tile_pairs`` is the plain twin of K2's tile classification (which
-  (query tile, KV tile) pairs it skips, runs without a mask, or masks), and
-  ``occupancy`` reports K2's resources on the card.
+- ``fwd_tile_pairs`` is the plain twin of the three kernels' tile
+  classification (which (query tile, KV tile) pairs they skip, run without
+  a mask, or mask); ``occupancy`` and ``bwd_occupancy`` report K2's and
+  K3 / K4's resources on the card.
 
 Every entry point takes the model layout [G, L, H, hd] with KV heads already
 repeated to H, and segment ids [G, L] (0 = padding). Query row i attends to
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "flash_attention_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_P], ctypes.c_int),
     "flash_attention_bwd_dq": ([_P] * 8 + [_I] * 4 + [_P], ctypes.c_int),
     "flash_attention_fwd_occupancy": ([_I, _I, _P], ctypes.c_int),
+    "flash_attention_bwd_occupancy": ([_I, _I, _P], ctypes.c_int),
 }
 
 
@@ -76,7 +78,9 @@ def sdpa_plain(q, k, v, mask, head_dim: int):
 
 def fwd_tile_pairs(segment_ids: torch.Tensor) -> list[tuple[int, int, int, str]]:
     """K2's classification of every (query tile, KV tile) pair of 64-row
-    tiles, as ``(g, query tile, KV tile, kind)`` for each grid row g:
+    tiles, which K3 and K4 share (K4 walks a query tile's KV tiles, K3 a KV
+    tile's query tiles), as ``(g, query tile, KV tile, kind)`` for each grid
+    row g:
     "skipped" (the KV tile lies in the future, or the two tiles' nonzero
     segment-id ranges do not meet), "interior" (both tiles hold one and the
     same nonzero id in every row and the KV tile lies wholly before the
@@ -214,6 +218,19 @@ def occupancy(hd: int, L: int) -> dict[str, int]:
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd_occupancy failed (code {rc})")
     return {"registers": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2]}
+
+
+def bwd_occupancy(hd: int, L: int) -> dict[str, dict[str, int]]:
+    """K3's ("dkv") and K4's ("dq") registers a thread, dynamic shared
+    memory and blocks an SM for grid rows of L tokens, as ``occupancy``
+    reports K2's (needs a card)."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    info = (ctypes.c_int * 6)()
+    rc = lib.flash_attention_bwd_occupancy(hd, L, info)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_occupancy failed (code {rc})")
+    keys = ("registers", "smem_bytes", "blocks_per_sm")
+    return {"dkv": dict(zip(keys, info[:3])), "dq": dict(zip(keys, info[3:]))}
 
 
 def _launch(fn: str, *args) -> None:

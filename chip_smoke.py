@@ -5,8 +5,8 @@
     python3 chip_smoke.py --only spec,serve    # some phases, no result lines
     python3 chip_smoke.py --decode-times DIR   # kernel #1 of DIR's areal_tpu_torch
                                                # timed at the kernel phase's shapes
-    python3 chip_smoke.py --flash-times DIR    # K2 of DIR's areal_tpu_torch timed
-                                               # at the kernel_flash phase's shapes
+    python3 chip_smoke.py --flash-times DIR    # K2, K3 and K4 of DIR's areal_tpu_torch
+                                               # timed at the kernel_flash phase's shapes
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -33,9 +33,13 @@ no result line:
               bf16: O element by element, lse, padding zeros, O's bits with
               and without lse, four planted faults, sync-debug "error" on
               the first launch, occupancy and tile-pair counts; K2 and SDPA
-              times by graph replay (host loop beside) and the bound. Then
-              K3 (dK, dV) and K4 (dQ) against theirs on K2's lse at the
-              first shape, with planted faults; host-loop times.
+              times by graph replay (host loop beside) and the bound. Then,
+              at each shape, K3 (dK, dV) and K4 (dQ) against theirs on K2's
+              lse: dq, dk, dv element by element, exact zeros on padding
+              rows, the same bits on a second call and from a CUDA-graph
+              replay, three planted faults, sync-debug "error" on the first
+              launches, occupancy; K3, K4 and SDPA's backward by graph
+              replay (host loop beside) and the bounds.
 5. kernel_suffix — the paged suffix-attention kernel (#3) against its plain
               version at the same two head configs: a warm suffix prefill (8 rows
               of 64..256 suffix tokens over a shared 1,024-token prefix) and
@@ -128,6 +132,7 @@ The second-to-last line is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -247,19 +252,21 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def time_cuda_graph(fn, iters: int = 20, reps: int = 5) -> float:
+def time_cuda_graph(fn, iters: int = 20, reps: int = 5, stream: torch.cuda.Stream | None = None) -> float:
     """Mean device ms per call: ``iters`` calls captured in one CUDA graph,
     replayed ``reps`` times between CUDA events, so the host's time to
     launch a call is not in the number (``time_cuda`` measures what an
-    eager caller waits, which for a short kernel is the host's)."""
-    side = torch.cuda.Stream()
+    eager caller waits, which for a short kernel is the host's). ``stream``
+    warms up and captures on a given stream (an autograd backward runs on
+    its forward's stream, so it is captured on that one)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -605,7 +612,7 @@ def _flash_excess(got, ref, valid) -> tuple[float, float]:
     return ((g - r).abs() / (FLASH_RTOL * r.abs() + FLASH_ATOL * rms)).max().item(), rms.item()
 
 
-def _flash_check(grads, refs, valid) -> dict[str, tuple[float, float, float]]:
+def _flash_check(grads, refs, valid, shape: str) -> dict[str, tuple[float, float, float]]:
     """Hold K3/K4's dq, dk, dv to the limit; returns each one's (share of
     the limit, rms of the reference, max |diff|)."""
     errs = {}
@@ -613,7 +620,7 @@ def _flash_check(grads, refs, valid) -> dict[str, tuple[float, float, float]]:
         x, rms = _flash_excess(got, ref, valid)
         e = (got.float() - ref.float())[valid].abs().max().item()
         if not x <= 1.0:
-            raise AssertionError(f"[kernel_flash] {name}: off its plain version by {x:.3f} x the limit "
+            raise AssertionError(f"[kernel_flash] {shape} {name}: off its plain version by {x:.3f} x the limit "
                                  f"(rms {rms:.4f}, max|diff| {e:.3e})")
         errs[name] = (x, rms, e)
     return errs
@@ -690,15 +697,47 @@ def _k2_timings(q, k, v, seg) -> dict:
         )
 
 
+def _bwd_timings(q, k, v, seg, dout, lse, di) -> dict:
+    """K3 and K4 on one shape: device ms by CUDA-graph replay (``dkv_ms``,
+    ``dq_ms``) and the eager host loop beside them (``dkv_host_ms``,
+    ``dq_host_ms``). Uses only the two C entry points' wrappers, so it times
+    any tree's K3 and K4 (``--flash-times``)."""
+    from areal_tpu_torch.ops import attention as fa
+
+    def dkv():
+        return fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
+
+    def dq():
+        return fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di)
+
+    with torch.no_grad():
+        return dict(dkv_ms=time_cuda_graph(dkv), dq_ms=time_cuda_graph(dq),
+                    dkv_host_ms=time_cuda(dkv, iters=20), dq_host_ms=time_cuda(dq, iters=20))
+
+
 def flash_times() -> None:
-    """``--flash-times DIR``: K2 of the ``areal_tpu_torch`` under DIR (a tree
-    unpacked with ``git archive``, say a parent commit's) timed by
-    ``_k2_timings`` at kernel_flash's three shapes, one JSON line a shape, so
-    two trees' kernels compare by graph replay in one call."""
+    """``--flash-times DIR``: K2, K3 and K4 of the ``areal_tpu_torch`` under
+    DIR (a tree unpacked with ``git archive``, say a parent commit's) timed
+    by ``_k2_timings`` and ``_bwd_timings`` at kernel_flash's three shapes
+    (K3 and K4 on that tree's K2's lse), one JSON line a shape, so two
+    trees' kernels compare by graph replay in one call; ``bits`` digests
+    the bits of K2's O and lse and of K3 / K4's dq, dk, dv, so two trees'
+    outputs compare too."""
+    from areal_tpu_torch.ops import attention as fa
+
     for shape in FLASH_SHAPES:
-        q, k, v, _, seg, _ = _flash_inputs(shape=shape)
-        print(json.dumps({"flash_times": shape, **_k2_timings(q, k, v, seg)}), flush=True)
-        del q, k, v, seg
+        q, k, v, dout, seg, _ = _flash_inputs(shape=shape)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+            di = (dout.float() * out.float()).sum(-1)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
+            dq = fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di)
+        digest = hashlib.sha256()
+        for x in (out, lse, dq, dk, dv):
+            digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        t = {"bits": digest.hexdigest()[:16], **_k2_timings(q, k, v, seg), **_bwd_timings(q, k, v, seg, dout, lse, di)}
+        print(json.dumps({"flash_times": shape, **t}), flush=True)
+        del q, k, v, dout, seg, out, lse, di, dq, dk, dv
         torch.cuda.empty_cache()
 
 
@@ -772,81 +811,180 @@ def _kernel_flash_fwd(shape: str) -> dict:
     return dict(max_abs_err=err_o, bound_ms=bound_ms, bound_by=bound_by, occupancy=occ, tile_pairs=dict(pairs), **t)
 
 
-def phase_kernel_flash() -> dict:
-    """K2 at each of FLASH_SHAPES (``_kernel_flash_fwd``); K3 and K4 at
-    train/H12 against their plain versions on K2's lse, with planted faults,
-    and their times (host loop) beside SDPA's backward."""
+def _plain_bwd(fn, q, k, v, seg, dout, lse, di, heads: int = 4):
+    """``fn`` (the plain backward, or a planted fault of it: q, k, v, seg,
+    dO, lse, di -> dq, dk, dv) on one grid row and ``heads`` heads at a time
+    (on an 8,192-token row its f32 [1, H, L, L] intermediates are 3.2 GB
+    each at H=12), put back together as f32 [G, L, H, hd]."""
+    G, L, H, hd = q.shape
+    outs = [torch.empty((G, L, H, hd), dtype=torch.float32, device=q.device) for _ in range(3)]
+    for g in range(G):
+        for h0 in range(0, H, heads):
+            sl = (slice(g, g + 1), slice(None), slice(h0, h0 + heads))
+            parts = fn(*(x[sl] for x in (q, k, v)), seg[g : g + 1], *(x[sl] for x in (dout, lse, di)))
+            for o, part in zip(outs, parts):
+                o[sl] = part.float()
+    return outs
+
+
+def _graph_outputs(fn) -> list[torch.Tensor]:
+    """What one call of ``fn`` (returning a tuple of tensors) writes when it
+    is captured in a CUDA graph and replayed once, its outputs zeroed
+    before the replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    for o in outs:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    outs = [o.clone() for o in outs]
+    del graph
+    return outs
+
+
+def _sdpa_bwd_times(q, k, v, dout, seg) -> tuple[float, float]:
+    """A yardstick the port never calls: SDPA's backward (autograd of
+    ``scaled_dot_product_attention`` with the same boolean mask, on
+    [G, H, L, hd] copies made outside the timed region) by graph replay and
+    by host loop. The forward runs eagerly on a side stream, so its
+    backward, which autograd runs on the forward's stream, is captured
+    there."""
     from areal_tpu_torch.ops import attention as fa
 
-    shapes = {}
-    for shape in FLASH_SHAPES:
-        shapes[shape] = _kernel_flash_fwd(shape)
-        torch.cuda.empty_cache()
-    q, k, v, dout, seg, seq_lens = _flash_inputs()
+    mask = fa.attention_mask(seg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+        leaves = [x.requires_grad_(True) for x in (qt, kt, vt)]
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+    def bwd():
+        return torch.autograd.grad(o, leaves, dot, retain_graph=True)
+
+    with torch.cuda.stream(side):
+        host_ms = time_cuda(bwd, iters=5, warmup=2)
+    torch.cuda.current_stream().wait_stream(side)
+    return time_cuda_graph(bwd, iters=5, stream=side), host_ms
+
+
+def _kernel_flash_bwd(shape: str) -> dict:
+    """K3 and K4 at one of FLASH_SHAPES, on K2's lse and di: their first
+    launches under sync-debug "error"; dq, dk and dv element by element
+    against the plain backward (f32, by row and head chunk); exact zeros on
+    padding rows; the same bits on a second call and from a CUDA-graph
+    replay; three planted faults in the plain backward, each of which the
+    check must catch; occupancy; K3, K4 and SDPA's backward by graph replay
+    (host loop beside) and the bounds."""
+    from areal_tpu_torch.ops import attention as fa
+
+    q, k, v, dout, seg, seq_lens = _flash_inputs(shape=shape)
     G, L, H, hd = q.shape
     valid = seg != 0
-    per: dict[str, dict] = {}
+    occ = fa.bwd_occupancy(hd, L)
+
+    def kernels():
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
+        return fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di), dk, dv
+
     with torch.no_grad():
         out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
         di = (dout.float() * out.float()).sum(-1)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
-        dq = fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di)
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            grads = kernels()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again = kernels()
+        replayed = _graph_outputs(kernels)
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(grads, again, replayed))
+        pad_zero = all(torch.count_nonzero(x[~valid]).item() == 0 for x in grads)
+        del again, replayed
         # K3 and K4 from the kernels' lse and di, so they are held alone
-        refs = fa.flash_attention_bwd_plain(q, k, v, seg, dout, lse, di, out_dtype=torch.float32)
-        errs = _flash_check((dq, dk, dv), refs, valid)
+        def plain(*a):
+            return fa.flash_attention_bwd_plain(*a, out_dtype=torch.float32)
+
+        args = (q, k, v, seg, dout, lse, di)
+        refs = _plain_bwd(plain, *args)
+        errs = _flash_check(grads, refs, valid, shape)
+        if not pad_zero or not same_bits:
+            raise AssertionError(f"[kernel_flash] {shape} K3/K4: pad rows of dq/dk/dv zero: {pad_zero}, the same "
+                                 f"bits on a second call and from a graph replay: {same_bits}")
         faults = {
-            "S, dP rounded to bf16": _bwd_bf16_products(q, k, v, seg, dout, lse, di),
-            "lse stored in bf16": fa.flash_attention_bwd_plain(
-                q, k, v, seg, dout, lse.bfloat16().float(), di, out_dtype=torch.float32),
-            "di left out": fa.flash_attention_bwd_plain(
-                q, k, v, seg, dout, lse, torch.zeros_like(di), out_dtype=torch.float32),
+            "S, dP rounded to bf16": _bwd_bf16_products,
+            "lse stored in bf16": lambda *a: plain(*a[:5], a[5].bfloat16().float(), a[6]),
+            "di left out": lambda *a: plain(*a[:6], torch.zeros_like(a[6])),
         }
-        fault_x = {}
-        for fname, grads in faults.items():
-            fault_x[fname] = max(_flash_excess(g, r, valid)[0] for g, r in zip(grads, refs))
-            if fault_x[fname] <= 1.0:
-                raise AssertionError(f"[kernel_flash] the K3/K4 check passes a planted fault ({fname})")
-        del faults, refs
-        log(f"[kernel_flash] train/H12: K3/K4 on K2's lse, worst element as a share of the limit: " + "; ".join(
-            f"{n} {x:.3f} (rms {r:.4f}, max|diff| {e:.3e})" for n, (x, r, e) in errs.items()))
-        log("[kernel_flash] planted faults in the plain backward, worst element as a share of the "
-            "limit (each must exceed 1): " + "; ".join(f"{n} {x:.3f}" for n, x in fault_x.items()))
-        t_dkv = time_cuda(lambda: fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di), iters=20)
-        t_dq = time_cuda(lambda: fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di), iters=20)
+        fault_x = {fname: max(_flash_excess(g, r, valid)[0] for g, r in zip(_plain_bwd(fault, *args), refs))
+                   for fname, fault in faults.items()}
+        if not all(x > 1.0 for x in fault_x.values()):
+            raise AssertionError(f"[kernel_flash] {shape}: the K3/K4 check passes a planted fault: {fault_x}")
+        del refs, grads
+    t = _bwd_timings(q, k, v, seg, dout, lse, di)
+    t["library_ms"], t["library_host_ms"] = _sdpa_bwd_times(q, k, v, dout, seg)
+    bounds = _flash_bounds(G, L, H, hd, seq_lens)
+    log(f"[kernel_flash] {shape}: K3/K4 on K2's lse, first launches under sync-debug \"error\"; worst element as a "
+        f"share of the limit: " + "; ".join(f"{n} {x:.3f} (rms {r:.4f}, max|diff| {e:.3e})" for n, (x, r, e) in
+                                             errs.items())
+        + "; pad rows of dq/dk/dv zero; the same bits on a second call and from a graph replay; planted faults "
+        "(each must exceed 1): " + "; ".join(f"{n} {x:.3g}" for n, x in fault_x.items())
+        + "; " + "; ".join(f"{n} {o['registers']} registers a thread, {o['smem_bytes']} B shared memory, "
+                           f"{o['blocks_per_sm']} blocks an SM" for n, o in occ.items()))
+    b3, b4 = bounds["flash_attention_bwd_dkv"], bounds["flash_attention_bwd_dq"]
+    log(f"[kernel_flash] {shape}: K3 {t['dkv_ms']:.4f} ms, K4 {t['dq_ms']:.4f} ms, together "
+        f"{t['dkv_ms'] + t['dq_ms']:.4f}; SDPA backward {t['library_ms']:.4f} ms (device time by graph replay; host "
+        f"loop: K3 {t['dkv_host_ms']:.4f}, K4 {t['dq_host_ms']:.4f}, SDPA {t['library_host_ms']:.4f}); bounds K3 "
+        f"{b3[0]:.4f} ms ({b3[1]}), K4 {b4[0]:.4f} ms ({b4[1]})")
+    res = {}
+    for name, key, err in (("flash_attention_bwd_dkv", "dkv", max(errs["dk"][2], errs["dv"][2])),
+                           ("flash_attention_bwd_dq", "dq", errs["dq"][2])):
+        res[name] = dict(ms=t[f"{key}_ms"], host_ms=t[f"{key}_host_ms"], library_ms=t["library_ms"],
+                         library_host_ms=t["library_host_ms"], bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                         max_abs_err=err, occupancy=occ[key])
+    return res
+
+
+def phase_kernel_flash() -> dict:
+    """K2 (``_kernel_flash_fwd``), then K3 and K4 (``_kernel_flash_bwd``),
+    at each of FLASH_SHAPES; the plain versions' times at train/H12."""
+    from areal_tpu_torch.ops import attention as fa
+
+    shapes: dict[str, dict] = {}
+    for shape in FLASH_SHAPES:
+        shapes[shape] = {"flash_attention_fwd": _kernel_flash_fwd(shape)}
+        torch.cuda.empty_cache()
+        shapes[shape].update(_kernel_flash_bwd(shape))
+        torch.cuda.empty_cache()
+    q, k, v, dout, seg, _ = _flash_inputs()
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+        di = (dout.float() * out.float()).sum(-1)
         p_fwd = time_cuda(lambda: fa.flash_attention_fwd_plain(q, k, v, seg), iters=3, warmup=1)
         p_bwd = time_cuda(lambda: fa.flash_attention_bwd_plain(q, k, v, seg, dout, lse, di), iters=3, warmup=1)
-    # yardstick the port never calls: SDPA's backward with the same boolean
-    # mask, on [G, H, L, hd] copies made outside the timed region
-    mask = fa.attention_mask(seg)
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
-    leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
-    o_lib = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
-
-    def lib_bwd():
-        for x in leaves:
-            x.grad = None
-        o_lib.backward(dot, retain_graph=True)
-
-    lib_b = time_cuda(lib_bwd, iters=5, warmup=2)
-    del o_lib, leaves, qt, kt, vt, dot, mask
-    bounds = _flash_bounds(G, L, H, hd, seq_lens)
-    f = shapes["train/H12"]
-    per["flash_attention_fwd"] = dict(
-        max_abs_err=max(d["max_abs_err"] for d in shapes.values()), ms=f["ms"], plain_ms=p_fwd,
-        library_ms=f["library_ms"],
-        shapes={n: {x: d[x] for x in ("ms", "host_ms", "nolse_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
-                for n, d in shapes.items()})
-    per["flash_attention_bwd_dkv"] = dict(max_abs_err=max(errs["dk"][2], errs["dv"][2]), ms=t_dkv, plain_ms=p_bwd, library_ms=lib_b)
-    per["flash_attention_bwd_dq"] = dict(max_abs_err=errs["dq"][2], ms=t_dq, plain_ms=p_bwd, library_ms=lib_b)
-    for name, d in per.items():
-        d["bound_ms"], d["bound_by"] = bounds[name]
-        how = "graph replay" if name == "flash_attention_fwd" else "host loop"
-        log(f"[kernel_flash] train/H12 {name}: kernel={d['ms']:.4f} ms ({how}) plain={d['plain_ms']:.4f} ms "
-            f"sdpa={d['library_ms']:.4f} ms ({how}) bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
-    log(f"[kernel_flash] plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms); SDPA backward "
-        f"{lib_b:.4f} ms (host loop)")
-    del q, k, v, dout, out, lse, dk, dv, dq, di
+    del q, k, v, dout, seg, out, lse, di
     torch.cuda.empty_cache()
+    fields = ("ms", "host_ms", "library_ms", "library_host_ms", "bound_ms", "bound_by", "max_abs_err")
+    per = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        f = shapes["train/H12"][name]
+        per[name] = dict(
+            max_abs_err=max(d[name]["max_abs_err"] for d in shapes.values()), ms=f["ms"],
+            plain_ms=p_fwd if name == "flash_attention_fwd" else p_bwd, library_ms=f["library_ms"],
+            bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+            shapes={n: {x: d[name][x] for x in (*fields, *(("nolse_ms",) if name == "flash_attention_fwd" else ()))}
+                    for n, d in shapes.items()})
+        log(f"[kernel_flash] train/H12 {name}: kernel={f['ms']:.4f} ms plain={per[name]['plain_ms']:.4f} ms "
+            f"sdpa={f['library_ms']:.4f} ms (graph replay) bound={f['bound_ms']:.4f} ms ({f['bound_by']})")
+    log(f"[kernel_flash] the plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms)")
     return per
 
 
@@ -2003,6 +2141,14 @@ def _grpo_run(tag: str, kernels: tuple, model: dict | None = None, name: str = "
     return r
 
 
+def _flash_shares(prof: dict) -> None:
+    """Logs K2's, K3's and K4's device time in a profiled step and their
+    shares of its busy time."""
+    for what, key in (("K2", "flash_fwd_kernel"), ("K3", "flash_bwd_dkv_kernel"), ("K4", "flash_bwd_dq_kernel")):
+        us = sum(t for name, t in prof["by_name"].items() if key in name)
+        log(f"[profile]   {what} ({key}): {us / 1e3:.2f} ms, {us / prof['busy_us']:.1%} of busy")
+
+
 def _wfn(d) -> float:
     return float((np.asarray(d["loss_mask"]) > 0).sum())
 
@@ -2027,10 +2173,8 @@ def phase_train(card: str) -> dict:
 
     # one more optimizer step on a minibatch of the last batch, profiled
     mb = split_padded_tensor_dict_into_mb_list(adv, MicroBatchSpec(n_mbs=cfg.ppo_n_minibatches)).mbs[0]
-    prof = _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "optimizer step (one minibatch)", card)
-    for what, key in (("K2", "flash_fwd_kernel"), ("K3", "flash_bwd_dkv_kernel"), ("K4", "flash_bwd_dq_kernel")):
-        us = sum(t for name, t in prof["by_name"].items() if key in name)
-        log(f"[profile]   {what} ({key}): {us / 1e3:.2f} ms, {us / prof['busy_us']:.1%} of busy")
+    _flash_shares(_profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "optimizer step (one minibatch)",
+                           card))
     compute_cfg = trainer.model_cfg
 
     def by_impl(mb):
@@ -3208,8 +3352,9 @@ def phase_train_moe(card: str) -> dict:
     del kern_grads, plain_grads
 
     tree = _tree_vs_packed(trainer, r["batches"][-1], card)
-    busy = _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "MoE optimizer step (one minibatch)",
-                    card)["busy"]
+    prof = _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "MoE optimizer step (one minibatch)", card)
+    busy = prof["busy"]
+    _flash_shares(prof)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train_moe] {card}: peak torch.cuda.max_memory_allocated {peak:.2f} GiB (of the card's 80 GB)")
     del trainer, actor, r

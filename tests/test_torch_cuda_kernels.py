@@ -351,6 +351,76 @@ def test_flash_fwd_long_row(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_bwd_long_row(cuda):
+    """K3 and K4 over the same row of 8,192 tokens as the forward's test
+    (segments of 5,000 and 3,192): 128 query tiles a KV tile for K3, 128 KV
+    tiles a query tile for K4, most pairs interior."""
+    L = 8192
+    q, k, v, dout, seg = _flash_seg_case(cuda, [_segment_row(L, [(1, 5000), (2, 3192)])], 2, 128, seed=2)
+    _check_fwd_bwd(q, k, v, dout, seg, backward=True)
+
+
+def _bwd_kernels(q, k, v, dout, seg, lse, di):
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, dout, lse, di)
+    return fa.flash_attention_bwd_dq(q, k, v, seg, dout, lse, di), dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_tile_pair_kinds(cuda, hd):
+    """Grids whose tile pairs are of all three kinds (interior, partial,
+    skipped: long segments, boundaries inside and between tiles, a padded
+    tail, a row of single-token segments), dq, dk, dv against the plain
+    backward at both head dims."""
+    L = 640
+    rows = [
+        _segment_row(L, [(1, 300), (2, 256), (3, 40)]),
+        _segment_row(L, [(7, 64), (8, 64), (7, 128), (9, 384)]),
+        _segment_row(L, [(j + 1, 1) for j in range(100)] + [(200, 400)]),
+    ]
+    q, k, v, dout, seg = _flash_seg_case(cuda, rows, 3, hd, seed=7)
+    kinds = {kind for *_, kind in fa.fwd_tile_pairs(seg)}
+    assert kinds == {"interior", "partial", "skipped"}
+    _check_fwd_bwd(q, k, v, dout, seg)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bits_repeat_and_replay(cuda):
+    """K3 and K4 give the same bits on a second call and when captured in a
+    CUDA graph and replayed (no atomics, no host state read at replay)."""
+    G, L, H, hd, layout = FLASH_SHAPES["qwen2.5-1.5b-heads"]
+    q, k, v, dout, seg = _flash_case(cuda, G, L, H, hd, layout, seed=8)
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, with_lse=True)
+    di = (dout.float() * out.float()).sum(-1)
+    eager = _bwd_kernels(q, k, v, dout, seg, lse, di)
+    again = _bwd_kernels(q, k, v, dout, seg, lse, di)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _bwd_kernels(q, k, v, dout, seg, lse, di)  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _bwd_kernels(q, k, v, dout, seg, lse, di)
+    for t in replayed:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(eager, again, replayed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_occupancy(cuda):
+    for hd in (64, 128):
+        for L in (1024, 8192):
+            occ = fa.bwd_occupancy(hd, L)
+            for kernel in ("dkv", "dq"):
+                o = occ[kernel]
+                assert 0 < o["registers"] <= 255 and o["smem_bytes"] > 0 and o["blocks_per_sm"] >= 2, (hd, L, occ)
+
+
+@pytest.mark.cuda
 def test_flash_noncontiguous_segment_ids(cuda):
     """A segment id that comes back after another segment's run (and ids that
     are large, negative, unsorted), L not a multiple of 64."""

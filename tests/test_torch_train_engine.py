@@ -294,8 +294,33 @@ def test_grpo_train_steps_match_jax(mb_tokens):
     for key in flat_j:
         diff = np.abs(flat_g[key] - flat_j[key])
         assert diff.max() <= 2 * LR, (key, diff.max())
-        assert np.mean(diff <= 1e-6) > 0.99, (key, np.mean(diff <= 1e-6))
+        assert np.mean(diff <= 1e-6) > 0.99, _parted(key, flat_g, flat_j, teng, jeng)
         assert np.abs(flat_j[key] - flat_0[key]).max() > LR / 2, key  # the second step moved it
+
+
+def _parted(key, flat_g, flat_j, teng, jeng, n=4) -> str:
+    """Which elements of a leaf part between the port and JAX after the two
+    steps, by how much, and the gradients behind them: each side's Adam
+    moments, mu = (1 - b1)(b1 g1 + g2) and nu = (1 - b2)(b2 g1^2 + g2^2)
+    over the two steps' gradients g1, g2."""
+    cfg = port_cfg(TINY_QWEN2)
+    names = [name for name, _ in teng.model.named_parameters()]
+    adam = next(s for s in jax.tree_util.tree_leaves(jeng.opt_state, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(s, "mu"))
+    mom = {}
+    for m in ("mu", "nu"):
+        port = convert.to_jax_params(dict(zip(names, (t.detach() for t in getattr(teng._opt, m)))), cfg)
+        mom[m] = (dict(jax.tree_util.tree_leaves_with_path(port))[key],
+                  dict(jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, getattr(adam, m))))[key])
+    got, want = flat_g[key], flat_j[key]
+    diff = np.abs(got - want)
+    worst = np.argsort(diff, axis=None)[::-1][:n]
+    parts = []
+    for i in (np.unravel_index(w, diff.shape) for w in worst):
+        parts.append(f"{tuple(int(x) for x in i)}: port {got[i]:.9g}, jax {want[i]:.9g} (diff {diff[i]:.3g}); mu "
+                     f"port {mom['mu'][0][i]:.4g} jax {mom['mu'][1][i]:.4g}, nu port {mom['nu'][0][i]:.4g} jax "
+                     f"{mom['nu'][1][i]:.4g}")
+    return (f"{jax.tree_util.keystr(key)}: {np.mean(diff <= 1e-6):.4f} of {diff.size} within 1e-6 "
+            f"({int((diff > 1e-6).sum())} apart); the worst: " + "; ".join(parts))
 
 
 def test_eval_batch_matches_jax():
