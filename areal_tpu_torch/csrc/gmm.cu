@@ -59,24 +59,27 @@
 //
 // lhs and rhs are both bf16 or both f32; k and n multiples of 8; E <= 512.
 //
-// The same file holds the backward (gmm_bwd_lhs and tgmm, below), which
-// shares the forward's group scan, work-item search and tile stores.
+// The same file holds the backward (gmm_bwd_lhs and tgmm, below). It shares
+// the forward's group scan and work-item search; its f32 path also shares
+// the forward's tile stores (store_tile), and its bf16 path has its own
+// epilogue, a 128-wide tile staged in shared memory and stored 16 bytes a
+// thread (stage_acc, store_out).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+// bf16, kWarps (4: warp w of the forward owns columns 16w..16w+15),
+// kThreads, kFull, the cp.async copies, ldmatrix, mma16816 and pack_bf16
+#include "flash_mma.cuh"
+
 namespace {
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 constexpr int kTN = 64;        // output columns per block
-constexpr int kWarps = 4;      // warp w owns columns 16w..16w+15
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxE = 512;     // groups a block scans in shared memory
-constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 struct Tile {
@@ -87,17 +90,6 @@ struct Tile {
   static constexpr int kLdB = kTN + kPad;
   static constexpr int kLdC = kTN + 4;        // f32 staging of the output tile
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: no bytes read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Prefix sums of rows and of row tiles of kTM rows, one warp: lane l sums a
 // run of groups, a shuffle scan gives each run its start. s_off[g] is the
@@ -355,44 +347,63 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs, const int* __re
 // Mixed precision. The forward returns f32, so the cotangent `grad` arrives
 // in f32 while lhs and rhs are bf16; megablox then multiplies in f32
 // (common.py:54 select_input_dtype widens the bf16 operand). A bf16 MMA on
-// bf16(grad) would drop ~8 bits of every grad element. Instead each staged
-// grad tile is split into hi = bf16(grad) and lo = bf16(grad - hi), and two
-// bf16 MMAs (hi and lo, times the same exact bf16 operand) accumulate into
+// bf16(grad) would drop ~8 bits of every grad element. Instead each grad
+// value is split into hi = bf16(grad) and lo = bf16(grad - hi), and two
+// bf16 MMAs (lo, then hi, times the same exact bf16 operand) accumulate into
 // one f32 fragment: each product is exact in f32, and what the split drops
 // is at most 2^-16 |grad| an element (u = 2^-8 of bf16, squared). That is
 // twice the MMA work of a bf16 product, still on the tensor cores. With f32
 // operands (the f32 twins) the tiles are multiplied on the CUDA cores in
 // f32, as the forward does.
 //
-// Timed by chip_smoke.py's kernel_gmm_bwd on an H100 80GB HBM3 at 700 W, at
-// Qwen3-30B-A3B's expert shapes and M = 49,152 routed rows (bf16 out): 3.1-
-// 3.3 ms each, ~14x the bound (the WMMA rate, doubled by the split, and a
-// split-and-sync per reduction step); torch._grouped_mm on bf16 operands
-// (another function) took 0.35 ms. What they do not do yet: wgmma, TMA, the
-// split in registers, a persistent schedule.
+// What bounds them: 2 M k n flops (twice that in split MMAs) against the
+// f32 cotangent, the bf16 operand and the output. At the training shapes
+// (M = T x top-8 ~ 50k rows, ~400 rows a group) the bytes at the card's
+// peaks (tgmm's bf16 output alone is 403 MB at Qwen3-30B-A3B's gate / up);
+// in practice the work around the MMAs. Timed by chip_smoke.py's
+// kernel_gmm_bwd on an H100 80GB HBM3 at 700 W, by graph replay at M =
+// 49,152 (bf16 out): 0.99-1.04 ms each, 30-31% of the bf16 peak, ~4x the
+// bound. With the global copies skipped they take 71-81% of that, with the
+// MMAs skipped 58-74%: the MMAs and the copies, fragment reads and split
+// around them each hold about as much. The same function as one
+// torch._grouped_mm on hi and lo side by side (wgmma, TMA) takes 0.54-0.60.
+//
+// The bf16-operand path of both kernels (flash_mma.cuh's helpers):
+//   - 8 warps a block on an output tile of 128 (dLHS also 64) x 128, each
+//     warp a 16 x 128 (dLHS) or 128 x 16 (tgmm) piece of it in m16n8k16
+//     mma.sync fragments, its f32 accumulators in registers: no two warps
+//     share cotangent values (dLHS's 64-row tiles: two), so each is split
+//     once a block;
+//   - the reduction in steps of kRS = 64 over a 2-stage cp.async ring with
+//     one barrier a step: step t + 1's copy goes out while step t is
+//     multiplied. Two blocks an SM matter most: every shape of ring that
+//     left one block an SM (a deeper ring, wider tiles, more registers) was
+//     slower on the H100 (PERF.md);
+//   - the cotangent is split in registers: each warp reads the f32 values of
+//     its fragments from the staged tile and rounds them to packed hi / lo
+//     pairs right before its MMAs (split2); there is no split pass through
+//     shared memory and no barrier for one. The bf16 operand comes by
+//     ldmatrix;
+//   - the output tile goes through shared memory (the ring's space) and out
+//     as 16-byte stores, rounded once to the output dtype.
+// What they do not do yet: wgmma, TMA, warp specialisation, a persistent
+// schedule.
 // ---------------------------------------------------------------------------
 
-constexpr int kTR = 32;        // reduction step of both backward kernels: n (dLHS), rows (tgmm)
-constexpr int kLdC = kTN + 4;  // f32 staging of an output tile
+constexpr int kTR = 32;        // reduction step of the f32 path: n (dLHS), rows (tgmm)
+constexpr int kLdC = kTN + 4;  // the f32 path's staging of an output tile
 
-template <typename T>
-struct IsBf16 {
-  static constexpr bool value = false;
-};
-template <>
-struct IsBf16<bf16> {
-  static constexpr bool value = true;
-};
-
-// hi / lo halves of an f32 tile [rows, cols] (ld ldg) into two bf16 tiles (ld ldh)
-__device__ __forceinline__ void split_tile(const float* Gs, int ldg, bf16* Hs, bf16* Ls, int ldh, int rows,
-                                           int cols) {
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-    const int r = i / cols, c = i % cols;
-    const float v = Gs[r * ldg + c];
-    const bf16 h = __float2bfloat16_rn(v);
-    Hs[r * ldh + c] = h;
-    Ls[r * ldh + c] = __float2bfloat16_rn(v - __bfloat162float(h));
+// the rows [a, b) of group g, clamped to M: warp 0 sums group_sizes[0..g)
+__device__ __forceinline__ void group_rows(const int* __restrict__ group_sizes, int g, int M, int* s_rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp != 0) return;
+  int s = 0;
+  for (int i = lane; i < g; i += 32) s += max(group_sizes[i], 0);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
+  if (lane == 0) {
+    s_rows[0] = min(s, M);
+    s_rows[1] = min(s + max(group_sizes[g], 0), M);
   }
 }
 
@@ -403,146 +414,99 @@ __device__ __forceinline__ void split_tile(const float* Gs, int ldg, bf16* Hs, b
 // out in f32 or bf16 (lhs's dtype, as _gmm_bwd passes lhs[0].dtype), rows
 // at or past sum(group_sizes) exact zeros.
 //
-// What bounds it: the same as the forward (2 M k n flops against the
-// touched experts' weights and the M x (k + n) activations): at the
-// training shapes (M = T x top-8 ~ 50-100k rows, ~400-800 rows a group)
-// the bytes at the card's peaks, but the WMMA rate of this kernel, doubled
-// by the hi / lo split, in practice.
+// Both paths keep the forward's work items, (group, row tile): M / tile +
+// E + 1 of them, sized from the shapes (no host sync) and found by the same
+// scan and binary search, so no tile straddles two groups; spare items zero
+// the rows past the groups. The reduction over n runs inside the block, and
+// rhs[g] as it lies in memory ([k, n], n contiguous) is already the "col" B
+// operand, so no transposed copy of the weight stack is ever made.
 //
-// The design is the forward's, transposed in B: work items (group, row tile
-// of kTM rows), M / kTM + E + 1 of them, sized from the shapes (no host
-// sync) and found by the same scan and binary search; spare items zero the
-// rows past the groups. blockIdx.x is a tile of kTN = 64 output columns
-// (of k). The reduction over n runs inside the block in steps of kTR = 32:
-// two cp.async stages hold the f32 grad tile [kTM, 32] and the [64, 32]
-// slice rhs[g][c0.., j0..] as it lies in memory (k rows, n contiguous),
-// which is B^T: it is read by a col_major WMMA fragment, so no transposed
-// copy of the weight stack is ever made. The grad tile is split into hi /
-// lo in shared memory, then warp w multiplies output columns 16w..16w+15.
+// bf16 rhs (gmm_bwd_lhs_kernel): a block owns kBM rows x 128 columns (of
+// k). The row tile is 128 where the groups average 128 rows or more (the
+// training shapes: ~384), else 64 (a 128-row tile would be mostly the
+// zero rows past a group's end). Measured on the H100 at M = 8,192 over 128
+// groups (64 rows a group on average), 64-row tiles take 0.267 / 0.270 ms
+// at gate/up / down against 0.300 / 0.294 on 128-row tiles (chip_smoke.py
+// --gmm-bwd-times, PERF.md). Warp w owns 16 rows and all 128 columns
+// (64-row tiles: 16 rows, 64 columns); its grad fragment values are float2
+// reads of a row (the stage's rows padded to 8 mod 32 words: conflict-free),
+// its rhs fragments ldmatrix reads of rhs[g]'s rows. The grad rows are
+// read once for each 128 output columns (16 times at gate / up's k =
+// 2,048).
+// f32 rhs (gmm_bwd_lhs_f32_kernel, the f32 twins): output tiles of kTM x
+// 64, two cp.async stages of the grad [kTM, 32] and rhs[g] [64, 32], thread
+// t owning output column t % 64 of every other row.
 // ---------------------------------------------------------------------------
 
-template <typename TB>
-struct LhsTile {
-  static constexpr int kV = 16 / sizeof(TB);   // values per 16-byte copy
-  static constexpr int kLdB = kTR + kV;        // staged rhs rows (k) of kTR n-values
-  static constexpr int kLdG = kTR + 4;         // staged f32 grad rows
-  static constexpr int kLdH = kTR + 8;         // hi / lo bf16 rows
+struct LhsTile {  // the f32 path's stages
+  static constexpr int kLdB = kTR + 4;  // staged rhs rows (k) of kTR n-values
+  static constexpr int kLdG = kTR + 4;  // staged grad rows
 };
 
-template <typename TB, int kTM>
+template <int kTM>
 struct LhsSmem {
-  static constexpr int kStageG = kTM * LhsTile<TB>::kLdG;  // floats
-  static constexpr int kStageB = kTN * LhsTile<TB>::kLdB;  // TB values
-  static constexpr size_t kG = sizeof(float) * 2 * kStageG;
-  static constexpr size_t kB = sizeof(TB) * 2 * kStageB;
-  static constexpr size_t kHL = IsBf16<TB>::value ? sizeof(bf16) * 2 * kTM * LhsTile<TB>::kLdH : 0;
-  static constexpr size_t kAB = kG + kB + kHL;
+  static constexpr int kStageG = kTM * LhsTile::kLdG;  // floats
+  static constexpr int kStageB = kTN * LhsTile::kLdB;  // floats
+  static constexpr size_t kAB = sizeof(float) * 2 * (kStageG + kStageB);
   static constexpr size_t kC = sizeof(float) * kTM * kLdC;
   static constexpr size_t kBytes = kAB > kC ? kAB : kC;  // the output tile reuses the stages
 };
 
-template <typename TB, int kTM>
-__device__ __forceinline__ void load_lhs_stage(float* Gs, TB* Bs, const float* grad, const TB* rhs_g, int r0,
+template <int kTM>
+__device__ __forceinline__ void load_lhs_stage(float* Gs, float* Bs, const float* grad, const float* rhs_g, int r0,
                                                int r_end, int j0, int c0, int k, int n) {
-  using TL = LhsTile<TB>;
-  constexpr int kVecRowG = kTR / 4;
+  constexpr int kVecRow = kTR / 4;
 #pragma unroll
-  for (int i = threadIdx.x; i < kTM * kVecRowG; i += kThreads) {
-    const int r = i / kVecRowG, j = (i % kVecRowG) * 4;
+  for (int i = threadIdx.x; i < kTM * kVecRow; i += kThreads) {
+    const int r = i / kVecRow, j = (i % kVecRow) * 4;
     const bool ok = r0 + r < r_end && j0 + j < n;
     const float* src = ok ? grad + static_cast<int64_t>(r0 + r) * n + j0 + j : grad;
-    cp_async16(Gs + r * TL::kLdG + j, src, ok);
+    cp_async16(Gs + r * LhsTile::kLdG + j, src, ok);
   }
-  constexpr int kVecRowB = kTR / TL::kV;
 #pragma unroll
-  for (int i = threadIdx.x; i < kTN * kVecRowB; i += kThreads) {
-    const int c = i / kVecRowB, j = (i % kVecRowB) * TL::kV;
+  for (int i = threadIdx.x; i < kTN * kVecRow; i += kThreads) {
+    const int c = i / kVecRow, j = (i % kVecRow) * 4;
     const bool ok = c0 + c < k && j0 + j < n;
-    const TB* src = ok ? rhs_g + static_cast<int64_t>(c0 + c) * n + j0 + j : rhs_g;
-    cp_async16(Bs + c * TL::kLdB + j, src, ok);
+    const float* src = ok ? rhs_g + static_cast<int64_t>(c0 + c) * n + j0 + j : rhs_g;
+    cp_async16(Bs + c * LhsTile::kLdB + j, src, ok);
   }
 }
 
-template <int kTM>
-struct LhsMma {
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragB;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-  using TL = LhsTile<bf16>;
-  FragC acc[kTM / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int f = 0; f < kTM / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
-  }
-  // Gs [kTM, kTR] f32 grad, Bs [kTN, kTR] = rhs[g] rows; Hs / Ls scratch
-  __device__ __forceinline__ void step(const float* Gs, const bf16* Bs, bf16* Hs, bf16* Ls, int warp) {
-    split_tile(Gs, TL::kLdG, Hs, Ls, TL::kLdH, kTM, kTR);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTR; kk += 16) {
-      FragB b;  // element (j, c) at Bs[c * kLdB + j]: rhs[g]^T
-      wmma::load_matrix_sync(b, Bs + warp * 16 * TL::kLdB + kk, TL::kLdB);
-#pragma unroll
-      for (int f = 0; f < kTM / 16; ++f) {
-        FragA lo, hi;
-        wmma::load_matrix_sync(lo, Ls + f * 16 * TL::kLdH + kk, TL::kLdH);
-        wmma::load_matrix_sync(hi, Hs + f * 16 * TL::kLdH + kk, TL::kLdH);
-        wmma::mma_sync(acc[f], lo, b, acc[f]);
-        wmma::mma_sync(acc[f], hi, b, acc[f]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* Cs, int warp) {
-#pragma unroll
-    for (int f = 0; f < kTM / 16; ++f)
-      wmma::store_matrix_sync(Cs + f * 16 * kLdC + warp * 16, acc[f], kLdC, wmma::mem_row_major);
-  }
-};
-
-// f32 operands: thread t owns output column t % 64 of rows t / 64, t / 64 + 2, ...
+// thread t owns output column t % 64 of rows t / 64, t / 64 + 2, ...
 template <int kTM>
 struct LhsFma {
   static constexpr int kRows = kTM * kTN / kThreads;
-  using TL = LhsTile<float>;
   float acc[kRows];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int j = 0; j < kRows; ++j) acc[j] = 0.0f;
   }
-  __device__ __forceinline__ void step(const float* Gs, const float* Bs, bf16*, bf16*, int) {
+  __device__ __forceinline__ void step(const float* Gs, const float* Bs) {
     const int col = threadIdx.x % kTN, r0 = threadIdx.x / kTN;
 #pragma unroll 8
     for (int jj = 0; jj < kTR; ++jj) {
-      const float b = Bs[col * TL::kLdB + jj];
+      const float b = Bs[col * LhsTile::kLdB + jj];
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) acc[j] = fmaf(Gs[(r0 + j * (kThreads / kTN)) * TL::kLdG + jj], b, acc[j]);
+      for (int j = 0; j < kRows; ++j)
+        acc[j] = fmaf(Gs[(r0 + j * (kThreads / kTN)) * LhsTile::kLdG + jj], b, acc[j]);
     }
   }
-  __device__ __forceinline__ void store(float* Cs, int) {
+  __device__ __forceinline__ void store(float* Cs) {
     const int col = threadIdx.x % kTN, r0 = threadIdx.x / kTN;
 #pragma unroll
     for (int j = 0; j < kRows; ++j) Cs[(r0 + j * (kThreads / kTN)) * kLdC + col] = acc[j];
   }
 };
 
-template <typename TB, int kTM>
-struct LhsAcc;
-template <int kTM>
-struct LhsAcc<bf16, kTM> : LhsMma<kTM> {};
-template <int kTM>
-struct LhsAcc<float, kTM> : LhsFma<kTM> {};
-
-template <typename TB, typename TO, int kTM>
+template <typename TO, int kTM>
 __global__ void __launch_bounds__(kThreads)
-gmm_bwd_lhs_kernel(const float* __restrict__ grad, const TB* __restrict__ rhs, const int* __restrict__ group_sizes,
-                   TO* __restrict__ out, int M, int k, int n, int E) {
-  using SM = LhsSmem<TB, kTM>;
+gmm_bwd_lhs_f32_kernel(const float* __restrict__ grad, const float* __restrict__ rhs,
+                       const int* __restrict__ group_sizes, TO* __restrict__ out, int M, int k, int n, int E) {
+  using SM = LhsSmem<kTM>;
   __shared__ __align__(128) unsigned char smem[SM::kBytes];
   __shared__ int s_off[kMaxE + 1];
   __shared__ int s_tile[kMaxE + 1];
-  const int warp = threadIdx.x / 32;
 
   scan_groups<kTM>(group_sizes, E, s_off, s_tile);
   __syncthreads();
@@ -557,32 +521,30 @@ gmm_bwd_lhs_kernel(const float* __restrict__ grad, const TB* __restrict__ rhs, c
   }
 
   float* Gs = reinterpret_cast<float*>(smem);
-  TB* Bs = reinterpret_cast<TB*>(smem + SM::kG);
-  bf16* Hs = reinterpret_cast<bf16*>(smem + SM::kG + SM::kB);
-  bf16* Ls = Hs + kTM * LhsTile<TB>::kLdH;
-  const TB* rhs_g = rhs + static_cast<int64_t>(g) * k * n;
-  LhsAcc<TB, kTM> acc;
+  float* Bs = Gs + 2 * SM::kStageG;
+  const float* rhs_g = rhs + static_cast<int64_t>(g) * k * n;
+  LhsFma<kTM> acc;
   acc.zero();
   const int nt = (n + kTR - 1) / kTR;
   if (nt > 0) {
-    load_lhs_stage<TB, kTM>(Gs, Bs, grad, rhs_g, r0, r_end, 0, c0, k, n);
+    load_lhs_stage<kTM>(Gs, Bs, grad, rhs_g, r0, r_end, 0, c0, k, n);
     cp_async_commit();
   }
   for (int t = 0; t < nt; ++t) {
     const int cur = t & 1;
     if (t + 1 < nt)
-      load_lhs_stage<TB, kTM>(Gs + (cur ^ 1) * SM::kStageG, Bs + (cur ^ 1) * SM::kStageB, grad, rhs_g, r0, r_end,
-                              (t + 1) * kTR, c0, k, n);
+      load_lhs_stage<kTM>(Gs + (cur ^ 1) * SM::kStageG, Bs + (cur ^ 1) * SM::kStageB, grad, rhs_g, r0, r_end,
+                          (t + 1) * kTR, c0, k, n);
     cp_async_commit();
     cp_async_wait<1>();  // stage `cur` has landed
     __syncthreads();
-    acc.step(Gs + cur * SM::kStageG, Bs + cur * SM::kStageB, Hs, Ls, warp);
-    __syncthreads();  // before the next copy (and split) overwrites what this step read
+    acc.step(Gs + cur * SM::kStageG, Bs + cur * SM::kStageB);
+    __syncthreads();  // before the next copy overwrites what this step read
   }
   cp_async_wait<0>();
   __syncthreads();
   float* Cs = reinterpret_cast<float*>(smem);
-  acc.store(Cs, warp);
+  acc.store(Cs);
   __syncthreads();
   store_tile<TO, kTM>(out, Cs, kLdC, r0, r_end, c0, k);
 }
@@ -593,55 +555,60 @@ gmm_bwd_lhs_kernel(const float* __restrict__ grad, const TB* __restrict__ rhs, c
 //   out[g] [k, n] = lhs[a:b]^T @ grad[a:b]   over the group's rows [a, b)
 // out in f32 or bf16 (rhs's dtype); an empty group's matrix is zeros.
 //
-// What bounds it: 2 M k n flops against lhs (M k), grad (M n) and the E k n
-// output; at the training shapes the output and activations' bytes at the
-// card's peaks, the WMMA rate (doubled by the split) in practice.
-//
-// The design: one block per (n tile of 64, k tile of 64, group): E x
-// ceil(k / 64) x ceil(n / 64) blocks, from the shapes. Each block finds its
-// group's rows (a warp sums group_sizes[0..g)) and loops over them in steps
-// of kTR = 32 rows, so the whole reduction over rows stays in one block: no
+// Both paths: one block per (n tile, k tile, group), from the shapes. Each
+// block finds its group's rows (a warp sums group_sizes[0..g)) and loops
+// over them, so the whole reduction over rows stays in one block: no
 // atomics, no second pass, a deterministic result, and an empty group
-// writes zeros. Two cp.async stages hold lhs [32 rows, 64 k] (read by a
-// col_major fragment as lhs^T) and the f32 grad [32 rows, 64 n], split into
-// hi / lo; warp w owns output rows 16w..16w+15 (of k), all 64 columns. The
-// n tiles of one group's k tile run side by side, so they share the
-// group's rows in L2.
+// writes zeros. The n tiles of one group's k tile run side by side, so
+// they share the group's rows in L2.
+//
+// bf16 lhs (tgmm_kernel): 128 x 128 output tiles, warp w owning all 128
+// rows (of k) and 16 columns (of n). The reduction runs over rows, which is
+// the strided direction of both stages: lhs[a:b]^T comes by ldmatrix.trans
+// from the row-major stage, and the cotangent's fragment pairs (two rows,
+// one column) are gathered as single f32 reads. The f32 stage's rows are
+// padded to 4 mod 32 words, so a warp's gather (rows 2 t4 + {0, 1, 8, 9},
+// columns g8) hits 32 distinct banks, and each value is split in
+// registers, once a block (no two warps share a column). The other
+// choice, a split pass writing hi / lo once for all 8 warps and read by
+// ldmatrix.trans, reads the f32 stage as often, then writes and reads 4
+// bytes of halves a value more through shared memory, and needs a second
+// barrier a step; the gathers cost each warp 8 shared reads and 4 split
+// pairs a 16-row step, beside its 32 MMAs. Measured on the H100 (chip_smoke.py
+// --gmm-bwd-times, PERF.md): a split pass in place (each thread's 8 f32
+// values rewritten as 16 bytes of hi then 16 of lo) takes 1.26 ms at the
+// train shapes against 0.99-1.00 for the gathers, 19-27% slower at every
+// shape; and this grid is 5-6% faster than 2 x 4 warps of 64 x 32, which
+// split each value twice.
+// f32 lhs (tgmm_f32_kernel, the f32 twins): 64 x 64 output tiles in two
+// cp.async stages of 32 rows, thread t owning output column t % 64 of
+// every other row.
 // ---------------------------------------------------------------------------
 
-constexpr int kTKo = 64;  // output rows (of k) per tgmm block
+constexpr int kTKo = 64;  // the f32 path's output rows (of k) a block
 
-template <typename TA>
-struct TgTile {
-  static constexpr int kV = 16 / sizeof(TA);
-  static constexpr int kLdA = kTKo + kV;  // staged lhs rows of 64 k-values
-  static constexpr int kLdG = kTN + 4;    // staged f32 grad rows
-  static constexpr int kLdH = kTN + 8;    // hi / lo bf16 rows
+struct TgTile {  // the f32 path's stages
+  static constexpr int kLdA = kTKo + 4;  // staged lhs rows of 64 k-values
+  static constexpr int kLdG = kTN + 4;   // staged grad rows
 };
 
-template <typename TA>
 struct TgSmem {
-  static constexpr int kStageA = kTR * TgTile<TA>::kLdA;  // TA values
-  static constexpr int kStageG = kTR * TgTile<TA>::kLdG;  // floats
-  static constexpr size_t kA = sizeof(TA) * 2 * kStageA;
-  static constexpr size_t kG = sizeof(float) * 2 * kStageG;
-  static constexpr size_t kHL = IsBf16<TA>::value ? sizeof(bf16) * 2 * kTR * TgTile<TA>::kLdH : 0;
-  static constexpr size_t kAB = kA + kG + kHL;
+  static constexpr int kStageA = kTR * TgTile::kLdA;  // floats
+  static constexpr int kStageG = kTR * TgTile::kLdG;  // floats
+  static constexpr size_t kAB = sizeof(float) * 2 * (kStageA + kStageG);
   static constexpr size_t kC = sizeof(float) * kTKo * kLdC;
   static constexpr size_t kBytes = kAB > kC ? kAB : kC;
 };
 
-template <typename TA>
-__device__ __forceinline__ void load_tgmm_stage(TA* As, float* Gs, const TA* lhs, const float* grad, int r0,
+__device__ __forceinline__ void load_tgmm_stage(float* As, float* Gs, const float* lhs, const float* grad, int r0,
                                                 int r_end, int c0, int j0, int k, int n) {
-  using TL = TgTile<TA>;
-  constexpr int kVecRowA = kTKo / TL::kV;
+  constexpr int kVecRowA = kTKo / 4;
 #pragma unroll
   for (int i = threadIdx.x; i < kTR * kVecRowA; i += kThreads) {
-    const int r = i / kVecRowA, c = (i % kVecRowA) * TL::kV;
+    const int r = i / kVecRowA, c = (i % kVecRowA) * 4;
     const bool ok = r0 + r < r_end && c0 + c < k;
-    const TA* src = ok ? lhs + static_cast<int64_t>(r0 + r) * k + c0 + c : lhs;
-    cp_async16(As + r * TL::kLdA + c, src, ok);
+    const float* src = ok ? lhs + static_cast<int64_t>(r0 + r) * k + c0 + c : lhs;
+    cp_async16(As + r * TgTile::kLdA + c, src, ok);
   }
   constexpr int kVecRowG = kTN / 4;
 #pragma unroll
@@ -649,131 +616,396 @@ __device__ __forceinline__ void load_tgmm_stage(TA* As, float* Gs, const TA* lhs
     const int r = i / kVecRowG, j = (i % kVecRowG) * 4;
     const bool ok = r0 + r < r_end && j0 + j < n;
     const float* src = ok ? grad + static_cast<int64_t>(r0 + r) * n + j0 + j : grad;
-    cp_async16(Gs + r * TL::kLdG + j, src, ok);
+    cp_async16(Gs + r * TgTile::kLdG + j, src, ok);
   }
 }
 
-struct TgMma {
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragA;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-  using TL = TgTile<bf16>;
-  FragC acc[kTN / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int f = 0; f < kTN / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
-  }
-  // As [kTR rows, 64 k] lhs, Gs [kTR rows, 64 n] f32 grad; Hs / Ls scratch
-  __device__ __forceinline__ void step(const bf16* As, const float* Gs, bf16* Hs, bf16* Ls, int warp) {
-    split_tile(Gs, TL::kLdG, Hs, Ls, TL::kLdH, kTR, kTN);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTR; kk += 16) {
-      FragA a;  // element (c, r) at As[r * kLdA + c]: lhs^T
-      wmma::load_matrix_sync(a, As + kk * TL::kLdA + warp * 16, TL::kLdA);
-#pragma unroll
-      for (int f = 0; f < kTN / 16; ++f) {
-        FragB lo, hi;
-        wmma::load_matrix_sync(lo, Ls + kk * TL::kLdH + f * 16, TL::kLdH);
-        wmma::load_matrix_sync(hi, Hs + kk * TL::kLdH + f * 16, TL::kLdH);
-        wmma::mma_sync(acc[f], a, lo, acc[f]);
-        wmma::mma_sync(acc[f], a, hi, acc[f]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* Cs, int warp) {
-#pragma unroll
-    for (int f = 0; f < kTN / 16; ++f)
-      wmma::store_matrix_sync(Cs + warp * 16 * kLdC + f * 16, acc[f], kLdC, wmma::mem_row_major);
-  }
-};
-
-// f32 operands: thread t owns output column t % 64 of rows t / 64, t / 64 + 2, ...
+// thread t owns output column t % 64 of rows t / 64, t / 64 + 2, ...
 struct TgFma {
   static constexpr int kRows = kTKo * kTN / kThreads;
-  using TL = TgTile<float>;
   float acc[kRows];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int j = 0; j < kRows; ++j) acc[j] = 0.0f;
   }
-  __device__ __forceinline__ void step(const float* As, const float* Gs, bf16*, bf16*, int) {
+  __device__ __forceinline__ void step(const float* As, const float* Gs) {
     const int col = threadIdx.x % kTN, c0 = threadIdx.x / kTN;
 #pragma unroll 4
     for (int rr = 0; rr < kTR; ++rr) {
-      const float gv = Gs[rr * TL::kLdG + col];
+      const float gv = Gs[rr * TgTile::kLdG + col];
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) acc[j] = fmaf(As[rr * TL::kLdA + c0 + j * (kThreads / kTN)], gv, acc[j]);
+      for (int j = 0; j < kRows; ++j)
+        acc[j] = fmaf(As[rr * TgTile::kLdA + c0 + j * (kThreads / kTN)], gv, acc[j]);
     }
   }
-  __device__ __forceinline__ void store(float* Cs, int) {
+  __device__ __forceinline__ void store(float* Cs) {
     const int col = threadIdx.x % kTN, c0 = threadIdx.x / kTN;
 #pragma unroll
     for (int j = 0; j < kRows; ++j) Cs[(c0 + j * (kThreads / kTN)) * kLdC + col] = acc[j];
   }
 };
 
-template <typename TA>
-struct TgAcc;
-template <>
-struct TgAcc<bf16> : TgMma {};
-template <>
-struct TgAcc<float> : TgFma {};
-
-template <typename TA, typename TO>
+template <typename TO>
 __global__ void __launch_bounds__(kThreads)
-tgmm_kernel(const TA* __restrict__ lhs, const float* __restrict__ grad, const int* __restrict__ group_sizes,
-            TO* __restrict__ out, int M, int k, int n, int E) {
-  using SM = TgSmem<TA>;
-  __shared__ __align__(128) unsigned char smem[SM::kBytes];
+tgmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ grad, const int* __restrict__ group_sizes,
+                TO* __restrict__ out, int M, int k, int n, int E) {
+  __shared__ __align__(128) unsigned char smem[TgSmem::kBytes];
   __shared__ int s_rows[2];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = blockIdx.z, c0 = blockIdx.y * kTKo, j0 = blockIdx.x * kTN;
-
-  // the group's rows [a, b): a warp sums group_sizes[0..g)
-  if (warp == 0) {
-    int s = 0;
-    for (int i = lane; i < g; i += 32) s += max(group_sizes[i], 0);
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
-    if (lane == 0) {
-      s_rows[0] = min(s, M);
-      s_rows[1] = min(s + max(group_sizes[g], 0), M);
-    }
-  }
+  group_rows(group_sizes, g, M, s_rows);
   __syncthreads();
   const int a = s_rows[0], b = s_rows[1];
 
-  TA* As = reinterpret_cast<TA*>(smem);
-  float* Gs = reinterpret_cast<float*>(smem + SM::kA);
-  bf16* Hs = reinterpret_cast<bf16*>(smem + SM::kA + SM::kG);
-  bf16* Ls = Hs + kTR * TgTile<TA>::kLdH;
-  TgAcc<TA> acc;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Gs = As + 2 * TgSmem::kStageA;
+  TgFma acc;
   acc.zero();
   const int nt = (b - a + kTR - 1) / kTR;  // 0 for an empty group: zeros out
   if (nt > 0) {
-    load_tgmm_stage<TA>(As, Gs, lhs, grad, a, b, c0, j0, k, n);
+    load_tgmm_stage(As, Gs, lhs, grad, a, b, c0, j0, k, n);
     cp_async_commit();
   }
   for (int t = 0; t < nt; ++t) {
     const int cur = t & 1;
     if (t + 1 < nt)
-      load_tgmm_stage<TA>(As + (cur ^ 1) * SM::kStageA, Gs + (cur ^ 1) * SM::kStageG, lhs, grad, a + (t + 1) * kTR,
-                          b, c0, j0, k, n);
+      load_tgmm_stage(As + (cur ^ 1) * TgSmem::kStageA, Gs + (cur ^ 1) * TgSmem::kStageG, lhs, grad,
+                      a + (t + 1) * kTR, b, c0, j0, k, n);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    acc.step(As + cur * SM::kStageA, Gs + cur * SM::kStageG, Hs, Ls, warp);
+    acc.step(As + cur * TgSmem::kStageA, Gs + cur * TgSmem::kStageG);
     __syncthreads();
   }
   cp_async_wait<0>();
   __syncthreads();
   float* Cs = reinterpret_cast<float*>(smem);
-  acc.store(Cs, warp);
+  acc.store(Cs);
   __syncthreads();
   store_tile<TO, kTKo>(out + static_cast<int64_t>(g) * k * n, Cs, kLdC, c0, k, j0, n);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16-operand path: mma.sync on 128-wide tiles, the cotangent split in
+// registers.
+// ---------------------------------------------------------------------------
+
+constexpr int kMWarps = 8;
+constexpr int kMThreads = kMWarps * 32;
+constexpr int kBN = 128;       // output columns of a block
+constexpr int kLdO = kBN + 8;  // staged output rows: 8 mod 32 words, a half-warp's float2 writes conflict-free
+
+// a pair of f32 values -> hi = bf16(x) and lo = bf16(x - hi) of each, packed
+// as two MMA fragment registers (the first value in the low half)
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x, y);
+  lo = pack_bf16(x - __uint_as_float(hi << 16), y - __uint_as_float(hi & 0xffff0000u));
+}
+
+// 16 bytes of output from 4 (f32) or 8 (bf16) staged f32 values, zeros for
+// a null source
+__device__ __forceinline__ void store16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = src ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void store16(bf16* dst, const float* src) {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (src) {
+    const float4 a = *reinterpret_cast<const float4*>(src), b = *reinterpret_cast<const float4*>(src + 4);
+    u = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+  }
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// rows [r0, r_end) x columns [c0, c0 + kBN) of a [*, ld] output from the
+// staged tile Cs [kRows, kLdO] (zeros for a null Cs), 16 bytes a thread
+template <typename TO, int kRows>
+__device__ __forceinline__ void store_out(TO* out, const float* Cs, int r0, int r_end, int c0, int ld) {
+  constexpr int kV = 16 / sizeof(TO);
+  constexpr int kPerRow = kBN / kV;
+  for (int i = threadIdx.x; i < kRows * kPerRow; i += kMThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kV;
+    if (r0 + r < r_end && c0 + c < ld)
+      store16(out + static_cast<int64_t>(r0 + r) * ld + c0 + c, Cs ? Cs + r * kLdO + c : nullptr);
+  }
+}
+
+// a warp's accumulators, kF row fragments of 16 x kN column tiles of 8, into
+// the staged tile at (row0, col0)
+template <int kF, int kN>
+__device__ __forceinline__ void stage_acc(float* Cs, float (&acc)[kF][kN][4], int row0, int col0) {
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int f = 0; f < kF; ++f)
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      float* p = Cs + (row0 + 16 * f + gid) * kLdO + col0 + 8 * j + 2 * tig;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[f][j][0], acc[f][j][1]);
+      *reinterpret_cast<float2*>(p + 8 * kLdO) = make_float2(acc[f][j][2], acc[f][j][3]);
+    }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  // cheap, and per device: set before every launch rather than cached
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+}
+
+// A thread's share of one operand's stage copy. The stage holds kRows rows
+// of kVec 16-byte chunks; thread t copies chunks t, t + kMThreads, ...,
+// which lie in one column (kMThreads is a multiple of kVec), kStep rows
+// apart. So its column and first row are fixed for the whole loop, and a
+// stage costs it one pointer step and one row test a chunk.
+template <typename T, int kRows, int kVec, int kLd>
+struct CopyPlan {
+  static constexpr int kStep = kMThreads / kVec;         // rows between a thread's chunks
+  static constexpr int kPer = kRows * kVec / kMThreads;  // chunks a thread
+  static_assert(kMThreads % kVec == 0 && kRows % kStep == 0, "whole chunks a thread");
+  const int row = threadIdx.x / kVec, col = (threadIdx.x % kVec) * (16 / sizeof(T));
+
+  // rows [0, kRows) of the tile at src (a row every ld elements) into dst;
+  // rows at or past rows_ok, and the thread's column unless col_ok, are
+  // zero-filled (base: a valid address to name when nothing is read)
+  __device__ __forceinline__ void copy(T* dst, const T* src, int64_t ld, int rows_ok, bool col_ok,
+                                       const T* base) const {
+    const T* p = src + row * ld + col;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const bool ok = col_ok && row + u * kStep < rows_ok;
+      cp_async16(dst + (row + u * kStep) * kLd + col, ok ? p + u * kStep * ld : base, ok);
+    }
+  }
+};
+
+template <int kBM>
+struct LhsCfg {
+  static constexpr int kWR = kBM / 16;          // warps down the rows
+  static constexpr int kWM = kBM / kWR;         // rows a warp: 16
+  static constexpr int kFM = kWM / 16;          // its row fragments
+  static constexpr int kWC = kMWarps / kWR;     // warps across the columns
+  static constexpr int kWN = kBN / kWC;         // columns a warp: 128 (kBM 128) or 64 (kBM 64)
+  static constexpr int kRS = 64;                // reduction step (of n)
+  static constexpr int kStages = 2;             // the cp.async ring: two stages keep two blocks an SM
+  static constexpr int kLdG = kRS + 8;          // grad rows (f32): 8 mod 32 words
+  static constexpr int kLdB = kRS + 8;          // rhs rows (bf16): 144 bytes, ldmatrix conflict-free
+  static constexpr int kStageG = kBM * kLdG;    // floats
+  static constexpr int kStageB = kBN * kLdB;    // bf16 values
+  static constexpr size_t kStage = sizeof(float) * kStageG + sizeof(bf16) * kStageB;
+  static constexpr size_t kRing = kStages * kStage;
+  static constexpr size_t kOut = sizeof(float) * kBM * kLdO;
+  static constexpr size_t kBytes = kRing > kOut ? kRing : kOut;  // the output tile reuses the ring
+  static_assert(kWR * kWC == kMWarps && kWN % 16 == 0, "the warp grid");
+};
+
+// one stage: grad [kBM rows, kRS] at (r0, j0) (rows >= r_end zero) and
+// rhs[g] [kBN, kRS] at (c0, j0), both as they lie in memory
+template <int kBM>
+__device__ __forceinline__ void load_lhs_mma_stage(unsigned char* st, const float* grad, const bf16* rhs_g, int r0,
+                                                   int r_end, int j0, int c0, int k, int n) {
+  using C = LhsCfg<kBM>;
+  const CopyPlan<float, kBM, C::kRS / 4, C::kLdG> pg{};
+  const CopyPlan<bf16, kBN, C::kRS / 8, C::kLdB> pb{};
+  pg.copy(reinterpret_cast<float*>(st), grad + static_cast<int64_t>(r0) * n + j0, n, r_end - r0, j0 + pg.col < n,
+          grad);
+  pb.copy(reinterpret_cast<bf16*>(st + sizeof(float) * C::kStageG), rhs_g + static_cast<int64_t>(c0) * n + j0, n,
+          k - c0, j0 + pb.col < n, rhs_g);
+}
+
+// one stage into a warp's accumulators: kFM row fragments of 16 x kWN / 8
+// column tiles of 8, each product as lo then hi
+template <int kBM>
+__device__ __forceinline__ void lhs_mma_step(const unsigned char* st,
+                                             float (&acc)[LhsCfg<kBM>::kFM][LhsCfg<kBM>::kWN / 8][4], int row0,
+                                             int col0) {
+  using C = LhsCfg<kBM>;
+  const float* Gs = reinterpret_cast<const float*>(st);
+  const bf16* Bs = reinterpret_cast<const bf16*>(st + sizeof(float) * C::kStageG);
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < C::kRS / 16; ++kk) {
+    uint32_t b[C::kWN / 16][4];  // rhs[g]^T: per 16 columns, the B fragments of two n8 tiles
+#pragma unroll
+    for (int jj = 0; jj < C::kWN / 16; ++jj)
+      ldsm_x4(b[jj], Bs + (col0 + 16 * jj + (lane & 7) + ((lane >> 4) << 3)) * C::kLdB + 16 * kk +
+                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int f = 0; f < C::kFM; ++f) {
+      const float* g0 = Gs + (row0 + 16 * f + gid) * C::kLdG + 16 * kk + 2 * tig;
+      const float2 v0 = *reinterpret_cast<const float2*>(g0);
+      const float2 v1 = *reinterpret_cast<const float2*>(g0 + 8 * C::kLdG);
+      const float2 v2 = *reinterpret_cast<const float2*>(g0 + 8);
+      const float2 v3 = *reinterpret_cast<const float2*>(g0 + 8 * C::kLdG + 8);
+      uint32_t hi[4], lo[4];
+      split2(v0.x, v0.y, hi[0], lo[0]);
+      split2(v1.x, v1.y, hi[1], lo[1]);
+      split2(v2.x, v2.y, hi[2], lo[2]);
+      split2(v3.x, v3.y, hi[3], lo[3]);
+#pragma unroll
+      for (int jj = 0; jj < C::kWN / 16; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mma16816(acc[f][2 * jj + h], lo, b[jj][2 * h], b[jj][2 * h + 1]);
+          mma16816(acc[f][2 * jj + h], hi, b[jj][2 * h], b[jj][2 * h + 1]);
+        }
+    }
+  }
+}
+
+template <typename TO, int kBM>
+__global__ void __launch_bounds__(kMThreads, 2)
+gmm_bwd_lhs_kernel(const float* __restrict__ grad, const bf16* __restrict__ rhs, const int* __restrict__ group_sizes,
+                   TO* __restrict__ out, int M, int k, int n, int E) {
+  using C = LhsCfg<kBM>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_off[kMaxE + 1];
+  __shared__ int s_tile[kMaxE + 1];
+
+  scan_groups<kBM>(group_sizes, E, s_off, s_tile);
+  __syncthreads();
+
+  const int c0 = blockIdx.x * kBN;  // output columns: a tile of k
+  int r0, r_end;
+  const int g = find_item<kBM>(blockIdx.y, M, E, s_off, s_tile, r0, r_end);
+  if (r0 >= r_end) return;
+  if (g < 0) {  // past the real items: zero the rows past sum(group_sizes)
+    store_out<TO, kBM>(out, nullptr, r0, r_end, c0, k);
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int row0 = C::kWM * (warp / C::kWC), col0 = C::kWN * (warp % C::kWC);
+  const bf16* rhs_g = rhs + static_cast<int64_t>(g) * k * n;
+  float acc[C::kFM][C::kWN / 8][4];
+#pragma unroll
+  for (int f = 0; f < C::kFM; ++f)
+#pragma unroll
+    for (int j = 0; j < C::kWN / 8; ++j) acc[f][j][0] = acc[f][j][1] = acc[f][j][2] = acc[f][j][3] = 0.f;
+
+  const int nt = (n + C::kRS - 1) / C::kRS;
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < nt) load_lhs_mma_stage<kBM>(smem + s * C::kStage, grad, rhs_g, r0, r_end, s * C::kRS, c0, k, n);
+    cp_async_commit();
+  }
+  int cur = 0;  // the ring slot of step t
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<C::kStages - 2>();  // this thread's copies of step t have landed
+    __syncthreads();               // everyone's; and step t - 1's slot, written next, is free
+    const int nx = t + C::kStages - 1, slot = cur == 0 ? C::kStages - 1 : cur - 1;
+    if (nx < nt) load_lhs_mma_stage<kBM>(smem + slot * C::kStage, grad, rhs_g, r0, r_end, nx * C::kRS, c0, k, n);
+    cp_async_commit();
+    lhs_mma_step<kBM>(smem + cur * C::kStage, acc, row0, col0);
+    cur = cur + 1 == C::kStages ? 0 : cur + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the output tile overwrites the ring
+  float* Cs = reinterpret_cast<float*>(smem);
+  stage_acc(Cs, acc, row0, col0);
+  __syncthreads();
+  store_out<TO, kBM>(out, Cs, r0, r_end, c0, k);
+}
+
+struct TgCfg {
+  static constexpr int kBK = 128;             // output rows (of k) a block
+  static constexpr int kWJ = 8;               // warps across the columns
+  static constexpr int kWK = kMWarps / kWJ;   // warps down the rows
+  static constexpr int kWM = kBK / kWK;       // rows a warp: 128
+  static constexpr int kFM = kWM / 16;        // its row fragments
+  static constexpr int kWN = kBN / kWJ;       // columns a warp: 16
+  static constexpr int kNJ = kWN / 8;         // its column tiles
+  static constexpr int kLdA = kBK + 8;        // lhs rows (bf16): 272 bytes, ldmatrix.trans conflict-free
+  static constexpr int kLdG = kBN + 4;        // grad rows (f32): 4 mod 32 words, the row-pair gathers conflict-free
+  static constexpr int kRS = 64;              // reduction step (of rows)
+  static constexpr int kStages = 2;           // the cp.async ring: two stages keep two blocks an SM
+  static constexpr int kStageA = kRS * kLdA;  // bf16 values
+  static constexpr int kStageG = kRS * kLdG;  // floats
+  static constexpr size_t kStage = sizeof(bf16) * kStageA + sizeof(float) * kStageG;
+  static constexpr size_t kRing = kStages * kStage;
+  static constexpr size_t kOut = sizeof(float) * kBK * kLdO;
+  static constexpr size_t kBytes = kRing > kOut ? kRing : kOut;
+};
+
+// one stage: lhs [kRS rows, kBK] at (r0, c0) and grad [kRS rows, kBN] at
+// (r0, j0), rows >= r_end zero
+__device__ __forceinline__ void load_tgmm_mma_stage(unsigned char* st, const bf16* lhs, const float* grad, int r0,
+                                                    int r_end, int c0, int j0, int k, int n) {
+  const CopyPlan<bf16, TgCfg::kRS, TgCfg::kBK / 8, TgCfg::kLdA> pa{};
+  const CopyPlan<float, TgCfg::kRS, kBN / 4, TgCfg::kLdG> pg{};
+  pa.copy(reinterpret_cast<bf16*>(st), lhs + static_cast<int64_t>(r0) * k + c0, k, r_end - r0, c0 + pa.col < k, lhs);
+  pg.copy(reinterpret_cast<float*>(st + sizeof(bf16) * TgCfg::kStageA), grad + static_cast<int64_t>(r0) * n + j0, n,
+          r_end - r0, j0 + pg.col < n, grad);
+}
+
+// one stage into a warp's accumulators: kFM row fragments (of k) of 16 x
+// kNJ column tiles (of n) of 8, each product as lo then hi
+__device__ __forceinline__ void tgmm_mma_step(const unsigned char* st, float (&acc)[TgCfg::kFM][TgCfg::kNJ][4],
+                                              int row0, int col0) {
+  const bf16* As = reinterpret_cast<const bf16*>(st);
+  const float* Gs = reinterpret_cast<const float*>(st + sizeof(bf16) * TgCfg::kStageA);
+  const int lane = threadIdx.x % 32, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < TgCfg::kRS / 16; ++kk) {
+    uint32_t hi[TgCfg::kNJ][2], lo[TgCfg::kNJ][2];  // grad's B fragments: rows 16 kk + 2 tig + {0, 1}, + {8, 9}
+#pragma unroll
+    for (int j = 0; j < TgCfg::kNJ; ++j) {
+      const float* g0 = Gs + (16 * kk + 2 * tig) * TgCfg::kLdG + col0 + 8 * j + gid;
+      split2(g0[0], g0[TgCfg::kLdG], hi[j][0], lo[j][0]);
+      split2(g0[8 * TgCfg::kLdG], g0[9 * TgCfg::kLdG], hi[j][1], lo[j][1]);
+    }
+#pragma unroll
+    for (int f = 0; f < TgCfg::kFM; ++f) {
+      uint32_t a[4];  // lhs^T: the row-major stage read transposed
+      ldsm_x4_t(a, As + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * TgCfg::kLdA + row0 + 16 * f +
+                       ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < TgCfg::kNJ; ++j) {
+        mma16816(acc[f][j], a, lo[j][0], lo[j][1]);
+        mma16816(acc[f][j], a, hi[j][0], hi[j][1]);
+      }
+    }
+  }
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(kMThreads, 2)
+tgmm_kernel(const bf16* __restrict__ lhs, const float* __restrict__ grad, const int* __restrict__ group_sizes,
+            TO* __restrict__ out, int M, int k, int n, int E) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_rows[2];
+  const int g = blockIdx.z, c0 = blockIdx.y * TgCfg::kBK, j0 = blockIdx.x * kBN;
+  group_rows(group_sizes, g, M, s_rows);
+  __syncthreads();
+  const int a = s_rows[0], b = s_rows[1];
+
+  const int warp = threadIdx.x / 32;
+  const int row0 = TgCfg::kWM * (warp / TgCfg::kWJ), col0 = TgCfg::kWN * (warp % TgCfg::kWJ);
+  float acc[TgCfg::kFM][TgCfg::kNJ][4];
+#pragma unroll
+  for (int f = 0; f < TgCfg::kFM; ++f)
+#pragma unroll
+    for (int j = 0; j < TgCfg::kNJ; ++j) acc[f][j][0] = acc[f][j][1] = acc[f][j][2] = acc[f][j][3] = 0.f;
+
+  const int nt = (b - a + TgCfg::kRS - 1) / TgCfg::kRS;  // 0 for an empty group: zeros out
+#pragma unroll
+  for (int s = 0; s < TgCfg::kStages - 1; ++s) {
+    if (s < nt) load_tgmm_mma_stage(smem + s * TgCfg::kStage, lhs, grad, a + s * TgCfg::kRS, b, c0, j0, k, n);
+    cp_async_commit();
+  }
+  int cur = 0;
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<TgCfg::kStages - 2>();
+    __syncthreads();
+    const int nx = t + TgCfg::kStages - 1, slot = cur == 0 ? TgCfg::kStages - 1 : cur - 1;
+    if (nx < nt) load_tgmm_mma_stage(smem + slot * TgCfg::kStage, lhs, grad, a + nx * TgCfg::kRS, b, c0, j0, k, n);
+    cp_async_commit();
+    tgmm_mma_step(smem + cur * TgCfg::kStage, acc, row0, col0);
+    cur = cur + 1 == TgCfg::kStages ? 0 : cur + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* Cs = reinterpret_cast<float*>(smem);
+  stage_acc(Cs, acc, row0, col0);
+  __syncthreads();
+  store_out<TO, TgCfg::kBK>(out + static_cast<int64_t>(g) * k * n, Cs, c0, k, j0, n);
 }
 
 template <typename T, int kTM>
@@ -799,38 +1031,92 @@ int by_tile(int tm, const void* lhs, const void* rhs, const void* gs, void* out,
   }
 }
 
-
-template <typename TB, typename TO, int kTM>
-int launch_bwd_lhs(const void* grad, const void* rhs, const void* gs, void* out, int M, int k, int n, int E,
-                   cudaStream_t stream) {
+template <typename TO, int kTM>
+int launch_bwd_lhs_f32(const void* grad, const void* rhs, const void* gs, void* out, int M, int k, int n, int E,
+                       cudaStream_t stream) {
   const long items = static_cast<long>(M) / kTM + E + 1;
   if (items > 65535) return -1;
   dim3 grid((k + kTN - 1) / kTN, static_cast<unsigned>(items));
-  gmm_bwd_lhs_kernel<TB, TO, kTM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(grad), static_cast<const TB*>(rhs), static_cast<const int*>(gs),
+  gmm_bwd_lhs_f32_kernel<TO, kTM><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(grad), static_cast<const float*>(rhs), static_cast<const int*>(gs),
       static_cast<TO*>(out), M, k, n, E);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TB, typename TO>
-int bwd_lhs_by_tile(int tm, const void* grad, const void* rhs, const void* gs, void* out, int M, int k, int n,
-                    int E, cudaStream_t st) {
+template <typename TO>
+int bwd_lhs_f32_by_tile(int tm, const void* grad, const void* rhs, const void* gs, void* out, int M, int k, int n,
+                        int E, cudaStream_t st) {
   switch (tm) {
-    case 16: return launch_bwd_lhs<TB, TO, 16>(grad, rhs, gs, out, M, k, n, E, st);
-    case 32: return launch_bwd_lhs<TB, TO, 32>(grad, rhs, gs, out, M, k, n, E, st);
-    case 64: return launch_bwd_lhs<TB, TO, 64>(grad, rhs, gs, out, M, k, n, E, st);
+    case 16: return launch_bwd_lhs_f32<TO, 16>(grad, rhs, gs, out, M, k, n, E, st);
+    case 32: return launch_bwd_lhs_f32<TO, 32>(grad, rhs, gs, out, M, k, n, E, st);
+    case 64: return launch_bwd_lhs_f32<TO, 64>(grad, rhs, gs, out, M, k, n, E, st);
     default: return -1;
   }
 }
 
-template <typename TA, typename TO>
-int launch_tgmm(const void* lhs, const void* grad, const void* gs, void* out, int M, int k, int n, int E,
-                cudaStream_t stream) {
+template <typename TO, int kBM>
+int launch_bwd_lhs_mma(const void* grad, const void* rhs, const void* gs, void* out, int M, int k, int n, int E,
+                       cudaStream_t stream) {
+  const long items = static_cast<long>(M) / kBM + E + 1;
+  if (items > 65535) return -1;
+  const size_t bytes = LhsCfg<kBM>::kBytes;
+  const int rc = set_smem(gmm_bwd_lhs_kernel<TO, kBM>, bytes);
+  if (rc != 0) return rc;
+  dim3 grid((k + kBN - 1) / kBN, static_cast<unsigned>(items));
+  gmm_bwd_lhs_kernel<TO, kBM><<<grid, kMThreads, bytes, stream>>>(
+      static_cast<const float*>(grad), static_cast<const bf16*>(rhs), static_cast<const int*>(gs),
+      static_cast<TO*>(out), M, k, n, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 path's row tile: 128 where the groups average 128 rows or more
+template <typename TO>
+int bwd_lhs_mma(const void* grad, const void* rhs, const void* gs, void* out, int M, int k, int n, int E,
+                cudaStream_t st) {
+  return static_cast<long>(M) >= 128L * E ? launch_bwd_lhs_mma<TO, 128>(grad, rhs, gs, out, M, k, n, E, st)
+                                          : launch_bwd_lhs_mma<TO, 64>(grad, rhs, gs, out, M, k, n, E, st);
+}
+
+template <typename TO>
+int launch_tgmm_f32(const void* lhs, const void* grad, const void* gs, void* out, int M, int k, int n, int E,
+                    cudaStream_t stream) {
   if ((k + kTKo - 1) / kTKo > 65535) return -1;
   dim3 grid((n + kTN - 1) / kTN, (k + kTKo - 1) / kTKo, E);
-  tgmm_kernel<TA, TO><<<grid, kThreads, 0, stream>>>(static_cast<const TA*>(lhs), static_cast<const float*>(grad),
+  tgmm_f32_kernel<TO><<<grid, kThreads, 0, stream>>>(static_cast<const float*>(lhs), static_cast<const float*>(grad),
                                                      static_cast<const int*>(gs), static_cast<TO*>(out), M, k, n, E);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TO>
+int launch_tgmm_mma(const void* lhs, const void* grad, const void* gs, void* out, int M, int k, int n, int E,
+                    cudaStream_t stream) {
+  if ((k + TgCfg::kBK - 1) / TgCfg::kBK > 65535) return -1;
+  const int rc = set_smem(tgmm_kernel<TO>, TgCfg::kBytes);
+  if (rc != 0) return rc;
+  dim3 grid((n + kBN - 1) / kBN, (k + TgCfg::kBK - 1) / TgCfg::kBK, E);
+  tgmm_kernel<TO><<<grid, kMThreads, TgCfg::kBytes, stream>>>(static_cast<const bf16*>(lhs),
+                                                              static_cast<const float*>(grad),
+                                                              static_cast<const int*>(gs), static_cast<TO*>(out), M,
+                                                              k, n, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a kernel's registers a thread, shared memory a block (static and
+// dynamic), blocks an SM and local (spill) bytes a thread -> info[0..3]
+template <typename Kernel>
+int occupancy_of(Kernel kernel, size_t bytes, int* info) {
+  int rc = set_smem(kernel, bytes);
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  rc = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
+  if (rc != 0) return rc;
+  int blocks = 0;
+  rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kMThreads, bytes));
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.sharedSizeBytes + bytes);
+  info[2] = blocks;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return rc;
 }
 
 }  // namespace
@@ -850,9 +1136,10 @@ extern "C" int gmm_forward(const void* lhs, const void* rhs, const void* group_s
 }
 
 // dLHS = gmm(grad, rhs, transpose_rhs=True): grad [M, n] f32, rhs [E, k, n]
-// (rhs_dtype 0 f32, 1 bf16), out [M, k] (out_dtype 0 f32, 1 bf16); tm rows
-// per work item (16, 32, 64). Returns 0, a CUDA error code, or -1 for
-// arguments it does not take.
+// (rhs_dtype 0 f32, 1 bf16), out [M, k] (out_dtype 0 f32, 1 bf16); tm (16,
+// 32, 64): the f32 path's rows per work item, not read by the bf16 path
+// (128 rows where the groups average 128 or more, else 64). Returns 0, a
+// CUDA error code, or -1 for arguments it does not take.
 extern "C" int gmm_bwd_lhs(const void* grad, const void* rhs, const void* group_sizes, void* out, int M, int k,
                            int n, int E, int rhs_dtype, int out_dtype, int tm, void* stream) {
   if (M < 0 || k < 0 || n < 0 || E <= 0 || E > kMaxE || k % 8 != 0 || n % 8 != 0) return -1;
@@ -860,10 +1147,10 @@ extern "C" int gmm_bwd_lhs(const void* grad, const void* rhs, const void* group_
   if (M == 0 || k == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (rhs_dtype * 2 + out_dtype) {
-    case 0: return bwd_lhs_by_tile<float, float>(tm, grad, rhs, group_sizes, out, M, k, n, E, st);
-    case 1: return bwd_lhs_by_tile<float, bf16>(tm, grad, rhs, group_sizes, out, M, k, n, E, st);
-    case 2: return bwd_lhs_by_tile<bf16, float>(tm, grad, rhs, group_sizes, out, M, k, n, E, st);
-    case 3: return bwd_lhs_by_tile<bf16, bf16>(tm, grad, rhs, group_sizes, out, M, k, n, E, st);
+    case 0: return bwd_lhs_f32_by_tile<float>(tm, grad, rhs, group_sizes, out, M, k, n, E, st);
+    case 1: return bwd_lhs_f32_by_tile<bf16>(tm, grad, rhs, group_sizes, out, M, k, n, E, st);
+    case 2: return bwd_lhs_mma<float>(grad, rhs, group_sizes, out, M, k, n, E, st);
+    case 3: return bwd_lhs_mma<bf16>(grad, rhs, group_sizes, out, M, k, n, E, st);
     default: return -1;
   }
 }
@@ -878,10 +1165,21 @@ extern "C" int tgmm(const void* lhs, const void* grad, const void* group_sizes, 
   if (k == 0 || n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (lhs_dtype * 2 + out_dtype) {
-    case 0: return launch_tgmm<float, float>(lhs, grad, group_sizes, out, M, k, n, E, st);
-    case 1: return launch_tgmm<float, bf16>(lhs, grad, group_sizes, out, M, k, n, E, st);
-    case 2: return launch_tgmm<bf16, float>(lhs, grad, group_sizes, out, M, k, n, E, st);
-    case 3: return launch_tgmm<bf16, bf16>(lhs, grad, group_sizes, out, M, k, n, E, st);
+    case 0: return launch_tgmm_f32<float>(lhs, grad, group_sizes, out, M, k, n, E, st);
+    case 1: return launch_tgmm_f32<bf16>(lhs, grad, group_sizes, out, M, k, n, E, st);
+    case 2: return launch_tgmm_mma<float>(lhs, grad, group_sizes, out, M, k, n, E, st);
+    case 3: return launch_tgmm_mma<bf16>(lhs, grad, group_sizes, out, M, k, n, E, st);
     default: return -1;
   }
+}
+
+// The bf16-operand backward kernels with a bf16 output (the training
+// path's): registers a thread, shared memory a block, blocks an SM and
+// local (spill) bytes a thread of gmm_bwd_lhs at 128-row tiles (info[0..3])
+// and 64-row tiles (info[4..7]) and of tgmm (info[8..11]).
+extern "C" int gmm_bwd_occupancy(int* info) {
+  int rc = occupancy_of(gmm_bwd_lhs_kernel<bf16, 128>, LhsCfg<128>::kBytes, info);
+  if (rc == 0) rc = occupancy_of(gmm_bwd_lhs_kernel<bf16, 64>, LhsCfg<64>::kBytes, info + 4);
+  if (rc == 0) rc = occupancy_of(tgmm_kernel<bf16>, TgCfg::kBytes, info + 8);
+  return rc;
 }

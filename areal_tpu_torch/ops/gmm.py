@@ -20,9 +20,12 @@ two more kernels under ``GroupedMatmul``, a ``torch.autograd.Function``:
   -> ``[E, k, n]``, zeros for an empty group.
 
 Both take the f32 cotangent and multiply in f32 as megablox does with
-mixed inputs (the kernels split it into two bf16 halves, ``csrc/gmm.cu``);
+mixed inputs (with a bf16 operand the kernels split it into two bf16
+halves in registers, for mma.sync on 128-wide tiles, ``csrc/gmm.cu``);
 the output dtype is an argument (megablox's ``preferred_element_type``):
 ``lhs.dtype`` and ``rhs.dtype`` in training, as ``_gmm_bwd`` passes them.
+``bwd_occupancy`` reports the bf16 kernels' registers, shared memory,
+blocks an SM and spill bytes.
 
 Dispatch is by the device of the first operand: a CPU tensor takes the
 plain version; a CUDA tensor launches ``csrc/gmm.cu`` or raises, never
@@ -56,6 +59,7 @@ _SIGNATURES = {
     "gmm_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gmm_bwd_lhs": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "tgmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "gmm_bwd_occupancy": ([_P], ctypes.c_int),
 }
 
 
@@ -190,7 +194,7 @@ def gmm_bwd_lhs(
     group_sizes: torch.Tensor,  # [E] int32
     *,
     out_dtype: torch.dtype,  # f32 | bf16 (training: lhs.dtype)
-    tm: int | None = None,
+    tm: int | None = None,  # the f32 path's rows per work item (bf16: 128 or 64 by group size)
 ) -> torch.Tensor:
     """dLHS of ``gmm``: ``grad[a:b] @ rhs[g]^T`` per group -> [M, k] in
     ``out_dtype``, zero rows past the groups."""
@@ -200,8 +204,11 @@ def gmm_bwd_lhs(
         raise ValueError(f"gmm_bwd_lhs: unsupported device {grad.device}")
     M, n = grad.shape
     E, k, _ = rhs.shape
-    tm = pick_tile(M, E) if tm is None else tm
     _check_bwd_args("gmm_bwd_lhs", grad, rhs, group_sizes, out_dtype)
+    if rhs.dtype == torch.float32:
+        tm = pick_tile(M, E) if tm is None else tm
+    else:
+        tm = None  # the bf16 kernel picks its own row tile
     if grad.dim() != 2 or rhs.dim() != 3 or rhs.shape[2] != n:
         raise ValueError(f"gmm_bwd_lhs: grad [M, n] and rhs [E, k, n], got {tuple(grad.shape)} and {tuple(rhs.shape)}")
     _check_common("gmm_bwd_lhs", M, k, n, E, group_sizes, tm)
@@ -217,7 +224,7 @@ def gmm_bwd_lhs(
         E,
         _CODES[rhs.dtype],
         _CODES[out_dtype],
-        tm,
+        tm or 0,
         _stream(grad),
     )
     if rc != 0:
@@ -269,6 +276,20 @@ def tgmm(
 
 
 tgmm.launches = 0
+
+
+def bwd_occupancy() -> dict[str, dict[str, int]]:
+    """Registers a thread, shared memory a block (static and dynamic),
+    blocks an SM and local (spill) bytes a thread of the bf16-operand
+    backward kernels with a bf16 output, as the CUDA runtime reports them:
+    ``gmm_bwd_lhs`` at 128- and 64-row tiles, ``tgmm`` (needs a card)."""
+    info = (ctypes.c_int * 12)()
+    rc = _lib().gmm_bwd_occupancy(info)
+    if rc != 0:
+        raise RuntimeError(f"gmm_bwd_occupancy failed (code {rc})")
+    keys = ("registers", "smem_bytes", "blocks_per_sm", "local_bytes")
+    return {name: dict(zip(keys, info[4 * i:4 * i + 4]))
+            for i, name in enumerate(("gmm_bwd_lhs/128", "gmm_bwd_lhs/64", "tgmm"))}
 
 
 def _lib():

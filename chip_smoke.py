@@ -7,6 +7,8 @@
                                                # timed at the kernel phase's shapes
     python3 chip_smoke.py --flash-times DIR    # K2, K3 and K4 of DIR's areal_tpu_torch
                                                # timed at the kernel_flash phase's shapes
+    python3 chip_smoke.py --gmm-bwd-times DIR  # gmm_bwd_lhs and tgmm of DIR's areal_tpu_torch
+                                               # timed at the kernel_gmm_bwd phase's shapes
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -77,7 +79,8 @@ no result line:
               of the train_tree wave (prompts of 445 and 349 tokens, 4
               branches of 128 each) and an agentic trie branching at several
               depths; three planted faults in the mask words; kernel / plain
-              / SDPA-yardstick times and the bounds over the set bits.
+              / SDPA-yardstick times (kernels and SDPA by graph replay, the
+              host loop beside) and the bounds over the set bits.
 11. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
@@ -99,9 +102,12 @@ no result line:
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
               train_moe's minibatch grid, f32 cotangent, f32 and bf16
-              outputs, 64 rows past the groups; three planted faults;
-              kernel / plain / f32 torch.mm loop / torch._grouped_mm (bf16)
-              times and the bound.
+              outputs, 64 rows past the groups; three planted faults; the
+              bf16 kernels' registers, spills, shared memory and blocks an
+              SM; kernel (graph replay, host loop beside) / plain / f32
+              torch.mm loop / torch._grouped_mm on hi and lo side by side
+              (the same function) and on bf16(grad) (another) times and the
+              bound.
 14. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
@@ -122,7 +128,8 @@ no result line:
               backward's (norm and cosines; experts no token reached get
               exact zeros); one MoE tree step through
               ``tree_forward_logprobs_pallas`` against the packed path; a
-              profiled optimizer step and the peak memory.
+              profiled optimizer step (gmm's backward kernels' share of its
+              busy time) and the peak memory.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -848,16 +855,16 @@ def _graph_outputs(fn) -> list[torch.Tensor]:
     return outs
 
 
-def _sdpa_bwd_times(q, k, v, dout, seg) -> tuple[float, float]:
+def _sdpa_bwd_times(q, k, v, dout, seg, mask=None) -> tuple[float, float]:
     """A yardstick the port never calls: SDPA's backward (autograd of
-    ``scaled_dot_product_attention`` with the same boolean mask, on
-    [G, H, L, hd] copies made outside the timed region) by graph replay and
-    by host loop. The forward runs eagerly on a side stream, so its
-    backward, which autograd runs on the forward's stream, is captured
-    there."""
+    ``scaled_dot_product_attention`` with the same boolean mask, ``seg``'s
+    or ``mask``, on [G, H, L, hd] copies made outside the timed region) by
+    graph replay and by host loop. The forward runs eagerly on a side
+    stream, so its backward, which autograd runs on the forward's stream, is
+    captured there."""
     from areal_tpu_torch.ops import attention as fa
 
-    mask = fa.attention_mask(seg)
+    mask = fa.attention_mask(seg) if mask is None else mask
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1395,10 +1402,14 @@ def phase_kernel_tree() -> dict:
                 + ", ".join(f"{n} {x:.3f} (max|diff| {e:.3e})" for n, (x, _, e) in errs.items())
                 + f"; max|lse - plain| {err_lse:.2e}; planted faults "
                 + ", ".join(f"{n} {x:.1f}" for n, x in fault_x.items()))
-            t_fwd = time_cuda(lambda: ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True), iters=20)
-            t_dq = time_cuda(lambda: ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta), iters=20)
-            t_dkv = time_cuda(lambda: ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta),
-                              iters=20)
+            kern = {
+                "tree_attention_fwd": lambda: ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True),
+                "tree_attention_bwd_dq": lambda: ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta),
+                "tree_attention_bwd_dkv": lambda: ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse,
+                                                                            delta),
+            }
+            # device time by graph replay, the eager host loop beside it
+            times = {name: (time_cuda_graph(fn), time_cuda(fn, iters=20)) for name, fn in kern.items()}
             p_fwd = time_cuda(lambda: ta.tree_attention_fwd_plain(q, k, v, words, block_any), iters=3, warmup=1)
             p_bwd = time_cuda(lambda: ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta),
                               iters=3, warmup=1)
@@ -1406,33 +1417,29 @@ def phase_kernel_tree() -> dict:
         # expanded from the bits (padded rows attend themselves, so no row
         # is empty), on [1, H, N, hd] copies made outside the timed region
         dense = (mask | (torch.eye(N, dtype=torch.bool, device="cuda") & ~valid[:, None]))[None, None]
-        qt, kt, vt, dot = (x.transpose(0, 1)[None].contiguous() for x in (q, k, v, dout))
+        qt, kt, vt = (x.transpose(0, 1)[None].contiguous() for x in (q, k, v))
         with torch.no_grad():
-            lib_fwd = time_cuda(lambda: sdpa(qt, kt, vt, attn_mask=dense), iters=5, warmup=2)
-        leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
-        o_lib = sdpa(*leaves, attn_mask=dense)
-
-        def lib_bwd():
-            for x in leaves:
-                x.grad = None
-            o_lib.backward(dot, retain_graph=True)
-
-        lib_b = time_cuda(lib_bwd, iters=5, warmup=2)
-        del o_lib, leaves, qt, kt, vt, dot, dense, mask
+            lib_fwd = (time_cuda_graph(lambda: sdpa(qt, kt, vt, attn_mask=dense), iters=5),
+                       time_cuda(lambda: sdpa(qt, kt, vt, attn_mask=dense), iters=5, warmup=2))
+        lib_b = _sdpa_bwd_times(q[None], k[None], v[None], dout[None], None, mask=dense)
+        del qt, kt, vt, dense, mask
         bounds = _tree_bounds(N, H, hd, set_bits)
         res = {
-            "tree_attention_fwd": dict(max_abs_err=err_o, ms=t_fwd, plain_ms=p_fwd, library_ms=lib_fwd),
-            "tree_attention_bwd_dq": dict(max_abs_err=errs["dq"][2], ms=t_dq, plain_ms=p_bwd, library_ms=lib_b),
-            "tree_attention_bwd_dkv": dict(max_abs_err=max(errs["dk"][2], errs["dv"][2]), ms=t_dkv,
-                                           plain_ms=p_bwd, library_ms=lib_b),
+            "tree_attention_fwd": dict(max_abs_err=err_o, plain_ms=p_fwd, library=lib_fwd),
+            "tree_attention_bwd_dq": dict(max_abs_err=errs["dq"][2], plain_ms=p_bwd, library=lib_b),
+            "tree_attention_bwd_dkv": dict(max_abs_err=max(errs["dk"][2], errs["dv"][2]), plain_ms=p_bwd,
+                                           library=lib_b),
         }
         for name, d in res.items():
+            d["ms"], d["host_ms"] = times[name]
+            d["library_ms"], d["library_host_ms"] = d.pop("library")
             d["bound_ms"], d["bound_by"] = bounds[name]
             d["faults"] = fault_x
-            log(f"[kernel_tree] {fname} {name}: kernel={d['ms']:.4f} ms plain={d['plain_ms']:.4f} ms "
-                f"sdpa={d['library_ms']:.4f} ms bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
+            log(f"[kernel_tree] {fname} {name}: kernel={d['ms']:.4f} ms by graph replay (host loop "
+                f"{d['host_ms']:.4f}) plain={d['plain_ms']:.4f} ms sdpa={d['library_ms']:.4f} ms by graph replay "
+                f"(host loop {d['library_host_ms']:.4f}) bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
         log(f"[kernel_tree] {fname}: the plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms); "
-            f"SDPA forward {lib_fwd:.4f} ms, backward {lib_b:.4f} ms")
+            f"SDPA forward {lib_fwd[0]:.4f} ms, backward {lib_b[0]:.4f} ms by graph replay")
         per[fname] = res
         del q, k, v, dout, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
@@ -2890,12 +2897,19 @@ def _gmm_bwd_bound(which: str, M: int, k: int, n: int, sizes: torch.Tensor, out_
 def _gmm_bwd_library(which: str, lhs, rhs, grad, sizes):
     """Yardsticks the port never calls: the same function as a loop of
     ``torch.mm`` in f32 over the groups (sizes read once, outside the timed
-    calls), and ``torch._grouped_mm`` on bf16 operands (the cotangent
-    rounded to bf16: another function, a reading only) where this torch
-    runs it. Returns (loop fn, grouped fn or None)."""
+    calls); where this torch runs ``torch._grouped_mm``, the same function
+    again as one grouped call on the cotangent's bf16 hi and lo halves side
+    by side along the reduction, against the operand repeated (the halves
+    split and the operands laid out outside the timed calls; the grouped
+    call writes only its inputs' dtype, so the f32 sum is rounded once to
+    bf16, as the kernels' training output is); and one grouped call on
+    bf16(grad) (another function: the low bits dropped, a reading only).
+    Returns (loop fn, same-function fn or None, bf16 fn or None)."""
     ends = torch.cumsum(sizes, 0).tolist()
     offs = torch.cumsum(sizes, 0, dtype=torch.int32)
     M, k, n = lhs.shape[0], lhs.shape[1], grad.shape[1]
+    hi = grad.bfloat16()
+    lo = (grad - hi.float()).bfloat16()
     if which == "gmm_bwd_lhs":
         out = torch.empty((M, k), device="cuda")
 
@@ -2906,10 +2920,14 @@ def _gmm_bwd_library(which: str, lhs, rhs, grad, sizes):
                     torch.mm(grad[a:b], rhs[g_].float().t(), out=out[a:b])
                 a = b
 
-        g16 = grad.bfloat16()
+        rt = rhs.transpose(1, 2)
 
         def grouped():
-            return torch._grouped_mm(g16, rhs.transpose(1, 2), offs=offs)
+            return lambda: torch._grouped_mm(hi, rt, offs=offs)
+
+        def side_by_side():  # [hi | lo] @ [rhs^T; rhs^T]
+            a2, r2 = torch.cat([hi, lo], 1), torch.cat([rt, rt], 1)
+            return lambda: torch._grouped_mm(a2, r2, offs=offs)
     else:
         out = torch.empty((sizes.numel(), k, n), device="cuda")
 
@@ -2922,131 +2940,218 @@ def _gmm_bwd_library(which: str, lhs, rhs, grad, sizes):
                     out[g_].zero_()
                 a = b
 
-        g16, lt = grad.bfloat16(), lhs.t()
-
         def grouped():
-            return torch._grouped_mm(lt, g16, offs=offs)
+            lt = lhs.t()
+            return lambda: torch._grouped_mm(lt, hi, offs=offs)
 
-    if not hasattr(torch, "_grouped_mm"):
-        return loop, None
-    try:
-        grouped()
-        torch.cuda.synchronize()
-    except (RuntimeError, TypeError, ValueError) as e:
-        log(f"[kernel_gmm_bwd] torch._grouped_mm for {which}: not usable here ({str(e).splitlines()[0][:100]})")
-        return loop, None
-    return loop, grouped
+        def side_by_side():  # per group, its rows twice: lhs against hi, then against lo
+            l2, g2, a = [], [], 0
+            for b in ends:
+                l2 += [lhs[a:b], lhs[a:b]]
+                g2 += [hi[a:b], lo[a:b]]
+                a = b
+            l2, g2, offs2 = torch.cat(l2).t(), torch.cat(g2), 2 * offs
+            return lambda: torch._grouped_mm(l2, g2, offs=offs2)
+
+    found = []
+    for make, what in ((side_by_side, "hi and lo side by side"), (grouped, "bf16(grad)")):
+        try:
+            fn = make()
+            fn()
+            torch.cuda.synchronize()
+            found.append(fn)
+        except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+            log(f"[kernel_gmm_bwd] torch._grouped_mm ({what}) for {which}: not usable here "
+                f"({str(e).splitlines()[0][:100]})")
+            found.append(None)
+    return loop, *found
+
+
+def _gmm_bwd_inputs():
+    """kernel_gmm_bwd's inputs, one (shape, projection) at a time, from one
+    seeded generator: Qwen3-30B-A3B's experts (E=128, top-8), (k, n) =
+    (2048, 768) for gate / up and (768, 2048) for down, at M = 32,768
+    (kernel_gmm's prefill group) and M = 8 x the tokens of train_moe's
+    minibatch grid, routed by a seeded top-8 softmax with 64 rows past the
+    groups; bf16 lhs, three bf16 weight stacks (cycled in dLHS's timed
+    calls, so each call finds its weights cold in the 50 MB L2), the f32
+    cotangent; last, M = 8 x 1,024 (a 1,024-token microbatch, whose groups
+    average 64 rows: dLHS's 64-row tiles). Yields (shape, projection,
+    sizes, lhs, stacks, grad)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    mc = QWEN3_30B_A3B
+    E, K, D, Fm = mc["num_experts"], mc["num_experts_per_tok"], mc["hidden_size"], mc["moe_intermediate_size"]
+    for sname, M in (("prefill", 8 * 512 * K), ("train", _train_moe_grid_tokens() * K), ("small", 1024 * K)):
+        sizes = _gmm_routing(M - 64, E, K, g)
+        for proj, (k, n) in (("gate_up", (D, Fm)), ("down", (Fm, D))):
+            lhs = torch.randn((M, k), generator=g, device="cuda").bfloat16()
+            stacks = [(0.02 * torch.randn((E, k, n), generator=g, device="cuda")).bfloat16() for _ in range(3)]
+            grad = torch.randn((M, n), generator=g, device="cuda")
+            yield sname, proj, sizes, lhs, stacks, grad
+            del lhs, stacks, grad
+            torch.cuda.empty_cache()
+
+
+def _gmm_bwd_run(which: str, lhs, stacks, grad, sizes):
+    """One kernel's bf16-output call on these inputs, the weight stack
+    cycling from call to call (dLHS); uses only the wrappers, so it runs any
+    tree's kernels (``--gmm-bwd-times``)."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    it = iter(range(10**9))
+    if which == "gmm_bwd_lhs":
+        return lambda: gm.gmm_bwd_lhs(grad, stacks[next(it) % 3], sizes, out_dtype=torch.bfloat16)
+    return lambda: gm.tgmm(lhs, grad, sizes, out_dtype=torch.bfloat16)
+
+
+def _gmm_bwd_timings(which: str, lhs, stacks, grad, sizes) -> dict:
+    """Device ms by CUDA-graph replay (``ms``) and the eager host loop beside
+    it (``host_ms``) of one kernel with a bf16 output."""
+    run = _gmm_bwd_run(which, lhs, stacks, grad, sizes)
+    with torch.no_grad():
+        return dict(ms=time_cuda_graph(run, iters=6, reps=3), host_ms=time_cuda(run, iters=10, warmup=2))
+
+
+def gmm_bwd_times() -> None:
+    """``--gmm-bwd-times DIR``: gmm_bwd_lhs and tgmm of the ``areal_tpu_torch``
+    under DIR (a tree unpacked with ``git archive``, say a parent commit's)
+    at kernel_gmm_bwd's six shapes, one JSON line a shape: each kernel's
+    times (``_gmm_bwd_timings``), its bf16 output's worst element as a share
+    of the limit against the plain version (``share``) and a digest of its
+    bits, so two trees' kernels compare by graph replay in one call."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for sname, proj, sizes, lhs, stacks, grad in _gmm_bwd_inputs():
+        line = {}
+        with torch.no_grad():
+            for which in ("gmm_bwd_lhs", "tgmm"):
+                got = _gmm_bwd_run(which, lhs, stacks, grad, sizes)()
+                if which == "gmm_bwd_lhs":
+                    ref = gm.gmm_bwd_lhs_plain(grad, stacks[0], sizes, torch.float32)
+                    mag = gm.gmm_bwd_lhs_plain(grad.abs(), stacks[0].float().abs(), sizes, torch.float32)
+                    share = _bwd_share(got, ref, mag, grad.shape[1], True, int(sizes.sum()))
+                else:
+                    ref = gm.tgmm_plain(lhs, grad, sizes, torch.float32)
+                    mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+                    share = _bwd_share(got, ref, mag, int(sizes.max()), True)
+                bits = hashlib.sha256(got.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+                del got, ref, mag
+                line[which] = dict(share=share, bits=bits, **_gmm_bwd_timings(which, lhs, stacks, grad, sizes))
+        print(json.dumps({"gmm_bwd_times": f"{sname}/{proj}", **line}), flush=True)
 
 
 def phase_kernel_gmm_bwd() -> dict:
     """The grouped matmul's backward kernels (megablox's VJP: dLHS =
     ``gmm(transpose_rhs=True)``, dRHS = ``tgmm``) against their plain
-    versions at Qwen3-30B-A3B's expert shapes (E=128, top-8, bf16 operands,
-    f32 cotangent): (k, n) = (2048, 768) for gate / up and (768, 2048) for
-    down, at M = 32,768 (kernel_gmm's prefill group) and M = 8 x the tokens
-    of train_moe's minibatch grid, routed by a seeded top-8 softmax with 64
-    rows past the groups. Each kernel's f32 output and its bf16 output (the
-    training path's) are held to their limits; three planted faults must
-    miss them by GMM_BWD_FAULT_MIN. Times the kernels (bf16 out), the plain
-    versions, the f32 ``torch.mm`` loop, ``torch._grouped_mm`` in bf16 beside
-    it, and the bound."""
+    versions at ``_gmm_bwd_inputs``' six shapes. Each kernel's f32 output
+    and its bf16 output (the training path's) are held to their limits;
+    three planted faults must miss them by GMM_BWD_FAULT_MIN. Reports the
+    bf16 kernels' occupancy and times the kernels (bf16 out; graph replay,
+    the host loop beside it), the plain versions, the f32 ``torch.mm`` loop,
+    ``torch._grouped_mm`` on hi and lo side by side (the same function) and
+    on bf16(grad) (another) beside it, and the bound."""
     from areal_tpu_torch.ops import gmm as gm
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products stay f32
-    g = torch.Generator(device="cuda").manual_seed(1)
-    mc = QWEN3_30B_A3B
-    E, K, D, Fm = mc["num_experts"], mc["num_experts_per_tok"], mc["hidden_size"], mc["moe_intermediate_size"]
-    grid_tokens = _train_moe_grid_tokens()
-    per: dict[str, dict] = {}
+    E = QWEN3_30B_A3B["num_experts"]
+    occ = gm.bwd_occupancy()
+    log("[kernel_gmm_bwd] bf16 kernels (bf16 out): " + "; ".join(
+        f"{name} {o['registers']} registers, {o['local_bytes']} local (spill) bytes a thread, {o['smem_bytes']} B "
+        f"shared memory a block, {o['blocks_per_sm']} blocks an SM" for name, o in occ.items()))
+    per: dict[str, dict] = {"occupancy": occ}
     with torch.no_grad():
-        for sname, M in (("prefill", 8 * 512 * K), ("train", grid_tokens * K)):
-            past = 64
-            sizes = _gmm_routing(M - past, E, K, g)
+        for sname, proj, sizes, lhs, stacks, grad in _gmm_bwd_inputs():
+            M, k, n = lhs.shape[0], lhs.shape[1], grad.shape[1]
             used = int(sizes.sum())
+            past = M - used
             last = int(torch.nonzero(sizes > 0)[-1])
             plus = sizes.clone()
             plus[last] += 1  # the fault: the last group takes the first row past the groups
-            for proj, (k, n) in (("gate_up", (D, Fm)), ("down", (Fm, D))):
-                lhs = torch.randn((M, k), generator=g, device="cuda").bfloat16()
-                # three weight stacks, cycled in dLHS's timed calls, so each
-                # call finds its weights cold in the 50 MB L2
-                stacks = [(0.02 * torch.randn((E, k, n), generator=g, device="cuda")).bfloat16() for _ in range(3)]
-                rhs = stacks[0]
-                grad = torch.randn((M, n), generator=g, device="cuda")
-                res = {}
-                for which in ("gmm_bwd_lhs", "tgmm"):
-                    if which == "gmm_bwd_lhs":
-                        R, row_used = n, used
+            rhs = stacks[0]
+            res = {}
+            for which in ("gmm_bwd_lhs", "tgmm"):
+                if which == "gmm_bwd_lhs":
+                    R, row_used = n, used
 
-                        def run(od, w=rhs):
-                            return gm.gmm_bwd_lhs(grad, w, sizes, out_dtype=od)
+                    def run(od, w=rhs):
+                        return gm.gmm_bwd_lhs(grad, w, sizes, out_dtype=od)
 
-                        def plain(od, sz=sizes, w=rhs, gr=grad):
-                            return gm.gmm_bwd_lhs_plain(gr, w, sz, od)
+                    def plain(od, sz=sizes, w=rhs, gr=grad):
+                        return gm.gmm_bwd_lhs_plain(gr, w, sz, od)
 
-                        mag = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)
-                    else:
-                        R, row_used = int(sizes.max()), None
+                    mag = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)
+                else:
+                    R, row_used = int(sizes.max()), None
 
-                        def run(od, w=rhs):
-                            return gm.tgmm(lhs, grad, sizes, out_dtype=od)
+                    def run(od, w=rhs):
+                        return gm.tgmm(lhs, grad, sizes, out_dtype=od)
 
-                        def plain(od, sz=sizes, w=rhs, gr=grad):
-                            return gm.tgmm_plain(lhs, gr, sz, od)
+                    def plain(od, sz=sizes, w=rhs, gr=grad):
+                        return gm.tgmm_plain(lhs, gr, sz, od)
 
-                        mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
-                    ref = plain(torch.float32)
-                    got32, got16 = run(torch.float32), run(torch.bfloat16)
-                    torch.cuda.synchronize()
-                    share32 = _bwd_share(got32, ref, mag, R, False, row_used)
-                    share16 = _bwd_share(got16, ref, mag, R, True, row_used)
-                    err32 = (got32.float() - ref).abs().max().item()
-                    err16 = (got16.float() - plain(torch.bfloat16).float()).abs().max().item()
-                    if not (share32 <= 1.0 and share16 <= 1.0):
-                        raise AssertionError(f"[kernel_gmm_bwd] {sname} {proj} {which}: off its plain version by "
-                                             f"{share32:.3f} (f32 out) / {share16:.3f} (bf16 out) x the limit")
-                    wrong = rhs.clone()
-                    big = int(sizes.argmax())
-                    wrong[big] = rhs[(big + 1) % E]
-                    faults = {
-                        "cotangent's lo half dropped": plain(torch.float32, gr=grad.bfloat16().float()),
-                        "a group times the next expert's weights": (
-                            plain(torch.float32, w=wrong) if which == "gmm_bwd_lhs"
-                            else torch.cat([ref[:big], ref[big + 1:big + 2], ref[big + 1:]])),
-                        "a row past the groups": plain(torch.float32, sz=plus),
-                    }
-                    fault_x = {f: _bwd_share(v, ref, mag, R, False, row_used) for f, v in faults.items()}
-                    del faults, wrong
-                    for f, x in fault_x.items():
-                        if not x >= GMM_BWD_FAULT_MIN[f]:
-                            raise AssertionError(f"[kernel_gmm_bwd] {sname} {proj} {which}: planted fault ({f}) only "
-                                                 f"{x:.2f} x the limit (needs {GMM_BWD_FAULT_MIN[f]})")
-                    it = iter(range(10**9))
-                    ms = time_cuda(lambda: run(torch.bfloat16, stacks[next(it) % 3]), iters=10, warmup=2)
-                    ms32 = time_cuda(lambda: run(torch.float32, stacks[next(it) % 3]), iters=5, warmup=1)
-                    plain_ms = time_cuda(lambda: plain(torch.bfloat16, w=stacks[next(it) % 3]), iters=2, warmup=1)
-                    loop, grouped = _gmm_bwd_library(which, lhs, rhs, grad, sizes)
-                    lib_ms = time_cuda(loop, iters=5, warmup=1)
-                    grouped_ms = time_cuda(grouped, iters=10, warmup=2) if grouped else None
-                    bound_ms, bound_by = _gmm_bwd_bound(which, M, k, n, sizes, 2)
-                    res[which] = dict(max_abs_err=err16, max_abs_err_f32_out=err32, share_f32_out=share32,
-                                      share_bf16_out=share16, ms=ms, ms_f32_out=ms32, plain_ms=plain_ms,
-                                      library_ms=lib_ms, library="loop of torch.mm (f32)",
-                                      grouped_mm_bf16_ms=grouped_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                      faults=fault_x, M=M, k=k, n=n)
-                    log(f"[kernel_gmm_bwd] {sname} {proj} {which}: M={M} ({past} past the groups) k={k} n={n}; worst "
-                        f"element {share32:.4f} (f32 out) / {share16:.4f} (bf16 out) of the limit (max|diff| "
-                        f"{err32:.3e} / {err16:.3e}); planted faults "
-                        + ", ".join(f"{f} {x:.1f}" for f, x in fault_x.items())
-                        + f"; kernel={ms:.4f} ms (bf16 out; f32 out {ms32:.4f}) plain={plain_ms:.4f} ms torch.mm "
-                        f"loop (f32)={lib_ms:.4f} ms torch._grouped_mm (bf16 operands, another function)="
-                        + (f"{grouped_ms:.4f} ms" if grouped_ms is not None else "not usable")
-                        + f" bound={bound_ms:.4f} ms ({bound_by})")
-                    del ref, mag, got32, got16
-                for which, d in res.items():
-                    per[f"{which}/{sname}/{proj}"] = d
-                del stacks, rhs, lhs, grad
-                torch.cuda.empty_cache()
+                    mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+                ref = plain(torch.float32)
+                got32, got16 = run(torch.float32), run(torch.bfloat16)
+                torch.cuda.synchronize()
+                share32 = _bwd_share(got32, ref, mag, R, False, row_used)
+                share16 = _bwd_share(got16, ref, mag, R, True, row_used)
+                err32 = (got32.float() - ref).abs().max().item()
+                err16 = (got16.float() - plain(torch.bfloat16).float()).abs().max().item()
+                if not (share32 <= 1.0 and share16 <= 1.0):
+                    raise AssertionError(f"[kernel_gmm_bwd] {sname} {proj} {which}: off its plain version by "
+                                         f"{share32:.3f} (f32 out) / {share16:.3f} (bf16 out) x the limit")
+                wrong = rhs.clone()
+                big = int(sizes.argmax())
+                wrong[big] = rhs[(big + 1) % E]
+                faults = {
+                    "cotangent's lo half dropped": plain(torch.float32, gr=grad.bfloat16().float()),
+                    "a group times the next expert's weights": (
+                        plain(torch.float32, w=wrong) if which == "gmm_bwd_lhs"
+                        else torch.cat([ref[:big], ref[big + 1:big + 2], ref[big + 1:]])),
+                    "a row past the groups": plain(torch.float32, sz=plus),
+                }
+                fault_x = {f: _bwd_share(v, ref, mag, R, False, row_used) for f, v in faults.items()}
+                del faults, wrong
+                for f, x in fault_x.items():
+                    if not x >= GMM_BWD_FAULT_MIN[f]:
+                        raise AssertionError(f"[kernel_gmm_bwd] {sname} {proj} {which}: planted fault ({f}) only "
+                                             f"{x:.2f} x the limit (needs {GMM_BWD_FAULT_MIN[f]})")
+                t = _gmm_bwd_timings(which, lhs, stacks, grad, sizes)
+                it = iter(range(10**9))
+                ms32 = time_cuda(lambda: run(torch.float32, stacks[next(it) % 3]), iters=5, warmup=1)
+                plain_ms = time_cuda(lambda: plain(torch.bfloat16, w=stacks[next(it) % 3]), iters=2, warmup=1)
+                loop, split, grouped = _gmm_bwd_library(which, lhs, rhs, grad, sizes)
+                lib_ms = time_cuda(loop, iters=5, warmup=1)
+                split_ms = split_host_ms = split_share = grouped_ms = grouped_host_ms = None
+                if split is not None:
+                    split_ms, split_host_ms = time_cuda_graph(split, iters=6, reps=3), time_cuda(split, iters=10)
+                    # the yardstick writes no rows past the groups: held on the groups' rows
+                    split_share = _bwd_share(split()[:used], ref[:used], mag[:used], R, True)
+                if grouped is not None:
+                    grouped_ms, grouped_host_ms = time_cuda_graph(grouped, iters=6, reps=3), time_cuda(grouped, iters=10)
+                bound_ms, bound_by = _gmm_bwd_bound(which, M, k, n, sizes, 2)
+                res[which] = dict(max_abs_err=err16, max_abs_err_f32_out=err32, share_f32_out=share32,
+                                  share_bf16_out=share16, **t, ms_f32_out=ms32, plain_ms=plain_ms,
+                                  library_ms=lib_ms, library="loop of torch.mm (f32)", grouped_mm_split_ms=split_ms,
+                                  grouped_mm_split_host_ms=split_host_ms, grouped_mm_split_share=split_share,
+                                  grouped_mm_bf16_ms=grouped_ms, grouped_mm_bf16_host_ms=grouped_host_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, faults=fault_x, M=M, k=k, n=n)
+                fmt = lambda x: f"{x:.4f} ms" if x is not None else "not usable"  # noqa: E731
+                log(f"[kernel_gmm_bwd] {sname} {proj} {which}: M={M} ({past} past the groups) k={k} n={n}; worst "
+                    f"element {share32:.4f} (f32 out) / {share16:.4f} (bf16 out) of the limit (max|diff| "
+                    f"{err32:.3e} / {err16:.3e}); planted faults "
+                    + ", ".join(f"{f} {x:.1f}" for f, x in fault_x.items())
+                    + f"; kernel={t['ms']:.4f} ms by graph replay (host loop {t['host_ms']:.4f}; f32 out "
+                    f"{ms32:.4f}) plain={plain_ms:.4f} ms torch.mm loop (f32)={lib_ms:.4f} ms; torch._grouped_mm "
+                    f"on hi and lo side by side (the same function)={fmt(split_ms)} by graph replay (host loop "
+                    f"{fmt(split_host_ms)}; worst element "
+                    + (f"{split_share:.4f}" if split_share is not None else "-")
+                    + f" of the limit), on bf16(grad) (another function)={fmt(grouped_ms)}; bound={bound_ms:.4f} ms "
+                    f"({bound_by}); {2 * 2 * M * k * n / t['ms'] / 1e9:.1f} TFLOP/s of split MMA")
+                del ref, mag, got32, got16
+            for which, d in res.items():
+                per[f"{which}/{sname}/{proj}"] = d
     return per
 
 
@@ -3355,6 +3460,9 @@ def phase_train_moe(card: str) -> dict:
     prof = _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "MoE optimizer step (one minibatch)", card)
     busy = prof["busy"]
     _flash_shares(prof)
+    for key in ("gmm_bwd_lhs", "tgmm"):
+        us = sum(t for name, t in prof["by_name"].items() if key in name)
+        log(f"[profile]   {key}: {us / 1e3:.2f} ms, {us / prof['busy_us']:.1%} of busy")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train_moe] {card}: peak torch.cuda.max_memory_allocated {peak:.2f} GiB (of the card's 80 GB)")
     del trainer, actor, r
@@ -3375,13 +3483,13 @@ def main(argv: list[str]) -> int:
         if set(only) - set(PHASES):
             print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
             return 2
-    elif argv[:1] in (["--decode-times"], ["--flash-times"]) and len(argv) == 2:
-        times = "decode" if argv[0] == "--decode-times" else "flash"
+    elif argv[:1] in (["--decode-times"], ["--flash-times"], ["--gmm-bwd-times"]) and len(argv) == 2:
+        times = argv[0][2:-len("-times")]
         other_dir = os.path.abspath(argv[1])
         sys.path.insert(0, other_dir)  # that tree's areal_tpu_torch, not this one's
     elif argv:
-        print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR | --flash-times DIR]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR | --flash-times DIR | "
+              "--gmm-bwd-times DIR]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3407,6 +3515,12 @@ def main(argv: list[str]) -> int:
         phase_build(["flash_attention"])
         flash_times()
         log(f"[done] flash times in {time.monotonic() - t0:.1f}s on {card} (no result)")
+        return 0
+    if times == "gmm-bwd":
+        log(f"[gmm_bwd_times] gmm_bwd_lhs and tgmm of {os.path.dirname(areal_tpu_torch.__file__)}")
+        phase_build(["gmm"])
+        gmm_bwd_times()
+        log(f"[done] gmm backward times in {time.monotonic() - t0:.1f}s on {card} (no result)")
         return 0
     phase_build()
     runs = {
@@ -3517,7 +3631,8 @@ def main(argv: list[str]) -> int:
             "launches": tree_t["counts"][name],
             "max_abs_err": max(f[name]["max_abs_err"] for f in tree_k.values()),
             **{f: d[f] for f in fields[1:]},
-            "forests": {fo: {f: r[name][f] for f in fields} for fo, r in tree_k.items()},
+            "forests": {fo: {f: r[name][f] for f in (*fields, "host_ms", "library_host_ms")}
+                        for fo, r in tree_k.items()},
         })
     # the grouped matmul: launches of serve_moe's cold and warm waves; the
     # times of the decode gate / up shape, the other shapes beside them
@@ -3550,8 +3665,10 @@ def main(argv: list[str]) -> int:
             "max_abs_err": max(v["max_abs_err"] for k, v in bwd_k.items() if k.startswith(name)),
             **{f: d[f] for f in fields[1:]},
             "library": d["library"],
-            "shapes": {k.split("/", 1)[1]: {f: v[f] for f in (*fields, "max_abs_err_f32_out", "ms_f32_out",
-                                                                "grouped_mm_bf16_ms", "M", "k", "n")}
+            "occupancy": bwd_k["occupancy"],
+            "shapes": {k.split("/", 1)[1]: {f: v[f] for f in (*fields, "host_ms", "max_abs_err_f32_out", "ms_f32_out",
+                                                                "grouped_mm_split_ms", "grouped_mm_bf16_ms", "M", "k",
+                                                                "n")}
                        for k, v in bwd_k.items() if k.startswith(name)},
         })
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f}s on {card}")

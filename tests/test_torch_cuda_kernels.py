@@ -891,6 +891,110 @@ def test_gmm_bwd_kernels_match_plain(cuda, case, dtype, out_dtype):
     assert torch.count_nonzero(d_rhs[sizes == 0]) == 0  # empty groups: zeros
 
 
+# the bf16 kernels' tile edges: groups of 0, 1, 63, 127, 129 and 384 rows
+# (empty, one row, a row short of a 64- and a 128-row tile, a row past one,
+# three whole tiles), k and n multiples of 8 but not of 128 (nor of the
+# 64-wide reduction step), 64 rows past the groups. 768 rows over 6 groups
+# average 128 rows a group: dLHS takes 128-row tiles; 1,472 rows over the
+# sizes twice (12 groups) average fewer: 64-row tiles.
+GMM_BWD_EDGE_SIZES = [0, 1, 63, 127, 129, 384]
+GMM_BWD_EDGE_CASES = {
+    "tile-128": (sum(GMM_BWD_EDGE_SIZES) + 64, 200, 136, GMM_BWD_EDGE_SIZES),
+    "tile-64": (2 * sum(GMM_BWD_EDGE_SIZES) + 64, 136, 200, GMM_BWD_EDGE_SIZES * 2),
+}
+
+
+def _gmm_bwd_both(lhs, rhs, grad, sizes, out_dtype):
+    return (gm.gmm_bwd_lhs(grad, rhs, sizes, out_dtype=out_dtype), gm.tgmm(lhs, grad, sizes, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out-f32", "out-bf16"])
+@pytest.mark.parametrize("case", list(GMM_BWD_EDGE_CASES))
+def test_gmm_bwd_kernels_tile_edges(cuda, case, out_dtype):
+    lhs, rhs, grad, sizes = _gmm_bwd_case(cuda, *GMM_BWD_EDGE_CASES[case], torch.bfloat16, seed=4)
+    k, n = lhs.shape[1], rhs.shape[2]
+    used = int(sizes.sum())
+    assert lhs.shape[0] - used == 64
+    d_lhs, d_rhs = _gmm_bwd_both(lhs, rhs, grad, sizes, out_dtype)
+    ref = gm.gmm_bwd_lhs_plain(grad, rhs, sizes, torch.float32)
+    mag = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)
+    torch.cuda.synchronize()
+    assert d_lhs.dtype == out_dtype and torch.count_nonzero(d_lhs[used:]) == 0
+    assert _bwd_share(d_lhs[:used], ref[:used], mag[:used], n, out_dtype) <= 1.0
+    ref = gm.tgmm_plain(lhs, grad, sizes, torch.float32)
+    mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+    assert d_rhs.dtype == out_dtype and d_rhs.shape == (sizes.numel(), k, n)
+    assert _bwd_share(d_rhs, ref, mag, int(sizes.max()), out_dtype) <= 1.0
+    assert torch.count_nonzero(d_rhs[sizes == 0]) == 0  # empty groups: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GMM_BWD_EDGE_CASES))
+def test_gmm_bwd_kernels_bits_repeat_and_replay(cuda, case):
+    """Both kernels give the same bits on a second call and when captured in
+    a CUDA graph and replayed (no atomics, no host sync)."""
+    lhs, rhs, grad, sizes = _gmm_bwd_case(cuda, *GMM_BWD_EDGE_CASES[case], torch.bfloat16, seed=5)
+    eager = _gmm_bwd_both(lhs, rhs, grad, sizes, torch.bfloat16)
+    again = _gmm_bwd_both(lhs, rhs, grad, sizes, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _gmm_bwd_both(lhs, rhs, grad, sizes, torch.bfloat16)  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _gmm_bwd_both(lhs, rhs, grad, sizes, torch.bfloat16)
+    for t in replayed:
+        t.fill_(1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(eager, again, replayed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_gmm_bwd_kernels_refuse_bad_arguments(cuda):
+    lhs, rhs, grad, sizes = _gmm_bwd_case(cuda, 64, 32, 16, [10, 20, 30], torch.bfloat16)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.gmm_bwd_lhs(grad[:, :12].contiguous(), rhs[:, :, :12].contiguous(), sizes, out_dtype=bf)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.tgmm(lhs[:, :30].contiguous(), grad, sizes, out_dtype=bf)
+    with pytest.raises(TypeError, match="not supported"):
+        gm.tgmm(lhs, grad, sizes, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="aligned"):
+        gm.gmm_bwd_lhs(torch.zeros(64 * 16 + 1, device=cuda)[1:].view(64, 16), rhs, sizes, out_dtype=bf)
+    with pytest.raises(ValueError, match="one device"):
+        gm.tgmm(lhs, grad, sizes.cpu(), out_dtype=bf)
+    with pytest.raises(ValueError, match="tm"):  # tm sets the f32 path's row tile
+        gm.gmm_bwd_lhs(grad, rhs.float(), sizes, out_dtype=bf, tm=128)
+    many = torch.zeros(513, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="groups"):
+        gm.gmm_bwd_lhs(grad, torch.zeros((513, 32, 16), dtype=bf, device=cuda), many, out_dtype=bf)
+    # the C entry points refuse what the wrappers would: a row tile the f32
+    # path does not have, an unknown dtype code
+    out = torch.empty((64, 32), dtype=bf, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    rhs32 = rhs.float()
+    assert gm._lib().gmm_bwd_lhs(grad.data_ptr(), rhs32.data_ptr(), sizes.data_ptr(), out.data_ptr(), 64, 32, 16, 3,
+                                 0, 1, 8, stream) == -1
+    assert gm._lib().tgmm(lhs.data_ptr(), grad.data_ptr(), sizes.data_ptr(), out.data_ptr(), 64, 32, 16, 3, 2, 1,
+                          stream) == -1
+
+
+@pytest.mark.cuda
+def test_gmm_bwd_occupancy(cuda):
+    """The bf16 kernels fit two blocks an SM (their launch bounds: at most
+    128 registers a thread), and their shared memory is what the source lays
+    out."""
+    occ = gm.bwd_occupancy()
+    for name, o in occ.items():
+        assert 0 < o["registers"] <= 128 and o["blocks_per_sm"] >= 2, (name, o)
+    assert occ["gmm_bwd_lhs/128"]["smem_bytes"] > occ["gmm_bwd_lhs/64"]["smem_bytes"] > 0
+    assert occ["tgmm"]["smem_bytes"] > 48 * 1024  # dynamic shared memory past the default limit
+
+
 @pytest.mark.cuda
 def test_gmm_bwd_check_catches_planted_faults(cuda):
     """The limit above tells the kernels from three wrong backwards at a

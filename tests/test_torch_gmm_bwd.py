@@ -37,6 +37,9 @@ CASES = {
     "one-group-odd-M": (37, 16, 40, [0, 0, 37, 0]),
     "single-rows": (12, 24, 16, [1, 1, 0, 1, 9]),
     "last-group-ragged": (48, 16, 32, [16, 16, 13]),  # 45 rows: the last group ends mid-tile
+    # the group sizes at the card kernels' tile edges (empty, one row, a row
+    # short of and past the 64- and 128-row tiles, three tiles), 64 past
+    "tile-edges": (768, 24, 40, [0, 1, 63, 127, 129, 384]),
 }
 
 
@@ -173,3 +176,48 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         gm.gmm_bwd_lhs(meta[0], meta[1], meta[3], out_dtype=torch.float32)
     with pytest.raises(ValueError, match="unsupported device"):
         gm.tgmm(meta[2], meta[0], meta[3], out_dtype=torch.float32)
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """f32 rounded to the nearest bf16 (ties to even), kept in f32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return (((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("which", ["dlhs", "drhs"])
+def test_register_split_model_stays_inside_its_limit(which):
+    """A numpy model of the card kernels' split of the f32 cotangent, made in
+    registers from the staged f32 values (``csrc/gmm.cu`` split2): hi =
+    bf16(grad), lo = bf16(grad - hi), the lo and hi products summed exactly
+    (float64) group by group over the tile-edge group sizes. What the split
+    drops stays under 2^-16 of the terms' magnitudes (|grad| @ |rhs|^T,
+    |lhs|^T @ |grad|) on every element; with lo dropped the worst element
+    misses that limit by more than 100x."""
+    M, k, n, sizes = CASES["tile-edges"]
+    rng = np.random.default_rng(5)
+    grad = rng.standard_normal((M, n)).astype(np.float32)
+    lhs = _bf16(rng.standard_normal((M, k)))  # bf16 operands, exact in f32
+    rhs = _bf16(rng.standard_normal((len(sizes), k, n)))
+    hi = _bf16(grad)
+    lo = _bf16(grad - hi)  # grad - hi is exact in f32
+    assert np.array_equal(hi, torch.from_numpy(grad).bfloat16().float().numpy())
+    worst, worst_no_lo, a = 0.0, 0.0, 0
+    for g, s in enumerate(sizes):
+        rows = slice(a, a + s)
+        a += s
+        if which == "dlhs":
+            def prod(x):
+                return x[rows].astype(np.float64) @ rhs[g].T.astype(np.float64)
+            mag = np.abs(grad[rows]).astype(np.float64) @ np.abs(rhs[g]).T
+        else:
+            def prod(x):
+                return lhs[rows].T.astype(np.float64) @ x[rows].astype(np.float64)
+            mag = np.abs(lhs[rows]).T.astype(np.float64) @ np.abs(grad[rows])
+        if s == 0:
+            continue
+        exact = prod(grad)
+        split = prod(lo) + prod(hi)
+        worst = max(worst, (np.abs(split - exact) / (2**-16 * mag)).max())
+        worst_no_lo = max(worst_no_lo, (np.abs(prod(hi) - exact) / (2**-16 * mag)).max())
+    assert worst <= 1.0, worst
+    assert worst_no_lo > 100.0, worst_no_lo
