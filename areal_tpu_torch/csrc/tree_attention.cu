@@ -28,38 +28,87 @@
 // operations. The backward is the same with 3.5x the flops of the forward
 // (#6's four products and #5's three, each recomputing S and dP).
 //
-// The design (simple and correct first; K2-K4's structure in
-// csrc/flash_attention.cu with the ancestor bit in place of the
-// segment-causal predicate):
-//   - tiles of 64 query rows x 64 key rows; every product runs on the tensor
-//     cores through WMMA 16x16x16 bf16 fragments with f32 accumulation, from
-//     shared memory;
-//   - the mask is read from the packed words inside the kernel, one 32-bit
-//     word per (row, 32 columns): a 64 x 64 tile needs 128 words (512
-//     bytes), never an [N, N] byte mask;
-//   - tiles are skipped three ways, all uniform across the block: above the
-//     diagonal (ancestors precede their nodes), where block_any of the
-//     enclosing 128 x 128 tile is 0 (read as block_any[i / 2][j / 2], which
-//     is conservative for 64-row tiles), and where the tile's own 128 words
-//     are all 0 (one __syncthreads_or, which is also the barrier before the
-//     tile's loads);
-//   - #4: one block per (query tile, head), 4 warps, warp w owning query rows
-//     16w..16w+15; a loop over key tiles replaces the TPU's sequential grid
-//     axis; the online softmax (running max and sum per row, f32) and the
-//     f32 output accumulator live in shared memory (a WMMA accumulator's
-//     element-to-row map is unspecified and the rescale is per row). Each
-//     lane pair owns a row, each lane 32 of the tile's columns: exactly one
-//     mask word;
-//   - #6: one block per (key tile, head), 8 warps, looping over the query
-//     tiles at or after it (block_any read transposed: [iq / 2][jk / 2]);
-//     dK and dV stay in WMMA accumulators. #5: one block per (query tile,
-//     head), looping over the key tiles at or before it; dQ stays in
-//     accumulators. Both recompute P = exp(S * scale - lse) and take
-//     dS = P * (dP - delta). No atomics, so a checkpointed recompute
-//     reproduces the forward bit for bit.
-// What it does not do yet: TMA / cp.async double buffering, wgmma, keeping S
-// and P in registers, GQA inside the kernel (K and V arrive repeated to H),
-// or a work list of the nonzero tiles in place of the per-block scan.
+// #4's design (simple and correct first): tiles of 64 query rows x 64 key
+// rows, one block of 4 warps per (query tile, head), warp w owning query
+// rows 16w..16w+15; every product on the tensor cores through WMMA
+// 16x16x16 bf16 fragments with f32 accumulation, from shared memory; the
+// mask read from the packed words inside the kernel, one 32-bit word per
+// (row, 32 columns): a 64 x 64 tile needs 128 words (512 bytes), never an
+// [N, N] byte mask. Tiles are skipped three ways, all uniform across the
+// block: above the diagonal (ancestors precede their nodes), where
+// block_any of the enclosing 128 x 128 tile is 0 (read as
+// block_any[i / 2][j / 2], conservative for 64-row tiles), and where the
+// tile's own 128 words are all 0 (one __syncthreads_or, which is also the
+// barrier before the tile's loads). A loop over key tiles replaces the
+// TPU's sequential grid axis; the online softmax (running max and sum per
+// row, f32) and the f32 output accumulator live in shared memory (a WMMA
+// accumulator's element-to-row map is unspecified and the rescale is per
+// row). Each lane pair owns a row, each lane 32 of the tile's columns:
+// exactly one mask word. What it does not do yet: cp.async double
+// buffering, keeping S and P in registers, a list of live tiles, wgmma.
+//
+// #5 / #6's design (K3 / K4's in flash_attention.cu, the tile products of
+// flash_mma.cuh, with the ancestor bit in place of the segment-causal
+// predicate; no atomics, so every call gives the same bits and a
+// checkpointed recompute is exact):
+//   - #5 (dQ), as K4: one block of 4 warps per (64-row query tile, head),
+//     grid (H, nt) with the query tile reversed, so the longest walks
+//     start first. Warp w owns rows 16w..16w+15 and keeps its Q and dO
+//     fragments (ldmatrix once, from the ring's last stage), the lse and
+//     delta of its rows and dQ (HD / 2 f32 a thread) in registers. For each
+//     live key tile of a 2-stage cp.async ring: S = Q K^T and dP = dO V^T on
+//     mma.sync m16n8k16, P = exp(S scale - lse) (0 off the mask), dS = P (dP
+//     - delta) packed straight from the accumulator layout into bf16 A
+//     fragments, and dQ += dS K with K read by ldmatrix.trans. The pair's
+//     64 x 2 mask words ride in the ring stage with K and V, row-major: a
+//     thread's two words of its row are one 8-byte read, a warp's 8 rows 64
+//     consecutive bytes.
+//   - #6 (dK, dV), as K3: one block of 4 warps per (64-row key tile, head),
+//     grid (H, nt), key tile 0 first. Warp w owns key rows 16w..16w+15; the
+//     block's K and V tiles stay in shared memory for the whole walk. The
+//     live query tiles from kt up come through the ring with their dO, Q,
+//     lse, delta and their 64 x 2 words for this key tile's columns. It
+//     computes the transposes directly, S^T = K Q^T and dP^T = V dO^T, so
+//     P^T and dS^T are already A fragments of dV += P^T dO and dK += dS^T Q,
+//     with Q and dO read by ldmatrix.trans; dK is scaled once at the end.
+//     The bit of (key row j, query column i) is bit j % 32 of word (i,
+//     j / 32): a thread's two key rows share one word column (the warp's
+//     16 rows lie in one 32-row half) and its 16 query columns are 8 pairs
+//     of adjacent ones. So the stage keeps its words column-major, [word
+//     column][query row]: each pair of a thread's columns is one 8-byte
+//     read, and for each of the 8 reads the warp's four quads' threads
+//     read 32 consecutive bytes the other quads share (a broadcast), free
+//     of bank conflicts.
+//   - the walk: each block first classifies the 64-tile pairs of its strip
+//     (#5: its query tile against key tiles 0..qt; #6: its key tile against
+//     query tiles kt..nt-1) from the words alone (tree_tile_list: block_any
+//     as a first filter, then OR and AND reductions over each pair's 128
+//     words with redux.sync) and compacts the live ones, with a flag for
+//     full pairs, into a list in shared memory, in walk order. The ring
+//     walks that list only: dead pairs are never loaded; full pairs (every
+//     bit set) load no words and run without a per-element test; in a
+//     partial pair a warp none of whose 16 rows has a bit in it skips its
+//     math. ops/tree_attention.py:tree_tile_classes is the plain twin.
+//   - P and dS round once to bf16 before their products, where the plain
+//     version rounds them, and P = __expf(S scale - lse) in that order of
+//     operations (K3 / K4's finding: the exp2-folded scale moves dS
+//     roundings). Padding rows have no bit, so they meet no pair and their
+//     gradients are exact zeros.
+//   - resources (sm_90a, nvcc 12.8, measured on an H100;
+//     tree_attention_bwd_occupancy reports them, chip_smoke.py prints
+//     them): HD = 128 255 registers a thread (__launch_bounds__ for 2
+//     blocks an SM), 16 bytes spilled (#5) and 32 (#6); HD = 64 168
+//     registers, 8 / 24 bytes spilled, 3 blocks an SM. Shared memory at
+//     N = 2,048: #5 70,788 B (HD = 128) and 38,020 (64), #6 106,628 and
+//     57,476.
+// What holds them, measured (PERF.md): on a GRPO forest of N = 2,048 the
+// math alone (copies skipped) keeps 78% of #5's time and 81% of #6's, the
+// copies alone 74% and 58%: per-block latency over walks of up to 10 (#5)
+// and 15 (#6) pairs; building the list costs ~5%. What they leave for
+// later: wgmma and TMA, a persistent schedule over the live pairs (the
+// longest walk sets the kernel's time), GQA inside the kernels (summing
+// the repeated KV heads' dK / dV, a different function from the JAX VJP's
+// per-head dK / dV).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,23 +116,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
-constexpr int kB = 64;         // rows per query tile and per key tile
+constexpr int kB = 64;         // #4: rows per query tile and per key tile
 constexpr int kSkip = 128;     // tile edge of block_any
 constexpr int kWordsPerRow = kB / 32;  // mask words per row of a tile
 constexpr int kFwdWarps = 4;   // #4: warp w owns query rows 16w..16w+15
-constexpr int kBwdWarps = 8;   // #5, #6
 constexpr int kPadH = 8;       // bf16 row padding (elements): ldm % 8 == 0
 constexpr int kPadF = 4;       // f32 row padding: ldm % 4 == 0
-constexpr int kStageLd = 20;   // f32 staging tile [16][20] for the backward stores
-constexpr unsigned kFull = 0xffffffffu;
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
@@ -269,275 +315,368 @@ __global__ void __launch_bounds__(kFwdWarps * 32) tree_fwd_kernel(
 // #5 / #6: backward
 // ---------------------------------------------------------------------------
 
-template <int HD>
-struct BwdSmem {
-  static constexpr int LDH = HD + kPadH;  // q/do/k/v tiles (bf16)
-  static constexpr int LDS = kB + kPadF;  // S and dP (f32)
-  static constexpr int LDP = 2 * LDS;     // P over S's rows, dS over dP's rows (bf16)
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = align32(q + sizeof(bf16) * kB * LDH);
-  static constexpr size_t k = align32(dout + sizeof(bf16) * kB * LDH);
-  static constexpr size_t v = align32(k + sizeof(bf16) * kB * LDH);
-  static constexpr size_t s = align32(v + sizeof(bf16) * kB * LDH);
-  static constexpr size_t dp = align32(s + sizeof(float) * kB * LDS);
-  static constexpr size_t lse = align32(dp + sizeof(float) * kB * LDS);
-  static constexpr size_t delta = lse + sizeof(float) * kB;
-  static constexpr size_t wt = delta + sizeof(float) * kB;
-  static constexpr size_t bytes = wt + sizeof(unsigned) * kB * kWordsPerRow;
-};
+// A tile pair's class; a live-list entry is the walked tile's index, with
+// kFullBit set where every bit of the pair is set.
+constexpr int kDead = 0, kPartial = 1, kFullPair = 2;
+constexpr int kFullBit = 1 << 30;
 
-// Load the 128 mask words of tile (query rows q0.., key tile kt) into
-// shared memory; returns whether any is nonzero. A block-wide barrier.
-template <int HD>
-__device__ __forceinline__ bool load_words(unsigned char* smem, const unsigned* __restrict__ words,
-                                           int q0, int kt, int W, int tid) {
-  unsigned* wt_s = reinterpret_cast<unsigned*>(smem + BwdSmem<HD>::wt);
-  unsigned w = 0u;
-  if (tid < kB * kWordsPerRow) {
-    w = words[(size_t)(q0 + tid / kWordsPerRow) * W + kt * kWordsPerRow + tid % kWordsPerRow];
-    wt_s[tid] = w;
-  }
-  return __syncthreads_or(w != 0u);
-}
-
-// One (query tile, key tile) pair of the backward: S = Q K^T and dP = dO V^T
-// on the tensor cores, then P = exp(S * scale - lse) under the mask bits and
-// dS = P * (dP - delta), written as bf16 over S's rows (P) and dP's rows (dS).
-template <int HD>
-__device__ __forceinline__ void bwd_p_ds(unsigned char* smem, float scale, int tid, int warp) {
-  typedef BwdSmem<HD> SM;
-  constexpr int LDH = SM::LDH, LDS = SM::LDS, LDP = SM::LDP;
-  constexpr int kThreads = kBwdWarps * 32;
-  const bf16* q_s = reinterpret_cast<const bf16*>(smem + SM::q);
-  const bf16* do_s = reinterpret_cast<const bf16*>(smem + SM::dout);
-  const bf16* k_s = reinterpret_cast<const bf16*>(smem + SM::k);
-  const bf16* v_s = reinterpret_cast<const bf16*>(smem + SM::v);
-  float* s_s = reinterpret_cast<float*>(smem + SM::s);
-  float* dp_s = reinterpret_cast<float*>(smem + SM::dp);
-  bf16* p_s = reinterpret_cast<bf16*>(smem + SM::s);
-  bf16* ds_s = reinterpret_cast<bf16*>(smem + SM::dp);
-  const float* lse_s = reinterpret_cast<const float*>(smem + SM::lse);
-  const float* delta_s = reinterpret_cast<const float*>(smem + SM::delta);
-  const unsigned* wt_s = reinterpret_cast<const unsigned*>(smem + SM::wt);
-
-  // 16 tiles of 16 x 16 in S and in dP; warp w takes tiles w and w + 8
+// Classify the 64-tile pairs of one block's strip from the words alone and
+// write the live ones, in walk order, to list_s and their count to *n_s:
+// #5 (kByRow) pairs query tile `fixed` with key tiles begin .. end - 1, #6
+// key tile `fixed` with query tiles begin .. end - 1. A pair is dead where
+// block_any's enclosing 128 x 128 tile is 0 (no word read) or its 128
+// words are all 0, and full where they are all ones. Warp w takes pairs w,
+// w + 4, ...; each lane reads rows lane and lane + 32 of the pair (two
+// words each), four pairs' reads in flight at once, and an OR and an AND
+// reduction (redux.sync) classify the pair. Warp 0 then compacts the
+// classes in place by ballot. The caller syncs before reading the list.
+template <bool kByRow>
+__device__ __forceinline__ void tree_tile_list(const unsigned* __restrict__ words, const int* __restrict__ block_any,
+                                              int N, int fixed, int begin, int end, int* list_s, int* n_s, int warp,
+                                              int lane) {
+  constexpr int kU = 4;
+  const int W = N / 32, nB = N / kSkip, n = end - begin;
+  for (int i0 = warp; i0 < n; i0 += kU * kWarps) {
+    uint2 a[kU], b[kU];
 #pragma unroll
-  for (int t = warp; t < 16; t += kBwdWarps) {
-    const int ti = t / 4, tj = t % 4;
-    FragC acc_s, acc_dp;
-    wmma::fill_fragment(acc_s, 0.f);
-    wmma::fill_fragment(acc_dp, 0.f);
-#pragma unroll
-    for (int d = 0; d < HD; d += 16) {
-      FragARow a;
-      FragBCol b;
-      wmma::load_matrix_sync(a, q_s + 16 * ti * LDH + d, LDH);
-      wmma::load_matrix_sync(b, k_s + 16 * tj * LDH + d, LDH);
-      wmma::mma_sync(acc_s, a, b, acc_s);
-      wmma::load_matrix_sync(a, do_s + 16 * ti * LDH + d, LDH);
-      wmma::load_matrix_sync(b, v_s + 16 * tj * LDH + d, LDH);
-      wmma::mma_sync(acc_dp, a, b, acc_dp);
-    }
-    wmma::store_matrix_sync(s_s + 16 * ti * LDS + 16 * tj, acc_s, LDS, wmma::mem_row_major);
-    wmma::store_matrix_sync(dp_s + 16 * ti * LDS + 16 * tj, acc_dp, LDS, wmma::mem_row_major);
-  }
-  __syncthreads();
-  // 4096 elements over 256 threads: read all, sync, then overwrite in place
-  constexpr int kPer = kB * kB / kThreads;
-  float pv[kPer], dsv[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / kB, c = e % kB;
-    const bool ok = (wt_s[r * kWordsPerRow + c / 32] >> (c % 32)) & 1u;
-    const float p = ok ? __expf(s_s[r * LDS + c] * scale - lse_s[r]) : 0.f;
-    pv[i] = p;
-    dsv[i] = p * (dp_s[r * LDS + c] - delta_s[r]);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / kB, c = e % kB;
-    p_s[r * LDP + c] = __float2bfloat16(pv[i]);
-    ds_s[r * LDP + c] = __float2bfloat16(dsv[i]);
-  }
-  __syncthreads();
-}
-
-// load lse and delta of query rows [q0, q0 + kB)
-template <int HD>
-__device__ __forceinline__ void load_row_stats(unsigned char* smem, const float* __restrict__ lse,
-                                               const float* __restrict__ delta, int h, int q0,
-                                               int H, int tid) {
-  float* lse_s = reinterpret_cast<float*>(smem + BwdSmem<HD>::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + BwdSmem<HD>::delta);
-  for (int r = tid; r < kB; r += kBwdWarps * 32) {
-    const size_t idx = (size_t)(q0 + r) * H + h;
-    lse_s[r] = lse[idx];
-    delta_s[r] = delta[idx];
-  }
-}
-
-// write a warp's 16 x 16 accumulator tile, times `mul`, as bf16 rows
-// [row0, row0 + 16) x cols [col0, col0 + 16) of one head
-__device__ __forceinline__ void store_acc(const FragC& acc, float* stage, bf16* __restrict__ base,
-                                          int row0, int col0, size_t rs, float mul, int lane) {
-  wmma::store_matrix_sync(stage, acc, kStageLd, wmma::mem_row_major);
-  __syncwarp();
-  const int rr = lane >> 1, c0 = (lane & 1) * 8;
-  bf16* dst = base + (size_t)(row0 + rr) * rs + col0 + c0;
-#pragma unroll
-  for (int c = 0; c < 8; c += 2) {
-    *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(
-        stage[rr * kStageLd + c0 + c] * mul, stage[rr * kStageLd + c0 + c + 1] * mul);
-  }
-  __syncwarp();
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kBwdWarps * 32) tree_bwd_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const unsigned* __restrict__ words, const int* __restrict__ block_any,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, float scale) {
-  typedef BwdSmem<HD> SM;
-  constexpr int LDH = SM::LDH, LDP = SM::LDP;
-  constexpr int kThreads = kBwdWarps * 32;
-  constexpr int kFr = HD / 32;  // accumulator tiles per warp (of dK and of dV)
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + SM::dout);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + SM::v);
-  const bf16* p_s = reinterpret_cast<const bf16*>(smem + SM::s);
-  const bf16* ds_s = reinterpret_cast<const bf16*>(smem + SM::dp);
-
-  const int kt = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t rs = (size_t)H * HD;
-  const size_t head0 = (size_t)h * HD;
-  const int W = N / 32, nB = N / kSkip, nt = N / kB;
-  const int k0 = kt * kB;
-  const int rstrip = warp % 4;             // key rows 16*rstrip.. of the tile
-  const int col0 = (warp / 4) * (HD / 2);  // head-dim columns this warp owns
-
-  load_tile<HD>(k_s, k + head0, k0, rs, tid, kThreads);
-  load_tile<HD>(v_s, v + head0, k0, rs, tid, kThreads);
-
-  FragC acc_dk[kFr], acc_dv[kFr];
-#pragma unroll
-  for (int j = 0; j < kFr; ++j) {
-    wmma::fill_fragment(acc_dk[j], 0.f);
-    wmma::fill_fragment(acc_dv[j], 0.f);
-  }
-  for (int qt = kt; qt < nt; ++qt) {  // earlier query tiles see none of these keys
-    if (!tile_live(block_any, nB, qt, kt)) continue;  // the transposed walk
-    const int q0 = qt * kB;
-    if (!load_words<HD>(smem, words, q0, kt, W, tid)) continue;
-    load_tile<HD>(q_s, q + head0, q0, rs, tid, kThreads);
-    load_tile<HD>(do_s, dout + head0, q0, rs, tid, kThreads);
-    load_row_stats<HD>(smem, lse, delta, h, q0, H, tid);
-    __syncthreads();
-    bwd_p_ds<HD>(smem, scale, tid, warp);
-    // dV += P^T dO ; dK += dS^T Q  (P^T, dS^T read as column-major)
-#pragma unroll
-    for (int j = 0; j < kFr; ++j) {
-      const int c = col0 + 16 * j;
-#pragma unroll
-      for (int s = 0; s < kB / 16; ++s) {
-        FragACol a;
-        FragBRow b;
-        wmma::load_matrix_sync(a, p_s + 16 * s * LDP + 16 * rstrip, LDP);
-        wmma::load_matrix_sync(b, do_s + 16 * s * LDH + c, LDH);
-        wmma::mma_sync(acc_dv[j], a, b, acc_dv[j]);
-        wmma::load_matrix_sync(a, ds_s + 16 * s * LDP + 16 * rstrip, LDP);
-        wmma::load_matrix_sync(b, q_s + 16 * s * LDH + c, LDH);
-        wmma::mma_sync(acc_dk[j], a, b, acc_dk[j]);
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kWarps, t = begin + i;
+      const int pq = kByRow ? fixed : t, pk = kByRow ? t : fixed;
+      a[u] = b[u] = make_uint2(0u, 0u);
+      if (i < n && __ldg(block_any + (size_t)(pq * kT / kSkip) * nB + pk * kT / kSkip) != 0) {
+        const unsigned* w = words + (size_t)(pq * kT + lane) * W + 2 * pk;
+        const unsigned* w32 = w + (size_t)32 * W;
+        a[u] = make_uint2(__ldg(w), __ldg(w + 1));
+        b[u] = make_uint2(__ldg(w32), __ldg(w32 + 1));
       }
     }
-    __syncthreads();  // q_s / do_s / P / dS / the words are reloaded next iteration
-  }
-
-  // staging: a [16][kStageLd] f32 tile per warp over the (now free) S region
-  float* stage = reinterpret_cast<float*>(smem + SM::s) + warp * 16 * kStageLd;
 #pragma unroll
-  for (int j = 0; j < kFr; ++j) {
-    const int c = col0 + 16 * j;
-    store_acc(acc_dk[j], stage, dk + head0, k0 + 16 * rstrip, c, rs, scale, lane);
-    store_acc(acc_dv[j], stage, dv + head0, k0 + 16 * rstrip, c, rs, 1.f, lane);
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kWarps;
+      if (i >= n) break;  // uniform in the warp
+      const unsigned any = __reduce_or_sync(kFull, a[u].x | a[u].y | b[u].x | b[u].y);
+      const unsigned all = __reduce_and_sync(kFull, a[u].x & a[u].y & b[u].x & b[u].y);
+      if (lane == 0) list_s[i] = any == 0u ? kDead : all == kFull ? kFullPair : kPartial;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // entry i moves to a position <= i
+    int count = 0;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const int i = i0 + lane;
+      const int c = i < n ? list_s[i] : kDead;
+      const unsigned live = __ballot_sync(kFull, c != kDead);  // every lane has read before any writes
+      if (c != kDead)
+        list_s[count + __popc(live & ((1u << lane) - 1u))] = (begin + i) | (c == kFullPair ? kFullBit : 0);
+      count += __popc(live);
+    }
+    if (lane == 0) *n_s = count;
   }
 }
 
+// #5's shared memory: the ring's stages x (K, V) tiles of 64 rows of
+// HD + kPad bf16 (Q and dO are staged once in the last stage's two tiles
+// before the walk), each stage's 64 x 2 mask words (row-major), then the
+// live list [nt] and its length.
 template <int HD>
-__global__ void __launch_bounds__(kBwdWarps * 32) tree_bwd_dq_kernel(
+struct DqCfg {
+  static constexpr int stages = 2;
+  static constexpr int min_blocks = HD == 128 ? 2 : 3;
+  static constexpr int LDH = HD + kPad;
+  static constexpr size_t tile = sizeof(bf16) * kT * LDH;
+  static constexpr size_t words = 2 * stages * tile;
+  static constexpr size_t list = words + sizeof(unsigned) * stages * 2 * kT;
+  static size_t bytes(int nt) { return list + sizeof(int) * (nt + 1); }
+};
+
+// One live pair of #5 for this warp: S = Q K^T and dP = dO V^T, P =
+// exp(S scale - lse), 0 off the mask where kMasked (bit 16 r + 2 j + e of
+// `bits`: this thread's row r against column 8 j + 2 tq + e), dS = P (dP -
+// delta) rounded once to bf16 straight into A fragments, dQ += dS K.
+template <int HD, bool kMasked>
+__device__ __forceinline__ void dq_pair(float (&acc)[HD / 8][4], const uint32_t (&qa)[HD / 16][4],
+                                        const uint32_t (&da)[HD / 16][4], const bf16* k_t, const bf16* v_t,
+                                        const float (&lser)[2], const float (&der)[2], uint32_t bits, float scale,
+                                        int lane) {
+  float s[8][4], dp[8][4];
+  mma_abt<HD>(s, qa, nullptr, k_t, lane);   // S = Q K^T
+  mma_abt<HD>(dp, da, nullptr, v_t, lane);  // dP = dO V^T
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t dsa[4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = 2 * kk + hh;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = __expf(s[j][2 * r + e] * scale - lser[r]);
+          if (kMasked && !((bits >> (16 * r + 2 * j + e)) & 1u)) p = 0.f;
+          d[e] = p * (dp[j][2 * r + e] - der[r]);
+        }
+        dsa[2 * hh + r] = pack_bf16(d[0], d[1]);
+      }
+    mma_ab<HD>(acc, dsa, k_t, kk, lane);  // dQ += dS K
+  }
+}
+
+// #5: dQ = scale dS K over the live key tiles of one query tile.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, DqCfg<HD>::min_blocks) tree_bwd_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const unsigned* __restrict__ words, const int* __restrict__ block_any,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dq, int N, int H, float scale) {
-  typedef BwdSmem<HD> SM;
-  constexpr int LDH = SM::LDH, LDP = SM::LDP;
-  constexpr int kThreads = kBwdWarps * 32;
-  constexpr int kFr = HD / 32;
+  typedef DqCfg<HD> CF;
+  constexpr int LDH = CF::LDH, kStages = CF::stages;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + SM::dout);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + SM::v);
-  const bf16* ds_s = reinterpret_cast<const bf16*>(smem + SM::dp);
 
-  const int qt = blockIdx.x, h = blockIdx.y;
+  const int nt = N / kT, W = N / 32;
+  const int h = blockIdx.x, qt = nt - 1 - static_cast<int>(blockIdx.y);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t rs = (size_t)H * HD;
-  const size_t head0 = (size_t)h * HD;
-  const int W = N / 32, nB = N / kSkip;
-  const int q0 = qt * kB;
-  const int rstrip = warp % 4;  // query rows 16*rstrip.. of the tile
-  const int col0 = (warp / 4) * (HD / 2);
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t rs = (size_t)H * HD, head0 = (size_t)h * HD;
+  const int q0 = qt * kT;
+  int* list_s = reinterpret_cast<int*>(smem + CF::list);
+  auto kv_tile = [&](int st, int kv) -> bf16* { return reinterpret_cast<bf16*>(smem + (2 * st + kv) * CF::tile); };
+  auto words_of = [&](int st) -> unsigned* { return reinterpret_cast<unsigned*>(smem + CF::words) + st * 2 * kT; };
+  auto issue = [&](int e, int st) {  // entry e's K and V tiles (and words, if partial) -> ring stage st
+    const int kt = e & ~kFullBit;
+    copy_rows<HD>(kv_tile(st, 0), k, head0, rs, kt * kT, N, tid);
+    copy_rows<HD>(kv_tile(st, 1), v, head0, rs, kt * kT, N, tid);
+    if (!(e & kFullBit))  // thread t: word t % 2 of row t / 2
+      cp_async4(words_of(st) + tid, words + (size_t)(q0 + tid / 2) * W + 2 * kt + (tid & 1), true);
+  };
 
-  load_tile<HD>(q_s, q + head0, q0, rs, tid, kThreads);
-  load_tile<HD>(do_s, dout + head0, q0, rs, tid, kThreads);
-  load_row_stats<HD>(smem, lse, delta, h, q0, H, tid);
+  // Q and dO, in flight while the strip is classified
+  copy_rows<HD>(kv_tile(kStages - 1, 0), q, head0, rs, q0, N, tid);
+  copy_rows<HD>(kv_tile(kStages - 1, 1), dout, head0, rs, q0, N, tid);
+  cp_async_commit();
+  int qrow[2];  // this thread's rows gq and gq + 8 of its warp, their lse and delta
+  float lser[2], der[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qrow[r] = q0 + 16 * warp + gq + 8 * r;
+    const size_t idx = (size_t)qrow[r] * H + h;
+    lser[r] = __ldg(lse + idx);
+    der[r] = __ldg(delta + idx);
+  }
+  tree_tile_list<true>(words, block_any, N, qt, 0, qt + 1, list_s, list_s + nt, warp, lane);
+  __syncthreads();
+  const int n_live = list_s[nt];
 
-  FragC acc_dq[kFr];
 #pragma unroll
-  for (int j = 0; j < kFr; ++j) wmma::fill_fragment(acc_dq[j], 0.f);
-  for (int kt = 0; kt <= qt; ++kt) {
-    if (!tile_live(block_any, nB, qt, kt)) continue;
-    if (!load_words<HD>(smem, words, q0, kt, W, tid)) continue;
-    const int k0 = kt * kB;
-    load_tile<HD>(k_s, k + head0, k0, rs, tid, kThreads);
-    load_tile<HD>(v_s, v + head0, k0, rs, tid, kThreads);
-    __syncthreads();
-    bwd_p_ds<HD>(smem, scale, tid, warp);
-    // dQ += dS K
+  for (int i = 0; i < kStages - 1; ++i) {  // the ring: entries 0 .. kStages - 2 in flight
+    if (i < n_live) issue(list_s[i], i);
+    cp_async_commit();
+  }
+
+  // Q and dO fragments stay in registers
+  uint32_t qa[HD / 16][4], da[HD / 16][4];
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kFr; ++j) {
-      const int c = col0 + 16 * j;
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (16 * warp + (lane & 15)) * LDH + 16 * kk + (lane >> 4) * 8;
+    ldsm_x4(qa[kk], kv_tile(kStages - 1, 0) + off);
+    ldsm_x4(da[kk], kv_tile(kStages - 1, 1) + off);
+  }
+  // (the walk's first barrier frees the stage before it is written)
+
+  float acc[HD / 8][4];
 #pragma unroll
-      for (int s = 0; s < kB / 16; ++s) {
-        FragARow a;
-        FragBRow b;
-        wmma::load_matrix_sync(a, ds_s + 16 * rstrip * LDP + 16 * s, LDP);
-        wmma::load_matrix_sync(b, k_s + 16 * s * LDH + c, LDH);
-        wmma::mma_sync(acc_dq[j], a, b, acc_dq[j]);
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int p = 0; p < n_live; ++p) {
+    const int st = p % kStages;
+    cp_async_wait<kStages - 2>();  // entry p landed (this thread's copies)
+    __syncthreads();               // every thread's; and the stage written next is free
+    if (p + kStages - 1 < n_live) issue(list_s[p + kStages - 1], (p + kStages - 1) % kStages);
+    cp_async_commit();
+    const int e = list_s[p];
+    const bf16* k_t = kv_tile(st, 0);
+    const bf16* v_t = kv_tile(st, 1);
+    if (e & kFullBit) {
+      dq_pair<HD, false>(acc, qa, da, k_t, v_t, lser, der, 0u, scale, lane);
+    } else {
+      // row r's column 8 j + 2 tq + e is bit 8 (j % 4) + 2 tq + e of its word j / 4
+      uint32_t bits = 0u;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint2 wr = *reinterpret_cast<const uint2*>(words_of(st) + 2 * (16 * warp + gq + 8 * r));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          bits |= (((j < 4 ? wr.x : wr.y) >> (8 * (j & 3) + 2 * tq)) & 3u) << (16 * r + 2 * j);
+      }
+      if (__any_sync(kFull, bits != 0u))  // some row of the warp has a bit in the pair
+        dq_pair<HD, true>(acc, qa, da, k_t, v_t, lser, der, bits, scale, lane);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<HD>(dq, acc, qrow, head0, rs, N, scale, tq);  // padding rows: exact zeros
+}
+
+// #6's shared memory: the block's K and V tiles, the ring's stages x (Q,
+// dO) tiles of 64 rows of HD + kPad bf16, each stage's lse [64], delta [64]
+// and 2 x 64 mask words (column-major, [word column][query row]), then the
+// live list [nt] and its length.
+template <int HD>
+struct DkvCfg {
+  static constexpr int stages = 2;
+  static constexpr int min_blocks = HD == 128 ? 2 : 3;
+  static constexpr int LDH = HD + kPad;
+  static constexpr size_t tile = sizeof(bf16) * kT * LDH;
+  static constexpr size_t rows = 4 * sizeof(float) * kT;  // lse, delta and the words of one stage
+  static constexpr size_t ring = 2 * tile;                 // after the K and V tiles
+  static constexpr size_t row_stats = ring + 2 * stages * tile;
+  static constexpr size_t list = row_stats + stages * rows;
+  static size_t bytes(int nt) { return list + sizeof(int) * (nt + 1); }
+};
+
+// One live pair of #6 for this warp: S^T = K Q^T, P^T = exp(S^T scale -
+// lse) with lse per column, 0 off the mask where kMasked (bit 16 r + 2 j +
+// e of `bits`: this thread's key row r against query column 8 j + 2 tq +
+// e), dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q with dS^T = P^T
+// (dP^T - delta), both rounded once to bf16 straight into A fragments.
+template <int HD, bool kMasked>
+__device__ __forceinline__ void dkv_pair(float (&dka)[HD / 8][4], float (&dva)[HD / 8][4], const bf16* k_w,
+                                         const bf16* v_w, const bf16* q_t, const bf16* d_t,
+                                         const float* __restrict__ lse_t, const float* __restrict__ de_t,
+                                         uint32_t bits, float scale, int lane, int tq) {
+  float s[8][4], dp[8][4];
+  mma_abt<HD>(s, nullptr, k_w, q_t, lane);  // S^T = K Q^T
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float lc = lse_t[8 * j + 2 * tq + e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float p = __expf(s[j][2 * r + e] * scale - lc);
+        s[j][2 * r + e] = !kMasked || (bits >> (16 * r + 2 * j + e)) & 1u ? p : 0.f;
       }
     }
-    __syncthreads();  // k_s / v_s / dS / the words are reloaded next iteration
+  mma_abt<HD>(dp, nullptr, v_w, d_t, lane);  // dP^T = V dO^T
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[4], dsa[4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = 2 * kk + hh, c = 8 * j + 2 * tq;
+        const float p0 = s[j][2 * r], p1 = s[j][2 * r + 1];
+        pa[2 * hh + r] = pack_bf16(p0, p1);
+        dsa[2 * hh + r] = pack_bf16(p0 * (dp[j][2 * r] - de_t[c]), p1 * (dp[j][2 * r + 1] - de_t[c + 1]));
+      }
+    mma_ab<HD>(dva, pa, d_t, kk, lane);  // dV += P^T dO
+    mma_ab<HD>(dka, dsa, q_t, kk, lane);  // dK += dS^T Q
+  }
+}
+
+// #6: dV = P^T dO and dK = scale dS^T Q over the live query tiles of one
+// key tile.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, DkvCfg<HD>::min_blocks) tree_bwd_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const unsigned* __restrict__ words, const int* __restrict__ block_any,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, float scale) {
+  typedef DkvCfg<HD> CB;
+  constexpr int LDH = CB::LDH, kStages = CB::stages;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int nt = N / kT, W = N / 32;
+  const int h = blockIdx.x, kt = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t rs = (size_t)H * HD, head0 = (size_t)h * HD;
+  const int k0 = kt * kT;
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + CB::tile);
+  int* list_s = reinterpret_cast<int*>(smem + CB::list);
+  auto qd_tile = [&](int st, int which) -> bf16* {  // which 0: Q, 1: dO
+    return reinterpret_cast<bf16*>(smem + CB::ring + (2 * st + which) * CB::tile);
+  };
+  auto rows_of = [&](int st) -> float* { return reinterpret_cast<float*>(smem + CB::row_stats + st * CB::rows); };
+  auto issue = [&](int e, int st) {  // entry e's Q, dO, lse, delta (and words, if partial) -> ring stage st
+    const int q0 = (e & ~kFullBit) * kT, r = tid % kT;
+    copy_rows<HD>(qd_tile(st, 0), q, head0, rs, q0, N, tid);
+    copy_rows<HD>(qd_tile(st, 1), dout, head0, rs, q0, N, tid);
+    float* rw = rows_of(st);
+    const size_t idx = (size_t)(q0 + r) * H + h;
+    cp_async4(rw + tid, (tid < kT ? lse : delta) + idx, true);  // lse [64] then delta [64]
+    if (!(e & kFullBit))  // thread t: word column t / 64 of query row t % 64, at [t / 64][t % 64]
+      cp_async4(rw + 2 * kT + tid, words + (size_t)(q0 + r) * W + 2 * kt + tid / kT, true);
+  };
+
+  // this block's K and V tiles, kept for the whole walk, in flight while
+  // the strip is classified
+  copy_rows<HD>(k_s, k, head0, rs, k0, N, tid);
+  copy_rows<HD>(v_s, v, head0, rs, k0, N, tid);
+  cp_async_commit();
+  int krow[2];  // this thread's key rows gq and gq + 8 of its warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) krow[r] = k0 + 16 * warp + gq + 8 * r;
+  tree_tile_list<false>(words, block_any, N, kt, kt, nt, list_s, list_s + nt, warp, lane);
+  __syncthreads();
+  const int n_live = list_s[nt];
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {  // the ring: entries 0 .. kStages - 2 in flight
+    if (i < n_live) issue(list_s[i], i);
+    cp_async_commit();
   }
 
-  float* stage = reinterpret_cast<float*>(smem + SM::s) + warp * 16 * kStageLd;
+  float dka[HD / 8][4], dva[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < kFr; ++j) {
-    store_acc(acc_dq[j], stage, dq + head0, q0 + 16 * rstrip, col0 + 16 * j, rs, scale, lane);
+  for (int n = 0; n < HD / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
+  const bf16* k_w = k_s + 16 * warp * LDH;  // this warp's 16 key rows
+  const bf16* v_w = v_s + 16 * warp * LDH;
+  // the warp's key rows lie in word column warp / 2; row r is bit b0 + 8 r
+  const int b0 = 16 * (warp & 1) + gq;
+
+  for (int p = 0; p < n_live; ++p) {
+    const int st = p % kStages;
+    cp_async_wait<kStages - 2>();  // entry p (and, the first time, K and V) landed
+    __syncthreads();
+    if (p + kStages - 1 < n_live) issue(list_s[p + kStages - 1], (p + kStages - 1) % kStages);
+    cp_async_commit();
+    const int e = list_s[p];
+    const bf16* q_t = qd_tile(st, 0);
+    const bf16* d_t = qd_tile(st, 1);
+    const float* rw = rows_of(st);
+    if (e & kFullBit) {
+      dkv_pair<HD, false>(dka, dva, k_w, v_w, q_t, d_t, rw, rw + kT, 0u, scale, lane, tq);
+    } else {
+      // query columns 8 j + 2 tq and + 1: one 8-byte read of the word column
+      const unsigned* wcol = reinterpret_cast<const unsigned*>(rw + 2 * kT) + (warp >> 1) * kT;
+      uint32_t bits = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint2 wv = *reinterpret_cast<const uint2*>(wcol + 8 * j + 2 * tq);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          bits |= ((wv.x >> (b0 + 8 * r)) & 1u) << (16 * r + 2 * j) |
+                  ((wv.y >> (b0 + 8 * r)) & 1u) << (16 * r + 2 * j + 1);
+      }
+      if (__any_sync(kFull, bits != 0u))  // some key row of the warp has a bit in the pair
+        dkv_pair<HD, true>(dka, dva, k_w, v_w, q_t, d_t, rw, rw + kT, bits, scale, lane, tq);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<HD>(dk, dka, krow, head0, rs, N, scale, tq);  // padding rows: exact zeros
+  store_rows<HD>(dv, dva, krow, head0, rs, N, 1.f, tq);
 }
 
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-
-constexpr size_t kMaxSmem = 232448;  // per block on sm_90 (opt-in)
 
 // 1/sqrt(hd) rounded once from double, as the JAX package's d**-0.5
 float softmax_scale(int hd) { return static_cast<float>(1.0 / sqrt(static_cast<double>(hd))); }
@@ -567,11 +706,12 @@ template <int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* words,
                const void* block_any, const void* dout, const void* lse, const void* delta,
                void* dk, void* dv, int N, int H, cudaStream_t stream) {
-  const size_t bytes = BwdSmem<HD>::bytes;
+  const int nt = N / kT;
+  const size_t bytes = DkvCfg<HD>::bytes(nt);
   int rc = set_smem(tree_bwd_dkv_kernel<HD>, bytes);
   if (rc != 0) return rc;
-  dim3 grid(N / kB, H);
-  tree_bwd_dkv_kernel<HD><<<grid, kBwdWarps * 32, bytes, stream>>>(
+  dim3 grid(H, nt);  // key tile 0, seen by the most query tiles, first
+  tree_bwd_dkv_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned*>(words), static_cast<const int*>(block_any),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -584,11 +724,12 @@ template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* words,
               const void* block_any, const void* dout, const void* lse, const void* delta,
               void* dq, int N, int H, cudaStream_t stream) {
-  const size_t bytes = BwdSmem<HD>::bytes;
+  const int nt = N / kT;
+  const size_t bytes = DqCfg<HD>::bytes(nt);
   int rc = set_smem(tree_bwd_dq_kernel<HD>, bytes);
   if (rc != 0) return rc;
-  dim3 grid(N / kB, H);
-  tree_bwd_dq_kernel<HD><<<grid, kBwdWarps * 32, bytes, stream>>>(
+  dim3 grid(H, nt);  // the query tile reversed: the longest walks first
+  tree_bwd_dq_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned*>(words), static_cast<const int*>(block_any),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -596,7 +737,33 @@ int launch_dq(const void* q, const void* k, const void* v, const void* words,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool shape_ok(int N, int H) { return N > 0 && N % kSkip == 0 && H > 0 && H <= 65535; }
+// a kernel's registers a thread, dynamic shared memory, blocks an SM and
+// local (spill) bytes a thread -> info[0..3]
+template <typename Kernel>
+int occupancy_of(Kernel kernel, size_t bytes, int* info) {
+  int rc = set_smem(kernel, bytes);
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  rc = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
+  if (rc != 0) return rc;
+  int blocks = 0;
+  rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes));
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(bytes);
+  info[2] = blocks;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return rc;
+}
+
+template <int HD>
+int bwd_occupancy(int N, int* info) {
+  const int nt = N / kT;
+  const int rc = occupancy_of(tree_bwd_dkv_kernel<HD>, DkvCfg<HD>::bytes(nt), info);
+  return rc != 0 ? rc : occupancy_of(tree_bwd_dq_kernel<HD>, DqCfg<HD>::bytes(nt), info + 4);
+}
+
+// the backward's grid holds the tile count in y
+bool shape_ok(int N, int H) { return N > 0 && N % kSkip == 0 && N / kT <= 65535 && H > 0 && H <= 65535; }
 
 }  // namespace
 
@@ -640,6 +807,17 @@ extern "C" int tree_attention_bwd_dkv(const void* q, const void* k, const void* 
       return launch_dkv<64>(q, k, v, words, block_any, dout, lse, delta, dk, dv, N, H, st);
     case 128:
       return launch_dkv<128>(q, k, v, words, block_any, dout, lse, delta, dk, dv, N, H, st);
+    default: return -1;
+  }
+}
+
+// #6's (info[0..3]) and #5's (info[4..7]) registers a thread, dynamic shared
+// memory bytes, blocks an SM and local (spill) bytes a thread for N nodes.
+extern "C" int tree_attention_bwd_occupancy(int hd, int N, int* info) {
+  if (!shape_ok(N, 1)) return -1;
+  switch (hd) {
+    case 64: return bwd_occupancy<64>(N, info);
+    case 128: return bwd_occupancy<128>(N, info);
     default: return -1;
   }
 }

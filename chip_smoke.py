@@ -9,6 +9,8 @@
                                                # timed at the kernel_flash phase's shapes
     python3 chip_smoke.py --gmm-bwd-times DIR  # gmm_bwd_lhs and tgmm of DIR's areal_tpu_torch
                                                # timed at the kernel_gmm_bwd phase's shapes
+    python3 chip_smoke.py --tree-times DIR     # #4, #5 and #6 of DIR's areal_tpu_torch
+                                               # timed on the kernel_tree phase's forests
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -78,9 +80,13 @@ no result line:
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
               branches of 128 each) and an agentic trie branching at several
-              depths; three planted faults in the mask words; kernel / plain
-              / SDPA-yardstick times (kernels and SDPA by graph replay, the
-              host loop beside) and the bounds over the set bits.
+              depths; three planted faults in the mask words; the 64-row
+              tile pairs the backward kernels walk (live, full, partial, the
+              longest walks) and their registers, spills, shared memory and
+              blocks an SM at hd 64 and 128; kernel / plain / SDPA-yardstick
+              times (kernels and SDPA by graph replay, the host loop beside),
+              #5 + #6 against SDPA's backward, and the bounds over the set
+              bits.
 11. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
@@ -88,7 +94,8 @@ no result line:
               recompute stays on K2). Checks the dedup counts against a host
               count, the launches per pack, and the tree path's logprobs and
               grad norm against the packed path's on the same batch and
-              weights; profiles one tree optimizer step.
+              weights; profiles one tree optimizer step (#4's, #5's and #6's
+              shares of its busy time).
 12. kernel_gmm — the grouped-matmul kernel (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
@@ -1342,6 +1349,63 @@ def _tree_faults(words: torch.Tensor, n: int) -> dict[str, torch.Tensor]:
 TREE_FAULT_MIN = 10.0  # a planted fault must miss the limit by this factor
 
 
+def _tree_kernel_times(q, k, v, dout, words, block_any, lse, delta) -> dict[str, tuple[float, float]]:
+    """#4, #5 and #6 on one forest: (device ms by CUDA-graph replay, eager
+    host-loop ms) each. Uses only the three wrappers, so it times any
+    tree's kernels (``--tree-times``)."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    kern = {
+        "tree_attention_fwd": lambda: ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True),
+        "tree_attention_bwd_dq": lambda: ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta),
+        "tree_attention_bwd_dkv": lambda: ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta),
+    }
+    with torch.no_grad():
+        return {name: (time_cuda_graph(fn), time_cuda(fn, iters=20)) for name, fn in kern.items()}
+
+
+def tree_times() -> None:
+    """``--tree-times DIR``: #4, #5 and #6 of the ``areal_tpu_torch`` under
+    DIR (a tree unpacked with ``git archive``, say a parent commit's) timed
+    by ``_tree_kernel_times`` on kernel_tree's two forests, one JSON line a
+    forest, so two trees' kernels compare by graph replay in one call;
+    ``bits`` digests the bits of #5 / #6's dq, dk, dv on that tree's #4's
+    lse."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    for fname, seqs in _tree_forests().items():
+        q, k, v, dout, words, block_any, _, _ = _tree_inputs(seqs)
+        with torch.no_grad():
+            out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+            delta = (dout.float() * out.float()).sum(-1)
+            dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
+            dk, dv = ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta)
+        digest = hashlib.sha256()
+        for x in (dq, dk, dv):
+            digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        t = {"bits": digest.hexdigest()[:16]}
+        for name, (ms, host_ms) in _tree_kernel_times(q, k, v, dout, words, block_any, lse, delta).items():
+            t[f"{name}_ms"], t[f"{name}_host_ms"] = ms, host_ms
+        t["pair_ms"] = t["tree_attention_bwd_dq_ms"] + t["tree_attention_bwd_dkv_ms"]
+        print(json.dumps({"tree_times": fname, **t}), flush=True)
+        del q, k, v, dout, words, block_any, out, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+
+
+def _tree_walks(words: torch.Tensor) -> dict[str, int]:
+    """The 64-row tile pairs the backward kernels walk (``tree_tile_classes``):
+    pairs on or below the diagonal, live, full, partial, and the longest
+    walks (#5's live pairs of one query tile, #6's of one key tile)."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    c = ta.tree_tile_classes(words)
+    live = c != ta.DEAD
+    nt = c.shape[0]
+    return dict(pairs=nt * (nt + 1) // 2, live=int(live.sum()), full=int((c == ta.FULL).sum()),
+                partial=int((c == ta.PARTIAL).sum()), dq_walk=int(live.sum(1).max()),
+                dkv_walk=int(live.sum(0).max()))
+
+
 def phase_kernel_tree() -> dict:
     """Kernels #4-#6 against their plain versions at Qwen2.5-1.5B's heads
     (H=12, KV repeated from 2, hd=128, bf16) on two forests; three planted
@@ -1402,14 +1466,16 @@ def phase_kernel_tree() -> dict:
                 + ", ".join(f"{n} {x:.3f} (max|diff| {e:.3e})" for n, (x, _, e) in errs.items())
                 + f"; max|lse - plain| {err_lse:.2e}; planted faults "
                 + ", ".join(f"{n} {x:.1f}" for n, x in fault_x.items()))
-            kern = {
-                "tree_attention_fwd": lambda: ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True),
-                "tree_attention_bwd_dq": lambda: ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta),
-                "tree_attention_bwd_dkv": lambda: ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse,
-                                                                            delta),
-            }
+            walks = _tree_walks(words)
+            occ = {hd_: ta.bwd_occupancy(hd_, N) for hd_ in (64, 128)}
+            log(f"[kernel_tree] {fname}: 64-row tile pairs on or below the diagonal {walks['pairs']}: live "
+                f"{walks['live']} (full {walks['full']}, partial {walks['partial']}), the rest never loaded; the "
+                f"longest walks: #5 {walks['dq_walk']} key tiles, #6 {walks['dkv_walk']} query tiles; "
+                + "; ".join(f"hd {hd_} {n} {o['registers']} registers a thread, {o['local_bytes']} B spilled, "
+                            f"{o['smem_bytes']} B shared memory, {o['blocks_per_sm']} blocks an SM"
+                            for hd_, d in occ.items() for n, o in (("#6", d["dkv"]), ("#5", d["dq"]))))
             # device time by graph replay, the eager host loop beside it
-            times = {name: (time_cuda_graph(fn), time_cuda(fn, iters=20)) for name, fn in kern.items()}
+            times = _tree_kernel_times(q, k, v, dout, words, block_any, lse, delta)
             p_fwd = time_cuda(lambda: ta.tree_attention_fwd_plain(q, k, v, words, block_any), iters=3, warmup=1)
             p_bwd = time_cuda(lambda: ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta),
                               iters=3, warmup=1)
@@ -1438,8 +1504,14 @@ def phase_kernel_tree() -> dict:
             log(f"[kernel_tree] {fname} {name}: kernel={d['ms']:.4f} ms by graph replay (host loop "
                 f"{d['host_ms']:.4f}) plain={d['plain_ms']:.4f} ms sdpa={d['library_ms']:.4f} ms by graph replay "
                 f"(host loop {d['library_host_ms']:.4f}) bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
+        pair = res["tree_attention_bwd_dq"]["ms"] + res["tree_attention_bwd_dkv"]["ms"]
         log(f"[kernel_tree] {fname}: the plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms); "
-            f"SDPA forward {lib_fwd[0]:.4f} ms, backward {lib_b[0]:.4f} ms by graph replay")
+            f"SDPA forward {lib_fwd[0]:.4f} ms, backward {lib_b[0]:.4f} ms by graph replay; #5 + #6 {pair:.4f} ms: "
+            f"SDPA's backward (dq, dk, dv in one call) / (#5 + #6) = {lib_b[0] / pair:.2f}, "
+            f"{pair / (bounds['tree_attention_bwd_dq'][0] + bounds['tree_attention_bwd_dkv'][0]):.1f}x their bounds")
+        for name in ("tree_attention_bwd_dq", "tree_attention_bwd_dkv"):
+            res[name]["occupancy"] = {hd_: o["dq" if name.endswith("dq") else "dkv"] for hd_, o in occ.items()}
+        res["tile_pairs"] = walks
         per[fname] = res
         del q, k, v, dout, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
@@ -2156,6 +2228,19 @@ def _flash_shares(prof: dict) -> None:
         log(f"[profile]   {what} ({key}): {us / 1e3:.2f} ms, {us / prof['busy_us']:.1%} of busy")
 
 
+def _tree_shares(prof: dict) -> dict[str, float]:
+    """Logs #4's, #5's and #6's device time in a profiled step, and their
+    shares of its busy time, #5 and #6 together beside them."""
+    shares = {}
+    for what, key in (("#4", "tree_fwd_kernel"), ("#5", "tree_bwd_dq_kernel"), ("#6", "tree_bwd_dkv_kernel")):
+        us = sum(t for name, t in prof["by_name"].items() if key in name)
+        shares[what] = us / prof["busy_us"]
+        log(f"[profile]   {what} ({key}): {us / 1e3:.2f} ms, {shares[what]:.1%} of busy")
+    shares["#5 + #6"] = shares["#5"] + shares["#6"]
+    log(f"[profile]   #5 + #6: {shares['#5 + #6']:.1%} of busy")
+    return shares
+
+
 def _wfn(d) -> float:
     return float((np.asarray(d["loss_mask"]) > 0).sum())
 
@@ -2295,7 +2380,8 @@ def phase_train_tree(card: str) -> dict:
         f"{node_total:.0f} nodes)")
 
     # one more tree optimizer step on the last batch, profiled
-    busy = _profile(lambda: trainer.train_batch(adv, actor._loss_fn, _wfn), "tree optimizer step", card)["busy"]
+    prof = _profile(lambda: trainer.train_batch(adv, actor._loss_fn, _wfn), "tree optimizer step", card)
+    busy, shares = prof["busy"], _tree_shares(prof)
 
     # the tree path against the packed path on the same batch at the same
     # weights, the proximal logprobs recomputed (PPO ratio ~1)
@@ -2333,7 +2419,7 @@ def phase_train_tree(card: str) -> dict:
     torch.cuda.empty_cache()
     return dict(counts=dict(zip(("tree_attention_fwd", "tree_attention_bwd_dq", "tree_attention_bwd_dkv"), counts)),
                 parts=parts, tokens_per_s=tokens / ppo_s, nodes_per_s=node_total / ppo_s, busy=busy,
-                peak_gib=peak, logp_gap=logp_gap, norms=norms)
+                shares=shares, peak_gib=peak, logp_gap=logp_gap, norms=norms)
 
 
 # the grouped matmul vs its plain version, element by element: the same f32
@@ -3483,13 +3569,13 @@ def main(argv: list[str]) -> int:
         if set(only) - set(PHASES):
             print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
             return 2
-    elif argv[:1] in (["--decode-times"], ["--flash-times"], ["--gmm-bwd-times"]) and len(argv) == 2:
+    elif argv[:1] in (["--decode-times"], ["--flash-times"], ["--gmm-bwd-times"], ["--tree-times"]) and len(argv) == 2:
         times = argv[0][2:-len("-times")]
         other_dir = os.path.abspath(argv[1])
         sys.path.insert(0, other_dir)  # that tree's areal_tpu_torch, not this one's
     elif argv:
         print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR | --flash-times DIR | "
-              "--gmm-bwd-times DIR]", file=sys.stderr)
+              "--gmm-bwd-times DIR | --tree-times DIR]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3521,6 +3607,12 @@ def main(argv: list[str]) -> int:
         phase_build(["gmm"])
         gmm_bwd_times()
         log(f"[done] gmm backward times in {time.monotonic() - t0:.1f}s on {card} (no result)")
+        return 0
+    if times == "tree":
+        log(f"[tree_times] #4, #5 and #6 of {os.path.dirname(areal_tpu_torch.__file__)}")
+        phase_build(["tree_attention"])
+        tree_times()
+        log(f"[done] tree times in {time.monotonic() - t0:.1f}s on {card} (no result)")
         return 0
     phase_build()
     runs = {
@@ -3631,8 +3723,9 @@ def main(argv: list[str]) -> int:
             "launches": tree_t["counts"][name],
             "max_abs_err": max(f[name]["max_abs_err"] for f in tree_k.values()),
             **{f: d[f] for f in fields[1:]},
-            "forests": {fo: {f: r[name][f] for f in (*fields, "host_ms", "library_host_ms")}
-                        for fo, r in tree_k.items()},
+            "forests": {fo: {**{f: r[name][f] for f in (*fields, "host_ms", "library_host_ms")},
+                             "tile_pairs": r["tile_pairs"]} for fo, r in tree_k.items()},
+            **({"occupancy": d["occupancy"]} if "occupancy" in d else {}),
         })
     # the grouped matmul: launches of serve_moe's cold and warm waves; the
     # times of the decode gate / up shape, the other shapes beside them

@@ -682,8 +682,15 @@ def _tree_case(dev, groups, H, KH, hd, seed=0):
             seqs.append(prompt + rng.integers(0, 1000, blen).tolist())
             cut = int(rng.integers(plen, plen + blen))
             seqs.append(seqs[-1][:cut] + rng.integers(0, 1000, 20).tolist())
+    return _tree_tensors(dev, seqs, H, KH, hd, seed=seed)
+
+
+def _tree_tensors(dev, seqs, H, KH, hd, n_pad=None, seed=0):
+    """The trie of ``seqs`` packed to ancestor bits over ``n_pad`` rows (the
+    next multiple of 128 by default); bf16 q and dO [N, H, hd], K/V repeated
+    from KH heads, dO zero on padded rows."""
     pack = build_tree(seqs)
-    words, block_any = ta.pack_ancestor_bits(pack.parent)
+    words, block_any = ta.pack_ancestor_bits(pack.parent, n_pad)
     N = words.shape[0]
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, dout = (torch.randn((N, H, hd), generator=g).to(torch.bfloat16) for _ in range(2))
@@ -725,6 +732,105 @@ def test_tree_kernels_match_plain(cuda, shape):
         assert got.dtype == torch.bfloat16
         _assert_flash_close(got, ref, valid)
     assert [f.launches - a for f, a in zip(kernels, n0)] == [1, 1, 1]
+
+
+def _tree_bwd_seqs(kind, rng):
+    """Tries for the backward kernels' walk. "chain": one sequence, so
+    every pair below the diagonal is full. "straddle": GRPO groups whose
+    prompts (100, 70 tokens) and branches end off the 64-row tile edges.
+    "partial": 20 disjoint chains of 40 nodes, so no 64-row pair is full.
+    "grpo": prompts of 500, 400 and 300 tokens with 4, 4 and 3 branches of
+    250-token responses."""
+    tok = lambda n: rng.integers(0, 1000, n).tolist()  # noqa: E731
+    if kind == "chain":
+        return [tok(500)]
+    if kind == "straddle":
+        return [p + tok(b) for plen, n, b in ((100, 4, 90), (70, 3, 50)) for p in [tok(plen)] for _ in range(n)]
+    if kind == "partial":
+        return [[1000 + i] + tok(39) for i in range(20)]
+    return [p + tok(250) for plen, n in ((500, 4), (400, 4), (300, 3)) for p in [tok(plen)] for _ in range(n)]
+
+
+# (trie, n_pad or None for the next multiple of 128, H, KH, hd)
+TREE_BWD_CASES = {
+    "chain-full-N512-hd128": ("chain", 512, 4, 2, 128),
+    "straddle-hd64": ("straddle", None, 4, 1, 64),
+    "straddle-hd128-padded": ("straddle", 1024, 2, 2, 128),
+    "all-partial-hd128": ("partial", None, 2, 1, 128),
+    "all-partial-hd64": ("partial", None, 3, 3, 64),
+    "grpo-N4096-hd128": ("grpo", 4096, 4, 2, 128),
+    "grpo-N4096-hd64": ("grpo", 4096, 2, 1, 64),
+}
+
+
+def _tree_bwd(q, k, v, words, block_any, dout, lse, delta):
+    dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
+    return (dq, *ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TREE_BWD_CASES))
+def test_tree_bwd_kernels_walk_match_plain(cuda, case):
+    """#5 and #6 against the plain backward on #4's lse, element by element,
+    on tries whose live 64-row tile pairs are full, straddle tile edges or
+    are all partial, at N = 512 .. 4,096, hd 64 and 128, with bit 31 set in
+    some words and padding rows whose gradients must be exact zeros."""
+    kind, n_pad, H, KH, hd = TREE_BWD_CASES[case]
+    seqs = _tree_bwd_seqs(kind, np.random.default_rng(12))
+    q, k, v, dout, words, block_any, valid = _tree_tensors(cuda, seqs, H, KH, hd, n_pad=n_pad, seed=12)
+    classes = ta.tree_tile_classes(words)
+    assert ((words >> 31) & 1).any()
+    assert (ta.FULL in classes) == (kind != "partial") and ta.PARTIAL in classes
+    if n_pad is not None:
+        assert not valid.all()
+    out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1)
+    n0 = [f.launches for f in (ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv)]
+    grads = _tree_bwd(q, k, v, words, block_any, dout, lse, delta)
+    assert [f.launches - a for f, a in zip((ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv), n0)] == [1, 1]
+    want = ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        _assert_flash_close(got, ref, valid)
+        assert torch.count_nonzero(got[~valid]) == 0
+
+
+@pytest.mark.cuda
+def test_tree_bwd_bits_repeat_and_replay(cuda):
+    """#5 and #6 give the same bits on a second call and when captured in a
+    CUDA graph and replayed (no atomics, no host state read at replay)."""
+    seqs = _tree_bwd_seqs("grpo", np.random.default_rng(13))
+    q, k, v, dout, words, block_any, _ = _tree_tensors(cuda, seqs, 4, 2, 128, n_pad=4096, seed=13)
+    out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1)
+    args = (q, k, v, words, block_any, dout, lse, delta)
+    eager, again = _tree_bwd(*args), _tree_bwd(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _tree_bwd(*args)  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _tree_bwd(*args)
+    for t in replayed:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(eager, again, replayed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_tree_bwd_occupancy(cuda):
+    for hd in (64, 128):
+        for N in (2048, 8192):
+            occ = ta.bwd_occupancy(hd, N)
+            for kernel in ("dkv", "dq"):
+                o = occ[kernel]
+                assert 0 < o["registers"] <= 255 and o["smem_bytes"] > 0 and o["blocks_per_sm"] >= 2, (hd, N, occ)
+                assert o["local_bytes"] >= 0
 
 
 @pytest.mark.cuda

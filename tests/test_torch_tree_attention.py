@@ -165,6 +165,141 @@ def test_autograd_matches_dense_masked_softmax():
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels' walk over 64-row tile pairs
+# ---------------------------------------------------------------------------
+
+
+def _chain(n=300, vocab=50):
+    """One sequence: every node attends all earlier ones."""
+    return [np.random.default_rng(8).integers(0, vocab, n).tolist()]
+
+
+def _grpo_offset(vocab=50):
+    """Two GRPO groups whose prompts (100 and 70 tokens) and branches end
+    off the 64-row tile edges."""
+    rng = np.random.default_rng(9)
+    seqs = []
+    for plen, n, blen in ((100, 4, 90), (70, 3, 50)):
+        prompt = rng.integers(0, vocab, plen).tolist()
+        seqs += [prompt + rng.integers(0, vocab, blen).tolist() for _ in range(n)]
+    return seqs
+
+
+def _agentic_deep(vocab=50):
+    """Agent episodes over one 150-token system prompt: each trajectory
+    forks from an earlier one at a random depth past the prompt."""
+    rng = np.random.default_rng(10)
+    seqs = [rng.integers(0, vocab, 190).tolist()]
+    while sum(len(s) for s in seqs) < 1500:
+        base = seqs[int(rng.integers(0, len(seqs)))]
+        cut = int(rng.integers(150, len(base)))
+        seqs.append(base[:cut] + rng.integers(0, vocab, int(rng.integers(10, 60))).tolist())
+    return seqs
+
+
+# (sequences, padding rows past the last 128-row bucket)
+TILE_TRIES = {
+    "chain": (_chain, 0),
+    "grpo-offset": (_grpo_offset, 0),
+    "agentic-deep": (_agentic_deep, 0),
+    "grpo-offset-padded": (_grpo_offset, 256),
+}
+
+
+def _tile_bits(trie):
+    seqs, extra = TILE_TRIES[trie]
+    pack = jtree.build_tree(seqs())
+    return pack, jta.pack_ancestor_bits(pack.parent, -(-pack.n_nodes // jta.BLOCK) * jta.BLOCK + extra)
+
+
+def _brute_classes(words, tile=64):
+    """Every tile pair's class from the expanded bits, one pair at a time."""
+    N = words.shape[0]
+    mask = np.unpackbits(words.astype("<u4").view(np.uint8), bitorder="little").reshape(N, N).astype(bool)
+    assert not np.triu(mask, 1).any()  # parent before child
+    nt = N // tile
+    out = np.zeros((nt, nt), np.int32)
+    for qt in range(nt):
+        for kt in range(qt + 1):
+            m = mask[qt * tile : (qt + 1) * tile, kt * tile : (kt + 1) * tile]
+            out[qt, kt] = tta.FULL if m.all() else tta.PARTIAL if m.any() else tta.DEAD
+    return out
+
+
+@pytest.mark.parametrize("trie", list(TILE_TRIES))
+def test_tree_tile_classes_match_brute_force(trie):
+    pack, (words, _) = _tile_bits(trie)
+    want = _brute_classes(words)
+    got = tta.tree_tile_classes(torch.from_numpy(words.view(np.int32)))
+    np.testing.assert_array_equal(got, want)
+    lower = want[np.tril_indices(want.shape[0])]
+    # every trie shows all three classes on or below the diagonal
+    assert {tta.DEAD, tta.PARTIAL, tta.FULL} <= set(lower.tolist()), np.bincount(lower)
+    if pack.n_nodes % 64:  # the tile holding the last node and padding rows is never full
+        assert (want[pack.n_nodes // 64] != tta.FULL).all()
+    assert (want[-(-pack.n_nodes // 64) :] == tta.DEAD).all()  # padding-only query tiles
+
+
+def _tiled_bwd(q, k, v, words, dout, lse, delta, tile=64):
+    """The kernels' walk in plain torch: #5 takes each query tile's live key
+    tiles in order, #6 each key tile's live query tiles; full pairs run
+    without the mask, partial pairs with it, dead pairs are never touched.
+    Returns f32 (dq, dk, dv)."""
+    N, H, d = q.shape
+    scale = d**-0.5
+    classes = tta.tree_tile_classes(words, tile)
+    mask = tta.expand_mask(words)
+
+    def pair(qs, ks, full):
+        s = torch.einsum("qhd,khd->hqk", q[qs], k[ks]) * scale
+        p = torch.exp(s - lse[qs].t()[..., None])
+        if not full:
+            p = torch.where(mask[qs, ks], p, 0.0)
+        dp = torch.einsum("qhd,khd->hqk", dout[qs], v[ks])
+        return p, p * (dp - delta[qs].t()[..., None])
+
+    dq, dk, dv = (torch.zeros((N, H, d)) for _ in range(3))
+    nt = N // tile
+    rows = [slice(t * tile, (t + 1) * tile) for t in range(nt)]
+    for qt in range(nt):  # #5
+        for kt in np.flatnonzero(classes[qt]):
+            _, ds = pair(rows[qt], rows[kt], classes[qt, kt] == tta.FULL)
+            dq[rows[qt]] += torch.einsum("hqk,khd->qhd", ds, k[rows[kt]])
+    for kt in range(nt):  # #6
+        for qt in np.flatnonzero(classes[:, kt]):
+            p, ds = pair(rows[qt], rows[kt], classes[qt, kt] == tta.FULL)
+            dv[rows[kt]] += torch.einsum("hqk,qhd->khd", p, dout[rows[qt]])
+            dk[rows[kt]] += torch.einsum("hqk,qhd->khd", ds, q[rows[qt]])
+    return dq * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("trie", list(TILE_TRIES))
+def test_tiled_walk_matches_plain_backward_and_jax_vjp(trie):
+    _, (words, block_any) = _tile_bits(trie)
+    N, H, d = words.shape[0], 2, 64
+    q, k, v, dout = _qkv(N, H, d, seed=11)
+    valid = _valid(words)
+    dout[~valid] = 0.0
+    tq_, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+    tw, tb = torch.from_numpy(words.view(np.int32)), torch.from_numpy(block_any)
+    out, lse = tta.tree_attention_fwd_plain(tq_, tk, tv, tw, tb)
+    delta = (tdo * out).sum(-1)
+    got = _tiled_bwd(tq_, tk, tv, tw, tdo, lse, delta)
+    plain = tta.tree_attention_bwd_plain(tq_, tk, tv, tw, tb, tdo, lse, delta)
+
+    def f(q_, k_, v_):
+        return jta.tree_attention(q_, k_, v_, jnp.asarray(words), jnp.asarray(block_any), True)
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    for name, g, p_, w in zip(("dq", "dk", "dv"), got, plain, vjp(jnp.asarray(dout))):
+        # the same f32 products summed tile by tile: f32 rounding only
+        np.testing.assert_allclose(g.numpy(), p_.numpy(), atol=1e-6 * p_.abs().max().item(), err_msg=name)
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, atol=GRAD_RTOL * np.abs(w).max(), err_msg=name)
+        assert not g.numpy()[~valid].any()  # padding rows: exact zeros
+
+
+# ---------------------------------------------------------------------------
 # the model over a packed forest
 # ---------------------------------------------------------------------------
 
