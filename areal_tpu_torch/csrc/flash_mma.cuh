@@ -1,5 +1,5 @@
 // The mma.sync flash-loop building blocks shared by the attention kernels
-// (#1 decode, #3 suffix, K2-K4 flash, #5 / #6 tree) and gmm: the tile
+// (#1 decode, #3 suffix, K2-K4 flash, #4-#6 tree) and gmm: the tile
 // constants, the cp.async copies, ldmatrix, the m16n8k16 bf16 MMA, exp2 on
 // the SFU, bf16 packing and the exact int8 / fp8 -> bf16 conversions
 // (moved verbatim from paged_suffix_attention.cu), then the backward's tile
@@ -102,7 +102,7 @@ __device__ __forceinline__ uint4 widen8(uint2 raw) {
 }
 
 // ---------------------------------------------------------------------------
-// The flash loops' tile products (K3 / K4 in flash_attention.cu, #5 / #6 in
+// The flash loops' tile products (K3 / K4 in flash_attention.cu, #4-#6 in
 // tree_attention.cu): 64-row tiles of HD + kPad bf16, 4 warps of 16 rows.
 // ---------------------------------------------------------------------------
 

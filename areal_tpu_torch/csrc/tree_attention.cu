@@ -28,24 +28,48 @@
 // operations. The backward is the same with 3.5x the flops of the forward
 // (#6's four products and #5's three, each recomputing S and dP).
 //
-// #4's design (simple and correct first): tiles of 64 query rows x 64 key
-// rows, one block of 4 warps per (query tile, head), warp w owning query
-// rows 16w..16w+15; every product on the tensor cores through WMMA
-// 16x16x16 bf16 fragments with f32 accumulation, from shared memory; the
-// mask read from the packed words inside the kernel, one 32-bit word per
-// (row, 32 columns): a 64 x 64 tile needs 128 words (512 bytes), never an
-// [N, N] byte mask. Tiles are skipped three ways, all uniform across the
-// block: above the diagonal (ancestors precede their nodes), where
-// block_any of the enclosing 128 x 128 tile is 0 (read as
-// block_any[i / 2][j / 2], conservative for 64-row tiles), and where the
-// tile's own 128 words are all 0 (one __syncthreads_or, which is also the
-// barrier before the tile's loads). A loop over key tiles replaces the
-// TPU's sequential grid axis; the online softmax (running max and sum per
-// row, f32) and the f32 output accumulator live in shared memory (a WMMA
-// accumulator's element-to-row map is unspecified and the rescale is per
-// row). Each lane pair owns a row, each lane 32 of the tile's columns:
-// exactly one mask word. What it does not do yet: cp.async double
-// buffering, keeping S and P in registers, a list of live tiles, wgmma.
+// #4's design (K2's forward loop of flash_attention.cu on #5's walk below,
+// with the tile products of flash_mma.cuh; no atomics, so every call gives
+// the same bits, and O's bits do not depend on whether lse is written):
+//   - one block of 4 warps per (64-row query tile, head), grid (H, nt) with
+//     the query tile reversed, so the longest walks start first. The block
+//     walks #5's list of its live key tiles 0..qt through a 2-stage
+//     cp.async ring of K and V tiles with the pair's 64 x 2 mask words
+//     (row-major), #5's shared memory exactly; the query tile is staged
+//     once in the ring's last stage and read into A fragments once.
+//   - warp w owns rows 16w..16w+15 and keeps Q's fragments, S (32 f32 a
+//     thread), P (bf16 A fragments packed straight from S's accumulator
+//     layout) and O (HD / 2 f32 a thread) in registers. S = Q K^T and O +=
+//     P V run on mma.sync m16n8k16 bf16 -> f32, V read by ldmatrix.trans.
+//     On a partial pair S is -inf where the bit is clear, and a warp none
+//     of whose rows has a bit in the pair skips its math; a full pair
+//     takes no test. Row max and sum use the quad's shuffles; O is
+//     rescaled only when a row's max moved and normalised once at the end.
+//     Nothing of S, P or O goes through shared memory.
+//   - numerics: the softmax runs in the natural-log domain, P = exp(S scale
+//     - m) on __expf, and lse = m + log l is the lse from which #5 / #6
+//     recompute P (K2's exp2 with the scale folded in moves P's last bits;
+//     in K3 / K4 that moved a dS rounding past the check; here it measured
+//     only 3% faster, so it was not taken). P rounds once to bf16 before P
+//     V, as the JAX kernel rounds it, and not as K2's bf16 pair hi + lo:
+//     O's worst element against the plain f32 forward is 0.29-0.73 of the
+//     check's limit over both kernel_tree forests and the walk tries at HD
+//     64 and 128 (a chain, whose row 0 has one key, 0.38 / 0.46; branches
+//     straddling tile edges 0.37 / 0.42), under the 0.8 that would call for
+//     the pair, which measured 0.27-0.39 and 14% slower.
+//   - resources (sm_90a, nvcc 12.8, measured on an H100;
+//     tree_attention_fwd_occupancy reports them, chip_smoke.py prints
+//     them): HD = 128 168 registers a thread (__launch_bounds__ for 3
+//     blocks an SM, K2's budget; 72 bytes spilled), HD = 64 128 registers
+//     (16 bytes spilled, 4 blocks); #5's shared memory, 70,788 B at HD =
+//     128 and N = 2,048 (38,020 B at HD = 64). At N = 2,048 and H = 12 the
+//     384 blocks all fit the card's 396 slots at once.
+// What holds it, measured (PERF.md): on a GRPO forest of N = 2,048 the math
+// alone (K and V copies skipped) keeps 65% of its time and the copies alone
+// (math skipped) 68%: per-block latency over walks of up to 10 pairs, the
+// longest walk setting the kernel's end, as for #5. What it leaves for
+// later: wgmma and TMA, splitting long walks (a second pass to merge them,
+// no atomics).
 //
 // #5 / #6's design (K3 / K4's in flash_attention.cu, the tile products of
 // flash_mma.cuh, with the ancestor bit in place of the segment-causal
@@ -80,7 +104,7 @@
 //     read 32 consecutive bytes the other quads share (a broadcast), free
 //     of bank conflicts.
 //   - the walk: each block first classifies the 64-tile pairs of its strip
-//     (#5: its query tile against key tiles 0..qt; #6: its key tile against
+//     (#4, #5: its query tile against key tiles 0..qt; #6: its key tile against
 //     query tiles kt..nt-1) from the words alone (tree_tile_list: block_any
 //     as a first filter, then OR and AND reductions over each pair's 128
 //     words with redux.sync) and compacts the live ones, with a flag for
@@ -112,7 +136,6 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -120,199 +143,10 @@
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kB = 64;         // #4: rows per query tile and per key tile
-constexpr int kSkip = 128;     // tile edge of block_any
-constexpr int kWordsPerRow = kB / 32;  // mask words per row of a tile
-constexpr int kFwdWarps = 4;   // #4: warp w owns query rows 16w..16w+15
-constexpr int kPadH = 8;       // bf16 row padding (elements): ldm % 8 == 0
-constexpr int kPadF = 4;       // f32 row padding: ldm % 4 == 0
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__host__ __device__ constexpr size_t align32(size_t n) { return (n + 31) / 32 * 32; }
-
-// Copy rows [r0, r0 + kB) of one head of an [N, H, HD] tensor into a
-// [kB][HD + kPadH] shared tile. `base` points at (0, h, 0); consecutive rows
-// are `rs` elements apart. N is a multiple of kB, so every row exists.
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ base, int r0,
-                                          size_t rs, int tid, int nthr) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  constexpr int LD = HD + kPadH;
-  for (int c = tid; c < kB * kChunks; c += nthr) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LD + col) =
-        *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * rs + col);
-  }
-}
-
-// Is the tile (query tile qt, key tile kt) inside a nonzero 128 x 128 tile
-// of the skip map? Uniform in the block.
-__device__ __forceinline__ bool tile_live(const int* __restrict__ block_any, int nB, int qt,
-                                          int kt) {
-  return block_any[(size_t)(qt * kB / kSkip) * nB + kt * kB / kSkip] != 0;
-}
+constexpr int kSkip = 128;  // tile edge of block_any
 
 // ---------------------------------------------------------------------------
-// #4: forward
-// ---------------------------------------------------------------------------
-
-template <int HD>
-struct FwdSmem {
-  static constexpr int LDH = HD + kPadH;   // q/k/v tiles (bf16)
-  static constexpr int LDS = kB + kPadF;   // S (f32)
-  static constexpr int LDP = 2 * LDS;      // P (bf16) written over S's rows
-  static constexpr int LDO = HD + kPadF;   // O accumulator (f32)
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align32(q + sizeof(bf16) * kB * LDH);
-  static constexpr size_t v = align32(k + sizeof(bf16) * kB * LDH);
-  static constexpr size_t s = align32(v + sizeof(bf16) * kB * LDH);
-  static constexpr size_t o = align32(s + sizeof(float) * kB * LDS);
-  static constexpr size_t m = align32(o + sizeof(float) * kB * LDO);
-  static constexpr size_t l = m + sizeof(float) * kB;
-  static constexpr size_t bytes = l + sizeof(float) * kB;
-};
-
-template <int HD>
-__global__ void __launch_bounds__(kFwdWarps * 32) tree_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const unsigned* __restrict__ words, const int* __restrict__ block_any, bf16* __restrict__ o,
-    float* __restrict__ lse, int N, int H, float scale) {
-  typedef FwdSmem<HD> SM;
-  constexpr int LDH = SM::LDH, LDS = SM::LDS, LDP = SM::LDP, LDO = SM::LDO;
-  constexpr int kThreads = kFwdWarps * 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + SM::v);
-  float* s_s = reinterpret_cast<float*>(smem + SM::s);
-  bf16* p_s = reinterpret_cast<bf16*>(smem + SM::s);  // aliases S row by row
-  float* o_s = reinterpret_cast<float*>(smem + SM::o);
-  float* m_s = reinterpret_cast<float*>(smem + SM::m);
-  float* l_s = reinterpret_cast<float*>(smem + SM::l);
-
-  const int qt = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t rs = (size_t)H * HD;  // elements between consecutive rows of one head
-  const size_t head0 = (size_t)h * HD;
-  const int W = N / 32, nB = N / kSkip;
-  const int q0 = qt * kB;
-
-  load_tile<HD>(q_s, q + head0, q0, rs, tid, kThreads);
-  for (int r = tid; r < kB; r += kThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-  for (int i = tid; i < kB * LDO; i += kThreads) o_s[i] = 0.f;
-  // (the first live tile's __syncthreads_or publishes these)
-
-  const int r = 16 * warp + (lane >> 1);  // the row this lane pair owns
-  const int half = lane & 1;              // which 32 of the tile's columns
-  const int qi = q0 + r;
-  const unsigned* wrow = words + (size_t)qi * W;
-
-  for (int kt = 0; kt <= qt; ++kt) {  // later tiles lie above the diagonal
-    if (!tile_live(block_any, nB, qt, kt)) continue;
-    // this lane's mask word: columns kt * 64 + 32 * half .. + 31
-    const unsigned w = wrow[kt * kWordsPerRow + half];
-    // the barrier also orders the previous tile's reads of k_s / v_s
-    if (!__syncthreads_or(w != 0u)) continue;
-    const int k0 = kt * kB;
-    load_tile<HD>(k_s, k + head0, k0, rs, tid, kThreads);
-    load_tile<HD>(v_s, v + head0, k0, rs, tid, kThreads);
-    __syncthreads();
-
-    // S[rows of this warp][64] = Q K^T (raw dot products, f32)
-#pragma unroll
-    for (int j = 0; j < kB / 16; ++j) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int d = 0; d < HD; d += 16) {
-        FragARow a;
-        FragBCol b;
-        wmma::load_matrix_sync(a, q_s + 16 * warp * LDH + d, LDH);
-        wmma::load_matrix_sync(b, k_s + 16 * j * LDH + d, LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(s_s + 16 * warp * LDS + 16 * j, acc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax of row r over this tile's 64 columns, two lanes per row
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const bool ok = (w >> c) & 1u;
-      sv[c] = ok ? s_s[r * LDS + half * 32 + c] * scale : -INFINITY;
-      mx = fmaxf(mx, sv[c]);
-    }
-    // the shuffle also orders every lane's reads of S before P overwrites it
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    const float m_old = m_s[r];
-    const float m_new = fmaxf(m_old, mx);
-    float alpha = 1.f, psum = 0.f;
-    if (m_new != -INFINITY) {
-      alpha = __expf(m_old - m_new);  // 0 while the row had no set bit
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const float p = __expf(sv[c] - m_new);  // masked: exp(-inf) = 0
-        psum += p;
-        p_s[r * LDP + half * 32 + c] = __float2bfloat16(p);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 32; ++c) p_s[r * LDP + half * 32 + c] = __float2bfloat16(0.f);
-    }
-    psum += __shfl_xor_sync(kFull, psum, 1);
-    if (half == 0) {
-      m_s[r] = m_new;
-      l_s[r] = l_s[r] * alpha + psum;
-    }
-    if (alpha != 1.f) {
-#pragma unroll 8
-      for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d) o_s[r * LDO + d] *= alpha;
-    }
-    __syncwarp();
-
-    // O[rows of this warp] += P V
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, o_s + 16 * warp * LDO + 16 * j, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int s = 0; s < kB / 16; ++s) {
-        FragARow a;
-        FragBRow b;
-        wmma::load_matrix_sync(a, p_s + 16 * warp * LDP + 16 * s, LDP);
-        wmma::load_matrix_sync(b, v_s + 16 * s * LDH + 16 * j, LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(o_s + 16 * warp * LDO + 16 * j, acc, LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  __syncthreads();  // o_s / m_s / l_s initialised by other threads when no tile was live
-  const float lr = l_s[r];
-  const float inv = lr > 0.f ? 1.f / lr : 0.f;  // padding rows: zeros
-  bf16* orow = o + head0 + (size_t)qi * rs;
-#pragma unroll 4
-  for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); d += 2) {
-    *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-        __floats2bfloat162_rn(o_s[r * LDO + d] * inv, o_s[r * LDO + d + 1] * inv);
-  }
-  if (lse != nullptr && half == 0) lse[(size_t)qi * H + h] = lr > 0.f ? m_s[r] + logf(lr) : 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// #5 / #6: backward
+// the walk over live 64-tile pairs (#4, #5, #6)
 // ---------------------------------------------------------------------------
 
 // A tile pair's class; a live-list entry is the walked tile's index, with
@@ -322,7 +156,7 @@ constexpr int kFullBit = 1 << 30;
 
 // Classify the 64-tile pairs of one block's strip from the words alone and
 // write the live ones, in walk order, to list_s and their count to *n_s:
-// #5 (kByRow) pairs query tile `fixed` with key tiles begin .. end - 1, #6
+// #4 and #5 (kByRow) pair query tile `fixed` with key tiles begin .. end - 1, #6
 // key tile `fixed` with query tiles begin .. end - 1. A pair is dead where
 // block_any's enclosing 128 x 128 tile is 0 (no word read) or its 128
 // words are all 0, and full where they are all ones. Warp w takes pairs w,
@@ -374,10 +208,10 @@ __device__ __forceinline__ void tree_tile_list(const unsigned* __restrict__ word
   }
 }
 
-// #5's shared memory: the ring's stages x (K, V) tiles of 64 rows of
-// HD + kPad bf16 (Q and dO are staged once in the last stage's two tiles
-// before the walk), each stage's 64 x 2 mask words (row-major), then the
-// live list [nt] and its length.
+// #5's shared memory, and #4's: the ring's stages x (K, V) tiles of 64
+// rows of HD + kPad bf16 (Q and dO, or #4's Q alone, are staged once in the
+// last stage's tiles before the walk), each stage's 64 x 2 mask words
+// (row-major), then the live list [nt] and its length.
 template <int HD>
 struct DqCfg {
   static constexpr int stages = 2;
@@ -388,6 +222,197 @@ struct DqCfg {
   static constexpr size_t list = words + sizeof(unsigned) * stages * 2 * kT;
   static size_t bytes(int nt) { return list + sizeof(int) * (nt + 1); }
 };
+
+// This thread's bits of a partial pair from a stage's row-major words: bit
+// 16 r + 2 j + e is row 16 warp + gq + 8 r against column 8 j + 2 tq + e,
+// which is bit 8 (j % 4) + 2 tq + e of the row's word j / 4.
+__device__ __forceinline__ uint32_t row_pair_bits(const unsigned* words_s, int warp, int gq, int tq) {
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const uint2 wr = *reinterpret_cast<const uint2*>(words_s + 2 * (16 * warp + gq + 8 * r));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      bits |= (((j < 4 ? wr.x : wr.y) >> (8 * (j & 3) + 2 * tq)) & 3u) << (16 * r + 2 * j);
+  }
+  return bits;
+}
+
+// ---------------------------------------------------------------------------
+// #4: forward
+// ---------------------------------------------------------------------------
+
+// #4 stages as #5 does, with K2's register budget (3 blocks an SM at
+// HD = 128).
+template <int HD>
+struct FwdCfg : DqCfg<HD> {
+  static constexpr int min_blocks = HD == 128 ? 3 : 4;
+};
+
+// One live pair of #4 for this warp: S = Q K^T, -inf off the mask where
+// kMasked (bit 16 r + 2 j + e of `bits`: this thread's row r against column
+// 8 j + 2 tq + e), the online softmax of its rows (m: the running max of S
+// scale; l: this thread's share of the running sum), O rescaled where a
+// row's max moved, then O += P V with P rounded once to bf16 straight into
+// A fragments.
+template <int HD, bool kMasked>
+__device__ __forceinline__ void fwd_pair(float (&oacc)[HD / 8][4], float (&m)[2], float (&l)[2],
+                                         const uint32_t (&qa)[HD / 16][4], const bf16* k_t, const bf16* v_t,
+                                         uint32_t bits, float scale, int lane) {
+  float s[8][4];
+  mma_abt<HD>(s, qa, nullptr, k_t, lane);  // S = Q K^T
+  if (kMasked) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!((bits >> (16 * r + 2 * j + e)) & 1u)) s[j][2 * r + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] = fmaxf(mx[r], fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+  float alpha[2], msub[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale);
+    alpha[r] = m_new == -INFINITY ? 1.f : __expf(m[r] - m_new);  // 0 while the row had no bit
+    msub[r] = m_new == -INFINITY ? 0.f : m_new;
+    m[r] = m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = __expf(s[j][2 * r + e] * scale - msub[r]);  // masked: exp(-inf) = 0
+        psum[r] += p;
+        s[j][2 * r + e] = p;
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+  if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row's max moved
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // O += P V, keys 16 kk .. 16 kk + 15
+    uint32_t pa[4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) pa[2 * hh + r] = pack_bf16(s[2 * kk + hh][2 * r], s[2 * kk + hh][2 * r + 1]);
+    mma_ab<HD>(oacc, pa, v_t, kk, lane);
+  }
+}
+
+// #4: O = softmax(S scale) V over the live key tiles of one query tile, and
+// lse = m + log l in the natural-log domain.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, FwdCfg<HD>::min_blocks) tree_fwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const unsigned* __restrict__ words, const int* __restrict__ block_any, bf16* __restrict__ o,
+    float* __restrict__ lse, int N, int H, float scale) {
+  typedef FwdCfg<HD> CF;
+  constexpr int LDH = CF::LDH, kStages = CF::stages;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int nt = N / kT, W = N / 32;
+  const int h = blockIdx.x, qt = nt - 1 - static_cast<int>(blockIdx.y);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t rs = (size_t)H * HD, head0 = (size_t)h * HD;
+  const int q0 = qt * kT;
+  int* list_s = reinterpret_cast<int*>(smem + CF::list);
+  auto kv_tile = [&](int st, int kv) -> bf16* { return reinterpret_cast<bf16*>(smem + (2 * st + kv) * CF::tile); };
+  auto words_of = [&](int st) -> unsigned* { return reinterpret_cast<unsigned*>(smem + CF::words) + st * 2 * kT; };
+  auto issue = [&](int e, int st) {  // entry e's K and V tiles (and words, if partial) -> ring stage st
+    const int kt = e & ~kFullBit;
+    copy_rows<HD>(kv_tile(st, 0), k, head0, rs, kt * kT, N, tid);
+    copy_rows<HD>(kv_tile(st, 1), v, head0, rs, kt * kT, N, tid);
+    if (!(e & kFullBit))  // thread t: word t % 2 of row t / 2
+      cp_async4(words_of(st) + tid, words + (size_t)(q0 + tid / 2) * W + 2 * kt + (tid & 1), true);
+  };
+
+  // Q, in flight while the strip is classified
+  copy_rows<HD>(kv_tile(kStages - 1, 0), q, head0, rs, q0, N, tid);
+  cp_async_commit();
+  tree_tile_list<true>(words, block_any, N, qt, 0, qt + 1, list_s, list_s + nt, warp, lane);
+  __syncthreads();
+  const int n_live = list_s[nt];
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {  // the ring: entries 0 .. kStages - 2 in flight
+    if (i < n_live) issue(list_s[i], i);
+    cp_async_commit();
+  }
+
+  // Q's fragments stay in registers
+  uint32_t qa[HD / 16][4];
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(qa[kk], kv_tile(kStages - 1, 0) + (16 * warp + (lane & 15)) * LDH + 16 * kk + (lane >> 4) * 8);
+  // (the walk's first barrier frees the stage before it is written)
+
+  float oacc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int p = 0; p < n_live; ++p) {
+    const int st = p % kStages;
+    cp_async_wait<kStages - 2>();  // entry p landed (this thread's copies)
+    __syncthreads();               // every thread's; and the stage written next is free
+    if (p + kStages - 1 < n_live) issue(list_s[p + kStages - 1], (p + kStages - 1) % kStages);
+    cp_async_commit();
+    const int e = list_s[p];
+    const bf16* k_t = kv_tile(st, 0);
+    const bf16* v_t = kv_tile(st, 1);
+    if (e & kFullBit) {
+      fwd_pair<HD, false>(oacc, m, l, qa, k_t, v_t, 0u, scale, lane);
+    } else {
+      const uint32_t bits = row_pair_bits(words_of(st), warp, gq, tq);
+      if (__any_sync(kFull, bits != 0u))  // some row of the warp has a bit in the pair
+        fwd_pair<HD, true>(oacc, m, l, qa, k_t, v_t, bits, scale, lane);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + gq + 8 * r;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // padding rows: exact zeros
+    bf16* orow = o + head0 + (size_t)row * rs;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * tq) =
+          __floats2bfloat162_rn(oacc[n][2 * r] * inv, oacc[n][2 * r + 1] * inv);
+    if (lse != nullptr && tq == 0) lse[(size_t)row * H + h] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// #5 / #6: backward
+// ---------------------------------------------------------------------------
 
 // One live pair of #5 for this warp: S = Q K^T and dP = dO V^T, P =
 // exp(S scale - lse), 0 off the mask where kMasked (bit 16 r + 2 j + e of
@@ -501,15 +526,7 @@ __global__ void __launch_bounds__(kThreads, DqCfg<HD>::min_blocks) tree_bwd_dq_k
     if (e & kFullBit) {
       dq_pair<HD, false>(acc, qa, da, k_t, v_t, lser, der, 0u, scale, lane);
     } else {
-      // row r's column 8 j + 2 tq + e is bit 8 (j % 4) + 2 tq + e of its word j / 4
-      uint32_t bits = 0u;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint2 wr = *reinterpret_cast<const uint2*>(words_of(st) + 2 * (16 * warp + gq + 8 * r));
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          bits |= (((j < 4 ? wr.x : wr.y) >> (8 * (j & 3) + 2 * tq)) & 3u) << (16 * r + 2 * j);
-      }
+      const uint32_t bits = row_pair_bits(words_of(st), warp, gq, tq);
       if (__any_sync(kFull, bits != 0u))  // some row of the warp has a bit in the pair
         dq_pair<HD, true>(acc, qa, da, k_t, v_t, lser, der, bits, scale, lane);
     }
@@ -691,11 +708,11 @@ int set_smem(Kernel kernel, size_t bytes) {
 template <int HD>
 int launch_fwd(const void* q, const void* k, const void* v, const void* words,
                const void* block_any, void* o, void* lse, int N, int H, cudaStream_t stream) {
-  const size_t bytes = FwdSmem<HD>::bytes;
+  const size_t bytes = FwdCfg<HD>::bytes(N / kT);
   int rc = set_smem(tree_fwd_kernel<HD>, bytes);
   if (rc != 0) return rc;
-  dim3 grid(N / kB, H);
-  tree_fwd_kernel<HD><<<grid, kFwdWarps * 32, bytes, stream>>>(
+  dim3 grid(H, N / kT);  // the query tile reversed: the longest walks first
+  tree_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned*>(words), static_cast<const int*>(block_any),
       static_cast<bf16*>(o), static_cast<float*>(lse), N, H, softmax_scale(HD));
@@ -762,7 +779,12 @@ int bwd_occupancy(int N, int* info) {
   return rc != 0 ? rc : occupancy_of(tree_bwd_dq_kernel<HD>, DqCfg<HD>::bytes(nt), info + 4);
 }
 
-// the backward's grid holds the tile count in y
+template <int HD>
+int fwd_occupancy(int N, int* info) {
+  return occupancy_of(tree_fwd_kernel<HD>, FwdCfg<HD>::bytes(N / kT), info);
+}
+
+// the grids hold the tile count in y
 bool shape_ok(int N, int H) { return N > 0 && N % kSkip == 0 && N / kT <= 65535 && H > 0 && H <= 65535; }
 
 }  // namespace
@@ -818,6 +840,17 @@ extern "C" int tree_attention_bwd_occupancy(int hd, int N, int* info) {
   switch (hd) {
     case 64: return bwd_occupancy<64>(N, info);
     case 128: return bwd_occupancy<128>(N, info);
+    default: return -1;
+  }
+}
+
+// #4's registers a thread, dynamic shared memory bytes, blocks an SM and
+// local (spill) bytes a thread (info[0..3]) for N nodes.
+extern "C" int tree_attention_fwd_occupancy(int hd, int N, int* info) {
+  if (!shape_ok(N, 1)) return -1;
+  switch (hd) {
+    case 64: return fwd_occupancy<64>(N, info);
+    case 128: return fwd_occupancy<128>(N, info);
     default: return -1;
   }
 }

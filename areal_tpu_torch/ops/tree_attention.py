@@ -21,8 +21,8 @@ JAX kernel writes about -1e30 there); nothing reads them.
 Dispatch is by the device of ``q``: a CPU tensor takes the plain PyTorch
 version of each kernel; a CUDA tensor launches the kernel or raises. Each
 wrapper counts its launches in ``.launches``. ``tree_tile_classes`` is the
-plain twin of the backward kernels' walk over 64-row tile pairs, and
-``bwd_occupancy`` reports their resources on the card.
+plain twin of the kernels' walk over 64-row tile pairs, and
+``fwd_occupancy`` / ``bwd_occupancy`` report their resources on the card.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from areal_tpu_torch.ops import _build
 
 BLOCK = 128  # tile edge of the skip map
 WORD = 32  # mask bits per word
-TILE = 64  # tile edge of the backward kernels' walk
+TILE = 64  # tile edge of the kernels' walk
 DEAD, PARTIAL, FULL = 0, 1, 2  # tile-pair classes of ``tree_tile_classes``
 _HEAD_DIMS = (64, 128)  # template instantiations of the kernels
 
@@ -47,6 +47,7 @@ _SIGNATURES = {
     "tree_attention_fwd": ([_P] * 7 + [_I] * 3 + [_P], ctypes.c_int),
     "tree_attention_bwd_dq": ([_P] * 9 + [_I] * 3 + [_P], ctypes.c_int),
     "tree_attention_bwd_dkv": ([_P] * 10 + [_I] * 3 + [_P], ctypes.c_int),
+    "tree_attention_fwd_occupancy": ([_I, _I, _P], ctypes.c_int),
     "tree_attention_bwd_occupancy": ([_I, _I, _P], ctypes.c_int),
 }
 
@@ -83,14 +84,14 @@ def expand_mask(words: torch.Tensor) -> torch.Tensor:
 
 
 def tree_tile_classes(words, tile: int = TILE) -> np.ndarray:
-    """The backward kernels' classification of every (query tile, key tile)
-    pair of ``tile``-row tiles -> int32 [nt, nt]: DEAD where none of the
-    pair's bits is set, and above the diagonal (nodes come parent before
-    child, so the kernels never look there); FULL where every bit is set,
-    so #5 and #6 run the pair without a per-element test; PARTIAL
-    otherwise. ``words``: the [N, N/32] int32 tensor of
-    ``pack_ancestor_bits``' bits. #5 walks row qt's live pairs, #6 column
-    kt's, both in tile order."""
+    """The kernels' classification of every (query tile, key tile) pair of
+    ``tile``-row tiles -> int32 [nt, nt]: DEAD where none of the pair's
+    bits is set, and above the diagonal (nodes come parent before child, so
+    the kernels never look there); FULL where every bit is set, so #4, #5
+    and #6 run the pair without a per-element test; PARTIAL otherwise.
+    ``words``: the [N, N/32] int32 tensor of ``pack_ancestor_bits``' bits.
+    #4 and #5 walk row qt's live pairs, #6 column kt's, all in tile
+    order."""
     w = words.cpu().numpy().view(np.uint32)
     N = w.shape[0]
     if N % tile or tile % WORD or w.shape != (N, N // WORD):
@@ -193,6 +194,21 @@ def _check_cuda_args(name: str, words, block_any, grids, rows=()):
             raise ValueError(f"{name}: lse / delta must be contiguous f32 [N, H]")
 
 
+_OCC_KEYS = ("registers", "smem_bytes", "blocks_per_sm", "local_bytes")
+
+
+def fwd_occupancy(hd: int, N: int) -> dict[str, int]:
+    """#4's registers a thread, dynamic shared memory, blocks an SM and
+    local (spill) bytes a thread for N nodes, as the CUDA runtime reports
+    them (needs a card)."""
+    lib = _build.load("tree_attention", _SIGNATURES)
+    info = (ctypes.c_int * 4)()
+    rc = lib.tree_attention_fwd_occupancy(hd, N, info)
+    if rc != 0:
+        raise RuntimeError(f"tree_attention_fwd_occupancy failed (code {rc})")
+    return dict(zip(_OCC_KEYS, info))
+
+
 def bwd_occupancy(hd: int, N: int) -> dict[str, dict[str, int]]:
     """#6's ("dkv") and #5's ("dq") registers a thread, dynamic shared
     memory, blocks an SM and local (spill) bytes a thread for N nodes, as
@@ -202,8 +218,7 @@ def bwd_occupancy(hd: int, N: int) -> dict[str, dict[str, int]]:
     rc = lib.tree_attention_bwd_occupancy(hd, N, info)
     if rc != 0:
         raise RuntimeError(f"tree_attention_bwd_occupancy failed (code {rc})")
-    keys = ("registers", "smem_bytes", "blocks_per_sm", "local_bytes")
-    return {"dkv": dict(zip(keys, info[:4])), "dq": dict(zip(keys, info[4:]))}
+    return {"dkv": dict(zip(_OCC_KEYS, info[:4])), "dq": dict(zip(_OCC_KEYS, info[4:]))}
 
 
 def _launch(fn: str, *args) -> None:

@@ -11,6 +11,8 @@
                                                # timed at the kernel_gmm_bwd phase's shapes
     python3 chip_smoke.py --tree-times DIR     # #4, #5 and #6 of DIR's areal_tpu_torch
                                                # timed on the kernel_tree phase's forests
+          [--fwd FILE]                         # FILE: a #4 output, saved if missing,
+                                               # else fed to DIR's #5 / #6
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -81,12 +83,15 @@ no result line:
               of the train_tree wave (prompts of 445 and 349 tokens, 4
               branches of 128 each) and an agentic trie branching at several
               depths; three planted faults in the mask words; the 64-row
-              tile pairs the backward kernels walk (live, full, partial, the
-              longest walks) and their registers, spills, shared memory and
-              blocks an SM at hd 64 and 128; kernel / plain / SDPA-yardstick
-              times (kernels and SDPA by graph replay, the host loop beside),
-              #5 + #6 against SDPA's backward, and the bounds over the set
-              bits.
+              tile pairs the kernels walk (live, full, partial, the longest
+              walks) and their registers, spills, shared memory and blocks
+              an SM at hd 64 and 128; kernel / plain / SDPA-yardstick times
+              (kernels and SDPA by graph replay, the host loop beside), #4
+              against SDPA's forward, #5 + #6 against its backward, and the
+              bounds over the set bits. Then #4-#6 on the card tests' walk
+              tries (a chain, tile-straddling groups, all-partial chains, a
+              GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
+              worst elements as shares of their limits.
 11. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
@@ -146,6 +151,7 @@ The second-to-last line is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -1281,18 +1287,43 @@ def _tree_forests(seed: int = 0) -> dict[str, list[list[int]]]:
     return {"grpo": grpo, "agentic": agentic}
 
 
-def _tree_inputs(seqs: list[list[int]], seed: int = 0):
-    """One forest's bits and bf16 q/k/v/dO [N, 12, 128] with K/V repeated
-    from 2 heads, dO zero on padded rows; N bucketed as the engine does."""
+def _tree_walk_tries(seed: int = 12) -> dict[str, tuple[list[list[int]], int]]:
+    """The card tests' walk tries (``TREE_BWD_CASES``) at Qwen2.5-1.5B's
+    vocabulary, with their padded node counts: "chain", one 500-token
+    sequence (row 0 attends itself alone; every pair below the diagonal is
+    full); "straddle", GRPO groups whose prompts (100, 70 tokens) and
+    branches (90, 50) end off the 64-row tile edges; "partial", 20 disjoint
+    chains of 40 nodes (no 64-row pair is full); "grpo", prompts of 500,
+    400 and 300 tokens with 4, 4 and 3 branches of 250, over 4,096 rows.
+    Rows near a root average few keys: where P's bf16 rounding shows."""
+    rng = np.random.default_rng(seed)
+    V = QWEN25_15B["vocab_size"]
+
+    def tok(n):
+        return rng.integers(0, V, n).tolist()
+
+    groups = {"straddle": ((100, 4, 90), (70, 3, 50)), "grpo": ((500, 4, 250), (400, 4, 250), (300, 3, 250))}
+    tries = {"chain": ([tok(500)], 512)}
+    tries["straddle"] = ([p + tok(b) for plen, n, b in groups["straddle"] for p in [tok(plen)] for _ in range(n)],
+                         1024)
+    tries["partial"] = ([[i] + tok(39) for i in range(20)], 1024)
+    tries["grpo"] = ([p + tok(b) for plen, n, b in groups["grpo"] for p in [tok(plen)] for _ in range(n)], 4096)
+    return tries
+
+
+def _tree_inputs(seqs: list[list[int]], seed: int = 0, hd: int = 128, n_pad: int | None = None):
+    """One forest's bits and bf16 q/k/v/dO [N, 12, hd] with K/V repeated
+    from 2 heads, dO zero on padded rows; N bucketed as the engine does
+    unless ``n_pad`` is given."""
     from areal_tpu_torch.models.tree import build_tree
     from areal_tpu_torch.ops import tree_attention as ta
     from areal_tpu_torch.utils.data import round_up_to_bucket
 
     pack = build_tree(seqs)
-    n_pad = round_up_to_bucket(pack.n_nodes, 512)
+    n_pad = n_pad or round_up_to_bucket(pack.n_nodes, 512)
     words, block_any = ta.pack_ancestor_bits(pack.parent, n_pad)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, KH, hd = 12, 2, 128
+    H, KH = 12, 2
     q, dout = (torch.randn((n_pad, H, hd), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn((n_pad, KH, hd), generator=g, device="cuda").to(torch.bfloat16)
             .repeat_interleave(H // KH, dim=1) for _ in range(2))
@@ -1301,6 +1332,30 @@ def _tree_inputs(seqs: list[list[int]], seed: int = 0):
     dout = dout * valid[:, None, None]
     return (q, k, v, dout, torch.from_numpy(words.view(np.int32)).cuda(), torch.from_numpy(block_any).cuda(),
             valid, pack)
+
+
+TREE_LSE_TOL = 1e-3  # #4's lse against the plain version's (f32 row statistics)
+
+
+def _tree_fwd_errors(q, k, v, words, block_any, valid, out, lse) -> dict:
+    """#4's O and lse against the plain forward in f32: O's worst element as
+    a share of the limit FLASH_RTOL |plain| + FLASH_ATOL rms(plain), its
+    largest difference, lse's largest difference, and whether padding rows
+    are exact zeros."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    ref_out, ref_lse = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), words, block_any)
+    x_o, _ = _flash_excess(out, ref_out, valid)
+    return dict(o_share=x_o, o_err=(out.float() - ref_out)[valid].abs().max().item(),
+                lse_err=(lse - ref_lse)[valid].abs().max().item(),
+                pad_zero=torch.count_nonzero(out[~valid]).item() == 0 and torch.count_nonzero(lse[~valid]).item() == 0)
+
+
+def _tree_digest(*tensors) -> str:
+    digest = hashlib.sha256()
+    for x in tensors:
+        digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
 
 
 def _tree_bounds(N: int, H: int, hd: int, set_bits: int) -> dict:
@@ -1364,38 +1419,58 @@ def _tree_kernel_times(q, k, v, dout, words, block_any, lse, delta) -> dict[str,
         return {name: (time_cuda_graph(fn), time_cuda(fn, iters=20)) for name, fn in kern.items()}
 
 
-def tree_times() -> None:
-    """``--tree-times DIR``: #4, #5 and #6 of the ``areal_tpu_torch`` under
-    DIR (a tree unpacked with ``git archive``, say a parent commit's) timed
-    by ``_tree_kernel_times`` on kernel_tree's two forests, one JSON line a
-    forest, so two trees' kernels compare by graph replay in one call;
-    ``bits`` digests the bits of #5 / #6's dq, dk, dv on that tree's #4's
-    lse."""
+def tree_times(fwd_file: str | None = None) -> None:
+    """``--tree-times DIR [--fwd FILE]``: #4, #5 and #6 of the
+    ``areal_tpu_torch`` under DIR (a tree unpacked with ``git archive``,
+    say a parent commit's) timed by ``_tree_kernel_times`` on kernel_tree's
+    two forests, one JSON line a forest, so two trees' kernels compare by
+    graph replay in one call. ``fwd_bits`` digests #4's O and lse, ``bits``
+    #5 / #6's dq, dk, dv on that O and lse; ``o_share`` and ``lse_err`` are
+    #4's errors against the plain forward (``_tree_fwd_errors``), also
+    printed for the walk tries at hd 64 and 128. With ``--fwd FILE``, the
+    first run writes its #4's O and lse of both forests to FILE, and a run
+    that finds FILE feeds #5 / #6 those in place of its own: another tree's
+    backward on this tree's forward."""
     from areal_tpu_torch.ops import tree_attention as ta
 
+    saved = torch.load(fwd_file) if fwd_file and os.path.exists(fwd_file) else None
+    ours = {}
     for fname, seqs in _tree_forests().items():
-        q, k, v, dout, words, block_any, _, _ = _tree_inputs(seqs)
+        q, k, v, dout, words, block_any, valid, _ = _tree_inputs(seqs)
         with torch.no_grad():
             out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+            t = {"fwd_bits": _tree_digest(out, lse), **_tree_fwd_errors(q, k, v, words, block_any, valid, out, lse)}
+            ours[fname] = (out.cpu(), lse.cpu())
+            if saved is not None:
+                out, lse = (x.cuda() for x in saved[fname])
+                t["fwd_from"] = fwd_file
             delta = (dout.float() * out.float()).sum(-1)
             dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
             dk, dv = ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta)
-        digest = hashlib.sha256()
-        for x in (dq, dk, dv):
-            digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-        t = {"bits": digest.hexdigest()[:16]}
+        t["bits"] = _tree_digest(dq, dk, dv)
         for name, (ms, host_ms) in _tree_kernel_times(q, k, v, dout, words, block_any, lse, delta).items():
             t[f"{name}_ms"], t[f"{name}_host_ms"] = ms, host_ms
         t["pair_ms"] = t["tree_attention_bwd_dq_ms"] + t["tree_attention_bwd_dkv_ms"]
         print(json.dumps({"tree_times": fname, **t}), flush=True)
         del q, k, v, dout, words, block_any, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
+    if fwd_file and saved is None:
+        torch.save(ours, fwd_file)
+    for tname, (seqs, n_pad) in _tree_walk_tries().items():
+        for hd in (64, 128):
+            q, k, v, _, words, block_any, valid, _ = _tree_inputs(seqs, hd=hd, n_pad=n_pad)
+            with torch.no_grad():
+                out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+                e = _tree_fwd_errors(q, k, v, words, block_any, valid, out, lse)
+            print(json.dumps({"tree_fwd": f"{tname}/hd{hd}", "fwd_bits": _tree_digest(out, lse), **e}), flush=True)
+            del q, k, v, words, block_any, out, lse
+        torch.cuda.empty_cache()
 
 
 def _tree_walks(words: torch.Tensor) -> dict[str, int]:
-    """The 64-row tile pairs the backward kernels walk (``tree_tile_classes``):
-    pairs on or below the diagonal, live, full, partial, and the longest
-    walks (#5's live pairs of one query tile, #6's of one key tile)."""
+    """The 64-row tile pairs the kernels walk (``tree_tile_classes``): pairs
+    on or below the diagonal, live, full, partial, and the longest walks
+    (#4's and #5's live pairs of one query tile, #6's of one key tile)."""
     from areal_tpu_torch.ops import tree_attention as ta
 
     c = ta.tree_tile_classes(words)
@@ -1406,10 +1481,46 @@ def _tree_walks(words: torch.Tensor) -> dict[str, int]:
                 dkv_walk=int(live.sum(0).max()))
 
 
+def _tree_check(what: str, q, k, v, dout, words, block_any, valid):
+    """#4, then #5 and #6 on its lse, against their plain versions: O within
+    the limit, lse within TREE_LSE_TOL, dq / dk / dv within the limit,
+    padding rows exact zeros; raises otherwise. Returns (out, lse, delta,
+    #4's errors, {grad: (share of the limit, rms(plain), max|diff|)})."""
+    from areal_tpu_torch.ops import tree_attention as ta
+
+    with torch.no_grad():
+        out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+        delta = (dout.float() * out.float()).sum(-1)
+        dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
+        dk, dv = ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta)
+        fe = _tree_fwd_errors(q, k, v, words, block_any, valid, out, lse)
+        if not (fe["lse_err"] <= TREE_LSE_TOL and fe["o_share"] <= 1.0 and fe["pad_zero"]):  # NaN fails too
+            raise AssertionError(f"[kernel_tree] {what} #4: O off its plain version by {fe['o_share']:.3f} x the "
+                                 f"limit, max|lse - plain| {fe['lse_err']}, padded rows zero: {fe['pad_zero']}")
+        refs = ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta, out_dtype=torch.float32)
+        errs = {}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            x, rms = _flash_excess(got, ref, valid)
+            e = (got.float() - ref)[valid].abs().max().item()
+            if not x <= 1.0 or torch.count_nonzero(got[~valid]).item():
+                raise AssertionError(f"[kernel_tree] {what} {name}: off its plain version by {x:.3f} x "
+                                     f"the limit (rms {rms:.4f}, max|diff| {e:.3e}) or nonzero on padded rows")
+            errs[name] = (x, rms, e)
+    return out, lse, delta, fe, errs
+
+
+def _tree_err_line(fe: dict, errs: dict) -> str:
+    return (f"worst element as a share of the limit {FLASH_RTOL:.4g} |plain| + {FLASH_ATOL:.4g} rms(plain): O "
+            f"{fe['o_share']:.3f} (max|diff| {fe['o_err']:.3e}), "
+            + ", ".join(f"{n} {x:.3f} (max|diff| {e:.3e})" for n, (x, _, e) in errs.items())
+            + f"; max|lse - plain| {fe['lse_err']:.2e} ({fe['lse_err'] / TREE_LSE_TOL:.4f} of {TREE_LSE_TOL:g})")
+
+
 def phase_kernel_tree() -> dict:
     """Kernels #4-#6 against their plain versions at Qwen2.5-1.5B's heads
-    (H=12, KV repeated from 2, hd=128, bf16) on two forests; three planted
-    faults in the mask words must fail the check by TREE_FAULT_MIN x."""
+    (H=12, KV repeated from 2, hd=128, bf16) on two forests, where three
+    planted faults in the mask words must fail the check by TREE_FAULT_MIN
+    x, then on the walk tries at hd 64 and 128."""
     from areal_tpu_torch.ops import tree_attention as ta
 
     per: dict[str, dict] = {}
@@ -1419,30 +1530,11 @@ def phase_kernel_tree() -> dict:
         N, H, hd = q.shape
         mask = ta.expand_mask(words)
         set_bits = int(mask.sum())
+        out, lse, delta, fe, errs = _tree_check(fname, q, k, v, dout, words, block_any, valid)
         with torch.no_grad():
-            out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
-            delta = (dout.float() * out.float()).sum(-1)
-            dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
-            dk, dv = ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta)
-            ref_out, ref_lse = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), words, block_any)
+            ref_out, _ = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), words, block_any)
             refs = ta.tree_attention_bwd_plain(q, k, v, words, block_any, dout, lse, delta,
                                                out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            err_lse = (lse - ref_lse)[valid].abs().max().item()
-            x_o, rms_o = _flash_excess(out, ref_out, valid)
-            err_o = (out.float() - ref_out)[valid].abs().max().item()
-            pad_zero = torch.count_nonzero(out[~valid]).item() == 0 and torch.count_nonzero(lse[~valid]).item() == 0
-            if not math.isfinite(err_lse) or err_lse > 1e-3 or not x_o <= 1.0 or not pad_zero:
-                raise AssertionError(f"[kernel_tree] {fname} #4: O off its plain version by {x_o:.3f} x the limit, "
-                                     f"max|lse - plain| {err_lse}, padded rows zero: {pad_zero}")
-            errs = {}
-            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-                x, rms = _flash_excess(got, ref, valid)
-                e = (got.float() - ref)[valid].abs().max().item()
-                if not x <= 1.0 or torch.count_nonzero(got[~valid]).item():
-                    raise AssertionError(f"[kernel_tree] {fname} {name}: off its plain version by {x:.3f} x "
-                                         f"the limit (rms {rms:.4f}, max|diff| {e:.3e}) or nonzero on padded rows")
-                errs[name] = (x, rms, e)
             fault_x = {}
             for name, fw in _tree_faults(words, pack.n_nodes).items():
                 f_out, _ = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), fw, block_any)
@@ -1453,7 +1545,7 @@ def phase_kernel_tree() -> dict:
                 if not fault_x[name] >= TREE_FAULT_MIN:
                     raise AssertionError(f"[kernel_tree] {fname}: planted fault ({name}) only "
                                          f"{fault_x[name]:.2f} x the limit")
-            del ref_out, ref_lse, refs
+            del ref_out, refs
             nB = N // 128
             ba = block_any.cpu().numpy()
             below = int(ba[np.tril_indices(nB, -1)].sum())
@@ -1461,19 +1553,19 @@ def phase_kernel_tree() -> dict:
             log(f"[kernel_tree] {fname}: {len(seqs)} sequences, {sum(map(len, seqs))} tokens -> {pack.n_nodes} "
                 f"nodes, N={N} (H={H}, hd={hd}); {set_bits} set bits ({set_bits / N**2:.1%} of N^2); skip map "
                 f"{int(ba.sum())} of {nB * (nB + 1) // 2} tiles on or below the diagonal live ({below} below it); "
-                f"{bit31} words with bit 31 set; worst element as a share of the limit {FLASH_RTOL:.4g} |plain| + "
-                f"{FLASH_ATOL:.4g} rms(plain): O {x_o:.3f} (max|diff| {err_o:.3e}), "
-                + ", ".join(f"{n} {x:.3f} (max|diff| {e:.3e})" for n, (x, _, e) in errs.items())
-                + f"; max|lse - plain| {err_lse:.2e}; planted faults "
+                f"{bit31} words with bit 31 set; {_tree_err_line(fe, errs)}; planted faults "
                 + ", ".join(f"{n} {x:.1f}" for n, x in fault_x.items()))
             walks = _tree_walks(words)
-            occ = {hd_: ta.bwd_occupancy(hd_, N) for hd_ in (64, 128)}
+            occ = {}
+            for hd_ in (64, 128):
+                b = ta.bwd_occupancy(hd_, N)
+                occ[hd_] = {"#4": ta.fwd_occupancy(hd_, N), "#5": b["dq"], "#6": b["dkv"]}
             log(f"[kernel_tree] {fname}: 64-row tile pairs on or below the diagonal {walks['pairs']}: live "
                 f"{walks['live']} (full {walks['full']}, partial {walks['partial']}), the rest never loaded; the "
-                f"longest walks: #5 {walks['dq_walk']} key tiles, #6 {walks['dkv_walk']} query tiles; "
+                f"longest walks: #4 and #5 {walks['dq_walk']} key tiles, #6 {walks['dkv_walk']} query tiles; "
                 + "; ".join(f"hd {hd_} {n} {o['registers']} registers a thread, {o['local_bytes']} B spilled, "
                             f"{o['smem_bytes']} B shared memory, {o['blocks_per_sm']} blocks an SM"
-                            for hd_, d in occ.items() for n, o in (("#6", d["dkv"]), ("#5", d["dq"]))))
+                            for hd_, d in occ.items() for n, o in d.items()))
             # device time by graph replay, the eager host loop beside it
             times = _tree_kernel_times(q, k, v, dout, words, block_any, lse, delta)
             p_fwd = time_cuda(lambda: ta.tree_attention_fwd_plain(q, k, v, words, block_any), iters=3, warmup=1)
@@ -1491,7 +1583,7 @@ def phase_kernel_tree() -> dict:
         del qt, kt, vt, dense, mask
         bounds = _tree_bounds(N, H, hd, set_bits)
         res = {
-            "tree_attention_fwd": dict(max_abs_err=err_o, plain_ms=p_fwd, library=lib_fwd),
+            "tree_attention_fwd": dict(max_abs_err=fe["o_err"], plain_ms=p_fwd, library=lib_fwd),
             "tree_attention_bwd_dq": dict(max_abs_err=errs["dq"][2], plain_ms=p_bwd, library=lib_b),
             "tree_attention_bwd_dkv": dict(max_abs_err=max(errs["dk"][2], errs["dv"][2]), plain_ms=p_bwd,
                                            library=lib_b),
@@ -1504,16 +1596,29 @@ def phase_kernel_tree() -> dict:
             log(f"[kernel_tree] {fname} {name}: kernel={d['ms']:.4f} ms by graph replay (host loop "
                 f"{d['host_ms']:.4f}) plain={d['plain_ms']:.4f} ms sdpa={d['library_ms']:.4f} ms by graph replay "
                 f"(host loop {d['library_host_ms']:.4f}) bound={d['bound_ms']:.4f} ms ({d['bound_by']})")
+        fwd = res["tree_attention_fwd"]
         pair = res["tree_attention_bwd_dq"]["ms"] + res["tree_attention_bwd_dkv"]["ms"]
-        log(f"[kernel_tree] {fname}: the plain backward computes dq, dk and dv in one call ({p_bwd:.4f} ms); "
-            f"SDPA forward {lib_fwd[0]:.4f} ms, backward {lib_b[0]:.4f} ms by graph replay; #5 + #6 {pair:.4f} ms: "
+        log(f"[kernel_tree] {fname}: SDPA forward / #4 = {fwd['library_ms'] / fwd['ms']:.2f}, #4 at "
+            f"{fwd['ms'] / fwd['bound_ms']:.1f}x its bound; the plain backward computes dq, dk and dv in one call "
+            f"({p_bwd:.4f} ms); SDPA backward {lib_b[0]:.4f} ms by graph replay; #5 + #6 {pair:.4f} ms: "
             f"SDPA's backward (dq, dk, dv in one call) / (#5 + #6) = {lib_b[0] / pair:.2f}, "
             f"{pair / (bounds['tree_attention_bwd_dq'][0] + bounds['tree_attention_bwd_dkv'][0]):.1f}x their bounds")
-        for name in ("tree_attention_bwd_dq", "tree_attention_bwd_dkv"):
-            res[name]["occupancy"] = {hd_: o["dq" if name.endswith("dq") else "dkv"] for hd_, o in occ.items()}
+        fwd.update(o_share=fe["o_share"], lse_err=fe["lse_err"])
+        for name, key in (("tree_attention_fwd", "#4"), ("tree_attention_bwd_dq", "#5"),
+                          ("tree_attention_bwd_dkv", "#6")):
+            res[name]["occupancy"] = {hd_: o[key] for hd_, o in occ.items()}
         res["tile_pairs"] = walks
         per[fname] = res
-        del q, k, v, dout, out, lse, delta, dq, dk, dv
+        del q, k, v, dout, out, lse, delta
+        torch.cuda.empty_cache()
+    for tname, (seqs, n_pad) in _tree_walk_tries().items():
+        for hd in (64, 128):
+            q, k, v, dout, words, block_any, valid, pack = _tree_inputs(seqs, hd=hd, n_pad=n_pad)
+            _, _, _, fe, errs = _tree_check(f"{tname}/hd{hd}", q, k, v, dout, words, block_any, valid)
+            w = _tree_walks(words)
+            log(f"[kernel_tree] walk trie {tname}, hd {hd}: {pack.n_nodes} nodes, N={q.shape[0]}; live pairs "
+                f"{w['live']} (full {w['full']}, partial {w['partial']}); {_tree_err_line(fe, errs)}")
+            del q, k, v, dout, words, block_any
         torch.cuda.empty_cache()
     return per
 
@@ -2788,8 +2893,6 @@ def phase_serve_moe(card: str) -> dict:
     experts a decode step touches, and a profiled wave. Checks complete
     responses, served logprobs against a dense prefill (near-tie route
     flips exempt, counted), and every kernel's launches per wave."""
-    import gc
-
     from areal_tpu_torch.api.config import ServerConfig
     from areal_tpu_torch.inference.decode_engine import DecodeEngine
     from areal_tpu_torch.inference.server import ServerThread
@@ -3467,8 +3570,6 @@ def phase_train_moe(card: str) -> dict:
     (norm, and cosines of one layer's expert and router gradients; experts
     no token reached get exact zeros), one MoE tree step against the packed
     path, a profiled optimizer step and the peak memory."""
-    import gc
-
     from areal_tpu_torch.models import qwen
     from areal_tpu_torch.ops import attention as fa
     from areal_tpu_torch.ops import gmm as gm
@@ -3563,7 +3664,10 @@ PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spe
 
 
 def main(argv: list[str]) -> int:
-    only = times = other_dir = None
+    only = times = other_dir = fwd_file = None
+    if argv[:1] == ["--tree-times"] and len(argv) == 4 and argv[2] == "--fwd":
+        fwd_file = os.path.abspath(argv[3])
+        argv = argv[:2]
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
         if set(only) - set(PHASES):
@@ -3575,7 +3679,7 @@ def main(argv: list[str]) -> int:
         sys.path.insert(0, other_dir)  # that tree's areal_tpu_torch, not this one's
     elif argv:
         print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR | --flash-times DIR | "
-              "--gmm-bwd-times DIR | --tree-times DIR]", file=sys.stderr)
+              "--gmm-bwd-times DIR | --tree-times DIR [--fwd FILE]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3611,7 +3715,7 @@ def main(argv: list[str]) -> int:
     if times == "tree":
         log(f"[tree_times] #4, #5 and #6 of {os.path.dirname(areal_tpu_torch.__file__)}")
         phase_build(["tree_attention"])
-        tree_times()
+        tree_times(fwd_file)
         log(f"[done] tree times in {time.monotonic() - t0:.1f}s on {card} (no result)")
         return 0
     phase_build()
@@ -3634,6 +3738,7 @@ def main(argv: list[str]) -> int:
     for name in PHASES:
         if only is None or name in only:
             res[name] = runs[name]()
+            gc.collect()  # a phase's garbage (engines and models in reference cycles) goes before the next starts
             torch.cuda.empty_cache()
     if only is not None:
         log(f"[done] phases {only} passed in {time.monotonic() - t0:.1f}s on {card} (a partial run: no result)")

@@ -770,6 +770,66 @@ def _tree_bwd(q, k, v, words, block_any, dout, lse, delta):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(TREE_BWD_CASES))
+def test_tree_fwd_kernel_walk_matches_plain(cuda, case):
+    """#4 against the plain forward, element by element, on the walk cases
+    of #5 / #6: O within the limit, lse within 1e-3, padding rows exact
+    zeros, one launch."""
+    kind, n_pad, H, KH, hd = TREE_BWD_CASES[case]
+    seqs = _tree_bwd_seqs(kind, np.random.default_rng(12))
+    q, k, v, _, words, block_any, valid = _tree_tensors(cuda, seqs, H, KH, hd, n_pad=n_pad, seed=12)
+    n0 = ta.tree_attention_fwd.launches
+    out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+    assert ta.tree_attention_fwd.launches - n0 == 1
+    ref_out, ref_lse = ta.tree_attention_fwd_plain(q.float(), k.float(), v.float(), words, block_any)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape and lse.shape == q.shape[:2]
+    _assert_flash_close(out, ref_out, valid)
+    assert (lse - ref_lse)[valid].abs().max().item() <= 1e-3  # f32 row statistics
+    assert torch.count_nonzero(out[~valid]) == 0 and torch.count_nonzero(lse[~valid]) == 0
+
+
+@pytest.mark.cuda
+def test_tree_fwd_bits_repeat_and_replay(cuda):
+    """#4 gives the same bits of O and lse on a second call and when
+    captured in a CUDA graph and replayed, and O's bits do not depend on
+    whether lse is written."""
+    seqs = _tree_bwd_seqs("grpo", np.random.default_rng(13))
+    q, k, v, _, words, block_any, _ = _tree_tensors(cuda, seqs, 4, 2, 128, n_pad=4096, seed=13)
+
+    def fwd():
+        out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
+        return out, lse, ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=False)[0]
+
+    eager, again = fwd(), fwd()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd()  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fwd()
+    for t in replayed:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(eager, again, replayed):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(eager[0], eager[2])
+
+
+@pytest.mark.cuda
+def test_tree_fwd_occupancy(cuda):
+    for hd in (64, 128):
+        for N in (2048, 8192):
+            o = ta.fwd_occupancy(hd, N)  # K2's budget: 3 blocks an SM at hd 128, 4 at hd 64
+            assert 0 < o["registers"] <= 255 and o["smem_bytes"] > 0, (hd, N, o)
+            assert o["blocks_per_sm"] >= (3 if hd == 128 else 4), (hd, N, o)
+            assert o["local_bytes"] >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TREE_BWD_CASES))
 def test_tree_bwd_kernels_walk_match_plain(cuda, case):
     """#5 and #6 against the plain backward on #4's lse, element by element,
     on tries whose live 64-row tile pairs are full, straddle tile edges or

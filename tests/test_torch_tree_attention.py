@@ -240,6 +240,57 @@ def test_tree_tile_classes_match_brute_force(trie):
     assert (want[-(-pack.n_nodes // 64) :] == tta.DEAD).all()  # padding-only query tiles
 
 
+def _tiled_fwd(q, k, v, words, tile=64):
+    """#4's walk in plain torch: each query tile takes its live key tiles
+    in order, full pairs without the mask, partial pairs with it, dead
+    pairs never touched, and keeps a running max, a running sum and an f32
+    O per row, normalised once at the end. Returns f32 (out [N, H, d], lse
+    [N, H]), rows with no bit zero."""
+    N, H, d = q.shape
+    scale = d**-0.5
+    classes = tta.tree_tile_classes(words, tile)
+    mask = tta.expand_mask(words)
+    out, lse = torch.zeros((N, H, d)), torch.zeros((N, H))
+    rows = [slice(t * tile, (t + 1) * tile) for t in range(N // tile)]
+    for qt, qs in enumerate(rows):
+        m = torch.full((H, tile), -torch.inf)
+        l, o = torch.zeros((H, tile)), torch.zeros((H, tile, d))
+        for kt in np.flatnonzero(classes[qt]):
+            s = torch.einsum("qhd,khd->hqk", q[qs], k[rows[kt]]) * scale
+            if classes[qt, kt] != tta.FULL:
+                s = torch.where(mask[qs, rows[kt]], s, -torch.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            msub = torch.where(m_new == -torch.inf, 0.0, m_new)  # a row with no bit yet
+            alpha = torch.exp(m - msub)
+            p = torch.exp(s - msub[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum("hqk,khd->hqd", p, v[rows[kt]])
+            m = m_new
+        live = l > 0
+        out[qs] = torch.where(live[..., None], o / l[..., None], 0.0).transpose(0, 1)
+        lse[qs] = torch.where(live, m + torch.log(l), 0.0).t()
+    return out, lse
+
+
+@pytest.mark.parametrize("trie", list(TILE_TRIES))
+def test_tiled_fwd_walk_matches_plain_and_jax_interpret(trie):
+    _, (words, block_any) = _tile_bits(trie)
+    N, H, d = words.shape[0], 2, 64
+    q, k, v, _ = _qkv(N, H, d, seed=14)
+    valid = _valid(words)
+    tw, tb = torch.from_numpy(words.view(np.int32)), torch.from_numpy(block_any)
+    got_o, got_lse = _tiled_fwd(*map(torch.from_numpy, (q, k, v)), tw)
+    plain_o, plain_lse = tta.tree_attention_fwd_plain(*map(torch.from_numpy, (q, k, v)), tw, tb)
+    want_o, want_lse = jta._fwd_pallas(*map(jnp.asarray, (q, k, v, words, block_any)), interpret=True)
+    for name, g, p_ in (("out", got_o, plain_o), ("lse", got_lse, plain_lse)):
+        # the same f32 products summed tile by tile: f32 rounding only
+        np.testing.assert_allclose(g.numpy(), p_.numpy(), atol=1e-6 * p_.abs().max().item(), err_msg=name)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=OUT_ATOL)
+    # JAX writes about -1e30 on padded rows; compare valid rows only
+    np.testing.assert_allclose(got_lse.numpy()[valid], np.asarray(want_lse).T[valid], atol=OUT_ATOL)
+    assert not got_o.numpy()[~valid].any() and not got_lse.numpy()[~valid].any()  # padding rows: exact zeros
+
+
 def _tiled_bwd(q, k, v, words, dout, lse, delta, tile=64):
     """The kernels' walk in plain torch: #5 takes each query tile's live key
     tiles in order, #6 each key tile's live query tiles; full pairs run
