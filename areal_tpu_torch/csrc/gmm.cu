@@ -11,72 +11,82 @@
 // out [M, n] is f32. Rows at or past sum(group_sizes) are written as exact
 // zeros (megablox leaves them uninitialized and the caller masks them).
 //
-// What bounds it: the expert weights. At decode (M = 256 routed rows of 32
-// slots x top-8 over 128 experts, ~112 experts touched) each call reads
-// ~112 x k x n x 2 bytes of weights for 2 x 256 x k x n flops: ~1 flop per
-// byte, bytes-bound. At a prefill group of 8 x 512 tokens (M = 32,768) each
-// expert's rows (~256) share its weights: 103 GFLOP (0.10 ms at the bf16
-// tensor-core peak) against ~0.64 GB moved (0.19 ms at 3.35 TB/s), still
-// bytes-bound at the card's peaks; but WMMA fed from shared memory runs
-// well below the tensor-core peak, so there this kernel is bound by its
-// own MMA rate.
+// What bounds it. At decode (M = 256 routed rows of 32 slots x top-8 over
+// 128 experts, ~112 experts touched, ~2 rows each) each call reads ~112 x k
+// x n x 2 bytes of weights for 2 x 256 x k x n flops: ~1 flop per byte,
+// bytes-bound (0.107 ms at 3.35 TB/s at Qwen3-30B-A3B's widths). At a
+// prefill group of 8 x 512 tokens (M = 32,768, ~256 rows a group) 103 GFLOP
+// (0.10 ms at the bf16 tensor-core peak) against ~0.64 GB moved (0.19 ms),
+// bytes-bound at the card's peaks; in training (M = 49,152 and 8,192)
+// likewise. In practice the copies into shared memory hold it: each 128 x
+// 128 tile reads its rows and its expert's [k, 128] slice again (~2.4 GB
+// through L2 at prefill), and with the MMAs skipped it keeps 85-99% of its
+// time at every shape.
 //
-// The design (simple and correct first):
-//   - work items are (group, row tile of kTM rows), each group tiled from its
-//     own first row, so no tile straddles two groups and no two blocks write
-//     one row: no atomics. There are at most M / kTM + E such items, which
-//     the host knows without reading group_sizes, so the grid is sized with
-//     no host sync: blockIdx.y is the item, blockIdx.x the tile of kTN = 64
-//     output columns. Every block scans group_sizes (one warp, prefix sums
-//     of rows and of tiles in shared memory) and binary-searches its item;
-//     the items past the last real one zero the rows past sum(group_sizes),
-//     the rest exit;
-//   - n tiles vary fastest, so the blocks in flight together share their
-//     lhs rows, and the row tiles of one group follow each other and find
-//     its weights in L2: each touched expert's [k, 64] slice is read from
-//     memory about once per row tile of its group, and at decode (a group
-//     of ~2 rows, one tile) once;
-//   - a k loop over 128-byte-wide tiles (64 bf16 / 32 f32 values) staged in
-//     shared memory by cp.async, two stages, so one tile loads while the
-//     other is multiplied; rows past the group's end and columns past k or
-//     n are zero-filled by the copy and never stored;
-//   - bf16: 4 warps, warp w owning output columns 16w..16w+15 of every
-//     16-row fragment, WMMA 16x16x16 with f32 accumulators; f32 (the f32
-//     twins): the same tiles multiplied on the CUDA cores in f32;
-//   - the f32 result goes through shared memory and out as 16-byte stores.
-// kTM is a template parameter (16, 32 or 64). Timed by chip_smoke.py's
-// kernel_gmm at the serving shapes on an H100 80GB HBM3 at 700 W (gate/up,
-// kTM 16 / 32 / 64: decode 0.147 / 0.159 / 0.173 ms, prefill 1.52 / 0.97 /
-// 0.82 ms), no one tile is best at both: at decode (~2 rows a group, so one
-// tile a group whatever kTM) 16 is fastest, since the unused rows of a
-// larger tile cost MMA and shared-memory time for nothing; at prefill (~256
-// rows a group) 64 is fastest, since each tile re-reads its expert's
-// [k, 64] slice and 64 rows a tile read it a quarter as often as 16. The
-// wrapper (ops/gmm.py pick_tile) takes 16 when the groups average fewer
-// than 16 rows and 64 otherwise.
-// What it does not do yet: TMA, wgmma, warp specialisation, a persistent
-// tile scheduler, split-k for the decode shape's few tiles per expert.
+// Work items (every path): (group, row tile), each group tiled from its own
+// first row, so no tile straddles two groups and no two blocks write one
+// row: no atomics, the same bits on every call. There are at most M / tile
+// + E + 1 such items, which the host knows without reading group_sizes, so
+// the grid is sized with no host sync: blockIdx.y is the item, blockIdx.x
+// the tile of output columns. Every block scans group_sizes (one warp,
+// prefix sums of rows and of tiles in shared memory) and binary-searches
+// its item; the items past the last real one zero the rows past
+// sum(group_sizes), the rest exit. ops/gmm.py fwd_schedule is the plain
+// twin of this walk, gmm_tiled the product it drives.
+//
+// bf16 (the model's path): wgmma with the f32 accumulators in registers, 8
+// warps (two warpgroups) a block, 128 output columns a block, the reduction
+// in 64-wide k steps over a cp.async ring into the 128-byte-swizzled layout
+// the tensor cores read (both operands as they lie in memory: lhs rows
+// K-major, rhs[g] [k, n] MN-major through the descriptor's transpose bit;
+// rows past the group's end and columns past k or n zero-filled by the copy
+// and never stored), the f32 result staged in shared memory and stored 16
+// bytes a thread. One kernel, gmm_fwd_kernel<kTile>, in two regimes picked
+// by the wrapper (ops/gmm.py pick_bf16_tile) from M and E:
+//   - tiles (kTile 128 or 64, the groups average 16 rows or more: prefill
+//     and training): output tiles of 128 rows where the groups average 64
+//     or more, else 64; each warpgroup m64n128k16 on 64 of 128 rows
+//     (m64n64k16 on 64 of the 128 columns of a 64-row tile); a 3-stage
+//     ring, two blocks an SM;
+//   - roles swapped (kTile 16, the groups average fewer than 16
+//     rows: decode): out[a:b]^T = rhs[g]^T lhs[a:b]^T, so n takes the
+//     instruction's 64-row side (rhs[g] read MN-major as A, each warpgroup
+//     64 of the block's columns) and the item's 16 rows its n side
+//     (m64n16k16; m64n8k16 for an item of 8 rows or fewer: a group of 2
+//     rows wastes 6 of 8 columns, not 62 of 64); a 4-stage ring of 64 k x
+//     128 n weights (16 KB a stage), so two blocks an SM keep ~96 KB of
+//     weights in flight.
+// Measured on an H100 80GB HBM3 at 700 W by CUDA-graph replay
+// (chip_smoke.py kernel_gmm and --gmm-times, Qwen3-30B-A3B's experts, gate
+// / up and down): decode (M = 256) ~0.121 / 0.122 ms, 89% of the bytes
+// bound (m16n8k16 mma.sync with the roles swapped: 0.131 / 0.130); prefill
+// (M = 32,768) 0.29 / 0.33 ms, train (M = 49,152) 0.39 / 0.45 ms, 1.5x its
+// bound at prefill (mma.sync on 128 x 128 tiles: 0.41 / 0.45 and 0.57 /
+// 0.62; on 128 x 256 tiles, one block an SM: 0.45 / 0.49). The output's
+// bits equal the WMMA kernel's it replaced (the same k16 summation order).
+// f32 (the f32 twins: gmm_fwd_f32_kernel): output tiles of kTM (16, 32 or
+// 64) x 64, a 2-stage ring of 128-byte-wide k tiles, the products on the
+// CUDA cores in f32 (thread t owns column t % 64 of every other row).
+// What it does not do yet: TMA, warp specialisation (the MMAs of a step are
+// waited for before the next), a persistent tile scheduler.
 //
 // lhs and rhs are both bf16 or both f32; k and n multiples of 8; E <= 512.
 //
-// The same file holds the backward (gmm_bwd_lhs and tgmm, below). It shares
-// the forward's group scan and work-item search; its f32 path also shares
-// the forward's tile stores (store_tile), and its bf16 path has its own
-// epilogue, a 128-wide tile staged in shared memory and stored 16 bytes a
-// thread (stage_acc, store_out).
+// The same file holds the backward (gmm_bwd_lhs and tgmm, below, on
+// mma.sync). It shares the forward's group scan and work-item search; its
+// f32 path also shares the forward's f32 tile stores (store_tile), and its
+// bf16 path the forward's epilogue, a 128-wide tile staged in shared memory
+// and stored 16 bytes a thread (stage_acc, store_out).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-// bf16, kWarps (4: warp w of the forward owns columns 16w..16w+15),
-// kThreads, kFull, the cp.async copies, ldmatrix, mma16816 and pack_bf16
+// bf16, kThreads (the f32 paths' 4 warps), kFull, the cp.async copies,
+// ldmatrix, mma16816 and pack_bf16
 #include "flash_mma.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kTN = 64;        // output columns per block
 constexpr int kMaxE = 512;     // groups a block scans in shared memory
@@ -220,40 +230,6 @@ __device__ __forceinline__ void load_stage(T* As, T* Bs, const T* lhs, const T* 
   }
 }
 
-// Multiply one stage into the accumulators.
-template <int kTM>
-struct Mma {
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-  FragC acc[kTM / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int f = 0; f < kTM / 16; ++f) wmma::fill_fragment(acc[f], 0.0f);
-  }
-  __device__ __forceinline__ void step(const bf16* As, const bf16* Bs, int warp) {
-    using TL = Tile<bf16>;
-#pragma unroll
-    for (int kk = 0; kk < TL::kTK; kk += 16) {
-      FragB b;
-      wmma::load_matrix_sync(b, Bs + kk * TL::kLdB + warp * 16, TL::kLdB);
-#pragma unroll
-      for (int f = 0; f < kTM / 16; ++f) {
-        FragA a;
-        wmma::load_matrix_sync(a, As + f * 16 * TL::kLdA + kk, TL::kLdA);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* Cs, int warp) {
-#pragma unroll
-    for (int f = 0; f < kTM / 16; ++f)
-      wmma::store_matrix_sync(Cs + f * 16 * Tile<bf16>::kLdC + warp * 16, acc[f], Tile<bf16>::kLdC,
-                              wmma::mem_row_major);
-  }
-};
-
 // The f32 path: thread t owns column t % 64 of rows t / 64, t / 64 + 2, ...
 template <int kTM>
 struct Fma {
@@ -281,17 +257,12 @@ struct Fma {
   }
 };
 
-template <typename T, int kTM>
-struct Acc;
+// the f32 forward (the f32 twins): Fma<kTM> on tiles of kTM x 64
 template <int kTM>
-struct Acc<bf16, kTM> : Mma<kTM> {};
-template <int kTM>
-struct Acc<float, kTM> : Fma<kTM> {};
-
-template <typename T, int kTM>
 __global__ void __launch_bounds__(kThreads)
-gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs, const int* __restrict__ group_sizes,
-           float* __restrict__ out, int M, int k, int n, int E) {
+gmm_fwd_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs, const int* __restrict__ group_sizes,
+                   float* __restrict__ out, int M, int k, int n, int E) {
+  using T = float;
   using TL = Tile<T>;
   using SM = Smem<T, kTM>;
   __shared__ __align__(128) unsigned char smem[SM::kBytes];
@@ -315,7 +286,7 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs, const int* __re
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = As + 2 * SM::kStageA;
   const T* rhs_g = rhs + static_cast<int64_t>(g) * k * n;
-  Acc<T, kTM> acc;
+  Fma<kTM> acc;
   acc.zero();
   const int nk = (k + TL::kTK - 1) / TL::kTK;
   if (nk > 0) {
@@ -1008,25 +979,272 @@ tgmm_kernel(const bf16* __restrict__ lhs, const float* __restrict__ grad, const 
   store_out<TO, TgCfg::kBK>(out + static_cast<int64_t>(g) * k * n, Cs, c0, k, j0, n);
 }
 
-template <typename T, int kTM>
-int launch(const void* lhs, const void* rhs, const void* group_sizes, void* out, int M, int k, int n, int E,
-           cudaStream_t stream) {
-  const long items = static_cast<long>(M) / kTM + E + 1;
+// ---------------------------------------------------------------------------
+// The bf16 forward (the model's path), in two regimes (the header comment).
+// It keeps the f32 path's work items and grid (group, row tile) x (column
+// tile of kBN), the backward's staging and 16-byte stores, and a cp.async
+// ring with one barrier a step.
+// ---------------------------------------------------------------------------
+
+constexpr int kFRS = 64;  // the bf16 forward's reduction step (of k): one 128-byte row of bf16
+
+// The three instantiations by kTile, the rows of a work item: 64 and 128
+// (tiles) and 16 (the roles swapped). A stage holds the item's lhs rows
+// [kTile, 64 k] K-major, then rhs[g]'s [64 k, 128 n] tile MN-major (n
+// contiguous, as it lies in memory) as two halves of 64 columns, both in the
+// 128-byte-swizzled layout the tensor cores read: 128-byte rows, 16-byte
+// chunk c of row r at c ^ (r % 8), 8-row atoms of 1,024 bytes. Warpgroup w
+// of the two: on 128-row tiles, rows 64w.. and all 128 columns (lhs as A,
+// m64n128k16); on 64-row tiles, all rows and columns 64w.. (m64n64k16);
+// with the roles swapped, columns 64w.. as A's rows (rhs[g] read through
+// the transpose bit) and the item's rows as its n side (m64n16k16, m64n8k16
+// for 8 rows or fewer).
+template <int kTile>
+struct FwdCfg {
+  static constexpr bool kSwap = kTile == 16;
+  static constexpr int kStages = kSwap ? 4 : 3;  // swapped: 16 KB of weights a stage; two blocks an SM
+  static constexpr int kHalfW = kFRS * 128;      // bytes: rhs[g]'s 64 k rows of 64 columns
+  static constexpr int kStageL = kTile * 128;   // bytes: the lhs rows, a multiple of 1,024
+  static constexpr int kStage = kStageL + 2 * kHalfW;
+  static constexpr int kN = kSwap ? kTile : kTile == 128 ? kBN : kBN / 2;  // a warpgroup's instruction: m64 x kN
+  static constexpr int kAcc = kN / 2;            // its f32 accumulators a thread
+  static constexpr size_t kRing = static_cast<size_t>(kStages) * kStage;
+  static constexpr size_t kOut = sizeof(float) * kTile * kLdO;
+  // the output tile reuses the ring; 1,024 bytes to align the atoms
+  static constexpr size_t kBytes = (kRing > kOut ? kRing : kOut) + 1024;
+};
+
+// a wgmma shared-memory descriptor: 128-byte swizzle, byte offsets between
+// atoms along the leading (lbo) and strided (sbo) dimensions
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x N] += A[64 x 16] B[16 x N] by descriptors, d as m16n8 fragments:
+// lhs as A (K-major) and rhs[g] as B (MN-major, the transpose bit) ...
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// ... or, the roles swapped, rhs[g] as A (MN-major) and lhs as B (K-major);
+// N = 8 fills d[0..3]
+__device__ __forceinline__ void wgmma_m64n16k16_ta(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n8k16_ta(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs
+template <int kAcc>
+__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// one stage: lhs [kTile rows, 64] at (r0, k0) (rows >= r_end zero) and
+// rhs[g] [64, kBN] at (k0, n0), into the swizzled layout
+template <int kTile>
+__device__ __forceinline__ void load_fwd_stage(unsigned char* st, const bf16* lhs, const bf16* rhs_g, int r0,
+                                               int r_end, int k0, int n0, int k, int n) {
+  using C = FwdCfg<kTile>;
+  if (kTile >= 32 || threadIdx.x < kTile * 8) {  // lhs: 8 chunks a row, rows t / 8 + 32 u
+    const int row = threadIdx.x / 8, c = threadIdx.x % 8;
+    const bool col_ok = k0 + 8 * c < k;
+#pragma unroll
+    for (int u = 0; u < (kTile + 31) / 32; ++u) {
+      const int r = row + 32 * u;
+      const bool ok = col_ok && r0 + r < r_end;
+      cp_async16(st + r * 128 + ((c ^ (r & 7)) << 4), ok ? lhs + static_cast<int64_t>(r0 + r) * k + k0 + 8 * c : lhs,
+                 ok);
+    }
+  }
+  {  // rhs[g]: 16 chunks a row (8 a half), rows t / 16 + 16 u
+    const int row = threadIdx.x / 16, c16 = threadIdx.x % 16, c = c16 % 8;
+    const bool col_ok = n0 + 8 * c16 < n;
+    unsigned char* w = st + C::kStageL + (c16 / 8) * C::kHalfW;
+#pragma unroll
+    for (int u = 0; u < kFRS / 16; ++u) {
+      const int r = row + 16 * u;
+      const bool ok = col_ok && k0 + r < k;
+      cp_async16(w + r * 128 + ((c ^ (r & 7)) << 4),
+                 ok ? rhs_g + static_cast<int64_t>(k0 + r) * n + n0 + 8 * c16 : rhs_g, ok);
+    }
+  }
+}
+
+template <int kTile>
+__global__ void __launch_bounds__(kMThreads, 2)
+gmm_fwd_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs, const int* __restrict__ group_sizes,
+               float* __restrict__ out, int M, int k, int n, int E) {
+  using C = FwdCfg<kTile>;
+  constexpr int kStages = C::kStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int s_off[kMaxE + 1];
+  __shared__ int s_tile[kMaxE + 1];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // the atoms' alignment
+
+  scan_groups<kTile>(group_sizes, E, s_off, s_tile);
+  __syncthreads();
+
+  const int n0 = blockIdx.x * kBN;
+  int r0, r_end;
+  const int g = find_item<kTile>(blockIdx.y, M, E, s_off, s_tile, r0, r_end);
+  if (r0 >= r_end) return;
+  if (g < 0) {  // past the real items: zero the rows past sum(group_sizes)
+    store_out<float, kTile>(out, nullptr, r0, r_end, n0, n);
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  // the warpgroup's piece of the output: its first row of the tile and
+  // first of the block's columns
+  const int row0 = kTile == 128 ? 64 * wg : 0, col0 = kTile == 128 ? 0 : 64 * wg;
+  const bool two = r_end - r0 > 8;  // swapped: the item's rows 8-15 exist, n16 (else n8)
+  const bf16* rhs_g = rhs + static_cast<int64_t>(g) * k * n;
+  float acc[C::kAcc];
+#pragma unroll
+  for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
+
+  const int nt = (k + kFRS - 1) / kFRS;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nt) load_fwd_stage<kTile>(smem + s * C::kStage, lhs, rhs_g, r0, r_end, s * kFRS, n0, k, n);
+    cp_async_commit();
+  }
+  int cur = 0;  // the ring slot of step t
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<kStages - 2>();                                   // this thread's copies of step t have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // and the tensor cores see them
+    __syncthreads();  // everyone's; and step t - 1's slot, written next, is free (its MMAs waited for)
+    const int nx = t + kStages - 1, slot = cur == 0 ? kStages - 1 : cur - 1;
+    if (nx < nt) load_fwd_stage<kTile>(smem + slot * C::kStage, lhs, rhs_g, r0, r_end, nx * kFRS, n0, k, n);
+    cp_async_commit();
+    const uint32_t a0 = smem_u32(smem + cur * C::kStage) + row0 * 128;
+    const uint32_t w0 = smem_u32(smem + cur * C::kStage) + C::kStageL + (col0 / 64) * C::kHalfW;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kFRS / 16; ++kk) {  // rhs[g]: 16 k rows further a step; lhs: 32 bytes further
+      const uint64_t dw = wgmma_desc(w0 + kk * 16 * 128, C::kHalfW, 1024);
+      const uint64_t dl = wgmma_desc(a0 + 32 * kk, 16, 1024);
+      if constexpr (kTile == 128) wgmma_m64n128k16(acc, dl, dw);
+      else if constexpr (kTile == 64) wgmma_m64n64k16(acc, dl, dw);
+      else if (two) wgmma_m64n16k16_ta(acc, dw, dl);
+      else wgmma_m64n8k16_ta(acc, dw, dl);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    cur = cur + 1 == kStages ? 0 : cur + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the output tile overwrites the ring
+  // the accumulators: m16n8 fragments, warp w % 4 of the warpgroup on rows
+  // 16 (w % 4) .. + 15 of the instruction's 64
+  float* Cs = reinterpret_cast<float*>(smem);
+  const int warp_row = 16 * ((threadIdx.x / 32) % 4);
+  if constexpr (C::kSwap) {  // out^T's [columns, rows]: staged back as rows
+    const int lane = threadIdx.x % 32, col = col0 + warp_row + lane / 4;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) Cs[(8 * j + 2 * (lane % 4) + q % 2) * kLdO + col + 8 * (q / 2)] = acc[4 * j + q];
+  } else {
+    stage_acc(Cs, *reinterpret_cast<float(*)[1][C::kN / 8][4]>(acc), row0 + warp_row, col0);
+  }
+  __syncthreads();
+  store_out<float, kTile>(out, Cs, r0, r_end, n0, n);
+}
+
+// grid: (column tiles, work items); -1 past the grid's limit
+template <typename T, typename Kernel>
+int launch_fwd(Kernel kernel, int tile, int cols, size_t bytes, unsigned threads, const T* lhs, const T* rhs,
+               const void* gs, void* out, int M, int k, int n, int E, cudaStream_t stream) {
+  const long items = static_cast<long>(M) / tile + E + 1;
   if (items > 65535) return -1;
-  dim3 grid((n + kTN - 1) / kTN, static_cast<unsigned>(items));
-  gmm_kernel<T, kTM><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(lhs), static_cast<const T*>(rhs),
-                                                     static_cast<const int*>(group_sizes),
-                                                     static_cast<float*>(out), M, k, n, E);
+  if (bytes > 0) {
+    const int rc = set_smem(kernel, bytes);
+    if (rc != 0) return rc;
+  }
+  dim3 grid((n + cols - 1) / cols, static_cast<unsigned>(items));
+  kernel<<<grid, threads, bytes, stream>>>(lhs, rhs, static_cast<const int*>(gs), static_cast<float*>(out), M, k,
+                                           n, E);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int by_tile(int tm, const void* lhs, const void* rhs, const void* gs, void* out, int M, int k, int n, int E,
+// the f32 path: kTM rows (16, 32, 64) x 64 columns
+int fwd_f32(int tm, const void* lhs, const void* rhs, const void* gs, void* out, int M, int k, int n, int E,
             cudaStream_t st) {
+  const float* a = static_cast<const float*>(lhs);
+  const float* b = static_cast<const float*>(rhs);
   switch (tm) {
-    case 16: return launch<T, 16>(lhs, rhs, gs, out, M, k, n, E, st);
-    case 32: return launch<T, 32>(lhs, rhs, gs, out, M, k, n, E, st);
-    case 64: return launch<T, 64>(lhs, rhs, gs, out, M, k, n, E, st);
+    case 16: return launch_fwd(gmm_fwd_f32_kernel<16>, 16, kTN, 0, kThreads, a, b, gs, out, M, k, n, E, st);
+    case 32: return launch_fwd(gmm_fwd_f32_kernel<32>, 32, kTN, 0, kThreads, a, b, gs, out, M, k, n, E, st);
+    case 64: return launch_fwd(gmm_fwd_f32_kernel<64>, 64, kTN, 0, kThreads, a, b, gs, out, M, k, n, E, st);
+    default: return -1;
+  }
+}
+
+// the bf16 path: 16 rows an item with the roles swapped (decode), or tiles
+// of 64 or 128 rows
+int fwd_bf16(int tile, const void* lhs, const void* rhs, const void* gs, void* out, int M, int k, int n, int E,
+             cudaStream_t st) {
+  const bf16* a = static_cast<const bf16*>(lhs);
+  const bf16* b = static_cast<const bf16*>(rhs);
+  switch (tile) {
+    case 16:
+      return launch_fwd(gmm_fwd_kernel<16>, 16, kBN, FwdCfg<16>::kBytes, kMThreads, a, b, gs, out, M, k, n, E, st);
+    case 64:
+      return launch_fwd(gmm_fwd_kernel<64>, 64, kBN, FwdCfg<64>::kBytes, kMThreads, a, b, gs, out, M, k, n, E, st);
+    case 128:
+      return launch_fwd(gmm_fwd_kernel<128>, 128, kBN, FwdCfg<128>::kBytes, kMThreads, a, b, gs, out, M, k, n, E,
+                        st);
     default: return -1;
   }
 }
@@ -1121,16 +1339,17 @@ int occupancy_of(Kernel kernel, size_t bytes, int* info) {
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16 (lhs and rhs alike); tm: rows per work item (16, 32,
-// 64). Returns 0, a CUDA error code, or -1 for arguments it does not take.
+// dtype: 0 f32, 1 bf16 (lhs and rhs alike); tm: rows per work item, 16, 32
+// or 64 for f32, 16 (the roles swapped), 64 or 128 for bf16. Returns 0, a
+// CUDA error code, or -1 for arguments it does not take.
 extern "C" int gmm_forward(const void* lhs, const void* rhs, const void* group_sizes, void* out, int M, int k,
                            int n, int E, int dtype, int tm, void* stream) {
   if (M < 0 || k < 0 || n < 0 || E <= 0 || E > kMaxE || k % 8 != 0 || n % 8 != 0) return -1;
   if (M == 0 || n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return by_tile<float>(tm, lhs, rhs, group_sizes, out, M, k, n, E, st);
-    case 1: return by_tile<bf16>(tm, lhs, rhs, group_sizes, out, M, k, n, E, st);
+    case 0: return fwd_f32(tm, lhs, rhs, group_sizes, out, M, k, n, E, st);
+    case 1: return fwd_bf16(tm, lhs, rhs, group_sizes, out, M, k, n, E, st);
     default: return -1;
   }
 }
@@ -1181,5 +1400,15 @@ extern "C" int gmm_bwd_occupancy(int* info) {
   int rc = occupancy_of(gmm_bwd_lhs_kernel<bf16, 128>, LhsCfg<128>::kBytes, info);
   if (rc == 0) rc = occupancy_of(gmm_bwd_lhs_kernel<bf16, 64>, LhsCfg<64>::kBytes, info + 4);
   if (rc == 0) rc = occupancy_of(tgmm_kernel<bf16>, TgCfg::kBytes, info + 8);
+  return rc;
+}
+
+// The bf16 forward kernels: registers a thread, shared memory a block,
+// blocks an SM and local (spill) bytes a thread with the roles swapped
+// (info[0..3]) and on 64- and 128-row tiles (info[4..7], info[8..11]).
+extern "C" int gmm_fwd_occupancy(int* info) {
+  int rc = occupancy_of(gmm_fwd_kernel<16>, FwdCfg<16>::kBytes, info);
+  if (rc == 0) rc = occupancy_of(gmm_fwd_kernel<64>, FwdCfg<64>::kBytes, info + 4);
+  if (rc == 0) rc = occupancy_of(gmm_fwd_kernel<128>, FwdCfg<128>::kBytes, info + 8);
   return rc;
 }

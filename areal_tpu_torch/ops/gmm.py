@@ -27,6 +27,16 @@ the output dtype is an argument (megablox's ``preferred_element_type``):
 ``bwd_occupancy`` reports the bf16 kernels' registers, shared memory,
 blocks an SM and spill bytes.
 
+The forward's bf16 kernel runs wgmma with its f32 accumulators in
+registers, in two regimes picked from M and E by ``pick_bf16_tile``: 64-
+or 128-row output tiles where the groups average 16 rows or more (prefill,
+training), and the roles swapped where they average fewer (decode:
+``out^T = rhs[g]^T lhs^T``, n on the instruction's 64-row side, a group's
+rows on its 8- or 16-wide one). ``fwd_schedule`` lists its work items in
+the grid's order and ``gmm_tiled`` computes gmm by walking them, the plain
+twin of the kernel's schedule; ``fwd_occupancy`` reports its
+instantiations' registers, shared memory, blocks an SM and spill bytes.
+
 Dispatch is by the device of the first operand: a CPU tensor takes the
 plain version; a CUDA tensor launches ``csrc/gmm.cu`` or raises, never
 falls back. Each wrapper counts its kernel launches in ``.launches``.
@@ -42,15 +52,17 @@ from areal_tpu_torch.ops import _build
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUPS = 512  # kMaxE in the kernel
-TILES = (16, 32, 64)  # the kernel's row-tile instantiations
-# rows per work item: one group's rows are tiled from its own first row, so
-# a tile of TM rows reads its expert's weights once. At decode (~2 rows per
-# group) 16 wastes the least; at a prefill group (~256 rows per group) 64
-# reads each expert's weights a quarter as often. chip_smoke.py's
-# kernel_gmm phase times all three at both shapes; on the H100 16 was the
-# fastest at decode and 64 at prefill (PERF.md's kernel table)
+TILES = (16, 32, 64)  # the f32 kernel's row-tile instantiations
+# rows per work item of the f32 path: one group's rows are tiled from its
+# own first row, so a tile of TM rows reads its expert's weights once; 16
+# where the groups average fewer than 16 rows, else 64
 TILE_M = 64
 _TILE_M_DECODE = 16
+# the bf16 kernel's rows per work item: 16 with the roles swapped (decode),
+# 64- and 128-row output tiles (prefill, training)
+BF16_TILES = (16, 64, 128)
+FWD_BN = 128  # the bf16 kernel's output columns a block
+FWD_RS = 64  # its reduction step (of k)
 _MAX_ITEMS = 65535  # grid y
 
 _P = ctypes.c_void_p
@@ -60,6 +72,7 @@ _SIGNATURES = {
     "gmm_bwd_lhs": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "tgmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "gmm_bwd_occupancy": ([_P], ctypes.c_int),
+    "gmm_fwd_occupancy": ([_P], ctypes.c_int),
 }
 
 
@@ -112,20 +125,101 @@ def tgmm_plain(
 
 
 def pick_tile(M: int, E: int) -> int:
-    """Rows per work item for ``M`` routed rows over ``E`` groups: 16 when
-    the groups average fewer than 16 rows (decode), else ``TILE_M``."""
+    """The f32 path's rows per work item for ``M`` routed rows over ``E``
+    groups: 16 when the groups average fewer than 16 rows, else
+    ``TILE_M``."""
     return _TILE_M_DECODE if M < 16 * E else TILE_M
 
 
-def _gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, tm: int | None) -> torch.Tensor:
+def pick_bf16_tile(M: int, E: int) -> int:
+    """The bf16 kernel's regime for ``M`` routed rows over ``E`` groups: 16
+    (the roles swapped) when the groups average fewer than 16 rows (decode),
+    128-row tiles when they average 64 or more, else 64. chip_smoke.py's
+    kernel_gmm times each regime from 4 to 128 rows a group; on the H100
+    128-row tiles overtake 64 between 48 and 64 rows, and the swapped
+    roles lead 64-row tiles by 1-2% at decode's ~2 rows a group but tie or
+    trail them from 4 to 12 (PERF.md)."""
+    if M < 16 * E:
+        return 16
+    return 128 if M >= 64 * E else 64
+
+
+def fwd_schedule(group_sizes: torch.Tensor, M: int, n: int, tile: int):
+    """The bf16 forward kernel's work, as its blocks find it: ``items`` in
+    the grid's order (block index y the work item, x the column tile,
+    fastest), each ``(group, first row, rows, column tile)`` with group -1
+    for rows past ``sum(group_sizes)`` (zeroed), and ``grid``, the launch's
+    (column tiles, work items), sized from M and E alone. Each group's rows
+    are tiled from its own first row (``scan_groups`` / ``find_item`` in
+    ``csrc/gmm.cu``); blocks with nothing to do are left out."""
+    sizes = [max(int(s), 0) for s in group_sizes.tolist()]
+    E = len(sizes)
+    grid = (-(-n // FWD_BN), M // tile + E + 1)
+    off, tiles = [0], [0]  # first row and first work item of each group
+    for s in sizes:
+        off.append(off[-1] + s)
+        tiles.append(tiles[-1] + -(-s // tile))
+    items = []
+    for item in range(grid[1]):
+        if item >= tiles[E]:  # past the real items: the next rows past the groups
+            g, r0 = -1, min(off[E], M) + (item - tiles[E]) * tile
+            r_end = min(r0 + tile, M)
+        else:
+            g = next(g for g in range(E) if tiles[g + 1] > item)
+            r0 = off[g] + (item - tiles[g]) * tile
+            r_end = min(off[g + 1], r0 + tile, M)
+        if r0 < r_end:
+            items += [(g, r0, r_end - r0, ct) for ct in range(grid[0])]
+    return items, grid
+
+
+def gmm_tiled(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, tile: int, items=None) -> torch.Tensor:
+    """gmm computed as the bf16 kernel walks it (``fwd_schedule``'s items,
+    or ``items``): per item, f32 products of ``FWD_RS``-wide k steps with
+    the edges zero-filled, summed over k in the kernel's step order. At
+    ``tile`` 16 the roles are swapped, ``out^T = rhs[g]^T lhs^T``: the
+    item's [FWD_BN, 16] block of out^T, n on the rows. Rows no item writes
+    stay NaN."""
+    M, k = lhs.shape
+    n = rhs.shape[2]
+    out = torch.full((M, n), float("nan"))
+    a32, w32 = lhs.float().cpu(), rhs.float().cpu()
+    for g, r0, rows, ct in fwd_schedule(group_sizes, M, n, tile)[0] if items is None else items:
+        c0 = ct * FWD_BN
+        cols = min(FWD_BN, n - c0)
+        if g < 0:
+            out[r0:r0 + rows, c0:c0 + cols] = 0.0
+            continue
+        acc = torch.zeros((FWD_BN, tile) if tile == 16 else (tile, FWD_BN))
+        for k0 in range(0, k, FWD_RS):
+            kk = min(FWD_RS, k - k0)
+            a = torch.zeros((tile, FWD_RS))
+            a[:rows, :kk] = a32[r0:r0 + rows, k0:k0 + kk]
+            w = torch.zeros((FWD_RS, FWD_BN))
+            w[:kk, :cols] = w32[g, k0:k0 + kk, c0:c0 + cols]
+            acc += w.t() @ a.t() if tile == 16 else a @ w
+        got = acc.t() if tile == 16 else acc
+        out[r0:r0 + rows, c0:c0 + cols] = got[:rows, :cols]
+    return out
+
+
+def _gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, tm: int | None,
+                 bf16_tile: int | None) -> torch.Tensor:
     if lhs.device.type == "cpu":
         return gmm_plain(lhs, rhs, group_sizes)
     if lhs.device.type != "cuda":
         raise ValueError(f"gmm: unsupported device {lhs.device}")
     M, k = lhs.shape
     E, _, n = rhs.shape
-    tm = pick_tile(M, E) if tm is None else tm
-    _check_cuda_args(lhs, rhs, group_sizes, tm)
+    if lhs.dtype == torch.bfloat16:
+        if tm is not None:
+            raise ValueError(f"gmm: tm={tm} sets the f32 path's row tile; the bf16 path takes bf16_tile")
+        tile, tiles = (pick_bf16_tile(M, E) if bf16_tile is None else bf16_tile), BF16_TILES
+    else:
+        if bf16_tile is not None:
+            raise ValueError("gmm: bf16_tile sets the bf16 path's regime; the f32 path takes tm")
+        tile, tiles = (pick_tile(M, E) if tm is None else tm), TILES
+    _check_cuda_args(lhs, rhs, group_sizes, tile, tiles)
     out = torch.empty((M, n), dtype=torch.float32, device=lhs.device)
     rc = _lib().gmm_forward(
         lhs.data_ptr(),
@@ -137,7 +231,7 @@ def _gmm_forward(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor
         n,
         E,
         _CODES[lhs.dtype],
-        tm,
+        tile,
         _stream(lhs),
     )
     if rc != 0:
@@ -154,10 +248,10 @@ class GroupedMatmul(torch.autograd.Function):
     reproduces the forward."""
 
     @staticmethod
-    def forward(ctx, lhs, rhs, group_sizes, tm):
+    def forward(ctx, lhs, rhs, group_sizes, tm, bf16_tile=None):
         ctx.save_for_backward(lhs, rhs, group_sizes)
         ctx.tm = tm
-        return _gmm_forward(lhs, rhs, group_sizes, tm)
+        return _gmm_forward(lhs, rhs, group_sizes, tm, bf16_tile)
 
     @staticmethod
     def backward(ctx, grad):
@@ -168,7 +262,7 @@ class GroupedMatmul(torch.autograd.Function):
             d_lhs = gmm_bwd_lhs(grad, rhs, group_sizes, out_dtype=lhs.dtype, tm=ctx.tm)
         if ctx.needs_input_grad[1]:
             d_rhs = tgmm(lhs, grad, group_sizes, out_dtype=rhs.dtype)
-        return d_lhs, d_rhs, None, None
+        return d_lhs, d_rhs, None, None, None
 
 
 def gmm(
@@ -176,13 +270,14 @@ def gmm(
     rhs: torch.Tensor,  # [E, k, n], lhs's dtype
     group_sizes: torch.Tensor,  # [E] int32
     *,
-    tm: int | None = None,  # rows per work item (16 / 32 / 64); default pick_tile
+    tm: int | None = None,  # f32: rows per work item (16 / 32 / 64); default pick_tile
+    bf16_tile: int | None = None,  # bf16: the regime (16 swapped / 64 / 128); default pick_bf16_tile
 ) -> torch.Tensor:
     """Grouped matmul -> [M, n] f32; differentiable in lhs and rhs (through
     ``GroupedMatmul``) when gradients are on and either requires them."""
     if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
-        return GroupedMatmul.apply(lhs, rhs, group_sizes, tm)
-    return _gmm_forward(lhs, rhs, group_sizes, tm)
+        return GroupedMatmul.apply(lhs, rhs, group_sizes, tm, bf16_tile)
+    return _gmm_forward(lhs, rhs, group_sizes, tm, bf16_tile)
 
 
 gmm.launches = 0
@@ -278,18 +373,27 @@ def tgmm(
 tgmm.launches = 0
 
 
+def _occupancy(fn: str, names: tuple[str, ...]) -> dict[str, dict[str, int]]:
+    info = (ctypes.c_int * (4 * len(names)))()
+    rc = getattr(_lib(), fn)(info)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed (code {rc})")
+    keys = ("registers", "smem_bytes", "blocks_per_sm", "local_bytes")
+    return {name: dict(zip(keys, info[4 * i:4 * i + 4])) for i, name in enumerate(names)}
+
+
 def bwd_occupancy() -> dict[str, dict[str, int]]:
     """Registers a thread, shared memory a block (static and dynamic),
     blocks an SM and local (spill) bytes a thread of the bf16-operand
     backward kernels with a bf16 output, as the CUDA runtime reports them:
     ``gmm_bwd_lhs`` at 128- and 64-row tiles, ``tgmm`` (needs a card)."""
-    info = (ctypes.c_int * 12)()
-    rc = _lib().gmm_bwd_occupancy(info)
-    if rc != 0:
-        raise RuntimeError(f"gmm_bwd_occupancy failed (code {rc})")
-    keys = ("registers", "smem_bytes", "blocks_per_sm", "local_bytes")
-    return {name: dict(zip(keys, info[4 * i:4 * i + 4]))
-            for i, name in enumerate(("gmm_bwd_lhs/128", "gmm_bwd_lhs/64", "tgmm"))}
+    return _occupancy("gmm_bwd_occupancy", ("gmm_bwd_lhs/128", "gmm_bwd_lhs/64", "tgmm"))
+
+
+def fwd_occupancy() -> dict[str, dict[str, int]]:
+    """The same for the bf16 forward kernel's three instantiations: the
+    roles swapped (``gmm/16``) and 64- and 128-row tiles (needs a card)."""
+    return _occupancy("gmm_fwd_occupancy", tuple(f"gmm/{t}" for t in BF16_TILES))
 
 
 def _lib():
@@ -300,7 +404,8 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_common(what: str, M: int, k: int, n: int, E: int, group_sizes, tm: int | None) -> None:
+def _check_common(what: str, M: int, k: int, n: int, E: int, group_sizes, tm: int | None,
+                  tiles: tuple[int, ...] = TILES) -> None:
     if k % 8 or n % 8:
         raise ValueError(f"{what}: k={k} and n={n} must be multiples of 8")
     if not 0 < E <= _MAX_GROUPS:
@@ -308,8 +413,8 @@ def _check_common(what: str, M: int, k: int, n: int, E: int, group_sizes, tm: in
     if group_sizes.dtype != torch.int32 or group_sizes.shape != (E,) or not group_sizes.is_contiguous():
         raise ValueError(f"{what}: group_sizes must be contiguous int32 [E]")
     if tm is not None:
-        if tm not in TILES:
-            raise ValueError(f"{what}: tm={tm} not in {TILES}")
+        if tm not in tiles:
+            raise ValueError(f"{what}: tm={tm} not in {tiles}")
         if M // tm + E + 1 > _MAX_ITEMS:
             raise ValueError(f"{what}: M={M} rows are too many for tm={tm} ({_MAX_ITEMS} work items)")
 
@@ -325,15 +430,16 @@ def _check_tensors(what: str, tensors, group_sizes) -> None:
         raise ValueError(f"{what}: operands must be 16-byte aligned")
 
 
-def _check_cuda_args(lhs, rhs, group_sizes, tm: int) -> None:
-    """Refuse what the forward kernel does not take."""
+def _check_cuda_args(lhs, rhs, group_sizes, tm: int, tiles: tuple[int, ...]) -> None:
+    """Refuse what the forward kernel does not take (``tm``: the rows per
+    work item, one of ``tiles``)."""
     if lhs.dtype not in _CODES or rhs.dtype != lhs.dtype:
         raise TypeError(f"gmm: dtypes {lhs.dtype}/{rhs.dtype} not supported (both bf16 or both f32)")
     if lhs.dim() != 2 or rhs.dim() != 3 or rhs.shape[1] != lhs.shape[1]:
         raise ValueError(f"gmm: lhs [M, k] and rhs [E, k, n], got {tuple(lhs.shape)} and {tuple(rhs.shape)}")
     M, k = lhs.shape
     E, _, n = rhs.shape
-    _check_common("gmm", M, k, n, E, group_sizes, tm)
+    _check_common("gmm", M, k, n, E, group_sizes, tm, tiles)
     _check_tensors("gmm", (lhs, rhs), group_sizes)
 
 

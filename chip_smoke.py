@@ -7,6 +7,8 @@
                                                # timed at the kernel phase's shapes
     python3 chip_smoke.py --flash-times DIR    # K2, K3 and K4 of DIR's areal_tpu_torch
                                                # timed at the kernel_flash phase's shapes
+    python3 chip_smoke.py --gmm-times DIR      # the gmm forward of DIR's areal_tpu_torch
+                                               # timed at the kernel_gmm phase's shapes
     python3 chip_smoke.py --gmm-bwd-times DIR  # gmm_bwd_lhs and tgmm of DIR's areal_tpu_torch
                                                # timed at the kernel_gmm_bwd phase's shapes
     python3 chip_smoke.py --tree-times DIR     # #4, #5 and #6 of DIR's areal_tpu_torch
@@ -101,14 +103,18 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-12. kernel_gmm — the grouped-matmul kernel (the dropless MoE FFN's GEMM, in
+12. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
-              f32 out; gate / up and down) for a decode step (M=256) and a
-              prefill group (M=32,768) routed by a seeded softmax, plus
-              ragged cases in bf16 and f32; three planted faults; kernel
-              (each row tile) / plain / library-yardstick times and the
-              bound; one MoE dispatch under sync-debug "error".
+              f32 out; gate / up and down) for a decode step (M=256), a
+              prefill group (M=32,768) and train_moe's two microbatch sizes
+              (M=49,152 and 8,192, 64 rows past the groups) routed by a
+              seeded softmax, plus ragged cases in every bf16 regime and f32
+              row tile; three planted faults, the same bits twice; the bf16
+              kernels' registers, spills, shared memory and blocks an SM;
+              kernel (graph replay, host loop beside, each regime forced) /
+              plain / library-yardstick times and the bound; one MoE
+              dispatch under sync-debug "error".
 13. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
@@ -140,8 +146,8 @@ no result line:
               backward's (norm and cosines; experts no token reached get
               exact zeros); one MoE tree step through
               ``tree_forward_logprobs_pallas`` against the packed path; a
-              profiled optimizer step (gmm's backward kernels' share of its
-              busy time) and the peak memory.
+              profiled optimizer step (the gmm forward's and its backward
+              kernels' shares of its busy time) and the peak memory.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -151,11 +157,13 @@ The second-to-last line is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1351,7 +1359,8 @@ def _tree_fwd_errors(q, k, v, words, block_any, valid, out, lse) -> dict:
                 pad_zero=torch.count_nonzero(out[~valid]).item() == 0 and torch.count_nonzero(lse[~valid]).item() == 0)
 
 
-def _tree_digest(*tensors) -> str:
+def _digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
     digest = hashlib.sha256()
     for x in tensors:
         digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
@@ -1439,7 +1448,7 @@ def tree_times(fwd_file: str | None = None) -> None:
         q, k, v, dout, words, block_any, valid, _ = _tree_inputs(seqs)
         with torch.no_grad():
             out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
-            t = {"fwd_bits": _tree_digest(out, lse), **_tree_fwd_errors(q, k, v, words, block_any, valid, out, lse)}
+            t = {"fwd_bits": _digest(out, lse), **_tree_fwd_errors(q, k, v, words, block_any, valid, out, lse)}
             ours[fname] = (out.cpu(), lse.cpu())
             if saved is not None:
                 out, lse = (x.cuda() for x in saved[fname])
@@ -1447,7 +1456,7 @@ def tree_times(fwd_file: str | None = None) -> None:
             delta = (dout.float() * out.float()).sum(-1)
             dq = ta.tree_attention_bwd_dq(q, k, v, words, block_any, dout, lse, delta)
             dk, dv = ta.tree_attention_bwd_dkv(q, k, v, words, block_any, dout, lse, delta)
-        t["bits"] = _tree_digest(dq, dk, dv)
+        t["bits"] = _digest(dq, dk, dv)
         for name, (ms, host_ms) in _tree_kernel_times(q, k, v, dout, words, block_any, lse, delta).items():
             t[f"{name}_ms"], t[f"{name}_host_ms"] = ms, host_ms
         t["pair_ms"] = t["tree_attention_bwd_dq_ms"] + t["tree_attention_bwd_dkv_ms"]
@@ -1462,7 +1471,7 @@ def tree_times(fwd_file: str | None = None) -> None:
             with torch.no_grad():
                 out, lse = ta.tree_attention_fwd(q, k, v, words, block_any, with_lse=True)
                 e = _tree_fwd_errors(q, k, v, words, block_any, valid, out, lse)
-            print(json.dumps({"tree_fwd": f"{tname}/hd{hd}", "fwd_bits": _tree_digest(out, lse), **e}), flush=True)
+            print(json.dumps({"tree_fwd": f"{tname}/hd{hd}", "fwd_bits": _digest(out, lse), **e}), flush=True)
             del q, k, v, words, block_any, out, lse
         torch.cuda.empty_cache()
 
@@ -1684,6 +1693,17 @@ def _dense_diffs(model, prompt: list[int], r: dict, greedy: bool) -> np.ndarray:
 def _dense_check(model, prompt: list[int], r: dict, greedy: bool) -> float:
     """The worst output token of ``_dense_diffs``."""
     return float(_dense_diffs(model, prompt, r, greedy).max())
+
+
+# the grouped matmul's forward kernels by name: gmm_fwd_kernel (bf16) and
+# gmm_fwd_f32_kernel, and the one gmm_kernel of older trees (a parent
+# package profiled with this script); not tgmm_kernel or the backward's
+_GMM_FWD = re.compile(r"\bgmm_(?:fwd_(?:f32_)?)?kernel\b")
+
+
+def _gmm_fwd_us(prof: dict) -> float:
+    """The gmm forward's device microseconds in a ``_profile``."""
+    return sum(us for name, us in prof["by_name"].items() if _GMM_FWD.search(name))
 
 
 def _profile(fn, label: str, card: str) -> dict:
@@ -2567,11 +2587,12 @@ def _gmm_bound(M: int, k: int, n: int, sizes: torch.Tensor, elem: int = 2) -> tu
 
 def _gmm_library(lhs, rhs, sizes, ref, mag):
     """The yardstick (the port never calls it): ``torch._grouped_mm`` with an
-    f32 output where this torch has it and it agrees with the plain version,
-    else a loop of ``torch.mm`` (f32 out) over the groups, sizes read once
-    outside the timed calls. Returns (name, fn of the weight stack), and
-    logs ``torch._grouped_mm`` with a bf16 output beside it where only that
-    runs."""
+    f32 output where this torch runs it and it agrees with the plain version
+    (the same function), else a loop of ``torch.mm`` (f32 out) over the
+    groups, sizes read once outside the timed calls. Returns (name, fn of
+    the weight stack, the bf16-output grouped call or None): with a bf16
+    output ``torch._grouped_mm`` computes another function (half the output
+    bytes, one more rounding), a reading only."""
     offs = torch.cumsum(sizes, 0, dtype=torch.int32)
     ends = offs.tolist()
 
@@ -2582,9 +2603,8 @@ def _gmm_library(lhs, rhs, sizes, ref, mag):
                 torch.mm(lhs[a:b], w[g_], out_dtype=torch.float32)
             a = b
 
-    if not hasattr(torch, "_grouped_mm"):
-        return "loop of torch.mm", loop
-    for out_dtype in (torch.float32, torch.bfloat16):
+    found = {}
+    for out_dtype in (torch.float32, torch.bfloat16) if hasattr(torch, "_grouped_mm") else ():
         try:
             out = torch._grouped_mm(lhs, rhs, offs=offs, out_dtype=out_dtype)
         except (RuntimeError, TypeError, ValueError) as e:
@@ -2593,28 +2613,101 @@ def _gmm_library(lhs, rhs, sizes, ref, mag):
             continue
         if out_dtype == torch.float32:
             share = _gmm_share(out, ref, mag, int(sizes.sum()))
-            if share <= 1.0:
-                return "torch._grouped_mm", lambda w: torch._grouped_mm(lhs, w, offs=offs, out_dtype=torch.float32)
-            log(f"[kernel_gmm] torch._grouped_mm, f32 out, disagrees with the plain version ({share:.2f} x the limit)")
-        else:
-            bf16_ms = time_cuda(lambda: torch._grouped_mm(lhs, rhs, offs=offs, out_dtype=torch.bfloat16), iters=10)
-            log(f"[kernel_gmm] torch._grouped_mm with a bf16 output (half the output bytes; not the same "
-                f"function, a reading only): {bf16_ms:.4f} ms")
-    return "loop of torch.mm", loop
+            if share > 1.0:
+                log(f"[kernel_gmm] torch._grouped_mm, f32 out, disagrees with the plain version ({share:.2f} x "
+                    "the limit)")
+                continue
+        found[out_dtype] = functools.partial(torch._grouped_mm, lhs, offs=offs, out_dtype=out_dtype)
+    if torch.float32 in found:
+        return "torch._grouped_mm", found[torch.float32], found.get(torch.bfloat16)
+    return "loop of torch.mm", loop, found.get(torch.bfloat16)
+
+
+def _gmm_inputs():
+    """kernel_gmm's inputs, one (shape, projection) at a time, from one
+    seeded generator: Qwen3-30B-A3B's experts (E=128, top-8), (k, n) =
+    (2048, 768) for gate / up and (768, 2048) for down, routed by a seeded
+    top-8 softmax, at M = 256 (a decode step of 32 slots: the roles-swapped
+    regime), 32,768 (a prefill group of 8 x 512 tokens), 8 x the tokens of
+    train_moe's minibatch grid and 8 x 1,024 (a 1,024-token microbatch,
+    groups of ~64 rows: where 128-row tiles overtake 64), the two training
+    shapes with 64 rows past the groups as kernel_gmm_bwd's; bf16 lhs and
+    three bf16 weight stacks (cycled in the timed calls, so each call finds
+    its weights cold in the 50 MB L2 as the 48 layers do). Yields (shape,
+    projection, sizes, lhs, stacks)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    mc = QWEN3_30B_A3B
+    E, K, D, Fm = mc["num_experts"], mc["num_experts_per_tok"], mc["hidden_size"], mc["moe_intermediate_size"]
+    for sname, M, past in (("decode", 32 * K, 0), ("prefill", 8 * 512 * K, 0),
+                           ("train", _train_moe_grid_tokens() * K, 64), ("small", 1024 * K, 64)):
+        sizes = _gmm_routing(M - past, E, K, g)
+        for proj, (k, n) in (("gate_up", (D, Fm)), ("down", (Fm, D))):
+            lhs = torch.randn((M, k), generator=g, device="cuda").bfloat16()
+            stacks = [(0.02 * torch.randn((E, k, n), generator=g, device="cuda")).bfloat16() for _ in range(3)]
+            yield sname, proj, sizes, lhs, stacks
+            del lhs, stacks
+            torch.cuda.empty_cache()
+
+
+def _gmm_timings(lhs, stacks, sizes, **kw) -> dict:
+    """Device ms by CUDA-graph replay (``ms``) and the eager host loop beside
+    it (``host_ms``) of the forward on these inputs, the weight stack
+    cycling from call to call; ``kw`` forces a row tile or regime. Uses only
+    the wrapper, so it runs any tree's kernel (``--gmm-times``)."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    it = iter(range(10**9))
+
+    def run():
+        return gm.gmm(lhs, stacks[next(it) % 3], sizes, **kw)
+
+    with torch.no_grad():
+        return dict(ms=time_cuda_graph(run, iters=6, reps=3), host_ms=time_cuda(run, iters=10, warmup=2))
+
+
+def _gmm_limit(lhs, rhs, sizes):
+    """(the plain version's output, |lhs| @ |rhs|): the check's reference and
+    the magnitudes its limit scales with."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    return gm.gmm_plain(lhs, rhs, sizes), gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sizes)
+
+
+def gmm_times() -> None:
+    """``--gmm-times DIR``: the forward of the ``areal_tpu_torch`` under DIR (a
+    tree unpacked with ``git archive``, say a parent commit's) at
+    kernel_gmm's eight (shape, projection) pairs, in the regime DIR's wrapper
+    picks, one JSON line a pair: its times (``_gmm_timings``), its worst
+    element as a share of the limit against the plain version (``share``,
+    reported, not checked) and a digest of its bits, so two trees' kernels
+    compare by graph replay in one call."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for sname, proj, sizes, lhs, stacks in _gmm_inputs():
+        with torch.no_grad():
+            got = gm.gmm(lhs, stacks[0], sizes)
+            share = _gmm_share(got, *_gmm_limit(lhs, stacks[0], sizes), int(sizes.sum()))
+            line = dict(share=share, bits=_digest(got), M=lhs.shape[0], **_gmm_timings(lhs, stacks, sizes))
+        del got
+        print(json.dumps({"gmm_times": f"{sname}/{proj}", **line}), flush=True)
 
 
 def phase_kernel_gmm() -> dict:
-    """The grouped-matmul kernel against its plain version at the serve_moe
-    shapes (Qwen3-30B-A3B's experts: E=128, top-8, D=2048, Fm=768, bf16 in,
-    f32 out): (k, n) = (2048, 768) for gate / up and (768, 2048) for down,
-    at M = 256 routed rows (a decode step of 32 slots) and M = 32,768 (a
-    prefill group of 8 x 512 tokens), routed by a seeded top-8 softmax;
-    plus ragged cases (empty groups, a group of one row, M not a multiple of
-    any tile, every row in one group) in bf16 and f32. Three planted faults
-    must miss the limit by GMM_FAULT_MIN. Times every row tile the kernel
-    has, the plain version and the library yardstick. Then one ``moe_ffn``
-    at the decode shape under ``torch.cuda.set_sync_debug_mode("error")``:
-    the dispatch never waits for the card."""
+    """The grouped-matmul forward against its plain version at
+    ``_gmm_inputs``' eight (shape, projection) pairs: the worst element as a
+    share of GMM_REL |lhs| @ |rhs|, rows past the groups exact zeros, three
+    planted faults missing the limit by GMM_FAULT_MIN; plus ragged cases
+    (empty groups, a group of one row, k and n not multiples of 64, every
+    row in one group) in every bf16 regime and f32 row tile. Reports the
+    bf16 kernels' occupancy, the output's bits, and times the kernel by
+    graph replay (the host loop beside it) in the regime the wrapper picks
+    and in each forced one, the plain version (decode and prefill), the
+    library yardstick and the bound. Then one ``moe_ffn`` at the decode
+    shape under ``torch.cuda.set_sync_debug_mode("error")``: the dispatch
+    never waits for the card. Between them, each bf16 regime timed at gate
+    / up across M = 512 .. 16,384 (4 to 128 rows a group): the crossovers
+    ``pick_bf16_tile`` sets."""
     from types import SimpleNamespace
 
     from areal_tpu_torch.models import moe, qwen
@@ -2624,86 +2717,114 @@ def phase_kernel_gmm() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     mc = QWEN3_30B_A3B
     E, K, D, Fm = mc["num_experts"], mc["num_experts_per_tok"], mc["hidden_size"], mc["moe_intermediate_size"]
-    per: dict[str, dict] = {}
+    occ = gm.fwd_occupancy()
+    log("[kernel_gmm] bf16 kernels (rows a work item): " + "; ".join(
+        f"{name} {o['registers']} registers, {o['local_bytes']} local (spill) bytes a thread, {o['smem_bytes']} B "
+        f"shared memory a block, {o['blocks_per_sm']} blocks an SM" for name, o in occ.items()))
+    per: dict[str, dict] = {"occupancy": occ}
     with torch.no_grad():
-        # ragged cases, every tile, bf16 and f32
+        # ragged cases, every bf16 regime and f32 row tile
         for M, k, n, sizes in ((203, 200, 72, [0, 1, 57, 0, 100, 3, 0, 30]), (77, 64, 136, [0, 0, 77, 0])):
             sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-            for dt in (torch.bfloat16, torch.float32):
+            for dt, key, tiles in ((torch.bfloat16, "bf16_tile", gm.BF16_TILES), (torch.float32, "tm", gm.TILES)):
                 lhs = torch.randn((M, k), generator=g, device="cuda").to(dt)
                 rhs = torch.randn((len(sizes), k, n), generator=g, device="cuda").to(dt)
-                ref = gm.gmm_plain(lhs, rhs, sz)
-                mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sz)
-                shares = {tm: _gmm_share(gm.gmm(lhs, rhs, sz, tm=tm), ref, mag, sum(sizes)) for tm in gm.TILES}
+                ref, mag = _gmm_limit(lhs, rhs, sz)
+                shares = {t: _gmm_share(gm.gmm(lhs, rhs, sz, **{key: t}), ref, mag, sum(sizes)) for t in tiles}
                 if not max(shares.values()) <= 1.0:
                     raise AssertionError(f"[kernel_gmm] M={M} k={k} n={n} sizes {sizes} {dt}: off its plain "
                                          f"version by {shares} x the limit")
                 log(f"[kernel_gmm] ragged M={M} k={k} n={n} sizes {sizes} ({M - sum(sizes)} rows past the groups) "
-                    f"{str(dt)[6:]}: worst element as a share of the limit, by row tile "
-                    + ", ".join(f"{tm}: {x:.4f}" for tm, x in shares.items()))
-        for sname, M in (("decode", 32 * K), ("prefill", 8 * 512 * K)):  # 32 slots; 8 prompts x 512 tokens
-            sizes = _gmm_routing(M, E, K, g)
+                    f"{str(dt)[6:]}: worst element as a share of the limit, by {key} "
+                    + ", ".join(f"{t}: {x:.4f}" for t, x in shares.items()))
+        for sname, proj, sizes, lhs, stacks in _gmm_inputs():
+            M, k = lhs.shape
+            n = stacks[0].shape[2]
             used = int(sizes.sum())
             touched = int((sizes > 0).sum())
-            for proj, (k, n) in (("gate_up", (D, Fm)), ("down", (Fm, D))):
-                lhs = torch.randn((M, k), generator=g, device="cuda").bfloat16()
-                # three weight stacks, cycled in the timed calls, so each call
-                # finds its weights cold in the 50 MB L2 as the 48 layers do
-                stacks = [(0.02 * torch.randn((E, k, n), generator=g, device="cuda")).bfloat16() for _ in range(3)]
-                rhs = stacks[0]
-                got = gm.gmm(lhs, rhs, sizes)
-                ref = gm.gmm_plain(lhs, rhs, sizes)
-                mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sizes)
-                torch.cuda.synchronize()
-                share = _gmm_share(got, ref, mag, used)
-                err = (got - ref).abs().max().item()
-                if not share <= 1.0:
-                    raise AssertionError(f"[kernel_gmm] {sname} {proj}: off its plain version by {share:.3f} x "
-                                         f"the limit (max|diff| {err:.3e})")
-                big = int(sizes.argmax())
-                moved = sizes.clone()
-                first = int(torch.nonzero(sizes[:-1] > 0)[0])
-                moved[first] -= 1
-                moved[first + 1] += 1
-                wrong = rhs.clone()
-                wrong[big] = rhs[(big + 1) % E]
-                faults = {
-                    "a group times the next expert's weights": gm.gmm_plain(lhs, wrong, sizes),
-                    "a row moved across a group boundary": gm.gmm_plain(lhs, rhs, moved),
-                    "output rounded to bf16": ref.bfloat16().float(),
-                }
-                fault_x = {f: _gmm_share(v, ref, mag, used) for f, v in faults.items()}
-                del faults, wrong
-                for f, x in fault_x.items():
-                    if not x >= GMM_FAULT_MIN:
-                        raise AssertionError(f"[kernel_gmm] {sname} {proj}: planted fault ({f}) only {x:.2f} x "
-                                             f"the limit")
-                lib_name, lib_fn = _gmm_library(lhs, rhs, sizes, ref, mag)
-                it = iter(range(10**9))
-                by_tm = {tm: time_cuda(lambda: gm.gmm(lhs, stacks[next(it) % 3], sizes, tm=tm), iters=30)
-                         for tm in gm.TILES}
-                ms = time_cuda(lambda: gm.gmm(lhs, stacks[next(it) % 3], sizes), iters=30)
+            rhs = stacks[0]
+            got = gm.gmm(lhs, rhs, sizes)
+            ref, mag = _gmm_limit(lhs, rhs, sizes)
+            torch.cuda.synchronize()
+            share = _gmm_share(got, ref, mag, used)
+            err = (got - ref).abs().max().item()
+            bits = _digest(got)
+            if not share <= 1.0:
+                raise AssertionError(f"[kernel_gmm] {sname} {proj}: off its plain version by {share:.3f} x "
+                                     f"the limit (max|diff| {err:.3e})")
+            again = gm.gmm(lhs, rhs, sizes)
+            if not torch.equal(got, again):
+                raise AssertionError(f"[kernel_gmm] {sname} {proj}: a second call gave other bits")
+            del got, again
+            big = int(sizes.argmax())
+            moved = sizes.clone()
+            first = int(torch.nonzero(sizes[:-1] > 0)[0])
+            moved[first] -= 1
+            moved[first + 1] += 1
+            wrong = rhs.clone()
+            wrong[big] = rhs[(big + 1) % E]
+            faults = {
+                "a group times the next expert's weights": lambda: gm.gmm_plain(lhs, wrong, sizes),
+                "a row moved across a group boundary": lambda: gm.gmm_plain(lhs, rhs, moved),
+                "output rounded to bf16": lambda: ref.bfloat16().float(),
+            }
+            fault_x = {f: _gmm_share(v(), ref, mag, used) for f, v in faults.items()}
+            del faults, wrong
+            for f, x in fault_x.items():
+                if not x >= GMM_FAULT_MIN:
+                    raise AssertionError(f"[kernel_gmm] {sname} {proj}: planted fault ({f}) only {x:.2f} x "
+                                         f"the limit")
+            lib_name, lib_fn, lib_bf16 = _gmm_library(lhs, rhs, sizes, ref, mag)
+            del ref, mag
+            tile = gm.pick_bf16_tile(M, E)
+            t = _gmm_timings(lhs, stacks, sizes)
+            by_tile = {tl: _gmm_timings(lhs, stacks, sizes, bf16_tile=tl)["ms"] for tl in gm.BF16_TILES}
+            it = iter(range(10**9))
+            plain_ms = None
+            if sname in ("decode", "prefill"):  # no yardstick; too slow to time at the training shapes
                 plain_ms = time_cuda(lambda: gm.gmm_plain(lhs, stacks[next(it) % 3], sizes), iters=3, warmup=1)
-                lib_ms = time_cuda(lambda: lib_fn(stacks[next(it) % 3]), iters=10, warmup=2)
-                bound_ms, bound_by = _gmm_bound(M, k, n, sizes)
-                per[f"{sname}/{proj}"] = dict(max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
-                                              library_ms=lib_ms, library=lib_name, bound_ms=bound_ms,
-                                              bound_by=bound_by, ms_by_tm=by_tm, faults=fault_x,
-                                              tm=gm.pick_tile(M, E), touched=touched)
-                log(f"[kernel_gmm] {sname} {proj}: M={M} k={k} n={n}, {touched} of {E} experts touched; worst "
-                    f"element {share:.4f} of the limit {GMM_REL:.3g} |lhs|@|rhs| (max|diff| {err:.3e}), rows "
-                    f"past the groups zero; planted faults " + ", ".join(f"{f} {x:.1f}" for f, x in fault_x.items())
-                    + f"; kernel={ms:.4f} ms (tm {gm.pick_tile(M, E)}; by tm "
-                    + ", ".join(f"{tm}: {t:.4f}" for tm, t in by_tm.items())
-                    + f") plain={plain_ms:.4f} ms {lib_name}={lib_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by})")
-                del stacks, rhs, lhs, got, ref, mag
-                torch.cuda.empty_cache()
+            lib_ms = time_cuda_graph(lambda: lib_fn(stacks[next(it) % 3]), iters=3, reps=2)
+            lib_host_ms = time_cuda(lambda: lib_fn(stacks[next(it) % 3]), iters=5, warmup=1)
+            bf16_ms = None
+            if lib_bf16 is not None:
+                bf16_ms = time_cuda_graph(lambda: lib_bf16(stacks[next(it) % 3]), iters=6, reps=3)
+            bound_ms, bound_by = _gmm_bound(M, k, n, sizes)
+            per[f"{sname}/{proj}"] = dict(max_abs_err=err, share=share, **t, plain_ms=plain_ms, library_ms=lib_ms,
+                                          library_host_ms=lib_host_ms, library=lib_name,
+                                          grouped_mm_bf16_ms=bf16_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                          ms_by_tile=by_tile, tile=tile, faults=fault_x, touched=touched, bits=bits,
+                                          M=M, k=k, n=n)
+            fmt = lambda x: f"{x:.4f} ms" if x is not None else "not timed"  # noqa: E731
+            log(f"[kernel_gmm] {sname} {proj}: M={M} ({M - used} past the groups) k={k} n={n}, {touched} of {E} "
+                f"experts touched; worst element {share:.4f} of the limit {GMM_REL:.3g} |lhs|@|rhs| (max|diff| "
+                f"{err:.3e}), rows past the groups zero, the same bits twice ({bits}); planted faults "
+                + ", ".join(f"{f} {x:.1f}" for f, x in fault_x.items())
+                + f"; kernel={t['ms']:.4f} ms by graph replay (bf16_tile {tile}; host loop {t['host_ms']:.4f}; by "
+                "bf16_tile " + ", ".join(f"{tl}: {x:.4f}" for tl, x in by_tile.items())
+                + f") plain={fmt(plain_ms)} {lib_name}={lib_ms:.4f} ms by graph replay (host loop "
+                f"{lib_host_ms:.4f}); torch._grouped_mm with a bf16 output (another function)={fmt(bf16_ms)}; "
+                f"bound={bound_ms:.4f} ms ({bound_by}); {2 * used * k * n / t['ms'] / 1e9:.1f} TFLOP/s")
+            del stacks, rhs, lhs
+            torch.cuda.empty_cache()
+        # each bf16 regime across the groups' average rows (gate / up): where
+        # pick_bf16_tile's crossovers lie
+        stacks = [(0.02 * torch.randn((E, D, Fm), generator=g, device="cuda")).bfloat16() for _ in range(3)]
+        per["regimes"] = {}
+        for M in (512, 1024, 1536, 2048, 3072, 4096, 6144, 8192, 12288, 16384):
+            sizes = _gmm_routing(M, E, K, g)
+            lhs = torch.randn((M, D), generator=g, device="cuda").bfloat16()
+            ms = {t: _gmm_timings(lhs, stacks, sizes, bf16_tile=t)["ms"] for t in gm.BF16_TILES}
+            per["regimes"][M] = dict(ms_by_tile=ms, tile=gm.pick_bf16_tile(M, E))
+            log(f"[kernel_gmm] regimes, gate/up at M={M} ({M / E:.0f} rows a group): by bf16_tile "
+                + ", ".join(f"{t}: {x:.4f}" for t, x in ms.items())
+                + f" ms by graph replay (picked: {gm.pick_bf16_tile(M, E)}; bound "
+                f"{_gmm_bound(M, D, Fm, sizes)[0]:.4f})")
+        del stacks, lhs
         # f32 inputs at the decode shape (the f32 twins' path)
         sizes = _gmm_routing(32 * K, E, K, g)
         lhs = torch.randn((32 * K, D), generator=g, device="cuda")
         rhs = 0.02 * torch.randn((E, D, Fm), generator=g, device="cuda")
-        share = _gmm_share(gm.gmm(lhs, rhs, sizes), gm.gmm_plain(lhs, rhs, sizes),
-                           gm.gmm_plain(lhs.abs(), rhs.abs(), sizes), int(sizes.sum()))
+        share = _gmm_share(gm.gmm(lhs, rhs, sizes), *_gmm_limit(lhs, rhs, sizes), int(sizes.sum()))
         if not share <= 1.0:
             raise AssertionError(f"[kernel_gmm] f32 decode: off its plain version by {share:.3f} x the limit")
         log(f"[kernel_gmm] f32 inputs, decode gate/up shape: worst element {share:.4f} of the limit")
@@ -3000,9 +3121,9 @@ def phase_serve_moe(card: str) -> dict:
 
         prof = _profile(lambda: _wave(srv.address, [body(p, i, 32) for i, p in enumerate(prompts)]),
                         "wave (16 requests x 32 new tokens)", card)
-        gmm_us = sum(us for name, us in prof["by_name"].items() if "gmm_kernel" in name)
+        gmm_us = _gmm_fwd_us(prof)
         out.update(busy=prof["busy"], gmm_share=gmm_us / prof["busy_us"])
-        log(f"[profile]   gmm kernels {gmm_us / 1e3:.2f} ms, {out['gmm_share']:.1%} of busy")
+        log(f"[profile]   gmm forward {gmm_us / 1e3:.2f} ms, {out['gmm_share']:.1%} of busy")
         _decode_share(prof)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         log(f"[serve_moe] {card}: peak torch.cuda.max_memory_allocated {out['peak_gib']:.2f} GiB")
@@ -3224,7 +3345,7 @@ def gmm_bwd_times() -> None:
                     ref = gm.tgmm_plain(lhs, grad, sizes, torch.float32)
                     mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
                     share = _bwd_share(got, ref, mag, int(sizes.max()), True)
-                bits = hashlib.sha256(got.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+                bits = _digest(got)
                 del got, ref, mag
                 line[which] = dict(share=share, bits=bits, **_gmm_bwd_timings(which, lhs, stacks, grad, sizes))
         print(json.dumps({"gmm_bwd_times": f"{sname}/{proj}", **line}), flush=True)
@@ -3647,16 +3768,19 @@ def phase_train_moe(card: str) -> dict:
     prof = _profile(lambda: trainer.train_batch(mb, actor._loss_fn, _wfn), "MoE optimizer step (one minibatch)", card)
     busy = prof["busy"]
     _flash_shares(prof)
+    shares = {"gmm": _gmm_fwd_us(prof) / prof["busy_us"]}
     for key in ("gmm_bwd_lhs", "tgmm"):
-        us = sum(t for name, t in prof["by_name"].items() if key in name)
-        log(f"[profile]   {key}: {us / 1e3:.2f} ms, {us / prof['busy_us']:.1%} of busy")
+        shares[key] = sum(t for name, t in prof["by_name"].items() if key in name) / prof["busy_us"]
+    log("[profile]   " + ", ".join(f"{key} {x * prof['busy_us'] / 1e3:.2f} ms, {x:.1%} of busy"
+                                    for key, x in shares.items()) + " (gmm: the forward, with its recompute)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[train_moe] {card}: peak torch.cuda.max_memory_allocated {peak:.2f} GiB (of the card's 80 GB)")
     del trainer, actor, r
     gc.collect()
     torch.cuda.empty_cache()
     return dict(counts=dict(zip(("gmm", "gmm_bwd_lhs", "tgmm"), counts[:3])), parts=parts,
-                tokens_per_s=tokens / parts["ppo_update"], peak_gib=peak, busy=busy, cos=cos, rel=rel, tree=tree)
+                tokens_per_s=tokens / parts["ppo_update"], peak_gib=peak, busy=busy, shares=shares, cos=cos, rel=rel,
+                tree=tree)
 
 
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spec", "train", "kernel_tree",
@@ -3673,13 +3797,14 @@ def main(argv: list[str]) -> int:
         if set(only) - set(PHASES):
             print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
             return 2
-    elif argv[:1] in (["--decode-times"], ["--flash-times"], ["--gmm-bwd-times"], ["--tree-times"]) and len(argv) == 2:
+    elif argv[:1] in (["--decode-times"], ["--flash-times"], ["--gmm-times"], ["--gmm-bwd-times"],
+                      ["--tree-times"]) and len(argv) == 2:
         times = argv[0][2:-len("-times")]
         other_dir = os.path.abspath(argv[1])
         sys.path.insert(0, other_dir)  # that tree's areal_tpu_torch, not this one's
     elif argv:
         print("usage: chip_smoke.py [--only phase,phase,... | --decode-times DIR | --flash-times DIR | "
-              "--gmm-bwd-times DIR | --tree-times DIR [--fwd FILE]]", file=sys.stderr)
+              "--gmm-times DIR | --gmm-bwd-times DIR | --tree-times DIR [--fwd FILE]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3705,6 +3830,12 @@ def main(argv: list[str]) -> int:
         phase_build(["flash_attention"])
         flash_times()
         log(f"[done] flash times in {time.monotonic() - t0:.1f}s on {card} (no result)")
+        return 0
+    if times == "gmm":
+        log(f"[gmm_times] the gmm forward of {os.path.dirname(areal_tpu_torch.__file__)}")
+        phase_build(["gmm"])
+        gmm_times()
+        log(f"[done] gmm forward times in {time.monotonic() - t0:.1f}s on {card} (no result)")
         return 0
     if times == "gmm-bwd":
         log(f"[gmm_bwd_times] gmm_bwd_lhs and tgmm of {os.path.dirname(areal_tpu_torch.__file__)}")
@@ -3832,20 +3963,28 @@ def main(argv: list[str]) -> int:
                              "tile_pairs": r["tile_pairs"]} for fo, r in tree_k.items()},
             **({"occupancy": d["occupancy"]} if "occupancy" in d else {}),
         })
-    # the grouped matmul: launches of serve_moe's cold and warm waves; the
-    # times of the decode gate / up shape, the other shapes beside them
+    # the grouped matmul: launches of serve_moe's cold and warm waves,
+    # train_moe's beside them; the times (graph replay) of the decode gate /
+    # up shape, the other shapes beside them
     gmm_k, moe_run = res["kernel_gmm"], res["serve_moe"]
     d = gmm_k["decode/gate_up"]
+    shapes = {k: v for k, v in gmm_k.items() if "/" in k}
     kernels.append({
         "name": "gmm",
         "route": "cuda",
         "source": "areal_tpu_torch/csrc/gmm.cu",
         "replaces": "areal_tpu/models/moe.py:227",
         "launches": moe_run["cold_counts"]["gmm"] + moe_run["warm_counts"]["gmm"],
-        "max_abs_err": max(v["max_abs_err"] for v in gmm_k.values()),
+        "launches_by_phase": {"serve_moe": moe_run["cold_counts"]["gmm"] + moe_run["warm_counts"]["gmm"],
+                              "train_moe": res["train_moe"]["counts"]["gmm"]},
+        "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
         **{f: d[f] for f in fields[1:]},
+        "host_ms": d["host_ms"],
         "library": d["library"],
-        "shapes": {k: {f: v[f] for f in (*fields, "ms_by_tm", "tm")} for k, v in gmm_k.items()},
+        "occupancy": gmm_k["occupancy"],
+        "shapes": {k: {f: v[f] for f in (*fields, "host_ms", "ms_by_tile", "tile", "grouped_mm_bf16_ms", "bits", "M",
+                                         "k", "n")}
+                   for k, v in shapes.items()},
     })
     # the backward kernels: launches of train_moe; the times of the training
     # gate / up shape (bf16 output, as the path writes it), the other shapes

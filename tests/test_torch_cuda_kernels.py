@@ -962,22 +962,122 @@ def _gmm_case(dev, M, k, n, sizes, dtype, seed=0):
     return lhs.to(dev), rhs.to(dev), sizes.to(dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tm", [16, 32, 64])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("case", list(GMM_CASES))
-def test_gmm_kernel_matches_plain(cuda, case, dtype, tm):
-    lhs, rhs, sizes = _gmm_case(cuda, *GMM_CASES[case], dtype)
-    before = gm.gmm.launches
-    got = gm.gmm(lhs, rhs, sizes, tm=tm)
+# each instantiation of the forward: bf16 through ``bf16_tile`` (16: the
+# roles swapped, 64- and 128-row tiles), f32 through ``tm``
+GMM_FWD_TILES = [("bf16", 16), ("bf16", 64), ("bf16", 128), ("f32", 16), ("f32", 32), ("f32", 64)]
+
+
+def _gmm_fwd(lhs, rhs, sizes, kind, tile):
+    if kind == "bf16":
+        return gm.gmm(lhs, rhs, sizes, bf16_tile=tile)
+    return gm.gmm(lhs.float(), rhs.float(), sizes, tm=tile)
+
+
+def _assert_gmm_close(got, lhs, rhs, sizes):
+    """The limit, and exact zeros past the groups."""
     want = gm.gmm_plain(lhs, rhs, sizes)
+    mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sizes)
     torch.cuda.synchronize()
-    assert gm.gmm.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == want.shape
     used = int(sizes.sum())
     assert torch.count_nonzero(got[used:]) == 0  # rows past the groups: exact zeros
-    mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sizes)
     assert ((got - want).abs() <= GMM_REL * mag).all(), ((got - want).abs() / mag).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tm", GMM_FWD_TILES)
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_gmm_kernel_matches_plain(cuda, case, kind, tm):
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    lhs, rhs, sizes = _gmm_case(cuda, *GMM_CASES[case], dtype)
+    before = gm.gmm.launches
+    got = _gmm_fwd(lhs, rhs, sizes, kind, tm)
+    torch.cuda.synchronize()
+    assert gm.gmm.launches == before + 1
+    _assert_gmm_close(got, lhs, rhs, sizes)
+
+
+# the forward's tile edges: groups of 0, 1, 7, 8, 9 (the swapped regime's
+# second 8-row MMA tile), 15, 16, 17 (its 16-row items), 63, 65, 127, 129
+# (the 64- and 128-row tiles) and 384 rows; k and n multiples of 8 but not
+# of the 64-wide k step or the 128 output columns a block; 64 rows past the
+# groups
+GMM_FWD_EDGE_SIZES = [0, 1, 7, 8, 9, 15, 16, 17, 63, 65, 127, 129, 384]
+GMM_FWD_EDGE_CASES = {
+    "k200-n136": (sum(GMM_FWD_EDGE_SIZES) + 64, 200, 136, GMM_FWD_EDGE_SIZES),
+    "k136-n200": (sum(GMM_FWD_EDGE_SIZES) + 64, 136, 200, GMM_FWD_EDGE_SIZES[::-1]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tile", GMM_FWD_TILES)
+@pytest.mark.parametrize("case", list(GMM_FWD_EDGE_CASES))
+def test_gmm_kernel_tile_edges(cuda, case, kind, tile):
+    lhs, rhs, sizes = _gmm_case(cuda, *GMM_FWD_EDGE_CASES[case], torch.bfloat16, seed=6)
+    assert lhs.shape[0] - int(sizes.sum()) == 64
+    got = _gmm_fwd(lhs, rhs, sizes, kind, tile)
+    if kind == "f32":
+        lhs, rhs = lhs.float(), rhs.float()
+    _assert_gmm_close(got, lhs, rhs, sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", gm.BF16_TILES)
+def test_gmm_kernel_bits_repeat_and_replay(cuda, tile):
+    """Each bf16 regime gives the same bits on a second call and when
+    captured in a CUDA graph and replayed (no atomics, no host sync)."""
+    lhs, rhs, sizes = _gmm_case(cuda, *GMM_FWD_EDGE_CASES["k200-n136"], torch.bfloat16, seed=7)
+    eager = gm.gmm(lhs, rhs, sizes, bf16_tile=tile)
+    again = gm.gmm(lhs, rhs, sizes, bf16_tile=tile)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gm.gmm(lhs, rhs, sizes, bf16_tile=tile)  # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = gm.gmm(lhs, rhs, sizes, bf16_tile=tile)
+    replayed.fill_(1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, again) and torch.equal(eager, replayed)
+
+
+@pytest.mark.cuda
+def test_gmm_fwd_occupancy(cuda):
+    """The bf16 forward kernels fit two blocks an SM (their launch bounds:
+    at most 128 registers a thread) with nothing spilled, and their shared
+    memory is what the source lays out: a 4-stage ring of 16 KB weight
+    stages with the roles swapped, 3 stages of both operands (24 KB and 32
+    KB) on 64- and 128-row tiles."""
+    occ = gm.fwd_occupancy()
+    for name, o in occ.items():
+        assert 0 < o["registers"] <= 128 and o["blocks_per_sm"] >= 2 and o["local_bytes"] == 0, (name, o)
+    assert occ["gmm/128"]["smem_bytes"] > occ["gmm/64"]["smem_bytes"] > 48 * 1024
+    assert occ["gmm/16"]["smem_bytes"] > 4 * 16 * 1024
+
+
+@pytest.mark.cuda
+def test_gmm_check_catches_planted_faults(cuda):
+    """The limit tells the kernel from three wrong forwards at the decode
+    shape: a group multiplied by the next expert's weights, a row moved
+    across a group boundary, the output rounded to bf16."""
+    lhs, rhs, sizes = _gmm_case(cuda, *GMM_CASES["decode-qwen3-30b-a3b"], torch.bfloat16)
+    used = int(sizes.sum())
+    ref = gm.gmm_plain(lhs, rhs, sizes)[:used]
+    mag = gm.gmm_plain(lhs.float().abs(), rhs.float().abs(), sizes)[:used]
+    first = int(torch.nonzero(sizes[:-1] > 0)[0])
+    moved = sizes.clone()
+    moved[first] -= 1
+    moved[first + 1] += 1
+    faults = {
+        "wrong group": gm.gmm_plain(lhs, rhs.roll(1, 0), sizes),
+        "row moved": gm.gmm_plain(lhs, rhs, moved),
+        "bf16 out": gm.gmm_plain(lhs, rhs, sizes).bfloat16().float(),
+    }
+    assert ((gm.gmm(lhs, rhs, sizes)[:used] - ref).abs() <= GMM_REL * mag).all()
+    for name, bad in faults.items():
+        assert ((bad[:used] - ref).abs() > 10 * GMM_REL * mag).any(), name
 
 
 @pytest.mark.cuda
@@ -991,6 +1091,20 @@ def test_gmm_kernel_refuses_bad_arguments(cuda):
         gm.gmm(lhs, rhs, sizes.long())
     with pytest.raises(ValueError, match="tm"):
         gm.gmm(lhs, rhs, sizes, tm=8)
+    with pytest.raises(ValueError, match="tm"):  # tm sets the f32 path's row tile
+        gm.gmm(lhs, rhs, sizes, tm=16)
+    with pytest.raises(ValueError, match="not in"):
+        gm.gmm(lhs, rhs, sizes, bf16_tile=32)
+    with pytest.raises(ValueError, match="bf16_tile"):
+        gm.gmm(lhs.float(), rhs.float(), sizes, bf16_tile=64)
+    with pytest.raises(ValueError, match="aligned"):
+        gm.gmm(torch.zeros(64 * 32 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(64, 32), rhs, sizes)
+    # the C entry point refuses a row tile its dtype does not have
+    out = torch.empty((64, 16), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, tile in ((1, 32), (0, 128), (2, 16)):
+        assert gm._lib().gmm_forward(lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(), 64, 32, 16,
+                                     3, dtype, tile, stream) == -1
     with pytest.raises(TypeError, match="f32"):
         gm.gmm_bwd_lhs(torch.zeros((64, 16), dtype=torch.bfloat16, device=cuda), rhs, sizes, out_dtype=torch.float32)
     with pytest.raises(ValueError, match="grad"):
