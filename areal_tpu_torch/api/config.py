@@ -7,6 +7,10 @@ marked below). No YAML loader: configs are built in code.
   (``models/qwen.py:ModelConfig.dtype``).
 - Training: ``NormConfig``, ``OptimizerConfig``, ``TrainEngineConfig`` and
   ``PPOActorConfig``.
+- The rollout client: ``InferenceEngineConfig`` and its fleet and lifecycle
+  sub-configs (``RoutingConfig``, ``FaultToleranceConfig``, ...), which
+  ``InferenceEngineConfig.check_supported`` holds at their defaults where
+  the one-server path does not read them.
 
 Knobs whose code paths have not been ported yet stay here so configs keep
 their shape; ``DecodeEngine._check_supported`` and
@@ -16,7 +20,7 @@ ROADMAP.md) when one is switched on.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 from areal_tpu_torch.utils.data import MicroBatchSpec
 
@@ -223,3 +227,298 @@ class PPOActorConfig(TrainEngineConfig):
     # entropy & misc
     entropy_coeff: float = 0.0
     temperature: float = 1.0
+
+
+# -- the rollout client -----------------------------------------------------
+
+
+@dataclass
+class OpenAIProxyConfig:
+    """The agentic OpenAI-proxy layer (ROADMAP Queue A item 8)."""
+
+    tool_call_parser: str = "qwen"
+    chat_template_type: str = "hf"  # hf|concat
+    engine_max_tokens: int = 0
+    capacity: int = 128
+    admin_api_key: str = ""  # empty = generate one at start_proxy time
+    tier: "GatewayTierConfig" = field(default_factory=lambda: GatewayTierConfig())
+
+
+@dataclass
+class GatewayTierConfig:
+    """The sharded gateway tier (ROADMAP Queue A item 8)."""
+
+    enabled: bool = False
+    n_shards: int = 1
+    vnodes: int = 64
+    namespace: str = "gateway_tier/default"
+    membership_ttl_s: float = 5.0
+    membership_poll_s: float = 1.0
+    static_shards: list[str] = field(default_factory=list)
+    route_adopt: bool = True
+
+
+@dataclass
+class RequestLifecycleConfig:
+    """Request deadlines, 429 admission control, backpressure waits and
+    progress watchdogs (ROADMAP Queue A item 2)."""
+
+    enabled: bool = True
+    default_deadline_s: float | None = None
+    max_queue_depth: int = 0
+    min_free_pages: int = 0
+    retry_after_s: float = 1.0
+    retry_after_jitter: float = 0.5
+    backpressure_wait_s: float = 30.0
+    watchdog_s: float = 0.0
+    engine_stall_escalate_s: float = 0.0
+    gateway_max_inflight: int = 0
+    gateway_interactive_headroom: int = 0
+
+
+@dataclass
+class ChaosConfig:
+    """Seeded fault injection at the HTTP boundary (ROADMAP Queue A item 8)."""
+
+    enabled: bool = False
+    seed: int = 0
+    drop_prob: float = 0.0
+    delay_prob: float = 0.0
+    delay_s: float = 0.05
+    error_prob: float = 0.0
+    hang_prob: float = 0.0
+    hang_s: float = 2.0
+    stall_prob: float = 0.0
+    stall_s: float = 0.5
+    preempt_prob: float = 0.0
+    gateway_kill_prob: float = 0.0
+    path_prefix: str = ""
+
+
+@dataclass
+class TrajectoryJournalConfig:
+    """The durable trajectory journal (ROADMAP Queue A item 3)."""
+
+    enabled: bool = False
+    dir: str = ""
+    segment_max_records: int = 64
+    segment_max_bytes: int = 64 * 1024 * 1024
+    fsync: bool = True
+
+
+@dataclass
+class FaultToleranceConfig:
+    """Retrying transport, circuit breaking and failover, replica supervision,
+    and the executor's task retry / quarantine. The one-server rollout path
+    reads ``enabled``, the backoff fields and the two task fields; the rest
+    wait for ROADMAP Queue A item 8."""
+
+    enabled: bool = True
+    backoff_base_s: float = 0.2
+    backoff_max_s: float = 10.0
+    backoff_jitter: float = 0.2
+    retry_budget: float = 64.0
+    retry_budget_refill: float = 0.5
+    circuit_failure_threshold: int = 5
+    circuit_recovery_s: float = 5.0
+    failover: bool = True
+    probe_interval_s: float = 5.0
+    probe_timeout_s: float = 2.0
+    probe_failures_to_evict: int = 3
+    max_respawns: int = 3
+    task_max_retries: int = 2
+    task_quarantine_strikes: int = 3
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+
+
+@dataclass
+class RoutingConfig:
+    """Cache-aware replica selection (ROADMAP Queue A item 8)."""
+
+    poll_interval_s: float = 2.0
+    snapshot_ttl_s: float = 15.0
+    shadow_page_size: int = 128
+    shadow_max_pages: int = 8192
+    w_prefix: float = 2.0
+    w_queue: float = 1.0
+    w_pages: float = 0.5
+    w_ttft: float = 0.25
+    queue_norm: int = 16
+    w_inflight: float = 1.0
+    rush_slack_s: float = 2.0
+    demote_penalty: float = 2.0
+    demote_s: float = 5.0
+    role_map: dict[str, str] = field(default_factory=dict)
+    long_prompt_tokens: int = 1024
+    affinity_ttl_s: float = 3600.0
+
+
+@dataclass
+class StalenessControllerConfig:
+    """Autopilot: retunes ``max_head_offpolicyness`` from the trainer bubble."""
+
+    enabled: bool = True
+    min_staleness: int = 0
+    max_staleness: int = 8
+    grow_bubble_fraction: float = 0.25
+    shrink_bubble_fraction: float = 0.05
+    wide_span_p99: float = 1.0
+    cooldown_s: float = 30.0
+    learning_guard: bool = True
+    guard_high_lag_kl: float = 0.5
+    guard_high_lag_clip_fraction: float = 0.9
+    guard_min_token_share: float = 0.01
+
+
+@dataclass
+class AdmissionControllerConfig:
+    """Autopilot: AIMD on the engine's admission gates."""
+
+    enabled: bool = True
+    min_queue_depth: int = 4
+    max_queue_depth: int = 256
+    queue_depth_step: int = 4
+    queue_depth_decrease: float = 0.5
+    high_queue_wait_s: float = 5.0
+    low_queue_wait_s: float = 1.0
+    high_shed_rate_per_s: float = 1.0
+    min_free_pages_floor: int = 0
+    min_free_pages_ceiling: int = 256
+    free_pages_step: int = 8
+    high_reap_rate_per_s: float = 0.5
+    min_headroom: int = 0
+    max_headroom: int = 64
+    headroom_step: int = 2
+    narrow_after_quiet_rounds: int = 6
+    cooldown_s: float = 10.0
+
+
+@dataclass
+class CacheControllerConfig:
+    """Autopilot: grows or shrinks the radix cache's share of the pool."""
+
+    enabled: bool = True
+    min_fraction: float = 0.1
+    max_fraction: float = 0.8
+    fraction_step: float = 0.05
+    high_hit_rate: float = 0.3
+    low_hit_rate: float = 0.02
+    high_headroom_fraction: float = 0.15
+    low_headroom_fraction: float = 0.05
+    cooldown_s: float = 20.0
+
+
+@dataclass
+class FleetControllerConfig:
+    """Autopilot: drains or undrains replicas with the load."""
+
+    enabled: bool = True
+    min_replicas: int = 1
+    max_replicas: int = 0
+    drain_below_load: float = 0.3
+    undrain_above_queue: float = 2.0
+    sustain_rounds: int = 3
+    undrain_sustain_rounds: int = 1
+    cooldown_s: float = 30.0
+
+
+@dataclass
+class AutopilotConfig:
+    """The goodput autopilot's controllers (ROADMAP Queue A item 8)."""
+
+    enabled: bool = False
+    interval_s: float = 5.0
+    signal_ttl_s: float = 30.0
+    token: str = ""
+    metrics_addr: str = ""
+    staleness: StalenessControllerConfig = field(
+        default_factory=StalenessControllerConfig
+    )
+    admission: AdmissionControllerConfig = field(
+        default_factory=AdmissionControllerConfig
+    )
+    cache: CacheControllerConfig = field(default_factory=CacheControllerConfig)
+    fleet: FleetControllerConfig = field(default_factory=FleetControllerConfig)
+
+
+@dataclass
+class InferenceEngineConfig:
+    """Client-side rollout controls, the staleness bound among them
+    (``areal_tpu/api/config.py:700``). ``check_supported`` names the ROADMAP
+    item each unported field waits for."""
+
+    experiment_name: str = ""
+    trial_name: str = ""
+    max_concurrent_rollouts: int | None = None
+    queue_size: int | None = None
+    consumer_batch_size: int = 1
+    max_head_offpolicyness: int = 0  # the staleness bound
+    enable_rollout_tracing: bool = False
+    check_trajectory_format: bool = True
+    schedule_policy: str = "round_robin"
+    routing_policy: str = "round_robin"
+    routing: RoutingConfig = field(default_factory=RoutingConfig)
+    request_timeout: float = 3600.0
+    request_retries: int = 3
+    pause_grace_period: float = 0.0
+    setup_timeout: float = 120.0
+    dump_trajectories: bool = False
+    dump_dir: str | None = None
+    # prepare_batch returns once the accepted trajectories hold this many
+    # tokens instead of a fixed consumer_batch_size (None = fixed)
+    dynamic_bs_max_tokens: int | None = None
+    # the streamed weight update (ROADMAP Queue A 1b)
+    weight_chunk_mb: int = 128
+    weight_update_relay: bool = False
+    weight_commit_fence: str = "hold"
+    openai: OpenAIProxyConfig | None = None
+    tokenizer_path: str = ""  # chat templating for the proxy layer
+    fault_tolerance: FaultToleranceConfig = field(
+        default_factory=FaultToleranceConfig
+    )
+    lifecycle: RequestLifecycleConfig = field(
+        default_factory=RequestLifecycleConfig
+    )
+    journal: TrajectoryJournalConfig = field(
+        default_factory=TrajectoryJournalConfig
+    )
+    autopilot: AutopilotConfig = field(default_factory=AutopilotConfig)
+    speculative: SpeculativeConfig = field(default_factory=SpeculativeConfig)
+
+    def check_supported(self) -> None:
+        """Raise ``NotImplementedError`` for a field set away from its
+        default whose code path is a later slice of the port: the rollout
+        path here is one server, no routing brain, no deadlines, no journal
+        and no autopilot."""
+        if self.routing_policy != "round_robin" or self.schedule_policy != "round_robin":
+            raise NotImplementedError(
+                f"routing_policy={self.routing_policy!r} / schedule_policy={self.schedule_policy!r}: "
+                "ROADMAP Queue A item 8 (routing)"
+            )
+        if self.routing != RoutingConfig():
+            raise NotImplementedError("routing: ROADMAP Queue A item 8 (routing)")
+        ft = self.fault_tolerance
+        ported = ("enabled", "backoff_base_s", "backoff_max_s", "backoff_jitter", "task_max_retries",
+                  "task_quarantine_strikes")
+        default = FaultToleranceConfig()
+        changed = [
+            f.name for f in fields(ft) if f.name not in ported and getattr(ft, f.name) != getattr(default, f.name)
+        ]
+        if changed:
+            raise NotImplementedError(
+                f"fault_tolerance.{changed[0]} (retry budget, circuit breakers, failover, fleet "
+                "probe, chaos): ROADMAP Queue A item 8 (robustness)"
+            )
+        if self.lifecycle != RequestLifecycleConfig():
+            raise NotImplementedError(
+                "lifecycle (deadlines, 429 backpressure, watchdog): ROADMAP Queue A item 2"
+            )
+        if self.journal != TrajectoryJournalConfig():
+            raise NotImplementedError("journal (trajectory journal): ROADMAP Queue A item 3")
+        if self.autopilot != AutopilotConfig():
+            raise NotImplementedError("autopilot: ROADMAP Queue A item 8")
+        if self.openai is not None:
+            raise NotImplementedError("openai (agentic proxy layer): ROADMAP Queue A item 8")
+        if self.dump_trajectories:
+            raise NotImplementedError("dump_trajectories: ROADMAP Queue A item 3")
+

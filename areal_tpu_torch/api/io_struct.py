@@ -1,5 +1,6 @@
-"""Request/response structs of the serving path and the trainer's
-``FinetuneSpec`` / ``WeightUpdateMeta``, copied from
+"""Request/response structs of the serving path, the rollout loop's
+``RolloutStat`` / ``TimedResult`` and the trainer's ``FinetuneSpec`` /
+``WeightUpdateMeta``, copied from
 ``areal_tpu/api/io_struct.py`` (plain lists on the host; tensors live only
 inside the engines)."""
 
@@ -7,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import time
 import uuid
 from typing import Any
 
@@ -132,3 +134,22 @@ class FinetuneSpec:
     @property
     def total_train_steps(self) -> int:
         return self.total_train_epochs * self.steps_per_epoch
+
+
+@dataclasses.dataclass
+class RolloutStat:
+    """The staleness manager's task accounting."""
+
+    submitted: int = 0
+    accepted: int = 0
+    running: int = 0
+    rejected: int = 0
+
+
+@dataclasses.dataclass
+class TimedResult:
+    """A finished task's payload from the async task runner."""
+
+    data: Any
+    task_id: str
+    create_time: float = dataclasses.field(default_factory=time.monotonic)

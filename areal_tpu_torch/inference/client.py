@@ -1,0 +1,555 @@
+"""The rollout client: ``RemoteTorchEngine``, the one-server path of
+``areal_tpu/inference/client.py`` ``RemoteJaxEngine`` on the standard
+library.
+
+It implements the ``InferenceEngine`` contract against one
+``inference/server.py`` address. The heart is the interruptible
+``agenerate`` loop: on stop reason "abort" (the server paused) it waits out
+the pause and resubmits prompt + the tokens so far, keeping the per-token
+policy versions of every attempt; the server's radix tree holds the
+aborted request's full pages, so the resubmit prefills only its suffix.
+Rollout submission (``submit`` / ``wait`` / ``rollout_batch`` /
+``prepare_batch``) goes through the ``WorkflowExecutor``, which reads the
+staleness bound against this client's version.
+
+``agenerate`` is a coroutine on the executor's event loop, so its HTTP
+calls run on asyncio streams: persistent HTTP/1.1 connections, one per
+request in flight, and no thread pool that would cap how many requests
+reach the server at once. Control calls (pause, version, abort) are
+synchronous ``urllib`` posts.
+
+Later slices: more than one address, routing policies, the retry budget,
+circuit breakers and the fleet probe (ROADMAP Queue A item 8); request
+deadlines (item 2); ``update_weights`` and ``pause_generation(mode="hold")``
+(1b); images (item 5).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import random
+import threading
+import time
+import urllib.error
+import urllib.request
+import weakref
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+
+from areal_tpu_torch.api.config import InferenceEngineConfig
+from areal_tpu_torch.api.engine_api import InferenceEngine
+from areal_tpu_torch.api.io_struct import (
+    TIMING_FIELDS,
+    ModelRequest,
+    ModelResponse,
+    StopReason,
+    WeightUpdateMeta,
+)
+from areal_tpu_torch.infra import workflow_context
+from areal_tpu_torch.infra.workflow_executor import WorkflowExecutor
+from areal_tpu_torch.observability import catalog
+from areal_tpu_torch.utils.data import TensorDict
+
+logger = logging.getLogger("areal_tpu_torch.client")
+
+
+class _ConnPool:
+    """Persistent HTTP/1.1 client connections on asyncio streams, idle ones
+    kept per (event loop, address). A request takes an idle connection or
+    opens one, so the number in flight is bounded by the callers alone."""
+
+    def __init__(self):
+        self._idle: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+    def _idle_list(self, addr: str) -> list:
+        return self._idle.setdefault(asyncio.get_running_loop(), {}).setdefault(addr, [])
+
+    @staticmethod
+    async def _roundtrip(reader, writer, addr: str, method: str, path: str, data: bytes):
+        head = (
+            f"{method} {path} HTTP/1.1\r\nHost: {addr}\r\nContent-Type: application/json\r\n"
+            f"Content-Length: {len(data)}\r\n\r\n"
+        )
+        writer.write(head.encode("latin-1") + data)
+        await writer.drain()
+        status_line = await reader.readline()
+        if not status_line:
+            raise ConnectionResetError("connection closed before a response")
+        parts = status_line.decode("latin-1").split(" ", 2)
+        headers = {}
+        while True:
+            line = await reader.readline()
+            if line in (b"\r\n", b"\n", b""):
+                break
+            k, _, v = line.decode("latin-1").partition(":")
+            headers[k.strip().lower()] = v.strip()
+        n = int(headers.get("content-length") or 0)
+        body = await reader.readexactly(n) if n else b""
+        keep = parts[0] == "HTTP/1.1" and headers.get("connection", "").lower() != "close"
+        return int(parts[1]), body, keep
+
+    async def request(self, addr: str, method: str, path: str, payload: dict | None, timeout: float) -> dict:
+        data = json.dumps(payload).encode() if payload is not None else b""
+        idle = self._idle_list(addr)
+        while True:
+            reused = bool(idle)
+            if reused:
+                reader, writer = idle.pop()
+            else:
+                host, port = addr.rsplit(":", 1)
+                reader, writer = await asyncio.wait_for(asyncio.open_connection(host, int(port)), timeout)
+            try:
+                status, body, keep = await asyncio.wait_for(
+                    self._roundtrip(reader, writer, addr, method, path, data), timeout
+                )
+            except (ConnectionResetError, BrokenPipeError, asyncio.IncompleteReadError):
+                writer.close()
+                if reused:
+                    continue  # the server closed an idle connection: take the next
+                raise
+            except BaseException:
+                writer.close()  # cancelled or timed out mid-request: never reuse it
+                raise
+            if keep:
+                idle.append((reader, writer))
+            else:
+                writer.close()
+            if status >= 400:
+                raise RuntimeError(f"{method} {addr}{path}: HTTP {status}: {body[:200]!r}")
+            return json.loads(body) if body.strip() else {}
+
+    async def close_loop(self) -> None:
+        """Close this event loop's idle connections."""
+        per_addr = self._idle.pop(asyncio.get_running_loop(), {})
+        for conns in per_addr.values():
+            for _, writer in conns:
+                writer.close()
+
+
+class RemoteTorchEngine(InferenceEngine):
+    """Client handle to one ``areal_tpu_torch.inference.server`` instance."""
+
+    # metric scrapes must not inherit the long generation timeout: a dead
+    # server would park the pause-wait loop for request_timeout per probe
+    _SCRAPE_TIMEOUT_S = 5.0
+
+    def __init__(self, config: InferenceEngineConfig, addresses: list[str] | None = None):
+        config.check_supported()
+        self.config = config
+        self.addresses = list(addresses or [])
+        self._check_addresses()
+        self._version = 0
+        self.executor = WorkflowExecutor(config, engine=self)
+        self._metrics = catalog.client_metrics()
+        self._robust = catalog.robustness_metrics()
+        ft = config.fault_tolerance
+        self._attempts = max(1, int(config.request_retries))
+        self._backoff = (ft.backoff_base_s, ft.backoff_max_s, ft.backoff_jitter if ft.enabled else 0.0)
+        self._rng = random.Random()
+        self._http = _ConnPool()
+        # in-flight rids per workflow task, so a quarantined task's
+        # generations can be cancelled server-side
+        self._task_rids_lock = threading.Lock()
+        self._task_rids: dict[str, dict[str, str]] = {}  # task_id -> rid -> addr
+        # per-task latency (the server's stage breakdown summed over the
+        # task's requests), popped by the executor per trajectory. Taken ids
+        # are tombstoned for a while: a quarantined task's cancelled
+        # generations answer after the pop and must not re-create an entry
+        self._task_latency_lock = threading.Lock()
+        self._task_latency: dict[str, dict[str, float]] = {}
+        self._task_latency_tombstones: OrderedDict[str, float] = OrderedDict()
+        # abort posts run off the event loop on one small shared pool: a mass
+        # cancel must not spawn a thread per coroutine
+        self._abort_pool = ThreadPoolExecutor(max_workers=2, thread_name_prefix="abort-request")
+
+    def _check_addresses(self) -> None:
+        if len(self.addresses) > 1:
+            raise NotImplementedError(
+                f"{len(self.addresses)} server addresses (a fleet): ROADMAP Queue A item 8"
+            )
+
+    # -- lifecycle --------------------------------------------------------
+    def initialize(self, addresses: list[str] | None = None, timeout: float | None = None) -> None:
+        if addresses:
+            self.addresses = list(addresses)
+            self._check_addresses()
+        if not self.addresses:
+            raise NotImplementedError("server discovery through name_resolve: ROADMAP Queue A item 8")
+        self._wait_healthy(timeout or self.config.setup_timeout)
+        self.executor.initialize()
+
+    def _wait_healthy(self, timeout: float) -> None:
+        """Block until the server answers /health with 200. A refused
+        connection means it is still booting; an HTTP error status means it
+        is up but unhealthy, and is logged. The last error lands in the
+        TimeoutError."""
+        deadline = time.monotonic() + timeout
+        for addr in self.addresses:
+            last_err: BaseException | None = None
+            n_http_err = 0
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://{addr}/health", timeout=2) as r:
+                        if r.status == 200:
+                            break
+                        last_err = RuntimeError(f"/health status {r.status}")
+                except urllib.error.HTTPError as e:
+                    last_err = e
+                    n_http_err += 1
+                    if n_http_err == 1 or n_http_err % 20 == 0:
+                        logger.warning(f"server {addr} is up but /health returns {e.code}; still waiting")
+                except (urllib.error.URLError, ConnectionError, OSError) as e:
+                    last_err = e  # not accepting connections yet
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"server {addr} not healthy after {timeout:.0f}s; last error: {last_err!r}")
+                time.sleep(0.5)
+
+    def destroy(self) -> None:
+        self._abort_pool.shutdown(wait=False)
+        loop = self.executor.runner._loop
+        if loop is not None and loop.is_running():
+            try:
+                asyncio.run_coroutine_threadsafe(self._http.close_loop(), loop).result(5)
+            except Exception:  # noqa: BLE001 — the runner may be going down
+                pass
+        self.executor.destroy()
+
+    async def close_loop_connections(self) -> None:
+        """Close the calling event loop's idle connections. A script that
+        drives ``agenerate`` inside its own ``asyncio.run`` calls this before
+        the loop ends; ``destroy`` reaches only the executor's loop."""
+        await self._http.close_loop()
+
+    def start_fleet_probe(self) -> None:
+        raise NotImplementedError("the fleet probe: ROADMAP Queue A item 8")
+
+    # -- per-task request tracking -----------------------------------------
+    def _register_task_rid(self, rid: str, addr: str) -> str | None:
+        """Track this rid under the current workflow task (if any) so a
+        quarantined task's generations can be cancelled server-side.
+        Returns the owning task id."""
+        if not rid:
+            return None
+        task_id = workflow_context.get().task_id
+        if not task_id:
+            return None
+        with self._task_rids_lock:
+            self._task_rids.setdefault(task_id, {})[rid] = addr
+        return task_id
+
+    def _deregister_task_rid(self, task_id: str | None, rid: str) -> None:
+        if not task_id:
+            return
+        with self._task_rids_lock:
+            rids = self._task_rids.get(task_id)
+            if rids is not None:
+                rids.pop(rid, None)
+                if not rids:
+                    self._task_rids.pop(task_id, None)
+
+    def abort_request(self, rid: str, addr: str | None = None) -> None:
+        """Best-effort server-side cancellation of one rid (POST
+        /abort_request). Never raises: cancellation is cleanup."""
+        if not rid:
+            return
+        addr = addr or self.addresses[0]
+        try:
+            self._send_json_once(addr, "/abort_request", {"rid": rid}, timeout=10.0)
+        except Exception as e:  # noqa: BLE001 — a dead server's slots die with it
+            logger.debug(f"abort_request({rid}) on {addr} failed: {e!r}")
+
+    def abort_task_requests(self, task_id: str) -> int:
+        """Cancel every generation a workflow task still owns (the executor
+        calls this when it quarantines the task). The posts run on the abort
+        pool, so the executor's dispatch loop never blocks on them. Returns
+        the number of rids queued for cancellation."""
+        with self._task_rids_lock:
+            rids = self._task_rids.pop(task_id, {})
+        for rid, addr in rids.items():
+            self._abort_pool.submit(self.abort_request, rid, addr)
+        return len(rids)
+
+    # -- generation -------------------------------------------------------
+    async def agenerate(self, req: ModelRequest) -> ModelResponse:
+        """Interruptible generation (``client.py:458``): resubmits on
+        "abort" with the accumulated tokens; logprobs, versions, the
+        ``min_new_tokens`` budget and the stage timings span the attempts."""
+        if req.image_data is not None:
+            raise NotImplementedError("image inputs: ROADMAP Queue A item 5 (vision)")
+        if req.deadline is not None:
+            raise NotImplementedError("request deadlines: ROADMAP Queue A item 2")
+        g = req.gconfig
+        accumulated: list[int] = []
+        logprobs: list[float] = []
+        versions: list[int] = []
+        remaining = g.max_new_tokens
+        start = time.monotonic()
+        ttft = None
+        timing = {k: 0.0 for k in TIMING_FIELDS}
+        stop_reason = StopReason.ABORT.value
+        truncated_by = ""
+        attempt_input = list(req.input_ids)
+        addr = self.addresses[0]
+        owner_task = self._register_task_rid(req.rid, addr)
+        try:
+            while True:
+                payload = {
+                    "input_ids": attempt_input,
+                    "rid": req.rid,
+                    "image_data": None,
+                    "image_grid_thw": None,
+                    "deadline": None,
+                    "sampling_params": {
+                        "max_new_tokens": remaining,
+                        "greedy": g.greedy,
+                        "temperature": g.temperature,
+                        "top_p": g.top_p,
+                        "top_k": g.top_k,
+                        "stop_token_ids": g.stop_token_ids,
+                        "max_tokens": g.max_tokens,
+                        "ignore_eos": g.ignore_eos,
+                        "frequency_penalty": g.frequency_penalty,
+                        # tokens accumulated across attempts count toward
+                        # the minimum
+                        "min_new_tokens": max(0, g.min_new_tokens - len(accumulated)),
+                    },
+                }
+                data = await self._post_json(addr, "/generate", payload)
+                tm = data.get("timing") or {}
+                for k in timing:
+                    timing[k] += float(tm.get(k) or 0.0)
+                toks = data["output_tokens"]
+                accumulated.extend(toks)
+                logprobs.extend(data["output_logprobs"])
+                versions.extend(data["output_versions"])
+                if ttft is None and toks:
+                    # the engine's first-token stamp, placed on the client's
+                    # clock by the response's receipt minus the engine's own
+                    # latency (the non-streaming response lands after the
+                    # whole attempt's decode)
+                    eng_ttft = float(data.get("ttft") or 0.0)
+                    eng_lat = float(data.get("latency") or 0.0)
+                    t_end = time.monotonic()
+                    if eng_ttft > 0 and eng_lat > 0:
+                        ttft = max(0.0, (t_end - start) - eng_lat + eng_ttft)
+                    else:
+                        ttft = t_end - start
+                stop_reason = data["stop_reason"]
+                truncated_by = data.get("truncated_by", "") or ""
+                remaining -= len(toks)
+                if stop_reason != StopReason.ABORT.value or remaining <= 0:
+                    if remaining <= 0 and stop_reason == StopReason.ABORT.value:
+                        stop_reason = StopReason.LENGTH.value
+                    break
+                # the server paused: wait, then resume with the sequence so far
+                await self._await_unpaused(addr)
+                attempt_input = list(req.input_ids) + accumulated
+        except asyncio.CancelledError:
+            # the caller cancelled this coroutine (a failed task, a teardown):
+            # cancel the server-side work too instead of leaving the slot
+            # decoding for nobody
+            try:
+                self._abort_pool.submit(self.abort_request, req.rid, addr)
+            except RuntimeError:
+                pass  # destroy() already shut the pool down
+            raise
+        finally:
+            self._deregister_task_rid(owner_task, req.rid)
+        resp = ModelResponse(
+            input_tokens=list(req.input_ids),
+            output_tokens=accumulated,
+            output_logprobs=logprobs,
+            output_versions=versions,
+            stop_reason=stop_reason,
+            truncated_by=truncated_by,
+            latency=time.monotonic() - start,
+            ttft=ttft or (time.monotonic() - start),
+            **timing,
+            rid=req.rid,
+            metadata=dict(req.metadata),
+        )
+        if owner_task is not None:
+            self._note_task_latency(owner_task, resp)
+        return resp
+
+    def _note_task_latency(self, task_id: str, resp: ModelResponse) -> None:
+        with self._task_latency_lock:
+            if task_id in self._task_latency_tombstones:
+                return  # a straggler of an already-popped task
+            agg = self._task_latency.setdefault(
+                task_id,
+                {"requests": 0.0, "tokens": 0.0, "e2e_s": 0.0, **{k: 0.0 for k in TIMING_FIELDS}, "ttft_max_s": 0.0},
+            )
+            agg["requests"] += 1
+            agg["tokens"] += resp.output_len
+            agg["e2e_s"] += resp.latency
+            for k in TIMING_FIELDS:
+                agg[k] += getattr(resp, k)
+            agg["ttft_max_s"] = max(agg["ttft_max_s"], resp.ttft)
+
+    def take_task_latency(self, task_id: str) -> dict[str, float] | None:
+        """Pop one workflow task's latency breakdown (None when nothing was
+        recorded)."""
+        now = time.monotonic()
+        with self._task_latency_lock:
+            self._task_latency_tombstones[task_id] = now
+            ts = self._task_latency_tombstones
+            while ts and (now - next(iter(ts.values())) > 600.0 or len(ts) > 65536):
+                ts.popitem(last=False)
+            return self._task_latency.pop(task_id, None)
+
+    async def _await_unpaused(self, addr: str) -> None:
+        while True:
+            try:
+                d = await self._get_json(addr, "/metrics")
+                if not d.get("server_paused", d.get("paused")):
+                    return
+            except Exception as e:  # noqa: BLE001 — the server may be restarting
+                logger.debug(f"pause-poll on {addr} failed: {e!r}")
+            await asyncio.sleep(0.1)
+
+    def _delay(self, attempt: int) -> float:
+        base, cap, jitter = self._backoff
+        d = min(cap, base * (2.0 ** max(0, attempt)))
+        if jitter > 0:
+            d *= 1.0 + self._rng.uniform(-jitter, jitter)
+        return max(0.0, d)
+
+    async def _post_json(self, addr: str, path: str, payload: dict) -> dict:
+        """POST with ``request_retries`` tries in all and exponential
+        backoff between them."""
+        last_exc: Exception | None = None
+        for attempt in range(self._attempts):
+            if attempt > 0:
+                self._robust.retries.labels(kind="post").inc()
+                await asyncio.sleep(self._delay(attempt - 1))
+            try:
+                return await self._http.request(addr, "POST", path, payload, self.config.request_timeout)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — retried, then raised below
+                last_exc = e
+        raise RuntimeError(f"POST {addr}{path} failed after retries") from last_exc
+
+    async def _get_json(self, addr: str, path: str) -> dict:
+        """GET with a short timeout and one retry, so one dead server cannot
+        stall a poll loop."""
+        timeout = min(self._SCRAPE_TIMEOUT_S, self.config.request_timeout)
+        last_exc: Exception | None = None
+        for attempt in range(2):
+            if attempt > 0:
+                self._metrics.scrape_retries.inc()
+                self._robust.retries.labels(kind="scrape").inc()
+                await asyncio.sleep(self._delay(0))
+            try:
+                return await self._http.request(addr, "GET", path, None, timeout)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001
+                last_exc = e
+        raise RuntimeError(f"GET {addr}{path} failed after retry") from last_exc
+
+    # -- synchronous control calls ----------------------------------------
+    @staticmethod
+    def _send_json_once(addr: str, path: str, payload: dict, timeout: float) -> dict:
+        req = urllib.request.Request(
+            f"http://{addr}{path}",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"},
+            method="POST",
+        )
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read() or b"{}")
+
+    def _post_all(self, path: str, payload: dict) -> list[dict]:
+        """Synchronous POST to the server, retried in place."""
+        out = []
+        for addr in self.addresses:
+            last_exc: Exception | None = None
+            for attempt in range(self._attempts):
+                if attempt > 0:
+                    self._robust.retries.labels(kind="fanout").inc()
+                    time.sleep(self._delay(attempt - 1))
+                try:
+                    out.append(self._send_json_once(addr, path, payload, self.config.request_timeout))
+                    break
+                except Exception as e:  # noqa: BLE001
+                    last_exc = e
+            else:
+                raise RuntimeError(f"POST {addr}{path} failed after retries") from last_exc
+        return out
+
+    # -- rollout submission (the executor) ---------------------------------
+    def submit(self, data: dict, workflow=None, should_accept_fn=None, is_eval=False) -> str:
+        return self.executor.submit(data, workflow, should_accept_fn, is_eval=is_eval)
+
+    def wait(self, count: int, timeout: float | None = None) -> TensorDict:
+        return self.executor.wait(count, timeout)
+
+    def wait_for_task(self, task_id: str, timeout: float | None = None):
+        return self.executor.wait_for_task(task_id, timeout)
+
+    def rollout_batch(self, data, workflow=None, should_accept_fn=None, is_eval=False) -> TensorDict:
+        return self.executor.rollout_batch(data, workflow, should_accept_fn, is_eval=is_eval)
+
+    def prepare_batch(self, dataloader, workflow=None, should_accept_fn=None) -> TensorDict:
+        return self.executor.prepare_batch(dataloader, workflow, should_accept_fn)
+
+    def pause(self) -> None:
+        self.executor.pause()
+
+    def resume(self) -> None:
+        self.executor.resume()
+
+    def set_completion_callback(self, url: str, worker_id: str = "") -> None:
+        self.executor.set_completion_callback(url, worker_id)
+
+    def attach_journal(self, journal) -> None:
+        self.executor.attach_journal(journal)
+
+    def replay_from_journal(self, max_staleness: int | None = None) -> tuple[int, int]:
+        return self.executor.replay_from_journal(max_staleness)
+
+    def set_interrupt(self, event) -> None:
+        self.executor.set_interrupt(event)
+
+    # -- server-side generation pause -------------------------------------
+    def pause_generation(self, targets: list[str] | None = None, mode: str = "abort") -> None:
+        """Pause the server: in-flight requests end with "abort" (their
+        ``agenerate`` loops wait, then resume). The server answers once it
+        has ended them. ``mode="hold"``, the zero-pause commit fence, waits
+        for ROADMAP Queue A 1b."""
+        if mode != "abort":
+            raise NotImplementedError(f"pause_generation(mode={mode!r}), the hold fence: ROADMAP Queue A 1b")
+        if targets is not None:
+            raise NotImplementedError("pause targets (a fleet): ROADMAP Queue A item 8")
+        self._post_all("/pause_generation", {})
+
+    def continue_generation(self, targets: list[str] | None = None) -> None:
+        if targets is not None:
+            raise NotImplementedError("continue targets (a fleet): ROADMAP Queue A item 8")
+        self._post_all("/continue_generation", {})
+
+    # -- weights + versioning --------------------------------------------
+    def update_weights(self, meta: WeightUpdateMeta) -> None:
+        raise NotImplementedError("the staged / committed weight update over HTTP: ROADMAP Queue A 1b")
+
+    def set_version(self, version: int) -> None:
+        self._version = version
+        try:
+            self._post_all("/set_version", {"version": version})
+        except Exception:  # noqa: BLE001 — the server may be mid-update
+            logger.warning("set_version post failed", exc_info=True)
+
+    def get_version(self) -> int:
+        return self._version
+
+    def get_capacity(self) -> int:
+        return self.executor.staleness.get_capacity()
+
+    def export_stats(self) -> dict[str, float]:
+        """The executor's rollout counters (the weight-update figures of the
+        JAX client wait for ROADMAP Queue A 1b)."""
+        return self.executor.export_stats()

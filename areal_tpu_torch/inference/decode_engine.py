@@ -19,7 +19,12 @@ The shape of the JAX engine is kept:
   that produced it; ``update_weights_from_params`` swaps weights between
   chunks (in place, stream-ordered after the chunk in flight).
 - ``pause_generation`` (abort mode) ends every in-flight request with
-  ``stop_reason="abort"`` and its partial tokens; the client resubmits.
+  ``stop_reason="abort"`` and its partial tokens, publishing its full pages
+  into the radix tree, and returns once it has; the client resubmits prompt
+  + tokens so far, which prefills only the suffix.
+- ``abort_request(rid)`` cancels one request, queued or decoding: the loop
+  reaps it between chunks (the chunk in flight drained first) and answers
+  ``stop_reason="cancelled"``.
 - Prefix sharing, as in the JAX engine's defaults: identical prompts of one
   admission pass (a GRPO group's samples) prefill once and the others alias
   the primary's full pages plus a private copy of the page holding row
@@ -39,9 +44,9 @@ The shape of the JAX engine is kept:
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
 int8 weights, frequency penalty, image inputs, multi-device meshes and
 loading HF checkpoints. Also not ported: KV parking across an abort
-(resubmits re-prefill, now possibly through a radix hit), the autopilot's
-radix cap, the hold fence, deadlines and the watchdog, and the
-observability surfaces.
+(a resubmit re-prefills its last partial page through a radix hit), the
+autopilot's radix cap, the hold fence (ROADMAP Queue A 1b), deadlines and
+the watchdog (item 2), and the observability surfaces.
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -86,6 +91,7 @@ class _Task:
     out_logprobs: list[float] = field(default_factory=list)
     out_versions: list[int] = field(default_factory=list)
     first_token_time: float | None = None
+    truncated_by: str = ""  # "cancelled" when /abort_request reaped it
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +238,10 @@ class DecodeEngine:
         self.model: qwen.QwenModel | None = None
         self._version = 0
         self._paused = threading.Event()  # set = paused (aborts in-flight)
+        self._pause_ack = threading.Event()  # set once the loop has ended them
+        # rids cancelled by abort_request, reaped by the loop between chunks
+        self._abort_lock = threading.Lock()
+        self._abort_rids: set[str] = set()
         self._shutdown = threading.Event()
         self._wakeup = threading.Event()
         self._queue: queue.Queue[_Task] = queue.Queue()
@@ -246,6 +256,7 @@ class DecodeEngine:
             "generated_tokens": 0,
             "completed": 0,
             "aborted": 0,
+            "cancelled": 0,
             "chunks": 0,
             "decode_steps": 0,
             "prefills": 0,
@@ -412,20 +423,88 @@ class DecodeEngine:
             raise TimeoutError(f"generation timed out after {timeout}s")
         return box[0]
 
+    def abort_request(self, rid: str) -> bool:
+        """Cancel one request by rid, queued or decoding
+        (``decode_engine.py:857``). Thread-safe: the decode loop reaps the rid
+        between chunks (the slot deactivated, its pages freed or published
+        as a finished request's are, the callback fired with stop_reason
+        "cancelled"). Unknown rids are a no-op. Returns True when the rid
+        was queued for cancellation (False for an empty rid)."""
+        if not rid:
+            return False
+        with self._abort_lock:
+            self._abort_rids.add(rid)
+        self._wakeup.set()
+        return True
+
+    def _reap_aborts(self, pending: dict | None) -> dict | None:
+        """Service ``abort_request`` between chunks (``decode_engine.py:1017``,
+        its cancellation part: deadlines and the watchdog wait for ROADMAP
+        Queue A item 2). When a queued or decoding request is hit, the chunk
+        in flight is drained first, so the tokens it emitted are credited
+        with their version tags; cancelled requests then leave through
+        ``_finish``. Takes and returns the loop's in-flight chunk."""
+        with self._abort_lock:
+            aborts, self._abort_rids = self._abort_rids, set()
+        if not aborts:
+            return pending
+        hit = any(t.req.rid in aborts for t in self._backlog) or any(
+            t is not None and t.req.rid in aborts for t in self._slot_task
+        )
+        if not hit:
+            with self._queue.mutex:
+                hit = any(t.req.rid in aborts for t in self._queue.queue)
+        if not hit:
+            return pending
+        self._drain(pending)
+        while True:  # queued work first, in the order _admit_pending takes it
+            try:
+                self._backlog.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        kept: deque[_Task] = deque()
+        for task in self._backlog:
+            if task.req.rid in aborts:
+                task.truncated_by = "cancelled"
+                self._finish(task, StopReason.CANCEL.value)
+            else:
+                kept.append(task)
+        self._backlog = kept
+        rows = []
+        for slot, task in enumerate(self._slot_task):
+            if task is not None and task.req.rid in aborts:
+                if self._state["active"][slot]:
+                    rows.append(self._pack_row(slot, 0, int(self._state["pos"][slot]), False, 0))
+                task.truncated_by = "cancelled"
+                self._finish(task, StopReason.CANCEL.value)
+        if rows:
+            self._apply_slot_updates(rows)
+        return None  # the chunk in flight was drained above
+
     # -- pause / weights --------------------------------------------------
-    def pause_generation(self, mode: str = "abort") -> None:
+    def pause_generation(self, mode: str = "abort", timeout: float = 10.0) -> None:
         """Stop the decode loop until ``continue_generation``: in-flight
-        requests complete with stop_reason "abort" and their partial tokens;
-        the client resubmits prompt + emitted after the pause. (The hold
-        fence of the JAX engine is not ported.)"""
+        requests complete with stop_reason "abort" and their partial tokens,
+        and their full pages go into the radix tree, so the client's resubmit
+        of prompt + emitted prefills only its suffix. Returns once the running
+        loop has ended them (at most ``timeout`` seconds), so a version set
+        right after the pause tags only later tokens. The hold fence of the
+        JAX engine (``mode="hold"``) waits for ROADMAP Queue A 1b."""
         if mode != "abort":
-            raise NotImplementedError(f"pause mode {mode!r}: only 'abort' is ported")
+            raise NotImplementedError(f"pause mode {mode!r} (the hold fence): ROADMAP Queue A 1b")
         self._paused.set()
         self._wakeup.set()
+        if self._thread is not None and self._thread.is_alive():
+            self._pause_ack.wait(timeout)
 
     def continue_generation(self) -> None:
         self._paused.clear()
+        self._pause_ack.clear()
         self._wakeup.set()
+
+    @property
+    def is_paused(self) -> bool:
+        return self._paused.is_set()
 
     def update_weights_from_params(self, params, version: int | None = None) -> None:
         """Swap in new weights (a ``QwenModel`` or a state dict) between
@@ -1414,6 +1493,7 @@ class DecodeEngine:
             output_logprobs=task.out_logprobs,
             output_versions=task.out_versions,
             stop_reason=reason,
+            truncated_by=task.truncated_by,
             latency=now - task.submit_time,
             ttft=(task.first_token_time or now) - task.submit_time,
             rid=task.req.rid,
@@ -1421,6 +1501,8 @@ class DecodeEngine:
         )
         if reason == StopReason.ABORT.value:
             self.stats["aborted"] += 1
+        elif reason == StopReason.CANCEL.value:
+            self.stats["cancelled"] += 1
         else:
             self.stats["completed"] += 1
         try:
@@ -1431,12 +1513,20 @@ class DecodeEngine:
 
     def _abort_all(self) -> None:
         """Finish every in-flight request with stop_reason "abort" and
-        deactivate its slot on the device."""
+        deactivate its slot on the device. A decoding request's full pages
+        are published first, as the JAX engine does when it parks one
+        (``decode_engine.py:3045``): its resubmit hits the radix tree."""
         deact = []
         for slot, task in enumerate(self._slot_task):
             if task is not None:
                 if self._state["active"][slot]:
                     deact.append(slot)
+                    self._publish_prefix(
+                        list(task.req.input_ids) + list(task.out_tokens),
+                        self._slot_pages[slot],
+                        self._slot_page_versions[slot],
+                        int(self._state["pos"][slot]),
+                    )
                 self._finish(task, StopReason.ABORT.value)
         if deact:
             self._apply_slot_updates(
@@ -1461,10 +1551,12 @@ class DecodeEngine:
                 while not self._shutdown.is_set():
                     self._apply_weight_update()
                     self._service_radix_flush()
+                    pending = self._reap_aborts(pending)
                     if self._paused.is_set():
                         self._drain(pending)
                         pending = None
                         self._abort_all()
+                        self._pause_ack.set()
                         self._wakeup.wait(timeout=0.05)
                         self._wakeup.clear()
                         continue

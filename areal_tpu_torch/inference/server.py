@@ -2,10 +2,12 @@
 ``areal_tpu/inference/server.py`` on the standard library's
 ``ThreadingHTTPServer`` (no aiohttp).
 
-Endpoints: GET ``/health``; POST ``/generate``, ``/pause_generation``,
-``/continue_generation``, ``/set_version``, ``/flush_prefix_cache``.
-Request and response JSON match the JAX server's (``_req_from_json``,
-``h_generate``, ``h_flush_prefix_cache``). There is no command
+Endpoints: GET ``/health``, ``/metrics``; POST ``/generate``,
+``/abort_request``, ``/pause_generation``, ``/continue_generation``,
+``/set_version``, ``/flush_prefix_cache``. Request and response JSON match
+the JAX server's (``_req_from_json``, ``h_generate``, ``h_metrics``,
+``h_abort_request``, ``h_flush_prefix_cache``). ``/metrics`` serves the JSON
+shape only; its Prometheus text waits for ROADMAP Queue A item 2. There is no command
 line entry yet: it needs the HF checkpoint loader, which waits for a
 checkpoint in the repository; build the engine with weights in code.
 """
@@ -75,11 +77,15 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _send(self, status: int, body: dict) -> None:
         data = json.dumps(body).encode()
-        self.send_response(status)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(data)))
-        self.end_headers()
-        self.wfile.write(data)
+        try:
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+        except (BrokenPipeError, ConnectionResetError):
+            # the caller went away (a cancelled rollout): nothing to answer
+            self.close_connection = True
 
     def _body(self) -> dict:
         n = int(self.headers.get("Content-Length") or 0)
@@ -90,12 +96,15 @@ class _Handler(BaseHTTPRequestHandler):
         engine = self.server.app.engine
         if self.path in ("/health", "/healthz"):
             self._send(200, {"status": "ok", "version": engine.get_version()})
+        elif self.path == "/metrics":
+            self._send(200, self.server.app.metrics())
         else:
             self._send(404, {"status": "error", "error": f"no route {self.path}"})
 
     def do_POST(self):  # noqa: N802 — stdlib name
         route = {
             "/generate": self.server.app.h_generate,
+            "/abort_request": self.server.app.h_abort_request,
             "/pause_generation": self.server.app.h_pause,
             "/continue_generation": self.server.app.h_continue,
             "/set_version": self.server.app.h_set_version,
@@ -121,6 +130,8 @@ class _Handler(BaseHTTPRequestHandler):
 
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
+    # a rollout opens one connection per request in flight (32+ at once)
+    request_queue_size = 128
     app: "InferenceServer"
 
 
@@ -155,6 +166,23 @@ class InferenceServer:
         self.engine.submit(req, cb)
         done.wait()
         return 200, _response_json(box[0])
+
+    def metrics(self) -> dict:
+        """The engine's stats plus its pause state (``server.py:199``): the
+        rollout client's pause-wait polls ``server_paused``."""
+        out = dict(self.engine.stats)
+        out["server_paused"] = self.engine.is_paused
+        out.setdefault("paused", self.engine.is_paused)
+        return out
+
+    def h_abort_request(self, d: dict) -> tuple[int, dict]:
+        """Cancel one request by rid (``server.py:443``): the decode loop
+        reaps it between chunks and its /generate answers with stop_reason
+        "cancelled". Idempotent; unknown rids are a no-op."""
+        rid = str(d.get("rid", "") or "")
+        if not rid:
+            return 400, {"status": "error", "error": "rid required"}
+        return 200, {"status": "ok", "queued": bool(self.engine.abort_request(rid))}
 
     def h_pause(self, d: dict) -> tuple[int, dict]:
         self.engine.pause_generation(d.get("mode", "abort"))

@@ -1,0 +1,548 @@
+"""The rollout dispatcher: staleness-gated task submission and result
+collection (``areal_tpu/infra/workflow_executor.py``).
+
+One background dispatcher thread moves queued inputs into the
+``AsyncTaskRunner`` whenever the ``StalenessManager`` grants capacity, and
+drains finished episodes through format validation and accept / reject
+accounting into a results buffer; a failed episode is relaunched, then
+quarantined. ``prepare_batch`` keeps the pipeline full from an endless
+cycle over the dataloader: the core of asynchronous RL.
+
+Not ported here: the trajectory journal and trajectory dumps
+(``attach_journal`` / ``replay_from_journal`` / ``set_interrupt`` and
+``dump_trajectories`` raise, ROADMAP Queue A item 3), the lineage ring
+(the JAX executor stamps a ``lineage_id`` per sequence; item 3) and the
+completion callback (``set_completion_callback`` raises, item 8).
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+import uuid
+from collections import deque
+from contextlib import nullcontext as _nullcontext
+from typing import Any, Callable
+
+import numpy as np
+
+from areal_tpu_torch.api.config import InferenceEngineConfig
+from areal_tpu_torch.api.workflow_api import RolloutWorkflow, resolve_workflow
+from areal_tpu_torch.infra import workflow_context
+from areal_tpu_torch.infra.async_task_runner import AsyncTaskRunner, TaskFailed
+from areal_tpu_torch.infra.staleness_manager import StalenessManager
+from areal_tpu_torch.observability import catalog
+from areal_tpu_torch.utils import perf_tracer, stats_tracker
+from areal_tpu_torch.utils.data import (
+    TensorDict,
+    concat_padded_tensor_dicts,
+    cycle_dataloader,
+    pad_sequences_to_tensors,
+)
+
+logger = logging.getLogger("areal_tpu_torch.workflow_executor")
+
+
+def check_trajectory_format(traj: TensorDict) -> None:
+    """Guard a workflow's output: a non-empty dict of batched arrays with
+    input_ids and attention_mask and one batch size."""
+    if not isinstance(traj, dict) or not traj:
+        raise ValueError(f"trajectory must be a non-empty dict, got {type(traj)}")
+    if "input_ids" not in traj or "attention_mask" not in traj:
+        raise ValueError(
+            f"trajectory must contain input_ids and attention_mask, got {list(traj)}"
+        )
+    B, L = np.asarray(traj["attention_mask"]).shape
+    for k, v in traj.items():
+        v = np.asarray(v)
+        if v.ndim == 0:
+            raise ValueError(f"trajectory values must be batched arrays; {k} is scalar")
+        if v.shape[0] != B:
+            raise ValueError(f"{k} batch dim {v.shape[0]} != {B}")
+
+
+class _TaskRecord:
+    __slots__ = (
+        "task_id",
+        "data",
+        "result",
+        "accepted",
+        "is_eval",
+        "submit_ts",
+        "workflow",
+        "accept_fn",
+        "strikes",
+    )
+
+    def __init__(self, task_id: str, data: Any, is_eval: bool = False):
+        self.task_id = task_id
+        self.data = data
+        self.result: TensorDict | None = None
+        self.accepted: bool | None = None
+        self.is_eval = is_eval
+        self.submit_ts = time.monotonic()
+        # task-level resilience: what to relaunch with, and how many
+        # attempts have failed so far (quarantine strikes)
+        self.workflow: RolloutWorkflow | None = None
+        self.accept_fn: Callable | None = None
+        self.strikes = 0
+
+
+class WorkflowExecutor:
+    """Client-side rollout pipeline bound to one InferenceEngine."""
+
+    def __init__(
+        self,
+        config: InferenceEngineConfig,
+        engine,  # InferenceEngine (provides agenerate + get_version)
+    ):
+        config.check_supported()
+        self.config = config
+        self.engine = engine
+        max_conc = config.max_concurrent_rollouts or config.consumer_batch_size
+        self.staleness = StalenessManager(
+            version_provider=engine,
+            max_concurrent_rollouts=max_conc,
+            consumer_batch_size=config.consumer_batch_size,
+            max_staleness=config.max_head_offpolicyness,
+        )
+        self.runner = AsyncTaskRunner(max_concurrency=max_conc)
+        self._input: queue.Queue[tuple[_TaskRecord, RolloutWorkflow, Callable | None]] = (
+            queue.Queue()
+        )
+        # eval tasks skip staleness gating and accounting entirely
+        self._input_eval: queue.Queue[
+            tuple[_TaskRecord, RolloutWorkflow, Callable | None]
+        ] = queue.Queue()
+        # (task_id, traj, n_real_tokens): the count is cached at append time
+        # so the dynamic-batch poll loop does not re-reduce every mask
+        self._results: list[tuple[str, TensorDict, int]] = []
+        self._eval_results: list[tuple[str, TensorDict, int]] = []
+        self._done_tasks: dict[str, _TaskRecord] = {}
+        # rejected tasks nobody awaits leave tombstones; bound their count
+        self._reject_order: deque[str] = deque()
+        self._max_reject_records = 65536
+        self._cv = threading.Condition()
+        self._paused = threading.Event()
+        self._shutdown = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._thread_exc: BaseException | None = None
+        self._data_gen = None  # cached cycle_dataloader for prepare_batch
+        self._obs = catalog.executor_metrics()
+        self._robust = catalog.robustness_metrics()
+        self._inflight = 0  # launched, not yet completed (dispatcher-only)
+
+    # -- lifecycle --------------------------------------------------------
+    def initialize(self) -> None:
+        self.runner.start()
+        self._thread = threading.Thread(target=self._dispatch_loop, daemon=True)
+        self._thread.start()
+
+    def destroy(self) -> None:
+        self._shutdown.set()
+        if self._thread:
+            self._thread.join(timeout=10)
+        self.runner.stop()
+
+    # -- pause / resume (submission side) ---------------------------------
+    def pause(self) -> None:
+        self._paused.set()
+
+    def resume(self) -> None:
+        self._paused.clear()
+
+    # -- preemption / durability hooks (ROADMAP Queue A item 3) -----------
+    def set_interrupt(self, event) -> None:
+        raise NotImplementedError("the preemption drain: ROADMAP Queue A item 3")
+
+    def attach_journal(self, journal) -> None:
+        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3")
+
+    def replay_from_journal(self, max_staleness: int | None = None) -> tuple[int, int]:
+        raise NotImplementedError("journal replay: ROADMAP Queue A item 3")
+
+    def _version_stats(
+        self, traj: TensorDict
+    ) -> tuple[int, int, int, int, bool]:
+        """Per-token version tags of one trajectory, summarized in ONE
+        scan: ``(head, tail, lag, span, tagged)`` where head/tail are the
+        min/max tagged version (current engine version when untagged),
+        lag = current version - head, span = tail - head (>0 means the
+        sequence decoded across a version change), and tagged
+        says whether any token carried a version at all (untagged
+        trajectories must not feed the staleness lag / span observations)."""
+        versions = np.asarray(traj.get("versions", np.empty(0)))
+        vmask = versions >= 0
+        cur = int(self.engine.get_version())
+        tagged = bool(versions.size and vmask.any())
+        if tagged:
+            head = int(versions[vmask].min())
+            tail = int(versions[vmask].max())
+        else:
+            head = tail = cur
+        return head, tail, max(0, cur - head), tail - head, tagged
+
+    # -- dispatch loop ----------------------------------------------------
+    def _dispatch_loop(self) -> None:
+        try:
+            while not self._shutdown.is_set():
+                # eval tasks launch unconditionally (no staleness budget)
+                while not self._paused.is_set():
+                    try:
+                        rec, workflow, accept_fn = self._input_eval.get_nowait()
+                    except queue.Empty:
+                        break
+                    self._launch(rec, workflow, accept_fn)
+                # move queued train inputs into the runner while capacity allows
+                while not self._paused.is_set():
+                    if self.staleness.get_capacity() <= 0:
+                        break
+                    try:
+                        rec, workflow, accept_fn = self._input.get_nowait()
+                    except queue.Empty:
+                        break
+                    self.staleness.on_submit()
+                    self._launch(rec, workflow, accept_fn)
+                # drain completed tasks. The timed poll doubles as the idle
+                # wait (the loop's only pause). Failed tasks surface as
+                # TaskFailed here and go through retry / quarantine instead
+                # of stopping the dispatcher.
+                first = True
+                while True:
+                    try:
+                        res = self.runner.poll_result(
+                            timeout=0.02 if first else None
+                        )
+                    except TaskFailed as tf:
+                        first = False
+                        self._inflight -= 1
+                        self._on_task_failed(tf)
+                        continue
+                    first = False
+                    if res is None:
+                        break
+                    self._inflight -= 1
+                    self._on_result(res.task_id, res.data)
+                # queue-depth gauges: cheap last-writer-wins sets on every
+                # loop turn so a scrape always sees a fresh picture
+                self._obs.input_depth.set(self._input.qsize())
+                self._obs.eval_depth.set(self._input_eval.qsize())
+                self._obs.inflight.set(self._inflight)
+                self._obs.results_buffered.set(len(self._results))
+        except BaseException as e:  # noqa: BLE001 — fail fast to callers
+            logger.exception("dispatcher thread failed")
+            # publish under the condition so waiters observe the failure in
+            # the same wakeup that notifies them
+            with self._cv:
+                self._thread_exc = e
+                self._cv.notify_all()
+
+    def _launch(self, rec: _TaskRecord, workflow: RolloutWorkflow, accept_fn) -> None:
+        self._obs.dispatch_latency.observe(time.monotonic() - rec.submit_ts)
+        self._inflight += 1
+        # kept for relaunch-on-failure (task-level resilience)
+        rec.workflow = workflow
+        rec.accept_fn = accept_fn
+
+        async def run():
+            # asyncio-task-local execution context: workflows and rewards
+            # read it with workflow_context.get(); eval tasks' stats scope
+            workflow_context.set(
+                workflow_context.WorkflowContext(
+                    is_eval=rec.is_eval, task_id=rec.task_id
+                )
+            )
+            perf_tracer.set_task_context(task_id=rec.task_id)
+            perf_tracer.get_session_tracer().start_session(rec.task_id)
+            traj = await workflow.arun_episode(self.engine, rec.data)
+            return (traj, accept_fn)
+
+        self.runner.submit(run, task_id=rec.task_id)
+
+    def _on_result(self, task_id: str, payload) -> None:
+        traj, accept_fn = payload
+        rec = self._done_tasks.get(task_id)
+        if isinstance(traj, list):  # grouped per-sequence dicts -> padded batch
+            traj = pad_sequences_to_tensors(traj) if traj else None
+        accepted = traj is not None
+        is_eval = rec.is_eval if rec is not None else False
+        if accepted and self.config.check_trajectory_format:
+            check_trajectory_format(traj)
+        if accepted and accept_fn is not None:
+            accepted = bool(accept_fn(traj))
+        # this runs on the dispatcher thread, where the task ContextVar is
+        # not set: scope the counters explicitly so eval accounting stays
+        # out of the training curves
+        tracker = stats_tracker.get()
+        counter_cm = (
+            tracker.scope("eval-rollout") if is_eval else _nullcontext()
+        )
+        # one versions scan per accepted train trajectory
+        vstats = (
+            self._version_stats(traj) if accepted and not is_eval else None
+        )
+        if accepted:
+            if not is_eval:
+                self.staleness.on_accept()
+                if vstats[4]:  # tagged: the one scan already decided
+                    _head, _tail, lag, span, _tagged = vstats
+                    self.staleness.observe_version_lag(lag)
+                    # a sequence decoded across a version change carries
+                    # both versions; decoupled PPO corrects it per token
+                    self.staleness.observe_version_span(span)
+            with counter_cm:
+                tracker.scalar(rollout_accepted=1.0)
+        else:
+            if not is_eval:
+                self.staleness.on_reject()
+            with counter_cm:
+                tracker.scalar(rollout_rejected=1.0)
+        perf_tracer.get_session_tracer().finalize(
+            task_id, "accepted" if accepted else "rejected"
+        )
+        self._log_task_latency(task_id, accepted)
+        ntok = (
+            int(np.asarray(traj["attention_mask"]).sum()) if accepted else 0
+        )
+        with self._cv:
+            if rec is not None:
+                rec.result = traj if accepted else None
+                rec.accepted = accepted
+                rec.data = None  # release the input payload
+            if accepted:
+                bucket = self._eval_results if is_eval else self._results
+                bucket.append((task_id, traj, ntok))
+            elif rec is not None:
+                self._reject_order.append(task_id)
+                while len(self._reject_order) > self._max_reject_records:
+                    self._done_tasks.pop(self._reject_order.popleft(), None)
+            self._cv.notify_all()
+
+    def _on_task_failed(self, tf: TaskFailed) -> None:
+        """A rollout task whose coroutine raised.
+
+        With fault tolerance enabled the task is relaunched (same record,
+        same workflow) up to ``task_max_retries`` times; at
+        ``task_quarantine_strikes`` failures it is dropped as poison,
+        counted in ``areal_task_quarantined_total`` and accounted as a
+        rejection, so the pipeline keeps flowing. With fault tolerance off
+        the failure propagates and stops the dispatcher (fail fast)."""
+        ft = self.config.fault_tolerance
+        if not ft.enabled:
+            raise tf
+        task_id = tf.task_id
+        rec = self._done_tasks.get(task_id)
+        if rec is None or rec.workflow is None:
+            logger.error(f"failed task {task_id} has no record; dropping")
+            return
+        rec.strikes += 1
+        if (
+            rec.strikes <= ft.task_max_retries
+            and rec.strikes < ft.task_quarantine_strikes
+        ):
+            self._robust.task_retries.inc()
+            logger.warning(
+                f"task {task_id} attempt {rec.strikes} failed "
+                f"({tf.exc!r}); relaunching"
+            )
+            # restamp so the dispatch-latency histogram measures queue
+            # wait, not the failed attempt's runtime
+            rec.submit_ts = time.monotonic()
+            self._launch(rec, rec.workflow, rec.accept_fn)
+            return
+        self._robust.task_quarantined.inc()
+        logger.error(
+            f"task {task_id} quarantined after {rec.strikes} failed "
+            f"attempts; last error: {tf.exc!r}"
+        )
+        # a failed episode's coroutine may have left sibling generations
+        # running (un-cancelled gathers): cancel them server-side so the
+        # server stops decoding for a task that will never use the output
+        abort = getattr(self.engine, "abort_task_requests", None)
+        if abort is not None:
+            try:
+                n = abort(task_id)
+                if n:
+                    logger.warning(
+                        f"cancelled {n} in-flight generation(s) of "
+                        f"quarantined task {task_id}"
+                    )
+            except Exception:  # noqa: BLE001 — cleanup must not mask the
+                # quarantine accounting below
+                logger.exception("abort_task_requests failed")
+        if not rec.is_eval:
+            self.staleness.on_reject()
+        tracker = stats_tracker.get()
+        counter_cm = (
+            tracker.scope("eval-rollout") if rec.is_eval else _nullcontext()
+        )
+        with counter_cm:
+            tracker.scalar(rollout_rejected=1.0)
+        with self._cv:
+            rec.result = None
+            rec.accepted = False
+            rec.data = None
+            self._reject_order.append(task_id)
+            while len(self._reject_order) > self._max_reject_records:
+                self._done_tasks.pop(self._reject_order.popleft(), None)
+            self._cv.notify_all()
+        self._log_task_latency(task_id, False)
+
+    def set_completion_callback(self, url: str, worker_id: str = "") -> None:
+        raise NotImplementedError("completion callbacks (the rollout controller): ROADMAP Queue A item 8")
+
+    def _log_task_latency(self, task_id: str, accepted: bool) -> None:
+        """Per-trajectory latency line from the client's per-task sum of
+        the server's stage breakdown: every generation the task issued,
+        summed by stage. INFO when rollout tracing is on, DEBUG otherwise;
+        always popped so the client-side aggregate cannot leak."""
+        take = getattr(self.engine, "take_task_latency", None)
+        if take is None:
+            return
+        try:
+            agg = take(task_id)
+        except Exception:  # noqa: BLE001 — attribution must never fail a task
+            logger.exception("take_task_latency failed")
+            return
+        if not agg:
+            return
+        line = (
+            f"trajectory {task_id[:8]} [{'accepted' if accepted else 'rejected'}] "
+            f"latency: reqs={int(agg['requests'])} tokens={int(agg['tokens'])} "
+            f"e2e={agg['e2e_s']:.3f}s queue_wait={agg['queue_wait_s']:.3f}s "
+            f"prefill={agg['prefill_s']:.3f}s decode={agg['decode_s']:.3f}s "
+            f"fence_stall={agg['fence_stall_s']:.3f}s park={agg['park_s']:.3f}s "
+            f"ttft_max={agg['ttft_max_s']:.3f}s"
+        )
+        if self.config.enable_rollout_tracing:
+            logger.info(line)
+        else:
+            logger.debug(line)
+
+    def _check_health(self) -> None:
+        if self._thread_exc is not None:
+            raise RuntimeError("rollout dispatcher failed") from self._thread_exc
+
+    # -- public API (InferenceEngine rollout surface) ---------------------
+    def submit(
+        self,
+        data: dict,
+        workflow: Any = None,
+        should_accept_fn: Callable | None = None,
+        is_eval: bool = False,
+    ) -> str:
+        workflow = resolve_workflow(workflow)
+        rec = _TaskRecord(uuid.uuid4().hex, data, is_eval=is_eval)
+        self._done_tasks[rec.task_id] = rec
+        (self._input_eval if is_eval else self._input).put(
+            (rec, workflow, should_accept_fn)
+        )
+        return rec.task_id
+
+    def wait(
+        self, count: int, timeout: float | None = None, is_eval: bool = False
+    ) -> TensorDict:
+        """Block until ``count`` accepted trajectories, then pop and merge.
+        Train and eval results live in separate buffers, so eval samples
+        never leak into a training batch."""
+        deadline = time.monotonic() + (timeout or self.config.request_timeout)
+        with self._cv:
+            bucket = lambda: self._eval_results if is_eval else self._results
+            while len(bucket()) < count:
+                self._check_health()
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(
+                        f"waited for {count} trajectories, got {len(bucket())}"
+                    )
+                self._cv.wait(timeout=min(remaining, 0.2))
+            out = bucket()[:count]
+            if is_eval:
+                self._eval_results = self._eval_results[count:]
+            else:
+                self._results = self._results[count:]
+            for tid, _, _ in out:
+                self._done_tasks.pop(tid, None)
+        return concat_padded_tensor_dicts([t for _, t, _ in out])
+
+    def wait_for_task(self, task_id: str, timeout: float | None = None):
+        deadline = time.monotonic() + (timeout or self.config.request_timeout)
+        rec = self._done_tasks[task_id]
+        with self._cv:
+            while rec.accepted is None:
+                self._check_health()
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(f"task {task_id} not done")
+                self._cv.wait(timeout=min(remaining, 0.2))
+        with self._cv:
+            self._done_tasks.pop(task_id, None)
+            # drop this task's trajectory from the results buffers so it is
+            # not consumed a second time by wait()/prepare_batch
+            self._results = [r for r in self._results if r[0] != task_id]
+            self._eval_results = [
+                r for r in self._eval_results if r[0] != task_id
+            ]
+        return rec.result
+
+    def rollout_batch(
+        self, data: list[dict], workflow=None, should_accept_fn=None,
+        is_eval: bool = False,
+    ) -> TensorDict:
+        for d in data:
+            self.submit(d, workflow, should_accept_fn, is_eval=is_eval)
+        return self.wait(len(data), is_eval=is_eval)
+
+    def prepare_batch(
+        self, dataloader, workflow=None, should_accept_fn=None
+    ) -> TensorDict:
+        """The asynchronous-RL batch source: keep the submission pipeline
+        full (bounded by the staleness capacity) and return once
+        consumer_batch_size trajectories are ready."""
+        if self._data_gen is None:
+            self._data_gen = cycle_dataloader(dataloader)
+        bs = self.config.consumer_batch_size
+        # dynamic batch mode: return as soon as the accepted set reaches a
+        # token budget instead of a fixed count (batch sizes then track
+        # response length, keeping step compute stable)
+        tok_budget = self.config.dynamic_bs_max_tokens
+        workflow = resolve_workflow(workflow)
+        while True:
+            self._check_health()
+            # top up submissions while there is capacity and queue space
+            while (
+                self.staleness.get_capacity() > 0
+                and self._input.qsize() == 0
+                and not self._paused.is_set()
+            ):
+                item = next(self._data_gen)
+                for d in item if isinstance(item, list) else [item]:
+                    self.submit(d, workflow, should_accept_fn)
+            with self._cv:
+                if tok_budget is not None and self._results:
+                    n_take, total = 0, 0
+                    for _, _, ntok in self._results:
+                        total += ntok
+                        n_take += 1
+                        if total >= tok_budget:
+                            break
+                    if total >= tok_budget or n_take >= bs:
+                        out = self._results[:n_take]
+                        self._results = self._results[n_take:]
+                        for tid, _, _ in out:
+                            self._done_tasks.pop(tid, None)
+                        return concat_padded_tensor_dicts([t for _, t, _ in out])
+                elif len(self._results) >= bs:
+                    out, self._results = self._results[:bs], self._results[bs:]
+                    for tid, _, _ in out:
+                        self._done_tasks.pop(tid, None)
+                    return concat_padded_tensor_dicts([t for _, t, _ in out])
+                # _on_result notifies _cv on every completion (which is also
+                # when capacity frees up); the short timeout re-checks
+                # capacity changes that notify nobody (a version bump)
+                self._cv.wait(timeout=0.05)
+
+    def export_stats(self) -> dict[str, float]:
+        return {f"rollout/{k}": float(v) for k, v in self.staleness.export_stats().items()}

@@ -1,14 +1,15 @@
 """Host-side batch containers: the port's numpy copy of the parts of
-``areal_tpu/utils/data.py`` the trainer slice uses — padded trajectory
-batches, microbatch splitting, bucketing, label alignment and the
-advantage ``Normalization``. Containers are ``dict[str, np.ndarray]`` on the
+``areal_tpu/utils/data.py`` the trainer and the rollout loop use — padded
+trajectory batches and their concatenation, the endless dataloader cycle,
+microbatch splitting, bucketing, label alignment and the advantage
+``Normalization``. Containers are ``dict[str, np.ndarray]`` on the
 host; tensors appear only inside the train engine."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, Iterator, Sequence
 
 import numpy as np
 
@@ -61,6 +62,41 @@ def pad_sequences_to_tensors(
         mask[i, :n] = True
     out["attention_mask"] = mask
     return out
+
+
+def concat_padded_tensor_dicts(dicts: Sequence[TensorDict]) -> TensorDict:
+    """Concatenate padded batches along the batch axis, re-padding per-token
+    arrays to the longest (``areal_tpu/utils/data.py:75``)."""
+    assert len(dicts) > 0
+    max_len = max(d["attention_mask"].shape[1] for d in dicts)
+    out: TensorDict = {}
+    for key in dicts[0]:
+        vals = []
+        ragged_max = None
+        if not is_per_token(key) and np.asarray(dicts[0][key]).ndim >= 2:
+            ragged_max = max(np.asarray(d[key]).shape[1] for d in dicts)
+        for d in dicts:
+            v = np.asarray(d[key])
+            own_len = d["attention_mask"].shape[1]
+            if ragged_max is not None and v.shape[1] != ragged_max:
+                # ragged per-sequence arrays align to their own max
+                v = np.pad(v, [(0, 0), (0, ragged_max - v.shape[1])] + [(0, 0)] * (v.ndim - 2))
+            elif is_per_token(key) and v.ndim >= 2 and v.shape[1] == own_len and own_len != max_len:
+                v = np.pad(v, [(0, 0), (0, max_len - v.shape[1])] + [(0, 0)] * (v.ndim - 2))
+            vals.append(v)
+        out[key] = np.concatenate(vals, axis=0)
+    return out
+
+
+def batch_size(data: TensorDict) -> int:
+    return int(np.asarray(data["attention_mask"]).shape[0])
+
+
+def cycle_dataloader(loader) -> Iterator:
+    """Endless generator over a re-iterable dataloader (``prepare_batch``'s
+    source, ``areal_tpu/utils/data.py:345``)."""
+    while True:
+        yield from loader
 
 
 def seqlens_of(data: TensorDict) -> np.ndarray:

@@ -64,11 +64,26 @@ no result line:
               /flush_prefix_cache. Then the version tags across a
               mid-generation weight update.
 7. serve_int8 — a short second engine with int8 KV pages.
-8. spec     — speculative decoding (ngram, then tree drafter): greedy
+8. rollout  — the rollout half of the asynchronous GRPO loop over HTTP: an
+              ``InferenceServer`` over Qwen2.5-1.5B (the serve phase's
+              settings) and ``RemoteTorchEngine`` (8 rollouts at once, batches
+              of 4, staleness bound 1) run ``prepare_batch`` with
+              ``RLVRWorkflow`` (4 samples x 128 tokens, the synthetic
+              target-token reward) three times over 16 prompts. One episode
+              is cancelled once (/abort_request reaps its requests; the
+              executor retries it), and a pause / set_version(1) / continue
+              lands while the second call's rows decode. Checks the rows'
+              layout and completeness, logprobs against a dense prefill, the
+              version tags across the pause and the staleness bound, radix
+              hits of the resumed requests (kernel #3), the capacity and the
+              peak of active slots, kernel #1's launches per decode step, the
+              executor's retry counters and the pool audit; prints the loop's
+              tokens/s beside the serve phase's, task latency and the pause.
+9. spec     — speculative decoding (ngram, then tree drafter): greedy
               tokens equal to a non-speculative engine's with the same
               weights, kernel #3's tree launches, rounds / accepted /
               rollback pages, the pool's accounting.
-9. train    — two asynchronous-GRPO steps at full width and depth: the
+10. train    — two asynchronous-GRPO steps at full width and depth: the
               ``DecodeEngine`` generates 8 prompts x 4 samples (duplicates
               alias the first sample's pages), the ``TorchTrainEngine``
               recomputes proximal logprobs (K2), ``PPOActor`` computes
@@ -79,7 +94,7 @@ no result line:
               Checks the logprobs on both waves, finite loss and grad norm
               (and the plain attention's grad norm on one minibatch), moved
               weights, version tags and every kernel's launch count.
-10. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+11. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -94,7 +109,7 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-11. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+12. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
@@ -103,7 +118,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-12. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+13. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -115,7 +130,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-13. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+14. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -126,7 +141,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-14. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+15. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -134,7 +149,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-15. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+16. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -1991,6 +2006,264 @@ def phase_serve_int8() -> int:
     return launches
 
 
+# the rollout phase: the GRPO loop's rollout half over HTTP
+ROLLOUT_CLIENT = dict(max_concurrent_rollouts=8, consumer_batch_size=4, max_head_offpolicyness=1, request_timeout=900)
+ROLLOUT_SAMPLES, ROLLOUT_NEW = 4, 128
+ROLLOUT_CANCEL_MIN_PROMPT = 300  # the cancelled episode's prompt spans full pages
+
+
+def _percentile(xs: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def _check_rollout_rows(batch: dict, n_rows: int, n_new: int, what: str) -> list[tuple[list, dict]]:
+    """Every row laid out as ``workflow/rlvr.py`` lays it out and complete;
+    returns (prompt, response) per row for the dense check."""
+    if batch["input_ids"].shape[0] != n_rows:
+        raise AssertionError(f"[{what}] {batch['input_ids'].shape[0]} rows, want {n_rows}")
+    rows = []
+    for i in range(n_rows):
+        n = int(batch["attention_mask"][i].sum())
+        lm, lp, vs = batch["loss_mask"][i, :n], batch["logprobs"][i, :n], batch["versions"][i, :n]
+        p = int((lm == 0).sum())
+        out = batch["input_ids"][i, p:n].tolist()
+        if not ((lm[:p] == 0).all() and (lm[p:] == 1).all() and (lp[:p] == 0).all() and (vs[:p] == -1).all()):
+            raise AssertionError(f"[{what}] row {i}: prompt / response layout differs from rlvr.py's")
+        if len(out) != n_new or not np.isfinite(lp[p:]).all() or (lp[p:] > 0).any() or (vs[p:] < 0).any():
+            raise AssertionError(f"[{what}] row {i}: {len(out)}/{n_new} tokens or bad logprobs / versions")
+        if list(vs[p:]) != sorted(vs[p:].tolist()):
+            raise AssertionError(f"[{what}] row {i}: version tags not monotone: {sorted(set(vs[p:].tolist()))}")
+        if not bool(batch["seq_no_eos_mask"][i]):
+            raise AssertionError(f"[{what}] row {i}: a length-capped response marked as EOS-terminated")
+        rows.append((batch["input_ids"][i, :p].tolist(), {"output_tokens": out, "output_logprobs": lp[p:].tolist()}))
+    return rows
+
+
+def phase_rollout(card: str, serve: dict | None = None, model_kw: dict | None = None) -> dict:
+    """The rollout half of the asynchronous GRPO loop, over HTTP, on the
+    port's server: ``RemoteTorchEngine.prepare_batch`` with ``RLVRWorkflow``
+    three times; one episode is cancelled once (its requests reaped by
+    /abort_request, the task retried), and a pause / set_version(1) /
+    continue lands while the second call's rows decode. ``serve``: the serve
+    phase's metrics, printed beside the loop's."""
+    import asyncio
+
+    from areal_tpu_torch.api.config import InferenceEngineConfig, ServerConfig
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters
+    from areal_tpu_torch.api.workflow_api import RolloutWorkflow
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.observability import catalog
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+    from areal_tpu_torch.reward.synthetic import target_token_reward_fn
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    t_phase = time.monotonic()
+    mcfg = qwen.ModelConfig(**(model_kw or QWEN25_15B))
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    cfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                       host="127.0.0.1", seed=0)
+    engine = DecodeEngine(cfg, params=model)
+    srv = ServerThread(cfg, engine=engine)
+    # every /generate attempt the server answers: (rid, input length, cached
+    # prefix tokens, stop reason); a rid's second attempt is a resume
+    attempts: list[tuple[str, int, int, str]] = []
+    h_generate = srv.server.h_generate
+
+    def h_generate_logged(d: dict):
+        status, out = h_generate(d)
+        attempts.append((d.get("rid", ""), len(d["input_ids"]), int(out["cached_prefix_tokens"]), out["stop_reason"]))
+        return status, out
+
+    srv.server.h_generate = h_generate_logged
+    srv.start()
+    rcfg = InferenceEngineConfig(**ROLLOUT_CLIENT)
+    client = RemoteTorchEngine(rcfg, addresses=[srv.address])
+    client.initialize()
+    robust = catalog.robustness_metrics()
+    gconfig = GenerationHyperparameters(n_samples=ROLLOUT_SAMPLES, max_new_tokens=ROLLOUT_NEW, temperature=1.0)
+    inner = RLVRWorkflow(target_token_reward_fn, gconfig)
+    episodes: list[tuple[float, float]] = []  # (start, end) of every finished episode
+    cancel = dict(fired=False, chunks=0)
+
+    class Loop(RolloutWorkflow):
+        """The RLVR workflow; the first episode with a long prompt is
+        cancelled once, four decode chunks after it started, and raises,
+        so the executor retries it."""
+
+        async def arun_episode(self, eng, data):
+            t0 = time.monotonic()
+            if not cancel["fired"] and len(data["prompt_ids"]) >= ROLLOUT_CANCEL_MIN_PROMPT:
+                cancel["fired"] = True
+                c0 = engine.stats["chunks"]
+                task = asyncio.ensure_future(inner.arun_episode(eng, data))
+                while engine.stats["chunks"] - c0 < 4 and not task.done():
+                    await asyncio.sleep(0.005)
+                cancel["chunks"] = engine.stats["chunks"] - c0
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+                raise RuntimeError("episode cancelled by the rollout phase")
+            out = await inner.arun_episode(eng, data)
+            episodes.append((t0, time.monotonic()))
+            return out
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, 16)]
+    if max(len(p) for p in prompts[:8]) < ROLLOUT_CANCEL_MIN_PROMPT:
+        raise AssertionError("[rollout] no prompt of the first wave is long enough to cancel")
+    loader = [{"prompt_ids": p} for p in prompts]
+    samples: list[tuple[float, int, int, int]] = []  # (t, capacity, running, active slots)
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append((time.monotonic(), client.get_capacity(), client.executor.staleness.stat.running,
+                            sum(t is not None for t in engine._slot_task)))
+            time.sleep(0.01)
+
+    sampler = threading.Thread(target=sample, name="rollout-sampler", daemon=True)
+    batches, versions_at = [], []
+    pause = {}
+    try:
+        # main path: counts to 0 just before, read just after
+        keys = ("decode_steps", "generated_tokens", "cancelled", "aborted", "prefix_hit_tokens")
+        s0 = {k: engine.stats[k] for k in keys}
+        r0 = (robust.task_retries.get(), robust.task_quarantined.get())
+        paged_attention_stacked.launches = 0
+        for k in psa.launches:
+            psa.launches[k] = 0
+        sampler.start()
+        t0 = time.monotonic()
+        batches.append(client.prepare_batch(loader, workflow=Loop()))
+        versions_at.append(client.get_version())
+        box: list = []
+        th = threading.Thread(target=lambda: box.append(client.prepare_batch(loader, workflow=Loop())), daemon=True)
+        g0 = engine.stats["generated_tokens"]
+        th.start()
+        deadline = time.monotonic() + 600
+        while engine.stats["generated_tokens"] - g0 < 64 and th.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.002)
+        if not th.is_alive():
+            raise AssertionError("[rollout] the second prepare_batch returned before any of its rows decoded")
+        tp = time.monotonic()
+        client.pause_generation()
+        pause["ack_s"] = time.monotonic() - tp
+        client.set_version(1)
+        client.continue_generation()
+        pause["pause_to_resume_s"] = time.monotonic() - tp
+        th.join(timeout=900)
+        if not box:
+            raise AssertionError("[rollout] the second prepare_batch did not return")
+        batches.append(box[0])
+        versions_at.append(client.get_version())
+        batches.append(client.prepare_batch(loader, workflow=Loop()))
+        versions_at.append(client.get_version())
+        wall = time.monotonic() - t0
+        # drain: no new submissions, let the tasks in flight finish
+        client.pause()
+        deadline = time.monotonic() + 600
+        while client.executor.staleness.stat.running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        while any(t is not None for t in engine._slot_task) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stop.set()
+        sampler.join(timeout=10)
+        launches1, launches3 = paged_attention_stacked.launches, dict(psa.launches)
+        d = {k: engine.stats[k] - s0[k] for k in keys}
+        retries, quarantined = robust.task_retries.get() - r0[0], robust.task_quarantined.get() - r0[1]
+        time.sleep(0.1)
+        audit = engine.pool_audit()
+    finally:
+        stop.set()
+        client.destroy()
+        srv.stop()
+
+    n_rows = ROLLOUT_CLIENT["consumer_batch_size"] * ROLLOUT_SAMPLES
+    rows = [_check_rollout_rows(b, n_rows, ROLLOUT_NEW, f"rollout batch {i + 1}") for i, b in enumerate(batches)]
+    # version tags and the staleness bound
+    spans = 0
+    for i, (b, v) in enumerate(zip(batches, versions_at)):
+        gen = b["loss_mask"] > 0
+        vs = b["versions"][gen]
+        if v - int(vs.min()) > rcfg.max_head_offpolicyness:
+            raise AssertionError(f"[rollout] batch {i + 1} consumed at v{v} holds tokens of v{int(vs.min())}")
+        for j in range(n_rows):
+            tags = b["versions"][j][gen[j]]
+            spans += i == 1 and tags[0] == 0 and tags[-1] == 1
+    if set(batches[0]["versions"][batches[0]["loss_mask"] > 0].tolist()) != {0} or not spans:
+        raise AssertionError(f"[rollout] batch 1 not all v0, or no row of batch 2 spans the pause ({spans})")
+    # the resumed requests came back through the radix tree (warm prefill: #3)
+    seen: dict[str, int] = {}
+    resumed = []
+    for rid, n_in, cached, reason in attempts:
+        if rid in seen:
+            resumed.append((n_in, cached))
+        seen[rid] = seen.get(rid, 0) + 1
+    full_page = [c for n_in, c in resumed if n_in - 1 >= cfg.page_size]
+    if not resumed or min(full_page, default=1) <= 0 or sum(launches3.values()) <= 0:
+        raise AssertionError(f"[rollout] resumed requests {resumed} missed the radix tree, or #3 launches "
+                             f"{launches3}")
+    cancelled = [a for a in attempts if a[3] == "cancelled"]
+    if not cancel["fired"] or d["cancelled"] != ROLLOUT_SAMPLES or len(cancelled) != ROLLOUT_SAMPLES:
+        raise AssertionError(f"[rollout] the cancelled episode's requests: engine {d['cancelled']}, "
+                             f"responses {len(cancelled)}, want {ROLLOUT_SAMPLES}")
+    if (retries, quarantined) != (1, 0):
+        raise AssertionError(f"[rollout] executor retries {retries}, quarantined {quarantined}; the cancel "
+                             "should cause one retry and no quarantine")
+    if not audit["ok"]:
+        raise AssertionError(f"[rollout] pool audit after the loop: {audit}")
+    caps = [c for _, c, _, _ in samples]
+    running = [r for _, _, r, _ in samples]
+    peak_slots = max(a for _, _, _, a in samples)
+    if max(running) > rcfg.max_concurrent_rollouts:
+        raise AssertionError(f"[rollout] {max(running)} rollouts ran at once, bound {rcfg.max_concurrent_rollouts}")
+    want_slots = min(cfg.max_batch_size, rcfg.max_concurrent_rollouts * ROLLOUT_SAMPLES)
+    if peak_slots < want_slots:
+        raise AssertionError(f"[rollout] peak active slots {peak_slots} < {want_slots}: the client capped "
+                             "the requests in flight")
+    steps = d["decode_steps"]
+    if steps == 0 or launches1 != mcfg.num_layers * steps:
+        raise AssertionError(f"[rollout] #1 launches {launches1} != {mcfg.num_layers} layers x {steps} steps")
+    errs = [_dense_check(model, p, r, greedy=False) for rs in rows for p, r in rs[:4]]
+    if max(errs) > LOGPROB_TOL:
+        raise AssertionError(f"[rollout] served logprobs vs dense prefill {max(errs):.4f} > {LOGPROB_TOL}")
+    toks = 3 * n_rows * ROLLOUT_NEW
+    lat = [b - a for a, b in episodes]
+    direct = (f"{serve['decode_tok_s']:.1f} tok/s, {serve['wall_ms_per_step']:.2f} ms a step at 16 slots"
+              if serve is not None else "not measured in this run")
+    log(f"[rollout] 3 prepare_batch calls x {n_rows} rows complete (rlvr.py layout, {ROLLOUT_NEW} tokens each); "
+        f"batch versions {versions_at}; {spans} rows of batch 2 span the pause (tags 0..0,1..1); staleness "
+        f"held (<= {rcfg.max_head_offpolicyness} behind)")
+    log(f"[rollout] {card}: {toks / wall:.1f} tok/s through the loop ({toks} batch tokens in {wall:.2f} s wall; "
+        f"{d['generated_tokens']} tokens generated in all, {d['generated_tokens'] / wall:.1f} tok/s; "
+        f"{wall / steps * 1e3:.2f} ms of wall a decode step over {steps} steps, up to 32 slots, the pause and "
+        f"prefills in it); the serve phase's direct wave: {direct}")
+    log(f"[rollout] {card}: task latency p50 {_percentile(lat, 50):.2f} s, p95 {_percentile(lat, 95):.2f} s over "
+        f"{len(lat)} episodes; pause -> resume {pause['pause_to_resume_s'] * 1e3:.1f} ms (the pause's ack "
+        f"{pause['ack_s'] * 1e3:.1f} ms)")
+    log(f"[rollout] capacity min {min(caps)} max {max(caps)}, running max {max(running)} (bound "
+        f"{rcfg.max_concurrent_rollouts}), peak active slots {peak_slots} of {cfg.max_batch_size}; "
+        f"{len(samples)} samples")
+    log(f"[rollout] resumed requests {len(resumed)} (cached prefix {min(c for _, c in resumed)}..."
+        f"{max(c for _, c in resumed)} tokens; {len(full_page)} with a full page, all hits); cancelled "
+        f"episode: {d['cancelled']} requests reaped after {cancel['chunks']} chunks, executor retries "
+        f"{retries:.0f}, quarantined {quarantined:.0f}; pool audit ok")
+    log(f"[rollout] kernel #1 launches {launches1} = {mcfg.num_layers} layers x {steps} decode steps; kernel #3 "
+        f"launches {launches3}; served logprobs vs dense prefill max|diff| {max(errs):.4f} on {len(errs)} rows "
+        f"(tol {LOGPROB_TOL})")
+    log(f"[rollout] {card}: the phase took {time.monotonic() - t_phase:.1f} s (model, server and client set-up, "
+        f"the loop, the checks)")
+    return dict(launches1=launches1, launches3=sum(launches3.values()), tok_s=toks / wall, steps=steps,
+                p50=_percentile(lat, 50), p95=_percentile(lat, 95), pause_ms=pause["pause_to_resume_s"] * 1e3,
+                peak_slots=peak_slots)
+
+
 def _greedy_divergence(model, prompt: list[int], a: list[int], b: list[int]) -> tuple[int, float, float]:
     """Where two greedy outputs part: the index, and each one's token's logit
     gap to the argmax in a dense prefill of prompt + the common prefix (a
@@ -3783,7 +4056,7 @@ def phase_train_moe(card: str) -> dict:
                 tree=tree)
 
 
-PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "spec", "train", "kernel_tree",
+PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "spec", "train", "kernel_tree",
           "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
@@ -3856,6 +4129,7 @@ def main(argv: list[str]) -> int:
         "kernel_suffix": phase_kernel_suffix,
         "serve": lambda: phase_serve(card),
         "serve_int8": phase_serve_int8,
+        "rollout": lambda: phase_rollout(card, serve=res["serve"][1] if "serve" in res else None),
         "spec": lambda: phase_spec(card),
         "train": lambda: phase_train(card),
         "kernel_tree": phase_kernel_tree,
@@ -3876,6 +4150,7 @@ def main(argv: list[str]) -> int:
         return 0
     per, flash, suffix, train = res["kernel"], res["kernel_flash"], res["kernel_suffix"], res["train"]
     launches, serve = res["serve"]
+    rollout = res["rollout"]
     # kernel #1: launches of the serve phase; the times (graph replay) of
     # Qwen2.5-1.5B's heads with bf16 pages, the other shapes beside them
     b = per["bf16"]
@@ -3886,6 +4161,7 @@ def main(argv: list[str]) -> int:
             "source": "areal_tpu_torch/csrc/paged_attention.cu",
             "replaces": "areal_tpu/ops/paged_attention_q8.py:274",
             "launches": launches,
+            "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -3929,6 +4205,7 @@ def main(argv: list[str]) -> int:
         "replaces": "areal_tpu/ops/paged_suffix_attention.py:370",
         "launches": chain + tree,
         "launches_by_kind": {"chain": chain, "tree": tree},
+        "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"]},
         "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],

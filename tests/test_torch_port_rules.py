@@ -1,6 +1,6 @@
 """Rules the PyTorch port keeps: it imports nothing of JAX or of the JAX
-package (not even its JAX-free modules), and it never falls back to the CPU
-by itself."""
+package (not even its JAX-free modules), nor aiohttp or yaml (the GPU hosts
+it runs on install neither), and it never falls back to the CPU by itself."""
 
 import ast
 import dataclasses
@@ -18,7 +18,7 @@ from areal_tpu_torch.models import qwen
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "areal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "areal_tpu"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "areal_tpu", "aiohttp", "yaml"}
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -51,9 +51,18 @@ def test_no_jax_or_areal_tpu_imports(path):
 
 
 def test_rule_catches_forbidden_imports(tmp_path):
-    f = tmp_path / "x.py"
-    f.write_text("import jax.numpy as jnp\nfrom areal_tpu.api import config\nimport areal_tpu_torch\n")
-    assert [m.split(".")[0] for m in _imported_modules(f)] == ["jax", "areal_tpu", "areal_tpu_torch"]
+    cases = [
+        ("import jax.numpy as jnp\nfrom areal_tpu.api import config\nimport areal_tpu_torch\n",
+         ["jax", "areal_tpu", "areal_tpu_torch"]),
+        ("import aiohttp\nfrom aiohttp import web\n", ["aiohttp", "aiohttp"]),
+        ("import yaml\nx = __import__('yaml')\n", ["yaml", "yaml"]),
+    ]
+    for i, (source, roots) in enumerate(cases):
+        f = tmp_path / f"x{i}.py"
+        f.write_text(source)
+        found = [m.split(".")[0] for m in _imported_modules(f)]
+        assert found == roots
+        assert [r for r in found if r in FORBIDDEN_ROOTS] == [r for r in roots if r != "areal_tpu_torch"]
 
 
 def test_no_silent_cpu_fallback():
