@@ -11,6 +11,12 @@ marked below). No YAML loader: configs are built in code.
   sub-configs (``RoutingConfig``, ``FaultToleranceConfig``, ...), which
   ``InferenceEngineConfig.check_supported`` holds at their defaults where
   the one-server path does not read them.
+- The trainer loop: ``PPOConfig`` over ``BaseExperimentConfig`` and the
+  sub-configs they hold (datasets, saver / evaluator / recover, the stats
+  logger, cluster, scheduler, launcher, tracers, telemetry, preemption).
+  ``PPOConfig`` keeps the JAX package's defaults, ``weight_update_mode=
+  "disk"`` and ``preemption.enabled=True`` among them; ``PPOTrainer``
+  refuses both (``trainer/rl_trainer.py``).
 
 Knobs whose code paths have not been ported yet stay here so configs keep
 their shape; ``DecodeEngine._check_supported`` and
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, fields
 
+from areal_tpu_torch.api.io_struct import GenerationHyperparameters
 from areal_tpu_torch.utils.data import MicroBatchSpec
 
 
@@ -118,6 +125,14 @@ class ServerConfig:
     # KV-cache quantization: "none" | "int8" | "fp8" (per-token-vector
     # scales, inference/paged_kv.py)
     kv_quantization: str = "none"
+    # the hold fence's safety net: a hold whose /continue_generation got
+    # lost self-releases after this many seconds (<= 0: never)
+    hold_fence_timeout_s: float = 30.0
+    # where streamed weight-update buckets stage while generation runs:
+    # "device" copies each bucket to the card on arrival (a second copy of
+    # the weights until the commit), "host" keeps them in pinned host memory
+    # and does the one host-to-device copy inside the commit fence
+    weight_stage_target: str = "device"
 
 
 @dataclass
@@ -227,6 +242,30 @@ class PPOActorConfig(TrainEngineConfig):
     # entropy & misc
     entropy_coeff: float = 0.0
     temperature: float = 1.0
+
+
+@dataclass
+class PPOCriticConfig(TrainEngineConfig):
+    """A value model's settings (a critic is not ported: ``PPOTrainer``
+    refuses one)."""
+
+    ppo_n_minibatches: int = 4
+    eps_clip: float = 0.5
+    mask_no_eos_with_zero: bool = False
+
+
+@dataclass
+class PreemptionConfig:
+    """Preemption-tolerant lifecycle: SIGTERM drains the trainer after an
+    emergency recover dump. Not ported (ROADMAP Queue A item 3); the JAX
+    package's default ``enabled=True`` is kept, so a port config sets it to
+    False."""
+
+    enabled: bool = True
+    grace_s: float = 25.0
+    drain_budget_s: float = 10.0
+    exit_code: int = 0
+    handle_sigusr1: bool = True
 
 
 # -- the rollout client -----------------------------------------------------
@@ -467,7 +506,8 @@ class InferenceEngineConfig:
     # prepare_batch returns once the accepted trajectories hold this many
     # tokens instead of a fixed consumer_batch_size (None = fixed)
     dynamic_bs_max_tokens: int | None = None
-    # the streamed weight update (ROADMAP Queue A 1b)
+    # the streamed weight update: bucket size, the relay (not ported) and
+    # the commit fence (hold | abort | none)
     weight_chunk_mb: int = 128
     weight_update_relay: bool = False
     weight_commit_fence: str = "hold"
@@ -522,3 +562,177 @@ class InferenceEngineConfig:
         if self.dump_trajectories:
             raise NotImplementedError("dump_trajectories: ROADMAP Queue A item 3")
 
+
+
+# -- the trainer loop ---------------------------------------------------------
+
+
+@dataclass
+class SaverConfig:
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = "/tmp/areal_tpu/experiments"
+    freq_epochs: int | None = None
+    freq_steps: int | None = None
+    freq_secs: float | None = None
+
+
+@dataclass
+class EvaluatorConfig(SaverConfig):
+    pass
+
+
+@dataclass
+class RecoverConfig(SaverConfig):
+    mode: str = "disabled"  # disabled|off|on|auto
+    retries: int = 3
+
+
+@dataclass
+class WandBConfig:
+    mode: str = "disabled"
+    project: str | None = None
+    name: str | None = None
+    group: str | None = None
+    wandb_base_url: str = ""
+    wandb_api_key: str = ""
+    entity: str | None = None
+    job_type: str | None = None
+    notes: str | None = None
+    tags: list[str] | None = None
+    config: dict | None = None
+    id_suffix: str = "train"
+
+
+@dataclass
+class TensorBoardConfig:
+    path: str | None = None  # None = off, "" = the default log dir
+
+
+@dataclass
+class StatsLoggerConfig:
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = "/tmp/areal_tpu/experiments"
+    wandb: WandBConfig = field(default_factory=WandBConfig)
+    tensorboard: TensorBoardConfig = field(default_factory=TensorBoardConfig)
+
+
+@dataclass
+class NameResolveConfig:
+    type: str = "memory"  # memory|nfs|etcd3 (only "memory" is ported)
+    nfs_record_root: str = "/tmp/areal_tpu/name_resolve"
+    etcd3_addr: str = "localhost:2379"
+
+
+@dataclass
+class ClusterSpecConfig:
+    name_resolve: NameResolveConfig = field(default_factory=NameResolveConfig)
+    cluster_name: str = "local"
+    fileroot: str = "/tmp/areal_tpu/experiments"
+    n_nodes: int = 1
+    n_accelerators_per_node: int = 8
+
+
+@dataclass
+class SchedulerConfig:
+    type: str = "local"  # local|ray|slurm
+    startup_timeout: float = 300.0
+
+
+@dataclass
+class LauncherConfig:
+    n_servers: int = 1
+    inference_server_cpus_per_gpu: int = 4
+    inference_server_mem_per_gpu: int = 32768
+    trainer_cpus_per_gpu: int = 4
+    trainer_mem_per_gpu: int = 32768
+
+
+@dataclass
+class SessionTracerConfig:
+    """Per-rollout-session tracing; when None on ``PerfTracerConfig`` it
+    follows the perf tracer's ``enabled``."""
+
+    enabled: bool = False
+    flush_threshold: int = 256
+
+
+@dataclass
+class TelemetryConfig:
+    enabled: bool = True
+    scrape_interval_s: float = 5.0
+    scrape_timeout_s: float = 2.0
+    scrape_retries: int = 1
+    export_port: int = 0
+    dashboard_refresh_s: float = 2.0
+    # the chip's peak bf16 TFLOPs and memory GB for the step timeline's
+    # utilization; None = not reported (never guessed)
+    chip_peak_tflops: float | None = None
+    chip_hbm_gb: float | None = None
+
+
+@dataclass
+class PerfTracerConfig:
+    enabled: bool = False
+    output_dir: str | None = None
+    save_freq_steps: int = 10
+    max_events: int = 200_000
+    # global steps that run under torch.profiler
+    profile_steps: list[int] | None = None
+    session_tracer: SessionTracerConfig | None = None
+
+
+@dataclass
+class DatasetConfig:
+    path: str = ""
+    type: str = ""
+    batch_size: int = 1
+    shuffle: bool = True
+    max_length: int | None = None
+    drop_last: bool = True
+
+
+@dataclass
+class BaseExperimentConfig:
+    experiment_name: str = "test-exp"
+    trial_name: str = "test-trial"
+    cluster: ClusterSpecConfig = field(default_factory=ClusterSpecConfig)
+    allocation_mode: str = ""
+    seed: int = 1
+    total_train_epochs: int = 1
+    total_train_steps: int | None = None
+    total_train_n_seqs: int | None = None
+    tokenizer_path: str = ""
+    weight_update_mode: str = "disk"
+    # mem-mode stream encoding: "auto" = q8 for an int8-serving fleet, else
+    # bf16 (q8 is not ported)
+    weight_update_wire: str = "auto"
+    train_dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    valid_dataset: DatasetConfig | None = None
+    saver: SaverConfig = field(default_factory=SaverConfig)
+    checkpointer: SaverConfig = field(default_factory=SaverConfig)
+    evaluator: EvaluatorConfig = field(default_factory=EvaluatorConfig)
+    recover: RecoverConfig = field(default_factory=RecoverConfig)
+    stats_logger: StatsLoggerConfig = field(default_factory=StatsLoggerConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    launcher: LauncherConfig = field(default_factory=LauncherConfig)
+    perf_tracer: PerfTracerConfig = field(default_factory=PerfTracerConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    preemption: PreemptionConfig = field(default_factory=PreemptionConfig)
+
+
+@dataclass
+class PPOConfig(BaseExperimentConfig):
+    async_training: bool = True
+    gconfig: GenerationHyperparameters = field(default_factory=GenerationHyperparameters)
+    rollout: InferenceEngineConfig = field(default_factory=InferenceEngineConfig)
+    server: ServerConfig = field(default_factory=ServerConfig)
+    actor: PPOActorConfig = field(default_factory=PPOActorConfig)
+    critic: PPOCriticConfig | None = None
+    ref: TrainEngineConfig | None = None
+
+
+@dataclass
+class GRPOConfig(PPOConfig):
+    pass

@@ -3,10 +3,9 @@
 ``dict[str, np.ndarray]`` ("TensorDict"); loss functions follow the
 packed-1D protocol ``loss_fn(model_outputs, packed_input) -> scalar``.
 
-``engine/train_engine.py TorchTrainEngine`` does not declare
-``TrainEngine`` yet: it has no ``save`` / ``load`` (ROADMAP Queue A 1b and
-item 3). ``inference/client.py RemoteTorchEngine`` is the port's
-``InferenceEngine``."""
+``engine/train_engine.py TorchTrainEngine`` is the port's ``TrainEngine``
+(its ``save`` / ``load`` raise until ROADMAP Queue A item 3);
+``inference/client.py RemoteTorchEngine`` is the port's ``InferenceEngine``."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Request/response structs of the serving path, the rollout loop's
 ``RolloutStat`` / ``TimedResult`` and the trainer's ``FinetuneSpec`` /
-``WeightUpdateMeta``, copied from
+``WeightUpdateMeta`` / ``SaveLoadMeta`` / ``StepInfo``, copied from
 ``areal_tpu/api/io_struct.py`` (plain lists on the host; tensors live only
 inside the engines)."""
 
@@ -105,11 +105,14 @@ class ModelResponse:
 
 @dataclasses.dataclass
 class WeightUpdateMeta:
-    """How trainer weights reach the decode engine. Only ``type="mem"`` is
+    """How trainer weights reach the servers. Only ``type="mem"`` is
     ported: the train engine hands its exported state dict to the connected
-    ``DecodeEngine.update_weights_from_params`` in process. "disk" (write a
-    checkpoint, servers reload it) raises ``NotImplementedError``; the
-    default is "mem" for that reason (the JAX package defaults to "disk")."""
+    engine (``RemoteTorchEngine.update_weights``: bf16 buckets streamed and
+    staged over HTTP, then one commit; or, in process, a ``DecodeEngine``'s
+    ``update_weights_from_params``). "disk" (write a checkpoint, servers
+    reload it) raises ``NotImplementedError`` (ROADMAP Queue A item 3); the
+    default here is "mem" for that reason (the JAX package defaults to
+    "disk")."""
 
     type: str = "mem"
     path: str | None = None
@@ -119,6 +122,15 @@ class WeightUpdateMeta:
     lora_only: bool = False
     lora_scale: float = 0.0
     wire_format: str = "bf16"
+
+
+@dataclasses.dataclass
+class SaveLoadMeta:
+    path: str
+    weight_format: str = "hf"  # "hf" (safetensors export) | "orbax" (sharded)
+    with_optim: bool = False
+    tokenizer: Any | None = None
+    base_model_path: str | None = None
 
 
 @dataclasses.dataclass
@@ -134,6 +146,25 @@ class FinetuneSpec:
     @property
     def total_train_steps(self) -> int:
         return self.total_train_epochs * self.steps_per_epoch
+
+
+@dataclasses.dataclass
+class StepInfo:
+    epoch: int = 0
+    epoch_step: int = 0
+    global_step: int = 0
+    steps_per_epoch: int = 0
+
+    def next(self) -> "StepInfo":
+        ep, es = self.epoch, self.epoch_step + 1
+        if self.steps_per_epoch and es >= self.steps_per_epoch:
+            ep, es = ep + 1, 0
+        return StepInfo(
+            epoch=ep,
+            epoch_step=es,
+            global_step=self.global_step + 1,
+            steps_per_epoch=self.steps_per_epoch,
+        )
 
 
 @dataclasses.dataclass

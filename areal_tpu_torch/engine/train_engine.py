@@ -38,10 +38,20 @@ What is kept from the JAX engine:
   ``router_aux_coef * outputs["moe_aux"]``. The grouped matmuls' backward
   runs through the hand-written dLHS and tgmm kernels (``ops/gmm.py``).
 
+- The rollout plumbing (``train_engine.py:1405-1481``): ``connect_engine``
+  takes an ``InferenceEngine`` (the port's ``RemoteTorchEngine``), to which
+  ``update_weights`` hands the exported master weights
+  (``engine.update_weights(meta, params=...)``) and ``prepare_batch`` /
+  ``rollout_batch`` delegate; or, in process, a ``DecodeEngine``, into which
+  ``update_weights`` copies them. Host prep, forward / backward and the
+  optimizer step report their spans to the trainer's step timeline
+  (``observability/step_timeline.engine_phase``), and ``hbm_ledger``
+  itemizes the parameters and optimizer state beside the card's memory.
+
 Not ported (``_check_supported`` raises ``NotImplementedError``): LoRA,
 the vision tower, a critic / value head, multi-device meshes and
-``weight_update_mode="disk"``; also saving, loading, offloading and the
-observability surfaces (per-sequence loss attribution, phases).
+``weight_update_mode="disk"``; ``save`` and ``load`` raise (ROADMAP Queue A
+item 3); also offloading and per-sequence loss attribution.
 """
 
 from __future__ import annotations
@@ -56,9 +66,12 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.api.config import MicroBatchSpec, OptimizerConfig, TrainEngineConfig
+from areal_tpu_torch.api.engine_api import TrainEngine
 from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.models import qwen
+from areal_tpu_torch.observability import step_timeline
+from areal_tpu_torch.observability.step_timeline import engine_phase
 from areal_tpu_torch.models import tree as tree_lib
 from areal_tpu_torch.ops.attention import resolve_impl
 from areal_tpu_torch.ops.tree_attention import BLOCK, forest_hidden, pack_ancestor_bits
@@ -151,6 +164,9 @@ class _OptaxAdamW:
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
 
+    def state_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.mu + self.nu)
+
     @staticmethod
     def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
         sq = [torch.dot(g.reshape(-1).float(), g.reshape(-1).float()) for g in grads]
@@ -183,7 +199,7 @@ class _OptaxAdamW:
         return gnorm
 
 
-class TorchTrainEngine:
+class TorchTrainEngine(TrainEngine):
     """Train engine over one model replica on one device (``JaxTrainEngine``
     on a one-device mesh)."""
 
@@ -193,10 +209,14 @@ class TorchTrainEngine:
         value_head: bool = False,
         model_config: qwen.ModelConfig | None = None,
         device=None,
+        need_optimizer: bool = True,
     ):
         self.device = resolve_device(device)
         self._check_supported(config, value_head, model_config)
         self.config = config
+        # False for a frozen policy (the reference of the KL term): no
+        # optimizer state
+        self.need_optimizer = need_optimizer
         self._model_config = model_config
         self._version = 0
         self._version_lock = threading.Lock()
@@ -265,7 +285,10 @@ class TorchTrainEngine:
         self.model.requires_grad_(True)
         total_steps = ft_spec.total_train_steps if ft_spec else 10_000
         self._lr_schedule = make_lr_schedule(cfg.optimizer, total_steps)
-        self._opt = _OptaxAdamW(list(self.model.parameters()), cfg.optimizer, self._lr_schedule)
+        if self.need_optimizer:
+            self._opt = _OptaxAdamW(list(self.model.parameters()), cfg.optimizer, self._lr_schedule)
+        else:
+            self.model.requires_grad_(False)
 
     # -- versioning -------------------------------------------------------
     def set_version(self, version: int) -> None:
@@ -473,26 +496,30 @@ class TorchTrainEngine:
         if self.model is None:
             raise RuntimeError("engine not initialized")
         extra: dict[str, float] = {}
-        if self.config.tree_training:  # one microbatch per forest
-            mbs, extra = self._make_tree_batches(input_)
-            weights = [float(loss_weight_fn(b)) for b in mbs]
-            to_device, outputs_fn = self._tree_batch_to_device, self._tree_outputs_fn
-        else:
-            mbs = self._make_grids(input_, mb_spec=mb_spec)
-            weights = [float(loss_weight_fn(g.data)) for g in mbs]
-            to_device, outputs_fn = self._grid_to_device, self._outputs_fn
+        with engine_phase("host_prep"):
+            if self.config.tree_training:  # one microbatch per forest
+                mbs, extra = self._make_tree_batches(input_)
+                weights = [float(loss_weight_fn(b)) for b in mbs]
+                to_device, outputs_fn = self._tree_batch_to_device, self._tree_outputs_fn
+            else:
+                mbs = self._make_grids(input_, mb_spec=mb_spec)
+                weights = [float(loss_weight_fn(g.data)) for g in mbs]
+                to_device, outputs_fn = self._grid_to_device, self._outputs_fn
         total_w = sum(weights) or 1.0
         pending: list[dict[str, torch.Tensor]] = []
         for mb, w in zip(mbs, weights):
-            batch = to_device(mb)
-            loss, stats = loss_fn(outputs_fn(batch), batch)
-            loss = loss * (w / total_w)
-            loss.backward()
+            with engine_phase("host_prep"):
+                batch = to_device(mb)
+            with engine_phase("forward_backward"):
+                loss, stats = loss_fn(outputs_fn(batch), batch)
+                loss = loss * (w / total_w)
+                loss.backward()
             pending.append({**{k: v.detach() for k, v in stats.items()}, "loss": loss.detach()})
-        gnorm = _OptaxAdamW.global_norm(self._grads())
-        keys = [list(s) for s in pending]
-        # one device -> host transfer for every stat of every microbatch
-        flat = torch.stack([s[k].float() for s in pending for k in s] + [gnorm]).tolist()
+        with engine_phase("forward_backward"):
+            gnorm = _OptaxAdamW.global_norm(self._grads())
+            keys = [list(s) for s in pending]
+            # one device -> host transfer for every stat of every microbatch
+            flat = torch.stack([s[k].float() for s in pending for k in s] + [gnorm]).tolist()
         mb_host, i = [], 0
         for ks in keys:
             mb_host.append(dict(zip(ks, flat[i : i + len(ks)])))
@@ -532,8 +559,9 @@ class TorchTrainEngine:
         step_before = self._opt.count
         self.zero_grad()
         agg, gnorm = self._compute_grads(input_, loss_fn, loss_weight_fn, mb_spec)
-        self._opt.step(self._grads(), gnorm)
-        self.zero_grad()
+        with engine_phase("optimizer"):
+            self._opt.step(self._grads(), gnorm)
+            self.zero_grad()
         agg["lr"] = float(self._lr_schedule(step_before))
         agg["train_batch_secs"] = time.monotonic() - t0
         return agg
@@ -564,10 +592,13 @@ class TorchTrainEngine:
         batch: out[b, t] = log p(token t | prefix), out[b, 0] = 0."""
         B, L = np.asarray(input_["attention_mask"]).shape
         out = np.zeros((B, L), dtype=np.float32)
-        grids = self._make_grids(input_)
-        pending = [self._outputs_fn(self._grid_to_device(g), no_grad=True)[output_key] for g in grids]
+        with engine_phase("host_prep"):
+            grids = self._make_grids(input_)
+            dev = [self._grid_to_device(g) for g in grids]
+        with engine_phase("forward_backward"):
+            pending = [self._outputs_fn(d, no_grad=True)[output_key].float().cpu().numpy() for d in dev]
+        del dev
         for vals, g in zip(pending, grids):
-            vals = vals.float().cpu().numpy()
             # label-aligned output shifts right one: token t's logp was
             # computed at position t-1, so out[src, 1:n] = row[:n-1]
             lens = np.asarray(g.seq_lens, np.int64)
@@ -580,34 +611,67 @@ class TorchTrainEngine:
             out[dst_r, within + 1] = vals[src_r, src_c]
         return out
 
-    # -- weights ----------------------------------------------------------
+    # -- rollout plumbing and weights ---------------------------------------
     def connect_engine(self, engine, meta: WeightUpdateMeta | None = None) -> None:
-        """Connect the decode engine that ``update_weights`` pushes to (the
-        port's ``DecodeEngine``, in process)."""
+        """Connect the engine that ``update_weights`` pushes to and
+        ``prepare_batch`` / ``rollout_batch`` delegate to: an
+        ``InferenceEngine`` (``RemoteTorchEngine``), or an in-process
+        ``DecodeEngine`` (which has no rollout methods)."""
         self._inference_engine = engine
         self._weight_update_meta = meta
 
+    def prepare_batch(self, *args, **kwargs) -> TensorDict:
+        """The connected engine's ``prepare_batch`` (one process; the
+        multi-host rollout coordinator is ROADMAP Queue A item 6)."""
+        if self._inference_engine is None:
+            raise RuntimeError("no inference engine connected (connect_engine)")
+        return self._inference_engine.prepare_batch(*args, **kwargs)
+
+    def rollout_batch(self, *args, **kwargs) -> TensorDict:
+        if self._inference_engine is None:
+            raise RuntimeError("no inference engine connected (connect_engine)")
+        return self._inference_engine.rollout_batch(*args, **kwargs)
+
     def update_weights(self, meta: WeightUpdateMeta | None = None) -> None:
-        """Push the current weights into the connected decode engine (mem
-        mode: the exported state dict goes to
-        ``DecodeEngine.update_weights_from_params``, which casts them into
-        its own weights). The version rule is the rollout client's: the
-        engine's version + 1 when ``meta.with_version``."""
+        """Push the master weights to the connected engine (mem mode). An
+        ``InferenceEngine`` gets ``update_weights(meta, params=state dict)``,
+        as in ``areal_tpu/engine/train_engine.py:1479``; its client picks
+        the version. An in-process ``DecodeEngine`` gets
+        ``update_weights_from_params`` at its version + 1 when
+        ``meta.with_version``."""
         meta = meta or self._weight_update_meta
         if meta is None:
             raise ValueError("no WeightUpdateMeta configured")
         if meta.type != "mem":
             raise NotImplementedError(
-                f"weight update type {meta.type!r}: only 'mem' is ported (ROADMAP Queue A, trainer)"
+                f"weight update type {meta.type!r}: only 'mem' is ported (ROADMAP Queue A item 3)"
             )
         if meta.lora_only:
-            raise NotImplementedError("LoRA weight updates: ROADMAP Queue A, LoRA")
+            raise NotImplementedError("LoRA weight updates: ROADMAP Queue A item 4")
         eng = self._inference_engine
         if eng is None:
-            raise RuntimeError("no decode engine connected (connect_engine)")
-        version = eng.get_version() + 1 if meta.with_version else eng.get_version()
-        eng.update_weights_from_params(self._export_params(), version=version)
+            raise RuntimeError("no engine connected (connect_engine)")
+        if hasattr(eng, "update_weights_from_params"):  # the in-process join
+            version = eng.get_version() + 1 if meta.with_version else eng.get_version()
+            eng.update_weights_from_params(self._export_params(), version=version)
+        else:
+            eng.update_weights(meta, params=self._export_params())
 
     def _export_params(self) -> dict[str, torch.Tensor]:
         """The master parameters as a state dict (detached views, no copy)."""
         return {name: p.detach() for name, p in self.model.named_parameters()}
+
+    def save(self, meta) -> None:
+        raise NotImplementedError("saving checkpoints: ROADMAP Queue A item 3")
+
+    def load(self, meta) -> None:
+        raise NotImplementedError("loading checkpoints: ROADMAP Queue A item 3")
+
+    def hbm_ledger(self, override_hbm_gb: float | None = None) -> dict:
+        """Itemized device memory of this engine: the parameters and the
+        optimizer state beside the card's use and size."""
+        params = sum(p.numel() * p.element_size() for p in self.model.parameters())
+        opt = self._opt.state_bytes() if self._opt is not None else 0
+        return step_timeline.build_hbm_ledger(
+            {"params": params, "opt_state": opt}, device=self.device, override_hbm_gb=override_hbm_gb
+        )

@@ -18,10 +18,18 @@ request in flight, and no thread pool that would cap how many requests
 reach the server at once. Control calls (pause, version, abort) are
 synchronous ``urllib`` posts.
 
+The weight half (``client.py:1105-1498``): ``update_weights(meta, params)``
+streams the trainer's state dict to the server as bf16 buckets of up to
+``weight_chunk_mb`` wire bytes, staged while generation continues (bucket
+i+1 encodes on one persistent encoder thread while bucket i is in flight),
+then commits it inside the fence ``weight_commit_fence`` names: "hold"
+(the decode loop idles one commit round trip and aborts nothing), "abort"
+(the full pause) or "none". The version it commits is the client's + 1.
+
 Later slices: more than one address, routing policies, the retry budget,
-circuit breakers and the fleet probe (ROADMAP Queue A item 8); request
-deadlines (item 2); ``update_weights`` and ``pause_generation(mode="hold")``
-(1b); images (item 5).
+circuit breakers, the fleet probe and the weight-broadcast relay (ROADMAP
+Queue A item 8); request deadlines (item 2); the q8 wire and LoRA updates
+(item 4); disk updates (item 3); images (item 5).
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ import urllib.request
 import weakref
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
+
+import torch
 
 from areal_tpu_torch.api.config import InferenceEngineConfig
 from areal_tpu_torch.api.engine_api import InferenceEngine
@@ -47,6 +58,7 @@ from areal_tpu_torch.api.io_struct import (
     StopReason,
     WeightUpdateMeta,
 )
+from areal_tpu_torch.inference.server import encode_weight_bucket
 from areal_tpu_torch.infra import workflow_context
 from areal_tpu_torch.infra.workflow_executor import WorkflowExecutor
 from areal_tpu_torch.observability import catalog
@@ -163,6 +175,10 @@ class RemoteTorchEngine(InferenceEngine):
         # abort posts run off the event loop on one small shared pool: a mass
         # cancel must not spawn a thread per coroutine
         self._abort_pool = ThreadPoolExecutor(max_workers=2, thread_name_prefix="abort-request")
+        self.last_pause_secs = 0.0  # the last update's commit-fence window
+        self.last_stage_secs = 0.0  # the last update's staging window (generation running)
+        self.last_update_gen_tokens = 0  # tokens the server generated during it
+        self._enc_pool: ThreadPoolExecutor | None = None  # the weight encoder thread (lazy)
 
     def _check_addresses(self) -> None:
         if len(self.addresses) > 1:
@@ -208,6 +224,9 @@ class RemoteTorchEngine(InferenceEngine):
 
     def destroy(self) -> None:
         self._abort_pool.shutdown(wait=False)
+        if self._enc_pool is not None:
+            self._enc_pool.shutdown(wait=True)
+            self._enc_pool = None
         loop = self.executor.runner._loop
         if loop is not None and loop.is_running():
             try:
@@ -463,23 +482,39 @@ class RemoteTorchEngine(InferenceEngine):
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return json.loads(r.read() or b"{}")
 
+    def _retry_sync(self, addr: str, path: str, send):
+        """``send()`` with ``request_retries`` tries in all and backoff."""
+        last_exc: Exception | None = None
+        for attempt in range(self._attempts):
+            if attempt > 0:
+                self._robust.retries.labels(kind="fanout").inc()
+                time.sleep(self._delay(attempt - 1))
+            try:
+                return send()
+            except Exception as e:  # noqa: BLE001 — retried, then raised below
+                last_exc = e
+        raise RuntimeError(f"POST {addr}{path} failed after retries") from last_exc
+
+    def _post_json_one(self, addr: str, path: str, payload: dict, timeout: float | None = None) -> dict:
+        timeout = self.config.request_timeout if timeout is None else timeout
+        return self._retry_sync(addr, path, lambda: self._send_json_once(addr, path, payload, timeout))
+
     def _post_all(self, path: str, payload: dict) -> list[dict]:
         """Synchronous POST to the server, retried in place."""
-        out = []
-        for addr in self.addresses:
-            last_exc: Exception | None = None
-            for attempt in range(self._attempts):
-                if attempt > 0:
-                    self._robust.retries.labels(kind="fanout").inc()
-                    time.sleep(self._delay(attempt - 1))
-                try:
-                    out.append(self._send_json_once(addr, path, payload, self.config.request_timeout))
-                    break
-                except Exception as e:  # noqa: BLE001
-                    last_exc = e
-            else:
-                raise RuntimeError(f"POST {addr}{path} failed after retries") from last_exc
-        return out
+        return [self._post_json_one(addr, path, payload) for addr in self.addresses]
+
+    def _post_bytes(self, addr: str, path: str, body) -> None:
+        def send():
+            req = urllib.request.Request(
+                f"http://{addr}{path}",
+                data=body,
+                headers={"Content-Type": "application/octet-stream"},
+                method="POST",
+            )
+            with urllib.request.urlopen(req, timeout=self.config.request_timeout) as r:
+                r.read()
+
+        self._retry_sync(addr, path, send)
 
     # -- rollout submission (the executor) ---------------------------------
     def submit(self, data: dict, workflow=None, should_accept_fn=None, is_eval=False) -> str:
@@ -517,24 +552,215 @@ class RemoteTorchEngine(InferenceEngine):
 
     # -- server-side generation pause -------------------------------------
     def pause_generation(self, targets: list[str] | None = None, mode: str = "abort") -> None:
-        """Pause the server: in-flight requests end with "abort" (their
-        ``agenerate`` loops wait, then resume). The server answers once it
-        has ended them. ``mode="hold"``, the zero-pause commit fence, waits
-        for ROADMAP Queue A 1b."""
-        if mode != "abort":
-            raise NotImplementedError(f"pause_generation(mode={mode!r}), the hold fence: ROADMAP Queue A 1b")
+        """mode "abort": in-flight requests end with "abort" (their
+        ``agenerate`` loops wait, then resume); the server answers once it
+        has ended them. mode "hold": the commit fence; the decode loop idles
+        without aborting anything and the server answers once its in-flight
+        chunk drained."""
         if targets is not None:
             raise NotImplementedError("pause targets (a fleet): ROADMAP Queue A item 8")
-        self._post_all("/pause_generation", {})
+        self._post_all("/pause_generation", {} if mode == "abort" else {"mode": mode})
 
     def continue_generation(self, targets: list[str] | None = None) -> None:
         if targets is not None:
             raise NotImplementedError("continue targets (a fleet): ROADMAP Queue A item 8")
         self._post_all("/continue_generation", {})
 
-    # -- weights + versioning --------------------------------------------
-    def update_weights(self, meta: WeightUpdateMeta) -> None:
-        raise NotImplementedError("the staged / committed weight update over HTTP: ROADMAP Queue A 1b")
+    # -- weights ----------------------------------------------------------
+    def _fence_fanout(self, path: str, payload: dict, addrs: list[str], retried: bool = False) -> list[str]:
+        """Post one fence leg to each of ``addrs``; never raises, returns
+        those that acked. The pause leg gets one attempt of 15 s (more than
+        the server's 10 s wait for the fence): a missed pause only means the
+        commit lands between chunks unfenced. The continue leg gets the
+        retry policy: a lost continue leaves the server held until its hold
+        times out."""
+        ok = []
+        for a in addrs:
+            try:
+                r = (self._post_json_one(a, path, payload, timeout=10.0) if retried
+                     else self._send_json_once(a, path, payload, 15.0))
+                ok.append(a)
+                if r.get("fenced") is False:
+                    logger.warning(f"{a} acked the hold but its decode loop had not drained within the server's "
+                                   "wait; the commit may land between its chunks unfenced")
+            except Exception:  # noqa: BLE001 — the fence is best effort
+                logger.warning(f"{path} to {a} failed; proceeding without it (a held server releases itself "
+                               "after ServerConfig.hold_fence_timeout_s)", exc_info=True)
+        return ok
+
+    def _commit_fence(self, targets: list[str]):
+        """The commit window, per ``config.weight_commit_fence``: "hold"
+        fences without aborts, "abort" is the full pause, "none" commits
+        with generation running (the server applies it between chunks)."""
+        fence = self.config.weight_commit_fence
+        if fence not in ("hold", "abort", "none"):
+            raise ValueError(f"unknown weight_commit_fence {fence!r}")
+
+        @contextmanager
+        def cm():
+            if fence == "none":
+                yield
+                return
+            paused = self._fence_fanout("/pause_generation", {} if fence == "abort" else {"mode": fence}, targets)
+            try:
+                yield
+            finally:
+                self._fence_fanout("/continue_generation", {}, paused, retried=True)
+
+        return cm()
+
+    def _encoder_pool(self) -> ThreadPoolExecutor:
+        if self._enc_pool is None:
+            self._enc_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="weight-enc")
+        return self._enc_pool
+
+    def update_weights(self, meta: WeightUpdateMeta, params: dict | None = None) -> None:
+        """Stream and stage every bucket while generation continues, then
+        commit behind the fence (``client.py:1150``). ``params`` is the
+        trainer's state dict ``{name: tensor}`` (or a nested dict of them);
+        floating leaves travel as bf16, cast once here. The stage window
+        (generation running), the fence window and the tokens the server
+        emitted during the update are kept in ``last_stage_secs``,
+        ``last_pause_secs`` and ``last_update_gen_tokens``."""
+        if meta.lora_only:
+            raise NotImplementedError("LoRA weight updates: ROADMAP Queue A item 4")
+        if meta.type == "disk":
+            raise NotImplementedError("weight updates from disk: ROADMAP Queue A item 3")
+        if meta.type != "mem":
+            raise NotImplementedError(meta.type)
+        if meta.wire_format == "q8":
+            raise NotImplementedError("the q8 weight wire (int8 serving): ROADMAP Queue A item 4")
+        if meta.wire_format not in (None, "", "bf16"):
+            raise ValueError(f"unknown wire_format {meta.wire_format!r}")
+        if self.config.weight_update_relay:
+            raise NotImplementedError("the weight-broadcast relay: ROADMAP Queue A item 8")
+        if params is None:
+            raise ValueError("a mem weight update needs params")
+        version = self._version + 1 if meta.with_version else self._version
+        targets = list(self.addresses)
+        plan = self._plan_weight_buckets(params)
+        enc_pool = self._encoder_pool()
+        first = enc_pool.submit(self._encode_bucket, plan[0])
+        t0 = time.monotonic()
+        commit_targets = self._stream_stage_buckets(plan, enc_pool, first, targets)
+        stage_secs = time.monotonic() - t0
+        t1 = time.monotonic()
+        replies, failed = [], []
+        with self._commit_fence(commit_targets):
+            for a in commit_targets:
+                try:
+                    replies.append(self._post_json_one(a, "/update_weights_commit", {"version": version}))
+                except Exception as e:  # noqa: BLE001 — tallied below
+                    failed.append((a, e))
+        if failed:
+            # the number is burned: a commit that failed on this side may
+            # have applied on the server, and a version must never name two
+            # different sets of weights
+            self._version = version
+            self._abort_stage_on([a for a, _ in failed])
+            raise RuntimeError(
+                f"weight-update commit failed on {[a for a, _ in failed]} "
+                f"({len(replies)}/{len(commit_targets)} committed)"
+            ) from failed[0][1]
+        gen_tokens = sum(int(r.get("tokens_during_update", 0) or 0) for r in replies)
+        self._finish_update(version, stage_secs, time.monotonic() - t1, gen_tokens)
+
+    def _finish_update(self, version: int, stage_secs: float, pause_secs: float, gen_tokens: int) -> None:
+        self.last_stage_secs = stage_secs
+        self.last_pause_secs = pause_secs
+        self.last_update_gen_tokens = gen_tokens
+        self._metrics.updates.inc()
+        self._metrics.pause_seconds.observe(pause_secs)
+        self._metrics.stage_seconds.observe(stage_secs)
+        self._metrics.commit_pause_seconds.observe(pause_secs)
+        if gen_tokens:
+            self._metrics.tokens_during_update.inc(gen_tokens)
+        logger.info(
+            f"weight update v{version}: staged {stage_secs:.2f}s (unpaused), commit fence "
+            f"{pause_secs:.2f}s, {gen_tokens} tokens generated during the update"
+        )
+        self._version = version
+
+    @staticmethod
+    def _wire_nbytes(key: str, v) -> int:
+        """A leaf's bytes on the wire: floats as bf16 (f32 ``_scale``
+        planes stay f32), other dtypes as they are, a non-tensor 8."""
+        if not isinstance(v, torch.Tensor):
+            return 8
+        if key.endswith("_scale"):
+            return 4 * v.numel()
+        return (2 if v.is_floating_point() else v.element_size()) * v.numel()
+
+    def _plan_weight_buckets(self, params: dict) -> list[list[tuple[str, object]]]:
+        """Greedy-pack the leaves, in order, into buckets of up to
+        ``weight_chunk_mb`` wire bytes; a leaf larger than that gets a bucket
+        to itself. Nested dicts flatten with "/" as the JAX client's do."""
+        flat: list[tuple[str, object]] = []
+
+        def walk(tree, prefix=""):
+            for k, v in tree.items():
+                key = f"{prefix}/{k}" if prefix else str(k)
+                if isinstance(v, dict):
+                    walk(v, key)
+                else:
+                    flat.append((key, v))
+
+        walk(params)
+        limit = max(1, self.config.weight_chunk_mb) * (1 << 20)
+        buckets: list[list[tuple[str, object]]] = [[]]
+        size = 0
+        for key, v in flat:
+            nbytes = self._wire_nbytes(key, v)
+            if size and size + nbytes > limit:
+                buckets.append([])
+                size = 0
+            buckets[-1].append((key, v))
+            size += nbytes
+        return buckets
+
+    @staticmethod
+    def _encode_bucket(bucket: list[tuple[str, object]]) -> bytearray:
+        """Cast the floating leaves to bf16 where they live (on the card for
+        the trainer's master weights) and encode the bucket; f32 ``_scale``
+        planes stay f32."""
+        entries = []
+        for name, v in bucket:
+            t = v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+            if t.is_floating_point() and t.dtype != torch.bfloat16 and not name.endswith("_scale"):
+                t = t.to(torch.bfloat16)
+            entries.append((name, t))
+        return encode_weight_bucket(entries)
+
+    def _stream_stage_buckets(self, buckets, enc_pool, first, targets: list[str]) -> list[str]:
+        """The staging upload, generation running: bucket i+1 encodes while
+        bucket i is in flight; ``first`` is bucket 0's encode future. On a
+        failure the staged part is aborted on the server and the error
+        raised. Returns the servers to commit on."""
+        for a in targets:
+            self._post_json_one(a, "/update_weights_begin", {})
+        nxt = first
+        try:
+            for i in range(len(buckets)):
+                body = nxt.result()
+                if i + 1 < len(buckets):
+                    nxt = enc_pool.submit(self._encode_bucket, buckets[i + 1])
+                self._metrics.update_bytes.inc(len(body))
+                for a in targets:
+                    self._post_bytes(a, "/update_weights_bucket", body)
+        except Exception:
+            # partial buckets must not pin a second copy of the weights on
+            # the server until the next begin; serving is untouched
+            self._abort_stage_on(targets)
+            raise
+        return list(targets)
+
+    def _abort_stage_on(self, addrs: list[str]) -> None:
+        """Best-effort /update_weights_abort, one short attempt each."""
+        for addr in addrs:
+            try:
+                self._send_json_once(addr, "/update_weights_abort", {}, 2.0)
+            except Exception as e:  # noqa: BLE001 — the server may be gone
+                logger.debug(f"stage-abort on {addr} failed: {e!r}")
 
     def set_version(self, version: int) -> None:
         self._version = version
@@ -550,6 +776,10 @@ class RemoteTorchEngine(InferenceEngine):
         return self.executor.staleness.get_capacity()
 
     def export_stats(self) -> dict[str, float]:
-        """The executor's rollout counters (the weight-update figures of the
-        JAX client wait for ROADMAP Queue A 1b)."""
-        return self.executor.export_stats()
+        """The executor's rollout counters and the last weight update's
+        figures."""
+        stats = self.executor.export_stats()
+        stats["update_weights_pause_secs"] = self.last_pause_secs
+        stats["update_weights_stage_secs"] = self.last_stage_secs
+        stats["generation_tokens_during_update"] = float(self.last_update_gen_tokens)
+        return stats

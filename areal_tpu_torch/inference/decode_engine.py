@@ -18,10 +18,26 @@ The shape of the JAX engine is kept:
 - Per-token policy versions: every emitted token carries the weight version
   that produced it; ``update_weights_from_params`` swaps weights between
   chunks (in place, stream-ordered after the chunk in flight).
+- The streamed weight update (``areal_tpu/inference/decode_engine.py:1446``):
+  ``begin_staged_update`` opens a staging area, ``stage_weight_bucket``
+  stages each bucket while generation continues (copied to the card on a
+  side stream as it arrives, or kept in pinned host memory under
+  ``weight_stage_target="host"``), and ``commit_staged_weights`` checks
+  every name and shape, then has the loop copy the staged tensors into the
+  served parameters between chunks, all or nothing. The JAX engine swaps
+  the parameter tree; here the served tensors keep their addresses (a
+  ``copy_`` in place), which gives the same function and leaves them
+  usable by a captured CUDA graph.
 - ``pause_generation`` (abort mode) ends every in-flight request with
   ``stop_reason="abort"`` and its partial tokens, publishing its full pages
   into the radix tree, and returns once it has; the client resubmits prompt
   + tokens so far, which prefills only the suffix.
+- ``pause_generation(mode="hold")``, the commit fence: the loop drains its
+  in-flight chunk and idles with slots, KV and device state intact
+  (``wait_fence_ack`` returns once it has); a commit applies at the top of
+  the next pass, and ``continue_generation`` resumes decoding in place, so
+  a request that spans the commit carries both versions. The hold releases
+  itself after ``hold_fence_timeout_s``.
 - ``abort_request(rid)`` cancels one request, queued or decoding: the loop
   reaps it between chunks (the chunk in flight drained first) and answers
   ``stop_reason="cancelled"``.
@@ -45,8 +61,8 @@ Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
 int8 weights, frequency penalty, image inputs, multi-device meshes and
 loading HF checkpoints. Also not ported: KV parking across an abort
 (a resubmit re-prefills its last partial page through a radix hit), the
-autopilot's radix cap, the hold fence (ROADMAP Queue A 1b), deadlines and
-the watchdog (item 2), and the observability surfaces.
+autopilot's radix cap, deadlines and the watchdog (item 2), LoRA and int8
+weight updates (item 4), and the observability surfaces.
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -54,6 +70,7 @@ compiled sizes: a group pads to its longest prompt (or suffix).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import queue
 import threading
@@ -198,6 +215,16 @@ def load_params(model: qwen.QwenModel, params) -> None:
     (``areal_tpu/inference/decode_engine.py:1611``); here the copy stays in
     place, because a second full copy of a large model (57 GiB for
     Qwen3-30B-A3B) does not fit beside the first."""
+    srcs = _checked_sources(model, params)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(srcs[name])
+
+
+def _checked_sources(model: qwen.QwenModel, params) -> dict[str, torch.Tensor]:
+    """``params`` as tensors keyed by ``model``'s parameter names, after
+    checking that the names match exactly and every shape and dtype fits;
+    raises (and copies nothing) otherwise."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     own = dict(model.named_parameters())
@@ -215,9 +242,7 @@ def load_params(model: qwen.QwenModel, params) -> None:
         if src.is_complex():  # copy_ would drop the imaginary part with a warning
             raise TypeError(f"{name}: dtype {src.dtype} does not cast to {p.dtype}")
         srcs[name] = src
-    with torch.no_grad():
-        for name, p in own.items():
-            p.copy_(srcs[name])
+    return srcs
 
 
 class DecodeEngine:
@@ -239,6 +264,17 @@ class DecodeEngine:
         self._version = 0
         self._paused = threading.Event()  # set = paused (aborts in-flight)
         self._pause_ack = threading.Event()  # set once the loop has ended them
+        self._held = threading.Event()  # set = the hold fence (no aborts)
+        self._hold_ack = threading.Event()  # set once the in-flight chunk drained
+        self._hold_since = 0.0
+        # the streamed update's staging area (None = no update open)
+        self._staged: dict[str, torch.Tensor] | None = None
+        self._stage_target = config.weight_stage_target
+        self._stage_gen_snapshot = 0
+        self._stage_stream = None  # side CUDA stream of the device target's copies
+        self._stage_buf: torch.Tensor | None = None  # reused host buffer of a bucket
+        self._stage_buf_lock = threading.Lock()
+        self.last_update_gen_tokens = 0  # tokens emitted from begin to commit
         # rids cancelled by abort_request, reaped by the loop between chunks
         self._abort_lock = threading.Lock()
         self._abort_rids: set[str] = set()
@@ -300,6 +336,8 @@ class DecodeEngine:
             raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
         if cfg.kv_quantization not in (None, "", "none", "int8", "fp8"):
             raise ValueError(f"unknown kv_quantization {cfg.kv_quantization!r}")
+        if cfg.weight_stage_target not in ("device", "host"):
+            raise ValueError(f"unknown weight_stage_target {cfg.weight_stage_target!r}")
 
     # -- lifecycle --------------------------------------------------------
     def initialize(self) -> None:
@@ -483,35 +521,65 @@ class DecodeEngine:
 
     # -- pause / weights --------------------------------------------------
     def pause_generation(self, mode: str = "abort", timeout: float = 10.0) -> None:
-        """Stop the decode loop until ``continue_generation``: in-flight
-        requests complete with stop_reason "abort" and their partial tokens,
-        and their full pages go into the radix tree, so the client's resubmit
-        of prompt + emitted prefills only its suffix. Returns once the running
-        loop has ended them (at most ``timeout`` seconds), so a version set
-        right after the pause tags only later tokens. The hold fence of the
-        JAX engine (``mode="hold"``) waits for ROADMAP Queue A 1b."""
+        """Stop the decode loop until ``continue_generation``.
+
+        mode "abort": in-flight requests complete with stop_reason "abort"
+        and their partial tokens, and their full pages go into the radix
+        tree, so the client's resubmit of prompt + emitted prefills only its
+        suffix. Returns once the running loop has ended them (at most
+        ``timeout`` seconds), so a version set right after the pause tags
+        only later tokens.
+
+        mode "hold", the commit fence (``decode_engine.py:1143``): the loop
+        finishes its in-flight chunk and idles without aborting anything;
+        returns at once (``wait_fence_ack`` waits for the drain)."""
+        if mode == "hold":
+            self._hold_ack.clear()
+            self._hold_since = time.monotonic()
+            self._held.set()
+            self._wakeup.set()
+            return
         if mode != "abort":
-            raise NotImplementedError(f"pause mode {mode!r} (the hold fence): ROADMAP Queue A 1b")
+            raise ValueError(f"unknown pause mode {mode!r}")
         self._paused.set()
         self._wakeup.set()
         if self._thread is not None and self._thread.is_alive():
             self._pause_ack.wait(timeout)
 
+    def wait_fence_ack(self, timeout: float = 10.0) -> bool:
+        """Block until the loop has reached the hold fence (its in-flight
+        chunk drained); True at once when the loop is not running."""
+        if self._thread is None or not self._thread.is_alive():
+            return True
+        return self._hold_ack.wait(timeout)
+
     def continue_generation(self) -> None:
         self._paused.clear()
+        self._held.clear()
         self._pause_ack.clear()
+        self._hold_ack.clear()
         self._wakeup.set()
 
     @property
     def is_paused(self) -> bool:
+        return self._paused.is_set() or self._held.is_set()
+
+    @property
+    def is_abort_paused(self) -> bool:
+        """The abort pause only: a hold keeps its slots live."""
         return self._paused.is_set()
 
     def update_weights_from_params(self, params, version: int | None = None) -> None:
         """Swap in new weights (a ``QwenModel`` or a state dict) between
         chunks; tokens of later chunks carry ``version``. Blocks until the
         decode loop has applied them."""
+        self._run_weight_update(("params", params), version)
+
+    def _run_weight_update(self, payload: tuple, version: int | None) -> None:
+        """Hand ``payload`` to the decode loop and wait until it applied it
+        (applied here when the loop is not running); re-raises its error."""
         with self._weight_lock:
-            self._pending_weight_update = (params, version)
+            self._pending_weight_update = (payload, version)
         self._wakeup.set()
         if self._thread is None:
             self._apply_weight_update()
@@ -533,11 +601,14 @@ class DecodeEngine:
             upd = self._pending_weight_update
             if upd is None:
                 return
-            params, version = upd
+            (kind, params), version = upd
             try:
                 # in place: the copy is ordered on the stream after the
                 # chunk in flight, which keeps reading the old weights
-                load_params(self.model, params)
+                if kind == "params":
+                    load_params(self.model, params)
+                else:
+                    self._copy_staged(params)
                 if version is not None:
                     self._version = version
                 # KV cached under the old weights is stale: the default policy
@@ -550,6 +621,102 @@ class DecodeEngine:
                 self._weight_update_error = e
                 logger.error(f"weight update failed: {type(e).__name__}: {e}")
             self._pending_weight_update = None
+
+    # -- the streamed weight update -----------------------------------------
+    def begin_staged_update(self, stage_target: str | None = None) -> None:
+        """Open a staging area for streamed buckets; generation keeps
+        running. ``stage_target`` overrides ``weight_stage_target`` for this
+        update: "device" copies each bucket to the card as it arrives (a
+        second copy of the weights until the commit), "host" keeps the
+        buckets in pinned host memory and copies them inside the commit."""
+        target = stage_target or self.config.weight_stage_target
+        if target not in ("device", "host"):
+            raise ValueError(f"unknown weight_stage_target {target!r}")
+        with self._weight_lock:
+            self._staged = {}
+            self._stage_target = target
+            self._stage_gen_snapshot = self.stats["generated_tokens"]
+
+    @contextlib.contextmanager
+    def stage_buffer(self, nbytes: int):
+        """A host uint8 buffer of ``nbytes`` to read one bucket's body into
+        (pinned on a card, so the copy to the device runs on a side stream).
+        The device target reuses one buffer, held until the bucket staged
+        (its tensors are copied out); the host target keeps each bucket's
+        buffer as its staged storage."""
+        pin = self.device.type == "cuda"
+        if self._stage_target == "host":
+            yield torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+            return
+        with self._stage_buf_lock:
+            if self._stage_buf is None or self._stage_buf.numel() < nbytes:
+                self._stage_buf = None
+                self._stage_buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+            yield self._stage_buf[:nbytes]
+
+    def stage_weight_bucket(self, flat: dict[str, torch.Tensor]) -> None:
+        """Stage one decoded bucket without touching the served weights. The
+        device target copies it to the card on a side stream and returns
+        once the copies landed (the decode stream never queues behind them);
+        the host target keeps the tensors as they are."""
+        with self._weight_lock:
+            if self._staged is None:
+                raise RuntimeError("no staged update open (begin_staged_update first)")
+            target = self._stage_target
+        if target == "host":
+            staged = dict(flat)
+        elif self.device.type == "cuda":
+            if self._stage_stream is None:
+                self._stage_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stage_stream):
+                staged = {n: t.to(self.device, non_blocking=True) for n, t in flat.items()}
+            done = torch.cuda.Event()
+            done.record(self._stage_stream)
+            done.synchronize()
+        else:
+            staged = {n: t.clone() for n, t in flat.items()}
+        with self._weight_lock:
+            if self._staged is not None:  # None: aborted meanwhile
+                self._staged.update(staged)
+
+    def commit_staged_weights(self, version: int | None = None) -> None:
+        """Apply the staged update between chunks and tag later tokens with
+        ``version``. Every name and shape is checked first: a mismatch
+        raises and changes no weight. A retried commit of the version
+        already applied (its answer lost on the wire) acks."""
+        with self._weight_lock:
+            flat, self._staged = self._staged, None
+            target = self._stage_target
+        if not flat:
+            if version is not None and self._version == int(version):
+                logger.info(f"commit v{version} retried after it already applied; acking")
+                return
+            raise AssertionError("no staged weights")
+        srcs = _checked_sources(self.model, flat)
+        self._run_weight_update(("staged", (srcs, target)), version)
+        self.last_update_gen_tokens = self.stats["generated_tokens"] - self._stage_gen_snapshot
+
+    def _copy_staged(self, staged: tuple) -> None:
+        """Copy checked staged tensors into the served parameters in place
+        (on the decode loop's stream, after the chunk in flight)."""
+        srcs, target = staged
+        cuda = self.device.type == "cuda"
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.copy_(srcs[name], non_blocking=cuda)
+        if cuda:
+            stream = torch.cuda.current_stream(self.device)
+            if target == "host":
+                stream.synchronize()  # the pinned buffers go when this returns
+            else:
+                for t in srcs.values():  # made on the side stream, read here
+                    t.record_stream(stream)
+
+    def abort_staged_update(self) -> None:
+        """Drop a partially staged update; serving weights and version stay
+        as they are. Safe when nothing is staged."""
+        with self._weight_lock:
+            self._staged = None
 
     def set_version(self, v: int) -> None:
         self._version = v
@@ -1557,6 +1724,25 @@ class DecodeEngine:
                         pending = None
                         self._abort_all()
                         self._pause_ack.set()
+                        self._wakeup.wait(timeout=0.05)
+                        self._wakeup.clear()
+                        continue
+                    if self._held.is_set():
+                        # the commit fence: drain the in-flight chunk, then
+                        # idle with slots, KV and device state intact; a
+                        # commit applies at the top of the next pass
+                        expiry = self.config.hold_fence_timeout_s
+                        if expiry > 0 and time.monotonic() - self._hold_since > expiry:
+                            logger.warning(
+                                f"hold fence exceeded {expiry:.0f}s without a continue_generation; "
+                                "self-releasing"
+                            )
+                            self._held.clear()
+                            self._hold_ack.clear()
+                            continue
+                        self._drain(pending)
+                        pending = None
+                        self._hold_ack.set()
                         self._wakeup.wait(timeout=0.05)
                         self._wakeup.clear()
                         continue

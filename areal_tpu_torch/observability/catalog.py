@@ -1,8 +1,10 @@
 """The metric families the rollout loop registers, copied from
 ``areal_tpu/observability/catalog.py`` with the same names, labels, help
 texts and buckets: ``staleness_metrics``, ``executor_metrics``,
-``lifecycle_metrics``, ``client_metrics``, ``robustness_metrics`` and
-``preemption_metrics``. The other families wait for the modules that
+``lifecycle_metrics``, ``client_metrics``, ``robustness_metrics``,
+``preemption_metrics``, and the trainer loop's ``trainer_metrics`` and
+``train_obs_metrics`` (the latter without the XLA compile counters, which
+have no PyTorch counterpart). The other families wait for the modules that
 register them (ROADMAP Queue A items 2, 3, 7 and 8).
 
 Factories are idempotent (the registry dedups by name).
@@ -307,5 +309,74 @@ def preemption_metrics(reg: Registry | None = None) -> SimpleNamespace:
             "Journaled trajectories dropped at replay: over-stale for the "
             "restored policy version, or already consumed by a training "
             "step the recover checkpoint covers.",
+        ),
+    )
+
+
+def trainer_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """PPOTrainer: step cadence + policy version."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        step_seconds=r.histogram(
+            "areal_train_step_seconds",
+            "Wall-clock seconds per global training step.",
+            buckets=(1.0, 5.0, 15.0, 30.0, 60.0, 120.0, 300.0, 600.0, 1800.0),
+        ),
+        version=r.gauge(
+            "areal_train_version", "Current policy version (global step + 1)."
+        ),
+        update_seconds=r.histogram(
+            "areal_train_update_weights_seconds",
+            "Trainer-side update_weights duration per step.",
+        ),
+    )
+
+
+def train_obs_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Trainer goodput observatory (observability/step_timeline.py):
+    step-phase attribution, utilization and the device-memory ledger. The
+    phase histogram labels by the step phase taxonomy (rollout_wait |
+    host_prep | forward_backward | optimizer | weight_publish | ckpt_eval |
+    other)."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        phase_seconds=r.histogram(
+            "areal_train_phase_seconds",
+            "Wall-clock seconds per training-step phase (rollout_wait is "
+            "the async bubble: blocking in prepare_batch). Named phases + "
+            "the explicit `other` residual sum exactly to the step wall "
+            "time (areal_train_step_seconds).",
+            label_names=("phase",),
+            buckets=(0.001, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0),
+        ),
+        bubble_fraction=r.gauge(
+            "areal_train_bubble_fraction",
+            "rollout_wait / step wall time of the last completed step — "
+            "the trainer bubble fully-async RL is supposed to remove.",
+        ),
+        mfu=r.gauge(
+            "areal_train_mfu",
+            "Model FLOPs utilization over the last step's compute window "
+            "(forward_backward + optimizer phases) vs the chip peak spec "
+            "(TelemetryConfig.chip_peak_tflops overrides unknown chips).",
+        ),
+        tokens_per_chip=r.gauge(
+            "areal_train_tokens_per_sec_per_chip",
+            "Trained tokens per second per chip over the last full step "
+            "(end-to-end goodput; the bubble fraction explains gaps vs "
+            "the compute-window MFU).",
+        ),
+        hbm_bytes=r.gauge(
+            "areal_hbm_bytes",
+            "Itemized device-memory ledger by component (params, "
+            "opt_state, kv_page_pool, radix_cache, staged_update, "
+            "in_use, limit); device memory_stats where available, "
+            "analytic byte sums on CPU.",
+            label_names=("component",),
+        ),
+        hbm_headroom=r.gauge(
+            "areal_hbm_headroom_fraction",
+            "Free fraction of device memory (1 - in_use/limit) — the "
+            "OOM-headroom number to alert on.",
         ),
     )

@@ -8,10 +8,13 @@ per-token training keys to label alignment with roll(-1), because the train
 engine's outputs are label-aligned. The log-linear proximal approximation's
 factor ``prox_alpha`` is computed on the host from the per-token versions.
 
+``ppo_update`` records the JAX actor's ``stats_tracker`` scalars under
+``ppo_actor/`` (the batch's reward, lengths and advantages, then each
+minibatch's training stats), which ``PPOTrainer`` commits every step.
+
 Left out: the learning-health and lineage exports of the JAX trainer
-(per-lag-bucket loss stats, per-sequence loss attribution, the
-``stats_tracker`` scalars), ROADMAP Queue A, trainer breadth;
-and the critic (``PPOCritic``).
+(per-lag-bucket loss stats, per-sequence loss attribution), ROADMAP Queue
+A, trainer breadth; and the critic (``PPOCritic``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from areal_tpu_torch.api.config import PPOActorConfig
 from areal_tpu_torch.ops import functional as F
+from areal_tpu_torch.utils import stats_tracker
 from areal_tpu_torch.utils.data import (
     MicroBatchSpec,
     Normalization,
@@ -135,6 +139,12 @@ class PPOActor:
         )
         cfg = config
         self._loss_fn = lambda outputs, b: grpo_loss_fn(outputs, b, cfg)
+
+    def should_compute_prox_logp(self) -> bool:
+        c = self.config
+        if c.use_decoupled_loss:
+            return c.prox_logp_mode in ("recompute", "metrics")
+        return c.recompute_logprob
 
     def compute_logp(self, data: TensorDict) -> np.ndarray:
         """Token-aligned logprobs of ``input_ids`` under the current policy
@@ -272,16 +282,32 @@ class PPOActor:
         batch; returns each minibatch's ``train_batch`` stats."""
         cfg = self.config
         data = dict(data)
+        reward_score = np.asarray(data.get("rewards", np.zeros(1)), np.float32)
+        attn = np.asarray(data["attention_mask"], bool)
+        lm = np.asarray(data["loss_mask"], np.float32)
+        with stats_tracker.scope("ppo_actor"):
+            stats_tracker.get().scalar(
+                task_reward=float(reward_score.mean()),
+                correct_ratio=float((reward_score > 0).mean()),
+                seq_len=float(attn.sum(-1).mean()),
+                prompt_len=float((attn.sum(-1) - lm.sum(-1)).mean()),
+                no_eos_ratio=float(np.asarray(data.get("seq_no_eos_mask", np.zeros(1))).mean()),
+                advantages=float((np.asarray(data["advantages"]) * lm).sum() / max(lm.sum(), 1)),
+                final_reward=float(np.asarray(data["tot_rewards"]).sum(-1).mean()),
+            )
         for key in ("rewards", "tot_rewards", "kl_rewards", "returns"):
             data.pop(key, None)
         mb_list = split_padded_tensor_dict_into_mb_list(
             data, MicroBatchSpec(n_mbs=cfg.ppo_n_minibatches)
         )
-        return [
-            self.engine.train_batch(
+        all_stats = []
+        for mb in mb_list.mbs:
+            train_stat = self.engine.train_batch(
                 mb,
                 loss_fn=self._loss_fn,
                 loss_weight_fn=lambda x: float((np.asarray(x["loss_mask"]) > 0).sum()),
             )
-            for mb in mb_list.mbs
-        ]
+            with stats_tracker.scope("ppo_actor"):
+                stats_tracker.get().scalar(**train_stat)
+            all_stats.append(train_stat)
+        return all_stats

@@ -1,0 +1,334 @@
+"""PPOTrainer: the RL training facade and its step loop — the port of
+``areal_tpu/trainer/rl_trainer.py``.
+
+Each global step runs, as the JAX trainer does (``rl_trainer.py:370-584``):
+
+    prepare_batch -> [proximal logp recompute] -> [reference logp]
+    -> compute_advantages -> ppo_update
+    -> pause rollout -> update_weights -> set_version -> [save / recover]
+    -> resume -> [eval] -> log
+
+with the version rule ``new_version = global_step + 1`` on the trainer, the
+rollout client and the servers. Over HTTP (``RemoteTorchEngine``) the
+weights stream as bf16 buckets staged while generation continues, and one
+commit lands inside the hold fence, which aborts nothing.
+
+Refused at construction with ``NotImplementedError`` naming the ROADMAP
+Queue A item it waits for: a critic (item 3), ``allocation_mode`` (item
+6), a ``cluster.name_resolve.type`` other than "memory" (item 8),
+``preemption.enabled`` (item 3: the drain needs the recover dump; the JAX
+default is True, so a port config sets it to False), the trajectory
+journal (item 3), ``weight_update_mode="disk"`` (item 3) and the q8 wire
+(item 4); ``recover.mode`` other than "disabled" / "off" raises in
+``utils/recover.py`` and a due save in ``utils/saver.py`` (item 3).
+
+``compile_cache.install_compile_counters`` counts XLA compilations and has
+no PyTorch counterpart: it is left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import signal
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+
+from areal_tpu_torch.api.config import PPOConfig
+from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
+from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+from areal_tpu_torch.observability import catalog as obs_catalog
+from areal_tpu_torch.observability import step_timeline
+from areal_tpu_torch.trainer.ppo import PPOActor
+from areal_tpu_torch.utils import perf_tracer, stats_tracker
+from areal_tpu_torch.utils.data import StatefulDataLoader
+from areal_tpu_torch.utils.perf_tracer import Category
+from areal_tpu_torch.utils.recover import RecoverHandler
+from areal_tpu_torch.utils.saver import Evaluator, Saver
+from areal_tpu_torch.utils.stats_logger import StatsLogger
+
+logger = logging.getLogger("areal_tpu_torch.rl_trainer")
+
+
+def resolve_weight_update_wire(config) -> str:
+    """``weight_update_wire``: "auto" is "q8" for an int8-serving fleet,
+    else "bf16". Only bf16 is ported."""
+    wire = config.weight_update_wire or "auto"
+    if wire == "auto":
+        wire = "q8" if config.server.quantization == "int8" else "bf16"
+    if wire not in ("bf16", "q8"):
+        raise ValueError(f"weight_update_wire={wire!r}; valid: auto|bf16|q8")
+    if wire == "q8":
+        raise NotImplementedError("the q8 weight wire (int8 serving): ROADMAP Queue A item 4")
+    return wire
+
+
+def check_supported(config: PPOConfig) -> None:
+    """Raise ``NotImplementedError`` for each option of the loop whose code
+    path is a later slice, before anything is built."""
+    if config.critic is not None:
+        raise NotImplementedError("a critic (PPOCritic): ROADMAP Queue A item 3 (trainer breadth)")
+    if config.allocation_mode:
+        raise NotImplementedError(f"allocation_mode={config.allocation_mode!r}: ROADMAP Queue A item 6")
+    if config.cluster.name_resolve.type != "memory":
+        raise NotImplementedError(
+            f"name_resolve.type={config.cluster.name_resolve.type!r} (server discovery): ROADMAP Queue A item 8"
+        )
+    if config.preemption.enabled:
+        raise NotImplementedError(
+            "preemption.enabled (the drain needs the recover dump): ROADMAP Queue A item 3; "
+            "set preemption.enabled=False"
+        )
+    if config.rollout.journal.enabled:
+        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3")
+    mode = config.weight_update_mode or config.actor.weight_update_mode
+    if mode != "mem":
+        raise NotImplementedError(
+            f"weight_update_mode={mode!r}: only 'mem' is ported (disk updates: ROADMAP Queue A item 3)"
+        )
+
+
+class PPOTrainer:
+    def __init__(
+        self,
+        config: PPOConfig,
+        train_dataset,
+        valid_dataset=None,
+        rollout=None,
+        eval_rollout=None,
+        tokenizer=None,
+        actor_engine=None,
+        critic_engine=None,
+        ref_engine=None,
+    ):
+        check_supported(config)
+        wire = resolve_weight_update_wire(config)
+        self.config = config
+        self.recover_handler = RecoverHandler(config.recover)  # raises unless recovery is off
+        self.tokenizer = tokenizer
+        self.train_dataloader = StatefulDataLoader(
+            train_dataset,
+            batch_size=config.train_dataset.batch_size,
+            shuffle=config.train_dataset.shuffle,
+            seed=config.seed,
+            drop_last=config.train_dataset.drop_last,
+        )
+        self.valid_dataset = valid_dataset
+        self.ft_spec = FinetuneSpec(
+            total_train_epochs=config.total_train_epochs,
+            dataset_size=len(train_dataset),
+            train_batch_size=config.train_dataset.batch_size,
+        )
+
+        # engines (injectable); a built one runs on the card
+        config.actor.temperature = config.gconfig.temperature
+        self.actor_engine = actor_engine or TorchTrainEngine(config.actor)
+        if actor_engine is None or getattr(self.actor_engine, "model", 1) is None:
+            self.actor_engine.initialize(self.ft_spec)
+        self.actor = PPOActor(config.actor, self.actor_engine)
+        self.ref = None
+        if config.ref is not None:
+            eng = ref_engine or TorchTrainEngine(config.ref, need_optimizer=False)
+            if ref_engine is None:
+                eng.initialize(self.ft_spec)
+            self.ref = PPOActor(config.actor, eng)
+
+        # the rollout client
+        if rollout is None:
+            from areal_tpu_torch.inference.client import RemoteTorchEngine
+
+            addrs = os.environ.get("AREAL_TPU_SERVER_ADDRS", "")
+            rollout = RemoteTorchEngine(config.rollout, addresses=[a for a in addrs.split(",") if a])
+            rollout.initialize()
+        self.rollout = rollout
+        # eval must not share the training executor: its results buffer
+        # would interleave with training trajectories
+        if eval_rollout is None and valid_dataset is not None:
+            from areal_tpu_torch.inference.client import RemoteTorchEngine
+
+            eval_cfg = dataclasses.replace(config.rollout, max_head_offpolicyness=10_000_000)
+            eval_rollout = RemoteTorchEngine(eval_cfg, addresses=list(self.rollout.addresses))
+            eval_rollout.initialize()
+        self.eval_rollout = eval_rollout
+
+        # the weight-update channel
+        mode = config.weight_update_mode or config.actor.weight_update_mode
+        update_dir = os.path.join(config.cluster.fileroot, config.experiment_name, config.trial_name, "update_weights")
+        self.weight_update_meta = WeightUpdateMeta(type=mode, path=update_dir, with_version=True, wire_format=wire)
+        self.actor_engine.connect_engine(self.rollout, self.weight_update_meta)
+
+        for c in (config.saver, config.checkpointer, config.evaluator, config.recover, config.stats_logger):
+            c.experiment_name = c.experiment_name or config.experiment_name
+            c.trial_name = c.trial_name or config.trial_name
+            if hasattr(c, "fileroot"):
+                c.fileroot = c.fileroot or config.cluster.fileroot
+        perf_tracer.configure(config.perf_tracer, rank=0, role="trainer")
+        self._obs = obs_catalog.trainer_metrics()
+        self.step_recorder = step_timeline.StepTimelineRecorder()
+        # SIGUSR2 sets this flag; the next step runs under torch.profiler
+        self._profile_requested = threading.Event()
+        self._prev_sigusr2 = None  # the handler train() replaced; close() puts it back
+        self.last_hbm_ledger: dict | None = None
+        self.saver = Saver(config.saver, self.ft_spec)
+        self.evaluator = Evaluator(config.evaluator, self.ft_spec)
+        self.stats_logger = StatsLogger(config.stats_logger, self.ft_spec)
+
+    def _on_profile_signal(self, signum, frame) -> None:
+        self._profile_requested.set()  # flag only: the step loop does the work
+
+    # -- step loop --------------------------------------------------------
+    def train(self, workflow: Any = None, eval_workflow: Any = None, dynamic_filter_fn: Callable | None = None) -> None:
+        config = self.config
+        start_step = 0  # recovery (a later start step) is ROADMAP Queue A item 3
+        steps_per_epoch = len(self.train_dataloader)
+        max_steps = config.total_train_epochs * steps_per_epoch
+        if config.total_train_steps is not None:
+            max_steps = min(max_steps, config.total_train_steps)
+        try:
+            prev = signal.signal(signal.SIGUSR2, self._on_profile_signal)
+            if self._prev_sigusr2 is None:
+                self._prev_sigusr2 = prev
+        except ValueError:
+            logger.debug("SIGUSR2 profile trigger unavailable off the main thread")
+
+        for global_step in range(start_step, max_steps):
+            epoch = global_step // steps_per_epoch
+            step = global_step % steps_per_epoch
+            t_step = time.monotonic()
+            profiling = bool(config.perf_tracer.profile_steps and global_step in config.perf_tracer.profile_steps)
+            if self._profile_requested.is_set():
+                self._profile_requested.clear()
+                profiling = True
+                logger.info(f"SIGUSR2: device-profiling step {global_step}")
+            if profiling:
+                perf_tracer.start_device_profile()
+
+            tl = self.step_recorder.start(global_step)
+            with tl.phase("rollout_wait"), perf_tracer.trace_scope(
+                "train.rollout", Category.COMPUTE, {"global_step": global_step}
+            ):
+                batch = self.rollout.prepare_batch(
+                    self.train_dataloader, workflow=workflow, should_accept_fn=dynamic_filter_fn
+                )
+
+            # the engine attributes its host_prep / forward_backward /
+            # optimizer spans into ``tl`` through step_timeline.engine_phase
+            n_extra_fwd = 0
+            if self.actor.should_compute_prox_logp():
+                with perf_tracer.trace_scope("train.recompute_logp", Category.COMPUTE):
+                    batch["prox_logp"] = self.actor.compute_logp(batch)
+                n_extra_fwd += 1
+            if self.ref is not None:
+                with perf_tracer.trace_scope("train.ref_logp", Category.COMPUTE):
+                    batch["ref_logp"] = self.ref.compute_logp(batch)
+                n_extra_fwd += 1
+            with tl.phase("host_prep"), perf_tracer.trace_scope("train.compute_advantages", Category.COMPUTE):
+                adv_batch = self.actor.compute_advantages(batch)
+
+            t_train = time.monotonic()
+            with perf_tracer.trace_scope("train.ppo_update", Category.COMPUTE):
+                self.actor.ppo_update(adv_batch)
+            train_step_secs = time.monotonic() - t_train
+
+            # stop submissions, push the weights, advance the version
+            with tl.phase("weight_publish"), perf_tracer.trace_scope("train.update_weights", Category.COMM):
+                self.rollout.pause()
+                t_update = time.monotonic()
+                new_version = global_step + 1
+                self.actor_engine.update_weights(self.weight_update_meta)
+                self.actor_engine.set_version(new_version)
+                self.rollout.set_version(new_version)
+                if self.eval_rollout is not None:
+                    self.eval_rollout.set_version(new_version)
+            self._obs.update_seconds.observe(time.monotonic() - t_update)
+            self._obs.version.set(new_version)
+
+            t_save = time.monotonic()
+            with tl.phase("ckpt_eval"), perf_tracer.trace_scope("train.save", Category.IO):
+                self.saver.maybe_save(self.actor_engine, epoch, step, global_step, self.tokenizer)
+                self.recover_handler.dump(
+                    self.actor_engine,
+                    StepInfo(epoch=epoch, epoch_step=step, global_step=global_step, steps_per_epoch=steps_per_epoch),
+                    saver=self.saver,
+                    evaluator=self.evaluator,
+                    dataloader=self.train_dataloader,
+                    tokenizer=self.tokenizer,
+                    async_=True,
+                )
+            save_secs = time.monotonic() - t_save
+            # resume before eval: the default eval client is the training
+            # client, whose dispatcher skips submissions while paused
+            self.rollout.resume()
+            t_eval = time.monotonic()
+            with tl.phase("ckpt_eval"):
+                self._maybe_evaluate(eval_workflow or workflow, epoch, global_step)
+            eval_secs = time.monotonic() - t_eval
+
+            bd = self._complete_step_timeline(tl, batch, n_extra_fwd)
+            stats = stats_tracker.export_all()
+            stats.update(self.rollout.export_stats())
+            stats.update(step_timeline.breakdown_stat_keys(bd))
+            stats["timing/rollout"] = bd["rollout_wait_s"]
+            stats["timing/train_step"] = train_step_secs
+            stats["timing/update_weights"] = bd["weight_publish_s"]
+            stats["timing/save"] = save_secs
+            stats["timing/eval"] = eval_secs
+            if self.last_hbm_ledger is not None:
+                stats["hbm/in_use_bytes"] = float(self.last_hbm_ledger["bytes_in_use"])
+                if self.last_hbm_ledger["headroom_fraction"] is not None:
+                    stats["hbm/headroom_fraction"] = float(self.last_hbm_ledger["headroom_fraction"])
+            stats["step_secs"] = time.monotonic() - t_step
+            self._obs.step_seconds.observe(stats["step_secs"])
+            stats["version"] = float(new_version)
+            logger.info(f"step {global_step}: {step_timeline.format_phase_line(bd)}")
+            self.stats_logger.commit(epoch, step, global_step, stats)
+            if profiling:
+                trace_dir = perf_tracer.stop_device_profile()
+                if trace_dir:
+                    logger.info(f"device profile captured: {trace_dir}")
+            perf_tracer.save(step=global_step)
+
+    def _complete_step_timeline(self, tl, batch, n_extra_fwd: int) -> dict:
+        bd, ledger = step_timeline.complete_trainer_step(
+            self.step_recorder,
+            tl,
+            self.actor_engine,
+            self.config.telemetry,
+            batch,
+            n_extra_forwards=n_extra_fwd,
+            remat=bool(getattr(self.config.actor, "gradient_checkpointing", False)),
+        )
+        if ledger is not None:
+            self.last_hbm_ledger = ledger
+        return bd
+
+    def _maybe_evaluate(self, eval_workflow, epoch: int, global_step: int) -> None:
+        if self.valid_dataset is None or eval_workflow is None:
+            return
+
+        def run_eval():
+            client = self.eval_rollout
+            if client is None:
+                return
+            batch = client.rollout_batch(list(self.valid_dataset), workflow=eval_workflow)
+            rewards = np.asarray(batch["rewards"], np.float32)
+            with stats_tracker.scope("eval"):
+                stats_tracker.get().scalar(reward=float(rewards.mean()), n_seqs=float(rewards.shape[0]))
+
+        self.evaluator.maybe_evaluate(epoch, global_step, run_eval)
+
+    def close(self) -> None:
+        if self._prev_sigusr2 is not None:
+            # the installed handler is a bound method: left in place, it
+            # would keep this trainer (and its engines) alive
+            try:
+                signal.signal(signal.SIGUSR2, self._prev_sigusr2)
+            except ValueError:
+                logger.debug("SIGUSR2 handler not restored off the main thread")
+            self._prev_sigusr2 = None
+        self.stats_logger.close()
+        self.rollout.destroy()

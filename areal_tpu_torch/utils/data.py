@@ -1,7 +1,7 @@
 """Host-side batch containers: the port's numpy copy of the parts of
 ``areal_tpu/utils/data.py`` the trainer and the rollout loop use — padded
-trajectory batches and their concatenation, the endless dataloader cycle,
-microbatch splitting, bucketing, label alignment and the advantage
+trajectory batches and their concatenation, the resumable
+``StatefulDataLoader`` and the endless dataloader cycle, microbatch splitting, bucketing, label alignment and the advantage
 ``Normalization``. Containers are ``dict[str, np.ndarray]`` on the
 host; tensors appear only inside the train engine."""
 
@@ -90,6 +90,56 @@ def concat_padded_tensor_dicts(dicts: Sequence[TensorDict]) -> TensorDict:
 
 def batch_size(data: TensorDict) -> int:
     return int(np.asarray(data["attention_mask"]).shape[0])
+
+
+class StatefulDataLoader:
+    """Batched iteration over a list-like dataset of dict rows, with a
+    resumable position (``areal_tpu/utils/data.py:284``): the same batches
+    in the same order for the same seed, and the same ``state_dict``."""
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True, seed: int = 0, drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self._epoch = 0
+        self._batch_in_epoch = 0
+        if drop_last and len(dataset) < batch_size:
+            raise ValueError(
+                f"dataset of {len(dataset)} rows cannot fill one batch of {batch_size} with drop_last=True"
+            )
+
+    def __len__(self) -> int:
+        n = len(self.dataset) // self.batch_size
+        if not self.drop_last and len(self.dataset) % self.batch_size:
+            n += 1
+        return n
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        return idx
+
+    def __iter__(self):
+        # one pass; the epoch counter persists across passes
+        order = self._order()
+        for b in range(self._batch_in_epoch, len(self)):
+            sel = order[b * self.batch_size : (b + 1) * self.batch_size]
+            if self.drop_last and len(sel) < self.batch_size:
+                break
+            self._batch_in_epoch = b + 1
+            yield [self.dataset[int(i)] for i in sel]
+        self._epoch += 1
+        self._batch_in_epoch = 0
+
+    def state_dict(self) -> dict:
+        return {"epoch": self._epoch, "batch_in_epoch": self._batch_in_epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._epoch = state.get("epoch", 0)
+        self._batch_in_epoch = state.get("batch_in_epoch", 0)
 
 
 def cycle_dataloader(loader) -> Iterator:

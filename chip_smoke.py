@@ -94,7 +94,27 @@ no result line:
               Checks the logprobs on both waves, finite loss and grad norm
               (and the plain attention's grad norm on one minibatch), moved
               weights, version tags and every kernel's launch count.
-11. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+11. grpo     — the whole GRPO loop over HTTP at full width and depth:
+              ``PPOTrainer.train`` (3 global steps) with a
+              ``TorchTrainEngine`` (``train``'s actor settings, a constant
+              LR) and ``RemoteTorchEngine`` (16 rollouts at once, batches of
+              8 prompts x 4 samples x 128 tokens, staleness bound 1, the
+              hold fence) against an ``InferenceServer`` over Qwen2.5-1.5B
+              started from the trainer's weights in bf16 (the serve phase's
+              settings, staging on the card). Each step streams 3.09 GB of
+              bf16 buckets while generation runs and commits them inside the
+              hold fence. Checks, after every step, that the server's, the
+              client's and the trainer's versions are global_step + 1 and
+              every served parameter equals the trainer's master weight cast
+              to bf16 bit for bit; no request aborted and every hold
+              answered fenced; every row complete with monotone version tags
+              within the staleness bound; the trainer's logprobs against the
+              served ones on the first batch; K2-K4, #1 and #3 launches.
+              Prints per step the phase times, stage and fence seconds,
+              tokens generated during the update and the rows spanning a
+              commit; staging GB/s, decode step wall time while staging
+              beside the other steps, trainer tokens/s and peak memory.
+12. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -109,7 +129,7 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-12. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+13. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
@@ -118,7 +138,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-13. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+14. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -130,7 +150,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-14. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+15. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -141,7 +161,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-15. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+16. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -149,7 +169,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-16. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+17. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -2722,6 +2742,318 @@ def phase_train(card: str) -> dict:
                 parts=parts, tokens_per_s=tokens / parts["ppo_update"], peak_gib=peak, norms=norms)
 
 
+GRPO_CLIENT = dict(max_concurrent_rollouts=16, consumer_batch_size=8, max_head_offpolicyness=1,
+                   weight_commit_fence="hold", request_timeout=900)
+GRPO_STEPS, GRPO_PROMPTS = 3, 32
+
+
+def _even_share_reward(prompt, completions, prompt_ids, completion_ids, **kw) -> float:
+    """The share of even token ids among the new tokens (a reward that
+    varies within a group, so the advantages are not all zero)."""
+    return float(np.mean(np.asarray(completion_ids) % 2 == 0))
+
+
+def phase_grpo(card: str, train: dict | None = None) -> dict:
+    """``PPOTrainer.train`` over HTTP against the port's server, three global
+    steps of Qwen2.5-1.5B; ``train``: the train phase's result, whose
+    in-process trainer tokens/s is printed beside this loop's."""
+    from areal_tpu_torch.api.config import (DatasetConfig, InferenceEngineConfig, NormConfig, OptimizerConfig,
+                                            PPOActorConfig, PPOConfig, PreemptionConfig, ServerConfig)
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[grpo] {held:.2f} GiB still allocated by earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    group, n_new, batch_prompts = 4, 128, 8
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    L = mcfg.num_layers
+    acfg = PPOActorConfig(
+        dtype="bfloat16",
+        param_dtype="float32",
+        attn_impl="pallas",
+        gradient_checkpointing=True,
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant"),
+        group_size=group,
+        adv_norm=NormConfig(mean_level="group", std_level="batch", group_size=group),
+        use_decoupled_loss=True,
+        prox_logp_mode="recompute",
+        ppo_n_minibatches=2,
+    )
+    trainer = TorchTrainEngine(acfg, model_config=mcfg)
+    trainer.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=GRPO_PROMPTS, train_batch_size=batch_prompts),
+                       seed=0)
+    scfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                        weight_stage_target="device", host="127.0.0.1", seed=0)
+    # the server starts from the trainer's weights, cast to bf16
+    engine = DecodeEngine(scfg, params=trainer.model.state_dict(), model_cfg=mcfg)
+    srv = ServerThread(scfg, engine=engine)
+    # server-side records: every hold's answer, every commit
+    fences, commits = [], []
+    h_pause, h_commit = srv.server.h_pause, srv.server.h_update_commit
+
+    # server-side seconds of each fence leg: the hold's drain, the commit
+    fence_s: dict[str, list[float]] = {"hold": [], "commit": []}
+
+    def h_pause_logged(d: dict):
+        t = time.monotonic()
+        status, out = h_pause(d)
+        if d.get("mode") == "hold":
+            fences.append(out.get("fenced"))
+            fence_s["hold"].append(time.monotonic() - t)
+        return status, out
+
+    def h_commit_logged(d: dict):
+        t = time.monotonic()
+        status, out = h_commit(d)
+        fence_s["commit"].append(time.monotonic() - t)
+        commits.append(out)
+        return status, out
+
+    srv.server.h_pause, srv.server.h_update_commit = h_pause_logged, h_commit_logged
+    srv.start()
+    client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+    client.initialize()
+    gconfig = GenerationHyperparameters(n_samples=group, max_new_tokens=n_new, temperature=1.0)
+    cfg = PPOConfig(
+        experiment_name="chip-smoke",
+        trial_name="grpo",
+        weight_update_mode="mem",
+        total_train_steps=GRPO_STEPS,
+        preemption=PreemptionConfig(enabled=False),
+        gconfig=gconfig,
+        train_dataset=DatasetConfig(batch_size=batch_prompts),
+        actor=acfg,
+    )
+    rng = np.random.default_rng(0)
+    dataset = [{"prompt_ids": rng.integers(0, mcfg.vocab_size, int(n)).tolist()}
+               for n in rng.integers(64, 513, GRPO_PROMPTS)]
+    loop = PPOTrainer(cfg, dataset, rollout=client, actor_engine=trainer)
+    torch.cuda.synchronize()
+    log(f"[grpo] trainer (f32 master weights, AdamW state), server and client up in "
+        f"{time.monotonic() - t_phase:.1f}s; torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # what each step consumed and trained on, recorded around the loop's calls
+    batches, gaps, mb_counts, fwd_grids = [], [], [], []
+    prepare, compute_logp, train_batch = client.prepare_batch, loop.actor.compute_logp, trainer.train_batch
+
+    def prepare_logged(*a, **k):
+        b = prepare(*a, **k)
+        batches.append((b, client.get_version()))
+        return b
+
+    def compute_logp_logged(b):
+        out = compute_logp(b)
+        fwd_grids.append(len(trainer._make_grids(b)))
+        if len(gaps) == 0:  # the first batch: every token of v0, the trainer at v0
+            gaps.append(_logprob_gap(out, b))
+        return out
+
+    def train_batch_logged(*a, **k):
+        st = train_batch(*a, **k)
+        mb_counts.append(int(st["n_microbatches"]))
+        return st
+
+    client.prepare_batch, loop.actor.compute_logp, trainer.train_batch = (prepare_logged, compute_logp_logged,
+                                                                        train_batch_logged)
+    # the staging window's two halves: encoding (the encoder thread: the
+    # cast to bf16 on the card and the copy into the body) and posting
+    stage_parts: dict[str, float] = {"encode": 0.0, "post": 0.0}
+    encode_bucket, post_bytes = client._encode_bucket, client._post_bytes
+
+    def encode_timed(bucket):
+        t = time.monotonic()
+        body = encode_bucket(bucket)
+        stage_parts["encode"] += time.monotonic() - t
+        return body
+
+    def post_timed(addr, path, body):
+        t = time.monotonic()
+        post_bytes(addr, path, body)
+        stage_parts["post"] += time.monotonic() - t
+
+    client._encode_bucket, client._post_bytes = encode_timed, post_timed
+    # decode progress and the staging windows, sampled (t, decode steps, active slots, staging)
+    samples: list[tuple[float, int, int, bool]] = []
+    staging = {"on": False}
+    h_begin = srv.server.h_update_begin
+
+    def h_begin_logged(d: dict):
+        staging["on"] = True
+        return h_begin(d)
+
+    def h_commit_marked(d: dict):
+        staging["on"] = False
+        return h_commit_logged(d)
+
+    srv.server.h_update_begin, srv.server.h_update_commit = h_begin_logged, h_commit_marked
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append((time.monotonic(), engine.stats["decode_steps"],
+                            sum(t is not None for t in engine._slot_task), staging["on"]))
+            time.sleep(0.002)
+
+    per_step, checks = [], []
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    commit = loop.stats_logger.commit
+
+    def commit_checked(epoch, step, global_step, stats):
+        """After each step: the versions, the served weights against the
+        trainer's bf16 export, and this step's launches."""
+        want = global_step + 1
+        with urllib.request.urlopen(f"http://{srv.address}/health", timeout=10) as r:
+            served_v = json.loads(r.read())["version"]
+        versions = (served_v, client.get_version(), trainer.get_version())
+        served = dict(engine.model.named_parameters())
+        unequal = [n for n, p in trainer.model.named_parameters()
+                   if not torch.equal(p.detach().to(torch.bfloat16), served[n].detach())]
+        counts = [k.launches for k in kernels]
+        checks.append((versions, unequal))
+        per_step.append(dict(stats=dict(stats), counts=counts, fwd=fwd_grids[-1], mbs=sum(mb_counts[-2:])))
+        if versions != (want, want, want) or unequal:
+            raise AssertionError(f"[grpo] step {global_step}: versions (server, client, trainer) {versions}, want "
+                                 f"{want}; {len(unequal)} served parameters differ from the trainer's bf16 export "
+                                 f"(first {unequal[:3]})")
+        commit(epoch, step, global_step, stats)
+
+    loop.stats_logger.commit = commit_checked
+    s0 = {k: engine.stats[k] for k in ("decode_steps", "aborted", "suffix_prefill_batches", "generated_tokens")}
+    bytes0 = client._metrics.update_bytes.get()
+    try:
+        # main path: counts to 0 just before, read just after
+        for kern in kernels:
+            kern.launches = 0
+        paged_attention_stacked.launches = 0
+        for k in psa.launches:
+            psa.launches[k] = 0
+        sampler = threading.Thread(target=sample, name="grpo-sampler", daemon=True)
+        sampler.start()
+        t0 = time.monotonic()
+        loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+        wall = time.monotonic() - t0
+        # drain: no new submissions, the episodes in flight finish
+        client.pause()
+        deadline = time.monotonic() + 600
+        while client.executor.staleness.stat.running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        while any(t is not None for t in engine._slot_task) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.1)
+        counts = [k.launches for k in kernels]
+        launches1, launches3 = paged_attention_stacked.launches, dict(psa.launches)
+        d = {k: engine.stats[k] - v for k, v in s0.items()}
+        stop.set()
+        sampler.join(timeout=10)
+        staged_bytes = client._metrics.update_bytes.get() - bytes0
+    finally:
+        stop.set()
+        loop.close()
+        srv.stop()
+
+    # checks
+    if len(per_step) != GRPO_STEPS or len(commits) != GRPO_STEPS:
+        raise AssertionError(f"[grpo] {len(per_step)} steps and {len(commits)} commits, want {GRPO_STEPS} each")
+    if d["aborted"] != 0:
+        raise AssertionError(f"[grpo] {d['aborted']} requests ended with 'abort' under the hold fence")
+    if len(fences) != GRPO_STEPS or not all(fences):
+        raise AssertionError(f"[grpo] hold answers {fences}: want {GRPO_STEPS} x fenced")
+    n_rows = GRPO_CLIENT["consumer_batch_size"] * group
+    spans = []
+    for i, (b, v) in enumerate(batches):
+        _check_rollout_rows(b, n_rows, n_new, f"grpo batch {i}")
+        gen = b["loss_mask"] > 0
+        lo = int(b["versions"][gen].min())
+        if v - lo > GRPO_CLIENT["max_head_offpolicyness"]:
+            raise AssertionError(f"[grpo] batch {i} consumed at v{v} holds tokens of v{lo}")
+        spans.append(sum(int(b["versions"][j][gen[j]].min() != b["versions"][j][gen[j]].max())
+                         for j in range(n_rows)))
+    if not gaps[0] <= LOGPROB_TOL:
+        raise AssertionError(f"[grpo] the trainer's logprobs vs the served ones on batch 0: {gaps[0]:.4f}")
+    for st in per_step:
+        s = st["stats"]
+        if not (math.isfinite(s["ppo_actor/loss"]) and math.isfinite(s["ppo_actor/grad_norm"])):
+            raise AssertionError(f"[grpo] loss / grad_norm not finite: {s}")
+    n_fwd, n_mbs = sum(fwd_grids), sum(mb_counts)
+    want = [L * n_fwd + 2 * L * n_mbs, L * n_mbs, L * n_mbs]
+    if counts != want:
+        raise AssertionError(f"[grpo] K2 / K3 / K4 launches {counts} != {want} ({n_fwd} forward grids, {n_mbs} "
+                             "microbatches)")
+    steps = d["decode_steps"]
+    if steps == 0 or launches1 != L * steps:
+        raise AssertionError(f"[grpo] #1 launches {launches1} != {L} layers x {steps} decode steps")
+    n3 = sum(launches3.values())
+    if n3 != L * d["suffix_prefill_batches"]:
+        raise AssertionError(f"[grpo] #3 launches {launches3} != {L} layers x {d['suffix_prefill_batches']} warm "
+                             "batches")
+
+    # the prints
+    prev = [0, 0, 0]
+    for i, st in enumerate(per_step):
+        s = st["stats"]
+        step_counts = [c - p for c, p in zip(st["counts"], prev)]
+        prev = st["counts"]
+        log(f"[grpo] {card}: step {i}: {s['step_secs']:.2f} s; rollout_wait {s['phase/rollout_wait_s']:.2f} s, "
+            f"host_prep {s['phase/host_prep_s']:.2f} s, ppo_update {s['timing/train_step']:.2f} s, weight_publish "
+            f"{s['phase/weight_publish_s']:.2f} s (stage {s['update_weights_stage_secs']:.2f} s with generation "
+            f"running, commit fence {s['update_weights_pause_secs'] * 1e3:.1f} ms); "
+            f"{s['generation_tokens_during_update']:.0f} tokens generated during the update; {spans[i]} of {n_rows} "
+            f"rows span a commit; K2 / K3 / K4 launches {step_counts} ({st['fwd']} forward grids, {st['mbs']} "
+            f"microbatches); loss {s['ppo_actor/loss']:.6f} grad_norm {s['ppo_actor/grad_norm']:.4f}")
+    per_update = staged_bytes / GRPO_STEPS
+    stage_s = [st["stats"]["update_weights_stage_secs"] for st in per_step]
+    log(f"[grpo] {card}: {per_update / 1e9:.3f} GB of bf16 staged per update in {len(commits)} commits, staging "
+        + ", ".join(f"{per_update / t / 1e9:.2f}" for t in stage_s) + " GB/s; over the 3 updates the encoder "
+        f"thread took {stage_parts['encode']:.2f} s and the bucket posts {stage_parts['post']:.2f} s (overlapped) "
+        f"of {sum(stage_s):.2f} s staging; on the server, each hold's drain "
+        + ", ".join(f"{t * 1e3:.1f}" for t in fence_s["hold"]) + " ms and each commit "
+        + ", ".join(f"{t * 1e3:.1f}" for t in fence_s["commit"]) + " ms")
+
+    def ms_per_step(on: bool) -> tuple[float, int]:
+        """Decode wall ms a step over the sampled intervals with slots active,
+        inside (on) or outside the staging windows."""
+        dt = ds = 0
+        for (ta, sa, aa, ga), (tb, sb, _, gb) in zip(samples, samples[1:]):
+            if aa and ga == on and gb == on:
+                dt += tb - ta
+                ds += sb - sa
+        return (dt / ds * 1e3 if ds else float("nan")), ds
+
+    (ms_on, n_on), (ms_off, n_off) = ms_per_step(True), ms_per_step(False)
+    log(f"[grpo] {card}: decode step wall {ms_on:.2f} ms while staging ({n_on} steps) vs {ms_off:.2f} ms outside "
+        f"({n_off} steps); #1 launches {launches1} = {L} x {steps} decode steps; #3 launches {launches3} = {L} x "
+        f"{d['suffix_prefill_batches']} warm batches; holds answered {fences}; no request aborted")
+    tokens = sum(int(np.asarray(b["attention_mask"]).sum()) for b, _ in batches)
+    ppo_s = sum(st["stats"]["timing/train_step"] for st in per_step)
+    warm_tokens = sum(int(np.asarray(b["attention_mask"]).sum()) for b, _ in batches[1:])
+    warm_s = sum(st["stats"]["timing/train_step"] for st in per_step[1:])
+    beside = f"{train['tokens_per_s']:.0f} tokens/s in process (train phase)" if train else "train phase not run"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[grpo] {card}: trainer {tokens / ppo_s:.0f} tokens/s over HTTP ({tokens} tokens in {ppo_s:.2f} s of "
+        f"ppo_update; {warm_tokens / warm_s:.0f} tokens/s over steps 1-2, the first step carrying the process's "
+        f"one-time cost when it trains first) vs {beside}; the trainer's logprobs vs the served ones on batch 0: "
+        f"max|diff| {gaps[0]:.4f} "
+        f"(tol {LOGPROB_TOL}); batches consumed at versions {[v for _, v in batches]}; the loop {wall:.1f} s; "
+        f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    log(f"[grpo] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
+    del loop, trainer, engine, srv
+    return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
+                launches1=launches1, launches3=n3, steps=steps, stage_s=stage_s, per_update_bytes=per_update,
+                peak_gib=peak, tokens_per_s=tokens / ppo_s, warm_tokens_per_s=warm_tokens / warm_s)
+
+
 def _distinct_prefixes(seqs) -> int:
     """Trie nodes counted independently of ``build_tree``: the number of
     distinct (prefix + token) sequences."""
@@ -4056,8 +4388,8 @@ def phase_train_moe(card: str) -> dict:
                 tree=tree)
 
 
-PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "spec", "train", "kernel_tree",
-          "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
+PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "spec", "train", "grpo",
+          "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -4132,6 +4464,7 @@ def main(argv: list[str]) -> int:
         "rollout": lambda: phase_rollout(card, serve=res["serve"][1] if "serve" in res else None),
         "spec": lambda: phase_spec(card),
         "train": lambda: phase_train(card),
+        "grpo": lambda: phase_grpo(card, train=res.get("train")),
         "kernel_tree": phase_kernel_tree,
         "train_tree": lambda: phase_train_tree(card),
         "kernel_gmm": phase_kernel_gmm,
@@ -4161,7 +4494,7 @@ def main(argv: list[str]) -> int:
             "source": "areal_tpu_torch/csrc/paged_attention.cu",
             "replaces": "areal_tpu/ops/paged_attention_q8.py:274",
             "launches": launches,
-            "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"]},
+            "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"], "grpo": res["grpo"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -4185,6 +4518,7 @@ def main(argv: list[str]) -> int:
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces[name],
             "launches": train["counts"][name],
+            "launches_by_phase": {"train": train["counts"][name], "grpo": res["grpo"]["counts"][name]},
             "max_abs_err": d["max_abs_err"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],
@@ -4205,7 +4539,8 @@ def main(argv: list[str]) -> int:
         "replaces": "areal_tpu/ops/paged_suffix_attention.py:370",
         "launches": chain + tree,
         "launches_by_kind": {"chain": chain, "tree": tree},
-        "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"]},
+        "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"],
+                              "grpo": res["grpo"]["launches3"]},
         "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],

@@ -78,6 +78,33 @@ def test_no_silent_cpu_fallback():
         InferenceServer(cfg)
     with pytest.raises(RuntimeError):
         qwen.QwenModel(qwen.ModelConfig(num_layers=1))
+    # the trainer loop: PPOTrainer builds its train engine on the card, and
+    # refuses before it reaches the rollout client
+    from areal_tpu_torch.api.config import PPOConfig, PreemptionConfig
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+
+    class _Rollout:
+        calls = 0
+
+        def __getattr__(self, name):
+            _Rollout.calls += 1
+            raise AssertionError(f"the rollout engine was used ({name})")
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PPOTrainer(PPOConfig(weight_update_mode="mem", preemption=PreemptionConfig(enabled=False)),
+                   [{"prompt_ids": [1]}], rollout=_Rollout())
+    assert _Rollout.calls == 0
+    # the weight update over HTTP streams what it is given and never moves
+    # the trainer's tensors: a CUDA tensor without a card cannot even exist,
+    # and a train engine without device="cpu" raises (above)
+    from areal_tpu_torch.api.config import InferenceEngineConfig
+    from areal_tpu_torch.api.io_struct import WeightUpdateMeta
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+
+    c = RemoteTorchEngine(InferenceEngineConfig(), addresses=["127.0.0.1:1"])
+    with pytest.raises(ValueError, match="needs params"):
+        c.update_weights(WeightUpdateMeta())
+    c.destroy()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

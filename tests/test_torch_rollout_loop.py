@@ -260,10 +260,19 @@ def test_unported_client_paths_refused():
     with pytest.raises(NotImplementedError, match="item 8"):
         RemoteTorchEngine(InferenceEngineConfig(), addresses=["127.0.0.1:1", "127.0.0.1:2"])
     c = RemoteTorchEngine(InferenceEngineConfig(), addresses=["127.0.0.1:1"])
-    with pytest.raises(NotImplementedError, match="1b"):
-        c.update_weights(t_io.WeightUpdateMeta())
-    with pytest.raises(NotImplementedError, match="1b"):
-        c.pause_generation(mode="hold")
+    # the weight update's unported variants (the bf16 mem update and the
+    # hold fence are ported: tests/test_torch_weight_sync.py)
+    params = {"w": torch.zeros(2)}
+    with pytest.raises(NotImplementedError, match="item 4"):
+        c.update_weights(t_io.WeightUpdateMeta(wire_format="q8"), params=params)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        c.update_weights(t_io.WeightUpdateMeta(lora_only=True), params=params)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        c.update_weights(t_io.WeightUpdateMeta(type="disk", path="unused"), params=params)
+    relay = RemoteTorchEngine(InferenceEngineConfig(weight_update_relay=True), addresses=["127.0.0.1:1"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        relay.update_weights(t_io.WeightUpdateMeta(), params=params)
+    relay.destroy()
     with pytest.raises(NotImplementedError, match="item 3"):
         c.attach_journal(object())
     with pytest.raises(NotImplementedError, match="item 3"):
