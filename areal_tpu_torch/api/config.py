@@ -2,8 +2,9 @@
 port's slices read, with the same names and defaults (one exception is
 marked below). No YAML loader: configs are built in code.
 
-- Serving: ``ServerConfig`` (and ``MeshConfig``, ``PrefixCacheConfig`` and
-  ``SpeculativeConfig``). The weights' dtype is the model config's
+- Serving: ``ServerConfig`` (and ``MeshConfig``, ``PrefixCacheConfig``,
+  ``SpeculativeConfig``, ``RequestLifecycleConfig`` and
+  ``PreemptionConfig``). The weights' dtype is the model config's
   (``models/qwen.py:ModelConfig.dtype``).
 - Training: ``NormConfig``, ``OptimizerConfig``, ``TrainEngineConfig`` and
   ``PPOActorConfig``.
@@ -98,6 +99,67 @@ class SpeculativeConfig:
 
 
 @dataclass
+class RequestLifecycleConfig:
+    """Overload-safe serving: request deadlines, cancellation, admission
+    control and progress watchdogs (``areal_tpu/api/config.py:228``).
+
+    One dataclass serves both sides of the wire. Client side
+    (``InferenceEngineConfig.lifecycle``): ``default_deadline_s`` stamps a
+    deadline on every generation request that carries none, sent as the
+    ``x-areal-deadline`` header (absolute unix-epoch seconds), and a 429
+    waits out its Retry-After within ``backpressure_wait_s``. Server side
+    (``ServerConfig.lifecycle``): admission control answers 429 +
+    Retry-After when the queue or the page pool is saturated, the decode
+    loop reaps deadline-expired slots between chunks (partial output with
+    ``truncated_by="deadline"``), and a per-slot watchdog aborts slots that
+    stop emitting tokens. The gateway fields wait for ROADMAP Queue A item
+    8 (``openai/``)."""
+
+    enabled: bool = True
+    # client side: deadline stamped on requests that carry none (seconds
+    # from submission; None = only explicit per-request deadlines apply)
+    default_deadline_s: float | None = None
+    # admission control: reject /generate with 429 when the engine queue +
+    # backlog reaches this depth. 0 = unbounded (off).
+    max_queue_depth: int = 0
+    # free-page headroom gate: reject when free pool pages plus
+    # radix-reclaimable pages fall below this. 0 = off.
+    min_free_pages: int = 0
+    # Retry-After seconds returned with 429 rejections
+    retry_after_s: float = 1.0
+    # bounded multiplicative jitter on the emitted hint and the client's
+    # backpressure wait: each is scattered into [x, x*(1+jitter)]
+    retry_after_jitter: float = 0.5
+    # client side: wall-clock seconds a request keeps honoring 429
+    # Retry-After hints before giving up; the waits spend no failure-retry
+    # attempt. 0 = fail on the first 429.
+    backpressure_wait_s: float = 30.0
+    # per-slot progress watchdog: an active slot that emits no token for
+    # this long is aborted. 0 = off.
+    watchdog_s: float = 0.0
+    # wedge escalation: when the decode loop makes no pass for this long
+    # while work is pending, /health answers 503 "wedged". 0 = off.
+    engine_stall_escalate_s: float = 0.0
+    gateway_max_inflight: int = 0
+    gateway_interactive_headroom: int = 0
+
+
+@dataclass
+class PreemptionConfig:
+    """Preemption-tolerant lifecycle: SIGTERM drains the trainer after an
+    emergency recover dump (ROADMAP Queue A item 3); the JAX package's
+    default ``enabled=True`` is kept, so a port trainer config sets it to
+    False. The server reads ``drain_budget_s`` as the default budget of
+    ``POST /drain``."""
+
+    enabled: bool = True
+    grace_s: float = 25.0
+    drain_budget_s: float = 10.0
+    exit_code: int = 0
+    handle_sigusr1: bool = True
+
+
+@dataclass
 class ServerConfig:
     """Inference server + decode engine settings."""
 
@@ -128,6 +190,21 @@ class ServerConfig:
     # the hold fence's safety net: a hold whose /continue_generation got
     # lost self-releases after this many seconds (<= 0: never)
     hold_fence_timeout_s: float = 30.0
+    # keep aborted requests' KV parked in their slots across weight updates
+    # so the client's abort -> resubmit loop resumes with zero re-prefill.
+    # The retained KV was computed under the previous policy, the staleness
+    # decoupled PPO already corrects through per-token versions. False
+    # recomputes the KV under the new weights on every resume.
+    kv_reuse_across_updates: bool = True
+    # request lifecycle: admission control, deadline reaping between decode
+    # chunks, the per-slot watchdog and the wedge detector
+    lifecycle: RequestLifecycleConfig = field(default_factory=RequestLifecycleConfig)
+    # the drain (POST /drain): admission stops (429), in-flight decodes
+    # finish or park within preemption.drain_budget_s
+    preemption: PreemptionConfig = field(default_factory=PreemptionConfig)
+    # shared secret POST /autopilot/knobs must carry in the
+    # x-areal-autopilot-token header. Empty = unauthenticated.
+    autopilot_token: str = ""
     # where streamed weight-update buckets stage while generation runs:
     # "device" copies each bucket to the card on arrival (a second copy of
     # the weights until the commit), "host" keeps them in pinned host memory
@@ -254,20 +331,6 @@ class PPOCriticConfig(TrainEngineConfig):
     mask_no_eos_with_zero: bool = False
 
 
-@dataclass
-class PreemptionConfig:
-    """Preemption-tolerant lifecycle: SIGTERM drains the trainer after an
-    emergency recover dump. Not ported (ROADMAP Queue A item 3); the JAX
-    package's default ``enabled=True`` is kept, so a port config sets it to
-    False."""
-
-    enabled: bool = True
-    grace_s: float = 25.0
-    drain_budget_s: float = 10.0
-    exit_code: int = 0
-    handle_sigusr1: bool = True
-
-
 # -- the rollout client -----------------------------------------------------
 
 
@@ -295,24 +358,6 @@ class GatewayTierConfig:
     membership_poll_s: float = 1.0
     static_shards: list[str] = field(default_factory=list)
     route_adopt: bool = True
-
-
-@dataclass
-class RequestLifecycleConfig:
-    """Request deadlines, 429 admission control, backpressure waits and
-    progress watchdogs (ROADMAP Queue A item 2)."""
-
-    enabled: bool = True
-    default_deadline_s: float | None = None
-    max_queue_depth: int = 0
-    min_free_pages: int = 0
-    retry_after_s: float = 1.0
-    retry_after_jitter: float = 0.5
-    backpressure_wait_s: float = 30.0
-    watchdog_s: float = 0.0
-    engine_stall_escalate_s: float = 0.0
-    gateway_max_inflight: int = 0
-    gateway_interactive_headroom: int = 0
 
 
 @dataclass
@@ -528,7 +573,7 @@ class InferenceEngineConfig:
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for a field set away from its
         default whose code path is a later slice of the port: the rollout
-        path here is one server, no routing brain, no deadlines, no journal
+        path here is one server, no routing brain, no gateway, no journal
         and no autopilot."""
         if self.routing_policy != "round_robin" or self.schedule_policy != "round_robin":
             raise NotImplementedError(
@@ -549,10 +594,9 @@ class InferenceEngineConfig:
                 f"fault_tolerance.{changed[0]} (retry budget, circuit breakers, failover, fleet "
                 "probe, chaos): ROADMAP Queue A item 8 (robustness)"
             )
-        if self.lifecycle != RequestLifecycleConfig():
-            raise NotImplementedError(
-                "lifecycle (deadlines, 429 backpressure, watchdog): ROADMAP Queue A item 2"
-            )
+        lc = self.lifecycle
+        if (lc.gateway_max_inflight, lc.gateway_interactive_headroom) != (0, 0):
+            raise NotImplementedError("lifecycle.gateway_* (gateway load shedding): ROADMAP Queue A item 8")
         if self.journal != TrajectoryJournalConfig():
             raise NotImplementedError("journal (trajectory journal): ROADMAP Queue A item 3")
         if self.autopilot != AutopilotConfig():

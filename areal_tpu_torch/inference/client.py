@@ -6,8 +6,14 @@ It implements the ``InferenceEngine`` contract against one
 ``inference/server.py`` address. The heart is the interruptible
 ``agenerate`` loop: on stop reason "abort" (the server paused) it waits out
 the pause and resubmits prompt + the tokens so far, keeping the per-token
-policy versions of every attempt; the server's radix tree holds the
-aborted request's full pages, so the resubmit prefills only its suffix.
+policy versions of every attempt; the server parks the aborted request's
+KV under its rid, so the resubmit resumes with zero re-prefill (or, when
+the parking was evicted, prefills only the suffix past the radix-cached
+pages). A request's deadline (``ModelRequest.deadline``, or
+``lifecycle.default_deadline_s`` from submission) rides the
+``x-areal-deadline`` header, and a 429 from the server's admission gate is
+backpressure, not failure: the client waits out its Retry-After within
+``lifecycle.backpressure_wait_s`` and spends no retry attempt on it.
 Rollout submission (``submit`` / ``wait`` / ``rollout_batch`` /
 ``prepare_batch``) goes through the ``WorkflowExecutor``, which reads the
 staleness bound against this client's version.
@@ -27,9 +33,9 @@ then commits it inside the fence ``weight_commit_fence`` names: "hold"
 (the full pause) or "none". The version it commits is the client's + 1.
 
 Later slices: more than one address, routing policies, the retry budget,
-circuit breakers, the fleet probe and the weight-broadcast relay (ROADMAP
-Queue A item 8); request deadlines (item 2); the q8 wire and LoRA updates
-(item 4); disk updates (item 3); images (item 5).
+circuit breakers, the fleet probe, the weight-broadcast relay and the
+failover of a draining server's 429 (ROADMAP Queue A item 8); the q8 wire
+and LoRA updates (item 4); disk updates (item 3); images (item 5).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from contextlib import contextmanager
 
 import torch
 
+from areal_tpu_torch.api import wire
 from areal_tpu_torch.api.config import InferenceEngineConfig
 from areal_tpu_torch.api.engine_api import InferenceEngine
 from areal_tpu_torch.api.io_struct import (
@@ -67,6 +74,14 @@ from areal_tpu_torch.utils.data import TensorDict
 logger = logging.getLogger("areal_tpu_torch.client")
 
 
+class _Backpressure(RuntimeError):
+    """A 429 from the admission gate: ``retry_after`` seconds to wait."""
+
+    def __init__(self, msg: str, retry_after: float):
+        super().__init__(msg)
+        self.retry_after = retry_after
+
+
 class _ConnPool:
     """Persistent HTTP/1.1 client connections on asyncio streams, idle ones
     kept per (event loop, address). A request takes an idle connection or
@@ -79,10 +94,10 @@ class _ConnPool:
         return self._idle.setdefault(asyncio.get_running_loop(), {}).setdefault(addr, [])
 
     @staticmethod
-    async def _roundtrip(reader, writer, addr: str, method: str, path: str, data: bytes):
+    async def _roundtrip(reader, writer, addr: str, method: str, path: str, data: bytes, extra: str):
         head = (
             f"{method} {path} HTTP/1.1\r\nHost: {addr}\r\nContent-Type: application/json\r\n"
-            f"Content-Length: {len(data)}\r\n\r\n"
+            f"{extra}Content-Length: {len(data)}\r\n\r\n"
         )
         writer.write(head.encode("latin-1") + data)
         await writer.drain()
@@ -100,10 +115,15 @@ class _ConnPool:
         n = int(headers.get("content-length") or 0)
         body = await reader.readexactly(n) if n else b""
         keep = parts[0] == "HTTP/1.1" and headers.get("connection", "").lower() != "close"
-        return int(parts[1]), body, keep
+        return int(parts[1]), body, keep, headers
 
-    async def request(self, addr: str, method: str, path: str, payload: dict | None, timeout: float) -> dict:
+    async def request(
+        self, addr: str, method: str, path: str, payload: dict | None, timeout: float, headers: dict | None = None
+    ) -> dict:
+        """One request; a 429 raises ``_Backpressure``, another status of
+        400 or more RuntimeError."""
         data = json.dumps(payload).encode() if payload is not None else b""
+        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
         idle = self._idle_list(addr)
         while True:
             reused = bool(idle)
@@ -113,8 +133,8 @@ class _ConnPool:
                 host, port = addr.rsplit(":", 1)
                 reader, writer = await asyncio.wait_for(asyncio.open_connection(host, int(port)), timeout)
             try:
-                status, body, keep = await asyncio.wait_for(
-                    self._roundtrip(reader, writer, addr, method, path, data), timeout
+                status, body, keep, rheaders = await asyncio.wait_for(
+                    self._roundtrip(reader, writer, addr, method, path, data, extra), timeout
                 )
             except (ConnectionResetError, BrokenPipeError, asyncio.IncompleteReadError):
                 writer.close()
@@ -128,6 +148,12 @@ class _ConnPool:
                 idle.append((reader, writer))
             else:
                 writer.close()
+            if status == 429:
+                try:
+                    retry_after = float(rheaders.get("retry-after", "1"))
+                except ValueError:
+                    retry_after = 1.0
+                raise _Backpressure(f"admission rejected (429) by {addr}{path}", retry_after)
             if status >= 400:
                 raise RuntimeError(f"{method} {addr}{path}: HTTP {status}: {body[:200]!r}")
             return json.loads(body) if body.strip() else {}
@@ -297,8 +323,6 @@ class RemoteTorchEngine(InferenceEngine):
         ``min_new_tokens`` budget and the stage timings span the attempts."""
         if req.image_data is not None:
             raise NotImplementedError("image inputs: ROADMAP Queue A item 5 (vision)")
-        if req.deadline is not None:
-            raise NotImplementedError("request deadlines: ROADMAP Queue A item 2")
         g = req.gconfig
         accumulated: list[int] = []
         logprobs: list[float] = []
@@ -310,6 +334,19 @@ class RemoteTorchEngine(InferenceEngine):
         stop_reason = StopReason.ABORT.value
         truncated_by = ""
         attempt_input = list(req.input_ids)
+        # the request lifecycle: the config's default deadline on a request
+        # that carries none; the server reaps the slot between chunks once
+        # it passes
+        lc = self.config.lifecycle
+        deadline = req.deadline
+        if deadline is None and lc.enabled and lc.default_deadline_s:
+            deadline = time.time() + lc.default_deadline_s
+        headers = {}
+        if deadline is not None:
+            headers[wire.DEADLINE_HEADER] = f"{deadline:.6f}"
+        prio = req.metadata.get("priority")
+        if prio:
+            headers[wire.PRIORITY_HEADER] = str(prio)
         addr = self.addresses[0]
         owner_task = self._register_task_rid(req.rid, addr)
         try:
@@ -319,7 +356,7 @@ class RemoteTorchEngine(InferenceEngine):
                     "rid": req.rid,
                     "image_data": None,
                     "image_grid_thw": None,
-                    "deadline": None,
+                    "deadline": deadline,
                     "sampling_params": {
                         "max_new_tokens": remaining,
                         "greedy": g.greedy,
@@ -335,7 +372,7 @@ class RemoteTorchEngine(InferenceEngine):
                         "min_new_tokens": max(0, g.min_new_tokens - len(accumulated)),
                     },
                 }
-                data = await self._post_json(addr, "/generate", payload)
+                data = await self._post_json(addr, "/generate", payload, headers=headers)
                 tm = data.get("timing") or {}
                 for k in timing:
                     timing[k] += float(tm.get(k) or 0.0)
@@ -436,20 +473,43 @@ class RemoteTorchEngine(InferenceEngine):
             d *= 1.0 + self._rng.uniform(-jitter, jitter)
         return max(0.0, d)
 
-    async def _post_json(self, addr: str, path: str, payload: dict) -> dict:
-        """POST with ``request_retries`` tries in all and exponential
-        backoff between them."""
+    async def _post_json(self, addr: str, path: str, payload: dict, headers: dict | None = None) -> dict:
+        """POST with ``request_retries`` tries in all and exponential backoff
+        between them (``client.py:734``). A 429 is backpressure, not failure:
+        the wait honors its Retry-After (scattered into [x, x*(1+jitter)])
+        within ``lifecycle.backpressure_wait_s`` of wall clock and spends
+        no attempt; past that budget the call fails."""
+        lc = self.config.lifecycle
+        bp_budget = lc.backpressure_wait_s if lc.enabled else 0.0
+        jitter = lc.retry_after_jitter if lc.enabled else 0.0
+        bp_deadline: float | None = None
+        retry_after = 0.0
         last_exc: Exception | None = None
-        for attempt in range(self._attempts):
-            if attempt > 0:
+        attempt = 0  # failed attempts; a 429 is not one
+        while attempt < self._attempts:
+            if retry_after > 0:
+                await asyncio.sleep(retry_after)
+                retry_after = 0.0
+            elif attempt > 0:
                 self._robust.retries.labels(kind="post").inc()
                 await asyncio.sleep(self._delay(attempt - 1))
             try:
-                return await self._http.request(addr, "POST", path, payload, self.config.request_timeout)
+                return await self._http.request(addr, "POST", path, payload, self.config.request_timeout, headers)
             except asyncio.CancelledError:
                 raise
+            except _Backpressure as e:
+                last_exc = e
+                retry_after = e.retry_after
+                if jitter > 0 and retry_after > 0:
+                    retry_after *= 1.0 + self._rng.random() * jitter
+                now = time.monotonic()
+                if bp_deadline is None:
+                    bp_deadline = now + bp_budget
+                if now + retry_after > bp_deadline:
+                    break  # saturated past the backpressure budget
             except Exception as e:  # noqa: BLE001 — retried, then raised below
                 last_exc = e
+                attempt += 1
         raise RuntimeError(f"POST {addr}{path} failed after retries") from last_exc
 
     async def _get_json(self, addr: str, path: str) -> dict:

@@ -29,18 +29,39 @@ The shape of the JAX engine is kept:
   ``copy_`` in place), which gives the same function and leaves them
   usable by a captured CUDA graph.
 - ``pause_generation`` (abort mode) ends every in-flight request with
-  ``stop_reason="abort"`` and its partial tokens, publishing its full pages
-  into the radix tree, and returns once it has; the client resubmits prompt
-  + tokens so far, which prefills only the suffix.
+  ``stop_reason="abort"`` and its partial tokens and PARKS its KV in its
+  slot (``_Parked``, rid affinity): the client's resubmit of prompt +
+  tokens so far under the same rid resumes there with zero re-prefill,
+  across a weight commit too unless ``kv_reuse_across_updates=False``. The
+  parked request's full pages are also published into the radix tree, so a
+  resubmit whose parking was evicted (pool pressure: radix leaves go first,
+  then the oldest parking) or whose ids changed (the next turn of an
+  episode) prefills only its suffix.
 - ``pause_generation(mode="hold")``, the commit fence: the loop drains its
   in-flight chunk and idles with slots, KV and device state intact
   (``wait_fence_ack`` returns once it has); a commit applies at the top of
   the next pass, and ``continue_generation`` resumes decoding in place, so
   a request that spans the commit carries both versions. The hold releases
   itself after ``hold_fence_timeout_s``.
-- ``abort_request(rid)`` cancels one request, queued or decoding: the loop
-  reaps it between chunks (the chunk in flight drained first) and answers
-  ``stop_reason="cancelled"``.
+- The request lifecycle (``decode_engine.py:871-1329``): ``abort_request``
+  cancels one request, queued, decoding or parked; deadlines
+  (``ModelRequest.deadline``) are reaped between chunks with the partial
+  output (``truncated_by="deadline"``), and a request whose deadline passed
+  in the queue never prefills; the per-slot watchdog aborts a slot that
+  emitted nothing for ``lifecycle.watchdog_s``; ``is_wedged`` reports a
+  loop that made no pass for ``lifecycle.engine_stall_escalate_s`` while
+  work is pending; ``check_admission`` is the server's 429 gate (queue
+  depth, free-page headroom, draining); ``drain`` closes admission, lets
+  in-flight decodes finish within a budget and parks the rest;
+  ``apply_autopilot_knobs`` sets the gates and the radix cap; and
+  ``release_memory`` / ``resume_memory`` move the served weights to pinned
+  host memory and drop the KV pool, then bring both back.
+- The frequency penalty (``enable_frequency_penalty``): a [S, V] count
+  table of each slot's generated tokens lives on the device (uint16
+  values, saturating at 65,535, held in an int16 tensor); the chunk
+  subtracts ``frequency_penalty * counts`` from the raw logits before the
+  sampler and counts each sampled token, with no host sync. Admission
+  zeroes a slot's counts and a resume restores its emitted tokens'.
 - Prefix sharing, as in the JAX engine's defaults: identical prompts of one
   admission pass (a GRPO group's samples) prefill once and the others alias
   the primary's full pages plus a private copy of the page holding row
@@ -58,11 +79,9 @@ The shape of the JAX engine is kept:
   past the accepted tokens roll back to the pool.
 
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
-int8 weights, frequency penalty, image inputs, multi-device meshes and
-loading HF checkpoints. Also not ported: KV parking across an abort
-(a resubmit re-prefills its last partial page through a radix hit), the
-autopilot's radix cap, deadlines and the watchdog (item 2), LoRA and int8
-weight updates (item 4), and the observability surfaces.
+int8 weights, image inputs, multi-device meshes and loading HF checkpoints.
+Also not ported: LoRA and int8 weight updates (item 4), and the request
+timelines, the flight recorder and the HBM ledger (item 2b).
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -89,6 +108,8 @@ from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
 from areal_tpu_torch.inference import speculative as spec_mod
 from areal_tpu_torch.models import qwen
+from areal_tpu_torch.observability import catalog as obs_catalog
+from areal_tpu_torch.utils import offload
 from areal_tpu_torch.utils.data import round_up_to_bucket
 
 logger = logging.getLogger("areal_tpu_torch.decode_engine")
@@ -96,6 +117,7 @@ logger = logging.getLogger("areal_tpu_torch.decode_engine")
 _MAX_STOP = 8  # stop-token-id slots per request (padded with -1)
 _TOPK_CAP = 1024  # static candidate-set size for per-slot top-k/top-p
 _PREFILL_SIZES = (8, 4, 2, 1)  # batched-prefill group sizes
+_COUNT_MAX = 65535  # the frequency penalty's counts saturate here (uint16)
 
 
 @dataclass
@@ -108,7 +130,26 @@ class _Task:
     out_logprobs: list[float] = field(default_factory=list)
     out_versions: list[int] = field(default_factory=list)
     first_token_time: float | None = None
-    truncated_by: str = ""  # "cancelled" when /abort_request reaped it
+    # "cancelled" (/abort_request), "deadline" or "watchdog" when reaped
+    truncated_by: str = ""
+
+
+@dataclass
+class _Parked:
+    """KV retained across an abort pause, for rid affinity
+    (``decode_engine.py:102``). The client resubmits ``prompt + emitted``
+    under the same rid after continue_generation; while the slot's pages are
+    intact the decode state is restored with zero re-prefill. The entry owns
+    the slot's pages until the resume or an eviction."""
+
+    slot: int
+    full_ids: list[int]  # prompt + emitted; the cache holds all but the last
+    pos: int  # decode position of the pending (last) token
+    pages: list[int] = field(default_factory=list)  # owned KV pages
+    # policy version each page's KV was computed under (parallel to pages)
+    page_versions: list[int] = field(default_factory=list)
+    n_emitted: int = 0  # completion tokens so far (the penalty's restore)
+    park_time: float = field(default_factory=time.monotonic)
 
 
 # ---------------------------------------------------------------------------
@@ -288,12 +329,16 @@ class DecodeEngine:
         self._thread: threading.Thread | None = None
         self._loop_error: BaseException | None = None
         self.initialized = False
+        self._parked: dict[str, _Parked] = {}  # rid -> KV retained across an abort
         self.stats = {
             "generated_tokens": 0,
             "completed": 0,
             "aborted": 0,
             "cancelled": 0,
             "chunks": 0,
+            "kv_resumes": 0,  # same-rid resubmits resumed from parked KV
+            "deadline_reaped": 0,  # the JAX engine's "deadline_exceeded"
+            "watchdog_fired": 0,
             "decode_steps": 0,
             "prefills": 0,
             "prefill_batches": 0,
@@ -320,6 +365,23 @@ class DecodeEngine:
         # speculative decoding: non-None only while enabled
         self._spec_cfg = None
         self._drafter = None
+        # registry counters beside the stats (observability/catalog.py)
+        self._obs = obs_catalog.engine_metrics()
+        self._obs_pc = obs_catalog.prefix_cache_metrics()
+        self._obs_lc = obs_catalog.lifecycle_metrics()
+        # decode-loop liveness: the last time the loop began a pass (the
+        # wedge detector reads it from /health's thread)
+        self._last_loop_ts = time.monotonic()
+        # the drain: set = admission closed; a terminal drain cannot end
+        self._draining = threading.Event()
+        self._drain_terminal = False
+        self._drain_summary: dict | None = None
+        # setpoints applied through POST /autopilot/knobs, for /statusz
+        self._autopilot_lock = threading.Lock()
+        self._autopilot_knobs: dict[str, float] = {}
+        self._autopilot_applied_at: float | None = None
+        self._offloaded = False  # release_memory moved the weights to the host
+        self._freq_enabled = bool(config.enable_frequency_penalty)
 
     @staticmethod
     def _check_supported(cfg: ServerConfig) -> None:
@@ -329,8 +391,6 @@ class DecodeEngine:
             raise NotImplementedError(
                 f"quantization={cfg.quantization!r}: ROADMAP Queue A, LoRA / int8 weights"
             )
-        if cfg.enable_frequency_penalty:
-            raise NotImplementedError("frequency penalty: ROADMAP Queue A, engine lifecycle")
         m = cfg.mesh
         if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
             raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
@@ -361,6 +421,9 @@ class DecodeEngine:
         # host mirror of per-slot state; the authoritative copy between
         # chunks is on the device (self._dev_state)
         self._slot_task: list[_Task | None] = [None] * S
+        # last time each slot made progress (admission or a token); the
+        # per-slot watchdog compares it with lifecycle.watchdog_s
+        self._slot_progress: list[float] = [0.0] * S
         self._state = {
             "ids": np.zeros(S, np.int64),
             "pos": np.zeros(S, np.int64),
@@ -372,11 +435,18 @@ class DecodeEngine:
             "top_p": np.ones(S, np.float32),
             # stop tokens are honored only once remaining - 1 <= min_rem
             "min_rem": np.zeros(S, np.int64),
+            "freq_pen": np.zeros(S, np.float32),
             "stop_ids": np.full((S, _MAX_STOP), -1, np.int64),
         }
         self._dev_state = {
             k: torch.from_numpy(v.copy()).to(self.device) for k, v in self._state.items()
         }
+        # the frequency penalty's per-slot counts of generated tokens: on
+        # the device only (the host never reads them), allocated only when
+        # the penalty is enabled; restores due after the next slot update
+        self._freq_counts: torch.Tensor | None = None
+        self._pending_count_restore: list[tuple[int, np.ndarray]] = []
+        self._init_freq_counts()
         seed = cfg.seed if cfg.seed is not None else time.time_ns() % (2**31)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
@@ -388,6 +458,21 @@ class DecodeEngine:
             f"decode engine ready on {self.device}: {S} slots x {cfg.max_seq_len} ctx, "
             f"{self.pool.n_pages} KV pages x {cfg.page_size} tokens"
         )
+
+    def _init_freq_counts(self) -> None:
+        """The [S, V] count table: uint16 values (saturating at 65,535, as the
+        JAX engine's) in an int16 tensor, read back as ``& 0xFFFF``."""
+        if self._freq_enabled:
+            self._freq_counts = torch.zeros(
+                (self.config.max_batch_size, self.model_cfg.vocab_size), dtype=torch.int16, device=self.device
+            )
+
+    def memory_bytes(self) -> dict:
+        """Device bytes of the serving state beside the weights: the KV
+        page pool and the frequency penalty's count table."""
+        kv = sum(t.numel() * t.element_size() for t in self.cache.values()) if self.cache else 0
+        fc = self._freq_counts
+        return {"kv_pool": int(kv), "freq_counts": int(fc.numel() * fc.element_size()) if fc is not None else 0}
 
     def _init_paged_cache(self) -> None:
         """The page pool: page arrays on the device, allocator and block
@@ -462,12 +547,13 @@ class DecodeEngine:
         return box[0]
 
     def abort_request(self, rid: str) -> bool:
-        """Cancel one request by rid, queued or decoding
+        """Cancel one request by rid, queued, decoding or parked
         (``decode_engine.py:857``). Thread-safe: the decode loop reaps the rid
         between chunks (the slot deactivated, its pages freed or published
-        as a finished request's are, the callback fired with stop_reason
-        "cancelled"). Unknown rids are a no-op. Returns True when the rid
-        was queued for cancellation (False for an empty rid)."""
+        as a finished request's are, a parking's pages freed, the callback
+        fired with stop_reason "cancelled"). Unknown rids are a no-op.
+        Returns True when the rid was queued for cancellation (False for an
+        empty rid)."""
         if not rid:
             return False
         with self._abort_lock:
@@ -475,24 +561,137 @@ class DecodeEngine:
         self._wakeup.set()
         return True
 
-    def _reap_aborts(self, pending: dict | None) -> dict | None:
-        """Service ``abort_request`` between chunks (``decode_engine.py:1017``,
-        its cancellation part: deadlines and the watchdog wait for ROADMAP
-        Queue A item 2). When a queued or decoding request is hit, the chunk
-        in flight is drained first, so the tokens it emitted are credited
-        with their version tags; cancelled requests then leave through
-        ``_finish``. Takes and returns the loop's in-flight chunk."""
+    # -- the request lifecycle (decode_engine.py:871-1142) ------------------
+    def _lifecycle(self):
+        lc = self.config.lifecycle
+        return lc if lc.enabled else None
+
+    def admission_snapshot(self) -> dict:
+        """Point-in-time admission-control inputs (the 429 payload and the
+        /statusz lifecycle section). Any thread: the reads are racy but
+        monotone, which a gate that need only be about right tolerates."""
+        pool = getattr(self, "pool", None)
+        return {
+            "queue_depth": self._queue.qsize() + len(self._backlog),
+            "free_pages": pool.available if pool is not None else 0,
+            "radix_pages": self._radix.pages_held if self._radix is not None else 0,
+            "n_pages": pool.n_pages if pool is not None else 0,
+            "active_slots": sum(1 for t in getattr(self, "_slot_task", ()) if t is not None),
+            "max_batch_size": self.config.max_batch_size,
+        }
+
+    def check_admission(self) -> tuple[bool, str, dict]:
+        """The gate of new generation requests: (admit, reason, snapshot),
+        ``reason`` naming the tripped gate ("draining" | "queue_depth" |
+        "page_headroom"). A draining engine admits nothing, lifecycle config
+        or not."""
+        lc = self._lifecycle()
+        snap = self.admission_snapshot()
+        if self._draining.is_set():
+            return False, "draining", snap
+        if lc is None:
+            return True, "", snap
+        if lc.max_queue_depth > 0 and snap["queue_depth"] >= lc.max_queue_depth:
+            return False, "queue_depth", snap
+        # radix pages count as headroom: the first rung of the eviction ladder
+        if lc.min_free_pages > 0 and snap["free_pages"] + snap["radix_pages"] < lc.min_free_pages:
+            return False, "page_headroom", snap
+        return True, "", snap
+
+    def apply_autopilot_knobs(self, knobs: dict) -> dict:
+        """Apply control-plane setpoints: the admission gates
+        (``max_queue_depth``, ``min_free_pages``) and the radix cache's
+        ``radix_max_fraction`` (a page cap; a running loop evicts LRU leaves
+        down to a shrunk cap between chunks, a stopped engine at once).
+        Unknown keys are ignored. Returns ``autopilot_status()``."""
+        applied: dict[str, float] = {}
+        lc = self.config.lifecycle
+        for k in ("max_queue_depth", "min_free_pages"):
+            if knobs.get(k) is not None:
+                setattr(lc, k, max(0, int(knobs[k])))
+                applied[k] = float(getattr(lc, k))
+        frac = knobs.get("radix_max_fraction")
+        if frac is not None and self._radix is not None:
+            frac = max(0.0, min(1.0, float(frac)))
+            n = self.pool.n_pages - 1
+            self._radix.max_pages = max(0, min(int(n * frac), n))
+            applied["radix_max_fraction"] = frac
+            if self._thread is not None and self._thread.is_alive():
+                self._wakeup.set()  # the tree belongs to the loop while it runs
+            else:
+                self._service_radix_cap()
+        if applied:
+            with self._autopilot_lock:
+                self._autopilot_knobs.update(applied)
+                self._autopilot_applied_at = time.time()
+        return self.autopilot_status()
+
+    def autopilot_status(self) -> dict:
+        """The /statusz ``autopilot`` section: the setpoints applied (empty
+        until the control plane pushes one)."""
+        with self._autopilot_lock:
+            return {"knobs": dict(self._autopilot_knobs), "applied_at": self._autopilot_applied_at}
+
+    def _service_radix_cap(self) -> None:
+        """Evict radix leaves down to a shrunk cap (the loop's thread, or
+        inline while the loop is down)."""
+        r = self._radix
+        if r is not None and r.pages_held > r.max_pages:
+            freed = r.evict(r.pages_held - r.max_pages)
+            if freed:
+                self._obs_pc.evicted_pages.inc(freed)
+
+    def is_wedged(self) -> bool:
+        """True when the decode loop made no pass for
+        ``lifecycle.engine_stall_escalate_s`` while work is pending (the
+        per-slot watchdog runs on that loop and cannot fire then), or when
+        the loop died with work pending: /health answers 503. A paused or
+        held loop idles by design and is never wedged."""
+        lc = self._lifecycle()
+        if lc is None or lc.engine_stall_escalate_s <= 0 or self._thread is None:
+            return False
+        busy = any(t is not None for t in getattr(self, "_slot_task", ())) or (
+            self._queue.qsize() + len(self._backlog) > 0
+        )
+        if not self._thread.is_alive():
+            return busy
+        if self.is_paused:
+            return False
+        return busy and time.monotonic() - self._last_loop_ts > lc.engine_stall_escalate_s
+
+    def _reap_lifecycle(self, pending: dict | None) -> dict | None:
+        """Service cancellations, deadlines and the per-slot watchdog between
+        chunks, on the decode loop (``decode_engine.py:1017``). Reaped
+        requests leave through ``_finish`` with a non-abort reason, so their
+        pages are freed or published as a completion's are. When anything is
+        reaped the chunk in flight is drained first (its tokens credited with
+        their version tags); the no-reap path touches nothing. Takes and
+        returns the loop's in-flight chunk."""
+        lc = self._lifecycle()
         with self._abort_lock:
             aborts, self._abort_rids = self._abort_rids, set()
-        if not aborts:
+        if lc is None and not aborts:
             return pending
-        hit = any(t.req.rid in aborts for t in self._backlog) or any(
-            t is not None and t.req.rid in aborts for t in self._slot_task
+        now = time.time()
+
+        def expired(task: _Task) -> bool:
+            dl = task.req.deadline
+            return lc is not None and dl is not None and now > dl
+
+        def watchdog_hit(slot: int) -> bool:
+            return (
+                lc is not None
+                and lc.watchdog_s > 0
+                and bool(self._state["active"][slot])
+                and self._slot_progress[slot] > 0
+                and time.monotonic() - self._slot_progress[slot] > lc.watchdog_s
+            )
+
+        hit = bool(aborts) or any(expired(t) for t in self._backlog) or any(
+            t is not None and (expired(t) or watchdog_hit(slot)) for slot, t in enumerate(self._slot_task)
         )
         if not hit:
-            with self._queue.mutex:
-                hit = any(t.req.rid in aborts for t in self._queue.queue)
-        if not hit:
+            # a queued request's deadline is also enforced at admission
             return pending
         self._drain(pending)
         while True:  # queued work first, in the order _admit_pending takes it
@@ -501,22 +700,54 @@ class DecodeEngine:
             except queue.Empty:
                 break
         kept: deque[_Task] = deque()
+        counted: set[str] = set()  # rids whose cancel _finish already counted
         for task in self._backlog:
-            if task.req.rid in aborts:
+            if task.req.rid and task.req.rid in aborts:
                 task.truncated_by = "cancelled"
+                counted.add(task.req.rid)
                 self._finish(task, StopReason.CANCEL.value)
+            elif expired(task):
+                task.truncated_by = "deadline"
+                self._finish(task, StopReason.DEADLINE.value)
             else:
                 kept.append(task)
         self._backlog = kept
+        st = self._state
         rows = []
         for slot, task in enumerate(self._slot_task):
-            if task is not None and task.req.rid in aborts:
-                if self._state["active"][slot]:
-                    rows.append(self._pack_row(slot, 0, int(self._state["pos"][slot]), False, 0))
+            if task is None:
+                continue
+            if task.req.rid and task.req.rid in aborts:
                 task.truncated_by = "cancelled"
-                self._finish(task, StopReason.CANCEL.value)
-        if rows:
+                counted.add(task.req.rid)
+                reason = StopReason.CANCEL.value
+            elif expired(task):
+                task.truncated_by = "deadline"
+                reason = StopReason.DEADLINE.value
+            elif watchdog_hit(slot):
+                task.truncated_by = "watchdog"
+                reason = StopReason.CANCEL.value
+                self.stats["watchdog_fired"] += 1
+                self._obs_lc.watchdog_fired.inc()
+                logger.warning(
+                    f"slot {slot} watchdog: no token in {lc.watchdog_s:.1f}s (rid={task.req.rid}); aborting the slot"
+                )
+            else:
+                continue
+            if st["active"][slot]:
+                rows.append(self._pack_row(slot, 0, int(st["pos"][slot]), False, 0))
+            self._finish(task, reason)
+        if rows and self.cache is not None:
             self._apply_slot_updates(rows)
+        # a cancelled parking frees its pages (deadlines leave a parking
+        # alone: its owner may still resume; eviction pressure bounds it)
+        for rid in aborts:
+            p = self._parked.pop(rid, None)
+            if p is not None:
+                self._drop_parking(p)
+                if rid not in counted:
+                    self.stats["cancelled"] += 1
+                    self._obs_lc.aborts.inc()
         return None  # the chunk in flight was drained above
 
     # -- pause / weights --------------------------------------------------
@@ -569,6 +800,130 @@ class DecodeEngine:
         """The abort pause only: a hold keeps its slots live."""
         return self._paused.is_set()
 
+    # -- the drain (decode_engine.py:1191-1329) -------------------------------
+    @property
+    def is_draining(self) -> bool:
+        return self._draining.is_set()
+
+    def begin_drain(self, terminal: bool = False) -> None:
+        """Close admission (``check_admission`` answers "draining") while
+        in-flight decodes keep running. ``terminal`` marks the drain of an
+        exiting process, which can never end; it is sticky."""
+        if terminal:
+            self._drain_terminal = True
+        self._draining.set()
+        self._wakeup.set()
+
+    def end_drain(self) -> bool:
+        """Re-open admission; refused (False) for a terminal drain."""
+        if self._drain_terminal:
+            logger.warning("end_drain refused: this drain is terminal (the process is exiting)")
+            return False
+        self._draining.clear()
+        return True
+
+    def drain(self, budget_s: float = 10.0, terminal: bool = False) -> dict:
+        """Stop admission, let in-flight decodes finish within ``budget_s``,
+        then park (rid affinity, partial tokens returned) or abort the
+        survivors and the queue. Blocks until the engine is quiescent and
+        returns (and keeps for /statusz) a summary with the page audit:
+        ``leaked_pages`` counts pool pages held by neither the radix tree nor
+        a parking. Any thread. The summary leaves out the JAX engine's
+        ``unterminated_timelines`` (request timelines: ROADMAP Queue A 2b)."""
+        t0 = time.monotonic()
+        self.begin_drain(terminal=terminal)
+        aborted_before = self.stats["aborted"]
+        deadline = t0 + max(0.0, budget_s)
+        finished_in_budget = True
+        while True:
+            loop_alive = self._thread is not None and self._thread.is_alive()
+            busy = any(t is not None for t in self._slot_task) or (self._queue.qsize() + len(self._backlog) > 0)
+            if not busy:
+                break
+            if not loop_alive or self.is_paused or time.monotonic() >= deadline:
+                # nothing finishes on its own (or the budget is spent)
+                finished_in_budget = False
+                break
+            time.sleep(0.02)
+        if self._thread is not None and self._thread.is_alive():
+            # the abort pause parks the survivors; the paused loop, seeing
+            # the drain, aborts the queue
+            self.pause_generation(timeout=max(5.0, budget_s))
+            qdeadline = time.monotonic() + 5.0
+            while self._queue.qsize() + len(self._backlog) > 0 and time.monotonic() < qdeadline:
+                self._wakeup.set()
+                time.sleep(0.01)
+        else:
+            # no loop: this thread owns the state
+            self._paused.set()
+            self._abort_all()
+            self._abort_queued()
+        # a parked request's full pages are also published into the radix
+        # tree: count each held page once (the JAX summary's sum counts such
+        # a page twice and can go negative)
+        held = set(self._radix.pages()) if self._radix is not None else set()
+        for p in list(self._parked.values()):
+            held.update(p.pages)
+        summary = {
+            "draining": True,
+            "drain_seconds": time.monotonic() - t0,
+            "finished_in_budget": finished_in_budget,
+            "budget_s": budget_s,
+            "parked": len(self._parked),
+            "aborted": self.stats["aborted"] - aborted_before,
+            "leaked_pages": int(self.pool.used - len(held)),
+        }
+        self._drain_summary = summary
+        logger.warning(
+            f"drain complete in {summary['drain_seconds']:.2f}s (finished_in_budget={finished_in_budget}, "
+            f"parked={summary['parked']}, aborted={summary['aborted']}, leaked_pages={summary['leaked_pages']})"
+        )
+        return summary
+
+    def drain_status(self) -> dict:
+        """The /statusz drain section: the live flag, whether the drain is
+        terminal, and the last drain's summary."""
+        out = dict(self._drain_summary) if self._drain_summary is not None else {}
+        out["draining"] = self._draining.is_set()
+        out["terminal"] = bool(self._drain_terminal)
+        return out
+
+    # -- memory release (decode_engine.py:1651-1704) ------------------------
+    def release_memory(self) -> None:
+        """Free the card for a colocated trainer: the served weights go to
+        pinned host memory and the KV pool, the count table and every
+        parking are dropped (the loop idles with no cache until
+        ``resume_memory``). Needs the abort pause; waits for its ack."""
+        if not self._paused.is_set():
+            raise RuntimeError("pause_generation before release_memory")
+        if self._thread is not None and self._thread.is_alive() and not self._pause_ack.wait(timeout=120):
+            raise TimeoutError("decode loop did not acknowledge the pause")
+        if self._offloaded:
+            return
+        t0 = time.monotonic()
+        while self._evict_oldest_parked() is not None:
+            pass
+        offload.offload_module(self.model)
+        self._offloaded = True
+        self.cache = None  # pages are recreated by prefills; parked KV is lost
+        self._freq_counts = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        logger.info(f"released memory in {time.monotonic() - t0:.2f}s")
+
+    def resume_memory(self) -> None:
+        """Bring the weights back to the card and build a fresh KV pool."""
+        if not self._offloaded:
+            return
+        t0 = time.monotonic()
+        offload.onload_module(self.model, self.device)
+        self._init_paged_cache()  # a fresh pool: every request was aborted
+        self._init_freq_counts()
+        if self._spec_cfg is not None:
+            self._drafter = spec_mod.build_drafter(self._spec_cfg, radix=self._radix)
+        self._offloaded = False
+        logger.info(f"resumed memory in {time.monotonic() - t0:.2f}s")
+
     def update_weights_from_params(self, params, version: int | None = None) -> None:
         """Swap in new weights (a ``QwenModel`` or a state dict) between
         chunks; tokens of later chunks carry ``version``. Blocks until the
@@ -611,6 +966,11 @@ class DecodeEngine:
                     self._copy_staged(params)
                 if version is not None:
                     self._version = version
+                # both commit paths (params and staged) apply here: parked KV
+                # survives the commit unless kv_reuse_across_updates is off
+                if not self.config.kv_reuse_across_updates:
+                    while self._evict_oldest_parked() is not None:
+                        pass
                 # KV cached under the old weights is stale: the default policy
                 # drops the tree (pages aliased by live slots survive until
                 # those slots free them); "keep" retains it
@@ -772,10 +1132,13 @@ class DecodeEngine:
     def pool_audit(self) -> dict:
         """Page accounting of the pool (call while no request is being
         admitted or decoded): every allocated page's refcount equals the
-        number of live slots holding it plus one if the radix tree holds it,
-        and free + allocated == total. ``ok`` is that check."""
+        number of live slots and parkings holding it plus one if the radix
+        tree holds it, and free + allocated == total. ``ok`` is that check.
+        Also the device bytes of the KV pool and of the frequency penalty's
+        count table."""
         holders: dict[int, int] = {}
-        for pages in self._slot_pages:
+        parked = [p.pages for p in self._parked.values()]
+        for pages in self._slot_pages + parked:
             for p in pages:
                 holders[p] = holders.get(p, 0) + 1
         radix_pages = self._radix.pages() if self._radix is not None else []
@@ -791,8 +1154,10 @@ class DecodeEngine:
             "total": self.pool.n_pages - 1,
             "free": self.pool.available,
             "slot_pages": len({p for pages in self._slot_pages for p in pages}),
+            "parked_pages": len({p for pages in parked for p in pages}),
             "radix_pages": len(radix_pages),
             "ok": ok,
+            **{f"{k}_bytes": v for k, v in self.memory_bytes().items()},
         }
 
     # -- speculative decoding ---------------------------------------------
@@ -856,12 +1221,67 @@ class DecodeEngine:
         return t.clone()
 
     # -- admission --------------------------------------------------------
+    def _parked_slots(self) -> set[int]:
+        return {p.slot for p in self._parked.values()}
+
     def _free_slots(self) -> list[int]:
-        return [i for i, t in enumerate(self._slot_task) if t is None]
+        parked = self._parked_slots()
+        return [i for i, t in enumerate(self._slot_task) if t is None and i not in parked]
+
+    def _drop_parking(self, p: _Parked) -> None:
+        """Free a parking's pages (its entry already popped)."""
+        self.pool.free(p.pages)
+        self._slot_pages[p.slot] = []
+        self._slot_page_versions[p.slot] = []
+        self._pt_host[p.slot] = 0
+
+    def _evict_oldest_parked(self) -> int | None:
+        """Free the least recently parked slot and its pages (a resume of
+        that rid falls back to a prefill); its slot, or None."""
+        if not self._parked:
+            return None
+        rid = min(self._parked, key=lambda r: self._parked[r].park_time)
+        p = self._parked.pop(rid)
+        self._drop_parking(p)
+        return p.slot
+
+    def _try_resume(self, task: _Task) -> np.ndarray | None:
+        """rid affinity (``decode_engine.py:2440``): when this rid's abort
+        left its slot's KV parked and the resubmitted ids are exactly prompt
+        + emitted, restore the decode state with zero prefill; the slot's
+        update row, or None. A rid resubmitted with other ids drops its
+        parking."""
+        rid = task.req.rid
+        p = self._parked.pop(rid, None) if rid else None
+        if p is None:
+            return None
+        ids = list(task.req.input_ids)
+        if ids != p.full_ids:
+            self.pool.free(p.pages)  # the slot's own lists were emptied at park
+            return None
+        slot = p.slot
+        task.slot = slot
+        self._slot_task[slot] = task
+        # page ownership and the block-table row (zeroed at park time, so a
+        # chunk in flight could not write into the retained pages)
+        self._slot_pages[slot] = p.pages
+        self._slot_page_versions[slot] = list(p.page_versions)
+        self._pt_host[slot] = 0
+        self._pt_host[slot, : len(p.pages)] = p.pages
+        row = self._slot_update_row(task, slot, ids[-1], p.pos, self._budget(task, len(ids)))
+        if self._freq_counts is not None and self._effective_freq_pen(task) != 0.0 and p.n_emitted:
+            # one logical request across the abort: the completion tokens
+            # emitted before the park keep their counts; the slot update
+            # zeroes the slot, so the restore applies right after it
+            counts = np.bincount(np.asarray(ids[-p.n_emitted :], np.int64), minlength=self.model_cfg.vocab_size)
+            self._pending_count_restore.append((slot, np.minimum(counts, _COUNT_MAX)))
+        self.stats["kv_resumes"] += 1
+        return row
 
     def _admit_pending(self) -> list[np.ndarray]:
-        """Admit backlog + queue into free slots (``decode_engine.py:2492``):
-        identical prompts of this pass prefill once and alias (duplicates);
+        """Admit backlog + queue into slots (``decode_engine.py:2492``): parked
+        rids resume in place; identical prompts of this pass prefill once and
+        alias (duplicates);
         primaries with a radix-cached prefix prefill only their suffix; the
         rest batch-prefill by length bucket. Returns the slot-update rows."""
         T = self.config.max_seq_len
@@ -881,9 +1301,22 @@ class DecodeEngine:
             if P_len >= T - 2 or P_len == 0:
                 self._finish(task, StopReason.LENGTH.value)
                 continue
+            dl = task.req.deadline
+            if self._lifecycle() is not None and dl is not None and time.time() > dl:
+                # expired while queued: no prefill for a spent budget
+                task.truncated_by = "deadline"
+                self._finish(task, StopReason.DEADLINE.value)
+                continue
+            row = self._try_resume(task)
+            if row is not None:
+                rows.append(row)
+                continue
             if not free:
-                self._backlog.appendleft(task)  # all slots busy
-                break
+                evicted = self._evict_oldest_parked()
+                if evicted is None:
+                    self._backlog.appendleft(task)  # all slots busy
+                    break
+                free.append(evicted)
             to_prefill.append((task, free.pop(0)))
 
         # identical prompts (a GRPO group's samples): the first prefills,
@@ -932,9 +1365,16 @@ class DecodeEngine:
         return rows
 
     def _reclaim_pages(self, n: int) -> bool:
-        """Below the free pool: radix LRU leaves (any published page can be
-        re-created by a prefill). True when anything was freed."""
-        return self._radix is not None and self._radix.evict(n) > 0
+        """The eviction ladder below the free pool (``decode_engine.py:2315``):
+        radix LRU leaves first (any published page is re-created by a
+        prefill), then parked KV (whose loss costs a re-prefill). True when
+        anything was freed."""
+        if self._radix is not None:
+            freed = self._radix.evict(n)
+            if freed > 0:
+                self._obs_pc.evicted_pages.inc(freed)
+                return True
+        return self._evict_oldest_parked() is not None
 
     def _alloc(self, n: int) -> list[int] | None:
         pages = self.pool.alloc(n)
@@ -1095,7 +1535,9 @@ class DecodeEngine:
                 k += 1
             n_pub = k
         if n_pub > 0:
-            self._radix.insert(full_ids[: n_pub * psz], pages[:n_pub], versions[:n_pub])
+            adopted = self._radix.insert(full_ids[: n_pub * psz], pages[:n_pub], versions[:n_pub])
+            if adopted:
+                self._obs_pc.inserted_pages.inc(adopted)
 
     def _prefill_group(self, group: list[tuple[_Task, int]]) -> list[np.ndarray]:
         """Allocate pages, run one batched prefill (padded to the longest
@@ -1166,6 +1608,7 @@ class DecodeEngine:
         top_p: float = 1.0,
         stops: list[int] | None = None,
         min_rem: int | None = None,
+        freq_pen: float = 0.0,
     ) -> np.ndarray:
         """The ONE place that knows the packed row's column order (must
         match ``_apply_slot_updates``): updates the host mirror and builds
@@ -1183,22 +1626,18 @@ class DecodeEngine:
         st["top_k"][slot] = top_k
         st["top_p"][slot] = top_p
         st["min_rem"][slot] = min_rem
+        st["freq_pen"][slot] = freq_pen
         st["stop_ids"][slot] = stops
         return np.asarray(
-            [slot, last_id, pos, active, remaining, top_k, greedy, temp, top_p, min_rem, *stops],
+            [slot, last_id, pos, active, remaining, top_k, greedy, temp, top_p, min_rem, freq_pen, *stops],
             np.float32,
         )
 
     def _slot_update_row(
         self, task: _Task, slot: int, last_id: int, pos: int, remaining: int
     ) -> np.ndarray:
+        self._slot_progress[slot] = time.monotonic()  # the watchdog's baseline
         g = task.req.gconfig
-        if g.frequency_penalty and not getattr(self, "_freq_pen_warned", False):
-            self._freq_pen_warned = True
-            logger.warning(
-                "frequency_penalty requested but ServerConfig.enable_frequency_penalty "
-                "is off — ignoring"
-            )
         temp = 0.0 if g.greedy else g.temperature
         greedy = bool(g.greedy or g.temperature == 0.0)
         top_k = g.top_k if g.top_k and g.top_k > 0 else -1
@@ -1220,7 +1659,21 @@ class DecodeEngine:
             top_p=g.top_p if g.top_p else 1.0,
             stops=[] if g.ignore_eos else g.stop_token_ids,
             min_rem=max(0, remaining - max(0, g.min_new_tokens - len(task.out_tokens))),
+            freq_pen=self._effective_freq_pen(task),
         )
+
+    def _effective_freq_pen(self, task: _Task) -> float:
+        """The request's frequency penalty, or 0 when the engine runs without
+        the count table (warned once, then served unpenalized)."""
+        fp = float(task.req.gconfig.frequency_penalty or 0.0)
+        if fp and not self._freq_enabled:
+            if not getattr(self, "_freq_pen_warned", False):
+                self._freq_pen_warned = True
+                logger.warning(
+                    "frequency_penalty requested but ServerConfig.enable_frequency_penalty is off — ignoring"
+                )
+            return 0.0
+        return fp
 
     def _budget(self, task: _Task, prompt_len: int) -> int:
         g = task.req.gconfig
@@ -1246,7 +1699,15 @@ class DecodeEngine:
         st["temp"][sl] = upd[:, 7]
         st["top_p"][sl] = upd[:, 8]
         st["min_rem"][sl] = upd[:, 9].long()
-        st["stop_ids"][sl] = upd[:, 10 : 10 + _MAX_STOP].long()
+        st["freq_pen"][sl] = upd[:, 10]
+        st["stop_ids"][sl] = upd[:, 11 : 11 + _MAX_STOP].long()
+        if self._freq_counts is not None:
+            # (re)admission resets the slot's counts; a resume's restore
+            # follows
+            self._freq_counts[sl] = 0
+            for slot, counts in self._pending_count_restore:
+                self._freq_counts[slot] = self._to_device(counts.astype(np.int64)).to(torch.int16)
+        self._pending_count_restore.clear()
 
     # -- pages ------------------------------------------------------------
     def _ensure_pages(self, ahead: int | None = None) -> None:
@@ -1342,8 +1803,9 @@ class DecodeEngine:
         wp = min(self._maxp, -(-window // psz))
         capped = bool(((st["top_k"] > 0) | (st["top_p"] < 1.0))[active].any())
         greedy_any = bool(st["greedy"][active].any())
+        freq_any = self._freq_counts is not None and bool((st["freq_pen"] != 0.0)[active].any())
         e0 = self._event_pair_start()
-        packed = self._run_chunk(n_steps, self._to_device(self._pt_host[:, :wp]), capped, greedy_any)
+        packed = self._run_chunk(n_steps, self._to_device(self._pt_host[:, :wp]), capped, greedy_any, freq_any)
         self._event_pair_end(e0, self._chunk_events, n_steps)
         if self.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -1363,10 +1825,15 @@ class DecodeEngine:
             "tasks": list(self._slot_task),
         }
 
-    def _run_chunk(self, n_steps: int, page_table: torch.Tensor, capped: bool, greedy_any: bool):
+    def _run_chunk(
+        self, n_steps: int, page_table: torch.Tensor, capped: bool, greedy_any: bool, freq_any: bool = False
+    ):
         """n_steps of decode for all slots (the body of the JAX
         ``_chunk_fn``). Updates the device state and returns the packed
-        int32 [2*n_steps + 3, S] result, still on the device."""
+        int32 [2*n_steps + 3, S] result, still on the device. ``freq_any``:
+        some active slot has a frequency penalty; each step subtracts
+        ``freq_pen * counts`` from the raw logits before the sampler and
+        counts the sampled token of every active slot, on the device."""
         T = self.config.max_seq_len
         psz = self.config.page_size
         st = self._dev_state
@@ -1380,11 +1847,15 @@ class DecodeEngine:
                 self.model, ids, pos, self.cache, page_table, page_size=psz
             )
             logits = qwen.compute_logits(self.model, hidden)
+            if freq_any:
+                logits = logits - st["freq_pen"][:, None] * self._counts_f32()
             u_full = torch.rand((S, 1), generator=self._gen, device=self.device)
             u_cap = None
             if capped:
                 u_cap = torch.rand((S, K), generator=self._gen, device=self.device).clamp_(min=tiny)
             next_ids, logp = _sample_step(logits, u_full, u_cap, st, capped, greedy_any)
+            if freq_any:
+                self._count_tokens(next_ids, active)
             emitted = active
             hit_stop = (next_ids[:, None] == st["stop_ids"]).any(dim=-1) & (
                 remaining - 1 <= st["min_rem"]
@@ -1409,6 +1880,18 @@ class DecodeEngine:
                 pos.to(torch.int32)[None],
             ]
         )
+
+    def _counts_f32(self) -> torch.Tensor:
+        """The count table as f32 [S, V] (the int16 storage read as uint16)."""
+        return (self._freq_counts.to(torch.int32) & 0xFFFF).float()
+
+    def _count_tokens(self, ids: torch.Tensor, active: torch.Tensor) -> None:
+        """counts[s, ids[s]] += active[s], saturating at 65,535, in place (a
+        gather and a scatter: no host sync, capturable in a CUDA graph)."""
+        idx = ids[:, None]
+        cur = self._freq_counts.gather(1, idx).to(torch.int32) & 0xFFFF
+        new = torch.clamp(cur + active[:, None].to(torch.int32), max=_COUNT_MAX)
+        self._freq_counts.scatter_(1, idx, new.to(torch.int16))
 
     def _spec_round(self) -> int:
         """One synchronous speculative round (``decode_engine.py:3285``): the
@@ -1609,10 +2092,12 @@ class DecodeEngine:
                 credited += c
                 if task.first_token_time is None:
                     task.first_token_time = now
+                self._slot_progress[slot] = now  # the watchdog: progress seen
                 task.out_tokens.extend(toks[:c, slot].tolist())
                 task.out_logprobs.extend(logps[:c, slot].tolist())
                 task.out_versions.extend([version] * c)
                 self.stats["generated_tokens"] += c
+                self._obs.generated_tokens.inc(c)
             st["pos"][slot] = int(pos[slot])
             if c:
                 st["ids"][slot] = int(toks[c - 1, slot])
@@ -1631,6 +2116,7 @@ class DecodeEngine:
                     reason = StopReason.LENGTH.value
                 self._finish(task, reason)
         self.stats["chunks"] += 1
+        self._obs.chunks.inc()
         return credited
 
     def _finish(self, task: _Task, reason: str) -> None:
@@ -1668,10 +2154,16 @@ class DecodeEngine:
         )
         if reason == StopReason.ABORT.value:
             self.stats["aborted"] += 1
+            self._obs.aborted.inc()
+        elif reason == StopReason.DEADLINE.value:
+            self.stats["deadline_reaped"] += 1
+            self._obs_lc.deadline_exceeded.inc()
         elif reason == StopReason.CANCEL.value:
             self.stats["cancelled"] += 1
+            self._obs_lc.aborts.inc()
         else:
             self.stats["completed"] += 1
+            self._obs.completed.inc()
         try:
             task.callback(resp)
         except Exception:  # noqa: BLE001 — one caller's callback must not
@@ -1680,25 +2172,38 @@ class DecodeEngine:
 
     def _abort_all(self) -> None:
         """Finish every in-flight request with stop_reason "abort" and
-        deactivate its slot on the device. A decoding request's full pages
-        are published first, as the JAX engine does when it parks one
-        (``decode_engine.py:3045``): its resubmit hits the radix tree."""
+        deactivate its slot on the device (``decode_engine.py:3021``). A
+        decoding request with a rid parks: its pages move to a ``_Parked``
+        entry (``_finish`` then frees nothing) and its block-table row is
+        zeroed, so a chunk still in flight writes to the trash page. Its full
+        pages are also published into the radix tree: if the parking is
+        evicted, or the rid comes back with extended ids (an episode's next
+        turn), the tree still serves them."""
+        st = self._state
         deact = []
         for slot, task in enumerate(self._slot_task):
-            if task is not None:
-                if self._state["active"][slot]:
-                    deact.append(slot)
-                    self._publish_prefix(
-                        list(task.req.input_ids) + list(task.out_tokens),
-                        self._slot_pages[slot],
-                        self._slot_page_versions[slot],
-                        int(self._state["pos"][slot]),
+            if task is None:
+                continue
+            rid = task.req.rid
+            if st["active"][slot]:
+                deact.append(slot)
+                if rid:
+                    p = _Parked(
+                        slot=slot,
+                        full_ids=list(task.req.input_ids) + list(task.out_tokens),
+                        pos=int(st["pos"][slot]),
+                        pages=self._slot_pages[slot],
+                        page_versions=list(self._slot_page_versions[slot]),
+                        n_emitted=len(task.out_tokens),
                     )
-                self._finish(task, StopReason.ABORT.value)
-        if deact:
-            self._apply_slot_updates(
-                [self._pack_row(s, 0, int(self._state["pos"][s]), False, 0) for s in deact]
-            )
+                    self._parked[rid] = p
+                    self._publish_prefix(p.full_ids, p.pages, p.page_versions, p.pos)
+                    self._slot_pages[slot] = []
+                    self._slot_page_versions[slot] = []
+                    self._pt_host[slot] = 0
+            self._finish(task, StopReason.ABORT.value)
+        if deact and self.cache is not None:
+            self._apply_slot_updates([self._pack_row(s, 0, int(st["pos"][s]), False, 0) for s in deact])
 
     def _abort_queued(self) -> None:
         while True:
@@ -1716,13 +2221,19 @@ class DecodeEngine:
         try:
             with torch.no_grad():
                 while not self._shutdown.is_set():
+                    self._last_loop_ts = time.monotonic()
                     self._apply_weight_update()
                     self._service_radix_flush()
-                    pending = self._reap_aborts(pending)
+                    self._service_radix_cap()
+                    pending = self._reap_lifecycle(pending)
                     if self._paused.is_set():
                         self._drain(pending)
                         pending = None
                         self._abort_all()
+                        if self._draining.is_set():
+                            # a draining engine leaves no queued request
+                            # without its terminal response
+                            self._abort_queued()
                         self._pause_ack.set()
                         self._wakeup.wait(timeout=0.05)
                         self._wakeup.clear()
@@ -1742,12 +2253,30 @@ class DecodeEngine:
                             continue
                         self._drain(pending)
                         pending = None
+                        # a hold is legitimate idleness: keep the watchdog's
+                        # baselines fresh
+                        now = time.monotonic()
+                        for slot, t in enumerate(self._slot_task):
+                            if t is not None:
+                                self._slot_progress[slot] = now
                         self._hold_ack.set()
                         self._wakeup.wait(timeout=0.05)
                         self._wakeup.clear()
                         continue
+                    if self.cache is None:
+                        # memory released and not yet resumed
+                        self._wakeup.wait(timeout=0.05)
+                        self._wakeup.clear()
+                        continue
                     self._apply_slot_updates(self._admit_pending())
-                    if self._spec_cfg is not None and self._drafter is not None:
+                    spec_on = self._spec_cfg is not None and self._drafter is not None
+                    if spec_on and self._freq_counts is not None:
+                        # the penalty's per-step counts do not fit parallel
+                        # verify scoring: the sequential chunk serves while
+                        # any active slot has one
+                        st = self._state
+                        spec_on = not bool((st["freq_pen"] != 0.0)[st["active"]].any())
+                    if spec_on:
                         # synchronous speculative pass: drain the pipelined
                         # chunk first (the spec-off -> on switch), then one
                         # round; a weight update applies only at the top of

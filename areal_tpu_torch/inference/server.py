@@ -2,30 +2,45 @@
 ``areal_tpu/inference/server.py`` on the standard library's
 ``ThreadingHTTPServer`` (no aiohttp).
 
-Endpoints: GET ``/health``, ``/metrics``; POST ``/generate``,
-``/abort_request``, ``/pause_generation`` (``{"mode": "hold"}`` is the commit
-fence: it answers ``{"fenced": bool}`` once the decode loop drained its
-in-flight chunk), ``/continue_generation``, ``/set_version``,
-``/flush_prefix_cache``, and the streamed weight update
+Endpoints: GET ``/health`` (503 "draining" or "wedged"), ``/metrics``,
+``/statusz``; POST ``/generate``, ``/abort_request``, ``/pause_generation``
+(``{"mode": "hold"}`` is the commit fence: it answers ``{"fenced": bool}``
+once the decode loop drained its in-flight chunk), ``/continue_generation``,
+``/set_version``, ``/flush_prefix_cache``, ``/drain``, ``/undrain``,
+``/autopilot/knobs``, ``/release_memory_occupation``,
+``/resume_memory_occupation``, and the streamed weight update
 ``/update_weights_{begin,bucket,commit,abort}``. Request and response JSON
 match the JAX server's (``_req_from_json``, ``h_generate``, ``h_metrics``,
-``h_abort_request``, ``h_flush_prefix_cache``, ``h_update_*``); a bucket's
-body is the JAX package's byte layout (``encode_weight_bucket``), read into
-one host buffer with ``readinto`` and staged from views of it.
+``h_statusz``, ``h_drain``, ``h_autopilot_knobs``, ``h_update_*``).
+
+``/generate`` runs the request lifecycle's HTTP half: the engine's admission
+gate answers 429 with a jittered ``Retry-After`` (queue depth, page headroom,
+draining), the ``x-areal-deadline`` header (absolute unix-epoch seconds)
+becomes the request's deadline (400 when it does not parse),
+``x-areal-priority`` goes into the request's metadata, and a client that
+disconnects while its request runs cancels the rid. A bucket's body is the
+JAX package's byte layout (``encode_weight_bucket``), read into one host
+buffer with ``readinto`` and staged from views of it.
+
 ``/update_weights_lora`` (ROADMAP Queue A item 4), ``/update_weights_from_disk``
 and ``/update_weights_from_tensors`` (item 3) and the relay header (item 8)
-answer with an error naming their item. ``/metrics`` serves the JSON
-shape only; its Prometheus text waits for ROADMAP Queue A item 2. There is no command
-line entry yet: it needs the HF checkpoint loader, which waits for a
-checkpoint in the repository; build the engine with weights in code.
+answer with an error naming their item. ``/metrics`` serves the JSON shape
+only; its Prometheus text, ``/debug/flight`` and ``/debug/profile`` wait for
+ROADMAP Queue A item 2b. There is no command line entry yet: it needs the HF
+checkpoint loader, which waits for a checkpoint in the repository; build the
+engine with weights in code.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import random
+import select
+import socket
 import struct
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -34,6 +49,7 @@ from areal_tpu_torch.api.config import ServerConfig
 from areal_tpu_torch.api import io_struct, wire
 from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
 from areal_tpu_torch.inference.decode_engine import DecodeEngine
+from areal_tpu_torch.observability import catalog
 
 logger = logging.getLogger("areal_tpu_torch.server")
 
@@ -103,12 +119,14 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, format, *args):  # noqa: A002 — stdlib signature
         logger.debug("%s " + format, self.address_string(), *args)
 
-    def _send(self, status: int, body: dict) -> None:
+    def _send(self, status: int, body: dict, headers: dict | None = None) -> None:
         data = json.dumps(body).encode()
         try:
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError):
@@ -120,14 +138,29 @@ class _Handler(BaseHTTPRequestHandler):
         raw = self.rfile.read(n) if n else b""
         return json.loads(raw) if raw.strip() else {}
 
+    def _client_gone(self) -> bool:
+        """True once the caller closed its connection (a readable socket with
+        nothing to read). A client sends nothing more while it waits for
+        its response, so readable data means a closed connection or a
+        pipelined request, which is not a disconnect."""
+        try:
+            readable, _, _ = select.select([self.connection], [], [], 0)
+            return bool(readable) and self.connection.recv(1, socket.MSG_PEEK) == b""
+        except (OSError, ValueError):
+            return True
+
     def do_GET(self):  # noqa: N802 — stdlib name
-        engine = self.server.app.engine
-        if self.path in ("/health", "/healthz"):
-            self._send(200, {"status": "ok", "version": engine.get_version()})
-        elif self.path == "/metrics":
-            self._send(200, self.server.app.metrics())
-        else:
+        app = self.server.app
+        route = {
+            "/health": app.h_health,
+            "/healthz": app.h_health,
+            "/metrics": lambda: (200, app.metrics()),
+            "/statusz": app.h_statusz,
+        }.get(self.path)
+        if route is None:
             self._send(404, {"status": "error", "error": f"no route {self.path}"})
+            return
+        self._send(*route())
 
     def _read_into(self, buf: torch.Tensor) -> None:
         """Fill the uint8 tensor ``buf`` from the request body."""
@@ -162,8 +195,13 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):  # noqa: N802 — stdlib name
         app = self.server.app
         route = {
-            "/generate": app.h_generate,
+            "/generate": lambda d: app.h_generate(d, headers=self.headers, gone=self._client_gone),
             "/abort_request": app.h_abort_request,
+            "/drain": app.h_drain,
+            "/undrain": app.h_undrain,
+            "/autopilot/knobs": lambda d: app.h_autopilot_knobs(d, headers=self.headers),
+            "/release_memory_occupation": app.h_release_memory,
+            "/resume_memory_occupation": app.h_resume_memory,
             "/pause_generation": app.h_pause,
             "/continue_generation": app.h_continue,
             "/set_version": app.h_set_version,
@@ -189,14 +227,16 @@ class _Handler(BaseHTTPRequestHandler):
             if not isinstance(body, dict):
                 self._send(400, {"status": "error", "error": "the JSON body must be an object"})
                 return
+        headers = None
         try:
-            status, out = route(body)
+            status, out, *extra = route(body)
+            headers = extra[0] if extra else None
         except (NotImplementedError, ValueError) as e:
             status, out = 400, {"status": "error", "error": str(e)}
         except Exception as e:  # noqa: BLE001 — the request boundary: report, keep serving
             logger.exception(f"POST {self.path} failed")
             status, out = 500, {"status": "error", "error": f"{type(e).__name__}: {e}"}
-        self._send(status, out)
+        self._send(status, out, headers)
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -213,6 +253,9 @@ class InferenceServer:
         self.config = config
         self.engine = engine or DecodeEngine(config, device=device)
         self._httpd: _HTTPServer | None = None
+        self._metrics = catalog.server_metrics()
+        self._lc_obs = catalog.lifecycle_metrics()
+        self._started_at = time.time()
 
     @property
     def port(self) -> int:
@@ -225,8 +268,52 @@ class InferenceServer:
         return f"{ip}:{self.port}"
 
     # -- handlers: (json body) -> (status, json) --------------------------
-    def h_generate(self, d: dict) -> tuple[int, dict]:
+    def h_health(self) -> tuple[int, dict]:
+        """503 "draining" while a drain is on (the replica is leaving), 503
+        "wedged" when the decode loop stopped making passes with work
+        pending (``server.py:137``); else 200 "ok"."""
+        version = self.engine.get_version()
+        if self.engine.is_draining:
+            return 503, {"status": "draining", "version": version}
+        if self.engine.is_wedged():
+            return 503, {"status": "wedged", "version": version}
+        return 200, {"status": "ok", "version": version}
+
+    def admission_refusal(self) -> tuple[int, dict, dict] | None:
+        """The engine's admission gate (``server.py:336``): None to admit,
+        else 429 with the gate's reason and snapshot, and a Retry-After
+        scattered into [x, x*(1+jitter)] so refused clients do not return
+        on one tick."""
+        admit, reason, snap = self.engine.check_admission()
+        if admit:
+            return None
+        lc = self.config.lifecycle
+        retry_after = lc.retry_after_s or 1.0
+        if lc.retry_after_jitter > 0:
+            retry_after *= 1.0 + random.random() * lc.retry_after_jitter
+        self._lc_obs.admission_rejected.labels(reason=reason).inc()
+        return 429, {"status": "rejected", "reason": reason, **snap}, {"Retry-After": f"{retry_after:g}"}
+
+    def h_generate(self, d: dict, headers=None, gone=None) -> tuple:
+        """One generation (``server.py:336-441``). ``headers``: the request's
+        HTTP headers (the deadline and priority ride there; the deadline
+        header wins over a JSON "deadline"); ``gone``: a callable that says
+        whether the caller disconnected, which cancels the rid."""
+        self._metrics.requests.labels(endpoint="generate").inc()
+        refused = self.admission_refusal()
+        if refused is not None:
+            return refused
         req = _req_from_json(d)
+        headers = headers or {}
+        prio = headers.get(wire.PRIORITY_HEADER) or req.metadata.get("priority", "")
+        if prio:
+            req.metadata["priority"] = str(prio).lower()
+        hdr_deadline = headers.get(wire.DEADLINE_HEADER)
+        if hdr_deadline:
+            try:
+                req.deadline = float(hdr_deadline)
+            except ValueError:
+                raise ValueError("bad x-areal-deadline") from None
         done = threading.Event()
         box: list[io_struct.ModelResponse] = []
 
@@ -235,8 +322,17 @@ class InferenceServer:
             done.set()
 
         self.engine.submit(req, cb)
-        done.wait()
-        return 200, _response_json(box[0])
+        while not done.wait(0.1 if gone is not None else None):
+            if gone():
+                # the caller is gone: cancel the engine-side work instead of
+                # decoding for nobody; the answer below goes nowhere
+                self.engine.abort_request(req.rid)
+                gone = None
+        resp = box[0]
+        if resp.output_tokens:
+            self._metrics.ttft.observe(resp.ttft)
+        self._metrics.request_latency.observe(resp.latency)
+        return 200, _response_json(resp)
 
     def metrics(self) -> dict:
         """The engine's stats plus its pause state (``server.py:199``): the
@@ -245,6 +341,67 @@ class InferenceServer:
         out["server_paused"] = self.engine.is_paused
         out.setdefault("paused", self.engine.is_paused)
         return out
+
+    def h_statusz(self) -> tuple[int, dict]:
+        """Identity, uptime, version and live state (``server.py:216``): every
+        decode-loop counter, the radix cache, the admission snapshot, the
+        drain, the autopilot's setpoints, and the device bytes of the KV pool
+        and the penalty's count table."""
+        eng = self.engine
+        return 200, {
+            "role": "inference_server",
+            "address": self.address,
+            "uptime_secs": time.time() - self._started_at,
+            "version": eng.get_version(),
+            "paused": eng.is_paused,
+            "stats": dict(eng.stats),
+            "prefix_cache": eng.prefix_cache_stats(),
+            "lifecycle": eng.admission_snapshot(),
+            "drain": eng.drain_status(),
+            "autopilot": eng.autopilot_status(),
+            "memory": eng.memory_bytes() if eng.initialized else {},
+        }
+
+    def h_drain(self, d: dict) -> tuple[int, dict]:
+        """A graceful drain (``server.py:467``): admission closes (429
+        "draining"), in-flight decodes finish or park within ``budget_s``
+        (default ``preemption.drain_budget_s``), and the summary with the
+        page audit comes back."""
+        self._metrics.requests.labels(endpoint="drain").inc()
+        budget = float(d.get("budget_s", self.config.preemption.drain_budget_s))
+        return 200, {"status": "ok", **self.engine.drain(budget)}
+
+    def h_undrain(self, d: dict) -> tuple[int, dict]:
+        """Call a drain off: re-open admission and resume the loop. A
+        terminal drain answers 409."""
+        self._metrics.requests.labels(endpoint="undrain").inc()
+        if not self.engine.end_drain():
+            return 409, {"status": "error", "error": "drain is terminal"}
+        self.engine.continue_generation()
+        return 200, {"status": "ok"}
+
+    def h_autopilot_knobs(self, d: dict, headers=None) -> tuple[int, dict]:
+        """Apply control-plane setpoints (``server.py:512``); with
+        ``autopilot_token`` set, the request must carry it in
+        ``x-areal-autopilot-token`` (403 otherwise)."""
+        self._metrics.requests.labels(endpoint="autopilot_knobs").inc()
+        token = self.config.autopilot_token
+        if token and (headers or {}).get(wire.AUTOPILOT_TOKEN_HEADER) != token:
+            return 403, {"status": "error", "error": "bad autopilot token"}
+        return 200, {"status": "ok", **self.engine.apply_autopilot_knobs(d)}
+
+    def h_release_memory(self, d: dict) -> tuple[int, dict]:
+        """Hand the card to a colocated trainer (``server.py:722``): the
+        abort pause first (a hold keeps slots live and does not qualify),
+        then the weights to the host and the KV pool dropped."""
+        if not self.engine.is_abort_paused:
+            self.engine.pause_generation()
+        self.engine.release_memory()
+        return 200, {"status": "ok"}
+
+    def h_resume_memory(self, d: dict) -> tuple[int, dict]:
+        self.engine.resume_memory()
+        return 200, {"status": "ok"}
 
     def h_abort_request(self, d: dict) -> tuple[int, dict]:
         """Cancel one request by rid (``server.py:443``): the decode loop
@@ -259,6 +416,7 @@ class InferenceServer:
         """An empty body is the abort pause; ``{"mode": "hold"}`` the commit
         fence, answered once the decode loop drained its in-flight chunk
         (``server.py:546``). A body that does not parse never pauses."""
+        self._metrics.pauses.inc()
         mode = d.get("mode", "abort")
         self.engine.pause_generation(mode)
         if mode == "hold":
@@ -266,6 +424,7 @@ class InferenceServer:
         return 200, {"status": "ok"}
 
     def h_continue(self, d: dict) -> tuple[int, dict]:
+        self._metrics.resumes.inc()
         self.engine.continue_generation()
         return 200, {"status": "ok"}
 

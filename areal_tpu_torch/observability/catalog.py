@@ -1,11 +1,13 @@
 """The metric families the rollout loop registers, copied from
 ``areal_tpu/observability/catalog.py`` with the same names, labels, help
-texts and buckets: ``staleness_metrics``, ``executor_metrics``,
-``lifecycle_metrics``, ``client_metrics``, ``robustness_metrics``,
-``preemption_metrics``, and the trainer loop's ``trainer_metrics`` and
-``train_obs_metrics`` (the latter without the XLA compile counters, which
-have no PyTorch counterpart). The other families wait for the modules that
-register them (ROADMAP Queue A items 2, 3, 7 and 8).
+texts and buckets: ``staleness_metrics``, ``executor_metrics``, the serving
+engine's ``engine_metrics``, ``prefix_cache_metrics`` and
+``lifecycle_metrics``, the server's ``server_metrics``, ``client_metrics``,
+``robustness_metrics``, ``preemption_metrics``, ``autopilot_metrics``, and
+the trainer loop's ``trainer_metrics`` and ``train_obs_metrics`` (the latter
+without the XLA compile counters, which have no PyTorch counterpart). The
+other families wait for the modules that register them (ROADMAP Queue A
+items 2b, 3, 7 and 8).
 
 Factories are idempotent (the registry dedups by name).
 """
@@ -108,8 +110,74 @@ def executor_metrics(reg: Registry | None = None) -> SimpleNamespace:
     )
 
 
+def engine_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """DecodeEngine: decode-loop throughput counters."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        generated_tokens=r.counter(
+            "areal_decode_generated_tokens_total",
+            "Tokens emitted by the decode loop.",
+        ),
+        completed=r.counter(
+            "areal_decode_completed_total",
+            "Generation requests finished (stop/length).",
+        ),
+        aborted=r.counter(
+            "areal_decode_aborted_total",
+            "Generation requests aborted (weight-update pause/preemption).",
+        ),
+        prefills=r.counter(
+            "areal_decode_prefills_total", "Sequences prefilled."
+        ),
+        prefill_tokens=r.counter(
+            "areal_decode_prefill_tokens_total",
+            "Prompt tokens actually prefilled (radix-cached prefix tokens "
+            "excluded — the denominator's complement for prefix hit rate).",
+        ),
+        chunks=r.counter(
+            "areal_decode_chunks_total", "Jitted decode chunks executed."
+        ),
+        batch_occupancy=r.gauge(
+            "areal_decode_batch_occupancy",
+            "Active decode slots (of ServerConfig.max_batch_size).",
+        ),
+    )
+
+
+def prefix_cache_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Cross-request radix prefix cache over the paged KV pool
+    (inference/paged_kv.py RadixPrefixCache): prompt-KV reuse visibility.
+    Hit rate = hit_tokens / (hit_tokens + areal_decode_prefill_tokens_total)."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        lookups=r.counter(
+            "areal_prefix_cache_lookups_total",
+            "Radix-cache prefix lookups at admission.",
+        ),
+        hit_tokens=r.counter(
+            "areal_prefix_cache_hit_tokens_total",
+            "Prompt tokens served from radix-cached KV pages instead of "
+            "prefill (page refcount bumps, zero FLOPs).",
+        ),
+        inserted_pages=r.counter(
+            "areal_prefix_cache_inserted_pages_total",
+            "KV pages published into the radix tree at request "
+            "completion/park time.",
+        ),
+        evicted_pages=r.counter(
+            "areal_prefix_cache_evicted_pages_total",
+            "Radix-cached pages released (LRU-leaf eviction under pool "
+            "pressure, capacity eviction, or flush at a weight commit).",
+        ),
+        pages_held=r.gauge(
+            "areal_prefix_cache_pages_held",
+            "KV pages currently owned by the radix tree.",
+        ),
+    )
+
+
 def lifecycle_metrics(reg: Registry | None = None) -> SimpleNamespace:
-    """The request lifecycle (ROADMAP Queue A item 2): deadlines,
+    """The request lifecycle (``inference/decode_engine.py``): deadlines,
     cancellation, admission control, and load shedding across the stack."""
     r = reg or get_registry()
     return SimpleNamespace(
@@ -158,6 +226,49 @@ def lifecycle_metrics(reg: Registry | None = None) -> SimpleNamespace:
             "Requests currently forwarded through the gateway, by "
             "priority class.",
             label_names=("priority",),
+        ),
+    )
+
+
+def server_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Inference HTTP server: per-request latency + pause/update windows."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        requests=r.counter(
+            "areal_server_requests_total",
+            "HTTP requests served, by endpoint.",
+            label_names=("endpoint",),
+        ),
+        ttft=r.histogram(
+            "areal_server_ttft_seconds",
+            "Per-request time to first token.",
+            buckets=FAST_BUCKETS,
+        ),
+        request_latency=r.histogram(
+            "areal_server_generate_seconds",
+            "Per-request end-to-end /generate latency.",
+        ),
+        paused=r.gauge(
+            "areal_server_paused",
+            "1 while generation is paused for a weight update, else 0.",
+        ),
+        pauses=r.counter(
+            "areal_server_pause_total", "pause_generation calls."
+        ),
+        resumes=r.counter(
+            "areal_server_resume_total", "continue_generation calls."
+        ),
+        queue_depth=r.gauge(
+            "areal_server_queue_depth",
+            "Engine submission queue + admission backlog depth.",
+        ),
+        update_bucket_bytes=r.counter(
+            "areal_weight_update_bucket_bytes_total",
+            "Streamed weight-bucket bytes received (server side).",
+        ),
+        update_stage_seconds=r.histogram(
+            "areal_weight_update_stage_seconds",
+            "Server-side begin->commit latency of a staged weight update.",
         ),
     )
 
@@ -309,6 +420,62 @@ def preemption_metrics(reg: Registry | None = None) -> SimpleNamespace:
             "Journaled trajectories dropped at replay: over-stale for the "
             "restored policy version, or already consumed by a training "
             "step the recover checkpoint covers.",
+        ),
+    )
+
+
+def autopilot_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Goodput autopilot (areal_tpu/autopilot/): the adaptive control
+    plane's decision audit. Every setpoint change also lands in the
+    flight ring as ``kind=autopilot_decision`` with the signal values
+    that drove it (docs/autopilot.md)."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        decisions=r.counter(
+            "areal_autopilot_decisions_total",
+            "Autopilot setpoint changes applied, by controller "
+            "(staleness | admission | cache | fleet) and reason "
+            "(trainer_starved | queue_wait_high | shed_under_capacity | "
+            "hbm_pressure | sustained_idle | sustained_backlog | ...).",
+            label_names=("controller", "reason"),
+        ),
+        setpoint=r.gauge(
+            "areal_autopilot_setpoint",
+            "Current autopilot-managed setpoint value, by knob "
+            "(max_staleness | max_queue_depth | min_free_pages | "
+            "gateway_interactive_headroom | radix_max_fraction | "
+            "target_replicas).",
+            label_names=("knob",),
+        ),
+        last_action_age=r.gauge(
+            "areal_autopilot_last_action_age_seconds",
+            "Seconds since each controller last changed a setpoint "
+            "(refreshed every control round; -1 until a controller has "
+            "acted).",
+            label_names=("controller",),
+        ),
+        signal_holds=r.counter(
+            "areal_autopilot_signal_hold_total",
+            "Control rounds a controller held position because a required "
+            "signal was absent or older than autopilot.signal_ttl_s (the "
+            "stale-signal degradation mirroring the router's round-robin "
+            "fallback).",
+            label_names=("controller",),
+        ),
+        guard_vetoes=r.counter(
+            "areal_autopilot_guard_veto_total",
+            "Setpoint changes vetoed by a learning-health guard (the "
+            "staleness controller declining to raise the bound while the "
+            "high-lag bucket's tokens are clipped dead weight), by "
+            "controller. Audited as kind=autopilot_guard_veto flight "
+            "events.",
+            label_names=("controller",),
+        ),
+        apply_failures=r.counter(
+            "areal_autopilot_apply_failures_total",
+            "Actuations that failed to apply (replica knob POST errored, "
+            "drain/undrain failed); the controller's setpoint stands and "
+            "the next round re-applies.",
         ),
     )
 

@@ -74,16 +74,30 @@ no result line:
               executor retries it), and a pause / set_version(1) / continue
               lands while the second call's rows decode. Checks the rows'
               layout and completeness, logprobs against a dense prefill, the
-              version tags across the pause and the staleness bound, radix
-              hits of the resumed requests (kernel #3), the capacity and the
+              version tags across the pause and the staleness bound, the
+              resumed requests' KV resumes, the retried episode's radix hits
+              (kernel #3), the capacity and the
               peak of active slots, kernel #1's launches per decode step, the
               executor's retry counters and the pool audit; prints the loop's
               tokens/s beside the serve phase's, task latency and the pause.
-9. spec     — speculative decoding (ngram, then tree drafter): greedy
+9. lifecycle — the serving engine's request lifecycle at Qwen2.5-1.5B
+              (the serve phase's settings), over HTTP through
+              ``RemoteTorchEngine``: (a) 16 greedy requests abort-paused and
+              resumed from their parked KV (no prefill, the tokens of an
+              uninterrupted run, pause -> first resumed token beside a
+              re-prefill through #3); (b) the same across a staged update of
+              perturbed weights, with and without kv_reuse_across_updates;
+              (c) the frequency penalty against a teacher-forced dense
+              forward, across an abort; (d) deadlines, mid-decode and in the
+              queue; (e) the 429 gate (max_queue_depth pushed through
+              /autopilot/knobs) and the client's backpressure; (f) /drain,
+              /health and /generate while draining, /undrain; (g) release /
+              resume memory. The pool audit and the #1 / #3 launches.
+10. spec     — speculative decoding (ngram, then tree drafter): greedy
               tokens equal to a non-speculative engine's with the same
               weights, kernel #3's tree launches, rounds / accepted /
               rollback pages, the pool's accounting.
-10. train    — two asynchronous-GRPO steps at full width and depth: the
+11. train    — two asynchronous-GRPO steps at full width and depth: the
               ``DecodeEngine`` generates 8 prompts x 4 samples (duplicates
               alias the first sample's pages), the ``TorchTrainEngine``
               recomputes proximal logprobs (K2), ``PPOActor`` computes
@@ -94,7 +108,7 @@ no result line:
               Checks the logprobs on both waves, finite loss and grad norm
               (and the plain attention's grad norm on one minibatch), moved
               weights, version tags and every kernel's launch count.
-11. grpo     — the whole GRPO loop over HTTP at full width and depth:
+12. grpo     — the whole GRPO loop over HTTP at full width and depth:
               ``PPOTrainer.train`` (3 global steps) with a
               ``TorchTrainEngine`` (``train``'s actor settings, a constant
               LR) and ``RemoteTorchEngine`` (16 rollouts at once, batches of
@@ -114,7 +128,7 @@ no result line:
               tokens generated during the update and the rows spanning a
               commit; staging GB/s, decode step wall time while staging
               beside the other steps, trainer tokens/s and peak memory.
-12. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+13. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -129,7 +143,7 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-13. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+14. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
@@ -138,7 +152,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-14. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+15. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -150,7 +164,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-15. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+16. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -161,7 +175,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-16. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+17. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -169,7 +183,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-17. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+18. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -203,6 +217,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -2093,8 +2108,8 @@ def phase_rollout(card: str, serve: dict | None = None, model_kw: dict | None = 
     attempts: list[tuple[str, int, int, str]] = []
     h_generate = srv.server.h_generate
 
-    def h_generate_logged(d: dict):
-        status, out = h_generate(d)
+    def h_generate_logged(d: dict, **kw):
+        status, out = h_generate(d, **kw)
         attempts.append((d.get("rid", ""), len(d["input_ids"]), int(out["cached_prefix_tokens"]), out["stop_reason"]))
         return status, out
 
@@ -2152,7 +2167,7 @@ def phase_rollout(card: str, serve: dict | None = None, model_kw: dict | None = 
     pause = {}
     try:
         # main path: counts to 0 just before, read just after
-        keys = ("decode_steps", "generated_tokens", "cancelled", "aborted", "prefix_hit_tokens")
+        keys = ("decode_steps", "generated_tokens", "cancelled", "aborted", "prefix_hit_tokens", "kv_resumes")
         s0 = {k: engine.stats[k] for k in keys}
         r0 = (robust.task_retries.get(), robust.task_quarantined.get())
         paged_attention_stacked.launches = 0
@@ -2218,16 +2233,17 @@ def phase_rollout(card: str, serve: dict | None = None, model_kw: dict | None = 
             spans += i == 1 and tags[0] == 0 and tags[-1] == 1
     if set(batches[0]["versions"][batches[0]["loss_mask"] > 0].tolist()) != {0} or not spans:
         raise AssertionError(f"[rollout] batch 1 not all v0, or no row of batch 2 spans the pause ({spans})")
-    # the resumed requests came back through the radix tree (warm prefill: #3)
+    # the paused requests resumed from their parked KV (no prefill); the
+    # cancelled episode's retry hit the pages its cancelled requests
+    # published (warm prefill: #3)
     seen: dict[str, int] = {}
     resumed = []
     for rid, n_in, cached, reason in attempts:
         if rid in seen:
             resumed.append((n_in, cached))
         seen[rid] = seen.get(rid, 0) + 1
-    full_page = [c for n_in, c in resumed if n_in - 1 >= cfg.page_size]
-    if not resumed or min(full_page, default=1) <= 0 or sum(launches3.values()) <= 0:
-        raise AssertionError(f"[rollout] resumed requests {resumed} missed the radix tree, or #3 launches "
+    if not resumed or d["kv_resumes"] != len(resumed) or sum(launches3.values()) <= 0:
+        raise AssertionError(f"[rollout] {len(resumed)} resumed requests, {d['kv_resumes']} KV resumes, #3 launches "
                              f"{launches3}")
     cancelled = [a for a in attempts if a[3] == "cancelled"]
     if not cancel["fired"] or d["cancelled"] != ROLLOUT_SAMPLES or len(cancelled) != ROLLOUT_SAMPLES:
@@ -2270,8 +2286,8 @@ def phase_rollout(card: str, serve: dict | None = None, model_kw: dict | None = 
     log(f"[rollout] capacity min {min(caps)} max {max(caps)}, running max {max(running)} (bound "
         f"{rcfg.max_concurrent_rollouts}), peak active slots {peak_slots} of {cfg.max_batch_size}; "
         f"{len(samples)} samples")
-    log(f"[rollout] resumed requests {len(resumed)} (cached prefix {min(c for _, c in resumed)}..."
-        f"{max(c for _, c in resumed)} tokens; {len(full_page)} with a full page, all hits); cancelled "
+    log(f"[rollout] resumed requests {len(resumed)}, all from their parked KV ({d['kv_resumes']} KV resumes, "
+        f"radix hit tokens {d['prefix_hit_tokens']} in the phase); cancelled "
         f"episode: {d['cancelled']} requests reaped after {cancel['chunks']} chunks, executor retries "
         f"{retries:.0f}, quarantined {quarantined:.0f}; pool audit ok")
     log(f"[rollout] kernel #1 launches {launches1} = {mcfg.num_layers} layers x {steps} decode steps; kernel #3 "
@@ -2282,6 +2298,553 @@ def phase_rollout(card: str, serve: dict | None = None, model_kw: dict | None = 
     return dict(launches1=launches1, launches3=sum(launches3.values()), tok_s=toks / wall, steps=steps,
                 p50=_percentile(lat, 50), p95=_percentile(lat, 95), pause_ms=pause["pause_to_resume_s"] * 1e3,
                 peak_slots=peak_slots)
+
+
+LIFECYCLE_PROMPTS, LIFECYCLE_NEW = 16, 256
+
+
+def _http_status(addr: str, path: str, body: dict | None = None, timeout: float = 60.0) -> tuple[int, dict, dict]:
+    """(status, headers, JSON) of one GET (no body) or POST, 4xx / 5xx
+    answers included."""
+    req = urllib.request.Request(f"http://{addr}{path}", data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read() or b"{}")
+
+
+NEAR_TIE = 1e-3  # two runs with the same batching part only where the top two logits are this close
+
+
+def _near_ties(model, prompts: list, got: list, want: list, what: str, tol: float = NEAR_TIE):
+    """Hold two greedy runs of the same requests to each other: each pair
+    of outputs is equal, or parts where both tokens sit within ``tol`` of
+    the dense argmax (a near-tie). The near-ties as (request, token index,
+    gap of ``got``'s token, gap of ``want``'s)."""
+    ties = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        j, ga, gb = _greedy_divergence(model, p, a, b)
+        if max(ga, gb) > tol:
+            raise AssertionError(f"[lifecycle] {what}: request {i} parts at token {j} off a near-tie "
+                                 f"(dense-logit gaps {ga:.4f} / {gb:.4f}, tol {tol})")
+        ties.append((i, j, ga, gb))
+    return ties
+
+
+def _admit_together(engine, n: int) -> None:
+    """Hold ``engine``'s admission until ``n`` requests are queued, then
+    admit them in one pass, ordered by their ids: two waves of the same
+    requests then prefill in the same groups and decode in the same slots,
+    so their greedy tokens agree bit for bit (requests arriving over HTTP
+    on their own threads would otherwise group by arrival). One use; the
+    gate opens anyway after 120 s, so a missing request fails the check
+    that follows instead of hanging the phase."""
+    from collections import deque
+
+    t_end = time.monotonic() + 120
+
+    def gated():
+        q = engine._queue
+        if q.qsize() + len(engine._backlog) < n and time.monotonic() < t_end:
+            return []
+        with q.mutex:
+            q.queue = deque(sorted(q.queue, key=lambda t: tuple(t.req.input_ids)))
+        del engine._admit_pending  # back to the engine's own
+        return engine._admit_pending()
+
+    engine._admit_pending = gated
+
+
+def _penalized_gaps(model, prompt: list[int], out: list[int], pen: float) -> np.ndarray:
+    """Teacher-forced dense forward over prompt + output: per output token,
+    the shortfall of its penalized logit (logits - pen x the counts of the
+    output tokens before it) below the penalized argmax."""
+    from areal_tpu_torch.models import qwen
+
+    ids = torch.tensor([prompt + out], device="cuda")
+    with torch.no_grad():
+        h, _, _ = qwen.forward_prefill(model, ids, torch.arange(ids.shape[1], device="cuda")[None])
+        logits = qwen.compute_logits(model, h[0, len(prompt) - 1: len(prompt) - 1 + len(out)]).float()
+    tok = torch.tensor(out, device="cuda")
+    onehot = torch.nn.functional.one_hot(tok, logits.shape[-1]).float()
+    before = torch.cumsum(onehot, dim=0) - onehot  # counts of the tokens before each position
+    pl = logits - pen * before
+    return (pl.max(dim=-1).values - pl.gather(1, tok[:, None])[:, 0]).cpu().numpy()
+
+
+def phase_lifecycle(card: str) -> dict:
+    """The serving engine's request lifecycle at Qwen2.5-1.5B's full width
+    and depth (random bf16 weights from a seed), the serve phase's
+    ``ServerConfig``, over HTTP through ``RemoteTorchEngine`` where a client
+    is involved:
+
+    (a) park / resume: 16 greedy requests (64-512-token prompts, 256 new
+        tokens) abort-paused after ~64 tokens, held 0.2 s and continued:
+        16 KV resumes, no prefill from the pause to the end, the tokens of
+        an uninterrupted run on a fresh engine (near-ties recorded); the
+        continue -> first resumed token beside the same wave whose parkings a commit
+        of the same weights evicted (``kv_reuse_across_updates=False``,
+        the tree kept: the resubmits' warm prefill, kernel #3);
+    (b) across a weight update: an abort pause, a staged update of
+        perturbed weights, the resume; reuse on: no prefill, the tokens
+        after the commit tagged v1; reuse off: prefill tokens equal to the
+        resumed prompts' lengths, logprobs within LOGPROB_TOL of a dense
+        forward under the new weights;
+    (c) the frequency penalty (``enable_frequency_penalty``): 8 greedy
+        requests at 5.0 and 8 at 0 in one wave with one abort / resume;
+        each penalized token the argmax of the dense logits less 5 x the
+        running counts, near-ties recorded;
+    (d) deadlines: 8 requests of 512 tokens due 1 s out end "deadline"
+        with a partial output; one due before it arrives never prefills;
+        retries of the reaped ones hit their published pages (#3);
+    (e) admission: ``max_queue_depth=8`` pushed through /autopilot/knobs;
+        64 raw posts see 429s with Retry-After, the same 64 through the
+        client (``backpressure_wait_s=60``) all complete with no retry
+        attempt spent;
+    (f) drain: /drain mid-wave (budget 2 s) parks the wave, leaks no page;
+        /health 503 and /generate 429 "draining"; after /undrain the parked
+        requests resume and complete;
+    (g) release / resume memory: the reserved and allocated device memory
+        fall by at least the served weights plus the KV pool; after resume
+        a greedy wave equals the one before the release.
+
+    Each wave that is compared with another admits its requests
+    together, in one order (``_admit_together``), so the two batch alike.
+    Then the pool audit and the #1 / #3 launches of the phase (cold prefill
+    is plain PyTorch, as in the JAX engine: K2 serves the trainer only).
+    The watchdog and the wedge detector need a planted stall; they are held
+    on the CPU only (``tests/test_torch_request_lifecycle.py``)."""
+    import asyncio
+
+    from areal_tpu_torch.api.config import InferenceEngineConfig, PrefixCacheConfig, RequestLifecycleConfig, \
+        ServerConfig
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest, WeightUpdateMeta
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.observability import catalog
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+
+    t_phase = time.monotonic()
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    L = mcfg.num_layers
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    base = dict(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16, host="127.0.0.1",
+                seed=0)
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, LIFECYCLE_PROMPTS)]
+    out: dict = {}
+    steps = 0  # decode steps of every engine of the phase
+
+    class Served:
+        """One engine behind its server, and a client."""
+
+        def __init__(self, **kw):
+            self.cfg = ServerConfig(**base, **kw)
+            self.engine = DecodeEngine(self.cfg, params=model)
+            self.srv = ServerThread(self.cfg, engine=self.engine)
+            self.srv.start()
+            self.addr = self.srv.address
+            self.client = self.new_client()
+
+        def new_client(self, **lc):
+            c = RemoteTorchEngine(InferenceEngineConfig(request_timeout=900, lifecycle=RequestLifecycleConfig(**lc)),
+                                  addresses=[self.addr])
+            c.initialize()
+            return c
+
+        def wave(self, reqs, client=None):
+            """Every request through ``agenerate`` at once, on a thread; the
+            thread and the box its responses land in."""
+            client = client or self.client
+            box: list = []
+
+            async def run():
+                try:
+                    box.extend(await asyncio.gather(*(client.agenerate(r) for r in reqs)))
+                finally:
+                    await client.close_loop_connections()
+
+            th = threading.Thread(target=lambda: asyncio.run(run()), daemon=True)
+            th.start()
+            return th, box
+
+        def done(self, th, box, n, what):
+            th.join(timeout=900)
+            if len(box) != n:
+                raise AssertionError(f"[lifecycle] {what}: {len(box)} of {n} responses")
+            return box
+
+        def wait_tokens(self, n, th, what):
+            deadline = time.monotonic() + 600
+            g0 = self.g0
+            while self.engine.stats["generated_tokens"] - g0 < n and th.is_alive() and time.monotonic() < deadline:
+                time.sleep(0.001)
+            if not th.is_alive():
+                raise AssertionError(f"[lifecycle] {what}: the wave ended before the pause")
+
+        def mark(self):
+            self.g0 = self.engine.stats["generated_tokens"]
+
+        def first_token_after(self, t0):
+            g = self.engine.stats["generated_tokens"]
+            deadline = time.monotonic() + 120
+            while self.engine.stats["generated_tokens"] == g and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            return time.monotonic() - t0
+
+        def close(self):
+            nonlocal steps
+            steps += self.engine.stats["decode_steps"]
+            self.client.destroy()
+            self.srv.stop()
+
+    def greedy(p, n, rid=None, **g):
+        kw = {} if rid is None else {"rid": rid}
+        return ModelRequest(input_ids=list(p), gconfig=GenerationHyperparameters(max_new_tokens=n, greedy=True, **g),
+                            **kw)
+
+    def interrupted(s, reqs, at, hold, between=None):
+        """A wave abort-paused once ``at`` tokens a request were generated,
+        ``between(s)`` run in the pause (else a ``hold`` s sleep), then
+        continued, the wave and its resubmits each admitted together:
+        (responses, stats at the pause ack, seconds from the continue to
+        the first resumed token)."""
+        s.mark()
+        _admit_together(s.engine, len(reqs))
+        th, box = s.wave(reqs)
+        s.wait_tokens(len(reqs) * at, th, "pause")
+        s.client.pause_generation()
+        at_pause = dict(s.engine.stats)
+        if between is not None:
+            between(s)
+        else:
+            time.sleep(hold)
+        _admit_together(s.engine, len(reqs))
+        t0 = time.monotonic()
+        s.client.continue_generation()
+        first = s.first_token_after(t0)
+        return s.done(th, box, len(reqs), "interrupted wave"), at_pause, first
+
+    # main path: counts to 0 just before, read just after
+    paged_attention_stacked.launches = 0
+    for k in psa.launches:
+        psa.launches[k] = 0
+    fa.flash_attention_fwd.launches = 0
+
+    # (a) park / resume: the uninterrupted run first, on a fresh engine
+    s = Served()
+    t0 = time.monotonic()
+    _admit_together(s.engine, LIFECYCLE_PROMPTS)
+    ref = s.done(*s.wave([greedy(p, LIFECYCLE_NEW) for p in prompts]), LIFECYCLE_PROMPTS, "reference wave")
+    ref_wall = time.monotonic() - t0
+    s.close()
+    del s
+    gc.collect()
+    s = Served()  # the main engine of (a), (b), (d)-(g)
+    eng = s.engine
+    resp, at_pause, first_on = interrupted(s, [greedy(p, LIFECYCLE_NEW, rid=f"a{i}") for i, p in enumerate(prompts)],
+                                           64, 0.2)
+    d_res = eng.stats["kv_resumes"] - at_pause["kv_resumes"]
+    d_pre = eng.stats["prefill_tokens"] - at_pause["prefill_tokens"]
+    for r in resp:
+        _check_response({"output_tokens": r.output_tokens, "output_logprobs": r.output_logprobs,
+                         "output_versions": r.output_versions}, LIFECYCLE_NEW, "lifecycle a")
+    ties = _near_ties(model, prompts, [r.output_tokens for r in resp], [r.output_tokens for r in ref], "(a)")
+    if d_res != LIFECYCLE_PROMPTS or d_pre != 0:
+        raise AssertionError(f"[lifecycle] (a) kv_resumes +{d_res} (want {LIFECYCLE_PROMPTS}), prefill tokens "
+                             f"+{d_pre} from the pause to the end (want 0)")
+    # the same wave, its parkings evicted by a commit of the same weights
+    # (kv_reuse_across_updates off) and the tree kept: the resubmits' warm
+    # prefill over their published pages (#3)
+    eng.config.kv_reuse_across_updates = False
+    eng.config.prefix_cache = PrefixCacheConfig(across_updates="keep")
+    chain0 = psa.launches["chain"]
+    resp_off, at_off, first_off = interrupted(
+        s, [greedy(p, LIFECYCLE_NEW, rid=f"a-off{i}") for i, p in enumerate(prompts)], 64, 0.0,
+        between=lambda s: (time.sleep(0.2), s.engine.update_weights_from_params(model, version=0)))
+    d_pre_off = eng.stats["prefill_tokens"] - at_off["prefill_tokens"]
+    d_hit_off = eng.stats["prefix_hit_tokens"] - at_off["prefix_hit_tokens"]
+    chain_off = psa.launches["chain"] - chain0
+    # the warm re-prefill writes KV through #3 where decode wrote it
+    # through #1: other roundings, so greedy tokens may part at bf16
+    # near-ties (held to LOGPROB_TOL, as the spec phase holds its paths)
+    ties_off = _near_ties(model, prompts, [r.output_tokens for r in resp_off], [r.output_tokens for r in ref],
+                          "(a) re-prefilled", tol=LOGPROB_TOL)
+    if eng.stats["kv_resumes"] != at_off["kv_resumes"] or d_hit_off <= 0 or chain_off <= 0:
+        raise AssertionError(f"[lifecycle] (a) without reuse: resumes {eng.stats['kv_resumes'] - at_off['kv_resumes']}"
+                             f", radix hit tokens {d_hit_off}, #3 chain launches {chain_off}")
+    eng.config.kv_reuse_across_updates = True
+    eng.config.prefix_cache = PrefixCacheConfig()
+    log(f"[lifecycle] (a) {card}: 16 greedy requests x {LIFECYCLE_NEW} tokens, abort-paused at ~64 tokens each, held "
+        f"0.2 s: kv_resumes +{d_res}, prefill tokens +{d_pre} from the pause to the end; tokens vs an uninterrupted "
+        f"run on a fresh engine ({ref_wall:.2f} s): {LIFECYCLE_PROMPTS - len(ties)}/16 identical, near-ties "
+        + (", ".join(f"req {i} tok {j} ({a:.4f} / {b:.4f})" for i, j, a, b in ties) or "none")
+        + f"; continue -> first resumed token {first_on * 1e3:.1f} ms (parked KV) vs {first_off * 1e3:.1f} ms with the "
+        f"parkings evicted (warm re-prefill of {d_pre_off} tokens over {d_hit_off} radix-hit tokens, #3 chain "
+        f"launches {chain_off}; near-ties " + (", ".join(f"req {i} tok {j}" for i, j, _, _ in ties_off) or "none")
+        + ")")
+    out["a"] = dict(first_resumed_ms=first_on * 1e3, first_reprefill_ms=first_off * 1e3, resumes=d_res,
+                    near_ties=len(ties), reprefill_tokens=d_pre_off)
+
+    # (b) across a weight update: abort, staged update of perturbed weights
+    # (the client streams bf16 buckets with generation paused), resume
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def perturbed():
+        with torch.no_grad():
+            return {n: (p.float() + 1e-3 * torch.randn(p.shape, generator=gen, device="cuda")).to(p.dtype)
+                    for n, p in model.state_dict().items()}
+
+    def staged(s):
+        new = perturbed()
+        s.client.update_weights(WeightUpdateMeta(), params=new)
+        del new
+
+    s.client.config.weight_commit_fence = "none"  # the abort pause is the fence
+    sampled = [ModelRequest(input_ids=list(p), rid=f"b{i}", gconfig=GenerationHyperparameters(
+        max_new_tokens=128, temperature=1.0)) for i, p in enumerate(prompts)]
+    bres = {}
+    for reuse in (True, False):
+        eng.config.kv_reuse_across_updates = reuse
+        for r in sampled:
+            r.rid = f"b{int(reuse)}-{r.rid}"
+        v_new = s.client.get_version() + 1
+        resp_b, at_b, first_b = interrupted(s, sampled, 32, 0.0, between=staged)
+        d_res = eng.stats["kv_resumes"] - at_b["kv_resumes"]
+        d_pre = eng.stats["prefill_tokens"] - at_b["prefill_tokens"]
+        n_first = [r.output_versions.count(v_new - 1) for r in resp_b]
+        for r, k in zip(resp_b, n_first):
+            _check_response({"output_tokens": r.output_tokens, "output_logprobs": r.output_logprobs,
+                             "output_versions": r.output_versions}, 128, "lifecycle b")
+            if r.output_versions != [v_new - 1] * k + [v_new] * (128 - k) or not 0 < k < 128:
+                raise AssertionError(f"[lifecycle] (b) version tags {sorted(set(r.output_versions))} around v{v_new}")
+        if reuse:
+            if d_res != LIFECYCLE_PROMPTS or d_pre != 0:
+                raise AssertionError(f"[lifecycle] (b) reuse on: kv_resumes +{d_res}, prefill tokens +{d_pre}")
+            err = float("nan")
+        else:
+            want = sum(len(p) + k for p, k in zip(prompts, n_first))
+            if d_res != 0 or d_pre != want:
+                raise AssertionError(f"[lifecycle] (b) reuse off: kv_resumes +{d_res}, prefill tokens {d_pre} != the "
+                                     f"resumed prompts' {want}")
+            # the resumed tokens' logprobs against a dense forward under the
+            # new weights, over prompt + every output token
+            err = max(float(_dense_diffs(model, p, {"output_tokens": r.output_tokens,
+                                                    "output_logprobs": r.output_logprobs}, greedy=False)[k:].max())
+                      for p, r, k in zip(prompts, resp_b, n_first))
+            if not err <= LOGPROB_TOL:
+                raise AssertionError(f"[lifecycle] (b) reuse off: resumed logprobs vs the new weights' dense "
+                                     f"forward {err:.4f} > {LOGPROB_TOL}")
+        bres[reuse] = dict(resumes=d_res, prefill=d_pre, first_ms=first_b * 1e3, err=err, pre=sum(n_first))
+    eng.config.kv_reuse_across_updates = True
+    log(f"[lifecycle] (b) {card}: 16 sampled requests x 128 tokens, abort pause -> staged update of perturbed "
+        f"weights ({weight_bytes / 1e9:.2f} GB of bf16 buckets) -> resume; reuse on: kv_resumes +{bres[True]['resumes']}, prefill "
+        f"tokens +{bres[True]['prefill']}, tokens after the commit tagged v{v_new - 1} (continue -> first token "
+        f"{bres[True]['first_ms']:.0f} ms; reuse off {bres[False]['first_ms']:.0f} ms); reuse off: kv_resumes +{bres[False]['resumes']}, "
+        f"prefill tokens {bres[False]['prefill']} (= the resumed prompts' lengths), resumed logprobs vs the new "
+        f"weights' dense forward max|diff| {bres[False]['err']:.4f} (tol {LOGPROB_TOL})")
+    out["b"] = bres
+
+    # (d) deadlines on the main engine: reaped mid-decode, then one already
+    # past in the queue, then retries over the reaped requests' pages
+    dl = [ModelRequest(input_ids=list(p), gconfig=GenerationHyperparameters(max_new_tokens=512, greedy=True,
+                                                                             ignore_eos=True))
+          for p in prompts[:8]]
+    t0 = time.time()
+    for r in dl:
+        r.deadline = t0 + 1.0
+    resp_d = s.done(*s.wave(dl), 8, "deadline wave")
+    wall_d = time.time() - t0
+    n_d = [len(r.output_tokens) for r in resp_d]
+    if any(r.stop_reason != "deadline" or r.truncated_by != "deadline" for r in resp_d) or not all(
+            0 < n < 512 for n in n_d):
+        raise AssertionError(f"[lifecycle] (d) {[(r.stop_reason, len(r.output_tokens)) for r in resp_d]}")
+    pre0 = eng.stats["prefill_tokens"]
+    late = ModelRequest(input_ids=list(prompts[8]), gconfig=GenerationHyperparameters(max_new_tokens=8, greedy=True))
+    late.deadline = time.time() - 1.0
+    r_late = s.done(*s.wave([late]), 1, "late request")[0]
+    if r_late.stop_reason != "deadline" or r_late.output_tokens or eng.stats["prefill_tokens"] != pre0:
+        raise AssertionError(f"[lifecycle] (d) the late request: {r_late.stop_reason}, {len(r_late.output_tokens)} "
+                             f"tokens, prefill tokens +{eng.stats['prefill_tokens'] - pre0}")
+    chain0, hit0 = psa.launches["chain"], eng.stats["prefix_hit_tokens"]
+    s.done(*s.wave([greedy(p + r.output_tokens, 16) for p, r in zip(prompts[:8], resp_d)]), 8, "retries")
+    chain_d, hit_d = psa.launches["chain"] - chain0, eng.stats["prefix_hit_tokens"] - hit0
+    if chain_d <= 0 or hit_d <= 0:
+        raise AssertionError(f"[lifecycle] (d) the retries missed the reaped requests' pages: hit tokens {hit_d}, "
+                             f"#3 chain launches {chain_d}")
+    log(f"[lifecycle] (d) {card}: 8 requests of 512 tokens due 1 s out: stop_reason deadline after {min(n_d)}..."
+        f"{max(n_d)} tokens ({wall_d:.2f} s wall); one due before it arrived: 0 tokens, prefill tokens +0; retries "
+        f"of the reaped 8: {hit_d} radix-hit tokens, #3 chain launches {chain_d}")
+    out["d"] = dict(tokens=(min(n_d), max(n_d)), wall_s=wall_d)
+
+    # (e) admission control, the gate pushed through /autopilot/knobs
+    lc_obs = catalog.lifecycle_metrics()
+    retries = catalog.robustness_metrics().retries.labels(kind="post")
+    if _http_status(s.addr, "/autopilot/knobs", {"max_queue_depth": 8})[0] != 200:
+        raise AssertionError("[lifecycle] (e) /autopilot/knobs refused")
+    bodies = [{"input_ids": prompts[i % 16][:128], "sampling_params": {"max_new_tokens": 64, "greedy": True}}
+              for i in range(64)]
+    raw: list = [None] * 64
+
+    def post(i):
+        raw[i] = _http_status(s.addr, "/generate", bodies[i], timeout=900)
+
+    ths = [threading.Thread(target=post, args=(i,)) for i in range(64)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=900)
+    rejected = [r for r in raw if r is not None and r[0] == 429]
+    served = [r for r in raw if r is not None and r[0] == 200]
+    if (len(rejected) + len(served) != 64 or not rejected
+            or not all(r[2]["reason"] == "queue_depth" and float(r[1]["Retry-After"]) > 0 for r in rejected)
+            or not all(len(r[2]["output_tokens"]) == 64 for r in served)):
+        raise AssertionError(f"[lifecycle] (e) raw posts: {len(served)} served, {len(rejected)} refused, "
+                             f"{64 - len(served) - len(rejected)} other")
+    rej0, ret0 = lc_obs.admission_rejected.labels(reason="queue_depth").get(), retries.get()
+    c60 = s.new_client(backpressure_wait_s=60.0)
+    t0 = time.monotonic()
+    resp_e = s.done(*s.wave([greedy(b["input_ids"], 64) for b in bodies], client=c60), 64, "client wave")
+    wall_e = time.monotonic() - t0
+    c60.destroy()
+    rej_c, ret_c = lc_obs.admission_rejected.labels(reason="queue_depth").get() - rej0, retries.get() - ret0
+    if not all(len(r.output_tokens) == 64 for r in resp_e) or ret_c != 0 or rej_c <= 0:
+        raise AssertionError(f"[lifecycle] (e) the client's wave: {sum(len(r.output_tokens) == 64 for r in resp_e)}"
+                             f"/64 complete, {rej_c:.0f} refusals, {ret_c:.0f} retry attempts")
+    _http_status(s.addr, "/autopilot/knobs", {"max_queue_depth": 0})
+    log(f"[lifecycle] (e) {card}: max_queue_depth 8 (pushed through /autopilot/knobs): 64 raw posts -> "
+        f"{len(served)} served, {len(rejected)} answered 429 queue_depth (Retry-After "
+        f"{min(float(r[1]['Retry-After']) for r in rejected):.2f}..{max(float(r[1]['Retry-After']) for r in rejected):.2f}"
+        f" s); the same 64 through the client: 64/64 complete in {wall_e:.2f} s after {rej_c:.0f} refusals waited "
+        f"out, {ret_c:.0f} retry attempts spent")
+    out["e"] = dict(raw_served=len(served), raw_refused=len(rejected), client_refusals=rej_c, client_s=wall_e)
+
+    # (f) the drain, mid-wave, and the way back
+    s.mark()
+    drain_reqs = [greedy(p, 512, rid=f"f{i}", ignore_eos=True) for i, p in enumerate(prompts)]
+    th, box = s.wave(drain_reqs)
+    s.wait_tokens(16 * 32, th, "drain")
+    res0 = eng.stats["kv_resumes"]
+    st, _, summary = _http_status(s.addr, "/drain", {"budget_s": 2.0}, timeout=120)
+    health = _http_status(s.addr, "/health")
+    gate = _http_status(s.addr, "/generate", bodies[0])
+    if (st != 200 or summary["leaked_pages"] != 0 or summary["parked"] <= 0
+            or health[:3:2] != (503, {"status": "draining", "version": eng.get_version()})
+            or gate[0] != 429 or gate[2].get("reason") != "draining"):
+        raise AssertionError(f"[lifecycle] (f) drain summary {summary}, /health {health[0]} {health[2]}, "
+                             f"/generate {gate[0]} {gate[2]}")
+    t_undrain = time.monotonic()
+    if _http_status(s.addr, "/undrain", {})[0] != 200:
+        raise AssertionError("[lifecycle] (f) /undrain refused")
+    resp_f = s.done(th, box, 16, "drained wave")
+    d_res = eng.stats["kv_resumes"] - res0
+    if not all(len(r.output_tokens) == 512 for r in resp_f) or d_res != summary["parked"]:
+        raise AssertionError(f"[lifecycle] (f) after /undrain: {sum(len(r.output_tokens) == 512 for r in resp_f)}/16 "
+                             f"complete, kv_resumes +{d_res} for {summary['parked']} parked")
+    log(f"[lifecycle] (f) {card}: /drain (budget 2 s) mid-wave: {summary['drain_seconds']:.2f} s, finished in budget "
+        f"{summary['finished_in_budget']}, parked {summary['parked']}, aborted {summary['aborted']}, leaked pages "
+        f"{summary['leaked_pages']}; /health {health[0]} draining, /generate {gate[0]} draining; after /undrain "
+        f"16/16 complete in {time.monotonic() - t_undrain:.2f} s, kv_resumes +{d_res}")
+    out["f"] = dict(parked=summary["parked"], leaked=summary["leaked_pages"], drain_s=summary["drain_seconds"])
+
+    # (g) release / resume memory; both waves cold (the tree flushed first:
+    # the resumed engine's is empty) and admitted together
+    g_bodies = [{"input_ids": p[:200], "sampling_params": {"max_new_tokens": 64, "greedy": True}} for p in prompts[:8]]
+    _http_status(s.addr, "/flush_prefix_cache", {})
+    _admit_together(eng, 8)
+    before = [r["output_tokens"] for r in _wave(s.addr, g_bodies)]
+    kv_bytes = eng.memory_bytes()["kv_pool"]
+    gc.collect()
+    torch.cuda.synchronize()
+    r0, a0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    if _http_status(s.addr, "/release_memory_occupation", {}, timeout=300)[0] != 200:
+        raise AssertionError("[lifecycle] (g) /release_memory_occupation failed")
+    t_rel = time.monotonic() - t0
+    r1, a1 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    if _http_status(s.addr, "/resume_memory_occupation", {}, timeout=300)[0] != 200:
+        raise AssertionError("[lifecycle] (g) /resume_memory_occupation failed")
+    t_res = time.monotonic() - t0
+    _http_status(s.addr, "/continue_generation", {})
+    _admit_together(eng, 8)
+    after = [r["output_tokens"] for r in _wave(s.addr, g_bodies)]
+    need = weight_bytes + kv_bytes
+    ties_g = _near_ties(model, [b["input_ids"] for b in g_bodies], after, before, "(g)")
+    if r0 - r1 < need or a0 - a1 < need:
+        raise AssertionError(f"[lifecycle] (g) reserved fell {(r0 - r1) / 1e9:.3f} GB, allocated "
+                             f"{(a0 - a1) / 1e9:.3f} GB < weights + KV pool {need / 1e9:.3f} GB")
+    log(f"[lifecycle] (g) {card}: /release_memory_occupation in {t_rel:.2f} s: reserved {r0 / 1e9:.3f} -> "
+        f"{r1 / 1e9:.3f} GB, allocated {a0 / 1e9:.3f} -> {a1 / 1e9:.3f} GB (the served weights "
+        f"{weight_bytes / 1e9:.3f} GB + the KV pool {kv_bytes / 1e9:.3f} GB = {need / 1e9:.3f}); resume in "
+        f"{t_res:.2f} s; the greedy wave after: {8 - len(ties_g)}/8 identical to the one before, near-ties "
+        + (", ".join(f"req {i} tok {j}" for i, j, _, _ in ties_g) or "none"))
+    out["g"] = dict(reserved_fall_gb=(r0 - r1) / 1e9, allocated_fall_gb=(a0 - a1) / 1e9, need_gb=need / 1e9,
+                    release_s=t_rel, resume_s=t_res)
+    time.sleep(0.1)
+    audit = eng.pool_audit()
+    if not audit["ok"] or audit["parked_pages"] or audit["slot_pages"]:
+        raise AssertionError(f"[lifecycle] the main engine's pool audit: {audit}")
+    s.close()
+    del s, eng
+    gc.collect()
+
+    # (c) the frequency penalty, its own engine (the count table)
+    s = Served(enable_frequency_penalty=True)
+    eng = s.engine
+    pen = 5.0
+    creqs = [greedy(p, 128, rid=f"c{i}", frequency_penalty=pen if i < 8 else 0.0) for i, p in enumerate(prompts)]
+    resp_c, at_c, _ = interrupted(s, creqs, 32, 0.1)
+    d_res = eng.stats["kv_resumes"] - at_c["kv_resumes"]
+    pen_ties, plain_gap = [], 0.0
+    for i, (p, r) in enumerate(zip(prompts, resp_c)):
+        if len(r.output_tokens) != 128:
+            raise AssertionError(f"[lifecycle] (c) request {i}: {len(r.output_tokens)}/128 tokens")
+        if i < 8:
+            gaps = _penalized_gaps(model, p, r.output_tokens, pen)
+            if gaps.max() > LOGPROB_TOL:
+                raise AssertionError(f"[lifecycle] (c) request {i}: a token {gaps.max():.4f} below the penalized "
+                                     f"argmax (tol {LOGPROB_TOL})")
+            pen_ties += [(i, int(j), float(gaps[j])) for j in np.nonzero(gaps > 0)[0]]
+        else:
+            plain_gap = max(plain_gap, _dense_check(model, p, {"output_tokens": r.output_tokens}, greedy=True))
+    if plain_gap > LOGPROB_TOL or d_res != LIFECYCLE_PROMPTS:
+        raise AssertionError(f"[lifecycle] (c) plain rows' gap {plain_gap:.4f}, kv_resumes +{d_res}")
+    distinct = [len(set(r.output_tokens)) / 128 for r in resp_c]
+    mem = eng.memory_bytes()
+    log(f"[lifecycle] (c) {card}: frequency penalty 5.0 on 8 of 16 greedy requests x 128 tokens, one abort / resume "
+        f"inside (kv_resumes +{d_res}): every penalized token the argmax of the dense logits less 5 x its running "
+        f"counts but {len(pen_ties)} near-ties (max gap {max([g for _, _, g in pen_ties], default=0.0):.4f}, tol "
+        f"{LOGPROB_TOL}); plain rows' dense gap {plain_gap:.4f}; distinct tokens {np.mean(distinct[:8]):.1%} "
+        f"penalized vs {np.mean(distinct[8:]):.1%} plain; count table {mem['freq_counts'] / 1e6:.2f} MB beside the "
+        f"KV pool's {mem['kv_pool'] / 1e9:.3f} GB")
+    out["c"] = dict(near_ties=len(pen_ties), distinct_pen=float(np.mean(distinct[:8])),
+                    distinct_plain=float(np.mean(distinct[8:])), counts_mb=mem["freq_counts"] / 1e6)
+    audit = eng.pool_audit()
+    if not audit["ok"]:
+        raise AssertionError(f"[lifecycle] (c) pool audit: {audit}")
+    s.close()
+    del s, eng
+
+    launches1, launches3, k2 = paged_attention_stacked.launches, dict(psa.launches), fa.flash_attention_fwd.launches
+    if launches1 != L * steps or steps == 0 or launches3["chain"] <= 0:
+        raise AssertionError(f"[lifecycle] #1 launches {launches1} != {L} layers x {steps} steps, or #3 {launches3}")
+    log(f"[lifecycle] kernel #1 launches {launches1} = {L} layers x {steps} decode steps; kernel #3 launches "
+        f"{launches3} (the re-prefills of (a) and the retries of (d)); K2 {k2} (the serving prefill is plain "
+        f"PyTorch, as the JAX engine's); pool audits ok")
+    log(f"[lifecycle] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
+    del model
+    return dict(launches1=launches1, launches3=sum(launches3.values()), k2=k2, steps=steps,
+                seconds=time.monotonic() - t_phase, **out)
 
 
 def _greedy_divergence(model, prompt: list[int], a: list[int], b: list[int]) -> tuple[int, float, float]:
@@ -4388,8 +4951,8 @@ def phase_train_moe(card: str) -> dict:
                 tree=tree)
 
 
-PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "spec", "train", "grpo",
-          "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
+PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "spec", "train",
+          "grpo", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -4462,6 +5025,7 @@ def main(argv: list[str]) -> int:
         "serve": lambda: phase_serve(card),
         "serve_int8": phase_serve_int8,
         "rollout": lambda: phase_rollout(card, serve=res["serve"][1] if "serve" in res else None),
+        "lifecycle": lambda: phase_lifecycle(card),
         "spec": lambda: phase_spec(card),
         "train": lambda: phase_train(card),
         "grpo": lambda: phase_grpo(card, train=res.get("train")),
@@ -4494,7 +5058,8 @@ def main(argv: list[str]) -> int:
             "source": "areal_tpu_torch/csrc/paged_attention.cu",
             "replaces": "areal_tpu/ops/paged_attention_q8.py:274",
             "launches": launches,
-            "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"], "grpo": res["grpo"]["launches1"]},
+            "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"],
+                                  "lifecycle": res["lifecycle"]["launches1"], "grpo": res["grpo"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -4540,7 +5105,7 @@ def main(argv: list[str]) -> int:
         "launches": chain + tree,
         "launches_by_kind": {"chain": chain, "tree": tree},
         "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"],
-                              "grpo": res["grpo"]["launches3"]},
+                              "lifecycle": res["lifecycle"]["launches3"], "grpo": res["grpo"]["launches3"]},
         "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],

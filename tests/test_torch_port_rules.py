@@ -112,10 +112,9 @@ def test_no_silent_cpu_fallback():
     "change",
     [
         dict(quantization="int8"),
-        dict(enable_frequency_penalty=True),
         dict(mesh=MeshConfig(model=2)),
     ],
-    ids=["int8_weights", "freq_penalty", "mesh"],
+    ids=["int8_weights", "mesh"],
 )
 def test_unported_options_refused(change):
     cfg = dataclasses.replace(ServerConfig(), **change)
@@ -125,13 +124,15 @@ def test_unported_options_refused(change):
 
 @pytest.mark.parametrize(
     "change",
-    [{}, dict(speculative=SpeculativeConfig(enabled=True))],
-    ids=["defaults", "speculative"],
+    [{}, dict(speculative=SpeculativeConfig(enabled=True)), dict(enable_frequency_penalty=True)],
+    ids=["defaults", "speculative", "freq_penalty"],
 )
 def test_default_server_config_serves(change):
     """``ServerConfig()`` as it comes (radix prefix cache on, 32 slots of
-    32,768 tokens), and with speculative decoding on, initializes and answers
-    a request (a one-layer model keeps the default page pool small)."""
+    32,768 tokens), with speculative decoding on, and with the frequency
+    penalty's count table, initializes and answers a request (a one-layer
+    model keeps the default page pool small); the penalized request under
+    the penalty differs from the unpenalized one."""
     from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
 
     cfg = dataclasses.replace(ServerConfig(), **change)
@@ -146,11 +147,23 @@ def test_default_server_config_serves(change):
             ModelRequest(input_ids=[1, 2, 3, 1, 2, 3], gconfig=GenerationHyperparameters(max_new_tokens=5, greedy=True)),
             timeout=120,
         )
+        penalized = eng.generate_sync(
+            ModelRequest(input_ids=[1, 2, 3, 1, 2, 3], gconfig=GenerationHyperparameters(
+                max_new_tokens=5, greedy=True, frequency_penalty=50.0)),
+            timeout=120,
+        )
     finally:
         eng.stop()
     assert resp.stop_reason == "length" and len(resp.output_tokens) == 5
+    # a penalty of 50 forbids any repeat on this model's logits, where the
+    # unpenalized greedy output repeats; without the table the penalty is
+    # ignored (warned)
+    if change.get("enable_frequency_penalty"):
+        assert len(set(resp.output_tokens)) < 5 and len(set(penalized.output_tokens)) == 5
+    else:
+        assert penalized.output_tokens == resp.output_tokens
     assert eng.prefix_cache_stats()["enabled"] and eng.prefix_cache_stats()["pages_held"] == 0
-    assert (eng.stats["spec_rounds"] > 0) == bool(change)
+    assert (eng.stats["spec_rounds"] > 0) == ("speculative" in change)
 
 
 def test_trainer_refuses_without_card():

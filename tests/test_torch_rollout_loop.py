@@ -245,11 +245,11 @@ def test_session_tracer_records_each_episode(tmp_path):
         dict(routing_policy="cache_aware"),
         dict(routing=RoutingConfig(poll_interval_s=1.0)),
         dict(fault_tolerance=FaultToleranceConfig(retry_budget=8.0)),
-        dict(lifecycle=RequestLifecycleConfig(default_deadline_s=30.0)),
+        dict(lifecycle=RequestLifecycleConfig(gateway_max_inflight=8)),
         dict(journal=TrajectoryJournalConfig(enabled=True)),
         dict(dump_trajectories=True, dump_dir="unused"),
     ],
-    ids=["routing-policy", "routing", "retry-budget", "deadlines", "journal", "dumps"],
+    ids=["routing-policy", "routing", "retry-budget", "gateway-shedding", "journal", "dumps"],
 )
 def test_unported_client_options_refused(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -279,8 +279,56 @@ def test_unported_client_paths_refused():
         c.set_interrupt(threading.Event())
     with pytest.raises(NotImplementedError, match="item 8"):
         c.set_completion_callback("http://127.0.0.1:1/done")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        asyncio.run(c.agenerate(t_io.ModelRequest(input_ids=[1], deadline=time.time() + 5)))
+    c.destroy()
+
+
+@pytest.mark.parametrize("default_s", [None, 30.0], ids=["explicit", "default"])
+def test_deadline_sent_as_header(default_s):
+    """A request's deadline, or the config's default from submission, goes
+    to the server as the x-areal-deadline header and the JSON "deadline"
+    field (the JAX client's wire); without either, no header."""
+    import json
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    seen = []
+
+    class Echo(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):  # noqa: N802
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            seen.append((self.headers.get("x-areal-deadline"), body["deadline"]))
+            out = json.dumps({"output_tokens": [1], "output_logprobs": [-0.5], "output_versions": [0],
+                              "stop_reason": "length", "latency": 0.0, "ttft": 0.0}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Echo)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    c = RemoteTorchEngine(InferenceEngineConfig(lifecycle=RequestLifecycleConfig(default_deadline_s=default_s)),
+                          addresses=[f"127.0.0.1:{httpd.server_address[1]}"])
+    try:
+        t0 = time.time()
+        explicit = t0 + 5.0 if default_s is None else None
+        resp = asyncio.run(c.agenerate(t_io.ModelRequest(
+            input_ids=[1], deadline=explicit, gconfig=t_io.GenerationHyperparameters(max_new_tokens=1))))
+        asyncio.run(c.agenerate(t_io.ModelRequest(
+            input_ids=[1], gconfig=t_io.GenerationHyperparameters(max_new_tokens=1))))
+    finally:
+        c.destroy()
+        httpd.shutdown()
+        httpd.server_close()
+    assert resp.output_tokens == [1]
+    (hdr, field), (hdr2, field2) = seen
+    assert float(hdr) == pytest.approx(field, abs=1e-6)
+    if default_s is None:
+        assert field == pytest.approx(explicit, abs=1e-6) and (hdr2, field2) == (None, None)
+    else:
+        assert t0 + default_s <= field <= time.time() + default_s and float(hdr2) == pytest.approx(field2, abs=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +437,8 @@ def test_agenerate_greedy_matches_jax(jax_client, port_client):
 def test_pause_resume_gives_uninterrupted_tokens(jax_client, port_client, port_server, monkeypatch):
     """A greedy request paused mid-generation, set to version 1 and
     continued: the tokens of the uninterrupted request (JAX's), tags 0..0
-    then 1..1, and the resubmit admitted over the radix-cached pages."""
+    then 1..1, and the resubmit resumed from its parked KV (no prefill, as
+    in the JAX engine, whose same test path parks)."""
     prompt = _prompts(2, (150,))[0]
     n_new = 90
     want = _agenerate_all(jax_client, j_io, [prompt], n_new)[0]
@@ -397,7 +446,8 @@ def test_pause_resume_gives_uninterrupted_tokens(jax_client, port_client, port_s
     _slow_chunks(monkeypatch, eng)
     box = []
     th = threading.Thread(target=lambda: box.extend(_agenerate_all(port_client, t_io, [prompt], n_new)))
-    g0, hits0, aborted0 = eng.stats["generated_tokens"], eng.stats["prefix_hit_tokens"], eng.stats["aborted"]
+    g0, aborted0 = eng.stats["generated_tokens"], eng.stats["aborted"]
+    resumes0, prefill0 = eng.stats["kv_resumes"], eng.stats["prefill_tokens"]
     th.start()
     deadline = time.monotonic() + 60
     while eng.stats["generated_tokens"] - g0 < 16 and time.monotonic() < deadline:
@@ -416,8 +466,10 @@ def test_pause_resume_gives_uninterrupted_tokens(jax_client, port_client, port_s
     np.testing.assert_allclose(got.output_logprobs, want.output_logprobs, atol=LOGPROB_ATOL)
     vers = got.output_versions
     assert len(vers) == n_new and vers == sorted(vers) and vers[0] == 0 and vers[-1] == 1
-    # the prompt's first 128-token page came back from the radix tree
-    assert eng.stats["prefix_hit_tokens"] - hits0 >= 128
+    # the resubmit resumed from the parked KV: one resume, and no token
+    # prefilled but the first attempt's prompt
+    assert eng.stats["kv_resumes"] - resumes0 == 1
+    assert eng.stats["prefill_tokens"] - prefill0 == len(prompt)
 
 
 def _rlvr_batch(client, io, wf_cls, prompts):
@@ -547,7 +599,11 @@ def test_prepared_batch_feeds_ppo_update(weights, port_server):
                                                 max_head_offpolicyness=0, request_timeout=120),
                           addresses=[port_server.address])
     c.initialize()
-    wf = TRLVRWorkflow(lambda *a, **kw: float(sum(a[3]) % 3),
+    # a position-weighted hash of the whole completion, scaled into [0, 1)
+    # (inside the actor's reward_clip of 20): the 4 samples of a group get
+    # different rewards unless two completions collide, so the
+    # group-normalized advantages (and the grad norm) are never all zero
+    wf = TRLVRWorkflow(lambda *a, **kw: (sum((i + 1) * t for i, t in enumerate(a[3])) % 1009) / 1009,
                        t_io.GenerationHyperparameters(n_samples=4, max_new_tokens=8))
     try:
         batch = c.prepare_batch([{"prompt_ids": p} for p in _prompts(6, (6, 10))], workflow=wf)
@@ -559,6 +615,8 @@ def test_prepared_batch_feeds_ppo_update(weights, port_server):
         c.destroy()
     for key in ("input_ids", "attention_mask", "loss_mask", "logprobs", "versions", "rewards", "seq_no_eos_mask"):
         assert key in batch and batch[key].shape[0] == 8, key
+    groups = np.asarray(batch["rewards"]).reshape(2, 4)
+    assert all(len(set(g.tolist())) > 1 for g in groups), groups
     before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     batch["prox_logp"] = actor.compute_logp(batch)
     gen = batch["loss_mask"] > 0
