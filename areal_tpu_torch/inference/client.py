@@ -13,8 +13,9 @@ pages). A request's deadline (``ModelRequest.deadline``, or
 ``lifecycle.default_deadline_s`` from submission) rides the
 ``x-areal-deadline`` header, and a 429 from the server's admission gate is
 backpressure, not failure: the client waits out its Retry-After within
-``lifecycle.backpressure_wait_s`` and spends no retry attempt on it.
-Rollout submission (``submit`` / ``wait`` / ``rollout_batch`` /
+``lifecycle.backpressure_wait_s`` and spends no retry attempt on it. Every
+post carries the calling context's ``x-areal-trace`` ids, so the server's
+request timelines name the rollout they serve. Rollout submission (``submit`` / ``wait`` / ``rollout_batch`` /
 ``prepare_batch``) goes through the ``WorkflowExecutor``, which reads the
 staleness bound against this client's version.
 
@@ -68,7 +69,7 @@ from areal_tpu_torch.api.io_struct import (
 from areal_tpu_torch.inference.server import encode_weight_bucket
 from areal_tpu_torch.infra import workflow_context
 from areal_tpu_torch.infra.workflow_executor import WorkflowExecutor
-from areal_tpu_torch.observability import catalog
+from areal_tpu_torch.observability import catalog, tracecontext
 from areal_tpu_torch.utils.data import TensorDict
 
 logger = logging.getLogger("areal_tpu_torch.client")
@@ -478,7 +479,9 @@ class RemoteTorchEngine(InferenceEngine):
         between them (``client.py:734``). A 429 is backpressure, not failure:
         the wait honors its Retry-After (scattered into [x, x*(1+jitter)])
         within ``lifecycle.backpressure_wait_s`` of wall clock and spends
-        no attempt; past that budget the call fails."""
+        no attempt; past that budget the call fails. The calling context's
+        ``x-areal-trace`` ids ride along (``client.py:745``)."""
+        headers = tracecontext.inject(headers)
         lc = self.config.lifecycle
         bp_budget = lc.backpressure_wait_s if lc.enabled else 0.0
         jitter = lc.retry_after_jitter if lc.enabled else 0.0
@@ -523,7 +526,7 @@ class RemoteTorchEngine(InferenceEngine):
                 self._robust.retries.labels(kind="scrape").inc()
                 await asyncio.sleep(self._delay(0))
             try:
-                return await self._http.request(addr, "GET", path, None, timeout)
+                return await self._http.request(addr, "GET", path, None, timeout, tracecontext.inject())
             except asyncio.CancelledError:
                 raise
             except Exception as e:  # noqa: BLE001
@@ -536,7 +539,7 @@ class RemoteTorchEngine(InferenceEngine):
         req = urllib.request.Request(
             f"http://{addr}{path}",
             data=json.dumps(payload).encode(),
-            headers={"Content-Type": "application/json"},
+            headers=tracecontext.inject({"Content-Type": "application/json"}),
             method="POST",
         )
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -564,11 +567,13 @@ class RemoteTorchEngine(InferenceEngine):
         return [self._post_json_one(addr, path, payload) for addr in self.addresses]
 
     def _post_bytes(self, addr: str, path: str, body) -> None:
+        headers = tracecontext.inject({"Content-Type": "application/octet-stream"})
+
         def send():
             req = urllib.request.Request(
                 f"http://{addr}{path}",
                 data=body,
-                headers={"Content-Type": "application/octet-stream"},
+                headers=headers,
                 method="POST",
             )
             with urllib.request.urlopen(req, timeout=self.config.request_timeout) as r:

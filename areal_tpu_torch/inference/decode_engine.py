@@ -78,10 +78,20 @@ The shape of the JAX engine is kept:
   only accepted-path rows write KV into real pages, and pages allocated
   past the accepted tokens roll back to the pool.
 
+- Observability (``decode_engine.py:317-341``): every request carries a
+  ``RequestTimeline`` from ``submit`` to ``_finish``, whose breakdown
+  (queue wait, prefill, decode, fence stall, park; ``other_s`` the
+  residual) rides the response; significant events (wedge, watchdog,
+  drain, weight stage / commit, evictions, preemption) go into the
+  process's flight ring; the ``KernelProbe`` splits every productive pass
+  of the loop into named host phases whose sum plus ``other_s`` is the
+  pass's wall time, ``device_wait`` being the one wait on the card; and
+  ``hbm_ledger`` itemizes the device memory. None of it reads a device
+  tensor or synchronizes on the loop.
+
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
 int8 weights, image inputs, multi-device meshes and loading HF checkpoints.
-Also not ported: LoRA and int8 weight updates (item 4), and the request
-timelines, the flight recorder and the HBM ledger (item 2b).
+Also not ported: LoRA and int8 weight updates (item 4).
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -109,7 +119,10 @@ from areal_tpu_torch.inference import paged_kv
 from areal_tpu_torch.inference import speculative as spec_mod
 from areal_tpu_torch.models import qwen
 from areal_tpu_torch.observability import catalog as obs_catalog
-from areal_tpu_torch.utils import offload
+from areal_tpu_torch.observability import hw_accounting as hw
+from areal_tpu_torch.observability import kernel_probe
+from areal_tpu_torch.observability import timeline as tl_mod
+from areal_tpu_torch.utils import offload, perf_tracer
 from areal_tpu_torch.utils.data import round_up_to_bucket
 
 logger = logging.getLogger("areal_tpu_torch.decode_engine")
@@ -132,6 +145,8 @@ class _Task:
     first_token_time: float | None = None
     # "cancelled" (/abort_request), "deadline" or "watchdog" when reaped
     truncated_by: str = ""
+    # stage events and the breakdown stamped onto the response
+    timeline: tl_mod.RequestTimeline | None = None
 
 
 @dataclass
@@ -369,6 +384,16 @@ class DecodeEngine:
         self._obs = obs_catalog.engine_metrics()
         self._obs_pc = obs_catalog.prefix_cache_metrics()
         self._obs_lc = obs_catalog.lifecycle_metrics()
+        self._obs_spec = obs_catalog.speculative_metrics()
+        # request timelines and the flight ring /debug/flight serves
+        self.timeline = tl_mod.TimelineRecorder()
+        self.flight = tl_mod.get_flight_recorder()
+        self._hold_marked = False  # one FENCE_STALL mark per hold window
+        self._wedge_dumped = False  # one flight dump per wedge episode
+        # the decode-loop probe, built in initialize; _ktl is the current
+        # pass's open timeline (decode thread only)
+        self.kprobe: kernel_probe.KernelProbe | None = None
+        self._ktl: kernel_probe.DecodeStepTimeline | None = None
         # decode-loop liveness: the last time the loop began a pass (the
         # wedge detector reads it from /health's thread)
         self._last_loop_ts = time.monotonic()
@@ -453,6 +478,8 @@ class DecodeEngine:
         if cfg.speculative.enabled:
             self._spec_cfg = cfg.speculative
             self._drafter = spec_mod.build_drafter(cfg.speculative, radix=self._radix)
+        # init-time: on the CPU the probe measures the host's peaks once
+        self.kprobe = kernel_probe.KernelProbe(model_cfg=self.model_cfg, n_chips=1, device=self.device)
         self.initialized = True
         logger.info(
             f"decode engine ready on {self.device}: {S} slots x {cfg.max_seq_len} ctx, "
@@ -530,7 +557,16 @@ class DecodeEngine:
             raise NotImplementedError("image inputs: ROADMAP Queue A, vision")
         if self._loop_error is not None:
             raise RuntimeError("decode loop failed") from self._loop_error
-        self._queue.put(_Task(req=req, callback=callback))
+        # the timeline starts at submission, tagged with the x-areal-trace
+        # ids the calling context carries (the server seats them)
+        task_id, session_id = perf_tracer.get_task_context()
+        tl = self.timeline.start(
+            req.rid,
+            priority=str(req.metadata.get("priority") or "interactive"),
+            task_id=task_id,
+            session_id=session_id,
+        )
+        self._queue.put(_Task(req=req, callback=callback, timeline=tl))
         self._wakeup.set()
 
     def generate_sync(self, req: ModelRequest, timeout: float = 600.0) -> ModelResponse:
@@ -646,7 +682,9 @@ class DecodeEngine:
         ``lifecycle.engine_stall_escalate_s`` while work is pending (the
         per-slot watchdog runs on that loop and cannot fire then), or when
         the loop died with work pending: /health answers 503. A paused or
-        held loop idles by design and is never wedged."""
+        held loop idles by design and is never wedged. The first report of
+        a wedge episode dumps the flight ring to disk (the replica is about
+        to be evicted); a wedge that clears re-arms the dump."""
         lc = self._lifecycle()
         if lc is None or lc.engine_stall_escalate_s <= 0 or self._thread is None:
             return False
@@ -654,10 +692,21 @@ class DecodeEngine:
             self._queue.qsize() + len(self._backlog) > 0
         )
         if not self._thread.is_alive():
-            return busy
-        if self.is_paused:
+            wedged = busy
+        elif self.is_paused:
             return False
-        return busy and time.monotonic() - self._last_loop_ts > lc.engine_stall_escalate_s
+        else:
+            wedged = busy and time.monotonic() - self._last_loop_ts > lc.engine_stall_escalate_s
+        if not wedged:
+            self._wedge_dumped = False
+        elif not self._wedge_dumped:
+            self._wedge_dumped = True
+            self.flight.record("wedge", severity="error")
+            try:
+                self.flight.dump(tl_mod.default_dump_path("wedge"), "wedge")
+            except OSError:
+                logger.exception("wedge flight dump failed")
+        return wedged
 
     def _reap_lifecycle(self, pending: dict | None) -> dict | None:
         """Service cancellations, deadlines and the per-slot watchdog between
@@ -729,6 +778,7 @@ class DecodeEngine:
                 reason = StopReason.CANCEL.value
                 self.stats["watchdog_fired"] += 1
                 self._obs_lc.watchdog_fired.inc()
+                self.flight.record("watchdog", severity="error", slot=slot, rid=task.req.rid)
                 logger.warning(
                     f"slot {slot} watchdog: no token in {lc.watchdog_s:.1f}s (rid={task.req.rid}); aborting the slot"
                 )
@@ -811,7 +861,9 @@ class DecodeEngine:
         exiting process, which can never end; it is sticky."""
         if terminal:
             self._drain_terminal = True
-        self._draining.set()
+        if not self._draining.is_set():
+            self._draining.set()
+            self.flight.record("drain_begin", severity="warn", terminal=bool(terminal))
         self._wakeup.set()
 
     def end_drain(self) -> bool:
@@ -828,8 +880,8 @@ class DecodeEngine:
         survivors and the queue. Blocks until the engine is quiescent and
         returns (and keeps for /statusz) a summary with the page audit:
         ``leaked_pages`` counts pool pages held by neither the radix tree nor
-        a parking. Any thread. The summary leaves out the JAX engine's
-        ``unterminated_timelines`` (request timelines: ROADMAP Queue A 2b)."""
+        a parking, ``unterminated_timelines`` requests that left without a
+        terminal mark. Any thread."""
         t0 = time.monotonic()
         self.begin_drain(terminal=terminal)
         aborted_before = self.stats["aborted"]
@@ -872,8 +924,17 @@ class DecodeEngine:
             "parked": len(self._parked),
             "aborted": self.stats["aborted"] - aborted_before,
             "leaked_pages": int(self.pool.used - len(held)),
+            "unterminated_timelines": self.timeline.stats()["unterminated"],
         }
         self._drain_summary = summary
+        self.flight.record(
+            "drain_end",
+            severity="warn",
+            seconds=round(summary["drain_seconds"], 3),
+            parked=summary["parked"],
+            aborted=summary["aborted"],
+            leaked_pages=summary["leaked_pages"],
+        )
         logger.warning(
             f"drain complete in {summary['drain_seconds']:.2f}s (finished_in_budget={finished_in_budget}, "
             f"parked={summary['parked']}, aborted={summary['aborted']}, leaked_pages={summary['leaked_pages']})"
@@ -957,6 +1018,7 @@ class DecodeEngine:
             if upd is None:
                 return
             (kind, params), version = upd
+            t0 = time.monotonic()
             try:
                 # in place: the copy is ordered on the stream after the
                 # chunk in flight, which keeps reading the old weights
@@ -976,6 +1038,9 @@ class DecodeEngine:
                 # those slots free them); "keep" retains it
                 if self._radix is not None and self.config.prefix_cache.across_updates == "flush":
                     self._radix.flush()
+                self.flight.record(
+                    "weight_commit", update_kind=kind, version=self._version, secs=round(time.monotonic() - t0, 4)
+                )
             except Exception as e:  # noqa: BLE001 — a bad payload fails that
                 # update (the waiter re-raises), not the decode loop
                 self._weight_update_error = e
@@ -996,6 +1061,7 @@ class DecodeEngine:
             self._staged = {}
             self._stage_target = target
             self._stage_gen_snapshot = self.stats["generated_tokens"]
+        self.flight.record("weight_stage", target=target)
 
     @contextlib.contextmanager
     def stage_buffer(self, nbytes: int):
@@ -1083,6 +1149,78 @@ class DecodeEngine:
 
     def get_version(self) -> int:
         return self._version
+
+    # -- the device-memory ledger (decode_engine.py:1712) -------------------
+    def hbm_ledger(self, override_hbm_gb: float | None = None) -> dict:
+        """Itemized device memory of this replica: the weights, the KV page
+        pool, the radix cache's held pages (a view into the pool, left out
+        of the itemized total), a staged weight update, and the frequency
+        penalty's count table; beside the card's own view
+        (``torch.cuda.memory_stats`` / ``mem_get_info``), or the analytic
+        sums on the CPU. Any thread: it reads sizes and allocator counters,
+        never a tensor's values."""
+        cache = self.cache
+        kv_bytes = hw.tree_bytes(cache)
+        pool = getattr(self, "pool", None)
+        page_bytes = kv_bytes / pool.n_pages if pool is not None and pool.n_pages else 0
+        radix_pages = self._radix.pages_held if self._radix is not None else 0
+        with self._weight_lock:
+            staged = dict(self._staged) if self._staged else None
+        on_card = self.model is not None and not self._offloaded
+        components = {
+            "params": hw.tree_bytes(self.model) if on_card else 0,
+            "kv_page_pool": kv_bytes,
+            "radix_cache": int(radix_pages * page_bytes),
+            "staged_update": hw.tree_bytes(staged) if self._stage_target == "device" else 0,
+            "freq_counts": hw.tree_bytes(self._freq_counts),
+        }
+        return hw.build_hbm_ledger(
+            components,
+            device=self.device,
+            override_hbm_gb=override_hbm_gb,
+            exclude_from_total=("radix_cache",),
+        )
+
+    # -- the decode-loop probe ---------------------------------------------
+    def _kphase(self, name: str):
+        """A phase span on the current pass's probe timeline; a null context
+        outside a recorded pass (shutdown, direct calls from tests). Two
+        clock reads per span, never a device sync."""
+        tl = self._ktl
+        if tl is None:
+            return contextlib.nullcontext()
+        return tl.phase(name)
+
+    def _abandon_kstep(self) -> None:
+        """Discard the current pass's timeline (an idle, paused or held pass,
+        or no cache): every recorded step is a pass that did chunk work."""
+        if self._ktl is not None and self.kprobe is not None:
+            self.kprobe.abandon_step(self._ktl)
+        self._ktl = None
+
+    def _close_kstep(self, step_tl, productive, tokens: int, cost_key) -> None:
+        """Complete the pass's timeline when it did chunk work, else
+        abandon it."""
+        if step_tl is None:
+            return
+        if productive:
+            self._ktl = None
+            self.kprobe.complete_step(step_tl, tokens=tokens, cost_key=cost_key)
+        else:
+            self._abandon_kstep()
+
+    def kernel_stats(self) -> dict:
+        """The probe's summary for /statusz ``kernels`` ({} before
+        initialize)."""
+        if self.kprobe is None:
+            return {}
+        return self.kprobe.stats()
+
+    def _register_cost(self, key: tuple, costs: dict) -> None:
+        """Record the analytic cost of a program shape once (a dict lookup
+        after the first time)."""
+        if self.kprobe is not None and self.kprobe.cost_for(key) is None:
+            self.kprobe.record_cost(key, costs["flops"], costs["bytes"], "analytic")
 
     # -- prefix cache (cross-request radix reuse) --------------------------
     def prefix_cache_stats(self) -> dict:
@@ -1260,6 +1398,12 @@ class DecodeEngine:
             self.pool.free(p.pages)  # the slot's own lists were emptied at park
             return None
         slot = p.slot
+        if task.timeline is not None:
+            # the abort-pause round trip this resume closes, on the resumed
+            # attempt (the aborted one terminated with stop_reason "abort")
+            park_s = max(0.0, time.monotonic() - p.park_time)
+            task.timeline.park_s += park_s
+            task.timeline.mark(tl_mod.RESUME, park_s=round(park_s, 6))
         task.slot = slot
         self._slot_task[slot] = task
         # page ownership and the block-table row (zeroed at park time, so a
@@ -1334,12 +1478,13 @@ class DecodeEngine:
 
         cold: list[tuple[_Task, int]] = []
         warm: list[tuple[_Task, int, list[int], list[int]]] = []
-        for task, slot in primaries:
-            m = self._radix_match(task)
-            if m is None:
-                cold.append((task, slot))
-            else:
-                warm.append((task, slot, *m))
+        with self._kphase("radix_match"):
+            for task, slot in primaries:
+                m = self._radix_match(task)
+                if m is None:
+                    cold.append((task, slot))
+                else:
+                    warm.append((task, slot, *m))
 
         def batched(groups: dict, run) -> None:
             for _, group in sorted(groups.items()):
@@ -1353,13 +1498,15 @@ class DecodeEngine:
         for task, slot in cold:
             bucket = min(T, round_up_to_bucket(len(task.req.input_ids), 256))
             by_bucket.setdefault(bucket, []).append((task, slot))
-        batched(by_bucket, self._prefill_group)
+        with self._kphase("prefill"):
+            batched(by_bucket, self._prefill_group)
         # warm admissions group by SUFFIX bucket, the only tokens prefilled
         warm_by_bucket: dict[int, list] = {}
         for w in warm:
             sfx = len(w[0].req.input_ids) - len(w[2]) * psz
             warm_by_bucket.setdefault(min(T, round_up_to_bucket(sfx, 256)), []).append(w)
-        batched(warm_by_bucket, self._prefill_group_prefixed)
+        with self._kphase("prefill"):
+            batched(warm_by_bucket, self._prefill_group_prefixed)
         if dup_pairs:
             rows.extend(self._admit_duplicates(dup_pairs))
         return rows
@@ -1373,8 +1520,12 @@ class DecodeEngine:
             freed = self._radix.evict(n)
             if freed > 0:
                 self._obs_pc.evicted_pages.inc(freed)
+                self.flight.record("evict_radix", pages=freed)
                 return True
-        return self._evict_oldest_parked() is not None
+        slot = self._evict_oldest_parked()
+        if slot is not None:
+            self.flight.record("evict_parked", severity="warn", slot=slot)
+        return slot is not None
 
     def _alloc(self, n: int) -> list[int] | None:
         pages = self.pool.alloc(n)
@@ -1423,6 +1574,11 @@ class DecodeEngine:
             admitted.append((task, slot, mpages, pages))
         if not admitted:
             return []
+        for task, slot, mpages, _ in admitted:
+            if task.timeline is not None:
+                task.timeline.mark(tl_mod.ADMITTED, slot=slot)
+                task.timeline.mark(tl_mod.RADIX_MATCH, hit_pages=len(mpages), hit_tokens=len(mpages) * psz)
+                task.timeline.mark(tl_mod.PREFILL_START)
         A = len(admitted)
         P = max(len(t.req.input_ids) - len(m) * psz for t, _, m, _ in admitted)
         npg = -(-P // psz)
@@ -1458,7 +1614,9 @@ class DecodeEngine:
         self._event_pair_end(e0, self._prefill_events, n_sfx)
         rows = []
         hit_tokens = 0
-        for task, slot, mpages, _ in admitted:
+        for j, (task, slot, mpages, _) in enumerate(admitted):
+            if task.timeline is not None:
+                task.timeline.mark(tl_mod.PREFILL_END, suffix_tokens=int(plens[j]))
             ids = task.req.input_ids
             task.req.metadata["cached_prefix_tokens"] = len(mpages) * psz
             hit_tokens += len(mpages) * psz
@@ -1557,6 +1715,10 @@ class DecodeEngine:
             admitted.append((task, slot))
         if not admitted:
             return []
+        for task, slot in admitted:
+            if task.timeline is not None:
+                task.timeline.mark(tl_mod.ADMITTED, slot=slot)
+                task.timeline.mark(tl_mod.PREFILL_START)
         A = len(admitted)
         P = max(len(t.req.input_ids) for t, _ in admitted)
         npg = -(-P // psz)
@@ -1583,6 +1745,8 @@ class DecodeEngine:
         rows = []
         for j, (task, slot) in enumerate(admitted):
             P_len = int(plens[j])
+            if task.timeline is not None:
+                task.timeline.mark(tl_mod.PREFILL_END, prompt_tokens=P_len)
             task.slot = slot
             self._slot_task[slot] = task
             rows.append(
@@ -1637,6 +1801,12 @@ class DecodeEngine:
         self, task: _Task, slot: int, last_id: int, pos: int, remaining: int
     ) -> np.ndarray:
         self._slot_progress[slot] = time.monotonic()  # the watchdog's baseline
+        if task.timeline is not None:
+            task.timeline.version = self._version
+            # the prefill paths mark ADMITTED before their prefill; resumes
+            # and duplicates are stamped here
+            if task.timeline.ts_of(tl_mod.ADMITTED) is None:
+                task.timeline.mark(tl_mod.ADMITTED, slot=slot)
         g = task.req.gconfig
         temp = 0.0 if g.greedy else g.temperature
         greedy = bool(g.greedy or g.temperature == 0.0)
@@ -1780,7 +1950,9 @@ class DecodeEngine:
         """Abort one active slot to reclaim its pages; returns its
         deactivation row."""
         row = self._pack_row(slot, 0, int(self._state["pos"][slot]), False, 0)
-        self._finish(self._slot_task[slot], StopReason.ABORT.value)
+        task = self._slot_task[slot]
+        self.flight.record("preempt", severity="warn", slot=slot, rid=task.req.rid)
+        self._finish(task, StopReason.ABORT.value)
         self.stats["preempted"] += 1
         return row
 
@@ -1804,6 +1976,10 @@ class DecodeEngine:
         capped = bool(((st["top_k"] > 0) | (st["top_p"] < 1.0))[active].any())
         greedy_any = bool(st["greedy"][active].any())
         freq_any = self._freq_counts is not None and bool((st["freq_pen"] != 0.0)[active].any())
+        # the chunk's cost by shape: steps x slots at half the window's
+        # page-table width as the mean context
+        key = ("chunk", n_steps, len(active), wp)
+        self._register_cost(key, hw.decode_step_costs(self.model_cfg, n_steps, len(active), wp * psz / 2.0))
         e0 = self._event_pair_start()
         packed = self._run_chunk(n_steps, self._to_device(self._pt_host[:, :wp]), capped, greedy_any, freq_any)
         self._event_pair_end(e0, self._chunk_events, n_steps)
@@ -1818,6 +1994,7 @@ class DecodeEngine:
             "packed": host,
             "ready": ready,
             "n_steps": n_steps,
+            "key": key,
             "version": self._version,
             "was_active": active.copy(),
             # task identity per slot at dispatch: a slot can turn over
@@ -1893,17 +2070,17 @@ class DecodeEngine:
         new = torch.clamp(cur + active[:, None].to(torch.int32), max=_COUNT_MAX)
         self._freq_counts.scatter_(1, idx, new.to(torch.int16))
 
-    def _spec_round(self) -> int:
+    def _spec_round(self) -> tuple[int, tuple | None]:
         """One synchronous speculative round (``decode_engine.py:3285``): the
         host drafter proposes, one verify + accept call scores and commits,
         the packed result drains through the normal bookkeeping, and pages
         allocated past the accepted tokens roll back. Synchronous because
         the accept decision gates the next round's drafts. Returns the
-        credited token count."""
+        credited token count and the round's cost key."""
         cfg = self.config
         st = self._state
         if not st["active"].any():
-            return 0
+            return 0, None
         psz, T = cfg.page_size, cfg.max_seq_len
         B = self._spec_cfg.max_nodes()
         # exact coverage of this round's writes (rows pos..pos+B-1) plus the
@@ -1911,42 +2088,71 @@ class DecodeEngine:
         self._ensure_pages(ahead=B)
         active = st["active"]
         if not active.any():
-            return 0
-        contexts = {
-            int(slot): list(self._slot_task[slot].req.input_ids) + self._slot_task[slot].out_tokens
-            for slot in np.nonzero(active)[0]
-            if self._slot_task[slot] is not None
-        }
-        bundle = spec_mod.draft_batch(self._drafter, contexts, len(active), B - 1)
+            return 0, None
+        with self._kphase("draft"):
+            contexts = {
+                int(slot): list(self._slot_task[slot].req.input_ids) + self._slot_task[slot].out_tokens
+                for slot in np.nonzero(active)[0]
+                if self._slot_task[slot] is not None
+            }
+            bundle = spec_mod.draft_batch(self._drafter, contexts, len(active), B - 1)
+            for slot in contexts:
+                task = self._slot_task[slot]
+                nd = int(bundle.n_draft[slot])
+                if nd and task.timeline is not None:
+                    task.timeline.mark(tl_mod.DRAFT, n_draft=nd, source=bundle.sources[slot])
         max_pos = int(st["pos"][active].max())
         window = min(T, round_up_to_bucket(max_pos + 1 + B, cfg.attn_window_step))
         wp = min(self._maxp, -(-window // psz))
         capped = bool(((st["top_k"] > 0) | (st["top_p"] < 1.0))[active].any())
         greedy_any = bool(st["greedy"][active].any())
-        e0 = self._event_pair_start()
-        packed = self._run_spec(B, self._to_device(self._pt_host[:, :wp]), capped, greedy_any, bundle)
-        self._event_pair_end(e0, self._spec_events, B)
+        # the verify forward ~ one decode step of B tokens a slot
+        key = ("spec", B, len(active), wp)
+        self._register_cost(key, hw.decode_step_costs(self.model_cfg, 1, len(active) * B, wp * psz / 2.0))
+        with self._kphase("dispatch"):
+            e0 = self._event_pair_start()
+            packed = self._run_spec(B, self._to_device(self._pt_host[:, :wp]), capped, greedy_any, bundle)
+            self._event_pair_end(e0, self._spec_events, B)
+        with self._kphase("verify"):
+            # the round's one blocking download: the verify forward's device
+            # time (the speculative twin of device_wait)
+            packed_host = packed.cpu()
         pending = {
-            "packed": packed.cpu(),  # the round's one (blocking) download
+            "packed": packed_host,
             "ready": None,
             "n_steps": B,
+            "key": key,
             "version": self._version,
             "was_active": active.copy(),
             "tasks": list(self._slot_task),
         }
         # acceptance accounting before _drain changes slot ownership
-        emit_count = pending["packed"][2 * B].numpy()
-        n_accepted = sum(
-            max(0, int(emit_count[s]) - 1)
-            for s, task in enumerate(pending["tasks"])
-            if task is not None and active[s] and bundle.n_draft[s]
-        )
+        emit_count = packed_host[2 * B].numpy()
+        n_accepted = 0
+        source_tokens: dict[str, int] = {}
+        for s, task in enumerate(pending["tasks"]):
+            if task is None or not active[s] or not bundle.n_draft[s]:
+                continue
+            acc = max(0, int(emit_count[s]) - 1)
+            n_accepted += acc
+            src = bundle.sources[s]
+            source_tokens[src] = source_tokens.get(src, 0) + int(bundle.n_draft[s])
+            self._obs_spec.accepted_length.observe(acc)
+            if task.timeline is not None:
+                task.timeline.mark(tl_mod.VERIFY, n_accepted=acc)
         self.stats["spec_rounds"] += 1
         self.stats["spec_draft_tokens"] += int(bundle.n_draft.sum())
         self.stats["spec_accepted_tokens"] += n_accepted
+        self._obs_spec.rounds.inc()
+        self._obs_spec.accepted_tokens.inc(n_accepted)
+        for src, n in source_tokens.items():
+            self._obs_spec.draft_tokens.labels(source=src).inc(n)
         credited = self._drain(pending)
-        self.stats["spec_rollback_pages"] += self._rollback_spec_pages()
-        return credited
+        rolled = self._rollback_spec_pages()
+        if rolled:
+            self.stats["spec_rollback_pages"] += rolled
+            self._obs_spec.rollback_pages.inc(rolled)
+        return credited, key
 
     def _run_spec(self, B: int, page_table: torch.Tensor, capped: bool, greedy_any: bool, bundle):
         """Verify + accept for all slots (the body of the JAX ``_spec_fn``,
@@ -2068,55 +2274,65 @@ class DecodeEngine:
         was_active snapshot. Returns the credited token count."""
         if pending is None:
             return 0
-        if pending["ready"] is not None:
-            pending["ready"].synchronize()
-        packed = pending["packed"].numpy()
-        n_steps = pending["n_steps"]
-        version = pending["version"]
-        was_active = pending["was_active"]
-        toks = packed[:n_steps]
-        logps = packed[n_steps : 2 * n_steps].view(np.float32)
-        emit_count = packed[2 * n_steps]
-        active = packed[2 * n_steps + 1].astype(bool)
-        pos = packed[2 * n_steps + 2]
-        st = self._state
-        now = time.monotonic()
+        with self._kphase("device_wait"):
+            # the one wait on the card: its span is the device time the host
+            # sees in this pass (the pinned copy lands when the event does)
+            if pending["ready"] is not None:
+                pending["ready"].synchronize()
+            packed = pending["packed"].numpy()
         credited = 0
-        for slot, task in enumerate(pending["tasks"]):
-            if task is None or not was_active[slot]:
-                continue
-            if task is not self._slot_task[slot]:
-                continue  # slot turned over since dispatch
-            c = int(emit_count[slot])
-            if c:
-                credited += c
-                if task.first_token_time is None:
-                    task.first_token_time = now
-                self._slot_progress[slot] = now  # the watchdog: progress seen
-                task.out_tokens.extend(toks[:c, slot].tolist())
-                task.out_logprobs.extend(logps[:c, slot].tolist())
-                task.out_versions.extend([version] * c)
-                self.stats["generated_tokens"] += c
-                self._obs.generated_tokens.inc(c)
-            st["pos"][slot] = int(pos[slot])
-            if c:
-                st["ids"][slot] = int(toks[c - 1, slot])
-            st["remaining"][slot] -= c
-            st["active"][slot] = bool(active[slot])
-            if not active[slot]:
-                last = task.out_tokens[-1] if task.out_tokens else -1
-                g = task.req.gconfig
-                if (
-                    not g.ignore_eos
-                    and last in g.stop_token_ids
-                    and len(task.out_tokens) >= g.min_new_tokens
-                ):
-                    reason = StopReason.STOP.value
-                else:
-                    reason = StopReason.LENGTH.value
-                self._finish(task, reason)
-        self.stats["chunks"] += 1
-        self._obs.chunks.inc()
+        with self._kphase("bookkeeping"):
+            n_steps = pending["n_steps"]
+            version = pending["version"]
+            was_active = pending["was_active"]
+            toks = packed[:n_steps]
+            logps = packed[n_steps : 2 * n_steps].view(np.float32)
+            emit_count = packed[2 * n_steps]
+            active = packed[2 * n_steps + 1].astype(bool)
+            pos = packed[2 * n_steps + 2]
+            st = self._state
+            now = time.monotonic()
+            for slot, task in enumerate(pending["tasks"]):
+                if task is None or not was_active[slot]:
+                    continue
+                if task is not self._slot_task[slot]:
+                    continue  # slot turned over since dispatch
+                c = int(emit_count[slot])
+                if c:
+                    credited += c
+                    if task.first_token_time is None:
+                        task.first_token_time = now
+                        if task.timeline is not None:
+                            task.timeline.mark(tl_mod.FIRST_TOKEN)
+                    if task.timeline is not None:
+                        # one mark per slot per chunk; the timeline's event
+                        # cap bounds long generations
+                        task.timeline.mark(tl_mod.DECODE_CHUNK, n_tokens=c, version=version)
+                    self._slot_progress[slot] = now  # the watchdog: progress seen
+                    task.out_tokens.extend(toks[:c, slot].tolist())
+                    task.out_logprobs.extend(logps[:c, slot].tolist())
+                    task.out_versions.extend([version] * c)
+                    self.stats["generated_tokens"] += c
+                    self._obs.generated_tokens.inc(c)
+                st["pos"][slot] = int(pos[slot])
+                if c:
+                    st["ids"][slot] = int(toks[c - 1, slot])
+                st["remaining"][slot] -= c
+                st["active"][slot] = bool(active[slot])
+                if not active[slot]:
+                    last = task.out_tokens[-1] if task.out_tokens else -1
+                    g = task.req.gconfig
+                    if (
+                        not g.ignore_eos
+                        and last in g.stop_token_ids
+                        and len(task.out_tokens) >= g.min_new_tokens
+                    ):
+                        reason = StopReason.STOP.value
+                    else:
+                        reason = StopReason.LENGTH.value
+                    self._finish(task, reason)
+            self.stats["chunks"] += 1
+            self._obs.chunks.inc()
         return credited
 
     def _finish(self, task: _Task, reason: str) -> None:
@@ -2139,6 +2355,11 @@ class DecodeEngine:
             self._slot_pages[task.slot] = []
             self._slot_page_versions[task.slot] = []
             self._pt_host[task.slot] = 0
+        bd: dict[str, float] = {}
+        if task.timeline is not None:
+            # the terminal mark and the histograms; the breakdown rides the
+            # response, so callers split latency without scraping
+            bd = self.timeline.complete(task.timeline, reason, len(task.out_tokens))
         now = time.monotonic()
         resp = ModelResponse(
             input_tokens=list(task.req.input_ids),
@@ -2149,6 +2370,7 @@ class DecodeEngine:
             truncated_by=task.truncated_by,
             latency=now - task.submit_time,
             ttft=(task.first_token_time or now) - task.submit_time,
+            **{k: bd.get(k, 0.0) for k in io_struct.TIMING_FIELDS},
             rid=task.req.rid,
             metadata=dict(task.req.metadata),
         )
@@ -2197,6 +2419,8 @@ class DecodeEngine:
                         n_emitted=len(task.out_tokens),
                     )
                     self._parked[rid] = p
+                    if task.timeline is not None:
+                        task.timeline.mark(tl_mod.PARK, n_emitted=len(task.out_tokens))
                     self._publish_prefix(p.full_ids, p.pages, p.page_versions, p.pos)
                     self._slot_pages[slot] = []
                     self._slot_page_versions[slot] = []
@@ -2222,11 +2446,18 @@ class DecodeEngine:
             with torch.no_grad():
                 while not self._shutdown.is_set():
                     self._last_loop_ts = time.monotonic()
+                    # the probe: one timeline a pass; idle, paused and held
+                    # passes abandon it, so every recorded step did chunk
+                    # work and its phases sum to its wall time
+                    step_tl = self.kprobe.begin_step() if self.kprobe is not None else None
+                    self._ktl = step_tl
                     self._apply_weight_update()
                     self._service_radix_flush()
                     self._service_radix_cap()
-                    pending = self._reap_lifecycle(pending)
+                    with self._kphase("admission"):
+                        pending = self._reap_lifecycle(pending)
                     if self._paused.is_set():
+                        self._abandon_kstep()
                         self._drain(pending)
                         pending = None
                         self._abort_all()
@@ -2250,7 +2481,12 @@ class DecodeEngine:
                             )
                             self._held.clear()
                             self._hold_ack.clear()
+                            self._abandon_kstep()
                             continue
+                        # a held pass is abandoned even when it drains the
+                        # chunk in flight: its wall time is fence stall
+                        self._abandon_kstep()
+                        drained_chunk = pending is not None
                         self._drain(pending)
                         pending = None
                         # a hold is legitimate idleness: keep the watchdog's
@@ -2259,16 +2495,39 @@ class DecodeEngine:
                         for slot, t in enumerate(self._slot_task):
                             if t is not None:
                                 self._slot_progress[slot] = now
+                        if not self._hold_marked:
+                            # one FENCE_STALL mark per hold window on every
+                            # live request; the seconds accrue pass by pass
+                            self._hold_marked = True
+                            for t in self._slot_task:
+                                if t is not None and t.timeline is not None:
+                                    t.timeline.mark(tl_mod.FENCE_STALL)
                         self._hold_ack.set()
+                        # the stall opens at the top of this pass (a staged
+                        # commit applied there is fence stall), or after the
+                        # drain when this pass drained a real chunk (that
+                        # chunk's compute is decode time)
+                        t_stall = time.monotonic() if drained_chunk else self._last_loop_ts
                         self._wakeup.wait(timeout=0.05)
                         self._wakeup.clear()
+                        dt_stall = time.monotonic() - t_stall
+                        for t in self._slot_task:
+                            if t is not None and t.timeline is not None:
+                                t.timeline.fence_stall_s += dt_stall
+                                if t.first_token_time is None:
+                                    # before the first token: outside TPOT's window
+                                    t.timeline.fence_stall_pre_first_s += dt_stall
                         continue
                     if self.cache is None:
                         # memory released and not yet resumed
+                        self._abandon_kstep()
                         self._wakeup.wait(timeout=0.05)
                         self._wakeup.clear()
                         continue
-                    self._apply_slot_updates(self._admit_pending())
+                    self._hold_marked = False  # the next hold window marks afresh
+                    with self._kphase("admission"):
+                        rows = self._admit_pending()
+                        self._apply_slot_updates(rows)
                     spec_on = self._spec_cfg is not None and self._drafter is not None
                     if spec_on and self._freq_counts is not None:
                         # the penalty's per-step counts do not fit parallel
@@ -2281,22 +2540,35 @@ class DecodeEngine:
                         # chunk first (the spec-off -> on switch), then one
                         # round; a weight update applies only at the top of
                         # a pass, so draft and verify share one version
-                        self._drain(pending)
+                        drained_key = pending["key"] if pending is not None else None
+                        n_pipe = self._drain(pending)
                         pending = None
-                        self._spec_round()
-                        if not any(t is not None for t in self._slot_task):
+                        n_spec, spec_key = self._spec_round()
+                        self._close_kstep(
+                            step_tl, drained_key is not None or spec_key is not None or rows,
+                            n_pipe + n_spec, spec_key or drained_key,
+                        )
+                        if spec_key is None and not any(t is not None for t in self._slot_task):
                             self._wakeup.wait(timeout=0.05)
                             self._wakeup.clear()
                         continue
                     # dispatch the next chunk, then read the previous one
                     # while it computes
-                    dispatched = self._dispatch_chunk()
-                    self._drain(pending)
+                    with self._kphase("dispatch"):
+                        dispatched = self._dispatch_chunk()
+                    drained_key = pending["key"] if pending is not None else None
+                    n_drained = self._drain(pending)
                     pending = dispatched
+                    # a pass that drained, dispatched or admitted is a real
+                    # step; a bare poll is not
+                    self._close_kstep(
+                        step_tl, drained_key is not None or dispatched is not None or rows, n_drained, drained_key
+                    )
                     if pending is None and not any(t is not None for t in self._slot_task):
                         self._wakeup.wait(timeout=0.05)
                         self._wakeup.clear()
                 # shutdown: every submitted request gets its terminal response
+                self._ktl = None
                 self._drain(pending)
                 self._abort_all()
                 self._abort_queued()

@@ -2,8 +2,14 @@
 ``areal_tpu/inference/server.py`` on the standard library's
 ``ThreadingHTTPServer`` (no aiohttp).
 
-Endpoints: GET ``/health`` (503 "draining" or "wedged"), ``/metrics``,
-``/statusz``; POST ``/generate``, ``/abort_request``, ``/pause_generation``
+Endpoints: GET ``/health`` (503 "draining" or "wedged"), ``/metrics``
+(JSON, or the Prometheus text when ``Accept`` holds ``text/plain``),
+``/statusz`` (with the request-timeline counts, the decode-loop probe's
+``kernels`` summary and the ``hbm`` ledger), ``/debug/flight?timelines=N``
+(the flight ring and the newest request timelines); POST
+``/debug/profile?duration_s=N`` (a ``torch.profiler`` capture: 200 with its
+directory, 409 while one runs, ``duration_s=0`` stops it, 400 for a value
+that is not a number), ``/generate``, ``/abort_request``, ``/pause_generation``
 (``{"mode": "hold"}`` is the commit fence: it answers ``{"fenced": bool}``
 once the decode loop drained its in-flight chunk), ``/continue_generation``,
 ``/set_version``, ``/flush_prefix_cache``, ``/drain``, ``/undrain``,
@@ -11,24 +17,25 @@ once the decode loop drained its in-flight chunk), ``/continue_generation``,
 ``/resume_memory_occupation``, and the streamed weight update
 ``/update_weights_{begin,bucket,commit,abort}``. Request and response JSON
 match the JAX server's (``_req_from_json``, ``h_generate``, ``h_metrics``,
-``h_statusz``, ``h_drain``, ``h_autopilot_knobs``, ``h_update_*``).
+``h_statusz``, ``h_debug_flight``, ``h_debug_profile``, ``h_drain``,
+``h_autopilot_knobs``, ``h_update_*``).
 
 ``/generate`` runs the request lifecycle's HTTP half: the engine's admission
 gate answers 429 with a jittered ``Retry-After`` (queue depth, page headroom,
-draining), the ``x-areal-deadline`` header (absolute unix-epoch seconds)
-becomes the request's deadline (400 when it does not parse),
-``x-areal-priority`` goes into the request's metadata, and a client that
+draining; each refusal lands in the flight ring), the ``x-areal-deadline``
+header (absolute unix-epoch seconds) becomes the request's deadline (400
+when it does not parse), ``x-areal-priority`` goes into the request's
+metadata, the ``x-areal-trace`` ids go onto its timeline, and a client that
 disconnects while its request runs cancels the rid. A bucket's body is the
 JAX package's byte layout (``encode_weight_bucket``), read into one host
 buffer with ``readinto`` and staged from views of it.
 
 ``/update_weights_lora`` (ROADMAP Queue A item 4), ``/update_weights_from_disk``
 and ``/update_weights_from_tensors`` (item 3) and the relay header (item 8)
-answer with an error naming their item. ``/metrics`` serves the JSON shape
-only; its Prometheus text, ``/debug/flight`` and ``/debug/profile`` wait for
-ROADMAP Queue A item 2b. There is no command line entry yet: it needs the HF
-checkpoint loader, which waits for a checkpoint in the repository; build the
-engine with weights in code.
+answer with an error naming their item. There is no command line entry
+yet: it needs the HF checkpoint loader, which waits for a checkpoint in the
+repository; build the engine with weights in code. ``ServerThread`` started
+from the main thread arms the flight ring's SIGTERM dump.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import socket
 import struct
 import threading
 import time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -49,7 +57,10 @@ from areal_tpu_torch.api.config import ServerConfig
 from areal_tpu_torch.api import io_struct, wire
 from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
 from areal_tpu_torch.inference.decode_engine import DecodeEngine
-from areal_tpu_torch.observability import catalog
+from areal_tpu_torch.observability import catalog, hw_accounting, tracecontext
+from areal_tpu_torch.observability import timeline as tl_mod
+from areal_tpu_torch.observability.metrics import get_registry
+from areal_tpu_torch.utils import perf_tracer
 
 logger = logging.getLogger("areal_tpu_torch.server")
 
@@ -120,10 +131,12 @@ class _Handler(BaseHTTPRequestHandler):
         logger.debug("%s " + format, self.address_string(), *args)
 
     def _send(self, status: int, body: dict, headers: dict | None = None) -> None:
-        data = json.dumps(body).encode()
+        self._send_bytes(status, json.dumps(body).encode(), "application/json", headers)
+
+    def _send_bytes(self, status: int, data: bytes, content_type: str, headers: dict | None = None) -> None:
         try:
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
@@ -151,14 +164,21 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):  # noqa: N802 — stdlib name
         app = self.server.app
+        path, _, query = self.path.partition("?")
+        if path == "/metrics":
+            text = app.prometheus_text(self.headers.get("Accept", ""))
+            if text is not None:
+                self._send_bytes(200, text.encode(), "text/plain; charset=utf-8")
+                return
         route = {
             "/health": app.h_health,
             "/healthz": app.h_health,
             "/metrics": lambda: (200, app.metrics()),
             "/statusz": app.h_statusz,
-        }.get(self.path)
+            "/debug/flight": lambda: app.h_debug_flight(urllib.parse.parse_qs(query)),
+        }.get(path)
         if route is None:
-            self._send(404, {"status": "error", "error": f"no route {self.path}"})
+            self._send(404, {"status": "error", "error": f"no route {path}"})
             return
         self._send(*route())
 
@@ -194,6 +214,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):  # noqa: N802 — stdlib name
         app = self.server.app
+        path, _, query = self.path.partition("?")
         route = {
             "/generate": lambda d: app.h_generate(d, headers=self.headers, gone=self._client_gone),
             "/abort_request": app.h_abort_request,
@@ -209,11 +230,12 @@ class _Handler(BaseHTTPRequestHandler):
             "/update_weights_begin": app.h_update_begin,
             "/update_weights_commit": app.h_update_commit,
             "/update_weights_abort": app.h_update_abort,
-        }.get(self.path)
-        if self.path in _UNPORTED_ROUTES:
-            route = _UNPORTED_ROUTES[self.path]
-        if route is None and self.path != "/update_weights_bucket":
-            self._send(404, {"status": "error", "error": f"no route {self.path}"})
+            "/debug/profile": lambda d: app.h_debug_profile(urllib.parse.parse_qs(query)),
+        }.get(path)
+        if path in _UNPORTED_ROUTES:
+            route = _UNPORTED_ROUTES[path]
+        if route is None and path != "/update_weights_bucket":
+            self._send(404, {"status": "error", "error": f"no route {path}"})
             return
         if route is None:
             # raw octet-stream body: a handler of its own, no JSON parse
@@ -234,7 +256,7 @@ class _Handler(BaseHTTPRequestHandler):
         except (NotImplementedError, ValueError) as e:
             status, out = 400, {"status": "error", "error": str(e)}
         except Exception as e:  # noqa: BLE001 — the request boundary: report, keep serving
-            logger.exception(f"POST {self.path} failed")
+            logger.exception(f"POST {path} failed")
             status, out = 500, {"status": "error", "error": f"{type(e).__name__}: {e}"}
         self._send(status, out, headers)
 
@@ -254,8 +276,16 @@ class InferenceServer:
         self.engine = engine or DecodeEngine(config, device=device)
         self._httpd: _HTTPServer | None = None
         self._metrics = catalog.server_metrics()
+        self._engine_obs = catalog.engine_metrics()
+        self._pc_obs = catalog.prefix_cache_metrics()
         self._lc_obs = catalog.lifecycle_metrics()
+        self._hw_obs = catalog.train_obs_metrics()  # the ledger's gauges
         self._started_at = time.time()
+        # the engine's flight ring (the process's); the role travels inside
+        # the ring, so its disk dumps name it too. The first claimant keeps it
+        self._flight = getattr(self.engine, "flight", None) or tl_mod.get_flight_recorder()
+        if self._flight.role == "proc":
+            self._flight.role = "inference_server"
 
     @property
     def port(self) -> int:
@@ -292,13 +322,17 @@ class InferenceServer:
         if lc.retry_after_jitter > 0:
             retry_after *= 1.0 + random.random() * lc.retry_after_jitter
         self._lc_obs.admission_rejected.labels(reason=reason).inc()
+        self._flight.record("admission_reject", severity="warn", reason=reason, queue_depth=snap.get("queue_depth"))
         return 429, {"status": "rejected", "reason": reason, **snap}, {"Retry-After": f"{retry_after:g}"}
 
     def h_generate(self, d: dict, headers=None, gone=None) -> tuple:
         """One generation (``server.py:336-441``). ``headers``: the request's
         HTTP headers (the deadline and priority ride there; the deadline
         header wins over a JSON "deadline"); ``gone``: a callable that says
-        whether the caller disconnected, which cancels the rid."""
+        whether the caller disconnected, which cancels the rid. The
+        ``x-areal-trace`` ids (or none) are seated on this handler thread
+        first, so the request's timeline carries them."""
+        tracecontext.extract(headers or {})
         self._metrics.requests.labels(endpoint="generate").inc()
         refused = self.admission_refusal()
         if refused is not None:
@@ -334,9 +368,38 @@ class InferenceServer:
         self._metrics.request_latency.observe(resp.latency)
         return 200, _response_json(resp)
 
+    def _refresh_gauges(self) -> None:
+        """Point-in-time engine state into the registry's gauges, on the
+        scrape's thread (the decode loop never touches them)."""
+        eng = self.engine
+        m = self._metrics
+        m.paused.set(1.0 if eng.is_paused else 0.0)
+        depth = eng._queue.qsize() + len(eng._backlog)
+        m.queue_depth.set(depth)
+        self._lc_obs.queue_depth.set(depth)
+        slots = getattr(eng, "_slot_task", None)
+        if slots is not None:
+            self._engine_obs.batch_occupancy.set(sum(1 for t in slots if t is not None))
+        self._pc_obs.pages_held.set(float(eng.prefix_cache_stats().get("pages_held", 0)))
+        if eng.initialized:
+            try:
+                hw_accounting.observe_hbm_ledger(eng.hbm_ledger(), obs=self._hw_obs)
+            except Exception:  # noqa: BLE001 — a scrape must not 500 on an
+                # accounting edge (memory released, pool rebuilt)
+                logger.debug("hbm ledger refresh failed", exc_info=True)
+
+    def prometheus_text(self, accept: str) -> str | None:
+        """The Prometheus text of the process registry when ``accept`` asks
+        for ``text/plain``; None keeps the JSON default."""
+        if "text/plain" not in accept:
+            return None
+        self._refresh_gauges()
+        return get_registry().render_prometheus()
+
     def metrics(self) -> dict:
         """The engine's stats plus its pause state (``server.py:199``): the
         rollout client's pause-wait polls ``server_paused``."""
+        self._refresh_gauges()
         out = dict(self.engine.stats)
         out["server_paused"] = self.engine.is_paused
         out.setdefault("paused", self.engine.is_paused)
@@ -345,10 +408,12 @@ class InferenceServer:
     def h_statusz(self) -> tuple[int, dict]:
         """Identity, uptime, version and live state (``server.py:216``): every
         decode-loop counter, the radix cache, the admission snapshot, the
-        drain, the autopilot's setpoints, and the device bytes of the KV pool
-        and the penalty's count table."""
+        drain, the autopilot's setpoints, the device bytes of the KV pool and
+        the penalty's count table, the request timelines' counts, the probe's
+        ``kernels`` summary and the ``hbm`` ledger."""
+        self._refresh_gauges()
         eng = self.engine
-        return 200, {
+        out = {
             "role": "inference_server",
             "address": self.address,
             "uptime_secs": time.time() - self._started_at,
@@ -360,7 +425,56 @@ class InferenceServer:
             "drain": eng.drain_status(),
             "autopilot": eng.autopilot_status(),
             "memory": eng.memory_bytes() if eng.initialized else {},
+            # the same key as /debug/flight's counts (there "timelines" is
+            # the list of records)
+            "timeline_stats": eng.timeline.stats(),
+            "kernels": eng.kernel_stats(),
         }
+        if eng.initialized:
+            try:
+                out["hbm"] = eng.hbm_ledger()
+            except Exception:  # noqa: BLE001 — statusz renders without it
+                logger.debug("hbm ledger failed", exc_info=True)
+        return 200, out
+
+    def h_debug_flight(self, query: dict) -> tuple[int, dict]:
+        """The flight ring and the newest completed request timelines
+        (``server.py:274``); ``?timelines=N`` bounds the timelines (128 by
+        default)."""
+        self._metrics.requests.labels(endpoint="debug_flight").inc()
+        try:
+            n_tl = int(query.get("timelines", ["128"])[0])
+        except ValueError:
+            n_tl = 128
+        out = self._flight.snapshot()
+        out["address"] = self.address
+        out["timeline_stats"] = self.engine.timeline.stats()
+        out["timelines"] = self.engine.timeline.recent(max(0, n_tl))
+        return 200, out
+
+    def h_debug_profile(self, query: dict) -> tuple[int, dict]:
+        """An on-demand ``torch.profiler`` capture (``server.py:295``):
+        ``?duration_s=N`` starts one and answers with its directory at once
+        (the trace lands there when the timer stops it N seconds later);
+        ``duration_s=0`` stops an active capture early; one capture at a
+        time (409 carrying the active directory); a value that is not a
+        number answers 400."""
+        self._metrics.requests.labels(endpoint="debug_profile").inc()
+        try:
+            duration = float(query.get("duration_s", ["5"])[0])
+        except ValueError:
+            return 400, {"error": "duration_s must be a number"}
+        if duration <= 0:
+            d = perf_tracer.stop_device_profile()
+            return 200, {"status": "stopped" if d else "idle", "trace_dir": d}
+        active = perf_tracer.device_profile_active()
+        if active is not None:
+            return 409, {"error": "profile already active", "trace_dir": active}
+        try:
+            d = perf_tracer.profile_for(duration)
+        except RuntimeError as e:  # lost the start race
+            return 409, {"error": str(e)}
+        return 200, {"status": "profiling", "trace_dir": d, "duration_s": duration}
 
     def h_drain(self, d: dict) -> tuple[int, dict]:
         """A graceful drain (``server.py:467``): admission closes (429
@@ -482,11 +596,14 @@ class InferenceServer:
 
 
 class ServerThread:
-    """In-process server for tests and single-host runs."""
+    """In-process server for tests and single-host runs. ``start`` from the
+    main thread arms the flight ring's SIGTERM dump
+    (``signal_dump_armed``); elsewhere it cannot and says so (False)."""
 
     def __init__(self, config: ServerConfig, engine: DecodeEngine | None = None, device=None):
         self.server = InferenceServer(config, engine, device=device)
         self._thread: threading.Thread | None = None
+        self.signal_dump_armed = False
 
     @property
     def address(self) -> str:
@@ -498,6 +615,9 @@ class ServerThread:
 
     def start(self) -> None:
         self.server.start()
+        # persist the flight ring on SIGTERM: a replica killed from outside
+        # still leaves its last events on disk
+        self.signal_dump_armed = tl_mod.install_signal_dump()
         self._thread = threading.Thread(
             target=self.server.serve_forever, name="http-server", daemon=True
         )

@@ -1,13 +1,15 @@
-"""The metric families the rollout loop registers, copied from
+"""The metric families the port registers, copied from
 ``areal_tpu/observability/catalog.py`` with the same names, labels, help
 texts and buckets: ``staleness_metrics``, ``executor_metrics``, the serving
-engine's ``engine_metrics``, ``prefix_cache_metrics`` and
-``lifecycle_metrics``, the server's ``server_metrics``, ``client_metrics``,
-``robustness_metrics``, ``preemption_metrics``, ``autopilot_metrics``, and
-the trainer loop's ``trainer_metrics`` and ``train_obs_metrics`` (the latter
-without the XLA compile counters, which have no PyTorch counterpart). The
-other families wait for the modules that register them (ROADMAP Queue A
-items 2b, 3, 7 and 8).
+engine's ``engine_metrics``, ``kernel_metrics``, ``prefix_cache_metrics``,
+``lifecycle_metrics`` and ``speculative_metrics``, the request timelines'
+``timeline_metrics`` and the flight recorder's ``flight_metrics``, the
+server's ``server_metrics``, ``client_metrics``, ``robustness_metrics``,
+``preemption_metrics``, ``autopilot_metrics``, and the trainer loop's
+``trainer_metrics`` and ``train_obs_metrics`` (the latter without the XLA
+compile counters, which have no PyTorch counterpart). The other families
+wait for the modules that register them (ROADMAP Queue A items 3, 7 and 8).
+``register_all`` instantiates them in the JAX catalog's order.
 
 Factories are idempotent (the registry dedups by name).
 """
@@ -226,6 +228,86 @@ def lifecycle_metrics(reg: Registry | None = None) -> SimpleNamespace:
             "Requests currently forwarded through the gateway, by "
             "priority class.",
             label_names=("priority",),
+        ),
+    )
+
+
+def timeline_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Request timeline observatory (observability/timeline.py): per-stage
+    latency attribution for every engine request. Completed timelines feed
+    these histograms; the same breakdown is stamped per-request onto
+    ``ModelResponse`` (queue_wait_s / prefill_s / decode_s / ...)."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        queue_wait=r.histogram(
+            "areal_request_queue_wait_seconds",
+            "Submission-to-admission wait per request (engine queue + "
+            "backlog + slot availability).",
+            buckets=FAST_BUCKETS,
+        ),
+        prefill=r.histogram(
+            "areal_request_prefill_seconds",
+            "Prefill window per admitted request (suffix-only on a radix "
+            "prefix hit; zero-prefill resumes are not observed).",
+            buckets=FAST_BUCKETS,
+        ),
+        ttft=r.histogram(
+            "areal_request_ttft_seconds",
+            "Engine-side time to first token (queued -> first emitted "
+            "token), by priority class (interactive | rollout).",
+            label_names=("priority",),
+            buckets=FAST_BUCKETS,
+        ),
+        tpot=r.histogram(
+            "areal_request_tpot_seconds",
+            "Time per output token after the first (first-token to "
+            "terminal over tokens - 1); hold-fence stalls excluded.",
+            buckets=(
+                0.0001,
+                0.00025,
+                0.0005,
+                0.001,
+                0.0025,
+                0.005,
+                0.01,
+                0.025,
+                0.05,
+                0.1,
+                0.25,
+                1.0,
+            ),
+        ),
+        fence_stall=r.histogram(
+            "areal_request_fence_stall_seconds",
+            "Per-request decode stall under weight-commit hold fences "
+            "(zero-pause protocol; docs/weight_sync.md).",
+            buckets=FAST_BUCKETS,
+        ),
+        park=r.histogram(
+            "areal_request_park_seconds",
+            "Parked-KV wait resumed requests carried (abort pause -> "
+            "resume round-trip; rid-affinity KV reuse).",
+        ),
+    )
+
+
+def flight_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Fleet flight recorder (observability/timeline.py FlightRecorder):
+    significant-event ring visibility."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        events=r.counter(
+            "areal_flight_events_total",
+            "Events recorded into the process flight ring, by kind "
+            "(admission_reject, evict_radix, evict_parked, preempt, "
+            "weight_stage, weight_commit, circuit_open, watchdog, wedge, "
+            "quarantine, gateway_shed, ...).",
+            label_names=("kind",),
+        ),
+        dumps=r.counter(
+            "areal_flight_dumps_total",
+            "Flight-ring dumps persisted to disk (wedge escalation, "
+            "SIGTERM, or manual /debug tooling).",
         ),
     )
 
@@ -547,3 +629,98 @@ def train_obs_metrics(reg: Registry | None = None) -> SimpleNamespace:
             "OOM-headroom number to alert on.",
         ),
     )
+
+
+def kernel_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Kernel observatory (observability/kernel_probe.py): per-decode-step
+    phase attribution + roofline join (docs/perf.md "Kernel observatory")."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        phase_seconds=r.histogram(
+            "areal_decode_phase_seconds",
+            "Per-decode-step host wall seconds by loop phase (admission, "
+            "radix_match, prefill, draft, dispatch, device_wait, verify, "
+            "bookkeeping, other); named phases + other sum exactly to the "
+            "step wall.",
+            label_names=("phase",),
+            buckets=FAST_BUCKETS,
+        ),
+        step_flops=r.gauge(
+            "areal_decode_step_flops",
+            "Model FLOPs of the last drained decode chunk, from the "
+            "compiled executable's cost_analysis or the analytic fallback.",
+        ),
+        roofline_fraction=r.gauge(
+            "areal_decode_roofline_fraction",
+            "Achieved over attainable FLOP/s of the last completed decode "
+            "step: attainable = min(peak FLOPs, intensity x peak HBM bw).",
+        ),
+    )
+
+
+def speculative_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """Speculative decoding (docs/serving.md "Speculative decoding"):
+    draft/verify/accept accounting. Acceptance rate =
+    accepted_tokens / draft_tokens; each verify round also emits one base
+    token that is never at risk, so round throughput is
+    (accepted_length + 1) tokens per forward."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        rounds=r.counter(
+            "areal_spec_rounds_total",
+            "Speculative draft+verify rounds executed by the decode loop.",
+        ),
+        draft_tokens=r.counter(
+            "areal_spec_draft_tokens_total",
+            "Draft tree tokens proposed to the verify forward, by drafter "
+            "source (prompt n-gram lookup vs radix prefix tree).",
+            label_names=("source",),
+        ),
+        accepted_tokens=r.counter(
+            "areal_spec_accepted_tokens_total",
+            "Draft tokens accepted by the target sampler (tokens emitted "
+            "beyond each round's base token).",
+        ),
+        accepted_length=r.histogram(
+            "areal_spec_accepted_length",
+            "Accepted draft length per slot-round (0 = all drafts "
+            "rejected; the base token still emits).",
+            buckets=LAG_BUCKETS,
+        ),
+        rollback_pages=r.counter(
+            "areal_spec_rollback_pages_total",
+            "KV pages rolled back through the refcounted pool after "
+            "partial acceptance (speculative over-allocation freed; "
+            "rejected-draft KV itself never lands — it routes to the "
+            "trash page).",
+        ),
+    )
+
+
+# register_all's order in the JAX catalog, over the families ported so far
+ALL_FACTORIES = (
+    staleness_metrics,
+    executor_metrics,
+    engine_metrics,
+    kernel_metrics,
+    prefix_cache_metrics,
+    lifecycle_metrics,
+    timeline_metrics,
+    flight_metrics,
+    server_metrics,
+    client_metrics,
+    trainer_metrics,
+    train_obs_metrics,
+    robustness_metrics,
+    preemption_metrics,
+    autopilot_metrics,
+    speculative_metrics,
+)
+
+
+def register_all(reg: Registry | None = None) -> Registry:
+    """Instantiate every catalogued family."""
+    r = reg or get_registry()
+    for factory in ALL_FACTORIES:
+        factory(r)
+    return r

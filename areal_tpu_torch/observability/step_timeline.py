@@ -19,12 +19,12 @@ host_prep / forward_backward / optimizer spans through the thread-local
 device work queued inside it lands there.
 
 The utilization inputs read the card through PyTorch where the JAX package
-reads the XLA device: model FLOPs come from the model dims (the JAX
-``hw_accounting.train_step_flops``), the chip peak only from
-``TelemetryConfig.chip_peak_tflops`` (None otherwise, as the JAX package
-does for a chip it does not know: MFU is then not reported), and the
-memory ledger from ``torch.cuda.memory_allocated`` / ``mem_get_info`` on a
-card, or the analytic byte sums on the CPU.
+reads the XLA device: model FLOPs come from the model dims
+(``hw_accounting.train_step_flops``), the chip peak only from
+``TelemetryConfig.chip_peak_tflops`` (None otherwise: MFU is then not
+reported), and the memory ledger (``hw_accounting.build_hbm_ledger``) from
+``torch.cuda.memory_stats`` / ``mem_get_info`` on a card, or the analytic
+byte sums on the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +37,12 @@ from collections import deque
 from typing import Any, Iterator
 
 from areal_tpu_torch.observability import catalog as obs_catalog
+from areal_tpu_torch.observability.hw_accounting import (  # noqa: F401 — re-exported
+    build_hbm_ledger,
+    observe_hbm_ledger,
+    train_step_flops,
+    transformer_param_counts,
+)
 
 logger = logging.getLogger("areal_tpu_torch.step_timeline")
 
@@ -177,82 +183,22 @@ class StepTimelineRecorder:
         return out[-n:] if n > 0 else []
 
 
-# -- utilization inputs (areal_tpu/observability/hw_accounting.py) ----------
+# -- utilization inputs (observability/hw_accounting.py) --------------------
 
 
 def matmul_params(mcfg) -> int:
     """Parameters that multiply per token: every layer's projections (an
     MoE layer's top-k experts and router) and the LM head."""
-    h = mcfg.hidden_size
-    hd = mcfg.head_dim_
-    q_dim, kv_dim = mcfg.num_heads * hd, mcfg.num_kv_heads * hd
-    attn = h * q_dim + 2 * h * kv_dim + q_dim * h
-    if getattr(mcfg, "num_experts", 0) > 0:
-        inter = mcfg.moe_intermediate_size or mcfg.intermediate_size
-        mlp = mcfg.num_experts_per_tok * 3 * h * inter + h * mcfg.num_experts
-    else:
-        mlp = 3 * h * mcfg.intermediate_size
-    return mcfg.num_layers * (attn + mlp) + mcfg.vocab_size * h
-
-
-def train_step_flops(mcfg, n_tokens: float, n_extra_forwards: int = 0, remat: bool = False) -> float:
-    """Model FLOPs of one optimizer step over ``n_tokens``: fwd (2M) + bwd
-    (4M) [+ remat recompute 2M] + 2M per extra no-grad forward pass."""
-    per_tok = (6 + (2 if remat else 0) + 2 * max(0, n_extra_forwards)) * matmul_params(mcfg)
-    return float(per_tok) * float(n_tokens)
+    return transformer_param_counts(mcfg)["matmul"]
 
 
 def chip_peak_flops(override_tflops: float | None = None) -> float | None:
-    """Peak bf16 FLOPs/s of one chip: the TelemetryConfig override, else
-    None (MFU is then not reported rather than guessed)."""
+    """Peak bf16 FLOPs/s of one chip for the trainer's MFU: the
+    TelemetryConfig override, else None (MFU is then not reported rather
+    than guessed)."""
     if override_tflops is not None and override_tflops > 0:
         return float(override_tflops) * 1e12
     return None
-
-
-def build_hbm_ledger(
-    components: dict[str, int],
-    device=None,
-    override_hbm_gb: float | None = None,
-    exclude_from_total: tuple[str, ...] = (),
-) -> dict[str, Any]:
-    """Itemized device-memory account. On a card ``bytes_in_use`` is
-    ``torch.cuda.memory_allocated`` and the limit the card's total memory
-    (``mem_get_info``); on the CPU the ledger is analytic: in_use = the
-    itemized sum, limit = the override when set."""
-    import torch
-
-    itemized = sum(v for k, v in components.items() if k not in exclude_from_total)
-    if device is not None and torch.device(device).type == "cuda":
-        in_use = int(torch.cuda.memory_allocated(device))
-        limit = int(torch.cuda.mem_get_info(device)[1])
-        source = "device"
-        peak = int(torch.cuda.max_memory_allocated(device))
-    else:
-        in_use = itemized
-        limit = int(float(override_hbm_gb) * 1e9) if override_hbm_gb else None
-        source = "analytic"
-        peak = None
-    return {
-        "components": dict(components),
-        "itemized_bytes": itemized,
-        "bytes_in_use": in_use,
-        "bytes_limit": limit,
-        "peak_bytes": peak,
-        "headroom_fraction": max(0.0, 1.0 - in_use / limit) if limit else None,
-        "source": source,
-    }
-
-
-def observe_hbm_ledger(ledger: dict[str, Any], obs=None) -> None:
-    obs = obs or obs_catalog.train_obs_metrics()
-    for name, nbytes in ledger["components"].items():
-        obs.hbm_bytes.labels(component=name).set(float(nbytes))
-    obs.hbm_bytes.labels(component="in_use").set(float(ledger["bytes_in_use"]))
-    if ledger["bytes_limit"]:
-        obs.hbm_bytes.labels(component="limit").set(float(ledger["bytes_limit"]))
-    if ledger["headroom_fraction"] is not None:
-        obs.hbm_headroom.set(float(ledger["headroom_fraction"]))
 
 
 def complete_trainer_step(

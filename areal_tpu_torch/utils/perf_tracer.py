@@ -7,8 +7,10 @@
   ``Category``, ``configure``, ``save``): off at ``PerfTracerConfig()``'s
   defaults, where a span costs one attribute read;
 - on-demand device profiling (``start_device_profile`` /
-  ``stop_device_profile``): ``torch.profiler`` in place of the XLA
-  profiler, its Chrome trace written to the capture directory at stop.
+  ``stop_device_profile``, ``device_profile_active``, and ``profile_for``,
+  the capture behind ``POST /debug/profile``): ``torch.profiler`` in place
+  of the XLA profiler, its Chrome trace written to the capture directory at
+  stop.
 
 Task and session ids ride ContextVars, so a phase recorded inside a
 workflow coroutine lands on that coroutine's session. Off by default;
@@ -21,12 +23,15 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import json
+import logging
 import os
 import threading
 import time
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any
+
+logger = logging.getLogger("areal_tpu_torch.perf_tracer")
 
 
 class Category(str, Enum):
@@ -45,6 +50,15 @@ def set_task_context(task_id: str | None = None, session_id: str | None = None):
         _task_id_var.set(task_id)
     if session_id is not None:
         _session_id_var.set(session_id)
+
+
+def clear_task_context() -> None:
+    """Reset both ids in the calling context. An inbound request handler
+    calls this when no trace header arrived: a handler thread serves a
+    keep-alive connection's requests one after another, and stale ids would
+    otherwise leak into later requests."""
+    _task_id_var.set(None)
+    _session_id_var.set(None)
 
 
 def get_task_context() -> tuple[str | None, str | None]:
@@ -227,9 +241,40 @@ def save(step: int | None = None, force: bool = False) -> None:
     _SESSIONS.flush()
 
 
-# one torch.profiler capture at a time per process
+# one torch.profiler capture at a time per process. The profiler is entered
+# and left on one thread of its own: kineto ties a session to the thread
+# that started it, and a timed capture stops from a timer (POST
+# /debug/profile) while the decode loop runs on a third thread. CUDA
+# activity is traced process-wide, whichever thread launched it.
 _PROFILE_LOCK = threading.Lock()
-_PROFILE: tuple[str, Any] | None = None
+_PROFILE: "_Capture | None" = None
+
+
+class _Capture:
+    """A capture's directory and its profiler thread."""
+
+    def __init__(self, d: str):
+        self.dir = d
+        self.started = threading.Event()
+        self.stop = threading.Event()
+        self.error: BaseException | None = None
+        self.thread = threading.Thread(target=self._run, name="device-profile", daemon=True)
+
+    def _run(self) -> None:
+        import torch
+
+        try:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=acts) as prof:
+                self.started.set()
+                self.stop.wait()
+            prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        except BaseException as e:  # noqa: BLE001 — handed to the caller
+            self.error = e
+        finally:
+            self.started.set()
 
 
 def start_device_profile(output_dir: str | None = None) -> str:
@@ -237,31 +282,59 @@ def start_device_profile(output_dir: str | None = None) -> str:
     activity). Returns the capture directory; raises RuntimeError while
     another capture is active."""
     global _PROFILE
-    import torch
-
     with _PROFILE_LOCK:
         if _PROFILE is not None:
-            raise RuntimeError(f"device profile already active at {_PROFILE[0]}")
+            raise RuntimeError(f"device profile already active at {_PROFILE.dir}")
         root = output_dir or (_TRACER.config.output_dir if _TRACER.config is not None else None)
         d = os.path.join(root or "/tmp/areal_tpu/traces", "torch_profile", f"profile_{int(time.time() * 1000)}")
         os.makedirs(d, exist_ok=True)
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
-        _PROFILE = (d, prof)
+        cap = _Capture(d)
+        cap.thread.start()
+        cap.started.wait()
+        if cap.error is not None:
+            cap.thread.join()
+            raise RuntimeError(f"device profile failed to start: {cap.error!r}") from cap.error
+        _PROFILE = cap
     return d
 
 
-def stop_device_profile() -> str | None:
+def stop_device_profile(only_dir: str | None = None) -> str | None:
     """End the active capture and write its Chrome trace; returns its
-    directory (None when none is active)."""
+    directory (None when none is active). ``only_dir`` stops the capture
+    only while it is still the active one, so a stale timer of a capture
+    stopped early can never cut a newer one short."""
     global _PROFILE
     with _PROFILE_LOCK:
         if _PROFILE is None:
             return None
-        (d, prof), _PROFILE = _PROFILE, None
-        prof.__exit__(None, None, None)
-        prof.export_chrome_trace(os.path.join(d, "trace.json"))
+        if only_dir is not None and _PROFILE.dir != only_dir:
+            return None
+        cap, _PROFILE = _PROFILE, None
+        cap.stop.set()
+        cap.thread.join()
+    if cap.error is not None:
+        raise RuntimeError(f"device profile failed: {cap.error!r}") from cap.error
+    return cap.dir
+
+
+def device_profile_active() -> str | None:
+    """The active capture's directory, or None."""
+    with _PROFILE_LOCK:
+        return _PROFILE.dir if _PROFILE is not None else None
+
+
+def profile_for(duration_s: float, output_dir: str | None = None) -> str:
+    """Start a capture and stop it after ``duration_s`` on a timer thread
+    (``POST /debug/profile``). Returns the capture directory at once; the
+    trace file lands there at the stop."""
+    d = start_device_profile(output_dir)
+
+    def _stop():
+        time.sleep(max(0.0, duration_s))
+        try:
+            stop_device_profile(only_dir=d)
+        except Exception:  # noqa: BLE001 — a failed stop is logged, not lost
+            logger.exception("device-profile stop failed")
+
+    threading.Thread(target=_stop, name="device-profile-stop", daemon=True).start()
     return d

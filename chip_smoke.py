@@ -93,11 +93,25 @@ no result line:
               /autopilot/knobs) and the client's backpressure; (f) /drain,
               /health and /generate while draining, /undrain; (g) release /
               resume memory. The pool audit and the #1 / #3 launches.
-10. spec     — speculative decoding (ngram, then tree drafter): greedy
+10. observe  — the serving engine's observability at Qwen2.5-1.5B (the
+              serve phase's settings) over HTTP: a cold wave, a warm wave on
+              a shared 1,024-token system prompt (radix hits, #3) with a 2 s
+              ``POST /debug/profile`` capture during it, 16 requests
+              abort-paused and resumed from parked KV through
+              ``RemoteTorchEngine``, a wave across a staged weight update in
+              the hold fence, one 429. Checks every response's timing fields
+              + ``other_s`` against its latency (5 ms), the decode-loop
+              probe's identity on every recorded pass, /statusz ``hbm``
+              against the allocator, the Prometheus text line by line, the
+              flight ring's kinds, ``decode_kernel`` in the capture's trace;
+              prints the waves' breakdowns, the resumes' continue -> first
+              token split, the probe's phase means, dominant phase and
+              roofline fraction, and the probe's own cost per pass.
+11. spec     — speculative decoding (ngram, then tree drafter): greedy
               tokens equal to a non-speculative engine's with the same
               weights, kernel #3's tree launches, rounds / accepted /
               rollback pages, the pool's accounting.
-11. train    — two asynchronous-GRPO steps at full width and depth: the
+12. train    — two asynchronous-GRPO steps at full width and depth: the
               ``DecodeEngine`` generates 8 prompts x 4 samples (duplicates
               alias the first sample's pages), the ``TorchTrainEngine``
               recomputes proximal logprobs (K2), ``PPOActor`` computes
@@ -108,7 +122,7 @@ no result line:
               Checks the logprobs on both waves, finite loss and grad norm
               (and the plain attention's grad norm on one minibatch), moved
               weights, version tags and every kernel's launch count.
-12. grpo     — the whole GRPO loop over HTTP at full width and depth:
+13. grpo     — the whole GRPO loop over HTTP at full width and depth:
               ``PPOTrainer.train`` (3 global steps) with a
               ``TorchTrainEngine`` (``train``'s actor settings, a constant
               LR) and ``RemoteTorchEngine`` (16 rollouts at once, batches of
@@ -128,7 +142,7 @@ no result line:
               tokens generated during the update and the rows spanning a
               commit; staging GB/s, decode step wall time while staging
               beside the other steps, trainer tokens/s and peak memory.
-13. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+14. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -143,7 +157,7 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-14. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+15. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
@@ -152,7 +166,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-15. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+16. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -164,7 +178,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-16. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+17. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -175,7 +189,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-17. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+18. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -183,7 +197,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-18. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+19. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -2847,6 +2861,394 @@ def phase_lifecycle(card: str) -> dict:
                 seconds=time.monotonic() - t_phase, **out)
 
 
+OBSERVE_PROMPTS, OBSERVE_NEW = 16, 96
+OBSERVE_LATENCY_TOL_S = 5e-3  # timing fields + other_s against a response's latency
+OBSERVE_IDENTITY_TOL_S = 1e-9  # a probe step's phases + other_s against its wall
+
+
+def _prometheus_samples(text: str) -> tuple[int, list[str]]:
+    """The Prometheus text's families (# TYPE lines) and sample lines; raises
+    on a line that does not parse."""
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? '
+                        r'([-+]?[0-9.eE+-]+|[-+]?Inf|NaN)$')
+    families, samples = 0, []
+    for ln in text.splitlines():
+        if not ln:
+            continue
+        if ln.startswith("# TYPE "):
+            families += 1
+        elif ln.startswith("#"):
+            continue
+        elif not sample.match(ln):
+            raise AssertionError(f"[observe] (d) an unparsable Prometheus line: {ln[:120]!r}")
+        else:
+            samples.append(ln)
+    return families, samples
+
+
+def phase_observe(card: str) -> dict:
+    """The serving engine's observability at Qwen2.5-1.5B's full width and
+    depth (random bf16 weights from a seed), the serve phase's
+    ``ServerConfig``, over HTTP: a cold wave of 16, a warm wave of 16 on a
+    shared 1,024-token system prompt (radix hits, #3 chain launches) with a
+    2 s ``POST /debug/profile`` capture taken during it, 16 requests
+    abort-paused through ``RemoteTorchEngine`` and resumed from their
+    parked KV (#1 over parked pages), a wave across one staged weight
+    update inside the hold fence, and one 429. Prints, with the card's name
+    and power limit:
+
+    (a) each raw wave's mean timing breakdown and the worst |timing fields
+        + other_s - latency| (fails past 5 ms), and the resumed requests'
+        split of the continue -> first resumed token: the client's poll,
+        the queue wait and admission -> first token;
+    (b) the decode-loop probe's per-phase means and dominant phase (every
+        recorded step's identity checked as it is recorded, no catch) and
+        the roofline fraction with its peak source;
+    (c) /statusz ``hbm`` against ``torch.cuda.memory_allocated`` /
+        ``mem_get_info``, the weights and the KV pool itemized;
+    (d) the Prometheus text of /metrics, parsed line by line;
+    (e) the flight ring's kinds from the phase;
+    (f) the profile's trace file, holding ``decode_kernel`` (kernel #1);
+    (g) the probe's own cost per pass: spans x the measured cost of one
+        span, as a share of the pass wall.
+
+    Then no timeline left unterminated after a drain, and the #1 / #3
+    launches of the phase."""
+    import asyncio
+    import collections
+    import tempfile
+
+    from areal_tpu_torch.api.config import InferenceEngineConfig, PerfTracerConfig, ServerConfig
+    from areal_tpu_torch.api.io_struct import TIMING_FIELDS, GenerationHyperparameters, ModelRequest, \
+        WeightUpdateMeta
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.observability import kernel_probe
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+    from areal_tpu_torch.utils import perf_tracer
+
+    t_phase = time.monotonic()
+    # the capture and any flight dump go to a directory of the phase's own
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_observe_")
+    flight_env = os.environ.get("AREAL_FLIGHT_DIR")
+    os.environ["AREAL_FLIGHT_DIR"] = os.path.join(tmp.name, "flight")
+    tracer = perf_tracer._TRACER
+    perf_tracer._TRACER = perf_tracer.PerfTracer(PerfTracerConfig(output_dir=tmp.name))
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                       host="127.0.0.1", seed=0)
+    engine = DecodeEngine(cfg, params=model)
+    srv = ServerThread(cfg, engine=engine)
+    srv.start()
+    addr = srv.address
+    client = RemoteTorchEngine(InferenceEngineConfig(request_timeout=900), addresses=[addr])
+    client.initialize()
+    rng = np.random.default_rng(19)
+    V = mcfg.vocab_size
+    out: dict = {}
+
+    # (b) / (g): every recorded pass's identity, checked as it is recorded
+    # (recording an error, never raising on the decode thread), and the
+    # probe spans each recorded pass opened
+    probe = engine.kprobe
+    bad_steps: list = []
+    spans_open: dict[int, int] = collections.defaultdict(int)
+    spans_per_step: list[int] = []
+    sums = collections.defaultdict(float)  # FLOPs, bytes and wall of the recorded passes
+    complete_step, kphase = probe.complete_step, engine._kphase
+
+    def checked(tl, tokens=0, cost_key=None):
+        bd = complete_step(tl, tokens=tokens, cost_key=cost_key)
+        named = sum(bd[f"{p}_s"] for p in kernel_probe.DECODE_PHASES)
+        if abs(named + bd["other_s"] - bd["total_s"]) > OBSERVE_IDENTITY_TOL_S or bd["other_s"] < 0:
+            bad_steps.append(bd)
+        spans_per_step.append(spans_open.pop(id(tl), 0))
+        cost = probe.cost_for(cost_key) or {"flops": 0.0, "bytes": 0.0}
+        sums["flops"] += cost["flops"]
+        sums["bytes"] += cost["bytes"]
+        sums["wall"] += bd["total_s"]
+        return bd
+
+    def counted(name):
+        tl = engine._ktl
+        if tl is not None:
+            spans_open[id(tl)] += 1
+        return kphase(name)
+
+    probe.complete_step, engine._kphase = checked, counted
+
+    def body(ids, rid, n=OBSERVE_NEW):
+        return {"input_ids": ids, "rid": rid, "sampling_params": {"max_new_tokens": n, "greedy": True,
+                                                                   "ignore_eos": True}}
+
+    def timelines() -> dict[str, list[dict]]:
+        recs: dict[str, list[dict]] = {}
+        for r in _http_status(addr, "/debug/flight?timelines=512")[2]["timelines"]:
+            recs.setdefault(r["rid"], []).append(r)
+        return recs
+
+    def breakdowns(resps, what) -> dict:
+        """Mean timing of a raw wave and its worst |timing + other_s -
+        latency| (each response against its own timeline)."""
+        recs = timelines()
+        worst, sums = 0.0, collections.defaultdict(float)
+        for r in resps:
+            bd = recs[r["rid"]][-1]["breakdown"]
+            tm = r["timing"]
+            if any(tm[k] != bd[k] for k in TIMING_FIELDS):
+                raise AssertionError(f"[observe] (a) {what}: the response's timing {tm} is not its timeline's {bd}")
+            named = tm["queue_wait_s"] + tm["prefill_s"] + tm["decode_s"] + tm["fence_stall_s"] + bd["other_s"]
+            worst = max(worst, abs(named - r["latency"]))
+            for k in (*TIMING_FIELDS, "other_s"):
+                sums[k] += bd[k]
+            sums["latency"] += r["latency"]
+        if worst > OBSERVE_LATENCY_TOL_S:
+            raise AssertionError(f"[observe] (a) {what}: timing + other_s parts from the latency by {worst * 1e3:.3f} ms")
+        mean = {k: v / len(resps) for k, v in sums.items()}
+        log(f"[observe] (a) {card}: {what}, {len(resps)} requests, mean s: "
+            + ", ".join(f"{k[:-2] if k.endswith('_s') else k} {v:.4f}" for k, v in mean.items())
+            + f"; worst |timing + other - latency| {worst * 1e6:.1f} us")
+        return dict(mean=mean, worst_s=worst)
+
+    def client_wave(reqs):
+        box: list = []
+
+        async def run():
+            try:
+                box.extend(await asyncio.gather(*(client.agenerate(r) for r in reqs)))
+            finally:
+                await client.close_loop_connections()
+
+        th = threading.Thread(target=lambda: asyncio.run(run()), daemon=True)
+        th.start()
+        return th, box
+
+    try:
+        # main path: counts to 0 just before, read just after
+        paged_attention_stacked.launches = 0
+        for k in psa.launches:
+            psa.launches[k] = 0
+
+        # the cold wave
+        prompts = [rng.integers(0, V, int(n)).tolist() for n in rng.integers(64, 513, OBSERVE_PROMPTS)]
+        t0 = time.monotonic()
+        cold = _wave(addr, [body(p, f"cold{i}") for i, p in enumerate(prompts)])
+        for r in cold:
+            _check_response(r, OBSERVE_NEW, "observe cold")
+        out["cold"] = breakdowns(cold, f"cold wave ({time.monotonic() - t0:.2f} s)")
+
+        # the warm wave on a shared system prompt, a 2 s capture during it
+        system = rng.integers(0, V, 1024).tolist()
+        _post(addr, "/generate", body(system + rng.integers(0, V, 16).tolist(), "prime", 8))
+        chain0, hits0 = psa.launches["chain"], engine.stats["prefix_hit_tokens"]
+        status, _, prof = _http_status(addr, "/debug/profile?duration_s=2", {})
+        if status != 200:
+            raise AssertionError(f"[observe] (f) /debug/profile answered {status}: {prof}")
+        t0 = time.monotonic()
+        warm = _wave(addr, [body(system + rng.integers(0, V, int(n)).tolist(), f"warm{i}")
+                            for i, n in enumerate(rng.integers(32, 129, OBSERVE_PROMPTS))])
+        for r in warm:
+            _check_response(r, OBSERVE_NEW, "observe warm")
+            if r["cached_prefix_tokens"] < 1024:
+                raise AssertionError(f"[observe] warm wave: {r['cached_prefix_tokens']} cached prefix tokens")
+        out["warm"] = breakdowns(warm, f"warm wave on a 1,024-token system prompt ({time.monotonic() - t0:.2f} s, "
+                                       f"{engine.stats['prefix_hit_tokens'] - hits0} radix-hit tokens, #3 chain "
+                                       f"launches {psa.launches['chain'] - chain0})")
+        if psa.launches["chain"] - chain0 <= 0:
+            raise AssertionError("[observe] warm wave: kernel #3 never ran a chain launch")
+        if _http_status(addr, "/debug/profile?duration_s=2", {})[0] not in (200, 409):
+            raise AssertionError("[observe] (f) a second /debug/profile answered neither 200 nor 409")
+        deadline = time.monotonic() + 120
+        while perf_tracer.device_profile_active() is not None and time.monotonic() < deadline:
+            time.sleep(0.1)
+        perf_tracer.stop_device_profile()  # the second capture, when it started
+        trace = os.path.join(prof["trace_dir"], "trace.json")
+        with open(trace, "rb") as f:
+            raw = f.read()
+        n_decode = raw.count(b"decode_kernel")
+        if n_decode == 0:
+            raise AssertionError(f"[observe] (f) the profile's trace ({len(raw)} bytes) holds no decode_kernel")
+        log(f"[observe] (f) {card}: a 2 s /debug/profile capture during the warm wave: trace.json {len(raw) / 1e6:.1f} MB, "
+            f"'decode_kernel' {n_decode} times")
+        out["profile"] = dict(trace_mb=len(raw) / 1e6, decode_kernel=n_decode)
+        del raw
+
+        # abort pause -> parked resumes, through the client
+        reqs = [ModelRequest(input_ids=list(p), rid=f"park{i}", gconfig=GenerationHyperparameters(
+            max_new_tokens=128, greedy=True, ignore_eos=True)) for i, p in enumerate(prompts)]
+        g0, res0 = engine.stats["generated_tokens"], engine.stats["kv_resumes"]
+        th, box = client_wave(reqs)
+        deadline = time.monotonic() + 300
+        while engine.stats["generated_tokens"] - g0 < 32 * len(reqs) and th.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.001)
+        client.pause_generation()
+        time.sleep(0.2)
+        t_cont = time.time()
+        client.continue_generation()
+        th.join(timeout=900)
+        if len(box) != len(reqs) or engine.stats["kv_resumes"] - res0 != len(reqs):
+            raise AssertionError(f"[observe] parked resumes: {len(box)} responses, kv_resumes "
+                                 f"+{engine.stats['kv_resumes'] - res0}")
+        recs = timelines()
+        split = collections.defaultdict(list)
+        for r in reqs:
+            first, resumed = recs[r.rid][-2], recs[r.rid][-1]
+            stg = [e["stage"] for e in resumed["events"]]
+            if first["terminal_reason"] != "abort" or "resume" not in stg or "prefill_start" in stg:
+                raise AssertionError(f"[observe] {r.rid}: stages {stg} after {first['terminal_reason']}")
+            bd = resumed["breakdown"]
+            split["poll"].append(resumed["epoch_anchor"] - t_cont)
+            split["queue_wait"].append(bd["queue_wait_s"])
+            split["admitted_to_first_token"].append(bd["ttft_s"] - bd["queue_wait_s"])
+            split["continue_to_first_token"].append(resumed["epoch_anchor"] - t_cont + bd["ttft_s"])
+            split["park"].append(bd["park_s"])
+        means = {k: sum(v) / len(v) for k, v in split.items()}
+        log(f"[observe] (a) {card}: 16 requests abort-paused at ~32 tokens, held 0.2 s, resumed from parked KV "
+            f"(kv_resumes +{len(reqs)}): continue -> first resumed token {means['continue_to_first_token']:.4f} s "
+            f"(max {max(split['continue_to_first_token']):.4f}) = client poll {means['poll']:.4f} + queue wait "
+            f"{means['queue_wait']:.4f} + admission -> first token {means['admitted_to_first_token']:.4f} (the "
+            f"dispatch of a chunk and the next, the first token being drained one dispatch late); park "
+            f"{means['park']:.4f} s")
+        out["resume"] = means
+
+        # a wave across one staged weight update inside the hold fence
+        g0 = engine.stats["generated_tokens"]
+        fence_wave: list = []
+        th = threading.Thread(target=lambda: fence_wave.extend(_wave(addr, [
+            body(p, f"fence{i}", 128) for i, p in enumerate(prompts)])), daemon=True)
+        th.start()
+        deadline = time.monotonic() + 300
+        while engine.stats["generated_tokens"] - g0 < 16 * len(prompts) and time.monotonic() < deadline:
+            time.sleep(0.001)
+        v0 = client.get_version()
+        t0 = time.monotonic()
+        client.update_weights(WeightUpdateMeta(), params=model.state_dict())
+        t_upd = time.monotonic() - t0
+        th.join(timeout=900)
+        if len(fence_wave) != len(prompts):
+            raise AssertionError(f"[observe] fence wave: {len(fence_wave)} responses")
+        stalled = [r for r in fence_wave if r["timing"]["fence_stall_s"] > 0]
+        spanning = [r for r in fence_wave if len(set(r["output_versions"])) == 2]
+        if not stalled or engine.get_version() != v0 + 1:
+            raise AssertionError(f"[observe] fence wave: {len(stalled)} requests with a fence stall, version "
+                                 f"{engine.get_version()} (want {v0 + 1})")
+        out["fence"] = breakdowns(fence_wave, f"wave across a staged update of {weight_bytes / 1e9:.2f} GB in the hold "
+                                              f"fence ({t_upd:.2f} s; {len(stalled)} requests stalled, "
+                                              f"{len(spanning)} spanning v{v0} -> v{v0 + 1})")
+
+        # one 429 into the ring
+        engine.begin_drain()
+        status = _http_status(addr, "/generate", body([1, 2, 3], "refused", 4))[0]
+        if not engine.end_drain() or status != 429:
+            raise AssertionError(f"[observe] the draining gate answered {status}")
+
+        # (b) the probe
+        ks = _http_status(addr, "/statusz")[2]["kernels"]
+        if bad_steps:
+            raise AssertionError(f"[observe] (b) {len(bad_steps)} probe steps break the identity: {bad_steps[:2]}")
+        if ks["steps"] != len(spans_per_step) or ks["steps"] == 0:
+            raise AssertionError(f"[observe] (b) {ks['steps']} steps recorded, {len(spans_per_step)} checked")
+        pm = ks["phase_means_s"]
+        pk = ks["peaks"]
+        # the mean of per-pass fractions weighs a pass that only drains a
+        # chunk (milliseconds, a whole chunk's FLOPs) like a dispatching one;
+        # the fraction of the summed FLOPs over the summed wall does not
+        agg = kernel_probe.roofline_fraction(sums["flops"], sums["bytes"], sums["wall"], pk["flops"], pk["membw"])
+        log(f"[observe] (b) {card}: {ks['steps']} recorded passes of the decode loop ({ks['abandoned']} abandoned), "
+            f"identity held on every one; mean s a pass: " + ", ".join(f"{p} {v:.5f}" for p, v in pm.items())
+            + f", other {ks['other_mean_s']:.5f}, total {ks['total_mean_s']:.5f}; dominant {ks['dominant_phase']} "
+            f"({max(pm.values()) / ks['total_mean_s']:.1%}); roofline fraction, mean of the passes "
+            f"{ks['roofline_fraction']:.6f}, of the summed FLOPs over the summed wall {agg:.6f}, against "
+            f"{pk['flops'] / 1e12:.0f} TFLOP/s and {pk['membw'] / 1e12:.2f} TB/s ({pk['source']}); tokens/s over "
+            f"the recorded passes {ks['tok_s']:.1f}; device attribution {ks.get('device_attribution')}")
+        out["probe"] = dict(steps=ks["steps"], phase_means_s=pm, other_mean_s=ks["other_mean_s"],
+                            total_mean_s=ks["total_mean_s"], dominant=ks["dominant_phase"],
+                            roofline=ks["roofline_fraction"], roofline_summed=agg, peak_source=pk["source"])
+
+        # (c) the ledger against the allocator
+        torch.cuda.synchronize()
+        hbm = _http_status(addr, "/statusz")[2]["hbm"]
+        allocated = torch.cuda.memory_allocated()
+        free, total = torch.cuda.mem_get_info()
+        comp = hbm["components"]
+        if hbm["source"] != "device" or comp["params"] != weight_bytes or comp["kv_page_pool"] != \
+                engine.memory_bytes()["kv_pool"] or hbm["bytes_limit"] != total:
+            raise AssertionError(f"[observe] (c) ledger {hbm} (weights {weight_bytes}, allocated {allocated}, "
+                                 f"total {total})")
+        log(f"[observe] (c) {card}: /statusz hbm params {comp['params'] / 1e9:.3f} GB, kv_page_pool "
+            f"{comp['kv_page_pool'] / 1e9:.3f} GB, radix_cache {comp['radix_cache'] / 1e9:.3f} GB (in the pool), "
+            f"staged_update {comp['staged_update'] / 1e9:.3f} GB, freq_counts {comp['freq_counts']}; in use "
+            f"{hbm['bytes_in_use'] / 1e9:.3f} GB (torch.cuda.memory_allocated {allocated / 1e9:.3f} GB after it), "
+            f"peak {hbm['peak_bytes'] / 1e9:.3f} GB, limit {hbm['bytes_limit'] / 1e9:.3f} GB (mem_get_info total "
+            f"{total / 1e9:.3f}, free {free / 1e9:.3f}), headroom {hbm['headroom_fraction']:.4f}")
+        out["hbm"] = dict(params=comp["params"], kv=comp["kv_page_pool"], in_use=hbm["bytes_in_use"],
+                          allocated=allocated)
+
+        # (d) the Prometheus text
+        req = urllib.request.Request(f"http://{addr}/metrics", headers={"Accept": "text/plain"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            ctype, text = r.headers.get("Content-Type", ""), r.read().decode()
+        families, samples = _prometheus_samples(text)
+        names = {re.match(r"[^{ ]+", s).group(0) for s in samples}
+        want = {"areal_request_queue_wait_seconds_count", "areal_request_tpot_seconds_count",
+                "areal_request_fence_stall_seconds_count", "areal_decode_phase_seconds_count",
+                "areal_decode_roofline_fraction", "areal_hbm_bytes", "areal_flight_events_total"}
+        if not ctype.startswith("text/plain") or want - names:
+            raise AssertionError(f"[observe] (d) {ctype}: missing {sorted(want - names)}")
+        log(f"[observe] (d) {card}: /metrics as text/plain: {families} families, {len(samples)} samples, every line "
+            f"parsed; {len(text) / 1e3:.1f} kB")
+        out["prometheus"] = dict(families=families, samples=len(samples))
+
+        # (e) the ring
+        fl = _http_status(addr, "/debug/flight?timelines=0")[2]
+        kinds = collections.Counter(e["kind"] for e in fl["events"])
+        want = {"weight_stage", "weight_commit", "drain_begin", "admission_reject"}
+        if want - set(kinds) or fl["role"] != "inference_server":
+            raise AssertionError(f"[observe] (e) flight kinds {dict(kinds)}, role {fl['role']}")
+        log(f"[observe] (e) {card}: flight ring ({fl['role']}, {len(fl['events'])} events, {fl['dropped']} dropped): "
+            + ", ".join(f"{k} {n}" for k, n in sorted(kinds.items())))
+        out["flight"] = dict(kinds)
+
+        # (g) the probe's own cost: one span measured alone
+        tl = kernel_probe.DecodeStepTimeline()
+        n = 200_000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with tl.phase("admission"):
+                pass
+        span_s = (time.perf_counter() - t0) / n
+        per_pass = sum(spans_per_step) / len(spans_per_step)
+        share = per_pass * span_s / ks["total_mean_s"]
+        log(f"[observe] (g) {card}: {per_pass:.2f} probe spans a recorded pass x {span_s * 1e6:.3f} us a span = "
+            f"{per_pass * span_s * 1e6:.2f} us, {share:.4%} of the mean pass ({ks['total_mean_s'] * 1e3:.2f} ms)")
+        out["probe_cost"] = dict(spans_per_pass=per_pass, span_us=span_s * 1e6, share=share)
+
+        summary = engine.drain(5.0)
+        if summary["unterminated_timelines"] != 0 or summary["leaked_pages"] != 0:
+            raise AssertionError(f"[observe] drain: {summary}")
+        out["launches1"], out["launches3"] = paged_attention_stacked.launches, sum(psa.launches.values())
+        if out["launches1"] <= 0:
+            raise AssertionError("[observe] kernel #1 never launched")
+        log(f"[observe] {card}: #1 launches {out['launches1']}, #3 launches {out['launches3']}; drain: 0 "
+            f"unterminated timelines, 0 leaked pages; the phase {time.monotonic() - t_phase:.1f} s")
+    finally:
+        client.destroy()
+        srv.stop()
+        perf_tracer.stop_device_profile()
+        perf_tracer._TRACER = tracer
+        if flight_env is None:
+            os.environ.pop("AREAL_FLIGHT_DIR", None)
+        else:
+            os.environ["AREAL_FLIGHT_DIR"] = flight_env
+        tmp.cleanup()
+    return out
+
+
 def _greedy_divergence(model, prompt: list[int], a: list[int], b: list[int]) -> tuple[int, float, float]:
     """Where two greedy outputs part: the index, and each one's token's logit
     gap to the argmax in a dense prefill of prompt + the common prefix (a
@@ -4951,8 +5353,8 @@ def phase_train_moe(card: str) -> dict:
                 tree=tree)
 
 
-PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "spec", "train",
-          "grpo", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
+PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
+          "train", "grpo", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -5026,6 +5428,7 @@ def main(argv: list[str]) -> int:
         "serve_int8": phase_serve_int8,
         "rollout": lambda: phase_rollout(card, serve=res["serve"][1] if "serve" in res else None),
         "lifecycle": lambda: phase_lifecycle(card),
+        "observe": lambda: phase_observe(card),
         "spec": lambda: phase_spec(card),
         "train": lambda: phase_train(card),
         "grpo": lambda: phase_grpo(card, train=res.get("train")),
@@ -5059,7 +5462,8 @@ def main(argv: list[str]) -> int:
             "replaces": "areal_tpu/ops/paged_attention_q8.py:274",
             "launches": launches,
             "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"],
-                                  "lifecycle": res["lifecycle"]["launches1"], "grpo": res["grpo"]["launches1"]},
+                                  "lifecycle": res["lifecycle"]["launches1"], "observe": res["observe"]["launches1"],
+                                  "grpo": res["grpo"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -5105,7 +5509,8 @@ def main(argv: list[str]) -> int:
         "launches": chain + tree,
         "launches_by_kind": {"chain": chain, "tree": tree},
         "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"],
-                              "lifecycle": res["lifecycle"]["launches3"], "grpo": res["grpo"]["launches3"]},
+                              "lifecycle": res["lifecycle"]["launches3"], "observe": res["observe"]["launches3"],
+                              "grpo": res["grpo"]["launches3"]},
         "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],

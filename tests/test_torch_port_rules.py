@@ -260,4 +260,100 @@ def test_chip_smoke_drives_moe_serving():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    assert {"kernel_gmm", "serve_moe"} <= set(chip_smoke.PHASES)
+    assert {"kernel_gmm", "serve_moe", "observe"} <= set(chip_smoke.PHASES)
+
+
+# -- the decode loop's hot path: no device sync from the observability ------
+
+SYNC_CALLS = {"item", "cpu", "tolist", "numpy", "synchronize"}
+OBS = ROOT / "areal_tpu_torch" / "observability"
+ENGINE = ROOT / "areal_tpu_torch" / "inference" / "decode_engine.py"
+# the engine's observability methods: no device read anywhere in them
+ENGINE_OBS_METHODS = {"_kphase", "_abandon_kstep", "_close_kstep", "kernel_stats", "_register_cost", "hbm_ledger",
+                      "is_wedged"}
+# calls on a timeline / the flight ring / the probe (the mark sites)
+MARK_CALLS = {"mark", "record", "dump", "start", "complete", "begin_step", "complete_step", "abandon_step"}
+MARK_RECEIVERS = ("timeline", "flight", "kprobe")
+TIMELINE_FIELDS = {"fence_stall_s", "fence_stall_pre_first_s", "park_s", "version"}
+
+
+def _sync_calls(node) -> list[tuple[str, int]]:
+    return [
+        (n.func.attr, n.lineno)
+        for n in ast.walk(node)
+        if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) and n.func.attr in SYNC_CALLS
+    ]
+
+
+def _engine_hot_path_faults(source: str) -> list[str]:
+    """Device reads at the engine's observability sites: in its
+    observability methods, in the arguments of a mark site, in a value
+    stored on a timeline; and a ``synchronize`` inside a probe phase other
+    than ``device_wait``."""
+    tree = ast.parse(source)
+    faults = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name in ENGINE_OBS_METHODS:
+            faults += [f"{node.name}: .{a}() line {ln}" for a, ln in _sync_calls(node)]
+        elif (
+            isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and node.func.attr in MARK_CALLS
+            and any(r in ast.unparse(node.func.value) for r in MARK_RECEIVERS)
+        ):
+            faults += [f"mark site line {node.lineno}: .{a}()" for a, _ in _sync_calls(node)]
+        elif isinstance(node, (ast.Assign, ast.AugAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            if any(isinstance(t, ast.Attribute) and t.attr in TIMELINE_FIELDS and "timeline" in ast.unparse(t.value)
+                   for t in targets):
+                faults += [f"timeline field line {node.lineno}: .{a}()" for a, _ in _sync_calls(node.value)]
+        elif isinstance(node, ast.With):
+            for item in node.items:
+                call = item.context_expr
+                if not (isinstance(call, ast.Call) and getattr(call.func, "attr", "") == "_kphase"):
+                    continue
+                phase = call.args[0].value if call.args and isinstance(call.args[0], ast.Constant) else "?"
+                if phase != "device_wait":
+                    faults += [f"phase {phase} line {ln}: .synchronize()" for a, ln in _sync_calls(node)
+                               if a == "synchronize"]
+    return faults
+
+
+@pytest.mark.parametrize("name", ["timeline.py", "kernel_probe.py"])
+def test_hot_observability_modules_never_read_the_device(name):
+    bad = _sync_calls(ast.parse((OBS / name).read_text()))
+    assert not bad, f"{name} calls {bad}"
+
+
+def test_hw_accounting_reads_the_device_only_to_calibrate():
+    tree = ast.parse((OBS / "hw_accounting.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert _sync_calls(fns["calibrate_host_peaks"])  # the init-time measurement
+    bad = {name: _sync_calls(fn) for name, fn in fns.items() if name != "calibrate_host_peaks" and _sync_calls(fn)}
+    assert not bad
+
+
+def test_engine_mark_sites_never_read_the_device():
+    source = ENGINE.read_text()
+    assert not _engine_hot_path_faults(source)
+    # the one allowed wait: _drain's device_wait phase holds the sync
+    tree = ast.parse(source)
+    drain = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == "_drain")
+    waits = [w for w in ast.walk(drain) if isinstance(w, ast.With)
+             and "_kphase('device_wait')" in ast.unparse(w.items[0].context_expr)]
+    assert len(waits) == 1 and [a for a, _ in _sync_calls(waits[0])].count("synchronize") == 1
+
+
+@pytest.mark.parametrize(
+    "snippet",
+    [
+        "def f(self, t):\n    t.timeline.mark('x', n=int(self.x.item()))\n",
+        "def f(self):\n    self.flight.record('evt', n=self.t.tolist())\n",
+        "def f(self, task):\n    task.timeline.fence_stall_s += self.dt.cpu()\n",
+        "def f(self):\n    with self._kphase('bookkeeping'):\n        self.ev.synchronize()\n",
+        "def kernel_stats(self):\n    return self.x.numpy()\n",
+    ],
+)
+def test_hot_path_rule_catches_a_device_read(snippet):
+    assert _engine_hot_path_faults(snippet)
+    assert not _engine_hot_path_faults("def f(self):\n    with self._kphase('device_wait'):\n        e.synchronize()\n")

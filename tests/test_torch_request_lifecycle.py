@@ -200,15 +200,19 @@ def test_watchdog_reaps_stalled_slot(weights):
         assert "r2" not in box and eng._slot_task[1] is fresh
 
 
-def test_wedge_detector(weights):
+def test_wedge_detector(weights, monkeypatch, tmp_path):
     """A stale loop heartbeat + pending work + a live thread is a wedge;
-    an idle, fresh, paused or switched-off detector is not."""
+    an idle, fresh, paused or switched-off detector is not. The first
+    report of a wedge episode dumps the flight ring, once; a wedge that
+    clears re-arms the dump."""
 
     class _AliveThread:
         def is_alive(self):
             return True
 
     for side, make in SIDES:
+        flight_dir = tmp_path / side
+        monkeypatch.setenv("AREAL_FLIGHT_DIR", str(flight_dir))
         eng = make(weights, **LC_KW, lifecycle=(JRequestLifecycleConfig if side == "jax" else RequestLifecycleConfig)(
             engine_stall_escalate_s=1.0))
         task_cls = jde._Task if side == "jax" else tde._Task
@@ -218,8 +222,17 @@ def test_wedge_detector(weights):
         eng._backlog.append(task_cls(req=request(side, [1]), callback=lambda r: None))
         eng._last_loop_ts = time.monotonic() - 30.0
         assert eng.is_wedged(), side
+        dumps = list(flight_dir.glob("flight_*_wedge.json"))
+        assert len(dumps) == 1, side
+        snap = json.loads(dumps[0].read_text())
+        assert snap["dump_reason"] == "wedge" and snap["events"][-1]["kind"] == "wedge"
+        dumps[0].unlink()
+        assert eng.is_wedged()  # one dump an episode, not one a poll
+        assert not list(flight_dir.glob("flight_*_wedge.json"))
         eng._last_loop_ts = time.monotonic()
         assert not eng.is_wedged()
+        eng._last_loop_ts = time.monotonic() - 30.0
+        assert eng.is_wedged() and len(list(flight_dir.glob("flight_*_wedge.json"))) == 1  # re-armed
         eng._last_loop_ts = time.monotonic() - 30.0
         eng._held.set()
         assert not eng.is_wedged()  # a held loop idles by design
