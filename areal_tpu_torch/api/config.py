@@ -4,8 +4,9 @@ marked below). No YAML loader: configs are built in code.
 
 - Serving: ``ServerConfig`` (and ``MeshConfig``, ``PrefixCacheConfig``,
   ``SpeculativeConfig``, ``RequestLifecycleConfig`` and
-  ``PreemptionConfig``). The weights' dtype is the model config's
-  (``models/qwen.py:ModelConfig.dtype``).
+  ``PreemptionConfig``). Weights given in code keep their model config's
+  dtype (``models/qwen.py:ModelConfig.dtype``); weights loaded from
+  ``model_path`` take ``ServerConfig.dtype``.
 - Training: ``NormConfig``, ``OptimizerConfig``, ``TrainEngineConfig`` and
   ``PPOActorConfig``.
 - The rollout client: ``InferenceEngineConfig`` and its fleet and lifecycle
@@ -16,8 +17,7 @@ marked below). No YAML loader: configs are built in code.
   sub-configs they hold (datasets, saver / evaluator / recover, the stats
   logger, cluster, scheduler, launcher, tracers, telemetry, preemption).
   ``PPOConfig`` keeps the JAX package's defaults, ``weight_update_mode=
-  "disk"`` and ``preemption.enabled=True`` among them; ``PPOTrainer``
-  refuses both (``trainer/rl_trainer.py``).
+  "disk"`` and ``preemption.enabled=True`` among them.
 
 Knobs whose code paths have not been ported yet stay here so configs keep
 their shape; ``DecodeEngine._check_supported`` and
@@ -146,11 +146,11 @@ class RequestLifecycleConfig:
 
 @dataclass
 class PreemptionConfig:
-    """Preemption-tolerant lifecycle: SIGTERM drains the trainer after an
-    emergency recover dump (ROADMAP Queue A item 3); the JAX package's
-    default ``enabled=True`` is kept, so a port trainer config sets it to
-    False. The server reads ``drain_budget_s`` as the default budget of
-    ``POST /drain``."""
+    """Preemption-tolerant lifecycle: SIGTERM (or SIGUSR1) makes the
+    trainer stop at the next step boundary, dump the last completed step
+    synchronously and leave ``train`` (``robustness/preemption.py``). The
+    server reads ``drain_budget_s`` as the default budget of ``POST
+    /drain``."""
 
     enabled: bool = True
     grace_s: float = 25.0
@@ -163,6 +163,11 @@ class PreemptionConfig:
 class ServerConfig:
     """Inference server + decode engine settings."""
 
+    # the HF checkpoint a server loads when it is given no weights, and the
+    # dtype it serves them at (weights given in code keep their model
+    # config's dtype)
+    model_path: str = ""
+    dtype: str = "bfloat16"
     max_batch_size: int = 32
     max_seq_len: int = 32768
     page_size: int = 128  # KV page granularity (paged attention)
@@ -244,7 +249,8 @@ class OptimizerConfig:
 
 @dataclass
 class TrainEngineConfig:
-    path: str = ""  # HF model path (loading a checkpoint: not ported)
+    path: str = ""  # HF model path (config.json + safetensors)
+    init_from_scratch: bool = False  # random weights even when path is set
     dtype: str = "bfloat16"  # compute dtype of the forward and backward
     param_dtype: str = "float32"  # master weights and optimizer state
     # "pallas": the hand-written flash-attention kernels (their plain
@@ -260,8 +266,9 @@ class TrainEngineConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     lora_rank: int = 0  # 0 = full fine-tuning (LoRA: not ported)
-    # only "mem" is ported, so it is the default here (the JAX package's
-    # default is "disk", which writes a checkpoint: not ported)
+    # "mem" streams bf16 buckets over HTTP, "disk" exports HF safetensors
+    # that the servers reload. The JAX package defaults to "disk"; the port
+    # keeps "mem", the default its earlier slices were built and measured on
     weight_update_mode: str = "mem"  # disk|mem
     # tree training: merge shared-prefix sequences (GRPO groups) into tries
     # and run forward and backward once per unique node through the tree
@@ -381,7 +388,7 @@ class ChaosConfig:
 
 @dataclass
 class TrajectoryJournalConfig:
-    """The durable trajectory journal (ROADMAP Queue A item 3)."""
+    """The durable trajectory journal (ROADMAP Queue A item 3b)."""
 
     enabled: bool = False
     dir: str = ""
@@ -598,13 +605,13 @@ class InferenceEngineConfig:
         if (lc.gateway_max_inflight, lc.gateway_interactive_headroom) != (0, 0):
             raise NotImplementedError("lifecycle.gateway_* (gateway load shedding): ROADMAP Queue A item 8")
         if self.journal != TrajectoryJournalConfig():
-            raise NotImplementedError("journal (trajectory journal): ROADMAP Queue A item 3")
+            raise NotImplementedError("journal (trajectory journal): ROADMAP Queue A item 3b")
         if self.autopilot != AutopilotConfig():
             raise NotImplementedError("autopilot: ROADMAP Queue A item 8")
         if self.openai is not None:
             raise NotImplementedError("openai (agentic proxy layer): ROADMAP Queue A item 8")
         if self.dump_trajectories:
-            raise NotImplementedError("dump_trajectories: ROADMAP Queue A item 3")
+            raise NotImplementedError("dump_trajectories: ROADMAP Queue A item 3b")
 
 
 

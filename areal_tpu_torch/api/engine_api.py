@@ -3,8 +3,7 @@
 ``dict[str, np.ndarray]`` ("TensorDict"); loss functions follow the
 packed-1D protocol ``loss_fn(model_outputs, packed_input) -> scalar``.
 
-``engine/train_engine.py TorchTrainEngine`` is the port's ``TrainEngine``
-(its ``save`` / ``load`` raise until ROADMAP Queue A item 3);
+``engine/train_engine.py TorchTrainEngine`` is the port's ``TrainEngine``;
 ``inference/client.py RemoteTorchEngine`` is the port's ``InferenceEngine``."""
 
 from __future__ import annotations

@@ -105,13 +105,14 @@ class ModelResponse:
 
 @dataclasses.dataclass
 class WeightUpdateMeta:
-    """How trainer weights reach the servers. Only ``type="mem"`` is
-    ported: the train engine hands its exported state dict to the connected
-    engine (``RemoteTorchEngine.update_weights``: bf16 buckets streamed and
-    staged over HTTP, then one commit; or, in process, a ``DecodeEngine``'s
-    ``update_weights_from_params``). "disk" (write a checkpoint, servers
-    reload it) raises ``NotImplementedError`` (ROADMAP Queue A item 3); the
-    default here is "mem" for that reason (the JAX package defaults to
+    """How trainer weights reach the servers. ``type="mem"``: the train
+    engine hands its exported state dict to the connected engine
+    (``RemoteTorchEngine.update_weights``: bf16 buckets streamed and staged
+    over HTTP, then one commit; or, in process, a ``DecodeEngine``'s
+    ``update_weights_from_params``). ``type="disk"``: the train engine
+    writes an HF checkpoint under ``path`` and the servers reload it
+    (``/update_weights_from_disk``). The default here is "mem", the path
+    the port's earlier slices were built on (the JAX package defaults to
     "disk")."""
 
     type: str = "mem"
@@ -124,10 +125,31 @@ class WeightUpdateMeta:
     wire_format: str = "bf16"
 
 
+# SaveLoadMeta.weight_format of the port's recover state
+RECOVER_FORMAT = "state"
+# where a checkpoint holds that state, and the manifest a complete write
+# ends with (relative to the checkpoint's directory)
+RECOVER_STATE_DIR = "state"
+RECOVER_MANIFEST = "state/manifest.json"
+
+
 @dataclasses.dataclass
 class SaveLoadMeta:
+    """What ``TrainEngine.save`` / ``load`` write and read under ``path``.
+
+    ``weight_format``: "hf", the weights as an HF checkpoint
+    (``model.safetensors`` + ``config.json``); or "state", the port's
+    recover format in place of the JAX package's "orbax": the master
+    parameters (and with ``with_optim`` the AdamW moments and the step
+    count) as ``params`` / ``mu`` / ``nu.safetensors`` under
+    ``<path>/state/``, beside a ``manifest.json`` written last. The files
+    are written under ``<path>/state.tmp/`` and renamed into place, so a
+    rewrite cut short leaves the old state, and a checkpoint without the
+    manifest is incomplete (``RecoverHandler`` falls back past it). A meta
+    asking for "orbax" raises ``ValueError``."""
+
     path: str
-    weight_format: str = "hf"  # "hf" (safetensors export) | "orbax" (sharded)
+    weight_format: str = "hf"  # "hf" | "state"
     with_optim: bool = False
     tokenizer: Any | None = None
     base_model_path: str | None = None

@@ -48,16 +48,37 @@ What is kept from the JAX engine:
   (``observability/step_timeline.engine_phase``), and ``hbm_ledger``
   itemizes the parameters and optimizer state beside the card's memory.
 
+- Durable state (``train_engine.py:1430-1588``): ``initialize`` loads
+  ``TrainEngineConfig.path`` (an HF checkpoint, ``models/hf.py``) at
+  ``param_dtype`` unless ``init_from_scratch``; ``save`` / ``load`` take
+  ``weight_format="hf"`` (the exported weights) or ``"state"``, the port's
+  recover format in place of JAX's Orbax one: the master parameters, the
+  AdamW moments and the step count as safetensors files under
+  ``<path>/state/`` beside a JSON manifest written last (all in
+  ``state.tmp/``, renamed into place). ``snapshot_for_save``
+  / ``write_snapshot`` split an asynchronous save (``Saver.save_async``):
+  the snapshot copies the state into pinned host buffers (allocated once) on
+  a side stream and returns without waiting, and the next optimizer step
+  waits for that stream's event on the device before it mutates anything,
+  so the snapshot is the state of one step even though torch updates in
+  place. ``update_weights`` of type "disk" exports the weights as HF
+  safetensors (``v<N>`` directories under ``with_version``) and has the
+  connected engine reload them. ``offload`` / ``onload`` move the
+  parameters and moments to pinned host memory and back.
+
 Not ported (``_check_supported`` raises ``NotImplementedError``): LoRA,
-the vision tower, a critic / value head, multi-device meshes and
-``weight_update_mode="disk"``; ``save`` and ``load`` raise (ROADMAP Queue A
-item 3); also offloading and per-sequence loss attribution.
+the vision tower, a critic / value head (ROADMAP Queue A item 3c) and
+multi-device meshes; also per-sequence loss attribution.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 import math
+import os
+import shutil
 import threading
 import time
 from typing import Callable
@@ -67,16 +88,30 @@ import torch
 
 from areal_tpu_torch.api.config import MicroBatchSpec, OptimizerConfig, TrainEngineConfig
 from areal_tpu_torch.api.engine_api import TrainEngine
-from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
+from areal_tpu_torch.api.io_struct import (RECOVER_FORMAT, RECOVER_MANIFEST, RECOVER_STATE_DIR, FinetuneSpec,
+                                           SaveLoadMeta, WeightUpdateMeta)
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.models import qwen
+from areal_tpu_torch.models.hf import load_params_from_hf, save_params_to_hf
 from areal_tpu_torch.observability import step_timeline
 from areal_tpu_torch.observability.step_timeline import engine_phase
 from areal_tpu_torch.models import tree as tree_lib
 from areal_tpu_torch.ops.attention import resolve_impl
 from areal_tpu_torch.ops.tree_attention import BLOCK, forest_hidden, pack_ancestor_bits
+from areal_tpu_torch.utils import atomic_io
 from areal_tpu_torch.utils.data import TensorDict, round_up_to_bucket, seqlens_of
 from areal_tpu_torch.utils.grid import Grid, pack_grid
+from areal_tpu_torch.utils.offload import offload_tensors, onload_tensors
+from areal_tpu_torch.utils.safetensors_io import SafetensorsFile, save_file
+
+logger = logging.getLogger("areal_tpu_torch.train_engine")
+
+
+def _check_recover_format(fmt: str) -> None:
+    if fmt == "orbax":
+        raise ValueError(f"the port keeps its recover state in the {RECOVER_FORMAT!r} format, not 'orbax'")
+    if fmt != RECOVER_FORMAT:
+        raise ValueError(f"unknown weight_format {fmt!r}; valid: hf|{RECOVER_FORMAT}")
 
 # per-token keys that ship to device grids (everything else stays on host)
 _GRID_KEYS = (
@@ -226,6 +261,15 @@ class TorchTrainEngine(TrainEngine):
         self._lr_schedule = None
         self._inference_engine = None
         self._weight_update_meta: WeightUpdateMeta | None = None
+        # the asynchronous save: pinned host buffers of the snapshot (reused),
+        # the side stream that fills them and its event, and a flag that is
+        # clear while a snapshot waits to be written
+        self._snap_bufs: dict[str, dict[str, torch.Tensor]] | None = None
+        self._save_stream = None
+        self._save_event = None
+        self._snap_free = threading.Event()
+        self._snap_free.set()
+        self._offload_mode: str | None = None
 
     @staticmethod
     def _check_supported(
@@ -233,42 +277,37 @@ class TorchTrainEngine(TrainEngine):
     ) -> None:
         """Refuse the options whose code paths are later slices of the port
         (ROADMAP.md Queue A)."""
-        if cfg.path:
-            raise NotImplementedError(
-                "loading an HF checkpoint (TrainEngineConfig.path) waits for a checkpoint in "
-                "the repository (ROADMAP Queue A); pass model_config"
-            )
         if cfg.tree_training and value_head:
             raise NotImplementedError(
                 "tree training is a policy-only path, as in the JAX engine (critics: ROADMAP "
-                "Queue A, trainer (critic))"
+                "Queue A item 3c)"
             )
         if cfg.lora_rank > 0:
             raise NotImplementedError("LoRA: ROADMAP Queue A, LoRA and int8 weight serving")
         if cfg.train_vision_tower:
             raise NotImplementedError("vision tower: ROADMAP Queue A, vision")
         if value_head:
-            raise NotImplementedError("critic / value head: ROADMAP Queue A, trainer (critic)")
+            raise NotImplementedError("critic / value head: ROADMAP Queue A item 3c")
         m = cfg.mesh
         if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
             raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
-        if cfg.weight_update_mode != "mem":
-            raise NotImplementedError(
-                f"weight_update_mode={cfg.weight_update_mode!r}: only 'mem' is ported "
-                "(disk updates: ROADMAP Queue A, trainer)"
-            )
+        if cfg.weight_update_mode not in ("disk", "mem"):
+            raise ValueError(f"weight_update_mode={cfg.weight_update_mode!r}; valid: disk|mem")
         if cfg.optimizer.type != "adamw":
             raise ValueError(f"optimizer {cfg.optimizer.type!r}: only adamw")
         resolve_impl(cfg.attn_impl)  # raises on "ring" and unknown names
 
     # -- lifecycle --------------------------------------------------------
     def initialize(self, ft_spec: FinetuneSpec | None = None, seed: int = 0) -> None:
-        """Random f32 master parameters from ``seed`` (loading an HF
-        checkpoint waits for a checkpoint in the repository) and zeroed
-        optimizer state."""
+        """Master parameters at ``param_dtype``: loaded from the HF checkpoint
+        at ``config.path``, or random from ``seed`` when there is no path
+        or ``init_from_scratch``; and zeroed optimizer state. The model
+        config is ``model_config``, else the checkpoint's ``config.json``."""
         cfg = self.config
         if self._model_config is None:
-            raise ValueError("model_config is required (loading a checkpoint is not ported)")
+            if not cfg.path:
+                raise ValueError("TrainEngineConfig.path or model_config is required")
+            self._model_config = qwen.ModelConfig.from_hf_path(cfg.path)
         # logit temperature of the logprob / entropy heads (PPOActorConfig's;
         # 1.0 for a plain TrainEngineConfig)
         self._logit_temperature = float(getattr(cfg, "temperature", 1.0))
@@ -280,8 +319,13 @@ class TorchTrainEngine(TrainEngine):
             attn_impl=cfg.attn_impl,
         )
         master_cfg = dataclasses.replace(self.model_cfg, dtype=cfg.param_dtype)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.model = qwen.init_params(master_cfg, gen, device=self.device)
+        if cfg.init_from_scratch or not cfg.path:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.model = qwen.init_params(master_cfg, gen, device=self.device)
+        else:
+            t0 = time.monotonic()
+            self.model, _ = load_params_from_hf(cfg.path, master_cfg, device=self.device)
+            logger.info(f"loaded HF weights from {cfg.path} in {time.monotonic() - t0:.1f}s")
         self.model.requires_grad_(True)
         total_steps = ft_spec.total_train_steps if ft_spec else 10_000
         self._lr_schedule = make_lr_schedule(cfg.optimizer, total_steps)
@@ -560,6 +604,7 @@ class TorchTrainEngine(TrainEngine):
         self.zero_grad()
         agg, gnorm = self._compute_grads(input_, loss_fn, loss_weight_fn, mb_spec)
         with engine_phase("optimizer"):
+            self._order_after_snapshot()
             self._opt.step(self._grads(), gnorm)
             self.zero_grad()
         agg["lr"] = float(self._lr_schedule(step_before))
@@ -633,22 +678,38 @@ class TorchTrainEngine(TrainEngine):
         return self._inference_engine.rollout_batch(*args, **kwargs)
 
     def update_weights(self, meta: WeightUpdateMeta | None = None) -> None:
-        """Push the master weights to the connected engine (mem mode). An
-        ``InferenceEngine`` gets ``update_weights(meta, params=state dict)``,
-        as in ``areal_tpu/engine/train_engine.py:1479``; its client picks
-        the version. An in-process ``DecodeEngine`` gets
+        """Push the master weights to the connected engine.
+
+        "mem": an ``InferenceEngine`` gets ``update_weights(meta, params=state
+        dict)``, as in ``areal_tpu/engine/train_engine.py:1479``, and its
+        client picks the version; an in-process ``DecodeEngine`` gets
         ``update_weights_from_params`` at its version + 1 when
-        ``meta.with_version``."""
+        ``meta.with_version``. "disk" (``train_engine.py:1468``): the weights
+        go to ``meta.path`` as an HF checkpoint (under ``v<version>`` when
+        ``meta.with_version``), then an ``InferenceEngine`` gets
+        ``update_weights`` with that path, or an in-process engine
+        ``update_weights_from_disk``."""
         meta = meta or self._weight_update_meta
         if meta is None:
             raise ValueError("no WeightUpdateMeta configured")
-        if meta.type != "mem":
-            raise NotImplementedError(
-                f"weight update type {meta.type!r}: only 'mem' is ported (ROADMAP Queue A item 3)"
-            )
+        if meta.type not in ("mem", "disk"):
+            raise NotImplementedError(f"weight update type {meta.type!r}")
         if meta.lora_only:
             raise NotImplementedError("LoRA weight updates: ROADMAP Queue A item 4")
         eng = self._inference_engine
+        if meta.type == "disk":
+            if not meta.path:
+                raise ValueError("a disk weight update needs meta.path")
+            path = os.path.join(meta.path, f"v{self.get_version()}") if meta.with_version else meta.path
+            save_params_to_hf(self._export_params(), self.model_cfg, path, base_model_path=self.config.path)
+            if eng is None:
+                return
+            if hasattr(eng, "update_weights_from_disk"):  # the in-process join
+                version = eng.get_version() + 1 if meta.with_version else eng.get_version()
+                eng.update_weights_from_disk(path, version=version)
+            else:
+                eng.update_weights(dataclasses.replace(meta, path=path))
+            return
         if eng is None:
             raise RuntimeError("no engine connected (connect_engine)")
         if hasattr(eng, "update_weights_from_params"):  # the in-process join
@@ -661,11 +722,188 @@ class TorchTrainEngine(TrainEngine):
         """The master parameters as a state dict (detached views, no copy)."""
         return {name: p.detach() for name, p in self.model.named_parameters()}
 
-    def save(self, meta) -> None:
-        raise NotImplementedError("saving checkpoints: ROADMAP Queue A item 3")
+    # -- durable state ------------------------------------------------------
+    def _state_groups(self, with_optim: bool) -> dict[str, dict[str, torch.Tensor]]:
+        """The recover state by file: the master parameters, and with
+        ``with_optim`` the AdamW moments under the same names."""
+        params = {n: p.detach() for n, p in self.model.named_parameters()}
+        groups = {"params": params}
+        if with_optim and self._opt is not None:
+            groups["mu"] = dict(zip(params, self._opt.mu))
+            groups["nu"] = dict(zip(params, self._opt.nu))
+        return groups
 
-    def load(self, meta) -> None:
-        raise NotImplementedError("loading checkpoints: ROADMAP Queue A item 3")
+    def _write_state(self, path: str, groups: dict, step_count: int) -> int:
+        """The "state" format under ``<path>/state/``: one safetensors file a
+        group, fsynced, then the manifest, all in ``state.tmp/``, which is
+        then renamed into place. A write cut short leaves the old state
+        whole; only a cut between the two renames of a rewrite leaves no
+        manifest, which no load accepts. Returns the bytes written."""
+        d = os.path.join(path, RECOVER_STATE_DIR)
+        tmp, old = d + ".tmp", d + ".old"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        nbytes = 0
+        for group, tensors in groups.items():
+            entries = [(n, t.dtype, list(t.shape), t) for n, t in tensors.items()]
+            nbytes += save_file(entries, os.path.join(tmp, f"{group}.safetensors"), do_fsync=True)
+        manifest = {
+            "format": RECOVER_FORMAT,
+            "version": 1,
+            "step_count": int(step_count),
+            "groups": sorted(groups),
+        }
+        atomic_io.atomic_write_text(os.path.join(tmp, os.path.basename(RECOVER_MANIFEST)), json.dumps(manifest))
+        if os.path.exists(d):
+            shutil.rmtree(old, ignore_errors=True)
+            os.replace(d, old)
+            os.replace(tmp, d)
+            shutil.rmtree(old)
+        else:
+            os.replace(tmp, d)
+        atomic_io.fsync_dir(path)
+        return nbytes
+
+    def snapshot_for_save(self, with_optim: bool = True) -> dict:
+        """The step-loop part of an asynchronous save: copy the state into
+        pinned host buffers (allocated at the first snapshot, reused after)
+        on a side stream ordered after the work queued so far, and return
+        without waiting for the copies. The next optimizer step waits for
+        them on the device (``_order_after_snapshot``); ``write_snapshot``
+        waits for them on the host. A snapshot's buffers are busy until it
+        is written, so the next snapshot waits for that write."""
+        if not self._snap_free.wait(timeout=3600):
+            raise RuntimeError("the previous snapshot was never written (write_snapshot)")
+        groups = self._state_groups(with_optim)
+        cuda = self.device.type == "cuda"
+        if self._snap_bufs is None or any(
+            g not in self._snap_bufs or self._snap_bufs[g].keys() != ts.keys() for g, ts in groups.items()
+        ):
+            self._snap_bufs = {
+                g: {n: torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda) for n, t in ts.items()}
+                for g, ts in groups.items()
+            }
+        bufs = {g: self._snap_bufs[g] for g in groups}
+        event = None
+        if cuda:
+            if self._save_stream is None:
+                self._save_stream = torch.cuda.Stream(self.device)
+            self._save_stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.no_grad(), torch.cuda.stream(self._save_stream):
+                for g, ts in groups.items():
+                    for n, t in ts.items():
+                        bufs[g][n].copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._save_stream)
+            self._save_event = event
+        else:
+            with torch.no_grad():
+                for g, ts in groups.items():
+                    for n, t in ts.items():
+                        bufs[g][n].copy_(t)
+        self._snap_free.clear()
+        count = self._opt.count if self._opt is not None else 0
+        return {"groups": bufs, "step_count": count, "event": event}
+
+    def write_snapshot(self, snapshot: dict, path: str) -> int:
+        """Write a ``snapshot_for_save`` in the "state" format ``load``
+        restores; runs on the saver's thread and touches no engine state
+        but the snapshot's buffers, which it frees for the next snapshot."""
+        try:
+            if snapshot["event"] is not None:
+                snapshot["event"].synchronize()
+            return self._write_state(path, snapshot["groups"], snapshot["step_count"])
+        finally:
+            self._snap_free.set()
+
+    def _order_after_snapshot(self) -> None:
+        """Make the device's next in-place update wait for a snapshot's
+        copies (a stream wait: the host does not block)."""
+        ev = self._save_event
+        if ev is not None:
+            torch.cuda.current_stream(self.device).wait_event(ev)
+            self._save_event = None
+
+    def wait_for_save(self) -> None:
+        """Block until a snapshot's copies have landed in host memory."""
+        ev, self._save_event = self._save_event, None
+        if ev is not None:
+            ev.synchronize()
+
+    def save(self, meta: SaveLoadMeta) -> None:
+        """``weight_format="hf"``: the weights as an HF checkpoint (config and
+        tokenizer files from ``meta.base_model_path`` or ``config.path``).
+        ``"state"``: the recover format, a snapshot written before this
+        returns (the asynchronous save's two halves back to back)."""
+        if meta.weight_format == "hf":
+            save_params_to_hf(
+                self._export_params(), self.model_cfg, meta.path,
+                base_model_path=meta.base_model_path or self.config.path,
+            )
+        else:
+            _check_recover_format(meta.weight_format)
+            self.write_snapshot(self.snapshot_for_save(meta.with_optim), meta.path)
+
+    def load(self, meta: SaveLoadMeta) -> None:
+        """Load ``save``'s output in place. "state" restores the master
+        parameters and, with ``meta.with_optim``, the moments and the step
+        count, so the LR schedule and Adam's bias correction go on where
+        they stopped. Every name and shape is checked before the first
+        copy."""
+        self.wait_for_save()
+        if meta.weight_format == "hf":
+            load_params_from_hf(meta.path, model=self.model)
+            return
+        _check_recover_format(meta.weight_format)
+        d = os.path.join(meta.path, RECOVER_STATE_DIR)
+        with open(os.path.join(meta.path, RECOVER_MANIFEST)) as f:
+            manifest = json.load(f)
+        if manifest.get("format") != RECOVER_FORMAT:
+            raise ValueError(f"{d}: manifest format {manifest.get('format')!r}")
+        want = ["params"] + (["mu", "nu"] if meta.with_optim and self._opt is not None else [])
+        missing = [g for g in want if g not in manifest["groups"]]
+        if missing:
+            raise ValueError(f"{d} holds no {missing}")
+        groups = self._state_groups(meta.with_optim)
+        files = {g: SafetensorsFile(os.path.join(d, f"{g}.safetensors")) for g in want}
+        for g in want:
+            f = files[g]
+            if set(f.keys()) != set(groups[g]):
+                raise ValueError(f"{d}/{g}: names differ from the model's")
+            for n, t in groups[g].items():
+                if f.info(n) != (t.dtype, list(t.shape)):
+                    raise ValueError(f"{d}/{g}: {n} is {f.info(n)}, the model's {t.dtype}{list(t.shape)}")
+        with torch.no_grad():
+            for g in want:
+                for n, t in groups[g].items():
+                    t.copy_(files[g].get(n))
+        if meta.with_optim and self._opt is not None:
+            self._opt.count = int(manifest["step_count"])
+
+    def offload(self) -> None:
+        """Move the master parameters and the optimizer moments to pinned
+        host memory (``train_engine.py:436``); ``onload`` brings them back.
+        On the CPU there is nothing to free."""
+        if self.model is None or self._offload_mode is not None:
+            return
+        self.wait_for_save()
+        t0 = time.monotonic()
+        self._offload_mode = offload_tensors(self._offload_targets())
+        logger.info(f"offloaded params + optimizer state ({self._offload_mode}) in {time.monotonic() - t0:.2f}s")
+
+    def onload(self) -> None:
+        if self._offload_mode is None:
+            return
+        t0 = time.monotonic()
+        onload_tensors(self._offload_targets(), self.device)
+        self._offload_mode = None
+        logger.info(f"onloaded params + optimizer state in {time.monotonic() - t0:.2f}s")
+
+    def _offload_targets(self) -> list[torch.Tensor]:
+        ts = list(self.model.parameters())
+        if self._opt is not None:
+            ts += self._opt.mu + self._opt.nu
+        return ts
 
     def hbm_ledger(self, override_hbm_gb: float | None = None) -> dict:
         """Itemized device memory of this engine: the parameters and the

@@ -32,11 +32,14 @@ i+1 encodes on one persistent encoder thread while bucket i is in flight),
 then commits it inside the fence ``weight_commit_fence`` names: "hold"
 (the decode loop idles one commit round trip and aborts nothing), "abort"
 (the full pause) or "none". The version it commits is the client's + 1.
+``update_weights`` of type "disk" posts ``/update_weights_from_disk`` with
+the trainer's checkpoint directory inside the same fence.
 
 Later slices: more than one address, routing policies, the retry budget,
 circuit breakers, the fleet probe, the weight-broadcast relay and the
 failover of a draining server's 429 (ROADMAP Queue A item 8); the q8 wire
-and LoRA updates (item 4); disk updates (item 3); images (item 5).
+and LoRA updates (item 4); the trajectory journal (item 3b); images (item
+5).
 """
 
 from __future__ import annotations
@@ -690,7 +693,8 @@ class RemoteTorchEngine(InferenceEngine):
         if meta.lora_only:
             raise NotImplementedError("LoRA weight updates: ROADMAP Queue A item 4")
         if meta.type == "disk":
-            raise NotImplementedError("weight updates from disk: ROADMAP Queue A item 3")
+            self._update_weights_from_disk(meta)
+            return
         if meta.type != "mem":
             raise NotImplementedError(meta.type)
         if meta.wire_format == "q8":
@@ -730,7 +734,26 @@ class RemoteTorchEngine(InferenceEngine):
         gen_tokens = sum(int(r.get("tokens_during_update", 0) or 0) for r in replies)
         self._finish_update(version, stage_secs, time.monotonic() - t1, gen_tokens)
 
-    def _finish_update(self, version: int, stage_secs: float, pause_secs: float, gen_tokens: int) -> None:
+    def _update_weights_from_disk(self, meta: WeightUpdateMeta) -> None:
+        """Every server reloads the checkpoint the trainer wrote at
+        ``meta.path`` (``client.py:1195``). The reload runs inside each
+        engine's apply path, which blocks its decode loop for the whole
+        load, so the fence covers it all and its window is the
+        availability gap; there is no staging to split out."""
+        if not meta.path:
+            raise ValueError("a disk weight update needs meta.path")
+        if self.config.weight_update_relay:
+            raise NotImplementedError("the weight-broadcast relay: ROADMAP Queue A item 8")
+        version = self._version + 1 if meta.with_version else self._version
+        targets = list(self.addresses)
+        t0 = time.monotonic()
+        with self._commit_fence(targets):
+            for a in targets:
+                self._post_json_one(a, "/update_weights_from_disk", {"path": meta.path, "version": version})
+        self._finish_update(version, 0.0, time.monotonic() - t0, 0, kind="disk")
+
+    def _finish_update(self, version: int, stage_secs: float, pause_secs: float, gen_tokens: int,
+                       kind: str = "mem") -> None:
         self.last_stage_secs = stage_secs
         self.last_pause_secs = pause_secs
         self.last_update_gen_tokens = gen_tokens
@@ -741,7 +764,7 @@ class RemoteTorchEngine(InferenceEngine):
         if gen_tokens:
             self._metrics.tokens_during_update.inc(gen_tokens)
         logger.info(
-            f"weight update v{version}: staged {stage_secs:.2f}s (unpaused), commit fence "
+            f"weight update ({kind}) v{version}: staged {stage_secs:.2f}s (unpaused), commit fence "
             f"{pause_secs:.2f}s, {gen_tokens} tokens generated during the update"
         )
         self._version = version

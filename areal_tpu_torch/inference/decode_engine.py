@@ -89,9 +89,16 @@ The shape of the JAX engine is kept:
   ``hbm_ledger`` itemizes the device memory. None of it reads a device
   tensor or synchronizes on the loop.
 
+- Weights from disk: with no ``params``, ``initialize`` loads the HF
+  checkpoint at ``ServerConfig.model_path`` at ``ServerConfig.dtype``,
+  straight onto the card one tensor at a time (``models/hf.py``);
+  ``update_weights_from_disk`` reloads a trainer's export through the same
+  apply site as ``update_weights_from_params`` (``decode_engine.py:1605``),
+  in place, under the same version, parking and radix-flush rules.
+
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
-int8 weights, image inputs, multi-device meshes and loading HF checkpoints.
-Also not ported: LoRA and int8 weight updates (item 4).
+int8 weights, image inputs and multi-device meshes. Also not ported: LoRA
+and int8 weight updates (item 4).
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -105,7 +112,7 @@ import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable
 
 import numpy as np
@@ -118,6 +125,7 @@ from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
 from areal_tpu_torch.inference import speculative as spec_mod
 from areal_tpu_torch.models import qwen
+from areal_tpu_torch.models.hf import load_params_from_hf
 from areal_tpu_torch.observability import catalog as obs_catalog
 from areal_tpu_torch.observability import hw_accounting as hw
 from areal_tpu_torch.observability import kernel_probe
@@ -428,11 +436,14 @@ class DecodeEngine:
     def initialize(self) -> None:
         cfg = self.config
         if self.params is None:
-            raise NotImplementedError(
-                "loading weights from an HF checkpoint waits for a checkpoint in "
-                "the repository; pass params (and model_cfg with a state dict)"
-            )
-        if isinstance(self.params, qwen.QwenModel) and self.params.device == self.device:
+            if not cfg.model_path:
+                raise ValueError("ServerConfig.model_path or params is required")
+            t0 = time.monotonic()
+            mcfg = qwen.ModelConfig.from_hf_path(cfg.model_path)
+            mcfg = replace(mcfg, dtype=cfg.dtype, remat=False)
+            self.model, self.model_cfg = load_params_from_hf(cfg.model_path, mcfg, device=self.device)
+            logger.info(f"loaded {cfg.model_path} in {time.monotonic() - t0:.1f}s")
+        elif isinstance(self.params, qwen.QwenModel) and self.params.device == self.device:
             self.model = self.params
             self.model_cfg = self.model.cfg
         else:
@@ -991,6 +1002,14 @@ class DecodeEngine:
         decode loop has applied them."""
         self._run_weight_update(("params", params), version)
 
+    def update_weights_from_disk(self, path: str, version: int | None = None) -> None:
+        """Reload the weights from the HF checkpoint at ``path`` between
+        chunks, in place (every name and shape checked first: a checkpoint
+        that does not fit raises and changes no weight); tokens of later
+        chunks carry ``version``. The loop is blocked for the whole load, as
+        in the JAX engine. Blocks until applied."""
+        self._run_weight_update(("disk", path), version)
+
     def _run_weight_update(self, payload: tuple, version: int | None) -> None:
         """Hand ``payload`` to the decode loop and wait until it applied it
         (applied here when the loop is not running); re-raises its error."""
@@ -1024,6 +1043,8 @@ class DecodeEngine:
                 # chunk in flight, which keeps reading the old weights
                 if kind == "params":
                     load_params(self.model, params)
+                elif kind == "disk":
+                    load_params_from_hf(params, model=self.model)
                 else:
                     self._copy_staged(params)
                 if version is not None:

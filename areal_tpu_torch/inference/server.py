@@ -14,10 +14,15 @@ that is not a number), ``/generate``, ``/abort_request``, ``/pause_generation``
 once the decode loop drained its in-flight chunk), ``/continue_generation``,
 ``/set_version``, ``/flush_prefix_cache``, ``/drain``, ``/undrain``,
 ``/autopilot/knobs``, ``/release_memory_occupation``,
-``/resume_memory_occupation``, and the streamed weight update
-``/update_weights_{begin,bucket,commit,abort}``. Request and response JSON
-match the JAX server's (``_req_from_json``, ``h_generate``, ``h_metrics``,
-``h_statusz``, ``h_debug_flight``, ``h_debug_profile``, ``h_drain``,
+``/resume_memory_occupation``, the streamed weight update
+``/update_weights_{begin,bucket,commit,abort}``, the reload of an HF
+checkpoint ``/update_weights_from_disk`` (``{"path", "version"}`` in,
+``{"status", "version"}`` out) and the whole-model
+``/update_weights_from_tensors`` (an npz body: the port's parameter names,
+or the JAX package's "/"-joined paths of stacked layers, with an optional
+``__version__``). Request and response JSON match the JAX server's
+(``_req_from_json``, ``h_generate``, ``h_metrics``, ``h_statusz``,
+``h_debug_flight``, ``h_debug_profile``, ``h_drain``,
 ``h_autopilot_knobs``, ``h_update_*``).
 
 ``/generate`` runs the request lifecycle's HTTP half: the engine's admission
@@ -30,16 +35,17 @@ disconnects while its request runs cancels the rid. A bucket's body is the
 JAX package's byte layout (``encode_weight_bucket``), read into one host
 buffer with ``readinto`` and staged from views of it.
 
-``/update_weights_lora`` (ROADMAP Queue A item 4), ``/update_weights_from_disk``
-and ``/update_weights_from_tensors`` (item 3) and the relay header (item 8)
-answer with an error naming their item. There is no command line entry
-yet: it needs the HF checkpoint loader, which waits for a checkpoint in the
-repository; build the engine with weights in code. ``ServerThread`` started
-from the main thread arms the flight ring's SIGTERM dump.
+``/update_weights_lora`` (ROADMAP Queue A item 4) and the relay header
+(item 8) answer with an error naming their item. There is no command line
+entry yet (with it comes the server's SIGTERM drainer, ROADMAP Queue A
+item 7 or 8): build the engine in code, with weights or with
+``ServerConfig.model_path``. ``ServerThread`` started from the main thread
+arms the flight ring's SIGTERM dump.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import logging
 import random
@@ -51,12 +57,14 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
 import torch
 
 from areal_tpu_torch.api.config import ServerConfig
 from areal_tpu_torch.api import io_struct, wire
 from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
 from areal_tpu_torch.inference.decode_engine import DecodeEngine
+from areal_tpu_torch.models import convert
 from areal_tpu_torch.observability import catalog, hw_accounting, tracecontext
 from areal_tpu_torch.observability import timeline as tl_mod
 from areal_tpu_torch.observability.metrics import get_registry
@@ -116,11 +124,19 @@ def _refuse(what: str):
 # weight-update routes of the JAX server that wait for later slices
 _UNPORTED_ROUTES = {
     "/update_weights_lora": _refuse("LoRA weight updates: ROADMAP Queue A item 4"),
-    "/update_weights_from_disk": _refuse("weight updates from disk: ROADMAP Queue A item 3"),
-    "/update_weights_from_tensors": _refuse(
-        "the whole-model npz weight update: ROADMAP Queue A item 3 (the streamed update replaces it)"
-    ),
 }
+
+
+def _unflatten(flat: dict) -> dict:
+    """``{"a/b": v}`` -> ``{"a": {"b": v}}`` (``server.py:843``)."""
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return out
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -192,6 +208,10 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ConnectionResetError(f"body ended after {got} of {len(view)} bytes")
             got += n
 
+    def _raw_body(self) -> bytes:
+        n = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(n) if n else b""
+
     def _h_bucket(self) -> tuple[int, dict]:
         app = self.server.app
         # a failure may leave the body half read: never reuse the connection
@@ -230,16 +250,21 @@ class _Handler(BaseHTTPRequestHandler):
             "/update_weights_begin": app.h_update_begin,
             "/update_weights_commit": app.h_update_commit,
             "/update_weights_abort": app.h_update_abort,
+            "/update_weights_from_disk": app.h_update_disk,
             "/debug/profile": lambda d: app.h_debug_profile(urllib.parse.parse_qs(query)),
         }.get(path)
         if path in _UNPORTED_ROUTES:
             route = _UNPORTED_ROUTES[path]
-        if route is None and path != "/update_weights_bucket":
+        raw_routes = {
+            "/update_weights_bucket": lambda _: self._h_bucket(),
+            "/update_weights_from_tensors": lambda _: app.h_update_tensors(self._raw_body()),
+        }
+        if route is None and path not in raw_routes:
             self._send(404, {"status": "error", "error": f"no route {path}"})
             return
         if route is None:
-            # raw octet-stream body: a handler of its own, no JSON parse
-            route, body = (lambda _: self._h_bucket()), None
+            # a raw body: a handler of its own, no JSON parse
+            route, body = raw_routes[path], None
         else:
             try:
                 body = self._body()
@@ -572,6 +597,36 @@ class InferenceServer:
         """Drop a partially staged update."""
         self.engine.abort_staged_update()
         return 200, {"status": "ok"}
+
+    def h_update_disk(self, d: dict) -> tuple[int, dict]:
+        """Reload the weights from the HF checkpoint at ``path``
+        (``server.py:585``); blocks until the decode loop applied it."""
+        if not d.get("path"):
+            raise ValueError("/update_weights_from_disk needs a path")
+        version = d.get("version")
+        self.engine.update_weights_from_disk(d["path"], int(version) if version is not None else None)
+        return 200, {"status": "ok", "version": self.engine.get_version()}
+
+    def h_update_tensors(self, body: bytes) -> tuple[int, dict]:
+        """The whole model in one npz body (``server.py:593``) under the JAX
+        package's paths ("layers/wq", stacked layers), converted by
+        ``models/convert.py``; ``__version__`` tags later tokens."""
+        try:
+            loaded = np.load(io.BytesIO(body), allow_pickle=False)
+        except (ValueError, OSError) as e:
+            raise ValueError(f"/update_weights_from_tensors: not an npz body ({e})") from e
+        version = None
+        flat = {}
+        for k in loaded.files:
+            if k == "__version__":
+                version = int(loaded[k])
+            else:
+                flat[k] = loaded[k]
+        params = _unflatten(flat)
+        if not isinstance(params.get("layers"), dict):
+            raise ValueError("/update_weights_from_tensors: the body holds no JAX-layout layers/... arrays")
+        self.engine.update_weights_from_params(convert.from_jax_params(params, self.engine.model_cfg), version)
+        return 200, {"status": "ok", "version": self.engine.get_version()}
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> None:

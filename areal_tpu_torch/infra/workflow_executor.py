@@ -8,11 +8,16 @@ accounting into a results buffer; a failed episode is relaunched, then
 quarantined. ``prepare_batch`` keeps the pipeline full from an endless
 cycle over the dataloader: the core of asynchronous RL.
 
+``set_interrupt`` aliases the preemption handler's event into the
+blocking waits: once it is set, ``wait``, ``wait_for_task`` and
+``prepare_batch`` raise ``RolloutInterrupted`` instead of waiting out their
+timeout.
+
 Not ported here: the trajectory journal and trajectory dumps
-(``attach_journal`` / ``replay_from_journal`` / ``set_interrupt`` and
-``dump_trajectories`` raise, ROADMAP Queue A item 3), the lineage ring
-(the JAX executor stamps a ``lineage_id`` per sequence; item 3) and the
-completion callback (``set_completion_callback`` raises, item 8).
+(``attach_journal`` / ``replay_from_journal`` and ``dump_trajectories``
+raise, ROADMAP Queue A item 3b), the lineage ring (the JAX executor stamps
+a ``lineage_id`` per sequence; item 3b) and the completion callback
+(``set_completion_callback`` raises, item 8).
 """
 
 from __future__ import annotations
@@ -43,6 +48,12 @@ from areal_tpu_torch.utils.data import (
 )
 
 logger = logging.getLogger("areal_tpu_torch.workflow_executor")
+
+
+class RolloutInterrupted(RuntimeError):
+    """A blocking rollout wait was interrupted (the preemption drain): the
+    trainer's step aborts instead of waiting out the request timeout, which
+    is far longer than the grace window."""
 
 
 def check_trajectory_format(traj: TensorDict) -> None:
@@ -133,6 +144,9 @@ class WorkflowExecutor:
         self._obs = catalog.executor_metrics()
         self._robust = catalog.robustness_metrics()
         self._inflight = 0  # launched, not yet completed (dispatcher-only)
+        # the preemption handler's event: once set, blocking waits raise
+        # RolloutInterrupted
+        self._interrupt: threading.Event | None = None
 
     # -- lifecycle --------------------------------------------------------
     def initialize(self) -> None:
@@ -153,15 +167,25 @@ class WorkflowExecutor:
     def resume(self) -> None:
         self._paused.clear()
 
-    # -- preemption / durability hooks (ROADMAP Queue A item 3) -----------
-    def set_interrupt(self, event) -> None:
-        raise NotImplementedError("the preemption drain: ROADMAP Queue A item 3")
+    # -- preemption / durability hooks ------------------------------------
+    def set_interrupt(self, event: threading.Event | None) -> None:
+        """Alias an external event (the PreemptionHandler's ``requested``)
+        into the blocking waits: once it is set, they raise
+        ``RolloutInterrupted`` instead of blocking out their timeout (the
+        signal handler itself only sets the event)."""
+        self._interrupt = event
+        with self._cv:
+            self._cv.notify_all()
+
+    def _check_interrupt(self) -> None:
+        if self._interrupt is not None and self._interrupt.is_set():
+            raise RolloutInterrupted("rollout wait interrupted (preemption drain in progress)")
 
     def attach_journal(self, journal) -> None:
-        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3")
+        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3b")
 
     def replay_from_journal(self, max_staleness: int | None = None) -> tuple[int, int]:
-        raise NotImplementedError("journal replay: ROADMAP Queue A item 3")
+        raise NotImplementedError("journal replay: ROADMAP Queue A item 3b")
 
     def _version_stats(
         self, traj: TensorDict
@@ -452,6 +476,7 @@ class WorkflowExecutor:
             bucket = lambda: self._eval_results if is_eval else self._results
             while len(bucket()) < count:
                 self._check_health()
+                self._check_interrupt()
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     raise TimeoutError(
@@ -473,6 +498,7 @@ class WorkflowExecutor:
         with self._cv:
             while rec.accepted is None:
                 self._check_health()
+                self._check_interrupt()
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     raise TimeoutError(f"task {task_id} not done")
@@ -511,6 +537,7 @@ class WorkflowExecutor:
         workflow = resolve_workflow(workflow)
         while True:
             self._check_health()
+            self._check_interrupt()
             # top up submissions while there is capacity and queue space
             while (
                 self.staleness.get_capacity() > 0

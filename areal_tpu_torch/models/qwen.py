@@ -27,6 +27,8 @@ cast of them (``_outputs_fn`` of the JAX engine).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -115,7 +117,7 @@ class ModelConfig:
                 "qwen3_moe."
             )
         if "vision_config" in d:
-            raise NotImplementedError("vision tower: ROADMAP Queue A, vision")
+            raise NotImplementedError("a vision tower (vision_config): ROADMAP Queue A item 5")
         td = {**d, **d.get("text_config", {})}
         return cls(
             vocab_size=td["vocab_size"],
@@ -136,6 +138,12 @@ class ModelConfig:
             moe_intermediate_size=td.get("moe_intermediate_size"),
             norm_topk_prob=td.get("norm_topk_prob", True),
         )
+
+    @classmethod
+    def from_hf_path(cls, path: str) -> "ModelConfig":
+        """``from_hf_dict`` of ``<path>/config.json``."""
+        with open(os.path.join(path, "config.json")) as f:
+            return cls.from_hf_dict(json.load(f))
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -167,6 +175,55 @@ def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     if cfg.qk_norm:
         shapes.update(q_norm=(hd,), k_norm=(hd,))
     return shapes
+
+
+# layer parameter -> (HF suffix, transpose). The flags describe the port's
+# layout: its dense [out, in] matrices are HF's own layout, while the MoE
+# router [D, E] and the expert stacks' [in, out] slices are HF's transposed
+_HF_LAYER_MAP = {
+    "wq": ("self_attn.q_proj.weight", False),
+    "wk": ("self_attn.k_proj.weight", False),
+    "wv": ("self_attn.v_proj.weight", False),
+    "wo": ("self_attn.o_proj.weight", False),
+    "bq": ("self_attn.q_proj.bias", False),
+    "bk": ("self_attn.k_proj.bias", False),
+    "bv": ("self_attn.v_proj.bias", False),
+    "q_norm": ("self_attn.q_norm.weight", False),
+    "k_norm": ("self_attn.k_norm.weight", False),
+    "w_gate": ("mlp.gate_proj.weight", False),
+    "w_up": ("mlp.up_proj.weight", False),
+    "w_down": ("mlp.down_proj.weight", False),
+    "input_norm": ("input_layernorm.weight", False),
+    "post_attn_norm": ("post_attention_layernorm.weight", False),
+    "w_router": ("mlp.gate.weight", True),
+    "we_gate": ("mlp.experts.{e}.gate_proj.weight", True),
+    "we_up": ("mlp.experts.{e}.up_proj.weight", True),
+    "we_down": ("mlp.experts.{e}.down_proj.weight", True),
+}
+EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
+
+
+def hf_name_map(cfg: ModelConfig) -> dict[str, tuple[str, bool]]:
+    """Flat map: the port's parameter name -> (HF name, transpose), as
+    ``areal_tpu/models/qwen.py:833`` maps the JAX paths. Dense leaves map as
+    ``layers.<l>.<name>``; an MoE expert stack [E, ...] maps one HF tensor
+    per (layer, expert) as ``layers.<l>.<name>.<e>``. ``transpose`` says
+    that the HF tensor is the transpose of the port's (slice of the) leaf."""
+    out: dict[str, tuple[str, bool]] = {
+        "embed": ("model.embed_tokens.weight", False),
+        "final_norm": ("model.norm.weight", False),
+    }
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = ("lm_head.weight", False)
+    for name in _layer_shapes(cfg):
+        suffix, transpose = _HF_LAYER_MAP[name]
+        for i in range(cfg.num_layers):
+            if name in EXPERT_LEAVES:
+                for e in range(cfg.num_experts):
+                    out[f"layers.{i}.{name}.{e}"] = (f"model.layers.{i}.{suffix.format(e=e)}", transpose)
+            else:
+                out[f"layers.{i}.{name}"] = (f"model.layers.{i}.{suffix}", transpose)
+    return out
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -400,7 +457,7 @@ def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool =
     cfg = model.cfg
     if cfg.remat and cfg.remat_policy not in ("nothing", "everything"):
         if cfg.remat_policy == "dots_nobatch":
-            raise NotImplementedError("remat_policy='dots_nobatch': ROADMAP Queue A, trainer")
+            raise NotImplementedError("remat_policy='dots_nobatch': ROADMAP Queue A item 3c")
         raise ValueError(f"remat_policy={cfg.remat_policy!r}; valid: nothing, everything")
     x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
     rope = _rope_angles(positions, cfg.head_dim_, cfg.rope_theta)

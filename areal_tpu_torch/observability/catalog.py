@@ -460,8 +460,9 @@ def robustness_metrics(reg: Registry | None = None) -> SimpleNamespace:
 
 
 def preemption_metrics(reg: Registry | None = None) -> SimpleNamespace:
-    """Preemption tolerance and the trajectory journal (ROADMAP Queue A
-    item 3): graceful-drain visibility across trainer and serving roles."""
+    """Preemption tolerance, checkpoint saves and the trajectory journal
+    (the journal: ROADMAP Queue A item 3b): graceful-drain visibility
+    across trainer and serving roles."""
     r = reg or get_registry()
     return SimpleNamespace(
         preemptions=r.counter(

@@ -14,7 +14,7 @@ minibatch's training stats), which ``PPOTrainer`` commits every step.
 
 Left out: the learning-health and lineage exports of the JAX trainer
 (per-lag-bucket loss stats, per-sequence loss attribution), ROADMAP Queue
-A, trainer breadth; and the critic (``PPOCritic``).
+A item 3b; and the critic (``PPOCritic``, item 3c).
 """
 
 from __future__ import annotations

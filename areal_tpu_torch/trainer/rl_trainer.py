@@ -11,16 +11,24 @@ Each global step runs, as the JAX trainer does (``rl_trainer.py:370-584``):
 with the version rule ``new_version = global_step + 1`` on the trainer, the
 rollout client and the servers. Over HTTP (``RemoteTorchEngine``) the
 weights stream as bf16 buckets staged while generation continues, and one
-commit lands inside the hold fence, which aborts nothing.
+commit lands inside the hold fence, which aborts nothing; under
+``weight_update_mode="disk"`` the trainer writes an HF checkpoint and the
+servers reload it inside the same fence.
+
+Durable state (``rl_trainer.py:183-251``, ``:297-346``): at construction
+``RecoverHandler.load`` restores the newest recover checkpoint (engine
+state, saver / evaluator timers, the dataloader's position) and re-syncs
+the fleet's weights, and ``train`` resumes at the step after the restored
+one. Each step ends with ``saver.maybe_save`` (an HF checkpoint when due)
+and then an asynchronous recover dump. With ``preemption.enabled`` (the
+default) SIGTERM / SIGUSR1 only set a flag: the loop stops at the next step
+boundary or aborts its rollout wait, dumps the last completed step
+synchronously, sets ``preempted`` and returns.
 
 Refused at construction with ``NotImplementedError`` naming the ROADMAP
-Queue A item it waits for: a critic (item 3), ``allocation_mode`` (item
-6), a ``cluster.name_resolve.type`` other than "memory" (item 8),
-``preemption.enabled`` (item 3: the drain needs the recover dump; the JAX
-default is True, so a port config sets it to False), the trajectory
-journal (item 3), ``weight_update_mode="disk"`` (item 3) and the q8 wire
-(item 4); ``recover.mode`` other than "disabled" / "off" raises in
-``utils/recover.py`` and a due save in ``utils/saver.py`` (item 3).
+Queue A item it waits for: a critic (item 3c), ``allocation_mode`` (item
+6), a ``cluster.name_resolve.type`` other than "memory" (item 8), the
+trajectory journal (item 3b) and the q8 wire (item 4).
 
 ``compile_cache.install_compile_counters`` counts XLA compilations and has
 no PyTorch counterpart: it is left out.
@@ -41,8 +49,10 @@ import numpy as np
 from areal_tpu_torch.api.config import PPOConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
 from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+from areal_tpu_torch.infra.workflow_executor import RolloutInterrupted
 from areal_tpu_torch.observability import catalog as obs_catalog
 from areal_tpu_torch.observability import step_timeline
+from areal_tpu_torch.robustness.preemption import PreemptionHandler
 from areal_tpu_torch.trainer.ppo import PPOActor
 from areal_tpu_torch.utils import perf_tracer, stats_tracker
 from areal_tpu_torch.utils.data import StatefulDataLoader
@@ -71,25 +81,18 @@ def check_supported(config: PPOConfig) -> None:
     """Raise ``NotImplementedError`` for each option of the loop whose code
     path is a later slice, before anything is built."""
     if config.critic is not None:
-        raise NotImplementedError("a critic (PPOCritic): ROADMAP Queue A item 3 (trainer breadth)")
+        raise NotImplementedError("a critic (PPOCritic): ROADMAP Queue A item 3c")
     if config.allocation_mode:
         raise NotImplementedError(f"allocation_mode={config.allocation_mode!r}: ROADMAP Queue A item 6")
     if config.cluster.name_resolve.type != "memory":
         raise NotImplementedError(
             f"name_resolve.type={config.cluster.name_resolve.type!r} (server discovery): ROADMAP Queue A item 8"
         )
-    if config.preemption.enabled:
-        raise NotImplementedError(
-            "preemption.enabled (the drain needs the recover dump): ROADMAP Queue A item 3; "
-            "set preemption.enabled=False"
-        )
     if config.rollout.journal.enabled:
-        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3")
+        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3b")
     mode = config.weight_update_mode or config.actor.weight_update_mode
-    if mode != "mem":
-        raise NotImplementedError(
-            f"weight_update_mode={mode!r}: only 'mem' is ported (disk updates: ROADMAP Queue A item 3)"
-        )
+    if mode not in ("disk", "mem"):
+        raise ValueError(f"weight_update_mode={mode!r}; valid: disk|mem")
 
 
 class PPOTrainer:
@@ -108,7 +111,6 @@ class PPOTrainer:
         check_supported(config)
         wire = resolve_weight_update_wire(config)
         self.config = config
-        self.recover_handler = RecoverHandler(config.recover)  # raises unless recovery is off
         self.tokenizer = tokenizer
         self.train_dataloader = StatefulDataLoader(
             train_dataset,
@@ -175,7 +177,58 @@ class PPOTrainer:
         self.last_hbm_ledger: dict | None = None
         self.saver = Saver(config.saver, self.ft_spec)
         self.evaluator = Evaluator(config.evaluator, self.ft_spec)
+        self.recover_handler = RecoverHandler(config.recover, self.ft_spec)
         self.stats_logger = StatsLogger(config.stats_logger, self.ft_spec)
+        self.recover_info = self.recover_handler.load(
+            self.actor_engine,
+            saver=self.saver,
+            evaluator=self.evaluator,
+            dataloader=self.train_dataloader,
+            inference_engine=self.rollout,
+            weight_update_meta=self.weight_update_meta,
+        )
+
+        # preemption: the signal handler only sets an event; the step loop
+        # polls it at phase boundaries and the executor's waits abort on it
+        self.preempted = False
+        self.preemption: PreemptionHandler | None = None
+        if config.preemption.enabled:
+            self.preemption = PreemptionHandler(
+                role="trainer", grace_s=config.preemption.grace_s, handle_sigusr1=config.preemption.handle_sigusr1
+            )
+            if hasattr(self.rollout, "set_interrupt"):
+                self.rollout.set_interrupt(self.preemption.requested)
+
+    # -- preemption ---------------------------------------------------------
+    def _preempt_requested(self) -> bool:
+        return self.preemption is not None and self.preemption.requested.is_set()
+
+    def _handle_preemption(self, last_completed: StepInfo | None) -> None:
+        """The grace-window drain (``rl_trainer.py:297``): stop rollout
+        submissions, dump the last completed step synchronously and
+        durably, and mark the trial preempted; the caller leaves the loop
+        and a relaunch resumes from the dump. The journal's seal and the
+        lineage dump wait for the journal (ROADMAP Queue A item 3b)."""
+        self.preemption.note_draining()
+        t0 = time.monotonic()
+        self.rollout.pause()
+        if last_completed is not None:
+            try:
+                self.recover_handler.dump_emergency(
+                    self.actor_engine,
+                    last_completed,
+                    saver=self.saver,
+                    evaluator=self.evaluator,
+                    dataloader=self.train_dataloader,
+                    tokenizer=self.tokenizer,
+                )
+            except Exception:  # noqa: BLE001 — an older durable generation still
+                # recovers the trial; dying in the grace window without an
+                # exit is the one path that must not happen
+                logger.exception("emergency recover dump failed")
+        self.preemption.note_drained(time.monotonic() - t0)
+        self.preempted = True
+        logger.warning("trainer preempted: emergency state durable, rollout paused; leaving the step loop")
 
     def _on_profile_signal(self, signum, frame) -> None:
         self._profile_requested.set()  # flag only: the step loop does the work
@@ -183,19 +236,25 @@ class PPOTrainer:
     # -- step loop --------------------------------------------------------
     def train(self, workflow: Any = None, eval_workflow: Any = None, dynamic_filter_fn: Callable | None = None) -> None:
         config = self.config
-        start_step = 0  # recovery (a later start step) is ROADMAP Queue A item 3
+        start_step = self.recover_info.last_step_info.next().global_step if self.recover_info is not None else 0
         steps_per_epoch = len(self.train_dataloader)
         max_steps = config.total_train_epochs * steps_per_epoch
         if config.total_train_steps is not None:
             max_steps = min(max_steps, config.total_train_steps)
+        if self.preemption is not None:
+            self.preemption.install()
         try:
             prev = signal.signal(signal.SIGUSR2, self._on_profile_signal)
             if self._prev_sigusr2 is None:
                 self._prev_sigusr2 = prev
         except ValueError:
             logger.debug("SIGUSR2 profile trigger unavailable off the main thread")
+        last_completed: StepInfo | None = self.recover_info.last_step_info if self.recover_info is not None else None
 
         for global_step in range(start_step, max_steps):
+            if self._preempt_requested():
+                self._handle_preemption(last_completed)
+                return
             epoch = global_step // steps_per_epoch
             step = global_step % steps_per_epoch
             t_step = time.monotonic()
@@ -208,12 +267,24 @@ class PPOTrainer:
                 perf_tracer.start_device_profile()
 
             tl = self.step_recorder.start(global_step)
-            with tl.phase("rollout_wait"), perf_tracer.trace_scope(
-                "train.rollout", Category.COMPUTE, {"global_step": global_step}
-            ):
-                batch = self.rollout.prepare_batch(
-                    self.train_dataloader, workflow=workflow, should_accept_fn=dynamic_filter_fn
-                )
+            try:
+                with tl.phase("rollout_wait"), perf_tracer.trace_scope(
+                    "train.rollout", Category.COMPUTE, {"global_step": global_step}
+                ):
+                    batch = self.rollout.prepare_batch(
+                        self.train_dataloader, workflow=workflow, should_accept_fn=dynamic_filter_fn
+                    )
+            except RolloutInterrupted:
+                # the signal landed during the rollout wait: abort this step
+                self.step_recorder.abandon(tl)
+                self._handle_preemption(last_completed)
+                return
+            if self._preempt_requested():
+                # the batch is ready, but training and the weight push can
+                # outlast the grace window: abort the step
+                self.step_recorder.abandon(tl)
+                self._handle_preemption(last_completed)
+                return
 
             # the engine attributes its host_prep / forward_backward /
             # optimizer spans into ``tl`` through step_timeline.engine_phase
@@ -286,6 +357,9 @@ class PPOTrainer:
             stats["version"] = float(new_version)
             logger.info(f"step {global_step}: {step_timeline.format_phase_line(bd)}")
             self.stats_logger.commit(epoch, step, global_step, stats)
+            last_completed = StepInfo(
+                epoch=epoch, epoch_step=step, global_step=global_step, steps_per_epoch=steps_per_epoch
+            )
             if profiling:
                 trace_dir = perf_tracer.stop_device_profile()
                 if trace_dir:
@@ -322,6 +396,15 @@ class PPOTrainer:
         self.evaluator.maybe_evaluate(epoch, global_step, run_eval)
 
     def close(self) -> None:
+        try:
+            # a periodic async recover dump may still be writing: join it,
+            # so close() means everything is durable
+            self.saver.wait_async()
+            self.recover_handler.saver.wait_async()
+        except RuntimeError:
+            logger.exception("async checkpoint write failed during close")
+        if self.preemption is not None:
+            self.preemption.uninstall()
         if self._prev_sigusr2 is not None:
             # the installed handler is a bound method: left in place, it
             # would keep this trainer (and its engines) alive

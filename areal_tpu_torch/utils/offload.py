@@ -1,4 +1,5 @@
-"""Host offload and onload of a module's parameters, for a colocated
+"""Host offload and onload of a module's parameters (or any tensors: the
+train engine's optimizer moments), for a colocated
 generation + training setup: free the card's memory while the other engine
 runs (the port of ``areal_tpu/utils/offload.py``).
 
@@ -14,28 +15,38 @@ from __future__ import annotations
 import torch
 
 
-def offload_module(module: torch.nn.Module) -> str:
-    """Move every parameter of ``module`` to host memory (pinned when it was
-    on a card). Returns the mode: "pinned_host", or "none" when the
-    parameters already live on the host."""
+def offload_tensors(tensors) -> str:
+    """Move every tensor's storage to host memory (pinned when it was on a
+    card), in place through ``.data``. Returns the mode: "pinned_host", or
+    "none" when the tensors already live on the host."""
     mode = "none"
     with torch.no_grad():
-        for p in module.parameters():
-            if p.device.type == "cpu":
+        for t in tensors:
+            if t.device.type == "cpu":
                 continue
-            host = torch.empty(p.shape, dtype=p.dtype, device="cpu", pin_memory=True)
-            host.copy_(p.data)
-            p.data = host
+            host = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=True)
+            host.copy_(t.data)
+            t.data = host
             mode = "pinned_host"
     return mode
 
 
-def onload_module(module: torch.nn.Module, device) -> None:
-    """Move every parameter of ``module`` back onto ``device``."""
+def onload_tensors(tensors, device) -> None:
+    """Move every tensor's storage back onto ``device``, in place."""
     device = torch.device(device)
     with torch.no_grad():
-        for p in module.parameters():
-            if p.device != device:
-                p.data = p.data.to(device, non_blocking=True)
+        for t in tensors:
+            if t.device != device:
+                t.data = t.data.to(device, non_blocking=True)
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()  # the pinned buffers go when this returns
+
+
+def offload_module(module: torch.nn.Module) -> str:
+    """``offload_tensors`` of ``module``'s parameters."""
+    return offload_tensors(module.parameters())
+
+
+def onload_module(module: torch.nn.Module, device) -> None:
+    """``onload_tensors`` of ``module``'s parameters."""
+    onload_tensors(module.parameters(), device)

@@ -142,7 +142,26 @@ no result line:
               tokens generated during the update and the rows spanning a
               commit; staging GB/s, decode step wall time while staging
               beside the other steps, trainer tokens/s and peak memory.
-14. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+14. durable  — the trainer's durable state at Qwen2.5-1.5B, full width and
+              depth (the grpo phase's actor settings and the serve phase's
+              server settings): (a) the disk free at the phase's root and an
+              HF export of the trainer's f32 weights (GB, s, GB/s); (b) an
+              ``InferenceServer`` started from the export by
+              ``ServerConfig.model_path``, its served bf16 weights equal to
+              the trainer's bit for bit, a wave of 16 (#1 launches); (c) a
+              disk update through ``RemoteTorchEngine`` under the hold fence
+              while a wave decodes, after two more optimizer steps (the
+              fence's seconds, the version, bit for bit again); (d) a
+              ``PPOTrainer`` with ``recover.mode="auto"``, ``freq_steps=1``:
+              two steps with async dumps (the step loop's pause per dump, the
+              write's GB/s and bytes); (e) a preemption requested as step 3's
+              rollout wait begins: the emergency (sync) dump of step 2, then
+              a fresh trainer of other weights resumes at step 3 with the
+              dumped parameters, moments and step count bit for bit and runs
+              it (K2-K4 launches); (f) offload / onload of the resumed actor
+              (GB freed, seconds, bit for bit after). Deletes its directory
+              (``_durable/``) at its end.
+15. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -157,7 +176,7 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-15. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+16. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
@@ -166,7 +185,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-16. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+17. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -178,7 +197,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-17. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+18. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -189,7 +208,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-18. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+19. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -197,7 +216,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-19. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+20. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -4019,6 +4038,482 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
                 peak_gib=peak, tokens_per_s=tokens / ppo_s, warm_tokens_per_s=warm_tokens / warm_s)
 
 
+# the durable phase writes here (git-ignored) and deletes it at its end
+DURABLE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_durable")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _train_tensors(engine) -> dict:
+    """A train engine's parameters, AdamW moments and step count by name
+    (the live tensors)."""
+    out = {f"params/{n}": p.detach() for n, p in engine.model.named_parameters()}
+    for n, m, v in zip(dict(engine.model.named_parameters()), engine._opt.mu, engine._opt.nu):
+        out[f"mu/{n}"], out[f"nu/{n}"] = m, v
+    out["count"] = torch.tensor(engine._opt.count)
+    return out
+
+
+def _train_state(engine, device: str | None = None) -> dict:
+    """A copy of ``_train_tensors`` (on ``device``, else where they live)."""
+    return {k: t.to(device, copy=True) if device else t.clone() for k, t in _train_tensors(engine).items()}
+
+
+def _unequal_state(engine, want: dict) -> list[str]:
+    """Names whose tensors differ from ``want``'s in any bit (compared one
+    tensor at a time on ``want``'s device)."""
+    got = _train_tensors(engine)
+    return [k for k, w in want.items() if not torch.equal(got[k].to(w.device), w)]
+
+
+def _served_unequal(engine, trainer) -> list[str]:
+    """Served parameters that are not the trainer's master weights rounded
+    to bf16 once, bit for bit."""
+    served = dict(engine.model.named_parameters())
+    return [n for n, p in trainer.model.named_parameters()
+            if not torch.equal(p.detach().to(torch.bfloat16), served[n].detach())]
+
+
+def phase_durable(card: str) -> dict:
+    """The trainer's durable state at Qwen2.5-1.5B, full width and depth,
+    over HTTP: (a) two optimizer steps, each right after a snapshot taken
+    between its gradients and its update, which must hold the state before
+    the step bit for bit (the first with its stream wait taken out, a
+    planted fault that must show); an HF export of the trainer's weights
+    (GB, s, GB/s); (b) a server started from it by
+    ``ServerConfig.model_path`` serving the trainer's bf16 weights bit for
+    bit, and a wave of 16 (#1 launches); (c) a disk weight update
+    (``RemoteTorchEngine.update_weights(type="disk")``) under the hold
+    fence while a wave decodes, after two more optimizer steps, bit for bit
+    again; (d) a ``PPOTrainer`` with ``recover.mode="auto"``,
+    ``freq_steps=1``, two steps with async dumps (the step loop's pause per
+    dump, the write's GB/s and bytes), and a sync save of the same state
+    beside them (its pause); (e) a preemption requested during step 3: the
+    emergency dump of step 2, already durable from its async dump,
+    rewrites only its record; then a fresh trainer resumes at step 3 with
+    the dumped parameters, moments and step count bit for bit, and its
+    first step runs (K2-K4 launches); (f) the resumed actor's offload /
+    onload (GB freed, seconds, bit for bit after). The phase's directories
+    go at its end."""
+    import shutil
+    import signal
+
+    from areal_tpu_torch.api.config import (DatasetConfig, InferenceEngineConfig, NormConfig, OptimizerConfig,
+                                            PPOActorConfig, PPOConfig, PreemptionConfig, RecoverConfig, SaverConfig,
+                                            ServerConfig, StatsLoggerConfig)
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters, SaveLoadMeta, WeightUpdateMeta
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+    from areal_tpu_torch.utils.data import pad_sequences_to_tensors
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[durable] {held:.2f} GiB still allocated by earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(DURABLE_ROOT, ignore_errors=True)
+    os.makedirs(DURABLE_ROOT)
+    du = shutil.disk_usage(DURABLE_ROOT)
+    log(f"[durable] {card}: (a) disk at {DURABLE_ROOT}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    L = mcfg.num_layers
+    group, n_new, batch_prompts = 4, 128, 8
+    acfg = PPOActorConfig(
+        dtype="bfloat16",
+        param_dtype="float32",
+        attn_impl="pallas",
+        gradient_checkpointing=True,
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant"),
+        group_size=group,
+        adv_norm=NormConfig(mean_level="group", std_level="batch", group_size=group),
+        use_decoupled_loss=True,
+        prox_logp_mode="recompute",
+        ppo_n_minibatches=2,
+    )
+    ft = FinetuneSpec(total_train_epochs=1, dataset_size=GRPO_PROMPTS, train_batch_size=batch_prompts)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    srv = client = loop = None
+    res: dict = {}
+    try:
+        trainer = TorchTrainEngine(acfg, model_config=mcfg)
+        trainer.initialize(ft, seed=0)
+
+        # a batch of random tokens: 16 rows of 64-512 prompt + 128 completion
+        race_rng = np.random.default_rng(1)
+        race_batch = pad_sequences_to_tensors([
+            {"input_ids": race_rng.integers(0, mcfg.vocab_size, int(n) + n_new).astype(np.int32),
+             "loss_mask": np.r_[np.zeros(int(n)), np.ones(n_new)].astype(np.float32)}
+            for n in race_rng.integers(64, 513, 16)])
+
+        def nll(outputs, b):
+            m = (b["label_valid"] & (b["loss_mask"] > 0)).float()
+            return -(outputs["logprobs"] * m).sum() / m.sum().clamp(min=1), {}
+
+        # two steps, each with a snapshot taken between its gradients and its
+        # optimizer step, whose in-place updates must wait for the snapshot's
+        # copies (a side stream): the first step with that wait taken out (a
+        # planted fault, which must show), the second as it ships. The copies
+        # queue behind ~0.5 s of spinning on their stream, so the step
+        # outruns them unless it waits. This runs before the server starts:
+        # with its decode thread in the process the planted step fell behind
+        # the copies but for one tensor. A first snapshot, not checked, pins
+        # the buffers
+        cuda = trainer.device.type == "cuda"
+        t0 = time.monotonic()
+        snap = trainer.snapshot_for_save(with_optim=True)
+        pin_s = time.monotonic() - t0
+        trainer.wait_for_save()
+        trainer._snap_free.set()  # not written: its buffers are free again
+        del snap
+        races = []
+        compute = trainer._compute_grads
+        for planted in (True, False):
+            seen: dict = {}
+
+            def grads_then_snapshot(*a, **k):
+                out = compute(*a, **k)
+                seen["ref"] = _train_state(trainer, "cpu")  # what the step is about to update
+                if cuda:
+                    with torch.cuda.stream(trainer._save_stream):
+                        torch.cuda._sleep(1_000_000_000)  # clock cycles
+                t = time.monotonic()
+                seen["snap"] = trainer.snapshot_for_save(with_optim=True)
+                seen["s"] = time.monotonic() - t
+                return out
+
+            trainer._compute_grads = grads_then_snapshot
+            if planted:
+                trainer._order_after_snapshot = lambda: None
+            try:
+                trainer.train_batch(race_batch, nll, _wfn)
+            finally:
+                del trainer._compute_grads
+                if planted:
+                    del trainer._order_after_snapshot
+            snap, ref = seen["snap"], seen["ref"]
+            if snap["event"] is not None:
+                snap["event"].synchronize()
+            got = {f"{g}/{n}": t for g, ts in snap["groups"].items() for n, t in ts.items()}
+            got["count"] = torch.tensor(snap["step_count"])
+            races.append([k for k, w in ref.items() if not torch.equal(got[k], w)])
+            snap_s = seen["s"]
+            trainer._snap_free.set()
+            del seen, snap, ref, got
+        planted_bad, bad = races
+        if bad or not planted_bad:
+            raise AssertionError(f"[durable] a snapshot taken right before an optimizer step differs from the "
+                                 f"state before it in {len(bad)} tensors (first {bad[:3]}); with the step's stream "
+                                 f"wait taken out {len(planted_bad)} differ (a planted fault the check must catch)")
+        log(f"[durable] {card}: (a) a snapshot between a step's gradients and its optimizer step holds the state "
+            f"before the step bit for bit ({len(_train_tensors(trainer))} tensors, the copies queued behind ~0.5 s "
+            f"of spinning on their stream; the snapshot call {snap_s * 1e3:.1f} ms, a first unchecked one "
+            f"{pin_s:.2f} s pinning the host buffers); with the step's stream wait taken out (planted) "
+            f"{len(planted_bad)} tensors differ: caught")
+        res["snapshot"] = dict(planted_unequal=len(planted_bad), pin_s=pin_s, snap_s=snap_s)
+
+        # (a) the HF export
+        export = os.path.join(DURABLE_ROOT, "export")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        trainer.save(SaveLoadMeta(path=export, weight_format="hf"))
+        export_s = time.monotonic() - t0
+        gb = os.path.getsize(os.path.join(export, "model.safetensors")) / 1e9
+        res["export"] = dict(gb=gb, s=export_s, gbps=gb / export_s)
+        log(f"[durable] {card}: (a) HF export of the trainer's f32 weights: {gb:.3f} GB in {export_s:.2f} s, "
+            f"{gb / export_s:.2f} GB/s (write to the page cache, no fsync)")
+
+        # (b) a server from the export by model_path
+        scfg = ServerConfig(model_path=export, dtype="bfloat16", max_batch_size=32, max_seq_len=2048, page_size=128,
+                            decode_steps_per_call=16, weight_stage_target="device", host="127.0.0.1", seed=0)
+        engine = DecodeEngine(scfg)
+        srv = ServerThread(scfg, engine=engine)
+        holds: list = []
+        h_pause = srv.server.h_pause
+
+        def h_pause_logged(d: dict):
+            status, out = h_pause(d)
+            holds.append((d.get("mode"), out.get("fenced")))
+            return status, out
+
+        srv.server.h_pause = h_pause_logged
+        t0 = time.monotonic()
+        srv.start()
+        load_s = time.monotonic() - t0
+        unequal = _served_unequal(engine, trainer)
+        if unequal:
+            raise AssertionError(f"[durable] (b) {len(unequal)} parameters served from the export differ from the "
+                                 f"trainer's bf16 weights (first {unequal[:3]})")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, 16)]
+        bodies = [{"input_ids": p, "sampling_params": {"max_new_tokens": n_new, "greedy": True}} for p in prompts]
+        paged_attention_stacked.launches = 0  # main path: counts to 0 just before, read just after
+        steps0 = engine.stats["decode_steps"]
+        resps = _wave(srv.address, bodies)
+        launches1 = paged_attention_stacked.launches
+        steps = engine.stats["decode_steps"] - steps0
+        for r in resps:
+            _check_response(r, n_new, "durable")
+        if steps == 0 or launches1 != L * steps:
+            raise AssertionError(f"[durable] (b) #1 launches {launches1} != {L} layers x {steps} decode steps")
+        log(f"[durable] {card}: (b) server from the export by model_path: up in {load_s:.2f} s (the load and the "
+            f"engine's start), every served parameter equals the trainer's bf16 weights bit for bit; a wave of 16 x "
+            f"{n_new} tokens: #1 launches {launches1} = {L} x {steps} decode steps")
+        res["launches1"] = launches1
+
+        # (c) two more optimizer steps on the wave's sequences, then the disk
+        # update under the hold fence while a wave decodes
+        trajs = [{"input_ids": np.asarray(p + r["output_tokens"], np.int32),
+                  "loss_mask": np.r_[np.zeros(len(p)), np.ones(n_new)].astype(np.float32)}
+                 for p, r in zip(prompts, resps)]
+        sft = pad_sequences_to_tensors(trajs)
+        for _ in range(2):
+            trainer.train_batch(sft, nll, _wfn)
+        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        client.initialize()
+        meta = WeightUpdateMeta(type="disk", path=os.path.join(DURABLE_ROOT, "update_weights"), with_version=True)
+        trainer.connect_engine(client, meta)
+        box: list = []
+        waver = threading.Thread(target=lambda: box.extend(_wave(srv.address, bodies)))
+        a0 = engine.stats["aborted"]
+        waver.start()
+        while engine.stats["decode_steps"] == steps0 + steps and waver.is_alive():
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        trainer.update_weights(meta)
+        update_s = time.monotonic() - t0
+        fence_s = client.last_pause_secs
+        waver.join(timeout=600)
+        version = engine.get_version()
+        unequal = _served_unequal(engine, trainer)
+        if unequal or version != 1 or holds != [("hold", True)] or engine.stats["aborted"] != a0 or len(box) != 16:
+            raise AssertionError(f"[durable] (c) disk update: version {version} (want 1), holds {holds}, "
+                                 f"{engine.stats['aborted'] - a0} aborted, {len(box)} of 16 responses, "
+                                 f"{len(unequal)} served parameters unequal to the trainer's bf16 weights")
+        spanning = sum(1 for r in box if len(set(r["output_versions"])) > 1)
+        res["update"] = dict(s=update_s, fence_s=fence_s)
+        log(f"[durable] {card}: (c) disk update after two more optimizer steps: {update_s:.2f} s in all (the export, "
+            f"then the reload), of which the hold fence {fence_s:.2f} s (the reload; the decode loop waits); "
+            f"version {version}; every served parameter equals the trainer's bf16 weights bit for bit; a wave of 16 "
+            f"decoding through it: none aborted, {spanning} responses span the update")
+        shutil.rmtree(export)
+        shutil.rmtree(meta.path)
+
+        # (d) PPOTrainer with recover auto, async dumps every step
+        root = os.path.join(DURABLE_ROOT, "trial")
+        gconfig = GenerationHyperparameters(n_samples=group, max_new_tokens=n_new, temperature=1.0)
+
+        def ppo_cfg(total_steps):
+            return PPOConfig(
+                experiment_name="chip-smoke", trial_name="durable", weight_update_mode="mem",
+                total_train_steps=total_steps, gconfig=gconfig, train_dataset=DatasetConfig(batch_size=batch_prompts),
+                actor=acfg, preemption=PreemptionConfig(grace_s=120.0),
+                saver=SaverConfig(fileroot=root), checkpointer=SaverConfig(fileroot=root),
+                recover=RecoverConfig(mode="auto", freq_steps=1, fileroot=root),
+                stats_logger=StatsLoggerConfig(fileroot=root),
+            )
+
+        dataset = [{"prompt_ids": rng.integers(0, mcfg.vocab_size, int(n)).tolist()}
+                   for n in rng.integers(64, 513, GRPO_PROMPTS)]
+        client.set_version(0)  # the server's too
+        trainer.set_version(0)
+        loop = PPOTrainer(ppo_cfg(4), dataset, rollout=client, actor_engine=trainer)
+        saver = loop.recover_handler.saver
+        dumps: list = []  # (kind, step-loop pause s, bytes, write s)
+        save_async, snap, write = saver.save_async, trainer.snapshot_for_save, trainer.write_snapshot
+        writes: list = []
+
+        def save_async_timed(*a, **k):
+            t = time.monotonic()
+            out = save_async(*a, **k)
+            dumps.append(("async", time.monotonic() - t))
+            return out
+
+        def write_timed(snapshot, path):
+            t = time.monotonic()
+            n = write(snapshot, path)
+            writes.append((n, time.monotonic() - t))
+            return n
+
+        saver.save_async, trainer.write_snapshot = save_async_timed, write_timed
+        emergency = loop.recover_handler.dump_emergency
+        at_dump: dict = {}
+
+        def dump_recorded(eng, step_info, **kw):
+            # the state at the dump, kept in host memory: the relaunch's
+            # trainer needs the card's room
+            at_dump["state"], at_dump["step"] = _train_state(eng, "cpu"), step_info.global_step
+            t = time.monotonic()
+            saver.wait_async()  # the dump's own first wait, timed apart: a write still in flight
+            at_dump["wait_s"] = time.monotonic() - t
+            t = time.monotonic()
+            out = emergency(eng, step_info, **kw)
+            at_dump["s"] = time.monotonic() - t
+            at_dump["bytes"] = _dir_bytes(os.path.join(out, "state"))
+            return out
+
+        loop.recover_handler.dump_emergency = dump_recorded
+        prepare = client.prepare_batch
+        calls = {"n": 0}
+
+        def prepare_preempting(*a, **k):
+            calls["n"] += 1
+            if calls["n"] == 3:  # step 3: the signal lands as its rollout wait begins
+                loop.preemption.request(signal.SIGTERM)
+            return prepare(*a, **k)
+
+        client.prepare_batch = prepare_preempting
+        committed: list = []
+        commit = loop.stats_logger.commit
+        loop.stats_logger.commit = lambda e, s, g, st: (committed.append(g), commit(e, s, g, st))
+        t0 = time.monotonic()
+        loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+        loop_s = time.monotonic() - t0
+        saver.wait_async()
+        # the two async dumps' writes; the emergency dump of step 1 (step 2
+        # counted from 1), already durable, writes none
+        if not loop.preempted or committed != [0, 1] or at_dump.get("step") != 1 or len(writes) != 2:
+            raise AssertionError(f"[durable] (d/e) preempted {loop.preempted}, steps committed {committed}, the "
+                                 f"emergency dump of step {at_dump.get('step')} (want 1), {len(writes)} writes "
+                                 "(want the 2 async ones)")
+        saver.save_async, trainer.write_snapshot = save_async, write
+        # step 0's generation is only the fallback now (.prev): its room
+        # goes to the sync save
+        shutil.rmtree(os.path.join(root, "chip-smoke", "durable", "recover", "epoch0epochstep0globalstep0"))
+        # a sync save of the same state, for its pause beside the async ones
+        t0 = time.monotonic()
+        sync_path = saver.save(trainer, 0, 99, 99)
+        sync_s = time.monotonic() - t0
+        sync_bytes = _dir_bytes(os.path.join(sync_path, "state"))
+        shutil.rmtree(sync_path)
+        for (_, pause), (n, ws) in zip(dumps, writes):
+            log(f"[durable] {card}: (d) async recover dump: the step loop paused {pause * 1e3:.1f} ms (the snapshot "
+                f"queued on a side stream); the write {n / 1e9:.3f} GB in {ws:.2f} s, {n / 1e9 / ws:.2f} GB/s "
+                "(fsynced), on the saver's thread")
+        log(f"[durable] {card}: (d) a sync save of the same state: the step loop would pause {sync_s:.2f} s for "
+            f"{sync_bytes / 1e9:.3f} GB ({sync_bytes / 1e9 / sync_s:.2f} GB/s, fsynced)")
+        res["dumps"] = dict(async_pause_s=[p for _, p in dumps], write_s=[w for _, w in writes],
+                            bytes=[n for n, _ in writes], sync_s=sync_s, sync_bytes=sync_bytes,
+                            emergency_wait_s=at_dump["wait_s"], emergency_s=at_dump["s"])
+        log(f"[durable] {card}: (e) preemption during step 3 (its rollout wait): the emergency dump of step 2, "
+            f"already durable from its async dump ({at_dump['bytes'] / 1e9:.3f} GB) once the write still in flight "
+            f"landed ({at_dump['wait_s']:.2f} s), rewrote only its record in {at_dump['s'] * 1e3:.1f} ms; train() "
+            f"returned preempted after {loop_s:.1f} s")
+        _drain_client(client, engine)
+        loop.close()  # destroys the client
+        loop = trainer = client = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the relaunch: a fresh trainer of other weights resumes at step 3
+        trainer = TorchTrainEngine(acfg, model_config=mcfg)
+        trainer.initialize(ft, seed=1)
+        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        client.initialize()
+        t0 = time.monotonic()
+        loop = PPOTrainer(ppo_cfg(3), dataset, rollout=client, actor_engine=trainer)
+        resume_s = time.monotonic() - t0
+        unequal = _unequal_state(trainer, at_dump["state"])
+        info = loop.recover_info
+        if info is None or info.last_step_info.next().global_step != 2 or unequal:
+            raise AssertionError(f"[durable] (e) resume: {info and info.last_step_info}, {len(unequal)} of "
+                                 f"{len(at_dump['state'])} tensors differ from the state at the dump "
+                                 f"(first {unequal[:3]})")
+        if _served_unequal(engine, trainer) or engine.get_version() != 2:
+            raise AssertionError(f"[durable] (e) the fleet re-sync: version {engine.get_version()}")
+        del at_dump["state"]
+        fwd_grids, mb_counts = [], []
+        compute_logp, train_batch = loop.actor.compute_logp, trainer.train_batch
+
+        def compute_logp_logged(b):
+            fwd_grids.append(len(trainer._make_grids(b)))
+            return compute_logp(b)
+
+        def train_batch_logged(*a, **k):
+            st = train_batch(*a, **k)
+            mb_counts.append(int(st["n_microbatches"]))
+            return st
+
+        loop.actor.compute_logp, trainer.train_batch = compute_logp_logged, train_batch_logged
+        committed = []
+        commit = loop.stats_logger.commit
+        loop.stats_logger.commit = lambda e, s, g, st: (committed.append((g, st)), commit(e, s, g, st))
+        for kern in kernels:  # main path: counts to 0 just before, read just after
+            kern.launches = 0
+        loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+        loop.recover_handler.saver.wait_async()
+        counts = [k.launches for k in kernels]
+        n_fwd, n_mbs = sum(fwd_grids), sum(mb_counts)
+        want = [L * n_fwd + 2 * L * n_mbs, L * n_mbs, L * n_mbs]
+        if [g for g, _ in committed] != [2] or counts != want:
+            raise AssertionError(f"[durable] (e) resumed steps {[g for g, _ in committed]} (want [2]); K2 / K3 / K4 "
+                                 f"launches {counts} != {want}")
+        st = committed[0][1]
+        if not (math.isfinite(st["ppo_actor/loss"]) and math.isfinite(st["ppo_actor/grad_norm"])):
+            raise AssertionError(f"[durable] (e) loss / grad_norm not finite: {st}")
+        log(f"[durable] {card}: (e) relaunch: a fresh trainer (other weights) restored step 2's parameters, AdamW "
+            f"moments and step count bit for bit and re-synced the server (version 2) in {resume_s:.2f} s; its first "
+            f"step (3) ran: loss {st['ppo_actor/loss']:.6f}, grad_norm {st['ppo_actor/grad_norm']:.4f}; K2 / K3 / K4 "
+            f"launches {counts} ({n_fwd} forward grids, {n_mbs} microbatches)")
+        res["counts"] = dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts))
+        _drain_client(client, engine)
+
+        # (f) offload / onload of the resumed actor
+        ref = _train_state(trainer)
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        trainer.offload()
+        off_s = time.monotonic() - t0
+        m1 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        trainer.onload()
+        on_s = time.monotonic() - t0
+        unequal = _unequal_state(trainer, ref)
+        del ref
+        state_bytes = sum(t.numel() * t.element_size() for t in trainer._offload_targets())
+        if unequal or m0 - m1 < state_bytes:
+            raise AssertionError(f"[durable] (f) offload freed {(m0 - m1) / 1e9:.2f} GB; {len(unequal)} tensors "
+                                 f"unequal after the onload (first {unequal[:3]})")
+        res["offload"] = dict(freed_gb=(m0 - m1) / 1e9, offload_s=off_s, onload_s=on_s)
+        log(f"[durable] {card}: (f) offload freed {(m0 - m1) / 1e9:.2f} GB (torch.cuda.memory_allocated) in "
+            f"{off_s:.2f} s to pinned host memory, onload {on_s:.2f} s; parameters, moments and step count bit for "
+            f"bit after")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[durable] {card}: peak torch.cuda.max_memory_allocated {peak:.2f} GiB; the phase took "
+            f"{time.monotonic() - t_phase:.1f} s")
+        res["peak_gib"] = peak
+    finally:
+        if loop is not None:
+            loop.close()
+        elif client is not None:
+            client.destroy()
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(DURABLE_ROOT, ignore_errors=True)
+    return res
+
+
+def _drain_client(client, engine, timeout: float = 600.0) -> None:
+    """No new submissions; the episodes in flight finish (closing a client
+    with episodes in flight cancels them)."""
+    client.pause()
+    deadline = time.monotonic() + timeout
+    while client.executor.staleness.stat.running and time.monotonic() < deadline:
+        time.sleep(0.01)
+    while any(t is not None for t in engine._slot_task) and time.monotonic() < deadline:
+        time.sleep(0.01)
+
+
 def _distinct_prefixes(seqs) -> int:
     """Trie nodes counted independently of ``build_tree``: the number of
     distinct (prefix + token) sequences."""
@@ -5354,7 +5849,8 @@ def phase_train_moe(card: str) -> dict:
 
 
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
-          "train", "grpo", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe", "train_moe")
+          "train", "grpo", "durable", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe",
+          "train_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -5432,6 +5928,7 @@ def main(argv: list[str]) -> int:
         "spec": lambda: phase_spec(card),
         "train": lambda: phase_train(card),
         "grpo": lambda: phase_grpo(card, train=res.get("train")),
+        "durable": lambda: phase_durable(card),
         "kernel_tree": phase_kernel_tree,
         "train_tree": lambda: phase_train_tree(card),
         "kernel_gmm": phase_kernel_gmm,
@@ -5463,7 +5960,7 @@ def main(argv: list[str]) -> int:
             "launches": launches,
             "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"],
                                   "lifecycle": res["lifecycle"]["launches1"], "observe": res["observe"]["launches1"],
-                                  "grpo": res["grpo"]["launches1"]},
+                                  "grpo": res["grpo"]["launches1"], "durable": res["durable"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -5487,7 +5984,8 @@ def main(argv: list[str]) -> int:
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces[name],
             "launches": train["counts"][name],
-            "launches_by_phase": {"train": train["counts"][name], "grpo": res["grpo"]["counts"][name]},
+            "launches_by_phase": {"train": train["counts"][name], "grpo": res["grpo"]["counts"][name],
+                                  "durable": res["durable"]["counts"][name]},
             "max_abs_err": d["max_abs_err"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],

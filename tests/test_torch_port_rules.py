@@ -1,6 +1,8 @@
 """Rules the PyTorch port keeps: it imports nothing of JAX or of the JAX
-package (not even its JAX-free modules), nor aiohttp or yaml (the GPU hosts
-it runs on install neither), and it never falls back to the CPU by itself."""
+package (not even its JAX-free modules), nor aiohttp, yaml, safetensors or
+orbax (the GPU hosts it runs on install none of them: the port reads and
+writes safetensors with its own code), and it never falls back to the CPU
+by itself."""
 
 import ast
 import dataclasses
@@ -18,7 +20,7 @@ from areal_tpu_torch.models import qwen
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "areal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "areal_tpu", "aiohttp", "yaml"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "areal_tpu", "aiohttp", "yaml", "safetensors", "orbax"}
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -56,6 +58,8 @@ def test_rule_catches_forbidden_imports(tmp_path):
          ["jax", "areal_tpu", "areal_tpu_torch"]),
         ("import aiohttp\nfrom aiohttp import web\n", ["aiohttp", "aiohttp"]),
         ("import yaml\nx = __import__('yaml')\n", ["yaml", "yaml"]),
+        ("try:\n    from safetensors.torch import save_file\nexcept ImportError:\n    pass\n"
+         "import orbax.checkpoint as ocp\n", ["orbax", "safetensors"]),  # ast.walk goes breadth first
     ]
     for i, (source, roots) in enumerate(cases):
         f = tmp_path / f"x{i}.py"
@@ -203,12 +207,11 @@ def test_tree_kernel_wrappers_refuse_other_devices():
         dict(lora_rank=8),
         dict(train_vision_tower=True),
         dict(mesh=MeshConfig(fsdp=2)),
-        dict(weight_update_mode="disk"),
         dict(attn_impl="ring"),
         dict(value_head=True),
         dict(remat_policy="dots_nobatch"),
     ],
-    ids=["tree-critic", "lora", "vision", "mesh", "disk-update", "ring", "critic", "remat-dots"],
+    ids=["tree-critic", "lora", "vision", "mesh", "ring", "critic", "remat-dots"],
 )
 def test_unported_trainer_options_refused(change):
     from areal_tpu_torch.api.config import PPOActorConfig
@@ -224,6 +227,22 @@ def test_unported_trainer_options_refused(change):
         # options read at the first forward (the remat policy)
         eng.initialize()
         eng.forward_batch({"input_ids": np.zeros((1, 4), np.int32), "attention_mask": np.ones((1, 4), bool)})
+
+
+@pytest.mark.parametrize(
+    "change", [dict(weight_update_mode="disk"), dict(path="unused/hf")], ids=["disk-update", "hf-path"]
+)
+def test_ported_trainer_options_accepted(change):
+    """Disk weight updates and an HF checkpoint path construct (the
+    checkpoint is read at ``initialize``: ``tests/test_torch_checkpoint.py``);
+    an unknown update mode is refused."""
+    from areal_tpu_torch.api.config import PPOActorConfig
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+
+    cfg = dataclasses.replace(PPOActorConfig(), **change)
+    TorchTrainEngine(cfg, model_config=qwen.ModelConfig(num_layers=1), device="cpu")
+    with pytest.raises(ValueError, match="disk|mem"):
+        TorchTrainEngine(dataclasses.replace(cfg, weight_update_mode="nccl"), device="cpu")
 
 
 def test_moe_training_refused():

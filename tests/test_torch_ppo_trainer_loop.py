@@ -7,8 +7,8 @@ JAX package's.
    parameters pushed at each step (every element of every leaf within the
    stated tolerance), the same stats keys committed.
 2. Every unported option of the loop raises ``NotImplementedError`` naming
-   its ROADMAP item; ``PPOConfig()`` with ``preemption.enabled=False`` and
-   ``weight_update_mode="mem"`` constructs.
+   its ROADMAP item; the durable-state options (preemption, disk updates,
+   recovery) are accepted, and ``PPOConfig()`` as it comes constructs.
 3. The whole loop over HTTP on the CPU: the port's server, ``RemoteTorchEngine``,
    ``TorchTrainEngine`` and ``PPOTrainer.train`` for 3 global steps.
 4. The port's twin of ``tests/test_rl_e2e.py::test_rl_learns_target_token``
@@ -30,7 +30,7 @@ from areal_tpu.parallel import mesh as mesh_lib
 from areal_tpu.trainer.rl_trainer import PPOTrainer as JPPOTrainer
 from areal_tpu.utils import data as jdata
 from areal_tpu_torch.api import config as tc
-from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters, ModelRequest
+from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters, ModelRequest, SaveLoadMeta
 from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 from areal_tpu_torch.inference.client import RemoteTorchEngine
 from areal_tpu_torch.inference.decode_engine import DecodeEngine
@@ -233,17 +233,14 @@ def _cfg(**over):
 @pytest.mark.parametrize(
     "over, item",
     [
-        (dict(critic=tc.PPOCriticConfig()), "item 3"),
+        (dict(critic=tc.PPOCriticConfig()), "item 3c"),
         (dict(allocation_mode="gen:d1,train:d1"), "item 6"),
         (dict(cluster=tc.ClusterSpecConfig(name_resolve=tc.NameResolveConfig(type="nfs"))), "item 8"),
-        (dict(preemption=tc.PreemptionConfig()), "item 3"),
-        (dict(rollout=tc.InferenceEngineConfig(journal=tc.TrajectoryJournalConfig(enabled=True))), "item 3"),
-        (dict(weight_update_mode="disk"), "item 3"),
-        (dict(recover=tc.RecoverConfig(mode="auto")), "item 3"),
+        (dict(rollout=tc.InferenceEngineConfig(journal=tc.TrajectoryJournalConfig(enabled=True))), "item 3b"),
         (dict(weight_update_wire="q8"), "item 4"),
         (dict(server=tc.ServerConfig(quantization="int8")), "item 4"),
     ],
-    ids=["critic", "allocation_mode", "name_resolve", "preemption", "journal", "disk", "recover", "q8", "int8-auto"],
+    ids=["critic", "allocation_mode", "name_resolve", "journal", "q8", "int8-auto"],
 )
 def test_unported_trainer_options_refused(over, item):
     stub = _StubRollout([], lambda p: p)
@@ -252,22 +249,51 @@ def test_unported_trainer_options_refused(over, item):
     assert stub.calls == []  # refused before the loop touched the rollout engine
 
 
-def test_defaults_construct_and_a_due_save_raises():
+@pytest.mark.parametrize(
+    "over",
+    [dict(preemption=tc.PreemptionConfig()), dict(weight_update_mode="disk"), dict(recover="auto")],
+    ids=["preemption", "disk", "recover"],
+)
+def test_durable_state_options_accepted(over, tmp_path):
+    """The options of the trainer's durable state construct (they were
+    refused until the recover dump, the disk update and the drain were
+    ported): nothing to recover from yet, so the trainer starts fresh."""
+    over = {**over, "cluster": tc.ClusterSpecConfig(fileroot=str(tmp_path))}
+    if "recover" in over:
+        over["recover"] = tc.RecoverConfig(mode=over["recover"], fileroot=str(tmp_path))
+    stub = _StubRollout([], lambda p: p)
+    trainer = PPOTrainer(_cfg(**over), [{"prompt_ids": [1]}] * 8, rollout=stub, actor_engine=_port_engine())
+    try:
+        assert trainer.recover_info is None and stub.calls == []
+        assert (trainer.preemption is not None) == ("preemption" in over)
+        assert trainer.weight_update_meta.type == over.get("weight_update_mode", "mem")
+    finally:
+        trainer.close()
+
+
+def test_defaults_construct_and_a_due_save_raises(tmp_path):
+    """``PPOConfig()`` as it comes (disk updates, preemption on) constructs;
+    a due save writes an HF checkpoint that loads back; an engine asked
+    for the JAX package's "orbax" format raises, naming the port's."""
     assert tc.PPOConfig().weight_update_mode == "disk" and tc.PPOConfig().preemption.enabled
-    trainer = PPOTrainer(
-        tc.PPOConfig(weight_update_mode="mem", preemption=tc.PreemptionConfig(enabled=False)),
-        [{"prompt_ids": [1]}] * 8,
-        rollout=_StubRollout([], lambda p: p),
-        actor_engine=_port_engine(),
-    )
-    assert trainer.weight_update_meta.type == "mem" and trainer.weight_update_meta.wire_format == "bf16"
-    assert trainer.saver.maybe_save(trainer.actor_engine, 0, 0, 0) is None  # nothing due at the defaults
-    saver = Saver(tc.SaverConfig(freq_steps=1), trainer.ft_spec)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        saver.maybe_save(trainer.actor_engine, 0, 0, 0)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        trainer.actor_engine.save(None)
-    trainer.close()
+    cfg = tc.PPOConfig(cluster=tc.ClusterSpecConfig(fileroot=str(tmp_path)))
+    trainer = PPOTrainer(cfg, [{"prompt_ids": [1]}] * 8, rollout=_StubRollout([], lambda p: p),
+                         actor_engine=_port_engine())
+    try:
+        assert trainer.weight_update_meta.type == "disk" and trainer.weight_update_meta.wire_format == "bf16"
+        assert trainer.preemption is not None and trainer.preemption.state == "running"
+        assert trainer.saver.maybe_save(trainer.actor_engine, 0, 0, 0) is None  # nothing due at the defaults
+        saver = Saver(tc.SaverConfig(freq_steps=1, fileroot=str(tmp_path)), trainer.ft_spec)
+        path = saver.maybe_save(trainer.actor_engine, 0, 0, 0)
+        assert path.endswith("checkpoints/epoch0epochstep0globalstep0")
+        other = _port_engine()
+        other.load(SaveLoadMeta(path=path, weight_format="hf"))
+        for (n, a), b in zip(trainer.actor_engine.model.named_parameters(), other.model.parameters()):
+            assert torch.equal(a, b), n
+        with pytest.raises(ValueError, match="'state'"):
+            trainer.actor_engine.save(SaveLoadMeta(path=str(tmp_path / "o"), weight_format="orbax"))
+    finally:
+        trainer.close()
 
 
 def test_reference_policy_feeds_the_kl_term():

@@ -390,7 +390,7 @@ def test_update_weights_mem_into_decode_engine():
     ref = DecodeEngine(scfg, params=teng._export_params(), model_cfg=cfg, device="cpu")
     ref.start()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="meta.path"):
             teng.connect_engine(dec, WeightUpdateMeta(type="disk"))
             teng.update_weights()
         teng.connect_engine(dec, WeightUpdateMeta(type="mem"))

@@ -552,11 +552,9 @@ def test_failed_commit_burns_the_version(port_server):
     "path, headers, item",
     [
         ("/update_weights_lora", {}, "item 4"),
-        ("/update_weights_from_disk", {}, "item 3"),
-        ("/update_weights_from_tensors", {}, "item 3"),
         ("/update_weights_bucket", {"X-Areal-Relay": "127.0.0.1:1"}, "item 8"),
     ],
-    ids=["lora", "from_disk", "from_tensors", "relay"],
+    ids=["lora", "relay"],
 )
 def test_unported_update_routes_refused(port_server, path, headers, item):
     import urllib.error
