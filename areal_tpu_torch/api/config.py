@@ -388,7 +388,8 @@ class ChaosConfig:
 
 @dataclass
 class TrajectoryJournalConfig:
-    """The durable trajectory journal (ROADMAP Queue A item 3b)."""
+    """The durable trajectory journal (``infra/trajectory_journal.py``):
+    off by default; ``dir`` defaults to ``{fileroot}/{experiment}/{trial}/journal``."""
 
     enabled: bool = False
     dir: str = ""
@@ -580,8 +581,8 @@ class InferenceEngineConfig:
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for a field set away from its
         default whose code path is a later slice of the port: the rollout
-        path here is one server, no routing brain, no gateway, no journal
-        and no autopilot."""
+        path here is one server, no routing brain, no gateway and no
+        autopilot."""
         if self.routing_policy != "round_robin" or self.schedule_policy != "round_robin":
             raise NotImplementedError(
                 f"routing_policy={self.routing_policy!r} / schedule_policy={self.schedule_policy!r}: "
@@ -604,14 +605,10 @@ class InferenceEngineConfig:
         lc = self.lifecycle
         if (lc.gateway_max_inflight, lc.gateway_interactive_headroom) != (0, 0):
             raise NotImplementedError("lifecycle.gateway_* (gateway load shedding): ROADMAP Queue A item 8")
-        if self.journal != TrajectoryJournalConfig():
-            raise NotImplementedError("journal (trajectory journal): ROADMAP Queue A item 3b")
         if self.autopilot != AutopilotConfig():
             raise NotImplementedError("autopilot: ROADMAP Queue A item 8")
         if self.openai is not None:
             raise NotImplementedError("openai (agentic proxy layer): ROADMAP Queue A item 8")
-        if self.dump_trajectories:
-            raise NotImplementedError("dump_trajectories: ROADMAP Queue A item 3b")
 
 
 

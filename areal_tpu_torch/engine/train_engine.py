@@ -22,7 +22,13 @@ What is kept from the JAX engine:
   applies to every parameter, and the LR schedule is indexed by optax's
   count, so the first step has LR 0 and moves nothing.
 - ``loss_fn(outputs, batch) -> (loss, {stat: scalar})``; ``outputs`` has
-  label-aligned ``logprobs`` / ``entropy`` grids.
+  label-aligned ``logprobs`` / ``entropy`` grids. When the batch carries
+  ``lineage_id`` (the rollout executor stamps one per trajectory), the
+  training grids also carry the segment map ``seq_slot`` / ``seq_slots``,
+  and a loss may return per-slot ``seq__*`` arrays beside its scalars:
+  they leave the card in the same single transfer per optimizer step as
+  the scalars and land in ``last_seq_stats`` in the input's order
+  (``train_engine.py:641-684``, ``:1175-1276``).
 - Tree training (``tree_training=True``): ``train_batch`` and
   ``compute_grads`` chunk the batch into forests under
   ``tree_node_budget`` nodes (``_make_tree_batches``), one microbatch per
@@ -146,10 +152,20 @@ def _fold_weighted_stats(
     agg: dict[str, float], mb_host: list[dict], weights: list[float], total_w: float
 ) -> None:
     """Fold per-microbatch stat dicts into the step aggregate, weighted by
-    each microbatch's loss weight."""
+    each microbatch's loss weight (array-valued stats are split off first,
+    ``_split_seq_stats``)."""
     for s, w in zip(mb_host, weights):
         for k, v in s.items():
             agg[k] = agg.get(k, 0.0) + float(v) * (w / total_w)
+
+
+def _split_seq_stats(host: dict) -> dict[str, np.ndarray]:
+    """Pop the array-valued (per-sequence) stats out of one microbatch's
+    host stat dict, leaving only scalars for the weighted fold."""
+    arrays = {k: np.asarray(v) for k, v in host.items() if getattr(v, "ndim", 0)}
+    for k in arrays:
+        host.pop(k)
+    return arrays
 
 
 def make_lr_schedule(cfg: OptimizerConfig, total_steps: int) -> Callable[[int], float]:
@@ -270,6 +286,9 @@ class TorchTrainEngine(TrainEngine):
         self._snap_free = threading.Event()
         self._snap_free.set()
         self._offload_mode: str | None = None
+        # the last training call's per-sequence loss stats (``seq__*``), in
+        # the input batch's order, when it carried ``lineage_id``
+        self.last_seq_stats: dict[str, np.ndarray] | None = None
 
     @staticmethod
     def _check_supported(
@@ -359,6 +378,7 @@ class TorchTrainEngine(TrainEngine):
         max_tok = (mb_spec or cfg.mb_spec).max_tokens_per_mb
         rows_per_mb = max(1, max_tok // row_len) if max_tok else grid.n_rows
         if rows_per_mb >= grid.n_rows:
+            grid.source_index = list(grid.seq_index)
             return [grid]
         # re-pack per microbatch: chunk sequences by their assigned row
         n_mbs = -(-grid.n_rows // rows_per_mb)
@@ -370,11 +390,21 @@ class TorchTrainEngine(TrainEngine):
             if not seqs:
                 continue
             sub = {k: np.asarray(v)[seqs] for k, v in input_.items()}
-            out.append(pack_grid(sub, row_len))
+            g = pack_grid(sub, row_len)
+            # g.seq_index points into ``sub``; the attribution needs input_'s
+            g.source_index = [seqs[i] for i in g.seq_index]
+            out.append(g)
         return out
 
-    def _grid_to_device(self, grid: Grid) -> dict[str, torch.Tensor]:
-        """Per-token grid arrays (plus the causal labels) as device tensors."""
+    def _grid_to_device(self, grid: Grid, seq_attribution: bool = False) -> dict[str, torch.Tensor]:
+        """Per-token grid arrays (plus the causal labels) as device tensors.
+
+        ``seq_attribution`` (the training path, when the batch carries
+        ``lineage_id``) adds the packed grid's segment map for the
+        per-sequence loss stats (``trainer/ppo.py _per_sequence_stats``):
+        ``seq_slot`` tags each cell with its grid-local sequence slot (-1 =
+        padding), and ``seq_slots`` is a device tensor whose length, the
+        slot count bucketed to 8, sizes the reduction (few shapes)."""
         seg = grid.data["segment_ids"]
         labels, label_valid = qwen.make_causal_inputs(grid.data["input_ids"], seg)
         batch: dict[str, np.ndarray] = {
@@ -386,10 +416,19 @@ class TorchTrainEngine(TrainEngine):
         for k in _GRID_KEYS:
             if k in grid.data and k not in batch:
                 batch[k] = grid.data[k]
-        return {
+        if seq_attribution and "lineage_id" in grid.data:
+            slot = np.full(seg.shape, -1, np.int32)
+            for local, (r, c, n) in enumerate(zip(grid.row_of_seq, grid.col_of_seq, grid.seq_lens)):
+                slot[r, c : c + n] = local
+            batch["seq_slot"] = slot
+        dev = {
             k: torch.from_numpy(np.ascontiguousarray(_np_device_dtype(np.asarray(v)))).to(self.device)
             for k, v in batch.items()
         }
+        if "seq_slot" in dev:
+            n_slots = round_up_to_bucket(max(len(grid.seq_index), 1), 8)
+            dev["seq_slots"] = torch.empty(n_slots, dtype=torch.int32, device=self.device)  # its length only
+        return dev
 
     # -- tree training ----------------------------------------------------
     def _make_tree_batches(self, input_: TensorDict) -> tuple[list[dict], dict[str, float]]:
@@ -539,6 +578,7 @@ class TorchTrainEngine(TrainEngine):
         scalar for the optimizer step."""
         if self.model is None:
             raise RuntimeError("engine not initialized")
+        self.last_seq_stats = None
         extra: dict[str, float] = {}
         with engine_phase("host_prep"):
             if self.config.tree_training:  # one microbatch per forest
@@ -548,7 +588,11 @@ class TorchTrainEngine(TrainEngine):
             else:
                 mbs = self._make_grids(input_, mb_spec=mb_spec)
                 weights = [float(loss_weight_fn(g.data)) for g in mbs]
-                to_device, outputs_fn = self._grid_to_device, self._outputs_fn
+
+                def to_device(g):
+                    return self._grid_to_device(g, seq_attribution=True)
+
+                outputs_fn = self._outputs_fn
         total_w = sum(weights) or 1.0
         pending: list[dict[str, torch.Tensor]] = []
         for mb, w in zip(mbs, weights):
@@ -561,13 +605,23 @@ class TorchTrainEngine(TrainEngine):
             pending.append({**{k: v.detach() for k, v in stats.items()}, "loss": loss.detach()})
         with engine_phase("forward_backward"):
             gnorm = _OptaxAdamW.global_norm(self._grads())
-            keys = [list(s) for s in pending]
-            # one device -> host transfer for every stat of every microbatch
-            flat = torch.stack([s[k].float() for s in pending for k in s] + [gnorm]).tolist()
+            # one device -> host transfer for every stat of every microbatch,
+            # the per-sequence arrays included (their sizes are host-known)
+            shapes = [[(k, tuple(v.shape)) for k, v in s.items()] for s in pending]
+            flat = torch.cat(
+                [s[k].float().reshape(-1) for s in pending for k in s] + [gnorm.float().reshape(1)]
+            ).tolist()
         mb_host, i = [], 0
-        for ks in keys:
-            mb_host.append(dict(zip(ks, flat[i : i + len(ks)])))
-            i += len(ks)
+        for ks in shapes:
+            host: dict = {}
+            for k, shape in ks:
+                n = int(np.prod(shape))
+                host[k] = np.asarray(flat[i : i + n], np.float64) if shape else flat[i]
+                i += n
+            mb_host.append(host)
+        seq_pairs = [(g, _split_seq_stats(s)) for g, s in zip(mbs, mb_host)]
+        if any(arrs for _, arrs in seq_pairs):
+            self._collect_seq_stats(seq_pairs, int(np.asarray(input_["attention_mask"]).shape[0]))
         if len(mbs) == 1:
             agg = dict(mb_host[0])
         else:
@@ -577,6 +631,21 @@ class TorchTrainEngine(TrainEngine):
         agg["n_microbatches"] = float(len(mbs))
         agg.update(extra)
         return agg, gnorm
+
+    def _collect_seq_stats(self, pairs: list[tuple[Grid, dict[str, np.ndarray]]], n_input: int) -> None:
+        """Map the per-slot ``seq__*`` loss stats back to the input
+        sequences' order through each grid's ``source_index`` (the bucket's
+        padding slots drop). Host bookkeeping only: the arrays came in the
+        step's one transfer."""
+        out: dict[str, np.ndarray] = {}
+        for g, arrs in pairs:
+            src = g.source_index if g.source_index is not None else g.seq_index
+            for k, arr in arrs.items():
+                dest = out.setdefault(k, np.zeros(n_input, np.float64))
+                for local, s in enumerate(src):
+                    if local < len(arr) and 0 <= s < n_input:
+                        dest[s] = arr[local]
+        self.last_seq_stats = out or None
 
     def _grads(self) -> list[torch.Tensor]:
         return [

@@ -38,8 +38,7 @@ the trainer's checkpoint directory inside the same fence.
 Later slices: more than one address, routing policies, the retry budget,
 circuit breakers, the fleet probe, the weight-broadcast relay and the
 failover of a draining server's 429 (ROADMAP Queue A item 8); the q8 wire
-and LoRA updates (item 4); the trajectory journal (item 3b); images (item
-5).
+and LoRA updates (item 4); images (item 5).
 """
 
 from __future__ import annotations

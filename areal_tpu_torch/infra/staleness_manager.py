@@ -99,6 +99,18 @@ class StalenessManager:
             self.stat.rejected += n
         self._metrics.rejected.inc(n)
 
+    def restore_accepted(self, n: int = 1) -> None:
+        """Recovery-time accounting (trajectory-journal replay): the
+        trajectories were submitted and accepted in a previous life, so
+        only the accepted count re-enters the capacity formula. The bound
+        re-tightens exactly as before the crash, while the cumulative
+        submitted / accepted counters (this life's throughput) are not
+        inflated by re-counting old work."""
+        if n <= 0:
+            return
+        with self._lock:
+            self.stat.accepted += n
+
     def observe_version_lag(self, lag: int) -> None:
         """Record an accepted trajectory's version lag (current policy
         version minus the oldest per-token version in the trajectory) —

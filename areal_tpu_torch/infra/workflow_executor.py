@@ -13,17 +13,26 @@ blocking waits: once it is set, ``wait``, ``wait_for_task`` and
 ``prepare_batch`` raise ``RolloutInterrupted`` instead of waiting out their
 timeout.
 
-Not ported here: the trajectory journal and trajectory dumps
-(``attach_journal`` / ``replay_from_journal`` and ``dump_trajectories``
-raise, ROADMAP Queue A item 3b), the lineage ring (the JAX executor stamps
-a ``lineage_id`` per sequence; item 3b) and the completion callback
-(``set_completion_callback`` raises, item 8).
+Every accepted train trajectory is registered on the lineage ring
+(``observability/lineage.py``; its ``lineage_id`` rides as a per-sequence
+batch key) and then, with a journal attached (``attach_journal``),
+appended to it before it becomes visible to ``wait`` / ``prepare_batch``,
+which journal its consumption when they pop it; ``replay_from_journal``
+re-injects what a dead trainer had accepted and not trained on. With
+``dump_trajectories`` each accepted trajectory is also written as JSONL.
+A failed append or dump is logged and never stops the rollout.
+
+Not ported here: the completion callback (``set_completion_callback``
+raises, ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 import uuid
@@ -39,6 +48,8 @@ from areal_tpu_torch.infra import workflow_context
 from areal_tpu_torch.infra.async_task_runner import AsyncTaskRunner, TaskFailed
 from areal_tpu_torch.infra.staleness_manager import StalenessManager
 from areal_tpu_torch.observability import catalog
+from areal_tpu_torch.observability import lineage as lineage_mod
+from areal_tpu_torch.observability import timeline as tl_mod
 from areal_tpu_torch.utils import perf_tracer, stats_tracker
 from areal_tpu_torch.utils.data import (
     TensorDict,
@@ -141,9 +152,17 @@ class WorkflowExecutor:
         self._thread: threading.Thread | None = None
         self._thread_exc: BaseException | None = None
         self._data_gen = None  # cached cycle_dataloader for prepare_batch
+        # optional: attach a tokenizer to get decoded text in trajectory dumps
+        self.tokenizer = None
         self._obs = catalog.executor_metrics()
         self._robust = catalog.robustness_metrics()
+        self._preempt_obs = catalog.preemption_metrics()
         self._inflight = 0  # launched, not yet completed (dispatcher-only)
+        # the durable trajectory journal (infra/trajectory_journal.py):
+        # accepted trajectories are appended with their version tags, and
+        # consumption is journaled at pop time, so a recovery knows what is
+        # replayable
+        self.journal = None
         # the preemption handler's event: once set, blocking waits raise
         # RolloutInterrupted
         self._interrupt: threading.Event | None = None
@@ -182,10 +201,11 @@ class WorkflowExecutor:
             raise RolloutInterrupted("rollout wait interrupted (preemption drain in progress)")
 
     def attach_journal(self, journal) -> None:
-        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3b")
-
-    def replay_from_journal(self, max_staleness: int | None = None) -> tuple[int, int]:
-        raise NotImplementedError("journal replay: ROADMAP Queue A item 3b")
+        """Attach a ``TrajectoryJournal``: every accepted train trajectory
+        is appended (with its per-token version tags) and every popped
+        batch is marked consumed, so a crashed trainer replays instead of
+        generating again."""
+        self.journal = journal
 
     def _version_stats(
         self, traj: TensorDict
@@ -207,6 +227,124 @@ class WorkflowExecutor:
         else:
             head = tail = cur
         return head, tail, max(0, cur - head), tail - head, tagged
+
+    def _journal_append(
+        self,
+        traj: TensorDict,
+        task_id: str,
+        ntok: int,
+        head_v: int,
+        tail_v: int,
+        lineage_meta: dict | None = None,
+    ) -> None:
+        if self.journal is None:
+            return
+        try:
+            self.journal.append_trajectory(traj, task_id, head_v, tail_v, ntok, lineage=lineage_meta)
+            if lineage_meta is not None:
+                lineage_mod.get_lineage().mark_journaled(int(lineage_meta.get("lineage_id", -1)))
+        except Exception:  # noqa: BLE001 — durability is best effort: a full
+            # disk degrades to the behaviour without a journal, it does not
+            # stop the rollout pipeline
+            logger.exception("trajectory journal append failed")
+
+    def _mark_consumed(self, task_ids: list[str]) -> None:
+        """A training batch popped these trajectories: stamp the lineage
+        ring with the consuming version and journal the consumption markers
+        (replay skips what a checkpointed step already trained on)."""
+        if not task_ids:
+            return
+        version = int(self.engine.get_version())
+        lineage_mod.get_lineage().mark_consumed(task_ids, version)
+        if self.journal is None:
+            return
+        try:
+            self.journal.mark_consumed(task_ids, version)
+        except Exception:  # noqa: BLE001 — see _journal_append
+            logger.exception("trajectory journal consume-mark failed")
+
+    def replay_from_journal(self, max_staleness: int | None = None) -> tuple[int, int]:
+        """Recovery: re-inject the journaled trajectories that are pending
+        (never consumed, or consumed by a step the crash destroyed) and
+        still inside the staleness bound. Restores the staleness manager's
+        accepted count so the capacity formula sees the replayed work.
+        Returns ``(n_replayed, n_dropped_stale)``."""
+        if self.journal is None:
+            return 0, 0
+        if max_staleness is None:
+            max_staleness = self.staleness.max_staleness
+        version = int(self.engine.get_version())
+        replayable, dropped_stale, n_consumed = self.journal.pending_for_replay(version, max_staleness)
+        n_stale = len(dropped_stale)
+        ring = lineage_mod.get_lineage()
+        for e in replayable:
+            self.staleness.observe_version_lag(version - e.head_version)
+            self.staleness.observe_version_span(e.tail_version - e.head_version)
+            # a fresh lineage record for this life (the old ring died with
+            # the old process); the provenance comes back from the frame's
+            # payload, and the stamped lineage_id is rewritten so the train
+            # step's attribution lands on the new record
+            lin = e.lineage or {}
+            lid = ring.register(
+                task_id=e.task_id,
+                replica=str(lin.get("replica", "")),
+                head_version=e.head_version,
+                tail_version=e.tail_version,
+                n_tokens=e.n_real_tokens,
+                reward=float(lin.get("reward", 0.0)),
+                journaled=True,
+            )
+            if "lineage_id" in e.traj or lin:
+                B = int(np.asarray(e.traj["attention_mask"]).shape[0])
+                e.traj["lineage_id"] = np.full(B, lid, np.int64)
+            with self._cv:
+                self._results.append((e.task_id, e.traj, e.n_real_tokens))
+                self._cv.notify_all()
+        # the accepted count only: the capacity formula re-tightens as before
+        # the crash without inflating this life's throughput counters
+        self.staleness.restore_accepted(len(replayable))
+        if replayable:
+            self._preempt_obs.journal_replayed.inc(len(replayable))
+        if n_stale:
+            self._preempt_obs.journal_dropped_stale.inc(n_stale)
+            # the counter says how many were dropped, the flight ring which
+            # ones and how far past the bound
+            flight = tl_mod.get_flight_recorder()
+            for e in dropped_stale:
+                flight.record(
+                    "journal_drop_stale",
+                    severity="warn",
+                    task_id=e.task_id,
+                    lag=version - e.head_version,
+                    bound=int(max_staleness),
+                    n_tokens=e.n_real_tokens,
+                )
+        logger.info(
+            f"journal replay: {len(replayable)} trajectories re-injected, "
+            f"{n_stale} dropped over-stale (bound {max_staleness}), "
+            f"{n_consumed} already consumed by checkpointed steps"
+        )
+        return len(replayable), n_stale
+
+    def _register_lineage(self, traj: TensorDict, task_id: str, head_v: int, tail_v: int, ntok: int) -> dict:
+        """Register an accepted trajectory on the lineage ring and stamp its
+        id as a per-sequence ``lineage_id`` batch key, which survives
+        batching, minibatch splits and grid packing, so the train step can
+        attribute its loss stats back to this task."""
+        B = int(np.asarray(traj["attention_mask"]).shape[0])
+        rewards = np.ravel(np.asarray(traj.get("rewards", np.zeros(B)), np.float32))
+        reward = float(rewards.mean()) if rewards.size else 0.0
+        replica = ",".join(list(getattr(self.engine, "addresses", []) or [])[:4]) or "inproc"
+        lid = lineage_mod.get_lineage().register(
+            task_id=task_id,
+            replica=replica,
+            head_version=head_v,
+            tail_version=tail_v,
+            n_tokens=ntok,
+            reward=reward,
+        )
+        traj["lineage_id"] = np.full(B, lid, np.int64)
+        return {"lineage_id": lid, "task_id": task_id, "replica": replica, "reward": reward}
 
     # -- dispatch loop ----------------------------------------------------
     def _dispatch_loop(self) -> None:
@@ -318,6 +456,11 @@ class WorkflowExecutor:
                     self.staleness.observe_version_span(span)
             with counter_cm:
                 tracker.scalar(rollout_accepted=1.0)
+            if self.config.dump_trajectories:
+                try:
+                    self._dump_trajectory(traj, task_id)
+                except Exception:  # noqa: BLE001 — dumping must never stop the rollout
+                    logger.exception("trajectory dump failed")
         else:
             if not is_eval:
                 self.staleness.on_reject()
@@ -330,6 +473,15 @@ class WorkflowExecutor:
         ntok = (
             int(np.asarray(traj["attention_mask"]).sum()) if accepted else 0
         )
+        if accepted and not is_eval:
+            head_v, tail_v, _lag, _span, _tagged = vstats
+            # lineage before the journal: the frame's payload carries the
+            # same provenance, so the record can be rebuilt from disk
+            lineage_meta = self._register_lineage(traj, task_id, head_v, tail_v, ntok)
+            # durable before visible: once a trajectory can be popped into a
+            # batch it is journaled, or a crash between the pop and the next
+            # dump would lose it
+            self._journal_append(traj, task_id, ntok, head_v, tail_v, lineage_meta)
         with self._cv:
             if rec is not None:
                 rec.result = traj if accepted else None
@@ -449,6 +601,60 @@ class WorkflowExecutor:
         if self._thread_exc is not None:
             raise RuntimeError("rollout dispatcher failed") from self._thread_exc
 
+    # -- trajectory dumps --------------------------------------------------
+    def _dump_dir(self) -> str:
+        if self.config.dump_dir:
+            return self.config.dump_dir
+        return os.path.join(
+            tempfile.gettempdir(),
+            "areal_tpu_torch",
+            "experiments",
+            self.config.experiment_name or "exp",
+            self.config.trial_name or "trial",
+            "generated",
+        )
+
+    def _dump_trajectory(self, traj: TensorDict, task_id: str) -> None:
+        """One JSONL record per sequence, under ``{dump_dir}/{tail_version}/``:
+        seqlen, prompt_len, the version span and the reward, plus the
+        decoded text when a tokenizer is attached (token ids otherwise)."""
+        input_ids = np.asarray(traj["input_ids"])
+        attn = np.asarray(traj["attention_mask"])
+        loss_mask = np.asarray(traj.get("loss_mask", np.ones_like(attn)))
+        rewards = np.asarray(traj.get("rewards", np.zeros(len(input_ids))))
+        head_v, tail_v, _lag, _span, _tagged = self._version_stats(traj)
+        version_dir = os.path.join(self._dump_dir(), str(tail_v))
+        os.makedirs(version_dir, exist_ok=True)
+        path = os.path.join(version_dir, f"{task_id}.jsonl")
+        with open(path, "a") as f:
+            for i in range(len(input_ids)):
+                seqlen = int(attn[i].sum())
+                if seqlen == 0:
+                    continue
+                ids = input_ids[i, :seqlen].tolist()
+                mask = loss_mask[i, :seqlen].tolist()
+                if not mask or mask[-1] != 1:
+                    continue  # no completion tokens
+                # only the leading 0-run is the prompt: multi-turn masks
+                # interleave 0-runs (injected turns) with 1-runs
+                prompt_end = next((j for j, m in enumerate(mask) if m == 1), seqlen)
+                rec = {
+                    "task_id": task_id,
+                    "sample_idx": i,
+                    "seqlen": seqlen,
+                    "prompt_len": prompt_end,
+                    "head_version": head_v,
+                    "tail_version": tail_v,
+                    "reward": float(np.ravel(rewards)[i]),
+                }
+                if self.tokenizer is not None:
+                    rec["prompt"] = self.tokenizer.decode(ids[:prompt_end])
+                    rec["completion"] = self.tokenizer.decode(ids[prompt_end:])
+                else:
+                    rec["prompt_ids"] = ids[:prompt_end]
+                    rec["completion_ids"] = ids[prompt_end:]
+                f.write(json.dumps(rec) + "\n")
+
     # -- public API (InferenceEngine rollout surface) ---------------------
     def submit(
         self,
@@ -490,6 +696,8 @@ class WorkflowExecutor:
                 self._results = self._results[count:]
             for tid, _, _ in out:
                 self._done_tasks.pop(tid, None)
+        if not is_eval:
+            self._mark_consumed([tid for tid, _, _ in out])
         return concat_padded_tensor_dicts([t for _, t, _ in out])
 
     def wait_for_task(self, task_id: str, timeout: float | None = None):
@@ -560,11 +768,13 @@ class WorkflowExecutor:
                         self._results = self._results[n_take:]
                         for tid, _, _ in out:
                             self._done_tasks.pop(tid, None)
+                        self._mark_consumed([tid for tid, _, _ in out])
                         return concat_padded_tensor_dicts([t for _, t, _ in out])
                 elif len(self._results) >= bs:
                     out, self._results = self._results[:bs], self._results[bs:]
                     for tid, _, _ in out:
                         self._done_tasks.pop(tid, None)
+                    self._mark_consumed([tid for tid, _, _ in out])
                     return concat_padded_tensor_dicts([t for _, t, _ in out])
                 # _on_result notifies _cv on every completion (which is also
                 # when capacity frees up); the short timeout re-checks

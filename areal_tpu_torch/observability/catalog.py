@@ -6,9 +6,10 @@ engine's ``engine_metrics``, ``kernel_metrics``, ``prefix_cache_metrics``,
 ``timeline_metrics`` and the flight recorder's ``flight_metrics``, the
 server's ``server_metrics``, ``client_metrics``, ``robustness_metrics``,
 ``preemption_metrics``, ``autopilot_metrics``, and the trainer loop's
-``trainer_metrics`` and ``train_obs_metrics`` (the latter without the XLA
-compile counters, which have no PyTorch counterpart). The other families
-wait for the modules that register them (ROADMAP Queue A items 3, 7 and 8).
+``trainer_metrics``, ``train_obs_metrics`` (without the XLA compile
+counters, which have no PyTorch counterpart) and
+``learning_health_metrics``. The other families wait for the modules that
+register them (ROADMAP Queue A items 7 and 8).
 ``register_all`` instantiates them in the JAX catalog's order.
 
 Factories are idempotent (the registry dedups by name).
@@ -395,6 +396,93 @@ def client_metrics(reg: Registry | None = None) -> SimpleNamespace:
     )
 
 
+def learning_health_metrics(reg: Registry | None = None) -> SimpleNamespace:
+    """The learning-health observatory: decoupled-PPO loss diagnostics
+    conditioned on per-token version lag, computed by ``grpo_loss_fn`` on
+    the device and exported once per ``ppo_update``, and the trajectory
+    lineage ring's counters. The ``lag_bucket`` label values are the
+    staleness manager's taxonomy (``0 | 1 | 2 | 4+``); gauges carry the
+    last step's view, the ``*_total`` counters a windowable one."""
+    r = reg or get_registry()
+    return SimpleNamespace(
+        clip_ratio=r.gauge(
+            "areal_train_lag_clip_ratio",
+            "Fraction of the bucket's valid tokens whose PPO ratio was "
+            "clipped in the last update (1.0 = the bucket contributes no "
+            "gradient), by version-lag bucket.",
+            label_names=("lag_bucket",),
+        ),
+        behave_kl=r.gauge(
+            "areal_train_lag_behave_kl",
+            "Mean behave approx-KL (|log pi_prox - log pi_behave|) of the "
+            "bucket's uncapped tokens in the last update — how far the "
+            "policy moved since the tokens were generated, by lag bucket.",
+            label_names=("lag_bucket",),
+        ),
+        approx_kl=r.gauge(
+            "areal_train_lag_approx_kl",
+            "Mean approx-KL (log pi_theta - log pi_prox) of the bucket's "
+            "valid tokens in the last update, by lag bucket.",
+            label_names=("lag_bucket",),
+        ),
+        imp_weight=r.gauge(
+            "areal_train_lag_behave_imp_weight",
+            "Mean behave importance weight of the bucket's uncapped "
+            "tokens in the last update, by lag bucket.",
+            label_names=("lag_bucket",),
+        ),
+        cap_hit=r.gauge(
+            "areal_train_lag_cap_hit_share",
+            "Fraction of the bucket's valid tokens whose behave "
+            "importance weight hit behav_imp_weight_cap (dead weight: "
+            "masked out of the loss), by lag bucket.",
+            label_names=("lag_bucket",),
+        ),
+        token_share=r.gauge(
+            "areal_train_lag_token_share",
+            "The bucket's share of the last update's valid tokens, by lag "
+            "bucket (shares sum to 1 when version tags are present).",
+            label_names=("lag_bucket",),
+        ),
+        tokens_total=r.counter(
+            "areal_train_lag_tokens_total",
+            "Valid loss tokens trained, by version-lag bucket (the "
+            "windowable denominator for the autopilot's learning-health "
+            "guard).",
+            label_names=("lag_bucket",),
+        ),
+        clipped_total=r.counter(
+            "areal_train_lag_clipped_total",
+            "Clipped loss tokens trained, by version-lag bucket.",
+            label_names=("lag_bucket",),
+        ),
+        capped_total=r.counter(
+            "areal_train_lag_capped_total",
+            "Loss tokens masked out at behav_imp_weight_cap, by version-lag "
+            "bucket (the cap-hit tail as a windowable counter).",
+            label_names=("lag_bucket",),
+        ),
+        behave_kl_sum=r.counter(
+            "areal_train_lag_behave_kl_sum_total",
+            "Sum of behave approx-KL over trained tokens, by lag bucket "
+            "(divide a window's delta by the tokens_total delta for the "
+            "windowed mean the guard acts on).",
+            label_names=("lag_bucket",),
+        ),
+        lineage_records=r.counter(
+            "areal_lineage_records_total",
+            "Trajectory lineage records registered (one per accepted "
+            "train trajectory; observability/lineage.py ring).",
+        ),
+        lineage_joined=r.counter(
+            "areal_lineage_joined_total",
+            "Lineage records joined to training-step loss stats (the "
+            "generate->journal->consume->update chain closed for that "
+            "trace id).",
+        ),
+    )
+
+
 def robustness_metrics(reg: Registry | None = None) -> SimpleNamespace:
     """The fault-tolerance layer: retries and task retry / quarantine here;
     circuits, supervision and chaos with ROADMAP Queue A item 8."""
@@ -460,9 +548,8 @@ def robustness_metrics(reg: Registry | None = None) -> SimpleNamespace:
 
 
 def preemption_metrics(reg: Registry | None = None) -> SimpleNamespace:
-    """Preemption tolerance, checkpoint saves and the trajectory journal
-    (the journal: ROADMAP Queue A item 3b): graceful-drain visibility
-    across trainer and serving roles."""
+    """Preemption tolerance, checkpoint saves and the trajectory journal:
+    graceful-drain visibility across trainer and serving roles."""
     r = reg or get_registry()
     return SimpleNamespace(
         preemptions=r.counter(
@@ -712,6 +799,7 @@ ALL_FACTORIES = (
     client_metrics,
     trainer_metrics,
     train_obs_metrics,
+    learning_health_metrics,
     robustness_metrics,
     preemption_metrics,
     autopilot_metrics,

@@ -12,9 +12,17 @@ factor ``prox_alpha`` is computed on the host from the per-token versions.
 ``ppo_actor/`` (the batch's reward, lengths and advantages, then each
 minibatch's training stats), which ``PPOTrainer`` commits every step.
 
-Left out: the learning-health and lineage exports of the JAX trainer
-(per-lag-bucket loss stats, per-sequence loss attribution), ROADMAP Queue
-A item 3b; and the critic (``PPOCritic``, item 3c).
+The learning-health observatory: with ``version_lag`` in the batch,
+``grpo_loss_fn`` adds per-lag-bucket loss stats (``lag_{bucket}/*``,
+masked reductions on the device that ride the engine's one transfer per
+step; ``_finalize_lag_stats`` turns them into ratios after the engine's
+microbatch fold); with the engine's segment map it adds per-sequence
+``seq__*`` sums. ``ppo_update`` exports the buckets as the
+``areal_train_lag_*{lag_bucket}`` metrics and joins each trajectory's
+clip fraction and behave KL onto its lineage record
+(``observability/lineage.py``).
+
+Left out: the critic (``PPOCritic``, ROADMAP Queue A item 3c).
 """
 
 from __future__ import annotations
@@ -23,6 +31,9 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.api.config import PPOActorConfig
+from areal_tpu_torch.infra.staleness_manager import LAG_BUCKET_LABELS
+from areal_tpu_torch.observability import catalog as obs_catalog
+from areal_tpu_torch.observability import lineage as lineage_mod
 from areal_tpu_torch.ops import functional as F
 from areal_tpu_torch.utils import stats_tracker
 from areal_tpu_torch.utils.data import (
@@ -32,6 +43,114 @@ from areal_tpu_torch.utils.data import (
     split_padded_tensor_dict_into_mb_list,
 )
 from areal_tpu_torch.utils.data import roll_to_label_alignment as _roll_back
+
+
+def _lag_bucket_stats(version_lag: torch.Tensor, lmf: torch.Tensor, denom: torch.Tensor, stat: dict) -> dict:
+    """Staleness-conditioned loss diagnostics (``ppo.py:43``): per-lag-bucket
+    clip fraction, approx-KL, behave importance weight, cap-hit tail and
+    token share, as masked reductions over the packed grid. All outputs are
+    scalars, so they ride the engine's one device -> host transfer per step.
+
+    The identity: for clip_ratio and approx_kl, the token-share-weighted
+    sum over the buckets is the batch-wide scalar; the behave stats
+    recompose through ``behave_share``. The buckets partition the valid
+    tokens; unknown lags (< 0) fall into "0".
+
+    Every output is normalized by the same ``denom`` (the microbatch's
+    valid tokens, also the engine's fold weight), so the engine's weighted
+    fold recombines them exactly across a ``max_tokens_per_mb`` split; the
+    per-bucket ratios are quotients of these, taken on the host after the
+    fold (``_finalize_lag_stats``)."""
+    lag = torch.clamp(version_lag, min=0)
+    # the edges of staleness_manager.lag_bucket_index (0 / 1 / 2 / 4+)
+    bucket = torch.where(lag >= 4, 3, torch.where(lag >= 2, 2, torch.where(lag >= 1, 1, 0)))
+    clip_f = stat["clip_mask"].float()
+    behave = "behave_mask" in stat
+    if behave:
+        behave_f = stat["behave_mask"].float()
+        imp_w = stat["behave_imp_weight"].detach()
+        bkl = stat["behave_approx_kl"].detach()
+    akl = stat["approx_kl"].detach()
+    out: dict[str, torch.Tensor] = {}
+    for i, label in enumerate(LAG_BUCKET_LABELS):
+        bm = lmf * (bucket == i)
+        out[f"lag_{label}/token_share"] = bm.sum() / denom
+        out[f"lag_{label}/clip_frac"] = (clip_f * bm).sum() / denom
+        out[f"lag_{label}/kl_frac"] = (akl * bm).sum() / denom
+        if behave:
+            bb = behave_f * bm  # uncapped tokens in this bucket
+            out[f"lag_{label}/behave_frac"] = bb.sum() / denom
+            out[f"lag_{label}/imp_weight_frac"] = (imp_w * bb).sum() / denom
+            out[f"lag_{label}/behave_kl_frac"] = (bkl * bb).sum() / denom
+            # the magnitude twin of the signed mean above: the signed one
+            # recomposes the batch scalar, the absolute one is the drift
+            # signal the metrics export
+            out[f"lag_{label}/behave_abs_kl_frac"] = (torch.abs(bkl) * bb).sum() / denom
+            out[f"lag_{label}/cap_frac"] = (bm - bb).sum() / denom
+    return out
+
+
+def _finalize_lag_stats(stats: dict[str, float]) -> dict[str, float]:
+    """The host half of ``_lag_bucket_stats`` (``ppo.py:110``): turn the
+    fold-safe ``*_frac`` stats into the per-bucket ratios (clip_ratio,
+    approx_kl, behave_*, cap_hit_share) after the engine's fold, so each
+    quotient's numerator and denominator folded exactly. The batch-wide
+    behave scalars are re-derived from the bucket pieces (which partition
+    the behave mask), so the identity closes on both sides. The internal
+    ``*_frac`` keys are consumed; a no-op without the lag families."""
+    if "lag_0/token_share" not in stats:
+        return stats
+    out = dict(stats)
+    behave_total = sum(out.get(f"lag_{label}/behave_frac", 0.0) for label in LAG_BUCKET_LABELS)
+    if behave_total > 0:
+        out["behave_approx_kl"] = (
+            sum(out.get(f"lag_{label}/behave_kl_frac", 0.0) for label in LAG_BUCKET_LABELS) / behave_total
+        )
+        out["behave_imp_weight"] = (
+            sum(out.get(f"lag_{label}/imp_weight_frac", 0.0) for label in LAG_BUCKET_LABELS) / behave_total
+        )
+    for label in LAG_BUCKET_LABELS:
+        share = out[f"lag_{label}/token_share"]
+        d = share if share > 0 else 1.0
+        out[f"lag_{label}/clip_ratio"] = out.pop(f"lag_{label}/clip_frac", 0.0) / d
+        out[f"lag_{label}/approx_kl"] = out.pop(f"lag_{label}/kl_frac", 0.0) / d
+        if f"lag_{label}/behave_frac" in out:
+            bfrac = out.pop(f"lag_{label}/behave_frac")
+            bd = bfrac if bfrac > 0 else 1.0
+            out[f"lag_{label}/behave_imp_weight"] = out.pop(f"lag_{label}/imp_weight_frac", 0.0) / bd
+            out[f"lag_{label}/behave_approx_kl"] = out.pop(f"lag_{label}/behave_kl_frac", 0.0) / bd
+            out[f"lag_{label}/behave_abs_kl"] = out.pop(f"lag_{label}/behave_abs_kl_frac", 0.0) / bd
+            out[f"lag_{label}/behave_share"] = bfrac / (behave_total if behave_total > 0 else 1.0)
+            out[f"lag_{label}/cap_hit_share"] = out.pop(f"lag_{label}/cap_frac", 0.0) / d
+    return out
+
+
+def _per_sequence_stats(b: dict, lmf: torch.Tensor, stat: dict) -> dict:
+    """Per-trajectory loss attribution through the packed grid's segment map
+    (``ppo.py:172``): ``seq_slot`` maps each cell to its grid-local
+    sequence slot (-1 = padding, summed into a trash slot that is dropped),
+    and the length of ``seq_slots`` is the slot count. ``index_add_`` into
+    ``nseq + 1`` slots; the arrays ride the engine's one transfer per step,
+    and the engine maps them back to the input's sequences
+    (``last_seq_stats``) for the lineage ring."""
+    nseq = b["seq_slots"].shape[0]
+    slot = b["seq_slot"].reshape(-1).long()
+    slot = torch.where(slot < 0, torch.full_like(slot, nseq), slot)
+
+    def seg(x: torch.Tensor) -> torch.Tensor:
+        x = x.detach().reshape(-1).float()
+        return torch.zeros(nseq + 1, dtype=x.dtype, device=x.device).index_add_(0, slot, x)[:nseq]
+
+    out = {
+        "seq__tokens": seg(lmf),
+        "seq__clipped": seg(stat["clip_mask"].float()),
+    }
+    if "behave_mask" in stat:
+        bf = stat["behave_mask"].float()
+        out["seq__behave_tokens"] = seg(bf)
+        # absolute: the trajectory's drift magnitude
+        out["seq__behave_kl_sum"] = seg(torch.abs(stat["behave_approx_kl"].detach()) * bf)
+    return out
 
 
 def grpo_loss_fn(outputs: dict, b: dict, cfg: PPOActorConfig):
@@ -110,7 +229,97 @@ def grpo_loss_fn(outputs: dict, b: dict, cfg: PPOActorConfig):
         stats["unclipped_behave_ratio"] = stat["behave_mask"].float().sum() / denom
     if "sapo_soft_gate" in stat:
         stats["sapo_soft_gate"] = tok_mean(stat["sapo_soft_gate"])
+    # the learning-health observatory: staleness-conditioned stats and the
+    # per-trajectory attribution the lineage ring joins on, emitted only
+    # when the batch carries the host-prepared keys
+    if "version_lag" in b:
+        stats.update(_lag_bucket_stats(b["version_lag"], lmf, denom, stat))
+    if "seq_slot" in b and "seq_slots" in b:
+        stats.update(_per_sequence_stats(b, lmf, stat))
     return loss, stats
+
+
+def _export_learning_health(all_stats: list[dict[str, float]], weights: list[float] | None = None) -> None:
+    """Fold one update's minibatch stats into the ``areal_train_lag_*
+    {lag_bucket}`` metrics (``ppo.py:298``): gauges carry this step's
+    token-weighted view, counters accumulate token-weighted sums. The
+    minibatches are weighted by their host loss weight (valid tokens, the
+    weight the engine folds by), so a one-minibatch update recomposes the
+    batch scalars exactly and the counters track the tokens trained."""
+    keep = [
+        (s, w)
+        for s, w in zip(all_stats, weights if weights is not None else [s.get("n_valid_tokens", 0.0) for s in all_stats])
+        if "lag_0/token_share" in s
+    ]
+    if not keep:
+        return
+    stats = [s for s, _ in keep]
+    m = obs_catalog.learning_health_metrics()
+    total_tokens = sum(w for _, w in keep) or 1.0
+    for label in LAG_BUCKET_LABELS:
+        tok = [w * s.get(f"lag_{label}/token_share", 0.0) for s, w in keep]
+        ntok = sum(tok)
+        d = max(ntok, 1.0)
+        clip = sum(t * s.get(f"lag_{label}/clip_ratio", 0.0) for t, s in zip(tok, stats)) / d
+        akl = sum(t * s.get(f"lag_{label}/approx_kl", 0.0) for t, s in zip(tok, stats)) / d
+        m.token_share.labels(lag_bucket=label).set(ntok / total_tokens)
+        m.clip_ratio.labels(lag_bucket=label).set(clip)
+        m.approx_kl.labels(lag_bucket=label).set(akl)
+        m.tokens_total.labels(lag_bucket=label).inc(ntok)
+        m.clipped_total.labels(lag_bucket=label).inc(clip * ntok)
+        if any(f"lag_{label}/behave_approx_kl" in s for s in stats):
+            cap = sum(t * s.get(f"lag_{label}/cap_hit_share", 0.0) for t, s in zip(tok, stats)) / d
+            btok = [t * (1.0 - s.get(f"lag_{label}/cap_hit_share", 0.0)) for t, s in zip(tok, stats)]
+            nb = max(sum(btok), 1.0)
+            bkl = sum(bt * s.get(f"lag_{label}/behave_abs_kl", 0.0) for bt, s in zip(btok, stats)) / nb
+            biw = sum(bt * s.get(f"lag_{label}/behave_imp_weight", 0.0) for bt, s in zip(btok, stats)) / nb
+            m.cap_hit.labels(lag_bucket=label).set(cap)
+            m.behave_kl.labels(lag_bucket=label).set(bkl)
+            m.imp_weight.labels(lag_bucket=label).set(biw)
+            m.capped_total.labels(lag_bucket=label).inc(cap * ntok)
+            m.behave_kl_sum.labels(lag_bucket=label).inc(bkl * sum(btok))
+
+
+def _accumulate_lineage(
+    acc: dict[int, dict[str, float]], lineage_ids: np.ndarray, seq_stats: dict[str, np.ndarray]
+) -> None:
+    """Fold one minibatch's per-sequence loss attribution (the engine's
+    ``last_seq_stats``) onto lineage ids. A GRPO group's sequences share
+    one lineage id, so this is also the group -> trajectory sum."""
+    toks = seq_stats.get("seq__tokens")
+    if toks is None:
+        return
+    clipped = seq_stats.get("seq__clipped")
+    btok = seq_stats.get("seq__behave_tokens")
+    bkl = seq_stats.get("seq__behave_kl_sum")
+    for i, lid in enumerate(np.ravel(np.asarray(lineage_ids))):
+        lid = int(lid)
+        if lid < 0 or i >= len(toks):
+            continue
+        a = acc.setdefault(lid, {"tokens": 0.0, "clipped": 0.0, "behave_tokens": 0.0, "behave_kl_sum": 0.0})
+        a["tokens"] += float(toks[i])
+        if clipped is not None:
+            a["clipped"] += float(clipped[i])
+        if btok is not None:
+            a["behave_tokens"] += float(btok[i])
+        if bkl is not None:
+            a["behave_kl_sum"] += float(bkl[i])
+
+
+def _commit_lineage(acc: dict[int, dict[str, float]], version: int) -> None:
+    """Join the update's per-trajectory loss stats onto the lineage ring:
+    the train end of the generate -> journal -> consume -> update chain."""
+    if not acc:
+        return
+    ring = lineage_mod.get_lineage()
+    for lid, a in acc.items():
+        ring.record_train(
+            lid,
+            version=version,
+            tokens=a["tokens"],
+            clip_fraction=a["clipped"] / max(a["tokens"], 1.0),
+            behave_kl=a["behave_kl_sum"] / max(a["behave_tokens"], 1.0) if a["behave_tokens"] else None,
+        )
 
 
 class PPOActor:
@@ -279,7 +488,9 @@ class PPOActor:
     # -- update ------------------------------------------------------------
     def ppo_update(self, data: TensorDict) -> list[dict[str, float]]:
         """``ppo_n_minibatches`` optimizer steps over a balanced split of the
-        batch; returns each minibatch's ``train_batch`` stats."""
+        batch; returns each minibatch's ``train_batch`` stats (lag buckets
+        finalized), exports the learning-health metrics and joins the
+        trajectories' loss stats onto the lineage ring."""
         cfg = self.config
         data = dict(data)
         reward_score = np.asarray(data.get("rewards", np.zeros(1)), np.float32)
@@ -301,13 +512,24 @@ class PPOActor:
             data, MicroBatchSpec(n_mbs=cfg.ppo_n_minibatches)
         )
         all_stats = []
+        mb_weights = []
+        consuming_version = int(self.engine.get_version())
+        lineage_acc: dict[int, dict[str, float]] = {}
         for mb in mb_list.mbs:
-            train_stat = self.engine.train_batch(
-                mb,
-                loss_fn=self._loss_fn,
-                loss_weight_fn=lambda x: float((np.asarray(x["loss_mask"]) > 0).sum()),
+            train_stat = _finalize_lag_stats(
+                self.engine.train_batch(
+                    mb,
+                    loss_fn=self._loss_fn,
+                    loss_weight_fn=lambda x: float((np.asarray(x["loss_mask"]) > 0).sum()),
+                )
             )
+            mb_weights.append(float((np.asarray(mb["loss_mask"]) > 0).sum()))
+            seq_stats = getattr(self.engine, "last_seq_stats", None)
+            if seq_stats and "lineage_id" in mb:
+                _accumulate_lineage(lineage_acc, np.asarray(mb["lineage_id"]), seq_stats)
             with stats_tracker.scope("ppo_actor"):
                 stats_tracker.get().scalar(**train_stat)
             all_stats.append(train_stat)
+        _export_learning_health(all_stats, mb_weights)
+        _commit_lineage(lineage_acc, consuming_version)
         return all_stats

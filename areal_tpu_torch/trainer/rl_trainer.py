@@ -23,12 +23,22 @@ one. Each step ends with ``saver.maybe_save`` (an HF checkpoint when due)
 and then an asynchronous recover dump. With ``preemption.enabled`` (the
 default) SIGTERM / SIGUSR1 only set a flag: the loop stops at the next step
 boundary or aborts its rollout wait, dumps the last completed step
-synchronously, sets ``preempted`` and returns.
+synchronously, seals the trajectory journal, dumps the lineage ring, sets
+``preempted`` and returns.
+
+The trajectory journal (``rollout.journal.enabled``,
+``rl_trainer.py:220-253``): built from the config and attached to the
+rollout client; on a recovered start the journaled trajectories still
+inside ``max_head_offpolicyness`` replay into the batch queue, so the
+relaunch's first batch is the work the dead trainer had accepted and not
+trained on. After each recover dump the journal drops the segments that
+the previous dump covers (the GC lags one recover generation). ``close``
+seals the journal and dumps the lineage ring.
 
 Refused at construction with ``NotImplementedError`` naming the ROADMAP
 Queue A item it waits for: a critic (item 3c), ``allocation_mode`` (item
-6), a ``cluster.name_resolve.type`` other than "memory" (item 8), the
-trajectory journal (item 3b) and the q8 wire (item 4).
+6), a ``cluster.name_resolve.type`` other than "memory" (item 8) and the
+q8 wire (item 4).
 
 ``compile_cache.install_compile_counters`` counts XLA compilations and has
 no PyTorch counterpart: it is left out.
@@ -49,8 +59,10 @@ import numpy as np
 from areal_tpu_torch.api.config import PPOConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
 from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+from areal_tpu_torch.infra.trajectory_journal import journal_from_config
 from areal_tpu_torch.infra.workflow_executor import RolloutInterrupted
 from areal_tpu_torch.observability import catalog as obs_catalog
+from areal_tpu_torch.observability import lineage as lineage_mod
 from areal_tpu_torch.observability import step_timeline
 from areal_tpu_torch.robustness.preemption import PreemptionHandler
 from areal_tpu_torch.trainer.ppo import PPOActor
@@ -88,8 +100,6 @@ def check_supported(config: PPOConfig) -> None:
         raise NotImplementedError(
             f"name_resolve.type={config.cluster.name_resolve.type!r} (server discovery): ROADMAP Queue A item 8"
         )
-    if config.rollout.journal.enabled:
-        raise NotImplementedError("the trajectory journal: ROADMAP Queue A item 3b")
     mode = config.weight_update_mode or config.actor.weight_update_mode
     if mode not in ("disk", "mem"):
         raise ValueError(f"weight_update_mode={mode!r}; valid: disk|mem")
@@ -188,6 +198,33 @@ class PPOTrainer:
             weight_update_meta=self.weight_update_meta,
         )
 
+        # the durable trajectory journal: accepted but unconsumed rollouts
+        # survive the trainer's death; on a recovered start the in-bound
+        # entries replay into the batch queue instead of being generated again
+        self.journal = journal_from_config(
+            config.rollout.journal,
+            fileroot=config.cluster.fileroot,
+            experiment=config.experiment_name,
+            trial=config.trial_name,
+        )
+        self.last_replay: dict | None = None
+        if self.journal is not None and hasattr(self.rollout, "attach_journal"):
+            self.rollout.attach_journal(self.journal)
+            if self.recover_info is not None and hasattr(self.rollout, "replay_from_journal"):
+                t_replay = time.monotonic()
+                replayed, dropped = self.rollout.replay_from_journal(config.rollout.max_head_offpolicyness)
+                self.last_replay = dict(replayed=replayed, dropped=dropped, s=time.monotonic() - t_replay)
+                if replayed or dropped:
+                    logger.info(
+                        f"recovered {replayed} journaled trajectories ({dropped} over-stale dropped) in "
+                        f"{self.last_replay['s']:.2f}s: rollout regeneration saved"
+                    )
+        # the journal's GC lags one recover generation: segments consumed
+        # below this version are durable inside a checkpoint load() reaches
+        self._journal_gc_version = (
+            self.recover_info.last_step_info.global_step + 1 if self.recover_info is not None else 0
+        )
+
         # preemption: the signal handler only sets an event; the step loop
         # polls it at phase boundaries and the executor's waits abort on it
         self.preempted = False
@@ -206,9 +243,9 @@ class PPOTrainer:
     def _handle_preemption(self, last_completed: StepInfo | None) -> None:
         """The grace-window drain (``rl_trainer.py:297``): stop rollout
         submissions, dump the last completed step synchronously and
-        durably, and mark the trial preempted; the caller leaves the loop
-        and a relaunch resumes from the dump. The journal's seal and the
-        lineage dump wait for the journal (ROADMAP Queue A item 3b)."""
+        durably, seal the trajectory journal, dump the lineage ring, and
+        mark the trial preempted; the caller leaves the loop and a relaunch
+        resumes from the dump and replays the journal."""
         self.preemption.note_draining()
         t0 = time.monotonic()
         self.rollout.pause()
@@ -226,12 +263,26 @@ class PPOTrainer:
                 # recovers the trial; dying in the grace window without an
                 # exit is the one path that must not happen
                 logger.exception("emergency recover dump failed")
+        if self.journal is not None:
+            self.journal.seal_active()
+        self._dump_lineage("preempt")
         self.preemption.note_drained(time.monotonic() - t0)
         self.preempted = True
         logger.warning("trainer preempted: emergency state durable, rollout paused; leaving the step loop")
 
     def _on_profile_signal(self, signum, frame) -> None:
         self._profile_requested.set()  # flag only: the step loop does the work
+
+    def _dump_lineage(self, reason: str) -> None:
+        """Persist the trajectory-lineage ring beside the flight recorder's
+        dumps (``lineage.default_dump_path``)."""
+        ring = lineage_mod.get_lineage()
+        if not ring.recent(1):
+            return  # nothing recorded: no dump file
+        try:
+            ring.dump(lineage_mod.default_dump_path(reason), reason)
+        except OSError:
+            logger.exception("trajectory lineage dump failed")
 
     # -- step loop --------------------------------------------------------
     def train(self, workflow: Any = None, eval_workflow: Any = None, dynamic_filter_fn: Callable | None = None) -> None:
@@ -276,12 +327,15 @@ class PPOTrainer:
                     )
             except RolloutInterrupted:
                 # the signal landed during the rollout wait: abort this step
+                # (the accepted work is journaled and replays after a relaunch)
                 self.step_recorder.abandon(tl)
                 self._handle_preemption(last_completed)
                 return
             if self._preempt_requested():
                 # the batch is ready, but training and the weight push can
-                # outlast the grace window: abort the step
+                # outlast the grace window: abort the step; the popped batch
+                # replays from the journal (its consumption marker post-dates
+                # the dump)
                 self.step_recorder.abandon(tl)
                 self._handle_preemption(last_completed)
                 return
@@ -321,7 +375,7 @@ class PPOTrainer:
             t_save = time.monotonic()
             with tl.phase("ckpt_eval"), perf_tracer.trace_scope("train.save", Category.IO):
                 self.saver.maybe_save(self.actor_engine, epoch, step, global_step, self.tokenizer)
-                self.recover_handler.dump(
+                dumped = self.recover_handler.dump(
                     self.actor_engine,
                     StepInfo(epoch=epoch, epoch_step=step, global_step=global_step, steps_per_epoch=steps_per_epoch),
                     saver=self.saver,
@@ -330,6 +384,13 @@ class PPOTrainer:
                     tokenizer=self.tokenizer,
                     async_=True,
                 )
+                if dumped is not None and self.journal is not None:
+                    # drop the segments consumed by steps the previous dump
+                    # covers (this dump's write may still be in flight; the
+                    # lag keeps the GC safe if it fails and recovery falls
+                    # back a generation)
+                    self.journal.gc(self._journal_gc_version)
+                    self._journal_gc_version = new_version
             save_secs = time.monotonic() - t_save
             # resume before eval: the default eval client is the training
             # client, whose dispatcher skips submissions while paused
@@ -403,6 +464,9 @@ class PPOTrainer:
             self.recover_handler.saver.wait_async()
         except RuntimeError:
             logger.exception("async checkpoint write failed during close")
+        if self.journal is not None:
+            self.journal.close()
+        self._dump_lineage("close")
         if self.preemption is not None:
             self.preemption.uninstall()
         if self._prev_sigusr2 is not None:

@@ -19,7 +19,9 @@ class Grid:
     """One packed microbatch of fixed [G, L] shape: per-token keys as
     [G, L] arrays, per-sequence keys as [n_seqs] arrays in pack order;
     ``row_of_seq``/``col_of_seq`` locate each sequence and ``seq_index``
-    maps pack order -> index in the batch ``pack_grid`` was given."""
+    maps pack order -> index in the batch ``pack_grid`` was given;
+    ``source_index`` (set by the train engine) maps it to the index in the
+    engine's input when the grid packs a sub-batch."""
 
     data: TensorDict
     n_rows: int
@@ -28,6 +30,7 @@ class Grid:
     row_of_seq: list[int]
     col_of_seq: list[int]
     seq_lens: list[int]
+    source_index: list[int] | None = None
 
 
 def pack_grid(data: TensorDict, row_len: int) -> Grid:

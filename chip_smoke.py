@@ -3741,14 +3741,20 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
     """``PPOTrainer.train`` over HTTP against the port's server, three global
     steps of Qwen2.5-1.5B; ``train``: the train phase's result, whose
     in-process trainer tokens/s is printed beside this loop's."""
+    import shutil
+
     from areal_tpu_torch.api.config import (DatasetConfig, InferenceEngineConfig, NormConfig, OptimizerConfig,
-                                            PPOActorConfig, PPOConfig, PreemptionConfig, ServerConfig)
+                                            PPOActorConfig, PPOConfig, PreemptionConfig, ServerConfig,
+                                            TrajectoryJournalConfig)
     from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
     from areal_tpu_torch.inference.client import RemoteTorchEngine
     from areal_tpu_torch.inference.decode_engine import DecodeEngine
     from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.infra.staleness_manager import LAG_BUCKET_LABELS
     from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.observability import lineage
+    from areal_tpu_torch.observability.metrics import get_registry
     from areal_tpu_torch.ops import attention as fa
     from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
     from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
@@ -3810,6 +3816,8 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
     client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
     client.initialize()
     gconfig = GenerationHyperparameters(n_samples=group, max_new_tokens=n_new, temperature=1.0)
+    shutil.rmtree(GRPO_ROOT, ignore_errors=True)
+    jdir = os.path.join(GRPO_ROOT, "journal")
     cfg = PPOConfig(
         experiment_name="chip-smoke",
         trial_name="grpo",
@@ -3819,6 +3827,8 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
         gconfig=gconfig,
         train_dataset=DatasetConfig(batch_size=batch_prompts),
         actor=acfg,
+        # the journal as it ships: an fsync per append, on the dispatcher thread
+        rollout=InferenceEngineConfig(**GRPO_CLIENT, journal=TrajectoryJournalConfig(enabled=True, dir=jdir)),
     )
     rng = np.random.default_rng(0)
     dataset = [{"prompt_ids": rng.integers(0, mcfg.vocab_size, int(n)).tolist()}
@@ -3851,6 +3861,30 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
 
     client.prepare_batch, loop.actor.compute_logp, trainer.train_batch = (prepare_logged, compute_logp_logged,
                                                                         train_batch_logged)
+    # the journal's appends (timed: pickling, the write and its fsync) and
+    # frame bytes, and each minibatch's finalized stats (the lag buckets)
+    appends: list[float] = []
+    frame_bytes: list[int] = []
+    append, append_frame, ppo_update = loop.journal.append_trajectory, loop.journal._append_frame, loop.actor.ppo_update
+    mb_stats: list[dict] = []
+
+    def append_timed(*a, **k):
+        t = time.monotonic()
+        append(*a, **k)
+        appends.append(time.monotonic() - t)
+
+    def append_frame_sized(kind, version, task_id, payload):
+        if kind == b"T":
+            frame_bytes.append(len(payload))
+        return append_frame(kind, version, task_id, payload)
+
+    def ppo_update_recorded(data):
+        out = ppo_update(data)
+        mb_stats.extend(out)
+        return out
+
+    loop.journal.append_trajectory, loop.journal._append_frame = append_timed, append_frame_sized
+    loop.actor.ppo_update = ppo_update_recorded
     # the staging window's two halves: encoding (the encoder thread: the
     # cast to bf16 on the card and the copy into the body) and posting
     stage_parts: dict[str, float] = {"encode": 0.0, "post": 0.0}
@@ -3942,10 +3976,14 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
         stop.set()
         sampler.join(timeout=10)
         staged_bytes = client._metrics.update_bytes.get() - bytes0
+        prom = get_registry().render_prometheus()
     finally:
         stop.set()
         loop.close()
         srv.stop()
+    seg_bytes = _dir_bytes(jdir)
+    n_appended = loop.journal.stats()["appended"]
+    shutil.rmtree(GRPO_ROOT, ignore_errors=True)
 
     # checks
     if len(per_step) != GRPO_STEPS or len(commits) != GRPO_STEPS:
@@ -3966,6 +4004,30 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
                          for j in range(n_rows)))
     if not gaps[0] <= LOGPROB_TOL:
         raise AssertionError(f"[grpo] the trainer's logprobs vs the served ones on batch 0: {gaps[0]:.4f}")
+    # the lineage: every consumed trajectory journaled, consumed and trained
+    # at the version of its step
+    ring, n_traj = lineage.get_lineage(), 0
+    for i, (b, v) in enumerate(batches):
+        for lid in dict.fromkeys(np.asarray(b["lineage_id"]).tolist()):
+            rec, n_traj = ring.get(int(lid)), n_traj + 1
+            if rec is None or not rec.journaled or rec.consumed_version != v or rec.trained_version != v or (
+                    rec.consumed_ts is None or rec.trained_ts is None or rec.clip_fraction is None):
+                raise AssertionError(f"[grpo] batch {i}: the lineage record of {lid}: {rec}")
+    # the lag buckets recompose the batch-wide clip ratio, minibatch by minibatch
+    errs = {"clip_ratio": 0.0, "approx_kl": 0.0}
+    for s in mb_stats:
+        for key in errs:
+            errs[key] = max(errs[key], abs(sum(s[f"lag_{b}/token_share"] * s[f"lag_{b}/{key}"]
+                                               for b in LAG_BUCKET_LABELS) - s[key]))
+    if len(mb_stats) != 2 * GRPO_STEPS or errs["clip_ratio"] > 1e-6:
+        raise AssertionError(f"[grpo] {len(mb_stats)} minibatch stats; the lag buckets recompose clip_ratio within "
+                             f"{errs['clip_ratio']:.3g} (limit 1e-6)")
+    missing = [m for m in ("areal_train_lag_clip_ratio{", "areal_train_lag_tokens_total{",
+                           "areal_train_lag_behave_kl{", "areal_lineage_records_total",
+                           "areal_lineage_joined_total") if m not in prom]
+    if missing or len(appends) != n_appended or not appends:
+        raise AssertionError(f"[grpo] the trainer's /metrics text lacks {missing}; {len(appends)} timed appends of "
+                             f"{n_appended}")
     for st in per_step:
         s = st["stats"]
         if not (math.isfinite(s["ppo_actor/loss"]) and math.isfinite(s["ppo_actor/grad_norm"])):
@@ -4031,15 +4093,30 @@ def phase_grpo(card: str, train: dict | None = None) -> dict:
         f"max|diff| {gaps[0]:.4f} "
         f"(tol {LOGPROB_TOL}); batches consumed at versions {[v for _, v in batches]}; the loop {wall:.1f} s; "
         f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    ms = np.asarray(appends) * 1e3
+    share = {b: np.mean([s[f"lag_{b}/token_share"] for s in mb_stats]) for b in LAG_BUCKET_LABELS}
+    log(f"[grpo] {card}: the journal (fsync on): {n_appended} appends, p50 {np.percentile(ms, 50):.2f} ms, p95 "
+        f"{np.percentile(ms, 95):.2f} ms, max {ms.max():.2f} ms (on the dispatcher thread); "
+        f"{np.mean(frame_bytes) / 1e3:.1f} kB a trajectory's frame, {seg_bytes / 1e6:.2f} MB of segments; "
+        f"{n_traj} consumed trajectories' lineage records carry journal, consume and train stamps; the lag buckets "
+        f"recompose clip_ratio within {errs['clip_ratio']:.2e} and approx_kl within {errs['approx_kl']:.2e} over "
+        f"{len(mb_stats)} minibatches (token shares " + ", ".join(f"{b}: {share[b]:.3f}" for b in LAG_BUCKET_LABELS)
+        + "); areal_train_lag_* and areal_lineage_* in the trainer's /metrics text")
     log(f"[grpo] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
     del loop, trainer, engine, srv
     return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
                 launches1=launches1, launches3=n3, steps=steps, stage_s=stage_s, per_update_bytes=per_update,
-                peak_gib=peak, tokens_per_s=tokens / ppo_s, warm_tokens_per_s=warm_tokens / warm_s)
+                peak_gib=peak, tokens_per_s=tokens / ppo_s, warm_tokens_per_s=warm_tokens / warm_s,
+                append_ms_p50=float(np.percentile(ms, 50)), append_ms_p95=float(np.percentile(ms, 95)),
+                frame_bytes=float(np.mean(frame_bytes)), lag_identity_err=errs["clip_ratio"])
 
 
+# the keys of an accepted trajectory the durable phase holds its replay to
+JOURNAL_KEYS = ("input_ids", "logprobs", "versions", "rewards")
 # the durable phase writes here (git-ignored) and deletes it at its end
 DURABLE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_durable")
+# the grpo phase's journal (git-ignored), deleted at its end
+GRPO_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_grpo")
 
 
 def _dir_bytes(path: str) -> int:
@@ -4076,15 +4153,101 @@ def _served_unequal(engine, trainer) -> list[str]:
             if not torch.equal(p.detach().to(torch.bfloat16), served[n].detach())]
 
 
+def _race_check(trainer, batch, loss_fn, planted: bool) -> dict:
+    """One optimizer step of ``trainer`` with a snapshot taken between its
+    gradients and its update, whose copies queue behind ~0.5 s of spinning
+    on their side stream: the snapshot must hold the state before the step
+    bit for bit. ``planted`` takes the step's stream wait out (the
+    fault the check must catch). Returns the tensors that differ and what
+    decides the race: the host seconds from the snapshot's return to the
+    step's first launch and of the step's launches, the device order of
+    the step and the copies (CUDA events: the step's start after the
+    copies' start and after their end, ms), and the caching allocator's
+    retries / cudaMalloc / cudaFree calls during the step."""
+    cuda = trainer.device.type == "cuda"
+    compute, opt_step = trainer._compute_grads, trainer._opt.step
+    seen: dict = {}
+
+    def event(stream=None):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(stream)
+        return e
+
+    def grads_then_snapshot(*a, **k):
+        out = compute(*a, **k)
+        seen["ref"] = _train_state(trainer, "cpu")  # what the step is about to update
+        if cuda:
+            with torch.cuda.stream(trainer._save_stream):
+                torch.cuda._sleep(1_000_000_000)  # clock cycles, ~0.5 s
+                seen["e_copy0"] = event(trainer._save_stream)
+        t = time.monotonic()
+        seen["snap"] = trainer.snapshot_for_save(with_optim=True)
+        seen["t_snap"] = time.monotonic()
+        seen["s"] = seen["t_snap"] - t
+        if cuda:
+            seen["e_copy1"] = event(trainer._save_stream)
+            seen["mem0"] = torch.cuda.memory_stats(trainer.device)
+        return out
+
+    def step_timed(*a, **k):
+        t = time.monotonic()
+        if cuda:
+            seen["e_step0"] = event()
+        out = opt_step(*a, **k)
+        if cuda:
+            seen["e_step1"] = event()
+            seen["mem1"] = torch.cuda.memory_stats(trainer.device)
+        seen["launch_after_snap_s"], seen["launch_s"] = t - seen["t_snap"], time.monotonic() - t
+        return out
+
+    trainer._compute_grads, trainer._opt.step = grads_then_snapshot, step_timed
+    if planted:
+        trainer._order_after_snapshot = lambda: None
+    try:
+        trainer.train_batch(batch, loss_fn, _wfn)
+    finally:
+        del trainer._compute_grads, trainer._opt.step
+        if planted:
+            del trainer._order_after_snapshot
+    snap, ref = seen["snap"], seen["ref"]
+    if snap["event"] is not None:
+        snap["event"].synchronize()
+    got = {f"{g}/{n}": t for g, ts in snap["groups"].items() for n, t in ts.items()}
+    got["count"] = torch.tensor(snap["step_count"])
+    out = dict(unequal=[k for k, w in ref.items() if not torch.equal(got[k], w)], n=len(ref), snap_s=seen["s"],
+               launch_after_snap_s=seen["launch_after_snap_s"], launch_s=seen["launch_s"])
+    trainer._snap_free.set()
+    if cuda:
+        torch.cuda.synchronize()
+        c0, c1, s0, s1 = seen["e_copy0"], seen["e_copy1"], seen["e_step0"], seen["e_step1"]
+        out.update(copies_ms=c0.elapsed_time(c1), step_ms=s0.elapsed_time(s1),
+                   step_after_copy_start_ms=c0.elapsed_time(s0), step_after_copy_end_ms=c1.elapsed_time(s0))
+        out.update({k: seen["mem1"].get(k, 0) - seen["mem0"].get(k, 0)
+                    for k in ("num_alloc_retries", "num_device_alloc", "num_device_free", "num_sync_all_streams")})
+    return out
+
+
+def _race_line(r: dict) -> str:
+    s = (f"{len(r['unequal'])} of {r['n']} tensors differ; the step's first launch {r['launch_after_snap_s'] * 1e3:.1f}"
+         f" ms after the snapshot returned, its launches {r['launch_s'] * 1e3:.1f} ms")
+    if "copies_ms" in r:
+        s += (f"; on the device the copies {r['copies_ms']:.1f} ms, the step {r['step_ms']:.1f} ms, starting "
+              f"{r['step_after_copy_start_ms']:.1f} ms after the copies' start and {r['step_after_copy_end_ms']:.1f} "
+              f"ms after their end; allocator retries {r['num_alloc_retries']}, cudaMalloc {r['num_device_alloc']}, "
+              f"cudaFree {r['num_device_free']}")
+    return s
+
+
 def phase_durable(card: str) -> dict:
     """The trainer's durable state at Qwen2.5-1.5B, full width and depth,
     over HTTP: (a) two optimizer steps, each right after a snapshot taken
     between its gradients and its update, which must hold the state before
     the step bit for bit (the first with its stream wait taken out, a
-    planted fault that must show); an HF export of the trainer's weights
-    (GB, s, GB/s); (b) a server started from it by
+    planted fault that must show; ``_race_check``); an HF export of the
+    trainer's weights (GB, s, GB/s); (b) a server started from it by
     ``ServerConfig.model_path`` serving the trainer's bf16 weights bit for
-    bit, and a wave of 16 (#1 launches); (c) a disk weight update
+    bit, and a wave of 16 (#1 launches); the race check again while the
+    server decodes; (c) a disk weight update
     (``RemoteTorchEngine.update_weights(type="disk")``) under the hold
     fence while a wave decodes, after two more optimizer steps, bit for bit
     again; (d) a ``PPOTrainer`` with ``recover.mode="auto"``,
@@ -4092,9 +4255,12 @@ def phase_durable(card: str) -> dict:
     dump, the write's GB/s and bytes), and a sync save of the same state
     beside them (its pause); (e) a preemption requested during step 3: the
     emergency dump of step 2, already durable from its async dump,
-    rewrites only its record; then a fresh trainer resumes at step 3 with
-    the dumped parameters, moments and step count bit for bit, and its
-    first step runs (K2-K4 launches); (f) the resumed actor's offload /
+    rewrites only its record, the trajectory journal (on, fsynced, with
+    trajectory dumps) is sealed and the lineage ring dumped; then a fresh
+    trainer resumes at step 3 with the dumped parameters, moments and step
+    count bit for bit, replays exactly the accepted trajectories no
+    checkpointed step consumed (bit for bit by task id, none dropped), and
+    its first step trains on them (K2-K4 launches); (f) the resumed actor's offload /
     onload (GB freed, seconds, bit for bit after). The phase's directories
     go at its end."""
     import shutil
@@ -4102,12 +4268,13 @@ def phase_durable(card: str) -> dict:
 
     from areal_tpu_torch.api.config import (DatasetConfig, InferenceEngineConfig, NormConfig, OptimizerConfig,
                                             PPOActorConfig, PPOConfig, PreemptionConfig, RecoverConfig, SaverConfig,
-                                            ServerConfig, StatsLoggerConfig)
+                                            ServerConfig, StatsLoggerConfig, TrajectoryJournalConfig)
     from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters, SaveLoadMeta, WeightUpdateMeta
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
     from areal_tpu_torch.inference.client import RemoteTorchEngine
     from areal_tpu_torch.inference.decode_engine import DecodeEngine
     from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.infra.trajectory_journal import default_journal_dir
     from areal_tpu_torch.models import qwen
     from areal_tpu_torch.ops import attention as fa
     from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
@@ -4158,67 +4325,34 @@ def phase_durable(card: str) -> dict:
             m = (b["label_valid"] & (b["loss_mask"] > 0)).float()
             return -(outputs["logprobs"] * m).sum() / m.sum().clamp(min=1), {}
 
-        # two steps, each with a snapshot taken between its gradients and its
-        # optimizer step, whose in-place updates must wait for the snapshot's
-        # copies (a side stream): the first step with that wait taken out (a
-        # planted fault, which must show), the second as it ships. The copies
-        # queue behind ~0.5 s of spinning on their stream, so the step
-        # outruns them unless it waits. This runs before the server starts:
-        # with its decode thread in the process the planted step fell behind
-        # the copies but for one tensor. A first snapshot, not checked, pins
-        # the buffers
-        cuda = trainer.device.type == "cuda"
+        # the snapshot / optimizer-step race: two steps, each with a snapshot
+        # taken between its gradients and its optimizer step, whose in-place
+        # updates must wait for the snapshot's copies (a side stream): the
+        # first with that wait taken out (a planted fault, which must show),
+        # the second as it ships. Here the trainer is alone on the card; the
+        # same check runs beside the server's decoding below. A first
+        # snapshot, not checked, pins the buffers
         t0 = time.monotonic()
         snap = trainer.snapshot_for_save(with_optim=True)
         pin_s = time.monotonic() - t0
         trainer.wait_for_save()
         trainer._snap_free.set()  # not written: its buffers are free again
         del snap
-        races = []
-        compute = trainer._compute_grads
+        races = {}
         for planted in (True, False):
-            seen: dict = {}
-
-            def grads_then_snapshot(*a, **k):
-                out = compute(*a, **k)
-                seen["ref"] = _train_state(trainer, "cpu")  # what the step is about to update
-                if cuda:
-                    with torch.cuda.stream(trainer._save_stream):
-                        torch.cuda._sleep(1_000_000_000)  # clock cycles
-                t = time.monotonic()
-                seen["snap"] = trainer.snapshot_for_save(with_optim=True)
-                seen["s"] = time.monotonic() - t
-                return out
-
-            trainer._compute_grads = grads_then_snapshot
-            if planted:
-                trainer._order_after_snapshot = lambda: None
-            try:
-                trainer.train_batch(race_batch, nll, _wfn)
-            finally:
-                del trainer._compute_grads
-                if planted:
-                    del trainer._order_after_snapshot
-            snap, ref = seen["snap"], seen["ref"]
-            if snap["event"] is not None:
-                snap["event"].synchronize()
-            got = {f"{g}/{n}": t for g, ts in snap["groups"].items() for n, t in ts.items()}
-            got["count"] = torch.tensor(snap["step_count"])
-            races.append([k for k, w in ref.items() if not torch.equal(got[k], w)])
-            snap_s = seen["s"]
-            trainer._snap_free.set()
-            del seen, snap, ref, got
-        planted_bad, bad = races
-        if bad or not planted_bad:
-            raise AssertionError(f"[durable] a snapshot taken right before an optimizer step differs from the "
-                                 f"state before it in {len(bad)} tensors (first {bad[:3]}); with the step's stream "
-                                 f"wait taken out {len(planted_bad)} differ (a planted fault the check must catch)")
+            races[planted] = _race_check(trainer, race_batch, nll, planted)
+            log(f"[durable] {card}: (a) race, trainer alone, {'planted (no stream wait)' if planted else 'shipped'}: "
+                + _race_line(races[planted]))
+        if races[False]["unequal"] or not races[True]["unequal"]:
+            raise AssertionError(f"[durable] alone: a snapshot taken right before an optimizer step differs from the "
+                                 f"state before it in {len(races[False]['unequal'])} tensors; with the step's stream "
+                                 f"wait taken out {len(races[True]['unequal'])} differ (a planted fault the check "
+                                 "must catch)")
         log(f"[durable] {card}: (a) a snapshot between a step's gradients and its optimizer step holds the state "
-            f"before the step bit for bit ({len(_train_tensors(trainer))} tensors, the copies queued behind ~0.5 s "
-            f"of spinning on their stream; the snapshot call {snap_s * 1e3:.1f} ms, a first unchecked one "
-            f"{pin_s:.2f} s pinning the host buffers); with the step's stream wait taken out (planted) "
-            f"{len(planted_bad)} tensors differ: caught")
-        res["snapshot"] = dict(planted_unequal=len(planted_bad), pin_s=pin_s, snap_s=snap_s)
+            f"before the step bit for bit ({races[False]['n']} tensors; the snapshot call "
+            f"{races[False]['snap_s'] * 1e3:.1f} ms, a first unchecked one {pin_s:.2f} s pinning the host buffers); "
+            f"with the step's stream wait taken out (planted) {len(races[True]['unequal'])} tensors differ: caught")
+        res["snapshot"] = dict(planted_unequal=len(races[True]["unequal"]), pin_s=pin_s, snap_s=races[False]["snap_s"])
 
         # (a) the HF export
         export = os.path.join(DURABLE_ROOT, "export")
@@ -4269,6 +4403,46 @@ def phase_durable(card: str) -> dict:
             f"{n_new} tokens: #1 launches {launches1} = {L} x {steps} decode steps")
         res["launches1"] = launches1
 
+        # (b) the race again beside the server, while it decodes waves of 16
+        # all along (its decode loop runs in this process, on its own thread)
+        races = {}
+        stop_waves = threading.Event()
+        wave_errs: list = []
+
+        def keep_decoding():
+            try:
+                while not stop_waves.is_set():
+                    for r in _wave(srv.address, bodies):
+                        _check_response(r, n_new, "durable")
+            except Exception as e:  # noqa: BLE001 — raised below
+                wave_errs.append(e)
+
+        decoder = threading.Thread(target=keep_decoding, name="durable-waves", daemon=True)
+        s_before = engine.stats["decode_steps"]
+        decoder.start()
+        try:
+            for planted in (True, False):
+                while engine.stats["decode_steps"] < s_before + 4 and decoder.is_alive():
+                    time.sleep(0.005)
+                s0 = engine.stats["decode_steps"]
+                name = "planted (no stream wait)" if planted else "shipped"
+                races[name] = _race_check(trainer, race_batch, nll, planted)
+                races[name]["decode_steps"] = engine.stats["decode_steps"] - s0
+                s_before = engine.stats["decode_steps"]
+        finally:
+            stop_waves.set()
+            decoder.join(timeout=900)
+        if wave_errs:
+            raise wave_errs[0]
+        for name, r in races.items():
+            log(f"[durable] {card}: (b) race beside the server decoding, {name}: {_race_line(r)}; "
+                f"{r['decode_steps']} decode steps ran during the check")
+        planted_bad, bad = (races[k]["unequal"] for k in ("planted (no stream wait)", "shipped"))
+        if bad or not planted_bad:
+            raise AssertionError(f"[durable] beside the server: the shipped step's snapshot differs in {len(bad)} "
+                                 f"tensors; the planted one's in {len(planted_bad)} (a fault the check must catch)")
+        res["snapshot"]["beside_planted_unequal"] = len(planted_bad)
+
         # (c) two more optimizer steps on the wave's sequences, then the disk
         # update under the hold fence while a wave decodes
         trajs = [{"input_ids": np.asarray(p + r["output_tokens"], np.int32),
@@ -4277,15 +4451,18 @@ def phase_durable(card: str) -> dict:
         sft = pad_sequences_to_tensors(trajs)
         for _ in range(2):
             trainer.train_batch(sft, nll, _wfn)
-        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        dump_dir = os.path.join(DURABLE_ROOT, "trial", "dumps")
+        client_cfg = InferenceEngineConfig(**GRPO_CLIENT, dump_trajectories=True, dump_dir=dump_dir)
+        client = RemoteTorchEngine(client_cfg, addresses=[srv.address])
         client.initialize()
         meta = WeightUpdateMeta(type="disk", path=os.path.join(DURABLE_ROOT, "update_weights"), with_version=True)
         trainer.connect_engine(client, meta)
         box: list = []
         waver = threading.Thread(target=lambda: box.extend(_wave(srv.address, bodies)))
         a0 = engine.stats["aborted"]
+        s_before = engine.stats["decode_steps"]
         waver.start()
-        while engine.stats["decode_steps"] == steps0 + steps and waver.is_alive():
+        while engine.stats["decode_steps"] == s_before and waver.is_alive():
             time.sleep(0.005)
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -4308,20 +4485,27 @@ def phase_durable(card: str) -> dict:
         shutil.rmtree(export)
         shutil.rmtree(meta.path)
 
-        # (d) PPOTrainer with recover auto, async dumps every step
+        # (d) PPOTrainer with recover auto, async dumps every step, the
+        # trajectory journal (fsynced appends) and trajectory dumps
         root = os.path.join(DURABLE_ROOT, "trial")
         gconfig = GenerationHyperparameters(n_samples=group, max_new_tokens=n_new, temperature=1.0)
+        flight_env = os.environ.get("AREAL_FLIGHT_DIR")
+        os.environ["AREAL_FLIGHT_DIR"] = os.path.join(root, "flight")
+        rollout_cfg = dataclasses.replace(client_cfg, journal=TrajectoryJournalConfig(enabled=True))
 
         def ppo_cfg(total_steps):
-            return PPOConfig(
+            cfg = PPOConfig(
                 experiment_name="chip-smoke", trial_name="durable", weight_update_mode="mem",
                 total_train_steps=total_steps, gconfig=gconfig, train_dataset=DatasetConfig(batch_size=batch_prompts),
-                actor=acfg, preemption=PreemptionConfig(grace_s=120.0),
+                actor=acfg, preemption=PreemptionConfig(grace_s=120.0), rollout=rollout_cfg,
                 saver=SaverConfig(fileroot=root), checkpointer=SaverConfig(fileroot=root),
                 recover=RecoverConfig(mode="auto", freq_steps=1, fileroot=root),
                 stats_logger=StatsLoggerConfig(fileroot=root),
             )
+            cfg.cluster.fileroot = root
+            return cfg
 
+        jdir = default_journal_dir(root, "chip-smoke", "durable")
         dataset = [{"prompt_ids": rng.integers(0, mcfg.vocab_size, int(n)).tolist()}
                    for n in rng.integers(64, 513, GRPO_PROMPTS)]
         client.set_version(0)  # the server's too
@@ -4345,6 +4529,27 @@ def phase_durable(card: str) -> dict:
             return n
 
         saver.save_async, trainer.write_snapshot = save_async_timed, write_timed
+        # what the executor accepted (as journaled) and what the steps consumed
+        accepted: dict = {}
+        consumed: list = []  # (version, task ids)
+        journal_append, mark_consumed = client.executor._journal_append, client.executor._mark_consumed
+
+        def journal_append_recorded(traj, task_id, *a, **k):
+            accepted[task_id] = {k2: np.array(traj[k2], copy=True) for k2 in JOURNAL_KEYS}
+            return journal_append(traj, task_id, *a, **k)
+
+        def mark_consumed_recorded(task_ids):
+            consumed.append((client.get_version(), list(task_ids)))
+            return mark_consumed(task_ids)
+
+        client.executor._journal_append, client.executor._mark_consumed = journal_append_recorded, mark_consumed_recorded
+        seal, sealed = loop.journal.seal_active, []
+
+        def seal_listed():
+            seal()
+            sealed.append(sorted(os.listdir(jdir)))
+
+        loop.journal.seal_active = seal_listed
         emergency = loop.recover_handler.dump_emergency
         at_dump: dict = {}
 
@@ -4385,6 +4590,10 @@ def phase_durable(card: str) -> dict:
             raise AssertionError(f"[durable] (d/e) preempted {loop.preempted}, steps committed {committed}, the "
                                  f"emergency dump of step {at_dump.get('step')} (want 1), {len(writes)} writes "
                                  "(want the 2 async ones)")
+        lineage_dumps = [n for n in os.listdir(os.environ["AREAL_FLIGHT_DIR"]) if n.endswith("_preempt.json")]
+        if len(sealed) != 1 or any(n.endswith(".open") for n in sealed[0]) or not lineage_dumps:
+            raise AssertionError(f"[durable] (e) the preemption's seal left {sealed} in the journal; lineage dumps "
+                                 f"{lineage_dumps}")
         saver.save_async, trainer.write_snapshot = save_async, write
         # step 0's generation is only the fallback now (.prev): its room
         # goes to the sync save
@@ -4406,19 +4615,30 @@ def phase_durable(card: str) -> dict:
                             emergency_wait_s=at_dump["wait_s"], emergency_s=at_dump["s"])
         log(f"[durable] {card}: (e) preemption during step 3 (its rollout wait): the emergency dump of step 2, "
             f"already durable from its async dump ({at_dump['bytes'] / 1e9:.3f} GB) once the write still in flight "
-            f"landed ({at_dump['wait_s']:.2f} s), rewrote only its record in {at_dump['s'] * 1e3:.1f} ms; train() "
+            f"landed ({at_dump['wait_s']:.2f} s), rewrote only its record in {at_dump['s'] * 1e3:.1f} ms; the journal "
+            f"sealed ({len(sealed[0])} segments, none open) and the lineage ring dumped ({lineage_dumps[0]}); train() "
             f"returned preempted after {loop_s:.1f} s")
-        _drain_client(client, engine)
-        loop.close()  # destroys the client
+        _drain_client(client, engine)  # the episodes in flight land in the journal too
+        loop.close()  # seals the journal, destroys the client
         loop = trainer = client = None
         gc.collect()
         torch.cuda.empty_cache()
+        # what the relaunch must replay: every accepted trajectory no
+        # checkpointed step (version < 2) consumed, in the order accepted
+        done = {tid for v, tids in consumed if v < 2 for tid in tids}
+        expect = [tid for tid in accepted if tid not in done]
+        if [v for v, _ in consumed] != [0, 1] or not expect:
+            raise AssertionError(f"[durable] (e) batches consumed at versions {[v for v, _ in consumed]} (want "
+                                 f"[0, 1]); {len(expect)} accepted trajectories left to replay")
+        seg_bytes = _dir_bytes(jdir)
 
         # (e) the relaunch: a fresh trainer of other weights resumes at step 3
+        # and replays the journal
         trainer = TorchTrainEngine(acfg, model_config=mcfg)
         trainer.initialize(ft, seed=1)
-        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        client = RemoteTorchEngine(client_cfg, addresses=[srv.address])
         client.initialize()
+        gen0 = engine.stats["generated_tokens"]
         t0 = time.monotonic()
         loop = PPOTrainer(ppo_cfg(3), dataset, rollout=client, actor_engine=trainer)
         resume_s = time.monotonic() - t0
@@ -4431,6 +4651,20 @@ def phase_durable(card: str) -> dict:
         if _served_unequal(engine, trainer) or engine.get_version() != 2:
             raise AssertionError(f"[durable] (e) the fleet re-sync: version {engine.get_version()}")
         del at_dump["state"]
+        replay = loop.last_replay
+        replayed = list(client.executor._results)
+        bad = [tid for tid, traj, _ in replayed
+               if tid not in accepted or any(not np.array_equal(np.asarray(traj[k]), accepted[tid][k])
+                                             or np.asarray(traj[k]).dtype != accepted[tid][k].dtype for k in JOURNAL_KEYS)]
+        if replay is None or replay["dropped"] or [tid for tid, _, _ in replayed] != expect or bad:
+            raise AssertionError(f"[durable] (e) journal replay {replay}: {len(replayed)} replayed, want the "
+                                 f"{len(expect)} accepted and not consumed by a checkpointed step; "
+                                 f"{len(bad)} differ from the accepted ones")
+        saved_completion = sum(int(np.asarray(traj["loss_mask"]).sum()) for _, traj, _ in replayed)
+        saved_tokens = sum(n for _, _, n in replayed)
+        first_consumed: list = []
+        mark_consumed = client.executor._mark_consumed
+        client.executor._mark_consumed = lambda tids: (first_consumed.append(list(tids)), mark_consumed(tids))
         fwd_grids, mb_counts = [], []
         compute_logp, train_batch = loop.actor.compute_logp, trainer.train_batch
 
@@ -4457,13 +4691,33 @@ def phase_durable(card: str) -> dict:
         if [g for g, _ in committed] != [2] or counts != want:
             raise AssertionError(f"[durable] (e) resumed steps {[g for g, _ in committed]} (want [2]); K2 / K3 / K4 "
                                  f"launches {counts} != {want}")
+        n_batch = GRPO_CLIENT["consumer_batch_size"]
+        if not first_consumed or first_consumed[0][: len(expect[:n_batch])] != expect[:n_batch]:
+            raise AssertionError(f"[durable] (e) the resumed step trained on {first_consumed[:1]}, want the first "
+                                 f"{n_batch} replayed trajectories {expect[:n_batch]}")
         st = committed[0][1]
         if not (math.isfinite(st["ppo_actor/loss"]) and math.isfinite(st["ppo_actor/grad_norm"])):
             raise AssertionError(f"[durable] (e) loss / grad_norm not finite: {st}")
+        segments = sorted(os.listdir(jdir))
+        n_records = sum(len(open(os.path.join(r, f)).read().splitlines())
+                        for r, _, fs in os.walk(dump_dir) for f in fs)
+        n_dumped = sum(len(fs) for _, _, fs in os.walk(dump_dir))
         log(f"[durable] {card}: (e) relaunch: a fresh trainer (other weights) restored step 2's parameters, AdamW "
             f"moments and step count bit for bit and re-synced the server (version 2) in {resume_s:.2f} s; its first "
             f"step (3) ran: loss {st['ppo_actor/loss']:.6f}, grad_norm {st['ppo_actor/grad_norm']:.4f}; K2 / K3 / K4 "
             f"launches {counts} ({n_fwd} forward grids, {n_mbs} microbatches)")
+        log(f"[durable] {card}: (e) the journal: {len(accepted)} trajectories accepted in the first life (fsynced "
+            f"appends), {len(accepted) - len(expect)} consumed by the two checkpointed steps; the relaunch replayed "
+            f"{replay['replayed']} in {replay['s'] * 1e3:.1f} ms, {replay['dropped']} dropped, every one equal to the "
+            f"accepted trajectory ({', '.join(JOURNAL_KEYS)}) bit for bit by task id, from {seg_bytes / 1e6:.2f} MB of "
+            f"segments; the resumed step trained on the first {n_batch} of them; {saved_completion} completion "
+            f"tokens ({saved_tokens} tokens with the prompts) the server did not generate again (it generated "
+            f"{engine.stats['generated_tokens'] - gen0} in the second life); after the resumed step's dump the "
+            f"journal's GC left {len(segments)} segments; {n_records} JSONL records in {n_dumped} trajectory dumps")
+        res["journal"] = dict(accepted=len(accepted), replayed=replay["replayed"], dropped=replay["dropped"],
+                              replay_s=replay["s"], segment_bytes=seg_bytes, segments_after_gc=len(segments),
+                              jsonl_records=n_records, saved_completion_tokens=saved_completion,
+                              saved_tokens=saved_tokens)
         res["counts"] = dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts))
         _drain_client(client, engine)
 
@@ -4500,6 +4754,10 @@ def phase_durable(card: str) -> dict:
         if srv is not None:
             srv.stop()
         shutil.rmtree(DURABLE_ROOT, ignore_errors=True)
+        if "flight_env" in locals():
+            os.environ.pop("AREAL_FLIGHT_DIR", None)
+            if flight_env is not None:
+                os.environ["AREAL_FLIGHT_DIR"] = flight_env
     return res
 
 

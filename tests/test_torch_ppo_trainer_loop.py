@@ -199,14 +199,12 @@ def test_ppo_trainer_matches_jax(tmp_path):
     # the pushes moved (the first step has LR 0; the later two do not)
     assert all(np.abs(jstub.pushed[-1][k] - init[k]).max() > LR / 2 for k in init)
 
-    # the same stats keys every step; the port lacks the JAX trainer's
-    # per-version-lag learning-health stats, and its memory ledger has no
-    # limit on the CPU without TelemetryConfig.chip_hbm_gb, as the JAX one
+    # the same stats keys every step, the per-version-lag learning-health
+    # stats included (the memory ledger has no limit on the CPU without
+    # TelemetryConfig.chip_hbm_gb, as the JAX one)
     assert len(tstats) == len(jstats) == N_STEPS
     for t, j in zip(tstats, jstats):
-        jax_only = {k for k in set(j) - set(t) if k.startswith("ppo_actor/lag_")}
-        assert set(j) - set(t) == jax_only
-        assert set(t) - set(j) == set()
+        assert set(t) == set(j) and any(k.startswith("ppo_actor/lag_") for k in t)
         assert t["version"] == j["version"]
         np.testing.assert_allclose(t["ppo_actor/loss"], j["ppo_actor/loss"], rtol=2e-4, atol=1e-6)
 
@@ -236,11 +234,10 @@ def _cfg(**over):
         (dict(critic=tc.PPOCriticConfig()), "item 3c"),
         (dict(allocation_mode="gen:d1,train:d1"), "item 6"),
         (dict(cluster=tc.ClusterSpecConfig(name_resolve=tc.NameResolveConfig(type="nfs"))), "item 8"),
-        (dict(rollout=tc.InferenceEngineConfig(journal=tc.TrajectoryJournalConfig(enabled=True))), "item 3b"),
         (dict(weight_update_wire="q8"), "item 4"),
         (dict(server=tc.ServerConfig(quantization="int8")), "item 4"),
     ],
-    ids=["critic", "allocation_mode", "name_resolve", "journal", "q8", "int8-auto"],
+    ids=["critic", "allocation_mode", "name_resolve", "q8", "int8-auto"],
 )
 def test_unported_trainer_options_refused(over, item):
     stub = _StubRollout([], lambda p: p)

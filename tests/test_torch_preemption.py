@@ -1,14 +1,18 @@
 """The preemption drain (the twins of ``tests/test_preemption.py:148-189``,
-``:281`` and the trainer half of ``:594``, without the journal): the
-handler's state machine in both packages, a real signal that only sets the
-flag, the drainer thread, the executor's waits raising on interrupt, and
-the port's ``PPOTrainer`` over HTTP preempted after step 1, dumping the
-last completed step and leaving ``train``, then relaunched to resume at
-step 2 with the dumped state bit for bit."""
+``:281`` and the trainer half of ``:594``): the handler's state machine in
+both packages, a real signal that only sets the flag, the drainer thread,
+the executor's waits raising on interrupt, and the port's ``PPOTrainer``
+over HTTP preempted after step 1, dumping the last completed step and
+leaving ``train``, then relaunched to resume at step 2 with the dumped
+state bit for bit. With the trajectory journal on, a preemption after the
+step's batch was popped and one during its rollout wait: the relaunch
+replays what was accepted and not trained on, and its first batch is the
+journaled trajectories, bit for bit, not regenerated ones."""
 
 import os
 import signal
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -272,3 +276,120 @@ def test_preemption_during_the_rollout_wait(tmp_path):
     assert trainer.preempted and committed == [0]
     assert stub.calls[-2:] == [("pause",), ("destroy",)]  # the drain paused the rollout; close destroyed it
     assert trainer.recover_handler.read_recover_info()[0].last_step_info.global_step == 0
+
+
+# ---------------------------------------------------------------------------
+# the journal across a preemption (the trainer half of test_preemption.py:594)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("point", ["after_pop", "rollout_wait"])
+def test_relaunch_first_batch_comes_from_the_journal(tmp_path, monkeypatch, point):
+    """``rollout.journal.enabled``: step 0 trains, then the preemption
+    lands in step 1, after its batch was popped (``after_pop``: its
+    consumption marker post-dates the dump of step 0, so it replays) or
+    as its rollout wait begins (``rollout_wait``, once a batch's worth is
+    accepted). The journal is sealed and the lineage ring dumped; a
+    relaunch replays every accepted trajectory that no checkpointed step
+    trained on, none dropped, and its first batch is the first replayed
+    trajectories bit for bit (``after_pop``: the very batch popped before
+    the preemption), their lineage ids rewritten to fresh records."""
+    from areal_tpu_torch.infra.trajectory_journal import TrajectoryJournal, default_journal_dir
+    from areal_tpu_torch.observability import lineage
+    from areal_tpu_torch.utils.data import concat_padded_tensor_dicts
+
+    monkeypatch.setenv("AREAL_FLIGHT_DIR", str(tmp_path / "flight"))
+    mcfg = port_cfg(TINY_QWEN2)
+    acfg = tc.PPOActorConfig(optimizer=tc.OptimizerConfig(lr=LR), **{**ACTOR, "ppo_n_minibatches": 1},
+                             adv_norm=tc.NormConfig(mean_level="group", std_level="group", group_size=4))
+    gconfig = GenerationHyperparameters(n_samples=4, max_new_tokens=6, temperature=1.0)
+    scfg = tc.ServerConfig(max_batch_size=8, max_seq_len=128, decode_steps_per_call=4, seed=0, host="127.0.0.1")
+    srv = ServerThread(scfg, engine=DecodeEngine(scfg, params=convert.from_jax_params(
+        jax_params(TINY_QWEN2, seed=7), mcfg), model_cfg=mcfg, device="cpu"))
+    srv.start()
+    rng = np.random.default_rng(1)
+    dataset = [{"prompt_ids": rng.integers(20, 200, 4).tolist()} for _ in range(16)]
+    root = str(tmp_path)
+    rollout_cfg = tc.InferenceEngineConfig(max_concurrent_rollouts=8, consumer_batch_size=4, max_head_offpolicyness=1,
+                                           request_timeout=120, journal=tc.TrajectoryJournalConfig(enabled=True))
+
+    def launch(steps):
+        eng = TorchTrainEngine(acfg, model_config=mcfg, device="cpu")
+        eng.initialize(FinetuneSpec(1, 16, 4))
+        eng.model.load_state_dict(convert.from_jax_params(jax_params(TINY_QWEN2, seed=7), mcfg))
+        client = RemoteTorchEngine(rollout_cfg, addresses=[srv.address])
+        client.initialize()
+        cfg = _cfg(root, steps, gconfig, acfg)
+        cfg.rollout = rollout_cfg
+        trainer = PPOTrainer(cfg, dataset, rollout=client, actor_engine=eng)
+        batches, committed = [], []
+        prepare = client.prepare_batch
+
+        def prepare_recorded(*a, **k):
+            batches.append(None)
+            out = prepare(*a, **k)
+            batches[-1] = out
+            return out
+
+        client.prepare_batch = prepare_recorded
+        trainer.stats_logger.commit = lambda e, s, g, st: committed.append(g)
+        return client, trainer, batches, committed
+
+    client, trainer, batches, committed = launch(3)
+    prepare = client.prepare_batch
+
+    def prepare_preempting(*a, **k):
+        if len(batches) == 1:  # step 1
+            if point == "rollout_wait":
+                deadline = time.monotonic() + 120
+                while len(client.executor._results) < 4 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                trainer.preemption.request(signal.SIGTERM)
+                return prepare(*a, **k)  # raises RolloutInterrupted
+            out = prepare(*a, **k)
+            trainer.preemption.request(signal.SIGTERM)
+            return out
+        return prepare(*a, **k)
+
+    client.prepare_batch = prepare_preempting
+    try:
+        trainer.train(workflow=RLVRWorkflow(_even_share, gconfig))
+        assert trainer.preempted and committed == [0]
+        assert len(batches) == 2 and (batches[1] is None) == (point == "rollout_wait")
+        _drain(client, srv.engine)  # the episodes in flight land in the journal too
+        unconsumed = [tid for tid, _, _ in client.executor._results]
+        appended = trainer.journal.stats()["appended"]
+    finally:
+        trainer.close()
+    assert list((tmp_path / "flight").glob("lineage_*_preempt.json"))
+    jdir = default_journal_dir(root, "preempt", "t0")
+    assert all(n.endswith(".jrnl") for n in os.listdir(jdir))  # sealed
+    replay, dropped, n_consumed = TrajectoryJournal(jdir, fsync=False).pending_for_replay(1, 1)
+    assert not dropped and n_consumed == 4 and appended == 4 + len(replay)
+    if point == "after_pop":  # the popped batch is the journal's first unconsumed four, in order
+        lids = list(dict.fromkeys(np.asarray(batches[1]["lineage_id"]).tolist()))
+        assert lids == [e.lineage["lineage_id"] for e in replay[:4]]
+        assert [e.task_id for e in replay[4:]] == unconsumed
+    else:
+        assert [e.task_id for e in replay] == unconsumed and len(unconsumed) >= 4
+    assert len(replay) >= 4
+
+    client2, trainer2, batches2, committed2 = launch(2)
+    try:
+        assert trainer2.recover_info.last_step_info.global_step == 0
+        assert trainer2.last_replay["replayed"] == len(replay) and trainer2.last_replay["dropped"] == 0
+        trainer2.train(workflow=RLVRWorkflow(_even_share, gconfig))
+        assert committed2 == [1] and not trainer2.preempted
+        first = batches2[0]
+        want = concat_padded_tensor_dicts([e.traj for e in replay[:4]])
+        assert set(first) - {"prox_logp"} == set(want)  # the step adds the recomputed logprobs
+        for k in ("input_ids", "attention_mask", "loss_mask", "logprobs", "versions", "rewards"):
+            np.testing.assert_array_equal(np.asarray(first[k]), np.asarray(want[k]), err_msg=k)
+        ring = lineage.get_lineage()
+        new = list(dict.fromkeys(np.asarray(first["lineage_id"]).tolist()))
+        assert [ring.get(lid).task_id for lid in new] == [e.task_id for e in replay[:4]]
+        assert all(ring.get(lid).journaled and ring.get(lid).trained_version == 1 for lid in new)
+        _drain(client2, srv.engine)
+    finally:
+        trainer2.close()
+        srv.stop()

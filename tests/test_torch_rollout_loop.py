@@ -12,10 +12,13 @@
 3. One ``prepare_batch`` of the port's client feeds the port's ``PPOActor``
    through one ``ppo_update``.
 
-The JAX executor stamps a ``lineage_id`` on each sequence (its lineage
-ring); the port has no lineage ring yet, so batches are compared on every
-other key. Rows are compared sorted by ``input_ids``: the executor hands
-out results in completion order.
+Both executors stamp a ``lineage_id`` on each sequence (their lineage
+rings). Rows are compared sorted by ``input_ids``: the executor hands out
+results in completion order. A ring numbers trajectories in the order they
+were accepted, so with several rollouts in flight the ids are compared as
+a relabeling (the same rows share an id on both sides, and the ids are
+0..n-1 when the rings were reset before the runs); with one rollout at a
+time (``prepare_batch``) and both rings reset they are equal.
 """
 
 import asyncio
@@ -39,6 +42,7 @@ from areal_tpu.inference.client import RemoteJaxEngine
 from areal_tpu.inference.server import ServerThread as JServerThread
 from areal_tpu.infra.workflow_executor import WorkflowExecutor as JWorkflowExecutor
 from areal_tpu.observability import catalog as j_catalog
+from areal_tpu.observability import lineage as j_lineage
 from areal_tpu.parallel import mesh as mesh_lib
 from areal_tpu.workflow.rlvr import GroupedRolloutWorkflow as JGroupedRolloutWorkflow
 from areal_tpu.workflow.rlvr import RLVRWorkflow as JRLVRWorkflow
@@ -52,7 +56,6 @@ from areal_tpu_torch.api.config import (
     RequestLifecycleConfig,
     RoutingConfig,
     ServerConfig,
-    TrajectoryJournalConfig,
 )
 from areal_tpu_torch.api.workflow_api import RolloutWorkflow as TRolloutWorkflow
 from areal_tpu_torch.engine.train_engine import TorchTrainEngine
@@ -62,6 +65,7 @@ from areal_tpu_torch.inference.server import ServerThread
 from areal_tpu_torch.infra.workflow_executor import WorkflowExecutor as TWorkflowExecutor
 from areal_tpu_torch.models import convert
 from areal_tpu_torch.observability import catalog as t_catalog
+from areal_tpu_torch.observability import lineage as t_lineage
 from areal_tpu_torch.reward.synthetic import target_token_reward_fn
 from areal_tpu_torch.trainer.ppo import PPOActor
 from areal_tpu_torch.utils import perf_tracer
@@ -135,18 +139,30 @@ SIDES = {
 
 
 def _sorted_rows(batch: dict) -> dict:
-    """The batch's rows sorted by input_ids (padded), lineage_id dropped."""
+    """The batch's rows sorted by input_ids (padded)."""
     ids = np.asarray(batch["input_ids"])
     order = sorted(range(len(ids)), key=lambda i: tuple(ids[i].tolist()) + (int(batch["attention_mask"][i].sum()),))
-    return {k: np.asarray(v)[order] for k, v in batch.items() if k != "lineage_id"}
+    return {k: np.asarray(v)[order] for k, v in batch.items()}
 
 
-def _assert_batches_equal(a: dict, b: dict, logprob_atol: float = 0.0):
+@pytest.fixture
+def fresh_rings(monkeypatch):
+    """Both packages' lineage rings, new: ids count from 0 again."""
+    monkeypatch.setattr(j_lineage, "_LINEAGE", j_lineage.TrajectoryLineage())
+    monkeypatch.setattr(t_lineage, "_LINEAGE", t_lineage.TrajectoryLineage())
+
+
+def _assert_batches_equal(a: dict, b: dict, logprob_atol: float = 0.0, lineage: str = "relabel"):
+    """Every key equal row by row; ``lineage_id`` equal (``"exact"``) or a
+    consistent relabeling (``"relabel"``, accept order may differ)."""
     a, b = _sorted_rows(a), _sorted_rows(b)
-    assert sorted(a) == sorted(b)
+    assert sorted(a) == sorted(b) and "lineage_id" in a
     for k in a:
         assert a[k].shape == b[k].shape, (k, a[k].shape, b[k].shape)
-        if k == "logprobs" and logprob_atol:
+        if k == "lineage_id" and lineage == "relabel":
+            pairs = set(zip(a[k].tolist(), b[k].tolist()))
+            assert len(pairs) == len({x for x, _ in pairs}) == len({y for _, y in pairs}), pairs
+        elif k == "logprobs" and logprob_atol:
             np.testing.assert_allclose(a[k], b[k], atol=logprob_atol)
         else:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
@@ -200,7 +216,7 @@ def _executor_run(side: str, scenario: str):
 
 @pytest.mark.parametrize("scenario", ["rollout_batch", "grouped", "prepare_batch", "wait_for_task",
                                       "should_accept_fn", "quarantine"])
-def test_executor_with_fake_engine_matches_jax(scenario):
+def test_executor_with_fake_engine_matches_jax(scenario, fresh_rings):
     j_out, j_stats, j_counters = _executor_run("jax", scenario)
     t_out, t_stats, t_counters = _executor_run("torch", scenario)
     assert len(j_out) == len(t_out)
@@ -208,7 +224,10 @@ def test_executor_with_fake_engine_matches_jax(scenario):
         if scenario == "prepare_batch":
             # one rollout at a time: completion order is submission order
             assert [r.tolist() for r in a["input_ids"]] == [r.tolist() for r in b["input_ids"]]
-        _assert_batches_equal(a, b)
+        _assert_batches_equal(a, b, lineage="exact" if scenario == "prepare_batch" else "relabel")
+    if scenario != "wait_for_task":  # wait_for_task returns the trajectory, not a popped batch
+        ids = np.concatenate([np.asarray(o["lineage_id"]) for o in t_out])
+        assert set(ids.tolist()) <= set(range(len(ids)))
     assert j_stats == t_stats
     assert j_counters == t_counters
     if scenario == "quarantine":
@@ -246,10 +265,8 @@ def test_session_tracer_records_each_episode(tmp_path):
         dict(routing=RoutingConfig(poll_interval_s=1.0)),
         dict(fault_tolerance=FaultToleranceConfig(retry_budget=8.0)),
         dict(lifecycle=RequestLifecycleConfig(gateway_max_inflight=8)),
-        dict(journal=TrajectoryJournalConfig(enabled=True)),
-        dict(dump_trajectories=True, dump_dir="unused"),
     ],
-    ids=["routing-policy", "routing", "retry-budget", "gateway-shedding", "journal", "dumps"],
+    ids=["routing-policy", "routing", "retry-budget", "gateway-shedding"],
 )
 def test_unported_client_options_refused(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -273,8 +290,6 @@ def test_unported_client_paths_refused():
     with pytest.raises(NotImplementedError, match="item 8"):
         relay.update_weights(t_io.WeightUpdateMeta(), params=params)
     relay.destroy()
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        c.attach_journal(object())
     with pytest.raises(NotImplementedError, match="item 8"):
         c.set_completion_callback("http://127.0.0.1:1/done")
     c.destroy()
