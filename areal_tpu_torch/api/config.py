@@ -7,8 +7,8 @@ marked below). No YAML loader: configs are built in code.
   ``PreemptionConfig``). Weights given in code keep their model config's
   dtype (``models/qwen.py:ModelConfig.dtype``); weights loaded from
   ``model_path`` take ``ServerConfig.dtype``.
-- Training: ``NormConfig``, ``OptimizerConfig``, ``TrainEngineConfig`` and
-  ``PPOActorConfig``.
+- Training: ``NormConfig``, ``OptimizerConfig``, ``TrainEngineConfig``,
+  ``PPOActorConfig`` and ``PPOCriticConfig``.
 - The rollout client: ``InferenceEngineConfig`` and its fleet and lifecycle
   sub-configs (``RoutingConfig``, ``FaultToleranceConfig``, ...), which
   ``InferenceEngineConfig.check_supported`` holds at their defaults where
@@ -17,7 +17,8 @@ marked below). No YAML loader: configs are built in code.
   sub-configs they hold (datasets, saver / evaluator / recover, the stats
   logger, cluster, scheduler, launcher, tracers, telemetry, preemption).
   ``PPOConfig`` keeps the JAX package's defaults, ``weight_update_mode=
-  "disk"`` and ``preemption.enabled=True`` among them.
+  "disk"`` and ``preemption.enabled=True`` among them. ``SFTConfig`` and
+  ``RWConfig`` hold one ``TrainEngineConfig`` (``trainer/sft_trainer.py``).
 
 Knobs whose code paths have not been ported yet stay here so configs keep
 their shape; ``DecodeEngine._check_supported`` and
@@ -258,7 +259,8 @@ class TrainEngineConfig:
     attn_impl: str = "pallas"
     gradient_checkpointing: bool = True
     # under gradient_checkpointing: "nothing" recomputes each layer in the
-    # backward (torch.utils.checkpoint per layer); "everything" saves all
+    # backward (torch.utils.checkpoint per layer); "dots_nobatch" saves the
+    # layer's projections and recomputes the rest; "everything" saves all
     remat_policy: str = "nothing"
     mb_spec: MicroBatchSpec = field(default_factory=MicroBatchSpec)
     bucket_step: int = 512  # grid width granularity (tokens)
@@ -330,8 +332,8 @@ class PPOActorConfig(TrainEngineConfig):
 
 @dataclass
 class PPOCriticConfig(TrainEngineConfig):
-    """A value model's settings (a critic is not ported: ``PPOTrainer``
-    refuses one)."""
+    """A value model's settings: ``PPOTrainer`` builds the critic's engine
+    from them with a value head (``trainer/ppo.py PPOCritic``)."""
 
     ppo_n_minibatches: int = 4
     eps_clip: float = 0.5
@@ -768,6 +770,16 @@ class BaseExperimentConfig:
     perf_tracer: PerfTracerConfig = field(default_factory=PerfTracerConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     preemption: PreemptionConfig = field(default_factory=PreemptionConfig)
+
+
+@dataclass
+class SFTConfig(BaseExperimentConfig):
+    model: TrainEngineConfig = field(default_factory=TrainEngineConfig)
+
+
+@dataclass
+class RWConfig(BaseExperimentConfig):
+    model: TrainEngineConfig = field(default_factory=TrainEngineConfig)
 
 
 @dataclass

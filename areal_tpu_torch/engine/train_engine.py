@@ -22,7 +22,9 @@ What is kept from the JAX engine:
   applies to every parameter, and the LR schedule is indexed by optax's
   count, so the first step has LR 0 and moves nothing.
 - ``loss_fn(outputs, batch) -> (loss, {stat: scalar})``; ``outputs`` has
-  label-aligned ``logprobs`` / ``entropy`` grids. When the batch carries
+  label-aligned ``logprobs`` / ``entropy`` grids, or, for an engine built
+  with ``value_head=True`` (a critic or a reward model), token-aligned
+  ``values`` grids and no logprobs. When the batch carries
   ``lineage_id`` (the rollout executor stamps one per trajectory), the
   training grids also carry the segment map ``seq_slot`` / ``seq_slots``,
   and a loss may return per-slot ``seq__*`` arrays beside its scalars:
@@ -72,9 +74,20 @@ What is kept from the JAX engine:
   connected engine reload them. ``offload`` / ``onload`` move the
   parameters and moments to pinned host memory and back.
 
+- The value head (``train_engine.py:284-288``, ``:766-769``): a zero
+  ``[hidden_size]`` parameter at ``param_dtype``, added after the body is
+  built or loaded and registered on the model as ``value_head``, so the
+  optimizer (weight decay included), the recover state and ``offload``
+  carry it. ``values`` = the f32 product of the final hidden states with
+  the head (a plain matvec: no Pallas kernel computes it in JAX).
+  ``forward_batch(output_key="values")`` returns them token-aligned. The
+  HF export and the weight update to a server leave the head out (it has
+  no HF name), and an HF ``load`` keeps the engine's head. Tree training
+  with a value head raises ``ValueError``: the JAX engine asserts that
+  tree training is a policy-only path.
+
 Not ported (``_check_supported`` raises ``NotImplementedError``): LoRA,
-the vision tower, a critic / value head (ROADMAP Queue A item 3c) and
-multi-device meshes; also per-sequence loss attribution.
+the vision tower and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -136,6 +149,10 @@ _GRID_KEYS = (
     "old_values",
     "labels",
     "label_valid",
+    # the reward model's pairs (trainer/sft_trainer.py RWEngine)
+    "rw_pair_id",
+    "rw_sign",
+    "rw_last_mask",
 )
 
 
@@ -265,6 +282,7 @@ class TorchTrainEngine(TrainEngine):
         self.device = resolve_device(device)
         self._check_supported(config, value_head, model_config)
         self.config = config
+        self.value_head = value_head
         # False for a frozen policy (the reference of the KL term): no
         # optimizer state
         self.need_optimizer = need_optimizer
@@ -295,18 +313,13 @@ class TorchTrainEngine(TrainEngine):
         cfg: TrainEngineConfig, value_head: bool, model_config: qwen.ModelConfig | None = None
     ) -> None:
         """Refuse the options whose code paths are later slices of the port
-        (ROADMAP.md Queue A)."""
+        (ROADMAP.md Queue A), and what the JAX engine refuses too."""
         if cfg.tree_training and value_head:
-            raise NotImplementedError(
-                "tree training is a policy-only path, as in the JAX engine (critics: ROADMAP "
-                "Queue A item 3c)"
-            )
+            raise ValueError("tree training is a policy-only path, as in the JAX engine: no value head")
         if cfg.lora_rank > 0:
             raise NotImplementedError("LoRA: ROADMAP Queue A, LoRA and int8 weight serving")
         if cfg.train_vision_tower:
             raise NotImplementedError("vision tower: ROADMAP Queue A, vision")
-        if value_head:
-            raise NotImplementedError("critic / value head: ROADMAP Queue A item 3c")
         m = cfg.mesh
         if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
             raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
@@ -320,8 +333,9 @@ class TorchTrainEngine(TrainEngine):
     def initialize(self, ft_spec: FinetuneSpec | None = None, seed: int = 0) -> None:
         """Master parameters at ``param_dtype``: loaded from the HF checkpoint
         at ``config.path``, or random from ``seed`` when there is no path
-        or ``init_from_scratch``; and zeroed optimizer state. The model
-        config is ``model_config``, else the checkpoint's ``config.json``."""
+        or ``init_from_scratch``, then a zero value head when the engine has
+        one; and zeroed optimizer state. The model config is
+        ``model_config``, else the checkpoint's ``config.json``."""
         cfg = self.config
         if self._model_config is None:
             if not cfg.path:
@@ -345,6 +359,10 @@ class TorchTrainEngine(TrainEngine):
             t0 = time.monotonic()
             self.model, _ = load_params_from_hf(cfg.path, master_cfg, device=self.device)
             logger.info(f"loaded HF weights from {cfg.path} in {time.monotonic() - t0:.1f}s")
+        if self.value_head:
+            self.model.value_head = torch.nn.Parameter(
+                torch.zeros(master_cfg.hidden_size, dtype=master_cfg.torch_dtype, device=self.device)
+            )
         self.model.requires_grad_(True)
         total_steps = ft_spec.total_train_steps if ft_spec else 10_000
         self._lr_schedule = make_lr_schedule(cfg.optimizer, total_steps)
@@ -540,13 +558,21 @@ class TorchTrainEngine(TrainEngine):
     # -- model ------------------------------------------------------------
     def _outputs_fn(self, batch: dict[str, torch.Tensor], no_grad: bool = False) -> dict:
         """Label-aligned ``logprobs`` / ``entropy`` [G, L] of one grid, from
-        the compute-dtype view of the master parameters."""
+        the compute-dtype view of the master parameters; with a value head,
+        token-aligned ``values`` [G, L] instead."""
         view = qwen.ParamView(self.model, self.model_cfg)
         moe = self.model_cfg.num_experts > 0
         out = qwen.forward(
             view, batch["input_ids"], batch["segment_ids"], batch["positions"], no_grad=no_grad, with_aux=moe
         )
         hidden, aux = out if moe else (out, None)
+        outputs = {}
+        if aux is not None:  # the router load-balance aux (train_engine.py:762)
+            outputs["moe_aux"] = aux
+        if self.value_head:  # both operands in f32, the head from its compute-dtype cast
+            head = self.model.value_head.to(self.model_cfg.torch_dtype).float()
+            outputs["values"] = torch.einsum("gld,d->gl", hidden.float(), head)
+            return outputs
         logp, ent = qwen.chunked_logprobs_entropy(
             view,
             hidden,
@@ -554,9 +580,8 @@ class TorchTrainEngine(TrainEngine):
             chunk_size=self.config.logprob_chunk_size,
             temperature=self._logit_temperature,
         )
-        outputs = {"logprobs": logp, "entropy": ent}
-        if aux is not None:  # the router load-balance aux (train_engine.py:762)
-            outputs["moe_aux"] = aux
+        outputs["logprobs"] = logp
+        outputs["entropy"] = ent
         return outputs
 
     # -- TrainEngine API --------------------------------------------------
@@ -703,7 +728,9 @@ class TorchTrainEngine(TrainEngine):
     @torch.no_grad()
     def forward_batch(self, input_: TensorDict, output_key: str = "logprobs") -> np.ndarray:
         """Forward only. Returns [B, L] f32 aligned with the input padded
-        batch: out[b, t] = log p(token t | prefix), out[b, 0] = 0."""
+        batch: out[b, t] = log p(token t | prefix), out[b, 0] = 0; for
+        ``output_key="values"``, out[b, t] = V(prefix up to and including
+        token t)."""
         B, L = np.asarray(input_["attention_mask"]).shape
         out = np.zeros((B, L), dtype=np.float32)
         with engine_phase("host_prep"):
@@ -712,17 +739,19 @@ class TorchTrainEngine(TrainEngine):
         with engine_phase("forward_backward"):
             pending = [self._outputs_fn(d, no_grad=True)[output_key].float().cpu().numpy() for d in dev]
         del dev
+        token_aligned = output_key == "values"
         for vals, g in zip(pending, grids):
             # label-aligned output shifts right one: token t's logp was
-            # computed at position t-1, so out[src, 1:n] = row[:n-1]
+            # computed at position t-1, so out[src, 1:n] = row[:n-1]; values
+            # are token-aligned and copy as they are
             lens = np.asarray(g.seq_lens, np.int64)
-            n_eff = np.maximum(lens - 1, 0)
+            n_eff = lens if token_aligned else np.maximum(lens - 1, 0)
             seq_of = np.repeat(np.arange(len(lens)), n_eff)
             within = np.arange(n_eff.sum()) - np.repeat(np.cumsum(n_eff) - n_eff, n_eff)
             src_r = np.asarray(g.row_of_seq)[seq_of]
             src_c = np.asarray(g.col_of_seq)[seq_of] + within
             dst_r = np.asarray(g.seq_index)[seq_of]
-            out[dst_r, within + 1] = vals[src_r, src_c]
+            out[dst_r, within if token_aligned else within + 1] = vals[src_r, src_c]
         return out
 
     # -- rollout plumbing and weights ---------------------------------------
@@ -788,13 +817,15 @@ class TorchTrainEngine(TrainEngine):
             eng.update_weights(meta, params=self._export_params())
 
     def _export_params(self) -> dict[str, torch.Tensor]:
-        """The master parameters as a state dict (detached views, no copy)."""
-        return {name: p.detach() for name, p in self.model.named_parameters()}
+        """The master parameters as a state dict (detached views, no copy),
+        without the value head: no server or HF checkpoint holds one."""
+        return {name: p.detach() for name, p in self.model.named_parameters() if name != "value_head"}
 
     # -- durable state ------------------------------------------------------
     def _state_groups(self, with_optim: bool) -> dict[str, dict[str, torch.Tensor]]:
-        """The recover state by file: the master parameters, and with
-        ``with_optim`` the AdamW moments under the same names."""
+        """The recover state by file: the master parameters (the value head
+        among them), and with ``with_optim`` the AdamW moments under the
+        same names."""
         params = {n: p.detach() for n, p in self.model.named_parameters()}
         groups = {"params": params}
         if with_optim and self._opt is not None:

@@ -6,7 +6,8 @@ and returns the port's state dict: the stacked layer leaves split into
 ``layers.<i>.<name>`` tensors, the JAX ``[in, out]`` dense matrices
 transposed to PyTorch's ``[out, in]``, the MoE leaves (``w_router`` [D, E],
 the ``we_*`` expert stacks [E, in, out]) kept in JAX's layout, and the tied
-``embed`` kept as the LM head.
+``embed`` kept as the LM head, and a critic's ``value_head`` [hidden]
+(``TorchTrainEngine(value_head=True)``) carried as it is.
 ``to_jax_params`` is the reverse; a round trip is exact.
 
 numpy has no bfloat16 of its own: a bf16 array (whatever package made its
@@ -53,6 +54,8 @@ def from_jax_params(params: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     out = {"embed": _to_tensor(params["embed"]), "final_norm": _to_tensor(params["final_norm"])}
     if not cfg.tie_word_embeddings:
         out["lm_head"] = _to_tensor(params["lm_head"])
+    if "value_head" in params:
+        out["value_head"] = _to_tensor(params["value_head"])
     layers = params["layers"]
     for name in _layer_shapes(cfg):
         stacked = np.asarray(layers[name])
@@ -69,6 +72,8 @@ def to_jax_params(state: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     params = {"embed": _to_numpy(state["embed"]), "final_norm": _to_numpy(state["final_norm"])}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = _to_numpy(state["lm_head"])
+    if "value_head" in state:
+        params["value_head"] = _to_numpy(state["value_head"])
     layers = {}
     for name in _layer_shapes(cfg):
         per = []

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from areal_tpu_torch.models.remat import saved_dot
 from areal_tpu_torch.ops.gmm import gmm
 
 
@@ -54,8 +55,9 @@ def moe_ffn(h: torch.Tensor, layer, cfg, with_aux: bool = False):
 
 
 def _router(h32: torch.Tensor, w_router: torch.Tensor, K: int, norm_topk: bool):
-    """f32 routing: -> (probs [T, E], top_p [T, K], top_e [T, K])."""
-    probs = torch.softmax(h32 @ w_router.float(), dim=-1)
+    """f32 routing: -> (probs [T, E], top_p [T, K], top_e [T, K]). The
+    router's product is a dot that ``remat_policy="dots_nobatch"`` saves."""
+    probs = torch.softmax(saved_dot(torch.matmul, h32, w_router.float()), dim=-1)
     top_p, top_e = torch.topk(probs, K, dim=-1)
     if norm_topk:
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)

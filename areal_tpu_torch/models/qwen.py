@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
-from areal_tpu_torch.models import moe
+from areal_tpu_torch.models import moe, remat as remat_lib
 from areal_tpu_torch.ops.attention import (
     attention_mask as _attention_mask,
     flash_fwd,
@@ -69,9 +69,10 @@ class ModelConfig:
     qk_norm: bool = False  # Qwen3
     attention_bias: bool = True  # Qwen2 has q/k/v bias
     dtype: str = "bfloat16"
-    # training: per-layer recompute in the backward ("nothing" saved) or
-    # none ("everything" saved); the train engine sets these three from
-    # TrainEngineConfig
+    # training: per-layer recompute in the backward ("nothing" saved), the
+    # projections saved and the rest recomputed ("dots_nobatch"), or no
+    # recompute ("everything" saved); the train engine sets these three
+    # from TrainEngineConfig
     remat: bool = True
     remat_policy: str = "nothing"
     attn_impl: str = "xla"  # "pallas": flash kernels; "xla": sdpa_plain
@@ -316,9 +317,11 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ W for a dense [out, in] weight (LoRA / int8 weights: later)."""
-    return F.linear(x, w)
+def _proj(x: torch.Tensor, w: torch.Tensor, saved: bool = True) -> torch.Tensor:
+    """x @ W for a dense [out, in] weight (LoRA / int8 weights: later), a
+    dot whose output ``remat_policy="dots_nobatch"`` saves unless
+    ``saved`` is False (``models/remat.py``)."""
+    return remat_lib.saved_dot(F.linear, x, w) if saved else F.linear(x, w)
 
 
 def _ffn(cfg: ModelConfig, h: torch.Tensor, layer) -> torch.Tensor:
@@ -329,7 +332,8 @@ def _ffn(cfg: ModelConfig, h: torch.Tensor, layer) -> torch.Tensor:
         squeeze = h.dim() == 2
         out, _ = moe.moe_ffn(h[:, None] if squeeze else h, layer, cfg)
         return out[:, 0] if squeeze else out
-    return _proj(F.silu(_proj(h, layer.w_gate)) * _proj(h, layer.w_up), layer.w_down)
+    # the down projection's output is read by no backward: not saved
+    return _proj(F.silu(_proj(h, layer.w_gate)) * _proj(h, layer.w_up), layer.w_down, saved=False)
 
 
 def _qkv(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor, rope: tuple):
@@ -451,24 +455,26 @@ def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool =
     ``mask`` (``_decoder_layer``) -> final hidden states [G, L, D], or
     (hidden, summed aux) with ``with_aux``. With ``cfg.remat`` and policy
     "nothing" each layer runs under ``torch.utils.checkpoint`` while
-    gradients are on; the aux rides out of the checkpoint with the hidden
-    states (the recompute routes as the first pass did: the router and the
-    grouped matmuls are deterministic)."""
+    gradients are on; under "dots_nobatch" the same, with the selective
+    policy of ``models/remat.py`` (the projections' and the router's
+    outputs saved, the rest, kernels included, recomputed). The aux rides
+    out of the checkpoint with the hidden states (the recompute routes as
+    the first pass did: the router and the grouped matmuls are
+    deterministic)."""
     cfg = model.cfg
-    if cfg.remat and cfg.remat_policy not in ("nothing", "everything"):
-        if cfg.remat_policy == "dots_nobatch":
-            raise NotImplementedError("remat_policy='dots_nobatch': ROADMAP Queue A item 3c")
-        raise ValueError(f"remat_policy={cfg.remat_policy!r}; valid: nothing, everything")
+    if cfg.remat and cfg.remat_policy not in ("nothing", "dots_nobatch", "everything"):
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}; valid: dots_nobatch, everything, nothing")
     x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
     rope = _rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     recompute = (
-        cfg.remat and cfg.remat_policy == "nothing" and not no_grad and torch.is_grad_enabled()
+        cfg.remat and cfg.remat_policy != "everything" and not no_grad and torch.is_grad_enabled()
     )
+    selective = {"context_fn": remat_lib.context_fn} if cfg.remat_policy == "dots_nobatch" else {}
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
         if recompute:
             x, aux = checkpoint(
-                _decoder_layer, cfg, layer, x, mask, rope, impl, no_grad, with_aux, use_reentrant=False
+                _decoder_layer, cfg, layer, x, mask, rope, impl, no_grad, with_aux, use_reentrant=False, **selective
             )
         else:
             x, aux = _decoder_layer(cfg, layer, x, mask, rope, impl, no_grad, with_aux)

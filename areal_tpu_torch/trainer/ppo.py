@@ -1,6 +1,6 @@
 """PPO-family algorithm layer: advantages, the loss dispatch and the update
-loop — the port of ``areal_tpu/trainer/ppo.py`` (``grpo_loss_fn``,
-``PPOActor``).
+loops — the port of ``areal_tpu/trainer/ppo.py`` (``grpo_loss_fn``,
+``PPOActor``, ``critic_loss_fn``, ``PPOCritic``).
 
 Host-side data is token-aligned ([b, t] refers to token t: rollout
 logprobs, ``forward_batch`` outputs); ``compute_advantages`` converts the
@@ -22,7 +22,11 @@ microbatch fold); with the engine's segment map it adds per-sequence
 clip fraction and behave KL onto its lineage record
 (``observability/lineage.py``).
 
-Left out: the critic (``PPOCritic``, ROADMAP Queue A item 3c).
+The critic (``PPOCritic``, ``ppo.py:686-750``) runs over an engine built
+with ``value_head=True``: ``compute_values`` is its token-aligned forward,
+and ``ppo_update`` trains the clipped value loss on the batch that
+``compute_advantages`` returned (``values`` and ``returns`` become
+``old_values`` and ``target_values``), its stats under ``ppo_critic/``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from areal_tpu_torch.api.config import PPOActorConfig
+from areal_tpu_torch.api.config import PPOActorConfig, PPOCriticConfig
 from areal_tpu_torch.infra.staleness_manager import LAG_BUCKET_LABELS
 from areal_tpu_torch.observability import catalog as obs_catalog
 from areal_tpu_torch.observability import lineage as lineage_mod
@@ -532,4 +536,62 @@ class PPOActor:
             all_stats.append(train_stat)
         _export_learning_health(all_stats, mb_weights)
         _commit_lineage(lineage_acc, consuming_version)
+        return all_stats
+
+
+def critic_loss_fn(outputs: dict, b: dict, cfg: PPOCriticConfig):
+    """Packed-grid clipped value loss over the loss-masked, label-valid
+    positions (``ppo.py:686``), with ``critic_loss`` and
+    ``value_clip_ratio`` as its stats."""
+    lm = (b["loss_mask"] > 0) & b["label_valid"]
+    loss, stat = F.ppo_critic_loss_fn(
+        value=outputs["values"],
+        old_value=b["old_values"],
+        target_value=b["target_values"],
+        loss_mask=lm,
+        value_eps_clip=cfg.eps_clip,
+    )
+    lmf = lm.float()
+    denom = torch.clamp(lmf.sum(), min=1.0)
+    return loss, {
+        "critic_loss": (stat["loss"] * lmf).sum() / denom,
+        "value_clip_ratio": stat["clip_mask"].float().sum() / denom,
+    }
+
+
+class PPOCritic:
+    """Value-function trainer over a train engine with a value head."""
+
+    def __init__(self, config: PPOCriticConfig, engine):
+        self.config = config
+        self.engine = engine
+        cfg = config
+        self._loss_fn = lambda outputs, b: critic_loss_fn(outputs, b, cfg)
+
+    def compute_values(self, data: TensorDict) -> np.ndarray:
+        """Token-aligned values: out[b, t] = V(prefix up to and including
+        token t) (the no-grad forward: flash kernel K2 on a card)."""
+        return self.engine.forward_batch(data, output_key="values")
+
+    def ppo_update(self, data: TensorDict) -> list[dict[str, float]]:
+        """``ppo_n_minibatches`` optimizer steps of the value loss; the
+        loss weight is each minibatch's loss-mask tokens."""
+        data = dict(data)
+        # label-aligned targets: the value at position t predicts the return from t
+        data["old_values"] = np.asarray(data.pop("values"), np.float32)
+        data["target_values"] = np.asarray(data.pop("returns"), np.float32)
+        # the actor's loss diagnostics and reward keys: no use to the critic
+        for key in ("rewards", "tot_rewards", "kl_rewards", "versions", "version_lag", "lineage_id"):
+            data.pop(key, None)
+        mb_list = split_padded_tensor_dict_into_mb_list(data, MicroBatchSpec(n_mbs=self.config.ppo_n_minibatches))
+        all_stats = []
+        for mb in mb_list.mbs:
+            train_stat = self.engine.train_batch(
+                mb,
+                loss_fn=self._loss_fn,
+                loss_weight_fn=lambda x: float((np.asarray(x["loss_mask"]) > 0).sum()),
+            )
+            with stats_tracker.scope("ppo_critic"):
+                stats_tracker.get().scalar(**train_stat)
+            all_stats.append(train_stat)
         return all_stats

@@ -3,10 +3,10 @@
 
 Each global step runs, as the JAX trainer does (``rl_trainer.py:370-584``):
 
-    prepare_batch -> [proximal logp recompute] -> [reference logp]
-    -> compute_advantages -> ppo_update
-    -> pause rollout -> update_weights -> set_version -> [save / recover]
-    -> resume -> [eval] -> log
+    prepare_batch -> [critic values] -> [proximal logp recompute]
+    -> [reference logp] -> compute_advantages -> ppo_update
+    -> [critic ppo_update] -> pause rollout -> update_weights
+    -> set_version -> [save / recover] -> resume -> [eval] -> log
 
 with the version rule ``new_version = global_step + 1`` on the trainer, the
 rollout client and the servers. Over HTTP (``RemoteTorchEngine``) the
@@ -35,10 +35,18 @@ trained on. After each recover dump the journal drops the segments that
 the previous dump covers (the GC lags one recover generation). ``close``
 seals the journal and dumps the lineage ring.
 
+A critic (``config.critic``, ``rl_trainer.py:124-129``): ``critic_engine``,
+or a ``TorchTrainEngine(config.critic, value_head=True)`` initialized with
+the trainer's ``FinetuneSpec``. Its values enter the batch before the
+proximal recompute (one more forward in the step timeline), its update
+runs after the actor's, and it takes each new version with the actor; it
+ships no weights. As in JAX, the recover dumps and the saver hold only the
+actor: a relaunched trainer restarts its critic from ``config.critic``.
+
 Refused at construction with ``NotImplementedError`` naming the ROADMAP
-Queue A item it waits for: a critic (item 3c), ``allocation_mode`` (item
-6), a ``cluster.name_resolve.type`` other than "memory" (item 8) and the
-q8 wire (item 4).
+Queue A item it waits for: ``allocation_mode`` (item 6), a
+``cluster.name_resolve.type`` other than "memory" (item 8) and the q8 wire
+(item 4).
 
 ``compile_cache.install_compile_counters`` counts XLA compilations and has
 no PyTorch counterpart: it is left out.
@@ -65,7 +73,7 @@ from areal_tpu_torch.observability import catalog as obs_catalog
 from areal_tpu_torch.observability import lineage as lineage_mod
 from areal_tpu_torch.observability import step_timeline
 from areal_tpu_torch.robustness.preemption import PreemptionHandler
-from areal_tpu_torch.trainer.ppo import PPOActor
+from areal_tpu_torch.trainer.ppo import PPOActor, PPOCritic
 from areal_tpu_torch.utils import perf_tracer, stats_tracker
 from areal_tpu_torch.utils.data import StatefulDataLoader
 from areal_tpu_torch.utils.perf_tracer import Category
@@ -92,8 +100,6 @@ def resolve_weight_update_wire(config) -> str:
 def check_supported(config: PPOConfig) -> None:
     """Raise ``NotImplementedError`` for each option of the loop whose code
     path is a later slice, before anything is built."""
-    if config.critic is not None:
-        raise NotImplementedError("a critic (PPOCritic): ROADMAP Queue A item 3c")
     if config.allocation_mode:
         raise NotImplementedError(f"allocation_mode={config.allocation_mode!r}: ROADMAP Queue A item 6")
     if config.cluster.name_resolve.type != "memory":
@@ -142,6 +148,12 @@ class PPOTrainer:
         if actor_engine is None or getattr(self.actor_engine, "model", 1) is None:
             self.actor_engine.initialize(self.ft_spec)
         self.actor = PPOActor(config.actor, self.actor_engine)
+        self.critic = None
+        if config.critic is not None:
+            eng = critic_engine or TorchTrainEngine(config.critic, value_head=True)
+            if critic_engine is None:
+                eng.initialize(self.ft_spec)
+            self.critic = PPOCritic(config.critic, eng)
         self.ref = None
         if config.ref is not None:
             eng = ref_engine or TorchTrainEngine(config.ref, need_optimizer=False)
@@ -343,6 +355,10 @@ class PPOTrainer:
             # the engine attributes its host_prep / forward_backward /
             # optimizer spans into ``tl`` through step_timeline.engine_phase
             n_extra_fwd = 0
+            if self.critic is not None:
+                with perf_tracer.trace_scope("train.compute_values", Category.COMPUTE):
+                    batch["values"] = self.critic.compute_values(batch)
+                n_extra_fwd += 1
             if self.actor.should_compute_prox_logp():
                 with perf_tracer.trace_scope("train.recompute_logp", Category.COMPUTE):
                     batch["prox_logp"] = self.actor.compute_logp(batch)
@@ -357,6 +373,8 @@ class PPOTrainer:
             t_train = time.monotonic()
             with perf_tracer.trace_scope("train.ppo_update", Category.COMPUTE):
                 self.actor.ppo_update(adv_batch)
+            if self.critic is not None:
+                self.critic.ppo_update(adv_batch)
             train_step_secs = time.monotonic() - t_train
 
             # stop submissions, push the weights, advance the version
@@ -366,6 +384,8 @@ class PPOTrainer:
                 new_version = global_step + 1
                 self.actor_engine.update_weights(self.weight_update_meta)
                 self.actor_engine.set_version(new_version)
+                if self.critic is not None:
+                    self.critic.engine.set_version(new_version)
                 self.rollout.set_version(new_version)
                 if self.eval_rollout is not None:
                     self.eval_rollout.set_version(new_version)

@@ -81,7 +81,7 @@ no result line:
               executor's retry counters and the pool audit; prints the loop's
               tokens/s beside the serve phase's, task latency and the pause.
 9. lifecycle — the serving engine's request lifecycle at Qwen2.5-1.5B
-              (the serve phase's settings), over HTTP through
+              (full width, 8 of 28 layers; the serve phase's settings), over HTTP through
               ``RemoteTorchEngine``: (a) 16 greedy requests abort-paused and
               resumed from their parked KV (no prefill, the tokens of an
               uninterrupted run, pause -> first resumed token beside a
@@ -93,8 +93,8 @@ no result line:
               /autopilot/knobs) and the client's backpressure; (f) /drain,
               /health and /generate while draining, /undrain; (g) release /
               resume memory. The pool audit and the #1 / #3 launches.
-10. observe  — the serving engine's observability at Qwen2.5-1.5B (the
-              serve phase's settings) over HTTP: a cold wave, a warm wave on
+10. observe  — the serving engine's observability at Qwen2.5-1.5B (full
+              width, 8 of 28 layers; the serve phase's settings) over HTTP: a cold wave, a warm wave on
               a shared 1,024-token system prompt (radix hits, #3) with a 2 s
               ``POST /debug/profile`` capture during it, 16 requests
               abort-paused and resumed from parked KV through
@@ -143,7 +143,7 @@ no result line:
               commit; staging GB/s, decode step wall time while staging
               beside the other steps, trainer tokens/s and peak memory.
 14. durable  — the trainer's durable state at Qwen2.5-1.5B, full width and
-              depth (the grpo phase's actor settings and the serve phase's
+              8 of 28 layers (the grpo phase's actor settings and the serve phase's
               server settings): (a) the disk free at the phase's root and an
               HF export of the trainer's f32 weights (GB, s, GB/s); (b) an
               ``InferenceServer`` started from the export by
@@ -161,7 +161,29 @@ no result line:
               it (K2-K4 launches); (f) offload / onload of the resumed actor
               (GB freed, seconds, bit for bit after). Deletes its directory
               (``_durable/``) at its end.
-15. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+15. critic   — PPO with a learned critic over HTTP at Qwen2.5-1.5B:
+              ``PPOTrainer.train`` (2 global steps) with the grpo phase's
+              actor and client and ``PPOCriticConfig.path`` set to the
+              actor's HF export, so the trainer builds the critic (the
+              actor's dims, a zero value head). Checks the critic's body
+              equal to the actor's, step 1's values exactly 0 and its returns
+              the plain GAE of its rewards, step 2's values nonzero and
+              finite, finite critic loss and value clip ratio, pushes that
+              carry the actor's parameters only, and K2-K4 launches with the
+              critic's ``compute_values`` forward and updates; prints the
+              step's phases, the critic's tokens/s and the peak memory
+              against its prediction.
+16. sft      — SFT, the reward model and the remat policies at Qwen2.5-1.5B,
+              full depth, from an HF export of seeded random weights:
+              ``SFTTrainer.train`` (4 steps of 8 rows, an eval pass every 2
+              steps) and ``RWTrainer.train`` (4 steps of 8 pairs in
+              microbatches of at most 4,096 tokens; ``n_pairs`` intact), each
+              building its engine from ``TrainEngineConfig.path``; then one
+              SFT step from the same weights on the same batch under
+              "nothing", "dots_nobatch" and "everything", in two rounds:
+              the parameters after "dots_nobatch" against "nothing"'s, each
+              policy's peak memory, step seconds and K2-K4 launches.
+17. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -176,7 +198,7 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-16. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+18. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step: each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
@@ -185,7 +207,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-17. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+19. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -197,7 +219,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-18. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+20. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -208,7 +230,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-19. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+21. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -216,7 +238,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-20. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+22. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -271,6 +293,12 @@ QWEN25_15B = dict(
     attention_bias=True,
     dtype="bfloat16",
 )
+# the depth of the phases whose checks are about behaviour, not the main
+# path's speed (lifecycle, observe, durable): 8 of Qwen2.5-1.5B's 28 layers
+# at full width, so the whole script stays inside its time limit on a slow
+# host (1,170 s of phases at full depth on one, PERF.md); serve, rollout,
+# train, grpo, critic, sft and train_tree run all 28
+CUT_LAYERS = 8
 # Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): the
 # qwen3_moe family's smallest public member, full width and depth
 QWEN3_30B_A3B = dict(
@@ -2411,7 +2439,7 @@ def _penalized_gaps(model, prompt: list[int], out: list[int], pen: float) -> np.
 
 def phase_lifecycle(card: str) -> dict:
     """The serving engine's request lifecycle at Qwen2.5-1.5B's full width
-    and depth (random bf16 weights from a seed), the serve phase's
+    and ``CUT_LAYERS`` of its depth (random bf16 weights from a seed), the serve phase's
     ``ServerConfig``, over HTTP through ``RemoteTorchEngine`` where a client
     is involved:
 
@@ -2466,7 +2494,7 @@ def phase_lifecycle(card: str) -> dict:
     from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
 
     t_phase = time.monotonic()
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     L = mcfg.num_layers
     model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -2907,7 +2935,7 @@ def _prometheus_samples(text: str) -> tuple[int, list[str]]:
 
 def phase_observe(card: str) -> dict:
     """The serving engine's observability at Qwen2.5-1.5B's full width and
-    depth (random bf16 weights from a seed), the serve phase's
+    ``CUT_LAYERS`` of its depth (random bf16 weights from a seed), the serve phase's
     ``ServerConfig``, over HTTP: a cold wave of 16, a warm wave of 16 on a
     shared 1,024-token system prompt (radix hits, #3 chain launches) with a
     2 s ``POST /debug/profile`` capture taken during it, 16 requests
@@ -2956,7 +2984,7 @@ def phase_observe(card: str) -> dict:
     os.environ["AREAL_FLIGHT_DIR"] = os.path.join(tmp.name, "flight")
     tracer = perf_tracer._TRACER
     perf_tracer._TRACER = perf_tracer.PerfTracer(PerfTracerConfig(output_dir=tmp.name))
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     cfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
@@ -4239,8 +4267,8 @@ def _race_line(r: dict) -> str:
 
 
 def phase_durable(card: str) -> dict:
-    """The trainer's durable state at Qwen2.5-1.5B, full width and depth,
-    over HTTP: (a) two optimizer steps, each right after a snapshot taken
+    """The trainer's durable state at Qwen2.5-1.5B, full width and
+    ``CUT_LAYERS`` of its depth, over HTTP: (a) two optimizer steps, each right after a snapshot taken
     between its gradients and its update, which must hold the state before
     the step bit for bit (the first with its stream wait taken out, a
     planted fault that must show; ``_race_check``); an HF export of the
@@ -4291,7 +4319,7 @@ def phase_durable(card: str) -> dict:
     os.makedirs(DURABLE_ROOT)
     du = shutil.disk_usage(DURABLE_ROOT)
     log(f"[durable] {card}: (a) disk at {DURABLE_ROOT}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     L = mcfg.num_layers
     group, n_new, batch_prompts = 4, 128, 8
     acfg = PPOActorConfig(
@@ -4770,6 +4798,534 @@ def _drain_client(client, engine, timeout: float = 600.0) -> None:
         time.sleep(0.01)
     while any(t is not None for t in engine._slot_task) and time.monotonic() < deadline:
         time.sleep(0.01)
+
+
+
+CRITIC_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_critic")
+CRITIC_STEPS, CRITIC_PROMPTS = 2, 16
+# the critic phase's peak device memory as predicted in PERF.md before its
+# first run: the grpo phase's 31.23 GiB plus the critic's f32 weights and
+# two moments (17.2 GiB)
+CRITIC_PEAK_PREDICTED_GIB = 48.5
+VALUES_RTOL = 1e-5  # step 1's returns against the plain GAE (f32 against f64 sums)
+
+
+def _plain_returns(rewards: np.ndarray, loss_mask: np.ndarray, gamma: float, lam: float) -> np.ndarray:
+    """GAE returns over zero values, one row and one position at a time:
+    g = r_t + gamma * lam * g at each loss-masked label position, carried
+    unchanged over the others (``trainer/ppo.py compute_advantages``'s
+    masking; the last position stays 0)."""
+    B, L = rewards.shape
+    out = np.zeros((B, L), np.float64)
+    for b in range(B):
+        g = 0.0
+        for t in range(L - 2, -1, -1):
+            if loss_mask[b, t] > 0:
+                g = float(rewards[b, t]) + gamma * lam * g
+            out[b, t] = g
+    return out
+
+
+def phase_critic(card: str) -> dict:
+    """PPO with a learned critic over HTTP at Qwen2.5-1.5B: ``PPOTrainer.train``
+    (2 global steps) with the grpo phase's actor and client and a
+    ``PPOCriticConfig`` whose ``path`` is the actor's HF export, so the
+    trainer builds the critic (the actor's dims, a zero value head) as
+    ``gsm8k_ppo.yaml`` loads its critic from a checkpoint. Checks: the
+    critic's body loaded equal to the actor's weights; step 1's values
+    exactly 0 and its returns the plain GAE of its rewards; step 2's values
+    nonzero and finite; finite ``ppo_critic/critic_loss`` and
+    ``value_clip_ratio``; the critic ships no weights (every staged byte is
+    the actor's); K2 launches include the critic's ``compute_values``
+    forward. Prints the step's phases with that forward, the critic's
+    tokens/s and the peak memory against the prediction."""
+    import shutil
+
+    from areal_tpu_torch.api.config import (DatasetConfig, EvaluatorConfig, InferenceEngineConfig, NormConfig,
+                                            OptimizerConfig, PPOActorConfig, PPOConfig, PPOCriticConfig,
+                                            PreemptionConfig, RecoverConfig, SaverConfig, ServerConfig,
+                                            StatsLoggerConfig)
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters, SaveLoadMeta
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[critic] {held:.2f} GiB still allocated by earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    group, n_new, batch_prompts = 4, 128, 8
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    L = mcfg.num_layers
+    acfg = PPOActorConfig(
+        dtype="bfloat16", param_dtype="float32", attn_impl="pallas", gradient_checkpointing=True,
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant"), group_size=group,
+        adv_norm=NormConfig(mean_level="group", std_level="batch", group_size=group), use_decoupled_loss=True,
+        prox_logp_mode="recompute", ppo_n_minibatches=2,
+    )
+    trainer = TorchTrainEngine(acfg, model_config=mcfg)
+    trainer.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=CRITIC_PROMPTS, train_batch_size=batch_prompts),
+                       seed=0)
+    shutil.rmtree(CRITIC_ROOT, ignore_errors=True)
+    hf_dir = os.path.join(CRITIC_ROOT, "actor_hf")
+    t0 = time.monotonic()
+    trainer.save(SaveLoadMeta(path=hf_dir, weight_format="hf"))
+    export_s = time.monotonic() - t0
+    ccfg = PPOCriticConfig(
+        path=hf_dir, dtype="bfloat16", param_dtype="float32", attn_impl="pallas", gradient_checkpointing=True,
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant"), ppo_n_minibatches=2,
+    )
+    scfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                        weight_stage_target="device", host="127.0.0.1", seed=0)
+    engine = DecodeEngine(scfg, params=trainer.model.state_dict(), model_cfg=mcfg)
+    srv = ServerThread(scfg, engine=engine)
+    srv.start()
+    client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+    client.initialize()
+    gconfig = GenerationHyperparameters(n_samples=group, max_new_tokens=n_new, temperature=1.0)
+    files = dict(saver=SaverConfig(fileroot=CRITIC_ROOT), checkpointer=SaverConfig(fileroot=CRITIC_ROOT),
+                 evaluator=EvaluatorConfig(fileroot=CRITIC_ROOT), recover=RecoverConfig(fileroot=CRITIC_ROOT),
+                 stats_logger=StatsLoggerConfig(fileroot=CRITIC_ROOT))
+    cfg = PPOConfig(experiment_name="chip-smoke", trial_name="critic", weight_update_mode="mem",
+                    total_train_steps=CRITIC_STEPS, preemption=PreemptionConfig(enabled=False), gconfig=gconfig,
+                    train_dataset=DatasetConfig(batch_size=batch_prompts), actor=acfg, critic=ccfg,
+                    rollout=InferenceEngineConfig(**GRPO_CLIENT), **files)
+    cfg.cluster.fileroot = CRITIC_ROOT
+    rng = np.random.default_rng(1)
+    dataset = [{"prompt_ids": rng.integers(0, mcfg.vocab_size, int(n)).tolist()}
+               for n in rng.integers(64, 513, CRITIC_PROMPTS)]
+    loop = None
+    try:
+        t0 = time.monotonic()
+        loop = PPOTrainer(cfg, dataset, rollout=client, actor_engine=trainer)
+        critic = loop.critic
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        cparams = dict(critic.engine.model.named_parameters())
+        head = cparams.pop("value_head")
+        unequal = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, cparams[n])]
+        if unequal or cparams.keys() != dict(trainer.model.named_parameters()).keys() or bool(head.any()):
+            raise AssertionError(f"[critic] the critic's body differs from the actor's export in {unequal[:3]}, or "
+                                 f"its value head is not zero")
+        log(f"[critic] {card}: the actor's HF export {export_s:.2f} s; the critic (value head, f32 master weights, "
+            f"AdamW state) built from it by PPOTrainer in {build_s:.1f} s, its body equal to the actor's; "
+            f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+        # what each step computed and trained, recorded around the loop's calls
+        values_s, values_grids, critic_s, adv_seen, critic_mbs, actor_mbs, fwd_grids = [], [], [], [], [], [], []
+        compute_values, critic_update = critic.compute_values, critic.ppo_update
+        compute_logp, actor_train, critic_train = loop.actor.compute_logp, trainer.train_batch, critic.engine.train_batch
+
+        def compute_values_timed(b):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = compute_values(b)
+            values_s.append(time.monotonic() - t)
+            values_grids.append(len(critic.engine._make_grids(b)))
+            return out
+
+        def critic_update_timed(data):
+            adv_seen.append({k: np.array(data[k], copy=True)
+                             for k in ("values", "returns", "tot_rewards", "loss_mask", "attention_mask")})
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = critic_update(data)
+            critic_s.append(time.monotonic() - t)
+            return out
+
+        def compute_logp_logged(b):
+            fwd_grids.append(len(trainer._make_grids(b)))
+            return compute_logp(b)
+
+        def actor_train_logged(*a, **k):
+            st = actor_train(*a, **k)
+            actor_mbs.append(int(st["n_microbatches"]))
+            return st
+
+        def critic_train_logged(*a, **k):
+            st = critic_train(*a, **k)
+            critic_mbs.append(int(st["n_microbatches"]))
+            return st
+
+        def critic_ships(*a, **k):
+            raise AssertionError("[critic] the critic engine pushed weights")
+
+        pushed: list[set] = []
+        client_update = client.update_weights
+
+        def client_update_logged(meta, params=None, **k):
+            pushed.append(set(params or ()))
+            return client_update(meta, params=params, **k)
+
+        client.update_weights = client_update_logged
+        critic.compute_values, critic.ppo_update = compute_values_timed, critic_update_timed
+        loop.actor.compute_logp, trainer.train_batch = compute_logp_logged, actor_train_logged
+        critic.engine.train_batch, critic.engine.update_weights = critic_train_logged, critic_ships
+        per_step = []
+        commit = loop.stats_logger.commit
+
+        def commit_recorded(epoch, step, global_step, stats):
+            per_step.append(dict(stats))
+            commit(epoch, step, global_step, stats)
+
+        loop.stats_logger.commit = commit_recorded
+        kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+        bytes0 = client._metrics.update_bytes.get()
+        # main path: counts to 0 just before, read just after
+        for kern in kernels:
+            kern.launches = 0
+        paged_attention_stacked.launches = 0
+        t0 = time.monotonic()
+        loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+        wall = time.monotonic() - t0
+        _drain_client(client, engine)
+        counts = [k.launches for k in kernels]
+        launches1 = paged_attention_stacked.launches
+        staged = client._metrics.update_bytes.get() - bytes0
+        critic_version = critic.engine.get_version()
+    finally:
+        if loop is not None:
+            loop.close()
+        else:
+            client.destroy()
+        srv.stop()
+        shutil.rmtree(CRITIC_ROOT, ignore_errors=True)
+
+    # checks
+    if len(per_step) != CRITIC_STEPS or len(adv_seen) != CRITIC_STEPS:
+        raise AssertionError(f"[critic] {len(per_step)} steps, {len(adv_seen)} critic updates, want {CRITIC_STEPS}")
+    if critic_version != CRITIC_STEPS:
+        raise AssertionError(f"[critic] the critic's version {critic_version}, want {CRITIC_STEPS}")
+    first, second = adv_seen
+    if np.any(first["values"] != 0.0):
+        raise AssertionError(f"[critic] step 1's values are not all 0 (max |v| {np.abs(first['values']).max():.3g})")
+    want = _plain_returns(first["tot_rewards"], first["loss_mask"], acfg.gamma, acfg.lam)
+    ret_err = float(np.abs(first["returns"] - want).max())
+    if not ret_err <= VALUES_RTOL * max(1.0, float(np.abs(want).max())):
+        raise AssertionError(f"[critic] step 1's returns against the plain GAE: max|diff| {ret_err:.3g}")
+    attn2 = second["attention_mask"].astype(bool)
+    v2 = second["values"][attn2]
+    if not (np.isfinite(v2).all() and np.abs(v2).min() > 0 and np.all(second["values"][~attn2] == 0)):
+        raise AssertionError("[critic] step 2's values not finite and nonzero on every token (zero on padding)")
+    for i, s in enumerate(per_step):
+        bad = [k for k in ("ppo_critic/critic_loss", "ppo_critic/value_clip_ratio", "ppo_critic/grad_norm",
+                           "ppo_actor/loss") if not math.isfinite(s.get(k, float("nan")))]
+        if bad:
+            raise AssertionError(f"[critic] step {i}: {bad} missing or not finite")
+    actor_names = {n for n, _ in trainer.model.named_parameters()}
+    if pushed != [actor_names] * CRITIC_STEPS:
+        raise AssertionError(f"[critic] the pushes carried {[sorted(p ^ actor_names)[:3] for p in pushed]} beyond or "
+                             "short of the actor's parameters")
+    n_fwd, n_val, n_amb, n_cmb = sum(fwd_grids), sum(values_grids), sum(actor_mbs), sum(critic_mbs)
+    want_counts = [L * (n_fwd + n_val) + 2 * L * (n_amb + n_cmb), L * (n_amb + n_cmb), L * (n_amb + n_cmb)]
+    if counts != want_counts or n_val == 0:
+        raise AssertionError(f"[critic] K2 / K3 / K4 launches {counts} != {want_counts} (actor: {n_fwd} forward "
+                             f"grids, {n_amb} microbatches; critic: {n_val} values grids, {n_cmb} microbatches)")
+    steps = engine.stats["decode_steps"]
+    if launches1 == 0 or launches1 % L:
+        raise AssertionError(f"[critic] #1 launches {launches1}, not a positive multiple of {L} layers")
+
+    # the prints
+    for i, s in enumerate(per_step):
+        log(f"[critic] {card}: step {i}: {s['step_secs']:.2f} s; rollout_wait {s['phase/rollout_wait_s']:.2f} s, "
+            f"compute_values {values_s[i]:.2f} s ({values_grids[i]} grids), host_prep {s['phase/host_prep_s']:.2f} s, "
+            f"forward_backward {s['phase/forward_backward_s']:.2f} s, optimizer {s['phase/optimizer_s']:.2f} s, "
+            f"ppo_update (actor + critic) {s['timing/train_step']:.2f} s of which the critic's {critic_s[i]:.2f} s, "
+            f"weight_publish {s['phase/weight_publish_s']:.2f} s; ppo_actor/loss {s['ppo_actor/loss']:.6f}, "
+            f"ppo_critic/critic_loss {s['ppo_critic/critic_loss']:.6f}, value_clip_ratio "
+            f"{s['ppo_critic/value_clip_ratio']:.4f}, critic grad_norm {s['ppo_critic/grad_norm']:.4f}")
+    tokens = sum(int(a["attention_mask"].sum()) for a in adv_seen)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[critic] {card}: step 1's values all 0 and its returns the plain GAE of its rewards (max|diff| "
+        f"{ret_err:.2e}); step 2's values nonzero and finite (|v| {np.abs(v2).min():.3g}..{np.abs(v2).max():.3g}); "
+        f"the critic {tokens / sum(critic_s):.0f} tokens/s ({tokens} tokens in {sum(critic_s):.2f} s of its "
+        f"ppo_update, the first step carrying its one-time cost); {staged / 1e9:.3f} GB staged in {len(pushed)} "
+        "pushes of the actor's parameters only; "
+        f"K2 / K3 / K4 launches {counts} (actor {n_fwd} forward grids + {n_amb} microbatches, critic {n_val} values "
+        f"grids + {n_cmb} microbatches); #1 launches {launches1} = {L} x {steps} decode steps; the loop {wall:.1f} s; "
+        f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB (predicted {CRITIC_PEAK_PREDICTED_GIB:.1f} GiB)")
+    log(f"[critic] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
+    del loop, trainer, engine, srv, critic
+    return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
+                launches1=launches1, peak_gib=peak, tokens_per_s=tokens / sum(critic_s), values_s=values_s,
+                step_s=[s["step_secs"] for s in per_step])
+
+
+SFT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_sft")
+SFT_STEPS, SFT_BATCH = 4, 8
+REMAT_POLICIES, REMAT_ROUNDS = ("nothing", "dots_nobatch", "everything"), 2
+
+
+def _sft_rows(n: int, seed: int, vocab: int) -> list[dict]:
+    """A prompt of 64-384 tokens, then a 128-token response under the loss
+    mask (seeded, no dataset)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        p = int(rng.integers(64, 385))
+        ids = rng.integers(0, vocab, p + 128)
+        rows.append({"input_ids": ids.tolist(), "loss_mask": [0.0] * p + [1.0] * 128})
+    return rows
+
+
+def _pref_rows(n: int, seed: int, vocab: int) -> list[dict]:
+    """Preference pairs: one prompt of 64-384 tokens, a chosen and a
+    rejected response of 32-128 tokens."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        p = rng.integers(0, vocab, int(rng.integers(64, 385))).tolist()
+        rows.append({"chosen_ids": p + rng.integers(0, vocab, int(rng.integers(32, 129))).tolist(),
+                     "rejected_ids": p + rng.integers(0, vocab, int(rng.integers(32, 129))).tolist()})
+    return rows
+
+
+def phase_sft(card: str) -> dict:
+    """SFT, the reward model and the three remat policies at Qwen2.5-1.5B,
+    full width and depth, from an HF export of seeded random weights:
+    ``SFTTrainer.train`` (4 steps of 8 rows, an eval pass every 2 steps) and
+    ``RWTrainer.train`` (4 steps of 8 pairs, microbatches of at most 4,096
+    tokens), each building its engine from ``TrainEngineConfig.path``; then
+    one SFT step from the same weights on the same batch under each of
+    "nothing", "dots_nobatch" and "everything", in two rounds. Checks
+    finite losses, ``n_pairs`` equal to the step's pairs, K2 / K3 / K4
+    launches (the recompute launching K2 again under "dots_nobatch"), and
+    the post-step parameters under "dots_nobatch" equal to those under
+    "nothing" bit for bit, or apart by no more than two runs under
+    "nothing". Prints tokens/s, losses, peak memory and each policy's peak
+    and step seconds."""
+    import shutil
+
+    from areal_tpu_torch.api.config import (DatasetConfig, EvaluatorConfig, MicroBatchSpec, OptimizerConfig,
+                                            RecoverConfig, RWConfig, SaverConfig, SFTConfig, StatsLoggerConfig,
+                                            TrainEngineConfig)
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.trainer.sft_trainer import LMEngine, RWTrainer, SFTTrainer
+    from areal_tpu_torch.utils.data import pad_sequences_to_tensors
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[sft] {held:.2f} GiB still allocated by earlier phases")
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    L = mcfg.num_layers
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    shutil.rmtree(SFT_ROOT, ignore_errors=True)
+    hf_dir = os.path.join(SFT_ROOT, "hf")
+    res: dict = {}
+    try:
+        src = TorchTrainEngine(TrainEngineConfig(), model_config=mcfg, need_optimizer=False)
+        src.initialize(seed=0)
+        src.save(SaveLoadMeta(path=hf_dir, weight_format="hf"))
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def engine_cfg(**over):
+            return TrainEngineConfig(path=hf_dir, dtype="bfloat16", param_dtype="float32", attn_impl="pallas",
+                                     gradient_checkpointing=True,
+                                     optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant"), **over)
+
+        def files(name: str) -> dict:
+            root = os.path.join(SFT_ROOT, name)
+            return dict(experiment_name="chip-smoke", trial_name=name, saver=SaverConfig(fileroot=root),
+                        checkpointer=SaverConfig(fileroot=root), recover=RecoverConfig(fileroot=root),
+                        stats_logger=StatsLoggerConfig(fileroot=root))
+
+        # (a) SFT
+        torch.cuda.reset_peak_memory_stats()
+        rows = _sft_rows(SFT_STEPS * SFT_BATCH, 2, mcfg.vocab_size)
+        valid = _sft_rows(SFT_BATCH, 3, mcfg.vocab_size)
+        cfg = SFTConfig(total_train_epochs=1, total_train_steps=SFT_STEPS, model=engine_cfg(),
+                        train_dataset=DatasetConfig(batch_size=SFT_BATCH), **files("sft"),
+                        evaluator=EvaluatorConfig(fileroot=SFT_ROOT, freq_steps=2))
+        cfg.cluster.fileroot = SFT_ROOT
+        t0 = time.monotonic()
+        sft = SFTTrainer(cfg, rows, valid_dataset=valid)
+        build_s = time.monotonic() - t0
+        eng = sft.engine
+        mbs, eval_grids, committed, step_tokens = [], [], [], []
+        train_batch, eval_batch, collate = eng.train_batch, eng.eval_batch, sft._collate
+
+        def train_logged(*a, **k):
+            st = train_batch(*a, **k)
+            mbs.append(int(st["n_microbatches"]))
+            return st
+
+        def eval_logged(data, *a, **k):
+            eval_grids.append(len(eng._make_grids(data)))
+            return eval_batch(data, *a, **k)
+
+        def collate_counted(batch_rows):
+            b = collate(batch_rows)
+            step_tokens.append(int(np.asarray(b["attention_mask"]).sum()))
+            return b
+
+        eng.train_batch, eng.eval_batch, sft._collate = train_logged, eval_logged, collate_counted
+        sft.stats_logger.commit = lambda epoch, step, gstep, stats: committed.append(dict(stats))
+        for kern in kernels:
+            kern.launches = 0
+        losses = sft.train()
+        counts = [k.launches for k in kernels]
+        sft.close()
+        want = [2 * L * sum(mbs) + L * sum(eval_grids), L * sum(mbs), L * sum(mbs)]
+        evals = [s["eval/ppl_loss"] for s in committed if "eval/ppl_loss" in s]
+        if len(losses) != SFT_STEPS or not all(math.isfinite(x) for x in losses + evals) or len(evals) != 2:
+            raise AssertionError(f"[sft] losses {losses}, eval losses {evals}: want {SFT_STEPS} finite and 2 evals")
+        if counts != want:
+            raise AssertionError(f"[sft] K2 / K3 / K4 launches {counts} != {want} ({sum(mbs)} microbatches, "
+                                 f"{sum(eval_grids)} eval grids)")
+        # the trainer's tokens/s over the engine's spans of steps 2-4 (the
+        # first carries the process's one-time cost when it trains first)
+        spans = [s["phase/host_prep_s"] + s["phase/forward_backward_s"] + s["phase/optimizer_s"] for s in committed]
+        sft_tps = sum(step_tokens[1:]) / sum(spans[1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[sft] {card}: (a) SFTTrainer built its engine from the HF export in {build_s:.1f} s; steps "
+            + ", ".join(f"{s['step_secs']:.2f}" for s in committed) + f" s ({step_tokens} tokens); {sft_tps:.0f} "
+            "tokens/s over steps 2-4 (host prep, forward / backward, optimizer); losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + "; eval ppl_loss " + ", ".join(f"{x:.4f}" for x in evals)
+            + f"; K2 / K3 / K4 launches {counts} = {2 * L} x {sum(mbs)} microbatches + {L} x {sum(eval_grids)} "
+            f"eval grids; peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
+        res["sft"] = dict(losses=losses, evals=evals, counts=counts, peak_gib=peak, tokens_per_s=sft_tps,
+                          step_s=[s["step_secs"] for s in committed])
+        del sft, eng, train_batch, eval_batch, collate
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the reward model
+        torch.cuda.reset_peak_memory_stats()
+        pairs = _pref_rows(SFT_STEPS * SFT_BATCH, 4, mcfg.vocab_size)
+        cfg = RWConfig(total_train_epochs=1, total_train_steps=SFT_STEPS,
+                       model=engine_cfg(mb_spec=MicroBatchSpec(max_tokens_per_mb=4096)),
+                       train_dataset=DatasetConfig(batch_size=SFT_BATCH), **files("rw"),
+                       evaluator=EvaluatorConfig(fileroot=SFT_ROOT))
+        cfg.cluster.fileroot = SFT_ROOT
+        rw = RWTrainer(cfg, pairs)
+        if not (rw.engine.value_head and not bool(rw.engine.model.value_head.any())):
+            raise AssertionError("[rw] the reward model's engine has no zero value head")
+        rw_steps, rw_mbs, rw_tokens = [], [], []
+        step_fn, train_rw = rw._train_step, rw.rw.train_rw
+
+        def train_rw_counted(b):
+            out = train_rw(b)
+            rw_mbs.append(len(out))
+            return out
+
+        def rw_step_logged(batch):
+            rw_tokens.append(int(np.asarray(batch["attention_mask"]).sum()))
+            rw_steps.append(dict(step_fn(batch)))
+            return rw_steps[-1]
+
+        rw.rw.train_rw, rw._train_step = train_rw_counted, rw_step_logged
+        committed = []
+        rw.stats_logger.commit = lambda epoch, step, gstep, stats: committed.append(dict(stats))
+        for kern in kernels:
+            kern.launches = 0
+        rw_losses = rw.train()
+        counts = [k.launches for k in kernels]
+        rw.close()
+        n_pairs = [s["n_pairs"] for s in rw_steps]
+        if n_pairs != [float(SFT_BATCH)] * SFT_STEPS or not all(math.isfinite(x) for x in rw_losses):
+            raise AssertionError(f"[rw] n_pairs {n_pairs} (want {SFT_BATCH} a step), losses {rw_losses}")
+        if min(rw_mbs) < 2:
+            raise AssertionError(f"[rw] microbatches a step {rw_mbs}: the 4,096-token cap split no step")
+        want = [2 * L * sum(rw_mbs), L * sum(rw_mbs), L * sum(rw_mbs)]
+        if counts != want:
+            raise AssertionError(f"[rw] K2 / K3 / K4 launches {counts} != {want} ({sum(rw_mbs)} microbatches)")
+        spans = [s["phase/host_prep_s"] + s["phase/forward_backward_s"] + s["phase/optimizer_s"] for s in committed]
+        rw_tps = sum(rw_tokens[1:]) / sum(spans[1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[sft] {card}: (b) RWTrainer: steps " + ", ".join(f"{s['step_secs']:.2f}" for s in committed)
+            + f" s ({rw_tokens} tokens, {rw_mbs} microbatches of <= 4,096 tokens); {rw_tps:.0f} tokens/s over steps "
+            "2-4; n_pairs " + ", ".join(f"{x:.0f}" for x in n_pairs) + "; rw_loss "
+            + ", ".join(f"{x:.4f}" for x in rw_losses) + "; rw_acc "
+            + ", ".join(f"{s['rw_acc']:.3f}" for s in rw_steps) + f"; K2 / K3 / K4 launches {counts}; peak "
+            f"torch.cuda.max_memory_allocated {peak:.2f} GiB")
+        res["rw"] = dict(losses=rw_losses, n_pairs=n_pairs, counts=counts, peak_gib=peak, tokens_per_s=rw_tps)
+        del rw, step_fn, train_rw
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the remat policies: one SFT step each from the same weights,
+        # moments and step count on the same batch, in two rounds (the
+        # second's times are warm; its "nothing" against the first's gives
+        # the run-to-run difference)
+        eng = TorchTrainEngine(engine_cfg(), value_head=False)
+        eng.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=64, train_batch_size=SFT_BATCH))
+        eng._opt.count = 1  # past the warmup's LR 0, so the step moves the weights
+        start = {n: p.detach().to("cpu", copy=True) for n, p in eng.model.named_parameters()}
+        batch = pad_sequences_to_tensors(
+            [{"input_ids": np.asarray(r["input_ids"], np.int32), "loss_mask": np.asarray(r["loss_mask"], np.float32)}
+             for r in _sft_rows(SFT_BATCH, 5, mcfg.vocab_size)])
+        lm = LMEngine(eng)
+        base_cfg = eng.model_cfg
+        ref: dict | None = None
+        runs = []
+        for policy in REMAT_POLICIES * REMAT_ROUNDS:
+            with torch.no_grad():
+                for n, p in eng.model.named_parameters():
+                    p.copy_(start[n])
+                for t in eng._opt.mu + eng._opt.nu:
+                    t.zero_()
+            eng._opt.count = 1
+            eng.model_cfg = dataclasses.replace(base_cfg, remat=True, remat_policy=policy)
+            for kern in kernels:
+                kern.launches = 0
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            st = lm.train_lm(batch)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            peak_b = torch.cuda.max_memory_allocated()
+            k = [kern.launches for kern in kernels]
+            if ref is None:
+                ref = {n: p.detach().clone() for n, p in eng.model.named_parameters()}
+                diff, equal = 0.0, True
+            else:
+                diffs = [float((p.detach() - ref[n]).abs().max()) for n, p in eng.model.named_parameters()]
+                diff = max(diffs)
+                equal = all(torch.equal(p, ref[n]) for n, p in eng.model.named_parameters())
+            runs.append(dict(policy=policy, secs=secs, peak_gib=peak_b / 2**30, act_gib=(peak_b - held) / 2**30,
+                             counts=k, loss=st["loss"], grad_norm=st["grad_norm"], diff=diff, equal=equal))
+        eng.model_cfg = base_cfg
+        moved = max(float((ref[n] - start[n].to(ref[n].device)).abs().max()) for n in ("embed", "layers.0.wq"))
+        noise = runs[len(REMAT_POLICIES)]["diff"]  # the second round's "nothing"
+        dots = [r for r in runs if r["policy"] == "dots_nobatch"]
+        if not all(r["equal"] or r["diff"] <= noise for r in dots):
+            raise AssertionError(f"[sft] (c) the parameters after a step under dots_nobatch differ from nothing's by "
+                                 f"{[r['diff'] for r in dots]}, two runs under nothing by {noise:.3g}")
+        counts = {r["policy"]: r["counts"] for r in runs}
+        if counts["dots_nobatch"] != counts["nothing"] or counts["everything"][0] >= counts["nothing"][0] or \
+                not moved > 0:
+            raise AssertionError(f"[sft] (c) launches {[r['counts'] for r in runs]} (dots_nobatch must launch K2 "
+                                 f"again in the recompute, as nothing does); the step moved the weights by {moved}")
+        for i, r in enumerate(runs):
+            log(f"[sft] {card}: (c) round {i // len(REMAT_POLICIES) + 1}, remat_policy={r['policy']!r}: one SFT "
+                f"step {r['secs']:.3f} s, peak torch.cuda.max_memory_allocated {r['peak_gib']:.2f} GiB "
+                f"({r['act_gib']:.2f} GiB above the {(r['peak_gib'] - r['act_gib']):.2f} GiB held before the step), "
+                f"K2 / K3 / K4 launches {r['counts']}, loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}; "
+                "parameters after the step against the first nothing run's: "
+                + ("bit for bit" if r["equal"] else f"max|diff| {r['diff']:.3g}"))
+        res["remat"] = runs
+        del eng, lm, ref, start
+    finally:
+        shutil.rmtree(SFT_ROOT, ignore_errors=True)
+    log(f"[sft] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
+    res["counts"] = {name: res["sft"]["counts"][i] + res["rw"]["counts"][i]
+                     for i, name in enumerate(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"))}
+    return res
 
 
 def _distinct_prefixes(seqs) -> int:
@@ -6107,8 +6663,8 @@ def phase_train_moe(card: str) -> dict:
 
 
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
-          "train", "grpo", "durable", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd", "serve_moe",
-          "train_moe")
+          "train", "grpo", "durable", "critic", "sft", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd",
+          "serve_moe", "train_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -6187,6 +6743,8 @@ def main(argv: list[str]) -> int:
         "train": lambda: phase_train(card),
         "grpo": lambda: phase_grpo(card, train=res.get("train")),
         "durable": lambda: phase_durable(card),
+        "critic": lambda: phase_critic(card),
+        "sft": lambda: phase_sft(card),
         "kernel_tree": phase_kernel_tree,
         "train_tree": lambda: phase_train_tree(card),
         "kernel_gmm": phase_kernel_gmm,
@@ -6194,12 +6752,16 @@ def main(argv: list[str]) -> int:
         "serve_moe": lambda: phase_serve_moe(card),
         "train_moe": lambda: phase_train_moe(card),
     }
-    res = {}
+    res, secs = {}, {}
     for name in PHASES:
         if only is None or name in only:
+            t_ph = time.monotonic()
             res[name] = runs[name]()
             gc.collect()  # a phase's garbage (engines and models in reference cycles) goes before the next starts
             torch.cuda.empty_cache()
+            secs[name] = time.monotonic() - t_ph
+            log(f"[time] {name} {secs[name]:.1f} s")
+    log("[time] phases: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f" s on {card}")
     if only is not None:
         log(f"[done] phases {only} passed in {time.monotonic() - t0:.1f}s on {card} (a partial run: no result)")
         return 0
@@ -6218,7 +6780,8 @@ def main(argv: list[str]) -> int:
             "launches": launches,
             "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"],
                                   "lifecycle": res["lifecycle"]["launches1"], "observe": res["observe"]["launches1"],
-                                  "grpo": res["grpo"]["launches1"], "durable": res["durable"]["launches1"]},
+                                  "grpo": res["grpo"]["launches1"], "durable": res["durable"]["launches1"],
+                                  "critic": res["critic"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -6243,7 +6806,8 @@ def main(argv: list[str]) -> int:
             "replaces": replaces[name],
             "launches": train["counts"][name],
             "launches_by_phase": {"train": train["counts"][name], "grpo": res["grpo"]["counts"][name],
-                                  "durable": res["durable"]["counts"][name]},
+                                  "durable": res["durable"]["counts"][name], "critic": res["critic"]["counts"][name],
+                                  "sft": res["sft"]["counts"][name]},
             "max_abs_err": d["max_abs_err"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],

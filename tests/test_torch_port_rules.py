@@ -203,30 +203,35 @@ def test_tree_kernel_wrappers_refuse_other_devices():
 @pytest.mark.parametrize(
     "change",
     [
-        dict(tree_training=True, value_head=True),
         dict(lora_rank=8),
         dict(train_vision_tower=True),
         dict(mesh=MeshConfig(fsdp=2)),
         dict(attn_impl="ring"),
-        dict(value_head=True),
-        dict(remat_policy="dots_nobatch"),
     ],
-    ids=["tree-critic", "lora", "vision", "mesh", "ring", "critic", "remat-dots"],
+    ids=["lora", "vision", "mesh", "ring"],
 )
 def test_unported_trainer_options_refused(change):
     from areal_tpu_torch.api.config import PPOActorConfig
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 
-    change = dict(change)
-    value_head = change.pop("value_head", False)
     cfg = dataclasses.replace(PPOActorConfig(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng = TorchTrainEngine(cfg, value_head=value_head, model_config=qwen.ModelConfig(
+        TorchTrainEngine(cfg, model_config=qwen.ModelConfig(
             vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1, num_heads=2, num_kv_heads=1,
         ), device="cpu")
-        # options read at the first forward (the remat policy)
-        eng.initialize()
-        eng.forward_batch({"input_ids": np.zeros((1, 4), np.int32), "attention_mask": np.ones((1, 4), bool)})
+
+
+def test_tree_training_with_a_value_head_refused():
+    """The JAX engine asserts that tree training is a policy-only path; the
+    port raises ``ValueError`` for it (JAX semantics, not a later slice)."""
+    from areal_tpu_torch.api.config import PPOActorConfig
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+
+    cfg = dataclasses.replace(PPOActorConfig(), tree_training=True)
+    with pytest.raises(ValueError, match="policy-only"):
+        TorchTrainEngine(cfg, value_head=True, model_config=qwen.ModelConfig(
+            vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1, num_heads=2, num_kv_heads=1,
+        ), device="cpu")
 
 
 @pytest.mark.parametrize(

@@ -231,13 +231,12 @@ def _cfg(**over):
 @pytest.mark.parametrize(
     "over, item",
     [
-        (dict(critic=tc.PPOCriticConfig()), "item 3c"),
         (dict(allocation_mode="gen:d1,train:d1"), "item 6"),
         (dict(cluster=tc.ClusterSpecConfig(name_resolve=tc.NameResolveConfig(type="nfs"))), "item 8"),
         (dict(weight_update_wire="q8"), "item 4"),
         (dict(server=tc.ServerConfig(quantization="int8")), "item 4"),
     ],
-    ids=["critic", "allocation_mode", "name_resolve", "q8", "int8-auto"],
+    ids=["allocation_mode", "name_resolve", "q8", "int8-auto"],
 )
 def test_unported_trainer_options_refused(over, item):
     stub = _StubRollout([], lambda p: p)
