@@ -267,7 +267,11 @@ class TrainEngineConfig:
     logprob_chunk_size: int = 1024  # tokens per vocab-logit chunk
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    lora_rank: int = 0  # 0 = full fine-tuning (LoRA: not ported)
+    # LoRA: rank-r adapters on ``lora_targets`` over a frozen base; 0 =
+    # full fine-tuning. Only the adapters (and a value head) train
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: list[str] = field(default_factory=lambda: ["wq", "wk", "wv", "wo"])
     # "mem" streams bf16 buckets over HTTP, "disk" exports HF safetensors
     # that the servers reload. The JAX package defaults to "disk"; the port
     # keeps "mem", the default its earlier slices were built and measured on

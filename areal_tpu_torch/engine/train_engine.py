@@ -19,7 +19,7 @@ What is kept from the JAX engine:
   (``_OptaxAdamW``): the clip scales by ``max_norm / g_norm`` only when
   ``g_norm >= max_norm`` (no epsilon), the reported ``grad_norm`` is the
   norm before clipping, ``eps`` sits outside the square root, weight decay
-  applies to every parameter, and the LR schedule is indexed by optax's
+  applies to every trainable parameter, and the LR schedule is indexed by optax's
   count, so the first step has LR 0 and moves nothing.
 - ``loss_fn(outputs, batch) -> (loss, {stat: scalar})``; ``outputs`` has
   label-aligned ``logprobs`` / ``entropy`` grids, or, for an engine built
@@ -86,8 +86,21 @@ What is kept from the JAX engine:
   with a value head raises ``ValueError``: the JAX engine asserts that
   tree training is a policy-only path.
 
-Not ported (``_check_supported`` raises ``NotImplementedError``): LoRA,
-the vision tower and multi-device meshes.
+- LoRA (``lora_rank > 0``; ``train_engine.py:295-370``, ``:1430-1490``):
+  the model carries rank-r adapters on ``lora_targets`` (``qwen._proj``),
+  and only they (and a value head) train. The base stays frozen: it has no
+  gradient and no AdamW moments, and the global norm, its clip and the
+  decoupled weight decay see only the trainable leaves, as JAX's
+  ``optax.multi_transform(..., set_to_zero)`` does. The HF export, ``save``
+  in "hf" and a full weight update carry the merged weights
+  (``qwen.merge_lora``); a load from HF adds fresh adapters again (seed
+  0), as JAX's does. ``update_weights`` with ``meta.lora_only`` sends only
+  the adapters, stacked in the JAX layout (``layers/<t>_lora_a`` [n, in,
+  r], ``layers/<t>_lora_b`` [n, r, out]), with ``lora_scale`` = alpha / r;
+  on a model without adapters it warns and sends a full update.
+
+Not ported (``_check_supported`` raises ``NotImplementedError``): the
+vision tower and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -316,8 +329,6 @@ class TorchTrainEngine(TrainEngine):
         (ROADMAP.md Queue A), and what the JAX engine refuses too."""
         if cfg.tree_training and value_head:
             raise ValueError("tree training is a policy-only path, as in the JAX engine: no value head")
-        if cfg.lora_rank > 0:
-            raise NotImplementedError("LoRA: ROADMAP Queue A, LoRA and int8 weight serving")
         if cfg.train_vision_tower:
             raise NotImplementedError("vision tower: ROADMAP Queue A, vision")
         m = cfg.mesh
@@ -350,6 +361,9 @@ class TorchTrainEngine(TrainEngine):
             remat=cfg.gradient_checkpointing,
             remat_policy=cfg.remat_policy,
             attn_impl=cfg.attn_impl,
+            lora_rank=cfg.lora_rank,
+            lora_alpha=cfg.lora_alpha,
+            lora_targets=tuple(cfg.lora_targets),
         )
         master_cfg = dataclasses.replace(self.model_cfg, dtype=cfg.param_dtype)
         if cfg.init_from_scratch or not cfg.path:
@@ -359,17 +373,33 @@ class TorchTrainEngine(TrainEngine):
             t0 = time.monotonic()
             self.model, _ = load_params_from_hf(cfg.path, master_cfg, device=self.device)
             logger.info(f"loaded HF weights from {cfg.path} in {time.monotonic() - t0:.1f}s")
+            self._add_lora_adapters(seed)
         if self.value_head:
             self.model.value_head = torch.nn.Parameter(
                 torch.zeros(master_cfg.hidden_size, dtype=master_cfg.torch_dtype, device=self.device)
             )
-        self.model.requires_grad_(True)
+        lora = master_cfg.lora_rank > 0
+        # what trains: everything, or under LoRA the adapters and a value head
+        self._train_names = [n for n, _ in self.model.named_parameters()
+                             if not lora or "_lora_" in n or n == "value_head"]
+        self.model.requires_grad_(False)
         total_steps = ft_spec.total_train_steps if ft_spec else 10_000
         self._lr_schedule = make_lr_schedule(cfg.optimizer, total_steps)
         if self.need_optimizer:
-            self._opt = _OptaxAdamW(list(self.model.parameters()), cfg.optimizer, self._lr_schedule)
-        else:
-            self.model.requires_grad_(False)
+            params = dict(self.model.named_parameters())
+            for n in self._train_names:
+                params[n].requires_grad_(True)
+            self._opt = _OptaxAdamW(self._trainable(), cfg.optimizer, self._lr_schedule)
+
+    def _add_lora_adapters(self, seed: int = 0) -> None:
+        """Fresh adapters over a loaded base: HF checkpoints never carry
+        them, the export merges them away (``train_engine.py:354``)."""
+        if self.model.cfg.lora_rank > 0:
+            qwen.init_lora_params(self.model, torch.Generator(device=self.device).manual_seed(seed))
+
+    def _trainable(self) -> list[torch.Tensor]:
+        params = dict(self.model.named_parameters())
+        return [params[n] for n in self._train_names]
 
     # -- versioning -------------------------------------------------------
     def set_version(self, version: int) -> None:
@@ -673,9 +703,8 @@ class TorchTrainEngine(TrainEngine):
         self.last_seq_stats = out or None
 
     def _grads(self) -> list[torch.Tensor]:
-        return [
-            p.grad if p.grad is not None else torch.zeros_like(p) for p in self.model.parameters()
-        ]
+        """The trainable parameters' gradients (zeros where none arrived)."""
+        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self._trainable()]
 
     def zero_grad(self) -> None:
         for p in self.model.parameters():
@@ -792,9 +821,22 @@ class TorchTrainEngine(TrainEngine):
             raise ValueError("no WeightUpdateMeta configured")
         if meta.type not in ("mem", "disk"):
             raise NotImplementedError(f"weight update type {meta.type!r}")
-        if meta.lora_only:
-            raise NotImplementedError("LoRA weight updates: ROADMAP Queue A item 4")
+        mcfg = self.model_cfg
+        if meta.lora_only and mcfg.lora_rank <= 0:
+            # it must not reach the client's adapter branch with the whole tree
+            logger.warning("lora_only weight update on a non-LoRA model; using a full update")
+            meta = dataclasses.replace(meta, lora_only=False)
         eng = self._inference_engine
+        if meta.type == "mem" and meta.lora_only:
+            if eng is None:
+                raise RuntimeError("no engine connected (connect_engine)")
+            scale = mcfg.lora_alpha / mcfg.lora_rank
+            if hasattr(eng, "update_weights_from_params"):  # the in-process join
+                version = eng.get_version() + 1 if meta.with_version else eng.get_version()
+                eng.update_weights_lora(self._lora_leaves(), scale, version=version)
+            else:
+                eng.update_weights(dataclasses.replace(meta, lora_scale=scale), params=self._lora_leaves())
+            return
         if meta.type == "disk":
             if not meta.path:
                 raise ValueError("a disk weight update needs meta.path")
@@ -818,19 +860,31 @@ class TorchTrainEngine(TrainEngine):
 
     def _export_params(self) -> dict[str, torch.Tensor]:
         """The master parameters as a state dict (detached views, no copy),
-        without the value head: no server or HF checkpoint holds one."""
-        return {name: p.detach() for name, p in self.model.named_parameters() if name != "value_head"}
+        without the value head: no server or HF checkpoint holds one. Under
+        LoRA the adapters are merged into their targets (new tensors)."""
+        state = {name: p.detach() for name, p in self.model.named_parameters() if name != "value_head"}
+        return qwen.merge_lora(state, self.model_cfg)
+
+    def _lora_leaves(self) -> dict[str, torch.Tensor]:
+        """The adapters as the JAX engine sends them: ``layers/<t>_lora_a``
+        [n, in, r] and ``layers/<t>_lora_b`` [n, r, out] (copies)."""
+        layers = self.model.layers
+        return {
+            f"layers/{t}_lora_{s}": torch.stack([getattr(layer, f"{t}_lora_{s}").detach().t() for layer in layers])
+            for t in self.model_cfg.lora_targets
+            for s in ("a", "b")
+        }
 
     # -- durable state ------------------------------------------------------
     def _state_groups(self, with_optim: bool) -> dict[str, dict[str, torch.Tensor]]:
         """The recover state by file: the master parameters (the value head
-        among them), and with ``with_optim`` the AdamW moments under the
-        same names."""
+        and the adapters among them), and with ``with_optim`` the AdamW
+        moments under the names of the parameters that train."""
         params = {n: p.detach() for n, p in self.model.named_parameters()}
         groups = {"params": params}
         if with_optim and self._opt is not None:
-            groups["mu"] = dict(zip(params, self._opt.mu))
-            groups["nu"] = dict(zip(params, self._opt.nu))
+            groups["mu"] = dict(zip(self._train_names, self._opt.mu))
+            groups["nu"] = dict(zip(self._train_names, self._opt.nu))
         return groups
 
     def _write_state(self, path: str, groups: dict, step_count: int) -> int:
@@ -953,6 +1007,7 @@ class TorchTrainEngine(TrainEngine):
         self.wait_for_save()
         if meta.weight_format == "hf":
             load_params_from_hf(meta.path, model=self.model)
+            self._add_lora_adapters()  # the checkpoint is merged: fresh adapters again
             return
         _check_recover_format(meta.weight_format)
         d = os.path.join(meta.path, RECOVER_STATE_DIR)

@@ -33,12 +33,18 @@ then commits it inside the fence ``weight_commit_fence`` names: "hold"
 (the decode loop idles one commit round trip and aborts nothing), "abort"
 (the full pause) or "none". The version it commits is the client's + 1.
 ``update_weights`` of type "disk" posts ``/update_weights_from_disk`` with
-the trainer's checkpoint directory inside the same fence.
+the trainer's checkpoint directory inside the same fence. ``wire_format=
+"q8"`` quantizes the dense projections before the stream with the servers'
+own transform (``qwen.quantize_params_int8``): int8 tables and f32 scales,
+0.58x the bf16 bytes at Qwen2.5-1.5B, served as they arrive by an int8
+server and refused by any other. ``lora_only`` sends one bucket of adapter
+leaves, encoded outside the fence, and posts it to
+``/update_weights_lora`` inside it: the servers fold it into their base.
 
 Later slices: more than one address, routing policies, the retry budget,
 circuit breakers, the fleet probe, the weight-broadcast relay and the
-failover of a draining server's 429 (ROADMAP Queue A item 8); the q8 wire
-and LoRA updates (item 4); images (item 5).
+failover of a draining server's 429 (ROADMAP Queue A item 8); images
+(item 5).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from areal_tpu_torch.api.io_struct import (
     WeightUpdateMeta,
 )
 from areal_tpu_torch.inference.server import encode_weight_bucket
+from areal_tpu_torch.models import qwen
 from areal_tpu_torch.infra import workflow_context
 from areal_tpu_torch.infra.workflow_executor import WorkflowExecutor
 from areal_tpu_torch.observability import catalog, tracecontext
@@ -689,21 +696,24 @@ class RemoteTorchEngine(InferenceEngine):
         (generation running), the fence window and the tokens the server
         emitted during the update are kept in ``last_stage_secs``,
         ``last_pause_secs`` and ``last_update_gen_tokens``."""
-        if meta.lora_only:
-            raise NotImplementedError("LoRA weight updates: ROADMAP Queue A item 4")
+        if meta.type == "mem" and meta.lora_only:
+            self._update_weights_lora(meta, params)
+            return
         if meta.type == "disk":
             self._update_weights_from_disk(meta)
             return
         if meta.type != "mem":
             raise NotImplementedError(meta.type)
-        if meta.wire_format == "q8":
-            raise NotImplementedError("the q8 weight wire (int8 serving): ROADMAP Queue A item 4")
-        if meta.wire_format not in (None, "", "bf16"):
+        if meta.wire_format not in (None, "", "bf16", "q8"):
             raise ValueError(f"unknown wire_format {meta.wire_format!r}")
         if self.config.weight_update_relay:
             raise NotImplementedError("the weight-broadcast relay: ROADMAP Queue A item 8")
         if params is None:
             raise ValueError("a mem weight update needs params")
+        if meta.wire_format == "q8":
+            # the servers' own transform, from the trainer's precision (no
+            # bf16 rounding first; ``client.py:1300``)
+            params = qwen.quantize_params_int8(params)
         version = self._version + 1 if meta.with_version else self._version
         targets = list(self.addresses)
         plan = self._plan_weight_buckets(params)
@@ -732,6 +742,27 @@ class RemoteTorchEngine(InferenceEngine):
             ) from failed[0][1]
         gen_tokens = sum(int(r.get("tokens_during_update", 0) or 0) for r in replies)
         self._finish_update(version, stage_secs, time.monotonic() - t1, gen_tokens)
+
+    def _update_weights_lora(self, meta: WeightUpdateMeta, params: dict | None) -> None:
+        """The adapter fast path (``client.py:1166``): one bucket of the
+        ``layers/<t>_lora_{a,b}`` leaves, encoded outside the fence, then one
+        POST to ``/update_weights_lora`` inside it; each server folds the
+        delta into its base. Its kind is "lora"."""
+        if not params or not all("_lora_" in k for k in params):
+            raise ValueError("a lora_only update takes the layers/<t>_lora_{a,b} leaves, not the merged tree")
+        if self.config.weight_update_relay:
+            raise NotImplementedError("the weight-broadcast relay: ROADMAP Queue A item 8")
+        version = self._version + 1 if meta.with_version else self._version
+        targets = list(self.addresses)
+        t_enc = time.monotonic()
+        body = self._encode_bucket(sorted(params.items()))
+        stage_secs = time.monotonic() - t_enc
+        t0 = time.monotonic()
+        with self._commit_fence(targets):
+            for a in targets:
+                self._post_bytes(a, f"/update_weights_lora?scale={meta.lora_scale!r}&version={version}", body)
+        self._finish_update(version, stage_secs, time.monotonic() - t0, 0, kind="lora")
+        self._metrics.update_bytes.inc(len(body))
 
     def _update_weights_from_disk(self, meta: WeightUpdateMeta) -> None:
         """Every server reloads the checkpoint the trainer wrote at

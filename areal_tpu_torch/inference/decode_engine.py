@@ -96,9 +96,27 @@ The shape of the JAX engine is kept:
   apply site as ``update_weights_from_params`` (``decode_engine.py:1605``),
   in place, under the same version, parking and radix-flush rules.
 
+- int8 weight serving (``quantization="int8"``, ``decode_engine.py:405-418``):
+  ``initialize`` replaces each layer's dense projections by their int8
+  form (``qwen.quantize_model_int8``: ``<t>_q8`` int8 and ``<t>_scale`` f32
+  parameters, so every walker of ``model.named_parameters()`` sees them:
+  the update checks, the copies, ``hbm_ledger``, ``release_memory``). The
+  base structure (names and shapes before quantization) is kept: a
+  bf16-named update (params, staged buckets, a disk reload) is checked
+  against it and re-quantized on apply, from the serving dtype as JAX
+  does; a q8-wire (served-form) staged update, decided once at the commit,
+  is checked against the served structure and copied as it is. A
+  served-form leaf staged into an engine that is not int8 is refused at
+  stage time, before any weight changes.
+- LoRA updates (``update_weights_lora``, ``decode_engine.py:1356-1436``):
+  adapter buckets (``layers/<t>_lora_a`` [n, in, r], ``layers/<t>_lora_b``
+  [n, r, out], the JAX layout) fold into the served base cumulatively,
+  W += s (A_new B_new - A_old B_old) in f32, every name and shape checked
+  before the first weight changes. Refused after a full update (the base
+  may hold merged adapters), on an int8 engine, and for an unknown target.
+
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
-int8 weights, image inputs and multi-device meshes. Also not ported: LoRA
-and int8 weight updates (item 4).
+image inputs and multi-device meshes.
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -139,6 +157,12 @@ _MAX_STOP = 8  # stop-token-id slots per request (padded with -1)
 _TOPK_CAP = 1024  # static candidate-set size for per-slot top-k/top-p
 _PREFILL_SIZES = (8, 4, 2, 1)  # batched-prefill group sizes
 _COUNT_MAX = 65535  # the frequency penalty's counts saturate here (uint16)
+# the exact leaf names of the int8 serving form (a q8-wire update's leaves)
+_SERVED_FORM_LEAVES = frozenset(f"{t}{suf}" for t in qwen.QUANT_TARGETS for suf in ("_q8", "_scale"))
+
+
+def _served_form(names) -> bool:
+    return any(n.rsplit(".", 1)[-1] in _SERVED_FORM_LEAVES for n in names)
 
 
 @dataclass
@@ -279,32 +303,40 @@ def load_params(model: qwen.QwenModel, params) -> None:
     (``areal_tpu/inference/decode_engine.py:1611``); here the copy stays in
     place, because a second full copy of a large model (57 GiB for
     Qwen3-30B-A3B) does not fit beside the first."""
-    srcs = _checked_sources(model, params)
+    srcs = _checked_sources(_param_specs(model), params)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(srcs[name])
 
 
-def _checked_sources(model: qwen.QwenModel, params) -> dict[str, torch.Tensor]:
-    """``params`` as tensors keyed by ``model``'s parameter names, after
-    checking that the names match exactly and every shape and dtype fits;
-    raises (and copies nothing) otherwise."""
+def _param_specs(model: qwen.QwenModel) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """Every parameter's name -> (shape, dtype)."""
+    return {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
+
+
+def _checked_sources(specs: dict, params, exact_dtype: bool = False) -> dict[str, torch.Tensor]:
+    """``params`` as tensors keyed by the names of ``specs`` (name -> (shape,
+    dtype), ``_param_specs``), after checking that the names match exactly
+    and every shape fits and every dtype casts (with ``exact_dtype``, the
+    int8 serving form's leaves must have their own dtype: an int8 table is
+    never cast from a float); raises (and copies nothing) otherwise."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
-    own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(params))
-    extra = sorted(set(params) - set(own))
+    missing = sorted(set(specs) - set(params))
+    extra = sorted(set(params) - set(specs))
     if missing or extra:
         raise ValueError(f"weight update mismatch: missing {missing[:4]}, unexpected {extra[:4]}")
     srcs = {}
-    for name, p in own.items():
+    for name, (shape, dtype) in specs.items():
         src = params[name]
         if not isinstance(src, torch.Tensor):
             src = torch.as_tensor(np.asarray(src))
-        if tuple(src.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(p.shape)}")
-        if src.is_complex():  # copy_ would drop the imaginary part with a warning
-            raise TypeError(f"{name}: dtype {src.dtype} does not cast to {p.dtype}")
+        if tuple(src.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != {shape}")
+        if src.is_complex() or (exact_dtype and _served_form([name]) and src.dtype != dtype):
+            # copy_ would drop an imaginary part with a warning, or truncate
+            # a float into an int8 table
+            raise TypeError(f"{name}: dtype {src.dtype} does not cast to {dtype}")
         srcs[name] = src
     return srcs
 
@@ -415,15 +447,20 @@ class DecodeEngine:
         self._autopilot_applied_at: float | None = None
         self._offloaded = False  # release_memory moved the weights to the host
         self._freq_enabled = bool(config.enable_frequency_penalty)
+        self._quantized = config.quantization == "int8"
+        # the served model's names, shapes and dtypes before int8
+        # quantization: bf16-named updates are checked against these
+        self._base_specs: dict | None = None
+        # the adapters folded so far, by target ({} = none yet); None after a
+        # full update, whose base may already hold merged adapters
+        self._lora_prev: dict[str, tuple[torch.Tensor, torch.Tensor]] | None = {}
 
     @staticmethod
     def _check_supported(cfg: ServerConfig) -> None:
         """Refuse the options whose code paths are later slices of the port
         (ROADMAP.md Queue A)."""
-        if cfg.quantization not in (None, "", "none"):
-            raise NotImplementedError(
-                f"quantization={cfg.quantization!r}: ROADMAP Queue A, LoRA / int8 weights"
-            )
+        if cfg.quantization not in (None, "", "none", "int8"):
+            raise ValueError(f"unknown quantization {cfg.quantization!r}")
         m = cfg.mesh
         if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
             raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
@@ -452,6 +489,10 @@ class DecodeEngine:
             self.model = qwen.QwenModel(self.model_cfg, self.device)
             load_params(self.model, self.params)
         self.params = None  # the engine serves self.model; no second copy
+        self._base_specs = _param_specs(self.model)
+        if self._quantized:
+            # a QwenModel handed over is served, so quantized, in place
+            qwen.quantize_model_int8(self.model)
         S = cfg.max_batch_size
         self._init_paged_cache()
         # host mirror of per-slot state; the authoritative copy between
@@ -1002,6 +1043,71 @@ class DecodeEngine:
         decode loop has applied them."""
         self._run_weight_update(("params", params), version)
 
+    def update_weights_lora(self, flat: dict, scale: float, version: int | None = None) -> None:
+        """Fold adapter deltas into the served base weights between chunks,
+        without the whole tree (``decode_engine.py:1356``): ``flat`` holds
+        ``layers/<t>_lora_a`` [n, in, r] and ``layers/<t>_lora_b`` [n, r,
+        out] for some targets t, and the fold is cumulative, W += scale (A B
+        - A_prev B_prev) in f32. The engine must have started from the
+        adapter-free base; a fold after a full update, on an int8 engine or
+        for an unknown target raises and changes no weight. Blocks until
+        applied."""
+        self._run_weight_update(("lora", (flat, float(scale))), version)
+
+    def _apply_lora_delta(self, flat: dict, scale: float) -> None:
+        prev = self._lora_prev
+        if prev is None:
+            raise RuntimeError(
+                "lora_only update after a full weight update: the serving base is no longer the adapter-free "
+                "checkpoint; push full updates (lora_only=False) or restart servers from the base"
+            )
+        cfg = self.model_cfg
+        layers = self.model.layers
+        tensors = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)) for k, v in flat.items()}
+        targets = sorted({k.split("/")[-1].rsplit("_lora_", 1)[0] for k in tensors})
+        # every check before the first fold
+        for t in targets:
+            for s in ("a", "b"):
+                if f"layers/{t}_lora_{s}" not in tensors:
+                    raise ValueError(f"lora bucket missing layers/{t}_lora_{s}")
+            w = layers[0]._parameters.get(t)
+            if w is None or w.dim() != 2 or t not in qwen.DENSE_MATRICES:
+                raise ValueError(f"unknown lora target {t!r}")
+            a_s, b_s = tuple(tensors[f"layers/{t}_lora_a"].shape), tuple(tensors[f"layers/{t}_lora_b"].shape)
+            w_s = (cfg.num_layers, w.shape[1], w.shape[0])  # the JAX [n, in, out]
+            if len(a_s) != 3 or len(b_s) != 3 or (a_s[0], a_s[1], b_s[2]) != w_s or a_s[2] != b_s[1]:
+                raise ValueError(f"lora shapes {a_s}x{b_s} do not fold into {t} {w_s}")
+        new_prev = {}
+        with torch.no_grad():
+            for t in targets:
+                a = tensors[f"layers/{t}_lora_a"].to(self.device, torch.float32)
+                b = tensors[f"layers/{t}_lora_b"].to(self.device, torch.float32)
+                pa, pb = prev.get(t, (torch.zeros_like(a), torch.zeros_like(b)))
+                # [n, out, in]: the port's layout of A B - A_prev B_prev
+                delta = torch.einsum("nir,nro->noi", a, b) - torch.einsum("nir,nro->noi", pa, pb)
+                for layer, d in zip(layers, delta):
+                    w = getattr(layer, t)
+                    w.copy_((w.float() + scale * d).to(w.dtype))
+                new_prev[t] = (a, b)
+        # merged, not replaced: targets absent from this bucket keep their state
+        self._lora_prev = {**prev, **new_prev}
+
+    def _write_weights(self, srcs: dict[str, torch.Tensor], non_blocking: bool = False) -> None:
+        """Copy checked sources into the served parameters in place. A
+        base-named target of an int8 engine is cast to the serving dtype on
+        the card and re-quantized into its ``_q8`` / ``_scale`` pair."""
+        own = dict(self.model.named_parameters())
+        with torch.no_grad():
+            for name, src in srcs.items():
+                p = own.get(name)
+                if p is not None:
+                    p.copy_(src, non_blocking=non_blocking)
+                    continue
+                w = src.to(self.device, self.model_cfg.torch_dtype, non_blocking=non_blocking)
+                q8, sc = qwen.quantize_dense_int8(w)
+                own[f"{name}_q8"].copy_(q8)
+                own[f"{name}_scale"].copy_(sc)
+
     def update_weights_from_disk(self, path: str, version: int | None = None) -> None:
         """Reload the weights from the HF checkpoint at ``path`` between
         chunks, in place (every name and shape checked first: a checkpoint
@@ -1041,11 +1147,26 @@ class DecodeEngine:
             try:
                 # in place: the copy is ordered on the stream after the
                 # chunk in flight, which keeps reading the old weights
+                if kind == "lora":
+                    if self._quantized:
+                        raise RuntimeError(
+                            "lora_only updates cannot fold into int8-quantized serving weights; push full "
+                            "updates or serve with quantization='none'"
+                        )
+                    self._apply_lora_delta(*params)
+                else:
+                    # the fold's base is unknown after a full update: it may
+                    # already hold merged adapters
+                    self._lora_prev = None
                 if kind == "params":
-                    load_params(self.model, params)
+                    self._write_weights(_checked_sources(self._base_specs, params))
+                elif kind == "disk" and self._quantized:
+                    loaded, _ = load_params_from_hf(params, self.model_cfg, device=self.device)
+                    self._write_weights(dict(loaded.named_parameters()))
+                    del loaded
                 elif kind == "disk":
                     load_params_from_hf(params, model=self.model)
-                else:
+                elif kind == "staged":
                     self._copy_staged(params)
                 if version is not None:
                     self._version = version
@@ -1106,6 +1227,11 @@ class DecodeEngine:
         device target copies it to the card on a side stream and returns
         once the copies landed (the decode stream never queues behind them);
         the host target keeps the tensors as they are."""
+        if not self._quantized and _served_form(flat):
+            raise RuntimeError(
+                "q8-wire weight update against a non-quantized engine; set ServerConfig.quantization='int8' or "
+                "use wire_format='bf16'"
+            )
         with self._weight_lock:
             if self._staged is None:
                 raise RuntimeError("no staged update open (begin_staged_update first)")
@@ -1139,7 +1265,13 @@ class DecodeEngine:
                 logger.info(f"commit v{version} retried after it already applied; acking")
                 return
             raise AssertionError("no staged weights")
-        srcs = _checked_sources(self.model, flat)
+        # the served form is decided here, once: a q8-wire update is checked
+        # against the served structure and copied as it is, a bf16 one
+        # against the base structure (re-quantized on an int8 engine)
+        if _served_form(flat):
+            srcs = _checked_sources(_param_specs(self.model), flat, exact_dtype=True)
+        else:
+            srcs = _checked_sources(self._base_specs, flat)
         self._run_weight_update(("staged", (srcs, target)), version)
         self.last_update_gen_tokens = self.stats["generated_tokens"] - self._stage_gen_snapshot
 
@@ -1148,9 +1280,7 @@ class DecodeEngine:
         (on the decode loop's stream, after the chunk in flight)."""
         srcs, target = staged
         cuda = self.device.type == "cuda"
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                p.copy_(srcs[name], non_blocking=cuda)
+        self._write_weights(srcs, non_blocking=cuda)
         if cuda:
             stream = torch.cuda.current_stream(self.device)
             if target == "host":

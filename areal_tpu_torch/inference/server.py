@@ -17,7 +17,10 @@ once the decode loop drained its in-flight chunk), ``/continue_generation``,
 ``/resume_memory_occupation``, the streamed weight update
 ``/update_weights_{begin,bucket,commit,abort}``, the reload of an HF
 checkpoint ``/update_weights_from_disk`` (``{"path", "version"}`` in,
-``{"status", "version"}`` out) and the whole-model
+``{"status", "version"}`` out), the LoRA fold
+``/update_weights_lora?scale=S&version=V`` (one weight bucket of
+``layers/<t>_lora_{a,b}`` leaves as its body; ``{"status", "version"}``
+out) and the whole-model
 ``/update_weights_from_tensors`` (an npz body: the port's parameter names,
 or the JAX package's "/"-joined paths of stacked layers, with an optional
 ``__version__``). Request and response JSON match the JAX server's
@@ -35,8 +38,8 @@ disconnects while its request runs cancels the rid. A bucket's body is the
 JAX package's byte layout (``encode_weight_bucket``), read into one host
 buffer with ``readinto`` and staged from views of it.
 
-``/update_weights_lora`` (ROADMAP Queue A item 4) and the relay header
-(item 8) answer with an error naming their item. There is no command line
+The relay header (ROADMAP Queue A item 8) answers with an error naming its
+item. There is no command line
 entry yet (with it comes the server's SIGTERM drainer, ROADMAP Queue A
 item 7 or 8): build the engine in code, with weights or with
 ``ServerConfig.model_path``. ``ServerThread`` started from the main thread
@@ -112,19 +115,6 @@ def _response_json(resp: io_struct.ModelResponse) -> dict:
         "cached_prefix_tokens": int(resp.metadata.get("cached_prefix_tokens") or 0),
         "rid": resp.rid,
     }
-
-
-def _refuse(what: str):
-    def route(d: dict):
-        raise NotImplementedError(what)
-
-    return route
-
-
-# weight-update routes of the JAX server that wait for later slices
-_UNPORTED_ROUTES = {
-    "/update_weights_lora": _refuse("LoRA weight updates: ROADMAP Queue A item 4"),
-}
 
 
 def _unflatten(flat: dict) -> dict:
@@ -253,11 +243,10 @@ class _Handler(BaseHTTPRequestHandler):
             "/update_weights_from_disk": app.h_update_disk,
             "/debug/profile": lambda d: app.h_debug_profile(urllib.parse.parse_qs(query)),
         }.get(path)
-        if path in _UNPORTED_ROUTES:
-            route = _UNPORTED_ROUTES[path]
         raw_routes = {
             "/update_weights_bucket": lambda _: self._h_bucket(),
             "/update_weights_from_tensors": lambda _: app.h_update_tensors(self._raw_body()),
+            "/update_weights_lora": lambda _: app.h_update_lora(self._raw_body(), urllib.parse.parse_qs(query)),
         }
         if route is None and path not in raw_routes:
             self._send(404, {"status": "error", "error": f"no route {path}"})
@@ -605,6 +594,18 @@ class InferenceServer:
             raise ValueError("/update_weights_from_disk needs a path")
         version = d.get("version")
         self.engine.update_weights_from_disk(d["path"], int(version) if version is not None else None)
+        return 200, {"status": "ok", "version": self.engine.get_version()}
+
+    def h_update_lora(self, body: bytes, query: dict) -> tuple[int, dict]:
+        """Fold one bucket of adapters into the served base (``server.py:670``):
+        ``scale`` (alpha / rank) and an optional ``version`` in the query;
+        blocks until the decode loop applied it."""
+        if "scale" not in query:
+            raise ValueError("/update_weights_lora needs ?scale=")
+        version = query.get("version")
+        self.engine.update_weights_lora(
+            decode_weight_bucket(body), float(query["scale"][0]), int(version[0]) if version else None
+        )
         return 200, {"status": "ok", "version": self.engine.get_version()}
 
     def h_update_tensors(self, body: bytes) -> tuple[int, dict]:

@@ -8,7 +8,12 @@ transposed to PyTorch's ``[out, in]``, the MoE leaves (``w_router`` [D, E],
 the ``we_*`` expert stacks [E, in, out]) kept in JAX's layout, and the tied
 ``embed`` kept as the LM head, and a critic's ``value_head`` [hidden]
 (``TorchTrainEngine(value_head=True)``) carried as it is.
-``to_jax_params`` is the reverse; a round trip is exact.
+LoRA adapters (``<t>_lora_a`` [n, in, r], ``<t>_lora_b`` [n, r, out] in
+JAX) cross transposed like the dense matrices; the int8 serving form
+(``<t>_q8`` [n, in, out] int8 and ``<t>_scale`` [n, 1, out] f32 in JAX, the
+output of ``quantize_params_int8``) crosses as ``<t>_q8`` [out, in] and
+``<t>_scale`` [out] per layer. ``to_jax_params`` is the reverse; a round
+trip is exact.
 
 numpy has no bfloat16 of its own: a bf16 array (whatever package made its
 dtype) crosses as its 16 raw bits, and ``to_jax_params`` hands bf16 tensors
@@ -25,11 +30,44 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from areal_tpu_torch.models.qwen import ModelConfig, _layer_shapes
+from areal_tpu_torch.models.qwen import DENSE_MATRICES, QUANT_TARGETS, ModelConfig, _layer_shapes, _lora_shapes
 
-# JAX [in, out] dense matrices; every other leaf (norms, biases, the MoE
+# JAX [in, out] dense matrices, adapters and int8 tables cross transposed,
+# an int8 scale [1, out] as [out]; every other leaf (norms, biases, the MoE
 # router and expert stacks) keeps its layout
-_MATRICES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+_Q8 = frozenset(f"{t}_q8" for t in QUANT_TARGETS)
+_SCALES = frozenset(f"{t}_scale" for t in QUANT_TARGETS)
+
+
+def _transposed(name: str) -> bool:
+    return name in DENSE_MATRICES or name in _Q8 or name.endswith(("_lora_a", "_lora_b"))
+
+
+def _layer_names(cfg: ModelConfig, present) -> list[str]:
+    """The layer leaves to carry: the base leaves (each target projection in
+    its int8 form where ``present`` holds that instead) and the config's
+    adapters where ``present`` holds them (a merged state has none)."""
+    names = []
+    for name in _layer_shapes(cfg):
+        if name not in present and f"{name}_q8" in present:
+            names += [f"{name}_q8", f"{name}_scale"]
+        else:
+            names.append(name)
+    if cfg.lora_rank > 0:
+        names += [n for n in _lora_shapes(cfg) if n in present]
+    return names
+
+
+def _to_port(name: str, t: torch.Tensor) -> torch.Tensor:
+    if name in _SCALES:
+        return t[0]
+    return t.t().contiguous() if _transposed(name) else t
+
+
+def _to_jax(name: str, t: torch.Tensor) -> torch.Tensor:
+    if name in _SCALES:
+        return t[None]
+    return t.t() if _transposed(name) else t
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -57,13 +95,12 @@ def from_jax_params(params: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     if "value_head" in params:
         out["value_head"] = _to_tensor(params["value_head"])
     layers = params["layers"]
-    for name in _layer_shapes(cfg):
+    for name in _layer_names(cfg, layers):
         stacked = np.asarray(layers[name])
         if stacked.shape[0] != cfg.num_layers:
             raise ValueError(f"layers/{name}: leading dim {stacked.shape[0]} != {cfg.num_layers}")
         for i in range(cfg.num_layers):
-            t = _to_tensor(stacked[i])
-            out[f"layers.{i}.{name}"] = t.t().contiguous() if name in _MATRICES else t
+            out[f"layers.{i}.{name}"] = _to_port(name, _to_tensor(stacked[i]))
     return out
 
 
@@ -75,11 +112,9 @@ def to_jax_params(state: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
     if "value_head" in state:
         params["value_head"] = _to_numpy(state["value_head"])
     layers = {}
-    for name in _layer_shapes(cfg):
-        per = []
-        for i in range(cfg.num_layers):
-            t = state[f"layers.{i}.{name}"]
-            per.append(_to_numpy(t.t() if name in _MATRICES else t))
-        layers[name] = np.stack(per)
+    present = {k.split(".", 2)[2] for k in state if k.startswith("layers.0.")}
+    for name in _layer_names(cfg, present):
+        layers[name] = np.stack([_to_numpy(_to_jax(name, state[f"layers.{i}.{name}"]))
+                                 for i in range(cfg.num_layers)])
     params["layers"] = layers
     return params

@@ -6,7 +6,10 @@ are an ``nn.ModuleList`` of ``DecoderLayer`` modules whose parameter names
 are the JAX leaf names (``wq``, ``bq``, ``q_norm``, ``w_gate``, ...).
 The dense projections (``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``,
 ``w_down``) use PyTorch's ``[out, in]`` layout (``F.linear``), the JAX
-``[in, out]`` arrays transposed by ``models/convert.py``. The MoE leaves
+``[in, out]`` arrays transposed by ``models/convert.py``; so do the LoRA
+adapters (``wq_lora_a`` [r, in], ``wq_lora_b`` [out, r], the JAX [in, r] /
+[r, out] transposed) and the int8 serving form (``wq_q8`` [out, in] int8,
+``wq_scale`` [out] f32, JAX's [in, out] / [1, out]). The MoE leaves
 keep JAX's layout: the router ``w_router`` [D, E] (an f32 product ``h @
 w_router``) and the expert stacks ``we_gate`` / ``we_up`` [E, D, Fm] and
 ``we_down`` [E, Fm, D], which are the grouped matmul's ``rhs[g] = [k, n]``
@@ -86,6 +89,12 @@ class ModelConfig:
     # capacity-bounded einsum dispatch (drops overflow)
     moe_dropless: bool = True
     router_aux_coef: float = 0.0  # load-balance aux loss weight
+    # LoRA: adapters "<t>_lora_a" [r, in] and "<t>_lora_b" [out, r] on each
+    # target projection of every layer (0 = none); the train engine sets
+    # these from TrainEngineConfig
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple = ("wq", "wk", "wv", "wo")
 
     @property
     def head_dim_(self) -> int:
@@ -178,6 +187,26 @@ def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+# the dense projections, in F.linear's [out, in] layout (every other layer
+# leaf keeps JAX's layout)
+DENSE_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _lora_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """a: [r, in], b: [out, r] per target projection (JAX's [in, r] / [r,
+    out] transposed, ``models/qwen.py:211``), from the base shapes."""
+    base = _layer_shapes(cfg)
+    r = cfg.lora_rank
+    out = {}
+    for t in cfg.lora_targets:
+        if t not in base or len(base[t]) != 2:
+            raise ValueError(f"LoRA target {t!r} is not a 2-D layer projection")
+        d_out, d_in = base[t] if t in DENSE_MATRICES else base[t][::-1]
+        out[f"{t}_lora_a"] = (r, d_in)
+        out[f"{t}_lora_b"] = (d_out, r)
+    return out
+
+
 # layer parameter -> (HF suffix, transpose). The flags describe the port's
 # layout: its dense [out, in] matrices are HF's own layout, while the MoE
 # router [D, E] and the expert stacks' [in, out] slices are HF's transposed
@@ -236,7 +265,10 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device, dtype: torch.dtype):
         super().__init__()
-        for name, shape in _layer_shapes(cfg).items():
+        shapes = _layer_shapes(cfg)
+        if cfg.lora_rank > 0:
+            shapes.update(_lora_shapes(cfg))
+        for name, shape in shapes.items():
             setattr(self, name, _param(shape, device, dtype))
 
 
@@ -264,23 +296,108 @@ class QwenModel(nn.Module):
         return self.embed if self.cfg.tie_word_embeddings else self.lm_head
 
 
+def _init_leaf(p: torch.Tensor, leaf: str, generator: torch.Generator) -> None:
+    if leaf.endswith("norm"):
+        p.fill_(1.0)
+    elif leaf in ("bq", "bk", "bv") or leaf.endswith("_lora_b"):
+        p.zero_()
+    else:
+        w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
+        p.copy_(w)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> QwenModel:
     """Random init (truncated-normal 0.02 in f32, cast to the model dtype;
-    norms 1, biases 0) from a seeded ``torch.Generator`` that lives on the
-    model's device (models/qwen.py:348)."""
+    norms 1, biases 0, LoRA B 0) from a seeded ``torch.Generator`` that
+    lives on the model's device (models/qwen.py:348)."""
     model = QwenModel(cfg, device)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("norm"):
-                p.fill_(1.0)
-            elif leaf in ("bq", "bk", "bv"):
-                p.zero_()
-            else:
-                w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-                nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
-                p.copy_(w)
+            _init_leaf(p, name.rsplit(".", 1)[-1], generator)
     return model
+
+
+def init_lora_params(model: QwenModel, generator: torch.Generator) -> None:
+    """Fresh adapters in place (models/qwen.py:225): every A from N(0, 0.02)
+    truncated at 2 sigma (drawn in f32, cast), every B 0, so the adapted
+    model starts exactly at the base model."""
+    if model.cfg.lora_rank <= 0:
+        raise ValueError("init_lora_params needs lora_rank > 0")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if "_lora_" in leaf:
+                _init_leaf(p, leaf, generator)
+
+
+def merge_lora(state: dict[str, torch.Tensor], cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """W' = W + (alpha / r) A@B per target, computed in f32 and cast back to
+    W's dtype, without the adapter leaves (models/qwen.py:258); ``state``
+    maps the port's names to tensors. Other entries pass through (the same
+    tensors). The merged tree is what the HF export and a full weight update
+    carry."""
+    if cfg.lora_rank <= 0:
+        return state
+    scale = cfg.lora_alpha / cfg.lora_rank
+    out = {n: t for n, t in state.items() if "_lora_" not in n}
+    for i in range(cfg.num_layers):
+        for t in cfg.lora_targets:
+            key = f"layers.{i}.{t}"
+            a, b = state[f"{key}_lora_a"].float(), state[f"{key}_lora_b"].float()
+            w = state[key]
+            delta = b @ a if t in DENSE_MATRICES else (b @ a).t()
+            out[key] = (w.float() + scale * delta).to(w.dtype)
+    return out
+
+
+# int8 weight-only serving (models/qwen.py:301): the dense projections only;
+# embed / lm_head, norms, biases and MoE experts stay as they are
+QUANT_TARGETS = DENSE_MATRICES
+
+
+def quantize_dense_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """W[..., out, in] -> (q8 int8 [..., out, in], scale f32 [..., out]) with
+    W ~ q8 * scale per output channel: s = max|W| / 127 over the input dim
+    (at least 1e-12), q8 = round(W / s) (half to even) clipped to +-127, all
+    in f32 (models/qwen.py:311). The one transform of server-side
+    quantization and the client's q8 wire."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: torch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which is not the same f32 quotient
+    s = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
+    return torch.round(w32 / s).clamp(-127, 127).to(torch.int8), s[..., 0]
+
+
+def quantize_params_int8(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``quantize_dense_int8`` of every ``layers.<i>.<target>`` of a state
+    dict: each becomes ``<target>_q8`` and ``<target>_scale``; every other
+    entry passes through (models/qwen.py:323)."""
+    out = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] == "layers" and len(parts) == 3 and parts[2] in QUANT_TARGETS:
+            out[f"{name}_q8"], out[f"{name}_scale"] = quantize_dense_int8(t)
+        else:
+            out[name] = t
+    return out
+
+
+def quantize_model_int8(model: QwenModel) -> None:
+    """Replace, in place, each layer's target projections by their int8
+    serving form (``<target>_q8`` int8, ``<target>_scale`` f32 parameters),
+    one tensor at a time; ``_proj`` then reads them."""
+    with torch.no_grad():
+        for layer in model.layers:
+            for name in QUANT_TARGETS:
+                w = layer._parameters.get(name)
+                if w is None:
+                    continue
+                q8, s = quantize_dense_int8(w)
+                del layer._parameters[name]
+                setattr(layer, f"{name}_q8", nn.Parameter(q8, requires_grad=False))
+                setattr(layer, f"{name}_scale", nn.Parameter(s, requires_grad=False))
 
 
 # ---------------------------------------------------------------------------
@@ -317,11 +434,31 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, saved: bool = True) -> torch.Tensor:
-    """x @ W for a dense [out, in] weight (LoRA / int8 weights: later), a
-    dot whose output ``remat_policy="dots_nobatch"`` saves unless
-    ``saved`` is False (``models/remat.py``)."""
+def _dot(x: torch.Tensor, w: torch.Tensor, saved: bool) -> torch.Tensor:
+    """x @ W^T, a dot whose output ``remat_policy="dots_nobatch"`` saves
+    unless ``saved`` is False (``models/remat.py``)."""
     return remat_lib.saved_dot(F.linear, x, w) if saved else F.linear(x, w)
+
+
+def _proj(cfg: ModelConfig, layer, name: str, x: torch.Tensor, saved: bool = True) -> torch.Tensor:
+    """x @ W for the layer's projection ``name`` (models/qwen.py:276). An int8
+    weight (``<name>_q8`` + ``<name>_scale``) multiplies as
+    ``(x @ q8.to(x.dtype)).float() * scale`` cast to x's dtype: the scale
+    applies to the product, and the cast of |q8| <= 127 is exact. A layer
+    with adapters adds ``((x @ A) @ B) * (alpha / r)`` in x's dtype; x @ A
+    is always a saved dot (the backward reads it for B's gradient), the
+    outer product one as ``saved`` says."""
+    q8 = getattr(layer, f"{name}_q8", None)
+    if q8 is not None:
+        y = _dot(x, q8.to(x.dtype), saved)
+        out = (y.float() * getattr(layer, f"{name}_scale")).to(x.dtype)
+    else:
+        out = _dot(x, getattr(layer, name), saved)
+    a = getattr(layer, f"{name}_lora_a", None)
+    if a is not None:
+        xa = _dot(x, a, True)
+        out = out + _dot(xa, getattr(layer, f"{name}_lora_b"), saved) * (cfg.lora_alpha / cfg.lora_rank)
+    return out
 
 
 def _ffn(cfg: ModelConfig, h: torch.Tensor, layer) -> torch.Tensor:
@@ -333,7 +470,8 @@ def _ffn(cfg: ModelConfig, h: torch.Tensor, layer) -> torch.Tensor:
         out, _ = moe.moe_ffn(h[:, None] if squeeze else h, layer, cfg)
         return out[:, 0] if squeeze else out
     # the down projection's output is read by no backward: not saved
-    return _proj(F.silu(_proj(h, layer.w_gate)) * _proj(h, layer.w_up), layer.w_down, saved=False)
+    ff = F.silu(_proj(cfg, layer, "w_gate", h)) * _proj(cfg, layer, "w_up", h)
+    return _proj(cfg, layer, "w_down", ff, saved=False)
 
 
 def _qkv(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor, rope: tuple):
@@ -343,7 +481,7 @@ def _qkv(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor, rope: tuple):
     A, P, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     h = _rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
-    q, k, v = _proj(h, layer.wq), _proj(h, layer.wk), _proj(h, layer.wv)
+    q, k, v = (_proj(cfg, layer, n, h) for n in ("wq", "wk", "wv"))
     if cfg.attention_bias:
         q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
     q = q.reshape(A, P, H, hd)
@@ -423,7 +561,7 @@ def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: b
         attn = tree_attention(q[0], k[0], v[0], *mask)[None]
     else:
         attn = sdpa_plain(q, k, v, mask, hd)
-    x = x + _proj(attn.reshape(G, L, H * hd), layer.wo)
+    x = x + _proj(cfg, layer, "wo", attn.reshape(G, L, H * hd))
     h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
     if cfg.num_experts > 0:
         ff, aux = moe.moe_ffn(h, layer, cfg, with_aux)
@@ -571,7 +709,7 @@ def forward_prefill(
             k = k.repeat_interleave(H // KH, dim=2)
             v = v.repeat_interleave(H // KH, dim=2)
         attn = sdpa_plain(q, k, v, mask, hd).reshape(A, P, H * hd)
-        x = x + _proj(attn, layer.wo)
+        x = x + _proj(cfg, layer, "wo", attn)
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
@@ -611,7 +749,7 @@ def _forward_suffix_paged(model, input_ids, positions, mask, cache, page_table, 
             v_scales=cache.get("v_scale"),
             kind=kind,
         )
-        x = x + _proj(attn.reshape(S, B, H * hd).to(x.dtype), layer.wo)
+        x = x + _proj(cfg, layer, "wo", attn.reshape(S, B, H * hd).to(x.dtype))
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
@@ -716,7 +854,7 @@ def forward_decode_paged(
             v_scales=cache.get("v_scale"),
         )
         attn = attn.reshape(S, H * hd).to(x.dtype)
-        x = x + _proj(attn, layer.wo)
+        x = x + _proj(cfg, layer, "wo", attn)
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)

@@ -24,7 +24,9 @@ reads nothing, so JAX neither saves nor recomputes it; ``qwen._ffn`` leaves
 it unmarked, and the recompute, which stops after the last tensor the
 backward needs, never reaches it. The saved outputs of a layer are then
 JAX's: q, k, v, o, gate and up of a dense layer; q, k, v, o and the router
-logits of an MoE layer.
+logits of an MoE layer. A LoRA target adds its two adapter products,
+x @ A and (x @ A) @ B, both dots without batch dimensions; on the down
+projection only x @ A, which B's gradient reads.
 """
 
 from __future__ import annotations

@@ -44,9 +44,9 @@ ships no weights. As in JAX, the recover dumps and the saver hold only the
 actor: a relaunched trainer restarts its critic from ``config.critic``.
 
 Refused at construction with ``NotImplementedError`` naming the ROADMAP
-Queue A item it waits for: ``allocation_mode`` (item 6), a
-``cluster.name_resolve.type`` other than "memory" (item 8) and the q8 wire
-(item 4).
+Queue A item it waits for: ``allocation_mode`` (item 6) and a
+``cluster.name_resolve.type`` other than "memory" (item 8). The weight
+wire follows ``resolve_weight_update_wire``: "q8" against an int8 fleet.
 
 ``compile_cache.install_compile_counters`` counts XLA compilations and has
 no PyTorch counterpart: it is left out.
@@ -85,15 +85,26 @@ logger = logging.getLogger("areal_tpu_torch.rl_trainer")
 
 
 def resolve_weight_update_wire(config) -> str:
-    """``weight_update_wire``: "auto" is "q8" for an int8-serving fleet,
-    else "bf16". Only bf16 is ported."""
-    wire = config.weight_update_wire or "auto"
+    """``weight_update_wire`` (``rl_trainer.py:43``): "auto" is "q8" when the
+    serving fleet is int8-quantized (the servers' own transform, at 0.58x
+    the bf16 bytes), else "bf16". Checked here, so a typo or a q8 wire to a
+    fleet that is not int8 fails at the trainer's start, not at its first
+    weight update."""
+    wire = getattr(config, "weight_update_wire", "auto") or "auto"
+    server_cfg = getattr(config, "server", None)
+    int8_fleet = getattr(server_cfg, "quantization", "none") == "int8"
     if wire == "auto":
-        wire = "q8" if config.server.quantization == "int8" else "bf16"
+        wire = "q8" if server_cfg is not None and int8_fleet else "bf16"
     if wire not in ("bf16", "q8"):
-        raise ValueError(f"weight_update_wire={wire!r}; valid: auto|bf16|q8")
-    if wire == "q8":
-        raise NotImplementedError("the q8 weight wire (int8 serving): ROADMAP Queue A item 4")
+        raise ValueError(
+            f"weight_update_wire={wire!r}; valid: auto|bf16|q8 "
+            "(int8 is a ServerConfig.quantization value, not a wire format)"
+        )
+    if wire == "q8" and not int8_fleet:
+        raise ValueError(
+            "weight_update_wire='q8' requires an int8-serving fleet (set server.quantization='int8'): servers "
+            "refuse q8-wire leaves otherwise, at the first mid-training update"
+        )
     return wire
 
 

@@ -7,7 +7,8 @@ On a card each parameter's storage moves to pinned host memory, so the
 onload is one host-to-device copy per tensor; on the CPU there is nothing to
 free and the tensors stay where they are. The ``Parameter`` objects stay the
 same (only their ``.data`` moves), so references to them stay valid; their
-device addresses change across an offload / onload.
+device addresses change across an offload / onload. Every dtype moves as its
+bytes: an int8 serving table and its f32 scale come back bit for bit.
 """
 
 from __future__ import annotations

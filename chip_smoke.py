@@ -161,7 +161,8 @@ no result line:
               it (K2-K4 launches); (f) offload / onload of the resumed actor
               (GB freed, seconds, bit for bit after). Deletes its directory
               (``_durable/``) at its end.
-15. critic   — PPO with a learned critic over HTTP at Qwen2.5-1.5B:
+15. critic   — PPO with a learned critic over HTTP at Qwen2.5-1.5B (full
+              width, 8 of 28 layers):
               ``PPOTrainer.train`` (2 global steps) with the grpo phase's
               actor and client and ``PPOCriticConfig.path`` set to the
               actor's HF export, so the trainer builds the critic (the
@@ -171,10 +172,10 @@ no result line:
               finite, finite critic loss and value clip ratio, pushes that
               carry the actor's parameters only, and K2-K4 launches with the
               critic's ``compute_values`` forward and updates; prints the
-              step's phases, the critic's tokens/s and the peak memory
-              against its prediction.
+              step's phases, the critic's tokens/s and the peak memory.
 16. sft      — SFT, the reward model and the remat policies at Qwen2.5-1.5B,
-              full depth, from an HF export of seeded random weights:
+              full width and 8 of 28 layers, from an HF export of seeded
+              random weights:
               ``SFTTrainer.train`` (4 steps of 8 rows, an eval pass every 2
               steps) and ``RWTrainer.train`` (4 steps of 8 pairs in
               microbatches of at most 4,096 tokens; ``n_pairs`` intact), each
@@ -183,7 +184,38 @@ no result line:
               "nothing", "dots_nobatch" and "everything", in two rounds:
               the parameters after "dots_nobatch" against "nothing"'s, each
               policy's peak memory, step seconds and K2-K4 launches.
-17. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+17. int8serve — int8 weight serving at Qwen2.5-1.5B, full width and depth
+              (``gsm8k_grpo_int8serve.yaml``: ``quantization="int8"``,
+              ``kv_quantization="int8"``): a server started from the grpo
+              phase's trainer, its int8 tables and scales the server-side
+              quantization of the trainer's bf16 export bit for bit; the
+              serve phase's cold and warm waves (16 + 16, a shared
+              1,024-token prompt) on it and on a bf16-weight server of the
+              same settings in the same process (ms per decode step, the
+              probe's dispatch share, the ledger's params bytes, #1 / #3
+              launches, logprobs against a dense prefill of the served
+              model); a q8 update to the bf16 server and an adapter fold
+              into the int8 engine, both refused with no weight changed;
+              then ``PPOTrainer.train`` for 2 steps over HTTP with
+              ``weight_update_wire="auto"`` (resolved to q8): after each
+              step the served tables are the q8 transform of the trainer's
+              f32 master weights bit for bit; the q8 update's wire bytes
+              against bf16's (0.577 reckoned), stage and fence seconds,
+              K2-K4 and #1 launches.
+18. lora     — LoRA at Qwen2.5-1.5B, full width and depth
+              (``gsm8k_grpo_lora.yaml``: rank 32, alpha 16, wq / wk / wv /
+              wo over the grpo phase's actor): a server started from the
+              trainer's adapter-free export; ``PPOTrainer.train`` for 2
+              steps over HTTP whose pushes carry only the adapters (the
+              server folds them into its base); one more adapter push
+              timed beside a full push, then an adapter push after the full
+              one, refused with no weight changed. Checks the base
+              parameters bit for bit, the adapters moved, the served weights
+              against the merged export within bf16 rounding, K2-K4 / #1
+              launches; prints each push's bytes and seconds, trainer
+              tokens/s and the peak memory (predicted 17 GiB below grpo's:
+              the base has no gradients or AdamW moments).
+19. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -198,8 +230,8 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-18. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
-              one minibatch per step: each prompt's samples merge into a
+20. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+              one minibatch per step (full width, 8 of 28 layers): each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
               recompute stays on K2). Checks the dedup counts against a host
@@ -207,7 +239,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-19. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+21. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -219,7 +251,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-20. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+22. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -230,7 +262,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-21. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+23. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -238,7 +270,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-22. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+24. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -294,10 +326,12 @@ QWEN25_15B = dict(
     dtype="bfloat16",
 )
 # the depth of the phases whose checks are about behaviour, not the main
-# path's speed (lifecycle, observe, durable): 8 of Qwen2.5-1.5B's 28 layers
-# at full width, so the whole script stays inside its time limit on a slow
-# host (1,170 s of phases at full depth on one, PERF.md); serve, rollout,
-# train, grpo, critic, sft and train_tree run all 28
+# path's speed (lifecycle, observe, durable; since the int8serve and lora
+# phases came, critic, sft and train_tree too): 8 of Qwen2.5-1.5B's 28
+# layers at full width, so the whole script stays inside its time limit on a
+# slow host (1,170 s of phases at full depth on one; 1,000 s with all but the
+# first three at full depth on another, PERF.md); serve, rollout, train,
+# grpo, int8serve and lora run all 28
 CUT_LAYERS = 8
 # Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): the
 # qwen3_moe family's smallest public member, full width and depth
@@ -4827,7 +4861,8 @@ def _plain_returns(rewards: np.ndarray, loss_mask: np.ndarray, gamma: float, lam
 
 
 def phase_critic(card: str) -> dict:
-    """PPO with a learned critic over HTTP at Qwen2.5-1.5B: ``PPOTrainer.train``
+    """PPO with a learned critic over HTTP at Qwen2.5-1.5B (full width,
+    ``CUT_LAYERS`` of its depth): ``PPOTrainer.train``
     (2 global steps) with the grpo phase's actor and client and a
     ``PPOCriticConfig`` whose ``path`` is the actor's HF export, so the
     trainer builds the critic (the actor's dims, a zero value head) as
@@ -4862,7 +4897,7 @@ def phase_critic(card: str) -> dict:
         raise AssertionError(f"[critic] {held:.2f} GiB still allocated by earlier phases")
     torch.cuda.reset_peak_memory_stats()
     group, n_new, batch_prompts = 4, 128, 8
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     L = mcfg.num_layers
     acfg = PPOActorConfig(
         dtype="bfloat16", param_dtype="float32", attn_impl="pallas", gradient_checkpointing=True,
@@ -5050,7 +5085,8 @@ def phase_critic(card: str) -> dict:
         "pushes of the actor's parameters only; "
         f"K2 / K3 / K4 launches {counts} (actor {n_fwd} forward grids + {n_amb} microbatches, critic {n_val} values "
         f"grids + {n_cmb} microbatches); #1 launches {launches1} = {L} x {steps} decode steps; the loop {wall:.1f} s; "
-        f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB (predicted {CRITIC_PEAK_PREDICTED_GIB:.1f} GiB)")
+        f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB ({mcfg.num_layers} layers; "
+        f"{CRITIC_PEAK_PREDICTED_GIB:.1f} GiB predicted at 28)")
     log(f"[critic] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
     del loop, trainer, engine, srv, critic
     return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
@@ -5089,7 +5125,8 @@ def _pref_rows(n: int, seed: int, vocab: int) -> list[dict]:
 
 def phase_sft(card: str) -> dict:
     """SFT, the reward model and the three remat policies at Qwen2.5-1.5B,
-    full width and depth, from an HF export of seeded random weights:
+    full width and ``CUT_LAYERS`` of its depth, from an HF export of seeded
+    random weights:
     ``SFTTrainer.train`` (4 steps of 8 rows, an eval pass every 2 steps) and
     ``RWTrainer.train`` (4 steps of 8 pairs, microbatches of at most 4,096
     tokens), each building its engine from ``TrainEngineConfig.path``; then
@@ -5117,7 +5154,7 @@ def phase_sft(card: str) -> dict:
     held = torch.cuda.memory_allocated() / 2**30
     if held > 2.0:
         raise AssertionError(f"[sft] {held:.2f} GiB still allocated by earlier phases")
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     L = mcfg.num_layers
     kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
     shutil.rmtree(SFT_ROOT, ignore_errors=True)
@@ -5328,6 +5365,564 @@ def phase_sft(card: str) -> dict:
     return res
 
 
+# the int8serve and lora phases write here (git-ignored) and delete it
+ITEM4_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_item4")
+ITEM4_STEPS, ITEM4_PROMPTS = 2, 16
+# the q8 wire's bytes over bf16's at Qwen2.5-1.5B, reckoned from the shapes
+# (int8 tables 1 B, f32 scales 4 B, the rest bf16): 1.780 / 3.087 GB
+Q8_RATIO = 0.577
+LORA_RANK, LORA_ALPHA, LORA_TARGETS = 32, 16.0, ("wq", "wk", "wv", "wo")  # gsm8k_grpo_lora.yaml
+LORA_PEAK_DROP_PREDICTED_GIB = 17.0  # the base's f32 gradients and AdamW moments against grpo's peak
+# served logprobs on int8 KV pages against a dense prefill, which keeps K and
+# V in bf16: each page row is rounded to 2^-8 of its largest entry, which the
+# served logprobs carry and the dense ones do not (bf16 pages: LOGPROB_TOL).
+# The first card run measured 0.086 on bf16 weights and 0.080 on int8 ones
+INT8_KV_LOGPROB_TOL = 0.2
+
+
+def _grpo_actor(**over):
+    """The grpo phase's actor settings (f32 master weights, a constant LR)."""
+    from areal_tpu_torch.api.config import NormConfig, OptimizerConfig, PPOActorConfig
+
+    return PPOActorConfig(
+        dtype="bfloat16", param_dtype="float32", attn_impl="pallas", gradient_checkpointing=True,
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant"), group_size=4,
+        adv_norm=NormConfig(mean_level="group", std_level="batch", group_size=4), use_decoupled_loss=True,
+        prox_logp_mode="recompute", ppo_n_minibatches=2, **over,
+    )
+
+
+def _item4_loop(tag: str, trainer, acfg, srv, scfg, seed: int, client_kw: dict | None = None):
+    """A client of the started server ``srv`` at the grpo phase's settings
+    and a ``PPOTrainer`` of ``ITEM4_STEPS`` global steps of 8 prompts x 4
+    samples x 128 tokens writing under ``ITEM4_ROOT``, with per-step records
+    of the stats, forward grids, microbatches and ppo_update seconds
+    (``rec``)."""
+    from areal_tpu_torch.api.config import (DatasetConfig, EvaluatorConfig, InferenceEngineConfig, PPOConfig,
+                                            PreemptionConfig, RecoverConfig, SaverConfig, StatsLoggerConfig)
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+
+    client = RemoteTorchEngine(InferenceEngineConfig(**{**GRPO_CLIENT, **(client_kw or {})}), addresses=[srv.address])
+    client.initialize()
+    gconfig = GenerationHyperparameters(n_samples=4, max_new_tokens=128, temperature=1.0)
+    root = os.path.join(ITEM4_ROOT, tag)
+    files = dict(saver=SaverConfig(fileroot=root), checkpointer=SaverConfig(fileroot=root),
+                 evaluator=EvaluatorConfig(fileroot=root), recover=RecoverConfig(fileroot=root),
+                 stats_logger=StatsLoggerConfig(fileroot=root))
+    cfg = PPOConfig(experiment_name="chip-smoke", trial_name=tag, weight_update_mode="mem",
+                    total_train_steps=ITEM4_STEPS, preemption=PreemptionConfig(enabled=False), gconfig=gconfig,
+                    train_dataset=DatasetConfig(batch_size=8), actor=acfg, server=scfg,
+                    rollout=InferenceEngineConfig(**GRPO_CLIENT), **files)
+    cfg.cluster.fileroot = root
+    rng = np.random.default_rng(seed)
+    dataset = [{"prompt_ids": rng.integers(0, QWEN25_15B["vocab_size"], int(n)).tolist()}
+               for n in rng.integers(64, 513, ITEM4_PROMPTS)]
+    loop = PPOTrainer(cfg, dataset, rollout=client, actor_engine=trainer)
+    rec: dict[str, list] = {"stats": [], "fwd": [], "mbs": [], "tokens": [], "ppo_s": []}
+    compute_logp, train_batch, ppo_update = loop.actor.compute_logp, trainer.train_batch, loop.actor.ppo_update
+
+    def compute_logp_logged(b):
+        rec["fwd"].append(len(trainer._make_grids(b)))
+        return compute_logp(b)
+
+    def train_batch_logged(*a, **k):
+        st = train_batch(*a, **k)
+        rec["mbs"].append(int(st["n_microbatches"]))
+        return st
+
+    def ppo_update_timed(data):
+        rec["tokens"].append(int(np.asarray(data["attention_mask"]).sum()))
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = ppo_update(data)
+        torch.cuda.synchronize()
+        rec["ppo_s"].append(time.monotonic() - t)
+        return out
+
+    loop.actor.compute_logp, trainer.train_batch, loop.actor.ppo_update = (compute_logp_logged, train_batch_logged,
+                                                                          ppo_update_timed)
+    return loop, client, gconfig, rec
+
+
+def _flash_counts_check(tag: str, counts: list[int], rec: dict, L: int) -> None:
+    n_fwd, n_mbs = sum(rec["fwd"]), sum(rec["mbs"])
+    want = [L * n_fwd + 2 * L * n_mbs, L * n_mbs, L * n_mbs]
+    if counts != want or n_mbs == 0:
+        raise AssertionError(f"[{tag}] K2 / K3 / K4 launches {counts} != {want} ({n_fwd} forward grids, {n_mbs} "
+                             "microbatches)")
+
+
+def _health_version(addr: str) -> int:
+    with urllib.request.urlopen(f"http://{addr}/health", timeout=10) as r:
+        return json.loads(r.read())["version"]
+
+
+def _http_reason(e: Exception) -> str:
+    """The server's error text behind a client's failed POST."""
+    cause = e.__cause__
+    if isinstance(cause, urllib.error.HTTPError):
+        try:
+            return json.loads(cause.read()).get("error", str(cause))
+        except (ValueError, OSError):
+            return str(cause)
+    return str(e)
+
+
+def _int8_unequal(engine, weights: dict, tables_from=None) -> list[str]:
+    """Served parameters of an int8 engine that differ in any bit from
+    ``weights`` (the port's names): each int8 table and scale from
+    ``quantize_dense_int8`` of ``tables_from(w)`` (default: ``w`` cast to
+    bf16, the server-side quantization), every other leaf ``w`` cast to
+    bf16."""
+    from areal_tpu_torch.models import qwen
+
+    tables_from = tables_from or (lambda w: w.to(torch.bfloat16))
+    served = dict(engine.model.named_parameters())
+    bad = []
+    for n, p in served.items():
+        if n.endswith("_q8"):
+            q8, s = qwen.quantize_dense_int8(tables_from(weights[n[: -len("_q8")]]))
+            if not (torch.equal(p, q8) and torch.equal(served[n[: -len("_q8")] + "_scale"], s)):
+                bad.append(n)
+        elif not n.endswith("_scale") and not torch.equal(p.detach(), weights[n].detach().to(torch.bfloat16)):
+            bad.append(n)
+    return bad
+
+
+def _serve_waves(tag: str, srv, engine, card: str) -> dict:
+    """A cold wave of 16 (64..512-token prompts, 128 new tokens, half
+    greedy) and a warm wave of 16 on a shared 1,024-token prompt (the first
+    alone, then 15 through radix hits), the serve phase's prompts; #1 and
+    #3 launches counted from 0 over both; ms per decode step (device
+    stream and wall), the probe's dispatch share, logprobs against a dense
+    prefill of the served model."""
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+
+    V, n_new = QWEN25_15B["vocab_size"], 128
+    rng = np.random.default_rng(0)
+    cold = [rng.integers(0, V, int(n)).tolist() for n in rng.integers(64, 513, 16)]
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, V, 1024).tolist()
+    warm = [system + rng.integers(0, V, int(n)).tolist() for n in rng.integers(64, 257, 16)]
+
+    def body(p, i):
+        sp = {"max_new_tokens": n_new, "greedy": True} if i % 2 == 0 else {"max_new_tokens": n_new, "temperature": 1.0}
+        return {"input_ids": p, "sampling_params": sp}
+
+    keys = ("decode_steps", "prefix_hit_tokens", "suffix_prefill_batches")
+    # main path: counts to 0 just before, read just after
+    paged_attention_stacked.launches = 0
+    for k in psa.launches:
+        psa.launches[k] = 0
+    s0, dev0 = {k: engine.stats[k] for k in keys}, engine.device_seconds()
+    t0 = time.monotonic()
+    resps = _wave(srv.address, [body(p, i) for i, p in enumerate(cold)])
+    cold_wall = time.monotonic() - t0
+    resps += _wave(srv.address, [body(warm[0], 0)])
+    t1 = time.monotonic()
+    resps += _wave(srv.address, [body(p, i) for i, p in enumerate(warm[1:], 1)])
+    warm_wall = time.monotonic() - t1
+    launches1, launches3 = paged_attention_stacked.launches, dict(psa.launches)
+    d = {k: engine.stats[k] - s0[k] for k in keys}
+    dev = engine.device_seconds()
+    for r in resps:
+        _check_response(r, n_new, tag)
+    L = engine.model_cfg.num_layers
+    if d["decode_steps"] == 0 or launches1 != L * d["decode_steps"]:
+        raise AssertionError(f"[{tag}] #1 launches {launches1} != {L} x {d['decode_steps']} decode steps")
+    if d["prefix_hit_tokens"] <= 0 or launches3["chain"] != L * d["suffix_prefill_batches"] or not launches3["chain"]:
+        raise AssertionError(f"[{tag}] warm wave: {d}, #3 launches {launches3}")
+    prompts = cold + warm
+    errs = [_dense_check(engine.model, prompts[i], resps[i], greedy=False) for i in (1, 3, 17, 19)]
+    gaps = [_dense_check(engine.model, prompts[i], resps[i], greedy=True) for i in (0, 2, 18, 20)]
+    tol = INT8_KV_LOGPROB_TOL if engine.config.kv_quantization == "int8" else LOGPROB_TOL
+    if max(errs) > tol or max(gaps) > tol:
+        raise AssertionError(f"[{tag}] served logprobs vs a dense prefill of the served model: {errs}, greedy gaps "
+                             f"{gaps} (tol {tol})")
+    ks = engine.kernel_stats()
+    steps = dev["decode_steps"] - dev0["decode_steps"]
+    out = dict(ms_per_step=(dev["decode_s"] - dev0["decode_s"]) / steps * 1e3,
+               wall_ms_per_step=(cold_wall + warm_wall) / d["decode_steps"] * 1e3,
+               decode_tok_s=16 * n_new / cold_wall, dispatch_share=ks["phase_means_s"]["dispatch"] / ks["total_mean_s"],
+               launches1=launches1, launches3=launches3["chain"], hit_tokens=d["prefix_hit_tokens"],
+               dense_err=max(errs), greedy_gap=max(gaps), tokens=[r["output_tokens"] for r in resps])
+    log(f"[{tag}] {card}: 32/32 responses complete (cold 16 in {cold_wall:.2f} s, warm 15 in {warm_wall:.2f} s "
+        f"through {d['prefix_hit_tokens']} radix hit tokens); {out['ms_per_step']:.2f} ms per decode step (device "
+        f"stream), {out['wall_ms_per_step']:.2f} ms wall; cold {out['decode_tok_s']:.1f} decode tok/s; the decode "
+        f"loop's dispatch {out['dispatch_share']:.1%} of a pass ({ks['steps']} passes); #1 launches {launches1} = {L} x "
+        f"{d['decode_steps']}, #3 chain {launches3['chain']}; logprobs vs a dense prefill of the served model max|diff| "
+        f"{max(errs):.4f}, greedy gap {max(gaps):.4f} (tol {tol}, {engine.config.kv_quantization} pages)")
+    return out
+
+
+def phase_int8serve(card: str) -> dict:
+    """int8 weight serving at Qwen2.5-1.5B, full width and depth
+    (``gsm8k_grpo_int8serve.yaml``: ``quantization="int8"``,
+    ``kv_quantization="int8"``, the q8 wire): (a) a server started from
+    the grpo phase's trainer's weights serves the server-side quantization
+    of their bf16 export, bit for bit; (b) the serve phase's cold and warm
+    waves on it and on a bf16-weight server of the same settings (int8
+    pages too) in the same process: ms per decode step, the probe's
+    dispatch share, the ledger's params bytes, #1 / #3 launches; (c) a q8
+    update to the bf16 server is refused and changes no weight; an adapter
+    fold into the int8 engine is refused; (d) ``PPOTrainer.train`` for 2
+    steps over HTTP with ``weight_update_wire="auto"``, resolved to q8:
+    after each step the served tables are the q8 wire's transform of the
+    trainer's f32 master weights (no bf16 rounding first), bit for bit;
+    the wire bytes of an update against bf16's, stage and fence seconds,
+    K2-K4 / #1 launches."""
+    import shutil
+
+    from areal_tpu_torch.api.config import InferenceEngineConfig
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.api.config import ServerConfig
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[int8serve] {held:.2f} GiB still allocated by earlier phases")
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    L = mcfg.num_layers
+    acfg = _grpo_actor()
+    trainer = TorchTrainEngine(acfg, model_config=mcfg)
+    trainer.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=ITEM4_PROMPTS, train_batch_size=8), seed=0)
+    scfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                        weight_stage_target="device", host="127.0.0.1", seed=0, quantization="int8",
+                        kv_quantization="int8")
+    export = trainer._export_params()
+    t0 = time.monotonic()
+    engine = DecodeEngine(scfg, params=export, model_cfg=mcfg)
+    engine.initialize()
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    # (a) the server-side quantization of the trainer's bf16 export
+    bad = _int8_unequal(engine, export)
+    n_tables = sum(n.endswith("_q8") for n, _ in engine.model.named_parameters())
+    if bad or n_tables != 7 * L:
+        raise AssertionError(f"[int8serve] (a) {len(bad)} served tensors differ from the server-side quantization "
+                             f"of the bf16 export (first {bad[:3]}); {n_tables} int8 tables")
+    ledger = engine.hbm_ledger()["components"]
+    log(f"[int8serve] (a) {card}: the int8 engine up in {init_s:.1f} s; its {n_tables} int8 tables and scales equal "
+        f"the server-side quantization of the trainer's bf16 export bit for bit; hbm_ledger params "
+        f"{ledger['params'] / 1e9:.3f} GB, kv_page_pool {ledger['kv_page_pool'] / 1e9:.3f} GB")
+    ref = srv_ref = loop = None
+    srv = ServerThread(scfg, engine=engine)
+    try:
+        srv.start()
+        q = _serve_waves("int8serve", srv, engine, card)
+        # (b) the same waves on bf16 weights (int8 pages too), same process
+        ref_cfg = dataclasses.replace(scfg, quantization="none")
+        ref = DecodeEngine(ref_cfg, params=export, model_cfg=mcfg)
+        srv_ref = ServerThread(ref_cfg, engine=ref)
+        srv_ref.start()
+        b = _serve_waves("int8serve/bf16", srv_ref, ref, card)
+        ref_ledger = ref.hbm_ledger()["components"]
+        same = sum(x == y for x, y in zip(q["tokens"], b["tokens"]))
+        log(f"[int8serve] (b) {card}: ms per decode step int8 {q['ms_per_step']:.2f} against bf16 "
+            f"{b['ms_per_step']:.2f} (device stream; wall {q['wall_ms_per_step']:.2f} / {b['wall_ms_per_step']:.2f}); "
+            f"dispatch share {q['dispatch_share']:.1%} / {b['dispatch_share']:.1%}; hbm_ledger params "
+            f"{ledger['params'] / 1e9:.3f} GB against {ref_ledger['params'] / 1e9:.3f} GB; {same}/32 responses "
+            "token for token the same on both")
+        # (c) the refusals: a q8 update to the bf16 server, a fold into the int8 engine
+        before = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+        rclient = RemoteTorchEngine(InferenceEngineConfig(request_timeout=120, request_retries=1),
+                                    addresses=[srv_ref.address])
+        rclient.initialize()
+        try:
+            t0 = time.monotonic()
+            try:
+                rclient.update_weights(WeightUpdateMeta(type="mem", wire_format="q8"), params=export)
+                raise AssertionError("[int8serve] (c) the bf16 server took a q8 update")
+            except RuntimeError as e:
+                refused_s, why = time.monotonic() - t0, _http_reason(e)
+        finally:
+            rclient.destroy()
+        changed = [n for n, p in ref.model.named_parameters() if not torch.equal(p, before[n])]
+        if changed or ref.get_version() != 0 or ref._staged is not None:
+            raise AssertionError(f"[int8serve] (c) the refused q8 update changed {changed[:3]}, version "
+                                 f"{ref.get_version()}")
+        del before
+        srv_ref.stop()
+        srv_ref = ref = None
+        gc.collect()
+        before = {n: p.detach().clone() for n, p in engine.model.named_parameters()}
+        lora = {f"layers/wq_lora_{s}": torch.zeros(shape, device="cuda")
+                for s, shape in (("a", (L, mcfg.hidden_size, LORA_RANK)), ("b", (L, LORA_RANK, mcfg.q_dim)))}
+        try:
+            engine.update_weights_lora(lora, 0.5, version=1)
+            raise AssertionError("[int8serve] (c) the int8 engine folded adapters")
+        except RuntimeError as e:
+            fold_why = str(e)
+        changed = [n for n, p in engine.model.named_parameters() if not torch.equal(p, before[n])]
+        if changed or "int8" not in fold_why or engine.get_version() != 0:
+            raise AssertionError(f"[int8serve] (c) the refused fold: {fold_why!r}, changed {changed[:3]}")
+        del before
+        log(f"[int8serve] (c) the q8 update to the bf16 server refused in {refused_s:.2f} s ({why[:90]}...), its "
+            f"weights and version unchanged; the adapter fold into the int8 engine refused ({fold_why[:60]}...), "
+            "no weight changed")
+
+        # (d) PPOTrainer over HTTP, the q8 wire
+        torch.cuda.reset_peak_memory_stats()
+        loop, client, gconfig, rec = _item4_loop("int8serve", trainer, acfg, srv, scfg, seed=2)
+        wire = loop.weight_update_meta.wire_format
+        if wire != "q8":
+            raise AssertionError(f"[int8serve] (d) weight_update_wire='auto' resolved to {wire!r} against an int8 fleet")
+        checks = []
+        commit = loop.stats_logger.commit
+
+        def commit_checked(epoch, step, global_step, stats):
+            want = global_step + 1
+            versions = (_health_version(srv.address), client.get_version(), trainer.get_version())
+            master = {n: p.detach() for n, p in trainer.model.named_parameters()}
+            bad = _int8_unequal(engine, master, tables_from=lambda w: w)
+            checks.append((versions, len(bad)))
+            rec["stats"].append(dict(stats))
+            if versions != (want, want, want) or bad:
+                raise AssertionError(f"[int8serve] (d) step {global_step}: versions {versions}, want {want}; {len(bad)} "
+                                     f"served tensors differ from the q8 wire's transform of the master weights "
+                                     f"(first {bad[:3]})")
+            commit(epoch, step, global_step, stats)
+
+        loop.stats_logger.commit = commit_checked
+        kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+        bytes0 = client._metrics.update_bytes.get()
+        # main path: counts to 0 just before, read just after
+        for kern in kernels:
+            kern.launches = 0
+        paged_attention_stacked.launches = 0
+        t0 = time.monotonic()
+        loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+        wall = time.monotonic() - t0
+        _drain_client(client, engine)
+        counts = [k.launches for k in kernels]
+        launches1 = paged_attention_stacked.launches
+        staged = (client._metrics.update_bytes.get() - bytes0) / ITEM4_STEPS
+        bf16_bytes = sum(client._wire_nbytes(n, p) for n, p in trainer._export_params().items())
+        q8_reckoned = sum(client._wire_nbytes(n, p) for n, p in
+                          qwen.quantize_params_int8(trainer._export_params()).items())
+    finally:
+        if loop is not None:
+            loop.close()
+        for s in (srv, srv_ref):
+            if s is not None:
+                s.stop()
+        shutil.rmtree(ITEM4_ROOT, ignore_errors=True)
+    if len(checks) != ITEM4_STEPS:
+        raise AssertionError(f"[int8serve] (d) {len(checks)} steps, want {ITEM4_STEPS}")
+    _flash_counts_check("int8serve", counts, rec, L)
+    if launches1 == 0 or launches1 % L:
+        raise AssertionError(f"[int8serve] (d) #1 launches {launches1}, not a positive multiple of {L}")
+    ratio = staged / bf16_bytes
+    if abs(ratio - q8_reckoned / bf16_bytes) > 0.01 * ratio:
+        raise AssertionError(f"[int8serve] (d) q8 wire {staged / 1e9:.3f} GB over bf16 {bf16_bytes / 1e9:.3f} GB = "
+                             f"{ratio:.4f}, not within 1% of the shapes' {q8_reckoned / bf16_bytes:.4f}")
+    for i, s in enumerate(rec["stats"]):
+        log(f"[int8serve] (d) {card}: step {i}: {s['step_secs']:.2f} s; rollout_wait {s['phase/rollout_wait_s']:.2f} "
+            f"s, ppo_update {s['timing/train_step']:.2f} s, weight_publish {s['phase/weight_publish_s']:.2f} s (stage "
+            f"{s['update_weights_stage_secs']:.2f} s, commit fence {s['update_weights_pause_secs'] * 1e3:.1f} ms); "
+            f"loss {s['ppo_actor/loss']:.6f} grad_norm {s['ppo_actor/grad_norm']:.4f}")
+    tokens = sum(rec["tokens"])
+    log(f"[int8serve] (d) {card}: wire 'auto' -> q8; {staged / 1e9:.4f} GB staged a q8 update (reckoned "
+        f"{q8_reckoned / 1e9:.4f} GB) against {bf16_bytes / 1e9:.4f} GB in bf16: {ratio:.4f} (the shapes' "
+        f"{q8_reckoned / bf16_bytes:.4f}; {Q8_RATIO} at Qwen2.5-1.5B); "
+        "after each step the served int8 tables equal the q8 transform of the trainer's f32 master weights bit for "
+        f"bit and every other leaf its bf16 cast; K2 / K3 / K4 launches {counts}; #1 launches {launches1}; trainer "
+        f"{tokens / sum(rec['ppo_s']):.0f} tokens/s; the loop {wall:.1f} s")
+    log(f"[int8serve] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
+    stage_s = [s["update_weights_stage_secs"] for s in rec["stats"]]
+    fence_s = [s["update_weights_pause_secs"] for s in rec["stats"]]
+    del loop, trainer, engine
+    return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
+                launches1=launches1 + q["launches1"], launches3=q["launches3"], int8=q, bf16=b,
+                params_bytes=ledger["params"], bf16_params_bytes=ref_ledger["params"], q8_bytes=staged,
+                bf16_bytes=bf16_bytes, ratio=ratio, stage_s=stage_s, fence_s=fence_s)
+
+
+def _fold_share(trainer, engine, n_folds: int) -> float:
+    """The served weights of a server that started from the bf16 cast of the
+    adapter-free base and folded ``n_folds`` adapter pushes, against the
+    trainer's merged export: every leaf that no adapter targets equals the
+    merged leaf's bf16 cast bit for bit (else inf); on a target the worst
+    element's share of its bound, half a bf16 step for the first cast and
+    for each fold (each rounds once; the step of the largest of the base,
+    the merged and the served value), plus the adapters' own rounding to
+    bf16 on the wire (2^-8 relative each) through scale |B| @ |A|."""
+    cfg = trainer.model_cfg
+    scale = cfg.lora_alpha / cfg.lora_rank
+    params = dict(trainer.model.named_parameters())
+    served = dict(engine.model.named_parameters())
+    worst = 0.0
+    for n, w in trainer._export_params().items():
+        if n.rsplit(".", 1)[-1] not in cfg.lora_targets:
+            if not torch.equal(served[n], w.to(torch.bfloat16)):
+                return float("inf")
+            continue
+        # each rounding's step: of the largest value along the way
+        mag = torch.maximum(torch.maximum(w.abs(), params[n].detach().abs()), served[n].float().abs())
+        step = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0**-126))) - 7)
+        a, b = params[f"{n}_lora_a"].detach().abs(), params[f"{n}_lora_b"].detach().abs()
+        bound = 0.5 * (n_folds + 1) * step + scale * 2.0**-7 * (b @ a)
+        worst = max(worst, ((served[n].float() - w).abs() / bound).max().item())
+    return worst
+
+
+def phase_lora(card: str) -> dict:
+    """LoRA at Qwen2.5-1.5B, full width and depth (``gsm8k_grpo_lora.yaml``:
+    rank 32, alpha 16, targets wq / wk / wv / wo over the grpo phase's
+    actor): a server started from the trainer's adapter-free export,
+    ``PPOTrainer.train`` for 2 steps over HTTP whose pushes carry only the
+    adapters (``lora_only``: the server folds them into its base), one more
+    adapter push timed beside a full push, then an adapter push after that
+    full push (refused, no weight changed). Checks the base parameters bit
+    for bit after the steps, the adapters moved, the served weights against
+    the merged export within bf16 rounding, K2-K4 / #1 launches; prints the
+    bytes and seconds of each push, trainer tokens/s and the peak memory."""
+    import shutil
+
+    from areal_tpu_torch.api.io_struct import FinetuneSpec
+    from areal_tpu_torch.api.config import ServerConfig
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[lora] {held:.2f} GiB still allocated by earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    L = mcfg.num_layers
+    acfg = _grpo_actor(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA, lora_targets=list(LORA_TARGETS))
+    trainer = TorchTrainEngine(acfg, model_config=mcfg)
+    trainer.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=ITEM4_PROMPTS, train_batch_size=8), seed=0)
+    params = dict(trainer.model.named_parameters())
+    n_adapter = sum(p.numel() for n, p in params.items() if "_lora_" in n)
+    export = trainer._export_params()
+    if any("_lora_" in n for n in export) or any(not torch.equal(export[n], params[n]) for n in export):
+        raise AssertionError("[lora] the export at B = 0 is not the adapter-free base")
+    base0 = {n: p.detach().cpu() for n, p in params.items() if "_lora_" not in n}
+    b0 = {n: p.detach().clone() for n, p in params.items() if n.endswith("_lora_b")}
+    scfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                        weight_stage_target="device", host="127.0.0.1", seed=0)
+    engine = DecodeEngine(scfg, params=export, model_cfg=mcfg)
+    del export
+    loop = None
+    srv = ServerThread(scfg, engine=engine)
+    try:
+        srv.start()
+        loop, client, gconfig, rec = _item4_loop("lora", trainer, acfg, srv, scfg, seed=4,
+                                                 client_kw=dict(request_retries=1))
+        meta = dataclasses.replace(loop.weight_update_meta, lora_only=True)
+        loop.weight_update_meta = meta
+        trainer.connect_engine(client, meta)
+        commit = loop.stats_logger.commit
+
+        def commit_recorded(epoch, step, global_step, stats):
+            want = global_step + 1
+            versions = (_health_version(srv.address), client.get_version(), trainer.get_version())
+            rec["stats"].append(dict(stats))
+            if versions != (want, want, want):
+                raise AssertionError(f"[lora] step {global_step}: versions {versions}, want {want}")
+            commit(epoch, step, global_step, stats)
+
+        loop.stats_logger.commit = commit_recorded
+        kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+        bytes0 = client._metrics.update_bytes.get()
+        # main path: counts to 0 just before, read just after
+        for kern in kernels:
+            kern.launches = 0
+        paged_attention_stacked.launches = 0
+        t0 = time.monotonic()
+        loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+        wall = time.monotonic() - t0
+        _drain_client(client, engine)
+        counts = [k.launches for k in kernels]
+        launches1 = paged_attention_stacked.launches
+        loop_bytes = client._metrics.update_bytes.get() - bytes0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the base bit for bit, the adapters moved
+        moved_base = [n for n, p in trainer.model.named_parameters() if n in base0 and not torch.equal(p.cpu(), base0[n])]
+        moved_b = max(float((params[n].detach() - t).abs().max()) for n, t in b0.items())
+        del base0
+        if moved_base or not moved_b > 0:
+            raise AssertionError(f"[lora] base parameters moved: {moved_base[:3]}; the adapters' B moved {moved_b}")
+        # one more adapter push, timed, then a full push
+        pushes = {}
+        for kind, m in (("lora", meta), ("full", dataclasses.replace(meta, lora_only=False))):
+            b_before = client._metrics.update_bytes.get()
+            t0 = time.monotonic()
+            trainer.update_weights(m)
+            pushes[kind] = dict(bytes=client._metrics.update_bytes.get() - b_before, s=time.monotonic() - t0,
+                                stage_s=client.last_stage_secs, fence_s=client.last_pause_secs)
+            if kind == "lora":
+                worst = _fold_share(trainer, engine, n_folds=ITEM4_STEPS + 1)
+                if worst > 1.0:
+                    raise AssertionError(f"[lora] the served weights after the adapter pushes part from the merged "
+                                         f"export by {worst:.3f} of their bound")
+        # a second adapter push after the full push: refused, nothing changes
+        before = {n: p.detach().clone() for n, p in engine.model.named_parameters()}
+        v_before = engine.get_version()
+        try:
+            trainer.update_weights(meta)
+            raise AssertionError("[lora] an adapter push after a full push was folded")
+        except RuntimeError as e:
+            refusal = _http_reason(e)
+        changed = [n for n, p in engine.model.named_parameters() if not torch.equal(p, before[n])]
+        if changed or engine.get_version() != v_before:
+            raise AssertionError(f"[lora] the refused push changed {changed[:3]}, version {engine.get_version()}")
+        del before
+        _drain_client(client, engine)
+    finally:
+        if loop is not None:
+            loop.close()
+        srv.stop()
+        shutil.rmtree(ITEM4_ROOT, ignore_errors=True)
+    if len(rec["stats"]) != ITEM4_STEPS:
+        raise AssertionError(f"[lora] {len(rec['stats'])} steps, want {ITEM4_STEPS}")
+    _flash_counts_check("lora", counts, rec, L)
+    if launches1 == 0 or launches1 % L:
+        raise AssertionError(f"[lora] #1 launches {launches1}, not a positive multiple of {L}")
+    for i, s in enumerate(rec["stats"]):
+        log(f"[lora] {card}: step {i}: {s['step_secs']:.2f} s; rollout_wait {s['phase/rollout_wait_s']:.2f} s, "
+            f"ppo_update {s['timing/train_step']:.2f} s, weight_publish {s['phase/weight_publish_s']:.2f} s (an "
+            f"adapter push: fence {s['update_weights_pause_secs'] * 1e3:.1f} ms); loss {s['ppo_actor/loss']:.6f} "
+            f"grad_norm {s['ppo_actor/grad_norm']:.4f}")
+    tokens = sum(rec["tokens"])
+    lo, fu = pushes["lora"], pushes["full"]
+    log(f"[lora] {card}: {n_adapter / 1e6:.3f} M adapter parameters; the loop's pushes {loop_bytes / 1e6:.2f} MB in "
+        f"{ITEM4_STEPS}; an adapter push {lo['bytes'] / 1e6:.2f} MB in {lo['s']:.3f} s (encode {lo['stage_s'] * 1e3:.1f} "
+        f"ms, fence {lo['fence_s'] * 1e3:.1f} ms) against a full push {fu['bytes'] / 1e9:.3f} GB in {fu['s']:.2f} s "
+        f"(stage {fu['stage_s']:.2f} s, fence {fu['fence_s'] * 1e3:.1f} ms); after the adapter pushes the served "
+        f"targets at {worst:.3f} of their bf16 rounding bound from the merged export, the rest its bf16 cast bit for "
+        f"bit; base bit for bit, B moved by up to {moved_b:.3g}; the "
+        f"adapter push after the full push refused ({refusal[:70]}...), no weight changed")
+    log(f"[lora] {card}: trainer {tokens / sum(rec['ppo_s']):.0f} tokens/s ({tokens} tokens in "
+        f"{sum(rec['ppo_s']):.2f} s of ppo_update, the first step carrying the process's one-time cost when it trains "
+        f"first); K2 / K3 / K4 launches {counts}; #1 launches {launches1}; the loop {wall:.1f} s; peak "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GiB (predicted {LORA_PEAK_DROP_PREDICTED_GIB:.0f} GiB below "
+        "grpo's)")
+    log(f"[lora] {card}: the phase took {time.monotonic() - t_phase:.1f} s")
+    del loop, trainer, engine
+    return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
+                launches1=launches1, peak_gib=peak, tokens_per_s=tokens / sum(rec["ppo_s"]),
+                lora_push=lo, full_push=fu, n_adapter=n_adapter)
+
+
 def _distinct_prefixes(seqs) -> int:
     """Trie nodes counted independently of ``build_tree``: the number of
     distinct (prefix + token) sequences."""
@@ -5348,7 +5943,8 @@ def phase_train_tree(card: str) -> dict:
 
     kernels = (ta.tree_attention_fwd, ta.tree_attention_bwd_dq, ta.tree_attention_bwd_dkv, fa.flash_attention_fwd,
                fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
-    r = _grpo_run("train_tree", kernels, tree_training=True, ppo_n_minibatches=1)
+    r = _grpo_run("train_tree", kernels, model={**QWEN25_15B, "num_layers": CUT_LAYERS},
+                  name=f"Qwen2.5-1.5B ({CUT_LAYERS} of 28 layers)", tree_training=True, ppo_n_minibatches=1)
     cfg, trainer, actor, adv, parts = (r[k] for k in ("cfg", "trainer", "actor", "adv", "parts"))
     L = r["mcfg"].num_layers
     n_packs = 0
@@ -6663,8 +7259,8 @@ def phase_train_moe(card: str) -> dict:
 
 
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
-          "train", "grpo", "durable", "critic", "sft", "kernel_tree", "train_tree", "kernel_gmm", "kernel_gmm_bwd",
-          "serve_moe", "train_moe")
+          "train", "grpo", "durable", "critic", "sft", "int8serve", "lora", "kernel_tree", "train_tree", "kernel_gmm",
+          "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
 def main(argv: list[str]) -> int:
@@ -6745,6 +7341,8 @@ def main(argv: list[str]) -> int:
         "durable": lambda: phase_durable(card),
         "critic": lambda: phase_critic(card),
         "sft": lambda: phase_sft(card),
+        "int8serve": lambda: phase_int8serve(card),
+        "lora": lambda: phase_lora(card),
         "kernel_tree": phase_kernel_tree,
         "train_tree": lambda: phase_train_tree(card),
         "kernel_gmm": phase_kernel_gmm,
@@ -6781,7 +7379,8 @@ def main(argv: list[str]) -> int:
             "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"],
                                   "lifecycle": res["lifecycle"]["launches1"], "observe": res["observe"]["launches1"],
                                   "grpo": res["grpo"]["launches1"], "durable": res["durable"]["launches1"],
-                                  "critic": res["critic"]["launches1"]},
+                                  "critic": res["critic"]["launches1"], "int8serve": res["int8serve"]["launches1"],
+                                  "lora": res["lora"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -6807,7 +7406,8 @@ def main(argv: list[str]) -> int:
             "launches": train["counts"][name],
             "launches_by_phase": {"train": train["counts"][name], "grpo": res["grpo"]["counts"][name],
                                   "durable": res["durable"]["counts"][name], "critic": res["critic"]["counts"][name],
-                                  "sft": res["sft"]["counts"][name]},
+                                  "sft": res["sft"]["counts"][name], "int8serve": res["int8serve"]["counts"][name],
+                                  "lora": res["lora"]["counts"][name]},
             "max_abs_err": d["max_abs_err"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],
@@ -6830,7 +7430,7 @@ def main(argv: list[str]) -> int:
         "launches_by_kind": {"chain": chain, "tree": tree},
         "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"],
                               "lifecycle": res["lifecycle"]["launches3"], "observe": res["observe"]["launches3"],
-                              "grpo": res["grpo"]["launches3"]},
+                              "grpo": res["grpo"]["launches3"], "int8serve": res["int8serve"]["launches3"]},
         "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],

@@ -113,17 +113,22 @@ def test_no_silent_cpu_fallback():
 
 
 @pytest.mark.parametrize(
-    "change",
+    "change, refused",
     [
-        dict(quantization="int8"),
-        dict(mesh=MeshConfig(model=2)),
+        (dict(quantization="int8"), False),  # ported with Queue A item 4
+        (dict(mesh=MeshConfig(model=2)), True),
     ],
     ids=["int8_weights", "mesh"],
 )
-def test_unported_options_refused(change):
+def test_unported_options_refused(change, refused):
+    """The serving options of later slices raise naming their ROADMAP item;
+    int8 weights (item 4) construct."""
     cfg = dataclasses.replace(ServerConfig(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(cfg, device="cpu")
+    if refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DecodeEngine(cfg, device="cpu")
+    else:
+        assert DecodeEngine(cfg, device="cpu")._quantized
 
 
 @pytest.mark.parametrize(
@@ -211,14 +216,21 @@ def test_tree_kernel_wrappers_refuse_other_devices():
     ids=["lora", "vision", "mesh", "ring"],
 )
 def test_unported_trainer_options_refused(change):
+    """The trainer options of later slices raise naming their ROADMAP item;
+    LoRA (item 4) constructs and trains only its adapters."""
     from areal_tpu_torch.api.config import PPOActorConfig
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 
     cfg = dataclasses.replace(PPOActorConfig(), **change)
+    mcfg = qwen.ModelConfig(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1, num_heads=2,
+                            num_kv_heads=1)
+    if "lora_rank" in change:
+        eng = TorchTrainEngine(cfg, model_config=mcfg, device="cpu")
+        eng.initialize()
+        assert eng._train_names and all("_lora_" in n for n in eng._train_names)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchTrainEngine(cfg, model_config=qwen.ModelConfig(
-            vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1, num_heads=2, num_kv_heads=1,
-        ), device="cpu")
+        TorchTrainEngine(cfg, model_config=mcfg, device="cpu")
 
 
 def test_tree_training_with_a_value_head_refused():

@@ -229,18 +229,32 @@ def _cfg(**over):
 
 
 @pytest.mark.parametrize(
-    "over, item",
+    "over, error, match",
     [
-        (dict(allocation_mode="gen:d1,train:d1"), "item 6"),
-        (dict(cluster=tc.ClusterSpecConfig(name_resolve=tc.NameResolveConfig(type="nfs"))), "item 8"),
-        (dict(weight_update_wire="q8"), "item 4"),
-        (dict(server=tc.ServerConfig(quantization="int8")), "item 4"),
+        (dict(allocation_mode="gen:d1,train:d1"), NotImplementedError, "item 6"),
+        (dict(cluster=tc.ClusterSpecConfig(name_resolve=tc.NameResolveConfig(type="nfs"))), NotImplementedError,
+         "item 8"),
+        # the q8 wire is ported (item 4); to a fleet that is not int8 it is
+        # refused, as in JAX
+        (dict(weight_update_wire="q8"), ValueError, "int8-serving fleet"),
+        (dict(server=tc.ServerConfig(quantization="int8")), None, "q8"),
     ],
     ids=["allocation_mode", "name_resolve", "q8", "int8-auto"],
 )
-def test_unported_trainer_options_refused(over, item):
+def test_unported_trainer_options_refused(over, error, match, tmp_path):
+    """Options of later slices raise naming their item before the loop
+    touches the rollout engine; "auto" against an int8 fleet resolves to
+    the q8 wire."""
     stub = _StubRollout([], lambda p: p)
-    with pytest.raises(NotImplementedError, match=item):
+    if error is None:
+        over = {**over, "cluster": tc.ClusterSpecConfig(fileroot=str(tmp_path))}
+        trainer = PPOTrainer(_cfg(**over), [{"prompt_ids": [1]}] * 8, rollout=stub, actor_engine=_port_engine())
+        try:
+            assert trainer.weight_update_meta.wire_format == match
+        finally:
+            trainer.close()
+        return
+    with pytest.raises(error, match=match):
         PPOTrainer(_cfg(**over), [{"prompt_ids": [1]}] * 8, rollout=stub, actor_engine=object())
     assert stub.calls == []  # refused before the loop touched the rollout engine
 
@@ -466,8 +480,19 @@ def _first_token_hit_rate(client, dataset, n=16):
 
 @pytest.mark.slow  # as tests/test_rl_e2e.py:157
 def test_rl_learns_target_token(tmp_path):
-    """The config, reward and bar of the JAX test, on the bf16 serving mode
-    (int8 serving is ROADMAP Queue A item 4)."""
+    """The config, reward and bar of the JAX test, on the bf16 serving mode."""
+    _learns_target_token(tmp_path, "bf16")
+
+
+@pytest.mark.slow  # as tests/test_rl_e2e.py:157
+def test_rl_learns_target_token_int8_serving(tmp_path):
+    """The JAX test's int8 serving mode: int8 weights and KV pages, the
+    updates on the q8 wire; the behaviour logprobs are the quantized
+    server's own, which the decoupled loss corrects."""
+    _learns_target_token(tmp_path, "int8")
+
+
+def _learns_target_token(tmp_path, quant: str):
     mcfg = port_cfg(TINY_QWEN2)
     actor_cfg = tc.PPOActorConfig(
         dtype="float32",
@@ -486,7 +511,9 @@ def test_rl_learns_target_token(tmp_path):
     )
     engine = TorchTrainEngine(actor_cfg, model_config=mcfg, device="cpu")
     engine.initialize(FinetuneSpec(1, 32, 8))
-    scfg = tc.ServerConfig(max_batch_size=8, max_seq_len=64, decode_steps_per_call=4, seed=0, host="127.0.0.1")
+    q = "int8" if quant == "int8" else "none"
+    scfg = tc.ServerConfig(max_batch_size=8, max_seq_len=64, decode_steps_per_call=4, seed=0, host="127.0.0.1",
+                           quantization=q, kv_quantization=q)
     server = ServerThread(
         scfg, engine=DecodeEngine(scfg, params=engine.model.state_dict(), model_cfg=mcfg, device="cpu")
     )
@@ -506,11 +533,13 @@ def test_rl_learns_target_token(tmp_path):
         gconfig=GenerationHyperparameters(n_samples=GROUP, max_new_tokens=4, temperature=1.0),
         train_dataset=tc.DatasetConfig(batch_size=4, shuffle=True),
         actor=actor_cfg,
+        server=scfg,
         stats_logger=tc.StatsLoggerConfig(fileroot=str(tmp_path)),
     )
     rng = np.random.default_rng(0)
     dataset = [{"prompt_ids": rng.integers(20, 200, 4).tolist()} for _ in range(32)]
     trainer = PPOTrainer(cfg, dataset, rollout=rollout, actor_engine=engine)
+    assert trainer.weight_update_meta.wire_format == ("q8" if quant == "int8" else "bf16")
     try:
         before = _first_token_hit_rate(rollout, dataset)
         trainer.train(workflow=RLVRWorkflow(_target_reward, cfg.gconfig))

@@ -277,13 +277,16 @@ def test_unported_client_paths_refused():
     with pytest.raises(NotImplementedError, match="item 8"):
         RemoteTorchEngine(InferenceEngineConfig(), addresses=["127.0.0.1:1", "127.0.0.1:2"])
     c = RemoteTorchEngine(InferenceEngineConfig(), addresses=["127.0.0.1:1"])
-    # the weight update's unported variants (the bf16 mem update and the
-    # hold fence are ported: tests/test_torch_weight_sync.py)
+    # the weight update's unported variants (the bf16 mem update, the q8
+    # wire, LoRA updates and the hold fence are ported:
+    # tests/test_torch_weight_sync.py, tests/test_torch_lora.py,
+    # tests/test_torch_quantized_serving.py); a lora_only update of the
+    # whole tree is refused before anything is sent, as in JAX
     params = {"w": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match="item 4"):
-        c.update_weights(t_io.WeightUpdateMeta(wire_format="q8"), params=params)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="lora"):
         c.update_weights(t_io.WeightUpdateMeta(lora_only=True), params=params)
+    with pytest.raises(ValueError, match="wire_format"):
+        c.update_weights(t_io.WeightUpdateMeta(wire_format="int8"), params=params)
     with pytest.raises(ValueError, match="meta.path"):
         c.update_weights(t_io.WeightUpdateMeta(type="disk"), params=params)
     relay = RemoteTorchEngine(InferenceEngineConfig(weight_update_relay=True), addresses=["127.0.0.1:1"])

@@ -551,16 +551,19 @@ def test_failed_commit_burns_the_version(port_server):
 @pytest.mark.parametrize(
     "path, headers, item",
     [
-        ("/update_weights_lora", {}, "item 4"),
+        # the route is ported (item 4): a call without its scale is refused
+        ("/update_weights_lora", {}, "needs ?scale="),
         ("/update_weights_bucket", {"X-Areal-Relay": "127.0.0.1:1"}, "item 8"),
     ],
     ids=["lora", "relay"],
 )
 def test_unported_update_routes_refused(port_server, path, headers, item):
+    """The relay header answers 400 naming its item; ``/update_weights_lora``
+    answers 400 to a call that lacks its scale. Neither changes the version."""
     import urllib.error
     import urllib.request
 
-    body = bytes(tserver.encode_weight_bucket([("x", torch.zeros(2))])) if "bucket" in path else b"{}"
+    body = bytes(tserver.encode_weight_bucket([("x", torch.zeros(2))]))
     req = urllib.request.Request(f"http://{port_server.address}{path}", data=body, method="POST",
                                  headers={"Content-Type": "application/octet-stream", **headers})
     with pytest.raises(urllib.error.HTTPError) as e:
