@@ -283,7 +283,10 @@ class TrainEngineConfig:
     tree_training: bool = False
     tree_node_budget: int = 2048  # max trie nodes per microbatch forward
     tree_node_bucket: int = 512  # node-axis bucketing
-    train_vision_tower: bool = False  # not ported
+    # a VLM: train the vision tower with the LM. False (the default) keeps
+    # it frozen, its embeddings computed once per batch outside the loss;
+    # True runs it inside the forward / backward, so its gradients flow
+    train_vision_tower: bool = False
 
 
 @dataclass

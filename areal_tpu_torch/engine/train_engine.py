@@ -99,8 +99,26 @@ What is kept from the JAX engine:
   r], ``layers/<t>_lora_b`` [n, r, out]), with ``lora_scale`` = alpha / r;
   on a model without adapters it warns and sends a full update.
 
-Not ported (``_check_supported`` raises ``NotImplementedError``): the
-vision tower and multi-device meshes.
+- A VLM (``train_engine.py:305-335``, ``:485-745``): a batch with
+  ``pixel_values`` (``[B, P, patch_dim]``, ``pixel_counts``,
+  ``pixel_pos_ids``) has its tower embeddings placed at the image-pad
+  tokens. By default the tower is frozen: no gradient, no AdamW state, and
+  no weight decay reaches it, and ``_attach_image_embeds`` runs it once per
+  batch, memoised by the identity of the batch's arrays and the version (a
+  ``forward_batch`` and a ``train_batch`` of one batch share one run), and
+  scatters its embeddings into a per-token ``image_embeds`` key that the
+  grids carry. It runs on the compute-dtype view of the master weights,
+  the precision of the server's tower and of the trainable path (JAX runs
+  it on the param-dtype master: ROADMAP Queue C, PR 24). With ``train_vision_tower``
+  it trains with the LM: the padded pixels ride with each grid (the
+  sequence count bucketed to 8), the tower runs on the compute-dtype view
+  inside ``_outputs_fn``'s autograd, and an ``image_slot`` map gathers its
+  embeddings per token; LoRA with it is refused, as JAX refuses it. An HF
+  load without ``visual.*`` initializes the tower afresh, as JAX does.
+  Tree training refuses images.
+
+Not ported (``_check_supported`` raises ``NotImplementedError``):
+multi-device meshes.
 """
 
 from __future__ import annotations
@@ -123,7 +141,7 @@ from areal_tpu_torch.api.engine_api import TrainEngine
 from areal_tpu_torch.api.io_struct import (RECOVER_FORMAT, RECOVER_MANIFEST, RECOVER_STATE_DIR, FinetuneSpec,
                                            SaveLoadMeta, WeightUpdateMeta)
 from areal_tpu_torch.device import resolve_device
-from areal_tpu_torch.models import qwen
+from areal_tpu_torch.models import qwen, vision as vis
 from areal_tpu_torch.models.hf import load_params_from_hf, save_params_to_hf
 from areal_tpu_torch.observability import step_timeline
 from areal_tpu_torch.observability.step_timeline import engine_phase
@@ -166,6 +184,8 @@ _GRID_KEYS = (
     "rw_pair_id",
     "rw_sign",
     "rw_last_mask",
+    # a VLM's frozen-tower embeddings, [.., D] per token
+    "image_embeds",
 )
 
 
@@ -329,8 +349,6 @@ class TorchTrainEngine(TrainEngine):
         (ROADMAP.md Queue A), and what the JAX engine refuses too."""
         if cfg.tree_training and value_head:
             raise ValueError("tree training is a policy-only path, as in the JAX engine: no value head")
-        if cfg.train_vision_tower:
-            raise NotImplementedError("vision tower: ROADMAP Queue A, vision")
         m = cfg.mesh
         if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
             raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
@@ -366,12 +384,17 @@ class TorchTrainEngine(TrainEngine):
             lora_targets=tuple(cfg.lora_targets),
         )
         master_cfg = dataclasses.replace(self.model_cfg, dtype=cfg.param_dtype)
+        if cfg.train_vision_tower:
+            if master_cfg.vision is None:
+                raise ValueError("train_vision_tower set but the model has no vision tower")
+            if master_cfg.lora_rank > 0:
+                raise ValueError("train_vision_tower with LoRA is unsupported: LoRA freezes every non-adapter leaf")
         if cfg.init_from_scratch or not cfg.path:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.model = qwen.init_params(master_cfg, gen, device=self.device)
         else:
             t0 = time.monotonic()
-            self.model, _ = load_params_from_hf(cfg.path, master_cfg, device=self.device)
+            self.model, _ = load_params_from_hf(cfg.path, master_cfg, device=self.device, vision_seed=seed)
             logger.info(f"loaded HF weights from {cfg.path} in {time.monotonic() - t0:.1f}s")
             self._add_lora_adapters(seed)
         if self.value_head:
@@ -379,9 +402,13 @@ class TorchTrainEngine(TrainEngine):
                 torch.zeros(master_cfg.hidden_size, dtype=master_cfg.torch_dtype, device=self.device)
             )
         lora = master_cfg.lora_rank > 0
-        # what trains: everything, or under LoRA the adapters and a value head
+        frozen_tower = not cfg.train_vision_tower
+        # what trains: everything but a frozen vision tower, or under LoRA
+        # the adapters and a value head
         self._train_names = [n for n, _ in self.model.named_parameters()
-                             if not lora or "_lora_" in n or n == "value_head"]
+                             if (not lora or "_lora_" in n or n == "value_head")
+                             and not (frozen_tower and n.startswith("vision."))]
+        self._image_embed_memo = None
         self.model.requires_grad_(False)
         total_steps = ft_spec.total_train_steps if ft_spec else 10_000
         self._lr_schedule = make_lr_schedule(cfg.optimizer, total_steps)
@@ -411,14 +438,81 @@ class TorchTrainEngine(TrainEngine):
             return self._version
 
     # -- grid construction ------------------------------------------------
-    @staticmethod
-    def _refuse_images(input_: TensorDict) -> None:
-        if "pixel_values" in input_ or "image_embeds" in input_:
-            raise NotImplementedError("image inputs: ROADMAP Queue A, vision")
+    def _attach_image_embeds(self, input_: TensorDict) -> TensorDict:
+        """A VLM batch's data boundary (``train_engine.py:485``). Frozen
+        tower: run it once over the batch's pixel patches (on the
+        compute-dtype view of the master weights, memoised by the identity
+        of the batch's arrays and the version) and put a per-token [B, L,
+        D] f32 ``image_embeds`` key, the k-th image-pad token of a row
+        taking its k-th merged embedding, in place of the pixel keys. ``train_vision_tower``: keep the pixel
+        keys, padded to ``pad_patch_bucket``, and add the per-token ordinal
+        ``image_k`` of each image-pad token (-1 elsewhere), from which
+        ``_grid_to_device`` builds the gather map. Image-pad tokens beyond
+        a row's embeddings (warned) take zeros."""
+        if "pixel_values" not in input_:
+            return input_
+        mcfg = self.model_cfg
+        if mcfg.vision is None or mcfg.image_token_id < 0:
+            raise ValueError("the batch has pixel_values but the model is not a VLM")
+        input_ = dict(input_)
+        pv_obj = input_.pop("pixel_values")
+        counts_obj = input_.pop("pixel_counts", None)
+        ids_obj = input_["input_ids"]
+        pv = np.asarray(pv_obj, np.float32)  # [B, P, pd]
+        B, P_raw, _ = pv.shape
+        counts = np.asarray(np.full(B, P_raw) if counts_obj is None else counts_obj, np.int32)
+        if "pixel_pos_ids" not in input_:
+            logger.warning("VLM batch has pixel_values but no pixel_pos_ids; vision rope positions default to "
+                           "(0,0) per patch")
+        pos_ids = np.asarray(input_.pop("pixel_pos_ids", np.zeros((B, P_raw, 2))), np.int32)
+        ids = np.asarray(ids_obj)
+        trainable = self.config.train_vision_tower
+        if not trainable:
+            # a forward_batch and a train_batch of one batch run the tower
+            # once: keyed by the identity of the caller's arrays (the memo
+            # pins them, so their ids cannot be reused while it lives)
+            memo_key = (id(pv_obj), None if counts_obj is None else id(counts_obj), id(ids_obj), pv.shape,
+                        self.get_version())
+            if self._image_embed_memo is not None and self._image_embed_memo[0] == memo_key:
+                input_["image_embeds"] = self._image_embed_memo[1]
+                return input_
+        merge2 = mcfg.vision.spatial_merge**2
+        Ppad = vis.pad_patch_bucket(P_raw, merge2)
+        if Ppad != P_raw:
+            pv = np.pad(pv, ((0, 0), (0, Ppad - P_raw), (0, 0)))
+            pos_ids = np.pad(pos_ids, ((0, 0), (0, Ppad - P_raw), (0, 0)))
+        pad_mask = ids == mcfg.image_token_id  # [B, L]
+        n_emb = counts // merge2
+        n_pos = pad_mask.sum(axis=1)
+        for b in np.nonzero(n_pos != n_emb)[0]:
+            logger.warning(f"VLM mismatch row {b}: {int(n_pos[b])} image-pad tokens vs {int(n_emb[b])} merged "
+                           "patch embeddings; extra positions get zero embeddings")
+        k = np.cumsum(pad_mask, axis=1) - 1  # ordinal of each pad token
+        take = pad_mask & (k < n_emb[:, None])
+        if trainable:
+            input_["image_k"] = np.where(take, k, -1).astype(np.int32)
+            input_["pixel_values"] = pv
+            input_["pixel_counts"] = counts
+            input_["pixel_pos_ids"] = pos_ids
+            return input_
+        with torch.no_grad():
+            out = vis.vision_forward_batch(
+                vis.vision_view(self.model.vision, mcfg.torch_dtype),
+                mcfg.vision,
+                torch.from_numpy(pv).to(self.device),
+                torch.from_numpy(counts).to(self.device),
+                torch.from_numpy(pos_ids).to(self.device),
+            ).float().cpu().numpy()  # [B, Ppad / merge^2, D]
+        embeds = np.zeros((B, ids.shape[1], mcfg.hidden_size), np.float32)
+        rows, cols = np.nonzero(take)
+        embeds[rows, cols] = out[rows, k[rows, cols]]
+        input_["image_embeds"] = embeds
+        self._image_embed_memo = (memo_key, embeds, (pv_obj, counts_obj, ids_obj))
+        return input_
 
     def _make_grids(self, input_: TensorDict, mb_spec: MicroBatchSpec | None = None) -> list[Grid]:
         """Padded batch -> microbatch grids (FFD rows, bucketed L)."""
-        self._refuse_images(input_)
+        input_ = self._attach_image_embeds(input_)
         cfg = self.config
         lens = seqlens_of(input_)
         row_len = round_up_to_bucket(int(lens.max()), cfg.bucket_step)
@@ -476,6 +570,29 @@ class TorchTrainEngine(TrainEngine):
         if "seq_slot" in dev:
             n_slots = round_up_to_bucket(max(len(grid.seq_index), 1), 8)
             dev["seq_slots"] = torch.empty(n_slots, dtype=torch.int32, device=self.device)  # its length only
+        if "pixel_values" in grid.data and "image_k" in grid.data:
+            # the trainable tower: the grid's pixel rows (their count
+            # bucketed to 8, padding rows of count 0) and ``image_slot``, the
+            # flat index of each image-pad token's embedding in the tower's
+            # [n_rows * Pm, D] output (-1 elsewhere), ``train_engine.py:683``
+            merge2 = self.model_cfg.vision.spatial_merge**2
+            pv = np.asarray(grid.data["pixel_values"], np.float32)
+            counts = np.asarray(grid.data["pixel_counts"], np.int32)
+            pos_ids = np.asarray(grid.data["pixel_pos_ids"], np.int32)
+            extra = round_up_to_bucket(pv.shape[0], 8) - pv.shape[0]
+            if extra:
+                pv = np.pad(pv, ((0, extra), (0, 0), (0, 0)))
+                counts = np.pad(counts, (0, extra))
+                pos_ids = np.pad(pos_ids, ((0, extra), (0, 0), (0, 0)))
+            Pm = pv.shape[1] // merge2
+            ik = np.asarray(grid.data["image_k"])
+            slot = np.full_like(ik, -1)
+            for local, (r, c, n) in enumerate(zip(grid.row_of_seq, grid.col_of_seq, grid.seq_lens)):
+                seg_k = ik[r, c : c + n]
+                slot[r, c : c + n] = np.where(seg_k >= 0, local * Pm + seg_k, -1)
+            for k, v in (("image_slot", slot), ("pixel_values", pv), ("pixel_counts", counts),
+                         ("pixel_pos_ids", pos_ids)):
+                dev[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
         return dev
 
     # -- tree training ----------------------------------------------------
@@ -488,8 +605,10 @@ class TorchTrainEngine(TrainEngine):
         forest's rows. The node axis pads to a ``tree_node_bucket`` bucket
         (a multiple of BLOCK), the time axis to a ``bucket_step`` bucket
         capped at T, and the rows to a bucket of 8 with inert dummy rows
-        (label_valid False, zero loss keys)."""
-        self._refuse_images(input_)
+        (label_valid False, zero loss keys). Vision inputs are refused, as
+        in JAX."""
+        if "pixel_values" in input_ or "image_embeds" in input_:
+            raise ValueError("tree training does not support vision inputs")
         cfg = self.config
         lens = seqlens_of(input_)
         ids = np.asarray(input_["input_ids"])
@@ -589,11 +708,25 @@ class TorchTrainEngine(TrainEngine):
     def _outputs_fn(self, batch: dict[str, torch.Tensor], no_grad: bool = False) -> dict:
         """Label-aligned ``logprobs`` / ``entropy`` [G, L] of one grid, from
         the compute-dtype view of the master parameters; with a value head,
-        token-aligned ``values`` [G, L] instead."""
+        token-aligned ``values`` [G, L] instead. A VLM grid's image-pad
+        tokens take the frozen tower's ``image_embeds``, or with the
+        trainable tower the embeddings of a tower run here, inside the
+        autograd, on the compute-dtype view (``train_engine.py:727``)."""
         view = qwen.ParamView(self.model, self.model_cfg)
         moe = self.model_cfg.num_experts > 0
+        image_embeds = batch.get("image_embeds")
+        if "pixel_values" in batch:
+            vcfg = self.model_cfg.vision
+            emb = vis.vision_forward_batch(
+                vis.vision_view(self.model.vision, self.model_cfg.torch_dtype), vcfg, batch["pixel_values"],
+                batch["pixel_counts"], batch["pixel_pos_ids"],
+            )  # [n_rows, Pm, D]
+            flat = emb.reshape(-1, emb.shape[-1])
+            slot = batch["image_slot"].long()
+            image_embeds = torch.where((slot >= 0)[..., None], flat[slot.clamp(min=0)], 0.0)
         out = qwen.forward(
-            view, batch["input_ids"], batch["segment_ids"], batch["positions"], no_grad=no_grad, with_aux=moe
+            view, batch["input_ids"], batch["segment_ids"], batch["positions"], no_grad=no_grad, with_aux=moe,
+            image_embeds=image_embeds,
         )
         hidden, aux = out if moe else (out, None)
         outputs = {}
@@ -1006,8 +1139,10 @@ class TorchTrainEngine(TrainEngine):
         copy."""
         self.wait_for_save()
         if meta.weight_format == "hf":
-            load_params_from_hf(meta.path, model=self.model)
-            self._add_lora_adapters()  # the checkpoint is merged: fresh adapters again
+            # the checkpoint is merged and has no tower (the export writes
+            # none): fresh adapters and, as in JAX, a fresh tower (seed 0)
+            load_params_from_hf(meta.path, model=self.model, vision_seed=0)
+            self._add_lora_adapters()
             return
         _check_recover_format(meta.weight_format)
         d = os.path.join(meta.path, RECOVER_STATE_DIR)

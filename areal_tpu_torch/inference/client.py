@@ -41,15 +41,20 @@ server and refused by any other. ``lora_only`` sends one bucket of adapter
 leaves, encoded outside the fence, and posts it to
 ``/update_weights_lora`` inside it: the servers fold it into their base.
 
+An image request's patches travel as the JAX client sends them
+(``client.py:494``): ``np.save`` of the f32 array, base64, in
+``image_data``, and ``image_grid_thw`` as a list, on every attempt.
+
 Later slices: more than one address, routing policies, the retry budget,
 circuit breakers, the fleet probe, the weight-broadcast relay and the
-failover of a draining server's 429 (ROADMAP Queue A item 8); images
-(item 5).
+failover of a draining server's 429 (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import io
 import json
 import logging
 import random
@@ -62,6 +67,7 @@ from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 
 from areal_tpu_torch.api import wire
@@ -331,8 +337,6 @@ class RemoteTorchEngine(InferenceEngine):
         """Interruptible generation (``client.py:458``): resubmits on
         "abort" with the accumulated tokens; logprobs, versions, the
         ``min_new_tokens`` budget and the stage timings span the attempts."""
-        if req.image_data is not None:
-            raise NotImplementedError("image inputs: ROADMAP Queue A item 5 (vision)")
         g = req.gconfig
         accumulated: list[int] = []
         logprobs: list[float] = []
@@ -357,6 +361,12 @@ class RemoteTorchEngine(InferenceEngine):
         prio = req.metadata.get("priority")
         if prio:
             headers[wire.PRIORITY_HEADER] = str(prio)
+        image_b64 = None
+        if req.image_data is not None:
+            buf = io.BytesIO()
+            np.save(buf, np.asarray(req.image_data, np.float32))
+            image_b64 = base64.b64encode(buf.getvalue()).decode()
+        grid_thw = np.asarray(req.image_grid_thw).tolist() if req.image_grid_thw is not None else None
         addr = self.addresses[0]
         owner_task = self._register_task_rid(req.rid, addr)
         try:
@@ -364,8 +374,8 @@ class RemoteTorchEngine(InferenceEngine):
                 payload = {
                     "input_ids": attempt_input,
                     "rid": req.rid,
-                    "image_data": None,
-                    "image_grid_thw": None,
+                    "image_data": image_b64,
+                    "image_grid_thw": grid_thw,
                     "deadline": deadline,
                     "sampling_params": {
                         "max_new_tokens": remaining,

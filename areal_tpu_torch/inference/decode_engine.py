@@ -115,8 +115,19 @@ The shape of the JAX engine is kept:
   before the first weight changes. Refused after a full update (the base
   may hold merged adapters), on an int8 engine, and for an unknown target.
 
+- Image inputs (a VLM, ``decode_engine.py:1870-1955``): a request's
+  ``image_data`` (pixel patches [P, patch_dim]) and ``image_grid_thw`` go
+  through the vision tower at admission (``_image_embeds_for``: one tower
+  call per request at ``pad_patch_bucket``'s padded patch count under the
+  patch mask), and the merged embeddings enter the cold prefill at the
+  prompt's image-pad positions (``qwen.forward_prefill(...,
+  image_embeds=)``); they stay on the card. Image requests are kept out of
+  the duplicate split and the radix match (their KV depends on the image
+  too); a finished one still publishes its pages, as in JAX (ROADMAP Queue
+  C, C-ref 8).
+
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
-image inputs and multi-device meshes.
+multi-device meshes.
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -143,7 +154,8 @@ from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
 from areal_tpu_torch.inference import speculative as spec_mod
 from areal_tpu_torch.models import qwen
-from areal_tpu_torch.models.hf import load_params_from_hf
+from areal_tpu_torch.models import vision as vis
+from areal_tpu_torch.models.hf import checkpoint_has_vision, load_params_from_hf
 from areal_tpu_torch.observability import catalog as obs_catalog
 from areal_tpu_torch.observability import hw_accounting as hw
 from areal_tpu_torch.observability import kernel_probe
@@ -413,6 +425,7 @@ class DecodeEngine:
         # rounds, as CUDA event pairs read after the fact (never a sync on
         # the hot loop)
         self._prefill_events: list[tuple] = []
+        self._vision_events: list[tuple] = []  # tower calls at admission (n = images)
         self._chunk_events: list[tuple] = []
         self._spec_events: list[tuple] = []
         self._radix: paged_kv.RadixPrefixCache | None = None  # built in initialize
@@ -605,8 +618,6 @@ class DecodeEngine:
 
     # -- request API (any thread) ----------------------------------------
     def submit(self, req: ModelRequest, callback: Callable[[ModelResponse], None]):
-        if req.image_data is not None:
-            raise NotImplementedError("image inputs: ROADMAP Queue A, vision")
         if self._loop_error is not None:
             raise RuntimeError("decode loop failed") from self._loop_error
         # the timeline starts at submission, tagged with the x-areal-trace
@@ -1161,11 +1172,14 @@ class DecodeEngine:
                 if kind == "params":
                     self._write_weights(_checked_sources(self._base_specs, params))
                 elif kind == "disk" and self._quantized:
-                    loaded, _ = load_params_from_hf(params, self.model_cfg, device=self.device)
-                    self._write_weights(dict(loaded.named_parameters()))
+                    loaded, _ = load_params_from_hf(params, self.model_cfg, device=self.device, vision_seed=None)
+                    # an export without visual.* (the trainer's) leaves the served tower as it is
+                    keep_tower = self.model_cfg.vision is not None and not checkpoint_has_vision(params)
+                    self._write_weights({n: p for n, p in loaded.named_parameters()
+                                         if not (keep_tower and n.startswith("vision."))})
                     del loaded
                 elif kind == "disk":
-                    load_params_from_hf(params, model=self.model)
+                    load_params_from_hf(params, model=self.model, vision_seed=None)
                 elif kind == "staged":
                     self._copy_staged(params)
                 if version is not None:
@@ -1483,6 +1497,8 @@ class DecodeEngine:
             "decode_steps": sum(n for _, _, n in self._chunk_events),
             "spec_s": total(self._spec_events),
             "spec_rounds": len(self._spec_events),
+            "vision_s": total(self._vision_events),
+            "vision_images": sum(n for _, _, n in self._vision_events),
         }
 
     def _event_pair_start(self):
@@ -1615,16 +1631,18 @@ class DecodeEngine:
             to_prefill.append((task, free.pop(0)))
 
         # identical prompts (a GRPO group's samples): the first prefills,
-        # the others alias its pages after it
+        # the others alias its pages after it; an image request never takes
+        # part (its KV depends on the image too)
         primaries: list[tuple[_Task, int]] = []
         dup_pairs: list[tuple[_Task, int, int]] = []  # (task, slot, src_slot)
         first_slot: dict[tuple, int] = {}
         for task, slot in to_prefill:
             key = tuple(task.req.input_ids)
-            if key in first_slot:
+            if task.req.image_data is None and key in first_slot:
                 dup_pairs.append((task, slot, first_slot[key]))
             else:
-                first_slot[key] = slot
+                if task.req.image_data is None:
+                    first_slot[key] = slot
                 primaries.append((task, slot))
 
         cold: list[tuple[_Task, int]] = []
@@ -1689,8 +1707,9 @@ class DecodeEngine:
         (``decode_engine.py:2603``), with the pool refs on the matched pages
         taken at once (a task that backlogs later releases them). The page
         holding row ``plen-1`` is never matched: the decode head writes
-        there, and aliased pages are immutable."""
-        if self._radix is None:
+        there, and aliased pages are immutable. An image request never
+        matches: its KV depends on the image too."""
+        if self._radix is None or task.req.image_data is not None:
             return None
         ids = task.req.input_ids
         pages, versions = self._radix.match(ids, max_pages=(len(ids) - 1) // self.config.page_size)
@@ -1881,12 +1900,13 @@ class DecodeEngine:
             ids_np[j, : len(ids)] = ids
             plens[j] = len(ids)
             flat_pages[j, : len(self._slot_pages[slot])] = self._slot_pages[slot]
+        img = self._image_embeds_for(admitted, ids_np)
         e0 = self._event_pair_start()
         ids_t = self._to_device(ids_np)
         plens_t = self._to_device(plens)
         positions = torch.arange(P, device=self.device)[None].expand(A, P)
         seg = (positions < plens_t[:, None]).to(torch.int64)
-        _, ks, vs = qwen.forward_prefill(self.model, ids_t, positions, seg)
+        _, ks, vs = qwen.forward_prefill(self.model, ids_t, positions, seg, image_embeds=img)
         paged_kv.scatter_prefill(
             self.cache, ks, vs, self._to_device(flat_pages.reshape(-1)), psz
         )
@@ -1909,6 +1929,54 @@ class DecodeEngine:
         self.stats["prefill_batches"] += 1
         self.stats["prefill_tokens"] += n_tok
         return rows
+
+    def _image_embeds_for(self, group: list[tuple[_Task, int]], ids_np: np.ndarray) -> torch.Tensor | None:
+        """A VLM admission (``decode_engine.py:1870``): the tower over each
+        image request's patches (``image_data`` [P, patch_dim]), padded to
+        ``pad_patch_bucket``'s count under the patch mask, at its grid's
+        (row, col) positions (all (0, 0), with a warning, without
+        ``image_grid_thw``), and the merged embeddings placed at the
+        prompt's image-pad slots. Returns [A, P, D] f32 on the device (rows
+        of text requests zero), or None when no request of the group carries
+        an image. A count mismatch warns and places the fewer."""
+        mcfg = self.model_cfg
+        if mcfg.vision is None or all(t.req.image_data is None for t, _ in group):
+            return None
+        vcfg = mcfg.vision
+        merge2 = vcfg.spatial_merge**2
+        emb = torch.zeros((len(group), ids_np.shape[1], mcfg.hidden_size), dtype=torch.float32, device=self.device)
+        e0 = self._event_pair_start()
+        n_img = 0
+        with torch.no_grad():
+            for j, (task, _) in enumerate(group):
+                if task.req.image_data is None:
+                    continue
+                px = np.asarray(task.req.image_data, np.float32)
+                P = px.shape[0]
+                if task.req.image_grid_thw is not None:
+                    pos = vis.grid_pos_ids(task.req.image_grid_thw, vcfg.spatial_merge)
+                else:
+                    # all-zero rope positions lose the spatial structure
+                    logger.warning(f"rid={task.req.rid}: image_data without image_grid_thw; vision rope "
+                                   "positions default to (0,0) per patch")
+                    pos = np.zeros((P, 2), np.int32)
+                Ppad = vis.pad_patch_bucket(P, merge2)
+                out = vis.vision_forward(
+                    self.model.vision,
+                    vcfg,
+                    self._to_device(np.pad(px, ((0, Ppad - P), (0, 0)))),
+                    torch.arange(Ppad, device=self.device) < P,
+                    self._to_device(np.pad(pos.astype(np.int32), ((0, Ppad - P), (0, 0)))),
+                )
+                slots = np.nonzero(ids_np[j] == mcfg.image_token_id)[0]
+                if len(slots) != P // merge2:
+                    logger.warning(f"VLM mismatch rid={task.req.rid}: {len(slots)} image-pad tokens vs "
+                                   f"{P // merge2} merged patch embeddings")
+                n = min(len(slots), P // merge2)
+                emb[j, self._to_device(slots[:n])] = out[:n].float()
+                n_img += 1
+        self._event_pair_end(e0, self._vision_events, n_img)
+        return emb
 
     def _pack_row(
         self,

@@ -48,6 +48,7 @@ arms the flight ring's SIGTERM dump.
 
 from __future__ import annotations
 
+import base64
 import io
 import json
 import logging
@@ -90,14 +91,19 @@ def _req_from_json(d: dict) -> ModelRequest:
         frequency_penalty=float(g.get("frequency_penalty", 0.0)),
         min_new_tokens=int(g.get("min_new_tokens", 0)),
     )
+    image_data = None
     if d.get("image_data"):
-        raise NotImplementedError("image inputs: ROADMAP Queue A, vision")
+        # a VLM request: the f32 patch array [P, patch_dim], np.save'd and
+        # base64-encoded by the client (the processor runs client-side)
+        image_data = np.load(io.BytesIO(base64.b64decode(d["image_data"])))
     deadline = d.get("deadline")
     return ModelRequest(
         input_ids=d["input_ids"],
         gconfig=gconfig,
         rid=d.get("rid", ""),
         metadata=d.get("metadata", {}),
+        image_data=image_data,
+        image_grid_thw=d.get("image_grid_thw"),
         deadline=float(deadline) if deadline is not None else None,
     )
 

@@ -12,8 +12,10 @@ LoRA adapters (``<t>_lora_a`` [n, in, r], ``<t>_lora_b`` [n, r, out] in
 JAX) cross transposed like the dense matrices; the int8 serving form
 (``<t>_q8`` [n, in, out] int8 and ``<t>_scale`` [n, 1, out] f32 in JAX, the
 output of ``quantize_params_int8``) crosses as ``<t>_q8`` [out, in] and
-``<t>_scale`` [out] per layer. ``to_jax_params`` is the reverse; a round
-trip is exact.
+``<t>_scale`` [out] per layer. A VLM's ``vision`` subtree crosses leaf for
+leaf as ``vision.<leaf>`` / ``vision.layers.<leaf>``: the tower keeps JAX's
+names, stacking and layout (``models/vision.py``). ``to_jax_params`` is
+the reverse; a round trip is exact.
 
 numpy has no bfloat16 of its own: a bf16 array (whatever package made its
 dtype) crosses as its 16 raw bits, and ``to_jax_params`` hands bf16 tensors
@@ -94,6 +96,11 @@ def from_jax_params(params: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
         out["lm_head"] = _to_tensor(params["lm_head"])
     if "value_head" in params:
         out["value_head"] = _to_tensor(params["value_head"])
+    for k, v in params.get("vision", {}).items():
+        if k == "layers":
+            out.update({f"vision.layers.{n}": _to_tensor(a) for n, a in v.items()})
+        else:
+            out[f"vision.{k}"] = _to_tensor(v)
     layers = params["layers"]
     for name in _layer_names(cfg, layers):
         stacked = np.asarray(layers[name])
@@ -117,4 +124,9 @@ def to_jax_params(state: dict[str, torch.Tensor], cfg: ModelConfig) -> dict:
         layers[name] = np.stack([_to_numpy(_to_jax(name, state[f"layers.{i}.{name}"]))
                                  for i in range(cfg.num_layers)])
     params["layers"] = layers
+    vision = {n.split(".", 1)[1]: _to_numpy(t) for n, t in state.items() if n.startswith("vision.")}
+    if vision:
+        stacked = {n.split(".", 1)[1]: a for n, a in vision.items() if n.startswith("layers.")}
+        params["vision"] = {n: a for n, a in vision.items() if not n.startswith("layers.")}
+        params["vision"]["layers"] = stacked
     return params

@@ -12,19 +12,31 @@ The export writes every floating leaf as F32 (bf16 leaves up-cast, which is
 exact), as the JAX export does: a server that loads it at bf16 then rounds
 the trainer's f32 master weights once, as the streamed update does, so the
 two paths serve the same bits.
+
+A VLM's tower loads from the checkpoint's ``visual.*`` tensors when it has
+them (``areal_tpu/models/hf.py:105``); the Conv3d patch kernel [D, C, T, p,
+p] is flattened to [D, patch_dim] and transposed. The export writes the
+decoder only, as the JAX export does (``hf_name_map`` names no tower leaf),
+and ``write_hf_config`` refuses a VLM: export one with ``base_model_path``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import shutil
 
 import torch
 
 from areal_tpu_torch.models.qwen import EXPERT_LEAVES, ModelConfig, QwenModel, hf_name_map
+from areal_tpu_torch.models.vision import hf_vision_name_map, init_vision_params
 from areal_tpu_torch.utils.safetensors_io import SafetensorsFile, save_file
+
+logger = logging.getLogger("areal_tpu_torch.hf")
+
+_PATCH_KERNEL = "visual.patch_embed.proj.weight"
 
 # files copied from the base model directory beside an export
 _BASE_FILES = (
@@ -58,12 +70,38 @@ def _leaf(key: str) -> tuple[str, int | None]:
     return key, None
 
 
+def checkpoint_has_vision(path: str) -> bool:
+    """Whether the checkpoint at ``path`` holds a ``visual.*`` tower."""
+    return _PATCH_KERNEL in _open_shards(path)
+
+
+def _vision_plan(cfg: ModelConfig, shards: dict, params: dict, path: str) -> list:
+    """(dest, HF name, transpose, flatten) of every tower leaf (a slice of a
+    stacked leaf per layer), each shape checked."""
+    plan = []
+    for key, (hf_name, transpose) in hf_vision_name_map(cfg.vision).items():
+        parts = key.split("/")
+        if hf_name not in shards:
+            raise KeyError(f"{path}: no tensor {hf_name} (for vision/{key})")
+        dest = params[f"vision.layers.{parts[2]}"][int(parts[1])] if parts[0] == "layers" else params[f"vision.{key}"]
+        shape = list(shards[hf_name].info(hf_name)[1])
+        flatten = hf_name == _PATCH_KERNEL
+        if flatten:  # the Conv3d kernel [D, C, T, p, p] is a [D, patch_dim] matmul
+            shape = [shape[0], int(torch.Size(shape[1:]).numel())]
+        want = list(dest.shape)[::-1] if transpose else list(dest.shape)
+        if shape != want:
+            raise ValueError(f"{path}: {hf_name} has shape {shape}, vision/{key} needs {want}")
+        plan.append((dest, hf_name, transpose, flatten))
+    return plan
+
+
 def load_params_from_hf(
     path: str,
     cfg: ModelConfig | None = None,
     dtype: str | None = None,
     device=None,
     model: QwenModel | None = None,
+    vision_seed: int | None = 0,
 ) -> tuple[QwenModel, ModelConfig]:
     """Load an HF Qwen2 / Qwen3 / qwen3_moe checkpoint directory.
 
@@ -74,7 +112,11 @@ def load_params_from_hf(
     headers before the first copy, so a checkpoint that does not fit raises
     and changes no weight. An untied model whose checkpoint has no
     ``lm_head.weight`` takes ``embed_tokens`` as its head, as the JAX loader
-    does."""
+    does. A VLM whose checkpoint has no ``visual.*`` tower gets a fresh one
+    from ``vision_seed`` (with a warning, as the JAX engines initialize
+    theirs, ``train_engine.py:372``, ``decode_engine.py:366``), or, with
+    ``vision_seed=None``, keeps the tower it has (a new model's is then
+    uninitialized)."""
     if model is not None:
         cfg = model.cfg
     else:
@@ -98,18 +140,31 @@ def load_params_from_hf(
         want = list(dest.shape)[::-1] if transpose else list(dest.shape)
         if shape != want:
             raise ValueError(f"{path}: {hf_name} has shape {shape}, {key} needs {want}")
-        plan.append((dest, hf_name, transpose))
+        plan.append((dest, hf_name, transpose, False))
+    with_tower = cfg.vision is not None and _PATCH_KERNEL in shards
+    if with_tower:
+        plan += _vision_plan(cfg, shards, params, path)
     with torch.no_grad():
-        for dest, hf_name, transpose in plan:
+        for dest, hf_name, transpose, flatten in plan:
             src = shards[hf_name].get(hf_name)
+            if flatten:
+                src = src.reshape(src.shape[0], -1)
             dest.copy_(src.t() if transpose else src)
+        if cfg.vision is not None and not with_tower and vision_seed is not None:
+            logger.warning(f"{path}: the checkpoint has no visual.* weights; the vision tower initializes from scratch")
+            init_vision_params(model.vision, torch.Generator(device=model.device).manual_seed(vision_seed))
     return model, cfg
 
 
 def write_hf_config(cfg: ModelConfig, path: str) -> None:
     """A loadable ``config.json`` for ``cfg`` (the inverse of
     ``ModelConfig.from_hf_dict``), the same JSON as the JAX function
-    writes, so a saved checkpoint directory is self-contained."""
+    writes, so a saved checkpoint directory is self-contained. A VLM's
+    ``vision_config`` cannot be rebuilt: it raises, as the JAX function
+    does."""
+    if cfg.vision is not None:
+        raise ValueError("write_hf_config cannot reconstruct a vision_config: export a VLM checkpoint with "
+                         "base_model_path pointing at the source model directory")
     base = "qwen3" if cfg.qk_norm else "qwen2"
     # an MoE export is always qwen3_moe (qwen2_moe implies shared experts this
     # family does not have); the explicit qk_norm key keeps a no-qk-norm MoE

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from areal_tpu_torch.device import resolve_device
 from areal_tpu_torch.inference import paged_kv
 from areal_tpu_torch.models import moe, remat as remat_lib
+from areal_tpu_torch.models.vision import VisionConfig, VisionTower, init_vision_params
 from areal_tpu_torch.ops.attention import (
     attention_mask as _attention_mask,
     flash_fwd,
@@ -95,6 +96,11 @@ class ModelConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: tuple = ("wq", "wk", "wv", "wo")
+    # a VLM: the model carries a vision tower (``models/vision.py``) as
+    # ``QwenModel.vision``, and the forwards take the tower's embeddings at
+    # the <|image_pad|> positions (``image_token_id``)
+    image_token_id: int = -1
+    vision: VisionConfig | None = None
 
     @property
     def head_dim_(self) -> int:
@@ -115,9 +121,9 @@ class ModelConfig:
     @classmethod
     def from_hf_dict(cls, d: dict) -> "ModelConfig":
         """Build from an HF ``config.json`` dict (qwen2 / qwen3 / qwen3_moe
-        model types; text fields may nest under ``text_config``), as
-        ``areal_tpu/models/qwen.py:108`` does. A vision tower is a later
-        slice of the port."""
+        model types, and qwen2-vl-style VLMs whose text fields may nest
+        under ``text_config`` and whose tower is ``vision_config``), as
+        ``areal_tpu/models/qwen.py:108`` does."""
         mt = d.get("model_type", "qwen2")
         if mt == "qwen2_moe":
             raise ValueError(
@@ -126,9 +132,20 @@ class ModelConfig:
                 "would silently drop those weights. Supported MoE family: "
                 "qwen3_moe."
             )
-        if "vision_config" in d:
-            raise NotImplementedError("a vision tower (vision_config): ROADMAP Queue A item 5")
         td = {**d, **d.get("text_config", {})}
+        vision = None
+        if "vision_config" in d:
+            vd = d["vision_config"]
+            patch = vd.get("patch_size", 14)
+            vision = VisionConfig(
+                patch_dim=vd.get("in_channels", 3) * vd.get("temporal_patch_size", 2) * patch * patch,
+                hidden_size=vd.get("embed_dim", vd.get("hidden_size", 1280)),
+                intermediate_size=vd.get("intermediate_size", 4 * vd.get("embed_dim", 1280)),
+                num_layers=vd.get("depth", vd.get("num_hidden_layers", 32)),
+                num_heads=vd.get("num_heads", vd.get("num_attention_heads", 16)),
+                out_hidden_size=td["hidden_size"],
+                spatial_merge=vd.get("spatial_merge_size", 2),
+            )
         return cls(
             vocab_size=td["vocab_size"],
             hidden_size=td["hidden_size"],
@@ -147,6 +164,8 @@ class ModelConfig:
             num_experts_per_tok=td.get("num_experts_per_tok", 2),
             moe_intermediate_size=td.get("moe_intermediate_size"),
             norm_topk_prob=td.get("norm_topk_prob", True),
+            image_token_id=d.get("image_token_id", -1),
+            vision=vision,
         )
 
     @classmethod
@@ -274,7 +293,8 @@ class DecoderLayer(nn.Module):
 
 class QwenModel(nn.Module):
     """Parameters of the decoder: ``embed`` [V, D], ``layers``,
-    ``final_norm`` [D] and, when embeddings are untied, ``lm_head`` [V, D].
+    ``final_norm`` [D], when embeddings are untied ``lm_head`` [V, D], and
+    for a VLM the tower ``vision`` (``models/vision.VisionTower``).
     Parameters are allocated uninitialized on ``device`` (CUDA unless
     ``device="cpu"``); fill them with ``init_params`` or ``load_state_dict``."""
 
@@ -290,6 +310,8 @@ class QwenModel(nn.Module):
         self.final_norm = _param((cfg.hidden_size,), self.device, dt)
         if not cfg.tie_word_embeddings:
             self.lm_head = _param((cfg.vocab_size, cfg.hidden_size), self.device, dt)
+        if cfg.vision is not None:
+            self.vision = VisionTower(cfg.vision, self.device, dt)
 
     @property
     def lm_head_weight(self) -> torch.Tensor:
@@ -310,11 +332,15 @@ def _init_leaf(p: torch.Tensor, leaf: str, generator: torch.Generator) -> None:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> QwenModel:
     """Random init (truncated-normal 0.02 in f32, cast to the model dtype;
     norms 1, biases 0, LoRA B 0) from a seeded ``torch.Generator`` that
-    lives on the model's device (models/qwen.py:348)."""
+    lives on the model's device (models/qwen.py:348); the decoder first,
+    then a VLM's tower (``vision.init_vision_params``)."""
     model = QwenModel(cfg, device)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            _init_leaf(p, name.rsplit(".", 1)[-1], generator)
+            if not name.startswith("vision."):
+                _init_leaf(p, name.rsplit(".", 1)[-1], generator)
+    if cfg.vision is not None:
+        init_vision_params(model.vision, generator)
     return model
 
 
@@ -576,6 +602,7 @@ def forward(
     positions: torch.Tensor,  # [G, L], restarting per segment
     no_grad: bool = False,
     with_aux: bool = False,  # also return the summed MoE router aux loss
+    image_embeds: torch.Tensor | None = None,  # [G, L, D] a VLM's tower output, positioned
 ):
     """Decoder body -> final hidden states [G, L, D] (models/qwen.py:679),
     and with ``with_aux`` the pair (hidden, sum of the layers' router aux
@@ -585,10 +612,24 @@ def forward(
     softmax."""
     impl = resolve_impl(model.cfg.attn_impl)
     mask = segment_ids.to(torch.int32).contiguous() if impl == "pallas" else _attention_mask(segment_ids)
-    return forward_masked(model, input_ids, positions, mask, impl, no_grad, with_aux)
+    return forward_masked(model, input_ids, positions, mask, impl, no_grad, with_aux, image_embeds)
 
 
-def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool = False, with_aux: bool = False):
+def _embed_inputs(model, input_ids: torch.Tensor, image_embeds: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings in the compute dtype; for a VLM given
+    ``image_embeds`` (positioned like ``input_ids``), the <|image_pad|>
+    positions take those instead, cast to the compute dtype
+    (models/qwen.py:692)."""
+    cfg = model.cfg
+    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
+    if image_embeds is not None and cfg.image_token_id >= 0:
+        img_pos = (input_ids == cfg.image_token_id)[..., None]
+        x = torch.where(img_pos, image_embeds.to(cfg.torch_dtype), x)
+    return x
+
+
+def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool = False, with_aux: bool = False,
+                   image_embeds: torch.Tensor | None = None):
     """The decoder body under an attention given by ``impl`` and its
     ``mask`` (``_decoder_layer``) -> final hidden states [G, L, D], or
     (hidden, summed aux) with ``with_aux``. With ``cfg.remat`` and policy
@@ -602,7 +643,7 @@ def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool =
     cfg = model.cfg
     if cfg.remat and cfg.remat_policy not in ("nothing", "dots_nobatch", "everything"):
         raise ValueError(f"remat_policy={cfg.remat_policy!r}; valid: dots_nobatch, everything, nothing")
-    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
+    x = _embed_inputs(model, input_ids, image_embeds)
     rope = _rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
     recompute = (
         cfg.remat and cfg.remat_policy != "everything" and not no_grad and torch.is_grad_enabled()
@@ -688,6 +729,7 @@ def forward_prefill(
     input_ids: torch.Tensor,  # [A, P]
     positions: torch.Tensor,  # [A, P]
     seg: torch.Tensor | None = None,  # [A, P] 1 = valid, 0 = pad
+    image_embeds: torch.Tensor | None = None,  # [A, P, D] a VLM's tower output, positioned
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched prompt pass (models/qwen.py:887): returns (hidden [A, P, D],
     ks, vs) with ks/vs [n_layers, A, P, KH, hd] (post-rope, pre-GQA-repeat)
@@ -695,7 +737,7 @@ def forward_prefill(
     cfg = model.cfg
     if seg is None:
         seg = torch.ones_like(input_ids)
-    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
+    x = _embed_inputs(model, input_ids, image_embeds)
     mask = _attention_mask(seg)
     A, P = input_ids.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_

@@ -184,7 +184,8 @@ no result line:
               "nothing", "dots_nobatch" and "everything", in two rounds:
               the parameters after "dots_nobatch" against "nothing"'s, each
               policy's peak memory, step seconds and K2-K4 launches.
-17. int8serve — int8 weight serving at Qwen2.5-1.5B, full width and depth
+17. int8serve — int8 weight serving at Qwen2.5-1.5B, full width and 8 of
+              28 layers (since PR 24)
               (``gsm8k_grpo_int8serve.yaml``: ``quantization="int8"``,
               ``kv_quantization="int8"``): a server started from the grpo
               phase's trainer, its int8 tables and scales the server-side
@@ -215,7 +216,33 @@ no result line:
               launches; prints each push's bytes and seconds, trainer
               tokens/s and the peak memory (predicted 17 GiB below grpo's:
               the base has no gradients or AdamW moments).
-19. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
+19. vlm      — a vision-language model, Qwen2-VL-2B at full width and
+              depth (the 32-layer tower, the 28-layer LLM; random bf16
+              weights from a seed): an ``InferenceServer`` (``ServerConfig()``
+              with ``max_seq_len`` 2,048) answers a wave of 16 image requests
+              over HTTP (8 CLEVR-style prompts of 217 tokens, each sent with
+              two seeded images of grid (1, 22, 34): 748 patches padded to
+              768, 187 image pads) and 4 text requests, 128 tokens each:
+              responses complete, served logprobs against a dense bf16
+              prefill with the same embeddings, the engine's embeddings
+              equal to a direct tower call bit for bit and only at the image
+              pads, equal ids with other images neither aliased nor
+              radix-matched (different first steps; a second wave on the
+              published prompts matches nothing), #1 launches; tower ms an
+              image (device stream, host loop), prefill tokens/s, ms a decode
+              step, the device's busy share of a profiled wave. Then
+              ``PPOTrainer.train`` for 2 GRPO steps over HTTP with
+              ``VisionRLVRWorkflow`` (a seeded stand-in processor, the
+              clevr_count reward), 8 prompts x 4 samples and the frozen
+              tower: the trainer's logprobs against the served ones, the
+              tower bit for bit unchanged on both sides, one tower run per
+              engine batch (and one for a batch passed twice), K2-K4 and #1
+              launches, step seconds by phase and the peak memory. Then,
+              with the server stopped, one ``train_vision_tower=True`` step
+              on 1 prompt x 4 samples: its logprobs against the frozen
+              path's at the same weights, the tower moved and finite, the
+              peak memory.
+20. kernel_tree — the tree-attention kernels #4 (forward), #5 (dQ) and #6
               (dK, dV) against their plain PyTorch versions at the same head
               config on two forests of N=2,048 padded nodes: the first pack
               of the train_tree wave (prompts of 445 and 349 tokens, 4
@@ -230,7 +257,7 @@ no result line:
               tries (a chain, tile-straddling groups, all-partial chains, a
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
-20. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
+21. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
               one minibatch per step (full width, 8 of 28 layers): each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
@@ -239,7 +266,7 @@ no result line:
               grad norm against the packed path's on the same batch and
               weights; profiles one tree optimizer step (#4's, #5's and #6's
               shares of its busy time).
-21. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
+22. kernel_gmm — the grouped-matmul forward (the dropless MoE FFN's GEMM, in
               place of megablox gmm) against its plain version at
               Qwen3-30B-A3B's expert shapes (128 experts, top-8, bf16 in,
               f32 out; gate / up and down) for a decode step (M=256), a
@@ -251,7 +278,7 @@ no result line:
               kernel (graph replay, host loop beside, each regime forced) /
               plain / library-yardstick times and the bound; one MoE
               dispatch under sync-debug "error".
-22. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
+23. kernel_gmm_bwd — the grouped matmul's backward kernels (megablox's
               VJP: dLHS ``gmm_bwd_lhs`` and dRHS ``tgmm``) against their
               plain versions at Qwen3-30B-A3B's expert shapes (gate / up
               and down) for M = 32,768 and M = 8 x the tokens of
@@ -262,7 +289,7 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-23. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
+24. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
               experts, top-8, 30.5 B random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
@@ -270,7 +297,7 @@ no result line:
               logprobs against a dense prefill (near-tie route flips
               exempt and counted), the gmm / #1 / #3 launches per wave,
               experts touched per decode step, a profiled wave.
-24. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
+25. train_moe — ``train``'s two GRPO steps on Qwen3-30B-A3B at full width
               and 4 of its 48 layers (3.11 B parameters; the trainer's f32
               state of the whole depth does not fit one card): the grouped
               matmuls' forward and backward kernels under per-layer
@@ -327,11 +354,12 @@ QWEN25_15B = dict(
 )
 # the depth of the phases whose checks are about behaviour, not the main
 # path's speed (lifecycle, observe, durable; since the int8serve and lora
-# phases came, critic, sft and train_tree too): 8 of Qwen2.5-1.5B's 28
-# layers at full width, so the whole script stays inside its time limit on a
-# slow host (1,170 s of phases at full depth on one; 1,000 s with all but the
-# first three at full depth on another, PERF.md); serve, rollout, train,
-# grpo, int8serve and lora run all 28
+# phases came, critic, sft and train_tree too; since the vlm phase came,
+# int8serve): 8 of Qwen2.5-1.5B's 28 layers at full width, so the whole
+# script stays inside its time limit on a slow host (1,170 s of phases at
+# full depth on one; 1,000 s with all but the first three at full depth on
+# another, PERF.md); serve, rollout, train, grpo and lora run all 28, vlm
+# all of Qwen2-VL-2B
 CUT_LAYERS = 8
 # Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): the
 # qwen3_moe family's smallest public member, full width and depth
@@ -1816,17 +1844,23 @@ def _check_response(r: dict, n_new: int, what: str) -> None:
         raise AssertionError(f"[{what}] logprobs not finite and <= 0: {lp[:4]}")
 
 
-def _dense_diffs(model, prompt: list[int], r: dict, greedy: bool) -> np.ndarray:
+def _dense_diffs(model, prompt: list[int], r: dict, greedy: bool, image_embeds=None) -> np.ndarray:
     """Teacher-forced dense prefill over prompt + output, per output token.
     Sampled responses: |served logprob - dense log-softmax|. Greedy
     responses (their logprob is ~0 under the temperature-0 distribution):
-    the shortfall of the chosen token's dense logit below the dense argmax."""
+    the shortfall of the chosen token's dense logit below the dense argmax.
+    ``image_embeds`` [len(prompt), D]: a VLM prompt's embeddings, placed at
+    its image-pad positions."""
     from areal_tpu_torch.models import qwen
 
     out = r["output_tokens"]
     ids = torch.tensor([prompt + out], device="cuda")
+    img = None
+    if image_embeds is not None:
+        img = torch.zeros((1, ids.shape[1], image_embeds.shape[-1]), dtype=torch.float32, device="cuda")
+        img[0, : len(prompt)] = image_embeds
     with torch.no_grad():
-        h, _, _ = qwen.forward_prefill(model, ids, torch.arange(ids.shape[1], device="cuda")[None])
+        h, _, _ = qwen.forward_prefill(model, ids, torch.arange(ids.shape[1], device="cuda")[None], image_embeds=img)
         logits = qwen.compute_logits(model, h[0, len(prompt) - 1 : len(prompt) - 1 + len(out)])
     tok = torch.tensor(out, device="cuda")[:, None]
     if greedy:
@@ -5559,7 +5593,8 @@ def _serve_waves(tag: str, srv, engine, card: str) -> dict:
 
 
 def phase_int8serve(card: str) -> dict:
-    """int8 weight serving at Qwen2.5-1.5B, full width and depth
+    """int8 weight serving at Qwen2.5-1.5B, full width and ``CUT_LAYERS``
+    of its depth (since the vlm phase came)
     (``gsm8k_grpo_int8serve.yaml``: ``quantization="int8"``,
     ``kv_quantization="int8"``, the q8 wire): (a) a server started from
     the grpo phase's trainer's weights serves the server-side quantization
@@ -5592,7 +5627,7 @@ def phase_int8serve(card: str) -> dict:
     held = torch.cuda.memory_allocated() / 2**30
     if held > 2.0:
         raise AssertionError(f"[int8serve] {held:.2f} GiB still allocated by earlier phases")
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     L = mcfg.num_layers
     acfg = _grpo_actor()
     trainer = TorchTrainEngine(acfg, model_config=mcfg)
@@ -7258,8 +7293,470 @@ def phase_train_moe(card: str) -> dict:
                 tree=tree)
 
 
+# Qwen2-VL-2B (huggingface.co/Qwen/Qwen2-VL-2B-Instruct config.json): the
+# vision tower (depth 32, embed_dim 1280, mlp_ratio 4, 16 heads, patch 14,
+# temporal patch 2, 3 channels: patch_dim 1,176, spatial merge 2) over the
+# LLM of Qwen2.5-1.5B's dims (QWEN25_15B); the image-pad token 151655
+QWEN2_VL_2B_VISION = dict(patch_dim=1176, hidden_size=1280, intermediate_size=5120, num_layers=32, num_heads=16,
+                          out_hidden_size=1536, spatial_merge=2)
+VLM_IMAGE_TOKEN, VLM_VISION_START, VLM_VISION_END = 151655, 151652, 151653
+VLM_GRID = (1, 22, 34)  # 748 patches, padded to 768; 187 image-pad tokens
+VLM_STEPS, VLM_PROMPTS = 2, 16
+VLM_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_vlm")
+# the trainable tower's step: the f32 master of 2.21 B parameters (8.8 GB),
+# AdamW on all of them (17.7 GB), their gradients (8.8 GB), the frozen
+# trainer's weights until the copy (8.8 GB), and per image and tower layer
+# the saved [16, 768, 768] attention in f32 and bf16 (~0.1 GB: 13 GB at 4
+# images); predicted before the first run on the card
+VLM_TRAINABLE_PEAK_PREDICTED_GIB = 50.0
+
+
+def _vlm_cfg():
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.models.vision import VisionConfig
+
+    return qwen.ModelConfig(**QWEN25_15B, image_token_id=VLM_IMAGE_TOKEN,
+                            vision=VisionConfig(**QWEN2_VL_2B_VISION))
+
+
+def _vlm_image(seed: int) -> tuple[list[int], np.ndarray]:
+    """A CLEVR-style prompt (10 text tokens, the image's vision-start, 187
+    image pads and vision-end, 18 text tokens) and its N(0, 1) patches
+    [748, 1176] f32, from ``seed`` (the prompt from ``seed // 2``: two
+    seeds share a prompt, with different images)."""
+    t, h, w = VLM_GRID
+    n_pad = t * h * w // QWEN2_VL_2B_VISION["spatial_merge"] ** 2
+    rng = np.random.default_rng(1000 + seed // 2)
+    pre, post = rng.integers(0, 151000, 10).tolist(), rng.integers(0, 151000, 18).tolist()
+    ids = pre + [VLM_VISION_START] + [VLM_IMAGE_TOKEN] * n_pad + [VLM_VISION_END] + post
+    px = np.random.default_rng(seed).standard_normal((t * h * w, QWEN2_VL_2B_VISION["patch_dim"])).astype(np.float32)
+    return ids, px
+
+
+class _VlmProcessor:
+    """A seeded stand-in for Qwen2-VL's processor (no HF processor on the
+    card's machine): a row's ``images`` hold one seed, from which come the
+    prompt ids with the image pads, the patches and the grid."""
+
+    class image_processor:  # noqa: N801 — the attribute a processor has
+        merge_size = 2
+
+    def __call__(self, images, text, padding, return_tensors):
+        ids, px = _vlm_image(int(images[0]))
+        return {"input_ids": np.asarray([ids]), "pixel_values": px, "image_grid_thw": np.asarray([VLM_GRID])}
+
+
+class _VlmTokenizer:
+    """Renders a completion as a bracketed count, ``[sum(ids) % 3]``, so the
+    clevr_count reward (answer "0") varies within a group."""
+
+    def decode(self, ids, skip_special_tokens=False):
+        return f"the answer is [{sum(ids) % 3}]"
+
+
+def _vlm_body(ids: list[int], px: np.ndarray | None, rid: str, n_new: int) -> dict:
+    """A /generate body as the client sends it (``inference/client.py``)."""
+    import base64
+    import io
+
+    body = {"input_ids": ids, "rid": rid, "sampling_params": {"max_new_tokens": n_new, "temperature": 1.0}}
+    if px is not None:
+        buf = io.BytesIO()
+        np.save(buf, px)
+        body.update(image_data=base64.b64encode(buf.getvalue()).decode(), image_grid_thw=[list(VLM_GRID)])
+    else:
+        body["sampling_params"] = {"max_new_tokens": n_new, "greedy": True}
+    return body
+
+
+def _vlm_tower(engine, px: np.ndarray) -> torch.Tensor:
+    """A direct call of the served tower on one image, as the engine pads it."""
+    from areal_tpu_torch.models import vision as vis
+
+    vcfg = engine.model_cfg.vision
+    P = px.shape[0]
+    Ppad = vis.pad_patch_bucket(P, vcfg.spatial_merge**2)
+    pos = vis.grid_pos_ids([VLM_GRID], vcfg.spatial_merge)
+    with torch.no_grad():
+        return vis.vision_forward(
+            engine.model.vision, vcfg, torch.from_numpy(np.pad(px, ((0, Ppad - P), (0, 0)))).cuda(),
+            torch.arange(Ppad, device="cuda") < P, torch.from_numpy(np.pad(pos, ((0, Ppad - P), (0, 0)))).cuda(),
+        )
+
+
+def phase_vlm(card: str) -> dict:
+    """Qwen2-VL-2B at full width and depth: an ``InferenceServer`` answers
+    image requests over HTTP, ``PPOTrainer.train`` runs GRPO on images over
+    HTTP with ``VisionRLVRWorkflow`` and the frozen tower, then one step of
+    the trainable tower in process."""
+    import shutil
+
+    from areal_tpu_torch.api.config import ServerConfig
+    from areal_tpu_torch.api.io_struct import FinetuneSpec
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[vlm] {held:.2f} GiB still allocated by earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = _vlm_cfg()
+    L, n_new = mcfg.num_layers, 128
+    acfg = _grpo_actor()
+    trainer = TorchTrainEngine(acfg, model_config=mcfg)
+    trainer.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=VLM_PROMPTS, train_batch_size=8), seed=0)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    n_tower = sum(p.numel() for p in trainer.model.vision.parameters())
+    scfg = ServerConfig(max_seq_len=2048, host="127.0.0.1", seed=0)
+    # the server starts from the trainer's weights, cast to bf16
+    engine = DecodeEngine(scfg, params=trainer.model.state_dict(), model_cfg=mcfg)
+    srv = ServerThread(scfg, engine=engine)
+    captured: dict[str, torch.Tensor] = {}  # rid -> the engine's embeddings of its prompt [P, D]
+    real_embeds = engine._image_embeds_for
+
+    def embeds_recorded(group, ids_np):
+        emb = real_embeds(group, ids_np)
+        if emb is not None:
+            for j, (task, _) in enumerate(group):
+                if task.req.image_data is not None:
+                    captured[task.req.rid] = emb[j, : len(task.req.input_ids)].clone()
+        return emb
+
+    engine._image_embeds_for = embeds_recorded
+    srv.start()
+    torch.cuda.synchronize()
+    log(f"[vlm] Qwen2-VL-2B ({n_params / 1e9:.3f} B parameters, the tower {n_tower / 1e9:.3f} B): trainer (f32 "
+        f"master weights, AdamW state but for the frozen tower) and server (bf16) up in "
+        f"{time.monotonic() - t_phase:.1f}s; torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    shutil.rmtree(VLM_ROOT, ignore_errors=True)
+    secs = {"setup": time.monotonic() - t_phase}
+    try:
+        t0 = time.monotonic()
+        serve = _vlm_serve(card, srv, engine, captured, mcfg, n_new)
+        del engine._image_embeds_for  # the engine's own method again
+        secs["serve"], t0 = time.monotonic() - t0, time.monotonic()
+        train = _vlm_train(card, srv, engine, trainer, acfg, mcfg, n_new)
+    finally:
+        srv.stop()
+        shutil.rmtree(VLM_ROOT, ignore_errors=True)
+    del engine, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["train"], t0 = time.monotonic() - t0, time.monotonic()
+    tower = _vlm_trainable(card, trainer, train.pop("batch"), mcfg)
+    secs["trainable"] = time.monotonic() - t0
+    log(f"[vlm] {card}: the phase took {time.monotonic() - t_phase:.1f} s (" +
+        ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
+    return dict(serve=serve, train=train, tower=tower, launches1=serve["launches1"] + train["launches1"],
+                counts=train["counts"], secs=secs)
+
+
+def _vlm_serve(card, srv, engine, captured, mcfg, n_new) -> dict:
+    """One wave of 16 image requests (8 prompts, each with two images) and 4
+    text requests, then 4 image requests on wave 1's prompts with new
+    images, profiled."""
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+
+    images = {i: _vlm_image(i) for i in range(16)}
+    rng = np.random.default_rng(7)
+    texts = [rng.integers(0, 151000, int(n)).tolist() for n in rng.integers(64, 257, 4)]
+    bodies = [_vlm_body(ids, px, f"img{i}", n_new) for i, (ids, px) in images.items()]
+    bodies += [_vlm_body(t, None, f"txt{i}", n_new) for i, t in enumerate(texts)]
+    s0 = dict(engine.stats)
+    dev0 = engine.device_seconds()
+    # main path: counts to 0 just before, read just after
+    paged_attention_stacked.launches = 0
+    t0 = time.monotonic()
+    resps = _wave(srv.address, bodies)
+    wall = time.monotonic() - t0
+    launches1 = paged_attention_stacked.launches
+    d = {k: engine.stats[k] - s0[k] for k in ("decode_steps", "prefix_shared", "prefix_cache_hits", "prefills")}
+    for r in resps:
+        _check_response(r, n_new, "vlm")
+    if d["decode_steps"] == 0 or launches1 != mcfg.num_layers * d["decode_steps"]:
+        raise AssertionError(f"[vlm] #1 launches {launches1} != {mcfg.num_layers} layers x {d['decode_steps']} steps")
+    if d["prefix_shared"] or d["prefix_cache_hits"] or d["prefills"] != len(bodies):
+        raise AssertionError(f"[vlm] wave 1: {d}: an image request was aliased or radix-matched")
+    dev = {k: engine.device_seconds()[k] - dev0[k] for k in dev0}
+    if dev["vision_images"] != 16 or len(captured) != 16:
+        raise AssertionError(f"[vlm] {dev['vision_images']} tower calls, {len(captured)} embedded requests: want 16")
+    # the engine's embeddings against a direct call of the tower, bit for bit
+    slots = np.nonzero(np.asarray(images[0][0]) == VLM_IMAGE_TOKEN)[0]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    direct = {i: _vlm_tower(engine, px) for i, (_, px) in images.items()}
+    torch.cuda.synchronize()
+    host_ms = (time.monotonic() - t0) / len(direct) * 1e3
+    unequal = [i for i in images if not torch.equal(captured[f"img{i}"][slots], direct[i][: len(slots)].float())]
+    placed_elsewhere = [i for i in images if captured[f"img{i}"][np.setdiff1d(np.arange(len(images[i][0])), slots)]
+                        .abs().max() != 0]
+    if unequal or placed_elsewhere:
+        raise AssertionError(f"[vlm] the engine's embeddings differ from the tower's for images {unequal}, or sit "
+                             f"outside the image pads for {placed_elsewhere}")
+    # served logprobs against a dense bf16 prefill of prompt + output with the same embeddings
+    errs = [float(_dense_diffs(engine.model, images[i][0], resps[i], False, captured[f"img{i}"]).max())
+            for i in range(16)]
+    gaps = [float(_dense_diffs(engine.model, texts[i], resps[16 + i], True).max()) for i in range(4)]
+    if max(errs) > LOGPROB_TOL or max(gaps) > LOGPROB_TOL:
+        raise AssertionError(f"[vlm] served logprobs vs the dense prefill: {max(errs):.4f} / {max(gaps):.4f}")
+    # equal ids, different images: different first steps
+    same = [i for i in range(0, 16, 2) if resps[i]["output_logprobs"][0] == resps[i + 1]["output_logprobs"][0]]
+    if same:
+        raise AssertionError(f"[vlm] requests {same} and their twins (equal ids, another image) share a first step")
+    # wave 2 on wave 1's prompts (their pages published) with new images: no radix match
+    again = {i: (images[2 * i][0], _vlm_image(100 + i)[1]) for i in range(4)}
+    s1 = dict(engine.stats)
+    dev1 = engine.device_seconds()
+    resps2: list = []
+    prof = _profile(lambda: resps2.extend(_wave(srv.address, [_vlm_body(ids, px, f"again{i}", n_new // 4)
+                                                               for i, (ids, px) in again.items()])),
+                    "wave of 4 image requests", card)
+    dev2 = {k: engine.device_seconds()[k] - dev1[k] for k in dev1}
+    if engine.stats["prefix_cache_hits"] != s1["prefix_cache_hits"]:
+        raise AssertionError("[vlm] an image request matched the radix tree")
+    for i, r in enumerate(resps2):
+        _check_response(r, n_new // 4, "vlm")
+        err = float(_dense_diffs(engine.model, again[i][0], r, False, captured[f"again{i}"]).max())
+        if err > LOGPROB_TOL:
+            raise AssertionError(f"[vlm] wave 2 request {i}: served logprobs vs its own image's dense prefill {err}")
+    out = dict(
+        launches1=launches1, steps=d["decode_steps"],
+        tower_ms_device=dev["vision_s"] / dev["vision_images"] * 1e3, tower_ms_host=host_ms,
+        tower_ms_device_warm=dev2["vision_s"] / dev2["vision_images"] * 1e3,
+        prefill_tok_s=dev["prefill_tokens"] / dev["prefill_s"],
+        prefill_tok_s_with_tower=dev["prefill_tokens"] / (dev["prefill_s"] + dev["vision_s"]),
+        ms_per_step=dev["decode_s"] / dev["decode_steps"] * 1e3, wall_s=wall, busy=prof["busy"],
+        logprob_err=max(errs), greedy_gap=max(gaps),
+    )
+    toks = sum(len(r["output_tokens"]) for r in resps)
+    n_patch = len(images[0][1])
+    log(f"[vlm] {card}: wave of 16 image requests ({len(images[0][0])}-token prompts, {len(slots)} image pads, "
+        f"{n_patch} patches padded to {direct[0].shape[0] * mcfg.vision.spatial_merge**2}) and 4 text requests x "
+        f"{n_new} tokens: complete in {wall:.2f} s ({toks / wall:.1f} tok/s); "
+        f"#1 launches {launches1} = {mcfg.num_layers} layers x {d['decode_steps']} decode steps; tower "
+        f"{out['tower_ms_device']:.2f} ms an image (device stream; the process's first calls), "
+        f"{out['tower_ms_device_warm']:.2f} ms in wave 2, {host_ms:.2f} ms (host loop, synchronized); "
+        f"prefill {out['prefill_tok_s']:.0f} tokens/s ({out['prefill_tok_s_with_tower']:.0f} with the tower; "
+        f"device stream, {dev['prefill_tokens']} tokens); {out['ms_per_step']:.2f} ms a decode step (device "
+        f"stream); device busy {prof['busy']:.1%} of the profiled wave")
+    log(f"[vlm] the engine's embeddings equal the tower's bit for bit (16 images) and sit only at the image pads; "
+        f"served logprobs vs a dense bf16 prefill with the same embeddings: max|diff| {max(errs):.4f}, greedy text "
+        f"gap {max(gaps):.4f} (tol {LOGPROB_TOL}); 8 pairs of equal ids with other images: no aliasing "
+        f"({d['prefix_shared']} shared), different first steps; no radix match on wave 2's 4 requests")
+    return out
+
+
+def _vlm_train(card, srv, engine, trainer, acfg, mcfg, n_new) -> dict:
+    """``PPOTrainer.train``: VLM_STEPS GRPO steps over HTTP, 8 prompts x 4
+    samples, the frozen tower."""
+    from areal_tpu_torch.api.config import (DatasetConfig, EvaluatorConfig, InferenceEngineConfig, PPOConfig,
+                                            PreemptionConfig, RecoverConfig, SaverConfig, StatsLoggerConfig)
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.models import vision as vis
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.reward.clevr_count import clevr_count_reward_fn
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+    from areal_tpu_torch.workflow.vision_rlvr import VisionRLVRWorkflow
+
+    L = mcfg.num_layers
+    client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+    client.initialize()
+    gconfig = GenerationHyperparameters(n_samples=4, max_new_tokens=n_new, temperature=1.0)
+    files = dict(saver=SaverConfig(fileroot=VLM_ROOT), checkpointer=SaverConfig(fileroot=VLM_ROOT),
+                 evaluator=EvaluatorConfig(fileroot=VLM_ROOT), recover=RecoverConfig(fileroot=VLM_ROOT),
+                 stats_logger=StatsLoggerConfig(fileroot=VLM_ROOT))
+    cfg = PPOConfig(experiment_name="chip-smoke", trial_name="vlm", weight_update_mode="mem",
+                    total_train_steps=VLM_STEPS, preemption=PreemptionConfig(enabled=False), gconfig=gconfig,
+                    train_dataset=DatasetConfig(batch_size=8), actor=acfg, rollout=InferenceEngineConfig(**GRPO_CLIENT),
+                    **files)
+    cfg.cluster.fileroot = VLM_ROOT
+    dataset = [{"messages": "How many objects are in the image? Answer as [n].", "images": [2 * i], "answer": "0"}
+               for i in range(VLM_PROMPTS)]
+    loop = PPOTrainer(cfg, dataset, rollout=client, actor_engine=trainer)
+    rec: dict[str, list] = {"fwd": [], "mbs": [], "batches": [], "gaps": [], "stats": [], "tower_calls": 0,
+                            "engine_batches": 0}
+    prepare, compute_logp, train_batch = client.prepare_batch, loop.actor.compute_logp, trainer.train_batch
+    make_grids, forward_batch = trainer._make_grids, trainer.forward_batch
+    tower_batch = vis.vision_forward_batch
+
+    def tower_counted(*a, **k):
+        rec["tower_calls"] += 1
+        return tower_batch(*a, **k)
+
+    def prepare_logged(*a, **k):
+        b = prepare(*a, **k)
+        rec["batches"].append(b)
+        return b
+
+    def make_grids_counted(inp, mb_spec=None):
+        grids = make_grids(inp, mb_spec)
+        rec["fwd"].append(len(grids))
+        return grids
+
+    def forward_logged(b, *a, **k):
+        rec["engine_batches"] += 1
+        trainer._make_grids = make_grids_counted
+        try:
+            return forward_batch(b, *a, **k)
+        finally:
+            trainer._make_grids = make_grids
+
+    def compute_logp_logged(b):
+        out = compute_logp(b)
+        if not rec["gaps"]:  # the first batch: every token of v0, the trainer at v0
+            rec["gaps"].append(_logprob_gap(out, b))
+        return out
+
+    def train_batch_logged(*a, **k):
+        rec["engine_batches"] += 1
+        st = train_batch(*a, **k)
+        rec["mbs"].append(int(st["n_microbatches"]))
+        return st
+
+    client.prepare_batch, loop.actor.compute_logp = prepare_logged, compute_logp_logged
+    trainer.forward_batch, trainer.train_batch = forward_logged, train_batch_logged
+    vis.vision_forward_batch = tower_counted
+    commit = loop.stats_logger.commit
+    loop.stats_logger.commit = lambda e, s, g, stats: (rec["stats"].append(dict(stats)), commit(e, s, g, stats))[1]
+    tower_t0 = {n: p.detach().clone() for n, p in trainer.model.vision.named_parameters()}
+    served_t0 = {n: p.detach().clone() for n, p in engine.model.vision.named_parameters()}
+    s0 = dict(engine.stats)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    try:
+        # main path: counts to 0 just before, read just after
+        for kern in kernels:
+            kern.launches = 0
+        paged_attention_stacked.launches = 0
+        t0 = time.monotonic()
+        loop.train(workflow=VisionRLVRWorkflow(clevr_count_reward_fn, gconfig, _VlmTokenizer(), _VlmProcessor()))
+        wall = time.monotonic() - t0
+        _drain_client(client, engine)
+        counts = [k.launches for k in kernels]
+        launches1 = paged_attention_stacked.launches
+        steps = engine.stats["decode_steps"] - s0["decode_steps"]
+        memo0 = rec["tower_calls"]
+        b = rec["batches"][-1]
+        trainer.forward_batch(b)
+        trainer.forward_batch(b)  # the same batch object, the same version: no second tower run
+        memo = rec["tower_calls"] - memo0
+    finally:
+        vis.vision_forward_batch = tower_batch
+        trainer.forward_batch, trainer.train_batch = forward_batch, train_batch
+        loop.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # checks
+    if len(rec["stats"]) != VLM_STEPS or len(rec["batches"]) != VLM_STEPS:
+        raise AssertionError(f"[vlm] {len(rec['stats'])} steps, {len(rec['batches'])} batches; want {VLM_STEPS}")
+    for i, bt in enumerate(rec["batches"]):
+        _check_rollout_rows(bt, 32, n_new, f"vlm batch {i}")
+        n_patch = int(np.prod(VLM_GRID))
+        if bt["pixel_values"].shape != (32, n_patch, QWEN2_VL_2B_VISION["patch_dim"]) or not (
+                bt["pixel_counts"] == n_patch).all():
+            raise AssertionError(f"[vlm] batch {i}: pixel_values {bt['pixel_values'].shape}")
+    if not rec["gaps"] or rec["gaps"][0] > LOGPROB_TOL:
+        raise AssertionError(f"[vlm] the trainer's logprobs vs the served ones on batch 0: {rec['gaps']}")
+    moved = [n for n, p in trainer.model.vision.named_parameters() if not torch.equal(p.detach(), tower_t0[n])]
+    served = dict(engine.model.vision.named_parameters())
+    moved_s = [n for n, p in served.items() if not torch.equal(p.detach(), served_t0[n])]
+    unequal = [n for n, p in trainer.model.vision.named_parameters()
+               if not torch.equal(p.detach().to(torch.bfloat16), served[n].detach())]
+    llm_served = dict(engine.model.named_parameters())
+    stale = [n for n, p in trainer.model.named_parameters()
+             if not torch.equal(p.detach().to(torch.bfloat16), llm_served[n].detach())]
+    if moved or moved_s or unequal or stale:
+        raise AssertionError(f"[vlm] the tower moved on the trainer {moved[:3]} or the server {moved_s[:3]}, differs "
+                             f"{unequal[:3]}, or the served weights are not the trainer's {stale[:3]}")
+    if rec["tower_calls"] - memo != rec["engine_batches"] - 2 or memo != 1:
+        raise AssertionError(f"[vlm] {rec['tower_calls'] - memo} tower runs for {rec['engine_batches'] - 2} engine "
+                             f"batches; {memo} for a batch passed twice")
+    _flash_counts_check("vlm", counts, {"fwd": rec["fwd"][: VLM_STEPS], "mbs": rec["mbs"]}, L)
+    if steps == 0 or launches1 != L * steps:
+        raise AssertionError(f"[vlm] #1 launches {launches1} != {L} layers x {steps} decode steps")
+    for i, s in enumerate(rec["stats"]):
+        if not (math.isfinite(s["ppo_actor/loss"]) and math.isfinite(s["ppo_actor/grad_norm"])):
+            raise AssertionError(f"[vlm] step {i}: loss / grad_norm not finite")
+        log(f"[vlm] {card}: GRPO step {i}: {s['step_secs']:.2f} s; rollout_wait {s['phase/rollout_wait_s']:.2f} s, "
+            f"host_prep {s['phase/host_prep_s']:.2f} s, ppo_update {s['timing/train_step']:.2f} s, weight_publish "
+            f"{s['phase/weight_publish_s']:.2f} s; mean reward {float(np.mean(rec['batches'][i]['rewards'])):.3f}; loss "
+            f"{s['ppo_actor/loss']:.6f} grad_norm {s['ppo_actor/grad_norm']:.4f}")
+    log(f"[vlm] {card}: {VLM_STEPS} GRPO steps over HTTP (8 prompts x 4 samples x {n_new} tokens, "
+        f"{int(np.prod(VLM_GRID))} patches an image, the frozen tower) in {wall:.1f} s; the trainer's logprobs vs the served ones on batch 0: max|diff| "
+        f"{rec['gaps'][0]:.4f} (tol {LOGPROB_TOL}); the tower bit for bit unchanged on the trainer and the server "
+        f"(the served one = the trainer's in bf16); {rec['tower_calls'] - memo} tower runs for "
+        f"{rec['engine_batches'] - 2} engine batches ({len(rec['fwd']) - 2} logprob recomputes, {len(rec['mbs'])} "
+        f"minibatches), 1 for a batch passed twice; K2 / K3 / K4 launches {counts}; #1 launches {launches1} = {L} x "
+        f"{steps} decode steps; peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    return dict(counts=dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"), counts)),
+                launches1=launches1, steps=steps, gap=rec["gaps"][0], peak_gib=peak, wall_s=wall,
+                step_secs=[s["step_secs"] for s in rec["stats"]], batch=rec["batches"][-1])
+
+
+def _vlm_trainable(card, trainer, batch, mcfg) -> dict:
+    """One ``train_vision_tower=True`` step on 1 prompt x 4 samples of the
+    last batch (the first group whose rewards differ, so the advantages and
+    the gradient are not zero), from the frozen trainer's weights and step
+    count."""
+    from areal_tpu_torch.api.io_struct import FinetuneSpec
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.trainer.ppo import PPOActor
+
+    rewards = np.asarray(batch["rewards"]).reshape(-1, 4)
+    varied = [g for g in range(len(rewards)) if rewards[g].std() > 0]
+    if not varied:
+        raise AssertionError(f"[vlm] no group of the last batch has rewards that differ: {rewards.tolist()}")
+    rows = slice(4 * varied[0], 4 * varied[0] + 4)
+    group = {k: np.asarray(v)[rows] for k, v in batch.items()}
+    frozen_lp = trainer.forward_batch(group)
+    count, state = trainer._opt.count, trainer.model.state_dict()
+    trainer._opt = None  # the frozen run's moments go before the new engine's come
+    torch.cuda.reset_peak_memory_stats()
+    acfg = dataclasses.replace(_grpo_actor(train_vision_tower=True), ppo_n_minibatches=1)
+    eng = TorchTrainEngine(acfg, model_config=mcfg)
+    eng.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=4, train_batch_size=1), seed=0)
+    eng.model.load_state_dict(state)
+    del state, trainer.model
+    gc.collect()
+    # the run goes on from its step count: the step's LR is the schedule's
+    # there, not warmup's first 0
+    eng._opt.count = count
+    lp = eng.forward_batch(group)
+    gen = group["loss_mask"] > 0
+    gap = float(np.abs(lp[gen] - frozen_lp[gen]).max())
+    if gap > LOGPROB_TOL:
+        raise AssertionError(f"[vlm] trainable-tower logprobs vs the frozen path's: {gap:.4f}")
+    before = {n: p.detach().clone() for n, p in eng.model.vision.named_parameters()}
+    actor = PPOActor(acfg, eng)
+    group["prox_logp"] = actor.compute_logp(group)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    stats = actor.ppo_update(actor.compute_advantages(group))
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = dict(eng.model.vision.named_parameters())
+    moved = [n for n in before if not torch.equal(before[n], after[n].detach())]
+    bad = [n for n, p in after.items() if not torch.isfinite(p).all()]
+    gnorm = stats[0]["grad_norm"] if stats else float("nan")
+    if len(stats) != 1 or len(moved) != len(before) or bad or not gnorm > 0:
+        raise AssertionError(f"[vlm] trainable step: {len(stats)} minibatches, grad_norm {gnorm}; the tower moved "
+                             f"in {len(moved)} of {len(before)} leaves; NaN or inf in {bad[:3]}")
+    shift = max(float((after[n].detach() - before[n]).abs().max()) for n in before)
+    log(f"[vlm] {card}: train_vision_tower=True: logprobs vs the frozen path's at the same weights max|diff| "
+        f"{gap:.4f} (tol {LOGPROB_TOL}); one step on 4 samples (group {varied[0]}, rewards {rewards[varied[0]].tolist()}) in {step_s:.2f} s "
+        f"(grad_norm {gnorm:.4f}); the tower moved "
+        f"in {len(moved)} of {len(before)} leaves (largest change {shift:.3g}), all finite; peak "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GiB (predicted {VLM_TRAINABLE_PEAK_PREDICTED_GIB:.0f})")
+    del eng, actor
+    return dict(gap=gap, step_s=step_s, peak_gib=peak, moved=len(moved))
+
+
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
-          "train", "grpo", "durable", "critic", "sft", "int8serve", "lora", "kernel_tree", "train_tree", "kernel_gmm",
+          "train", "grpo", "durable", "critic", "sft", "int8serve", "lora", "vlm", "kernel_tree", "train_tree", "kernel_gmm",
           "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
@@ -7343,6 +7840,7 @@ def main(argv: list[str]) -> int:
         "sft": lambda: phase_sft(card),
         "int8serve": lambda: phase_int8serve(card),
         "lora": lambda: phase_lora(card),
+        "vlm": lambda: phase_vlm(card),
         "kernel_tree": phase_kernel_tree,
         "train_tree": lambda: phase_train_tree(card),
         "kernel_gmm": phase_kernel_gmm,
@@ -7380,7 +7878,7 @@ def main(argv: list[str]) -> int:
                                   "lifecycle": res["lifecycle"]["launches1"], "observe": res["observe"]["launches1"],
                                   "grpo": res["grpo"]["launches1"], "durable": res["durable"]["launches1"],
                                   "critic": res["critic"]["launches1"], "int8serve": res["int8serve"]["launches1"],
-                                  "lora": res["lora"]["launches1"]},
+                                  "lora": res["lora"]["launches1"], "vlm": res["vlm"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -7407,7 +7905,7 @@ def main(argv: list[str]) -> int:
             "launches_by_phase": {"train": train["counts"][name], "grpo": res["grpo"]["counts"][name],
                                   "durable": res["durable"]["counts"][name], "critic": res["critic"]["counts"][name],
                                   "sft": res["sft"]["counts"][name], "int8serve": res["int8serve"]["counts"][name],
-                                  "lora": res["lora"]["counts"][name]},
+                                  "lora": res["lora"]["counts"][name], "vlm": res["vlm"]["counts"][name]},
             "max_abs_err": d["max_abs_err"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],

@@ -219,7 +219,7 @@ def test_safetensors_reader_rejects_bad_files(tmp_path):
 
 def test_checkpoint_that_does_not_fit_changes_nothing(tmp_path):
     """Loading a checkpoint of another shape into a model raises before
-    the first copy; a vision config raises naming its ROADMAP item."""
+    the first copy; a vision config parses into the tower JAX parses."""
     _, cfg, _, sd, tdir, _ = _exports(tmp_path, "qwen3")
     other = tq.init_params(dataclasses.replace(cfg, hidden_size=32), torch.Generator().manual_seed(0), device="cpu")
     before = {n: p.detach().clone() for n, p in other.named_parameters()}
@@ -228,8 +228,9 @@ def test_checkpoint_that_does_not_fit_changes_nothing(tmp_path):
     assert all(torch.equal(p.detach(), before[n]) for n, p in other.named_parameters())
     with open(os.path.join(tdir, "config.json")) as f:
         d = json.load(f)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tq.ModelConfig.from_hf_dict({**d, "vision_config": {}})
+    vlm = tq.ModelConfig.from_hf_dict({**d, "vision_config": {}})
+    assert dataclasses.asdict(vlm.vision) == dataclasses.asdict(jq.ModelConfig.from_hf_dict(
+        {**d, "vision_config": {}}).vision)
 
 
 # ---------------------------------------------------------------------------

@@ -217,7 +217,9 @@ def test_tree_kernel_wrappers_refuse_other_devices():
 )
 def test_unported_trainer_options_refused(change):
     """The trainer options of later slices raise naming their ROADMAP item;
-    LoRA (item 4) constructs and trains only its adapters."""
+    LoRA (item 4) constructs and trains only its adapters; a trainable
+    vision tower (item 5) constructs, and on a model without a tower raises
+    at ``initialize`` as JAX's engine does."""
     from areal_tpu_torch.api.config import PPOActorConfig
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 
@@ -228,6 +230,11 @@ def test_unported_trainer_options_refused(change):
         eng = TorchTrainEngine(cfg, model_config=mcfg, device="cpu")
         eng.initialize()
         assert eng._train_names and all("_lora_" in n for n in eng._train_names)
+        return
+    if "train_vision_tower" in change:
+        eng = TorchTrainEngine(cfg, model_config=mcfg, device="cpu")
+        with pytest.raises(ValueError, match="no vision tower"):
+            eng.initialize()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchTrainEngine(cfg, model_config=mcfg, device="cpu")
