@@ -36,8 +36,14 @@ from areal_tpu_torch.utils.data import MicroBatchSpec
 
 @dataclass
 class MeshConfig:
-    """Device-mesh axis sizes (``areal_tpu/api/config.py`` ``MeshConfig``).
-    The port runs on one device; any axis above 1 is refused."""
+    """Device-mesh axis sizes (``areal_tpu/api/config.py`` ``MeshConfig``,
+    the axes of ``parallel/mesh.py``). The train engine lays a
+    ``torch.distributed`` world out by them: ``data`` replicates, ``fsdp``
+    shards (FSDP2) and ``model`` is tensor parallelism; the one axis at -1
+    absorbs the world (by default ``data``, so a world of N is N replicas).
+    ``seq``, ``expert`` and ``pipe`` above 1 are refused (ROADMAP Queue A
+    item 6b), and so is any axis above 1 for the decode engine (serving on
+    a mesh is 6b too)."""
 
     data: int = -1
     fsdp: int = 1

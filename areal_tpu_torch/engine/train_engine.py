@@ -117,8 +117,33 @@ What is kept from the JAX engine:
   load without ``visual.*`` initializes the tower afresh, as JAX does.
   Tree training refuses images.
 
-Not ported (``_check_supported`` raises ``NotImplementedError``):
-multi-device meshes.
+- Across GPUs (``train_engine.py:206-220``, ``:600-663``): when
+  ``torch.distributed`` is up (``torchrun``, ``parallel/mesh.py
+  init_distributed``) the engine lays the world out as ``config.mesh`` and
+  places the model by ``qwen.shard_model`` (FSDP2 over data x fsdp, tensor
+  parallelism over ``model``), whatever the world's size: a world of one
+  runs the same code. ``train_batch`` / ``forward_batch`` keep JAX's
+  contract: every rank gets the same global batch and packs the same
+  grids, their rows rounded up to the data-parallel degree, and each rank
+  computes its block of rows of each grid (``mesh.dp_rank``). A
+  microbatch's loss on a block is weighted by the block's share of the
+  whole batch's loss weight, so the gradients, summed over data x fsdp in
+  f32, are those of the whole grid; the scalar stats combine over the
+  blocks by the same weights, and ``forward_batch`` returns every row in
+  global order on every rank. AdamW steps on each rank's shards, its
+  global norm summed over the mesh (the leaves replicated over ``model``
+  counted once). ``update_weights`` gathers the weights on every rank and
+  rank 0 alone streams them; ``save`` gathers and rank 0 writes the files
+  the unsharded engine writes (byte for byte), and ``load`` reads them on
+  every rank and keeps the rank's shards, so a trainer resumes on another
+  mesh shape. The asynchronous snapshot holds the gathered leaves, in rank
+  0's pinned buffers. ``prepare_batch`` / ``rollout_batch`` go through
+  ``infra/dist_rollout.DistRolloutCoordinator``: rank 0 pulls and every
+  rank gets the global batch.
+
+Not ported (``NotImplementedError`` naming ROADMAP Queue A item 6b): the
+``seq``, ``expert`` and ``pipe`` axes above 1, and on a mesh tree training,
+LoRA, a vision tower and MoE models.
 """
 
 from __future__ import annotations
@@ -148,10 +173,11 @@ from areal_tpu_torch.observability.step_timeline import engine_phase
 from areal_tpu_torch.models import tree as tree_lib
 from areal_tpu_torch.ops.attention import resolve_impl
 from areal_tpu_torch.ops.tree_attention import BLOCK, forest_hidden, pack_ancestor_bits
+from areal_tpu_torch.parallel import mesh as mesh_lib
 from areal_tpu_torch.utils import atomic_io
 from areal_tpu_torch.utils.data import TensorDict, round_up_to_bucket, seqlens_of
 from areal_tpu_torch.utils.grid import Grid, pack_grid
-from areal_tpu_torch.utils.offload import offload_tensors, onload_tensors
+from areal_tpu_torch.utils.offload import offload_storages, offload_tensors, onload_storages, onload_tensors
 from areal_tpu_torch.utils.safetensors_io import SafetensorsFile, save_file
 
 logger = logging.getLogger("areal_tpu_torch.train_engine")
@@ -196,6 +222,18 @@ def _np_device_dtype(v: np.ndarray) -> np.ndarray:
     if v.dtype == np.int64:
         return v.astype(np.int32)
     return v
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A leaf's tensor on this rank: a DTensor's local shard (the storage
+    that FSDP2 gathers from, so an in-place update of it is the update of
+    the leaf), else the tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        with torch.no_grad():
+            return t.to_local()
+    return t
 
 
 def _fold_weighted_stats(
@@ -337,6 +375,11 @@ class TorchTrainEngine(TrainEngine):
         self._snap_free = threading.Event()
         self._snap_free.set()
         self._offload_mode: str | None = None
+        self._offloaded_storages = None
+        # the world's layout when torch.distributed is up (``initialize``),
+        # and the shapes this rank computes with (``qwen.local_config``)
+        self.mesh = None
+        self._local_cfg: qwen.ModelConfig | None = None
         # the last training call's per-sequence loss stats (``seq__*``), in
         # the input batch's order, when it carried ``lineage_id``
         self.last_seq_stats: dict[str, np.ndarray] | None = None
@@ -350,8 +393,10 @@ class TorchTrainEngine(TrainEngine):
         if cfg.tree_training and value_head:
             raise ValueError("tree training is a policy-only path, as in the JAX engine: no value head")
         m = cfg.mesh
-        if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
-            raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
+        if max(m.seq, m.expert, m.pipe) > 1:
+            raise NotImplementedError(
+                f"mesh seq={m.seq} expert={m.expert} pipe={m.pipe}: sequence, expert and pipeline parallelism are "
+                "ROADMAP Queue A item 6b")
         if cfg.weight_update_mode not in ("disk", "mem"):
             raise ValueError(f"weight_update_mode={cfg.weight_update_mode!r}; valid: disk|mem")
         if cfg.optimizer.type != "adamw":
@@ -389,6 +434,14 @@ class TorchTrainEngine(TrainEngine):
                 raise ValueError("train_vision_tower set but the model has no vision tower")
             if master_cfg.lora_rank > 0:
                 raise ValueError("train_vision_tower with LoRA is unsupported: LoRA freezes every non-adapter leaf")
+        if mesh_lib.init_distributed(self.device):
+            self.mesh = mesh_lib.make_mesh(cfg.mesh, self.device)
+            if cfg.tree_training or master_cfg.lora_rank > 0 or master_cfg.vision is not None or master_cfg.num_experts:
+                raise NotImplementedError("tree training, LoRA, vision and MoE models on a mesh: ROADMAP Queue A "
+                                          "item 6b")
+            self._local_cfg = qwen.local_config(self.model_cfg, mesh_lib.axis_size(self.mesh, "model"))
+        else:
+            mesh_lib.mesh_sizes(cfg.mesh, 1)  # a mesh of more devices than this process raises: no fallback
         if cfg.init_from_scratch or not cfg.path:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.model = qwen.init_params(master_cfg, gen, device=self.device)
@@ -416,7 +469,10 @@ class TorchTrainEngine(TrainEngine):
             params = dict(self.model.named_parameters())
             for n in self._train_names:
                 params[n].requires_grad_(True)
-            self._opt = _OptaxAdamW(self._trainable(), cfg.optimizer, self._lr_schedule)
+        if self.mesh is not None:
+            qwen.shard_model(self.model, self.mesh, self.model_cfg.torch_dtype)
+        if self.need_optimizer:
+            self._opt = _OptaxAdamW([_local(p) for p in self._trainable()], cfg.optimizer, self._lr_schedule)
 
     def _add_lora_adapters(self, seed: int = 0) -> None:
         """Fresh adapters over a loaded base: HF checkpoints never carry
@@ -510,16 +566,23 @@ class TorchTrainEngine(TrainEngine):
         self._image_embed_memo = (memo_key, embeds, (pv_obj, counts_obj, ids_obj))
         return input_
 
+    def _dp(self) -> int:
+        return mesh_lib.dp_size(self.mesh) if self.mesh is not None else 1
+
     def _make_grids(self, input_: TensorDict, mb_spec: MicroBatchSpec | None = None) -> list[Grid]:
-        """Padded batch -> microbatch grids (FFD rows, bucketed L)."""
+        """Padded batch -> microbatch grids (FFD rows, bucketed L, G padded
+        to the data-parallel degree, ``train_engine.py:600``)."""
         input_ = self._attach_image_embeds(input_)
         cfg = self.config
         lens = seqlens_of(input_)
         row_len = round_up_to_bucket(int(lens.max()), cfg.bucket_step)
         grid = pack_grid(input_, row_len)
         max_tok = (mb_spec or cfg.mb_spec).max_tokens_per_mb
+        dp = self._dp()
         rows_per_mb = max(1, max_tok // row_len) if max_tok else grid.n_rows
-        if rows_per_mb >= grid.n_rows:
+        if dp > 1:
+            rows_per_mb = max(dp, -(-rows_per_mb // dp) * dp)
+        if rows_per_mb >= grid.n_rows and grid.n_rows % dp == 0:
             grid.source_index = list(grid.seq_index)
             return [grid]
         # re-pack per microbatch: chunk sequences by their assigned row
@@ -532,11 +595,30 @@ class TorchTrainEngine(TrainEngine):
             if not seqs:
                 continue
             sub = {k: np.asarray(v)[seqs] for k, v in input_.items()}
-            g = pack_grid(sub, row_len)
+            g = pack_grid(sub, row_len, pad_rows_to=dp)
             # g.seq_index points into ``sub``; the attribution needs input_'s
             g.source_index = [seqs[i] for i in g.seq_index]
             out.append(g)
         return out
+
+    def _grid_block(self, grid: Grid, b: int | None = None) -> Grid:
+        """Rank block ``b``'s rows of a grid (default this rank's): the
+        [G / dp, L] rows a data x fsdp rank computes, as a grid of their
+        own whose sequences keep their index in the engine's input."""
+        dp = self._dp()
+        if dp == 1:
+            return grid
+        b = mesh_lib.dp_rank(self.mesh) if b is None else b
+        n = grid.n_rows // dp
+        r0 = b * n
+        G, L = grid.n_rows, grid.row_len
+        data = {k: (np.asarray(v)[r0 : r0 + n] if np.ndim(v) >= 2 and np.shape(v)[:2] == (G, L) else v)
+                for k, v in grid.data.items()}
+        keep = [i for i, r in enumerate(grid.row_of_seq) if r0 <= r < r0 + n]
+        src = grid.source_index if grid.source_index is not None else grid.seq_index
+        return Grid(data=data, n_rows=n, row_len=L, seq_index=[grid.seq_index[i] for i in keep],
+                    row_of_seq=[grid.row_of_seq[i] - r0 for i in keep], col_of_seq=[grid.col_of_seq[i] for i in keep],
+                    seq_lens=[grid.seq_lens[i] for i in keep], source_index=[src[i] for i in keep])
 
     def _grid_to_device(self, grid: Grid, seq_attribution: bool = False) -> dict[str, torch.Tensor]:
         """Per-token grid arrays (plus the causal labels) as device tensors.
@@ -711,8 +793,14 @@ class TorchTrainEngine(TrainEngine):
         token-aligned ``values`` [G, L] instead. A VLM grid's image-pad
         tokens take the frozen tower's ``image_embeds``, or with the
         trainable tower the embeddings of a tower run here, inside the
-        autograd, on the compute-dtype view (``train_engine.py:727``)."""
-        view = qwen.ParamView(self.model, self.model_cfg)
+        autograd, on the compute-dtype view (``train_engine.py:727``). On a
+        mesh the whole of it runs inside the root's call, on the rank's
+        ``ShardedView``."""
+        if self.mesh is not None:
+            return self.model(lambda m: self._outputs_of(qwen.ShardedView(m, self._local_cfg), batch, no_grad))
+        return self._outputs_of(qwen.ParamView(self.model, self.model_cfg), batch, no_grad)
+
+    def _outputs_of(self, view, batch: dict[str, torch.Tensor], no_grad: bool) -> dict:
         moe = self.model_cfg.num_experts > 0
         image_embeds = batch.get("image_embeds")
         if "pixel_values" in batch:
@@ -774,14 +862,17 @@ class TorchTrainEngine(TrainEngine):
                 weights = [float(loss_weight_fn(b)) for b in mbs]
                 to_device, outputs_fn = self._tree_batch_to_device, self._tree_outputs_fn
             else:
-                mbs = self._make_grids(input_, mb_spec=mb_spec)
+                grids = self._make_grids(input_, mb_spec=mb_spec)
+                mbs = [self._grid_block(g) for g in grids]
                 weights = [float(loss_weight_fn(g.data)) for g in mbs]
 
                 def to_device(g):
                     return self._grid_to_device(g, seq_attribution=True)
 
                 outputs_fn = self._outputs_fn
-        total_w = sum(weights) or 1.0
+        # each grid's weight, all its blocks' (one block on one device)
+        mb_weights = self._grid_weights(grids, loss_weight_fn) if self._dp() > 1 else weights
+        total_w = sum(mb_weights) or 1.0
         pending: list[dict[str, torch.Tensor]] = []
         for mb, w in zip(mbs, weights):
             with engine_phase("host_prep"):
@@ -792,7 +883,9 @@ class TorchTrainEngine(TrainEngine):
                 loss.backward()
             pending.append({**{k: v.detach() for k, v in stats.items()}, "loss": loss.detach()})
         with engine_phase("forward_backward"):
-            gnorm = _OptaxAdamW.global_norm(self._grads())
+            if self._dp() > 1:
+                self._combine_block_stats(pending, weights, mb_weights)
+            gnorm = self._grad_norm(self._grads())
             # one device -> host transfer for every stat of every microbatch,
             # the per-sequence arrays included (their sizes are host-known)
             shapes = [[(k, tuple(v.shape)) for k, v in s.items()] for s in pending]
@@ -814,17 +907,51 @@ class TorchTrainEngine(TrainEngine):
             agg = dict(mb_host[0])
         else:
             agg = {}
-            _fold_weighted_stats(agg, mb_host, weights, total_w)
+            _fold_weighted_stats(agg, mb_host, mb_weights, total_w)
         agg["grad_norm"] = flat[-1]
         agg["n_microbatches"] = float(len(mbs))
         agg.update(extra)
         return agg, gnorm
 
+    def _grid_weights(self, grids: list[Grid], loss_weight_fn) -> list[float]:
+        """The loss weight of each whole grid: the sum of its blocks'."""
+        return [sum(float(loss_weight_fn(self._grid_block(g, b).data)) for b in range(self._dp())) for g in grids]
+
+    def _combine_block_stats(self, pending: list[dict], weights: list[float], mb_weights: list[float]) -> None:
+        """Each grid's scalar stats over its blocks, in place: the blocks'
+        values weighted by their loss weights and summed over data x fsdp,
+        so a token mean comes out the whole grid's; the scaled ``loss`` and
+        the counts (``n_*``, such as ``n_valid_tokens``) are sums. One
+        all-reduce for every scalar of every microbatch; the per-sequence
+        arrays stay the rank's (``_collect_seq_stats``)."""
+        keys = [(i, k) for i, st in enumerate(pending) for k, v in st.items() if v.dim() == 0]
+        summed = [k == "loss" or k.startswith("n_") for _, k in keys]
+        vec = torch.stack([pending[i][k].float() * (1.0 if add else weights[i]) for (i, k), add in zip(keys, summed)])
+        mesh_lib.all_reduce(vec, self.mesh, mesh_lib.BATCH_AXES)
+        for j, ((i, k), add) in enumerate(zip(keys, summed)):
+            pending[i][k] = vec[j] if add else vec[j] / (mb_weights[i] or 1.0)
+
+    def _grad_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global gradient norm; on a mesh, each leaf's sum of squares
+        over the rank's shard, summed over fsdp x model, a leaf replicated
+        over ``model`` counted on its rank 0 only (the squares in the
+        unsharded engine's order, so a world of one gives its bits)."""
+        if self.mesh is None:
+            return _OptaxAdamW.global_norm(grads)
+        sq = torch.stack([torch.dot(g.reshape(-1).float(), g.reshape(-1).float()) for g in grads])
+        tp = self.model.tp
+        if tp.size > 1 and tp.rank > 0:
+            split = [qwen.tp_dim(self.model_cfg, n) is not None for n in self._train_names]
+            sq = sq * torch.tensor(split, dtype=sq.dtype, device=sq.device)
+        mesh_lib.all_reduce(sq, self.mesh, ("fsdp", "model"))
+        return sq.sum().sqrt()
+
     def _collect_seq_stats(self, pairs: list[tuple[Grid, dict[str, np.ndarray]]], n_input: int) -> None:
         """Map the per-slot ``seq__*`` loss stats back to the input
         sequences' order through each grid's ``source_index`` (the bucket's
         padding slots drop). Host bookkeeping only: the arrays came in the
-        step's one transfer."""
+        step's one transfer. On a mesh each rank holds its blocks'
+        sequences, and the arrays sum over data x fsdp."""
         out: dict[str, np.ndarray] = {}
         for g, arrs in pairs:
             src = g.source_index if g.source_index is not None else g.seq_index
@@ -833,11 +960,17 @@ class TorchTrainEngine(TrainEngine):
                 for local, s in enumerate(src):
                     if local < len(arr) and 0 <= s < n_input:
                         dest[s] = arr[local]
+        if self._dp() > 1:
+            for k, arr in out.items():
+                t = torch.from_numpy(arr).to(self.device)
+                mesh_lib.all_reduce(t, self.mesh, mesh_lib.BATCH_AXES)
+                out[k] = t.cpu().numpy()
         self.last_seq_stats = out or None
 
     def _grads(self) -> list[torch.Tensor]:
-        """The trainable parameters' gradients (zeros where none arrived)."""
-        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self._trainable()]
+        """The trainable parameters' gradients, the rank's shards on a mesh
+        (zeros where none arrived)."""
+        return [_local(p.grad) if p.grad is not None else torch.zeros_like(_local(p)) for p in self._trainable()]
 
     def zero_grad(self) -> None:
         for p in self.model.parameters():
@@ -875,16 +1008,22 @@ class TorchTrainEngine(TrainEngine):
         loss_weight_fn: Callable[[TensorDict], float],
     ) -> dict[str, float]:
         grids = self._make_grids(input_)
-        weights = [float(loss_weight_fn(g.data)) for g in grids]
-        total_w = sum(weights) or 1.0
+        blocks = [self._grid_block(g) for g in grids]
+        weights = [float(loss_weight_fn(g.data)) for g in blocks]
+        mb_weights = self._grid_weights(grids, loss_weight_fn) if self._dp() > 1 else weights
+        total_w = sum(mb_weights) or 1.0
         pending = []
-        for g in grids:
+        for g in blocks:
             batch = self._grid_to_device(g)
             loss, stats = loss_fn(self._outputs_fn(batch, no_grad=True), batch)
             pending.append({**stats, "loss": loss})
+        if self._dp() > 1:
+            for st, w, mw in zip(pending, weights, mb_weights):
+                st["loss"] = st["loss"] * (w / (mw or 1.0))  # the grid's loss is its blocks' weighted sum
+            self._combine_block_stats(pending, weights, mb_weights)
         mb_host = [{k: float(v) for k, v in s.items()} for s in pending]
         agg: dict[str, float] = {}
-        _fold_weighted_stats(agg, mb_host, weights, total_w)
+        _fold_weighted_stats(agg, mb_host, mb_weights, total_w)
         return agg
 
     @torch.no_grad()
@@ -897,9 +1036,14 @@ class TorchTrainEngine(TrainEngine):
         out = np.zeros((B, L), dtype=np.float32)
         with engine_phase("host_prep"):
             grids = self._make_grids(input_)
-            dev = [self._grid_to_device(g) for g in grids]
+            dev = [self._grid_to_device(self._grid_block(g)) for g in grids]
         with engine_phase("forward_backward"):
-            pending = [self._outputs_fn(d, no_grad=True)[output_key].float().cpu().numpy() for d in dev]
+            pending = []
+            for d in dev:
+                vals = self._outputs_fn(d, no_grad=True)[output_key].float()
+                if self._dp() > 1:  # every block, in global row order, on every rank
+                    vals = mesh_lib.gather_rows(vals, self.mesh)
+                pending.append(vals.cpu().numpy())
         del dev
         token_aligned = output_key == "values"
         for vals, g in zip(pending, grids):
@@ -912,7 +1056,11 @@ class TorchTrainEngine(TrainEngine):
             within = np.arange(n_eff.sum()) - np.repeat(np.cumsum(n_eff) - n_eff, n_eff)
             src_r = np.asarray(g.row_of_seq)[seq_of]
             src_c = np.asarray(g.col_of_seq)[seq_of] + within
-            dst_r = np.asarray(g.seq_index)[seq_of]
+            # a re-packed grid's seq_index points into its sub-batch; the
+            # input's rows are its source_index (JAX scatters by seq_index:
+            # ROADMAP Queue C, C-ref 11)
+            dst = g.source_index if g.source_index is not None else g.seq_index
+            dst_r = np.asarray(dst)[seq_of]
             out[dst_r, within if token_aligned else within + 1] = vals[src_r, src_c]
         return out
 
@@ -921,24 +1069,34 @@ class TorchTrainEngine(TrainEngine):
         """Connect the engine that ``update_weights`` pushes to and
         ``prepare_batch`` / ``rollout_batch`` delegate to: an
         ``InferenceEngine`` (``RemoteTorchEngine``), or an in-process
-        ``DecodeEngine`` (which has no rollout methods)."""
+        ``DecodeEngine`` (which has no rollout methods). In a world of
+        several ranks only rank 0 has one (the others pass None), and the
+        rollout calls go through ``DistRolloutCoordinator``."""
+        from areal_tpu_torch.infra.dist_rollout import DistRolloutCoordinator
+
         self._inference_engine = engine
         self._weight_update_meta = meta
+        self._rollout_coord = DistRolloutCoordinator(engine)
+
+    def _rollout_source(self):
+        if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+            return self._rollout_coord  # rank 0 pulls, every rank gets the global batch
+        if self._inference_engine is None:
+            raise RuntimeError("no inference engine connected (connect_engine)")
+        return self._inference_engine
 
     def prepare_batch(self, *args, **kwargs) -> TensorDict:
-        """The connected engine's ``prepare_batch`` (one process; the
-        multi-host rollout coordinator is ROADMAP Queue A item 6)."""
-        if self._inference_engine is None:
-            raise RuntimeError("no inference engine connected (connect_engine)")
-        return self._inference_engine.prepare_batch(*args, **kwargs)
+        """The connected engine's ``prepare_batch``; in a world of several
+        ranks, rank 0's, handed to every rank."""
+        return self._rollout_source().prepare_batch(*args, **kwargs)
 
     def rollout_batch(self, *args, **kwargs) -> TensorDict:
-        if self._inference_engine is None:
-            raise RuntimeError("no inference engine connected (connect_engine)")
-        return self._inference_engine.rollout_batch(*args, **kwargs)
+        return self._rollout_source().rollout_batch(*args, **kwargs)
 
     def update_weights(self, meta: WeightUpdateMeta | None = None) -> None:
-        """Push the master weights to the connected engine.
+        """Push the master weights to the connected engine. On a mesh every
+        rank joins the gather of the weights (``_export_params``) and rank
+        0 alone pushes them; the others wait at a barrier until it has.
 
         "mem": an ``InferenceEngine`` gets ``update_weights(meta, params=state
         dict)``, as in ``areal_tpu/engine/train_engine.py:1479``, and its
@@ -949,6 +1107,15 @@ class TorchTrainEngine(TrainEngine):
         ``meta.with_version``), then an ``InferenceEngine`` gets
         ``update_weights`` with that path, or an in-process engine
         ``update_weights_from_disk``."""
+        if self.mesh is None:
+            return self._update_weights(meta)
+        if mesh_lib.is_lead():
+            self._update_weights(meta)
+        else:
+            self._export_params()
+        torch.distributed.barrier()
+
+    def _update_weights(self, meta: WeightUpdateMeta | None) -> None:
         meta = meta or self._weight_update_meta
         if meta is None:
             raise ValueError("no WeightUpdateMeta configured")
@@ -994,9 +1161,68 @@ class TorchTrainEngine(TrainEngine):
     def _export_params(self) -> dict[str, torch.Tensor]:
         """The master parameters as a state dict (detached views, no copy),
         without the value head: no server or HF checkpoint holds one. Under
-        LoRA the adapters are merged into their targets (new tensors)."""
+        LoRA the adapters are merged into their targets (new tensors). On a
+        mesh every rank must call it: the leaves are gathered whole, one at
+        a time, and rank 0 keeps them (the others get an empty dict)."""
+        if self.mesh is not None:
+            return self._gather({n: p for n, p in self.model.named_parameters() if n != "value_head"})
         state = {name: p.detach() for name, p in self.model.named_parameters() if name != "value_head"}
         return qwen.merge_lora(state, self.model_cfg)
+
+    # -- leaves on a mesh ---------------------------------------------------
+    def _full_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf ``name`` from this rank's part ``t``: the
+        parameter itself (a DTensor) or a tensor laid out as its local
+        shard (an AdamW moment). FSDP2's all-gather over fsdp, then the
+        ``model`` blocks concatenated along the leaf's TP dim."""
+        from torch.distributed.tensor import DTensor
+
+        p = self.model.get_parameter(name)
+        with torch.no_grad():
+            if not isinstance(t, DTensor):
+                t = DTensor.from_local(t, p.device_mesh, p.placements, shape=p.shape, stride=p.stride())
+            full = t.full_tensor()
+            tp, d = self.model.tp, qwen.tp_dim(self.model_cfg, name)
+            if tp.size > 1 and d is not None:
+                parts = [torch.empty_like(full) for _ in range(tp.size)]
+                torch.distributed.all_gather(parts, full.contiguous(), group=tp.group)
+                full = torch.cat(parts, dim=d)
+        return full
+
+    def _gather(self, leaves: dict[str, torch.Tensor], out=None) -> dict[str, torch.Tensor]:
+        """``_full_leaf`` of each of ``leaves`` on every rank, in order; rank
+        0 keeps them — copied into ``out[name]`` when given (pinned host
+        buffers), else as device tensors — and the other ranks drop them."""
+        kept = {}
+        for n, t in leaves.items():
+            full = self._full_leaf(n, t)
+            if not mesh_lib.is_lead():
+                continue
+            if out is None:
+                kept[n] = full
+            else:
+                out[n].copy_(full)
+                kept[n] = out[n]
+        return kept
+
+    def _shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole leaf (the inverse of ``_full_leaf``):
+        its ``model`` block, then its FSDP2 shard, without communication."""
+        from torch.distributed.tensor import distribute_tensor
+
+        p = self.model.get_parameter(name)
+        tp, d = self.model.tp, qwen.tp_dim(self.model_cfg, name)
+        if tp.size > 1 and d is not None:
+            full = full.chunk(tp.size, dim=d)[tp.rank]
+        full = full.to(device=self.device, dtype=p.dtype).contiguous()
+        return distribute_tensor(full, p.device_mesh, p.placements, src_data_rank=None).to_local()
+
+    def _full_shape(self, name: str) -> list[int]:
+        shape = list(self.model.get_parameter(name).shape)
+        d = qwen.tp_dim(self.model_cfg, name)
+        if d is not None:
+            shape[d] *= self.model.tp.size
+        return shape
 
     def _lora_leaves(self) -> dict[str, torch.Tensor]:
         """The adapters as the JAX engine sends them: ``layers/<t>_lora_a``
@@ -1013,7 +1239,7 @@ class TorchTrainEngine(TrainEngine):
         """The recover state by file: the master parameters (the value head
         and the adapters among them), and with ``with_optim`` the AdamW
         moments under the names of the parameters that train."""
-        params = {n: p.detach() for n, p in self.model.named_parameters()}
+        params = {n: p.detach() for n, p in self.model.named_parameters()}  # DTensors on a mesh
         groups = {"params": params}
         if with_optim and self._opt is not None:
             groups["mu"] = dict(zip(self._train_names, self._opt.mu))
@@ -1061,6 +1287,8 @@ class TorchTrainEngine(TrainEngine):
         is written, so the next snapshot waits for that write."""
         if not self._snap_free.wait(timeout=3600):
             raise RuntimeError("the previous snapshot was never written (write_snapshot)")
+        if self.mesh is not None:
+            return self._snapshot_sharded(with_optim)
         groups = self._state_groups(with_optim)
         cuda = self.device.type == "cuda"
         if self._snap_bufs is None or any(
@@ -1092,11 +1320,33 @@ class TorchTrainEngine(TrainEngine):
         count = self._opt.count if self._opt is not None else 0
         return {"groups": bufs, "step_count": count, "event": event}
 
+    def _snapshot_sharded(self, with_optim: bool) -> dict:
+        """The snapshot on a mesh: every leaf of the state gathered whole (a
+        collective: every rank calls it) and copied into rank 0's pinned
+        buffers before this returns, so the next step needs no wait; the
+        other ranks hold no buffers and write nothing."""
+        groups = self._state_groups(with_optim)
+        lead = mesh_lib.is_lead()
+        if lead and (self._snap_bufs is None or any(
+            g not in self._snap_bufs or self._snap_bufs[g].keys() != ts.keys() for g, ts in groups.items()
+        )):
+            cuda = self.device.type == "cuda"
+            self._snap_bufs = {
+                g: {n: torch.empty(self._full_shape(n), dtype=t.dtype, pin_memory=cuda) for n, t in ts.items()}
+                for g, ts in groups.items()
+            }
+        bufs = {g: self._gather(ts, out=self._snap_bufs[g] if lead else None) for g, ts in groups.items()}
+        self._snap_free.clear()
+        count = self._opt.count if self._opt is not None else 0
+        return {"groups": bufs if lead else None, "step_count": count, "event": None}
+
     def write_snapshot(self, snapshot: dict, path: str) -> int:
         """Write a ``snapshot_for_save`` in the "state" format ``load``
         restores; runs on the saver's thread and touches no engine state
         but the snapshot's buffers, which it frees for the next snapshot."""
         try:
+            if snapshot["groups"] is None:  # a rank of a mesh other than 0
+                return 0
             if snapshot["event"] is not None:
                 snapshot["event"].synchronize()
             return self._write_state(path, snapshot["groups"], snapshot["step_count"])
@@ -1123,13 +1373,15 @@ class TorchTrainEngine(TrainEngine):
         ``"state"``: the recover format, a snapshot written before this
         returns (the asynchronous save's two halves back to back)."""
         if meta.weight_format == "hf":
-            save_params_to_hf(
-                self._export_params(), self.model_cfg, meta.path,
-                base_model_path=meta.base_model_path or self.config.path,
-            )
+            params = self._export_params()
+            if mesh_lib.is_lead():
+                save_params_to_hf(params, self.model_cfg, meta.path,
+                                  base_model_path=meta.base_model_path or self.config.path)
         else:
             _check_recover_format(meta.weight_format)
             self.write_snapshot(self.snapshot_for_save(meta.with_optim), meta.path)
+        if self.mesh is not None:
+            torch.distributed.barrier()  # the files are whole before any rank goes on
 
     def load(self, meta: SaveLoadMeta) -> None:
         """Load ``save``'s output in place. "state" restores the master
@@ -1139,6 +1391,13 @@ class TorchTrainEngine(TrainEngine):
         copy."""
         self.wait_for_save()
         if meta.weight_format == "hf":
+            if self.mesh is not None:  # read whole on every rank, each keeps its shards
+                full, _ = load_params_from_hf(meta.path, cfg=self.model_cfg, dtype=self.config.param_dtype,
+                                              device="cpu")
+                with torch.no_grad():
+                    for n, t in full.named_parameters():
+                        _local(self.model.get_parameter(n)).copy_(self._shard_of(n, t))
+                return
             # the checkpoint is merged and has no tower (the export writes
             # none): fresh adapters and, as in JAX, a fresh tower (seed 0)
             load_params_from_hf(meta.path, model=self.model, vision_seed=0)
@@ -1161,12 +1420,16 @@ class TorchTrainEngine(TrainEngine):
             if set(f.keys()) != set(groups[g]):
                 raise ValueError(f"{d}/{g}: names differ from the model's")
             for n, t in groups[g].items():
-                if f.info(n) != (t.dtype, list(t.shape)):
-                    raise ValueError(f"{d}/{g}: {n} is {f.info(n)}, the model's {t.dtype}{list(t.shape)}")
+                shape = self._full_shape(n) if self.mesh is not None else list(t.shape)
+                if f.info(n) != (t.dtype, shape):
+                    raise ValueError(f"{d}/{g}: {n} is {f.info(n)}, the model's {t.dtype}{shape}")
         with torch.no_grad():
             for g in want:
                 for n, t in groups[g].items():
-                    t.copy_(files[g].get(n))
+                    if self.mesh is not None:  # every rank reads the whole leaf and keeps its shard
+                        _local(t).copy_(self._shard_of(n, files[g].get(n)))
+                    else:
+                        t.copy_(files[g].get(n))
         if meta.with_optim and self._opt is not None:
             self._opt.count = int(manifest["step_count"])
 
@@ -1178,6 +1441,9 @@ class TorchTrainEngine(TrainEngine):
             return
         self.wait_for_save()
         t0 = time.monotonic()
+        if self.mesh is not None:  # FSDP2's shards: their storages move, every view of them stays
+            self._offload_mode, self._offloaded_storages = offload_storages(self._offload_targets())
+            return
         self._offload_mode = offload_tensors(self._offload_targets())
         logger.info(f"offloaded params + optimizer state ({self._offload_mode}) in {time.monotonic() - t0:.2f}s")
 
@@ -1185,12 +1451,16 @@ class TorchTrainEngine(TrainEngine):
         if self._offload_mode is None:
             return
         t0 = time.monotonic()
-        onload_tensors(self._offload_targets(), self.device)
+        if self._offloaded_storages is not None:
+            onload_storages(self._offloaded_storages)
+            self._offloaded_storages = None
+        else:
+            onload_tensors(self._offload_targets(), self.device)
         self._offload_mode = None
         logger.info(f"onloaded params + optimizer state in {time.monotonic() - t0:.2f}s")
 
     def _offload_targets(self) -> list[torch.Tensor]:
-        ts = list(self.model.parameters())
+        ts = [_local(p) for p in self.model.parameters()]
         if self._opt is not None:
             ts += self._opt.mu + self._opt.nu
         return ts
@@ -1198,7 +1468,7 @@ class TorchTrainEngine(TrainEngine):
     def hbm_ledger(self, override_hbm_gb: float | None = None) -> dict:
         """Itemized device memory of this engine: the parameters and the
         optimizer state beside the card's use and size."""
-        params = sum(p.numel() * p.element_size() for p in self.model.parameters())
+        params = sum(_local(p).numel() * p.element_size() for p in self.model.parameters())
         opt = self._opt.state_bytes() if self._opt is not None else 0
         return step_timeline.build_hbm_ledger(
             {"params": params, "opt_state": opt}, device=self.device, override_hbm_gb=override_hbm_gb

@@ -127,7 +127,7 @@ The shape of the JAX engine is kept:
   C, C-ref 8).
 
 Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
-multi-device meshes.
+serving on a multi-device mesh (ROADMAP Queue A item 6b).
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -476,7 +476,8 @@ class DecodeEngine:
             raise ValueError(f"unknown quantization {cfg.quantization!r}")
         m = cfg.mesh
         if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
-            raise NotImplementedError("multi-device mesh: ROADMAP Queue A, multi-GPU")
+            raise NotImplementedError("serving on a multi-device mesh (tensor-parallel serving): ROADMAP Queue A "
+                                      "item 6b")
         if cfg.kv_quantization not in (None, "", "none", "int8", "fp8"):
             raise ValueError(f"unknown kv_quantization {cfg.kv_quantization!r}")
         if cfg.weight_stage_target not in ("device", "host"):

@@ -25,6 +25,14 @@ to bf16 before the f32 cast, as the JAX einsum does.
 Training: the train engine keeps f32 master parameters in a ``QwenModel``
 and runs ``forward`` on ``ParamView(model, compute_dtype)``, a differentiable
 cast of them (``_outputs_fn`` of the JAX engine).
+
+Across GPUs (``shard_model``): each leaf is placed by
+``param_partition_specs`` — its ``model`` dim sliced to the rank's part
+(tensor parallelism on local tensors, ``parallel/tensor_parallel.py``) and
+its ``fsdp`` dim sharded by FSDP2 ``fully_shard`` per ``DecoderLayer`` and
+at the root, replicated over ``data``. The decoder then runs inside the
+root's call (``QwenModel.forward``) on a ``ShardedView``, and each layer
+through its own call (``DecoderLayer.forward``), where FSDP2 gathers it.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from areal_tpu_torch.ops.attention import (
 from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
 from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention
 from areal_tpu_torch.ops.tree_attention import tree_attention
+from areal_tpu_torch.parallel import tensor_parallel as tp_lib
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -280,7 +289,11 @@ def _param(shape, device, dtype) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One transformer block's parameters (dense SwiGLU or MoE FFN)."""
+    """One transformer block's parameters (dense SwiGLU or MoE FFN). The
+    forward functions below read them as attributes; ``forward`` is the
+    block of a layer placed by ``shard_model``."""
+
+    tp: tp_lib.TPInfo | None = None  # set by shard_model
 
     def __init__(self, cfg: ModelConfig, device: torch.device, dtype: torch.dtype):
         super().__init__()
@@ -290,6 +303,22 @@ class DecoderLayer(nn.Module):
         for name, shape in shapes.items():
             setattr(self, name, _param(shape, device, dtype))
 
+    def forward(self, cfg: ModelConfig, x, mask, rope, impl: str, no_grad: bool, with_aux: bool, recompute: bool,
+                selective: dict):
+        """``_decoder_layer`` on this layer's own leaves cast to the compute
+        dtype, under the recompute ``forward_masked`` chose. The call is
+        where FSDP2 gathers the layer (and, in the backward, gathers it
+        again before the recompute), so the cast reads whole leaves; the
+        recompute casts again from the leaves gathered for the backward."""
+
+        def body(x):
+            view = SimpleNamespace(**{n: p.to(cfg.torch_dtype) for n, p in self.named_parameters()}, tp=self.tp)
+            return _decoder_layer(cfg, view, x, mask, rope, impl, no_grad, with_aux)
+
+        if recompute:
+            return checkpoint(body, x, use_reentrant=False, **selective)
+        return body(x)
+
 
 class QwenModel(nn.Module):
     """Parameters of the decoder: ``embed`` [V, D], ``layers``,
@@ -297,6 +326,8 @@ class QwenModel(nn.Module):
     for a VLM the tower ``vision`` (``models/vision.VisionTower``).
     Parameters are allocated uninitialized on ``device`` (CUDA unless
     ``device="cpu"``); fill them with ``init_params`` or ``load_state_dict``."""
+
+    tp: tp_lib.TPInfo | None = None  # set by shard_model
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -316,6 +347,13 @@ class QwenModel(nn.Module):
     @property
     def lm_head_weight(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_word_embeddings else self.lm_head
+
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)`` inside the module's call: for a
+        model placed by ``shard_model`` the call is where FSDP2 gathers the
+        root's leaves (embed, final_norm, lm_head, a value head) and, after
+        the backward, reduces their gradients."""
+        return fn(self, *args, **kwargs)
 
 
 def _init_leaf(p: torch.Tensor, leaf: str, generator: torch.Generator) -> None:
@@ -427,12 +465,128 @@ def quantize_model_int8(model: QwenModel) -> None:
 
 
 # ---------------------------------------------------------------------------
+# placement across GPUs
+# ---------------------------------------------------------------------------
+
+
+def param_partition_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """The mesh axis of each dim of each leaf, by leaf name (a layer's
+    leaves without the layer index): ``areal_tpu/models/qwen.py:382``'s
+    ``param_partition_specs`` for the dense decoder in the port's layout.
+    The projections are ``[out, in]``, so JAX's ``(fsdp, model)`` of a
+    column-parallel ``[in, out]`` leaf is ``("model", "fsdp")`` here and a
+    row-parallel leaf's ``(model, fsdp)`` is ``("fsdp", "model")``. The
+    vocabulary of embed / lm_head splits over both axes, in contiguous
+    ``model`` blocks each sharded over ``fsdp`` (JAX orders the blocks
+    fsdp-major). The norms and a value head are ``None`` (replicated) in
+    JAX; FSDP2 shards every leaf it manages, so they shard over ``fsdp``
+    along dim 0. LoRA adapters, MoE experts and a vision tower are
+    ROADMAP Queue A item 6b."""
+    if cfg.lora_rank > 0 or cfg.num_experts > 0 or cfg.vision is not None:
+        raise NotImplementedError("LoRA, MoE and vision leaves on a mesh: ROADMAP Queue A item 6b")
+    col, row = ("model", "fsdp"), ("fsdp", "model")
+    specs = {
+        "wq": col, "wk": col, "wv": col, "wo": row,
+        "w_gate": col, "w_up": col, "w_down": row,
+        "input_norm": (None,), "post_attn_norm": (None,),
+        "embed": (("model", "fsdp"), None),
+        "final_norm": (None,),
+        "value_head": (None,),
+    }
+    if cfg.attention_bias:
+        specs.update(bq=("model",), bk=("model",), bv=("model",))
+    if cfg.qk_norm:
+        specs.update(q_norm=(None,), k_norm=(None,))
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = specs["embed"]
+    return specs
+
+
+def _axis_dim(spec: tuple, axis: str) -> int | None:
+    """The dim of ``spec`` that ``axis`` splits (None: replicated over it)."""
+    for d, s in enumerate(spec):
+        if s == axis or (isinstance(s, tuple) and axis in s):
+            return d
+    return None
+
+
+def tp_dim(cfg: ModelConfig, name: str) -> int | None:
+    """The dim of the leaf ``name`` (``layers.<i>.<leaf>`` or a root leaf)
+    that the ``model`` axis splits, None for a replicated leaf."""
+    return _axis_dim(param_partition_specs(cfg)[name.rsplit(".", 1)[-1]], "model")
+
+
+def local_config(cfg: ModelConfig, tp_size: int) -> ModelConfig:
+    """The shapes one rank of a ``model`` axis of ``tp_size`` computes with:
+    its heads, its FFN columns and its vocabulary block. ``tp_size`` must
+    divide each of them (a head never splits)."""
+    parts = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+             "intermediate_size": cfg.intermediate_size, "vocab_size": cfg.vocab_size}
+    bad = [f"{k}={v}" for k, v in parts.items() if v % tp_size]
+    if bad:
+        raise NotImplementedError(f"model={tp_size} does not divide {', '.join(bad)}: uneven tensor parallelism "
+                                  "is ROADMAP Queue A item 6b")
+    return dataclasses.replace(cfg, head_dim=cfg.head_dim_, **{k: v // tp_size for k, v in parts.items()})
+
+
+def shard_model(model: QwenModel, mesh, compute_dtype: torch.dtype) -> ModelConfig:
+    """Place ``model``'s leaves on ``mesh`` (``parallel/mesh.py``) by
+    ``param_partition_specs``, in place: each leaf's ``model`` dim becomes
+    the rank's slice (a plain local tensor), then FSDP2 ``fully_shard``s
+    each ``DecoderLayer`` and the root over the mesh's (data, fsdp) axes,
+    every leaf along its ``fsdp`` dim. FSDP2 gathers a layer's leaves in
+    ``compute_dtype`` (the master's one rounding) and reduce-scatters their
+    gradients in f32, summed over data x fsdp (no division: the engine's
+    loss weights are the whole grid's). Returns the rank's
+    ``local_config``."""
+    from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
+    from torch.distributed.tensor import Shard
+
+    from areal_tpu_torch.parallel.mesh import axis_size
+
+    cfg = model.cfg
+    specs = param_partition_specs(cfg)
+    m = axis_size(mesh, "model")
+    local_cfg = local_config(cfg, m)
+    rank = mesh.get_local_rank("model")
+    tp = tp_lib.TPInfo(group=mesh.get_group("model") if m > 1 else None, rank=rank, size=m,
+                       vocab_start=rank * local_cfg.vocab_size)
+    placement = {}
+    for name, p in list(model.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        spec = specs[leaf]
+        d = _axis_dim(spec, "model")
+        if m > 1 and d is not None:
+            p = nn.Parameter(p.detach().chunk(m, dim=d)[rank].clone(), requires_grad=p.requires_grad)
+            setattr(mod, leaf, p)
+        placement[p] = Shard(_axis_dim(spec, "fsdp") or 0)
+    model.tp = tp
+    for layer in model.layers:
+        layer.tp = tp
+    mp = MixedPrecisionPolicy(
+        param_dtype=None if compute_dtype == cfg.torch_dtype else compute_dtype,
+        reduce_dtype=torch.float32,
+        cast_forward_inputs=False,
+    )
+    dp_mesh = mesh["data", "fsdp"]
+    for mod in [*model.layers, model]:
+        fully_shard(mod, mesh=dp_mesh, mp_policy=mp, shard_placement_fn=placement.get)
+        mod.set_gradient_divide_factor(1.0)
+        mod.set_force_sum_reduction_for_comms(True)
+    return local_cfg
+
+
+# ---------------------------------------------------------------------------
 # forward pieces
 # ---------------------------------------------------------------------------
 
 
-def _embed_lookup(embed: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:
-    """Row gather from the [V, D] table (one device: no vocab sharding)."""
+def _embed_lookup(embed: torch.Tensor, ids: torch.Tensor, dtype, tp: tp_lib.TPInfo | None = None) -> torch.Tensor:
+    """Row gather from the [V, D] table; the vocab-parallel lookup when the
+    ``model`` axis splits the table (``models/qwen.py:445``)."""
+    if tp is not None and tp.size > 1:
+        return tp_lib.embed_lookup(embed, ids, dtype, tp)
     return F.embedding(ids.long(), embed).to(dtype)
 
 
@@ -490,14 +644,17 @@ def _proj(cfg: ModelConfig, layer, name: str, x: torch.Tensor, saved: bool = Tru
 def _ffn(cfg: ModelConfig, h: torch.Tensor, layer) -> torch.Tensor:
     """Feed-forward of [..., D] for the serving paths (models/qwen.py:577):
     dense SwiGLU, or the MoE FFN, which takes [G, L, D] (a decode step's
-    [S, D] goes as [S, 1, D]); its aux loss is not needed here."""
+    [S, D] goes as [S, 1, D]); its aux loss is not needed here. Under
+    tensor parallelism gate / up are column-parallel and down row-parallel."""
     if cfg.num_experts > 0:
         squeeze = h.dim() == 2
         out, _ = moe.moe_ffn(h[:, None] if squeeze else h, layer, cfg)
         return out[:, 0] if squeeze else out
+    tp = getattr(layer, "tp", None)
+    h = tp_lib.copy_to_model(h, tp)
     # the down projection's output is read by no backward: not saved
     ff = F.silu(_proj(cfg, layer, "w_gate", h)) * _proj(cfg, layer, "w_up", h)
-    return _proj(cfg, layer, "w_down", ff, saved=False)
+    return tp_lib.reduce_from_model(_proj(cfg, layer, "w_down", ff, saved=False), tp)
 
 
 def _qkv(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor, rope: tuple):
@@ -506,7 +663,7 @@ def _qkv(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor, rope: tuple):
     ``rope`` is ``_rope_angles`` of the positions."""
     A, P, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    h = _rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
+    h = tp_lib.copy_to_model(_rms_norm(x, layer.input_norm, cfg.rms_norm_eps), getattr(layer, "tp", None))
     q, k, v = (_proj(cfg, layer, n, h) for n in ("wq", "wk", "wv"))
     if cfg.attention_bias:
         q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
@@ -567,6 +724,23 @@ class ParamView:
         )
 
 
+class ShardedView:
+    """``ParamView`` of a model placed by ``shard_model``, built inside the
+    root's call (``QwenModel.forward``), where the root's leaves are whole
+    and already in the compute dtype. ``cfg`` is the rank's
+    ``local_config``; ``layers`` are the layer modules themselves, which
+    ``forward_masked`` calls; ``tp`` the rank's place on ``model``."""
+
+    def __init__(self, model: QwenModel, cfg: ModelConfig):
+        dt = cfg.torch_dtype
+        self.cfg = cfg
+        self.tp = model.tp
+        self.embed = model.embed.to(dt)
+        self.layers = list(model.layers)
+        self.final_norm = model.final_norm.to(dt)
+        self.lm_head_weight = self.embed if model.cfg.tie_word_embeddings else model.lm_head.to(dt)
+
+
 def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: bool, with_aux: bool = False):
     """One transformer block over x [G, L, D] (models/qwen.py:595) -> (x,
     aux): the MoE router's load-balance aux of this layer when ``with_aux``
@@ -587,7 +761,7 @@ def _decoder_layer(cfg: ModelConfig, layer, x, mask, rope, impl: str, no_grad: b
         attn = tree_attention(q[0], k[0], v[0], *mask)[None]
     else:
         attn = sdpa_plain(q, k, v, mask, hd)
-    x = x + _proj(cfg, layer, "wo", attn.reshape(G, L, H * hd))
+    x = x + tp_lib.reduce_from_model(_proj(cfg, layer, "wo", attn.reshape(G, L, H * hd)), getattr(layer, "tp", None))
     h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
     if cfg.num_experts > 0:
         ff, aux = moe.moe_ffn(h, layer, cfg, with_aux)
@@ -621,7 +795,7 @@ def _embed_inputs(model, input_ids: torch.Tensor, image_embeds: torch.Tensor | N
     positions take those instead, cast to the compute dtype
     (models/qwen.py:692)."""
     cfg = model.cfg
-    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
+    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype, getattr(model, "tp", None))
     if image_embeds is not None and cfg.image_token_id >= 0:
         img_pos = (input_ids == cfg.image_token_id)[..., None]
         x = torch.where(img_pos, image_embeds.to(cfg.torch_dtype), x)
@@ -651,7 +825,9 @@ def forward_masked(model, input_ids, positions, mask, impl: str, no_grad: bool =
     selective = {"context_fn": remat_lib.context_fn} if cfg.remat_policy == "dots_nobatch" else {}
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        if recompute:
+        if isinstance(layer, DecoderLayer):  # a placed layer: its call gathers it
+            x, aux = layer(cfg, x, mask, rope, impl, no_grad, with_aux, recompute, selective)
+        elif recompute:
             x, aux = checkpoint(
                 _decoder_layer, cfg, layer, x, mask, rope, impl, no_grad, with_aux, use_reentrant=False, **selective
             )
@@ -687,20 +863,27 @@ def chunked_logprobs_entropy(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """log p(label) and entropy per position [G, L] without holding [T, V]
     logits: tokens go in chunks, each recomputed in the backward
-    (models/qwen.py:762)."""
+    (models/qwen.py:762). Vocab-parallel when the ``model`` axis splits the
+    LM head (``tensor_parallel.logprob_entropy``)."""
     G, L, D = hidden.shape
     w = model.lm_head_weight
     T = G * L
     flat_h = hidden.reshape(T, D).to(w.dtype)
     flat_y = labels.reshape(T)
+    tp = getattr(model, "tp", None)
+    chunk_fn = _logprob_entropy_chunk
+    extra = ()
+    if tp is not None and tp.size > 1:
+        flat_h = tp_lib.copy_to_model(flat_h, tp)
+        chunk_fn, extra = tp_lib.logprob_entropy, (tp,)
     grad = torch.is_grad_enabled() and (flat_h.requires_grad or w.requires_grad)
     logps, ents = [], []
     for s in range(0, T, chunk_size):
         h, y = flat_h[s : s + chunk_size], flat_y[s : s + chunk_size]
         if grad:
-            lp, ent = checkpoint(_logprob_entropy_chunk, h, y, w, temperature, use_reentrant=False)
+            lp, ent = checkpoint(chunk_fn, h, y, w, temperature, *extra, use_reentrant=False)
         else:
-            lp, ent = _logprob_entropy_chunk(h, y, w, temperature)
+            lp, ent = chunk_fn(h, y, w, temperature, *extra)
         logps.append(lp)
         ents.append(ent)
     return torch.cat(logps).reshape(G, L), torch.cat(ents).reshape(G, L)

@@ -368,6 +368,8 @@ def install_signal_dump(path: str | None = None) -> bool:
     try:
         prev = signal.getsignal(signal.SIGTERM)
         if getattr(prev, "_flight_dump", False):
+            if threading.current_thread() is not threading.main_thread():
+                raise ValueError("signal only works in main thread")  # as signal.signal says it
             return True
 
         def _dump():

@@ -119,7 +119,7 @@ def resolve_impl(requested: str) -> str:
     if requested in ("pallas", "xla"):
         return requested
     if requested == "ring":
-        raise NotImplementedError("ring attention: ROADMAP Queue A, multi-GPU")
+        raise NotImplementedError("ring attention (the seq axis): ROADMAP Queue A item 6b")
     raise ValueError(f"unknown attn_impl {requested!r} (pallas|xla)")
 
 

@@ -43,10 +43,26 @@ runs after the actor's, and it takes each new version with the actor; it
 ships no weights. As in JAX, the recover dumps and the saver hold only the
 actor: a relaunched trainer restarts its critic from ``config.critic``.
 
+Across GPUs (``rl_trainer.py:91``): ``allocation_mode`` is live through
+``apply_allocation_mode``; its train half sizes the actor's, the critic's
+and the reference's meshes, and each rank of the ``torchrun`` world runs
+this loop. Rank 0 alone talks to the server (the rollout client, its
+journal and staleness manager), reads the dataloader, logs the stats and
+writes the recover records; every rank steps together through the
+engines' collectives: the rollout batch comes to all through the engine's
+``DistRolloutCoordinator``, every rank joins each weight push, checkpoint
+and recover dump (rank 0 writes the files), and a preemption seen on rank
+0 is seen by all at the next step boundary. ``check_allocation`` refuses
+what waits for a later item.
+
 Refused at construction with ``NotImplementedError`` naming the ROADMAP
-Queue A item it waits for: ``allocation_mode`` (item 6) and a
-``cluster.name_resolve.type`` other than "memory" (item 8). The weight
-wire follows ``resolve_weight_update_wire``: "q8" against an int8 fleet.
+Queue A item it waits for: a gen half of more than one server (item 8),
+tensor-parallel serving and sequence, pipeline or expert parallelism
+(item 6b), and a ``cluster.name_resolve.type`` other than "memory" (item
+8); in a world of several ranks, a time-based save, recover or eval
+trigger (``freq_secs``: the ranks would not agree when it fires; 6b). The
+weight wire follows ``resolve_weight_update_wire``: "q8" against an int8
+fleet.
 
 ``compile_cache.install_compile_counters`` counts XLA compilations and has
 no PyTorch counterpart: it is left out.
@@ -64,6 +80,9 @@ from typing import Any, Callable
 
 import numpy as np
 
+import torch.distributed as dist
+
+from areal_tpu_torch.api.alloc_mode import AllocationMode, HybridParallelStrategy, apply_allocation_mode
 from areal_tpu_torch.api.config import PPOConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
 from areal_tpu_torch.engine.train_engine import TorchTrainEngine
@@ -72,6 +91,7 @@ from areal_tpu_torch.infra.workflow_executor import RolloutInterrupted
 from areal_tpu_torch.observability import catalog as obs_catalog
 from areal_tpu_torch.observability import lineage as lineage_mod
 from areal_tpu_torch.observability import step_timeline
+from areal_tpu_torch.parallel.mesh import is_lead
 from areal_tpu_torch.robustness.preemption import PreemptionHandler
 from areal_tpu_torch.trainer.ppo import PPOActor, PPOCritic
 from areal_tpu_torch.utils import perf_tracer, stats_tracker
@@ -108,11 +128,59 @@ def resolve_weight_update_wire(config) -> str:
     return wire
 
 
+def check_allocation(config) -> None:
+    """Refuse the parts of ``allocation_mode`` that wait for a later item,
+    before anything is built: a gen half of more than one server (a fleet,
+    ROADMAP Queue A item 8); tensor-parallel serving, and sequence,
+    pipeline or expert parallelism or a hybrid MoE spec in either half
+    (item 6b). A train half of any ``dN`` / ``tN`` passes here; the engine
+    checks that ``tN`` divides the model's heads and that the world has the
+    devices."""
+    if not config.allocation_mode:
+        return
+    mode = AllocationMode.from_str(config.allocation_mode)
+    halves = [("gen", mode.gen), ("train", mode.train), ("critic", mode.critic)]
+    for half, ps in halves:
+        if ps is None:
+            continue
+        if isinstance(ps, HybridParallelStrategy):
+            raise NotImplementedError(f"{half} half {ps}: a hybrid MoE spec is ROADMAP Queue A item 6b")
+        for dim, what in (("pp", "pipeline"), ("cp", "sequence"), ("ep", "expert")):
+            if getattr(ps, dim) > 1:
+                raise NotImplementedError(f"{half} half {dim}={getattr(ps, dim)}: {what} parallelism is ROADMAP "
+                                          "Queue A item 6b")
+    gen = mode.gen
+    if gen is not None and gen.tp > 1:
+        raise NotImplementedError(f"gen half tp={gen.tp}: tensor-parallel serving is ROADMAP Queue A item 6b")
+    if gen is not None and gen.dp > 1:
+        raise NotImplementedError(f"gen half dp={gen.dp}: a fleet of servers is ROADMAP Queue A item 8")
+
+
+def check_world(config) -> None:
+    """In a world of several ranks every rank must reach each collective
+    save at the same step: a time-based trigger (``freq_secs``) would fire
+    on one rank and not another."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    for name in ("saver", "checkpointer", "evaluator", "recover"):
+        if getattr(getattr(config, name), "freq_secs", None):
+            raise NotImplementedError(f"{name}.freq_secs on a world of {dist.get_world_size()} ranks: ROADMAP "
+                                      "Queue A item 6b")
+
+
+def lead_flag(flag: bool) -> bool:
+    """Rank 0's ``flag`` on every rank (one broadcast in a world of several)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    obj = [flag]
+    dist.broadcast_object_list(obj, src=0)
+    return bool(obj[0])
+
+
 def check_supported(config: PPOConfig) -> None:
     """Raise ``NotImplementedError`` for each option of the loop whose code
     path is a later slice, before anything is built."""
-    if config.allocation_mode:
-        raise NotImplementedError(f"allocation_mode={config.allocation_mode!r}: ROADMAP Queue A item 6")
+    check_allocation(config)
     if config.cluster.name_resolve.type != "memory":
         raise NotImplementedError(
             f"name_resolve.type={config.cluster.name_resolve.type!r} (server discovery): ROADMAP Queue A item 8"
@@ -137,6 +205,7 @@ class PPOTrainer:
     ):
         check_supported(config)
         wire = resolve_weight_update_wire(config)
+        self.allocation_mode = apply_allocation_mode(config)
         self.config = config
         self.tokenizer = tokenizer
         self.train_dataloader = StatefulDataLoader(
@@ -171,9 +240,16 @@ class PPOTrainer:
             if ref_engine is None:
                 eng.initialize(self.ft_spec)
             self.ref = PPOActor(config.actor, eng)
+        check_world(config)
+        # rank 0 of a world of several (or the one process): it alone
+        # talks to the server, logs and writes the recover records
+        self._lead = is_lead()
+        self._world = dist.get_world_size() if dist.is_initialized() else 1
+        if not self._lead:
+            rollout = eval_rollout = self.valid_dataset = None
 
         # the rollout client
-        if rollout is None:
+        if rollout is None and self._lead:
             from areal_tpu_torch.inference.client import RemoteTorchEngine
 
             addrs = os.environ.get("AREAL_TPU_SERVER_ADDRS", "")
@@ -182,7 +258,7 @@ class PPOTrainer:
         self.rollout = rollout
         # eval must not share the training executor: its results buffer
         # would interleave with training trajectories
-        if eval_rollout is None and valid_dataset is not None:
+        if eval_rollout is None and self.valid_dataset is not None:
             from areal_tpu_torch.inference.client import RemoteTorchEngine
 
             eval_cfg = dataclasses.replace(config.rollout, max_head_offpolicyness=10_000_000)
@@ -201,7 +277,8 @@ class PPOTrainer:
             c.trial_name = c.trial_name or config.trial_name
             if hasattr(c, "fileroot"):
                 c.fileroot = c.fileroot or config.cluster.fileroot
-        perf_tracer.configure(config.perf_tracer, rank=0, role="trainer")
+        perf_tracer.configure(config.perf_tracer, rank=dist.get_rank() if dist.is_initialized() else 0,
+                              role="trainer")
         self._obs = obs_catalog.trainer_metrics()
         self.step_recorder = step_timeline.StepTimelineRecorder()
         # SIGUSR2 sets this flag; the next step runs under torch.profiler
@@ -211,7 +288,7 @@ class PPOTrainer:
         self.saver = Saver(config.saver, self.ft_spec)
         self.evaluator = Evaluator(config.evaluator, self.ft_spec)
         self.recover_handler = RecoverHandler(config.recover, self.ft_spec)
-        self.stats_logger = StatsLogger(config.stats_logger, self.ft_spec)
+        self.stats_logger = StatsLogger(config.stats_logger, self.ft_spec) if self._lead else None
         self.recover_info = self.recover_handler.load(
             self.actor_engine,
             saver=self.saver,
@@ -229,7 +306,7 @@ class PPOTrainer:
             fileroot=config.cluster.fileroot,
             experiment=config.experiment_name,
             trial=config.trial_name,
-        )
+        ) if self._lead else None
         self.last_replay: dict | None = None
         if self.journal is not None and hasattr(self.rollout, "attach_journal"):
             self.rollout.attach_journal(self.journal)
@@ -256,12 +333,13 @@ class PPOTrainer:
             self.preemption = PreemptionHandler(
                 role="trainer", grace_s=config.preemption.grace_s, handle_sigusr1=config.preemption.handle_sigusr1
             )
-            if hasattr(self.rollout, "set_interrupt"):
+            if self.rollout is not None and hasattr(self.rollout, "set_interrupt"):
                 self.rollout.set_interrupt(self.preemption.requested)
 
     # -- preemption ---------------------------------------------------------
     def _preempt_requested(self) -> bool:
-        return self.preemption is not None and self.preemption.requested.is_set()
+        """Rank 0's preemption flag, on every rank (all leave together)."""
+        return lead_flag(self.preemption is not None and self.preemption.requested.is_set())
 
     def _handle_preemption(self, last_completed: StepInfo | None) -> None:
         """The grace-window drain (``rl_trainer.py:297``): stop rollout
@@ -271,7 +349,8 @@ class PPOTrainer:
         resumes from the dump and replays the journal."""
         self.preemption.note_draining()
         t0 = time.monotonic()
-        self.rollout.pause()
+        if self._lead:
+            self.rollout.pause()
         if last_completed is not None:
             try:
                 self.recover_handler.dump_emergency(
@@ -288,7 +367,8 @@ class PPOTrainer:
                 logger.exception("emergency recover dump failed")
         if self.journal is not None:
             self.journal.seal_active()
-        self._dump_lineage("preempt")
+        if self._lead:
+            self._dump_lineage("preempt")
         self.preemption.note_drained(time.monotonic() - t0)
         self.preempted = True
         logger.warning("trainer preempted: emergency state durable, rollout paused; leaving the step loop")
@@ -345,7 +425,9 @@ class PPOTrainer:
                 with tl.phase("rollout_wait"), perf_tracer.trace_scope(
                     "train.rollout", Category.COMPUTE, {"global_step": global_step}
                 ):
-                    batch = self.rollout.prepare_batch(
+                    # several ranks: rank 0 pulls, the engine hands every rank the batch
+                    source = self.actor_engine if self._world > 1 else self.rollout
+                    batch = source.prepare_batch(
                         self.train_dataloader, workflow=workflow, should_accept_fn=dynamic_filter_fn
                     )
             except RolloutInterrupted:
@@ -390,14 +472,16 @@ class PPOTrainer:
 
             # stop submissions, push the weights, advance the version
             with tl.phase("weight_publish"), perf_tracer.trace_scope("train.update_weights", Category.COMM):
-                self.rollout.pause()
+                if self._lead:
+                    self.rollout.pause()
                 t_update = time.monotonic()
                 new_version = global_step + 1
                 self.actor_engine.update_weights(self.weight_update_meta)
                 self.actor_engine.set_version(new_version)
                 if self.critic is not None:
                     self.critic.engine.set_version(new_version)
-                self.rollout.set_version(new_version)
+                if self._lead:
+                    self.rollout.set_version(new_version)
                 if self.eval_rollout is not None:
                     self.eval_rollout.set_version(new_version)
             self._obs.update_seconds.observe(time.monotonic() - t_update)
@@ -425,7 +509,8 @@ class PPOTrainer:
             save_secs = time.monotonic() - t_save
             # resume before eval: the default eval client is the training
             # client, whose dispatcher skips submissions while paused
-            self.rollout.resume()
+            if self._lead:
+                self.rollout.resume()
             t_eval = time.monotonic()
             with tl.phase("ckpt_eval"):
                 self._maybe_evaluate(eval_workflow or workflow, epoch, global_step)
@@ -433,7 +518,8 @@ class PPOTrainer:
 
             bd = self._complete_step_timeline(tl, batch, n_extra_fwd)
             stats = stats_tracker.export_all()
-            stats.update(self.rollout.export_stats())
+            if self._lead:
+                stats.update(self.rollout.export_stats())
             stats.update(step_timeline.breakdown_stat_keys(bd))
             stats["timing/rollout"] = bd["rollout_wait_s"]
             stats["timing/train_step"] = train_step_secs
@@ -448,7 +534,8 @@ class PPOTrainer:
             self._obs.step_seconds.observe(stats["step_secs"])
             stats["version"] = float(new_version)
             logger.info(f"step {global_step}: {step_timeline.format_phase_line(bd)}")
-            self.stats_logger.commit(epoch, step, global_step, stats)
+            if self.stats_logger is not None:
+                self.stats_logger.commit(epoch, step, global_step, stats)
             last_completed = StepInfo(
                 epoch=epoch, epoch_step=step, global_step=global_step, steps_per_epoch=steps_per_epoch
             )
@@ -497,7 +584,8 @@ class PPOTrainer:
             logger.exception("async checkpoint write failed during close")
         if self.journal is not None:
             self.journal.close()
-        self._dump_lineage("close")
+        if self._lead:
+            self._dump_lineage("close")
         if self.preemption is not None:
             self.preemption.uninstall()
         if self._prev_sigusr2 is not None:
@@ -508,5 +596,7 @@ class PPOTrainer:
             except ValueError:
                 logger.debug("SIGUSR2 handler not restored off the main thread")
             self._prev_sigusr2 = None
-        self.stats_logger.close()
-        self.rollout.destroy()
+        if self.stats_logger is not None:
+            self.stats_logger.close()
+        if self.rollout is not None:
+            self.rollout.destroy()

@@ -19,8 +19,14 @@
   microbatch stats aggregated by pair count.
 
 The trainers build their engine on the card unless given one (the tests
-pass a CPU engine). A non-empty ``allocation_mode`` raises
-``NotImplementedError`` (ROADMAP Queue A item 6), as ``PPOTrainer`` does.
+pass a CPU engine). ``allocation_mode`` sizes the engine's mesh through
+``apply_allocation_mode`` and is checked as ``PPOTrainer`` checks it
+(``rl_trainer.check_allocation``). Each rank of a ``torchrun`` world runs
+the loop on the same batches (the loader is seeded alike everywhere);
+rank 0 alone logs and writes the recover records, and every rank joins the
+engine's collective saves. ``RWTrainer`` on more than one data-parallel
+rank is ROADMAP Queue A item 6b: a pair's two sequences may land in
+different ranks' rows.
 ``compile_cache.install_compile_counters`` counts XLA compilations and has
 no PyTorch counterpart: it is left out.
 """
@@ -34,10 +40,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from areal_tpu_torch.api.alloc_mode import apply_allocation_mode
 from areal_tpu_torch.api.config import MicroBatchSpec, SFTConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo
 from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 from areal_tpu_torch.observability import step_timeline
+from areal_tpu_torch.parallel.mesh import dp_size, is_lead
+from areal_tpu_torch.trainer.rl_trainer import check_allocation, check_world
 from areal_tpu_torch.utils import stats_tracker
 from areal_tpu_torch.utils.data import (
     StatefulDataLoader,
@@ -172,8 +181,8 @@ class SFTTrainer:
     value_head = False
 
     def __init__(self, config: SFTConfig, train_dataset, valid_dataset=None, tokenizer=None, engine=None):
-        if config.allocation_mode:
-            raise NotImplementedError(f"allocation_mode={config.allocation_mode!r}: ROADMAP Queue A item 6")
+        check_allocation(config)
+        apply_allocation_mode(config)
         self.config = config
         self.tokenizer = tokenizer
         self.train_dataloader = StatefulDataLoader(
@@ -192,6 +201,7 @@ class SFTTrainer:
         self.engine = engine or TorchTrainEngine(config.model, value_head=self.value_head)
         if engine is None:
             self.engine.initialize(self.ft_spec)
+        check_world(config)
         self.lm = LMEngine(self.engine, config.model.mb_spec)
 
         for c in (config.saver, config.checkpointer, config.evaluator, config.recover, config.stats_logger):
@@ -202,7 +212,7 @@ class SFTTrainer:
         self.saver = Saver(config.saver, self.ft_spec)
         self.evaluator = Evaluator(config.evaluator, self.ft_spec)
         self.recover_handler = RecoverHandler(config.recover, self.ft_spec)
-        self.stats_logger = StatsLogger(config.stats_logger, self.ft_spec)
+        self.stats_logger = StatsLogger(config.stats_logger, self.ft_spec) if is_lead() else None
         # the RL loop's step-phase contract (rollout_wait stays 0: no bubble)
         self.step_recorder = step_timeline.StepTimelineRecorder()
         self.last_hbm_ledger: dict | None = None
@@ -259,7 +269,8 @@ class SFTTrainer:
                     stats["hbm/headroom_fraction"] = float(self.last_hbm_ledger["headroom_fraction"])
             stats["step_secs"] = time.monotonic() - t0
             stats.update(stats_tracker.export_all())
-            self.stats_logger.commit(epoch, step, global_step, stats)
+            if self.stats_logger is not None:
+                self.stats_logger.commit(epoch, step, global_step, stats)
         return losses
 
     def _complete_step_timeline(self, tl, batch) -> dict:
@@ -291,7 +302,8 @@ class SFTTrainer:
             stats_tracker.get().scalar(ppl_loss=loss_sum / max(tok_sum, 1.0))
 
     def close(self) -> None:
-        self.stats_logger.close()
+        if self.stats_logger is not None:
+            self.stats_logger.close()
 
 
 class RWTrainer(SFTTrainer):
@@ -307,6 +319,9 @@ class RWTrainer(SFTTrainer):
         if valid_dataset is not None:
             raise ValueError("RWTrainer has no eval loop (as in the JAX package): no valid_dataset")
         super().__init__(config, train_dataset, **kw)
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is not None and dp_size(mesh) > 1:
+            raise NotImplementedError("RWTrainer on more than one data-parallel rank: ROADMAP Queue A item 6b")
         self.rw = RWEngine(self.engine, config.model.mb_spec)
 
     def _collate(self, rows) -> dict:

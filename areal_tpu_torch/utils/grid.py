@@ -33,17 +33,18 @@ class Grid:
     source_index: list[int] | None = None
 
 
-def pack_grid(data: TensorDict, row_len: int) -> Grid:
+def pack_grid(data: TensorDict, row_len: int, pad_rows_to: int = 1) -> Grid:
     """Pack a padded [B, Lpad] batch into a [G, L=row_len] grid whose rows
-    are FFD bins of capacity ``row_len`` (one device: G is not padded to a
-    data-parallel degree)."""
+    are FFD bins of capacity ``row_len``; ``pad_rows_to`` rounds G up with
+    empty rows (to the data-parallel degree, so the rows split evenly over
+    the mesh's data x fsdp ranks)."""
     lens = seqlens_of(data)
     B = len(lens)
     if int(lens.max()) > row_len:
         raise ValueError(f"a sequence of {int(lens.max())} tokens exceeds row_len {row_len}")
 
     groups = datapack.ffd_allocate([int(x) for x in lens], row_len, min_groups=1)
-    G = len(groups)
+    G = -(-len(groups) // pad_rows_to) * pad_rows_to
 
     mask = np.asarray(data["attention_mask"]).astype(bool)
     per_token_keys = [

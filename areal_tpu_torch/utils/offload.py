@@ -43,6 +43,40 @@ def onload_tensors(tensors, device) -> None:
         torch.cuda.current_stream(device).synchronize()  # the pinned buffers go when this returns
 
 
+def offload_storages(tensors) -> tuple[str, list]:
+    """Move the storages under ``tensors`` (each once) to pinned host
+    memory and free them on the card, leaving the tensors — and every
+    other view of the same storage, such as the padded flat shard behind
+    an FSDP2 leaf — in place with an empty storage until
+    ``onload_storages``. Returns the mode ("pinned_host", or "none" for
+    host tensors, which stay) and what ``onload_storages`` takes."""
+    saved, seen, mode = [], set(), "none"
+    with torch.no_grad():
+        for t in tensors:
+            if t.device.type == "cpu":
+                continue
+            st = t.untyped_storage()
+            if st.data_ptr() in seen:
+                continue
+            seen.add(st.data_ptr())
+            host = torch.empty(st.nbytes(), dtype=torch.uint8, pin_memory=True)
+            host.copy_(torch.empty(0, dtype=torch.uint8, device=t.device).set_(st))
+            saved.append((st, host, t.device))
+            st.resize_(0)
+            mode = "pinned_host"
+    return mode, saved
+
+
+def onload_storages(saved: list) -> None:
+    """Bring back what ``offload_storages`` moved, into the same storages."""
+    with torch.no_grad():
+        for st, host, device in saved:
+            st.resize_(host.numel())
+            torch.empty(0, dtype=torch.uint8, device=device).set_(st).copy_(host, non_blocking=True)
+    for device in {d for _, _, d in saved}:
+        torch.cuda.current_stream(device).synchronize()  # the pinned buffers go when this returns
+
+
 def offload_module(module: torch.nn.Module) -> str:
     """``offload_tensors`` of ``module``'s parameters."""
     return offload_tensors(module.parameters())

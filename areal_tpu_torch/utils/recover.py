@@ -38,6 +38,7 @@ import pickle
 from areal_tpu_torch.api.config import RecoverConfig
 from areal_tpu_torch.api.io_struct import RECOVER_FORMAT, RECOVER_MANIFEST, SaveLoadMeta, StepInfo
 from areal_tpu_torch.observability import catalog
+from areal_tpu_torch.parallel.mesh import is_lead
 from areal_tpu_torch.utils import atomic_io
 from areal_tpu_torch.utils.saver import Saver
 
@@ -134,6 +135,8 @@ class RecoverHandler:
         and atomic (a torn write never passes for a record). ``rotate``
         first moves the current pair to ``.prev``: if this dump dies half
         way, load() falls back to it."""
+        if not is_lead():  # rank 0 of a world writes the records
+            return
         info.ckpt_path = path
         os.makedirs(self._root(), exist_ok=True)
         if rotate:
@@ -267,9 +270,12 @@ class RecoverHandler:
         if dataloader is not None and info.dataloader_state and hasattr(dataloader, "load_state_dict"):
             dataloader.load_state_dict(info.dataloader_state)
         self._durable = (info.last_step_info, ckpt_path)
-        # re-sync the fleet to the restored weights
-        if inference_engine is not None and weight_update_meta is not None:
+        # re-sync the fleet to the restored weights (on a mesh every rank
+        # joins the gather; rank 0 alone has the fleet's client)
+        on_mesh = getattr(engine, "mesh", None) is not None
+        if weight_update_meta is not None and (inference_engine is not None or on_mesh):
             engine.update_weights(weight_update_meta)
-            inference_engine.set_version(engine.get_version())
+            if inference_engine is not None:
+                inference_engine.set_version(engine.get_version())
         logger.info(f"recovered from {ckpt_path} at step {info.last_step_info.global_step}")
         return info

@@ -142,6 +142,16 @@ no result line:
               tokens generated during the update and the rows spanning a
               commit; staging GB/s, decode step wall time while staging
               beside the other steps, trainer tokens/s and peak memory.
+13b. shard   — the trainer across GPUs: grpo's actor, unsharded in this
+              process, then under ``torchrun`` (one rank a card, NCCL; a
+              world of one on one card, fsdp x model 2 on several) in
+              ``--shard-worker``: 2 ``train_batch`` steps on one fixed batch
+              of 32 sequences each, the parameters compared (bit for bit
+              at one rank), K2-K4 launches equal, the server's weights after
+              the sharded push, a recover dump each way (parameters; the
+              moments cross on the CPU twins), step seconds and peak memory
+              beside the unsharded engine's; then 2 steps of
+              ``PPOTrainer.train`` under ``allocation_mode`` over HTTP.
 14. durable  — the trainer's durable state at Qwen2.5-1.5B, full width and
               8 of 28 layers (the grpo phase's actor settings and the serve phase's
               server settings): (a) the disk free at the phase's root and an
@@ -289,8 +299,9 @@ no result line:
               torch.mm loop / torch._grouped_mm on hi and lo side by side
               (the same function) and on bf16(grad) (another) times and the
               bound.
-24. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (48 layers, 128
-              experts, top-8, 30.5 B random bf16 parameters from a seed)
+24. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (full width,
+              SERVE_MOE_LAYERS = 24 of its 48 layers since the shard phase
+              came, 128 experts, top-8, random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
               system prompt, /flush_prefix_cache and the pool audit;
@@ -361,6 +372,10 @@ QWEN25_15B = dict(
 # another, PERF.md); serve, rollout, train, grpo and lora run all 28, vlm
 # all of Qwen2-VL-2B
 CUT_LAYERS = 8
+# serve_moe's depth: 24 of Qwen3-30B-A3B's 48 layers, to keep the whole
+# script in its limit once the shard phase came (1,106.5 s of phases on a
+# slow host with all 48, PERF.md)
+SERVE_MOE_LAYERS = 24
 # Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): the
 # qwen3_moe family's smallest public member, full width and depth
 QWEN3_30B_A3B = dict(
@@ -6515,8 +6530,8 @@ def _moe_wave(srv, engine, bodies: list, n_first: int, L: int, what: str) -> tup
 
 
 def phase_serve_moe(card: str) -> dict:
-    """An ``InferenceServer`` over Qwen3-30B-A3B (full width and depth, 30.5 B
-    random bf16 parameters from seed 0, built on the card) at the
+    """An ``InferenceServer`` over Qwen3-30B-A3B (full width, SERVE_MOE_LAYERS
+    of its depth, random bf16 parameters from seed 0, built on the card) at the
     prefix-cache settings of ``ServerConfig()``: a cold wave of 16
     concurrent /generate requests, a warm wave of 8 sharing a 1,024-token
     system prompt (the first alone, then 7 radix hits: kernel #3's chain
@@ -6536,7 +6551,7 @@ def phase_serve_moe(card: str) -> dict:
         f"torch.cuda.memory_allocated {held / 2**30:.2f} GiB")
     if held > 2 * 2**30:
         raise AssertionError(f"[serve_moe] {held / 2**30:.2f} GiB still held before the model")
-    mcfg = qwen.ModelConfig(**QWEN3_30B_A3B)
+    mcfg = qwen.ModelConfig(**{**QWEN3_30B_A3B, "num_layers": SERVE_MOE_LAYERS})
     L = mcfg.num_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -7755,8 +7770,366 @@ def _vlm_trainable(card, trainer, batch, mcfg) -> dict:
     return dict(gap=gap, step_s=step_s, peak_gib=peak, moved=len(moved))
 
 
+# ---------------------------------------------------------------------------
+# shard: the trainer across GPUs (torchrun, FSDP2 x tensor parallelism)
+# ---------------------------------------------------------------------------
+
+SHARD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_shard")
+SHARD_STEPS = 2
+
+
+def _shard_actor_cfg(**kw):
+    """grpo's actor: f32 master weights, bf16 compute, the decoupled loss,
+    2 minibatches, group 4."""
+    from areal_tpu_torch.api.config import NormConfig, OptimizerConfig, PPOActorConfig
+
+    return PPOActorConfig(dtype="bfloat16", param_dtype="float32", attn_impl="pallas", gradient_checkpointing=True,
+                          optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant"), group_size=4,
+                          adv_norm=NormConfig(mean_level="group", std_level="batch", group_size=4),
+                          use_decoupled_loss=True, prox_logp_mode="recompute", ppo_n_minibatches=2, **kw)
+
+
+def _shard_batch(cfg, vocab: int) -> dict:
+    """One fixed GRPO batch of the train phase's 32 sequences (8 prompts of
+    64-512 tokens, 4 samples of 128 new tokens each), with seeded tokens,
+    behaviour logprobs and rewards, through ``compute_advantages``."""
+    from areal_tpu_torch.trainer.ppo import PPOActor
+    from areal_tpu_torch.utils.data import pad_sequences_to_tensors
+
+    rng = np.random.default_rng(25)
+    trajs = []
+    for n in _train_sequences():
+        p = n - 128
+        trajs.append({"input_ids": rng.integers(0, vocab, n).astype(np.int32),
+                      "loss_mask": np.r_[np.zeros(p), np.ones(128)].astype(np.float32),
+                      "logprobs": np.r_[np.zeros(p), rng.normal(-2.0, 0.5, 128)].astype(np.float32),
+                      "versions": np.r_[np.full(p, -1), np.zeros(128)].astype(np.int32),
+                      "rewards": np.float32(rng.uniform()), "seq_no_eos_mask": np.bool_(False)})
+    batch = pad_sequences_to_tensors(trajs)
+    batch["prox_logp"] = np.asarray(batch["logprobs"], np.float32).copy()
+
+    class _V:
+        def get_version(self):
+            return 0
+
+    return PPOActor(cfg, _V()).compute_advantages(batch)
+
+
+def _bits(tensors: dict) -> dict[str, list[int]]:
+    """A fingerprint of each tensor's bits, computed on its device: the
+    int64 sum of its elements' bit patterns and that sum weighted by the
+    element's position (mod 8191). Equal bits, equal fingerprints; a
+    changed element changes both."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    out = {}
+    for n, t in tensors.items():
+        b = t.detach().contiguous().view(ints[t.element_size()]).reshape(-1).to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 8191 + 1
+        out[n] = [int(b.sum()), int((b * w).sum())]
+    return out
+
+
+def _engine_bits(eng) -> dict:
+    """``_bits`` of an engine's master parameters and AdamW moments, whole:
+    on a mesh each leaf gathered in turn (every rank calls it)."""
+    out = {}
+    for g, ts in eng._state_groups(with_optim=True).items():
+        out[g] = {}
+        for n, t in ts.items():
+            out[g].update(_bits({n: eng._full_leaf(n, t) if eng.mesh is not None else t}))
+    return out
+
+
+def phase_shard(card: str) -> dict:
+    """The trainer across GPUs: the unsharded engine here, then the same
+    trainer under ``torchrun`` (one rank a card, NCCL) in ``shard_worker``,
+    one after the other (two trainers with f32 AdamW state and a server
+    would crowd the card). Both take SHARD_STEPS ``train_batch`` steps on
+    one fixed batch from the same seed: the parameters compared (the
+    largest difference; bit for bit at one rank, where FSDP2 keeps the op
+    order), K2 / K3 / K4 launched as often, the server's weights after the
+    sharded push those of the unsharded weights cast to bf16, and a recover
+    dump crossing both ways (the unsharded engine's loaded on the mesh, the
+    mesh's loaded here), bit for bit. The worker then runs SHARD_STEPS
+    global steps of ``PPOTrainer.train`` under ``allocation_mode`` over
+    HTTP against the port's server on the same card."""
+    import shutil
+
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[shard] {held:.2f} GiB still allocated by earlier phases")
+    shutil.rmtree(SHARD_ROOT, ignore_errors=True)
+    os.makedirs(SHARD_ROOT)
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    acfg = _shard_actor_cfg()
+    adv = _shard_batch(acfg, mcfg.vocab_size)
+    with open(os.path.join(SHARD_ROOT, "batch.pkl"), "wb") as f:
+        import pickle
+
+        pickle.dump(adv, f)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    # the unsharded reference, in this process (no torch.distributed)
+    ref = TorchTrainEngine(acfg, model_config=mcfg)
+    ref.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=32, train_batch_size=8), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    step_s = []
+    for _ in range(SHARD_STEPS):
+        t = time.monotonic()
+        ref.train_batch(adv, lambda o, b: _grpo_loss(o, b, acfg), _wfn)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t)
+    ref_counts = [k.launches for k in kernels]
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref_bits = _engine_bits(ref)
+    push_bits = _bits({n: t.to(torch.bfloat16) for n, t in ref._export_params().items()})
+    # the crossings' dumps hold the parameters: the moments' crossing is the
+    # CPU twins' (tests/test_torch_parallel.py), and 18.5 GB dumps both ways
+    # cost 90 s of disk on a slow host
+    ref.save(SaveLoadMeta(path=os.path.join(SHARD_ROOT, "unsharded"), weight_format="state", with_optim=False))
+    with open(os.path.join(SHARD_ROOT, "ref.json"), "w") as f:
+        json.dump({"bits": ref_bits, "push_bits": push_bits, "counts": ref_counts}, f)
+    log(f"[shard] unsharded engine ({time.monotonic() - t_phase:.1f} s with its dump): {SHARD_STEPS} steps "
+        f"{', '.join(f'{s:.2f}' for s in step_s)} s, peak "
+        f"torch.cuda.max_memory_allocated {ref_peak:.2f} GiB, K2 / K3 / K4 {ref_counts}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sharded run: torchrun, one rank a card
+    n = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={n}",
+           os.path.abspath(__file__), "--shard-worker", SHARD_ROOT]
+    t_run = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=420, start_new_session=True)
+    for line in proc.stdout.splitlines():
+        log(f"[shard/worker] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[shard] torchrun exited {proc.returncode}:\n{proc.stderr[-6000:]}")
+    with open(os.path.join(SHARD_ROOT, "shard.json")) as f:
+        res = json.load(f)
+    log(f"[shard] torchrun ran {time.monotonic() - t_run:.1f} s")
+
+    # the mesh's recover dump, loaded by an unsharded engine
+    t_load = time.monotonic()
+    one = TorchTrainEngine(acfg, model_config=mcfg)
+    one.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=32, train_batch_size=8), seed=1)
+    one.load(SaveLoadMeta(path=os.path.join(SHARD_ROOT, "mesh"), weight_format="state", with_optim=False))
+    loaded = _engine_bits(one)["params"]
+    if loaded != res["mesh_bits"]["params"]:
+        raise AssertionError("[shard] the mesh's recover dump, loaded here, is not the mesh's state")
+    log(f"[shard] the mesh's dump loaded by an unsharded engine in {time.monotonic() - t_load:.1f} s")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = res["mesh_bits"] == ref_bits
+    log(f"[shard] {card}: world {res['world']} ({res['backend']}); parameters after {SHARD_STEPS} steps against "
+        f"the unsharded engine: largest difference {res['max_param_diff']:.3e} (bit for bit: {same}); step "
+        f"{', '.join(f'{s:.2f}' for s in res['step_s'])} s sharded vs {', '.join(f'{s:.2f}' for s in step_s)} s "
+        f"unsharded; peak {res['peak_gib']:.2f} vs {ref_peak:.2f} GiB; K2 / K3 / K4 {res['counts']} vs "
+        f"{ref_counts}; the server's weights after the sharded push {'equal' if res['push_same'] else 'DIFFER'} "
+        f"(to the unsharded engine's: {res['push_equals_unsharded']}); "
+        f"recover dumps (parameters) both ways bit for bit; the loop: {res['loop']}")
+    if res["world"] == 1 and not (same and res["push_equals_unsharded"]):
+        raise AssertionError("[shard] a world of one must give the unsharded engine's bits")
+    # several ranks sum in another order: the trainer twin's bound
+    # (tests/test_torch_train_engine.py), two steps of Adam at most 2 LR apart
+    if res["max_param_diff"] > 2 * acfg.optimizer.lr:
+        raise AssertionError(f"[shard] parameters {res['max_param_diff']:.3e} apart, over 2 LR")
+    if res["counts"] != ref_counts:
+        raise AssertionError(f"[shard] K2 / K3 / K4 launches {res['counts']} != the unsharded run's {ref_counts}")
+    if not (res["push_same"] and res["unsharded_loaded_same"]):
+        raise AssertionError("[shard] the push or the unsharded dump's load on the mesh differs")
+    log(f"[shard] phase {time.monotonic() - t_phase:.1f} s")
+    shutil.rmtree(SHARD_ROOT, ignore_errors=True)
+    return {"counts": dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+                               res["loop"]["counts"])), "launches1": res["loop"]["launches1"], "res": res,
+            "ref_step_s": step_s, "ref_peak_gib": ref_peak}
+
+
+def _grpo_loss(outputs, b, cfg):
+    from areal_tpu_torch.trainer.ppo import grpo_loss_fn
+
+    return grpo_loss_fn(outputs, b, cfg)
+
+
+def shard_worker(root: str) -> None:
+    """One rank of ``phase_shard``'s world (under ``torchrun``): the twin's
+    SHARD_STEPS steps, the push into a server over HTTP, the recover dumps,
+    then ``PPOTrainer.train`` under ``allocation_mode``. Rank 0 writes
+    ``shard.json``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from areal_tpu_torch.api.config import (DatasetConfig, InferenceEngineConfig, MeshConfig, PPOConfig,
+                                            PreemptionConfig, ServerConfig)
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, GenerationHyperparameters, SaveLoadMeta, WeightUpdateMeta
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+    from areal_tpu_torch.utils.safetensors_io import SafetensorsFile
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    lead = rank == 0
+    marks = [("start", time.monotonic())]
+
+    def mark(name: str) -> None:
+        torch.cuda.synchronize()
+        marks.append((name, time.monotonic()))
+
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    with open(os.path.join(root, "batch.pkl"), "rb") as f:
+        adv = pickle.load(f)
+    with open(os.path.join(root, "ref.json")) as f:
+        ref = json.load(f)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    ft = FinetuneSpec(total_train_epochs=1, dataset_size=32, train_batch_size=8)
+    tp = 2 if world % 2 == 0 else 1  # on several cards, tensor parallelism too
+    acfg = _shard_actor_cfg(mesh=MeshConfig(data=1, fsdp=world // tp, model=tp))
+    eng = TorchTrainEngine(acfg, model_config=mcfg)  # joins torchrun's world (NCCL) at initialize
+    eng.initialize(ft, seed=0)
+    if not dist.is_initialized() or eng.mesh is None:
+        raise AssertionError("the engine did not take the sharded path under torchrun")
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    if lead:
+        print(f"world {world}, backend {dist.get_backend()}, NCCL {nccl}, mesh "
+              f"{dict(zip(eng.mesh.mesh_dim_names, eng.mesh.shape))}, device {eng.device}", flush=True)
+    scfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
+                        weight_stage_target="device", host="127.0.0.1", seed=0)
+    # rank 0's, on the host (off the peaks): the servers' start
+    init = {n: t.to(torch.bfloat16).cpu() for n, t in eng._export_params().items()}
+    mark("world and engine up")
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    step_s = []
+    for _ in range(SHARD_STEPS):
+        t = time.monotonic()
+        eng.train_batch(adv, lambda o, b: _grpo_loss(o, b, acfg), _wfn)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t)
+    counts = [k.launches for k in kernels]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mark("twin steps")
+    out = {"world": world, "backend": dist.get_backend(), "nccl": nccl, "step_s": step_s, "counts": counts,
+           "peak_gib": peak}
+    # the largest difference from the unsharded engine's parameters (its dump)
+    params = eng._export_params()
+    if lead:
+        f = SafetensorsFile(os.path.join(root, "unsharded", "state", "params.safetensors"))
+        out["max_param_diff"] = max(float((t - f.get(n).to(t.device)).abs().max()) for n, t in params.items())
+    del params
+    mark("largest difference")
+    # the push over HTTP into a server started from the initial weights
+    srv = client = None
+    if lead:
+        srv = ServerThread(scfg, engine=DecodeEngine(scfg, params=init, model_cfg=mcfg))
+        srv.start()
+        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        client.initialize()
+    pushed = _bits({n: t.to(torch.bfloat16) for n, t in eng._export_params().items()})
+    eng.connect_engine(client, WeightUpdateMeta(type="mem"))
+    eng.update_weights()
+    if lead:
+        served = _bits({n: p for n, p in srv.engine.model.named_parameters() if n in pushed})
+        out["push_same"] = served == pushed
+        out["push_equals_unsharded"] = served == ref["push_bits"]
+        client.destroy()
+        srv.stop()
+    srv = client = None
+    mark("server, push, check")
+    # the recover dumps: the mesh's written, the unsharded engine's read
+    out["mesh_bits"] = _engine_bits(eng)
+    mark("state fingerprint")
+    eng.save(SaveLoadMeta(path=os.path.join(root, "mesh"), weight_format="state", with_optim=False))
+    mark("recover dump written")
+    eng.load(SaveLoadMeta(path=os.path.join(root, "unsharded"), weight_format="state", with_optim=False))
+    loaded = _engine_bits(eng)  # every rank joins the gathers
+    out["unsharded_loaded_same"] = loaded["params"] == ref["bits"]["params"] if lead else None
+    mark("unsharded dump loaded")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # PPOTrainer.train under allocation_mode, over HTTP, the server on rank 0
+    group, n_new = 4, 128
+    gconfig = GenerationHyperparameters(n_samples=group, max_new_tokens=n_new, temperature=1.0)
+    cfg = PPOConfig(experiment_name="chip-smoke", trial_name="shard",
+                    allocation_mode=f"sglang:d1+fsdp:d{world // tp}" + (f"t{tp}" if tp > 1 else ""),
+                    weight_update_mode="mem", total_train_steps=SHARD_STEPS, preemption=PreemptionConfig(enabled=False),
+                    gconfig=gconfig, train_dataset=DatasetConfig(batch_size=8), actor=_shard_actor_cfg(),
+                    rollout=InferenceEngineConfig(**GRPO_CLIENT))
+    cfg.cluster.fileroot = os.path.join(root, "loop")
+    trainer = TorchTrainEngine(cfg.actor, model_config=mcfg)  # sized by allocation_mode, initialized by the loop
+    if lead:
+        srv = ServerThread(scfg, engine=DecodeEngine(scfg, params=init, model_cfg=mcfg))
+        srv.start()
+        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        client.initialize()
+    del init
+    rng = np.random.default_rng(0)
+    dataset = [{"prompt_ids": rng.integers(0, mcfg.vocab_size, int(n)).tolist()}
+               for n in rng.integers(64, 513, GRPO_PROMPTS)]
+    loop = PPOTrainer(cfg, dataset, rollout=client, actor_engine=trainer)
+    mark("loop up")
+    steps = []
+    if lead:
+        commit = loop.stats_logger.commit
+        loop.stats_logger.commit = lambda e, s, g, st: steps.append(st["step_secs"]) or commit(e, s, g, st)
+    for kern in (*kernels, paged_attention_stacked):
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+    if lead:  # drain: no new submissions, the episodes in flight finish
+        client.pause()
+        deadline = time.monotonic() + 600
+        while client.executor.staleness.stat.running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        while any(t is not None for t in srv.engine._slot_task) and time.monotonic() < deadline:
+            time.sleep(0.01)
+    loop_counts = [k.launches for k in kernels]
+    mark("loop steps")
+    params = trainer._export_params()
+    if lead:
+        served = dict(srv.engine.model.named_parameters())
+        same = _bits({n: t.to(torch.bfloat16) for n, t in params.items()}) == _bits({n: served[n] for n in params})
+        out["loop"] = {"mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape)),
+                       "versions": [trainer.get_version(), srv.engine.get_version()], "served_same": same,
+                       "step_s": steps, "counts": loop_counts, "launches1": paged_attention_stacked.launches,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params
+    loop.close()
+    if lead:
+        srv.stop()
+        loop_ok = out["loop"]["versions"] == [SHARD_STEPS, SHARD_STEPS] and out["loop"]["served_same"]
+        if not loop_ok or min(loop_counts) == 0 or out["loop"]["launches1"] == 0:
+            raise AssertionError(f"[shard] the loop under allocation_mode: {out['loop']}")
+        mark("loop checked")
+        out["parts"] = {b[0]: round(b[1] - a[1], 2) for a, b in zip(marks, marks[1:])}
+        print("parts (s): " + ", ".join(f"{k} {v}" for k, v in out["parts"].items()), flush=True)
+        with open(os.path.join(root, "shard.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
-          "train", "grpo", "durable", "critic", "sft", "int8serve", "lora", "vlm", "kernel_tree", "train_tree", "kernel_gmm",
+          "train", "grpo", "shard", "durable", "critic", "sft", "int8serve", "lora", "vlm", "kernel_tree", "train_tree", "kernel_gmm",
           "kernel_gmm_bwd", "serve_moe", "train_moe")
 
 
@@ -7765,6 +8138,9 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--tree-times"] and len(argv) == 4 and argv[2] == "--fwd":
         fwd_file = os.path.abspath(argv[3])
         argv = argv[:2]
+    if argv[:1] == ["--shard-worker"] and len(argv) == 2:  # a rank of phase_shard's torchrun world
+        shard_worker(argv[1])
+        return 0
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
         if set(only) - set(PHASES):
@@ -7835,6 +8211,7 @@ def main(argv: list[str]) -> int:
         "spec": lambda: phase_spec(card),
         "train": lambda: phase_train(card),
         "grpo": lambda: phase_grpo(card, train=res.get("train")),
+        "shard": lambda: phase_shard(card),
         "durable": lambda: phase_durable(card),
         "critic": lambda: phase_critic(card),
         "sft": lambda: phase_sft(card),
@@ -7876,7 +8253,8 @@ def main(argv: list[str]) -> int:
             "launches": launches,
             "launches_by_phase": {"serve": launches, "rollout": rollout["launches1"],
                                   "lifecycle": res["lifecycle"]["launches1"], "observe": res["observe"]["launches1"],
-                                  "grpo": res["grpo"]["launches1"], "durable": res["durable"]["launches1"],
+                                  "grpo": res["grpo"]["launches1"], "shard": res["shard"]["launches1"],
+                                  "durable": res["durable"]["launches1"],
                                   "critic": res["critic"]["launches1"], "int8serve": res["int8serve"]["launches1"],
                                   "lora": res["lora"]["launches1"], "vlm": res["vlm"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
@@ -7903,6 +8281,7 @@ def main(argv: list[str]) -> int:
             "replaces": replaces[name],
             "launches": train["counts"][name],
             "launches_by_phase": {"train": train["counts"][name], "grpo": res["grpo"]["counts"][name],
+                                  "shard": res["shard"]["counts"][name],
                                   "durable": res["durable"]["counts"][name], "critic": res["critic"]["counts"][name],
                                   "sft": res["sft"]["counts"][name], "int8serve": res["int8serve"]["counts"][name],
                                   "lora": res["lora"]["counts"][name], "vlm": res["vlm"]["counts"][name]},

@@ -128,9 +128,9 @@ def _mixed_version_batch(v_theta: int, n=4, L=24, seed=0):
     }
 
 
-def _run_update(actor, batch):
+def _run_update(actor, batch, prox=None):
     batch = dict(batch)
-    batch["prox_logp"] = actor.compute_logp(batch)
+    batch["prox_logp"] = actor.compute_logp(batch) if prox is None else prox
     stats = actor.ppo_update(actor.compute_advantages(batch))
     assert len(stats) == 1  # one minibatch: the identity is exact
     return stats[0]
@@ -185,7 +185,10 @@ def test_identity_survives_microbatch_split():
     engine's fold, so the recombination stays exact."""
     jactor, tactor = _engines(mb_tokens=64)
     batch = _mixed_version_batch(v_theta=6, n=5)
-    want, got = _run_update(jactor, batch), _run_update(tactor, batch)
+    # both sides on the port's proximal logprobs: JAX's forward_batch puts a
+    # re-packed grid's rows on the wrong sequences (ROADMAP Queue C, C-ref 11)
+    prox = tactor.compute_logp(batch)
+    want, got = _run_update(jactor, batch, prox), _run_update(tactor, batch, prox)
     assert got["n_microbatches"] == want["n_microbatches"] > 1
     _assert_bucket_identity(got)
     _assert_lag_stats_match(got, want)

@@ -46,6 +46,15 @@ def test_port_files_found():
     assert {"chip_smoke.py", "decode_engine.py", "paged_attention.py", "qwen.py"} <= names
 
 
+def test_multi_gpu_modules_covered():
+    """The trainer across GPUs keeps its own copies of the JAX package's
+    JAX-free modules; the import rule above covers them."""
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"areal_tpu_torch/parallel/__init__.py", "areal_tpu_torch/parallel/mesh.py",
+            "areal_tpu_torch/parallel/tensor_parallel.py", "areal_tpu_torch/api/alloc_mode.py",
+            "areal_tpu_torch/utils/network.py", "areal_tpu_torch/infra/dist_rollout.py"} <= rel
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_areal_tpu_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN_ROOTS]
@@ -210,7 +219,7 @@ def test_tree_kernel_wrappers_refuse_other_devices():
     [
         dict(lora_rank=8),
         dict(train_vision_tower=True),
-        dict(mesh=MeshConfig(fsdp=2)),
+        dict(mesh=MeshConfig(seq=2)),
         dict(attn_impl="ring"),
     ],
     ids=["lora", "vision", "mesh", "ring"],

@@ -357,6 +357,12 @@ def test_relaunch_first_batch_comes_from_the_journal(tmp_path, monkeypatch, poin
         assert trainer.preempted and committed == [0]
         assert len(batches) == 2 and (batches[1] is None) == (point == "rollout_wait")
         _drain(client, srv.engine)  # the episodes in flight land in the journal too
+        # an accepted episode leaves the running count before its append:
+        # wait for the last append, not only for the count
+        deadline = time.monotonic() + 30
+        while (trainer.journal.stats()["appended"] < client.executor.staleness.stat.accepted
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         unconsumed = [tid for tid, _, _ in client.executor._results]
         appended = trainer.journal.stats()["appended"]
     finally:

@@ -186,6 +186,25 @@ def test_signal_dump_needs_the_main_thread():
     assert box == {"j": False, "t": False}
 
 
+def test_signal_dump_off_the_main_thread_once_armed():
+    """Armed already (a server earlier in the process), the port still
+    answers False off the main thread, as JAX's does: the early return for
+    an armed handler answered True there, so the test above passed or
+    failed with what ran before it in the process."""
+    import signal
+
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        assert ttl.install_signal_dump() is True
+        box = {}
+        t = threading.Thread(target=lambda: box.update(j=jtl.install_signal_dump(), t=ttl.install_signal_dump()))
+        t.start()
+        t.join()
+        assert box == {"j": False, "t": False}
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
 def test_default_dump_path_honors_the_flight_dir(monkeypatch, tmp_path):
     monkeypatch.setenv("AREAL_FLIGHT_DIR", str(tmp_path))
     assert ttl.default_dump_path("wedge").startswith(str(tmp_path))
