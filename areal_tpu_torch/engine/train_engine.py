@@ -142,8 +142,11 @@ What is kept from the JAX engine:
   rank gets the global batch.
 
 Not ported (``NotImplementedError`` naming ROADMAP Queue A item 6b): the
-``seq``, ``expert`` and ``pipe`` axes above 1, and on a mesh tree training,
-LoRA, a vision tower and MoE models.
+``seq``, ``expert`` and ``pipe`` axes above 1, on a mesh tree training,
+LoRA, a vision tower and MoE models, and the M2PO loss
+(``use_m2po_loss``) over data x fsdp above 1: its mask drops the whole
+grid's largest squared logp gaps and its token mean divides by the whole
+grid's surviving tokens, neither of which a block of rows sees.
 """
 
 from __future__ import annotations
@@ -177,7 +180,7 @@ from areal_tpu_torch.parallel import mesh as mesh_lib
 from areal_tpu_torch.utils import atomic_io
 from areal_tpu_torch.utils.data import TensorDict, round_up_to_bucket, seqlens_of
 from areal_tpu_torch.utils.grid import Grid, pack_grid
-from areal_tpu_torch.utils.offload import offload_storages, offload_tensors, onload_storages, onload_tensors
+from areal_tpu_torch.utils.offload import offload_storages, onload_storages
 from areal_tpu_torch.utils.safetensors_io import SafetensorsFile, save_file
 
 logger = logging.getLogger("areal_tpu_torch.train_engine")
@@ -365,6 +368,7 @@ class TorchTrainEngine(TrainEngine):
         self._opt: _OptaxAdamW | None = None
         self._lr_schedule = None
         self._inference_engine = None
+        self._rollout_coord = None  # connect_engine's: rank 0 pulls, every rank gets the batch
         self._weight_update_meta: WeightUpdateMeta | None = None
         # the asynchronous save: pinned host buffers of the snapshot (reused),
         # the side stream that fills them and its event, and a flag that is
@@ -439,6 +443,11 @@ class TorchTrainEngine(TrainEngine):
             if cfg.tree_training or master_cfg.lora_rank > 0 or master_cfg.vision is not None or master_cfg.num_experts:
                 raise NotImplementedError("tree training, LoRA, vision and MoE models on a mesh: ROADMAP Queue A "
                                           "item 6b")
+            if getattr(cfg, "use_m2po_loss", False) and mesh_lib.dp_size(self.mesh) > 1:
+                # M2PO's mask and its token count are the whole grid's; a
+                # rank computes one block of its rows
+                raise NotImplementedError(f"use_m2po_loss over {mesh_lib.dp_size(self.mesh)} data-parallel ranks: "
+                                          "ROADMAP Queue A item 6b")
             self._local_cfg = qwen.local_config(self.model_cfg, mesh_lib.axis_size(self.mesh, "model"))
         else:
             mesh_lib.mesh_sizes(cfg.mesh, 1)  # a mesh of more devices than this process raises: no fallback
@@ -1070,8 +1079,9 @@ class TorchTrainEngine(TrainEngine):
         ``prepare_batch`` / ``rollout_batch`` delegate to: an
         ``InferenceEngine`` (``RemoteTorchEngine``), or an in-process
         ``DecodeEngine`` (which has no rollout methods). In a world of
-        several ranks only rank 0 has one (the others pass None), and the
-        rollout calls go through ``DistRolloutCoordinator``."""
+        several ranks only rank 0 has one (the others pass None). The
+        rollout calls go through ``DistRolloutCoordinator``, which in a
+        world of one calls the engine."""
         from areal_tpu_torch.infra.dist_rollout import DistRolloutCoordinator
 
         self._inference_engine = engine
@@ -1079,11 +1089,9 @@ class TorchTrainEngine(TrainEngine):
         self._rollout_coord = DistRolloutCoordinator(engine)
 
     def _rollout_source(self):
-        if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
-            return self._rollout_coord  # rank 0 pulls, every rank gets the global batch
-        if self._inference_engine is None:
+        if self._rollout_coord is None:
             raise RuntimeError("no inference engine connected (connect_engine)")
-        return self._inference_engine
+        return self._rollout_coord
 
     def prepare_batch(self, *args, **kwargs) -> TensorDict:
         """The connected engine's ``prepare_batch``; in a world of several
@@ -1156,16 +1164,24 @@ class TorchTrainEngine(TrainEngine):
             version = eng.get_version() + 1 if meta.with_version else eng.get_version()
             eng.update_weights_from_params(self._export_params(), version=version)
         else:
-            eng.update_weights(meta, params=self._export_params())
+            # the wire is bf16 (q8 quantizes from the master's precision): on
+            # a mesh each gathered leaf is cast on the card, so half the bytes
+            # reach rank 0's host and the client casts nothing
+            wire = torch.bfloat16 if self.mesh is not None and meta.wire_format != "q8" else None
+            eng.update_weights(meta, params=self._export_params(wire))
 
-    def _export_params(self) -> dict[str, torch.Tensor]:
+    def _export_params(self, mesh_dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
         """The master parameters as a state dict (detached views, no copy),
         without the value head: no server or HF checkpoint holds one. Under
         LoRA the adapters are merged into their targets (new tensors). On a
         mesh every rank must call it: the leaves are gathered whole, one at
-        a time, and rank 0 keeps them (the others get an empty dict)."""
+        a time, and rank 0 keeps them in host memory (cast to
+        ``mesh_dtype`` on the card first, when given; the others get an
+        empty dict), so its card holds one whole leaf at a time beside its
+        shards."""
         if self.mesh is not None:
-            return self._gather({n: p for n, p in self.model.named_parameters() if n != "value_head"})
+            return self._gather({n: p for n, p in self.model.named_parameters() if n != "value_head"},
+                                dtype=mesh_dtype)
         state = {name: p.detach() for name, p in self.model.named_parameters() if name != "value_head"}
         return qwen.merge_lora(state, self.model_cfg)
 
@@ -1189,20 +1205,17 @@ class TorchTrainEngine(TrainEngine):
                 full = torch.cat(parts, dim=d)
         return full
 
-    def _gather(self, leaves: dict[str, torch.Tensor], out=None) -> dict[str, torch.Tensor]:
+    def _gather(self, leaves: dict[str, torch.Tensor], out=None, dtype=None) -> dict[str, torch.Tensor]:
         """``_full_leaf`` of each of ``leaves`` on every rank, in order; rank
-        0 keeps them — copied into ``out[name]`` when given (pinned host
-        buffers), else as device tensors — and the other ranks drop them."""
+        0 copies each to host memory (as ``dtype`` when given) before the
+        next is gathered — into ``out[name]`` when given (pinned buffers) —
+        and the other ranks drop them."""
         kept = {}
         for n, t in leaves.items():
             full = self._full_leaf(n, t)
-            if not mesh_lib.is_lead():
-                continue
-            if out is None:
-                kept[n] = full
-            else:
-                out[n].copy_(full)
-                kept[n] = out[n]
+            if mesh_lib.is_lead():
+                full = full if dtype is None else full.to(dtype)
+                kept[n] = full.cpu() if out is None else out[n].copy_(full)
         return kept
 
     def _shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
@@ -1436,26 +1449,22 @@ class TorchTrainEngine(TrainEngine):
     def offload(self) -> None:
         """Move the master parameters and the optimizer moments to pinned
         host memory (``train_engine.py:436``); ``onload`` brings them back.
-        On the CPU there is nothing to free."""
+        Their storages move, so every view of them stays valid, FSDP2's
+        padded flat shard behind a leaf on a mesh included. On the CPU
+        there is nothing to free."""
         if self.model is None or self._offload_mode is not None:
             return
         self.wait_for_save()
         t0 = time.monotonic()
-        if self.mesh is not None:  # FSDP2's shards: their storages move, every view of them stays
-            self._offload_mode, self._offloaded_storages = offload_storages(self._offload_targets())
-            return
-        self._offload_mode = offload_tensors(self._offload_targets())
+        self._offload_mode, self._offloaded_storages = offload_storages(self._offload_targets())
         logger.info(f"offloaded params + optimizer state ({self._offload_mode}) in {time.monotonic() - t0:.2f}s")
 
     def onload(self) -> None:
         if self._offload_mode is None:
             return
         t0 = time.monotonic()
-        if self._offloaded_storages is not None:
-            onload_storages(self._offloaded_storages)
-            self._offloaded_storages = None
-        else:
-            onload_tensors(self._offload_targets(), self.device)
+        onload_storages(self._offloaded_storages)
+        self._offloaded_storages = None
         self._offload_mode = None
         logger.info(f"onloaded params + optimizer state in {time.monotonic() - t0:.2f}s")
 

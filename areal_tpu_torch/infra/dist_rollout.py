@@ -105,6 +105,8 @@ class DistRolloutCoordinator:
     def _pull(self, fn: str, *args, **kwargs) -> dict:
         rank, n = _world()
         if n == 1:
+            if self.engine is None:
+                raise RuntimeError("no inference engine connected (connect_engine)")
             return getattr(self.engine, fn)(*args, **kwargs)
         batch = None
         if rank == 0:

@@ -244,7 +244,6 @@ class PPOTrainer:
         # rank 0 of a world of several (or the one process): it alone
         # talks to the server, logs and writes the recover records
         self._lead = is_lead()
-        self._world = dist.get_world_size() if dist.is_initialized() else 1
         if not self._lead:
             rollout = eval_rollout = self.valid_dataset = None
 
@@ -426,8 +425,7 @@ class PPOTrainer:
                     "train.rollout", Category.COMPUTE, {"global_step": global_step}
                 ):
                     # several ranks: rank 0 pulls, the engine hands every rank the batch
-                    source = self.actor_engine if self._world > 1 else self.rollout
-                    batch = source.prepare_batch(
+                    batch = self.actor_engine.prepare_batch(
                         self.train_dataloader, workflow=workflow, should_accept_fn=dynamic_filter_fn
                     )
             except RolloutInterrupted:

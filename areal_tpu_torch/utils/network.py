@@ -6,28 +6,10 @@ from __future__ import annotations
 import socket
 
 
-def find_free_ports(count: int = 1) -> list[int]:
-    """``count`` distinct TCP ports that were free at the time of the call:
-    each is bound to port 0 (the OS picks) and released, all held open
-    together so that no two are the same."""
-    ports: list[int] = []
-    socks = []
-    try:
-        for _ in range(count):
-            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            s.bind(("", 0))
-            socks.append(s)
-            ports.append(s.getsockname()[1])
-    finally:
-        for s in socks:
-            s.close()
-    return ports
-
-
 def find_free_port() -> int:
-    return find_free_ports(1)[0]
-
-
-def gethostname() -> str:
-    return socket.gethostname()
+    """A TCP port that was free at the time of the call: bound to port 0
+    (the OS picks) and released."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("", 0))
+        return s.getsockname()[1]

@@ -7776,6 +7776,15 @@ def _vlm_trainable(card, trainer, batch, mcfg) -> dict:
 
 SHARD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_shard")
 SHARD_STEPS = 2
+# on several cards the sharded steps sum in another order than the
+# unsharded engine: each step's loss and grad norm within SHARD_STAT_RTOL
+# of its, and the parameters' summed difference from its within
+# SHARD_UPDATE_RTOL of the summed size of its update (a trainer that did
+# not step, or stepped on another gradient, is 1 or more apart). On four
+# H100s (fsdp 2 x model 2) the grad norm came 2.6e-4 apart and the update
+# 0.040: the bounds are about 8x and 5x that
+SHARD_STAT_RTOL = 2e-3
+SHARD_UPDATE_RTOL = 0.2
 
 
 def _shard_actor_cfg(**kw):
@@ -7829,6 +7838,12 @@ def _bits(tensors: dict) -> dict[str, list[int]]:
     return out
 
 
+def _dev_bf16(t: torch.Tensor, device) -> torch.Tensor:
+    """A leaf (a mesh's gathered leaves are on the host) cast to bf16 on
+    ``device``."""
+    return t.to(device).to(torch.bfloat16)
+
+
 def _engine_bits(eng) -> dict:
     """``_bits`` of an engine's master parameters and AdamW moments, whole:
     on a mesh each leaf gathered in turn (every rank calls it)."""
@@ -7877,18 +7892,24 @@ def phase_shard(card: str) -> dict:
     # the unsharded reference, in this process (no torch.distributed)
     ref = TorchTrainEngine(acfg, model_config=mcfg)
     ref.initialize(FinetuneSpec(total_train_epochs=1, dataset_size=32, train_batch_size=8), seed=0)
+    theta0 = {n: t.detach().cpu() for n, t in ref._export_params().items()}  # the start, on the host
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
         kern.launches = 0
-    step_s = []
+    step_s, ref_stats = [], []
     for _ in range(SHARD_STEPS):
         t = time.monotonic()
-        ref.train_batch(adv, lambda o, b: _grpo_loss(o, b, acfg), _wfn)
+        st = ref.train_batch(adv, lambda o, b: _grpo_loss(o, b, acfg), _wfn)
         torch.cuda.synchronize()
         step_s.append(time.monotonic() - t)
+        ref_stats.append({k: st[k] for k in ("loss", "grad_norm")})
     ref_counts = [k.launches for k in kernels]
     ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    # the summed size of the update: sum |theta - theta0| over every element
+    update_l1 = sum(float((t - theta0[n].to(t.device)).abs().sum(dtype=torch.float64))
+                    for n, t in ref._export_params().items())
+    del theta0
     ref_bits = _engine_bits(ref)
     push_bits = _bits({n: t.to(torch.bfloat16) for n, t in ref._export_params().items()})
     # the crossings' dumps hold the parameters: the moments' crossing is the
@@ -7896,7 +7917,7 @@ def phase_shard(card: str) -> dict:
     # cost 90 s of disk on a slow host
     ref.save(SaveLoadMeta(path=os.path.join(SHARD_ROOT, "unsharded"), weight_format="state", with_optim=False))
     with open(os.path.join(SHARD_ROOT, "ref.json"), "w") as f:
-        json.dump({"bits": ref_bits, "push_bits": push_bits, "counts": ref_counts}, f)
+        json.dump({"bits": ref_bits, "push_bits": push_bits, "counts": ref_counts, "stats": ref_stats}, f)
     log(f"[shard] unsharded engine ({time.monotonic() - t_phase:.1f} s with its dump): {SHARD_STEPS} steps "
         f"{', '.join(f'{s:.2f}' for s in step_s)} s, peak "
         f"torch.cuda.max_memory_allocated {ref_peak:.2f} GiB, K2 / K3 / K4 {ref_counts}")
@@ -7938,12 +7959,24 @@ def phase_shard(card: str) -> dict:
         f"{ref_counts}; the server's weights after the sharded push {'equal' if res['push_same'] else 'DIFFER'} "
         f"(to the unsharded engine's: {res['push_equals_unsharded']}); "
         f"recover dumps (parameters) both ways bit for bit; the loop: {res['loop']}")
-    if res["world"] == 1 and not (same and res["push_equals_unsharded"]):
+    stat_rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(res["stats"], ref_stats) for k in b)
+    update_rel = res["param_diff_l1"] / update_l1
+    log(f"[shard] per step (loss, grad norm): sharded {[(s['loss'], s['grad_norm']) for s in res['stats']]}, "
+        f"unsharded {[(s['loss'], s['grad_norm']) for s in ref_stats]}: largest relative difference {stat_rel:.3e} "
+        f"(bound {SHARD_STAT_RTOL}); parameters' summed difference {res['param_diff_l1']:.6e} against the "
+        f"unsharded update's summed size {update_l1:.6e}: {update_rel:.3e} (bound {SHARD_UPDATE_RTOL}); "
+        f"rank 0's gather of the weights {res['gather_s']:.2f} s, {res['gather_peak_gib']:.3f} GiB on the card above "
+        f"its resting state; the push {res['push_s']:.2f} s, {res['push_peak_gib']:.3f} GiB above it (the colocated "
+        f"server's staging included); offload on the mesh {res['offload']}")
+    if res["world"] == 1 and not (same and res["push_equals_unsharded"] and res["stats"] == ref_stats):
         raise AssertionError("[shard] a world of one must give the unsharded engine's bits")
     # several ranks sum in another order: the trainer twin's bound
-    # (tests/test_torch_train_engine.py), two steps of Adam at most 2 LR apart
+    # (tests/test_torch_train_engine.py), two steps of Adam at most 2 LR
+    # apart, and the bounds above, which separate a wrong update
     if res["max_param_diff"] > 2 * acfg.optimizer.lr:
         raise AssertionError(f"[shard] parameters {res['max_param_diff']:.3e} apart, over 2 LR")
+    if stat_rel > SHARD_STAT_RTOL or update_rel > SHARD_UPDATE_RTOL:
+        raise AssertionError(f"[shard] loss / grad norm {stat_rel:.3e} apart or the update {update_rel:.3e} apart")
     if res["counts"] != ref_counts:
         raise AssertionError(f"[shard] K2 / K3 / K4 launches {res['counts']} != the unsharded run's {ref_counts}")
     if not (res["push_same"] and res["unsharded_loaded_same"]):
@@ -8012,28 +8045,42 @@ def shard_worker(root: str) -> None:
     scfg = ServerConfig(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16,
                         weight_stage_target="device", host="127.0.0.1", seed=0)
     # rank 0's, on the host (off the peaks): the servers' start
-    init = {n: t.to(torch.bfloat16).cpu() for n, t in eng._export_params().items()}
+    init = {n: _dev_bf16(t, eng.device).cpu() for n, t in eng._export_params().items()}
     mark("world and engine up")
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
         kern.launches = 0
-    step_s = []
+    step_s, stats = [], []
     for _ in range(SHARD_STEPS):
         t = time.monotonic()
-        eng.train_batch(adv, lambda o, b: _grpo_loss(o, b, acfg), _wfn)
+        st = eng.train_batch(adv, lambda o, b: _grpo_loss(o, b, acfg), _wfn)
         torch.cuda.synchronize()
         step_s.append(time.monotonic() - t)
+        stats.append({k: st[k] for k in ("loss", "grad_norm")})
     counts = [k.launches for k in kernels]
     peak = torch.cuda.max_memory_allocated() / 2**30
     mark("twin steps")
     out = {"world": world, "backend": dist.get_backend(), "nccl": nccl, "step_s": step_s, "counts": counts,
-           "peak_gib": peak}
-    # the largest difference from the unsharded engine's parameters (its dump)
+           "peak_gib": peak, "stats": stats}
+    # the gather of the weights (every rank; rank 0 keeps them on the host):
+    # its time and rank 0's card memory above the resting state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rest = torch.cuda.memory_allocated()
+    t = time.monotonic()
     params = eng._export_params()
+    out["gather_s"] = time.monotonic() - t
+    out["gather_peak_gib"] = (torch.cuda.max_memory_allocated() - rest) / 2**30
+    # the largest and the summed difference from the unsharded engine's
+    # parameters (its dump)
     if lead:
         f = SafetensorsFile(os.path.join(root, "unsharded", "state", "params.safetensors"))
-        out["max_param_diff"] = max(float((t - f.get(n).to(t.device)).abs().max()) for n, t in params.items())
-    del params
+        out["max_param_diff"] = out["param_diff_l1"] = 0.0
+        for n, t in params.items():
+            d = (t.to(eng.device) - f.get(n).to(eng.device)).abs()
+            out["max_param_diff"] = max(out["max_param_diff"], float(d.max()))
+            out["param_diff_l1"] += float(d.sum(dtype=torch.float64))
+        del d
     mark("largest difference")
     # the push over HTTP into a server started from the initial weights
     srv = client = None
@@ -8042,9 +8089,18 @@ def shard_worker(root: str) -> None:
         srv.start()
         client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
         client.initialize()
-    pushed = _bits({n: t.to(torch.bfloat16) for n, t in eng._export_params().items()})
+    pushed = {}
+    for n, t in params.items():
+        pushed.update(_bits({n: _dev_bf16(t, eng.device)}))
+    del params
     eng.connect_engine(client, WeightUpdateMeta(type="mem"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rest = torch.cuda.memory_allocated()
+    t = time.monotonic()
     eng.update_weights()
+    out["push_s"] = time.monotonic() - t
+    out["push_peak_gib"] = (torch.cuda.max_memory_allocated() - rest) / 2**30
     if lead:
         served = _bits({n: p for n, p in srv.engine.model.named_parameters() if n in pushed})
         out["push_same"] = served == pushed
@@ -8056,6 +8112,24 @@ def shard_worker(root: str) -> None:
     # the recover dumps: the mesh's written, the unsharded engine's read
     out["mesh_bits"] = _engine_bits(eng)
     mark("state fingerprint")
+    # offload and onload on the mesh: FSDP2's shard storages and the moments
+    # to pinned host memory and back, the state bit for bit after
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    local = sum(x.numel() * x.element_size() for x in eng._offload_targets())
+    t = time.monotonic()
+    eng.offload()
+    off_s = time.monotonic() - t
+    freed = held - torch.cuda.memory_allocated()
+    t = time.monotonic()
+    eng.onload()
+    on_s = time.monotonic() - t
+    back = _engine_bits(eng)
+    out["offload"] = {"freed_gib": freed / 2**30, "state_gib": local / 2**30, "offload_s": off_s, "onload_s": on_s}
+    if back != out["mesh_bits"] or freed < local:
+        raise AssertionError(f"[shard] rank {rank}: offload / onload on the mesh: {out['offload']}, state "
+                             f"{'equal' if back == out['mesh_bits'] else 'CHANGED'}")
+    mark("offload, onload, fingerprint")
     eng.save(SaveLoadMeta(path=os.path.join(root, "mesh"), weight_format="state", with_optim=False))
     mark("recover dump written")
     eng.load(SaveLoadMeta(path=os.path.join(root, "unsharded"), weight_format="state", with_optim=False))
@@ -8107,7 +8181,7 @@ def shard_worker(root: str) -> None:
     params = trainer._export_params()
     if lead:
         served = dict(srv.engine.model.named_parameters())
-        same = _bits({n: t.to(torch.bfloat16) for n, t in params.items()}) == _bits({n: served[n] for n in params})
+        same = all(_bits({n: _dev_bf16(t, trainer.device)}) == _bits({n: served[n]}) for n, t in params.items())
         out["loop"] = {"mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape)),
                        "versions": [trainer.get_version(), srv.engine.get_version()], "served_same": same,
                        "step_s": steps, "counts": loop_counts, "launches1": paged_attention_stacked.launches,

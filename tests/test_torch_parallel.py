@@ -272,6 +272,14 @@ def test_data_parallel_twin_matches_jax(data2):
     _assert_params_twin(ranks[0]["tied"]["params"], want["tied"]["params"], payload["models"][0][2])
 
 
+def test_m2po_refused_over_data_parallel_ranks(data2):
+    """M2PO's mask and token mean are the whole grid's, which a rank's block
+    of rows does not see: ``use_m2po_loss`` over data x fsdp above 1 names
+    item 6b on every rank."""
+    ranks = data2[0]
+    assert all(r["m2po"] is not None and "use_m2po_loss" in r["m2po"] and "6b" in r["m2po"] for r in ranks)
+
+
 def test_checkpoint_across_mesh_shapes(data2):
     """A recover save on 2 ranks loads on one rank bit for bit, and the
     unsharded engine's save of it is the same bytes; an unsharded save loads
@@ -466,6 +474,17 @@ def test_engine_refusals_on_a_mesh():
                           device="cpu")
     with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         eng.initialize()
+
+
+def test_rollout_without_a_connected_engine_raises():
+    """The trainer pulls every batch through the engine's coordinator; with
+    no engine connected, a world of one raises too."""
+    eng = TorchTrainEngine(tc.PPOActorConfig(), model_config=port_cfg(JCFG["tied"]), device="cpu")
+    with pytest.raises(RuntimeError, match="no inference engine connected"):
+        eng.prepare_batch(None)
+    eng.connect_engine(None, None)
+    with pytest.raises(RuntimeError, match="no inference engine connected"):
+        eng.rollout_batch([])
 
 
 def test_forward_batch_of_split_grids(tmp_path):

@@ -177,6 +177,12 @@ def data_parallel_world(rank: int, world: int, p: dict) -> dict:
     name, hf_dir, mcfg = p["models"][0]
     eng = _engine(p["actor"], p["mesh"], hf_dir, mcfg)
     out = {name: _train_twin(eng, p)}
+    # M2PO over two data-parallel ranks is refused at initialize
+    try:
+        _engine({**p["actor"], "common": {**p["actor"]["common"], "use_m2po_loss": True}}, p["mesh"], hf_dir, mcfg)
+        out["m2po"] = None
+    except NotImplementedError as e:
+        out["m2po"] = str(e)
     # the recover state, written on the mesh (rank 0 writes)
     eng.save(SaveLoadMeta(path=p["ckpt_dir"], weight_format="state", with_optim=True))
     eng.save(SaveLoadMeta(path=p["hf_out"], weight_format="hf"))
