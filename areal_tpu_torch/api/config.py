@@ -1,6 +1,7 @@
-"""Configuration: the fields of ``areal_tpu/api/config.py`` that the
-port's slices read, with the same names and defaults (one exception is
-marked below). No YAML loader: configs are built in code.
+"""Configuration: the dataclasses of ``areal_tpu/api/config.py``, with the
+same fields and defaults, and its loader: ``load_expr_config`` reads
+``--config file.yaml`` (through the port's own YAML reader,
+``utils/yaml_subset.py``) and dotted ``key=value`` overrides.
 
 - Serving: ``ServerConfig`` (and ``MeshConfig``, ``PrefixCacheConfig``,
   ``SpeculativeConfig``, ``RequestLifecycleConfig`` and
@@ -28,9 +29,15 @@ ROADMAP.md) when one is switched on.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import types
+import typing
 from dataclasses import dataclass, field, fields
+from typing import Any
 
 from areal_tpu_torch.api.io_struct import GenerationHyperparameters
+from areal_tpu_torch.utils import yaml_subset
 from areal_tpu_torch.utils.data import MicroBatchSpec
 
 
@@ -178,6 +185,7 @@ class ServerConfig:
     max_batch_size: int = 32
     max_seq_len: int = 32768
     page_size: int = 128  # KV page granularity (paged attention)
+    hbm_utilization: float = 0.85  # read by neither package
     # KV page-pool budget in GiB. None = dense-equivalent pool
     # (max_batch_size x max_seq_len tokens)
     kv_hbm_gb: float | None = None
@@ -192,6 +200,10 @@ class ServerConfig:
     prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
     speculative: SpeculativeConfig = field(default_factory=SpeculativeConfig)
     enable_frequency_penalty: bool = False
+    # build and load every kernel the engine's configuration can launch when
+    # the server starts, before it answers a request (DecodeEngine.precompile);
+    # False builds each at its first launch
+    precompile: bool = False
     # sampling RNG seed; None seeds from the clock
     seed: int | None = None
     # serving weight quantization: "none" | "int8"
@@ -233,6 +245,7 @@ class NormConfig:
     # consecutive rows per group; 1 (the default) makes PPOActor fall back
     # to PPOActorConfig.group_size only when set to 0
     group_size: int = 1
+    eps: float = 1e-5  # read by neither package (the normalizer's own default is used)
     mean_leave1out: bool = False  # RLOO leave-one-out baseline
     std_unbiased: bool = False  # Bessel (n-1) correction on the std
 
@@ -252,10 +265,13 @@ class OptimizerConfig:
     warmup_steps_proportion: float = 0.001
     min_lr_ratio: float = 0.0
     gradient_clipping: float = 1.0
+    offload_optimizer_state: bool = False  # read by neither package
 
 
 @dataclass
 class TrainEngineConfig:
+    experiment_name: str = ""  # read by neither package
+    trial_name: str = ""  # read by neither package
     path: str = ""  # HF model path (config.json + safetensors)
     init_from_scratch: bool = False  # random weights even when path is set
     dtype: str = "bfloat16"  # compute dtype of the forward and backward
@@ -269,6 +285,7 @@ class TrainEngineConfig:
     # layer's projections and recomputes the rest; "everything" saves all
     remat_policy: str = "nothing"
     mb_spec: MicroBatchSpec = field(default_factory=MicroBatchSpec)
+    pad_to_maximum: bool = False  # read by neither package
     bucket_step: int = 512  # grid width granularity (tokens)
     logprob_chunk_size: int = 1024  # tokens per vocab-logit chunk
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
@@ -279,9 +296,9 @@ class TrainEngineConfig:
     lora_alpha: float = 16.0
     lora_targets: list[str] = field(default_factory=lambda: ["wq", "wk", "wv", "wo"])
     # "mem" streams bf16 buckets over HTTP, "disk" exports HF safetensors
-    # that the servers reload. The JAX package defaults to "disk"; the port
-    # keeps "mem", the default its earlier slices were built and measured on
-    weight_update_mode: str = "mem"  # disk|mem
+    # that the servers reload (the trainer reads BaseExperimentConfig's
+    # field first, and this one only when that is empty)
+    weight_update_mode: str = "disk"  # disk|mem
     # tree training: merge shared-prefix sequences (GRPO groups) into tries
     # and run forward and backward once per unique node through the tree
     # kernels (ops/tree_attention.py); the loss still sees per-sequence
@@ -341,6 +358,8 @@ class PPOActorConfig(TrainEngineConfig):
     # entropy & misc
     entropy_coeff: float = 0.0
     temperature: float = 1.0
+    log_agent_stats: bool = False  # read by neither package
+    dynamic_sampling: bool = False  # read by neither package (a dynamic_filter_fn is train()'s argument)
 
 
 @dataclass
@@ -809,3 +828,119 @@ class PPOConfig(BaseExperimentConfig):
 @dataclass
 class GRPOConfig(PPOConfig):
     pass
+
+
+# -- the loader (areal_tpu/api/config.py:1115-1227): YAML + dotted key=value
+# overrides -> nested dataclasses ----------------------------------------------
+
+
+def _is_dataclass_type(t) -> bool:
+    return isinstance(t, type) and dataclasses.is_dataclass(t)
+
+
+def _resolve_optional(t):
+    """``X | None`` -> ``X``; any other hint as it is."""
+    if typing.get_origin(t) in (typing.Union, types.UnionType):
+        args = [a for a in typing.get_args(t) if a is not type(None)]
+        if len(args) == 1:
+            return args[0]
+    return t
+
+
+def from_dict(cls, d: dict[str, Any] | None):
+    """Build dataclass ``cls`` from a plain dict, recursively. Scalars are
+    coerced by the field's annotation where YAML 1.1 resolves them to
+    another type: ``1e-6`` (a string) for a float field, a string for an
+    int field, ``on`` / ``off`` (booleans) for a str field."""
+    if d is None:
+        return cls()
+    if not dataclasses.is_dataclass(cls):
+        return d
+    hints = typing.get_type_hints(cls)
+    valid = {f.name for f in fields(cls)}
+    kwargs = {}
+    for key, val in d.items():
+        if key not in valid:
+            raise ValueError(f"unknown config key {key!r} for {cls.__name__}")
+        ft = _resolve_optional(hints[key])
+        if _is_dataclass_type(ft) and isinstance(val, dict):
+            kwargs[key] = from_dict(ft, val)
+        elif ft is float and isinstance(val, (str, int)) and not isinstance(val, bool):
+            kwargs[key] = float(val)
+        elif ft is int and isinstance(val, str):
+            kwargs[key] = int(val)
+        elif ft is str and isinstance(val, bool):
+            kwargs[key] = "on" if val else "off"
+        else:
+            kwargs[key] = val
+    return cls(**kwargs)
+
+
+def to_dict(obj) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: to_dict(getattr(obj, f.name)) for f in fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [to_dict(v) for v in obj]
+    return obj
+
+
+def _parse_scalar(s: str) -> Any:
+    """An override's value as YAML reads it; a string that is not YAML (or
+    not the port's subset of it) stays as it is. ``3e-4``, a string under
+    YAML 1.1, becomes a float."""
+    try:
+        val = yaml_subset.safe_load(s)
+    except ValueError:
+        return s
+    if isinstance(val, str):
+        try:
+            return float(val)
+        except ValueError:
+            return val
+    return val
+
+
+def apply_override(cfg, dotted_key: str, value: str) -> None:
+    """Set ``a.b.c`` on ``cfg`` from its string ``value``. An Optional
+    section that is None is made on demand; a str field keeps the raw
+    string (YAML would read ``on`` / ``off`` / ``yes`` as booleans)."""
+    parts = dotted_key.split(".")
+    obj = cfg
+    for p in parts[:-1]:
+        child = getattr(obj, p)
+        if child is None:
+            ft = _resolve_optional(typing.get_type_hints(type(obj))[p])
+            if _is_dataclass_type(ft):
+                child = ft()
+                setattr(obj, p, child)
+        obj = child
+    leaf = parts[-1]
+    if not hasattr(obj, leaf):
+        raise ValueError(f"unknown config key {dotted_key!r}")
+    ft = _resolve_optional(typing.get_type_hints(type(obj)).get(leaf, str))
+    if ft is str:
+        setattr(obj, leaf, value)
+        return
+    parsed = _parse_scalar(value)
+    if ft is float and isinstance(parsed, (str, int)) and not isinstance(parsed, bool):
+        parsed = float(parsed)
+    setattr(obj, leaf, parsed)
+
+
+def load_expr_config(argv: list[str], cls):
+    """Parse ``--config cfg.yaml`` plus ``a.b.c=value`` overrides into
+    ``cls``. Returns (config, the config file's path or None)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, default=None)
+    args, overrides = parser.parse_known_args(argv)
+    data = {}
+    if args.config:
+        with open(args.config) as f:
+            data = yaml_subset.safe_load(f) or {}
+    cfg = from_dict(cls, data)
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        k, v = ov.split("=", 1)
+        apply_override(cfg, k, v)
+    return cfg, args.config

@@ -177,9 +177,13 @@ class _ConnPool:
     async def close_loop(self) -> None:
         """Close this event loop's idle connections."""
         per_addr = self._idle.pop(asyncio.get_running_loop(), {})
-        for conns in per_addr.values():
-            for _, writer in conns:
-                writer.close()
+        writers = [w for conns in per_addr.values() for _, w in conns]
+        for writer in writers:
+            writer.close()
+        # the sockets close in the loop's next callbacks: wait for them, or a
+        # loop stopped right after leaves them (and the server's threads
+        # serving them) open
+        await asyncio.gather(*(w.wait_closed() for w in writers), return_exceptions=True)
 
 
 class RemoteTorchEngine(InferenceEngine):

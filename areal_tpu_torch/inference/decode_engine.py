@@ -160,6 +160,10 @@ from areal_tpu_torch.observability import catalog as obs_catalog
 from areal_tpu_torch.observability import hw_accounting as hw
 from areal_tpu_torch.observability import kernel_probe
 from areal_tpu_torch.observability import timeline as tl_mod
+from areal_tpu_torch.ops import _build
+from areal_tpu_torch.ops import gmm as gmm_ops
+from areal_tpu_torch.ops import paged_attention as pa_ops
+from areal_tpu_torch.ops import paged_suffix_attention as psa_ops
 from areal_tpu_torch.utils import offload, perf_tracer
 from areal_tpu_torch.utils.data import round_up_to_bucket
 
@@ -503,6 +507,11 @@ class DecodeEngine:
             self.model = qwen.QwenModel(self.model_cfg, self.device)
             load_params(self.model, self.params)
         self.params = None  # the engine serves self.model; no second copy
+        if self.device.type == "cuda":
+            # kernel #1 runs at every decode step: refuse its unsupported
+            # heads now rather than at the first request
+            mc = self.model_cfg
+            pa_ops.check_heads(mc.num_heads, mc.num_kv_heads, mc.head_dim_, cfg.page_size)
         self._base_specs = _param_specs(self.model)
         if self._quantized:
             # a QwenModel handed over is served, so quantized, in place
@@ -616,6 +625,30 @@ class DecodeEngine:
         if self._thread:
             self._thread.join(timeout=60)
             self._thread = None
+
+    def precompile(self) -> list[str]:
+        """Build and load every kernel this engine's configuration can
+        launch, so that none builds while requests wait: #1 always, #3 with
+        the radix prefix cache or speculation on, the grouped matmul for an
+        MoE model. The counterpart of the JAX engine's ``precompile``, which
+        compiles its jitted programs; the server calls it at start under
+        ``ServerConfig.precompile``. It launches nothing, and on the CPU,
+        where the engine runs the kernels' plain versions, it builds
+        nothing. Returns the sources loaded."""
+        assert self.initialized, "initialize() first"
+        if self.device.type != "cuda":
+            return []
+        wanted = {"paged_attention": pa_ops._SIGNATURES}
+        if self._radix is not None or self._spec_cfg is not None:
+            wanted["paged_suffix_attention"] = psa_ops._SIGNATURES
+        if self.model_cfg.num_experts:
+            wanted["gmm"] = gmm_ops._SIGNATURES
+        t0 = time.monotonic()
+        _build.build(list(wanted))  # one nvcc per missing library, all at once
+        for name, sigs in wanted.items():
+            _build.load(name, sigs)
+        logger.info(f"precompiled {sorted(wanted)} in {time.monotonic() - t0:.1f}s")
+        return list(wanted)
 
     # -- request API (any thread) ----------------------------------------
     def submit(self, req: ModelRequest, callback: Callable[[ModelResponse], None]):

@@ -39,11 +39,22 @@ JAX package's byte layout (``encode_weight_bucket``), read into one host
 buffer with ``readinto`` and staged from views of it.
 
 The relay header (ROADMAP Queue A item 8) answers with an error naming its
-item. There is no command line
-entry yet (with it comes the server's SIGTERM drainer, ROADMAP Queue A
-item 7 or 8): build the engine in code, with weights or with
-``ServerConfig.model_path``. ``ServerThread`` started from the main thread
-arms the flight ring's SIGTERM dump.
+item. ``ServerThread`` started from the main thread arms the flight ring's
+SIGTERM dump. Under ``ServerConfig.precompile`` a server builds and loads
+the engine's kernels (``DecodeEngine.precompile``) before it answers.
+
+The command line (``main``, ``areal_tpu/inference/server.py:915-973``)::
+
+    python -m areal_tpu_torch.inference.server --config server.yaml [key=value ...]
+
+reads a ``ServerConfig`` document and dotted overrides, loads
+``model_path`` and serves on the card until it is stopped. With
+``preemption.enabled`` SIGTERM / SIGUSR1 only set a flag; a drainer thread,
+started before the handler is installed, drains the engine for good within
+``min(drain_budget_s, grace left - 2 s)``, dumps the flight ring and exits
+with ``preemption.exit_code``. Otherwise SIGTERM dumps the flight ring and
+ends the process. ``--name`` (registering the address in ``name_resolve``)
+waits for ROADMAP Queue A item 8; ``--device cpu`` serves on the CPU.
 """
 
 from __future__ import annotations
@@ -286,6 +297,33 @@ class _HTTPServer(ThreadingHTTPServer):
     # a rollout opens one connection per request in flight (32+ at once)
     request_queue_size = 128
     app: "InferenceServer"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._conns: set[socket.socket] = set()
+        self._conns_lock = threading.Lock()
+
+    def process_request(self, request, client_address):
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def server_close(self):
+        """Close the listening socket and every connection still open, so
+        each handler thread (a kept-alive client's) ends with it."""
+        super().server_close()
+        with self._conns_lock:
+            conns, self._conns = list(self._conns), set()
+        for sock in conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # already closed by its client
 
 
 class InferenceServer:
@@ -637,9 +675,12 @@ class InferenceServer:
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> None:
-        """Initialize and start the engine, then bind the HTTP socket."""
+        """Initialize the engine (and under ``precompile`` build its
+        kernels), start it, then bind the HTTP socket."""
         if not self.engine.initialized:
             self.engine.initialize()
+        if self.config.precompile:
+            self.engine.precompile()
         self.engine.start()
         self._httpd = _HTTPServer((self.config.host, self.config.port), _Handler)
         self._httpd.app = self
@@ -647,6 +688,15 @@ class InferenceServer:
 
     def serve_forever(self) -> None:
         self._httpd.serve_forever()
+
+    def run_forever(self) -> None:
+        """``start``, then serve on this thread until ``shutdown`` is called
+        from another; the engine stops on the way out."""
+        self.start()
+        try:
+            self.serve_forever()
+        finally:
+            self.shutdown()
 
     def shutdown(self) -> None:
         """Stop serving (call from another thread than ``serve_forever``)
@@ -767,3 +817,53 @@ def bucket_tensors(header: list[dict], data: torch.Tensor) -> dict[str, torch.Te
     if off != data.numel():
         raise ValueError(f"bucket size mismatch: {off} != {data.numel()}")
     return flat
+
+
+# -- the command line (areal_tpu/inference/server.py:915-973) ---------------
+
+
+def main(argv: list[str] | None = None) -> None:
+    """``python -m areal_tpu_torch.inference.server --config x.yaml key=val``.
+
+    ``--device`` picks the device (the card unless ``cpu`` is asked for);
+    ``--name`` raises until server discovery is ported (ROADMAP Queue A item
+    8)."""
+    import argparse
+    import sys
+
+    from areal_tpu_torch.api.config import load_expr_config
+    from areal_tpu_torch.robustness.preemption import PreemptionHandler
+
+    p = argparse.ArgumentParser(prog="python -m areal_tpu_torch.inference.server")
+    p.add_argument("--name", default="", help="name_resolve key to register the address under")
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args, rest = p.parse_known_args(sys.argv[1:] if argv is None else argv)
+    if args.name:
+        raise NotImplementedError(f"--name {args.name!r} (registering the server in name_resolve): ROADMAP Queue A "
+                                  "item 8")
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    cfg, _ = load_expr_config(rest, ServerConfig)
+    server = InferenceServer(cfg, device=args.device)
+    pre = cfg.preemption
+    if pre.enabled:
+        handler = PreemptionHandler(role="inference_server", grace_s=pre.grace_s, handle_sigusr1=pre.handle_sigusr1)
+
+        def drain_replica(h: PreemptionHandler) -> None:
+            budget = min(pre.drain_budget_s, max(0.0, h.remaining() - 2.0))
+            # terminal: the process is leaving, so /undrain cannot reopen it
+            server.engine.drain(budget, terminal=True)
+            try:
+                tl_mod.get_flight_recorder().dump(tl_mod.default_dump_path("preempt"), "preempt")
+            except OSError:
+                logger.exception("preempt flight dump failed")
+
+        # the drainer thread exists before the handler: the handler only sets a flag
+        handler.spawn_drainer(drain_replica, exit_code=pre.exit_code)
+        handler.install()
+    else:
+        tl_mod.install_signal_dump()
+    server.run_forever()
+
+
+if __name__ == "__main__":
+    main()

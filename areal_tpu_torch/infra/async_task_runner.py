@@ -20,6 +20,14 @@ from areal_tpu_torch.api.io_struct import TimedResult
 logger = logging.getLogger("areal_tpu_torch.async_task_runner")
 
 
+async def _cancel_pending() -> None:
+    me = asyncio.current_task()
+    tasks = [t for t in asyncio.all_tasks() if t is not me]
+    for t in tasks:
+        t.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+
+
 class TaskFailed(RuntimeError):
     def __init__(self, task_id: str, exc: BaseException):
         super().__init__(f"task {task_id} failed: {exc!r}")
@@ -66,8 +74,18 @@ class AsyncTaskRunner:
             raise TimeoutError("async task runner failed to start")
 
     def stop(self) -> None:
-        if self._loop is not None:
-            self._loop.call_soon_threadsafe(self._loop.stop)
+        """Cancel the tasks still on the loop and let them unwind (their
+        handlers close connections and abort server-side work), then stop
+        the loop: a loop stopped under pending tasks leaves coroutines that
+        are never resumed."""
+        loop = self._loop
+        if loop is not None and loop.is_running():
+            try:
+                asyncio.run_coroutine_threadsafe(_cancel_pending(), loop).result(timeout=10)
+            except Exception:  # noqa: BLE001 — a task that will not unwind must not block the stop
+                logger.warning("pending tasks did not unwind within 10 s; stopping the loop", exc_info=True)
+        if loop is not None:
+            loop.call_soon_threadsafe(loop.stop)
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None

@@ -217,6 +217,19 @@ def occupancy(hd: int, kv_dtype: torch.dtype) -> dict[str, int]:
     return {"registers": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2]}
 
 
+def check_heads(H: int, KH: int, hd: int, psz: int, page_hd: int | None = None) -> None:
+    """Refuse the head shapes and page size the kernel does not take; the
+    decode engine calls it at start on a card, since the kernel runs at
+    every decode step."""
+    page_hd = hd if page_hd is None else page_hd
+    if page_hd != hd or hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} (pages {page_hd}) not in {_HEAD_DIMS}")
+    if H % KH or H // KH > _MAX_GROUP:
+        raise ValueError(f"H={H}, KH={KH}: need KH | H and H/KH <= {_MAX_GROUP}")
+    if psz % _ROWS:
+        raise ValueError(f"page_size {psz} must be a multiple of {_ROWS}")
+
+
 def _check_cuda_args(q, k_pages, v_pages, lengths, page_table, k_scales, v_scales):
     """Refuse what the kernel does not take (it reads raw pointers)."""
     dev = q.device
@@ -236,12 +249,7 @@ def _check_cuda_args(q, k_pages, v_pages, lengths, page_table, k_scales, v_scale
     if k_pages.dim() != 5 or k_pages.shape != v_pages.shape:
         raise ValueError(f"pages must be [n_layers, KH, N, psz, hd], got {tuple(k_pages.shape)}")
     _, KH, N, psz, khd = k_pages.shape
-    if khd != hd or hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} (pages {khd}) not in {_HEAD_DIMS}")
-    if H % KH or H // KH > _MAX_GROUP:
-        raise ValueError(f"H={H}, KH={KH}: need KH | H and H/KH <= {_MAX_GROUP}")
-    if psz % _ROWS:
-        raise ValueError(f"page_size {psz} must be a multiple of {_ROWS}")
+    check_heads(H, KH, hd, psz, khd)
     if quant and (
         k_scales.dtype != torch.float32
         or v_scales.dtype != torch.float32

@@ -202,6 +202,7 @@ class PPOTrainer:
         actor_engine=None,
         critic_engine=None,
         ref_engine=None,
+        device=None,
     ):
         check_supported(config)
         wire = resolve_weight_update_wire(config)
@@ -222,21 +223,22 @@ class PPOTrainer:
             train_batch_size=config.train_dataset.batch_size,
         )
 
-        # engines (injectable); a built one runs on the card
+        # engines (injectable); a built one runs on the card unless
+        # ``device`` says otherwise
         config.actor.temperature = config.gconfig.temperature
-        self.actor_engine = actor_engine or TorchTrainEngine(config.actor)
+        self.actor_engine = actor_engine or TorchTrainEngine(config.actor, device=device)
         if actor_engine is None or getattr(self.actor_engine, "model", 1) is None:
             self.actor_engine.initialize(self.ft_spec)
         self.actor = PPOActor(config.actor, self.actor_engine)
         self.critic = None
         if config.critic is not None:
-            eng = critic_engine or TorchTrainEngine(config.critic, value_head=True)
+            eng = critic_engine or TorchTrainEngine(config.critic, value_head=True, device=device)
             if critic_engine is None:
                 eng.initialize(self.ft_spec)
             self.critic = PPOCritic(config.critic, eng)
         self.ref = None
         if config.ref is not None:
-            eng = ref_engine or TorchTrainEngine(config.ref, need_optimizer=False)
+            eng = ref_engine or TorchTrainEngine(config.ref, need_optimizer=False, device=device)
             if ref_engine is None:
                 eng.initialize(self.ft_spec)
             self.ref = PPOActor(config.actor, eng)

@@ -180,7 +180,8 @@ class SFTTrainer:
     loss_key = "ppl_loss"
     value_head = False
 
-    def __init__(self, config: SFTConfig, train_dataset, valid_dataset=None, tokenizer=None, engine=None):
+    def __init__(self, config: SFTConfig, train_dataset, valid_dataset=None, tokenizer=None, engine=None,
+                 device=None):
         check_allocation(config)
         apply_allocation_mode(config)
         self.config = config
@@ -198,7 +199,8 @@ class SFTTrainer:
             dataset_size=len(train_dataset),
             train_batch_size=config.train_dataset.batch_size,
         )
-        self.engine = engine or TorchTrainEngine(config.model, value_head=self.value_head)
+        # a built engine runs on the card unless ``device`` says otherwise
+        self.engine = engine or TorchTrainEngine(config.model, value_head=self.value_head, device=device)
         if engine is None:
             self.engine.initialize(self.ft_spec)
         check_world(config)

@@ -142,7 +142,8 @@ no result line:
               tokens generated during the update and the rows spanning a
               commit; staging GB/s, decode step wall time while staging
               beside the other steps, trainer tokens/s and peak memory.
-13b. shard   — the trainer across GPUs: grpo's actor, unsharded in this
+13b. shard   — the trainer across GPUs: grpo's actor at full width and 8
+              of 28 layers (the script's time limit), unsharded in this
               process, then under ``torchrun`` (one rank a card, NCCL; a
               world of one on one card, fsdp x model 2 on several) in
               ``--shard-worker``: 2 ``train_batch`` steps on one fixed batch
@@ -322,6 +323,25 @@ no result line:
               ``tree_forward_logprobs_pallas`` against the packed path; a
               profiled optimizer step (the gmm forward's and its backward
               kernels' shares of its busy time) and the peak memory.
+26. entry    — the entry layer, the way a user starts the system: (a)
+              ``areal_tpu_torch.examples.math.gsm8k_rl.main`` on
+              ``examples/smoke/synthetic_grpo.yaml`` plus overrides (a
+              written Qwen2.5-1.5B ``config.json``, full width and depth,
+              random weights from the YAML's seed, bf16 compute,
+              ``max_seq_len`` 256, 2 steps of 8 prompts x 4 samples x 8
+              tokens): every response complete, finite losses, the version
+              advancing with each push, #1 / K2 (with and without lse) / K3
+              / K4 / #3 launches, step seconds by phase; (b) the YAML as it
+              stands (the tiny head_dim-16 f32 model): the paged kernel's
+              own refusal at the server's start, no server thread left; (c)
+              ``python -m areal_tpu_torch.inference.server`` as a
+              subprocess (``precompile``, the preemption drainer) over a
+              4-layer HF export from a seed: ``gsm8k_eval.main`` in fleet
+              mode on 32 rows of synthetic_arith's test split, the greedy
+              tokens of 8 requests equal to an in-process engine's on the
+              same export, SIGTERM draining it to its exit code with a
+              flight dump. Seconds to /health, eval n / accuracy, the
+              drain's seconds.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -340,6 +360,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -366,11 +387,12 @@ QWEN25_15B = dict(
 # the depth of the phases whose checks are about behaviour, not the main
 # path's speed (lifecycle, observe, durable; since the int8serve and lora
 # phases came, critic, sft and train_tree too; since the vlm phase came,
-# int8serve): 8 of Qwen2.5-1.5B's 28 layers at full width, so the whole
-# script stays inside its time limit on a slow host (1,170 s of phases at
-# full depth on one; 1,000 s with all but the first three at full depth on
-# another, PERF.md); serve, rollout, train, grpo and lora run all 28, vlm
-# all of Qwen2-VL-2B
+# int8serve; since the entry phase came, shard): 8 of Qwen2.5-1.5B's 28
+# layers at full width, so the whole script stays inside its time limit on a
+# slow host (1,170 s of phases at full depth on one; 1,000 s with all but the
+# first three at full depth on another; 954 s with shard at full depth on
+# another, each on one H100 80GB HBM3 at 700 W, PERF.md); serve, rollout, train, grpo, lora and entry run all 28, vlm all
+# of Qwen2-VL-2B
 CUT_LAYERS = 8
 # serve_moe's depth: 24 of Qwen3-30B-A3B's 48 layers, to keep the whole
 # script in its limit once the shard phase came (1,106.5 s of phases on a
@@ -7881,7 +7903,7 @@ def phase_shard(card: str) -> dict:
         raise AssertionError(f"[shard] {held:.2f} GiB still allocated by earlier phases")
     shutil.rmtree(SHARD_ROOT, ignore_errors=True)
     os.makedirs(SHARD_ROOT)
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     acfg = _shard_actor_cfg()
     adv = _shard_batch(acfg, mcfg.vocab_size)
     with open(os.path.join(SHARD_ROOT, "batch.pkl"), "wb") as f:
@@ -8025,7 +8047,7 @@ def shard_worker(root: str) -> None:
         torch.cuda.synchronize()
         marks.append((name, time.monotonic()))
 
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     with open(os.path.join(root, "batch.pkl"), "rb") as f:
         adv = pickle.load(f)
     with open(os.path.join(root, "ref.json")) as f:
@@ -8202,9 +8224,273 @@ def shard_worker(root: str) -> None:
     dist.destroy_process_group()
 
 
+ENTRY_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "smoke", "synthetic_grpo.yaml")
+ENTRY_CLI_LAYERS = 4  # the CLI server's depth at Qwen2.5-1.5B width (the phase's time limit)
+ENTRY_EVAL_ROWS = 32  # the eval's cut of synthetic_arith's test split
+ENTRY_GREEDY = 8  # requests whose greedy tokens the CLI server and an in-process engine must share
+ENTRY_EXIT_CODE = 17  # the CLI server's preemption.exit_code: not a code a crash gives
+
+
+def _entry_overrides(root: str) -> list[str]:
+    """Every file the entry writes goes under ``root``; no signal handlers."""
+    return ["preemption.enabled=false", *(f"{k}.fileroot={root}" for k in (
+        "cluster", "saver", "checkpointer", "evaluator", "recover", "stats_logger"))]
+
+
+def phase_entry(card: str) -> dict:
+    """The entry layer on the card, the way a user starts the system: (a)
+    ``gsm8k_rl.main`` on ``examples/smoke/synthetic_grpo.yaml`` with
+    overrides (Qwen2.5-1.5B at full width and depth from a written
+    ``config.json``, random bf16-compute weights from the YAML's seed, 2
+    steps): every response complete, finite losses, the version advancing
+    with each push, the launches of #1, K2 (with and without lse), K3, K4
+    and #3; (b) the same YAML as it stands (the tiny head_dim-16 model)
+    raising the kernel's own refusal with no server thread left; (c)
+    ``python -m areal_tpu_torch.inference.server`` as a subprocess
+    (``precompile`` and the preemption drainer on) over a 4-layer export:
+    ``gsm8k_eval.main`` in fleet mode, greedy tokens equal to an in-process
+    engine's, and SIGTERM draining it to its exit code with a flight dump."""
+    import shutil
+    import signal as signal_mod
+    import socket
+
+    from areal_tpu_torch import dataset as ds_mod
+    from areal_tpu_torch.api.config import ServerConfig, load_expr_config
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters, ModelRequest
+    from areal_tpu_torch.examples.math import gsm8k_eval, gsm8k_rl
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.models.hf import save_params_to_hf, write_hf_config
+    from areal_tpu_torch.ops import attention as fa
+    from areal_tpu_torch.ops.paged_attention import paged_attention_stacked
+    from areal_tpu_torch.ops.paged_suffix_attention import paged_suffix_attention as psa
+    from areal_tpu_torch.utils import stats_logger
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[entry] {held:.2f} GiB still allocated by earlier phases")
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_")  # the export, configs, logs, dumps; deleted at the end
+    repo = os.path.dirname(os.path.abspath(__file__))
+    res: dict = {}
+    proc = None
+    try:
+        # (c) first, so the subprocess boots while (a) runs: a 4-layer export
+        # from a seed and the server's YAML document
+        cli_cfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": ENTRY_CLI_LAYERS})
+        export = os.path.join(root, "export")
+        t0 = time.monotonic()
+        model = qwen.init_params(cli_cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        nbytes = save_params_to_hf(model, cli_cfg, export)
+        del model
+        export_s = time.monotonic() - t0
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        server_yaml = os.path.join(root, "server.yaml")
+        with open(server_yaml, "w") as f:
+            f.write(
+                "# a ServerConfig document (the CLI's --config)\n"
+                "dtype: bfloat16\nmax_batch_size: 8\nmax_seq_len: 256\npage_size: 128\n"
+                f"decode_steps_per_call: 4\nhost: 127.0.0.1\nport: {port}\nseed: 0\nprecompile: true\n"
+                f"preemption:\n  enabled: true\n  grace_s: 15.0\n  drain_budget_s: 3.0\n  exit_code: {ENTRY_EXIT_CODE}\n"
+            )
+        flight_dir = os.path.join(root, "flight")
+        env = {**os.environ, "AREAL_FLIGHT_DIR": flight_dir,
+               "PYTHONPATH": os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
+        log_path = os.path.join(root, "server.log")
+        t_launch = time.monotonic()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "areal_tpu_torch.inference.server", "--config", server_yaml,
+                 f"model_path={export}"], cwd=repo, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        addr = f"127.0.0.1:{port}"
+        healthy: dict = {}
+
+        def watch_health():
+            while proc.poll() is None and "s" not in healthy:
+                try:
+                    with urllib.request.urlopen(f"http://{addr}/health", timeout=2) as r:
+                        if r.status == 200:
+                            healthy["s"] = time.monotonic() - t_launch
+                            return
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    pass
+                time.sleep(0.2)
+
+        watcher = threading.Thread(target=watch_health, daemon=True)
+        watcher.start()
+        log(f"[entry] {ENTRY_CLI_LAYERS}-layer export {nbytes / 1e9:.2f} GB in {export_s:.1f}s; CLI server launched "
+            f"on {addr}")
+
+        # (a) GRPO through the entry: Qwen2.5-1.5B at full width and depth
+        mdir = os.path.join(root, "qwen25_15b")
+        write_hf_config(qwen.ModelConfig(**QWEN25_15B), mdir)
+        argv = ["--config", ENTRY_YAML, f"actor.path={mdir}", "actor.dtype=bfloat16", "server.max_seq_len=256",
+                "total_train_steps=2", "train_dataset.batch_size=8", "gconfig.max_new_tokens=8",
+                *_entry_overrides(os.path.join(root, "grpo"))]
+        committed, responses, pushes, lse_flags = [], [], [], []
+        commit, agenerate = stats_logger.StatsLogger.commit, RemoteTorchEngine.agenerate
+        commit_staged, fwd = DecodeEngine.commit_staged_weights, fa.flash_attention_fwd
+
+        def commit_logged(self, epoch, step, global_step, data):
+            committed.append(dict(data))
+            return commit(self, epoch, step, global_step, data)
+
+        async def agenerate_logged(self, req):
+            resp = await agenerate(self, req)
+            responses.append(resp)
+            return resp
+
+        def commit_staged_logged(self, version=None):
+            pushes.append(version)
+            return commit_staged(self, version)
+
+        def fwd_logged(*a, with_lse, **k):
+            lse_flags.append(bool(with_lse))
+            return fwd(*a, with_lse=with_lse, **k)
+
+        fwd_logged.launches = 0
+        kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+        for kern in kernels:
+            kern.launches = 0
+        paged_attention_stacked.launches = 0
+        for kind in psa.launches:
+            psa.launches[kind] = 0
+        (stats_logger.StatsLogger.commit, RemoteTorchEngine.agenerate, DecodeEngine.commit_staged_weights,
+         fa.flash_attention_fwd) = commit_logged, agenerate_logged, commit_staged_logged, fwd_logged
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        try:
+            trainer = gsm8k_rl.main(argv)
+        finally:
+            (stats_logger.StatsLogger.commit, RemoteTorchEngine.agenerate, DecodeEngine.commit_staged_weights,
+             fa.flash_attention_fwd) = commit, agenerate, commit_staged, fwd
+        grpo_s = time.monotonic() - t0
+        counts = {k.__name__: k.launches for k in kernels}
+        # K2's wrapper adds to the count of the name it is called by: the
+        # module global, which was fwd_logged during the call
+        counts["flash_attention_fwd"] = fwd_logged.launches
+        launches1, launches3 = paged_attention_stacked.launches, sum(psa.launches.values())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        L = QWEN25_15B["num_layers"]
+        n_lse = sum(lse_flags)
+        gen_tokens = sum(len(r.output_tokens) for r in responses)
+        step_s = [d["step_secs"] for d in committed]
+        for i, d in enumerate(committed):
+            ph = ", ".join(f"{k[6:-2]} {v:.2f}" for k, v in sorted(d.items()) if k.startswith("phase/") and v)
+            log(f"[entry] step {i + 1}: {d['step_secs']:.2f} s ({ph}); loss {d.get('ppo_actor/loss')}, version "
+                f"{d.get('version')}")
+        log(f"[entry] gsm8k_rl.main on {os.path.relpath(ENTRY_YAML, repo)} at {L} layers: {grpo_s:.1f} s in all "
+            f"(build, 2 steps, teardown); {len(responses)} responses, {gen_tokens} generated tokens, "
+            f"{gen_tokens / sum(step_s):.1f} generated tokens/s over the steps; peak {peak:.2f} GiB")
+        log(f"[entry] launches: #1 {launches1} ({launches1 / L:.0f} decode steps x {L}), K2 "
+            f"{counts['flash_attention_fwd']} ({n_lse} keeping lse, {len(lse_flags) - n_lse} without), K3 "
+            f"{counts['flash_attention_bwd_dkv']}, K4 {counts['flash_attention_bwd_dq']}, #3 {launches3} "
+            f"({dict(psa.launches)})")
+        versions = [int(d["version"]) for d in committed]
+        if versions != [1, 2] or pushes != [1, 2] or trainer.actor_engine.get_version() != 2:
+            raise AssertionError(f"[entry] versions: committed {versions}, pushed {pushes}, trainer "
+                                 f"{trainer.actor_engine.get_version()}")
+        losses = [d["ppo_actor/loss"] for d in committed]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[entry] non-finite losses {losses}")
+        bad = [r.stop_reason for r in responses if r.stop_reason not in ("stop", "length") or not r.output_tokens
+               or len(r.output_tokens) > 8]
+        if bad or len(responses) < 2 * 8 * 4:
+            raise AssertionError(f"[entry] {len(responses)} responses, incomplete: {bad[:4]}")
+        if min(counts.values()) == 0 or launches1 == 0:
+            raise AssertionError(f"[entry] a kernel of the path did not launch: {counts}, #1 {launches1}")
+        res.update(counts=counts, launches1=launches1, launches3=launches3, k2_lse=n_lse, grpo_s=grpo_s,
+                   losses=losses)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the YAML as it stands: the tiny model's head_dim 16 is refused
+        threads = {t.name for t in threading.enumerate()}
+        try:
+            gsm8k_rl.main(["--config", ENTRY_YAML, "total_train_steps=2",
+                           *_entry_overrides(os.path.join(root, "tiny"))])
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("[entry] the tiny model ran on the card: no kernel refused it")
+        if "head_dim 16" not in refusal:
+            raise AssertionError(f"[entry] not the kernel's refusal: {refusal!r}")
+        time.sleep(0.5)
+        left = {t.name for t in threading.enumerate()} - threads
+        if left & {"http-server", "decode-loop"}:
+            raise AssertionError(f"[entry] threads left running after the refusal: {left}")
+        log(f"[entry] synthetic_grpo.yaml as written refused: {refusal}; no server thread left")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the CLI server: fleet-mode eval, greedy twin, SIGTERM drain
+        watcher.join(timeout=max(1.0, 120 - (time.monotonic() - t_launch)))
+        if "s" not in healthy:
+            raise AssertionError(f"[entry] CLI server not healthy (exit {proc.poll()}):\n" +
+                                 open(log_path).read()[-3000:])
+        orig_arith = ds_mod._REGISTRY["synthetic_arith"]
+        ds_mod._REGISTRY["synthetic_arith"] = functools.partial(orig_arith, n=ENTRY_EVAL_ROWS)
+        os.environ["AREAL_TPU_SERVER_ADDRS"] = addr
+        try:
+            ev = gsm8k_eval.main(["--config", ENTRY_YAML, "gconfig.max_new_tokens=16"])
+        finally:
+            ds_mod._REGISTRY["synthetic_arith"] = orig_arith
+            os.environ.pop("AREAL_TPU_SERVER_ADDRS", None)
+        if ev["n"] != ENTRY_EVAL_ROWS or ev["failed"]:
+            raise AssertionError(f"[entry] eval scored {ev}")
+        scfg, _ = load_expr_config(["--config", server_yaml, f"model_path={export}"], ServerConfig)
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cli_cfg.vocab_size, int(n)).tolist() for n in rng.integers(16, 120, ENTRY_GREEDY)]
+        served = [_post(addr, "/generate", {"input_ids": p, "sampling_params": {"max_new_tokens": 16, "greedy": True}})
+                  ["output_tokens"] for p in prompts]
+        twin = DecodeEngine(scfg)
+        twin.initialize()
+        twin.start()
+        try:
+            gcfg = GenerationHyperparameters(max_new_tokens=16, greedy=True)
+            local = [twin.generate_sync(ModelRequest(input_ids=p, gconfig=gcfg)).output_tokens for p in prompts]
+        finally:
+            twin.stop()
+            del twin
+        differ = [i for i, (a, b) in enumerate(zip(served, local)) if list(a) != list(b)]
+        if differ:
+            raise AssertionError(f"[entry] greedy tokens of requests {differ} differ between the CLI server and the "
+                                 "in-process engine")
+        t_term = time.monotonic()
+        proc.send_signal(signal_mod.SIGTERM)
+        try:
+            rc = proc.wait(timeout=15.0)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("[entry] the CLI server outlived its 15 s grace window") from None
+        drain_s = time.monotonic() - t_term
+        dumps = [f for f in os.listdir(flight_dir) if f.endswith("_preempt.json")] if os.path.isdir(flight_dir) else []
+        if rc != ENTRY_EXIT_CODE or not dumps:
+            raise AssertionError(f"[entry] SIGTERM: exit {rc} (want {ENTRY_EXIT_CODE}), flight dumps {dumps}:\n" +
+                                 open(log_path).read()[-3000:])
+        with open(os.path.join(flight_dir, dumps[0])) as f:
+            kinds = {e["kind"] for e in json.load(f)["events"]}
+        log(f"[entry] CLI server: /health {healthy['s']:.1f} s after launch (precompile included); eval n "
+            f"{ev['n']}, accuracy {ev['accuracy']:.4f}, mean reward {ev['mean_reward']:.4f}; greedy tokens of "
+            f"{ENTRY_GREEDY} requests equal to the in-process engine's; SIGTERM -> exit {rc} in {drain_s:.2f} s, "
+            f"flight dump {dumps[0]} ({sorted(kinds)})")
+        res.update(health_s=healthy["s"], eval=ev, drain_s=drain_s)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    res["s"] = time.monotonic() - t_phase
+    log(f"[entry] phase {res['s']:.1f} s on {card}")
+    return res
+
+
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
           "train", "grpo", "shard", "durable", "critic", "sft", "int8serve", "lora", "vlm", "kernel_tree", "train_tree", "kernel_gmm",
-          "kernel_gmm_bwd", "serve_moe", "train_moe")
+          "kernel_gmm_bwd", "serve_moe", "train_moe", "entry")
 
 
 def main(argv: list[str]) -> int:
@@ -8298,6 +8584,7 @@ def main(argv: list[str]) -> int:
         "kernel_gmm_bwd": phase_kernel_gmm_bwd,
         "serve_moe": lambda: phase_serve_moe(card),
         "train_moe": lambda: phase_train_moe(card),
+        "entry": lambda: phase_entry(card),
     }
     res, secs = {}, {}
     for name in PHASES:
@@ -8330,7 +8617,8 @@ def main(argv: list[str]) -> int:
                                   "grpo": res["grpo"]["launches1"], "shard": res["shard"]["launches1"],
                                   "durable": res["durable"]["launches1"],
                                   "critic": res["critic"]["launches1"], "int8serve": res["int8serve"]["launches1"],
-                                  "lora": res["lora"]["launches1"], "vlm": res["vlm"]["launches1"]},
+                                  "lora": res["lora"]["launches1"], "vlm": res["vlm"]["launches1"],
+                                  "entry": res["entry"]["launches1"]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -8358,7 +8646,8 @@ def main(argv: list[str]) -> int:
                                   "shard": res["shard"]["counts"][name],
                                   "durable": res["durable"]["counts"][name], "critic": res["critic"]["counts"][name],
                                   "sft": res["sft"]["counts"][name], "int8serve": res["int8serve"]["counts"][name],
-                                  "lora": res["lora"]["counts"][name], "vlm": res["vlm"]["counts"][name]},
+                                  "lora": res["lora"]["counts"][name], "vlm": res["vlm"]["counts"][name],
+                                  "entry": res["entry"]["counts"][name]},
             "max_abs_err": d["max_abs_err"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],
@@ -8381,7 +8670,8 @@ def main(argv: list[str]) -> int:
         "launches_by_kind": {"chain": chain, "tree": tree},
         "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"],
                               "lifecycle": res["lifecycle"]["launches3"], "observe": res["observe"]["launches3"],
-                              "grpo": res["grpo"]["launches3"], "int8serve": res["int8serve"]["launches3"]},
+                              "grpo": res["grpo"]["launches3"], "int8serve": res["int8serve"]["launches3"],
+                              "entry": res["entry"]["launches3"]},
         "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],
