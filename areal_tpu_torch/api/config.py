@@ -49,8 +49,10 @@ class MeshConfig:
     shards (FSDP2) and ``model`` is tensor parallelism; the one axis at -1
     absorbs the world (by default ``data``, so a world of N is N replicas).
     ``seq``, ``expert`` and ``pipe`` above 1 are refused (ROADMAP Queue A
-    item 6b), and so is any axis above 1 for the decode engine (serving on
-    a mesh is 6b too)."""
+    item 6b). The decode engine serves on ``model`` alone (tensor
+    parallelism over N cards, one process each; ``data=-1`` resolves to 1
+    there): ``data`` or ``fsdp`` above 1 on a server is a fleet of servers
+    (item 8), ``seq``, ``expert`` and ``pipe`` items 6b-3, 6b-2 and 6b-4."""
 
     data: int = -1
     fsdp: int = 1

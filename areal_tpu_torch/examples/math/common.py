@@ -108,10 +108,14 @@ def kept_signal_handlers():
 def start_single_host_stack(config, dataset_size: int, device=None):
     """The single-host RL stack: the trainer engine first, then an
     in-process server started from its weights. Updates are "mem" pushes
-    (bf16 buckets over HTTP). Returns (actor_engine, server)."""
+    (bf16 buckets over HTTP). The server serves on the gen half's mesh
+    (``allocation_mode``'s ``tN``: N cards from ``device`` on). Returns
+    (actor_engine, server)."""
+    from areal_tpu_torch.api.alloc_mode import apply_allocation_mode
     from areal_tpu_torch.api.io_struct import FinetuneSpec
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 
+    apply_allocation_mode(config)  # the halves' meshes, the server's included
     config.weight_update_mode = "mem"
     config.actor.temperature = config.gconfig.temperature
     actor_engine = TorchTrainEngine(config.actor, device=device)
@@ -135,9 +139,9 @@ def start_single_host_stack(config, dataset_size: int, device=None):
 
 
 def start_local_server(server_cfg, params=None, model_cfg=None, device=None):
-    """An in-process ``DecodeEngine`` and HTTP server on this host's card.
-    With ``params`` it serves them; otherwise it loads
-    ``server_cfg.model_path``."""
+    """An in-process ``DecodeEngine`` and HTTP server on this host's card,
+    or on ``server_cfg.mesh.model`` cards from ``device`` on. With
+    ``params`` it serves them; otherwise it loads ``server_cfg.model_path``."""
     from areal_tpu_torch.inference.decode_engine import DecodeEngine
     from areal_tpu_torch.inference.server import ServerThread
 

@@ -126,8 +126,28 @@ The shape of the JAX engine is kept:
   too); a finished one still publishes its pages, as in JAX (ROADMAP Queue
   C, C-ref 8).
 
-Not ported yet (raise ``NotImplementedError``, see ``_check_supported``):
-serving on a multi-device mesh (ROADMAP Queue A item 6b).
+- Serving on a ``model=N`` mesh (``ServerConfig.mesh``, tensor
+  parallelism; ``decode_engine.py:351-420``, ``:567-590``): ``initialize``
+  spawns N-1 follower processes (``parallel/serving_group.py``), one card
+  each, that build the same engine on their shards. Each rank holds its
+  slices of the weights by ``qwen.param_partition_specs`` (int8:
+  ``qwen.quant_partition_specs``), computes with ``qwen.local_config``'s
+  heads, and keeps its KV heads' pages (KH/N); the page count is JAX's,
+  from the global KV heads. Kernels #1 and #3 run on every rank's heads.
+  The lead's decode thread is the only issuer of device work: every device
+  operation (``_op_*``) goes to the followers with its host inputs before
+  the lead runs it, so every rank runs the same program and the
+  collectives of ``qwen``'s serving forwards (the row-parallel reduces,
+  the vocab-parallel embedding and logits) meet in order; every rank
+  samples the same whole logits with the same generator. The allocator,
+  the radix tree, the drafter and the lifecycle stay on the lead. Weight
+  updates arrive whole at the lead, which hands each follower its slices
+  (``qwen.tp_slice``); a staged bucket's slices stage on every rank off
+  the decode stream, and the commit is one operation of the decode thread.
+  MoE, vision and LoRA on a mesh are ROADMAP Queue A item 6b-2; a ``model``
+  size that does not divide the heads, the KV heads, the FFN or the
+  vocabulary, item 6b; the other axes above 1, their items
+  (``_check_supported``).
 
 Eager PyTorch compiles nothing, so admission does not pad prefill groups to
 compiled sizes: a group pads to its longest prompt (or suffix).
@@ -137,6 +157,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import queue
 import threading
 import time
@@ -161,6 +182,8 @@ from areal_tpu_torch.observability import hw_accounting as hw
 from areal_tpu_torch.observability import kernel_probe
 from areal_tpu_torch.observability import timeline as tl_mod
 from areal_tpu_torch.ops import _build
+from areal_tpu_torch.parallel import serving_group as sg
+from areal_tpu_torch.parallel import tensor_parallel as tp_lib
 from areal_tpu_torch.ops import gmm as gmm_ops
 from areal_tpu_torch.ops import paged_attention as pa_ops
 from areal_tpu_torch.ops import paged_suffix_attention as psa_ops
@@ -307,6 +330,14 @@ def _sample_step(
     return next_ids, logp
 
 
+def tensor_digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes (its host copy, row-major)."""
+    import hashlib
+
+    raw = t.detach().cpu().contiguous().reshape(-1)
+    return hashlib.sha256(raw.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
 def load_params(model: qwen.QwenModel, params) -> None:
     """Copy ``params`` (a ``QwenModel`` or a state dict of tensors / numpy
     arrays, e.g. ``models/convert.from_jax_params``) into ``model`` in
@@ -358,7 +389,8 @@ def _checked_sources(specs: dict, params, exact_dtype: bool = False) -> dict[str
 
 
 class DecodeEngine:
-    """Continuous-batching generation over one model replica on one device."""
+    """Continuous-batching generation over one model replica, on one device
+    or, under ``mesh.model=N``, as the lead of N processes with a card each."""
 
     def __init__(
         self,
@@ -471,6 +503,17 @@ class DecodeEngine:
         # the adapters folded so far, by target ({} = none yet); None after a
         # full update, whose base may already hold merged adapters
         self._lora_prev: dict[str, tuple[torch.Tensor, torch.Tensor]] | None = {}
+        # serving on a mesh: the followers (the lead's), this rank's place on
+        # the model axis, the shapes it computes with, the served structure
+        # of the whole model, and the whole leaves staged so far (meta)
+        self._group: sg.ServingGroup | None = None
+        self._tp: tp_lib.TPInfo | None = None
+        self.local_cfg: qwen.ModelConfig | None = None
+        self._served_specs: dict | None = None
+        self._staged_meta: dict[str, torch.Tensor] = {}
+        self._stage_pg = None  # a follower's staging communicator (serving_group.make_group)
+        self._stage_secs: dict = {}
+        self.last_stage_secs: dict = {}  # the last committed mesh update's staging seconds by part
 
     @staticmethod
     def _check_supported(cfg: ServerConfig) -> None:
@@ -479,9 +522,17 @@ class DecodeEngine:
         if cfg.quantization not in (None, "", "none", "int8"):
             raise ValueError(f"unknown quantization {cfg.quantization!r}")
         m = cfg.mesh
-        if max(m.data, m.fsdp, m.seq, m.model, m.expert, m.pipe) > 1:
-            raise NotImplementedError("serving on a multi-device mesh (tensor-parallel serving): ROADMAP Queue A "
-                                      "item 6b")
+        items = {"data": "8 (a fleet of servers)", "fsdp": "8 (a fleet of servers)", "seq": "6b-3",
+                 "expert": "6b-2", "pipe": "6b-4"}
+        for axis, item in items.items():
+            size = getattr(m, axis)
+            if size > 1:
+                raise NotImplementedError(f"mesh.{axis}={size} on a server: only the model axis (tensor "
+                                          f"parallelism) serves on a mesh; ROADMAP Queue A item {item}")
+            if size < 1 and not (axis == "data" and size == -1):  # data=-1 resolves to 1 on a server
+                raise ValueError(f"mesh.{axis}={size}")
+        if m.model < 1:
+            raise ValueError(f"mesh.model={m.model}")
         if cfg.kv_quantization not in (None, "", "none", "int8", "fp8"):
             raise ValueError(f"unknown kv_quantization {cfg.kv_quantization!r}")
         if cfg.weight_stage_target not in ("device", "host"):
@@ -490,33 +541,66 @@ class DecodeEngine:
     # -- lifecycle --------------------------------------------------------
     def initialize(self) -> None:
         cfg = self.config
+        tp = cfg.mesh.model
         if self.params is None:
             if not cfg.model_path:
                 raise ValueError("ServerConfig.model_path or params is required")
             t0 = time.monotonic()
             mcfg = qwen.ModelConfig.from_hf_path(cfg.model_path)
             mcfg = replace(mcfg, dtype=cfg.dtype, remat=False)
-            self.model, self.model_cfg = load_params_from_hf(cfg.model_path, mcfg, device=self.device)
+            if tp > 1:
+                self._check_mesh_model(mcfg)
+            # a mesh's lead reads the whole checkpoint into host memory and
+            # places each rank's slices from there
+            where = self.device if tp == 1 else torch.device("cpu")
+            self.model, self.model_cfg = load_params_from_hf(cfg.model_path, mcfg, device=where)
             logger.info(f"loaded {cfg.model_path} in {time.monotonic() - t0:.1f}s")
-        elif isinstance(self.params, qwen.QwenModel) and self.params.device == self.device:
+        elif isinstance(self.params, qwen.QwenModel) and self.params.device == self.device and tp == 1:
             self.model = self.params
             self.model_cfg = self.model.cfg
-        else:
+        elif tp == 1:
             if self.model_cfg is None:
                 raise ValueError("model_cfg is required with a state dict")
             self.model = qwen.QwenModel(self.model_cfg, self.device)
             load_params(self.model, self.params)
+        else:
+            if isinstance(self.params, qwen.QwenModel):
+                self.model_cfg = self.params.cfg
+            elif self.model_cfg is None:
+                raise ValueError("model_cfg is required with a state dict")
+            self.model = self.params
         self.params = None  # the engine serves self.model; no second copy
-        if self.device.type == "cuda":
-            # kernel #1 runs at every decode step: refuse its unsupported
-            # heads now rather than at the first request
-            mc = self.model_cfg
-            pa_ops.check_heads(mc.num_heads, mc.num_kv_heads, mc.head_dim_, cfg.page_size)
-        self._base_specs = _param_specs(self.model)
-        if self._quantized:
-            # a QwenModel handed over is served, so quantized, in place
-            qwen.quantize_model_int8(self.model)
-        S = cfg.max_batch_size
+        seed = cfg.seed if cfg.seed is not None else time.time_ns() % (2**31)
+        if tp > 1:
+            self._init_mesh(self.model, int(seed))
+        else:
+            if self.device.type == "cuda":
+                # kernel #1 runs at every decode step: refuse its unsupported
+                # heads now rather than at the first request
+                mc = self.model_cfg
+                pa_ops.check_heads(mc.num_heads, mc.num_kv_heads, mc.head_dim_, cfg.page_size)
+            self._base_specs = _param_specs(self.model)
+            if self._quantized:
+                # a QwenModel handed over is served, so quantized, in place
+                qwen.quantize_model_int8(self.model)
+        self._init_serving_state(int(seed))
+        if cfg.speculative.enabled:
+            self._spec_cfg = cfg.speculative
+            self._drafter = spec_mod.build_drafter(cfg.speculative, radix=self._radix)
+        # init-time: on the CPU the probe measures the host's peaks once; on
+        # a mesh its roofline is the ranks' summed peaks
+        self.kprobe = kernel_probe.KernelProbe(model_cfg=self.model_cfg, n_chips=tp, device=self.device)
+        self.initialized = True
+        logger.info(
+            f"decode engine ready on {self.device}{f' (+{tp - 1} followers)' if tp > 1 else ''}: "
+            f"{cfg.max_batch_size} slots x {cfg.max_seq_len} ctx, {self.pool.n_pages} KV pages x {cfg.page_size} tokens"
+        )
+
+    def _init_serving_state(self, seed: int) -> None:
+        """The KV pool, the slots' host mirror and device state, the
+        penalty's count table and the sampler's generator: every rank's
+        (a mesh's ranks seed their generators alike, so they draw alike)."""
+        S = self.config.max_batch_size
         self._init_paged_cache()
         # host mirror of per-slot state; the authoritative copy between
         # chunks is on the device (self._dev_state)
@@ -547,19 +631,219 @@ class DecodeEngine:
         self._freq_counts: torch.Tensor | None = None
         self._pending_count_restore: list[tuple[int, np.ndarray]] = []
         self._init_freq_counts()
-        seed = cfg.seed if cfg.seed is not None else time.time_ns() % (2**31)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
-        if cfg.speculative.enabled:
-            self._spec_cfg = cfg.speculative
-            self._drafter = spec_mod.build_drafter(cfg.speculative, radix=self._radix)
-        # init-time: on the CPU the probe measures the host's peaks once
-        self.kprobe = kernel_probe.KernelProbe(model_cfg=self.model_cfg, n_chips=1, device=self.device)
-        self.initialized = True
-        logger.info(
-            f"decode engine ready on {self.device}: {S} slots x {cfg.max_seq_len} ctx, "
-            f"{self.pool.n_pages} KV pages x {cfg.page_size} tokens"
-        )
+        self._gen.manual_seed(seed)
+
+    # -- serving on a mesh --------------------------------------------------
+    @staticmethod
+    def _check_mesh_model(mcfg: qwen.ModelConfig) -> None:
+        if mcfg.num_experts or mcfg.vision is not None or mcfg.lora_rank:
+            raise NotImplementedError("MoE, vision and LoRA models on a serving mesh: ROADMAP Queue A item 6b-2")
+
+    def _init_mesh(self, full, seed: int) -> None:
+        """The lead's placement: check the whole model (``full``, a
+        ``QwenModel`` or a state dict, anywhere), cut every rank's slices
+        (``_rank_slices``), spawn the followers with theirs, and serve this
+        rank's as a local model of ``qwen.local_config``'s shapes."""
+        cfg, mcfg = self.config, self.model_cfg
+        m = cfg.mesh.model
+        self._check_mesh_model(mcfg)
+        self.local_cfg = qwen.local_config(mcfg, m)  # raises for uneven tensor parallelism
+        lc = self.local_cfg
+        if self.device.type == "cuda":
+            pa_ops.check_heads(lc.num_heads, lc.num_kv_heads, lc.head_dim_, cfg.page_size)
+            # built once here; every follower loads the same libraries
+            _build.build(["paged_attention", "paged_suffix_attention"])
+        # the whole model's structure: updates are checked against it
+        # (uninitialized host memory: only the shapes are read)
+        self._base_specs = _param_specs(qwen.QwenModel(mcfg, "cpu"))
+        self._served_specs = dict(self._base_specs)
+        if self._quantized:
+            for name, (shape, _) in self._base_specs.items():
+                if name.startswith("layers.") and name.rsplit(".", 1)[-1] in qwen.QUANT_TARGETS:
+                    del self._served_specs[name]
+                    self._served_specs[f"{name}_q8"] = (shape, torch.int8)
+                    self._served_specs[f"{name}_scale"] = (shape[:1], torch.float32)
+        parts = self._rank_slices(_checked_sources(self._base_specs, full), own_device=self.device)
+        del full
+        self.model = None
+        payloads = [sg.dumps({"config": cfg, "model_cfg": mcfg, "seed": seed, "state": parts[r]}) for r in range(1, m)]
+        del parts[1:]
+        self._group = sg.ServingGroup(m, self.device)
+        self._group.start(payloads)
+        del payloads
+        self._serve_slices(parts[0], tp_lib.TPInfo(group=self._group.pg, rank=0, size=m, vocab_start=0))
+
+    def _serve_slices(self, state: dict[str, torch.Tensor], tp: tp_lib.TPInfo) -> None:
+        """This rank's model: ``local_cfg``'s shapes (int8-served when
+        quantized), filled from its served-form slices, on the model axis."""
+        model = qwen.QwenModel(self.local_cfg, self.device)
+        if self._quantized:
+            qwen.quantize_model_int8(model)  # the served structure; every leaf is overwritten
+        load_params(model, state)
+        model.tp = tp
+        for layer in model.layers:
+            layer.tp = tp
+        self.model, self._tp = model, tp
+
+    @classmethod
+    def as_follower(cls, payload: dict, pg, rank: int, size: int, device) -> "DecodeEngine":
+        """Follower ``rank``'s engine (``serving_group.follower_main``): the
+        lead's configuration, its slices of the weights and the lead's seed;
+        it runs the operations the lead sends and never its own loop."""
+        eng = cls(payload["config"], model_cfg=payload["model_cfg"], device=device)
+        eng.local_cfg = qwen.local_config(eng.model_cfg, size)
+        tp = tp_lib.TPInfo(group=pg, rank=rank, size=size, vocab_start=rank * eng.local_cfg.vocab_size)
+        eng._serve_slices(payload["state"], tp)
+        eng._init_serving_state(payload["seed"])
+        eng.initialized = True
+        return eng
+
+    def _rank_slices(self, srcs: dict[str, torch.Tensor], own_device=None) -> list[dict[str, torch.Tensor]]:
+        """Whole leaves (base-named or the int8 serving form's) -> every
+        rank's served-form slices (``qwen.tp_slice`` by
+        ``param_partition_specs``, or ``quant_partition_specs`` on an int8
+        engine, where a base-named projection is quantized whole on this
+        card first: a row-parallel scale is the max over the whole input).
+        The followers' slices are host copies of their own, sized to the
+        slice (they travel on a pipe). Rank 0's are views of the leaves, or
+        with ``own_device`` contiguous copies cut there from the whole leaf
+        moved in one piece (a row-parallel slice of a host leaf is strided:
+        one contiguous upload, then a copy on the card)."""
+        mcfg, m = self.model_cfg, self.config.mesh.model
+        specs = qwen.quant_partition_specs(mcfg) if self._quantized else qwen.param_partition_specs(mcfg)
+        out: list[dict[str, torch.Tensor]] = [{} for _ in range(m)]
+        for name, src in srcs.items():
+            leaf = name.rsplit(".", 1)[-1]
+            if self._quantized and name.startswith("layers.") and leaf in qwen.QUANT_TARGETS:
+                q8, sc = qwen.quantize_dense_int8(src.to(self.device, mcfg.torch_dtype))
+                leaves = {f"{name}_q8": q8, f"{name}_scale": sc}
+            elif _served_form([name]):
+                leaves = {name: src}
+            else:
+                leaves = {name: src.to(mcfg.torch_dtype)}
+            for n, t in leaves.items():
+                spec = qwen.leaf_spec(specs, n)
+                for r in range(1, m):
+                    out[r][n] = qwen.tp_slice(t.detach(), spec, m, r).cpu().clone()
+                if own_device is None:
+                    out[0][n] = qwen.tp_slice(t.detach(), spec, m, 0)
+                else:
+                    whole = t.detach().to(own_device, non_blocking=True)
+                    out[0][n] = qwen.tp_slice(whole, spec, m, 0).contiguous()
+        return out
+
+    def _dev(self, op: str, *args):
+        """Run the device operation ``_op_<op>(*args)`` on this rank, after
+        sending it to every follower (a mesh's lead): the one way device
+        work is issued, so that every rank runs the same program."""
+        if self._group is not None:
+            self._group.send(op, *args)
+        return getattr(self, "_op_" + op)(*args)
+
+    def rank_summary(self) -> dict:
+        """This rank's place and device bytes (``/statusz`` ``mesh``)."""
+        return {
+            "rank": self._tp.rank if self._tp is not None else 0,
+            "device": str(self.device),
+            "pid": os.getpid(),
+            "params": hw.tree_bytes(self.model) if not self._offloaded else 0,
+            **self.memory_bytes(),
+            "staged_update": self._staged_bytes(),
+        }
+
+    def _staged_bytes(self) -> int:
+        with self._weight_lock:
+            staged = dict(self._staged) if self._staged else None
+        return hw.tree_bytes(staged) if self._stage_target == "device" else 0
+
+    def mesh_status(self) -> dict:
+        """The serving mesh for ``/statusz``: the model axis, the group's
+        backend, and every rank's device and bytes (``rank_summary``; a
+        follower answers on its side channel)."""
+        if self._group is None:
+            return {"model": 1, "ranks": [self.rank_summary()] if self.initialized else []}
+        return {
+            "model": self._group.size,
+            "backend": self._group.backend,
+            "ranks": [self.rank_summary(), *self._group.ask("summary")],
+        }
+
+    def rank_launches(self) -> list[dict]:
+        """Kernel #1's and #3's launch counts in every rank's process (rank
+        0 first); the wrappers count launches on the card only."""
+        own = self._aux_launches()
+        return [own] if self._group is None else [own, *self._group.ask("launches")]
+
+    def reset_rank_launches(self) -> None:
+        self._aux_reset_launches()
+        if self._group is not None:
+            self._group.ask("reset_launches")
+
+    # -- a follower's side channel (serving_group._aux_loop) ------------------
+    def _aux_summary(self) -> dict:
+        return self.rank_summary()
+
+    def _aux_ledger(self) -> dict:
+        return self.hbm_ledger()
+
+    @staticmethod
+    def _aux_launches() -> dict:
+        """#1's launches and #3's by kind ("chain", "tree") in this process."""
+        return {
+            "paged_attention": pa_ops.paged_attention_stacked.launches,
+            "paged_suffix_attention": dict(psa_ops.paged_suffix_attention.launches),
+        }
+
+    @staticmethod
+    def _aux_reset_launches() -> None:
+        pa_ops.paged_attention_stacked.launches = 0
+        counts = psa_ops.paged_suffix_attention.launches
+        for k in counts:
+            counts[k] = 0
+
+    def _aux_stage(self, layout: list, target: str) -> float:
+        """Stage this rank's slices of one bucket (off the decode stream):
+        their bytes arrive in one receive on the staging communicator, laid
+        out as ``layout`` says (``serving_group.pack``). Returns the seconds
+        from the receive's post to the staged copies."""
+        t0 = time.monotonic()
+        buf = torch.empty(sg.packed_nbytes(layout), dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        self._stage_pg.recv([buf], 0, 0).wait()
+        with self._weight_lock:
+            if self._staged is None:
+                self._staged = {}
+            self._stage_target = target
+        staged = self._stage_local(sg.unpack(layout, buf), target)
+        with self._weight_lock:
+            self._staged.update(staged)
+        return time.monotonic() - t0
+
+    def _aux_abort_stage(self) -> None:
+        with self._weight_lock:
+            self._staged = None
+
+    def _aux_served(self, names: list[str]) -> dict[str, torch.Tensor]:
+        """Host copies of this rank's served leaves ``names``."""
+        own = dict(self.model.named_parameters())
+        return {n: own[n].detach().cpu().clone() for n in names}
+
+    def _aux_digests(self, names: list[str]) -> dict[str, str]:
+        """sha256 of the bytes of this rank's served leaves ``names``."""
+        own = dict(self.model.named_parameters())
+        return {n: tensor_digest(own[n]) for n in names}
+
+    def served_digests(self, names: list[str]) -> list[dict[str, str]]:
+        """Every rank's ``_aux_digests`` (rank 0 first): a server's served
+        bits, read over HTTP (``GET /debug/weights``)."""
+        own = self._aux_digests(names)
+        return [own] if self._group is None else [own, *self._group.ask("digests", [(names,)] * (self._group.size - 1))]
+
+    def served_slices(self, names: list[str]) -> list[dict[str, torch.Tensor]]:
+        """Every rank's served leaves ``names`` (host copies, rank 0 first):
+        what the ranks hold, for the checks against JAX's shards."""
+        own = self._aux_served(names)
+        return [own] if self._group is None else [own, *self._group.ask("served", [(names,)] * (self._group.size - 1))]
 
     def _init_freq_counts(self) -> None:
         """The [S, V] count table: uint16 values (saturating at 65,535, as the
@@ -579,7 +863,9 @@ class DecodeEngine:
     def _init_paged_cache(self) -> None:
         """The page pool: page arrays on the device, allocator and block
         tables on the host. Size from ``kv_hbm_gb`` when set, else a
-        dense-equivalent S x T tokens."""
+        dense-equivalent S x T tokens. On a mesh the page count is JAX's,
+        from the whole model's KV heads (``decode_engine.py:556``), and each
+        rank's pages hold its own KV heads."""
         cfg, mcfg = self.config, self.model_cfg
         S, T, psz = cfg.max_batch_size, cfg.max_seq_len, cfg.page_size
         self._maxp = -(-T // psz)  # pages per sequence (ceil)
@@ -598,7 +884,7 @@ class DecodeEngine:
             n_pages = S * self._maxp + 1  # +1: trash page 0
         self.pool = paged_kv.PagePool(n_pages)
         self.cache = paged_kv.init_paged_cache(
-            mcfg, n_pages, psz, quant=kv_quant, device=self.device
+            self.local_cfg or mcfg, n_pages, psz, quant=kv_quant, device=self.device
         )
         self._slot_pages: list[list[int]] = [[] for _ in range(S)]
         # policy version each slot page's KV was computed under (parallel to
@@ -625,6 +911,8 @@ class DecodeEngine:
         if self._thread:
             self._thread.join(timeout=60)
             self._thread = None
+        if self._group is not None:
+            self._group.close()
 
     def precompile(self) -> list[str]:
         """Build and load every kernel this engine's configuration can
@@ -663,7 +951,9 @@ class DecodeEngine:
             task_id=task_id,
             session_id=session_id,
         )
-        self._queue.put(_Task(req=req, callback=callback, timeline=tl))
+        # the task's clock starts where its timeline's does: a response's
+        # latency is then its timeline's total, not a GIL switch away from it
+        self._queue.put(_Task(req=req, callback=callback, timeline=tl, submit_time=tl.queued_ts))
         self._wakeup.set()
 
     def generate_sync(self, req: ModelRequest, timeout: float = 600.0) -> ModelResponse:
@@ -783,12 +1073,19 @@ class DecodeEngine:
         a wedge episode dumps the flight ring to disk (the replica is about
         to be evicted); a wedge that clears re-arms the dump."""
         lc = self._lifecycle()
-        if lc is None or lc.engine_stall_escalate_s <= 0 or self._thread is None:
+        # a mesh whose follower died, or whose loop failed, cannot serve
+        # again, lifecycle settings or not
+        mesh_down = self._group is not None and self._thread is not None and (
+            bool(self._group.dead()) or not self._thread.is_alive()
+        )
+        if not mesh_down and (lc is None or lc.engine_stall_escalate_s <= 0 or self._thread is None):
             return False
         busy = any(t is not None for t in getattr(self, "_slot_task", ())) or (
             self._queue.qsize() + len(self._backlog) > 0
         )
-        if not self._thread.is_alive():
+        if mesh_down:
+            wedged = True
+        elif not self._thread.is_alive():
             wedged = busy
         elif self.is_paused:
             return False
@@ -1061,26 +1358,32 @@ class DecodeEngine:
         t0 = time.monotonic()
         while self._evict_oldest_parked() is not None:
             pass
+        self._dev("release")
+        logger.info(f"released memory in {time.monotonic() - t0:.2f}s")
+
+    def _op_release(self) -> None:
         offload.offload_module(self.model)
         self._offloaded = True
         self.cache = None  # pages are recreated by prefills; parked KV is lost
         self._freq_counts = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        logger.info(f"released memory in {time.monotonic() - t0:.2f}s")
 
     def resume_memory(self) -> None:
         """Bring the weights back to the card and build a fresh KV pool."""
         if not self._offloaded:
             return
         t0 = time.monotonic()
+        self._dev("resume")
+        if self._spec_cfg is not None:
+            self._drafter = spec_mod.build_drafter(self._spec_cfg, radix=self._radix)
+        logger.info(f"resumed memory in {time.monotonic() - t0:.2f}s")
+
+    def _op_resume(self) -> None:
         offload.onload_module(self.model, self.device)
         self._init_paged_cache()  # a fresh pool: every request was aborted
         self._init_freq_counts()
-        if self._spec_cfg is not None:
-            self._drafter = spec_mod.build_drafter(self._spec_cfg, radix=self._radix)
         self._offloaded = False
-        logger.info(f"resumed memory in {time.monotonic() - t0:.2f}s")
 
     def update_weights_from_params(self, params, version: int | None = None) -> None:
         """Swap in new weights (a ``QwenModel`` or a state dict) between
@@ -1097,6 +1400,8 @@ class DecodeEngine:
         adapter-free base; a fold after a full update, on an int8 engine or
         for an unknown target raises and changes no weight. Blocks until
         applied."""
+        if self.config.mesh.model > 1:
+            raise NotImplementedError("LoRA updates on a serving mesh: ROADMAP Queue A item 6b-2")
         self._run_weight_update(("lora", (flat, float(scale))), version)
 
     def _apply_lora_delta(self, flat: dict, scale: float) -> None:
@@ -1138,7 +1443,17 @@ class DecodeEngine:
         self._lora_prev = {**prev, **new_prev}
 
     def _write_weights(self, srcs: dict[str, torch.Tensor], non_blocking: bool = False) -> None:
-        """Copy checked sources into the served parameters in place. A
+        """Copy checked whole leaves into the served parameters in place; on
+        a mesh every rank gets its slices (``_rank_slices``)."""
+        if self._group is None:
+            self._op_write_weights(srcs, non_blocking)
+            return
+        parts = self._rank_slices(srcs, own_device=self.device)
+        self._group.send_each("write_weights", [(p,) for p in parts[1:]])
+        self._op_write_weights(parts[0], non_blocking)
+
+    def _op_write_weights(self, srcs: dict[str, torch.Tensor], non_blocking: bool = False) -> None:
+        """Copy sources into this rank's served parameters in place. A
         base-named target of an int8 engine is cast to the serving dtype on
         the card and re-quantized into its ``_q8`` / ``_scale`` pair."""
         own = dict(self.model.named_parameters())
@@ -1205,6 +1520,11 @@ class DecodeEngine:
                     self._lora_prev = None
                 if kind == "params":
                     self._write_weights(_checked_sources(self._base_specs, params))
+                elif kind == "disk" and self._group is not None:
+                    # whole leaves into host memory, then every rank's slices
+                    loaded, _ = load_params_from_hf(params, self.model_cfg, device="cpu", vision_seed=None)
+                    self._write_weights(dict(loaded.named_parameters()))
+                    del loaded
                 elif kind == "disk" and self._quantized:
                     loaded, _ = load_params_from_hf(params, self.model_cfg, device=self.device, vision_seed=None)
                     # an export without visual.* (the trainer's) leaves the served tower as it is
@@ -1249,8 +1569,14 @@ class DecodeEngine:
             raise ValueError(f"unknown weight_stage_target {target!r}")
         with self._weight_lock:
             self._staged = {}
+            self._staged_meta = {}
             self._stage_target = target
             self._stage_gen_snapshot = self.stats["generated_tokens"]
+            # a mesh's staging seconds by part (the commit's flight record)
+            self._stage_secs = {"slice_s": 0.0, "own_s": 0.0, "followers_wait_s": 0.0, "follower_s": 0.0,
+                                "buckets": 0}
+        if self._group is not None:
+            self._group.ask("abort_stage")  # a fresh area on every rank
         self.flight.record("weight_stage", target=target)
 
     @contextlib.contextmanager
@@ -1284,21 +1610,69 @@ class DecodeEngine:
             if self._staged is None:
                 raise RuntimeError("no staged update open (begin_staged_update first)")
             target = self._stage_target
+        meta = {}
+        if self._group is not None:
+            # whole leaves in, every rank's slices staged: the followers'
+            # on their cards first (each answers once its copies landed)
+            tensors = {n: t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t)) for n, t in flat.items()}
+            meta = {n: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta") for n, t in tensors.items()}
+            t0 = time.monotonic()
+            on_card = target == "device" and self.device.type == "cuda"
+            with torch.cuda.stream(self._side_stream()) if on_card else contextlib.nullcontext():
+                # this card's slices are cut on the side stream, off the decode stream
+                parts = self._rank_slices(tensors, own_device=self.device if on_card else None)
+                cut = torch.cuda.Event() if on_card else None
+                if cut is not None:
+                    cut.record()
+            t1 = time.monotonic()
+            packed = [sg.pack(p) for p in parts[1:]]
+            del parts[1:]
+            with self._group.asking("stage", [(layout, target) for layout, _ in packed]) as answers:
+                sends = [self._group.stage_pg.send([buf], r, 0) for r, (_, buf) in enumerate(packed, start=1)]
+                if cut is not None:
+                    cut.synchronize()  # while the followers stage theirs
+                    staged = parts[0]
+                else:
+                    staged = self._stage_local(parts[0], target)
+                t2 = time.monotonic()
+                for w in sends:
+                    w.wait()
+                del packed
+            t3 = time.monotonic()
+            st = self._stage_secs
+            st["slice_s"] += t1 - t0
+            st["own_s"] += t2 - t1
+            st["followers_wait_s"] += t3 - t2
+            st["follower_s"] += max(answers)
+            st["buckets"] += 1
+        else:
+            staged = self._stage_local(flat, target)
+        with self._weight_lock:
+            if self._staged is not None:  # None: aborted meanwhile
+                self._staged.update(staged)
+                self._staged_meta.update(meta)
+
+    def _side_stream(self):
+        """The side stream of the device stage target's copies."""
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(self.device)
+        return self._stage_stream
+
+    def _stage_local(self, flat: dict[str, torch.Tensor], target: str) -> dict[str, torch.Tensor]:
+        """This rank's staged copy of ``flat``: kept as it is (host target),
+        or copied to the card on the side stream, returning once the copies
+        landed (the decode stream never queues behind them)."""
         if target == "host":
             staged = dict(flat)
         elif self.device.type == "cuda":
-            if self._stage_stream is None:
-                self._stage_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._stage_stream):
+            with torch.cuda.stream(self._side_stream()):
                 staged = {n: t.to(self.device, non_blocking=True) for n, t in flat.items()}
             done = torch.cuda.Event()
             done.record(self._stage_stream)
             done.synchronize()
         else:
             staged = {n: t.clone() for n, t in flat.items()}
-        with self._weight_lock:
-            if self._staged is not None:  # None: aborted meanwhile
-                self._staged.update(staged)
+        return staged
 
     def commit_staged_weights(self, version: int | None = None) -> None:
         """Apply the staged update between chunks and tag later tokens with
@@ -1307,6 +1681,7 @@ class DecodeEngine:
         already applied (its answer lost on the wire) acks."""
         with self._weight_lock:
             flat, self._staged = self._staged, None
+            meta, self._staged_meta = self._staged_meta, {}
             target = self._stage_target
         if not flat:
             if version is not None and self._version == int(version):
@@ -1316,7 +1691,14 @@ class DecodeEngine:
         # the served form is decided here, once: a q8-wire update is checked
         # against the served structure and copied as it is, a bf16 one
         # against the base structure (re-quantized on an int8 engine)
-        if _served_form(flat):
+        if self._group is not None:
+            # the whole leaves' names, shapes and dtypes (meta tensors) are
+            # checked; each rank holds its served-form slices of them
+            _checked_sources(self._served_specs if _served_form(meta) else self._base_specs, meta, exact_dtype=True)
+            srcs = flat
+            self.last_stage_secs = dict(self._stage_secs)
+            logger.info(f"mesh update staged: {self.last_stage_secs}")
+        elif _served_form(flat):
             srcs = _checked_sources(_param_specs(self.model), flat, exact_dtype=True)
         else:
             srcs = _checked_sources(self._base_specs, flat)
@@ -1328,7 +1710,9 @@ class DecodeEngine:
         (on the decode loop's stream, after the chunk in flight)."""
         srcs, target = staged
         cuda = self.device.type == "cuda"
-        self._write_weights(srcs, non_blocking=cuda)
+        if self._group is not None:
+            self._group.send("commit_staged")
+        self._op_write_weights(srcs, non_blocking=cuda)
         if cuda:
             stream = torch.cuda.current_stream(self.device)
             if target == "host":
@@ -1337,11 +1721,21 @@ class DecodeEngine:
                 for t in srcs.values():  # made on the side stream, read here
                     t.record_stream(stream)
 
+    def _op_commit_staged(self) -> None:
+        """A follower's side of the commit: its staged slices into its
+        served parameters."""
+        with self._weight_lock:
+            srcs, self._staged = self._staged or {}, None
+        self._copy_staged((srcs, self._stage_target))
+
     def abort_staged_update(self) -> None:
         """Drop a partially staged update; serving weights and version stay
         as they are. Safe when nothing is staged."""
         with self._weight_lock:
             self._staged = None
+            self._staged_meta = {}
+        if self._group is not None:
+            self._group.ask("abort_stage")
 
     def set_version(self, v: int) -> None:
         self._version = v
@@ -1357,28 +1751,32 @@ class DecodeEngine:
         penalty's count table; beside the card's own view
         (``torch.cuda.memory_stats`` / ``mem_get_info``), or the analytic
         sums on the CPU. Any thread: it reads sizes and allocator counters,
-        never a tensor's values."""
+        never a tensor's values. On a mesh these are the lead's (rank 0's)
+        bytes, and ``ranks`` holds every rank's ledger (the followers answer
+        on their side channels)."""
         cache = self.cache
         kv_bytes = hw.tree_bytes(cache)
         pool = getattr(self, "pool", None)
         page_bytes = kv_bytes / pool.n_pages if pool is not None and pool.n_pages else 0
         radix_pages = self._radix.pages_held if self._radix is not None else 0
-        with self._weight_lock:
-            staged = dict(self._staged) if self._staged else None
+        staged_bytes = self._staged_bytes()
         on_card = self.model is not None and not self._offloaded
         components = {
             "params": hw.tree_bytes(self.model) if on_card else 0,
             "kv_page_pool": kv_bytes,
             "radix_cache": int(radix_pages * page_bytes),
-            "staged_update": hw.tree_bytes(staged) if self._stage_target == "device" else 0,
+            "staged_update": staged_bytes,
             "freq_counts": hw.tree_bytes(self._freq_counts),
         }
-        return hw.build_hbm_ledger(
+        ledger = hw.build_hbm_ledger(
             components,
             device=self.device,
             override_hbm_gb=override_hbm_gb,
             exclude_from_total=("radix_cache",),
         )
+        if self._group is not None:
+            ledger["ranks"] = [dict(ledger), *self._group.ask("ledger")]
+        return ledger
 
     # -- the decode-loop probe ---------------------------------------------
     def _kphase(self, name: str):
@@ -1804,16 +2202,7 @@ class DecodeEngine:
             flat_pages[j, : len(pages)] = pages
             ppt[j, : len(mpages)] = mpages
         e0 = self._event_pair_start()
-        ids_t = self._to_device(ids_np)
-        plens_t, offs_t = self._to_device(plens), self._to_device(offs)
-        steps = torch.arange(P, device=self.device)[None]
-        positions = offs_t[:, None] + steps
-        seg = (steps < plens_t[:, None]).to(torch.int64)
-        _, ks, vs = qwen.forward_prefill_paged(
-            self.model, ids_t, positions, seg, self.cache, self._to_device(ppt), offs_t
-        )
-        paged_kv.scatter_prefill(self.cache, ks, vs, self._to_device(flat_pages.reshape(-1)), psz)
-        del ks, vs
+        self._dev("prefill_prefixed", ids_np, plens, offs, flat_pages, ppt)
         n_sfx = int(plens.sum())
         self._event_pair_end(e0, self._prefill_events, n_sfx)
         rows = []
@@ -1836,6 +2225,19 @@ class DecodeEngine:
         self.stats["prefix_cache_hits"] += A
         self.stats["prefix_hit_tokens"] += hit_tokens
         return rows
+
+    def _op_prefill_prefixed(self, ids_np, plens, offs, flat_pages, ppt) -> None:
+        """The suffix-only prefill of ``_prefill_group_prefixed``'s rows."""
+        P = ids_np.shape[1]
+        ids_t = self._to_device(ids_np)
+        plens_t, offs_t = self._to_device(plens), self._to_device(offs)
+        steps = torch.arange(P, device=self.device)[None]
+        positions = offs_t[:, None] + steps
+        seg = (steps < plens_t[:, None]).to(torch.int64)
+        _, ks, vs = qwen.forward_prefill_paged(
+            self.model, ids_t, positions, seg, self.cache, self._to_device(ppt), offs_t
+        )
+        paged_kv.scatter_prefill(self.cache, ks, vs, self._to_device(flat_pages.reshape(-1)), self.config.page_size)
 
     def _admit_duplicates(self, pairs: list[tuple[_Task, int, int]]) -> list[np.ndarray]:
         """Duplicates by page aliasing (``decode_engine.py:2739``): share the
@@ -1873,13 +2275,12 @@ class DecodeEngine:
             rows.append(self._slot_update_row(task, slot, int(ids[-1]), plen - 1, self._budget(task, plen)))
         if copy_dst:
             # stream-ordered after the primaries' prefills
-            paged_kv.copy_pages(
-                self.cache,
-                self._to_device(np.asarray(copy_dst, np.int64)),
-                self._to_device(np.asarray(copy_src, np.int64)),
-            )
+            self._dev("copy_pages", np.asarray(copy_dst, np.int64), np.asarray(copy_src, np.int64))
         self.stats["prefix_shared"] += len(copy_dst)
         return rows
+
+    def _op_copy_pages(self, dst: np.ndarray, src: np.ndarray) -> None:
+        paged_kv.copy_pages(self.cache, self._to_device(dst), self._to_device(src))
 
     def _publish_prefix(self, full_ids: list[int], pages: list[int], versions: list[int], pos: int) -> None:
         """Publish a finished request's full pages into the radix tree
@@ -1936,15 +2337,10 @@ class DecodeEngine:
             flat_pages[j, : len(self._slot_pages[slot])] = self._slot_pages[slot]
         img = self._image_embeds_for(admitted, ids_np)
         e0 = self._event_pair_start()
-        ids_t = self._to_device(ids_np)
-        plens_t = self._to_device(plens)
-        positions = torch.arange(P, device=self.device)[None].expand(A, P)
-        seg = (positions < plens_t[:, None]).to(torch.int64)
-        _, ks, vs = qwen.forward_prefill(self.model, ids_t, positions, seg, image_embeds=img)
-        paged_kv.scatter_prefill(
-            self.cache, ks, vs, self._to_device(flat_pages.reshape(-1)), psz
-        )
-        del ks, vs
+        if img is None:
+            self._dev("prefill", ids_np, plens, flat_pages)
+        else:  # a VLM, which never serves on a mesh
+            self._op_prefill(ids_np, plens, flat_pages, img)
         n_tok = int(plens.sum())
         self._event_pair_end(e0, self._prefill_events, n_tok)
         rows = []
@@ -1963,6 +2359,16 @@ class DecodeEngine:
         self.stats["prefill_batches"] += 1
         self.stats["prefill_tokens"] += n_tok
         return rows
+
+    def _op_prefill(self, ids_np, plens, flat_pages, img: torch.Tensor | None = None) -> None:
+        """One batched cold prefill and the scatter of its KV into pages."""
+        A, P = ids_np.shape
+        ids_t = self._to_device(ids_np)
+        plens_t = self._to_device(plens)
+        positions = torch.arange(P, device=self.device)[None].expand(A, P)
+        seg = (positions < plens_t[:, None]).to(torch.int64)
+        _, ks, vs = qwen.forward_prefill(self.model, ids_t, positions, seg, image_embeds=img)
+        paged_kv.scatter_prefill(self.cache, ks, vs, self._to_device(flat_pages.reshape(-1)), self.config.page_size)
 
     def _image_embeds_for(self, group: list[tuple[_Task, int]], ids_np: np.ndarray) -> torch.Tensor | None:
         """A VLM admission (``decode_engine.py:1870``): the tower over each
@@ -2110,7 +2516,11 @@ class DecodeEngine:
         """Scatter packed rows into the device state: one upload."""
         if not rows:
             return
-        upd = self._to_device(np.stack(rows))
+        restores, self._pending_count_restore = self._pending_count_restore, []
+        self._dev("slot_updates", np.stack(rows), restores)
+
+    def _op_slot_updates(self, rows: np.ndarray, restores: list[tuple[int, np.ndarray]]) -> None:
+        upd = self._to_device(rows)
         sl = upd[:, 0].long()
         st = self._dev_state
         st["ids"][sl] = upd[:, 1].long()
@@ -2128,9 +2538,8 @@ class DecodeEngine:
             # (re)admission resets the slot's counts; a resume's restore
             # follows
             self._freq_counts[sl] = 0
-            for slot, counts in self._pending_count_restore:
+            for slot, counts in restores:
                 self._freq_counts[slot] = self._to_device(counts.astype(np.int64)).to(torch.int16)
-        self._pending_count_restore.clear()
 
     # -- pages ------------------------------------------------------------
     def _ensure_pages(self, ahead: int | None = None) -> None:
@@ -2180,7 +2589,10 @@ class DecodeEngine:
     def _apply_remaining_clamp(self, rows: list[tuple[int, int]]) -> None:
         """remaining := min(remaining, cap) for the given slots on the
         device, keeping remaining - min_rem invariant; pos/ids untouched."""
-        upd = self._to_device(np.asarray(rows, np.int64))
+        self._dev("remaining_clamp", np.asarray(rows, np.int64))
+
+    def _op_remaining_clamp(self, rows: np.ndarray) -> None:
+        upd = self._to_device(rows)
         sl, cap = upd[:, 0], upd[:, 1]
         st = self._dev_state
         old = st["remaining"][sl]
@@ -2234,7 +2646,7 @@ class DecodeEngine:
         key = ("chunk", n_steps, len(active), wp)
         self._register_cost(key, hw.decode_step_costs(self.model_cfg, n_steps, len(active), wp * psz / 2.0))
         e0 = self._event_pair_start()
-        packed = self._run_chunk(n_steps, self._to_device(self._pt_host[:, :wp]), capped, greedy_any, freq_any)
+        packed = self._dev("chunk", n_steps, self._pt_host[:, :wp], capped, greedy_any, freq_any)
         self._event_pair_end(e0, self._chunk_events, n_steps)
         if self.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -2254,6 +2666,9 @@ class DecodeEngine:
             # before the drain, and its results belong to the OLD task
             "tasks": list(self._slot_task),
         }
+
+    def _op_chunk(self, n_steps: int, pt: np.ndarray, capped: bool, greedy_any: bool, freq_any: bool):
+        return self._run_chunk(n_steps, self._to_device(pt), capped, greedy_any, freq_any)
 
     def _run_chunk(
         self, n_steps: int, page_table: torch.Tensor, capped: bool, greedy_any: bool, freq_any: bool = False
@@ -2364,7 +2779,7 @@ class DecodeEngine:
         self._register_cost(key, hw.decode_step_costs(self.model_cfg, 1, len(active) * B, wp * psz / 2.0))
         with self._kphase("dispatch"):
             e0 = self._event_pair_start()
-            packed = self._run_spec(B, self._to_device(self._pt_host[:, :wp]), capped, greedy_any, bundle)
+            packed = self._dev("spec", B, self._pt_host[:, :wp], capped, greedy_any, bundle)
             self._event_pair_end(e0, self._spec_events, B)
         with self._kphase("verify"):
             # the round's one blocking download: the verify forward's device
@@ -2406,6 +2821,9 @@ class DecodeEngine:
             self.stats["spec_rollback_pages"] += rolled
             self._obs_spec.rollback_pages.inc(rolled)
         return credited, key
+
+    def _op_spec(self, B: int, pt: np.ndarray, capped: bool, greedy_any: bool, bundle):
+        return self._run_spec(B, self._to_device(pt), capped, greedy_any, bundle)
 
     def _run_spec(self, B: int, page_table: torch.Tensor, capped: bool, greedy_any: bool, bundle):
         """Verify + accept for all slots (the body of the JAX ``_spec_fn``,
@@ -2609,11 +3027,13 @@ class DecodeEngine:
             self._slot_page_versions[task.slot] = []
             self._pt_host[task.slot] = 0
         bd: dict[str, float] = {}
+        now = time.monotonic()
         if task.timeline is not None:
             # the terminal mark and the histograms; the breakdown rides the
-            # response, so callers split latency without scraping
+            # response, so callers split latency without scraping, and the
+            # latency is the timeline's own span
             bd = self.timeline.complete(task.timeline, reason, len(task.out_tokens))
-        now = time.monotonic()
+            now = task.timeline.queued_ts + bd["total_s"]
         resp = ModelResponse(
             input_tokens=list(task.req.input_ids),
             output_tokens=task.out_tokens,

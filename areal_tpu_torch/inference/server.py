@@ -199,6 +199,7 @@ class _Handler(BaseHTTPRequestHandler):
             "/metrics": lambda: (200, app.metrics()),
             "/statusz": app.h_statusz,
             "/debug/flight": lambda: app.h_debug_flight(urllib.parse.parse_qs(query)),
+            "/debug/weights": lambda: app.h_debug_weights(urllib.parse.parse_qs(query)),
         }.get(path)
         if route is None:
             self._send(404, {"status": "error", "error": f"no route {path}"})
@@ -468,7 +469,9 @@ class InferenceServer:
         decode-loop counter, the radix cache, the admission snapshot, the
         drain, the autopilot's setpoints, the device bytes of the KV pool and
         the penalty's count table, the request timelines' counts, the probe's
-        ``kernels`` summary and the ``hbm`` ledger."""
+        ``kernels`` summary, the ``hbm`` ledger (every rank's under
+        ``ranks`` on a mesh) and the serving ``mesh`` with each rank's
+        device and bytes (parameters, KV pool, count table, staged update)."""
         self._refresh_gauges()
         eng = self.engine
         out = {
@@ -491,9 +494,21 @@ class InferenceServer:
         if eng.initialized:
             try:
                 out["hbm"] = eng.hbm_ledger()
-            except Exception:  # noqa: BLE001 — statusz renders without it
-                logger.debug("hbm ledger failed", exc_info=True)
+                out["mesh"] = eng.mesh_status()
+            except Exception:  # noqa: BLE001 — statusz renders without them
+                logger.debug("hbm ledger / mesh status failed", exc_info=True)
         return 200, out
+
+    def h_debug_weights(self, query: dict) -> tuple[int, dict]:
+        """``?names=a,b``: every rank's sha256 of its served leaves (rank 0
+        first), to hold a server's bits against a trainer's export without
+        moving the weights; unknown names answer 400."""
+        eng = self.engine
+        names = [n for v in query.get("names", []) for n in v.split(",") if n]
+        known = {n for n, _ in eng.model.named_parameters()} if eng.initialized else set()
+        if not names or set(names) - known:
+            return 400, {"status": "error", "error": f"unknown leaves {sorted(set(names) - known)[:4]}"}
+        return 200, {"version": eng.get_version(), "ranks": eng.served_digests(names)}
 
     def h_debug_flight(self, query: dict) -> tuple[int, dict]:
         """The flight ring and the newest completed request timelines
@@ -825,9 +840,10 @@ def bucket_tensors(header: list[dict], data: torch.Tensor) -> dict[str, torch.Te
 def main(argv: list[str] | None = None) -> None:
     """``python -m areal_tpu_torch.inference.server --config x.yaml key=val``.
 
-    ``--device`` picks the device (the card unless ``cpu`` is asked for);
-    ``--name`` raises until server discovery is ported (ROADMAP Queue A item
-    8)."""
+    ``--device`` picks the device (the card unless ``cpu`` is asked for):
+    on a ``mesh.model=N`` mesh it is the lead's card, and follower r serves
+    on the r-th card after it (``parallel/serving_group.py``); ``--name``
+    raises until server discovery is ported (ROADMAP Queue A item 8)."""
     import argparse
     import sys
 
@@ -836,7 +852,7 @@ def main(argv: list[str] | None = None) -> None:
 
     p = argparse.ArgumentParser(prog="python -m areal_tpu_torch.inference.server")
     p.add_argument("--name", default="", help="name_resolve key to register the address under")
-    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu; the lead's card on a mesh")
     args, rest = p.parse_known_args(sys.argv[1:] if argv is None else argv)
     if args.name:
         raise NotImplementedError(f"--name {args.name!r} (registering the server in name_resolve): ROADMAP Queue A "

@@ -16,6 +16,9 @@ no model cost:
 
 Drafts are proposals: the engine's accept walk emits only tokens its own
 sampler produced, so a wrong draft costs acceptance, never correctness.
+On a serving mesh the drafter stays on the lead: its ``DraftBundle`` (plain
+numpy arrays) travels to the followers as the host input of the verify
+round's device operation (``DecodeEngine._op_spec``).
 """
 
 from __future__ import annotations

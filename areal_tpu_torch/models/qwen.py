@@ -502,6 +502,21 @@ def param_partition_specs(cfg: ModelConfig) -> dict[str, tuple]:
     return specs
 
 
+def quant_partition_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """``param_partition_specs`` of the int8 serving form
+    (``areal_tpu/models/qwen.py:333``): each ``<t>_q8`` inherits its base
+    leaf's spec, each ``<t>_scale`` [out] keeps only the output dim's
+    split (a row-parallel ``wo`` / ``w_down`` scale is whole on every rank:
+    it is the max over the whole input dim)."""
+    specs = param_partition_specs(cfg)
+    for t in QUANT_TARGETS:
+        spec = specs.pop(t, None)
+        if spec is not None:
+            specs[f"{t}_q8"] = spec
+            specs[f"{t}_scale"] = spec[:1]
+    return specs
+
+
 def _axis_dim(spec: tuple, axis: str) -> int | None:
     """The dim of ``spec`` that ``axis`` splits (None: replicated over it)."""
     for d, s in enumerate(spec):
@@ -514,6 +529,23 @@ def tp_dim(cfg: ModelConfig, name: str) -> int | None:
     """The dim of the leaf ``name`` (``layers.<i>.<leaf>`` or a root leaf)
     that the ``model`` axis splits, None for a replicated leaf."""
     return _axis_dim(param_partition_specs(cfg)[name.rsplit(".", 1)[-1]], "model")
+
+
+def tp_slice(t: torch.Tensor, spec: tuple, tp_size: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s part of a leaf placed by ``spec`` on a ``model`` axis
+    of ``tp_size``: its contiguous block along the dim the axis splits, the
+    leaf itself when the axis does not split it. The one slicing rule of the
+    trainer's placement (``shard_model``), the server's placement and the
+    server's weight updates."""
+    d = _axis_dim(spec, "model")
+    if tp_size == 1 or d is None:
+        return t
+    return t.chunk(tp_size, dim=d)[rank]
+
+
+def leaf_spec(specs: dict, name: str) -> tuple:
+    """The spec of a parameter ``layers.<i>.<leaf>`` or a root leaf."""
+    return specs[name.rsplit(".", 1)[-1]]
 
 
 def local_config(cfg: ModelConfig, tp_size: int) -> ModelConfig:
@@ -556,9 +588,8 @@ def shard_model(model: QwenModel, mesh, compute_dtype: torch.dtype) -> ModelConf
         mod_name, _, leaf = name.rpartition(".")
         mod = model.get_submodule(mod_name) if mod_name else model
         spec = specs[leaf]
-        d = _axis_dim(spec, "model")
-        if m > 1 and d is not None:
-            p = nn.Parameter(p.detach().chunk(m, dim=d)[rank].clone(), requires_grad=p.requires_grad)
+        if m > 1 and _axis_dim(spec, "model") is not None:
+            p = nn.Parameter(tp_slice(p.detach(), spec, m, rank).clone(), requires_grad=p.requires_grad)
             setattr(mod, leaf, p)
         placement[p] = Shard(_axis_dim(spec, "fsdp") or 0)
     model.tp = tp
@@ -682,7 +713,12 @@ def compute_logits(model: QwenModel, hidden: torch.Tensor) -> torch.Tensor:
     torch.float32)`` (no second copy of the [V, D] table), which has no
     derivative; where a gradient is needed (the tree path's node logprobs),
     and on the CPU, which has no such operator, both operands are up-cast to
-    f32 explicitly: the same exact products, summed in f32."""
+    f32 explicitly: the same exact products, summed in f32.
+
+    Under tensor parallelism (``model.tp``, a served model's vocab-parallel
+    head) each rank's product is its vocabulary block; the blocks, each
+    placed in a zero f32 [..., V], sum over ``model``: one block and zeros,
+    so every rank holds the whole logits, exactly."""
     w = model.lm_head_weight
     lead = hidden.shape[:-1]
     h = hidden.to(w.dtype).reshape(-1, w.shape[1])
@@ -693,7 +729,12 @@ def compute_logits(model: QwenModel, hidden: torch.Tensor) -> torch.Tensor:
         out = torch.mm(h, w.t(), out_dtype=torch.float32)
     else:
         out = h.float() @ w.float().t()
-    return out.reshape(*lead, w.shape[0])
+    tp = getattr(model, "tp", None)
+    if tp is not None and tp.size > 1:
+        full = out.new_zeros((out.shape[0], w.shape[0] * tp.size))
+        full[:, tp.vocab_start : tp.vocab_start + w.shape[0]] = out
+        out = tp_lib.reduce_from_model(full, tp)
+    return out.reshape(*lead, out.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -934,7 +975,7 @@ def forward_prefill(
             k = k.repeat_interleave(H // KH, dim=2)
             v = v.repeat_interleave(H // KH, dim=2)
         attn = sdpa_plain(q, k, v, mask, hd).reshape(A, P, H * hd)
-        x = x + _proj(cfg, layer, "wo", attn)
+        x = x + tp_lib.reduce_from_model(_proj(cfg, layer, "wo", attn), getattr(layer, "tp", None))
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
@@ -950,7 +991,7 @@ def _forward_suffix_paged(model, input_ids, positions, mask, cache, page_table, 
     cfg = model.cfg
     S, B = input_ids.shape
     H, hd = cfg.num_heads, cfg.head_dim_
-    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype)
+    x = _embed_lookup(model.embed, input_ids, cfg.torch_dtype, getattr(model, "tp", None))
     rope = _rope_angles(positions, hd, cfg.rope_theta)
     if page_table.is_cuda:  # the kernel's index types; the plain path takes any
         prefix_lens = prefix_lens.to(torch.int32)
@@ -974,7 +1015,8 @@ def _forward_suffix_paged(model, input_ids, positions, mask, cache, page_table, 
             v_scales=cache.get("v_scale"),
             kind=kind,
         )
-        x = x + _proj(cfg, layer, "wo", attn.reshape(S, B, H * hd).to(x.dtype))
+        wo = _proj(cfg, layer, "wo", attn.reshape(S, B, H * hd).to(x.dtype))
+        x = x + tp_lib.reduce_from_model(wo, getattr(layer, "tp", None))
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)
@@ -1043,7 +1085,7 @@ def forward_decode_paged(
     cfg = model.cfg
     S = ids.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim_
-    x = _embed_lookup(model.embed, ids, cfg.torch_dtype)  # [S, D]
+    x = _embed_lookup(model.embed, ids, cfg.torch_dtype, getattr(model, "tp", None))  # [S, D]
     rope = _rope_angles(positions[:, None], hd, cfg.rope_theta)
     lengths = (positions + 1).to(torch.int32)
     slot = torch.arange(S, device=ids.device)
@@ -1079,7 +1121,7 @@ def forward_decode_paged(
             v_scales=cache.get("v_scale"),
         )
         attn = attn.reshape(S, H * hd).to(x.dtype)
-        x = x + _proj(cfg, layer, "wo", attn)
+        x = x + tp_lib.reduce_from_model(_proj(cfg, layer, "wo", attn), getattr(layer, "tp", None))
         h = _rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _ffn(cfg, h, layer)
     hidden = _rms_norm(x, model.final_norm, cfg.rms_norm_eps)

@@ -52,13 +52,14 @@ writes the recover records; every rank steps together through the
 engines' collectives: the rollout batch comes to all through the engine's
 ``DistRolloutCoordinator``, every rank joins each weight push, checkpoint
 and recover dump (rank 0 writes the files), and a preemption seen on rank
-0 is seen by all at the next step boundary. ``check_allocation`` refuses
+0 is seen by all at the next step boundary. A gen half's ``tN`` is a
+server serving on N cards (``DecodeEngine`` on ``mesh.model=N``), which
+the trainer reaches over HTTP like any other. ``check_allocation`` refuses
 what waits for a later item.
 
 Refused at construction with ``NotImplementedError`` naming the ROADMAP
 Queue A item it waits for: a gen half of more than one server (item 8),
-tensor-parallel serving and sequence, pipeline or expert parallelism
-(item 6b), and a ``cluster.name_resolve.type`` other than "memory" (item
+sequence, pipeline or expert parallelism (item 6b), and a ``cluster.name_resolve.type`` other than "memory" (item
 8); in a world of several ranks, a time-based save, recover or eval
 trigger (``freq_secs``: the ranks would not agree when it fires; 6b). The
 weight wire follows ``resolve_weight_update_wire``: "q8" against an int8
@@ -131,11 +132,12 @@ def resolve_weight_update_wire(config) -> str:
 def check_allocation(config) -> None:
     """Refuse the parts of ``allocation_mode`` that wait for a later item,
     before anything is built: a gen half of more than one server (a fleet,
-    ROADMAP Queue A item 8); tensor-parallel serving, and sequence,
-    pipeline or expert parallelism or a hybrid MoE spec in either half
-    (item 6b). A train half of any ``dN`` / ``tN`` passes here; the engine
-    checks that ``tN`` divides the model's heads and that the world has the
-    devices."""
+    ROADMAP Queue A item 8); sequence, pipeline or expert parallelism or a
+    hybrid MoE spec in either half (item 6b). A gen half's ``tN`` is one
+    server on N cards (tensor-parallel serving, ``server.mesh.model``); a
+    train half of any ``dN`` / ``tN`` passes here. The engines check that
+    ``tN`` divides the model's heads, KV heads, FFN and vocabulary (the
+    server at ``initialize``) and that the world has the devices."""
     if not config.allocation_mode:
         return
     mode = AllocationMode.from_str(config.allocation_mode)
@@ -150,8 +152,6 @@ def check_allocation(config) -> None:
                 raise NotImplementedError(f"{half} half {dim}={getattr(ps, dim)}: {what} parallelism is ROADMAP "
                                           "Queue A item 6b")
     gen = mode.gen
-    if gen is not None and gen.tp > 1:
-        raise NotImplementedError(f"gen half tp={gen.tp}: tensor-parallel serving is ROADMAP Queue A item 6b")
     if gen is not None and gen.dp > 1:
         raise NotImplementedError(f"gen half dp={gen.dp}: a fleet of servers is ROADMAP Queue A item 8")
 

@@ -1,5 +1,7 @@
 """Host and port discovery — the port of ``areal_tpu/utils/network.py``
-(its local-host part: the port keeps its own copy)."""
+(its local-host part: the port keeps its own copy). A serving mesh's
+process group takes its store's port from here
+(``parallel/serving_group.py``)."""
 
 from __future__ import annotations
 

@@ -214,7 +214,7 @@ no result line:
               f32 master weights bit for bit; the q8 update's wire bytes
               against bf16's (0.577 reckoned), stage and fence seconds,
               K2-K4 and #1 launches.
-18. lora     — LoRA at Qwen2.5-1.5B, full width and depth
+18. lora     — LoRA at Qwen2.5-1.5B, full width and CUT_LAYERS of its depth
               (``gsm8k_grpo_lora.yaml``: rank 32, alpha 16, wq / wk / wv /
               wo over the grpo phase's actor): a server started from the
               trainer's adapter-free export; ``PPOTrainer.train`` for 2
@@ -301,8 +301,8 @@ no result line:
               (the same function) and on bf16(grad) (another) times and the
               bound.
 24. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (full width,
-              SERVE_MOE_LAYERS = 24 of its 48 layers since the shard phase
-              came, 128 experts, top-8, random bf16 parameters from a seed)
+              SERVE_MOE_LAYERS = 16 of its 48 layers since the serve_tp
+              phase came (24 since the shard phase), 128 experts, top-8, random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
               system prompt, /flush_prefix_cache and the pool audit;
@@ -342,6 +342,24 @@ no result line:
               same export, SIGTERM draining it to its exit code with a
               flight dump. Seconds to /health, eval n / accuracy, the
               drain's seconds.
+27. serve_tp — serving on a ``model=2`` mesh (tensor parallelism):
+              Qwen2.5-1.5B at full width and depth with the serve phase's
+              ``ServerConfig``, a lead and one spawned follower, each rank
+              on 6 heads and 1 KV head; the unsharded engine on the same
+              seeds first, as the yardstick. Over HTTP: the cold and warm
+              waves, 8 greedy requests under n-gram speculation, a staged
+              push of other weights (every rank's slices then the pushed
+              bf16 bits). #1 and #3 launches on every rank, greedy tokens
+              against the yardstick's but at near-ties, logprobs against a
+              dense prefill, the pool audit, no follower left after stop.
+              One card: both ranks on it over gloo (a stand-in, at
+              SERVE_TP_STANDIN_NEW new tokens a request). On four
+              cards: NCCL on cards 0-1 at 128 new tokens, int8 weights on
+              int8 pages, and the disaggregated loop (the server CLI on
+              cards 0-1, ``PPOTrainer.train`` under ``torchrun`` on cards
+              2-3 with ``sglang:d1t2+fsdp:d2``, 2 steps over HTTP, the
+              server's slices against the trainer's export by
+              ``/debug/weights``, a SIGTERM drain).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -387,17 +405,19 @@ QWEN25_15B = dict(
 # the depth of the phases whose checks are about behaviour, not the main
 # path's speed (lifecycle, observe, durable; since the int8serve and lora
 # phases came, critic, sft and train_tree too; since the vlm phase came,
-# int8serve; since the entry phase came, shard): 8 of Qwen2.5-1.5B's 28
-# layers at full width, so the whole script stays inside its time limit on a
-# slow host (1,170 s of phases at full depth on one; 1,000 s with all but the
-# first three at full depth on another; 954 s with shard at full depth on
-# another, each on one H100 80GB HBM3 at 700 W, PERF.md); serve, rollout, train, grpo, lora and entry run all 28, vlm all
-# of Qwen2-VL-2B
+# int8serve; since the entry phase came, shard; since the serve_tp phase came,
+# lora): 8 of Qwen2.5-1.5B's 28 layers at full width, so the whole script
+# stays inside its time limit on a slow host (1,170 s of phases at full depth
+# on one; 1,000 s with all but the first three at full depth on another; 954 s
+# with shard at full depth on another; 1,025.5 s with serve_tp and lora at
+# full depth on another, each on one H100 80GB HBM3 at 700 W, PERF.md); serve,
+# rollout, train, grpo, entry and serve_tp run all 28, vlm all of Qwen2-VL-2B
 CUT_LAYERS = 8
-# serve_moe's depth: 24 of Qwen3-30B-A3B's 48 layers, to keep the whole
-# script in its limit once the shard phase came (1,106.5 s of phases on a
-# slow host with all 48, PERF.md)
-SERVE_MOE_LAYERS = 24
+# serve_moe's depth: 16 of Qwen3-30B-A3B's 48 layers, to keep the whole
+# script in its limit (1,106.5 s of phases on a slow host with all 48 once
+# the shard phase came, then 24; 1,025.5 s with 24 once serve_tp came, on
+# one H100 80GB HBM3 at 700 W, PERF.md)
+SERVE_MOE_LAYERS = 16
 # Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): the
 # qwen3_moe family's smallest public member, full width and depth
 QWEN3_30B_A3B = dict(
@@ -420,8 +440,9 @@ QWEN3_30B_A3B = dict(
     dtype="bfloat16",
 )
 # the attention kernels' head configs: (H, KH, layers of the stacked cache);
-# Qwen3-30B-A3B's G = 32 / 4 = 8 is kernel #1's kMaxG
-HEADS = {"qwen2.5-1.5b": (12, 2, 28), "qwen3-30b-a3b": (32, 4, 48)}
+# Qwen3-30B-A3B's G = 32 / 4 = 8 is kernel #1's kMaxG; "tp2" is one rank's
+# share of Qwen2.5-1.5B on a model=2 serving mesh (serve_tp)
+HEADS = {"qwen2.5-1.5b": (12, 2, 28), "qwen3-30b-a3b": (32, 4, 48), "qwen2.5-1.5b/tp2": (6, 1, 28)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12}  # dense tensor-core rates
 # kernel vs plain, max |diff| on O(1) outputs: the plain twin rounds logits
@@ -5850,7 +5871,8 @@ def _fold_share(trainer, engine, n_folds: int) -> float:
 
 
 def phase_lora(card: str) -> dict:
-    """LoRA at Qwen2.5-1.5B, full width and depth (``gsm8k_grpo_lora.yaml``:
+    """LoRA at Qwen2.5-1.5B, full width and ``CUT_LAYERS`` of its depth
+    (since the serve_tp phase came) (``gsm8k_grpo_lora.yaml``:
     rank 32, alpha 16, targets wq / wk / wv / wo over the grpo phase's
     actor): a server started from the trainer's adapter-free export,
     ``PPOTrainer.train`` for 2 steps over HTTP whose pushes carry only the
@@ -5877,7 +5899,7 @@ def phase_lora(card: str) -> dict:
     if held > 2.0:
         raise AssertionError(f"[lora] {held:.2f} GiB still allocated by earlier phases")
     torch.cuda.reset_peak_memory_stats()
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": CUT_LAYERS})
     L = mcfg.num_layers
     acfg = _grpo_actor(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA, lora_targets=list(LORA_TARGETS))
     trainer = TorchTrainEngine(acfg, model_config=mcfg)
@@ -8488,9 +8510,480 @@ def phase_entry(card: str) -> dict:
     return res
 
 
+# serving on a model=2 mesh: each rank's heads are Qwen2.5-1.5B's halves
+# (H=6, KH=1); two engines of one seed part only where bf16 rounds in other
+# places (the row-parallel products sum their halves after rounding each),
+# so a greedy divergence is accepted only where both tokens sit within the
+# served-vs-dense bound of the dense argmax
+SERVE_TP_TIE = LOGPROB_TOL
+SERVE_TP_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_serve_tp")
+SERVE_TP_EXIT_CODE = 19  # the mesh CLI server's preemption.exit_code
+SERVE_TP_STEPS = 2  # the disaggregated loop's GRPO steps
+# new tokens a request on the one-card stand-in (both ranks over gloo, ~157
+# ms a decode step: 128 new tokens took the phase to 253 s, PERF.md); 128
+# (the serve cell's) on two or more cards
+SERVE_TP_STANDIN_NEW = 32
+SERVE_TP_CHECKED = ("embed", "final_norm", "layers.0.wq", "layers.0.bk", "layers.13.wo", "layers.27.w_down",
+                    "layers.27.w_up")  # the leaves whose served slices are held to a push's bits
+
+
+def _tp_traffic(V: int) -> dict[str, list[list[int]]]:
+    """The serve phase's cold and warm prompts, and 8 periodic prompts (a
+    48-token motif 6 times over: the n-gram drafter's hits) for the
+    speculative rounds."""
+    rng = np.random.default_rng(0)
+    cold = [rng.integers(0, V, int(n)).tolist() for n in rng.integers(64, 513, 16)]
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, V, 1024).tolist()
+    warm = [system + rng.integers(0, V, int(n)).tolist() for n in rng.integers(64, 257, 16)]
+    rng = np.random.default_rng(11)
+    spec = [rng.integers(0, V, 48).tolist() * 6 for _ in range(8)]
+    return {"cold": cold, "warm": warm, "spec": spec}
+
+
+def _tp_body(p: list[int], i: int, n_new: int = 128, greedy: bool = False) -> dict:
+    sp = {"max_new_tokens": n_new, "greedy": True} if greedy or i % 2 == 0 else {"max_new_tokens": n_new,
+                                                                                 "temperature": 1.0}
+    return {"input_ids": p, "sampling_params": sp}
+
+
+def _tp_waves(tag: str, srv, engine, traffic: dict, dense_model, tol: float, card: str, n_new: int) -> dict:
+    """The cold wave of 16 and the warm wave of 16 (the first alone, then 15
+    through radix hits) over HTTP, #1 and #3 counted from 0 on every rank;
+    complete responses, logprobs against a dense prefill of
+    ``dense_model``, the pool audit after ``/flush_prefix_cache``."""
+    cold, warm = traffic["cold"], traffic["warm"]
+    keys = ("decode_steps", "prefix_hit_tokens", "suffix_prefill_batches")
+    # main path: counts to 0 just before, read just after (on every rank)
+    engine.reset_rank_launches()
+    s0, dev0 = {k: engine.stats[k] for k in keys}, engine.device_seconds()
+    t0 = time.monotonic()
+    resps = _wave(srv.address, [_tp_body(p, i, n_new) for i, p in enumerate(cold)])
+    cold_wall = time.monotonic() - t0
+    resps += _wave(srv.address, [_tp_body(warm[0], 0, n_new)])
+    t1 = time.monotonic()
+    resps += _wave(srv.address, [_tp_body(p, i, n_new) for i, p in enumerate(warm[1:], 1)])
+    warm_wall = time.monotonic() - t1
+    ranks = engine.rank_launches()
+    d = {k: engine.stats[k] - s0[k] for k in keys}
+    dev = engine.device_seconds()
+    for r in resps:
+        _check_response(r, n_new, tag)
+    L = engine.model_cfg.num_layers
+    for rank, c in enumerate(ranks):
+        if d["decode_steps"] == 0 or c["paged_attention"] != L * d["decode_steps"]:
+            raise AssertionError(f"[{tag}] rank {rank}: #1 launches {c['paged_attention']} != {L} x "
+                                 f"{d['decode_steps']} decode steps")
+        chain = c["paged_suffix_attention"]["chain"]
+        if d["prefix_hit_tokens"] <= 0 or not chain or chain != L * d["suffix_prefill_batches"]:
+            raise AssertionError(f"[{tag}] rank {rank}: warm wave {d}, #3 launches {c['paged_suffix_attention']}")
+    prompts = cold + warm
+    errs = [_dense_check(dense_model, prompts[i], resps[i], greedy=False) for i in (1, 3, 17, 19)]
+    gaps = [_dense_check(dense_model, prompts[i], resps[i], greedy=True) for i in (0, 2, 18, 20)]
+    if max(errs) > tol or max(gaps) > tol:
+        raise AssertionError(f"[{tag}] served logprobs vs a dense prefill: {errs}, greedy gaps {gaps} (tol {tol})")
+    stats = _post(srv.address, "/flush_prefix_cache", {})
+    audit = engine.pool_audit()
+    if not (audit["ok"] and audit["radix_pages"] == 0):
+        raise AssertionError(f"[{tag}] pool audit after the flush: {audit}")
+    steps = dev["decode_steps"] - dev0["decode_steps"]
+    out = dict(ms_per_step=(dev["decode_s"] - dev0["decode_s"]) / steps * 1e3,
+               wall_ms_per_step=(cold_wall + warm_wall) / d["decode_steps"] * 1e3,
+               decode_tok_s=16 * n_new / cold_wall, launches=ranks, n_new=n_new, decode_steps=d["decode_steps"],
+               suffix_batches=d["suffix_prefill_batches"], hit_tokens=d["prefix_hit_tokens"],
+               dense_err=max(errs), greedy_gap=max(gaps), tokens=[r["output_tokens"] for r in resps],
+               prompts=prompts)
+    log(f"[{tag}] {card}: 32/32 responses complete (cold 16 in {cold_wall:.2f} s, warm 15 in {warm_wall:.2f} s "
+        f"through {d['prefix_hit_tokens']} radix hit tokens); {out['ms_per_step']:.2f} ms per decode step (lead's "
+        f"device stream), {out['wall_ms_per_step']:.2f} ms wall; cold {out['decode_tok_s']:.1f} decode tok/s; per "
+        f"rank #1 {[c['paged_attention'] for c in ranks]} (= {L} x {d['decode_steps']}), #3 chain "
+        f"{[c['paged_suffix_attention']['chain'] for c in ranks]} (= {L} x {d['suffix_prefill_batches']}); logprobs "
+        f"vs a dense prefill max|diff| {max(errs):.4f}, greedy gap {max(gaps):.4f} (tol {tol}); pool audit ok after "
+        f"the flush ({stats['freed_pages']} pages freed)")
+    return out
+
+
+def _tp_greedy_ties(model, got: dict, want: dict, what: str) -> list:
+    """The greedy requests (even indices) of two runs of the same traffic:
+    equal, or parting at a near-tie (``SERVE_TP_TIE``)."""
+    idx = [i for i in range(len(want["tokens"])) if i % 2 == 0]
+    return _near_ties(model, [want["prompts"][i] for i in idx], [got["tokens"][i] for i in idx],
+                      [want["tokens"][i] for i in idx], what, tol=SERVE_TP_TIE)
+
+
+def phase_serve_tp(card: str) -> dict:
+    """Serving on a ``model=2`` mesh: Qwen2.5-1.5B at full width and depth
+    (random weights, seed 0) with the serve phase's ``ServerConfig`` (32
+    slots, 2,048 tokens, page 128, 16 steps a call), a lead and one spawned
+    follower, each rank on its 6 heads and 1 KV head. On one card both
+    ranks share it over gloo (a stand-in: its times are not a mesh's); on
+    two or more, the follower takes the next card and the ranks join over
+    NCCL. The unsharded engine runs the same traffic first, as the
+    yardstick. Requests take 128 new tokens on two or more cards and
+    SERVE_TP_STANDIN_NEW on the one-card stand-in. Over HTTP: the cold and warm waves, 8 greedy requests under
+    n-gram speculation, and a staged push of other weights, after which
+    every rank's served slices must be the pushed bf16 bits. Checks: #1 and
+    #3 launched on every rank (the followers report their counters), greedy
+    tokens equal to the yardstick's but at near-ties, logprobs against a
+    dense prefill, the pool audit, no follower alive after ``stop``. On two
+    or more cards also int8 weights on int8 pages (one wave); on four, the
+    disaggregated loop (``_tp_loop``)."""
+    from areal_tpu_torch.api.config import InferenceEngineConfig, MeshConfig, ServerConfig
+    from areal_tpu_torch.api.io_struct import WeightUpdateMeta
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[serve_tp] {held:.2f} GiB still allocated by earlier phases")
+    n_cards = torch.cuda.device_count()
+    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    traffic = _tp_traffic(mcfg.vocab_size)
+    base = dict(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16, host="127.0.0.1",
+                seed=0)
+    n_new = 128 if n_cards >= 2 else SERVE_TP_STANDIN_NEW
+    spec_bodies = [_tp_body(p, i, n_new, greedy=True) for i, p in enumerate(traffic["spec"])]
+
+    # the yardstick: the unsharded engine on the same seeds and traffic
+    srv = ServerThread(ServerConfig(**base), engine=DecodeEngine(ServerConfig(**base), params=model))
+    srv.start()
+    try:
+        ref = _tp_waves("serve_tp/unsharded", srv, srv.engine, traffic, model, LOGPROB_TOL, card, n_new)
+        ref_spec = [r["output_tokens"] for r in _wave(srv.address, spec_bodies)]
+    finally:
+        srv.stop()
+    gc.collect()
+
+    res: dict = {"cards": n_cards, "unsharded": {k: ref[k] for k in ("ms_per_step", "wall_ms_per_step",
+                                                                      "decode_tok_s")}}
+    cfg = ServerConfig(**base, mesh=MeshConfig(model=2))
+    engine = DecodeEngine(cfg, params=model)
+    t0 = time.monotonic()
+    engine.initialize()
+    init_s = time.monotonic() - t0
+    group = engine._group
+    pids = group.pids()
+    srv = ServerThread(cfg, engine=engine)
+    srv.start()
+    stand_in = "a stand-in: both ranks on one card over gloo" if group.backend == "gloo" else "over NCCL"
+    try:
+        st = _http_status(srv.address, "/statusz")[2]
+        ranks = st["mesh"]["ranks"]
+        log(f"[serve_tp] {card}: model=2 up in {init_s:.1f} s (slices, spawn, the follower's engine), backend "
+            f"{group.backend} ({stand_in}), devices {[r['device'] for r in ranks]}; per rank params "
+            f"{[round(r['params'] / 1e9, 3) for r in ranks]} GB, KV pool {[round(r['kv_pool'] / 1e9, 3) for r in ranks]} "
+            f"GB over {engine.pool.n_pages} pages (the unsharded engine's count)")
+        tp = _tp_waves("serve_tp", srv, engine, traffic, model, LOGPROB_TOL, card, n_new)
+        ties = _tp_greedy_ties(model, tp, ref, "serve_tp")
+        log(f"[serve_tp] greedy tokens of the 16 greedy requests against the unsharded engine's: "
+            f"{16 - len(ties)} equal, {len(ties)} part at near-ties (request, token, gaps): "
+            f"{[(i, j, round(a, 4), round(b, 4)) for i, j, a, b in ties]} (tol {SERVE_TP_TIE})")
+        # speculative rounds (n-gram drafts, kernel #3's tree launch on every rank)
+        engine.set_speculative(True)
+        engine.reset_rank_launches()
+        r0 = engine.stats["spec_rounds"]
+        spec = [r["output_tokens"] for r in _wave(srv.address, spec_bodies)]
+        spec_launches = engine.rank_launches()
+        engine.set_speculative(False)
+        rounds = engine.stats["spec_rounds"] - r0
+        trees = [c["paged_suffix_attention"]["tree"] for c in spec_launches]
+        if not rounds or any(t != mcfg.num_layers * rounds for t in trees):
+            raise AssertionError(f"[serve_tp] speculation: {rounds} rounds, #3 tree launches per rank {trees}")
+        spec_ties = _near_ties(model, traffic["spec"], spec, ref_spec, "serve_tp/spec", tol=SERVE_TP_TIE)
+        log(f"[serve_tp] n-gram speculation: {rounds} verify rounds, #3 tree launches per rank {trees} "
+            f"(= {mcfg.num_layers} x rounds); accepted {engine.stats['spec_accepted_tokens']} of "
+            f"{engine.stats['spec_draft_tokens']} drafted; greedy tokens against the unsharded non-speculative "
+            f"engine's: {8 - len(spec_ties)} equal, {len(spec_ties)} part at near-ties")
+        # a staged push over HTTP (the hold fence, bf16 buckets): every rank
+        # then serves the pushed bits' slices
+        model2 = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(1))
+        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        client.initialize()
+        try:
+            t0 = time.monotonic()
+            client.update_weights(WeightUpdateMeta(type="mem"), params=model2.state_dict())
+            push_s = time.monotonic() - t0
+        finally:
+            client.destroy()
+        specs = qwen.param_partition_specs(mcfg)
+        pushed = dict(model2.named_parameters())
+        served = engine.served_slices(list(SERVE_TP_CHECKED))
+        bad = [(r, n) for r, got in enumerate(served) for n in SERVE_TP_CHECKED
+               if not torch.equal(got[n], qwen.tp_slice(pushed[n].detach().to(torch.bfloat16).cpu(),
+                                                        qwen.leaf_spec(specs, n), 2, r))]
+        after = _wave(srv.address, [_tp_body(p, 0, n_new=16) for p in traffic["cold"][:4]])
+        if bad or engine.get_version() != 1 or any(set(r["output_versions"]) != {1} for r in after):
+            raise AssertionError(f"[serve_tp] after the push: slices differing {bad}, version {engine.get_version()}")
+        log(f"[serve_tp] staged push over HTTP in {push_s:.2f} s (staging by part: {engine.last_stage_secs}): every "
+            f"rank's slices of {len(SERVE_TP_CHECKED)} leaves equal the pushed bf16 bits; a wave after it tagged "
+            "version 1")
+        del model2, pushed, served
+        hbm = engine.hbm_ledger()
+        res.update(tp={k: tp[k] for k in ("ms_per_step", "wall_ms_per_step", "decode_tok_s", "launches",
+                                          "decode_steps", "suffix_batches")},
+                   spec_launches=spec_launches, ties=len(ties), spec_ties=len(spec_ties), push_s=push_s,
+                   stage_secs=engine.last_stage_secs, n_new=n_new,
+                   init_s=init_s, backend=group.backend, rank_bytes=[r["components"] for r in hbm["ranks"]])
+    finally:
+        srv.stop()
+    gone = not [p for p in pids if _pid_alive(p)]
+    if not gone:
+        raise AssertionError(f"[serve_tp] followers alive after stop: {pids}")
+    log(f"[serve_tp] {card}: ms per decode step, model=2 ({stand_in}) {res['tp']['ms_per_step']:.2f} device / "
+        f"{res['tp']['wall_ms_per_step']:.2f} wall against the unsharded engine's {ref['ms_per_step']:.2f} / "
+        f"{ref['wall_ms_per_step']:.2f}; no follower alive after stop")
+    del engine, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n_cards >= 2:
+        res["int8"] = _tp_int8(card, model, traffic, base)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n_cards >= 4:
+        res["loop"] = _tp_loop(card)
+    res["s"] = time.monotonic() - t_phase
+    log(f"[serve_tp] phase {res['s']:.1f} s on {card}")
+    return res
+
+
+def _pid_alive(pid: int) -> bool:
+    """A process that runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _tp_int8(card: str, model, traffic: dict, base: dict) -> dict:
+    """int8 weights on int8 pages on the mesh: one cold wave, #1 on every
+    rank, logprobs against a dense prefill of the int8-quantized model."""
+    from areal_tpu_torch.api.config import MeshConfig, ServerConfig
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+
+    cfg = ServerConfig(**base, mesh=MeshConfig(model=2), quantization="int8", kv_quantization="int8")
+    srv = ServerThread(cfg, engine=DecodeEngine(cfg, params=model))
+    srv.start()
+    engine = srv.engine
+    pids = engine._group.pids()
+    try:
+        dense = qwen.QwenModel(model.cfg, model.device)
+        with torch.no_grad():
+            for n, p in dense.named_parameters():
+                p.copy_(dict(model.named_parameters())[n])
+        qwen.quantize_model_int8(dense)  # the served weights, whole: the yardstick of the logprobs
+        engine.reset_rank_launches()
+        s0 = engine.stats["decode_steps"]
+        cold = traffic["cold"]
+        t0 = time.monotonic()
+        resps = _wave(srv.address, [_tp_body(p, i) for i, p in enumerate(cold)])
+        wall = time.monotonic() - t0
+        ranks = engine.rank_launches()
+        steps = engine.stats["decode_steps"] - s0
+        for r in resps:
+            _check_response(r, 128, "serve_tp/int8")
+        L = model.cfg.num_layers
+        if any(c["paged_attention"] != L * steps for c in ranks) or not steps:
+            raise AssertionError(f"[serve_tp/int8] #1 launches per rank {ranks}, {steps} steps")
+        errs = [_dense_check(dense, cold[i], resps[i], greedy=False) for i in (1, 3)]
+        gaps = [_dense_check(dense, cold[i], resps[i], greedy=True) for i in (0, 2)]
+        if max(errs + gaps) > INT8_KV_LOGPROB_TOL:
+            raise AssertionError(f"[serve_tp/int8] vs a dense prefill of the int8 model: {errs}, {gaps}")
+        ledger = engine.hbm_ledger()
+        out = dict(wall_s=wall, steps=steps, launches=ranks, dense_err=max(errs), greedy_gap=max(gaps),
+                   params=[r["components"]["params"] for r in ledger["ranks"]])
+        log(f"[serve_tp/int8] {card}: 16/16 responses complete in {wall:.2f} s ({steps} decode steps); #1 launches "
+            f"per rank {[c['paged_attention'] for c in ranks]}; logprobs vs a dense prefill of the int8 model "
+            f"max|diff| {max(errs):.4f}, greedy gap {max(gaps):.4f} (tol {INT8_KV_LOGPROB_TOL}); params per rank "
+            f"{[round(b / 1e9, 3) for b in out['params']]} GB")
+        del dense
+    finally:
+        srv.stop()
+    if [p for p in pids if _pid_alive(p)]:
+        raise AssertionError("[serve_tp/int8] a follower outlived stop")
+    return out
+
+
+def _tp_loop(card: str) -> dict:
+    """The disaggregated loop on four cards: ``python -m
+    areal_tpu_torch.inference.server ... mesh.model=2`` on cards 0-1 from an
+    HF export, ``PPOTrainer.train`` under ``torchrun`` on cards 2-3 with
+    ``allocation_mode="sglang:d1t2+fsdp:d2"`` pointed at it
+    (``tp_loop_worker``: SERVE_TP_STEPS steps over HTTP with the hold
+    fence; the server's per-rank slices then equal the trainer's bf16
+    export, by ``/debug/weights``), then a SIGTERM drain of the server to
+    its exit code with no follower left."""
+    import shutil
+    import signal as signal_mod
+
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.models.hf import save_params_to_hf
+    from areal_tpu_torch.utils.network import find_free_port
+
+    t_loop = time.monotonic()
+    shutil.rmtree(SERVE_TP_ROOT, ignore_errors=True)
+    os.makedirs(SERVE_TP_ROOT)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = None
+    try:
+        mcfg = qwen.ModelConfig(**QWEN25_15B)
+        export = os.path.join(SERVE_TP_ROOT, "export")
+        m = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+        nbytes = save_params_to_hf(m, mcfg, export)
+        del m
+        torch.cuda.empty_cache()
+        port = find_free_port()
+        yaml = os.path.join(SERVE_TP_ROOT, "server.yaml")
+        with open(yaml, "w") as f:
+            f.write("dtype: bfloat16\nmax_batch_size: 32\nmax_seq_len: 2048\npage_size: 128\n"
+                    f"decode_steps_per_call: 16\nhost: 127.0.0.1\nport: {port}\nseed: 0\nprecompile: true\n"
+                    "weight_stage_target: device\n"
+                    f"preemption:\n  enabled: true\n  grace_s: 30.0\n  drain_budget_s: 5.0\n  exit_code: "
+                    f"{SERVE_TP_EXIT_CODE}\n")
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0,1", "AREAL_FLIGHT_DIR": os.path.join(SERVE_TP_ROOT, "flight"),
+               "PYTHONPATH": os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
+        server_log = os.path.join(SERVE_TP_ROOT, "server.log")
+        t0 = time.monotonic()
+        with open(server_log, "w") as logf:
+            proc = subprocess.Popen([sys.executable, "-m", "areal_tpu_torch.inference.server", "--config", yaml,
+                                     f"model_path={export}", "mesh.model=2"], cwd=repo, env=env, stdout=logf,
+                                    stderr=subprocess.STDOUT)
+        addr = f"127.0.0.1:{port}"
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"[serve_tp/loop] the CLI server exited {proc.returncode}:\n"
+                                     + open(server_log).read()[-4000:])
+            try:
+                if _http_status(addr, "/health", timeout=2)[0] == 200:
+                    break
+            except (urllib.error.URLError, ConnectionError, OSError):
+                pass
+            if time.monotonic() - t0 > 600:
+                raise AssertionError("[serve_tp/loop] the CLI server not healthy in 600 s")
+            time.sleep(0.5)
+        health_s = time.monotonic() - t0
+        mesh = _http_status(addr, "/statusz")[2]["mesh"]
+        pids = [r["pid"] for r in mesh["ranks"][1:]]
+        log(f"[serve_tp/loop] CLI server mesh.model=2 on cards 0-1 ({mesh['backend']}, devices "
+            f"{[r['device'] for r in mesh['ranks']]}) healthy {health_s:.1f} s after launch; export "
+            f"{nbytes / 1e9:.2f} GB")
+        with open(os.path.join(SERVE_TP_ROOT, "loop.json"), "w") as f:
+            json.dump({"addr": addr, "export": export}, f)
+        wenv = {**env, "CUDA_VISIBLE_DEVICES": "2,3"}
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+               os.path.abspath(__file__), "--tp-loop-worker", SERVE_TP_ROOT]
+        t_run = time.monotonic()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=900, env=wenv, start_new_session=True)
+        for line in run.stdout.splitlines():
+            log(f"[serve_tp/loop/worker] {line}")
+        if run.returncode != 0:
+            raise AssertionError(f"[serve_tp/loop] torchrun exited {run.returncode}:\n{run.stderr[-6000:]}")
+        with open(os.path.join(SERVE_TP_ROOT, "loop_out.json")) as f:
+            out = json.load(f)
+        out["torchrun_s"] = time.monotonic() - t_run
+        t_term = time.monotonic()
+        proc.send_signal(signal_mod.SIGTERM)
+        rc = proc.wait(timeout=60)
+        drain_s = time.monotonic() - t_term
+        t0 = time.monotonic()
+        while [p for p in pids if _pid_alive(p)] and time.monotonic() - t0 < 15:
+            time.sleep(0.1)
+        left = [p for p in pids if _pid_alive(p)]
+        if rc != SERVE_TP_EXIT_CODE or left:
+            raise AssertionError(f"[serve_tp/loop] SIGTERM: exit {rc} (want {SERVE_TP_EXIT_CODE}), followers left "
+                                 f"{left}:\n" + open(server_log).read()[-3000:])
+        out.update(health_s=health_s, drain_s=drain_s, rc=rc, s=time.monotonic() - t_loop)
+        log(f"[serve_tp/loop] {card}: sglang:d1t2+fsdp:d2 took {SERVE_TP_STEPS} GRPO steps over HTTP (step "
+            f"{', '.join(f'{s:.2f}' for s in out['step_s'])} s), versions trainer / server {out['versions']}; every "
+            f"server rank's slices of {len(SERVE_TP_CHECKED)} leaves equal the trainer's bf16 export; SIGTERM -> "
+            f"exit {rc} in {drain_s:.2f} s, no follower left; {out['s']:.1f} s in all")
+        return out
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(SERVE_TP_ROOT, ignore_errors=True)
+
+
+def tp_loop_worker(root: str) -> None:
+    """One rank of ``_tp_loop``'s trainer (under ``torchrun``):
+    ``PPOTrainer.train`` with ``allocation_mode="sglang:d1t2+fsdp:d2"`` from
+    the HF export, against the mesh server. Rank 0 writes
+    ``loop_out.json``: the step times, the versions, and whether the
+    server's per-rank digests of the SERVE_TP_CHECKED leaves are those of
+    the trainer's bf16 export's slices."""
+    import torch.distributed as dist
+
+    from areal_tpu_torch.api.config import DatasetConfig, InferenceEngineConfig, PPOConfig, PreemptionConfig
+    from areal_tpu_torch.api.io_struct import GenerationHyperparameters
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import tensor_digest
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    with open(os.path.join(root, "loop.json")) as f:
+        where = json.load(f)
+    rank = int(os.environ["RANK"])
+    lead = rank == 0
+    gconfig = GenerationHyperparameters(n_samples=4, max_new_tokens=128, temperature=1.0)
+    cfg = PPOConfig(experiment_name="chip-smoke", trial_name="serve_tp", allocation_mode="sglang:d1t2+fsdp:d2",
+                    weight_update_mode="mem", total_train_steps=SERVE_TP_STEPS,
+                    preemption=PreemptionConfig(enabled=False), gconfig=gconfig,
+                    train_dataset=DatasetConfig(batch_size=8), actor=_shard_actor_cfg(path=where["export"]),
+                    rollout=InferenceEngineConfig(**GRPO_CLIENT))
+    cfg.cluster.fileroot = os.path.join(root, "trainer")
+    trainer = TorchTrainEngine(cfg.actor)  # sized by allocation_mode, initialized by the loop
+    client = None
+    if lead:
+        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[where["addr"]])
+        client.initialize()
+    mcfg = qwen.ModelConfig.from_hf_path(where["export"])
+    rng = np.random.default_rng(0)
+    dataset = [{"prompt_ids": rng.integers(0, mcfg.vocab_size, int(n)).tolist()}
+               for n in rng.integers(64, 513, GRPO_PROMPTS)]
+    loop = PPOTrainer(cfg, dataset, rollout=client, actor_engine=trainer)
+    steps: list = []
+    if lead:
+        commit = loop.stats_logger.commit
+        loop.stats_logger.commit = lambda e, s, g, st: steps.append(st["step_secs"]) or commit(e, s, g, st)
+    loop.train(workflow=RLVRWorkflow(_even_share_reward, gconfig))
+    if lead:  # drain: no new submissions, the episodes in flight finish
+        client.pause()
+        deadline = time.monotonic() + 600
+        while client.executor.staleness.stat.running and time.monotonic() < deadline:
+            time.sleep(0.01)
+    params = trainer._export_params()  # every rank joins the gathers
+    if lead:
+        specs = qwen.param_partition_specs(mcfg)
+        want = [{n: tensor_digest(qwen.tp_slice(params[n].to(torch.bfloat16).cpu(), qwen.leaf_spec(specs, n), 2, r))
+                 for n in SERVE_TP_CHECKED} for r in range(2)]
+        got = _http_status(where["addr"], "/debug/weights?names=" + ",".join(SERVE_TP_CHECKED))[2]
+        server_version = _http_status(where["addr"], "/health")[2]["version"]
+        out = {"mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape)), "step_s": steps,
+               "versions": [trainer.get_version(), server_version], "slices_equal": got["ranks"] == want}
+        print(json.dumps(out), flush=True)
+        if out["versions"] != [SERVE_TP_STEPS, SERVE_TP_STEPS] or not out["slices_equal"]:
+            raise AssertionError(f"[serve_tp/loop] {out}")
+        with open(os.path.join(root, "loop_out.json"), "w") as f:
+            json.dump(out, f)
+    del params
+    loop.close()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
           "train", "grpo", "shard", "durable", "critic", "sft", "int8serve", "lora", "vlm", "kernel_tree", "train_tree", "kernel_gmm",
-          "kernel_gmm_bwd", "serve_moe", "train_moe", "entry")
+          "kernel_gmm_bwd", "serve_moe", "train_moe", "entry", "serve_tp")
 
 
 def main(argv: list[str]) -> int:
@@ -8500,6 +8993,9 @@ def main(argv: list[str]) -> int:
         argv = argv[:2]
     if argv[:1] == ["--shard-worker"] and len(argv) == 2:  # a rank of phase_shard's torchrun world
         shard_worker(argv[1])
+        return 0
+    if argv[:1] == ["--tp-loop-worker"] and len(argv) == 2:  # a rank of _tp_loop's trainer
+        tp_loop_worker(argv[1])
         return 0
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
@@ -8585,6 +9081,7 @@ def main(argv: list[str]) -> int:
         "serve_moe": lambda: phase_serve_moe(card),
         "train_moe": lambda: phase_train_moe(card),
         "entry": lambda: phase_entry(card),
+        "serve_tp": lambda: phase_serve_tp(card),
     }
     res, secs = {}, {}
     for name in PHASES:
@@ -8618,7 +9115,8 @@ def main(argv: list[str]) -> int:
                                   "durable": res["durable"]["launches1"],
                                   "critic": res["critic"]["launches1"], "int8serve": res["int8serve"]["launches1"],
                                   "lora": res["lora"]["launches1"], "vlm": res["vlm"]["launches1"],
-                                  "entry": res["entry"]["launches1"]},
+                                  "entry": res["entry"]["launches1"],
+                                  "serve_tp": [c["paged_attention"] for c in res["serve_tp"]["tp"]["launches"]]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -8671,7 +9169,10 @@ def main(argv: list[str]) -> int:
         "launches_by_phase": {"serve": chain, "spec": tree, "rollout": rollout["launches3"],
                               "lifecycle": res["lifecycle"]["launches3"], "observe": res["observe"]["launches3"],
                               "grpo": res["grpo"]["launches3"], "int8serve": res["int8serve"]["launches3"],
-                              "entry": res["entry"]["launches3"]},
+                              "entry": res["entry"]["launches3"],
+                              "serve_tp": [c["paged_suffix_attention"]["chain"] for c in res["serve_tp"]["tp"]["launches"]],
+                              "serve_tp_spec": [c["paged_suffix_attention"]["tree"]
+                                                for c in res["serve_tp"]["spec_launches"]]},
         "max_abs_err": max(d["max_abs_err"] for d in suffix.values()),
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],

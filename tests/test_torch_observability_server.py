@@ -41,16 +41,17 @@ from areal_tpu.api.config import ServerConfig as JServerConfig
 from areal_tpu.inference import decode_engine as jde
 from areal_tpu.inference.server import ServerThread as JServerThread
 from areal_tpu.parallel import mesh as mesh_lib
-from areal_tpu_torch.api.config import InferenceEngineConfig, PerfTracerConfig, ServerConfig
+from areal_tpu_torch.api.config import InferenceEngineConfig, MeshConfig, PerfTracerConfig, ServerConfig
 from areal_tpu_torch.api.io_struct import TIMING_FIELDS
 from areal_tpu_torch.inference import decode_engine as tde
 from areal_tpu_torch.inference.client import RemoteTorchEngine
 from areal_tpu_torch.inference.server import ServerThread
+from areal_tpu_torch.models import qwen as tq
 from areal_tpu_torch.observability import kernel_probe
 from areal_tpu_torch.utils import perf_tracer
 
 from test_torch_kv_parking import SERVER_KW, abort_pause, drive, jax_engine, port_engine, request, step
-from test_torch_qwen import jax_params, port_model
+from test_torch_qwen import jax_params, port_cfg, port_model
 from tpu_testing import TINY_QWEN2
 
 LATENCY_TOL_S = 5e-3
@@ -272,6 +273,11 @@ def test_metrics_statusz_and_flight_keys(servers):
     assert jkeys <= set(tstat), jkeys - set(tstat)
     assert {"timeline_stats", "kernels", "hbm"} <= jkeys
     assert tstat["kernels"]["steps"] > 0 and tstat["hbm"]["components"]["params"] > 0
+    # the serving mesh: one rank here, its bytes the ledger's and /statusz memory's
+    mesh = tstat["mesh"]
+    assert mesh["model"] == 1 and len(mesh["ranks"]) == 1
+    assert mesh["ranks"][0]["params"] == tstat["hbm"]["components"]["params"]
+    assert mesh["ranks"][0]["kv_pool"] == tstat["hbm"]["components"]["kv_page_pool"] == tstat["memory"]["kv_pool"]
     jfl = json.loads(_http(jsrv.address, "GET", "/debug/flight?timelines=1")[2])
     tfl = json.loads(_http(tsrv.address, "GET", "/debug/flight?timelines=1")[2])
     assert set(tfl) == set(jfl)
@@ -279,6 +285,42 @@ def test_metrics_statusz_and_flight_keys(servers):
     rec = tfl["timelines"][0]
     assert (rec["task_id"], rec["session_id"]) == ("t-http", "s-http")
     assert _http(tsrv.address, "GET", "/debug/flight?timelines=0")[2].count('"timelines": []') == 1
+
+
+def test_statusz_and_ledger_per_rank_on_a_mesh(weights):
+    """On ``mesh.model=2`` ``/statusz`` lists both ranks with their bytes:
+    each holds its slices of the split leaves and all of the replicated
+    ones, and its KV heads' half of a pool of the unsharded engine's page
+    count (JAX's, from the whole model's heads); the ``hbm`` ledger
+    itemizes every rank, and a staged update's slices show on each."""
+    one = port_engine(weights)
+    cfg = ServerConfig(**SERVER_KW, host="127.0.0.1", mesh=MeshConfig(model=2))
+    srv = ServerThread(cfg, engine=tde.DecodeEngine(cfg, params=port_model(TINY_QWEN2, weights), device="cpu"))
+    srv.start()
+    try:
+        assert _http(srv.address, "POST", "/generate", _gen_body([3, 4, 5, 6]))[0] == 200
+        specs = tq.param_partition_specs(port_cfg(TINY_QWEN2))
+        want = sum(p.numel() * p.element_size() // (2 if tq._axis_dim(tq.leaf_spec(specs, n), "model") is not None
+                                                    else 1) for n, p in one.model.named_parameters())
+        eng = srv.engine
+        eng.begin_staged_update()
+        eng.stage_weight_bucket({"embed": one.model.embed.detach().clone()})
+        st = json.loads(_http(srv.address, "GET", "/statusz")[2])
+        mesh = st["mesh"]
+        assert mesh["model"] == 2 and mesh["backend"] == "gloo" and [r["rank"] for r in mesh["ranks"]] == [0, 1]
+        half_embed = one.model.embed.numel() * one.model.embed.element_size() // 2
+        for r in mesh["ranks"]:
+            assert r["params"] == want and r["kv_pool"] * 2 == one.memory_bytes()["kv_pool"]
+            assert r["staged_update"] == half_embed and r["device"] == "cpu"
+        assert eng.pool.n_pages == one.pool.n_pages
+        ranks = st["hbm"]["ranks"]
+        assert len(ranks) == 2 and all(led["components"]["params"] == want for led in ranks)
+        assert st["hbm"]["components"] == ranks[0]["components"]
+        eng.abort_staged_update()
+        assert [r["staged_update"] for r in eng.mesh_status()["ranks"]] == [0, 0]
+    finally:
+        srv.stop()
+    assert srv.engine._group.closed and len(srv.engine._group.dead()) == 1
 
 
 def test_debug_profile_statuses(servers, tmp_path, monkeypatch):

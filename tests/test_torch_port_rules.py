@@ -125,13 +125,14 @@ def test_no_silent_cpu_fallback():
     "change, refused",
     [
         (dict(quantization="int8"), False),  # ported with Queue A item 4
-        (dict(mesh=MeshConfig(model=2)), True),
+        (dict(mesh=MeshConfig(seq=2)), True),  # model=N serves (item 6b-1); seq is 6b-3
     ],
     ids=["int8_weights", "mesh"],
 )
 def test_unported_options_refused(change, refused):
     """The serving options of later slices raise naming their ROADMAP item;
-    int8 weights (item 4) construct."""
+    int8 weights (item 4) construct; a ``model`` mesh constructs (item 6b-1)
+    and a ``seq`` one raises."""
     cfg = dataclasses.replace(ServerConfig(), **change)
     if refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -231,8 +231,9 @@ def _cfg(**over):
 @pytest.mark.parametrize(
     "over, error, match",
     [
-        # allocation_mode is live (item 6a); TP serving waits for 6b
-        (dict(allocation_mode="sglang:d1t2+fsdp:d1"), NotImplementedError, "item 6"),
+        # allocation_mode is live (item 6a), TP serving too (6b-1); a gen
+        # half's sequence parallelism waits for 6b
+        (dict(allocation_mode="sglang:d1c2+fsdp:d1"), NotImplementedError, "item 6"),
         (dict(cluster=tc.ClusterSpecConfig(name_resolve=tc.NameResolveConfig(type="nfs"))), NotImplementedError,
          "item 8"),
         # the q8 wire is ported (item 4); to a fleet that is not int8 it is
