@@ -46,13 +46,13 @@ class MeshConfig:
     """Device-mesh axis sizes (``areal_tpu/api/config.py`` ``MeshConfig``,
     the axes of ``parallel/mesh.py``). The train engine lays a
     ``torch.distributed`` world out by them: ``data`` replicates, ``fsdp``
-    shards (FSDP2) and ``model`` is tensor parallelism; the one axis at -1
-    absorbs the world (by default ``data``, so a world of N is N replicas).
-    ``seq``, ``expert`` and ``pipe`` above 1 are refused (ROADMAP Queue A
-    item 6b). The decode engine serves on ``model`` alone (tensor
-    parallelism over N cards, one process each; ``data=-1`` resolves to 1
-    there): ``data`` or ``fsdp`` above 1 on a server is a fleet of servers
-    (item 8), ``seq``, ``expert`` and ``pipe`` items 6b-3, 6b-2 and 6b-4."""
+    shards (FSDP2), ``model`` is tensor parallelism and ``expert`` splits an
+    MoE model's experts; the one axis at -1 absorbs the world (by default
+    ``data``, so a world of N is N replicas). ``seq`` and ``pipe`` above 1
+    are refused (ROADMAP Queue A items 6b-3 and 6b-4). The decode engine
+    serves on ``model`` x ``expert`` (one process a card; ``data=-1``
+    resolves to 1 there): ``data`` or ``fsdp`` above 1 on a server is a
+    fleet of servers (item 8), ``seq`` and ``pipe`` items 6b-3 and 6b-4."""
 
     data: int = -1
     fsdp: int = 1

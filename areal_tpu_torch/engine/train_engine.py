@@ -121,8 +121,13 @@ What is kept from the JAX engine:
   ``torch.distributed`` is up (``torchrun``, ``parallel/mesh.py
   init_distributed``) the engine lays the world out as ``config.mesh`` and
   places the model by ``qwen.shard_model`` (FSDP2 over data x fsdp, tensor
-  parallelism over ``model``), whatever the world's size: a world of one
-  runs the same code. ``train_batch`` / ``forward_batch`` keep JAX's
+  parallelism over ``model``, an MoE model's experts split over
+  ``expert``), whatever the world's size: a world of one runs the same
+  code. The ranks of an ``expert`` group hold the same rows and run the
+  same attention; each computes its experts' share of every MoE FFN,
+  summed over the group (``models/moe.py``), and the router aux loss in
+  ``outputs["moe_aux"]`` is counted once a grid (JAX's mean over the row
+  blocks). ``train_batch`` / ``forward_batch`` keep JAX's
   contract: every rank gets the same global batch and packs the same
   grids, their rows rounded up to the data-parallel degree, and each rank
   computes its block of rows of each grid (``mesh.dp_rank``). A
@@ -132,7 +137,7 @@ What is kept from the JAX engine:
   blocks by the same weights, and ``forward_batch`` returns every row in
   global order on every rank. AdamW steps on each rank's shards, its
   global norm summed over the mesh (the leaves replicated over ``model``
-  counted once). ``update_weights`` gathers the weights on every rank and
+  or ``expert`` counted once). ``update_weights`` gathers the weights on every rank and
   rank 0 alone streams them; ``save`` gathers and rank 0 writes the files
   the unsharded engine writes (byte for byte), and ``load`` reads them on
   every rank and keeps the rank's shards, so a trainer resumes on another
@@ -141,12 +146,12 @@ What is kept from the JAX engine:
   ``infra/dist_rollout.DistRolloutCoordinator``: rank 0 pulls and every
   rank gets the global batch.
 
-Not ported (``NotImplementedError`` naming ROADMAP Queue A item 6b): the
-``seq``, ``expert`` and ``pipe`` axes above 1, on a mesh tree training,
-LoRA, a vision tower and MoE models, and the M2PO loss
-(``use_m2po_loss``) over data x fsdp above 1: its mask drops the whole
-grid's largest squared logp gaps and its token mean divides by the whole
-grid's surviving tokens, neither of which a block of rows sees.
+Not ported (``NotImplementedError`` naming its ROADMAP Queue A item): the
+``seq`` and ``pipe`` axes above 1 (6b-3, 6b-4), on a mesh tree training,
+LoRA and a vision tower (6b-2b), and the M2PO loss (``use_m2po_loss``)
+over data x fsdp above 1 (6b): its mask drops the whole grid's largest
+squared logp gaps and its token mean divides by the whole grid's
+surviving tokens, neither of which a block of rows sees.
 """
 
 from __future__ import annotations
@@ -397,10 +402,10 @@ class TorchTrainEngine(TrainEngine):
         if cfg.tree_training and value_head:
             raise ValueError("tree training is a policy-only path, as in the JAX engine: no value head")
         m = cfg.mesh
-        if max(m.seq, m.expert, m.pipe) > 1:
+        if max(m.seq, m.pipe) > 1:
             raise NotImplementedError(
-                f"mesh seq={m.seq} expert={m.expert} pipe={m.pipe}: sequence, expert and pipeline parallelism are "
-                "ROADMAP Queue A item 6b")
+                f"mesh seq={m.seq} pipe={m.pipe}: sequence and pipeline parallelism are ROADMAP Queue A items 6b-3 "
+                "and 6b-4")
         if cfg.weight_update_mode not in ("disk", "mem"):
             raise ValueError(f"weight_update_mode={cfg.weight_update_mode!r}; valid: disk|mem")
         if cfg.optimizer.type != "adamw":
@@ -440,15 +445,16 @@ class TorchTrainEngine(TrainEngine):
                 raise ValueError("train_vision_tower with LoRA is unsupported: LoRA freezes every non-adapter leaf")
         if mesh_lib.init_distributed(self.device):
             self.mesh = mesh_lib.make_mesh(cfg.mesh, self.device)
-            if cfg.tree_training or master_cfg.lora_rank > 0 or master_cfg.vision is not None or master_cfg.num_experts:
-                raise NotImplementedError("tree training, LoRA, vision and MoE models on a mesh: ROADMAP Queue A "
-                                          "item 6b")
+            if cfg.tree_training or master_cfg.lora_rank > 0 or master_cfg.vision is not None:
+                raise NotImplementedError("tree training, LoRA and vision models on a mesh: ROADMAP Queue A item "
+                                          "6b-2b")
             if getattr(cfg, "use_m2po_loss", False) and mesh_lib.dp_size(self.mesh) > 1:
                 # M2PO's mask and its token count are the whole grid's; a
                 # rank computes one block of its rows
                 raise NotImplementedError(f"use_m2po_loss over {mesh_lib.dp_size(self.mesh)} data-parallel ranks: "
                                           "ROADMAP Queue A item 6b")
-            self._local_cfg = qwen.local_config(self.model_cfg, mesh_lib.axis_size(self.mesh, "model"))
+            self._local_cfg = qwen.local_config(self.model_cfg, mesh_lib.axis_size(self.mesh, "model"),
+                                                mesh_lib.ep_size(self.mesh))
         else:
             mesh_lib.mesh_sizes(cfg.mesh, 1)  # a mesh of more devices than this process raises: no fallback
         if cfg.init_from_scratch or not cfg.path:
@@ -942,17 +948,20 @@ class TorchTrainEngine(TrainEngine):
 
     def _grad_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """The global gradient norm; on a mesh, each leaf's sum of squares
-        over the rank's shard, summed over fsdp x model, a leaf replicated
-        over ``model`` counted on its rank 0 only (the squares in the
-        unsharded engine's order, so a world of one gives its bits)."""
+        over the rank's shard, summed over fsdp x model x expert, a leaf
+        replicated over ``model`` or ``expert`` counted on that axis's rank
+        0 only (the squares in the unsharded engine's order, so a world of
+        one gives its bits)."""
         if self.mesh is None:
             return _OptaxAdamW.global_norm(grads)
         sq = torch.stack([torch.dot(g.reshape(-1).float(), g.reshape(-1).float()) for g in grads])
-        tp = self.model.tp
-        if tp.size > 1 and tp.rank > 0:
-            split = [qwen.tp_dim(self.model_cfg, n) is not None for n in self._train_names]
-            sq = sq * torch.tensor(split, dtype=sq.dtype, device=sq.device)
-        mesh_lib.all_reduce(sq, self.mesh, ("fsdp", "model"))
+        tp, ep = self.model.tp, self.model.ep
+        if tp.rank > 0 or ep.rank > 0:
+            keep = [(tp.rank == 0 or qwen.mesh_dim(self.model_cfg, n, "model") is not None)
+                    and (ep.rank == 0 or qwen.mesh_dim(self.model_cfg, n, "expert") is not None)
+                    for n in self._train_names]
+            sq = sq * torch.tensor(keep, dtype=sq.dtype, device=sq.device)
+        mesh_lib.all_reduce(sq, self.mesh, ("fsdp", "model", "expert"))
         return sq.sum().sqrt()
 
     def _collect_seq_stats(self, pairs: list[tuple[Grid, dict[str, np.ndarray]]], n_input: int) -> None:
@@ -1190,7 +1199,8 @@ class TorchTrainEngine(TrainEngine):
         """The whole leaf ``name`` from this rank's part ``t``: the
         parameter itself (a DTensor) or a tensor laid out as its local
         shard (an AdamW moment). FSDP2's all-gather over fsdp, then the
-        ``model`` blocks concatenated along the leaf's TP dim."""
+        ``model`` blocks concatenated along the leaf's TP dim and the
+        ``expert`` blocks along its expert dim."""
         from torch.distributed.tensor import DTensor
 
         p = self.model.get_parameter(name)
@@ -1198,11 +1208,12 @@ class TorchTrainEngine(TrainEngine):
             if not isinstance(t, DTensor):
                 t = DTensor.from_local(t, p.device_mesh, p.placements, shape=p.shape, stride=p.stride())
             full = t.full_tensor()
-            tp, d = self.model.tp, qwen.tp_dim(self.model_cfg, name)
-            if tp.size > 1 and d is not None:
-                parts = [torch.empty_like(full) for _ in range(tp.size)]
-                torch.distributed.all_gather(parts, full.contiguous(), group=tp.group)
-                full = torch.cat(parts, dim=d)
+            for info, axis in ((self.model.tp, "model"), (self.model.ep, "expert")):
+                d = qwen.mesh_dim(self.model_cfg, name, axis)
+                if info.size > 1 and d is not None:
+                    parts = [torch.empty_like(full) for _ in range(info.size)]
+                    torch.distributed.all_gather(parts, full.contiguous(), group=info.group)
+                    full = torch.cat(parts, dim=d)
         return full
 
     def _gather(self, leaves: dict[str, torch.Tensor], out=None, dtype=None) -> dict[str, torch.Tensor]:
@@ -1220,21 +1231,23 @@ class TorchTrainEngine(TrainEngine):
 
     def _shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's part of a whole leaf (the inverse of ``_full_leaf``):
-        its ``model`` block, then its FSDP2 shard, without communication."""
+        its ``model`` and ``expert`` block (``qwen.tp_slice``), then its
+        FSDP2 shard, without communication."""
         from torch.distributed.tensor import distribute_tensor
 
         p = self.model.get_parameter(name)
-        tp, d = self.model.tp, qwen.tp_dim(self.model_cfg, name)
-        if tp.size > 1 and d is not None:
-            full = full.chunk(tp.size, dim=d)[tp.rank]
+        tp, ep = self.model.tp, self.model.ep
+        full = qwen.tp_slice(full, qwen.leaf_spec(qwen.param_partition_specs(self.model_cfg), name), tp.size, tp.rank,
+                             ep.size, ep.rank)
         full = full.to(device=self.device, dtype=p.dtype).contiguous()
         return distribute_tensor(full, p.device_mesh, p.placements, src_data_rank=None).to_local()
 
     def _full_shape(self, name: str) -> list[int]:
         shape = list(self.model.get_parameter(name).shape)
-        d = qwen.tp_dim(self.model_cfg, name)
-        if d is not None:
-            shape[d] *= self.model.tp.size
+        for info, axis in ((self.model.tp, "model"), (self.model.ep, "expert")):
+            d = qwen.mesh_dim(self.model_cfg, name, axis)
+            if d is not None:
+                shape[d] *= info.size
         return shape
 
     def _lora_leaves(self) -> dict[str, torch.Tensor]:

@@ -126,13 +126,16 @@ The shape of the JAX engine is kept:
   too); a finished one still publishes its pages, as in JAX (ROADMAP Queue
   C, C-ref 8).
 
-- Serving on a ``model=N`` mesh (``ServerConfig.mesh``, tensor
-  parallelism; ``decode_engine.py:351-420``, ``:567-590``): ``initialize``
-  spawns N-1 follower processes (``parallel/serving_group.py``), one card
-  each, that build the same engine on their shards. Each rank holds its
-  slices of the weights by ``qwen.param_partition_specs`` (int8:
-  ``qwen.quant_partition_specs``), computes with ``qwen.local_config``'s
-  heads, and keeps its KV heads' pages (KH/N); the page count is JAX's,
+- Serving on a ``model=m x expert=e`` mesh (``ServerConfig.mesh``, tensor
+  and expert parallelism; ``decode_engine.py:351-420``, ``:567-590``):
+  ``initialize`` spawns m·e-1 follower processes
+  (``parallel/serving_group.py``), one card each, that build the same
+  engine on their shards. Each rank holds its slices of the weights by
+  ``qwen.param_partition_specs`` (int8: ``qwen.quant_partition_specs``; the
+  expert stacks stay bf16), computes with ``qwen.local_config``'s heads
+  and experts (E / e of them, FFN columns over ``model``), and keeps its
+  KV heads' pages (KH/m; the ranks of one expert group hold the same
+  heads and run the same attention, as JAX's); the page count is JAX's,
   from the global KV heads. Kernels #1 and #3 run on every rank's heads.
   The lead's decode thread is the only issuer of device work: every device
   operation (``_op_*``) goes to the followers with its host inputs before
@@ -144,7 +147,7 @@ The shape of the JAX engine is kept:
   updates arrive whole at the lead, which hands each follower its slices
   (``qwen.tp_slice``); a staged bucket's slices stage on every rank off
   the decode stream, and the commit is one operation of the decode thread.
-  MoE, vision and LoRA on a mesh are ROADMAP Queue A item 6b-2; a ``model``
+  Vision and LoRA on a mesh are ROADMAP Queue A item 6b-2b; a ``model``
   size that does not divide the heads, the KV heads, the FFN or the
   vocabulary, item 6b; the other axes above 1, their items
   (``_check_supported``).
@@ -390,7 +393,8 @@ def _checked_sources(specs: dict, params, exact_dtype: bool = False) -> dict[str
 
 class DecodeEngine:
     """Continuous-batching generation over one model replica, on one device
-    or, under ``mesh.model=N``, as the lead of N processes with a card each."""
+    or, under ``mesh.model`` x ``mesh.expert`` = N, as the lead of N
+    processes with a card each."""
 
     def __init__(
         self,
@@ -429,6 +433,11 @@ class DecodeEngine:
         self._pending_weight_update: tuple | None = None
         self._weight_update_error: Exception | None = None
         self._weight_lock = threading.Lock()
+        # a follower's launch counts as of a "launch_fence" operation
+        # (``rank_launches``): (fence number, counts)
+        self._fence: tuple[int, dict] = (0, {})
+        self._fence_cv = threading.Condition()
+        self._fence_seq = 0
         self._thread: threading.Thread | None = None
         self._loop_error: BaseException | None = None
         self.initialized = False
@@ -507,6 +516,7 @@ class DecodeEngine:
         # the model axis, the shapes it computes with, the served structure
         # of the whole model, and the whole leaves staged so far (meta)
         self._group: sg.ServingGroup | None = None
+        self._rank = 0
         self._tp: tp_lib.TPInfo | None = None
         self.local_cfg: qwen.ModelConfig | None = None
         self._served_specs: dict | None = None
@@ -523,16 +533,17 @@ class DecodeEngine:
             raise ValueError(f"unknown quantization {cfg.quantization!r}")
         m = cfg.mesh
         items = {"data": "8 (a fleet of servers)", "fsdp": "8 (a fleet of servers)", "seq": "6b-3",
-                 "expert": "6b-2", "pipe": "6b-4"}
+                 "pipe": "6b-4"}
         for axis, item in items.items():
             size = getattr(m, axis)
             if size > 1:
-                raise NotImplementedError(f"mesh.{axis}={size} on a server: only the model axis (tensor "
-                                          f"parallelism) serves on a mesh; ROADMAP Queue A item {item}")
+                raise NotImplementedError(f"mesh.{axis}={size} on a server: only the model and expert axes serve "
+                                          f"on a mesh; ROADMAP Queue A item {item}")
             if size < 1 and not (axis == "data" and size == -1):  # data=-1 resolves to 1 on a server
                 raise ValueError(f"mesh.{axis}={size}")
-        if m.model < 1:
-            raise ValueError(f"mesh.model={m.model}")
+        for axis in ("model", "expert"):
+            if getattr(m, axis) < 1:
+                raise ValueError(f"mesh.{axis}={getattr(m, axis)}")
         if cfg.kv_quantization not in (None, "", "none", "int8", "fp8"):
             raise ValueError(f"unknown kv_quantization {cfg.kv_quantization!r}")
         if cfg.weight_stage_target not in ("device", "host"):
@@ -541,24 +552,24 @@ class DecodeEngine:
     # -- lifecycle --------------------------------------------------------
     def initialize(self) -> None:
         cfg = self.config
-        tp = cfg.mesh.model
+        n = cfg.mesh.model * cfg.mesh.expert  # the serving group's ranks
         if self.params is None:
             if not cfg.model_path:
                 raise ValueError("ServerConfig.model_path or params is required")
             t0 = time.monotonic()
             mcfg = qwen.ModelConfig.from_hf_path(cfg.model_path)
             mcfg = replace(mcfg, dtype=cfg.dtype, remat=False)
-            if tp > 1:
+            if n > 1:
                 self._check_mesh_model(mcfg)
             # a mesh's lead reads the whole checkpoint into host memory and
             # places each rank's slices from there
-            where = self.device if tp == 1 else torch.device("cpu")
+            where = self.device if n == 1 else torch.device("cpu")
             self.model, self.model_cfg = load_params_from_hf(cfg.model_path, mcfg, device=where)
             logger.info(f"loaded {cfg.model_path} in {time.monotonic() - t0:.1f}s")
-        elif isinstance(self.params, qwen.QwenModel) and self.params.device == self.device and tp == 1:
+        elif isinstance(self.params, qwen.QwenModel) and self.params.device == self.device and n == 1:
             self.model = self.params
             self.model_cfg = self.model.cfg
-        elif tp == 1:
+        elif n == 1:
             if self.model_cfg is None:
                 raise ValueError("model_cfg is required with a state dict")
             self.model = qwen.QwenModel(self.model_cfg, self.device)
@@ -571,7 +582,7 @@ class DecodeEngine:
             self.model = self.params
         self.params = None  # the engine serves self.model; no second copy
         seed = cfg.seed if cfg.seed is not None else time.time_ns() % (2**31)
-        if tp > 1:
+        if n > 1:
             self._init_mesh(self.model, int(seed))
         else:
             if self.device.type == "cuda":
@@ -589,10 +600,10 @@ class DecodeEngine:
             self._drafter = spec_mod.build_drafter(cfg.speculative, radix=self._radix)
         # init-time: on the CPU the probe measures the host's peaks once; on
         # a mesh its roofline is the ranks' summed peaks
-        self.kprobe = kernel_probe.KernelProbe(model_cfg=self.model_cfg, n_chips=tp, device=self.device)
+        self.kprobe = kernel_probe.KernelProbe(model_cfg=self.model_cfg, n_chips=n, device=self.device)
         self.initialized = True
         logger.info(
-            f"decode engine ready on {self.device}{f' (+{tp - 1} followers)' if tp > 1 else ''}: "
+            f"decode engine ready on {self.device}{f' (+{n - 1} followers)' if n > 1 else ''}: "
             f"{cfg.max_batch_size} slots x {cfg.max_seq_len} ctx, {self.pool.n_pages} KV pages x {cfg.page_size} tokens"
         )
 
@@ -637,8 +648,8 @@ class DecodeEngine:
     # -- serving on a mesh --------------------------------------------------
     @staticmethod
     def _check_mesh_model(mcfg: qwen.ModelConfig) -> None:
-        if mcfg.num_experts or mcfg.vision is not None or mcfg.lora_rank:
-            raise NotImplementedError("MoE, vision and LoRA models on a serving mesh: ROADMAP Queue A item 6b-2")
+        if mcfg.vision is not None or mcfg.lora_rank:
+            raise NotImplementedError("vision and LoRA models on a serving mesh: ROADMAP Queue A item 6b-2b")
 
     def _init_mesh(self, full, seed: int) -> None:
         """The lead's placement: check the whole model (``full``, a
@@ -646,9 +657,9 @@ class DecodeEngine:
         (``_rank_slices``), spawn the followers with theirs, and serve this
         rank's as a local model of ``qwen.local_config``'s shapes."""
         cfg, mcfg = self.config, self.model_cfg
-        m = cfg.mesh.model
+        m, e = cfg.mesh.model, cfg.mesh.expert
         self._check_mesh_model(mcfg)
-        self.local_cfg = qwen.local_config(mcfg, m)  # raises for uneven tensor parallelism
+        self.local_cfg = qwen.local_config(mcfg, m, e)  # raises for uneven tensor or expert parallelism
         lc = self.local_cfg
         if self.device.type == "cuda":
             pa_ops.check_heads(lc.num_heads, lc.num_kv_heads, lc.head_dim_, cfg.page_size)
@@ -667,41 +678,47 @@ class DecodeEngine:
         parts = self._rank_slices(_checked_sources(self._base_specs, full), own_device=self.device)
         del full
         self.model = None
-        payloads = [sg.dumps({"config": cfg, "model_cfg": mcfg, "seed": seed, "state": parts[r]}) for r in range(1, m)]
+        n = m * e
+        payloads = [sg.dumps({"config": cfg, "model_cfg": mcfg, "seed": seed, "state": parts[r]}) for r in range(1, n)]
         del parts[1:]
-        self._group = sg.ServingGroup(m, self.device)
+        self._group = sg.ServingGroup(n, self.device, expert=e)
         self._group.start(payloads)
         del payloads
-        self._serve_slices(parts[0], tp_lib.TPInfo(group=self._group.pg, rank=0, size=m, vocab_start=0))
+        self._serve_slices(parts[0], self._group.groups, 0)
 
-    def _serve_slices(self, state: dict[str, torch.Tensor], tp: tp_lib.TPInfo) -> None:
-        """This rank's model: ``local_cfg``'s shapes (int8-served when
-        quantized), filled from its served-form slices, on the model axis."""
+    def _serve_slices(self, state: dict[str, torch.Tensor], groups: dict, rank: int) -> None:
+        """Serving rank ``rank``'s model: ``local_cfg``'s shapes (int8-served
+        when quantized), filled from its served-form slices, on the model
+        and expert axes (``groups``, ``serving_group.make_group``)."""
+        m, e = self.config.mesh.model, self.config.mesh.expert
+        tr, er = sg.coords(rank, e)
+        tp = tp_lib.TPInfo(group=groups["model"], rank=tr, size=m, vocab_start=tr * self.local_cfg.vocab_size)
+        ep = tp_lib.EPInfo(group=groups["expert"], rank=er, size=e)
         model = qwen.QwenModel(self.local_cfg, self.device)
         if self._quantized:
             qwen.quantize_model_int8(model)  # the served structure; every leaf is overwritten
         load_params(model, state)
-        model.tp = tp
+        model.tp, model.ep = tp, ep
         for layer in model.layers:
-            layer.tp = tp
-        self.model, self._tp = model, tp
+            layer.tp, layer.ep = tp, ep
+        self.model, self._tp, self._rank = model, tp, rank
 
     @classmethod
-    def as_follower(cls, payload: dict, pg, rank: int, size: int, device) -> "DecodeEngine":
+    def as_follower(cls, payload: dict, groups: dict, rank: int, size: int, device) -> "DecodeEngine":
         """Follower ``rank``'s engine (``serving_group.follower_main``): the
         lead's configuration, its slices of the weights and the lead's seed;
         it runs the operations the lead sends and never its own loop."""
         eng = cls(payload["config"], model_cfg=payload["model_cfg"], device=device)
-        eng.local_cfg = qwen.local_config(eng.model_cfg, size)
-        tp = tp_lib.TPInfo(group=pg, rank=rank, size=size, vocab_start=rank * eng.local_cfg.vocab_size)
-        eng._serve_slices(payload["state"], tp)
+        mesh = eng.config.mesh
+        eng.local_cfg = qwen.local_config(eng.model_cfg, mesh.model, mesh.expert)
+        eng._serve_slices(payload["state"], groups, rank)
         eng._init_serving_state(payload["seed"])
         eng.initialized = True
         return eng
 
     def _rank_slices(self, srcs: dict[str, torch.Tensor], own_device=None) -> list[dict[str, torch.Tensor]]:
         """Whole leaves (base-named or the int8 serving form's) -> every
-        rank's served-form slices (``qwen.tp_slice`` by
+        rank's served-form slices (``qwen.tp_slice`` over model and expert by
         ``param_partition_specs``, or ``quant_partition_specs`` on an int8
         engine, where a base-named projection is quantized whole on this
         card first: a row-parallel scale is the max over the whole input).
@@ -710,9 +727,9 @@ class DecodeEngine:
         with ``own_device`` contiguous copies cut there from the whole leaf
         moved in one piece (a row-parallel slice of a host leaf is strided:
         one contiguous upload, then a copy on the card)."""
-        mcfg, m = self.model_cfg, self.config.mesh.model
+        mcfg, m, e = self.model_cfg, self.config.mesh.model, self.config.mesh.expert
         specs = qwen.quant_partition_specs(mcfg) if self._quantized else qwen.param_partition_specs(mcfg)
-        out: list[dict[str, torch.Tensor]] = [{} for _ in range(m)]
+        out: list[dict[str, torch.Tensor]] = [{} for _ in range(m * e)]
         for name, src in srcs.items():
             leaf = name.rsplit(".", 1)[-1]
             if self._quantized and name.startswith("layers.") and leaf in qwen.QUANT_TARGETS:
@@ -724,13 +741,14 @@ class DecodeEngine:
                 leaves = {name: src.to(mcfg.torch_dtype)}
             for n, t in leaves.items():
                 spec = qwen.leaf_spec(specs, n)
-                for r in range(1, m):
-                    out[r][n] = qwen.tp_slice(t.detach(), spec, m, r).cpu().clone()
+                for r in range(1, m * e):
+                    tr, er = sg.coords(r, e)
+                    out[r][n] = qwen.tp_slice(t.detach(), spec, m, tr, e, er).cpu().clone()
                 if own_device is None:
-                    out[0][n] = qwen.tp_slice(t.detach(), spec, m, 0)
+                    out[0][n] = qwen.tp_slice(t.detach(), spec, m, 0, e, 0)
                 else:
                     whole = t.detach().to(own_device, non_blocking=True)
-                    out[0][n] = qwen.tp_slice(whole, spec, m, 0).contiguous()
+                    out[0][n] = qwen.tp_slice(whole, spec, m, 0, e, 0).contiguous()
         return out
 
     def _dev(self, op: str, *args):
@@ -744,7 +762,9 @@ class DecodeEngine:
     def rank_summary(self) -> dict:
         """This rank's place and device bytes (``/statusz`` ``mesh``)."""
         return {
-            "rank": self._tp.rank if self._tp is not None else 0,
+            "rank": self._rank,
+            "model_rank": self._tp.rank if self._tp is not None else 0,
+            "expert_rank": self.model.ep.rank if self.model is not None and self.model.ep is not None else 0,
             "device": str(self.device),
             "pid": os.getpid(),
             "params": hw.tree_bytes(self.model) if not self._offloaded else 0,
@@ -762,23 +782,45 @@ class DecodeEngine:
         backend, and every rank's device and bytes (``rank_summary``; a
         follower answers on its side channel)."""
         if self._group is None:
-            return {"model": 1, "ranks": [self.rank_summary()] if self.initialized else []}
+            return {"model": 1, "expert": 1, "ranks": [self.rank_summary()] if self.initialized else []}
         return {
-            "model": self._group.size,
+            "model": self.config.mesh.model,
+            "expert": self.config.mesh.expert,
             "backend": self._group.backend,
             "ranks": [self.rank_summary(), *self._group.ask("summary")],
         }
 
     def rank_launches(self) -> list[dict]:
-        """Kernel #1's and #3's launch counts in every rank's process (rank
-        0 first); the wrappers count launches on the card only."""
+        """Kernel #1's, #3's and the grouped matmul's launch counts in every
+        rank's process (rank 0 first); the wrappers count launches on the
+        card only. A follower reads its counts in the order of its
+        operations: a "launch_fence" operation, sent after every operation
+        the lead has issued, records them, and the side channel returns
+        that record once the follower has run it."""
         own = self._aux_launches()
-        return [own] if self._group is None else [own, *self._group.ask("launches")]
+        if self._group is None:
+            return [own]
+        self._fence_seq += 1
+        self._group.send("launch_fence", self._fence_seq)
+        return [own, *self._group.ask("fenced_launches", [(self._fence_seq,)] * (self._group.size - 1))]
 
     def reset_rank_launches(self) -> None:
-        self._aux_reset_launches()
-        if self._group is not None:
-            self._group.ask("reset_launches")
+        """Every rank's counts to 0, each after the operations issued
+        before it (an operation like any other)."""
+        self._dev("reset_launches")
+
+    @staticmethod
+    def _op_reset_launches() -> None:
+        pa_ops.paged_attention_stacked.launches = 0
+        gmm_ops.gmm.launches = 0
+        counts = psa_ops.paged_suffix_attention.launches
+        for k in counts:
+            counts[k] = 0
+
+    def _op_launch_fence(self, seq: int) -> None:
+        with self._fence_cv:
+            self._fence = (seq, self._aux_launches())
+            self._fence_cv.notify_all()
 
     # -- a follower's side channel (serving_group._aux_loop) ------------------
     def _aux_summary(self) -> dict:
@@ -789,18 +831,21 @@ class DecodeEngine:
 
     @staticmethod
     def _aux_launches() -> dict:
-        """#1's launches and #3's by kind ("chain", "tree") in this process."""
+        """#1's launches, #3's by kind ("chain", "tree") and the grouped
+        matmul's (an MoE model's) in this process."""
         return {
             "paged_attention": pa_ops.paged_attention_stacked.launches,
             "paged_suffix_attention": dict(psa_ops.paged_suffix_attention.launches),
+            "gmm": gmm_ops.gmm.launches,
         }
 
-    @staticmethod
-    def _aux_reset_launches() -> None:
-        pa_ops.paged_attention_stacked.launches = 0
-        counts = psa_ops.paged_suffix_attention.launches
-        for k in counts:
-            counts[k] = 0
+    def _aux_fenced_launches(self, seq: int, timeout: float = 600.0) -> dict:
+        """The counts the "launch_fence" numbered ``seq`` recorded, once
+        this follower's operations have reached it."""
+        with self._fence_cv:
+            if not self._fence_cv.wait_for(lambda: self._fence[0] >= seq, timeout):
+                raise RuntimeError(f"launch fence {seq} not reached in {timeout} s (at {self._fence[0]})")
+            return self._fence[1]
 
     def _aux_stage(self, layout: list, target: str) -> float:
         """Stage this rank's slices of one bucket (off the decode stream):
@@ -1400,8 +1445,8 @@ class DecodeEngine:
         adapter-free base; a fold after a full update, on an int8 engine or
         for an unknown target raises and changes no weight. Blocks until
         applied."""
-        if self.config.mesh.model > 1:
-            raise NotImplementedError("LoRA updates on a serving mesh: ROADMAP Queue A item 6b-2")
+        if self.config.mesh.model * self.config.mesh.expert > 1:
+            raise NotImplementedError("LoRA updates on a serving mesh: ROADMAP Queue A item 6b-2b")
         self._run_weight_update(("lora", (flat, float(scale))), version)
 
     def _apply_lora_delta(self, flat: dict, scale: float) -> None:

@@ -27,8 +27,10 @@ and runs ``forward`` on ``ParamView(model, compute_dtype)``, a differentiable
 cast of them (``_outputs_fn`` of the JAX engine).
 
 Across GPUs (``shard_model``): each leaf is placed by
-``param_partition_specs`` — its ``model`` dim sliced to the rank's part
-(tensor parallelism on local tensors, ``parallel/tensor_parallel.py``) and
+``param_partition_specs`` — its ``model`` and ``expert`` dims sliced to the
+rank's part (tensor parallelism on local tensors,
+``parallel/tensor_parallel.py``; an MoE model's experts over ``expert``,
+``models/moe.py``) and
 its ``fsdp`` dim sharded by FSDP2 ``fully_shard`` per ``DecoderLayer`` and
 at the root, replicated over ``data``. The decoder then runs inside the
 root's call (``QwenModel.forward``) on a ``ShardedView``, and each layer
@@ -204,8 +206,11 @@ def _layer_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         "post_attn_norm": (D,),
     }
     if cfg.num_experts > 0:
+        # a rank's config (``local_config``) holds its own experts and the
+        # router's columns for all of them
         E, Fm = cfg.num_experts, cfg.moe_intermediate_size or Fd
-        shapes.update(w_router=(D, E), we_gate=(E, D, Fm), we_up=(E, D, Fm), we_down=(E, Fm, D))
+        shapes.update(w_router=(D, getattr(cfg, "router_experts", 0) or E), we_gate=(E, D, Fm), we_up=(E, D, Fm),
+                      we_down=(E, Fm, D))
     else:
         shapes.update(w_gate=(Fd, D), w_up=(Fd, D), w_down=(D, Fd))
     if cfg.attention_bias:
@@ -294,6 +299,7 @@ class DecoderLayer(nn.Module):
     block of a layer placed by ``shard_model``."""
 
     tp: tp_lib.TPInfo | None = None  # set by shard_model
+    ep: tp_lib.EPInfo | None = None
 
     def __init__(self, cfg: ModelConfig, device: torch.device, dtype: torch.dtype):
         super().__init__()
@@ -312,7 +318,8 @@ class DecoderLayer(nn.Module):
         recompute casts again from the leaves gathered for the backward."""
 
         def body(x):
-            view = SimpleNamespace(**{n: p.to(cfg.torch_dtype) for n, p in self.named_parameters()}, tp=self.tp)
+            view = SimpleNamespace(**{n: p.to(cfg.torch_dtype) for n, p in self.named_parameters()}, tp=self.tp,
+                                   ep=self.ep)
             return _decoder_layer(cfg, view, x, mask, rope, impl, no_grad, with_aux)
 
         if recompute:
@@ -328,6 +335,7 @@ class QwenModel(nn.Module):
     ``device="cpu"``); fill them with ``init_params`` or ``load_state_dict``."""
 
     tp: tp_lib.TPInfo | None = None  # set by shard_model
+    ep: tp_lib.EPInfo | None = None
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -472,18 +480,20 @@ def quantize_model_int8(model: QwenModel) -> None:
 def param_partition_specs(cfg: ModelConfig) -> dict[str, tuple]:
     """The mesh axis of each dim of each leaf, by leaf name (a layer's
     leaves without the layer index): ``areal_tpu/models/qwen.py:382``'s
-    ``param_partition_specs`` for the dense decoder in the port's layout.
-    The projections are ``[out, in]``, so JAX's ``(fsdp, model)`` of a
-    column-parallel ``[in, out]`` leaf is ``("model", "fsdp")`` here and a
-    row-parallel leaf's ``(model, fsdp)`` is ``("fsdp", "model")``. The
-    vocabulary of embed / lm_head splits over both axes, in contiguous
-    ``model`` blocks each sharded over ``fsdp`` (JAX orders the blocks
-    fsdp-major). The norms and a value head are ``None`` (replicated) in
-    JAX; FSDP2 shards every leaf it manages, so they shard over ``fsdp``
-    along dim 0. LoRA adapters, MoE experts and a vision tower are
-    ROADMAP Queue A item 6b."""
-    if cfg.lora_rank > 0 or cfg.num_experts > 0 or cfg.vision is not None:
-        raise NotImplementedError("LoRA, MoE and vision leaves on a mesh: ROADMAP Queue A item 6b")
+    ``param_partition_specs`` in the port's layout. The projections are
+    ``[out, in]``, so JAX's ``(fsdp, model)`` of a column-parallel ``[in,
+    out]`` leaf is ``("model", "fsdp")`` here and a row-parallel leaf's
+    ``(model, fsdp)`` is ``("fsdp", "model")``. The expert stacks keep JAX's
+    layout and spec: ``we_gate`` / ``we_up`` [E, D, F] ``("expert", "fsdp",
+    "model")``, ``we_down`` [E, F, D] ``("expert", "model", "fsdp")``; the
+    router is replicated. The vocabulary of embed / lm_head splits over both
+    axes, in contiguous ``model`` blocks each sharded over ``fsdp`` (JAX
+    orders the blocks fsdp-major). The norms, the router and a value head
+    are ``None`` (replicated) in JAX; FSDP2 shards every leaf it manages, so
+    they shard over ``fsdp`` along dim 0. LoRA adapters and a vision tower
+    are ROADMAP Queue A item 6b-2b."""
+    if cfg.lora_rank > 0 or cfg.vision is not None:
+        raise NotImplementedError("LoRA and vision leaves on a mesh: ROADMAP Queue A item 6b-2b")
     col, row = ("model", "fsdp"), ("fsdp", "model")
     specs = {
         "wq": col, "wk": col, "wv": col, "wo": row,
@@ -493,6 +503,9 @@ def param_partition_specs(cfg: ModelConfig) -> dict[str, tuple]:
         "final_norm": (None,),
         "value_head": (None,),
     }
+    if cfg.num_experts > 0:
+        specs.update(w_router=(None, None), we_gate=("expert", "fsdp", "model"), we_up=("expert", "fsdp", "model"),
+                     we_down=("expert", "model", "fsdp"))
     if cfg.attention_bias:
         specs.update(bq=("model",), bk=("model",), bv=("model",))
     if cfg.qk_norm:
@@ -507,7 +520,8 @@ def quant_partition_specs(cfg: ModelConfig) -> dict[str, tuple]:
     (``areal_tpu/models/qwen.py:333``): each ``<t>_q8`` inherits its base
     leaf's spec, each ``<t>_scale`` [out] keeps only the output dim's
     split (a row-parallel ``wo`` / ``w_down`` scale is whole on every rank:
-    it is the max over the whole input dim)."""
+    it is the max over the whole input dim). The expert stacks stay bf16,
+    as in JAX (``QUANT_TARGETS``), under their own specs."""
     specs = param_partition_specs(cfg)
     for t in QUANT_TARGETS:
         spec = specs.pop(t, None)
@@ -525,22 +539,26 @@ def _axis_dim(spec: tuple, axis: str) -> int | None:
     return None
 
 
-def tp_dim(cfg: ModelConfig, name: str) -> int | None:
+def mesh_dim(cfg: ModelConfig, name: str, axis: str) -> int | None:
     """The dim of the leaf ``name`` (``layers.<i>.<leaf>`` or a root leaf)
-    that the ``model`` axis splits, None for a replicated leaf."""
-    return _axis_dim(param_partition_specs(cfg)[name.rsplit(".", 1)[-1]], "model")
+    that ``axis`` splits, None for a leaf replicated over it."""
+    return _axis_dim(param_partition_specs(cfg)[name.rsplit(".", 1)[-1]], axis)
 
 
-def tp_slice(t: torch.Tensor, spec: tuple, tp_size: int, rank: int) -> torch.Tensor:
-    """Rank ``rank``'s part of a leaf placed by ``spec`` on a ``model`` axis
-    of ``tp_size``: its contiguous block along the dim the axis splits, the
-    leaf itself when the axis does not split it. The one slicing rule of the
-    trainer's placement (``shard_model``), the server's placement and the
-    server's weight updates."""
-    d = _axis_dim(spec, "model")
-    if tp_size == 1 or d is None:
-        return t
-    return t.chunk(tp_size, dim=d)[rank]
+def tp_slice(t: torch.Tensor, spec: tuple, tp_size: int, rank: int, ep_size: int = 1,
+             ep_rank: int = 0) -> torch.Tensor:
+    """The part of a leaf placed by ``spec`` that the rank at ``rank`` on a
+    ``model`` axis of ``tp_size`` and ``ep_rank`` on an ``expert`` axis of
+    ``ep_size`` holds: its contiguous block along the dim each axis splits
+    (an expert stack: the rank's experts, then its FFN columns), the leaf
+    itself where neither does. The one slicing rule of the trainer's
+    placement (``shard_model``), the server's placement and the server's
+    weight updates."""
+    for axis, n, r in (("expert", ep_size, ep_rank), ("model", tp_size, rank)):
+        d = _axis_dim(spec, axis)
+        if n > 1 and d is not None:
+            t = t.chunk(n, dim=d)[r]
+    return t
 
 
 def leaf_spec(specs: dict, name: str) -> tuple:
@@ -548,53 +566,78 @@ def leaf_spec(specs: dict, name: str) -> tuple:
     return specs[name.rsplit(".", 1)[-1]]
 
 
-def local_config(cfg: ModelConfig, tp_size: int) -> ModelConfig:
-    """The shapes one rank of a ``model`` axis of ``tp_size`` computes with:
-    its heads, its FFN columns and its vocabulary block. ``tp_size`` must
-    divide each of them (a head never splits)."""
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """``local_config`` of an MoE model on an ``expert`` axis: ``num_experts``
+    is the rank's own experts, ``router_experts`` the whole model's (the
+    router's columns)."""
+
+    router_experts: int = 0
+
+
+def local_config(cfg: ModelConfig, tp_size: int, ep_size: int = 1) -> ModelConfig:
+    """The shapes one rank of a ``model`` axis of ``tp_size`` and an
+    ``expert`` axis of ``ep_size`` computes with: its heads, its FFN columns
+    (the experts' too), its vocabulary block and its experts. ``tp_size``
+    must divide each of the first three (a head never splits) and
+    ``ep_size`` the experts."""
     parts = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
              "intermediate_size": cfg.intermediate_size, "vocab_size": cfg.vocab_size}
+    if cfg.num_experts and cfg.moe_intermediate_size:
+        parts["moe_intermediate_size"] = cfg.moe_intermediate_size
     bad = [f"{k}={v}" for k, v in parts.items() if v % tp_size]
     if bad:
         raise NotImplementedError(f"model={tp_size} does not divide {', '.join(bad)}: uneven tensor parallelism "
                                   "is ROADMAP Queue A item 6b")
-    return dataclasses.replace(cfg, head_dim=cfg.head_dim_, **{k: v // tp_size for k, v in parts.items()})
+    local = dataclasses.replace(cfg, head_dim=cfg.head_dim_, **{k: v // tp_size for k, v in parts.items()})
+    if ep_size == 1 or not cfg.num_experts:
+        return local
+    if cfg.num_experts % ep_size:
+        raise ValueError(f"expert={ep_size} does not divide num_experts={cfg.num_experts}")
+    fields = {f.name: getattr(local, f.name) for f in dataclasses.fields(ModelConfig)}
+    return RankConfig(**{**fields, "num_experts": cfg.num_experts // ep_size}, router_experts=cfg.num_experts)
 
 
 def shard_model(model: QwenModel, mesh, compute_dtype: torch.dtype) -> ModelConfig:
     """Place ``model``'s leaves on ``mesh`` (``parallel/mesh.py``) by
-    ``param_partition_specs``, in place: each leaf's ``model`` dim becomes
-    the rank's slice (a plain local tensor), then FSDP2 ``fully_shard``s
-    each ``DecoderLayer`` and the root over the mesh's (data, fsdp) axes,
-    every leaf along its ``fsdp`` dim. FSDP2 gathers a layer's leaves in
-    ``compute_dtype`` (the master's one rounding) and reduce-scatters their
-    gradients in f32, summed over data x fsdp (no division: the engine's
-    loss weights are the whole grid's). Returns the rank's
-    ``local_config``."""
+    ``param_partition_specs``, in place: each leaf's ``model`` and
+    ``expert`` dims become the rank's slice (``tp_slice``, a plain local
+    tensor), then FSDP2 ``fully_shard``s each ``DecoderLayer`` and the root
+    over the mesh's (data, fsdp) axes, every leaf along its ``fsdp`` dim.
+    Leaves without an ``expert`` dim are replicated over ``expert``; their
+    gradients come out equal on every rank of it (the MoE conjugates,
+    ``models/moe.py``), so nothing reduces over it. FSDP2 gathers a layer's
+    leaves in ``compute_dtype`` (the master's one rounding) and
+    reduce-scatters their gradients in f32, summed over data x fsdp (no
+    division: the engine's loss weights are the whole grid's). Returns the
+    rank's ``local_config``."""
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import Shard
 
-    from areal_tpu_torch.parallel.mesh import axis_size
+    from areal_tpu_torch.parallel.mesh import BATCH_AXES, axis_size, dp_size
 
     cfg = model.cfg
     specs = param_partition_specs(cfg)
-    m = axis_size(mesh, "model")
-    local_cfg = local_config(cfg, m)
-    rank = mesh.get_local_rank("model")
+    m, e = axis_size(mesh, "model"), axis_size(mesh, "expert")
+    local_cfg = local_config(cfg, m, e)
+    rank, ep_rank = mesh.get_local_rank("model"), mesh.get_local_rank("expert")
     tp = tp_lib.TPInfo(group=mesh.get_group("model") if m > 1 else None, rank=rank, size=m,
                        vocab_start=rank * local_cfg.vocab_size)
+    ep = tp_lib.EPInfo(group=mesh.get_group("expert") if e > 1 else None, rank=ep_rank, size=e,
+                       dp_groups=tuple(mesh.get_group(a) for a in BATCH_AXES if axis_size(mesh, a) > 1),
+                       dp_size=dp_size(mesh))
     placement = {}
     for name, p in list(model.named_parameters()):
         mod_name, _, leaf = name.rpartition(".")
         mod = model.get_submodule(mod_name) if mod_name else model
         spec = specs[leaf]
-        if m > 1 and _axis_dim(spec, "model") is not None:
-            p = nn.Parameter(tp_slice(p.detach(), spec, m, rank).clone(), requires_grad=p.requires_grad)
+        if any(n > 1 and _axis_dim(spec, a) is not None for a, n in (("model", m), ("expert", e))):
+            p = nn.Parameter(tp_slice(p.detach(), spec, m, rank, e, ep_rank).clone(), requires_grad=p.requires_grad)
             setattr(mod, leaf, p)
         placement[p] = Shard(_axis_dim(spec, "fsdp") or 0)
-    model.tp = tp
+    model.tp, model.ep = tp, ep
     for layer in model.layers:
-        layer.tp = tp
+        layer.tp, layer.ep = tp, ep
     mp = MixedPrecisionPolicy(
         param_dtype=None if compute_dtype == cfg.torch_dtype else compute_dtype,
         reduce_dtype=torch.float32,

@@ -7,8 +7,11 @@ f32, ``transpose_rhs=False``): ``lhs [M, k]`` rows sorted by group, group
 ``g`` owning ``group_sizes[g]`` rows after those of groups ``0..g-1``,
 times ``rhs[g] [k, n]``, giving ``[M, n]`` in f32. Rows at or past
 ``sum(group_sizes)`` come back as zeros (megablox leaves them
-uninitialized and the JAX caller masks them; on one device every row is
-computed, so the model's paths never have such rows).
+uninitialized and the JAX caller masks them). On one device every row is
+computed; on an ``expert`` axis a rank's rows routed to other ranks'
+experts sort past the groups (``models/moe.py``), about (1 - 1/e) of M,
+and the grid, sized from M and E alone, spends that share of its work
+items writing their zeros.
 
 Its gradient is megablox's custom VJP (``megablox/ops.py:63 _gmm_bwd``),
 two more kernels under ``GroupedMatmul``, a ``torch.autograd.Function``:

@@ -12,7 +12,13 @@ joins them into one world) and the world is laid out as a
   ``fully_shard``) and replicate over ``data`` (HSDP).
 - ``model``: tensor parallelism (``parallel/tensor_parallel.py``); the
   placement of each leaf is ``models/qwen.py param_partition_specs``.
-- ``seq``, ``expert``, ``pipe``: ROADMAP Queue A item 6b; the train engine
+- ``expert``: expert parallelism of an MoE model. The experts split over
+  it (``qwen.param_partition_specs``: each rank holds E / e of them) and
+  every other leaf is replicated over it. As in JAX, the ranks of one
+  ``expert`` group hold the same grid rows (``dp_rank`` counts data x fsdp
+  only): each runs the same attention and its own experts' share of the
+  FFN, summed over the group (``models/moe.py``).
+- ``seq``, ``pipe``: ROADMAP Queue A items 6b-3 and 6b-4; the train engine
   refuses a size above 1.
 
 Axes of size 1 stay in the mesh, as in JAX, so a world of one card runs the
@@ -111,9 +117,21 @@ def dp_size(mesh) -> int:
     return axis_size(mesh, "data") * axis_size(mesh, "fsdp")
 
 
+def ep_size(mesh) -> int:
+    """The expert-parallel degree: the experts split over ``expert``."""
+    return axis_size(mesh, "expert")
+
+
+def ep_rank(mesh) -> int:
+    """This rank's place on ``expert``: it holds experts ``[ep_rank * E / e,
+    (ep_rank + 1) * E / e)``."""
+    return mesh.get_local_rank("expert")
+
+
 def dp_rank(mesh) -> int:
     """This rank's block of grid rows, in the order in which the JAX
-    ``batch_sharding`` splits rows over (data, fsdp): data-major."""
+    ``batch_sharding`` splits rows over (data, fsdp): data-major. Ranks that
+    differ only on ``expert`` (or ``model``) hold the same block."""
     return mesh.get_local_rank("data") * axis_size(mesh, "fsdp") + mesh.get_local_rank("fsdp")
 
 

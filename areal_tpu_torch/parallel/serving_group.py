@@ -1,19 +1,27 @@
-"""The processes of a decode engine that serves on a ``model=N`` mesh.
+"""The processes of a decode engine that serves on a ``model=m x
+expert=e`` mesh.
 
 JAX serves a mesh from one process (GSPMD places the shards); PyTorch
-drives one card per process. So a ``DecodeEngine`` with ``mesh.model=N``
-is a lead (the engine the caller built, rank 0) and N-1 followers that it
-spawns at ``initialize`` (``torch.multiprocessing``'s spawn context).
-Follower r takes the r-th card after the lead's, wrapping around the cards
-there are; on the CPU every rank runs on the CPU.
+drives one card per process. So a ``DecodeEngine`` with ``mesh.model=m``
+and ``mesh.expert=e`` is a lead (the engine the caller built, rank 0) and
+m·e - 1 followers that it spawns at ``initialize``
+(``torch.multiprocessing``'s spawn context). Follower r takes the r-th
+card after the lead's, wrapping around the cards there are; on the CPU
+every rank runs on the CPU. Rank r sits at ``coords(r, e)``: model rank
+r // e, expert rank r % e (``expert`` the faster axis, as in JAX's
+``MESH_AXES`` order).
 
-The ranks form a process group of their own over a ``TCPStore`` on a free
-local port (``utils/network.find_free_port``), built as a process-group
-object, never as the default world: a trainer rank that already has one
-can host a serving lead. NCCL when every rank has its own card; gloo when
-ranks share one (NCCL refuses a duplicate GPU) or run on the CPU. The
-decode program uses only ``all_reduce`` (``parallel/tensor_parallel.py``),
-which gloo also takes on CUDA tensors.
+The ranks form process groups of their own over a ``TCPStore`` on a free
+local port (``utils/network.find_free_port``), built as process-group
+objects, never as the default world: a trainer rank that already has one
+can host a serving lead. One group for each axis above 1: the ``model``
+group of a rank holds the ranks of its expert rank, the ``expert`` group
+those of its model rank (each a ``PrefixStore`` of the one store; an axis
+that spans every rank uses the whole group). NCCL when every rank has its
+own card; gloo when ranks share one (NCCL refuses a duplicate GPU) or run
+on the CPU. The decode program uses only ``all_reduce``
+(``parallel/tensor_parallel.py``, ``models/moe.py``), which gloo also
+takes on CUDA tensors.
 
 Two host channels join the lead to each follower, both pipes carrying
 pickled messages whose tensors' bytes travel out of band (no shared
@@ -77,21 +85,39 @@ def backend_for(devices: list[torch.device]) -> str:
     return "gloo"
 
 
-def make_group(port: int, rank: int, size: int, backend: str, timeout_s: float):
-    """This rank's store and its two process-group objects (rank 0 hosts
-    the store): the decode program's communicator, and a gloo one of its
-    own for staging weights, which moves host buffers point to point and
-    never runs on the decode program's. Not the default world: nothing here
-    calls ``init_process_group``."""
+def coords(rank: int, expert: int) -> tuple[int, int]:
+    """(model rank, expert rank) of serving rank ``rank`` on an ``expert``
+    axis of ``expert``."""
+    return divmod(rank, expert)
+
+
+def _decode_group(store, rank: int, size: int, backend: str, timeout):
+    if backend == "gloo":
+        return dist.ProcessGroupGloo(store, rank, size, timeout)
+    opts = dist.ProcessGroupNCCL.Options()
+    opts._timeout = timeout
+    return dist.ProcessGroupNCCL(store, rank, size, opts)
+
+
+def make_group(port: int, rank: int, size: int, backend: str, timeout_s: float, expert: int = 1):
+    """This rank's store, its decode program's communicators by axis
+    (``{"model": ..., "expert": ...}``, None for an axis of size 1) and a
+    gloo one of its own for staging weights, which moves host buffers point
+    to point and never runs on the decode program's (rank 0 hosts the
+    store). Not the default world: nothing here calls
+    ``init_process_group``."""
     timeout = datetime.timedelta(seconds=timeout_s)
     store = dist.TCPStore(_HOST, port, size, rank == 0, timeout=timeout, wait_for_workers=False)
     stage = dist.ProcessGroupGloo(dist.PrefixStore("stage/", store), rank, size, timeout)
-    decode_store = dist.PrefixStore("decode/", store)
-    if backend == "gloo":
-        return store, dist.ProcessGroupGloo(decode_store, rank, size, timeout), stage
-    opts = dist.ProcessGroupNCCL.Options()
-    opts._timeout = timeout
-    return store, dist.ProcessGroupNCCL(decode_store, rank, size, opts), stage
+    m = size // expert
+    tr, er = coords(rank, expert)
+    groups = {"model": None, "expert": None}
+    for axis, n, own, key in (("model", m, tr, er), ("expert", expert, er, tr)):
+        if n == size:  # the axis spans every rank
+            groups[axis] = _decode_group(dist.PrefixStore("decode/", store), rank, size, backend, timeout)
+        elif n > 1:
+            groups[axis] = _decode_group(dist.PrefixStore(f"decode/{axis}/{key}/", store), own, n, backend, timeout)
+    return store, groups, stage
 
 
 class _WireTensor:
@@ -204,14 +230,17 @@ class ServingGroup:
     """The lead's side: spawns the followers, joins the group as rank 0 and
     owns the two channels to each follower."""
 
-    def __init__(self, size: int, lead_device: torch.device, timeout_s: float = 300.0):
+    def __init__(self, size: int, lead_device: torch.device, timeout_s: float = 300.0, expert: int = 1):
         if size < 2:
             raise ValueError(f"a serving group has at least 2 ranks, got {size}")
+        if size % expert:
+            raise ValueError(f"expert={expert} does not divide the serving group's {size} ranks")
         self.size = size
+        self.expert = expert
         self.devices = [torch.device(lead_device)] + [follower_device(lead_device, r) for r in range(1, size)]
         self.backend = backend_for(self.devices)
         self.timeout_s = timeout_s
-        self.pg = None
+        self.groups: dict = {}  # this rank's communicators by axis (make_group)
         self.stage_pg = None
         self._store = None
         self._procs: list = []
@@ -238,7 +267,7 @@ class ServingGroup:
                 p = ctx.Process(
                     target=follower_main,
                     args=(r, self.size, port, self.backend, str(self.devices[r]), ctrl_f, aux_f,
-                          payloads[r - 1], self.timeout_s),
+                          payloads[r - 1], self.timeout_s, self.expert),
                     name=f"serving-follower-{r}",
                     daemon=True,
                 )
@@ -248,7 +277,8 @@ class ServingGroup:
                 self._procs.append(p)
                 self._ctrl.append(ctrl_lead)
                 self._aux.append(aux_lead)
-            self._store, self.pg, self.stage_pg = make_group(port, 0, self.size, self.backend, self.timeout_s)
+            self._store, self.groups, self.stage_pg = make_group(port, 0, self.size, self.backend, self.timeout_s,
+                                                                 self.expert)
             deadline = time.monotonic() + START_TIMEOUT_S
             for r, conn in enumerate(self._ctrl, start=1):
                 while not conn.poll(0.2):
@@ -288,7 +318,7 @@ class ServingGroup:
                 p.join(5.0)
         for conn in self._ctrl + self._aux:
             conn.close()
-        self.pg = self.stage_pg = None
+        self.groups, self.stage_pg = {}, None
         self._store = None
 
     # -- liveness -----------------------------------------------------------
@@ -375,7 +405,7 @@ def _aux_loop(engine, conn) -> None:
             _send(conn, (False, traceback.format_exc()))
 
 
-def follower_main(rank, size, port, backend, device, ctrl, aux, payload, timeout_s) -> None:
+def follower_main(rank, size, port, backend, device, ctrl, aux, payload, timeout_s, expert=1) -> None:
     """Follower ``rank``: join the group, build the engine's shards from
     ``payload`` (``DecodeEngine.follower_payload``), report ready, then run
     the lead's operations until it sends "close" or its channel closes."""
@@ -384,10 +414,10 @@ def follower_main(rank, size, port, backend, device, ctrl, aux, payload, timeout
         dev = torch.device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        _, pg, stage_pg = make_group(port, rank, size, backend, timeout_s)
+        _, groups, stage_pg = make_group(port, rank, size, backend, timeout_s, expert)
         from areal_tpu_torch.inference.decode_engine import DecodeEngine
 
-        engine = DecodeEngine.as_follower(loads(payload), pg, rank, size, dev)
+        engine = DecodeEngine.as_follower(loads(payload), groups, rank, size, dev)
         engine._stage_pg = stage_pg
         _send(ctrl, ("ready", engine.rank_summary()))
     except BaseException:  # noqa: BLE001 — reported to the lead, which raises

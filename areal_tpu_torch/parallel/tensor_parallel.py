@@ -18,6 +18,11 @@ logit and the entropy's sum over the blocks in f32, so no rank holds the
 
 The attention and the flash kernels see plain local tensors: the rank's
 heads.
+
+The same two conjugates over a tuple of groups (``copy_to`` /
+``reduce_from``) carry the MoE FFN over the ``expert`` axis, and over
+``model`` too when the experts' FFN columns split there
+(``models/moe.py``); ``EPInfo`` is a rank's place on ``expert``.
 """
 
 from __future__ import annotations
@@ -40,24 +45,42 @@ class TPInfo:
     vocab_start: int
 
 
-class _CopyToModel(torch.autograd.Function):
+@dataclasses.dataclass(frozen=True)
+class EPInfo:
+    """This rank's place on the ``expert`` axis: the group (None when the
+    axis has size 1), the rank's index on it and the axis size; its local
+    experts are ``[rank * E / size, (rank + 1) * E / size)``. A trainer's
+    also carries the groups of the batch axes (data, fsdp) above size 1 and
+    their product ``dp_size``: the MoE aux loss is a mean over the row
+    blocks, as JAX's ``pmean`` over (data, fsdp) makes it."""
+
+    group: object
+    rank: int
+    size: int
+    dp_groups: tuple = ()
+    dp_size: int = 1
+
+
+class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, groups):
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
         return g, None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, groups):
         out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        for group in groups:
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
@@ -65,12 +88,52 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _MeanOver(torch.autograd.Function):
+    """The mean over the ranks of ``groups`` of a value each computes from
+    its own rows, with the mirror backward: every rank's cotangent summed
+    over the groups, over their ranks. The loss a rank adds it to is summed
+    over the same ranks (the gradients' reduce), so each rank's share of the
+    mean gets the whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, groups, n):
+        ctx.groups, ctx.n = groups, n
+        out = x.contiguous().clone()
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
+        return g / ctx.n, None, None
+
+
+def copy_to(x: torch.Tensor, groups: tuple) -> torch.Tensor:
+    """Identity forward, the gradient all-reduced over ``groups`` backward:
+    the input of a computation split over their ranks."""
+    return _CopyTo.apply(x, groups) if groups else x
+
+
+def reduce_from(x: torch.Tensor, groups: tuple) -> torch.Tensor:
+    """All-reduce over ``groups`` forward, identity backward: the sum of the
+    partial results of a computation split over their ranks."""
+    return _ReduceFrom.apply(x, groups) if groups else x
+
+
+def mean_over(x: torch.Tensor, groups: tuple, n: int) -> torch.Tensor:
+    """``_MeanOver`` of ``x`` over ``groups`` (``n`` ranks in all)."""
+    return _MeanOver.apply(x, groups, n) if groups else x
+
+
 def copy_to_model(x: torch.Tensor, tp: TPInfo | None) -> torch.Tensor:
-    return x if tp is None or tp.size == 1 else _CopyToModel.apply(x, tp.group)
+    return x if tp is None or tp.size == 1 else _CopyTo.apply(x, (tp.group,))
 
 
 def reduce_from_model(x: torch.Tensor, tp: TPInfo | None) -> torch.Tensor:
-    return x if tp is None or tp.size == 1 else _ReduceFromModel.apply(x, tp.group)
+    return x if tp is None or tp.size == 1 else _ReduceFrom.apply(x, (tp.group,))
 
 
 def embed_lookup(embed: torch.Tensor, ids: torch.Tensor, dtype, tp: TPInfo) -> torch.Tensor:

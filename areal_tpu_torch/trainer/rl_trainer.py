@@ -52,15 +52,18 @@ writes the recover records; every rank steps together through the
 engines' collectives: the rollout batch comes to all through the engine's
 ``DistRolloutCoordinator``, every rank joins each weight push, checkpoint
 and recover dump (rank 0 writes the files), and a preemption seen on rank
-0 is seen by all at the next step boundary. A gen half's ``tN`` is a
-server serving on N cards (``DecodeEngine`` on ``mesh.model=N``), which
-the trainer reaches over HTTP like any other. ``check_allocation`` refuses
-what waits for a later item.
+0 is seen by all at the next step boundary. A gen half's ``tN`` / ``eN``
+is a server serving on its model x expert cards (``DecodeEngine`` on
+``mesh.model`` x ``mesh.expert``), which the trainer reaches over HTTP
+like any other; a hybrid MoE spec ``(attn:...|ffn:...)`` takes its layout
+from the attn half and ``ep`` from the ffn half. ``check_allocation``
+refuses what waits for a later item.
 
 Refused at construction with ``NotImplementedError`` naming the ROADMAP
 Queue A item it waits for: a gen half of more than one server (item 8),
-sequence, pipeline or expert parallelism (item 6b), and a ``cluster.name_resolve.type`` other than "memory" (item
-8); in a world of several ranks, a time-based save, recover or eval
+sequence or pipeline parallelism (items 6b-3, 6b-4), and a
+``cluster.name_resolve.type`` other than "memory" (item 8); in a world of
+several ranks, a time-based save, recover or eval
 trigger (``freq_secs``: the ranks would not agree when it fires; 6b). The
 weight wire follows ``resolve_weight_update_wire``: "q8" against an int8
 fleet.
@@ -83,7 +86,8 @@ import numpy as np
 
 import torch.distributed as dist
 
-from areal_tpu_torch.api.alloc_mode import AllocationMode, HybridParallelStrategy, apply_allocation_mode
+from areal_tpu_torch.api.alloc_mode import (AllocationMode, HybridParallelStrategy, _mesh_config_of,
+                                            apply_allocation_mode)
 from areal_tpu_torch.api.config import PPOConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
 from areal_tpu_torch.engine.train_engine import TorchTrainEngine
@@ -132,12 +136,15 @@ def resolve_weight_update_wire(config) -> str:
 def check_allocation(config) -> None:
     """Refuse the parts of ``allocation_mode`` that wait for a later item,
     before anything is built: a gen half of more than one server (a fleet,
-    ROADMAP Queue A item 8); sequence, pipeline or expert parallelism or a
-    hybrid MoE spec in either half (item 6b). A gen half's ``tN`` is one
-    server on N cards (tensor-parallel serving, ``server.mesh.model``); a
-    train half of any ``dN`` / ``tN`` passes here. The engines check that
-    ``tN`` divides the model's heads, KV heads, FFN and vocabulary (the
-    server at ``initialize``) and that the world has the devices."""
+    ROADMAP Queue A item 8); sequence or pipeline parallelism in either
+    half (items 6b-3, 6b-4). A gen half's ``tN`` / ``eN`` is one server on
+    the cards of its model x expert mesh (``server.mesh``; ``eN`` borrows
+    the data-parallel degree, so ``d2e2`` is one server on 2 cards); a
+    train half of any ``dN`` / ``tN`` / ``eN``, or a hybrid MoE spec
+    ``(attn:...|ffn:...)``, passes here. The engines check that ``tN``
+    divides the model's heads, KV heads, FFN and vocabulary and ``eN`` its
+    experts (the server at ``initialize``) and that the world has the
+    devices."""
     if not config.allocation_mode:
         return
     mode = AllocationMode.from_str(config.allocation_mode)
@@ -145,15 +152,15 @@ def check_allocation(config) -> None:
     for half, ps in halves:
         if ps is None:
             continue
-        if isinstance(ps, HybridParallelStrategy):
-            raise NotImplementedError(f"{half} half {ps}: a hybrid MoE spec is ROADMAP Queue A item 6b")
-        for dim, what in (("pp", "pipeline"), ("cp", "sequence"), ("ep", "expert")):
-            if getattr(ps, dim) > 1:
-                raise NotImplementedError(f"{half} half {dim}={getattr(ps, dim)}: {what} parallelism is ROADMAP "
-                                          "Queue A item 6b")
+        for part in (ps.attn, ps.ffn) if isinstance(ps, HybridParallelStrategy) else (ps,):
+            for dim, what, item in (("pp", "pipeline", "6b-4"), ("cp", "sequence", "6b-3")):
+                if getattr(part, dim) > 1:
+                    raise NotImplementedError(f"{half} half {dim}={getattr(part, dim)}: {what} parallelism is "
+                                              f"ROADMAP Queue A item {item}")
     gen = mode.gen
-    if gen is not None and gen.dp > 1:
-        raise NotImplementedError(f"gen half dp={gen.dp}: a fleet of servers is ROADMAP Queue A item 8")
+    if gen is not None and _mesh_config_of(gen).fsdp > 1:
+        raise NotImplementedError(f"gen half {gen}: {_mesh_config_of(gen).fsdp} servers; a fleet of servers is "
+                                  "ROADMAP Queue A item 8")
 
 
 def check_world(config) -> None:

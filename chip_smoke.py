@@ -81,7 +81,7 @@ no result line:
               executor's retry counters and the pool audit; prints the loop's
               tokens/s beside the serve phase's, task latency and the pause.
 9. lifecycle — the serving engine's request lifecycle at Qwen2.5-1.5B
-              (full width, 8 of 28 layers; the serve phase's settings), over HTTP through
+              (full width, CUT_LAYERS = 4 of 28 layers; the serve phase's settings), over HTTP through
               ``RemoteTorchEngine``: (a) 16 greedy requests abort-paused and
               resumed from their parked KV (no prefill, the tokens of an
               uninterrupted run, pause -> first resumed token beside a
@@ -94,7 +94,7 @@ no result line:
               /health and /generate while draining, /undrain; (g) release /
               resume memory. The pool audit and the #1 / #3 launches.
 10. observe  — the serving engine's observability at Qwen2.5-1.5B (full
-              width, 8 of 28 layers; the serve phase's settings) over HTTP: a cold wave, a warm wave on
+              width, CUT_LAYERS = 4 of 28 layers; the serve phase's settings) over HTTP: a cold wave, a warm wave on
               a shared 1,024-token system prompt (radix hits, #3) with a 2 s
               ``POST /debug/profile`` capture during it, 16 requests
               abort-paused and resumed from parked KV through
@@ -142,8 +142,8 @@ no result line:
               tokens generated during the update and the rows spanning a
               commit; staging GB/s, decode step wall time while staging
               beside the other steps, trainer tokens/s and peak memory.
-13b. shard   — the trainer across GPUs: grpo's actor at full width and 8
-              of 28 layers (the script's time limit), unsharded in this
+13b. shard   — the trainer across GPUs: grpo's actor at full width and
+              CUT_LAYERS = 4 of 28 layers (the script's time limit), unsharded in this
               process, then under ``torchrun`` (one rank a card, NCCL; a
               world of one on one card, fsdp x model 2 on several) in
               ``--shard-worker``: 2 ``train_batch`` steps on one fixed batch
@@ -154,7 +154,7 @@ no result line:
               beside the unsharded engine's; then 2 steps of
               ``PPOTrainer.train`` under ``allocation_mode`` over HTTP.
 14. durable  — the trainer's durable state at Qwen2.5-1.5B, full width and
-              8 of 28 layers (the grpo phase's actor settings and the serve phase's
+              CUT_LAYERS = 4 of 28 layers (the grpo phase's actor settings and the serve phase's
               server settings): (a) the disk free at the phase's root and an
               HF export of the trainer's f32 weights (GB, s, GB/s); (b) an
               ``InferenceServer`` started from the export by
@@ -173,7 +173,7 @@ no result line:
               (GB freed, seconds, bit for bit after). Deletes its directory
               (``_durable/``) at its end.
 15. critic   — PPO with a learned critic over HTTP at Qwen2.5-1.5B (full
-              width, 8 of 28 layers):
+              width, CUT_LAYERS = 4 of 28 layers):
               ``PPOTrainer.train`` (2 global steps) with the grpo phase's
               actor and client and ``PPOCriticConfig.path`` set to the
               actor's HF export, so the trainer builds the critic (the
@@ -185,7 +185,7 @@ no result line:
               critic's ``compute_values`` forward and updates; prints the
               step's phases, the critic's tokens/s and the peak memory.
 16. sft      — SFT, the reward model and the remat policies at Qwen2.5-1.5B,
-              full width and 8 of 28 layers, from an HF export of seeded
+              full width and CUT_LAYERS = 4 of 28 layers, from an HF export of seeded
               random weights:
               ``SFTTrainer.train`` (4 steps of 8 rows, an eval pass every 2
               steps) and ``RWTrainer.train`` (4 steps of 8 pairs in
@@ -195,7 +195,7 @@ no result line:
               "nothing", "dots_nobatch" and "everything", in two rounds:
               the parameters after "dots_nobatch" against "nothing"'s, each
               policy's peak memory, step seconds and K2-K4 launches.
-17. int8serve — int8 weight serving at Qwen2.5-1.5B, full width and 8 of
+17. int8serve — int8 weight serving at Qwen2.5-1.5B, full width and CUT_LAYERS = 4 of
               28 layers (since PR 24)
               (``gsm8k_grpo_int8serve.yaml``: ``quantization="int8"``,
               ``kv_quantization="int8"``): a server started from the grpo
@@ -269,7 +269,7 @@ no result line:
               GRPO forest of 4,096 rows) at hd 64 and 128: O's and lse's
               worst elements as shares of their limits.
 21. train_tree — ``train``'s two GRPO steps with ``tree_training=True`` and
-              one minibatch per step (full width, 8 of 28 layers): each prompt's samples merge into a
+              one minibatch per step (full width, CUT_LAYERS = 4 of 28 layers): each prompt's samples merge into a
               trie, packed into forests of at most 2,048 nodes, and forward
               and backward run once per node through #4-#6 (the proximal
               recompute stays on K2). Checks the dedup counts against a host
@@ -301,8 +301,10 @@ no result line:
               (the same function) and on bf16(grad) (another) times and the
               bound.
 24. serve_moe — an ``InferenceServer`` over Qwen3-30B-A3B (full width,
-              SERVE_MOE_LAYERS = 16 of its 48 layers since the serve_tp
-              phase came (24 since the shard phase), 128 experts, top-8, random bf16 parameters from a seed)
+              SERVE_MOE_LAYERS = 4 of its 48 layers since the moe_ep
+              phase's trainer came (8 since moe_ep, 16 since serve_tp, 24
+              since shard), 128 experts,
+              top-8, random bf16 parameters from a seed)
               at the prefix-cache settings of ``ServerConfig()``: a cold
               wave of 16 requests, a warm wave of 8 on a shared 1,024-token
               system prompt, /flush_prefix_cache and the pool audit;
@@ -343,7 +345,8 @@ no result line:
               flight dump. Seconds to /health, eval n / accuracy, the
               drain's seconds.
 27. serve_tp — serving on a ``model=2`` mesh (tensor parallelism):
-              Qwen2.5-1.5B at full width and depth with the serve phase's
+              Qwen2.5-1.5B at full width (CUT_LAYERS = 4 of 28 layers on one card since
+              the moe_ep phase came, all 28 on two or more) with the serve phase's
               ``ServerConfig``, a lead and one spawned follower, each rank
               on 6 heads and 1 KV head; the unsharded engine on the same
               seeds first, as the yardstick. Over HTTP: the cold and warm
@@ -360,6 +363,29 @@ no result line:
               2-3 with ``sglang:d1t2+fsdp:d2``, 2 steps over HTTP, the
               server's slices against the trainer's export by
               ``/debug/weights``, a SIGTERM drain).
+28. moe_ep   — MoE over the ``expert`` axis, Qwen3-30B-A3B at full width.
+              One card: (a) one MoE layer's expert ranks (e = 2, 4) run
+              in one process, each on its E / e experts, their partial
+              outputs and gradients summed against the unsharded layer
+              (out, aux, dh, router and expert gradients), gmm 3 launches
+              a rank and gmm_bwd_lhs / tgmm 3 each; (b) a server on
+              ``mesh.expert=2`` at 8 of 48 layers, both ranks on the card
+              over gloo (a stand-in), against the unsharded engine on the
+              same seeds: a cold wave of 8 requests, greedy tokens equal
+              but at recorded near-ties, logprobs against a dense
+              prefill, gmm and #1 on every rank, the pool, a staged push
+              over HTTP (every rank's slices the pushed bits, by their
+              sha256); (c) the trainer
+              on ``expert=2`` under ``torchrun``, both ranks on the card
+              over gloo, against the unsharded engine. Four
+              cards instead: the trainer at fsdp 2
+              x expert 2 against the unsharded engine at 4 layers, then at
+              16 of 48 (peak and tokens/s a rank); the server at all 48
+              layers on expert=4 and on model=2 x expert=2 over NCCL
+              against the unsharded engine at the same depth; the
+              disaggregated loop ``sglang:d2e2+fsdp:d2e2`` (the CLI server
+              on ``mesh.expert=2`` on cards 0-1, the trainer on 2-3), 2
+              steps over HTTP and a SIGTERM drain.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; builds into
@@ -406,18 +432,23 @@ QWEN25_15B = dict(
 # path's speed (lifecycle, observe, durable; since the int8serve and lora
 # phases came, critic, sft and train_tree too; since the vlm phase came,
 # int8serve; since the entry phase came, shard; since the serve_tp phase came,
-# lora): 8 of Qwen2.5-1.5B's 28 layers at full width, so the whole script
-# stays inside its time limit on a slow host (1,170 s of phases at full depth
-# on one; 1,000 s with all but the first three at full depth on another; 954 s
-# with shard at full depth on another; 1,025.5 s with serve_tp and lora at
-# full depth on another, each on one H100 80GB HBM3 at 700 W, PERF.md); serve,
-# rollout, train, grpo, entry and serve_tp run all 28, vlm all of Qwen2-VL-2B
-CUT_LAYERS = 8
-# serve_moe's depth: 16 of Qwen3-30B-A3B's 48 layers, to keep the whole
+# lora; since the moe_ep phase came, serve_tp on one card): 4 of Qwen2.5-1.5B's
+# 28 layers at full width, so the whole script stays inside its time limit on
+# a slow host (1,170 s of phases at full depth on one; 1,000 s with all but
+# the first three at full depth on another; 954 s with shard at full depth on
+# another; 1,025.5 s with serve_tp and lora at full depth on another; 1,248.1
+# s with serve_tp at full depth and these at 8 once moe_ep came, each on one
+# H100 80GB HBM3 at 700 W, PERF.md; 8 layers until moe_ep's one-card trainer
+# joined the default run); serve, rollout, train, grpo and entry run all 28,
+# vlm all of Qwen2-VL-2B
+CUT_LAYERS = 4
+# serve_moe's depth: 4 of Qwen3-30B-A3B's 48 layers, to keep the whole
 # script in its limit (1,106.5 s of phases on a slow host with all 48 once
-# the shard phase came, then 24; 1,025.5 s with 24 once serve_tp came, on
-# one H100 80GB HBM3 at 700 W, PERF.md)
-SERVE_MOE_LAYERS = 16
+# the shard phase came, then 24; 1,025.5 s with 24 once serve_tp came, then
+# 16; 1,248.1 s with 16 once moe_ep came, then 8; 4 since moe_ep's one-card
+# trainer joined the default run; on one H100 80GB HBM3 at 700 W, PERF.md);
+# moe_ep serves 8 on one card and all 48 on four
+SERVE_MOE_LAYERS = 4
 # Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B config.json): the
 # qwen3_moe family's smallest public member, full width and depth
 QWEN3_30B_A3B = dict(
@@ -6144,13 +6175,15 @@ def _gmm_routing(M: int, E: int, K: int, g) -> torch.Tensor:
 
 
 def _gmm_bound(M: int, k: int, n: int, sizes: torch.Tensor, elem: int = 2) -> tuple[float, str]:
-    """Least time of one call on these inputs: lhs read once, the weights of
-    the experts with rows read once, the f32 output and the sizes written /
-    read once; 2 flops per multiply-add at the bf16 tensor-core rate."""
-    touched = int((sizes > 0).sum())
-    nbytes = M * k * elem + touched * k * n * elem + M * n * 4 + sizes.numel() * 4
+    """Least time of one call on these inputs: the grouped rows of lhs read
+    once, the weights of the experts with rows read once, the whole f32
+    output (zeros past the groups included) and the sizes written / read
+    once; 2 flops per multiply-add of the grouped rows at the bf16
+    tensor-core rate."""
+    touched, used = int((sizes > 0).sum()), int(sizes.sum())
+    nbytes = used * k * elem + touched * k * n * elem + M * n * 4 + sizes.numel() * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * M * k * n / PEAK_OPS["bf16"] * 1e3
+    t_ops = 2 * used * k * n / PEAK_OPS["bf16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -6218,6 +6251,51 @@ def _gmm_inputs():
             torch.cuda.empty_cache()
 
 
+# the expert ranks' grouped matmuls (moe_ep): rank 0 of an expert axis of e
+# holds E / e of the 128 experts, and its dispatch hands the kernels every one
+# of the T x K routed rows, its own experts' first and the others past the
+# groups (about (1 - 1/e) of M)
+GMM_EP_SIZES = (2, 4)
+EP_SHAPE_FIELDS = ("used", "groups", "zero_items", "grid_items")  # an expert rank's shape's extra keys
+
+
+def _gmm_ep_inputs(shapes: tuple, backward: bool = False):
+    """The expert ranks' inputs, one (shape, e, projection) at a time, from
+    one seeded generator: M = T x 8 rows at serve_moe's decode (32 slots)
+    and prefill (8 x 512 tokens) and train_moe's grid, routed by a seeded
+    top-8 softmax over all 128 experts; the group sizes of rank 0's E / e
+    experts (sum(group_sizes) about M / e), bf16 lhs, three bf16 stacks of
+    E / e experts, and with ``backward`` the f32 cotangent. Yields (shape,
+    e, projection, sizes, lhs, stacks, grad or None)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    mc = QWEN3_30B_A3B
+    E, K, D, Fm = mc["num_experts"], mc["num_experts_per_tok"], mc["hidden_size"], mc["moe_intermediate_size"]
+    rows = {"decode": 32 * K, "prefill": 8 * 512 * K, "train": _train_moe_grid_tokens() * K}
+    for sname in shapes:
+        M = rows[sname]
+        routed = _gmm_routing(M, E, K, g)
+        for e in GMM_EP_SIZES:
+            sizes = routed[: E // e].contiguous()
+            for proj, (k, n) in (("gate_up", (D, Fm)), ("down", (Fm, D))):
+                lhs = torch.randn((M, k), generator=g, device="cuda").bfloat16()
+                stacks = [(0.02 * torch.randn((E // e, k, n), generator=g, device="cuda")).bfloat16()
+                          for _ in range(3)]
+                grad = torch.randn((M, n), generator=g, device="cuda") if backward else None
+                yield sname, e, proj, sizes, lhs, stacks, grad
+                del lhs, stacks, grad
+                torch.cuda.empty_cache()
+
+
+def _zero_items(sizes: torch.Tensor, M: int, tile: int) -> tuple[int, int]:
+    """(work items that only write zeros past the groups, work items in the
+    grid): a forward / dLHS grid of M / tile + E + 1 items, sized from M and
+    E alone (``ops/gmm.py fwd_schedule``)."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    items, grid = gm.fwd_schedule(sizes, M, gm.FWD_BN, tile)
+    return sum(1 for g_, _, _, ct in items if g_ < 0 and ct == 0), grid[1]
+
+
 def _gmm_timings(lhs, stacks, sizes, **kw) -> dict:
     """Device ms by CUDA-graph replay (``ms``) and the eager host loop beside
     it (``host_ms``) of the forward on these inputs, the weight stack
@@ -6260,6 +6338,53 @@ def gmm_times() -> None:
             line = dict(share=share, bits=_digest(got), M=lhs.shape[0], **_gmm_timings(lhs, stacks, sizes))
         del got
         print(json.dumps({"gmm_times": f"{sname}/{proj}", **line}), flush=True)
+
+
+def _gmm_ep_case(what: str, lhs, stacks, sizes) -> dict:
+    """One expert rank's forward against its plain version: the worst
+    grouped element within its limit, the rows past the groups exact zeros,
+    the same bits twice; the kernel by graph replay (the host loop beside
+    it), the library yardstick on the grouped rows (the rows the function
+    computes), the plain version at decode, the bound, and the share of the
+    grid's work items that only write zeros."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    M, k = lhs.shape
+    E_loc, _, n = stacks[0].shape
+    used = int(sizes.sum())
+    rhs = stacks[0]
+    got = gm.gmm(lhs, rhs, sizes)
+    ref, mag = _gmm_limit(lhs, rhs, sizes)
+    share = _gmm_share(got, ref, mag, used)
+    err = (got - ref).abs().max().item()
+    same = torch.equal(got, gm.gmm(lhs, rhs, sizes))
+    bits = _digest(got)
+    if not (share <= 1.0 and same):
+        raise AssertionError(f"[kernel_gmm] {what}: off its plain version by {share:.3f} x the limit (rows past the "
+                             f"groups included), the same bits twice: {same}")
+    del got
+    lib_name, lib_fn, lib_bf16 = _gmm_library(lhs[:used], rhs, sizes, ref[:used], mag[:used])
+    del ref, mag
+    t = _gmm_timings(lhs, stacks, sizes)
+    it = iter(range(10**9))
+    plain_ms = None
+    if M <= 4096:
+        plain_ms = time_cuda(lambda: gm.gmm_plain(lhs, stacks[next(it) % 3], sizes), iters=3, warmup=1)
+    lib_ms = time_cuda_graph(lambda: lib_fn(stacks[next(it) % 3]), iters=3, reps=2)
+    bf16_ms = time_cuda_graph(lambda: lib_bf16(stacks[next(it) % 3]), iters=6, reps=3) if lib_bf16 else None
+    bound_ms, bound_by = _gmm_bound(M, k, n, sizes)
+    tile = gm.pick_bf16_tile(M, E_loc)
+    zero, items = _zero_items(sizes, M, tile)
+    fmt = lambda x: f"{x:.4f} ms" if x is not None else "not timed"  # noqa: E731
+    log(f"[kernel_gmm] {what}: M={M}, {used} rows in {E_loc} groups ({M - used} past them), k={k} n={n}; worst "
+        f"element {share:.4f} of the limit (max|diff| {err:.3e}), rows past the groups zero, the same bits twice; "
+        f"kernel={t['ms']:.4f} ms by graph replay (bf16_tile {tile}; host loop {t['host_ms']:.4f}); "
+        f"plain={fmt(plain_ms)} {lib_name} on the {used} grouped rows={lib_ms:.4f} ms by graph replay; "
+        f"torch._grouped_mm with a bf16 output (another function)={fmt(bf16_ms)}; bound={bound_ms:.4f} ms "
+        f"({bound_by}); {zero} of the grid's {items} work items only write zeros ({zero / items:.1%})")
+    return dict(max_abs_err=err, share=share, **t, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
+                grouped_mm_bf16_ms=bf16_ms, bound_ms=bound_ms, bound_by=bound_by, ms_by_tile={tile: t["ms"]},
+                tile=tile, bits=bits, M=M, k=k, n=n, used=used, groups=E_loc, zero_items=zero, grid_items=items)
 
 
 def phase_kernel_gmm() -> dict:
@@ -6375,6 +6500,10 @@ def phase_kernel_gmm() -> dict:
                 f"bound={bound_ms:.4f} ms ({bound_by}); {2 * used * k * n / t['ms'] / 1e9:.1f} TFLOP/s")
             del stacks, rhs, lhs
             torch.cuda.empty_cache()
+        # the expert ranks' shapes: E / e groups, (1 - 1/e) of the rows past them
+        for sname, e, proj, sizes, lhs, stacks, _ in _gmm_ep_inputs(("decode", "prefill", "train")):
+            per[f"{sname}_e{e}/{proj}"] = _gmm_ep_case(f"{sname} e={e} {proj}", lhs, stacks, sizes)
+            del stacks, lhs
         # each bf16 regime across the groups' average rows (gate / up): where
         # pick_bf16_tile's crossovers lie
         stacks = [(0.02 * torch.randn((E, D, Fm), generator=g, device="cuda")).bfloat16() for _ in range(3)]
@@ -6757,19 +6886,20 @@ def _train_moe_grid_tokens() -> int:
 
 
 def _gmm_bwd_bound(which: str, M: int, k: int, n: int, sizes: torch.Tensor, out_elem: int) -> tuple[float, str]:
-    """Least time of one call on these inputs: 2 M k n flops at the bf16
-    tensor-core rate against each input read once and the output written
-    once. dLHS reads the f32 cotangent [M, n] and the touched experts'
-    weights, writes [M, k]; tgmm reads lhs [M, k] bf16 and the cotangent,
-    writes [E, k, n]."""
-    E = sizes.numel()
+    """Least time of one call on these inputs: 2 flops a multiply-add of the
+    grouped rows at the bf16 tensor-core rate against each input read once
+    and the output written once. dLHS reads the grouped rows of the f32
+    cotangent [M, n] and the touched experts' weights, writes [M, k] (zeros
+    past the groups included); tgmm reads the grouped rows of lhs [M, k]
+    bf16 and of the cotangent, writes [E, k, n]."""
+    E, used = sizes.numel(), int(sizes.sum())
     if which == "gmm_bwd_lhs":
         touched = int((sizes > 0).sum())
-        nbytes = M * n * 4 + touched * k * n * 2 + M * k * out_elem + E * 4
+        nbytes = used * n * 4 + touched * k * n * 2 + M * k * out_elem + E * 4
     else:
-        nbytes = M * k * 2 + M * n * 4 + E * k * n * out_elem + E * 4
+        nbytes = used * k * 2 + used * n * 4 + E * k * n * out_elem + E * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * M * k * n / PEAK_OPS["bf16"] * 1e3
+    t_ops = 2 * used * k * n / PEAK_OPS["bf16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -7031,7 +7161,65 @@ def phase_kernel_gmm_bwd() -> dict:
                 del ref, mag, got32, got16
             for which, d in res.items():
                 per[f"{which}/{sname}/{proj}"] = d
+        # the expert ranks' shapes: E / e groups, (1 - 1/e) of the rows past them
+        for sname, e, proj, sizes, lhs, stacks, grad in _gmm_ep_inputs(("prefill", "train"), backward=True):
+            for which in ("gmm_bwd_lhs", "tgmm"):
+                per[f"{which}/{sname}_e{e}/{proj}"] = _gmm_bwd_ep_case(which, f"{sname} e={e} {proj}", lhs, stacks,
+                                                                       grad, sizes)
+            del lhs, stacks, grad
     return per
+
+
+def _gmm_bwd_ep_case(which: str, what: str, lhs, stacks, grad, sizes) -> dict:
+    """One expert rank's backward kernel against its plain version: the f32
+    and the bf16 outputs within their limits, dLHS's rows past the groups
+    exact zeros; the kernel (bf16 out) by graph replay, the f32 ``torch.mm``
+    loop and ``torch._grouped_mm`` on hi and lo side by side over the
+    grouped rows, the bound, and the share of dLHS's work items that only
+    write zeros (tgmm's grid is per group: none)."""
+    from areal_tpu_torch.ops import gmm as gm
+
+    M, k, n = lhs.shape[0], lhs.shape[1], grad.shape[1]
+    E_loc = sizes.numel()
+    used = int(sizes.sum())
+    rhs = stacks[0]
+    if which == "gmm_bwd_lhs":
+        R, row_used = n, used
+        run = lambda od: gm.gmm_bwd_lhs(grad, rhs, sizes, out_dtype=od)  # noqa: E731
+        ref = gm.gmm_bwd_lhs_plain(grad, rhs, sizes, torch.float32)
+        mag = gm.gmm_bwd_lhs_plain(grad.abs(), rhs.float().abs(), sizes, torch.float32)
+    else:
+        R, row_used = int(sizes.max()), None
+        run = lambda od: gm.tgmm(lhs, grad, sizes, out_dtype=od)  # noqa: E731
+        ref = gm.tgmm_plain(lhs, grad, sizes, torch.float32)
+        mag = gm.tgmm_plain(lhs.float().abs(), grad.abs(), sizes, torch.float32)
+    got32, got16 = run(torch.float32), run(torch.bfloat16)
+    share32 = _bwd_share(got32, ref, mag, R, False, row_used)
+    share16 = _bwd_share(got16, ref, mag, R, True, row_used)
+    err16 = (got16.float() - ref.to(got16.dtype).float()).abs().max().item()  # against plain(bf16)
+    if not (share32 <= 1.0 and share16 <= 1.0):
+        raise AssertionError(f"[kernel_gmm_bwd] {what} {which}: off its plain version by {share32:.3f} (f32 out) / "
+                             f"{share16:.3f} (bf16 out) x the limit")
+    del got32, got16
+    t = _gmm_bwd_timings(which, lhs, stacks, grad, sizes)
+    loop, split, _ = _gmm_bwd_library(which, lhs[:used], rhs, grad[:used], sizes)
+    lib_ms = time_cuda(loop, iters=5, warmup=1)
+    split_ms = time_cuda_graph(split, iters=6, reps=3) if split is not None else None
+    bound_ms, bound_by = _gmm_bwd_bound(which, M, k, n, sizes, 2)
+    zero, items = _zero_items(sizes, M, 128 if M >= 128 * E_loc else 64) if which == "gmm_bwd_lhs" else (0, 0)
+    del ref, mag
+    log(f"[kernel_gmm_bwd] {what} {which}: M={M}, {used} rows in {E_loc} groups ({M - used} past them), k={k} "
+        f"n={n}; worst element {share32:.4f} (f32 out) / {share16:.4f} (bf16 out) of the limit"
+        + (", rows past the groups zero" if which == "gmm_bwd_lhs" else "")
+        + f"; kernel={t['ms']:.4f} ms by graph replay (host loop {t['host_ms']:.4f}); torch.mm loop (f32) on the "
+        f"grouped rows={lib_ms:.4f} ms; torch._grouped_mm on hi and lo side by side="
+        + (f"{split_ms:.4f} ms" if split_ms is not None else "not usable")
+        + f"; bound={bound_ms:.4f} ms ({bound_by})"
+        + (f"; {zero} of the grid's {items} work items only write zeros ({zero / items:.1%})" if items else ""))
+    return dict(max_abs_err=err16, max_abs_err_f32_out=None, share_f32_out=share32, share_bf16_out=share16, **t,
+                ms_f32_out=None, plain_ms=None, library_ms=lib_ms, library="loop of torch.mm (f32)",
+                grouped_mm_split_ms=split_ms, grouped_mm_bf16_ms=None, bound_ms=bound_ms, bound_by=bound_by, M=M,
+                k=k, n=n, used=used, groups=E_loc, zero_items=zero, grid_items=items)
 
 
 def _trainer_routes(trainer, batch: dict, b: int, n: int):
@@ -8523,8 +8711,13 @@ SERVE_TP_STEPS = 2  # the disaggregated loop's GRPO steps
 # ms a decode step: 128 new tokens took the phase to 253 s, PERF.md); 128
 # (the serve cell's) on two or more cards
 SERVE_TP_STANDIN_NEW = 32
-SERVE_TP_CHECKED = ("embed", "final_norm", "layers.0.wq", "layers.0.bk", "layers.13.wo", "layers.27.w_down",
-                    "layers.27.w_up")  # the leaves whose served slices are held to a push's bits
+
+
+def _tp_checked(L: int) -> tuple:
+    """The leaves of an L-layer Qwen2.5-1.5B whose served slices are held
+    to a push's bits."""
+    return ("embed", "final_norm", "layers.0.wq", "layers.0.bk", f"layers.{L // 2 - 1}.wo", f"layers.{L - 1}.w_down",
+            f"layers.{L - 1}.w_up")
 
 
 def _tp_traffic(V: int) -> dict[str, list[list[int]]]:
@@ -8612,8 +8805,10 @@ def _tp_greedy_ties(model, got: dict, want: dict, what: str) -> list:
 
 
 def phase_serve_tp(card: str) -> dict:
-    """Serving on a ``model=2`` mesh: Qwen2.5-1.5B at full width and depth
-    (random weights, seed 0) with the serve phase's ``ServerConfig`` (32
+    """Serving on a ``model=2`` mesh: Qwen2.5-1.5B at full width, and full
+    depth on two or more cards (CUT_LAYERS on the one-card stand-in since
+    the moe_ep phase came; random weights, seed 0) with the serve phase's
+    ``ServerConfig`` (32
     slots, 2,048 tokens, page 128, 16 steps a call), a lead and one spawned
     follower, each rank on its 6 heads and 1 KV head. On one card both
     ranks share it over gloo (a stand-in: its times are not a mesh's); on
@@ -8631,7 +8826,7 @@ def phase_serve_tp(card: str) -> dict:
     from areal_tpu_torch.api.config import InferenceEngineConfig, MeshConfig, ServerConfig
     from areal_tpu_torch.api.io_struct import WeightUpdateMeta
     from areal_tpu_torch.inference.client import RemoteTorchEngine
-    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine, tensor_digest
     from areal_tpu_torch.inference.server import ServerThread
     from areal_tpu_torch.models import qwen
 
@@ -8640,7 +8835,8 @@ def phase_serve_tp(card: str) -> dict:
     if held > 2.0:
         raise AssertionError(f"[serve_tp] {held:.2f} GiB still allocated by earlier phases")
     n_cards = torch.cuda.device_count()
-    mcfg = qwen.ModelConfig(**QWEN25_15B)
+    mcfg = qwen.ModelConfig(**{**QWEN25_15B, "num_layers": QWEN25_15B["num_layers"] if n_cards >= 2 else CUT_LAYERS})
+    checked = _tp_checked(mcfg.num_layers)
     model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
     traffic = _tp_traffic(mcfg.vocab_size)
     base = dict(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16, host="127.0.0.1",
@@ -8709,18 +8905,20 @@ def phase_serve_tp(card: str) -> dict:
             push_s = time.monotonic() - t0
         finally:
             client.destroy()
+        # every rank's sha256 of its served leaves over HTTP (/debug/weights;
+        # the slices themselves would cross a pipe at the host's pace)
         specs = qwen.param_partition_specs(mcfg)
         pushed = dict(model2.named_parameters())
-        served = engine.served_slices(list(SERVE_TP_CHECKED))
-        bad = [(r, n) for r, got in enumerate(served) for n in SERVE_TP_CHECKED
-               if not torch.equal(got[n], qwen.tp_slice(pushed[n].detach().to(torch.bfloat16).cpu(),
+        served = _http_status(srv.address, "/debug/weights?names=" + ",".join(checked))[2]["ranks"]
+        bad = [(r, n) for r, got in enumerate(served) for n in checked
+               if got[n] != tensor_digest(qwen.tp_slice(pushed[n].detach().to(torch.bfloat16),
                                                         qwen.leaf_spec(specs, n), 2, r))]
         after = _wave(srv.address, [_tp_body(p, 0, n_new=16) for p in traffic["cold"][:4]])
         if bad or engine.get_version() != 1 or any(set(r["output_versions"]) != {1} for r in after):
             raise AssertionError(f"[serve_tp] after the push: slices differing {bad}, version {engine.get_version()}")
         log(f"[serve_tp] staged push over HTTP in {push_s:.2f} s (staging by part: {engine.last_stage_secs}): every "
-            f"rank's slices of {len(SERVE_TP_CHECKED)} leaves equal the pushed bf16 bits; a wave after it tagged "
-            "version 1")
+            f"rank's slices of {len(checked)} leaves equal the pushed bf16 bits (their sha256, /debug/weights); a "
+            "wave after it tagged version 1")
         del model2, pushed, served
         hbm = engine.hbm_ledger()
         res.update(tp={k: tp[k] for k in ("ms_per_step", "wall_ms_per_step", "decode_tok_s", "launches",
@@ -8811,15 +9009,23 @@ def _tp_int8(card: str, model, traffic: dict, base: dict) -> dict:
     return out
 
 
-def _tp_loop(card: str) -> dict:
+# the disaggregated loop's two kinds: a model=2 server of Qwen2.5-1.5B
+# (serve_tp) and an expert=2 server of Qwen3-30B-A3B at TRAIN_MOE_LAYERS
+# (moe_ep); ``tag`` names their log lines, ``root`` their git-ignored folder
+TP_LOOP = dict(tag="serve_tp/loop", model=QWEN25_15B, alloc="sglang:d1t2+fsdp:d2", mesh={"model": 2, "expert": 1},
+               checked=list(_tp_checked(QWEN25_15B["num_layers"])), root=SERVE_TP_ROOT, exit_code=SERVE_TP_EXIT_CODE)
+
+
+def _tp_loop(card: str, kind: dict = TP_LOOP) -> dict:
     """The disaggregated loop on four cards: ``python -m
-    areal_tpu_torch.inference.server ... mesh.model=2`` on cards 0-1 from an
-    HF export, ``PPOTrainer.train`` under ``torchrun`` on cards 2-3 with
-    ``allocation_mode="sglang:d1t2+fsdp:d2"`` pointed at it
-    (``tp_loop_worker``: SERVE_TP_STEPS steps over HTTP with the hold
-    fence; the server's per-rank slices then equal the trainer's bf16
-    export, by ``/debug/weights``), then a SIGTERM drain of the server to
-    its exit code with no follower left."""
+    areal_tpu_torch.inference.server ... mesh.model=2`` (``kind["mesh"]``)
+    on cards 0-1 from an HF export, ``PPOTrainer.train`` under ``torchrun``
+    on cards 2-3 with ``allocation_mode`` ``kind["alloc"]`` (by default
+    "sglang:d1t2+fsdp:d2") pointed at it (``tp_loop_worker``:
+    SERVE_TP_STEPS steps over HTTP with the hold fence; the server's
+    per-rank slices then equal the trainer's bf16 export, by
+    ``/debug/weights``), then a SIGTERM drain of the server to its exit code
+    with no follower left."""
     import shutil
     import signal as signal_mod
 
@@ -8828,37 +9034,39 @@ def _tp_loop(card: str) -> dict:
     from areal_tpu_torch.utils.network import find_free_port
 
     t_loop = time.monotonic()
-    shutil.rmtree(SERVE_TP_ROOT, ignore_errors=True)
-    os.makedirs(SERVE_TP_ROOT)
+    root, tag = kind["root"], kind["tag"]
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
     repo = os.path.dirname(os.path.abspath(__file__))
     proc = None
     try:
-        mcfg = qwen.ModelConfig(**QWEN25_15B)
-        export = os.path.join(SERVE_TP_ROOT, "export")
+        mcfg = qwen.ModelConfig(**kind["model"])
+        export = os.path.join(root, "export")
         m = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
         nbytes = save_params_to_hf(m, mcfg, export)
         del m
         torch.cuda.empty_cache()
         port = find_free_port()
-        yaml = os.path.join(SERVE_TP_ROOT, "server.yaml")
+        yaml = os.path.join(root, "server.yaml")
         with open(yaml, "w") as f:
             f.write("dtype: bfloat16\nmax_batch_size: 32\nmax_seq_len: 2048\npage_size: 128\n"
                     f"decode_steps_per_call: 16\nhost: 127.0.0.1\nport: {port}\nseed: 0\nprecompile: true\n"
                     "weight_stage_target: device\n"
                     f"preemption:\n  enabled: true\n  grace_s: 30.0\n  drain_budget_s: 5.0\n  exit_code: "
-                    f"{SERVE_TP_EXIT_CODE}\n")
-        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0,1", "AREAL_FLIGHT_DIR": os.path.join(SERVE_TP_ROOT, "flight"),
+                    f"{kind['exit_code']}\n")
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "0,1", "AREAL_FLIGHT_DIR": os.path.join(root, "flight"),
                "PYTHONPATH": os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
-        server_log = os.path.join(SERVE_TP_ROOT, "server.log")
+        server_log = os.path.join(root, "server.log")
         t0 = time.monotonic()
         with open(server_log, "w") as logf:
             proc = subprocess.Popen([sys.executable, "-m", "areal_tpu_torch.inference.server", "--config", yaml,
-                                     f"model_path={export}", "mesh.model=2"], cwd=repo, env=env, stdout=logf,
+                                     f"model_path={export}", *(f"mesh.{a}={n}" for a, n in kind["mesh"].items())],
+                                    cwd=repo, env=env, stdout=logf,
                                     stderr=subprocess.STDOUT)
         addr = f"127.0.0.1:{port}"
         while True:
             if proc.poll() is not None:
-                raise AssertionError(f"[serve_tp/loop] the CLI server exited {proc.returncode}:\n"
+                raise AssertionError(f"[{tag}] the CLI server exited {proc.returncode}:\n"
                                      + open(server_log).read()[-4000:])
             try:
                 if _http_status(addr, "/health", timeout=2)[0] == 200:
@@ -8866,26 +9074,26 @@ def _tp_loop(card: str) -> dict:
             except (urllib.error.URLError, ConnectionError, OSError):
                 pass
             if time.monotonic() - t0 > 600:
-                raise AssertionError("[serve_tp/loop] the CLI server not healthy in 600 s")
+                raise AssertionError(f"[{tag}] the CLI server not healthy in 600 s")
             time.sleep(0.5)
         health_s = time.monotonic() - t0
         mesh = _http_status(addr, "/statusz")[2]["mesh"]
         pids = [r["pid"] for r in mesh["ranks"][1:]]
-        log(f"[serve_tp/loop] CLI server mesh.model=2 on cards 0-1 ({mesh['backend']}, devices "
+        log(f"[{tag}] CLI server mesh {kind['mesh']} on cards 0-1 ({mesh['backend']}, devices "
             f"{[r['device'] for r in mesh['ranks']]}) healthy {health_s:.1f} s after launch; export "
             f"{nbytes / 1e9:.2f} GB")
-        with open(os.path.join(SERVE_TP_ROOT, "loop.json"), "w") as f:
-            json.dump({"addr": addr, "export": export}, f)
+        with open(os.path.join(root, "loop.json"), "w") as f:
+            json.dump({"addr": addr, "export": export, "kind": kind}, f)
         wenv = {**env, "CUDA_VISIBLE_DEVICES": "2,3"}
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
-               os.path.abspath(__file__), "--tp-loop-worker", SERVE_TP_ROOT]
+               os.path.abspath(__file__), "--tp-loop-worker", root]
         t_run = time.monotonic()
         run = subprocess.run(cmd, capture_output=True, text=True, timeout=900, env=wenv, start_new_session=True)
         for line in run.stdout.splitlines():
-            log(f"[serve_tp/loop/worker] {line}")
+            log(f"[{tag}/worker] {line}")
         if run.returncode != 0:
-            raise AssertionError(f"[serve_tp/loop] torchrun exited {run.returncode}:\n{run.stderr[-6000:]}")
-        with open(os.path.join(SERVE_TP_ROOT, "loop_out.json")) as f:
+            raise AssertionError(f"[{tag}] torchrun exited {run.returncode}:\n{run.stderr[-6000:]}")
+        with open(os.path.join(root, "loop_out.json")) as f:
             out = json.load(f)
         out["torchrun_s"] = time.monotonic() - t_run
         t_term = time.monotonic()
@@ -8896,29 +9104,29 @@ def _tp_loop(card: str) -> dict:
         while [p for p in pids if _pid_alive(p)] and time.monotonic() - t0 < 15:
             time.sleep(0.1)
         left = [p for p in pids if _pid_alive(p)]
-        if rc != SERVE_TP_EXIT_CODE or left:
-            raise AssertionError(f"[serve_tp/loop] SIGTERM: exit {rc} (want {SERVE_TP_EXIT_CODE}), followers left "
+        if rc != kind["exit_code"] or left:
+            raise AssertionError(f"[{tag}] SIGTERM: exit {rc} (want {kind['exit_code']}), followers left "
                                  f"{left}:\n" + open(server_log).read()[-3000:])
         out.update(health_s=health_s, drain_s=drain_s, rc=rc, s=time.monotonic() - t_loop)
-        log(f"[serve_tp/loop] {card}: sglang:d1t2+fsdp:d2 took {SERVE_TP_STEPS} GRPO steps over HTTP (step "
+        log(f"[{tag}] {card}: {kind['alloc']} took {SERVE_TP_STEPS} GRPO steps over HTTP (step "
             f"{', '.join(f'{s:.2f}' for s in out['step_s'])} s), versions trainer / server {out['versions']}; every "
-            f"server rank's slices of {len(SERVE_TP_CHECKED)} leaves equal the trainer's bf16 export; SIGTERM -> "
+            f"server rank's slices of {len(kind['checked'])} leaves equal the trainer's bf16 export; SIGTERM -> "
             f"exit {rc} in {drain_s:.2f} s, no follower left; {out['s']:.1f} s in all")
         return out
     finally:
         if proc is not None and proc.poll() is None:
             proc.kill()
             proc.wait()
-        shutil.rmtree(SERVE_TP_ROOT, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def tp_loop_worker(root: str) -> None:
     """One rank of ``_tp_loop``'s trainer (under ``torchrun``):
-    ``PPOTrainer.train`` with ``allocation_mode="sglang:d1t2+fsdp:d2"`` from
-    the HF export, against the mesh server. Rank 0 writes
-    ``loop_out.json``: the step times, the versions, and whether the
-    server's per-rank digests of the SERVE_TP_CHECKED leaves are those of
-    the trainer's bf16 export's slices."""
+    ``PPOTrainer.train`` with the kind's ``allocation_mode`` from the HF
+    export, against the mesh server. Rank 0 writes ``loop_out.json``: the
+    step times, the versions, and whether the server's per-rank digests of
+    the kind's checked leaves are those of the trainer's bf16 export's
+    slices (``qwen.tp_slice`` over the server's model x expert ranks)."""
     import torch.distributed as dist
 
     from areal_tpu_torch.api.config import DatasetConfig, InferenceEngineConfig, PPOConfig, PreemptionConfig
@@ -8930,12 +9138,15 @@ def tp_loop_worker(root: str) -> None:
     from areal_tpu_torch.trainer.rl_trainer import PPOTrainer
     from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 
+    from areal_tpu_torch.parallel.serving_group import coords
+
     with open(os.path.join(root, "loop.json")) as f:
         where = json.load(f)
+    kind = where["kind"]
     rank = int(os.environ["RANK"])
     lead = rank == 0
     gconfig = GenerationHyperparameters(n_samples=4, max_new_tokens=128, temperature=1.0)
-    cfg = PPOConfig(experiment_name="chip-smoke", trial_name="serve_tp", allocation_mode="sglang:d1t2+fsdp:d2",
+    cfg = PPOConfig(experiment_name="chip-smoke", trial_name=kind["tag"].split("/")[0], allocation_mode=kind["alloc"],
                     weight_update_mode="mem", total_train_steps=SERVE_TP_STEPS,
                     preemption=PreemptionConfig(enabled=False), gconfig=gconfig,
                     train_dataset=DatasetConfig(batch_size=8), actor=_shard_actor_cfg(path=where["export"]),
@@ -8964,15 +9175,17 @@ def tp_loop_worker(root: str) -> None:
     params = trainer._export_params()  # every rank joins the gathers
     if lead:
         specs = qwen.param_partition_specs(mcfg)
-        want = [{n: tensor_digest(qwen.tp_slice(params[n].to(torch.bfloat16).cpu(), qwen.leaf_spec(specs, n), 2, r))
-                 for n in SERVE_TP_CHECKED} for r in range(2)]
-        got = _http_status(where["addr"], "/debug/weights?names=" + ",".join(SERVE_TP_CHECKED))[2]
+        m, e = kind["mesh"]["model"], kind["mesh"]["expert"]
+        want = [{n: tensor_digest(qwen.tp_slice(params[n].to(torch.bfloat16).cpu(), qwen.leaf_spec(specs, n), m,
+                                                coords(r, e)[0], e, coords(r, e)[1]))
+                 for n in kind["checked"]} for r in range(m * e)]
+        got = _http_status(where["addr"], "/debug/weights?names=" + ",".join(kind["checked"]))[2]
         server_version = _http_status(where["addr"], "/health")[2]["version"]
         out = {"mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape)), "step_s": steps,
                "versions": [trainer.get_version(), server_version], "slices_equal": got["ranks"] == want}
         print(json.dumps(out), flush=True)
         if out["versions"] != [SERVE_TP_STEPS, SERVE_TP_STEPS] or not out["slices_equal"]:
-            raise AssertionError(f"[serve_tp/loop] {out}")
+            raise AssertionError(f"[{kind['tag']}] {out}")
         with open(os.path.join(root, "loop_out.json"), "w") as f:
             json.dump(out, f)
     del params
@@ -8981,9 +9194,691 @@ def tp_loop_worker(root: str) -> None:
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# moe_ep: MoE over the expert axis
+# ---------------------------------------------------------------------------
+
+MOE_EP_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_moe_ep")
+# (a): one Qwen3-30B-A3B MoE layer at full width, bf16, at a training grid's
+# 2 x 1,024 tokens and a decode step's 32 slots
+MOE_EP_SHAPES = {"train": (2, 1024), "decode": (32, 1)}
+MOE_EP_AUX_COEF = 0.01
+# the sum of e expert ranks' partial outputs against the unsharded layer, and
+# their gradients. The partials come back in f32 and are summed in f32 and
+# rounded once, as the mesh's sum over expert does; the router is held in f32
+# (the trainer's master), so each rank's router gradient is summed in f32, as
+# the mesh's all-reduce of the gates' cotangent makes it. So out, the router
+# and the experts differ from the unsharded layer only by f32 sums in another
+# order: at most one bf16 step of an entry (2^-7 of the leaf's largest) and a
+# cosine of MOE_EP_COSINE or more (a wrong or missing rank's share is off by
+# the whole value, cosine ~0.7 at e = 2)
+MOE_EP_REL = 2**-7
+MOE_EP_COSINE = 0.99999
+# dh is bf16 on both sides and summed in bf16: the unsharded layer adds each
+# token's K = 8 rows in bf16 (index_select's backward), the ranks add their
+# bf16 partials as the mesh's all-reduce of the input's gradient does; about
+# one bf16 step an entry, two at most: 2^-6 of the largest entry, a cosine
+# of 1 - 2^-14 or more (an rms error of ~3 bf16 steps)
+MOE_EP_DH_REL = 2**-6
+MOE_EP_DH_COSINE = 1 - 2**-14
+# (b): the serving stand-in, mesh.expert=2 on one card over gloo: 8 of 48
+# layers, a cold wave of 8 requests of 32 new tokens
+MOE_EP_SERVE_LAYERS = 8
+MOE_EP_NEW = 32
+MOE_EP_CHECKED = ("embed", "lm_head", "layers.0.w_router", "layers.0.we_gate", "layers.3.wq", "layers.7.we_down")
+# four cards: the trainer under torchrun at fsdp 2 x expert 2, first at
+# TRAIN_MOE_LAYERS against the unsharded engine, then at MOE_EP_DEEP_LAYERS
+# (16 B of f32 state a parameter: per rank 604 M expert parameters a layer /
+# 4 and 18.9 M attention / 2, ~2.57 GB a layer, 41 GB at 16 layers, plus ~5 GB
+# of embedding and head and the activations); the server at expert=4 and at
+# model=2 x expert=2 over all 48 layers
+MOE_EP_DEEP_LAYERS = 16
+# (c): the trainer on expert=2 with both ranks on one card over gloo: one
+# layer, for the whole script's time limit (two ranks' f32 state fits the
+# card beside each other at 2: 24.15 GiB a rank, 97.1 s for this part on one
+# H100 80GB HBM3 at 700 W, PERF.md)
+MOE_EP_GLOO_LAYERS = 1
+MOE_EP_TRAIN_STEPS = 2
+MOE_EP_LOOP = dict(tag="moe_ep/loop", model={**QWEN3_30B_A3B, "num_layers": TRAIN_MOE_LAYERS},
+                   alloc="sglang:d2e2+fsdp:d2e2", mesh={"model": 1, "expert": 2},
+                   checked=["embed", "layers.0.w_router", "layers.0.we_gate", "layers.3.we_down", "layers.3.wo"],
+                   root=MOE_EP_ROOT, exit_code=23)
+
+
+def _ep_close(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want| as a share of want's largest entry, cosine)."""
+    g, w = got.detach().float().reshape(-1), want.detach().float().reshape(-1)
+    rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+    return rel, torch.nn.functional.cosine_similarity(g[None], w[None]).item()
+
+
+def _moe_ep_ranks() -> dict:
+    """(a) One Qwen3-30B-A3B MoE layer at full width (E = 128, top-8, D =
+    2,048, F = 768; bf16, random from a seed) at MOE_EP_SHAPES: ``moe_ffn``
+    once per expert rank (e = 2 and 4), each with its E / e experts and its
+    place ``EPInfo(group=None, rank=r, size=e)`` (the rank's partial result,
+    unreduced); the router and the input
+    are one leaf each, so one backward of sum(out * ct) + 0.01 aux (rank 0's
+    aux) sums the ranks' gradients as the mesh's conjugates do. Against the
+    unsharded ``moe_ffn`` on the same inputs: out, aux (every rank's), dh,
+    the router's and the experts' gradients; gmm 3 launches a rank,
+    gmm_bwd_lhs and tgmm 3 each a rank. Each rank's partial output is f32
+    (``EPInfo`` without a group), summed here in f32 and rounded once to
+    bf16; the router leaf is f32 on both sides (MOE_EP_REL)."""
+    from types import SimpleNamespace
+
+    from areal_tpu_torch.models import moe, qwen
+    from areal_tpu_torch.ops import gmm as gm
+    from areal_tpu_torch.parallel.tensor_parallel import EPInfo
+
+    cfg = qwen.ModelConfig(**{**QWEN3_30B_A3B, "num_layers": 1})
+    E, D, F = cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shapes = {"w_router": (D, E), "we_gate": (E, D, F), "we_up": (E, D, F), "we_down": (E, F, D)}
+    full = {n: (0.02 * torch.randn(s, generator=g, device="cuda")).bfloat16() for n, s in shapes.items()}
+    full["w_router"] = full["w_router"].float()  # bf16 values, an f32 leaf: gradients summed in f32
+    experts = ("we_gate", "we_up", "we_down")
+    out: dict = {}
+    for sname, (G, L) in MOE_EP_SHAPES.items():
+        h = torch.randn((G, L, D), generator=g, device="cuda").bfloat16()
+        ct = torch.randn((G, L, D), generator=g, device="cuda")
+        leaves = {n: t.clone().requires_grad_(True) for n, t in full.items()}
+        h0 = h.clone().requires_grad_(True)
+        o0, a0 = moe.moe_ffn(h0, SimpleNamespace(**leaves), cfg, with_aux=True)
+        ((o0.float() * ct).sum() + MOE_EP_AUX_COEF * a0).backward()
+        for e in (2, 4):
+            E_loc = E // e
+            router = full["w_router"].clone().requires_grad_(True)
+            he = h.clone().requires_grad_(True)
+            ranks = [{n: full[n][r * E_loc:(r + 1) * E_loc].clone().requires_grad_(True) for n in experts}
+                     for r in range(e)]
+            # main path: counts to 0 just before, read just after
+            gm.gmm.launches = gm.gmm_bwd_lhs.launches = gm.tgmm.launches = 0
+            total, auxes, fwd = torch.zeros((G, L, D), device="cuda"), [], []
+            for r in range(e):
+                o, a = moe.moe_ffn(he, SimpleNamespace(w_router=router, **ranks[r], ep=EPInfo(None, r, e)), cfg,
+                                   with_aux=True)
+                if o.dtype != torch.float32:
+                    raise AssertionError(f"[moe_ep] rank {r} of {e}: a partial output in {o.dtype}, not f32")
+                total = total + o
+                auxes.append(a)
+                fwd.append(gm.gmm.launches - sum(fwd))
+            summed = total.bfloat16()  # one rounding, as the mesh's sum over expert
+            ((summed.float() * ct).sum() + MOE_EP_AUX_COEF * auxes[0]).backward()
+            torch.cuda.synchronize()
+            counts = dict(gmm=fwd, gmm_bwd_lhs=gm.gmm_bwd_lhs.launches, tgmm=gm.tgmm.launches)
+            if fwd != [3] * e or counts["gmm_bwd_lhs"] != 3 * e or counts["tgmm"] != 3 * e:
+                raise AssertionError(f"[moe_ep] {sname} e={e}: launches {counts}, want gmm 3 a rank and 3 x {e} "
+                                     "of each backward kernel")
+            checks = {"out": _ep_close(summed, o0), "dh": _ep_close(he.grad, h0.grad),
+                      "w_router": _ep_close(router.grad, leaves["w_router"].grad)}
+            for n in experts:
+                checks[n] = _ep_close(torch.cat([rk[n].grad for rk in ranks]), leaves[n].grad)
+            aux_diff = max(abs(a.item() - a0.item()) for a in auxes)
+            limits = {k: (MOE_EP_DH_REL, MOE_EP_DH_COSINE) if k == "dh" else (MOE_EP_REL, MOE_EP_COSINE) for k in checks}
+            bad = {k: v for k, v in checks.items() if not (v[0] <= limits[k][0] and v[1] >= limits[k][1])}
+            if bad or aux_diff > 1e-6 * abs(a0.item()):
+                raise AssertionError(f"[moe_ep] {sname} e={e}: the ranks' sum against the unsharded layer {bad}, aux "
+                                     f"{[a.item() for a in auxes]} vs {a0.item()}")
+            out[f"{sname}/e{e}"] = dict(checks=checks, aux=a0.item(), counts=counts)
+            log(f"[moe_ep] (a) {sname} [{G}, {L}, {D}] over e={e} expert ranks ({E_loc} experts each) in one "
+                f"process, against the unsharded layer: " + ", ".join(
+                    f"{k} {v[0]:.2e} of its largest / cosine {v[1]:.6f}" for k, v in checks.items())
+                + f" (limits {MOE_EP_REL:.3g} / {MOE_EP_COSINE}, dh {MOE_EP_DH_REL:.3g} / {MOE_EP_DH_COSINE:.6f}); aux "
+                f"{a0.item():.6f} on every rank (largest "
+                f"difference {aux_diff:.1e}); launches gmm {fwd} a rank, gmm_bwd_lhs {counts['gmm_bwd_lhs']} and tgmm "
+                f"{counts['tgmm']} (3 a rank)")
+            del router, he, ranks, total, summed, auxes
+        del leaves, h0, o0, h, ct
+        torch.cuda.empty_cache()
+    del full
+    return out
+
+
+def _ep_wave(tag: str, srv, engine, prompts: list, n_new: int) -> dict:
+    """One cold wave over HTTP (greedy and sampled requests alternating),
+    every rank's kernel counts from 0 just before and read just after: gmm
+    3 x L per forward (decode steps and prefill forwards) and #1 L per
+    decode step on every rank; complete responses; ms a decode step on the
+    lead's device stream."""
+    keys = ("decode_steps", "prefill_batches")
+    L = engine.model_cfg.num_layers
+    # main path: counts to 0 just before, read just after (on every rank)
+    engine.reset_rank_launches()
+    s0, dev0 = {k: engine.stats[k] for k in keys}, engine.device_seconds()
+    t0 = time.monotonic()
+    resps = _wave(srv.address, [_tp_body(p, i, n_new) for i, p in enumerate(prompts)])
+    wall = time.monotonic() - t0
+    ranks = engine.rank_launches()
+    d = {k: engine.stats[k] - s0[k] for k in keys}
+    dev = engine.device_seconds()
+    for r in resps:
+        _check_response(r, n_new, tag)
+    want = dict(gmm=3 * L * (d["decode_steps"] + d["prefill_batches"]), paged_attention=L * d["decode_steps"])
+    for rank, c in enumerate(ranks):
+        if not d["decode_steps"] or any(c[k] != v for k, v in want.items()):
+            raise AssertionError(f"[{tag}] rank {rank}: launches {c}, want {want} ({d})")
+    steps = dev["decode_steps"] - dev0["decode_steps"]
+    return dict(resps=resps, wall=wall, launches=[{k: c[k] for k in want} for c in ranks],
+                decode_steps=d["decode_steps"], prefill_batches=d["prefill_batches"], ms_per_step=(dev["decode_s"] - dev0["decode_s"]) / steps * 1e3,
+                wall_ms_per_step=wall / d["decode_steps"] * 1e3)
+
+
+def _ep_greedy(model, prompts: list, got: list, want: list, what: str) -> list:
+    """The greedy requests (even indices) of a mesh's wave against the
+    unsharded engine's: equal, or parting where both tokens sit within
+    NEAR_TIE of the dense argmax, or after a route that flips at a near-tie
+    (a top-8 set that differs between a replay and a dense pass with a
+    margin below ROUTE_GAP_TOL, ``_route_flips``) at or before the parting
+    token. Returns the partings as (request, token, kind)."""
+    parts = []
+    for i in range(0, len(prompts), 2):
+        a, b = got[i], want[i]
+        if a == b:
+            continue
+        j, ga, gb = _greedy_divergence(model, prompts[i], a, b)
+        if max(ga, gb) <= NEAR_TIE:
+            parts.append((i, j, f"logit near-tie {max(ga, gb):.1e}"))
+            continue
+        near, far, n_near, worst, _ = _route_flips(model, prompts[i], a[: j + 1])
+        if not near[: len(prompts[i]) + j].any():
+            raise AssertionError(f"[{what}] greedy request {i} parts from the unsharded engine's at token {j} "
+                                 f"(dense-logit gaps {ga:.4f} / {gb:.4f}) with no near-tie route flip before it "
+                                 f"({far} flips with a margin >= {ROUTE_GAP_TOL})")
+        parts.append((i, j, f"route near-tie ({n_near} near-tie flips)"))
+    return parts
+
+
+def _moe_ep_serve(card: str) -> dict:
+    """(b) The serving stand-in: Qwen3-30B-A3B at full width and
+    MOE_EP_SERVE_LAYERS of 48 layers (random bf16 weights, seed 0), the
+    serve phase's ``ServerConfig`` on ``mesh.expert=2``, a lead and one
+    spawned follower on the same card over gloo (a stand-in: its times are
+    not a mesh's), each rank on all 32 heads and 64 of the 128 experts. The
+    unsharded engine serves the same cold wave of 8 requests x MOE_EP_NEW
+    new tokens first, as the yardstick. Checks: gmm and #1 launched on every
+    rank, greedy tokens equal to the yardstick's but at recorded near-ties,
+    logprobs within LOGPROB_TOL of a dense prefill (near-tie route flips
+    exempt), the page count and the pool audit; then a staged push of other
+    weights over HTTP, after which every rank's slices of MOE_EP_CHECKED are
+    the pushed bf16 bits (their sha256, ``/debug/weights``) and a wave is
+    tagged version 1; per-rank bytes; no follower alive after stop."""
+    from areal_tpu_torch.api.config import InferenceEngineConfig, MeshConfig, ServerConfig
+    from areal_tpu_torch.api.io_struct import WeightUpdateMeta
+    from areal_tpu_torch.inference.client import RemoteTorchEngine
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine, tensor_digest
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+
+    marks = [("start", time.monotonic())]
+    mcfg = qwen.ModelConfig(**{**QWEN3_30B_A3B, "num_layers": MOE_EP_SERVE_LAYERS})
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, 8)]
+    base = dict(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16, host="127.0.0.1",
+                seed=0)
+    srv = ServerThread(ServerConfig(**base), engine=DecodeEngine(ServerConfig(**base), params=model))
+    srv.start()
+    try:
+        ref = _ep_wave("moe_ep/unsharded", srv, srv.engine, prompts, MOE_EP_NEW)
+        ref_pages = srv.engine.pool.n_pages
+    finally:
+        srv.stop()
+    gc.collect()
+    marks.append(("the yardstick", time.monotonic()))
+    cfg = ServerConfig(**base, mesh=MeshConfig(expert=2))
+    engine = DecodeEngine(cfg, params=model)
+    t0 = time.monotonic()
+    engine.initialize()
+    init_s = time.monotonic() - t0
+    pids = engine._group.pids()
+    srv = ServerThread(cfg, engine=engine)
+    srv.start()
+    out: dict = {"unsharded": {k: ref[k] for k in ("ms_per_step", "wall_ms_per_step")}}
+    try:
+        ranks = _http_status(srv.address, "/statusz")[2]["mesh"]["ranks"]
+        if (engine.local_cfg.num_experts, engine.local_cfg.num_heads) != (mcfg.num_experts // 2, mcfg.num_heads) or \
+                len(ranks) != 2:
+            raise AssertionError(f"[moe_ep] expert=2: local config {engine.local_cfg}, ranks {ranks}")
+        marks.append(("init", time.monotonic()))
+        w = _ep_wave("moe_ep/serve", srv, engine, prompts, MOE_EP_NEW)
+        marks.append(("wave", time.monotonic()))
+        got, want = [r["output_tokens"] for r in w["resps"]], [r["output_tokens"] for r in ref["resps"]]
+        parts = _ep_greedy(model, prompts, got, want, "moe_ep/serve")
+        checks = [_moe_dense_check(model, prompts[i], w["resps"][i], greedy=i % 2 == 0, what="moe_ep/serve")
+                  for i in range(4)]
+        _post(srv.address, "/flush_prefix_cache", {})
+        audit = engine.pool_audit()
+        if not (audit["ok"] and engine.pool.n_pages == ref_pages
+                and audit["free"] + audit["slot_pages"] + audit["radix_pages"] == audit["total"]):
+            raise AssertionError(f"[moe_ep] the pool after the wave: {audit} ({engine.pool.n_pages} pages, the "
+                                 f"unsharded engine's {ref_pages})")
+        log(f"[moe_ep] (b) {card}: mesh.expert=2 up in {init_s:.1f} s ({engine._group.backend}: a stand-in, both "
+            f"ranks on one card), per rank params {[round(r['params'] / 1e9, 3) for r in ranks]} GB, KV pool "
+            f"{[round(r['kv_pool'] / 1e9, 3) for r in ranks]} GB over {engine.pool.n_pages} pages (the unsharded "
+            f"engine's {ref_pages}); 8/8 responses complete; per rank gmm {[c['gmm'] for c in w['launches']]} (= 3 x "
+            f"{mcfg.num_layers} x ({w['decode_steps']} decode steps + {w['prefill_batches']} prefill forwards)), #1 "
+            f"{[c['paged_attention'] for c in w['launches']]}; greedy tokens against the unsharded engine's: "
+            f"{4 - len(parts)} of 4 equal, partings {parts}; logprobs vs a dense prefill max|diff| "
+            f"{max(c['max'] for c in checks[1::2]):.4f}, greedy gap {max(c['max'] for c in checks[0::2]):.4f} (tol "
+            f"{LOGPROB_TOL}; near-tie exemptions {sum(c['exempt'] for c in checks)}); pool audit ok; "
+            f"{w['ms_per_step']:.2f} ms a decode step (lead's device stream) against the unsharded engine's "
+            f"{ref['ms_per_step']:.2f}")
+        marks.append(("checks", time.monotonic()))
+        # a staged push over HTTP: every rank then serves the pushed bits' slices
+        model2 = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(1))
+        client = RemoteTorchEngine(InferenceEngineConfig(**GRPO_CLIENT), addresses=[srv.address])
+        client.initialize()
+        try:
+            t0 = time.monotonic()
+            client.update_weights(WeightUpdateMeta(type="mem"), params=model2.state_dict())
+            push_s = time.monotonic() - t0
+        finally:
+            client.destroy()
+        marks.append(("push", time.monotonic()))
+        # every rank's sha256 of its served leaves over HTTP (/debug/weights;
+        # the slices themselves would cross a pipe at the host's pace)
+        specs = qwen.param_partition_specs(mcfg)
+        pushed = dict(model2.named_parameters())
+        served = _http_status(srv.address, "/debug/weights?names=" + ",".join(MOE_EP_CHECKED))[2]["ranks"]
+        marks.append(("served digests", time.monotonic()))
+        bad = [(r, n) for r, have in enumerate(served) for n in MOE_EP_CHECKED
+               if have[n] != tensor_digest(qwen.tp_slice(pushed[n].detach().to(torch.bfloat16),
+                                                         qwen.leaf_spec(specs, n), 1, 0, 2, r))]
+        after = _wave(srv.address, [_tp_body(p, 0, n_new=16) for p in prompts[:4]])
+        if bad or engine.get_version() != 1 or any(set(r["output_versions"]) != {1} for r in after):
+            raise AssertionError(f"[moe_ep] after the push: slices differing {bad}, version {engine.get_version()}")
+        marks.append(("a wave at version 1", time.monotonic()))
+        hbm = engine.hbm_ledger()
+        log(f"[moe_ep] (b) staged push over HTTP in {push_s:.2f} s (staging by part: {engine.last_stage_secs}): "
+            f"every rank's slices of {len(MOE_EP_CHECKED)} leaves equal the pushed bf16 bits ({mcfg.num_experts // 2} "
+            f"of {mcfg.num_experts} experts each); a wave after it tagged version 1; hbm_ledger params per rank "
+            f"{[round(r['components']['params'] / 1e9, 3) for r in hbm['ranks']]} GB")
+        del model2, pushed, served
+        marks.append(("the ledger", time.monotonic()))
+        out.update(serve={k: w[k] for k in ("ms_per_step", "wall_ms_per_step", "launches", "decode_steps",
+                                            "prefill_batches")}, partings=parts, push_s=push_s, init_s=init_s,
+                   dense_err=max(c["max"] for c in checks), rank_bytes=[r["components"] for r in hbm["ranks"]])
+    finally:
+        srv.stop()
+    if [p for p in pids if _pid_alive(p)]:
+        raise AssertionError(f"[moe_ep] followers alive after stop: {pids}")
+    marks.append(("stop", time.monotonic()))
+    out["parts"] = {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}
+    log(f"[moe_ep] (b) seconds by part: {out['parts']}")
+    del engine, srv, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_loss(outputs, b, cfg):
+    """The GRPO loss; the router aux rides in the stats (not in the loss)."""
+    loss, stats = _grpo_loss(outputs, b, cfg)
+    return loss, {**stats, "moe_aux": outputs["moe_aux"].detach()}
+
+
+def _moe_ep_trainer(card: str, world: int, mesh: dict, layers: int, deep_layers: int | None) -> dict:
+    """The trainer on ``mesh`` under ``torchrun`` (``moe_ep_worker``, one
+    rank a card, or ``world`` ranks sharing one card over gloo). First the
+    unsharded engine here, at ``layers`` of Qwen3-30B-A3B's 48 layers:
+    MOE_EP_TRAIN_STEPS
+    ``train_batch`` steps of the GRPO loss on one fixed batch from seed 0,
+    its parameters dumped; then the world takes the same steps from the same
+    seed and is held to it: the parameters' largest difference within 2 LR
+    and their summed difference within SHARD_UPDATE_RTOL of the update's
+    summed size, each step's loss and grad norm within SHARD_STAT_RTOL, the
+    aux loss beside them (the mesh's is the mean over its row blocks, as
+    JAX's). Then, given ``deep_layers``, the world trains that depth, which
+    no card holds alone: step times, tokens/s and the peak memory of every
+    rank."""
+    import pickle
+    import shutil
+
+    from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import gmm as gm
+
+    shutil.rmtree(MOE_EP_ROOT, ignore_errors=True)
+    os.makedirs(MOE_EP_ROOT)
+    marks = [("start", time.monotonic())]
+    try:
+        mcfg = qwen.ModelConfig(**{**QWEN3_30B_A3B, "num_layers": layers})
+        acfg = _shard_actor_cfg()
+        adv = _shard_batch(acfg, mcfg.vocab_size)
+        with open(os.path.join(MOE_EP_ROOT, "batch.pkl"), "wb") as f:
+            pickle.dump(adv, f)
+        ft = FinetuneSpec(total_train_epochs=1, dataset_size=32, train_batch_size=8)
+        ref = TorchTrainEngine(acfg, model_config=mcfg)
+        ref.initialize(ft, seed=0)
+        theta0 = {n: t.detach().cpu() for n, t in ref._export_params().items()}
+        kernels = (gm.gmm, gm.gmm_bwd_lhs, gm.tgmm)
+        for k in kernels:
+            k.launches = 0
+        step_s, ref_stats = [], []
+        for _ in range(MOE_EP_TRAIN_STEPS):
+            t = time.monotonic()
+            st = ref.train_batch(adv, lambda o, b: _moe_loss(o, b, acfg), _wfn)
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t)
+            ref_stats.append({k: st[k] for k in ("loss", "grad_norm", "moe_aux")})
+        ref_counts = [k.launches for k in kernels]
+        marks.append(("the unsharded engine's steps", time.monotonic()))
+        update_l1 = sum(float((t - theta0[n].to(t.device)).abs().sum(dtype=torch.float64))
+                        for n, t in ref._export_params().items())
+        del theta0
+        ref.save(SaveLoadMeta(path=os.path.join(MOE_EP_ROOT, "unsharded"), weight_format="state", with_optim=False))
+        marks.append(("its update and dump", time.monotonic()))
+        log(f"[moe_ep] the unsharded engine at {layers} layers, steps "
+            f"{', '.join(f'{s:.2f}' for s in step_s)} s, (loss, grad norm, aux) {ref_stats}, gmm / gmm_bwd_lhs / "
+            f"tgmm {ref_counts}")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(os.path.join(MOE_EP_ROOT, "job.json"), "w") as f:
+            json.dump({"mesh": mesh, "twin_layers": layers, "deep_layers": deep_layers}, f)
+        res = _run_moe_ep_worker(world, timeout=900)
+        marks.append(("torchrun", time.monotonic()))
+        log(f"[moe_ep] the trainer's seconds by part: "
+            f"{ {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])} }")
+        tw = res["twin"]
+        stat_rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(tw["stats"], ref_stats) for k in ("loss",
+                                                                                                       "grad_norm"))
+        update_rel = tw["param_diff_l1"] / update_l1
+        log(f"[moe_ep] {card}: {mesh} on {world} ranks at {layers} layers against the unsharded engine: "
+            f"parameters' largest difference {tw['max_param_diff']:.3e} (bound 2 LR = {2 * acfg.optimizer.lr:.1e}), "
+            f"summed difference {tw['param_diff_l1']:.6e} against the update's summed size {update_l1:.6e}: "
+            f"{update_rel:.3e} (bound {SHARD_UPDATE_RTOL}); per step (loss, grad norm, aux) mesh "
+            f"{[(s['loss'], s['grad_norm'], s['moe_aux']) for s in tw['stats']]}, unsharded "
+            f"{[(s['loss'], s['grad_norm'], s['moe_aux']) for s in ref_stats]}: largest relative difference "
+            f"{stat_rel:.3e} (bound {SHARD_STAT_RTOL}); steps {', '.join(f'{s:.2f}' for s in tw['step_s'])} s vs "
+            f"{', '.join(f'{s:.2f}' for s in step_s)} s; launches per rank gmm / gmm_bwd_lhs / tgmm "
+            f"{tw['counts']} (unsharded {ref_counts}); peak per rank {tw['peak_gib']} GiB")
+        if tw["max_param_diff"] > 2 * acfg.optimizer.lr or stat_rel > SHARD_STAT_RTOL or update_rel > SHARD_UPDATE_RTOL:
+            raise AssertionError(f"[moe_ep] the {mesh} trainer parts from the unsharded engine")
+        if any(c != ref_counts for c in tw["counts"]):
+            raise AssertionError(f"[moe_ep] launches per rank {tw['counts']} != the unsharded run's {ref_counts}")
+        deep = res.get("deep")
+        if deep is not None:
+            log(f"[moe_ep] {card}: {mesh} at {deep_layers} of 48 layers ({deep['params_b']:.3f} B parameters): steps "
+                f"{', '.join(f'{s:.2f}' for s in deep['step_s'])} s, (loss, grad norm, aux) "
+                f"{[(s['loss'], s['grad_norm'], s['moe_aux']) for s in deep['stats']]}, "
+                f"{deep['tokens_per_s']:.0f} tokens/s (the second step), peak per rank {deep['peak_gib']} GiB")
+        return dict(twin=tw, deep=deep, ref_stats=ref_stats, ref_step_s=step_s, update_rel=update_rel,
+                    stat_rel=stat_rel)
+    finally:
+        shutil.rmtree(MOE_EP_ROOT, ignore_errors=True)
+
+
+def _run_moe_ep_worker(n: int, timeout: float, env: dict | None = None) -> dict:
+    """``torchrun`` of ``moe_ep_worker`` on ``n`` ranks over MOE_EP_ROOT's
+    job; its stdout relayed; rank 0's result."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={n}",
+           os.path.abspath(__file__), "--moe-ep-worker", MOE_EP_ROOT]
+    t = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, start_new_session=True,
+                          env=env)
+    for line in proc.stdout.splitlines():
+        log(f"[moe_ep/worker] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[moe_ep] torchrun exited {proc.returncode}:\n{proc.stderr[-6000:]}")
+    with open(os.path.join(MOE_EP_ROOT, "moe_ep.json")) as f:
+        res = json.load(f)
+    log(f"[moe_ep] torchrun of {n} ranks ran {time.monotonic() - t:.1f} s")
+    return res
+
+
+def _param_count(cfg) -> int:
+    """A decoder's parameters by its config's shapes (arithmetic)."""
+    from areal_tpu_torch.models import qwen
+
+    layer = sum(math.prod(s) for s in qwen._layer_shapes(cfg).values())
+    heads = 1 if cfg.tie_word_embeddings else 2
+    return cfg.num_layers * layer + heads * cfg.vocab_size * cfg.hidden_size + cfg.hidden_size
+
+
+def moe_ep_worker(root: str) -> None:
+    """One rank of the expert-parallel trainer (under ``torchrun``), on the
+    job in ``root``: the twin's steps at ``twin_layers`` from seed 0 (rank 0
+    then holds the gathered parameters to the unsharded engine's dump:
+    largest and summed difference), then, with ``deep_layers``, that depth's
+    steps, tokens/s and every rank's peak. A world larger than the cards
+    shares them over gloo (the engine then joins the world this worker
+    starts). Rank 0 writes ``moe_ep.json``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from areal_tpu_torch.api.config import MeshConfig
+    from areal_tpu_torch.api.io_struct import FinetuneSpec
+    from areal_tpu_torch.engine.train_engine import TorchTrainEngine
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.ops import gmm as gm
+    from areal_tpu_torch.utils.safetensors_io import SafetensorsFile
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    lead = rank == 0
+    n_cards = torch.cuda.device_count()
+    device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % n_cards)
+    torch.cuda.set_device(device)
+    if world > n_cards:  # ranks share a card: NCCL refuses that, gloo carries the collectives
+        dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world)
+    with open(os.path.join(root, "job.json")) as f:
+        job = json.load(f)
+    with open(os.path.join(root, "batch.pkl"), "rb") as f:
+        adv = pickle.load(f)
+    acfg = _shard_actor_cfg(mesh=MeshConfig(**job["mesh"]))
+    ft = FinetuneSpec(total_train_epochs=1, dataset_size=32, train_batch_size=8)
+    kernels = (gm.gmm, gm.gmm_bwd_lhs, gm.tgmm)
+    tokens = int(np.asarray(adv["attention_mask"]).sum())
+    out: dict = {}
+
+    def steps(eng) -> tuple[list, list]:
+        step_s, stats = [], []
+        for _ in range(MOE_EP_TRAIN_STEPS):
+            t = time.monotonic()
+            st = eng.train_batch(adv, lambda o, b: _moe_loss(o, b, acfg), _wfn)
+            torch.cuda.synchronize()
+            step_s.append(time.monotonic() - t)
+            stats.append({k: st[k] for k in ("loss", "grad_norm", "moe_aux")})
+        return step_s, stats
+
+    def peaks() -> list:
+        got = [None] * world
+        dist.all_gather_object(got, round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        return got
+
+    for depth in ("twin", "deep"):
+        layers = job.get(f"{depth}_layers")
+        if not layers:
+            continue
+        mcfg = qwen.ModelConfig(**{**QWEN3_30B_A3B, "num_layers": layers})
+        eng = TorchTrainEngine(acfg, model_config=mcfg, device=device)
+        eng.initialize(ft, seed=0)
+        if eng.mesh is None:
+            raise AssertionError("the engine did not take the sharded path under torchrun")
+        if lead:
+            print(f"{depth}: world {world} ({dist.get_backend()}), mesh "
+                  f"{dict(zip(eng.mesh.mesh_dim_names, eng.mesh.shape))}, {eng._local_cfg.num_experts} experts a "
+                  f"rank, {layers} layers", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        step_s, stats = steps(eng)
+        counts = [None] * world
+        dist.all_gather_object(counts, [k.launches for k in kernels])
+        # the whole model's parameters by the engine's full shapes of its
+        # sharded leaves, held to the config's arithmetic
+        full = sum(math.prod(eng._full_shape(n)) for n, _ in eng.model.named_parameters())
+        if full != _param_count(mcfg):
+            raise AssertionError(f"{depth}: the sharded leaves' full shapes hold {full} parameters, the config "
+                                 f"{_param_count(mcfg)}")
+        res = dict(step_s=step_s, stats=stats, counts=counts, peak_gib=peaks(), tokens_per_s=tokens / step_s[-1],
+                   params_b=full / 1e9)
+        if depth == "twin":
+            params = eng._export_params()
+            if lead:
+                f = SafetensorsFile(os.path.join(root, "unsharded", "state", "params.safetensors"))
+                res["max_param_diff"] = res["param_diff_l1"] = 0.0
+                for n, t in params.items():
+                    d = (t.to(device) - f.get(n).to(device)).abs()
+                    res["max_param_diff"] = max(res["max_param_diff"], float(d.max()))
+                    res["param_diff_l1"] += float(d.sum(dtype=torch.float64))
+                f.close()
+            del params
+        out[depth] = res
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if lead:
+        with open(os.path.join(root, "moe_ep.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _moe_ep_serve4(card: str) -> dict:
+    """Four cards: Qwen3-30B-A3B at full width and all 48 layers (30.5 B
+    random bf16 parameters, seed 0, built on card 0 and kept in host memory)
+    served on ``mesh.expert=4`` over NCCL (each card 32 of the 128 experts
+    and every head), then on ``model=2 x expert=2`` (16 heads and 64 experts
+    a card); then the unsharded engine on card 0 at the same depth, the
+    yardstick. Each serves the same cold wave of 8 requests x MOE_EP_NEW
+    new tokens: complete responses, gmm and #1 on every rank, greedy tokens
+    equal to the yardstick's but at recorded near-ties, logprobs within
+    LOGPROB_TOL of a dense prefill; ms a decode step and per-rank bytes."""
+    from areal_tpu_torch.api.config import MeshConfig, ServerConfig
+    from areal_tpu_torch.inference.decode_engine import DecodeEngine
+    from areal_tpu_torch.inference.server import ServerThread
+    from areal_tpu_torch.models import qwen
+
+    mcfg = qwen.ModelConfig(**QWEN3_30B_A3B)
+    t0 = time.monotonic()
+    model = qwen.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0))
+    host = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe_ep] four cards: Qwen3-30B-A3B at {mcfg.num_layers} layers, "
+        f"{sum(t.numel() for t in host.values()) / 1e9:.3f} B parameters built on card 0 and moved to host memory in "
+        f"{time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, mcfg.vocab_size, int(n)).tolist() for n in rng.integers(64, 513, 8)]
+    base = dict(max_batch_size=32, max_seq_len=2048, page_size=128, decode_steps_per_call=16, host="127.0.0.1",
+                seed=0)
+    out: dict = {}
+    for tag, mesh in (("expert4", dict(expert=4)), ("model2_expert2", dict(model=2, expert=2))):
+        cfg = ServerConfig(**base, mesh=MeshConfig(**mesh))
+        engine = DecodeEngine(cfg, params=host, model_cfg=mcfg)
+        t0 = time.monotonic()
+        engine.initialize()
+        init_s = time.monotonic() - t0
+        pids = engine._group.pids()
+        srv = ServerThread(cfg, engine=engine)
+        srv.start()
+        try:
+            st = _http_status(srv.address, "/statusz")[2]["mesh"]
+            w = _ep_wave(f"moe_ep/{tag}", srv, engine, prompts, MOE_EP_NEW)
+            hbm = engine.hbm_ledger()
+            out[tag] = dict({k: w[k] for k in ("ms_per_step", "wall_ms_per_step", "launches", "decode_steps")},
+                            tokens=[r["output_tokens"] for r in w["resps"]], resps=w["resps"], init_s=init_s,
+                            backend=st["backend"], devices=[r["device"] for r in st["ranks"]],
+                            params_gb=[round(r["components"]["params"] / 1e9, 3) for r in hbm["ranks"]],
+                            local=(engine.local_cfg.num_heads, engine.local_cfg.num_experts))
+            log(f"[moe_ep] {card}: {tag} ({st['backend']}, devices {out[tag]['devices']}) up in {init_s:.1f} s, "
+                f"{out[tag]['local'][0]} heads and {out[tag]['local'][1]} experts a rank, params per rank "
+                f"{out[tag]['params_gb']} GB; 8/8 responses complete; {w['ms_per_step']:.2f} ms a decode step "
+                f"(lead's device stream), {w['wall_ms_per_step']:.2f} ms wall; per rank gmm "
+                f"{[c['gmm'] for c in w['launches']]}, #1 {[c['paged_attention'] for c in w['launches']]}")
+        finally:
+            srv.stop()
+        if [p for p in pids if _pid_alive(p)]:
+            raise AssertionError(f"[moe_ep] {tag}: followers alive after stop")
+        del engine, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the yardstick on card 0, then every wave's dense checks against it
+    model = qwen.QwenModel(mcfg, "cuda")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(host[n])
+    del host
+    cfg = ServerConfig(**base)
+    srv = ServerThread(cfg, engine=DecodeEngine(cfg, params=model))
+    srv.start()
+    try:
+        ref = _ep_wave("moe_ep/unsharded48", srv, srv.engine, prompts, MOE_EP_NEW)
+    finally:
+        srv.stop()
+    gc.collect()
+    want = [r["output_tokens"] for r in ref["resps"]]
+    for tag in ("expert4", "model2_expert2"):
+        res = out[tag]
+        res["partings"] = _ep_greedy(model, prompts, res.pop("tokens"), want, f"moe_ep/{tag}")
+        resps = res.pop("resps")
+        checks = [_moe_dense_check(model, prompts[i], resps[i], greedy=i % 2 == 0, what=f"moe_ep/{tag}")
+                  for i in range(4)]
+        res["dense_err"] = max(c["max"] for c in checks)
+        log(f"[moe_ep] {tag}: greedy tokens against the unsharded engine's at {mcfg.num_layers} layers: "
+            f"{4 - len(res['partings'])} of 4 equal, partings {res['partings']}; logprobs vs a dense prefill "
+            f"max|diff| {res['dense_err']:.4f} (tol {LOGPROB_TOL}, near-tie exemptions "
+            f"{sum(c['exempt'] for c in checks)}); ms a decode step {res['ms_per_step']:.2f} against the unsharded "
+            f"engine's {ref['ms_per_step']:.2f} at the same depth on one card")
+    out["unsharded"] = {k: ref[k] for k in ("ms_per_step", "wall_ms_per_step", "decode_steps")}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_ep(card: str) -> dict:
+    """MoE over the ``expert`` axis. One card: (a) the expert ranks of one
+    full-width Qwen3-30B-A3B layer in one process against the unsharded
+    layer (``_moe_ep_ranks``), (b) the serving stand-in on
+    ``mesh.expert=2`` (``_moe_ep_serve``) and (c) the trainer on
+    ``expert=2``, both ranks on the card over gloo (``moe_ep_worker``: two
+    steps at MOE_EP_GLOO_LAYERS against the unsharded engine). Four cards:
+    the trainer at fsdp 2 x expert 2 against the unsharded engine and at
+    MOE_EP_DEEP_LAYERS (``_moe_ep_trainer``), the server at 48 layers on
+    expert=4 and on model=2 x expert=2 (``_moe_ep_serve4``), and the
+    disaggregated loop ``sglang:d2e2+fsdp:d2e2`` (``_tp_loop`` on
+    MOE_EP_LOOP)."""
+    t_phase = time.monotonic()
+    held = torch.cuda.memory_allocated() / 2**30
+    if held > 2.0:
+        raise AssertionError(f"[moe_ep] {held:.2f} GiB still allocated by earlier phases")
+    res: dict = {"cards": torch.cuda.device_count()}
+    if res["cards"] >= 4:
+        parts = {
+            "train4": lambda: _moe_ep_trainer(card, 4, {"data": 1, "fsdp": 2, "expert": 2}, TRAIN_MOE_LAYERS,
+                                              MOE_EP_DEEP_LAYERS),
+            "serve4": lambda: _moe_ep_serve4(card),
+            "loop": lambda: _tp_loop(card, MOE_EP_LOOP),
+        }
+    else:
+        parts = {
+            "ranks": _moe_ep_ranks,
+            "serve": lambda: _moe_ep_serve(card),
+            "train": lambda: _moe_ep_trainer(card, 2, {"data": 1, "fsdp": 1, "expert": 2}, MOE_EP_GLOO_LAYERS,
+                                             None),
+        }
+    secs = {}
+    for name, run in parts.items():
+        t = time.monotonic()
+        res[name] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = round(time.monotonic() - t, 1)
+        log(f"[moe_ep] {name} {secs[name]} s")
+    res["s"] = time.monotonic() - t_phase
+    log(f"[moe_ep] phase {res['s']:.1f} s on {card} ({secs})")
+    return res
+
+
 PHASES = ("kernel", "kernel_flash", "kernel_suffix", "serve", "serve_int8", "rollout", "lifecycle", "observe", "spec",
           "train", "grpo", "shard", "durable", "critic", "sft", "int8serve", "lora", "vlm", "kernel_tree", "train_tree", "kernel_gmm",
-          "kernel_gmm_bwd", "serve_moe", "train_moe", "entry", "serve_tp")
+          "kernel_gmm_bwd", "serve_moe", "train_moe", "entry", "serve_tp", "moe_ep")
 
 
 def main(argv: list[str]) -> int:
@@ -8996,6 +9891,9 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--tp-loop-worker"] and len(argv) == 2:  # a rank of _tp_loop's trainer
         tp_loop_worker(argv[1])
+        return 0
+    if argv[:1] == ["--moe-ep-worker"] and len(argv) == 2:  # a rank of moe_ep's trainer
+        moe_ep_worker(argv[1])
         return 0
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
@@ -9082,6 +9980,7 @@ def main(argv: list[str]) -> int:
         "train_moe": lambda: phase_train_moe(card),
         "entry": lambda: phase_entry(card),
         "serve_tp": lambda: phase_serve_tp(card),
+        "moe_ep": lambda: phase_moe_ep(card),
     }
     res, secs = {}, {}
     for name in PHASES:
@@ -9116,7 +10015,9 @@ def main(argv: list[str]) -> int:
                                   "critic": res["critic"]["launches1"], "int8serve": res["int8serve"]["launches1"],
                                   "lora": res["lora"]["launches1"], "vlm": res["vlm"]["launches1"],
                                   "entry": res["entry"]["launches1"],
-                                  "serve_tp": [c["paged_attention"] for c in res["serve_tp"]["tp"]["launches"]]},
+                                  "serve_tp": [c["paged_attention"] for c in res["serve_tp"]["tp"]["launches"]],
+                                  "moe_ep": [c["paged_attention"]
+                                             for c in res["moe_ep"]["serve"]["serve"]["launches"]]},
             "max_abs_err": max(p["max_abs_err"] for p in per.values()),
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -9220,14 +10121,16 @@ def main(argv: list[str]) -> int:
         "replaces": "areal_tpu/models/moe.py:227",
         "launches": moe_run["cold_counts"]["gmm"] + moe_run["warm_counts"]["gmm"],
         "launches_by_phase": {"serve_moe": moe_run["cold_counts"]["gmm"] + moe_run["warm_counts"]["gmm"],
-                              "train_moe": res["train_moe"]["counts"]["gmm"]},
+                              "train_moe": res["train_moe"]["counts"]["gmm"],
+                              "moe_ep_ranks": {k: v["counts"]["gmm"] for k, v in res["moe_ep"]["ranks"].items()},
+                              "moe_ep_serve": [c["gmm"] for c in res["moe_ep"]["serve"]["serve"]["launches"]]},
         "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
         **{f: d[f] for f in fields[1:]},
         "host_ms": d["host_ms"],
         "library": d["library"],
         "occupancy": gmm_k["occupancy"],
         "shapes": {k: {f: v[f] for f in (*fields, "host_ms", "ms_by_tile", "tile", "grouped_mm_bf16_ms", "bits", "M",
-                                         "k", "n")}
+                                         "k", "n", *EP_SHAPE_FIELDS) if f in v}
                    for k, v in shapes.items()},
     })
     # the backward kernels: launches of train_moe; the times of the training
@@ -9243,13 +10146,15 @@ def main(argv: list[str]) -> int:
             "replaces": ("jax/experimental/pallas/ops/tpu/megablox/gmm.py:314" if name == "gmm_bwd_lhs"
                          else "jax/experimental/pallas/ops/tpu/megablox/gmm.py:573"),
             "launches": moe_train["counts"][name],
+            "launches_by_phase": {"train_moe": moe_train["counts"][name],
+                                  "moe_ep_ranks": {k: v["counts"][name] for k, v in res["moe_ep"]["ranks"].items()}},
             "max_abs_err": max(v["max_abs_err"] for k, v in bwd_k.items() if k.startswith(name)),
             **{f: d[f] for f in fields[1:]},
             "library": d["library"],
             "occupancy": bwd_k["occupancy"],
             "shapes": {k.split("/", 1)[1]: {f: v[f] for f in (*fields, "host_ms", "max_abs_err_f32_out", "ms_f32_out",
                                                                 "grouped_mm_split_ms", "grouped_mm_bf16_ms", "M", "k",
-                                                                "n")}
+                                                                "n", *EP_SHAPE_FIELDS) if f in v}
                        for k, v in bwd_k.items() if k.startswith(name)},
         })
     log(f"[done] all phases passed in {time.monotonic() - t0:.1f}s on {card}")

@@ -438,11 +438,12 @@ def test_mesh_sizes_as_jax(n, mesh):
     ("sglang:d1t2+fsdp:d2", None),  # tensor-parallel serving (item 6b-1)
     ("sglang:d1p2+fsdp:d2", "item 6b"),
     ("sglang:d1c2+fsdp:d2", "item 6b"),
-    ("sglang:d2e2+fsdp:d2", "item 6b"),
+    ("sglang:d2e2+fsdp:d2", None),  # one server on 2 cards, expert-parallel (item 6b-2a)
     ("sglang:d1+fsdp:d2c2", "item 6b"),
     ("sglang:d1+fsdp:d2p2", "item 6b"),
-    ("sglang:d1+fsdp:d4e2", "item 6b"),
-    ("sglang:d1+megatron:(attn:d2t2|ffn:d2e2)", "item 6b"),
+    ("sglang:d1+fsdp:d4e2", None),  # fsdp 2 x expert 2 (item 6b-2a)
+    ("sglang:d1+megatron:(attn:d2t2|ffn:d2e2)", None),  # the hybrid MoE spec (item 6b-2a)
+    ("sglang:d1+megatron:(attn:d2c2|ffn:d2e2)", "item 6b-3"),
     ("sglang:d1+fsdp:d4t2", None),
     ("fsdp:d2", None),
 ])
@@ -463,11 +464,12 @@ def test_allocation_refusals(s, item):
 
 
 def test_engine_refusals_on_a_mesh():
-    """``seq`` / ``expert`` / ``pipe`` above 1 name item 6b at construction;
-    a mesh of more devices than the world (no world: one) raises at
-    ``initialize``: there is no single-process fallback."""
+    """``seq`` / ``pipe`` above 1 name items 6b-3 / 6b-4 at construction
+    (``expert`` is ported: ``tests/test_torch_moe_mesh.py``); a mesh of more
+    devices than the world (no world: one) raises at ``initialize``: there
+    is no single-process fallback."""
     mcfg = port_cfg(JCFG["tied"])
-    for axis in ("seq", "expert", "pipe"):
+    for axis in ("seq", "pipe"):
         with pytest.raises(NotImplementedError, match="6b"):
             TorchTrainEngine(tc.PPOActorConfig(mesh=tc.MeshConfig(**{axis: 2})), model_config=mcfg, device="cpu")
     eng = TorchTrainEngine(tc.PPOActorConfig(mesh=tc.MeshConfig(data=1, fsdp=2, model=2)), model_config=mcfg,

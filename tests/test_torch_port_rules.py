@@ -281,8 +281,9 @@ def test_ported_trainer_options_accepted(change):
 
 def test_moe_training_refused():
     """MoE training is a ported path now (the grouped matmul has its backward
-    kernels): the engine takes an MoE model, and what it still refuses for
-    one is what it refuses for every model, here an expert-parallel mesh."""
+    kernels), on an ``expert`` mesh too: the engine takes an MoE model, and
+    what it still refuses for one is what it refuses for every model, here a
+    sequence-parallel mesh."""
     from areal_tpu_torch.api.config import MeshConfig, PPOActorConfig
     from areal_tpu_torch.engine.train_engine import TorchTrainEngine
 
@@ -292,7 +293,8 @@ def test_moe_training_refused():
     eng.initialize()
     assert eng.model.layers[0].we_gate.requires_grad
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchTrainEngine(PPOActorConfig(mesh=MeshConfig(expert=2)), model_config=mcfg, device="cpu")
+        TorchTrainEngine(PPOActorConfig(mesh=MeshConfig(seq=2)), model_config=mcfg, device="cpu")
+    TorchTrainEngine(PPOActorConfig(mesh=MeshConfig(expert=2)), model_config=mcfg, device="cpu")
 
 
 def test_gmm_wrapper_refuses_other_devices():

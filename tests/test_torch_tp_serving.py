@@ -307,28 +307,29 @@ def test_int8_weights_on_int8_pages_match_jax(int8_pair):
 
 def test_refusals_name_their_items(pair):
     """What this slice does not serve on a mesh raises naming its item,
-    before any follower starts; nothing carries on at model=1."""
+    before any follower starts; nothing carries on at model=1. MoE models
+    and the ``expert`` axis serve (``tests/test_torch_moe_mesh.py``); LoRA
+    and vision models and LoRA updates are item 6b-2b."""
     jeng, teng = pair
     with pytest.raises(NotImplementedError, match="6b"):  # uneven: 2 KV heads over 4
         tde.DecodeEngine(ServerConfig(**SERVER_KW, mesh=MeshConfig(model=4)),
                          params=port_model(TINY_QWEN2, jax_params(TINY_QWEN2, 1)), device="cpu").initialize()
-    for over in (dict(num_experts=4, moe_intermediate_size=32), dict(lora_rank=4)):
-        mcfg = port_cfg(TINY_QWEN2, **over)
-        eng = tde.DecodeEngine(ServerConfig(**SERVER_KW, mesh=MeshConfig(model=2)), params={}, model_cfg=mcfg,
-                               device="cpu")
-        with pytest.raises(NotImplementedError, match="6b-2"):
-            eng.initialize()
-        assert eng._group is None
+    mcfg = port_cfg(TINY_QWEN2, lora_rank=4)
+    eng = tde.DecodeEngine(ServerConfig(**SERVER_KW, mesh=MeshConfig(model=2)), params={}, model_cfg=mcfg,
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="6b-2b"):
+        eng.initialize()
+    assert eng._group is None
     vlm = port_cfg(TINY_QWEN2, vision=tq.VisionConfig(patch_dim=48, hidden_size=32, intermediate_size=64,
                                                       num_layers=1, num_heads=2, out_hidden_size=64))
-    with pytest.raises(NotImplementedError, match="6b-2"):
+    with pytest.raises(NotImplementedError, match="6b-2b"):
         tde.DecodeEngine(ServerConfig(**SERVER_KW, mesh=MeshConfig(model=2)), params={}, model_cfg=vlm,
                          device="cpu").initialize()
-    for axis, item in (("fsdp", "item 8"), ("data", "item 8"), ("seq", "6b-3"), ("expert", "6b-2"),
-                       ("pipe", "6b-4")):
+    for axis, item in (("fsdp", "item 8"), ("data", "item 8"), ("seq", "6b-3"), ("pipe", "6b-4")):
         with pytest.raises(NotImplementedError, match=item):
             tde.DecodeEngine(ServerConfig(**SERVER_KW, mesh=MeshConfig(**{axis: 2, "model": 2})), device="cpu")
-    with pytest.raises(NotImplementedError, match="6b-2"):
+    tde.DecodeEngine(ServerConfig(**SERVER_KW, mesh=MeshConfig(expert=2, model=2)), device="cpu")  # constructs
+    with pytest.raises(NotImplementedError, match="6b-2b"):
         teng.update_weights_lora({}, 1.0)
 
 

@@ -23,9 +23,12 @@ def start_world(body: str, world: int, workdir: Path, payload: dict) -> list:
 
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
+    # the payload goes by a file: a spawned child reads its arguments from a
+    # pipe only once it has started, so arguments larger than the pipe's
+    # buffer would hold each start until the child before it is up
+    (workdir / "payload.pkl").write_bytes(pickle.dumps(payload))
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_main, args=(body, r, world, str(workdir), payload), daemon=True)
-             for r in range(world)]
+    procs = [ctx.Process(target=_main, args=(body, r, world, str(workdir)), daemon=True) for r in range(world)]
     for p in procs:
         p.start()
     return procs
@@ -52,12 +55,13 @@ def join_world(procs, workdir: Path, timeout: float) -> list:
     return [pickle.loads((workdir / f"out{r}.pkl").read_bytes()) for r in range(len(procs))]
 
 
-def _main(body: str, rank: int, world: int, workdir: str, payload: dict) -> None:
+def _main(body: str, rank: int, world: int, workdir: str) -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
+        payload = pickle.loads(Path(workdir, "payload.pkl").read_bytes())
         store = dist.FileStore(os.path.join(workdir, "store"), world)
         dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
         out = globals()[body](rank, world, payload)
@@ -313,4 +317,109 @@ def _ppo_step(rank: int, p: dict, mcfg, hf_dir: str) -> dict:
         trainer.close()
         if srv is not None:
             srv.stop()
+    return out
+
+
+def _moe_ffn_cases(p: dict) -> dict:
+    """``moe_ffn`` on each of ``p["meshes"]``, dropless and capacity: this
+    rank's slice of one MoE layer (``qwen.tp_slice``), its block of the
+    rows, out and aux, and the backward of sum(out * ct) + coef * aux (the
+    aux share of a block's loss is 1 / dp, as the engine's loss weights
+    make it): the rows' dh and the leaves' gradients summed over the batch
+    axes (FSDP's reduce)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from areal_tpu_torch.api.config import MeshConfig
+    from areal_tpu_torch.models import moe, qwen
+    from areal_tpu_torch.parallel import mesh as mesh_lib
+    from areal_tpu_torch.parallel import tensor_parallel as tp_lib
+
+    cfg = p["cfg"]
+    specs = qwen.param_partition_specs(cfg)
+    h_all, ct_all = torch.from_numpy(p["h"]), torch.from_numpy(p["ct"])
+    out = {}
+    for name, kw in p["meshes"].items():
+        replicas = kw.pop("replicas", False)  # the data axis holds copies of one block (an expert-only case)
+        mesh = mesh_lib.make_mesh(MeshConfig(**kw), "cpu")
+        m, e = mesh_lib.axis_size(mesh, "model"), mesh_lib.ep_size(mesh)
+        tr, er = mesh.get_local_rank("model"), mesh_lib.ep_rank(mesh)
+        dp, b = (1, 0) if replicas else (mesh_lib.dp_size(mesh), mesh_lib.dp_rank(mesh))
+        tp = tp_lib.TPInfo(group=mesh.get_group("model") if m > 1 else None, rank=tr, size=m, vocab_start=0)
+        dp_groups = () if replicas else tuple(mesh.get_group(a) for a in mesh_lib.BATCH_AXES
+                                              if mesh_lib.axis_size(mesh, a) > 1)
+        ep = tp_lib.EPInfo(group=mesh.get_group("expert") if e > 1 else None, rank=er, size=e, dp_groups=dp_groups,
+                           dp_size=dp)
+        rows = slice(b * h_all.shape[0] // dp, (b + 1) * h_all.shape[0] // dp)
+        for path in ("dropless", "capacity"):
+            c = dataclasses.replace(cfg, moe_dropless=path == "dropless")
+            leaves = {n: qwen.tp_slice(torch.from_numpy(a), specs[n], m, tr, e, er).clone().requires_grad_(True)
+                      for n, a in p["layer"].items()}
+            h = h_all[rows].clone().requires_grad_(True)
+            o, aux = moe.moe_ffn(h, SimpleNamespace(**leaves, tp=tp, ep=ep), c, with_aux=True)
+            ((o * ct_all[rows]).sum() + p["coef"] * aux / dp).backward()
+            grads = {}
+            for n, t in leaves.items():
+                g = t.grad.clone()
+                if not replicas:
+                    mesh_lib.all_reduce(g, mesh, mesh_lib.BATCH_AXES)
+                grads[n] = g.numpy()
+            out[f"{name}/{path}"] = dict(out=_np(o), aux=float(aux), dh=_np(h.grad), grads=grads, at=(tr, er, b, dp),
+                                         local_experts=leaves["we_gate"].shape[0])
+    return out
+
+
+def _expert_grads_equal(eng, p: dict) -> float:
+    """One ``compute_grads`` of the GRPO loss: the largest difference
+    between the expert ranks' gradient shards of every leaf that is not
+    split over ``expert`` (they must be equal: nothing reduces over it)."""
+    import torch
+
+    from areal_tpu_torch.engine.train_engine import _local
+    from areal_tpu_torch.models import qwen
+    from areal_tpu_torch.trainer import ppo
+
+    eng.compute_grads(p["adv"], lambda o, b: ppo.grpo_loss_fn(o, b, eng.config),
+                      lambda d: float((np.asarray(d["loss_mask"]) > 0).sum()))
+    group = eng.model.ep.group
+    worst = 0.0
+    for n, prm in eng.model.named_parameters():
+        if qwen.mesh_dim(eng.model_cfg, n, "expert") is not None:
+            continue
+        g = _local(prm.grad).contiguous()
+        parts = [torch.empty_like(g) for _ in range(eng.model.ep.size)]
+        torch.distributed.all_gather(parts, g, group=group)
+        worst = max(worst, max(float((q - parts[0]).abs().max()) for q in parts))
+    eng.zero_grad()
+    return worst
+
+
+def moe_mesh_world(rank: int, world: int, p: dict) -> dict:
+    """The 4-rank world of ``tests/test_torch_moe_mesh.py``: the MoE FFN on
+    three meshes (``_moe_ffn_cases``), then the engine on fsdp=2 x expert=2:
+    the trainer twin, the non-expert gradients equal over ``expert``, a
+    recover save and an HF export on the mesh, and the load of an unsharded
+    engine's save."""
+    import torch
+
+    from areal_tpu_torch.api.io_struct import SaveLoadMeta
+
+    out = {"ffn": _moe_ffn_cases(p)}
+    name, hf_dir, mcfg = p["models"][0]
+    eng = _engine(p["actor"], p["mesh"], hf_dir, mcfg)
+    out["local_experts"] = eng._local_cfg.num_experts
+    out["full_params"] = sum(int(np.prod(eng._full_shape(n))) for n, _ in eng.model.named_parameters())
+    out["expert_grad_diff"] = _expert_grads_equal(eng, p)
+    out["twin"] = _train_twin(eng, p)
+    eng.save(SaveLoadMeta(path=p["ckpt_dir"], weight_format="state", with_optim=True))
+    eng.save(SaveLoadMeta(path=p["hf_out"], weight_format="hf"))
+    eng2 = _engine(p["actor"], p["mesh"], hf_dir, mcfg)
+    eng2.load(SaveLoadMeta(path=p["ckpt_dir"], weight_format="state", with_optim=True))
+    same = all(torch.equal(a.to_local(), b.to_local()) for a, b in zip(eng.model.parameters(), eng2.model.parameters()))
+    same &= all(torch.equal(a, b) for a, b in zip(eng._opt.mu + eng._opt.nu, eng2._opt.mu + eng2._opt.nu))
+    out["reload_same"] = bool(same) and eng2._opt.count == eng._opt.count
+    eng2.load(SaveLoadMeta(path=p["unsharded_ckpt"], weight_format="state", with_optim=True))
+    out["loaded_unsharded"] = {n: _np(t) for n, t in eng2._export_params().items()}
     return out
